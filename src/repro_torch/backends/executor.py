@@ -1,0 +1,75 @@
+"""Mixed-execution executor: one entry point for every linear.
+
+``matmul`` flattens leading batch dims, splits the K contraction at the
+burst boundary (paper §3.2 — the accelerator never sees a partial burst),
+resolves each segment through the backend registry, and adds the partial
+sums in f32.
+
+Slicing a weight to a K range makes a view, never a copy: a Q8_0 weight's
+main segment keeps its full row stride, which the Hopper kernels take as
+an argument.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.backends.base import MAIN, RESIDUAL, KernelRequest, kernel_for
+from repro_torch.backends.registry import REGISTRY
+from repro_torch.core.mixed_exec import split_aligned
+from repro_torch.core.qformats import QBLOCK, QTensor
+
+
+def _slice_k(w, start: int, stop: int):
+    """A view of the weight's K range. QTensor slicing moves whole Q8_0
+    blocks — callers guarantee block-aligned boundaries."""
+    if isinstance(w, QTensor):
+        b0, b1 = start // QBLOCK, stop // QBLOCK
+        return QTensor(qs=w.qs[..., b0:b1, :], scales=w.scales[..., b0:b1])
+    return w[:, start:stop]
+
+
+def split_matmul(x: torch.Tensor, w, burst: int, *,
+                 backend: Optional[str] = None) -> torch.Tensor:
+    """y = x @ W^T with the K contraction split at the burst boundary.
+
+    x: (M, K); w: (N, K) tensor or QTensor. The aligned main segment
+    resolves through the registry (optionally pinned to ``backend``); the
+    residual always resolves by capability — the host arm. Returns f32.
+    """
+    quant = isinstance(w, QTensor)
+    if quant and burst % QBLOCK != 0:
+        raise ValueError(f"burst {burst} must be a multiple of QBLOCK={QBLOCK}")
+    m, k = x.shape
+    n = w.shape[0]
+    dtype = "q8_0" if quant else "bf16"
+    kern = kernel_for(m, quant)
+    k_main, k_res = split_aligned(k, burst)
+    out = None
+    if k_main:
+        req = KernelRequest(kernel=kern, m=m, n=n, k=k_main, dtype=dtype,
+                            segment=MAIN)
+        fn = REGISTRY.resolve(req, pin=backend).build(req)
+        out = fn(x[:, :k_main], _slice_k(w, 0, k_main))
+    if k_res:
+        req = KernelRequest(kernel=kern, m=m, n=n, k=k_res, dtype=dtype,
+                            segment=RESIDUAL)
+        fn = REGISTRY.resolve(req).build(req)
+        res = fn(x[:, k_main:], _slice_k(w, k_main, k))
+        out = res if out is None else out + res
+    if out is None:
+        return torch.zeros((m, n), dtype=torch.float32, device=x.device)
+    return out
+
+
+def matmul(x: torch.Tensor, w, *, burst: int = 256,
+           backend: Optional[str] = None) -> torch.Tensor:
+    """x: (..., K) -> (..., N) f32 through ``split_matmul``. ``backend``
+    pins the main segment (a plan entry's backend)."""
+    lead = x.shape[:-1]
+    x2d = x.reshape(-1, x.shape[-1])
+    if x2d.stride(-1) != 1:       # the kernels read rows with unit stride
+        x2d = x2d.contiguous()
+    out = split_matmul(x2d, w, burst, backend=backend)
+    return out.reshape(*lead, out.shape[-1])

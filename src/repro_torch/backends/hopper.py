@@ -1,0 +1,49 @@
+"""The Hopper backend: the paper's accelerator path on the H100, in the
+role of the reference's ``pallas_tpu`` backend.
+
+It runs Q8_0 main segments on the hand-written CUDA kernels and picks the
+kernel by the reference's rule (``kernel_for``: ``q8_matvec`` when the
+sublane-padded M is at most 16, else ``q8_matmul``), which stays the
+identity of every plan entry. It takes every Q8_0 main segment, also
+those the reference's local-memory rule marks ``offload=False``: the H100
+kernels have no such capacity limit. Unlike the TPU backend it pads
+nothing and resolves no tiles: the kernels choose their own tiles and
+mask ragged M and N themselves, and they read the K-sliced weight through
+its row stride. Dense (``bf16``) main segments are not taken yet: ``bf16_matmul``
+comes with a later slice, and until then they resolve to ``torch_ref``.
+
+On CPU tensors the kernel wrappers run their plain versions; on CUDA
+tensors they launch the kernel or raise.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.backends.base import MAIN, KernelRequest, kernel_for
+from repro_torch.core.qformats import QBLOCK, QTensor
+from repro_torch.kernels.q8_matmul import q8_matmul
+from repro_torch.kernels.q8_matvec import q8_matvec
+
+
+def q8_main(x2d: torch.Tensor, wq: QTensor) -> torch.Tensor:
+    """Aligned-segment Q8_0 product: x2d (M, K) -> (M, N) f32."""
+    qs2d = wq.flat_qs()
+    if kernel_for(x2d.shape[0], True) == "q8_matvec":
+        return q8_matvec(x2d, qs2d, wq.scales)
+    return q8_matmul(x2d, qs2d, wq.scales)
+
+
+class HopperBackend:
+    """The port's CUDA kernels for Q8_0 main segments."""
+
+    name = "hopper"
+
+    def supports(self, req: KernelRequest) -> bool:
+        return (req.segment == MAIN and req.dtype == "q8_0"
+                and req.k % QBLOCK == 0)
+
+    def auto(self, req: KernelRequest) -> bool:
+        return self.supports(req)
+
+    def build(self, req: KernelRequest):
+        return q8_main

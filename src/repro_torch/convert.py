@@ -1,0 +1,56 @@
+"""Carry a reference parameter tree over to the port's layout.
+
+``from_jax_params`` takes the reference's Whisper parameter tree with
+every leaf already converted to numpy (``np.asarray``) — this module
+imports no JAX — and returns the port's tree: the same dict keys, with
+the reference's layer-stacked ``enc_blocks``/``dec_blocks`` (a leading
+layer axis on every leaf) split into a list of per-layer dicts. Tests use
+it to run both packages on identical weights.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.device import resolve_device
+
+STACKED = ("enc_blocks", "dec_blocks")
+
+
+def _tensor(a) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":        # ml_dtypes' bfloat16: reinterpret
+        return torch.from_numpy(
+            np.ascontiguousarray(a).view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+def _convert(tree, device):
+    if isinstance(tree, dict):
+        return {k: _convert(v, device) for k, v in tree.items()}
+    return _tensor(tree).to(device)
+
+
+def _unstack(tree, i: int):
+    if isinstance(tree, dict):
+        return {k: _unstack(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def _layers(tree) -> int:
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return np.asarray(tree).shape[0]
+
+
+def from_jax_params(tree: dict, *, device="cuda") -> dict:
+    """Reference Whisper params (numpy leaves) -> the port's params."""
+    dev = resolve_device(device)
+    out = {}
+    for key, sub in tree.items():
+        if key in STACKED:
+            out[key] = [_convert(_unstack(sub, i), dev)
+                        for i in range(_layers(sub))]
+        else:
+            out[key] = _convert(sub, dev)
+    return out

@@ -1,0 +1,25 @@
+"""Device resolution for the port's entry points.
+
+Entry points take ``device=`` and default to ``"cuda"``. Without a card
+they raise unless the caller asked for the CPU: the port never moves to the
+CPU silently. On the card, TF32 is switched off for matrix products and
+convolutions, because the reference's residual arm and oracles contract in
+full f32 and TF32 would break parity with them.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device="cuda") -> torch.device:
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass device='cpu' to run the "
+                "plain PyTorch versions on the CPU")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
+    return dev

@@ -1,0 +1,95 @@
+"""Offload dispatcher — the paper's co-design loop as a runtime feature.
+
+For each linear call it resolves a ``PlanEntry`` from static shapes
+(``core/plan.py``): whether the working set fits the local-memory budget,
+where the burst splits K, and which kernel and backend run the main
+segment. It executes the entry through the mixed-split executor and
+accounts it in the ``OffloadLedger``. The port runs eagerly, so every
+executed linear is accounted when it runs — the reference's eager branch.
+"""
+from __future__ import annotations
+
+from contextlib import contextmanager
+from dataclasses import dataclass, field
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch.backends import executor
+from repro_torch.core.plan import DispatchPlan, PlanEntry, plan_linear
+from repro_torch.core.qformats import QTensor
+
+
+@dataclass
+class OffloadStats:
+    """Aggregated accounting: call and FLOP totals, calls per call-site
+    name (``by_kernel``) and per main-segment backend (``by_backend``)."""
+    offloaded_calls: int = 0
+    fallback_calls: int = 0
+    offloaded_flops: int = 0
+    fallback_flops: int = 0
+    residual_flops: int = 0
+    by_kernel: Dict[str, int] = field(default_factory=dict)
+    by_backend: Dict[str, int] = field(default_factory=dict)
+
+
+@dataclass
+class OffloadLedger:
+    """Host-side accounting: every executed plan entry is accounted once."""
+    totals: OffloadStats = field(default_factory=OffloadStats)
+
+    def account(self, entry: PlanEntry) -> None:
+        s = self.totals
+        if entry.offload:
+            s.offloaded_calls += 1
+            s.offloaded_flops += entry.offloaded_flops
+            s.residual_flops += entry.residual_flops
+        else:
+            s.fallback_calls += 1
+            s.fallback_flops += entry.fallback_flops
+        s.by_kernel[entry.name] = s.by_kernel.get(entry.name, 0) + 1
+        s.by_backend[entry.backend] = s.by_backend.get(entry.backend, 0) + 1
+
+
+@dataclass
+class OffloadEngine:
+    """The dispatcher. ``vmem_budget_kb`` is the local-memory budget an
+    invocation's working set must fit to be offloaded (the reference's
+    rule, kept for plan parity); ``burst`` is the split granularity."""
+    vmem_budget_kb: int = 8 * 1024
+    burst: int = 256
+    ledger: OffloadLedger = field(default_factory=OffloadLedger)
+    _recording: Optional[DispatchPlan] = field(default=None, repr=False)
+
+    @property
+    def stats(self) -> OffloadStats:
+        return self.ledger.totals
+
+    @contextmanager
+    def recording(self, plan: DispatchPlan):
+        """While active, every ``linear`` call also appends its entry to
+        ``plan``, so a caller can keep the routing of one program run."""
+        prev, self._recording = self._recording, plan
+        try:
+            yield plan
+        finally:
+            self._recording = prev
+
+    def linear(self, x: torch.Tensor, w, name: str = "linear") -> torch.Tensor:
+        """y = x @ W^T (f32), routed per the plan entry for this shape and
+        accounted in the ledger."""
+        k = x.shape[-1]
+        n = w.shape[0]
+        m = x.numel() // k if k else 0
+        entry = plan_linear(name, m, k, n, quantized=isinstance(w, QTensor),
+                            vmem_budget_kb=self.vmem_budget_kb,
+                            default_burst=self.burst)
+        y = self.execute(x, w, entry)
+        self.ledger.account(entry)
+        if self._recording is not None:
+            self._recording.add(entry)
+        return y
+
+    def execute(self, x: torch.Tensor, w, entry: PlanEntry) -> torch.Tensor:
+        """Run one linear per a resolved ``PlanEntry``."""
+        return executor.matmul(x, w, burst=entry.burst, backend=entry.backend)

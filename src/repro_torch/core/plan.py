@@ -1,0 +1,91 @@
+"""Dispatch planning: each linear's routing resolved from static shapes.
+
+Every routing input — the offload decision, the burst split, the kernel
+and the main-segment backend — is a pure function of static shapes plus
+engine configuration, and is recorded as a ``PlanEntry``. The port runs
+eagerly, so ``OffloadEngine.linear`` resolves its entry, executes it and
+accounts it in one call; there is no separate plan-recording pass.
+
+``offload`` keeps the reference's local-memory rule (``coverage.fits``), so
+the ledger's offloaded/fallback split stays in step with the reference.
+It does not route: the H100 kernels have no such capacity limit, so every
+Q8_0 main segment resolves to the Hopper kernels. The reference instead
+pins its capacity fallbacks to ``xla_ref``.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Hashable, List
+
+from repro_torch.backends import MAIN, REGISTRY, KernelRequest, kernel_for
+from repro_torch.core.coverage import MulMat, fits
+from repro_torch.core.mixed_exec import split_aligned
+
+
+@dataclass(frozen=True)
+class PlanEntry:
+    """Routing record for one linear call site at one static shape: the
+    ``(name, m, k, n, dtype)`` identity, the offload decision, the burst
+    split, the kernel the main segment dispatches to, and the registry
+    backend resolved for the main segment."""
+    name: str
+    m: int
+    k: int
+    n: int
+    dtype: str                 # "q8_0" | "bf16"
+    offload: bool
+    burst: int
+    kernel: str
+    k_main: int
+    k_res: int
+    backend: str = "torch_ref"
+
+    @property
+    def flops(self) -> int:
+        return 2 * self.m * self.k * self.n
+
+    @property
+    def offloaded_flops(self) -> int:
+        """FLOPs on the accelerator kernel (main segment) if offloaded."""
+        return self.flops * self.k_main // max(self.k, 1) if self.offload else 0
+
+    @property
+    def residual_flops(self) -> int:
+        return self.flops * self.k_res // max(self.k, 1) if self.offload else 0
+
+    @property
+    def fallback_flops(self) -> int:
+        return 0 if self.offload else self.flops
+
+
+def plan_linear(name: str, m: int, k: int, n: int, *, quantized: bool,
+                vmem_budget_kb: int, default_burst: int) -> PlanEntry:
+    """Resolve one linear's routing from static shapes (pure)."""
+    dtype = "q8_0" if quantized else "bf16"
+    kern = kernel_for(m, quantized)
+    k_main, k_res = split_aligned(k, default_burst)
+    offload = fits(MulMat(name, m=m, k=k, n=n), vmem_budget_kb, agg_units=1)
+    if k_main:
+        req = KernelRequest(kernel=kern, m=m, n=n, k=k_main, dtype=dtype,
+                            segment=MAIN)
+        resolved = REGISTRY.resolve(req).name
+    else:
+        # k < burst: no main segment — the whole linear runs on the host arm
+        resolved = "host_residual"
+    return PlanEntry(name=name, m=m, k=k, n=n, dtype=dtype, offload=offload,
+                     burst=default_burst, kernel=kern, k_main=k_main,
+                     k_res=k_res, backend=resolved)
+
+
+@dataclass
+class DispatchPlan:
+    """The routing of one program: ``PlanEntry`` per linear call, in
+    execution order."""
+    key: Hashable = None
+    entries: List[PlanEntry] = field(default_factory=list)
+
+    def add(self, entry: PlanEntry) -> None:
+        self.entries.append(entry)
+
+    def __iter__(self):
+        return iter(self.entries)

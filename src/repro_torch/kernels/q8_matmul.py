@@ -1,0 +1,44 @@
+"""Prefill-path Q8_0 block-dequant matrix product: x (M, K) times a Q8_0
+weight W (N, K) -> (M, N) f32.
+
+Replaces the Pallas TPU kernel ``repro/kernels/q8_matmul.py``
+(``q8_matmul``, body ``_q8_matmul_kernel``). At prefill M = 1500 frames and
+x is bf16, so the least time is set by the tensor cores: a bf16 x int8
+product is exact in f32, so per-32-block bf16 MMAs with f32 accumulation,
+scaled per block afterwards, compute the same function up to summation
+order, at 989 TFLOP/s; the bytes (about 1 us at 1500 x 384 x 256) then
+bound it. The CUDA kernel (``csrc/q8_matmul.cu``) is, for now, a tiled f32
+product outside the tensor cores (67 TFLOP/s): 64 x 64 output tiles, a K
+loop inside the block in whole Q8_0 blocks, x and the inline-dequantized W
+staged in shared memory, 4 x 4 register sub-tiles per thread, and the
+ragged M and N edges masked in the kernel (no padding, unlike the TPU
+kernel, which needed whole tiles). A wgmma version is later work.
+
+``q8_matmul`` runs ``q8_matmul_plain`` only for tensors on the CPU; for
+CUDA tensors it launches the kernel or raises.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build, ref
+
+
+#: the kernel's arithmetic in plain PyTorch: dequantize W in f32 (q * scale
+#: per 32-block), then an f32 contraction
+q8_matmul_plain = ref.q8_flat_ref
+
+
+def q8_matmul(x: torch.Tensor, qs: torch.Tensor,
+              scales: torch.Tensor) -> torch.Tensor:
+    """x (M, K) f32/bf16; qs (N, K) int8; scales (N, K/32) f32 -> (M, N)
+    f32. Rows of every operand may be strided; M and N may be ragged."""
+    _build.check_q8_operands(x, qs, scales)
+    if x.device.type == "cpu":
+        return q8_matmul_plain(x, qs, scales)
+    out = _build.launch("q8_matmul", x, qs, scales)
+    q8_matmul.launches += 1
+    return out
+
+
+q8_matmul.launches = 0

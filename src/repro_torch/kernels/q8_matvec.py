@@ -1,0 +1,47 @@
+"""Decode-path Q8_0 matrix-vector product: x (B <= 16, K) times a Q8_0
+weight W (N, K) -> (B, N) f32.
+
+Replaces the Pallas TPU kernel ``repro/kernels/q8_matvec.py`` (``q8_matvec``,
+body ``_q8_matvec_kernel``). On the H100 it is bound by device-memory bytes:
+at B = 1 each weight byte feeds one multiply-add, far below the card's
+arithmetic-to-bandwidth ratio. The CUDA kernel (``csrc/q8_matvec.cu``)
+therefore streams the int8 payload and the scales exactly once, with a
+warp per pair of output rows, dequantizes in registers, keeps the
+activation rows in shared memory and reduces across the warp; it masks the
+ragged N edge itself (the 51,872-row vocabulary readout) and reads every
+operand through its row stride, so the burst-aligned K-slice of a wider
+weight needs no copy.
+
+``q8_matvec`` runs ``q8_matvec_plain`` only for tensors on the CPU; for
+CUDA tensors it launches the kernel or raises.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build, ref
+
+MAX_M = 16     # decode batch tile; larger M goes to q8_matmul
+
+
+#: the kernel's arithmetic in plain PyTorch: dequantize W in f32 (q * scale
+#: per 32-block), then an f32 contraction
+q8_matvec_plain = ref.q8_flat_ref
+
+
+def q8_matvec(x: torch.Tensor, qs: torch.Tensor,
+              scales: torch.Tensor) -> torch.Tensor:
+    """x (B, K) f32/bf16; qs (N, K) int8; scales (N, K/32) f32 -> (B, N)
+    f32, with B <= 16. Rows of every operand may be strided."""
+    _build.check_q8_operands(x, qs, scales)
+    if x.shape[0] > MAX_M:
+        raise ValueError(f"q8_matvec takes at most {MAX_M} rows, got "
+                         f"{x.shape[0]}")
+    if x.device.type == "cpu":
+        return q8_matvec_plain(x, qs, scales)
+    out = _build.launch("q8_matvec", x, qs, scales)
+    q8_matvec.launches += 1
+    return out
+
+
+q8_matvec.launches = 0

@@ -1,0 +1,38 @@
+"""Plain PyTorch oracles for the kernels' semantics, one for one with the
+reference's ``repro/kernels/ref.py``. ``q8_matmul_ref`` is the one Q8_0
+oracle: the kernels' plain versions (``q8_flat_ref``) and the host
+residual arm call it, and tests hold every kernel against it. The
+reference backend (``backends/torch_ref.py``) runs ``matmul_bf16_ref``.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.qformats import QBLOCK, QTensor, dequantize_q8_0
+
+
+def matmul_bf16_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The paper's FP16 kernel semantics: 16-bit operands, inline-converted,
+    fp32 accumulated. bf16 products are exact in f32, so rounding the
+    operands and contracting in f32 is the same function."""
+    xb = x.to(torch.bfloat16).to(torch.float32)
+    wb = w.to(torch.bfloat16).to(torch.float32)
+    return xb @ wb.t()
+
+
+def q8_matmul_ref(x: torch.Tensor, wq: QTensor) -> torch.Tensor:
+    """The paper's Q8_0 kernel semantics: per-32-block dequant then f32 MAC.
+    x: (M, K); wq: QTensor over W[N, K]. Returns (M, N) f32."""
+    return x.to(torch.float32) @ dequantize_q8_0(wq).t()
+
+
+def q8_matvec_ref(x: torch.Tensor, wq: QTensor) -> torch.Tensor:
+    """Decode-path dot product: x (B, K) against quantized W[N, K]."""
+    return q8_matmul_ref(x, wq)
+
+
+def q8_flat_ref(x: torch.Tensor, qs: torch.Tensor,
+                scales: torch.Tensor) -> torch.Tensor:
+    """``q8_matmul_ref`` on the kernels' operands: the flat int8 payload
+    qs (N, K), whose rows may be strided, and scales (N, K/32)."""
+    return q8_matmul_ref(x, QTensor(qs.unflatten(-1, (-1, QBLOCK)), scales))

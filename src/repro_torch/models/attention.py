@@ -1,0 +1,144 @@
+"""Attention for the Whisper port: query-chunked non-causal attention for
+the encoder and single-step KV-cache decode attention.
+
+Written as plain einsum and softmax ops, as the reference writes them. The
+reference contracts with ``preferred_element_type=f32``; here the operands
+are upcast to f32 before each contraction, which is the same function
+(bf16 products are exact in f32). The probabilities are cast to the value
+type before the second contraction, as in the reference.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers
+
+NEG_INF = -1e30
+
+
+def init_attention(gen: torch.Generator, cfg: ModelConfig,
+                   dtype=torch.bfloat16) -> dict:
+    d, hq, hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    return {
+        "q": layers.init_linear(gen, d, hq * hd, bias=cfg.qkv_bias, dtype=dtype),
+        "k": layers.init_linear(gen, d, hkv * hd, bias=cfg.qkv_bias, dtype=dtype),
+        "v": layers.init_linear(gen, d, hkv * hd, bias=cfg.qkv_bias, dtype=dtype),
+        "o": layers.init_linear(gen, hq * hd, d, dtype=dtype),
+    }
+
+
+def _split_heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
+    b, s, _ = x.shape
+    return x.reshape(b, s, n_heads, -1)
+
+
+def _repeat_kv_heads(kv: torch.Tensor, hq: int) -> torch.Tensor:
+    """(B, S, Hkv, D) -> (B, S, Hq, D)."""
+    hkv = kv.shape[2]
+    if hkv == hq:
+        return kv
+    return kv.repeat_interleave(hq // hkv, dim=2)
+
+
+def _chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       chunk: int) -> torch.Tensor:
+    """Query-chunked non-causal attention, flat heads (the encoder's).
+    q: (B, Sq, Hq, D); k/v: (B, Sk, Hkv, D). Returns (B, Sq, Hq, D) in
+    q's type."""
+    sq, hq, d = q.shape[1:]
+    scale = d ** -0.5
+    chunk = min(chunk, sq)
+    if sq % chunk:
+        chunk = sq  # single chunk for ragged shapes, as the reference does
+    k = _repeat_kv_heads(k, hq).to(torch.float32)
+    vf = _repeat_kv_heads(v, hq).to(torch.float32)
+    outs = []
+    for ci in range(sq // chunk):
+        qi = q[:, ci * chunk:(ci + 1) * chunk].to(torch.float32)
+        logits = torch.einsum("bqhd,bshd->bhqs", qi, k) * scale
+        probs = torch.softmax(logits, dim=-1)
+        out = torch.einsum("bhqs,bshd->bqhd",
+                           probs.to(v.dtype).to(torch.float32), vf)
+        outs.append(out.to(q.dtype))
+    return torch.cat(outs, dim=1)
+
+
+def attention(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
+              chunk: int = 2048, engine=None) -> torch.Tensor:
+    """Non-causal self-attention over a full sequence (the encoder). The
+    reference's causal and cross variants serve training
+    (``decode_train``), which the port does not run yet."""
+    b, s, _ = x.shape
+    hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = _split_heads(layers.linear(p["q"], x, engine, "attn.q"), hq)
+    k = _split_heads(layers.linear(p["k"], x, engine, "attn.k"), hkv)
+    v = _split_heads(layers.linear(p["v"], x, engine, "attn.v"), hkv)
+    out = _chunked_attention(q, k, v, chunk=chunk)
+    return layers.linear(p["o"], out.reshape(b, s, hq * hd), engine, "attn.o")
+
+
+class KVCache(NamedTuple):
+    """Contiguous decode cache with one scalar length: every row of the
+    batch sits at the same position (lockstep decode)."""
+    k: torch.Tensor       # (B, S_max, Hkv, D)
+    v: torch.Tensor       # (B, S_max, Hkv, D)
+    length: int           # tokens currently valid
+
+    @classmethod
+    def zeros(cls, b: int, s_max: int, hkv: int, hd: int,
+              dtype=torch.bfloat16, device="cpu") -> "KVCache":
+        return cls(torch.zeros((b, s_max, hkv, hd), dtype=dtype, device=device),
+                   torch.zeros((b, s_max, hkv, hd), dtype=dtype, device=device),
+                   0)
+
+
+def _cache_update(buf: torch.Tensor, val: torch.Tensor,
+                  length: int) -> torch.Tensor:
+    """Write ``val``'s W positions into every row of ``buf`` at ``length``.
+    Updates ``buf`` in place — the cache is the decode step's largest
+    buffer, and no caller keeps the old contents — and returns it."""
+    w = val.shape[1]
+    if length + w > buf.shape[1]:
+        raise ValueError(f"KV cache full: {length} + {w} > {buf.shape[1]}")
+    buf[:, length:length + w] = val.to(buf.dtype)
+    return buf
+
+
+def decode_attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                     cache: KVCache, *,
+                     memory_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                     engine=None) -> Tuple[torch.Tensor, KVCache]:
+    """One decode step. x: (B, 1, d). Self-attention appends the new K/V
+    entry to ``cache`` and attends over positions <= length; with
+    ``memory_kv`` (the precomputed cross K/V) it attends over the encoder
+    memory. Returns (out, new_cache)."""
+    b, w = x.shape[0], x.shape[1]
+    if w != 1:
+        raise ValueError("the port decodes one position per step")
+    hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = _split_heads(layers.linear(p["q"], x, engine, "dec.attn.q"), hq)
+    if memory_kv is None:
+        knew = _split_heads(layers.linear(p["k"], x, engine, "dec.attn.k"), hkv)
+        vnew = _split_heads(layers.linear(p["v"], x, engine, "dec.attn.v"), hkv)
+        k = _cache_update(cache.k, knew, cache.length)
+        v = _cache_update(cache.v, vnew, cache.length)
+        new_cache = KVCache(k, v, cache.length + w)
+        valid = torch.arange(k.shape[1], device=x.device) <= cache.length
+    else:
+        k, v = memory_kv
+        new_cache = cache
+        valid = None
+    g = hq // hkv
+    qg = q.reshape(b, w, hkv, g, hd).to(torch.float32)
+    logits = torch.einsum("bqhgd,bshd->bhgqs", qg,
+                          k.to(torch.float32)) * hd ** -0.5
+    if valid is not None:
+        logits = torch.where(valid, logits, torch.full_like(logits, NEG_INF))
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgqs,bshd->bqhgd", probs.to(v.dtype).to(torch.float32),
+                       v.to(torch.float32))
+    out = out.to(x.dtype).reshape(b, w, hq * hd)
+    return layers.linear(p["o"], out, engine, "dec.attn.o"), new_cache

@@ -1,0 +1,126 @@
+"""Shared building blocks: linear, layer norm, GELU MLP, positional tables
+and embeddings.
+
+Functional style over parameter dicts of tensors. Weights are stored
+(out_features, in_features) — the kernels' W[N, K] layout. ``engine``
+routes a linear through the offload dispatcher (Q8_0 kernel main segment
+plus host residual); without one, Q8_0 weights are dequantized in place
+(the reference's XLA path).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.qformats import QTensor, dequantize_q8_0
+
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+          "float16": torch.float16}
+
+
+def init_linear(gen: torch.Generator, d_in: int, d_out: int, *,
+                bias: bool = False, dtype=torch.bfloat16) -> dict:
+    p = {"w": (torch.randn((d_out, d_in), generator=gen) * d_in ** -0.5
+               ).to(dtype)}
+    if bias:
+        p["b"] = torch.zeros((d_out,), dtype=dtype)
+    return p
+
+
+def linear(p: dict, x: torch.Tensor, engine=None,
+           name: str = "linear") -> torch.Tensor:
+    """y = x @ W^T (+ b). ``name`` identifies the call site in the
+    dispatcher's plan entries and ledger."""
+    w = p["w"]
+    if engine is not None:
+        y = engine.linear(x, w, name=name).to(x.dtype)
+    elif isinstance(w, QTensor):
+        y = x @ dequantize_q8_0(w).to(x.dtype).t()
+    else:
+        y = _dot(x, w)
+    if "b" in p:
+        y = y + p["b"].to(y.dtype)
+    return y
+
+
+def _dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w^T in the promoted type of the two, as ``jax.lax.dot_general``
+    promotes mixed operands."""
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return x.to(dt) @ w.to(dt).t()
+
+
+def init_norm(d: int, dtype=torch.bfloat16) -> dict:
+    return {"scale": torch.ones((d,), dtype=dtype),
+            "bias": torch.zeros((d,), dtype=dtype)}
+
+
+def norm_apply(p: dict, x: torch.Tensor, kind: str = "layernorm",
+               eps: float = 1e-5) -> torch.Tensor:
+    """Layer norm in f32 with the population variance, cast back to the
+    input's type (the reference's ``norm_apply``)."""
+    if kind != "layernorm":
+        raise ValueError(f"the port's audio models use layernorm, not {kind}")
+    xf = x.to(torch.float32)
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, unbiased=False)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    out = out * p["scale"].to(torch.float32)
+    if "bias" in p:
+        out = out + p["bias"].to(torch.float32)
+    return out.to(x.dtype)
+
+
+def sinusoidal_positions(n: int, d: int) -> torch.Tensor:
+    """Whisper-style fixed sinusoidal table (n, d), f32. The divisor
+    ``d // 2 - 1 + 1e-9`` is the reference's, kept exactly."""
+    pos = torch.arange(n, dtype=torch.float32)[:, None]
+    dim = torch.arange(d // 2, dtype=torch.float32)[None, :]
+    inv = torch.exp(-torch.log(torch.tensor(10_000.0)) * dim
+                    / (d // 2 - 1 + 1e-9))
+    ang = pos * inv
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default: the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
+def init_mlp(gen: torch.Generator, d: int, d_ff: int,
+             dtype=torch.bfloat16) -> dict:
+    return {"up": init_linear(gen, d, d_ff, dtype=dtype),
+            "down": init_linear(gen, d_ff, d, dtype=dtype)}
+
+
+def mlp_apply(p: dict, x: torch.Tensor, act: str = "gelu",
+              engine=None) -> torch.Tensor:
+    if act != "gelu":
+        raise ValueError(f"the port's audio models use gelu, not {act}")
+    up = linear(p["up"], x, engine, "ffn.up")
+    h = gelu(up.to(torch.float32))
+    return linear(p["down"], h.to(x.dtype), engine, "ffn.down")
+
+
+def init_embedding(gen: torch.Generator, vocab: int, d: int,
+                   dtype=torch.bfloat16) -> dict:
+    return {"table": (torch.randn((vocab, d), generator=gen) * 0.02
+                      ).to(dtype)}
+
+
+def embed(p: dict, ids: torch.Tensor) -> torch.Tensor:
+    t = p["table"]
+    if isinstance(t, QTensor):
+        # row-wise dequant of the Q8_0 table: only the gathered rows
+        rows = t.qs[ids].to(torch.float32) * t.scales[ids][..., None]
+        return rows.reshape(*ids.shape, t.k)
+    return t[ids]
+
+
+def unembed(p: dict, x: torch.Tensor, engine=None) -> torch.Tensor:
+    """Tied readout: logits = x @ table^T (the paper's ``dec.vocab``
+    kernel class — its single largest dot product)."""
+    t = p["table"]
+    if engine is not None or isinstance(t, QTensor):
+        return linear({"w": t}, x, engine, "dec.vocab")
+    return _dot(x, t)

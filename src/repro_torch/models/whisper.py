@@ -1,0 +1,148 @@
+"""Whisper encoder-decoder backbone (the paper's workload).
+
+The conv frontend is a stub: precomputed mel frames go through one linear
+projection in place of the two stride-2 convolutions. Everything
+downstream — encoder self-attention stack, decoder self- and
+cross-attention, tied vocabulary readout — routes every linear through the
+offload engine when one is passed.
+
+Decode follows whisper.cpp's split: the encoder runs once per utterance,
+each decoder layer's cross K/V is projected once from the encoder memory
+(``dec.cross.k``/``dec.cross.v``), then tokens decode autoregressively
+against the cached self-attention KV. Layers are a Python loop over a list
+of per-layer parameter dicts.
+"""
+from __future__ import annotations
+
+from typing import List, NamedTuple, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers
+from repro_torch.models.attention import (
+    KVCache, attention, decode_attention, init_attention)
+
+
+class WhisperDecodeState(NamedTuple):
+    self_kv: List[KVCache]                               # one per decoder layer
+    cross_kv: List[Tuple[torch.Tensor, torch.Tensor]]    # (B, F, Hkv, hd) x2
+
+
+def _init_enc_block(gen, cfg: ModelConfig, dtype) -> dict:
+    return {
+        "norm1": layers.init_norm(cfg.d_model, dtype),
+        "attn": init_attention(gen, cfg, dtype),
+        "norm2": layers.init_norm(cfg.d_model, dtype),
+        "ffn": layers.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype),
+    }
+
+
+def _init_dec_block(gen, cfg: ModelConfig, dtype) -> dict:
+    return {
+        "norm1": layers.init_norm(cfg.d_model, dtype),
+        "self_attn": init_attention(gen, cfg, dtype),
+        "norm_x": layers.init_norm(cfg.d_model, dtype),
+        "cross_attn": init_attention(gen, cfg, dtype),
+        "norm2": layers.init_norm(cfg.d_model, dtype),
+        "ffn": layers.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype),
+    }
+
+
+def init_whisper(gen: torch.Generator, cfg: ModelConfig,
+                 max_positions: int = 0) -> dict:
+    """Random weights drawn from ``gen`` on the generator's device, with
+    the reference's shapes, scales and layout (not its random numbers)."""
+    dtype = layers.DTYPES[cfg.param_dtype]
+    d = cfg.d_model
+    maxp = max(max_positions, cfg.encoder_ctx, 448)
+    return {
+        "frontend": layers.init_linear(gen, cfg.n_mels, d, bias=True,
+                                       dtype=dtype),
+        "enc_pos": {"table": layers.sinusoidal_positions(maxp, d).to(dtype)},
+        "enc_blocks": [_init_enc_block(gen, cfg, dtype)
+                       for _ in range(cfg.num_encoder_layers)],
+        "enc_norm": layers.init_norm(d, dtype),
+        "embed": layers.init_embedding(gen, cfg.padded_vocab, d, dtype),
+        "dec_pos": {"table": (torch.randn((maxp, d), generator=gen) * 0.01
+                              ).to(dtype)},
+        "dec_blocks": [_init_dec_block(gen, cfg, dtype)
+                       for _ in range(cfg.num_layers)],
+        "dec_norm": layers.init_norm(d, dtype),
+    }
+
+
+def encode(params: dict, cfg: ModelConfig, mel: torch.Tensor, *,
+           engine=None, attn_chunk: int = 2048) -> torch.Tensor:
+    """mel: (B, F, n_mels) precomputed frames -> (B, F, d) memory."""
+    x = layers.linear(params["frontend"], mel.to(torch.float32), engine,
+                      "enc.frontend")
+    x = layers.gelu(x)
+    f = x.shape[1]
+    dtype = layers.DTYPES[cfg.dtype]
+    x = (x + params["enc_pos"]["table"][:f].to(torch.float32)).to(dtype)
+    for p in params["enc_blocks"]:
+        h = layers.norm_apply(p["norm1"], x, cfg.norm)
+        x = x + attention(p["attn"], cfg, h, chunk=attn_chunk,
+                          engine=engine).to(x.dtype)
+        h = layers.norm_apply(p["norm2"], x, cfg.norm)
+        x = x + layers.mlp_apply(p["ffn"], h, cfg.act, engine=engine
+                                 ).to(x.dtype)
+    return layers.norm_apply(params["enc_norm"], x, cfg.norm)
+
+
+def precompute_cross_kv(params: dict, cfg: ModelConfig, memory: torch.Tensor,
+                        *, engine=None
+                        ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """Project each decoder layer's cross K/V once per utterance (the
+    paper's ``dec.cross.kv`` kernel class). Returns [(B,F,Hkv,hd) x2] per
+    layer, in ``cfg.dtype``."""
+    hkv, hd = cfg.num_kv_heads, cfg.head_dim
+    b, f, _ = memory.shape
+    dtype = layers.DTYPES[cfg.dtype]
+    out = []
+    for p in params["dec_blocks"]:
+        k = layers.linear(p["cross_attn"]["k"], memory, engine, "dec.cross.k")
+        v = layers.linear(p["cross_attn"]["v"], memory, engine, "dec.cross.v")
+        out.append((k.reshape(b, f, hkv, hd).to(dtype),
+                    v.reshape(b, f, hkv, hd).to(dtype)))
+    return out
+
+
+def init_whisper_decode_state(params: dict, cfg: ModelConfig,
+                              memory: torch.Tensor, max_len: int, *,
+                              engine=None,
+                              dtype=torch.bfloat16) -> WhisperDecodeState:
+    b = memory.shape[0]
+    return WhisperDecodeState(
+        self_kv=[KVCache.zeros(b, max_len, cfg.num_kv_heads, cfg.head_dim,
+                               dtype, memory.device)
+                 for _ in range(cfg.num_layers)],
+        cross_kv=precompute_cross_kv(params, cfg, memory, engine=engine))
+
+
+def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
+                state: WhisperDecodeState, *, engine=None
+                ) -> Tuple[torch.Tensor, WhisperDecodeState]:
+    """token: (B, 1) int -> (logits (B, 1, V), state'). The position is
+    the first layer's self-KV length (every row decodes in lockstep)."""
+    x = layers.embed(params["embed"], token)
+    pos = state.self_kv[0].length
+    x = x + params["dec_pos"]["table"][pos:pos + 1].to(x.dtype)
+    new_kv = []
+    for p, kv, ck_cv in zip(params["dec_blocks"], state.self_kv,
+                            state.cross_kv):
+        h = layers.norm_apply(p["norm1"], x, cfg.norm)
+        mixed, kv = decode_attention(p["self_attn"], cfg, h, kv, engine=engine)
+        x = x + mixed.to(x.dtype)
+        h = layers.norm_apply(p["norm_x"], x, cfg.norm)
+        mixed, _ = decode_attention(p["cross_attn"], cfg, h, kv,
+                                    memory_kv=ck_cv, engine=engine)
+        x = x + mixed.to(x.dtype)
+        h = layers.norm_apply(p["norm2"], x, cfg.norm)
+        x = x + layers.mlp_apply(p["ffn"], h, cfg.act, engine=engine
+                                 ).to(x.dtype)
+        new_kv.append(kv)
+    x = layers.norm_apply(params["dec_norm"], x, cfg.norm)
+    logits = layers.unembed(params["embed"], x, engine)
+    return logits, WhisperDecodeState(self_kv=new_kv, cross_kv=state.cross_kv)

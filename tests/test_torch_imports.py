@@ -1,0 +1,52 @@
+"""The port stands alone: no file of ``src/repro_torch/`` and not
+``chip_smoke.py`` imports JAX or anything of the reference package
+``repro``, even a module of it that does not import JAX."""
+import ast
+import os
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(ROOT, "src", "repro_torch")
+
+
+def _files():
+    out = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, names in os.walk(PORT):
+        out += [os.path.join(d, n) for n in names if n.endswith(".py")]
+    return sorted(out)
+
+
+def _imported(path):
+    with open(path, encoding="utf-8") as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+        elif (isinstance(node, ast.Call) and getattr(node.func, "attr", "")
+              in ("import_module", "__import__") and node.args
+              and isinstance(node.args[0], ast.Constant)):
+            yield str(node.args[0].value)
+
+
+def _forbidden(module: str) -> bool:
+    top = module.split(".")[0]
+    return top in ("jax", "jaxlib", "repro")
+
+
+@pytest.mark.parametrize("path", _files(),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_jax_and_no_reference_imports(path):
+    bad = [m for m in _imported(path) if _forbidden(m)]
+    assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad}"
+
+
+def test_scan_finds_forbidden_imports(tmp_path):
+    path = tmp_path / "probe.py"
+    path.write_text("import jax.numpy as jnp\nfrom repro.configs import base\n"
+                    "import repro_torch\nfrom . import x\nimport importlib\n"
+                    "importlib.import_module('repro.core')\n")
+    assert [m for m in _imported(str(path)) if _forbidden(m)] == \
+        ["jax.numpy", "repro.configs", "repro.core"]
