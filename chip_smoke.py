@@ -9,15 +9,22 @@ own kernels with nvcc. Phases, each of which fails the run on error:
 1. The card's name and power limit (nvidia-smi), then the build of every
    kernel from ``src/repro_torch/csrc/`` (one nvcc per source, started
    together), with the ``-Xptxas -v`` register and shared-memory report.
-2. Each kernel at every shape the main path gives it: its result against
+2. Each kernel at every shape its main path gives it: its result against
    its plain PyTorch version on the card, its device time (torch.profiler,
    warm L2) and its back-to-back time per call (CUDA events, which include
    the host's launch cost), the plain version's device time, the least
    time the card could take (the larger of bytes over 3.35 TB/s and FLOPs
-   over the peak for x's type: 989 TFLOP/s for bf16 x, whose product with
-   int8 weights is exact on the tensor cores, 67 TFLOP/s for f32 x), and
-   ``torch.matmul`` against the pre-dequantized f32 weight as a library
-   yardstick (no single PyTorch call computes a Q8_0 product).
+   over the peak for the operands' type: 989 TFLOP/s for bf16 operands,
+   and for a bf16 x times int8 weights, whose product is exact on the
+   tensor cores; 67 TFLOP/s for f32 x), and one PyTorch call as a library
+   yardstick, timed here and used nowhere in the port: ``torch.matmul``
+   against the pre-dequantized f32 weight for the Q8_0 kernels (no single
+   PyTorch call computes a Q8_0 product), ``torch.matmul`` on the same bf16
+   operands (cuBLAS) for ``bf16_matmul``, and
+   ``scaled_dot_product_attention`` on the same bf16 q, k, v for
+   ``flash_attention_fwd``. TF32 is off (``resolve_device``), which leaves
+   bf16 products alone. Flash attention is also checked causal and at
+   ragged lengths.
 3. The main path: full-width whisper-tiny with Q8_0 weights from a seeded
    generator, ``ServeEngine.transcribe`` of one 1500-frame utterance with
    ``max_new=32`` and no EOS, through the offload engine. The kernels'
@@ -28,6 +35,11 @@ own kernels with nvcc. Phases, each of which fails the run on error:
 4. Batch 2 at full width, where the encoder's ffn.down (M = 3000, K = 1536)
    fails the reference's local-memory rule (``offload=False`` in its plan
    entries): every Q8_0 linear must still launch a kernel.
+5. The dense (FP16) path with flash attention: full-width whisper-tiny with
+   bf16 weights (``quant="none"``) and ``attn_impl="flash"``, the same
+   transcribe. Exactly 32 ``bf16_matmul`` launches per prefill plus 33 per
+   decode step, 4 ``flash_attention_fwd`` launches (one per encoder layer)
+   and no Q8_0 launch; first-step logits against the CPU's.
 
 The last two lines are the kernels' JSON record and the result line.
 """
@@ -46,6 +58,16 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 # cores (tf32 would round x)
 FLOPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
 FIRST_STEP_TOL = 1e-2           # card vs CPU logits, see check_against_cpu
+# the dense path's decoder runs in bf16 (bf16 embedding table), so its
+# logits leave every linear rounded to bf16: steps of 2^-7 at |logit| in
+# [1, 2). 3e-2 is about four such steps.
+DENSE_FIRST_STEP_TOL = 3e-2
+# kernel vs plain on the card: f32 sums in another order, relative to the
+# output's largest value; flash attention in bf16 at 1e-2, where a
+# probability next to a bf16 rounding boundary can round the other way on
+# the card's exp than on PyTorch's (one bf16 step, 2^-8, of one weight)
+KERNEL_TOL = 1e-4
+FLASH_BF16_TOL = 1e-2
 
 # (m, n, k_main, k_full, launches per decode step / per prefill, x dtype)
 MATVEC_SHAPES = [
@@ -59,13 +81,52 @@ MATMUL_SHAPES = [
     (1500, 1536, 256, 384, 4, "bfloat16"),    # enc ffn.up
     (1500, 384, 1536, 1536, 4, "bfloat16"),   # enc ffn.down
 ]
+# dense path, all operands bf16: (m, n, k_main, k_full, launches, x dtype)
+BF16_STEP_SHAPES = [
+    (1, 384, 256, 384, 24, "bfloat16"),     # self q/k/v/o + cross q/o
+    (1, 1536, 256, 384, 4, "bfloat16"),     # ffn.up
+    (1, 384, 1536, 1536, 4, "bfloat16"),    # ffn.down
+    (1, 51872, 256, 384, 1, "bfloat16"),    # dec.vocab
+]
+BF16_PREFILL_SHAPES = [
+    (1500, 384, 256, 384, 24, "bfloat16"),    # enc q/k/v/o + dec.cross.k/v
+    (1500, 1536, 256, 384, 4, "bfloat16"),    # enc ffn.up
+    (1500, 384, 1536, 1536, 4, "bfloat16"),   # enc ffn.down
+]
+# (batch*heads, Sq, Sk, D, launches per prefill, dtype, causal)
+FLASH_SHAPES = [(6, 1500, 1500, 64, 4, "bfloat16", False)]   # encoder
+FLASH_CHECKS = [                 # held against the plain version, not timed
+    (6, 1500, 1500, 64, 0, "bfloat16", True),
+    (3, 37, 101, 64, 0, "bfloat16", False),
+    (3, 101, 37, 16, 0, "float32", True),
+    (2, 1000, 1000, 16, 0, "float32", False),
+]
 KERNELS = {
     "q8_matvec": dict(source="src/repro_torch/csrc/q8_matvec.cu",
                       replaces="src/repro/kernels/q8_matvec.py:68",
-                      shapes=MATVEC_SHAPES),
+                      shapes={"decode step": MATVEC_SHAPES},
+                      library_call="torch.matmul(x_f32, W_dequantized_f32.T):"
+                                   " no single PyTorch call computes a Q8_0 "
+                                   "product"),
     "q8_matmul": dict(source="src/repro_torch/csrc/q8_matmul.cu",
                       replaces="src/repro/kernels/q8_matmul.py:87",
-                      shapes=MATMUL_SHAPES),
+                      shapes={"prefill": MATMUL_SHAPES},
+                      library_call="torch.matmul(x_f32, W_dequantized_f32.T):"
+                                   " no single PyTorch call computes a Q8_0 "
+                                   "product"),
+    "bf16_matmul": dict(source="src/repro_torch/csrc/bf16_matmul.cu",
+                        replaces="src/repro/kernels/bf16_matmul.py:76",
+                        shapes={"prefill": BF16_PREFILL_SHAPES,
+                                "decode step": BF16_STEP_SHAPES},
+                        library_call="torch.matmul(x_bf16, W_bf16.T) on the "
+                                     "same strided bf16 operands (cuBLAS, "
+                                     "bf16 output)"),
+    "flash_attention_fwd": dict(
+        source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:94",
+        shapes={"prefill": FLASH_SHAPES},
+        library_call="torch.nn.functional.scaled_dot_product_attention on "
+                     "the same bf16 q, k, v as (1, BH, S, D)"),
 }
 MAX_NEW = 32
 
@@ -94,29 +155,42 @@ def wall_ms(fn, iters: int = 50) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _device_total_us(prof) -> float:
+    return sum(getattr(e, "self_device_time_total", 0.0)
+               for e in prof.key_averages())
+
+
 def device_us(prof) -> float:
     """Summed device time (µs) of every kernel and copy a profile saw.
     Raises if the profiler saw none: a wall-clock time is not a device
     time."""
-    total = sum(getattr(e, "self_device_time_total", 0.0)
-                for e in prof.key_averages())
+    total = _device_total_us(prof)
     if not total > 0:
         raise RuntimeError("torch.profiler recorded no device time")
     return total
 
 
-def device_ms(fn, iters: int = 20) -> float:
+def device_ms(fn, iters: int = 20, attempts: int = 3) -> float:
     """Device time per call: the card's own time in the kernels one call
-    launches (torch.profiler, CUPTI), without the host's launch cost."""
+    launches (torch.profiler, CUPTI), without the host's launch cost. A
+    profiled window in which CUPTI delivered no kernel record (seen once in
+    a run of short windows) is profiled again, up to ``attempts`` times,
+    then raises."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return device_us(prof) / 1e3 / iters
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total = _device_total_us(prof)
+        if total > 0:
+            return total / 1e3 / iters
+        print("torch.profiler recorded no device time; profiling again",
+              flush=True)
+    raise RuntimeError("torch.profiler recorded no device time")
 
 
 def bound(bytes_ms: float, ops_ms: float):
@@ -127,74 +201,159 @@ def bound(bytes_ms: float, ops_ms: float):
             else (ops_ms, "operations"))
 
 
-def check_kernels():
-    """Phase 2: every kernel against its plain version at the main path's
-    shapes, with its times and bound. Returns the per-kernel records."""
+def _q8_case(gen, m, n, k, k_full, xdt):
+    """Operands of a Q8_0 kernel at one shape: (kernel args, library
+    call, bytes moved, FLOPs, FLOP rate key)."""
     import torch
     from repro_torch.core.qformats import QTensor, quantize_q8_0
-    from repro_torch.kernels import q8_matmul, q8_matvec
+    dtype = getattr(torch, xdt)
+    x_full = torch.randn((m, k_full), generator=gen, device="cuda").to(dtype)
+    w = torch.randn((n, k_full), generator=gen, device="cuda") * 0.05
+    wq = quantize_q8_0(w)
+    main = QTensor(wq.qs[:, :k // 32], wq.scales[:, :k // 32])
+    args = (x_full[:, :k], main.flat_qs(), main.scales)
+    w_deq = (main.qs.float() * main.scales[..., None]).reshape(n, k
+                                                              ).contiguous()
+    x32 = args[0].float().contiguous()
+    # each input read once (x, int8 qs, f32 scales), output written once
+    moved = m * k * x_full.element_size() + n * k + (n * k // 32) * 4 \
+        + m * n * 4
+    return args, lambda: torch.matmul(x32, w_deq.t()), moved, \
+        2 * m * n * k, xdt
 
-    mods = {"q8_matvec": (q8_matvec.q8_matvec, q8_matvec.q8_matvec_plain),
-            "q8_matmul": (q8_matmul.q8_matmul, q8_matmul.q8_matmul_plain)}
+
+def _bf16_case(gen, m, n, k, k_full, xdt):
+    """Operands of bf16_matmul at one shape: the first k of k_full columns
+    of x and a bf16 W, as the burst split hands them over."""
+    import torch
+    x_full = torch.randn((m, k_full), generator=gen, device="cuda").to(
+        getattr(torch, xdt))
+    w_full = (torch.randn((n, k_full), generator=gen, device="cuda") * 0.05
+              ).to(torch.bfloat16)
+    x, w = x_full[:, :k], w_full[:, :k]
+    xb = x.to(torch.bfloat16)
+    moved = m * k * x.element_size() + n * k * 2 + m * n * 4
+    return (x, w), lambda: torch.matmul(xb, w.t()), moved, 2 * m * n * k, \
+        "bfloat16"
+
+
+def _flash_case(gen, bh, sq, sk, d, dt):
+    """q, k, v of flash_attention_fwd as the encoder hands them over: the
+    (B, S, H, D) projections folded to (B*H, S, D) views."""
+    import torch
+    dtype = getattr(torch, dt)
+    q, k, v = (torch.randn((1, s, bh, d), generator=gen, device="cuda").to(
+        dtype).transpose(1, 2).reshape(bh, s, d) for s in (sq, sk, sk))
+    size = q.element_size()
+    moved = (bh * sq * d + 2 * bh * sk * d) * size + bh * sq * d * 4
+    q4, k4, v4 = (t.contiguous()[None] for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    return (q, k, v), lambda: sdpa(q4, k4, v4), moved, \
+        4 * bh * sq * sk * d, dt
+
+
+def _measure(name, label, kernel, plain, library, moved, flops, rate, tol):
+    """Kernel against plain at one shape, then the times and the bound.
+    ``tol`` is relative to the plain output's largest value (at least 1)."""
+    import torch
+    got = kernel()
+    want = plain()
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    lim = tol * max(1.0, want.abs().max().item())
+    if not err <= lim:
+        raise AssertionError(f"{name} {label}: max |kernel - plain| = {err} "
+                             f"> {lim}")
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / FLOPS_PER_S[rate] * 1e3
+    b_ms, b_by = bound(bytes_ms, ops_ms)
+    return dict(max_abs_err=err, bytes=moved, flops=flops,
+                bytes_ms=bytes_ms, ops_ms=ops_ms, ms=device_ms(kernel),
+                wall_ms=wall_ms(kernel), plain_ms=device_ms(plain),
+                library_ms=device_ms(library), bound_ms=b_ms, bound_by=b_by)
+
+
+def check_kernels():
+    """Phase 2: every kernel against its plain version at the main paths'
+    shapes, with its times and bound, and the extra flash checks. Returns
+    the per-kernel records."""
+    import torch
+    from repro_torch.kernels import (
+        bf16_matmul, flash_attention, q8_matmul, q8_matvec)
+
+    mods = {"q8_matvec": (q8_matvec.q8_matvec, q8_matvec.q8_matvec_plain,
+                          _q8_case),
+            "q8_matmul": (q8_matmul.q8_matmul, q8_matmul.q8_matmul_plain,
+                          _q8_case),
+            "bf16_matmul": (bf16_matmul.bf16_matmul,
+                            bf16_matmul.bf16_matmul_plain, _bf16_case)}
     gen = torch.Generator(device="cuda").manual_seed(0)
     records = {}
     for name, meta in KERNELS.items():
-        kernel, plain = mods[name]
         rows = []
-        for m, n, k, k_full, count, xdt in meta["shapes"]:
-            dtype = getattr(torch, xdt)
-            x_full = torch.randn((m, k_full), generator=gen, device="cuda"
-                                 ).to(dtype)
-            w = torch.randn((n, k_full), generator=gen, device="cuda") * 0.05
-            wq = quantize_q8_0(w)
-            main = QTensor(wq.qs[:, :k // 32], wq.scales[:, :k // 32])
-            x, qs, sc = x_full[:, :k], main.flat_qs(), main.scales
-            got = kernel(x, qs, sc)
-            want = plain(x, qs, sc)
-            torch.cuda.synchronize()
-            err = (got - want).abs().max().item()
-            tol = 1e-4 * max(1.0, want.abs().max().item())
-            if not err <= tol:
-                raise AssertionError(f"{name} {m}x{n}x{k}: max |kernel - "
-                                     f"plain| = {err} > {tol}")
-            w_deq = (main.qs.float() * main.scales[..., None]
-                     ).reshape(n, k).contiguous()
-            x32 = x.float().contiguous()
-            # each input read once (x, int8 qs, f32 scales), output written once
-            moved = (m * k * x.element_size() + n * k + (n * k // 32) * 4
-                     + m * n * 4)
-            bytes_ms = moved / HBM_BYTES_PER_S * 1e3
-            ops_ms = 2 * m * n * k / FLOPS_PER_S[xdt] * 1e3
-            b_ms, b_by = bound(bytes_ms, ops_ms)
-            row = dict(m=m, n=n, k=k, x=xdt, per_step=count, max_abs_err=err,
-                       bytes=moved, flops=2 * m * n * k,
-                       bytes_ms=bytes_ms, ops_ms=ops_ms,
-                       ms=device_ms(lambda: kernel(x, qs, sc)),
-                       wall_ms=wall_ms(lambda: kernel(x, qs, sc)),
-                       plain_ms=device_ms(lambda: plain(x, qs, sc)),
-                       library_ms=device_ms(
-                           lambda: torch.matmul(x32, w_deq.t())),
-                       bound_ms=b_ms, bound_by=b_by)
-            print(f"kernel {name} m={m} n={n} k={k} x={xdt} x{count}: "
-                  f"max_abs_err={err:.3e} ms={row['ms']:.5f} "
-                  f"wall_ms={row['wall_ms']:.5f} "
-                  f"plain_ms={row['plain_ms']:.5f} "
-                  f"library_ms(torch.matmul, dequantized f32 W)="
-                  f"{row['library_ms']:.5f} bound_ms={b_ms:.5f} ({b_by})",
-                  flush=True)
-            rows.append(row)
+        for per, shapes in meta["shapes"].items():
+            for shape in shapes:
+                if name == "flash_attention_fwd":
+                    bh, sq, sk, d, count, dt, causal = shape
+                    args, library, moved, flops, rate = _flash_case(
+                        gen, bh, sq, sk, d, dt)
+                    kw = dict(causal=causal)
+                    kernel = flash_attention.flash_attention_fwd
+                    plain = flash_attention.flash_attention_fwd_plain
+                    tol = FLASH_BF16_TOL if dt == "bfloat16" else KERNEL_TOL
+                    label = (f"bh={bh} sq={sq} sk={sk} d={d} {dt} "
+                             f"causal={causal}")
+                    dims = dict(bh=bh, sq=sq, sk=sk, d=d, dtype=dt,
+                                causal=causal)
+                else:
+                    m, n, k, k_full, count, xdt = shape
+                    kernel, plain, case = mods[name]
+                    args, library, moved, flops, rate = case(
+                        gen, m, n, k, k_full, xdt)
+                    kw = {}
+                    tol = KERNEL_TOL
+                    label = f"m={m} n={n} k={k} x={xdt}"
+                    dims = dict(m=m, n=n, k=k, x=xdt)
+                row = _measure(name, label,
+                               lambda: kernel(*args, **kw),
+                               lambda: plain(*args, **kw),
+                               library, moved, flops, rate, tol)
+                row.update(dims, per=per, per_step=count)
+                print(f"kernel {name} {label} x{count} per {per}: "
+                      f"max_abs_err={row['max_abs_err']:.3e} "
+                      f"ms={row['ms']:.5f} wall_ms={row['wall_ms']:.5f} "
+                      f"plain_ms={row['plain_ms']:.5f} "
+                      f"library_ms={row['library_ms']:.5f} "
+                      f"bound_ms={row['bound_ms']:.5f} ({row['bound_by']})",
+                      flush=True)
+                rows.append(row)
         records[name] = rows
+    for bh, sq, sk, d, _, dt, causal in FLASH_CHECKS:
+        (q, k, v), *_ = _flash_case(gen, bh, sq, sk, d, dt)
+        got = flash_attention.flash_attention_fwd(q, k, v, causal=causal)
+        want = flash_attention.flash_attention_fwd_plain(q, k, v,
+                                                         causal=causal)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        tol = FLASH_BF16_TOL if dt == "bfloat16" else KERNEL_TOL
+        print(f"check flash_attention_fwd bh={bh} sq={sq} sk={sk} d={d} "
+              f"{dt} causal={causal}: max_abs_err={err:.3e} (tolerance "
+              f"{tol})", flush=True)
+        if not err <= tol * max(1.0, want.abs().max().item()):
+            raise AssertionError(f"flash_attention_fwd check failed: {err}")
     return records
 
 
-def check_against_cpu(cfg, params_cpu, mel, card_logits, sot):
+def check_against_cpu(cfg, params_cpu, mel, card_logits, sot,
+                      tol=FIRST_STEP_TOL):
     """The first decode step's logits on the CPU, same weights and mel,
     against the card's; the greedy token must agree wherever the CPU's
     top-1/top-2 margin exceeds twice the tolerance. Tolerance
     FIRST_STEP_TOL: whisper-tiny runs its encoder in bf16, and a sum that
     differs in its last f32 bits between card and CPU can round to a
     neighbouring bf16 value (a relative step of 2^-8) and carry through
-    the layers; logits are of O(1)."""
+    the layers; logits are of O(1). The dense path passes
+    DENSE_FIRST_STEP_TOL."""
     import torch
     from repro_torch.core.offload import OffloadEngine
     from repro_torch.serve.engine import ServeEngine
@@ -205,12 +364,12 @@ def check_against_cpu(cfg, params_cpu, mel, card_logits, sot):
     cpu_logits, _ = eng.step(torch.full((1, 1), sot), state)
     diff = (card_logits.cpu() - cpu_logits).abs().max().item()
     print(f"first step logits card vs cpu: max_abs_err={diff:.3e} "
-          f"(tolerance {FIRST_STEP_TOL}), |logits|max="
+          f"(tolerance {tol}), |logits|max="
           f"{cpu_logits.abs().max().item():.3f}", flush=True)
-    if not diff <= FIRST_STEP_TOL:
+    if not diff <= tol:
         raise AssertionError(f"card and CPU first-step logits differ by {diff}")
     top2 = cpu_logits[0, -1, :cfg.vocab_size].topk(2).values
-    if (top2[0] - top2[1]).item() > 2 * FIRST_STEP_TOL and int(
+    if (top2[0] - top2[1]).item() > 2 * tol and int(
             cpu_logits[0, -1, :cfg.vocab_size].argmax()) != int(
             card_logits[0, -1, :cfg.vocab_size].argmax()):
         raise AssertionError("card and CPU pick different first tokens")
@@ -355,6 +514,75 @@ def batch2_routing():
         raise AssertionError("batch 2 did not decode every row")
 
 
+def dense_flash_path():
+    """Phase 5: full-width whisper-tiny with bf16 weights (quant="none")
+    and attn_impl="flash": the same transcribe as the main path, every
+    dense main segment on bf16_matmul and every encoder attention on
+    flash_attention_fwd."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.offload import OffloadEngine
+    from repro_torch.kernels import (
+        bf16_matmul, flash_attention, q8_matmul, q8_matvec)
+    from repro_torch.models import model
+    from repro_torch.serve.engine import ServeEngine
+
+    counted = {"bf16_matmul": bf16_matmul.bf16_matmul,
+               "flash_attention_fwd": flash_attention.flash_attention_fwd,
+               "q8_matmul": q8_matmul.q8_matmul,
+               "q8_matvec": q8_matvec.q8_matvec}
+    cfg = dataclasses.replace(get_config("whisper-tiny"), quant="none",
+                              attn_impl="flash")
+    params_cpu = model.init_params(torch.Generator().manual_seed(4), cfg,
+                                   device="cpu")
+    mel = np.random.default_rng(5).standard_normal(
+        (1, cfg.encoder_ctx, cfg.n_mels)).astype(np.float32)
+    eng = ServeEngine(cfg, params_cpu, max_len=MAX_NEW + 8,
+                      offload=OffloadEngine(), eos_id=None, device="cuda")
+    eng.transcribe(mel, max_new=2)                    # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counted.values():
+        fn.launches = 0
+    res = eng.transcribe(mel, max_new=MAX_NEW)
+    launches = {name: fn.launches for name, fn in counted.items()}
+    peak = torch.cuda.max_memory_allocated()
+    r = res[0]
+    print(f"dense+flash path: whisper-tiny bf16 transcribe 1x"
+          f"{cfg.encoder_ctx} frames, {r.steps} tokens: prefill_ms="
+          f"{r.prefill_s * 1e3:.3f} decode_ms_per_token="
+          f"{r.decode_s * 1e3 / r.steps:.3f} peak_mem_bytes={peak} "
+          f"launches={launches}", flush=True)
+    print(f"dense+flash path tokens: {r.tokens}", flush=True)
+    if r.steps != MAX_NEW or len(r.tokens) != MAX_NEW:
+        raise AssertionError(f"expected {MAX_NEW} tokens, got {r.steps}")
+    if not all(0 <= t < cfg.vocab_size for t in r.tokens):
+        raise AssertionError("token outside the vocabulary")
+    want = {"bf16_matmul": 32 + 33 * MAX_NEW,
+            "flash_attention_fwd": cfg.num_encoder_layers,
+            "q8_matmul": 0, "q8_matvec": 0}
+    if launches != want:
+        raise AssertionError(f"launch counts {launches}: expected {want}")
+
+    sot = 1
+    _, state = eng.prefill(torch.from_numpy(mel).cuda())
+    card_logits, _ = eng.step(torch.full((1, 1), sot, device="cuda"), state)
+    if not torch.isfinite(card_logits).all():
+        raise AssertionError("non-finite logits on the card")
+    if int(card_logits[0, -1, :cfg.vocab_size].argmax()) != r.tokens[0]:
+        raise AssertionError("first-step argmax differs from transcribe")
+    err = check_against_cpu(cfg, params_cpu, mel, card_logits, sot,
+                            tol=DENSE_FIRST_STEP_TOL)
+    split = where_time_goes(eng, mel, cfg.vocab_size)
+    return launches, dict(prefill_ms=r.prefill_s * 1e3,
+                          decode_ms_per_token=r.decode_s * 1e3 / r.steps,
+                          peak_mem_bytes=peak, first_step_cpu_err=err,
+                          **split)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -381,13 +609,18 @@ def main() -> int:
     launches, path = main_path()
     print(f"main path summary: {json.dumps(path)}", flush=True)
     batch2_routing()
+    dense_launches, dense = dense_flash_path()
+    print(f"dense+flash path summary: {json.dumps(dense)}", flush=True)
+    launches.update((k, dense_launches[k])
+                    for k in ("bf16_matmul", "flash_attention_fwd"))
 
     kernels = []
     for name, meta in KERNELS.items():
         rows = records[name]
 
-        def total(key):        # over the launches of one step or prefill
-            return sum(r[key] * r["per_step"] for r in rows)
+        def total(key, per=None):   # over one prefill and/or decode step
+            return sum(r[key] * r["per_step"] for r in rows
+                       if per in (None, r["per"]))
         b_ms, b_by = bound(total("bytes_ms"), total("ops_ms"))
         kernels.append(dict(
             name=name, route="cuda", source=meta["source"],
@@ -396,9 +629,11 @@ def main() -> int:
             ms=total("ms"), plain_ms=total("plain_ms"),
             bound_ms=b_ms, bound_by=b_by,
             library_ms=total("library_ms"),
-            library_call="torch.matmul(x_f32, W_dequantized_f32.T): no single "
-                         "PyTorch call computes a Q8_0 product",
-            per="decode step" if name == "q8_matvec" else "prefill",
+            library_call=meta["library_call"],
+            per=" + one ".join(meta["shapes"]),
+            by_phase={per: {key: total(key, per) for key in (
+                "ms", "plain_ms", "library_ms", "bytes_ms", "ops_ms")}
+                for per in meta["shapes"]},
             shapes=rows))
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -1,16 +1,15 @@
 """The Hopper backend: the paper's accelerator path on the H100, in the
 role of the reference's ``pallas_tpu`` backend.
 
-It runs Q8_0 main segments on the hand-written CUDA kernels and picks the
-kernel by the reference's rule (``kernel_for``: ``q8_matvec`` when the
-sublane-padded M is at most 16, else ``q8_matmul``), which stays the
-identity of every plan entry. It takes every Q8_0 main segment, also
-those the reference's local-memory rule marks ``offload=False``: the H100
-kernels have no such capacity limit. Unlike the TPU backend it pads
-nothing and resolves no tiles: the kernels choose their own tiles and
-mask ragged M and N themselves, and they read the K-sliced weight through
-its row stride. Dense (``bf16``) main segments are not taken yet: ``bf16_matmul``
-comes with a later slice, and until then they resolve to ``torch_ref``.
+It runs every main segment on the hand-written CUDA kernels: Q8_0 ones on
+``q8_matvec`` when the sublane-padded M is at most 16, else ``q8_matmul``
+(the reference's ``kernel_for`` rule, which stays the identity of every
+plan entry), and dense (``bf16``) ones on ``bf16_matmul`` at every M. It
+takes every main segment, also those the reference's local-memory rule
+marks ``offload=False``: the H100 kernels have no such capacity limit.
+Unlike the TPU backend it pads nothing and resolves no tiles: the kernels
+choose their own tiles and mask ragged M and N themselves, and they read
+the K-sliced weight through its row stride.
 
 On CPU tensors the kernel wrappers run their plain versions; on CUDA
 tensors they launch the kernel or raise.
@@ -21,6 +20,7 @@ import torch
 
 from repro_torch.backends.base import MAIN, KernelRequest, kernel_for
 from repro_torch.core.qformats import QBLOCK, QTensor
+from repro_torch.kernels.bf16_matmul import bf16_matmul
 from repro_torch.kernels.q8_matmul import q8_matmul
 from repro_torch.kernels.q8_matvec import q8_matvec
 
@@ -34,16 +34,16 @@ def q8_main(x2d: torch.Tensor, wq: QTensor) -> torch.Tensor:
 
 
 class HopperBackend:
-    """The port's CUDA kernels for Q8_0 main segments."""
+    """The port's CUDA kernels for every main segment."""
 
     name = "hopper"
 
     def supports(self, req: KernelRequest) -> bool:
-        return (req.segment == MAIN and req.dtype == "q8_0"
-                and req.k % QBLOCK == 0)
+        return req.segment == MAIN and (req.dtype != "q8_0"
+                                        or req.k % QBLOCK == 0)
 
     def auto(self, req: KernelRequest) -> bool:
         return self.supports(req)
 
     def build(self, req: KernelRequest):
-        return q8_main
+        return q8_main if req.dtype == "q8_0" else bf16_matmul

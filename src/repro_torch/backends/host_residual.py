@@ -7,9 +7,9 @@ Q8_0 weights are dequantized on this path (whole blocks: the burst is a
 QBLOCK multiple, so the tail starts block-aligned). TF32 must stay off for
 it to match the reference's f32 semantics (``core.device.resolve_device``
 turns it off).
-It takes no Q8_0 main segment, even when forced or pinned: those run on
-the Hopper kernels. Under capability resolution it only volunteers for
-residual segments.
+It takes no main segment, Q8_0 or dense, even when forced or pinned: those
+run on the Hopper kernels. A linear whose K is shorter than the burst has
+no main segment, so all of it is one residual segment here.
 """
 from __future__ import annotations
 
@@ -30,11 +30,11 @@ class HostResidualBackend:
     name = "host_residual"
 
     def supports(self, req: KernelRequest) -> bool:
-        return req.dtype != "q8_0" or (req.segment == RESIDUAL
-                                       and req.k % QBLOCK == 0)
+        return req.segment == RESIDUAL and (req.dtype != "q8_0"
+                                            or req.k % QBLOCK == 0)
 
     def auto(self, req: KernelRequest) -> bool:
-        return req.segment == RESIDUAL and self.supports(req)
+        return self.supports(req)
 
     def build(self, req: KernelRequest):
         return q8_matmul_ref if req.dtype == "q8_0" else _dense_host

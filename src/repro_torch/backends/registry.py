@@ -6,14 +6,14 @@ Precedence for a *main* segment:
   1. a forced backend — the ``force("name")`` context;
   2. a pinned backend — a plan entry's ``backend``;
   3. capability order: the first registered backend whose ``auto(request)``
-     volunteers (hopper for Q8_0 main segments, host_residual for residual
-     segments, torch_ref for dense main segments).
+     volunteers (hopper for every main segment, Q8_0 or dense;
+     host_residual for residual segments).
 
 Residual segments skip 1-2: the host residual arm is part of the paper's
 mixed-execution semantics (f32 on the host arm), not a choice to redirect.
 A forced or pinned backend that cannot support the request falls through
-to capability order. Only ``hopper`` supports a Q8_0 main segment, so no
-force or pin can send one to a plain version on the card.
+to capability order. Only ``hopper`` supports a main segment, so no force
+or pin can send one to a plain version on the card.
 """
 from __future__ import annotations
 

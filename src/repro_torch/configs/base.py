@@ -45,11 +45,17 @@ class ModelConfig:
 
     quant: str = "none"          # none | q8_0  (weights for the serving path)
     burst: int = 256
+    # encoder attention: "chunked" (q-chunked full-row softmax) | "flash"
+    # (k-blocked online softmax on the flash_attention_fwd kernel)
+    attn_impl: str = "chunked"
 
     def __post_init__(self):
         if self.head_dim == 0:
             object.__setattr__(self, "head_dim",
                                self.d_model // max(self.num_heads, 1))
+        if self.attn_impl not in ("chunked", "flash"):
+            raise ValueError(f"attn_impl {self.attn_impl!r}: 'chunked' or "
+                             "'flash'")
         if self.family != AUDIO or not self.is_encoder_decoder:
             raise ValueError(f"{self.name}: the port serves the audio "
                              "encoder-decoder family only")

@@ -38,7 +38,7 @@ class PlanEntry:
     kernel: str
     k_main: int
     k_res: int
-    backend: str = "torch_ref"
+    backend: str
 
     @property
     def flops(self) -> int:

@@ -1,0 +1,299 @@
+// 16-bit matrix product for the dense (FP16-path) serving path, written for
+// Hopper (sm_90a).
+//
+//   out[m, n] = sum_k bf16(x[m, k]) * bf16(w[n, k])      (f32 accumulation)
+//
+// Replaces the Pallas TPU kernel repro/kernels/bf16_matmul.py (bf16_matmul,
+// body _bf16_matmul_kernel): both operands are rounded to bf16 inside the
+// kernel (x is f32 or bf16, W bf16 or f32), products are exact in f32 and
+// summed in f32. Two launch configurations in one source:
+//
+//   * M <= 16 (decode, M = 1): each weight byte feeds at most 16
+//     multiply-adds, so the product is bound by the bytes of W streamed from
+//     device memory. Each warp owns kRows output rows and walks them along
+//     K, each lane loading 8 consecutive values (16 bytes of bf16) a step;
+//     the <= 16 activation rows are staged in shared memory as bf16-rounded
+//     f32; each row is reduced across the warp with shuffles. This is the
+//     q8_matvec design on a bf16 payload.
+//   * M > 16 (prefill, M = 1500): bound by the bytes as well at these shapes
+//     (K = 256 or 1536 and an f32 output of M x N), but only on the tensor
+//     cores. Each block of 4 warps owns a 64 x 64 output tile and loops over
+//     K inside the block in steps of 32 (the TPU kernel carried its
+//     accumulator across a sequential grid dimension); per step the x and W
+//     tiles are converted to bf16 into shared memory and each warp runs
+//     2 x 2 bf16 WMMA 16x16x16 products with f32 accumulators. The tile is
+//     staged through shared memory for the masked store.
+//
+// Both read x and W through their row strides (the burst-aligned main
+// segment is the first 256 of 384 columns and is never copied), and mask
+// ragged M, N and K in the kernel (M = 1500, N = 51,872 = 2^5 * 1621): no
+// padding. Rows are loaded 16 bytes at a time where the operand's base and
+// row stride allow it, else element by element.
+//
+// Plain C interface, loaded with ctypes. The launch allocates nothing, runs on
+// the caller's stream and returns cudaGetLastError().
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <mma.h>
+#include <stdint.h>
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// 8 consecutive values of a row from p, as f32, zero beyond `valid`
+__device__ __forceinline__ void load8(const float* p, bool vec, int valid,
+                                      float v[8]) {
+  if (vec && valid == 8) {
+    const float4 a = reinterpret_cast<const float4*>(p)[0];
+    const float4 b = reinterpret_cast<const float4*>(p)[1];
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+    v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+  } else {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) v[j] = j < valid ? p[j] : 0.f;
+  }
+}
+
+__device__ __forceinline__ void load8(const bf16* p, bool vec, int valid,
+                                      float v[8]) {
+  if (vec && valid == 8) {
+    const uint4 u = *reinterpret_cast<const uint4*>(p);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 f = __bfloat1622float2(h[j]);
+      v[2 * j] = f.x;
+      v[2 * j + 1] = f.y;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) v[j] = j < valid ? __bfloat162float(p[j]) : 0.f;
+  }
+}
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
+
+// ---------------------------------------------------------------- M <= 16
+constexpr int kWarps = 4;                    // warps per block
+constexpr int kRows = 2;                     // output rows per warp
+constexpr int kRowsPerBlock = kWarps * kRows;
+constexpr int kSmemBytes = 48 * 1024;        // activation chunk, no opt-in needed
+
+template <typename TX, typename TW, int MT>
+__global__ void __launch_bounds__(kWarps * 32)
+matvec_kernel(const TX* __restrict__ x, long long ldx,
+              const TW* __restrict__ w, long long ldw, bool vw,
+              float* __restrict__ out, long long ldo, int m, int n, int k,
+              int kc) {
+  extern __shared__ __align__(16) float xs[];  // [MT][kc] bf16-rounded x
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int row0 = blockIdx.x * kRowsPerBlock + warp * kRows;
+
+  float acc[kRows][MT];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r)
+#pragma unroll
+    for (int i = 0; i < MT; ++i) acc[r][i] = 0.f;
+
+  for (int k0 = 0; k0 < k; k0 += kc) {
+    const int len = min(kc, k - k0);
+    const int len8 = (len + 7) & ~7;         // zero-filled to whole groups of 8
+    __syncthreads();                         // previous chunk fully consumed
+    for (int i = threadIdx.x; i < MT * len8; i += blockDim.x) {
+      const int r = i / len8, c = i - r * len8;
+      xs[r * kc + c] =
+          r < m && c < len ? round_bf16(to_f32(x[r * ldx + k0 + c])) : 0.f;
+    }
+    __syncthreads();
+
+    for (int c = lane * 8; c < len; c += 256) {
+      float wv[kRows][8];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const int row = row0 + r;
+        if (row < n) {
+          load8(w + row * ldw + k0 + c, vw, min(8, len - c), wv[r]);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) wv[r][j] = round_bf16(wv[r][j]);
+        } else {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) wv[r][j] = 0.f;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        const float4 a = *reinterpret_cast<const float4*>(&xs[i * kc + c]);
+        const float4 b = *reinterpret_cast<const float4*>(&xs[i * kc + c + 4]);
+        const float xv[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+#pragma unroll
+        for (int r = 0; r < kRows; ++r)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[r][i] = fmaf(xv[j], wv[r][j], acc[r][i]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int row = row0 + r;
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      float v = acc[r][i];
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        v += __shfl_xor_sync(0xffffffffu, v, off);
+      if (lane == 0 && row < n && i < m) out[i * ldo + row] = v;
+    }
+  }
+}
+
+template <typename TX, typename TW, int MT>
+cudaError_t launch_matvec(const TX* x, long long ldx, const TW* w,
+                          long long ldw, bool vw, float* out, long long ldo,
+                          int m, int n, int k, cudaStream_t stream) {
+  // K chunk staged in shared memory: as much of K as fits, whole groups of 8
+  int kc = (kSmemBytes / (4 * MT)) / 8 * 8;
+  const int k8 = (k + 7) / 8 * 8;
+  if (kc > k8) kc = k8;
+  const dim3 grid((n + kRowsPerBlock - 1) / kRowsPerBlock);
+  matvec_kernel<TX, TW, MT><<<grid, kWarps * 32, MT * kc * sizeof(float),
+                              stream>>>(x, ldx, w, ldw, vw, out, ldo, m, n, k,
+                                        kc);
+  return cudaGetLastError();
+}
+
+// ----------------------------------------------------------------- M > 16
+constexpr int kBM = 64, kBN = 64, kBK = 32;  // block tile
+constexpr int kLd = kBK + 8;                 // bf16 tile row: 80 bytes, 16-aligned
+constexpr int kLdC = kBN + 4;                // f32 staging row
+constexpr int kTileThreads = 128;            // 4 warps, each a 32 x 32 quarter
+
+// one 64 x 32 tile of rows r0.. of a (rows, k) operand into shared memory as
+// bf16, zero beyond `rows` and `k`
+template <typename T>
+__device__ __forceinline__ void stage(bf16 (*dst)[kLd], const T* src,
+                                      long long ld, bool vec, int r0, int rows,
+                                      int k0, int k) {
+  for (int i = threadIdx.x; i < kBM * (kBK / 8); i += kTileThreads) {
+    const int r = i / (kBK / 8), c = (i % (kBK / 8)) * 8;
+    const int valid = r0 + r < rows ? max(0, min(8, k - k0 - c)) : 0;
+    float v[8];
+    if (valid > 0) {
+      load8(src + (r0 + r) * ld + k0 + c, vec, valid, v);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) v[j] = 0.f;
+    }
+    __align__(16) __nv_bfloat162 h[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) h[j] = __floats2bfloat162_rn(v[2 * j], v[2 * j + 1]);
+    *reinterpret_cast<uint4*>(&dst[r][c]) = *reinterpret_cast<const uint4*>(h);
+  }
+}
+
+template <typename TX, typename TW>
+__global__ void __launch_bounds__(kTileThreads)
+tiled_kernel(const TX* __restrict__ x, long long ldx, bool vx,
+             const TW* __restrict__ w, long long ldw, bool vw,
+             float* __restrict__ out, long long ldo, int m, int n, int k) {
+  using namespace nvcuda;
+  __shared__ __align__(32) bf16 xs[kBM][kLd];
+  __shared__ __align__(32) bf16 ws[kBN][kLd];
+  __shared__ __align__(32) float cs[kBM][kLdC];
+  const int warp = threadIdx.x >> 5;
+  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
+  const int bm = blockIdx.y * kBM, bn = blockIdx.x * kBN;
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+
+  for (int k0 = 0; k0 < k; k0 += kBK) {
+    stage(xs, x, ldx, vx, bm, m, k0, k);
+    stage(ws, w, ldw, vw, bn, n, k0, k);
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kBK; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[2];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        wmma::load_matrix_sync(a[i], &xs[wm + 16 * i][kk], kLd);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)   // W[n][k] row-major is B[k][n] col-major
+        wmma::load_matrix_sync(b[j], &ws[wn + 16 * j][kk], kLd);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      wmma::store_matrix_sync(&cs[wm + 16 * i][wn + 16 * j], acc[i][j], kLdC,
+                              wmma::mem_row_major);
+  __syncthreads();
+  for (int i = threadIdx.x; i < kBM * kBN; i += kTileThreads) {
+    const int r = i / kBN, c = i % kBN;
+    if (bm + r < m && bn + c < n) out[(bm + r) * ldo + bn + c] = cs[r][c];
+  }
+}
+
+template <typename TX, typename TW>
+cudaError_t run(const void* xv, long long ldx, bool vx, const void* wv,
+                long long ldw, bool vw, float* out, long long ldo, int m, int n,
+                int k, cudaStream_t st) {
+  const auto* x = static_cast<const TX*>(xv);
+  const auto* w = static_cast<const TW*>(wv);
+  if (m == 1) return launch_matvec<TX, TW, 1>(x, ldx, w, ldw, vw, out, ldo, m, n, k, st);
+  if (m <= 2) return launch_matvec<TX, TW, 2>(x, ldx, w, ldw, vw, out, ldo, m, n, k, st);
+  if (m <= 4) return launch_matvec<TX, TW, 4>(x, ldx, w, ldw, vw, out, ldo, m, n, k, st);
+  if (m <= 8) return launch_matvec<TX, TW, 8>(x, ldx, w, ldw, vw, out, ldo, m, n, k, st);
+  if (m <= 16) return launch_matvec<TX, TW, 16>(x, ldx, w, ldw, vw, out, ldo, m, n, k, st);
+  const dim3 grid((n + kBN - 1) / kBN, (m + kBM - 1) / kBM);
+  tiled_kernel<TX, TW><<<grid, kTileThreads, 0, st>>>(x, ldx, vx, w, ldw, vw,
+                                                      out, ldo, m, n, k);
+  return cudaGetLastError();
+}
+
+// rows of 8 values can be read 16 bytes at a time (bf16) or 2 x 16 (f32)
+bool rows_aligned(const void* p, long long ld, int elem) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && (ld * elem) % 16 == 0;
+}
+
+}  // namespace
+
+extern "C" int bf16_matmul(const void* x, int x_bf16, long long ldx,
+                           const void* w, int w_bf16, long long ldw, void* out,
+                           long long ldo, int m, int n, int k, void* stream) {
+  if (m < 1 || n < 1 || k < 1 || (m > 16 && (m + kBM - 1) / kBM > 65535))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool vx = rows_aligned(x, ldx, x_bf16 ? 2 : 4);
+  const bool vw = rows_aligned(w, ldw, w_bf16 ? 2 : 4);
+  auto* o = static_cast<float*>(out);
+  auto st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (x_bf16 && w_bf16)
+    err = run<bf16, bf16>(x, ldx, vx, w, ldw, vw, o, ldo, m, n, k, st);
+  else if (x_bf16)
+    err = run<bf16, float>(x, ldx, vx, w, ldw, vw, o, ldo, m, n, k, st);
+  else if (w_bf16)
+    err = run<float, bf16>(x, ldx, vx, w, ldw, vw, o, ldo, m, n, k, st);
+  else
+    err = run<float, float>(x, ldx, vx, w, ldw, vw, o, ldo, m, n, k, st);
+  return static_cast<int>(err);
+}

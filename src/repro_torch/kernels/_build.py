@@ -14,7 +14,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Tuple
 
 import torch
 
@@ -25,15 +25,25 @@ BUILD = Path(__file__).resolve().parents[3] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# every kernel of the port exports one C function of this signature:
-#   int fn(const void* x, int x_bf16, long long ldx,
-#          const void* qs, long long ldq, const void* scales, long long lds,
-#          void* out, long long ldo, int m, int n, int k, void* stream)
-_Q8_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                ctypes.c_void_p, ctypes.c_longlong,
-                ctypes.c_void_p, ctypes.c_longlong,
-                ctypes.c_void_p, ctypes.c_longlong,
-                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+#: each kernel: its source ``csrc/<source>.cu``, which exports one C
+#: function of the kernel's name, and that function's argument types (every
+#: one returns an int CUDA error code)
+KERNELS: Dict[str, Tuple[str, list]] = {
+    # (x, x_bf16, ldx, qs, ldq, scales, lds, out, ldo, m, n, k, stream)
+    "q8_matvec": ("q8_matvec",
+                  [_P, _I, _L, _P, _L, _P, _L, _P, _L, _I, _I, _I, _P]),
+    "q8_matmul": ("q8_matmul",
+                  [_P, _I, _L, _P, _L, _P, _L, _P, _L, _I, _I, _I, _P]),
+    # (x, x_bf16, ldx, w, w_bf16, ldw, out, ldo, m, n, k, stream)
+    "bf16_matmul": ("bf16_matmul",
+                    [_P, _I, _L, _P, _I, _L, _P, _L, _I, _I, _I, _P]),
+    # (q, k, v, bf16, q_sbh, q_ss, k_sbh, k_ss, v_sbh, v_ss, out,
+    #  bh, sq, sk, d, causal, stream)
+    "flash_attention_fwd": ("flash_attention",
+                            [_P, _P, _P, _I, _L, _L, _L, _L, _L, _L, _P,
+                             _I, _I, _I, _I, _I, _P]),
+}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -46,10 +56,14 @@ def nvcc() -> str:
     return path
 
 
+def _source(name: str) -> Path:
+    return CSRC / f"{KERNELS[name][0]}.cu"
+
+
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
+    src = _source(name)
     digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return BUILD / f"{name}-{digest.hexdigest()[:12]}.so"
+    return BUILD / f"{src.stem}-{digest.hexdigest()[:12]}.so"
 
 
 def build(names: Iterable[str]) -> Dict[str, str]:
@@ -64,7 +78,7 @@ def build(names: Iterable[str]) -> Dict[str, str]:
         if target.exists():
             continue
         tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_source(name))]
         jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True),
                       tmp, target)
@@ -74,7 +88,7 @@ def build(names: Iterable[str]) -> Dict[str, str]:
         out, _ = proc.communicate()
         logs[name] = out
         if proc.returncode != 0:
-            failed.append(f"nvcc failed for {name}.cu:\n{out}")
+            failed.append(f"nvcc failed for {_source(name).name}:\n{out}")
         else:
             os.replace(tmp, target)      # atomic: concurrent builds agree
     if failed:
@@ -89,7 +103,7 @@ def load(name: str) -> ctypes.CDLL:
         build([name])
         lib = ctypes.CDLL(str(library_path(name)))
         fn = getattr(lib, name)
-        fn.argtypes = _Q8_ARGTYPES
+        fn.argtypes = KERNELS[name][1]
         fn.restype = ctypes.c_int
         _LIBS[name] = lib
     return lib
@@ -119,26 +133,78 @@ def check_q8_operands(x: torch.Tensor, qs: torch.Tensor,
         raise ValueError("the last dim of x, qs and scales must be contiguous")
 
 
-def launch(name: str, x: torch.Tensor, qs: torch.Tensor,
-           scales: torch.Tensor) -> torch.Tensor:
-    """Launch kernel ``name`` on CUDA operands (already checked) on the
-    current stream. Returns the (M, N) f32 output; raises if the launch
-    was refused."""
-    if x.device.type != "cuda":
-        raise ValueError(f"{name}: operands on {x.device}, expected a CUDA "
+def check_dense_operands(x: torch.Tensor, w: torch.Tensor) -> None:
+    """Shapes, types and layouts ``bf16_matmul`` takes: x (M, K) and W
+    (N, K), each in f32 or bf16, with unit stride along K (rows may be
+    strided), on one device."""
+    if x.ndim != 2 or w.ndim != 2:
+        raise ValueError("bf16_matmul takes 2-D x and w")
+    if x.shape[1] != w.shape[1]:
+        raise ValueError(f"contraction mismatch {x.shape[1]} vs {w.shape[1]}")
+    if x.shape[1] == 0:
+        raise ValueError("bf16_matmul needs K >= 1")
+    for name, t in (("x", x), ("w", w)):
+        if t.dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"{name} must be float32 or bfloat16, not "
+                            f"{t.dtype}")
+    if x.device != w.device:
+        raise ValueError("x and w must lie on one device")
+    if x.stride(-1) != 1 or w.stride(-1) != 1:
+        raise ValueError("the last dim of x and w must be contiguous")
+
+
+def check_attention_operands(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor) -> None:
+    """Shapes, types and layouts ``flash_attention_fwd`` takes: q (BH, Sq,
+    D), k and v (BH, Sk, D), all f32 or all bf16, with unit stride along D
+    (the BH and S strides are free), on one device."""
+    if q.ndim != 3 or k.ndim != 3 or v.ndim != 3:
+        raise ValueError("flash attention takes 3-D (BH, S, D) q, k and v")
+    if k.shape != v.shape or k.shape[0] != q.shape[0] or \
+            k.shape[2] != q.shape[2]:
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)} and v "
+                         f"{tuple(v.shape)} disagree")
+    if q.shape[1] == 0 or k.shape[1] == 0:
+        raise ValueError("flash attention needs Sq >= 1 and Sk >= 1")
+    if q.dtype not in (torch.float32, torch.bfloat16) or not (
+            q.dtype == k.dtype == v.dtype):
+        raise TypeError("q, k and v must all be float32 or all bfloat16")
+    if not (q.device == k.device == v.device):
+        raise ValueError("q, k and v must lie on one device")
+    if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
+        raise ValueError("the last dim of q, k and v must be contiguous")
+
+
+def require_cuda(name: str, device: torch.device) -> None:
+    if device.type != "cuda":
+        raise ValueError(f"{name}: operands on {device}, expected a CUDA "
                          "device")
+
+
+def call(name: str, device: torch.device, *args) -> None:
+    """Launch kernel ``name`` on ``device``'s current stream with ``args``
+    (its C arguments before the stream); raises if the launch was
+    refused."""
+    require_cuda(name, device)
+    fn = getattr(load(name), name)
+    with torch.cuda.device(device):
+        rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed with CUDA error {rc}")
+
+
+def launch_q8(name: str, x: torch.Tensor, qs: torch.Tensor,
+              scales: torch.Tensor) -> torch.Tensor:
+    """Launch Q8_0 kernel ``name`` on CUDA operands (already checked).
+    Returns the (M, N) f32 output."""
+    require_cuda(name, x.device)
     m, k = x.shape
     n = qs.shape[0]
     if qs.data_ptr() % 16 or qs.stride(0) % 16:
         raise ValueError(f"{name}: qs rows must be 16-byte aligned")
-    lib = load(name)
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    with torch.cuda.device(x.device):
-        rc = getattr(lib, name)(
-            x.data_ptr(), int(x.dtype == torch.bfloat16), x.stride(0),
-            qs.data_ptr(), qs.stride(0), scales.data_ptr(), scales.stride(0),
-            out.data_ptr(), out.stride(0), m, n, k, stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed with CUDA error {rc}")
+    call(name, x.device,
+         x.data_ptr(), int(x.dtype == torch.bfloat16), x.stride(0),
+         qs.data_ptr(), qs.stride(0), scales.data_ptr(), scales.stride(0),
+         out.data_ptr(), out.stride(0), m, n, k)
     return out

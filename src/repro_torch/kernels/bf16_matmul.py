@@ -1,0 +1,47 @@
+"""Dense (FP16-path) matrix product: x (M, K) times W (N, K)^T -> (M, N)
+f32, both operands rounded to bf16, f32 accumulation.
+
+Replaces the Pallas TPU kernel ``repro/kernels/bf16_matmul.py``
+(``bf16_matmul``, body ``_bf16_matmul_kernel``), the paper's FP16
+dot-product kernel. Rounding both operands to bf16 inside the kernel, as
+the TPU kernel does, makes an f32 x (or an f32 W of the f32 test configs)
+the same function as a bf16 one; bf16 products are exact in f32. The CUDA
+kernel (``csrc/bf16_matmul.cu``) has two launch configurations: at M <= 16
+(decode, M = 1) a warp-per-rows product that streams the bf16 weight once,
+bound by its bytes; above (prefill, M = 1500) 64 x 64 tiles on the tensor
+cores (bf16 WMMA, f32 accumulators). Both read x and W through their row
+strides, so the burst-aligned K-slice of a wider weight needs no copy, and
+mask ragged M and N themselves.
+
+``bf16_matmul`` runs ``bf16_matmul_plain`` only for tensors on the CPU; for
+CUDA tensors it launches the kernel or raises.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build, ref
+
+#: the kernel's arithmetic in plain PyTorch: round both operands to bf16,
+#: then an f32 contraction
+bf16_matmul_plain = ref.matmul_bf16_ref
+
+
+def bf16_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (M, K) f32/bf16; w (N, K) bf16/f32 -> (M, N) f32. Rows of both
+    operands may be strided; M and N may be ragged."""
+    _build.check_dense_operands(x, w)
+    if x.device.type == "cpu":
+        return bf16_matmul_plain(x, w)
+    m, k = x.shape
+    n = w.shape[0]
+    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    _build.call("bf16_matmul", x.device,
+                x.data_ptr(), int(x.dtype == torch.bfloat16), x.stride(0),
+                w.data_ptr(), int(w.dtype == torch.bfloat16), w.stride(0),
+                out.data_ptr(), out.stride(0), m, n, k)
+    bf16_matmul.launches += 1
+    return out
+
+
+bf16_matmul.launches = 0

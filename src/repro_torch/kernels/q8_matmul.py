@@ -36,7 +36,7 @@ def q8_matmul(x: torch.Tensor, qs: torch.Tensor,
     _build.check_q8_operands(x, qs, scales)
     if x.device.type == "cpu":
         return q8_matmul_plain(x, qs, scales)
-    out = _build.launch("q8_matmul", x, qs, scales)
+    out = _build.launch_q8("q8_matmul", x, qs, scales)
     q8_matmul.launches += 1
     return out
 

@@ -39,7 +39,7 @@ def q8_matvec(x: torch.Tensor, qs: torch.Tensor,
                          f"{x.shape[0]}")
     if x.device.type == "cpu":
         return q8_matvec_plain(x, qs, scales)
-    out = _build.launch("q8_matvec", x, qs, scales)
+    out = _build.launch_q8("q8_matvec", x, qs, scales)
     q8_matvec.launches += 1
     return out
 

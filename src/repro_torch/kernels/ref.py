@@ -1,8 +1,8 @@
 """Plain PyTorch oracles for the kernels' semantics, one for one with the
 reference's ``repro/kernels/ref.py``. ``q8_matmul_ref`` is the one Q8_0
 oracle: the kernels' plain versions (``q8_flat_ref``) and the host
-residual arm call it, and tests hold every kernel against it. The
-reference backend (``backends/torch_ref.py``) runs ``matmul_bf16_ref``.
+residual arm call it, and tests hold every kernel against it.
+``matmul_bf16_ref`` is ``bf16_matmul``'s plain version.
 """
 from __future__ import annotations
 

@@ -1,11 +1,13 @@
-"""Attention for the Whisper port: query-chunked non-causal attention for
-the encoder and single-step KV-cache decode attention.
+"""Attention for the Whisper port: the encoder's self-attention, either
+query-chunked (``attn_impl="chunked"``) or flash (``"flash"``, on the
+``flash_attention_fwd`` kernel), and single-step KV-cache decode attention.
 
-Written as plain einsum and softmax ops, as the reference writes them. The
-reference contracts with ``preferred_element_type=f32``; here the operands
-are upcast to f32 before each contraction, which is the same function
-(bf16 products are exact in f32). The probabilities are cast to the value
-type before the second contraction, as in the reference.
+The chunked and decode paths are plain einsum and softmax ops, as the
+reference writes them. The reference contracts with
+``preferred_element_type=f32``; here the operands are upcast to f32 before
+each contraction, which is the same function (bf16 products are exact in
+f32). The probabilities are cast to the value type before the second
+contraction, as in the reference.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.flash_attention import flash_attention_fwd
 from repro_torch.models import layers
 
 NEG_INF = -1e30
@@ -66,17 +69,39 @@ def _chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.cat(outs, dim=1)
 
 
+def _flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     causal: bool = False) -> torch.Tensor:
+    """Online-softmax (flash-2) attention forward on the
+    ``flash_attention_fwd`` kernel: the reference's ``_flash_attention``
+    with its (B, H) fold and GQA repeat. q: (B, Sq, Hq, D); k/v: (B, Sk,
+    Hkv, D). Returns (B, Sq, Hq, D) in q's type. The kernel walks keys in
+    blocks of 64 and masks ragged lengths, where the reference's k-blocks
+    must divide Sk (one block at 1500 frames): in bf16 the two round the
+    probabilities against different running maxima."""
+    b, sq, hq, d = q.shape
+    k = _repeat_kv_heads(k, hq)
+    v = _repeat_kv_heads(v, hq)
+
+    def fold(t):          # (B, S, H, D) -> (B*H, S, D); a view when B = 1
+        return t.transpose(1, 2).reshape(b * hq, t.shape[1], d)
+    out = flash_attention_fwd(fold(q), fold(k), fold(v), causal=causal)
+    return out.reshape(b, hq, sq, d).transpose(1, 2).to(q.dtype)
+
+
 def attention(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
               chunk: int = 2048, engine=None) -> torch.Tensor:
-    """Non-causal self-attention over a full sequence (the encoder). The
-    reference's causal and cross variants serve training
-    (``decode_train``), which the port does not run yet."""
+    """Non-causal self-attention over a full sequence (the encoder), by
+    ``cfg.attn_impl``. The reference's causal and cross variants serve
+    training (``decode_train``), which the port does not run yet."""
     b, s, _ = x.shape
     hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = _split_heads(layers.linear(p["q"], x, engine, "attn.q"), hq)
     k = _split_heads(layers.linear(p["k"], x, engine, "attn.k"), hkv)
     v = _split_heads(layers.linear(p["v"], x, engine, "attn.v"), hkv)
-    out = _chunked_attention(q, k, v, chunk=chunk)
+    if cfg.attn_impl == "flash":
+        out = _flash_attention(q, k, v)
+    else:
+        out = _chunked_attention(q, k, v, chunk=chunk)
     return layers.linear(p["o"], out.reshape(b, s, hq * hd), engine, "attn.o")
 
 

@@ -1,11 +1,12 @@
 """Serving engine: one-shot batched Whisper transcription with the paper's
-Q8_0 offload path, on the H100 or (when asked) the CPU.
+offload paths, Q8_0 or dense (FP16), on the H100 or (when asked) the CPU.
 
 The system the paper builds in whisper.cpp terms: weights quantized to
-Q8_0 on load, every linear routed through the offload dispatcher
-(``core/offload.py`` — the burst-aligned main segment on a Hopper kernel,
-the residual on the host arm) when one is attached, and per-request
-latency for PDP/EDP accounting (``core/energy.py``).
+Q8_0 on load (or kept dense with ``quant="none"``), every linear routed
+through the offload dispatcher (``core/offload.py`` — the burst-aligned
+main segment on a Hopper kernel, the residual on the host arm) when one
+is attached, and per-request latency for PDP/EDP accounting
+(``core/energy.py``).
 
 Token contract: ``GenerationResult.tokens`` holds exactly the ``steps``
 tokens the request generated — the SOT seed token is not echoed — and rows

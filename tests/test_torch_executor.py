@@ -25,8 +25,7 @@ from repro_torch.core.qformats import QTensor, quantize_q8_0
 TOL = dict(rtol=1e-5, atol=1e-5)
 PLAN_FIELDS = ("name", "m", "k", "n", "dtype", "offload", "burst", "kernel",
                "k_main", "k_res")
-BACKEND_NAMES = {"xla_ref": "torch_ref", "pallas_tpu": "hopper",
-                 "host_residual": "host_residual"}
+BACKEND_NAMES = {"pallas_tpu": "hopper", "host_residual": "host_residual"}
 
 
 def _jax_q(tq: QTensor) -> JQTensor:
@@ -65,8 +64,9 @@ def test_matmul_takes_activations_with_strided_columns():
 @pytest.mark.parametrize("lead", [(), (2, 5)])
 @pytest.mark.parametrize("k", [64, 96, 130, 383])      # incl. ragged K
 def test_matmul_dense_vs_reference(lead, k):
-    """Dense main segments run the bf16 reference semantics on both sides
-    (the port's bf16_matmul kernel comes later); tails run in f32."""
+    """Dense main segments run the bf16 semantics on both sides (the
+    port's on bf16_matmul, whose plain version runs for CPU tensors);
+    tails run in f32 on the host arm."""
     rng = np.random.default_rng(k)
     x = rng.standard_normal((*lead, 4, k)).astype(np.float32)
     w = (rng.standard_normal((32, k)) * 0.05).astype(np.float32)
@@ -87,9 +87,10 @@ def test_plan_linear_matches_reference(m, k, n, quantized):
                            **kw)
     for f in PLAN_FIELDS:
         assert getattr(got, f) == getattr(want, f), f
-    # the reference pinned to its reference backend; every Q8_0 main
-    # segment of the port, a capacity fallback too, takes the Hopper kernels
-    if got.k_main and quantized:
+    # the reference pinned to its reference backend; every main segment of
+    # the port, Q8_0 or dense, a capacity fallback too, takes the Hopper
+    # kernels
+    if got.k_main:
         assert got.backend == "hopper"
     else:
         assert got.backend == BACKEND_NAMES[want.backend]
@@ -140,19 +141,24 @@ def test_recording_keeps_the_routing_of_a_run():
 def test_registry_precedence():
     q = KernelRequest(kernel="q8_matvec", m=1, n=8, k=64, dtype="q8_0")
     dense = dataclasses.replace(q, dtype="bf16", kernel="bf16_matmul")
+    assert REGISTRY.names() == ("hopper", "host_residual")
     assert REGISTRY.resolve(q).name == "hopper"              # capability
-    assert REGISTRY.resolve(dense).name == "torch_ref"       # not ported yet
-    assert REGISTRY.resolve(dense, pin="host_residual").name == "host_residual"
+    assert REGISTRY.resolve(dense).name == "hopper"
+    assert REGISTRY.resolve(dense, pin="hopper").name == "hopper"  # pinned
     with REGISTRY.force("host_residual"):                   # forced > pinned
-        assert REGISTRY.resolve(dense, pin="torch_ref").name == "host_residual"
         tail = dataclasses.replace(q, segment=RESIDUAL)
         assert REGISTRY.resolve(tail).name == "host_residual"
-    # a pin the backend cannot take falls through to capability order
-    assert REGISTRY.resolve(dense, pin="hopper").name == "torch_ref"
+        dense_tail = dataclasses.replace(dense, segment=RESIDUAL)
+        assert REGISTRY.resolve(dense_tail, pin="hopper").name == \
+            "host_residual"        # residual segments skip force and pin
+        # a backend that cannot take the request falls through
+        assert REGISTRY.resolve(dense).name == "hopper"
+    with pytest.raises(KeyError):                            # removed
+        REGISTRY.resolve(dense, pin="torch_ref")
     assert q.segment == MAIN
 
 
-@pytest.mark.parametrize("name", ["torch_ref", "host_residual"])
+@pytest.mark.parametrize("name", ["host_residual"])
 def test_no_force_or_pin_sends_q8_main_to_plain_code(name):
     """Only the Hopper kernels take a Q8_0 main segment, so a forced or
     pinned plain backend falls through to them."""
@@ -162,6 +168,31 @@ def test_no_force_or_pin_sends_q8_main_to_plain_code(name):
         with REGISTRY.force(name):
             assert REGISTRY.resolve(q).name == "hopper"
             assert REGISTRY.resolve(q, pin=name).name == "hopper"
+
+
+@pytest.mark.parametrize("case", ["capability", "pinned", "forced",
+                                  "forced_and_pinned"])
+@pytest.mark.parametrize("m", [1, 1500])
+def test_dense_main_segment_runs_on_hopper(case, m):
+    """Every dense main segment, at decode and prefill M, resolves to the
+    Hopper backend (``bf16_matmul``): a forced or pinned host_residual
+    cannot take it and falls through. The former ``torch_ref`` backend,
+    which ran it in plain PyTorch on the card, is gone."""
+    req = KernelRequest(kernel="bf16_matmul", m=m, n=384, k=256,
+                        dtype="bf16")
+    pin = "host_residual" if case in ("pinned", "forced_and_pinned") else None
+    if case.startswith("forced"):
+        with REGISTRY.force("host_residual"):
+            backend = REGISTRY.resolve(req, pin=pin)
+    else:
+        backend = REGISTRY.resolve(req, pin=pin)
+    assert backend.name == "hopper"
+    assert backend.build(req).__name__ == "bf16_matmul"
+    assert not REGISTRY.get("host_residual").supports(req)
+    entry = plan_linear("site", m, 384, 384, quantized=False,
+                        vmem_budget_kb=8 * 1024, default_burst=256)
+    assert (entry.backend, entry.kernel, entry.k_main) == \
+        ("hopper", "bf16_matmul", 256)
 
 
 def test_capacity_fallback_runs_on_hopper_and_matches_reference():

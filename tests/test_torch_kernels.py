@@ -1,10 +1,12 @@
-"""The port's Q8_0 kernels: each plain PyTorch version against the
-reference's oracle (``repro.kernels.ref``) and its Pallas kernel in
-interpret mode, on the same numpy-seeded inputs. The CUDA kernels are held
-against their plain versions on the card in test_torch_kernels_gpu.py.
+"""The port's kernels: each plain PyTorch version against the reference's
+oracle (``repro.kernels.ref``) and its Pallas kernel in interpret mode, on
+the same numpy-seeded inputs. The CUDA kernels are held against their
+plain versions on the card in test_torch_kernels_gpu.py.
 
 CPU tolerance 1e-5 (f32): both sides contract the same dequantized f32
-weights in f32 and differ only in summation order; outputs are O(1).
+(or bf16-rounded) weights in f32 and differ only in summation order;
+outputs are O(1). Flash attention in f32 at 2e-5, the reference's own gate
+(tests/test_flash_kernel.py).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -13,10 +15,16 @@ import torch
 
 from repro.core.qformats import QTensor as JQTensor
 from repro.kernels import ref as jax_ref
+from repro.kernels.bf16_matmul import bf16_matmul as pallas_bf16_matmul
+from repro.kernels.flash_attention import (
+    flash_attention_fwd as pallas_flash_attention_fwd)
 from repro.kernels.q8_matmul import q8_matmul as pallas_q8_matmul
 from repro.kernels.q8_matvec import q8_matvec as pallas_q8_matvec
 from repro_torch.core.qformats import QTensor, quantize_q8_0
 from repro_torch.kernels import ref
+from repro_torch.kernels.bf16_matmul import bf16_matmul, bf16_matmul_plain
+from repro_torch.kernels.flash_attention import (
+    flash_attention_fwd, flash_attention_fwd_plain)
 from repro_torch.kernels.q8_matmul import q8_matmul
 from repro_torch.kernels.q8_matvec import q8_matvec
 
@@ -152,3 +160,141 @@ def test_q8_matvec_rejects_more_than_16_rows():
     tq = quantize_q8_0(torch.zeros(32, 64))
     with pytest.raises(ValueError):
         q8_matvec(torch.zeros(17, 64), tq.flat_qs(), tq.scales)
+
+
+# bf16_matmul: (m, n, k, k_full, Pallas tiles); k < k_full is the strided
+# K-slice of a wider operand the executor hands the kernel
+BF16_SHAPES = [
+    (8, 64, 64, 64, 8, 64, 64),
+    (32, 128, 256, 384, 16, 64, 128),
+    (64, 256, 512, 512, 64, 128, 256),
+    (1, 96, 256, 384, 1, 96, 256),      # decode row
+]
+
+
+@pytest.mark.parametrize("m,n,k,k_full,bm,bn,bk", BF16_SHAPES)
+@pytest.mark.parametrize("xdtype", ["float32", "bfloat16"])
+def test_bf16_matmul_plain_vs_reference(m, n, k, k_full, bm, bn, bk, xdtype):
+    """f32 or bf16 x, bf16 W, K-sliced views: the plain version against the
+    reference's oracle and its Pallas kernel (both round the operands to
+    bf16 inside, so an f32 x is the same function as its bf16 rounding)."""
+    x, w = _operands(m, n, k_full, seed=m + n + k)
+    xt = torch.from_numpy(x).to(getattr(torch, xdtype))
+    wt = torch.from_numpy(w).to(torch.bfloat16)
+    xs, ws = xt[:, :k], wt[:, :k]
+    assert k == k_full or (xs.stride(0) == k_full and ws.stride(0) == k_full)
+    got = bf16_matmul(xs, ws)
+    assert got.dtype == torch.float32 and got.shape == (m, n)
+    xj = jnp.asarray(xs.float().numpy()).astype(xdtype)
+    wj = jnp.asarray(ws.float().numpy()).astype(jnp.bfloat16)
+    np.testing.assert_allclose(got.numpy(),
+                               np.asarray(jax_ref.matmul_bf16_ref(xj, wj)),
+                               **TOL)
+    pallas = pallas_bf16_matmul(xj, wj, block_m=bm, block_n=bn, block_k=bk,
+                                interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(pallas), **TOL)
+
+
+def test_bf16_matmul_plain_ragged_and_f32_weight():
+    """Ragged M, N and K (the CUDA kernel masks them; the Pallas kernel
+    needs whole-dimension tiles) and an f32 weight, rounded to bf16 inside
+    as the f32 test configs need."""
+    x, w = _operands(13, 100, 100, seed=11)
+    got = bf16_matmul(torch.from_numpy(x), torch.from_numpy(w))
+    want = pallas_bf16_matmul(jnp.asarray(x), jnp.asarray(w), block_m=13,
+                              block_n=100, block_k=100, interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def _qkv(bh, sq, sk, d, seed):
+    rng = np.random.default_rng(seed)
+    return tuple(rng.standard_normal((bh, s, d)).astype(np.float32)
+                 for s in (sq, sk, sk))
+
+
+@pytest.mark.parametrize("bh,sq,sk,d,bq,bk,causal", [
+    (2, 64, 64, 32, 32, 32, True),      # the shapes of tests/test_flash_kernel
+    (1, 128, 128, 64, 64, 64, True),
+    (2, 64, 128, 32, 32, 64, False),
+    (3, 96, 96, 16, 32, 32, True),
+    (6, 256, 256, 64, 128, 128, False),
+    (2, 192, 128, 16, 64, 128, True),   # Sq > Sk
+])
+def test_flash_attention_plain_vs_pallas(bh, sq, sk, d, bq, bk, causal):
+    """f32 at 2e-5: in f32 the probabilities are not rounded, so key blocks
+    of 64 (the plain version's) and of ``bk`` (the Pallas kernel's) give
+    the same function up to summation order."""
+    q, k, v = _qkv(bh, sq, sk, d, seed=sq + sk + d)
+    got = flash_attention_fwd(*(torch.from_numpy(a) for a in (q, k, v)),
+                              causal=causal)
+    assert got.dtype == torch.float32 and got.shape == (bh, sq, d)
+    want = pallas_flash_attention_fwd(
+        *(jnp.asarray(a) for a in (q, k, v)), causal=causal, block_q=bq,
+        block_k=bk, interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
+                               atol=2e-5)
+
+
+def test_flash_attention_plain_bf16_matches_pallas_at_its_blocks():
+    """bf16 inputs: the probabilities are rounded to bf16 against the
+    running max of their key block. With the Pallas kernel's key block set
+    to the plain version's (64), the two round the same values; the
+    tolerance 1e-2 covers a probability at a rounding boundary that the
+    two exps round apart (one bf16 step, 2^-8 relative)."""
+    q, k, v = _qkv(2, 128, 192, 32, seed=9)
+    tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
+    got = flash_attention_fwd(tq, tk, tv, causal=False)
+    want = pallas_flash_attention_fwd(
+        *(jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+          for t in (tq, tk, tv)),
+        causal=False, block_q=64, block_k=64, interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-2,
+                               atol=1e-2)
+
+
+def test_flash_attention_plain_ragged_matches_one_block():
+    """Sq = Sk = 100, which no Pallas tile of 64 divides: the plain version
+    walks a ragged last key block; the Pallas kernel, given one whole
+    block, computes the same f32 function."""
+    q, k, v = _qkv(3, 100, 100, 16, seed=4)
+    for causal in (False, True):
+        got = flash_attention_fwd(*(torch.from_numpy(a) for a in (q, k, v)),
+                                  causal=causal)
+        want = pallas_flash_attention_fwd(
+            *(jnp.asarray(a) for a in (q, k, v)), causal=causal,
+            block_q=100, block_k=100, interpret=True)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
+                                   atol=2e-5)
+
+
+def test_new_kernels_cpu_tensors_take_the_plain_version():
+    x, w = _operands(2, 32, 64, seed=1)
+    q, k, v = _qkv(2, 8, 8, 16, seed=1)
+    before = (bf16_matmul.launches, flash_attention_fwd.launches)
+    got = bf16_matmul(torch.from_numpy(x), torch.from_numpy(w))
+    assert torch.equal(got, bf16_matmul_plain(torch.from_numpy(x),
+                                              torch.from_numpy(w)))
+    got = flash_attention_fwd(*(torch.from_numpy(a) for a in (q, k, v)))
+    assert torch.equal(got, flash_attention_fwd_plain(
+        *(torch.from_numpy(a) for a in (q, k, v))))
+    # the counts move only on a launch
+    assert (bf16_matmul.launches, flash_attention_fwd.launches) == before
+
+
+def test_new_kernels_reject_what_they_do_not_take():
+    with pytest.raises(ValueError):     # contraction mismatch
+        bf16_matmul(torch.zeros(2, 32), torch.zeros(8, 64))
+    with pytest.raises(TypeError):      # int activations
+        bf16_matmul(torch.zeros(2, 64, dtype=torch.int32), torch.zeros(8, 64))
+    with pytest.raises(ValueError):     # neither CPU nor CUDA
+        bf16_matmul(torch.zeros(2, 64, device="meta"),
+                    torch.zeros(8, 64, device="meta"))
+    q = torch.zeros(2, 8, 16)
+    with pytest.raises(ValueError):     # k and v disagree
+        flash_attention_fwd(q, q, torch.zeros(2, 9, 16))
+    with pytest.raises(TypeError):      # mixed types
+        flash_attention_fwd(q, q, q.to(torch.bfloat16))
+    with pytest.raises(ValueError):     # unit stride along D
+        flash_attention_fwd(q, q, torch.zeros(2, 16, 8).transpose(1, 2))
+    with pytest.raises(ValueError):     # neither CPU nor CUDA
+        flash_attention_fwd(*(torch.zeros(2, 8, 16, device="meta"),) * 3)

@@ -1,13 +1,17 @@
 """The port's CUDA kernels against their plain PyTorch versions, on a CUDA
-device, at the shapes of the whisper-tiny main path and at ragged ones, and
-full-width whisper-tiny transcribe at batch 2 running every Q8_0 linear
-through them.
+device, at the shapes of the whisper-tiny main paths (Q8_0, and dense with
+flash attention) and at ragged and strided ones; full-width whisper-tiny
+transcribe at batch 2 running every Q8_0 linear through them, and the
+dense + flash transcribe running every dense linear and every encoder
+attention through them.
 
 Every test here is marked ``gpu`` and skips without a card. The file
 imports no JAX, so it runs on a machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_kernels_gpu.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -15,6 +19,9 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.core.offload import OffloadEngine
 from repro_torch.core.qformats import QTensor, quantize_q8_0
+from repro_torch.kernels.bf16_matmul import bf16_matmul, bf16_matmul_plain
+from repro_torch.kernels.flash_attention import (
+    flash_attention_fwd, flash_attention_fwd_plain)
 from repro_torch.kernels.q8_matmul import q8_matmul, q8_matmul_plain
 from repro_torch.kernels.q8_matvec import q8_matvec, q8_matvec_plain
 from repro_torch.models import model
@@ -95,3 +102,112 @@ def test_full_width_batch2_transcribe_launches_every_q8_linear():
     assert q8_matmul.launches == len(pre)
     assert q8_matvec.launches == max_new * len(step)
     assert [r.steps for r in res] == [max_new, max_new]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,n,k,k_full", [
+    (1, 384, 256, 384),        # decode q/k/v/o, cross q/o
+    (1, 1536, 256, 384),       # decode ffn.up
+    (1, 384, 1536, 1536),      # decode ffn.down
+    (1, 51872, 256, 384),      # decode dec.vocab
+    (1500, 384, 256, 384),     # prefill q/k/v/o, cross k/v
+    (1500, 1536, 256, 384),    # prefill ffn.up
+    (1500, 384, 1536, 1536),   # prefill ffn.down
+    (11, 70, 100, 130),        # skinny M, ragged N and K, unaligned rows
+    (17, 70, 37, 40),          # tiled M, ragged M, N and K
+])
+@pytest.mark.parametrize("xdtype,wdtype", [
+    (torch.bfloat16, torch.bfloat16), (torch.float32, torch.bfloat16),
+    (torch.float32, torch.float32)])
+def test_bf16_matmul_vs_plain_on_card(m, n, k, k_full, xdtype, wdtype):
+    """Tolerance 1e-4: both sides multiply the same bf16-rounded operands
+    exactly and sum in f32 in another order, over K up to 1536, at outputs
+    of O(1)."""
+    dev = _cuda_or_skip()
+    x, w = _operands(m, n, k_full, seed=m + n + k)
+    xt = torch.from_numpy(x).to(dev, xdtype)
+    wt = torch.from_numpy(w).to(dev, wdtype)
+    before = bf16_matmul.launches
+    got = bf16_matmul(xt[:, :k], wt[:, :k])     # strided K-slices
+    torch.cuda.synchronize()
+    assert bf16_matmul.launches == before + 1
+    want = bf16_matmul_plain(xt[:, :k], wt[:, :k])
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def _qkv(bh, sq, sk, d, dtype, dev, seed):
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.standard_normal((bh, s, d)).astype(
+        np.float32)).to(dev, dtype) for s in (sq, sk, sk))
+    return q, k, v
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bh,sq,sk,d,causal", [
+    (6, 1500, 1500, 64, False),     # the whisper-tiny encoder
+    (6, 1500, 1500, 64, True),
+    (3, 37, 101, 64, False),        # ragged Sq and Sk
+    (3, 101, 37, 16, True),         # Sq > Sk, causal
+    (2, 64, 128, 16, True),         # whole blocks
+])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_vs_plain_on_card(bh, sq, sk, d, causal, dtype):
+    """Tolerance 1e-5 in f32 (sums in another order, outputs of O(1));
+    1e-2 in bf16, where a probability that lands next to a bf16 rounding
+    boundary can round the other way on the card's exp than on PyTorch's
+    (one bf16 step, 2^-8 relative, of one weight)."""
+    dev = _cuda_or_skip()
+    q, k, v = _qkv(bh, sq, sk, d, dtype, dev, seed=sq + sk + d)
+    before = flash_attention_fwd.launches
+    got = flash_attention_fwd(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention_fwd.launches == before + 1
+    want = flash_attention_fwd_plain(q, k, v, causal=causal)
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+def test_flash_attention_reads_folded_heads_without_copy():
+    """The encoder hands the kernel (B, S, H, D) activations folded to
+    (B*H, S, D) views: strided operands give the contiguous answer."""
+    dev = _cuda_or_skip()
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal((1, 300, 6, 64)).astype(
+        np.float32)).to(dev, torch.bfloat16)
+    folded = x.transpose(1, 2).reshape(6, 300, 64)
+    assert folded.stride() == (64, 384, 1)
+    got = flash_attention_fwd(folded, folded, folded, causal=False)
+    want = flash_attention_fwd(*(folded.contiguous(),) * 3, causal=False)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+def test_full_width_dense_flash_transcribe_launches_every_kernel():
+    """Dense bf16 whisper-tiny with attn_impl="flash": bf16_matmul launches
+    once per dense prefill linear with a main segment (32) and once per
+    dense linear of each decode step (33); flash_attention_fwd once per
+    encoder layer; no Q8_0 kernel runs."""
+    dev = _cuda_or_skip()
+    cfg = dataclasses.replace(get_config("whisper-tiny"), quant="none",
+                              attn_impl="flash")
+    params = model.init_params(torch.Generator().manual_seed(0), cfg,
+                               device="cpu")
+    mel = np.random.default_rng(1).standard_normal(
+        (1, cfg.encoder_ctx, cfg.n_mels)).astype(np.float32)
+    eng = ServeEngine(cfg, params, max_len=8, offload=OffloadEngine(),
+                      eos_id=None, device=dev)
+    max_new = 2
+    bf16_matmul.launches = flash_attention_fwd.launches = 0
+    q8_matmul.launches = q8_matvec.launches = 0
+    res = eng.transcribe(mel, max_new=max_new)
+    torch.cuda.synchronize()
+    pre, step = ([e for e in eng.plans[(phase, 1, cfg.encoder_ctx)].entries
+                  if e.k_main] for phase in ("prefill", "step"))
+    assert len(pre) == 32 and len(step) == 33
+    assert {e.backend for e in pre + step} == {"hopper"}
+    assert {e.dtype for e in pre + step} == {"bf16"}
+    assert bf16_matmul.launches == 32 + 33 * max_new
+    assert flash_attention_fwd.launches == cfg.num_encoder_layers
+    assert q8_matmul.launches == q8_matvec.launches == 0
+    assert [r.steps for r in res] == [max_new]
