@@ -19,9 +19,12 @@ own kernels with nvcc. Phases, each of which fails the run on error:
    tensor cores; 67 TFLOP/s for f32 x), and one PyTorch call as a library
    yardstick, timed here and used nowhere in the port: ``torch.matmul``
    against the pre-dequantized f32 weight for the Q8_0 kernels (no single
-   PyTorch call computes a Q8_0 product), ``torch.matmul`` on the same bf16
-   operands (cuBLAS) for ``bf16_matmul``, and
-   ``scaled_dot_product_attention`` on the same bf16 q, k, v for
+   PyTorch call computes a Q8_0 product), ``torch.mm(..., out_dtype=
+   torch.float32)`` on the same bf16 operands (cuBLAS with the kernel's f32
+   output) for ``bf16_matmul``, beside which ``torch.matmul`` with a bf16
+   output (the yardstick of earlier runs) is kept as
+   ``library_bf16_out_ms``, and ``scaled_dot_product_attention`` on the
+   same bf16 q, k, v (a bf16 output; the kernel writes f32) for
    ``flash_attention_fwd``. TF32 is off (``resolve_device``), which leaves
    bf16 products alone. Flash attention is also checked causal and at
    ragged lengths.
@@ -118,15 +121,18 @@ KERNELS = {
                         replaces="src/repro/kernels/bf16_matmul.py:76",
                         shapes={"prefill": BF16_PREFILL_SHAPES,
                                 "decode step": BF16_STEP_SHAPES},
-                        library_call="torch.matmul(x_bf16, W_bf16.T) on the "
-                                     "same strided bf16 operands (cuBLAS, "
-                                     "bf16 output)"),
+                        library_call="torch.mm(x_bf16, W_bf16.T, out_dtype="
+                                     "torch.float32) on the same strided "
+                                     "bf16 operands (cuBLAS, f32 output as "
+                                     "the kernel's); library_bf16_out_ms: "
+                                     "torch.matmul with a bf16 output"),
     "flash_attention_fwd": dict(
         source="src/repro_torch/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:94",
         shapes={"prefill": FLASH_SHAPES},
         library_call="torch.nn.functional.scaled_dot_product_attention on "
-                     "the same bf16 q, k, v as (1, BH, S, D)"),
+                     "the same bf16 q, k, v as (1, BH, S, D) (bf16 output; "
+                     "the kernel writes f32)"),
 }
 MAX_NEW = 32
 
@@ -203,7 +209,8 @@ def bound(bytes_ms: float, ops_ms: float):
 
 def _q8_case(gen, m, n, k, k_full, xdt):
     """Operands of a Q8_0 kernel at one shape: (kernel args, library
-    call, bytes moved, FLOPs, FLOP rate key)."""
+    call, bytes moved, FLOPs, FLOP rate key, further yardsticks by the
+    name of their time)."""
     import torch
     from repro_torch.core.qformats import QTensor, quantize_q8_0
     dtype = getattr(torch, xdt)
@@ -219,12 +226,14 @@ def _q8_case(gen, m, n, k, k_full, xdt):
     moved = m * k * x_full.element_size() + n * k + (n * k // 32) * 4 \
         + m * n * 4
     return args, lambda: torch.matmul(x32, w_deq.t()), moved, \
-        2 * m * n * k, xdt
+        2 * m * n * k, xdt, {}
 
 
 def _bf16_case(gen, m, n, k, k_full, xdt):
     """Operands of bf16_matmul at one shape: the first k of k_full columns
-    of x and a bf16 W, as the burst split hands them over."""
+    of x and a bf16 W, as the burst split hands them over. The library
+    call writes f32, as the kernel does; the bf16-output call is kept
+    beside it."""
     import torch
     x_full = torch.randn((m, k_full), generator=gen, device="cuda").to(
         getattr(torch, xdt))
@@ -233,8 +242,9 @@ def _bf16_case(gen, m, n, k, k_full, xdt):
     x, w = x_full[:, :k], w_full[:, :k]
     xb = x.to(torch.bfloat16)
     moved = m * k * x.element_size() + n * k * 2 + m * n * 4
-    return (x, w), lambda: torch.matmul(xb, w.t()), moved, 2 * m * n * k, \
-        "bfloat16"
+    return (x, w), lambda: torch.mm(xb, w.t(), out_dtype=torch.float32), \
+        moved, 2 * m * n * k, "bfloat16", \
+        {"library_bf16_out_ms": lambda: torch.matmul(xb, w.t())}
 
 
 def _flash_case(gen, bh, sq, sk, d, dt):
@@ -249,12 +259,14 @@ def _flash_case(gen, bh, sq, sk, d, dt):
     q4, k4, v4 = (t.contiguous()[None] for t in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     return (q, k, v), lambda: sdpa(q4, k4, v4), moved, \
-        4 * bh * sq * sk * d, dt
+        4 * bh * sq * sk * d, dt, {}
 
 
-def _measure(name, label, kernel, plain, library, moved, flops, rate, tol):
-    """Kernel against plain at one shape, then the times and the bound.
-    ``tol`` is relative to the plain output's largest value (at least 1)."""
+def _measure(name, label, kernel, plain, library, moved, flops, rate, tol,
+             extra):
+    """Kernel against plain at one shape, then the times and the bound, and
+    the device time of each further yardstick in ``extra``. ``tol`` is
+    relative to the plain output's largest value (at least 1)."""
     import torch
     got = kernel()
     want = plain()
@@ -270,7 +282,8 @@ def _measure(name, label, kernel, plain, library, moved, flops, rate, tol):
     return dict(max_abs_err=err, bytes=moved, flops=flops,
                 bytes_ms=bytes_ms, ops_ms=ops_ms, ms=device_ms(kernel),
                 wall_ms=wall_ms(kernel), plain_ms=device_ms(plain),
-                library_ms=device_ms(library), bound_ms=b_ms, bound_by=b_by)
+                library_ms=device_ms(library), bound_ms=b_ms, bound_by=b_by,
+                **{key: device_ms(fn) for key, fn in extra.items()})
 
 
 def check_kernels():
@@ -295,7 +308,7 @@ def check_kernels():
             for shape in shapes:
                 if name == "flash_attention_fwd":
                     bh, sq, sk, d, count, dt, causal = shape
-                    args, library, moved, flops, rate = _flash_case(
+                    args, library, moved, flops, rate, extra = _flash_case(
                         gen, bh, sq, sk, d, dt)
                     kw = dict(causal=causal)
                     kernel = flash_attention.flash_attention_fwd
@@ -308,7 +321,7 @@ def check_kernels():
                 else:
                     m, n, k, k_full, count, xdt = shape
                     kernel, plain, case = mods[name]
-                    args, library, moved, flops, rate = case(
+                    args, library, moved, flops, rate, extra = case(
                         gen, m, n, k, k_full, xdt)
                     kw = {}
                     tol = KERNEL_TOL
@@ -317,14 +330,15 @@ def check_kernels():
                 row = _measure(name, label,
                                lambda: kernel(*args, **kw),
                                lambda: plain(*args, **kw),
-                               library, moved, flops, rate, tol)
+                               library, moved, flops, rate, tol, extra)
                 row.update(dims, per=per, per_step=count)
                 print(f"kernel {name} {label} x{count} per {per}: "
                       f"max_abs_err={row['max_abs_err']:.3e} "
                       f"ms={row['ms']:.5f} wall_ms={row['wall_ms']:.5f} "
                       f"plain_ms={row['plain_ms']:.5f} "
                       f"library_ms={row['library_ms']:.5f} "
-                      f"bound_ms={row['bound_ms']:.5f} ({row['bound_by']})",
+                      + "".join(f"{key}={row[key]:.5f} " for key in extra)
+                      + f"bound_ms={row['bound_ms']:.5f} ({row['bound_by']})",
                       flush=True)
                 rows.append(row)
         records[name] = rows
@@ -622,6 +636,9 @@ def main() -> int:
             return sum(r[key] * r["per_step"] for r in rows
                        if per in (None, r["per"]))
         b_ms, b_by = bound(total("bytes_ms"), total("ops_ms"))
+        # further yardsticks' times (bf16_matmul's bf16-output call)
+        extras = [key for key in rows[0]
+                  if key.startswith("library_") and key != "library_ms"]
         kernels.append(dict(
             name=name, route="cuda", source=meta["source"],
             replaces=meta["replaces"], launches=launches[name],
@@ -631,8 +648,10 @@ def main() -> int:
             library_ms=total("library_ms"),
             library_call=meta["library_call"],
             per=" + one ".join(meta["shapes"]),
+            **{key: total(key) for key in extras},
             by_phase={per: {key: total(key, per) for key in (
-                "ms", "plain_ms", "library_ms", "bytes_ms", "ops_ms")}
+                "ms", "plain_ms", "library_ms", "bytes_ms", "ops_ms",
+                *extras)}
                 for per in meta["shapes"]},
             shapes=rows))
     print(card)

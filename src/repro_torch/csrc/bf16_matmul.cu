@@ -6,7 +6,7 @@
 // Replaces the Pallas TPU kernel repro/kernels/bf16_matmul.py (bf16_matmul,
 // body _bf16_matmul_kernel): both operands are rounded to bf16 inside the
 // kernel (x is f32 or bf16, W bf16 or f32), products are exact in f32 and
-// summed in f32. Two launch configurations in one source:
+// summed in f32. Three launch configurations in one source:
 //
 //   * M <= 16 (decode, M = 1): each weight byte feeds at most 16
 //     multiply-adds, so the product is bound by the bytes of W streamed from
@@ -15,20 +15,32 @@
 //     the <= 16 activation rows are staged in shared memory as bf16-rounded
 //     f32; each row is reduced across the warp with shuffles. This is the
 //     q8_matvec design on a bf16 payload.
-//   * M > 16 (prefill, M = 1500): bound by the bytes as well at these shapes
-//     (K = 256 or 1536 and an f32 output of M x N), but only on the tensor
-//     cores. Each block of 4 warps owns a 64 x 64 output tile and loops over
-//     K inside the block in steps of 32 (the TPU kernel carried its
-//     accumulator across a sequential grid dimension); per step the x and W
-//     tiles are converted to bf16 into shared memory and each warp runs
-//     2 x 2 bf16 WMMA 16x16x16 products with f32 accumulators. The tile is
-//     staged through shared memory for the masked store.
+//   * M > 16 with bf16 x and W whose rows cp.async can copy (16-byte
+//     aligned bases and row strides, K a whole number of 8; every dense
+//     prefill linear of the serving path): bound by bytes at these shapes
+//     (K = 256 or 1536, an f32 output of M x N that is most of them), but
+//     only if the card keeps enough loads in flight. One warpgroup owns a
+//     64 x 64 output tile: x and W tiles are copied raw with 16-byte
+//     cp.async into a ring of kTcStages = 3 steps of kTcBK = 64, in the
+//     128-byte swizzle, so two steps load while one computes, behind one
+//     barrier a step; each step is four wgmma.m64n64k16 (bf16 in, f32
+//     accumulators) that read both tiles straight from shared memory
+//     through descriptors, once for the warpgroup; the f32 outputs are
+//     stored straight from the accumulators as float2, masked at ragged M
+//     and N. The sum over K runs in one fixed order, with no split of K.
+//     At N = 384 the 144 tiles re-read x 6 and W 24 times from L2, and at
+//     K = 1536 that traffic (55 MB) is what bounds the launch: the next
+//     step is sharing x between the blocks of a row (TMA multicast in a
+//     cluster). sweep_kernels.py times the ring depths.
+//   * M > 16 otherwise (f32 operands of the test configs, unaligned rows,
+//     K not a whole number of 8): 64 x 64 tiles, each 32-wide K step loaded
+//     synchronously and converted to bf16 in shared memory, bf16 WMMA
+//     16x16x16, the tile staged through shared memory for the masked store.
 //
-// Both read x and W through their row strides (the burst-aligned main
+// All read x and W through their row strides (the burst-aligned main
 // segment is the first 256 of 384 columns and is never copied), and mask
 // ragged M, N and K in the kernel (M = 1500, N = 51,872 = 2^5 * 1621): no
-// padding. Rows are loaded 16 bytes at a time where the operand's base and
-// row stride allow it, else element by element.
+// padding.
 //
 // Plain C interface, loaded with ctypes. The launch allocates nothing, runs on
 // the caller's stream and returns cudaGetLastError().
@@ -36,6 +48,8 @@
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include "hopper_mma.cuh"
 
 namespace {
 
@@ -169,7 +183,7 @@ cudaError_t launch_matvec(const TX* x, long long ldx, const TW* w,
   return cudaGetLastError();
 }
 
-// ----------------------------------------------------------------- M > 16
+// ------------------------------------------------- M > 16, converting
 constexpr int kBM = 64, kBN = 64, kBK = 32;  // block tile
 constexpr int kLd = kBK + 8;                 // bf16 tile row: 80 bytes, 16-aligned
 constexpr int kLdC = kBN + 4;                // f32 staging row
@@ -253,6 +267,134 @@ tiled_kernel(const TX* __restrict__ x, long long ldx, bool vx,
   }
 }
 
+// -------------------------------------------- M > 16, bf16 x bf16, wgmma
+constexpr int kTcBM = 64, kTcBN = 64;        // output tile: one m64n64 wgmma
+constexpr int kTcBK = 64;                    // K step: rows of 128 bytes
+constexpr int kTcStages = 3;                 // cp.async ring depth
+constexpr int kTcThreads = 128;              // one warpgroup
+constexpr int kTcSmemBytes =                 // the ring, and room to align it
+    kTcStages * (kTcBM + kTcBN) * kTcBK * static_cast<int>(sizeof(bf16)) +
+    1024;
+
+// element offset of chunk c (8 values) of row r of a K step in the 128-byte
+// swizzle that wgmma reads (chunk c ^ (r % 8))
+__device__ __forceinline__ int swz(int r, int c) {
+  return r * kTcBK + ((c ^ (r & 7)) << 3);
+}
+
+// R rows r0.. of K step kt of a (rows, k) bf16 operand into shared memory,
+// raw, 16 bytes a copy; zero past `rows` and `k` (k is a whole number of 8)
+template <int R>
+__device__ __forceinline__ void copy_step(bf16* dst, const bf16* src,
+                                          long long ld, int r0, int rows,
+                                          int kt, int k) {
+  constexpr int C = kTcBK / 8, STEP = kTcThreads / C;
+  static_assert(R % STEP == 0, "whole passes");
+  const int c = threadIdx.x % C;
+  const int kc = kt * kTcBK + c * 8;
+  int r = threadIdx.x / C;
+  const bf16* g = src + (r0 + r) * ld + kc;
+#pragma unroll
+  for (int i = 0; i < R / STEP; ++i, r += STEP, g += STEP * ld) {
+    const bool ok = r0 + r < rows && kc < k;
+    hopper::cp_async16(dst + swz(r, c), ok ? g : src, ok);
+  }
+}
+
+__global__ void __launch_bounds__(kTcThreads)
+wgmma_kernel(const bf16* __restrict__ x, long long ldx,
+             const bf16* __restrict__ w, long long ldw,
+             float* __restrict__ out, long long ldo, bool vec_out, int m,
+             int n, int k) {
+  using namespace hopper;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  // the swizzle repeats every 8 rows of 128 bytes: tiles start at 1024 bytes
+  unsigned char* base =
+      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  bf16* xs = reinterpret_cast<bf16*>(base);       // [stage][kTcBM][kTcBK]
+  bf16* ws = xs + kTcStages * kTcBM * kTcBK;      // [stage][kTcBN][kTcBK]
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int bm = blockIdx.y * kTcBM, bn = blockIdx.x * kTcBN;
+  const int nk = (k + kTcBK - 1) / kTcBK;
+
+#pragma unroll
+  for (int s = 0; s < kTcStages - 1; ++s) {
+    if (s < nk) {
+      copy_step<kTcBM>(xs + s * kTcBM * kTcBK, x, ldx, bm, m, s, k);
+      copy_step<kTcBN>(ws + s * kTcBN * kTcBK, w, ldw, bn, n, s, k);
+    }
+    cp_async_commit();                       // one group per K step
+  }
+
+  float d[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) d[i] = 0.f;
+
+  for (int t = 0; t < nk; ++t) {
+    cp_async_wait<kTcStages - 2>();          // step t has landed
+    fence_proxy_async();                     // ... for wgmma's reads too
+    __syncthreads();                         // ... for all; step t - 1 consumed
+    const int tn = t + kTcStages - 1;
+    if (tn < nk) {
+      const int st = tn % kTcStages;
+      copy_step<kTcBM>(xs + st * kTcBM * kTcBK, x, ldx, bm, m, tn, k);
+      copy_step<kTcBN>(ws + st * kTcBN * kTcBK, w, ldw, bn, n, tn, k);
+    }
+    cp_async_commit();
+
+    // W[n][k] rows are K-major B, as x's rows are K-major A
+    const uint64_t da = wgmma_desc_sw128(xs + (t % kTcStages) * kTcBM * kTcBK);
+    const uint64_t db = wgmma_desc_sw128(ws + (t % kTcStages) * kTcBN * kTcBK);
+    fence_operands(d);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTcBK / 16; ++kk)
+      wgmma_m64n64k16(d, da + 2 * kk, db + 2 * kk);
+    wgmma_commit();
+    wgmma_wait<0>();                         // before the stage is refilled
+    fence_operands(d);
+  }
+
+  // straight from the accumulators: warp w holds rows 16 w + g and + 8
+  const int g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = bm + warp * 16 + g + 8 * h;
+    if (row >= m) continue;
+    float* orow = out + row * ldo;
+#pragma unroll
+    for (int j = 0; j < kTcBN / 8; ++j) {
+      const int col = bn + 8 * j + 2 * t4;
+      const float v0 = d[4 * j + 2 * h], v1 = d[4 * j + 2 * h + 1];
+      if (vec_out && col + 1 < n) {
+        *reinterpret_cast<float2*>(orow + col) = make_float2(v0, v1);
+      } else {
+        if (col < n) orow[col] = v0;
+        if (col + 1 < n) orow[col + 1] = v1;
+      }
+    }
+  }
+}
+
+cudaError_t launch_wgmma(const void* x, long long ldx, const void* w,
+                         long long ldw, float* out, long long ldo, int m,
+                         int n, int k, cudaStream_t st) {
+  static bool opted_in = false;              // above 48 KB only after opt-in
+  if (!opted_in) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kTcSmemBytes);
+    if (err != cudaSuccess) return err;
+    opted_in = true;
+  }
+  const bool vec_out = reinterpret_cast<uintptr_t>(out) % 8 == 0 && ldo % 2 == 0;
+  const dim3 grid((n + kTcBN - 1) / kTcBN, (m + kTcBM - 1) / kTcBM);
+  wgmma_kernel<<<grid, kTcThreads, kTcSmemBytes, st>>>(
+      static_cast<const bf16*>(x), ldx, static_cast<const bf16*>(w), ldw, out,
+      ldo, vec_out, m, n, k);
+  return cudaGetLastError();
+}
+
 template <typename TX, typename TW>
 cudaError_t run(const void* xv, long long ldx, bool vx, const void* wv,
                 long long ldw, bool vw, float* out, long long ldo, int m, int n,
@@ -287,7 +429,9 @@ extern "C" int bf16_matmul(const void* x, int x_bf16, long long ldx,
   auto* o = static_cast<float*>(out);
   auto st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (x_bf16 && w_bf16)
+  if (m > 16 && x_bf16 && w_bf16 && vx && vw && k % 8 == 0)  // cp.async rows
+    err = launch_wgmma(x, ldx, w, ldw, o, ldo, m, n, k, st);
+  else if (x_bf16 && w_bf16)
     err = run<bf16, bf16>(x, ldx, vx, w, ldw, vw, o, ldo, m, n, k, st);
   else if (x_bf16)
     err = run<bf16, float>(x, ldx, vx, w, ldw, vw, o, ldo, m, n, k, st);

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface. It is compiled with ``nvcc``
 for ``sm_90a`` into its own shared library under ``build/`` at the root of
 the checkout, on first use, and loaded with ``ctypes``. The library's file
-name carries a hash of its source and flags, so an edited source is rebuilt
-and a stale library is never loaded. Nothing here runs at import time.
+name carries a hash of its source, the shared headers (``csrc/*.cuh``) and
+the flags, so an edited source or header is rebuilt and a stale library is
+never loaded. Nothing here runs at import time.
 """
 from __future__ import annotations
 
@@ -61,8 +62,13 @@ def _source(name: str) -> Path:
 
 
 def library_path(name: str) -> Path:
+    """The library's path, named by a hash of its source, every shared
+    header in ``csrc/`` and the flags: an edited header rebuilds too."""
     src = _source(name)
-    digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha1(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD / f"{src.stem}-{digest.hexdigest()[:12]}.so"
 
 

@@ -9,8 +9,10 @@ product against the running max of their key block, and the denominator
 floored at 1e-30. Unlike the TPU kernel, which needs tiles that divide Sq
 and Sk (1500 does not), the CUDA kernel (``csrc/flash_attention.cu``)
 masks ragged Sq and Sk itself. It is bound by operations at the whisper
-encoder's shapes; this first version computes on f32 FMAs, 64 query rows
-a block, key blocks of ``BLOCK_K``.
+encoder's shapes. bf16 q, k and v with 16-byte aligned rows run on the
+tensor cores (``mma.sync``, 16 query rows a warp, k and v through a
+``cp.async`` ring); f32 operands and unaligned rows run on f32 FMAs. Both
+walk the keys in blocks of ``BLOCK_K``.
 
 ``flash_attention_fwd`` runs ``flash_attention_fwd_plain`` only for tensors
 on the CPU; for CUDA tensors it launches the kernel or raises.

@@ -1,0 +1,179 @@
+#!/usr/bin/env python3
+"""Sweep the tensor-core launch configurations of the port's bf16 kernels on
+one NVIDIA H100.
+
+    python3 sweep_kernels.py [--out build/sweep/sweep.json]
+
+Run from the root of a checkout, on a machine with a CUDA device and nvcc.
+For each configuration below, the kernel's source is copied with its
+``constexpr`` configuration constants replaced (``kTcWarps = 4`` becomes
+``kTcWarps = 2``, ...), built with the port's nvcc flags (one nvcc per
+variant, all started together), loaded with ctypes and called through the
+same C interface as the shipped library, at the dense prefill's shapes
+(``chip_smoke.BF16_PREFILL_SHAPES`` and ``chip_smoke.FLASH_SHAPES``). Each
+result is held against the kernel's plain version (the tolerances of
+chip_smoke.py) and timed on the card (``chip_smoke.device_ms``). The first
+configuration of each kernel is the shipped one. Prints one line per
+configuration and writes them all as JSON to ``--out``.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import os
+import re
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+# per kernel: its source and the configurations to build; {} is the source
+# as shipped
+CONFIGS = {
+    "flash_attention_fwd": ("flash_attention", [
+        {},
+        dict(kTcWarps=2, kTcSub=1, kTcStages=3),
+        dict(kTcWarps=2, kTcSub=2, kTcStages=2),
+        dict(kTcWarps=4, kTcSub=1, kTcStages=3),
+        dict(kTcWarps=4, kTcSub=2, kTcStages=3),
+        dict(kTcWarps=8, kTcSub=2, kTcStages=2),
+    ]),
+    "bf16_matmul": ("bf16_matmul", [
+        {},
+        dict(kTcStages=2),
+        dict(kTcStages=4),
+        dict(kTcStages=5),
+    ]),
+}
+
+
+def variant_source(src: str, consts: dict) -> str:
+    """The source with each named constexpr int constant set anew."""
+    for name, value in consts.items():
+        src, n = re.subn(rf"\b{name} = \d+", f"{name} = {value}", src, count=1)
+        if n != 1:
+            raise KeyError(f"no constant {name} in the source")
+    return src
+
+
+def tag(consts: dict) -> str:
+    return ",".join(f"{k}={v}" for k, v in consts.items()) or "shipped"
+
+
+def build_all(out_dir: str):
+    """Write and compile every variant; returns {(kernel, i): .so path}."""
+    from repro_torch.kernels import _build
+    os.makedirs(out_dir, exist_ok=True)
+    jobs = {}
+    for name, (stem, configs) in CONFIGS.items():
+        src = (_build.CSRC / f"{stem}.cu").read_text()
+        for i, consts in enumerate(configs):
+            cu = os.path.join(out_dir, f"{stem}-{i}.cu")
+            so = os.path.join(out_dir, f"{stem}-{i}.so")
+            with open(cu, "w") as f:
+                f.write(variant_source(src, consts))
+            cmd = [_build.nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
+                   "-o", so, cu]
+            jobs[(name, i)] = (subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True), so)
+    libs = {}
+    for key, (proc, so) in jobs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for {key}:\n{log}")
+        libs[key] = so
+    return libs
+
+
+def bind(name: str, so: str):
+    from repro_torch.kernels import _build
+    fn = getattr(ctypes.CDLL(so), name)
+    fn.argtypes = _build.KERNELS[name][1]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("sweep_kernels: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import chip_smoke
+    from repro_torch.core.device import resolve_device
+    from repro_torch.kernels import bf16_matmul, flash_attention
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--out", default=os.path.join(ROOT, "build", "sweep",
+                                                  "sweep.json"))
+    args = ap.parse_args()
+    resolve_device("cuda")
+    card = chip_smoke.card_line()
+    print(f"card: {card}", flush=True)
+    t0 = time.perf_counter()
+    libs = build_all(os.path.join(ROOT, "build", "sweep"))
+    print(f"built {len(libs)} variants in {time.perf_counter() - t0:.1f}s",
+          flush=True)
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+    cases = {"bf16_matmul": [], "flash_attention_fwd": []}
+    for m, n, k, k_full, count, xdt in chip_smoke.BF16_PREFILL_SHAPES:
+        (x, w), *_ = chip_smoke._bf16_case(gen, m, n, k, k_full, xdt)
+        out = torch.empty((m, n), dtype=torch.float32, device="cuda")
+        call_args = (x.data_ptr(), 1, x.stride(0), w.data_ptr(), 1,
+                     w.stride(0), out.data_ptr(), out.stride(0), m, n, k)
+        cases["bf16_matmul"].append((f"{m}x{n}x{k}", count, call_args, out,
+                                     bf16_matmul.bf16_matmul_plain(x, w),
+                                     chip_smoke.KERNEL_TOL, (x, w)))
+    for bh, sq, sk, d, count, dt, causal in chip_smoke.FLASH_SHAPES:
+        (q, k, v), *_ = chip_smoke._flash_case(gen, bh, sq, sk, d, dt)
+        out = torch.empty((bh, sq, d), dtype=torch.float32, device="cuda")
+        call_args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), 1,
+                     q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+                     v.stride(0), v.stride(1), out.data_ptr(), bh, sq, sk, d,
+                     int(causal))
+        want = flash_attention.flash_attention_fwd_plain(q, k, v,
+                                                         causal=causal)
+        cases["flash_attention_fwd"].append((
+            f"bh{bh} {sq}x{sk} d{d}", count, call_args, out, want,
+            chip_smoke.FLASH_BF16_TOL, (q, k, v)))
+
+    rows = []
+    for (name, i), so in libs.items():
+        fn = bind(name, so)
+        consts = CONFIGS[name][1][i]
+        per_shape, total, worst = {}, 0.0, 0.0
+        # each case keeps its operands alive: the call holds raw pointers
+        for label, count, call_args, out, want, tol, _ in cases[name]:
+            def run(fn=fn, call_args=call_args):
+                rc = fn(*call_args, stream())
+                if rc:
+                    raise RuntimeError(f"{name} [{tag(consts)}] failed: {rc}")
+            run()
+            torch.cuda.synchronize()
+            err = (out - want).abs().max().item()
+            if not err <= tol * max(1.0, want.abs().max().item()):
+                raise AssertionError(f"{name} [{tag(consts)}] {label}: "
+                                     f"max |kernel - plain| = {err}")
+            ms = chip_smoke.device_ms(run)
+            per_shape[label] = ms
+            total += ms * count
+            worst = max(worst, err)
+        rows.append(dict(kernel=name, config=tag(consts), ms=per_shape,
+                         ms_per_prefill=total, max_abs_err=worst))
+        print(f"sweep {name} [{tag(consts)}]: per prefill {total:.5f} ms; "
+              + " ".join(f"{k}={v:.5f}" for k, v in per_shape.items())
+              + f" max_abs_err={worst:.3e}", flush=True)
+    os.makedirs(os.path.dirname(args.out), exist_ok=True)
+    with open(args.out, "w") as f:
+        json.dump({"card": card, "rows": rows}, f, indent=1)
+    print(card)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,5 +1,5 @@
-"""The port stands alone: no file of ``src/repro_torch/`` and not
-``chip_smoke.py`` imports JAX or anything of the reference package
+"""The port stands alone: no file of ``src/repro_torch/``, not
+``chip_smoke.py`` and not ``sweep_kernels.py`` imports JAX or anything of the reference package
 ``repro``, even a module of it that does not import JAX."""
 import ast
 import os
@@ -11,7 +11,8 @@ PORT = os.path.join(ROOT, "src", "repro_torch")
 
 
 def _files():
-    out = [os.path.join(ROOT, "chip_smoke.py")]
+    out = [os.path.join(ROOT, "chip_smoke.py"),
+           os.path.join(ROOT, "sweep_kernels.py")]
     for d, _, names in os.walk(PORT):
         out += [os.path.join(d, n) for n in names if n.endswith(".py")]
     return sorted(out)

@@ -298,3 +298,53 @@ def test_new_kernels_reject_what_they_do_not_take():
         flash_attention_fwd(q, q, torch.zeros(2, 16, 8).transpose(1, 2))
     with pytest.raises(ValueError):     # neither CPU nor CUDA
         flash_attention_fwd(*(torch.zeros(2, 8, 16, device="meta"),) * 3)
+
+
+def test_library_name_covers_sources_headers_and_flags(tmp_path, monkeypatch):
+    """A kernel library is named by a hash of its source, every shared
+    header in csrc/ and the nvcc flags: editing any of them names a new
+    library, so a stale one is never loaded. Nothing is compiled here."""
+    from repro_torch.kernels import _build
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    monkeypatch.setattr(_build, "BUILD", tmp_path / "build")
+    src = tmp_path / "bf16_matmul.cu"
+    header = tmp_path / "hopper_mma.cuh"
+    src.write_text("// kernel\n")
+    header.write_text("// helpers\n")
+    names = [_build.library_path("bf16_matmul").name]
+    header.write_text("// helpers, edited\n")
+    names.append(_build.library_path("bf16_matmul").name)
+    src.write_text("// kernel, edited\n")
+    names.append(_build.library_path("bf16_matmul").name)
+    monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-g",))
+    names.append(_build.library_path("bf16_matmul").name)
+    assert len(set(names)) == 4
+    assert all(n.startswith("bf16_matmul-") and n.endswith(".so")
+               for n in names)
+    # an unrelated file beside them leaves the name alone
+    (tmp_path / "notes.txt").write_text("x")
+    assert _build.library_path("bf16_matmul").name == names[-1]
+
+
+def test_sweep_configurations_name_constants_of_the_sources():
+    """sweep_kernels.py builds each kernel with configuration constants
+    replaced: every configuration it lists names constants the source has,
+    its first is the source as shipped, and an unknown name raises."""
+    import importlib.util
+    import os
+    from repro_torch.kernels import _build
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "sweep_kernels.py")
+    spec = importlib.util.spec_from_file_location("sweep_kernels", path)
+    sweep = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(sweep)
+    for name, (stem, configs) in sweep.CONFIGS.items():
+        assert name in _build.KERNELS and _build.KERNELS[name][0] == stem
+        src = (_build.CSRC / f"{stem}.cu").read_text()
+        assert configs[0] == {} and sweep.variant_source(src, {}) == src
+        for consts in configs[1:]:
+            out = sweep.variant_source(src, consts)
+            assert out != src
+            assert all(f"{k} = {v}" in out for k, v in consts.items())
+        with pytest.raises(KeyError):
+            sweep.variant_source(src, {"kNoSuchConstant": 1})

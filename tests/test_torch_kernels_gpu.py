@@ -135,6 +135,32 @@ def test_bf16_matmul_vs_plain_on_card(m, n, k, k_full, xdtype, wdtype):
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,n,k,k_full,offset", [
+    (300, 96, 200, 208, 0),       # K a whole number of 8, not of the K step
+    (300, 96, 100, 104, 0),       # K not a whole number of 8: converting
+    (300, 96, 256, 384, 1),       # x's base 2 bytes off 16: converting
+    (100, 37, 64, 64, 0),         # odd N: odd row stride, scalar stores
+    (17, 1536, 1536, 1536, 0),    # tiled M, narrow tiles, long K
+    (1500, 1536, 1536, 1536, 0),  # wide tiles, long K
+])
+def test_bf16_matmul_bf16_edges_on_card(m, n, k, k_full, offset):
+    """bf16 x times bf16 W at the edges of the tensor-core launch and of
+    the dispatch between it and the converting one; tolerance 1e-4 as in
+    test_bf16_matmul_vs_plain_on_card."""
+    dev = _cuda_or_skip()
+    x, w = _operands(m, n, k_full + offset, seed=m + n + k + offset)
+    xt = torch.from_numpy(x).to(dev, torch.bfloat16)[:, offset:offset + k]
+    wt = torch.from_numpy(w).to(dev, torch.bfloat16)[:, :k]
+    assert (xt.data_ptr() % 16 == 0) == (offset == 0)
+    before = bf16_matmul.launches
+    got = bf16_matmul(xt, wt)
+    torch.cuda.synchronize()
+    assert bf16_matmul.launches == before + 1
+    torch.testing.assert_close(got, bf16_matmul_plain(xt, wt), rtol=1e-4,
+                               atol=1e-4)
+
+
 def _qkv(bh, sq, sk, d, dtype, dev, seed):
     rng = np.random.default_rng(seed)
     q, k, v = (torch.from_numpy(rng.standard_normal((bh, s, d)).astype(
@@ -149,6 +175,10 @@ def _qkv(bh, sq, sk, d, dtype, dev, seed):
     (3, 37, 101, 64, False),        # ragged Sq and Sk
     (3, 101, 37, 16, True),         # Sq > Sk, causal
     (2, 64, 128, 16, True),         # whole blocks
+    (2, 45, 200, 16, False),        # D 16, ragged Sq and Sk
+    (4, 33, 65, 64, False),         # one row and one key past a block
+    (2, 130, 70, 64, True),         # causal, Sq > Sk, both ragged
+    (3, 40, 90, 64, True),          # a 16-row warp tile that is all padding
 ])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_flash_attention_vs_plain_on_card(bh, sq, sk, d, causal, dtype):
@@ -180,6 +210,43 @@ def test_flash_attention_reads_folded_heads_without_copy():
     got = flash_attention_fwd(folded, folded, folded, causal=False)
     want = flash_attention_fwd(*(folded.contiguous(),) * 3, causal=False)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+def test_flash_attention_folded_encoder_view_vs_plain():
+    """The encoder's own operands: (1, 1500, 6, 64) bf16 projections folded
+    to (6, 1500, 64) views with an S stride of 384. Tolerance as in
+    test_flash_attention_vs_plain_on_card."""
+    dev = _cuda_or_skip()
+    rng = np.random.default_rng(6)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 1500, 6, 64)).astype(
+        np.float32)).to(dev, torch.bfloat16).transpose(1, 2).reshape(
+        6, 1500, 64) for _ in range(3))
+    assert q.stride() == (64, 384, 1)
+    got = flash_attention_fwd(q, k, v, causal=False)
+    torch.testing.assert_close(
+        got, flash_attention_fwd_plain(q, k, v, causal=False), rtol=1e-2,
+        atol=1e-2)
+    contiguous = flash_attention_fwd(q.contiguous(), k.contiguous(),
+                                     v.contiguous(), causal=False)
+    torch.testing.assert_close(got, contiguous, rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+def test_flash_attention_unaligned_bf16_rows():
+    """bf16 operands whose base is 2 bytes off 16 cannot be copied 16 bytes
+    at a time; they still give the plain version's answer (tolerance as in
+    test_flash_attention_vs_plain_on_card)."""
+    dev = _cuda_or_skip()
+    rng = np.random.default_rng(7)
+    full = torch.from_numpy(rng.standard_normal((3, 2, 100, 65)).astype(
+        np.float32)).to(dev, torch.bfloat16)
+    q, k, v = (full[i, :, :, 1:] for i in range(3))
+    assert q.data_ptr() % 16 != 0
+    got = flash_attention_fwd(q, k, v, causal=True)
+    torch.testing.assert_close(
+        got, flash_attention_fwd_plain(q, k, v, causal=True), rtol=1e-2,
+        atol=1e-2)
 
 
 @pytest.mark.gpu
