@@ -35,6 +35,10 @@ own kernels with nvcc. Phases, each of which fails the run on error:
    ``q8_matmul`` launches (the prefill) and 33 ``q8_matvec`` launches per
    decode step. Then the same weights and mel run through the port on the
    CPU, and the first decode step's logits must agree with the card's.
+   A profiled prefill and 8 decode steps give each phase's device time,
+   idle share and top kernels by name; the prefill's 32 ``q8_matmul``
+   launches must all be its tensor-core kernel (``q8_wgmma_kernel``), none
+   the f32 SIMT one.
 4. Batch 2 at full width, where the encoder's ffn.down (M = 3000, K = 1536)
    fails the reference's local-memory rule (``offload=False`` in its plan
    entries): every Q8_0 linear must still launch a kernel.
@@ -390,10 +394,22 @@ def check_against_cpu(cfg, params_cpu, mel, card_logits, sot,
     return diff
 
 
+def _top_kernels(prof, per: int, top: int):
+    """The ``top`` kernels of a profile by device time: (name, launches,
+    device ms), each divided by ``per``."""
+    events = sorted(prof.key_averages(),
+                    key=lambda e: getattr(e, "self_device_time_total", 0.0),
+                    reverse=True)[:top]
+    return [(e.key[:80], e.count // per,
+             getattr(e, "self_device_time_total", 0.0) / 1e3 / per)
+            for e in events]
+
+
 def where_time_goes(eng, mel, vocab: int, steps: int = 8):
     """One prefill and ``steps`` decode steps under torch.profiler: device
     time (summed kernel time) against host wall time, the device's idle
-    share, and the decode step's largest kernels."""
+    share, and each phase's largest kernels. Returns the summary and the
+    prefill's launches by kernel name."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     mel_t = torch.from_numpy(mel).cuda()
@@ -404,6 +420,9 @@ def where_time_goes(eng, mel, vocab: int, steps: int = 8):
         torch.cuda.synchronize()
         pre_wall = (time.perf_counter() - t0) * 1e3
     pre_dev = device_us(prof) / 1e3
+    pre_top = _top_kernels(prof, 1, 12)
+    pre_launches = {e.key: e.count for e in prof.key_averages()
+                    if getattr(e, "self_device_time_total", 0.0) > 0}
     tok = torch.full((1, 1), 1, device="cuda")
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -413,20 +432,15 @@ def where_time_goes(eng, mel, vocab: int, steps: int = 8):
         torch.cuda.synchronize()
         dec_wall = (time.perf_counter() - t0) * 1e3 / steps
     dec_dev = device_us(prof) / 1e3 / steps
-    top = sorted(prof.key_averages(),
-                 key=lambda e: getattr(e, "self_device_time_total", 0.0),
-                 reverse=True)[:8]
     out = dict(prefill_wall_ms=pre_wall, prefill_device_ms=pre_dev,
                prefill_idle_share=1 - pre_dev / pre_wall,
+               prefill_top_kernels=pre_top,
                decode_wall_ms_per_step=dec_wall,
                decode_device_ms_per_step=dec_dev,
                decode_idle_share=1 - dec_dev / dec_wall,
-               decode_top_kernels=[
-                   (e.key[:80], e.count // steps,
-                    getattr(e, "self_device_time_total", 0.0) / 1e3 / steps)
-                   for e in top])
+               decode_top_kernels=_top_kernels(prof, steps, 8))
     print(f"where the time goes (profiled): {json.dumps(out)}", flush=True)
-    return out
+    return out, pre_launches
 
 
 def main_path():
@@ -478,7 +492,14 @@ def main_path():
     if int(card_logits[0, -1, :cfg.vocab_size].argmax()) != r.tokens[0]:
         raise AssertionError("first-step argmax differs from transcribe")
     err = check_against_cpu(cfg, params_cpu, mel, card_logits, sot)
-    split = where_time_goes(eng, mel, cfg.vocab_size)
+    split, pre_launches = where_time_goes(eng, mel, cfg.vocab_size)
+    routes = {route: sum(c for key, c in pre_launches.items() if route in key)
+              for route in ("q8_wgmma_kernel", "q8_matmul_kernel")}
+    print(f"main path prefill q8_matmul launches by kernel: {routes}",
+          flush=True)
+    if routes != {"q8_wgmma_kernel": 32, "q8_matmul_kernel": 0}:
+        raise AssertionError(f"prefill q8_matmul kernels {routes}: expected "
+                             "32 tensor-core launches and no SIMT one")
     return launches, dict(prefill_ms=r.prefill_s * 1e3,
                           decode_ms_per_token=r.decode_s * 1e3 / r.steps,
                           peak_mem_bytes=peak, first_step_cpu_err=err,
@@ -590,7 +611,7 @@ def dense_flash_path():
         raise AssertionError("first-step argmax differs from transcribe")
     err = check_against_cpu(cfg, params_cpu, mel, card_logits, sot,
                             tol=DENSE_FIRST_STEP_TOL)
-    split = where_time_goes(eng, mel, cfg.vocab_size)
+    split, _ = where_time_goes(eng, mel, cfg.vocab_size)
     return launches, dict(prefill_ms=r.prefill_s * 1e3,
                           decode_ms_per_token=r.decode_s * 1e3 / r.steps,
                           peak_mem_bytes=peak, first_step_cpu_err=err,
@@ -616,7 +637,9 @@ def main() -> int:
           flush=True)
     for name, log in logs.items():
         for line in log.splitlines():
-            if "Compiling entry" in line or "Used" in line or "spill" in line:
+            # (C75..): ptxas's notes on serialized or waited-for wgmma
+            if any(word in line for word in (
+                    "Compiling entry", "Used", "spill", "(C75")):
                 print(f"  {name}: {line.strip()}")
 
     records = check_kernels()

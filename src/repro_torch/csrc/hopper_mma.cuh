@@ -1,8 +1,9 @@
 // Tensor-core and asynchronous-copy helpers shared by the port's kernels,
-// built for sm_90a: 16-byte cp.async with zero fill, ldmatrix of four 8 x 8
+// built for sm_90a: 16- and 4-byte cp.async with zero fill, the exact
+// widening of int8 to f32, ldmatrix of four 8 x 8
 // bf16 matrices (plain and transposed), the warp-wide mma.sync.m16n8k16 bf16
-// product with f32 accumulators, and Hopper's warpgroup product
-// wgmma.m64n64k16 on bf16 tiles in shared memory.
+// product with f32 accumulators, Hopper's warpgroup products
+// wgmma.m64n64k16 and m64n32k16 on bf16 tiles in shared memory.
 //
 // Fragment layouts of m16n8k16 (lane = threadIdx.x % 32, g = lane / 4,
 // t = lane % 4), which the kernels rely on:
@@ -28,6 +29,14 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                    smem_addr(dst)),
                "l"(src), "r"(valid ? 16 : 0));
+}
+
+// 4 bytes likewise (through L1: cp.async.cg takes only 16)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0));
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -68,6 +77,14 @@ __device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// int8 value j (0..3) of the packed word w as an exact f32, without the
+// quarter-rate integer conversion: the byte, offset by 128 to 0..255, is
+// placed in the mantissa of 2^23 (0x4B000000), and 2^23 + 128 taken away
+__device__ __forceinline__ float i8_to_f32(uint32_t w, int j) {
+  const uint32_t u = __byte_perm(w ^ 0x80808080u, 0x4B000000u, 0x7540 | j);
+  return __uint_as_float(u) - 8388736.f;
+}
+
 // two f32 rounded to bf16 (as PyTorch's cast) in one register, lo first
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
@@ -91,8 +108,10 @@ __device__ __forceinline__ uint64_t wgmma_desc_sw128(const void* tile) {
 // in shared memory, f32 accumulators; warp w of the warpgroup holds rows
 // 16 w.. in the C layout above, one n8 tile per 4 registers:
 // d[4 j .. 4 j + 3] = C[g][8 j + 2t..], C[g + 8][8 j + 2t..]
+// With accumulate = 0 (scale-d = 0) the product overwrites d instead.
 __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t a,
-                                                uint64_t b) {
+                                                uint64_t b,
+                                                int accumulate = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
@@ -106,7 +125,35 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t a,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(1));            // scale-d = 1: accumulate
+      : "l"(a), "l"(b), "r"(accumulate));   // scale-d
+}
+
+// the same for a 64 x 32 tile (B 16 x 32): d[4 j .. 4 j + 3] as above,
+// j < 4
+__device__ __forceinline__ void wgmma_m64n32k16(float (&d)[16], uint64_t a,
+                                                uint64_t b,
+                                                int accumulate = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// the product of a 64-row tile whose width the accumulators give
+__device__ __forceinline__ void wgmma_m64k16(float (&d)[32], uint64_t a,
+                                             uint64_t b, int accumulate = 1) {
+  wgmma_m64n64k16(d, a, b, accumulate);
+}
+
+__device__ __forceinline__ void wgmma_m64k16(float (&d)[16], uint64_t a,
+                                             uint64_t b, int accumulate = 1) {
+  wgmma_m64n32k16(d, a, b, accumulate);
 }
 
 // keeps the compiler from moving reads or writes of the accumulators

@@ -5,17 +5,33 @@
 // Replaces the Pallas TPU kernel repro/kernels/q8_matvec.py (q8_matvec,
 // body _q8_matvec_kernel). At decode M is 1, so every weight byte is used
 // for M multiply-adds: the kernel is bound by the bytes it streams from
-// device memory, not by arithmetic. The design therefore
-//   * streams the int8 payload and the f32 scales exactly once: each warp
-//     owns ROWS output rows and walks them along K, each lane loading 4
-//     consecutive int8 values a step, so a warp reads 128 contiguous bytes
-//     of a row per load instruction;
-//   * dequantizes in registers (q * scale in f32, the reference's inline
-//     conversion) and accumulates in f32;
-//   * keeps the <= 16 activation rows in shared memory as f32 (converted
-//     inline from bf16 or f32), staged once per block and K chunk;
-//   * reduces each row across the warp with shuffles, and masks the ragged
-//     N edge (51,872 = 2^5 * 1621 rows for the vocabulary readout).
+// device memory, and it reaches that bound only with enough bytes in
+// flight on every SM. Most decode shapes are small (98 KB of int8 W at
+// 1 x 384 x 256), so the time is a launch and a few device round trips, and
+// what counts is that no round trip waits on another. The design:
+//   * each lane loads 16 int8 values of a row (16 bytes: half a Q8_0 block,
+//     so one scale per load), and the kLanes = 16 lanes of a half-warp
+//     cover 256 values of one row per load instruction: a warp reads two
+//     rows at a time (and walks kRowsPerSlot rows in each half-warp where
+//     N is large, as in the vocabulary readout);
+//   * the K loop is unrolled so that a lane issues kUnroll independent
+//     weight loads, and their scales, before it uses the first;
+//   * x is read straight from device memory through L1 (float4, or 16-byte
+//     bf16 loads), each lane only the values of its own chunks, beside the
+//     weight loads: no staging in shared memory and no barrier before the
+//     first weight load, and every M <= 16 fits, since a lane holds at most
+//     16 values of one x row at a time;
+//   * at long K the warps of a block share each row's K (up to kMaxSplit
+//     of them, each walking 256-value steps in turn) and add their partial
+//     sums through shared memory at the end, in one fixed order; at small
+//     N a block holds fewer rows (down to one warp of two rows), so that
+//     the grid gives each of the kMinBlocks = 132 SMs at least one block;
+//   * int8 is widened to f32 exactly with a byte permute and one add (no
+//     quarter-rate integer conversion), dequantized in registers (q * scale
+//     in f32, the reference's inline conversion) and accumulated in f32;
+//     each row is reduced across its half-warp with shuffles, and the
+//     ragged N edge (51,872 = 2^5 * 1621 rows for the vocabulary readout)
+//     is masked.
 // Operands are read through row strides, so a K-slice of a wider matrix (the
 // burst-aligned main segment of the mixed split) needs no copy.
 //
@@ -25,101 +41,206 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper_mma.cuh"
+
 namespace {
 
-constexpr int kWarps = 4;                    // warps per block
-constexpr int kRows = 2;                     // output rows per warp
-constexpr int kRowsPerBlock = kWarps * kRows;
-constexpr int kSmemBytes = 48 * 1024;        // activation chunk, no opt-in needed
+using bf16 = __nv_bfloat16;
 
-__device__ __forceinline__ float load_x(const void* x, int x_bf16, long long i) {
-  return x_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(x)[i])
-                : static_cast<const float*>(x)[i];
+constexpr int kLanes = 16;                   // lanes on one row, 16 bytes each
+constexpr int kMaxWarps = 4;                 // warps a block, at most
+constexpr int kRowsPerSlot = 4;              // rows of a half-warp at large N
+constexpr int kMaxSplit = 4;                 // warps sharing one row's K
+constexpr int kUnroll = 2;                   // loads a lane issues up front
+constexpr int kMinBlocks = 132;              // one block for each SM of an H100
+static_assert(kMaxSplit <= kMaxWarps, "a split spans warps of one block");
+
+// 16 consecutive values of x from p as f32; 16-byte loads where `vec`
+__device__ __forceinline__ void load16(const float* p, bool vec, float v[16]) {
+  if (vec) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float4 a = __ldg(reinterpret_cast<const float4*>(p) + j);
+      v[4 * j] = a.x; v[4 * j + 1] = a.y; v[4 * j + 2] = a.z; v[4 * j + 3] = a.w;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < 16; ++j) v[j] = __ldg(p + j);
+  }
 }
 
-template <int MT>
-__global__ void __launch_bounds__(kWarps * 32)
-q8_matvec_kernel(const void* __restrict__ x, int x_bf16, long long ldx,
+__device__ __forceinline__ void load16(const bf16* p, bool vec, float v[16]) {
+  if (vec) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const uint4 u = __ldg(reinterpret_cast<const uint4*>(p) + j);
+      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 f = __bfloat1622float2(h[i]);
+        v[8 * j + 2 * i] = f.x;
+        v[8 * j + 2 * i + 1] = f.y;
+      }
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < 16; ++j) v[j] = __bfloat162float(p[j]);
+  }
+}
+
+// a block: `split` warps share the K of each row; blockDim.x / 32 / split
+// warps of 2 * R rows each
+template <typename TX, int MT, int R>
+__global__ void __launch_bounds__(32 * kMaxWarps)
+q8_matvec_kernel(const TX* __restrict__ x, long long ldx, bool vx,
                  const int8_t* __restrict__ qs, long long ldq,
                  const float* __restrict__ scales, long long lds,
-                 float* __restrict__ out, long long ldo,
-                 int m, int n, int k, int kc) {
-  extern __shared__ __align__(16) float xs[];  // [MT][kc] activation chunk
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int row0 = blockIdx.x * kRowsPerBlock + warp * kRows;
+                 float* __restrict__ out, long long ldo, int m, int n, int k,
+                 int split) {
+  __shared__ float red[kMaxWarps * 2 * R * MT];  // the split's partial sums
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int sp = warp % split;               // this warp's share of K
+  const int slot = (warp / split) * 2 + lane / kLanes;  // half-warp's rows
+  const int rows_per_block = blockDim.x / 32 / split * 2 * R;
+  const int row0 = blockIdx.x * rows_per_block + slot * R;
+  const int nc = k / 16;                     // 16-byte chunks of a row
+  const int stride = split * kLanes;         // chunks between a lane's loads
+  const int li = sp * kLanes + lane % kLanes;
 
-  float acc[kRows][MT];
+  const int8_t* qrow[R];
+  const float* srow[R];
 #pragma unroll
-  for (int r = 0; r < kRows; ++r)
+  for (int r = 0; r < R; ++r) {              // rows past n read row n - 1
+    const int row = min(row0 + r, n - 1);
+    qrow[r] = qs + row * ldq;
+    srow[r] = scales + row * lds;
+  }
+
+  float acc[R][MT];
+#pragma unroll
+  for (int r = 0; r < R; ++r)
 #pragma unroll
     for (int i = 0; i < MT; ++i) acc[r][i] = 0.f;
 
-  for (int k0 = 0; k0 < k; k0 += kc) {
-    const int len = min(kc, k - k0);         // a multiple of 32
-    __syncthreads();                         // previous chunk fully consumed
-    for (int i = threadIdx.x; i < MT * len; i += blockDim.x) {
-      const int r = i / len, c = i - r * len;
-      xs[r * kc + c] = r < m ? load_x(x, x_bf16, r * ldx + k0 + c) : 0.f;
-    }
-    __syncthreads();
-
-    for (int c = lane * 4; c < len; c += 128) {
-      float4 xv[MT];
+  for (int c0 = li; c0 < nc; c0 += kUnroll * stride) {
+    uint4 q[kUnroll][R];
+    float s[kUnroll][R];
 #pragma unroll
-      for (int i = 0; i < MT; ++i)
-        xv[i] = *reinterpret_cast<const float4*>(&xs[i * kc + c]);
+    for (int u = 0; u < kUnroll; ++u) {      // every load before any use
+      const int c = c0 + u * stride;
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const int row = row0 + r;
-        if (row < n) {
-          const char4 q = *reinterpret_cast<const char4*>(
-              qs + row * ldq + k0 + c);
-          const float s = scales[row * lds + (k0 + c) / 32];
-          const float w0 = static_cast<float>(q.x) * s;
-          const float w1 = static_cast<float>(q.y) * s;
-          const float w2 = static_cast<float>(q.z) * s;
-          const float w3 = static_cast<float>(q.w) * s;
-#pragma unroll
-          for (int i = 0; i < MT; ++i) {
-            float a = acc[r][i];
-            a = fmaf(xv[i].x, w0, a);
-            a = fmaf(xv[i].y, w1, a);
-            a = fmaf(xv[i].z, w2, a);
-            a = fmaf(xv[i].w, w3, a);
-            acc[r][i] = a;
-          }
+      for (int r = 0; r < R; ++r) {
+        if (c < nc) {
+          q[u][r] = __ldg(reinterpret_cast<const uint4*>(qrow[r] + c * 16));
+          s[u][r] = __ldg(srow[r] + c / 2);
+        } else {
+          q[u][r] = make_uint4(0, 0, 0, 0);
+          s[u][r] = 0.f;
         }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int c = c0 + u * stride;
+      if (c >= nc) break;
+      float w[R][16];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const uint32_t word[4] = {q[u][r].x, q[u][r].y, q[u][r].z, q[u][r].w};
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+          w[r][j] = hopper::i8_to_f32(word[j / 4], j % 4) * s[u][r];
+      }
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        if (i >= m) break;
+        float xv[16];
+        load16(x + i * ldx + c * 16, vx, xv);
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+#pragma unroll
+          for (int j = 0; j < 16; ++j) acc[r][i] = fmaf(xv[j], w[r][j], acc[r][i]);
       }
     }
   }
 
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int row = row0 + r;
+  for (int r = 0; r < R; ++r)
 #pragma unroll
-    for (int i = 0; i < MT; ++i) {
-      float v = acc[r][i];
+    for (int i = 0; i < MT; ++i)
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        v += __shfl_xor_sync(0xffffffffu, v, off);
-      if (lane == 0 && row < n && i < m) out[i * ldo + row] = v;
+      for (int off = kLanes / 2; off > 0; off >>= 1)   // within the half-warp
+        acc[r][i] += __shfl_xor_sync(0xffffffffu, acc[r][i], off);
+
+  if (split == 1) {
+    if (lane % kLanes == 0) {
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+          if (row0 + r < n && i < m) out[i * ldo + row0 + r] = acc[r][i];
     }
+    return;
+  }
+  if (lane % kLanes == 0) {
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+        red[((slot * R + r) * MT + i) * split + sp] = acc[r][i];
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < rows_per_block * MT; e += blockDim.x) {
+    const int rb = e / MT, i = e % MT;
+    const int row = blockIdx.x * rows_per_block + rb;
+    float v = 0.f;
+    for (int j = 0; j < split; ++j) v += red[e * split + j];  // fixed order
+    if (row < n && i < m) out[i * ldo + row] = v;
   }
 }
 
-template <int MT>
-cudaError_t launch(const void* x, int x_bf16, long long ldx, const int8_t* qs,
+// The grid: split K across warps while each lane keeps whole 256-value
+// steps; then the most rows a block (kRowsPerSlot rows a half-warp, else
+// 1; then fewer warps) that still gives every SM a block.
+template <typename TX, int MT>
+cudaError_t launch(const TX* x, long long ldx, bool vx, const int8_t* qs,
                    long long ldq, const float* scales, long long lds,
                    float* out, long long ldo, int m, int n, int k,
-                   cudaStream_t stream) {
-  // K chunk staged in shared memory: as much of K as fits, whole Q8_0 blocks
-  int kc = (kSmemBytes / (4 * MT)) / 32 * 32;
-  if (kc > k) kc = k;
-  const dim3 grid((n + kRowsPerBlock - 1) / kRowsPerBlock);
-  q8_matvec_kernel<MT><<<grid, kWarps * 32, MT * kc * sizeof(float), stream>>>(
-      x, x_bf16, ldx, qs, ldq, scales, lds, out, ldo, m, n, k, kc);
+                   cudaStream_t st) {
+  const int nc = k / 16;
+  int split = 1;
+  while (split < kMaxSplit && 2 * split * kLanes <= nc) split *= 2;
+  auto blocks = [&](int r, int warps) {
+    const int rows = warps / split * 2 * r;
+    return (n + rows - 1) / rows;
+  };
+  int warps = kMaxWarps;
+  const bool wide = blocks(kRowsPerSlot, warps) >= kMinBlocks;
+  const int r = wide ? kRowsPerSlot : 1;
+  while (warps > split && blocks(r, warps) < kMinBlocks) warps /= 2;
+  const dim3 grid(blocks(r, warps));
+  if (wide)
+    q8_matvec_kernel<TX, MT, kRowsPerSlot><<<grid, 32 * warps, 0, st>>>(
+        x, ldx, vx, qs, ldq, scales, lds, out, ldo, m, n, k, split);
+  else
+    q8_matvec_kernel<TX, MT, 1><<<grid, 32 * warps, 0, st>>>(
+        x, ldx, vx, qs, ldq, scales, lds, out, ldo, m, n, k, split);
   return cudaGetLastError();
+}
+
+template <typename TX>
+cudaError_t run(const void* xv, long long ldx, const int8_t* q, long long ldq,
+                const float* s, long long lds, float* o, long long ldo, int m,
+                int n, int k, cudaStream_t st) {
+  const auto* x = static_cast<const TX*>(xv);
+  // x rows can be read 16 bytes at a time
+  const bool vx = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                  (ldx * sizeof(TX)) % 16 == 0;
+  if (m == 1) return launch<TX, 1>(x, ldx, vx, q, ldq, s, lds, o, ldo, m, n, k, st);
+  if (m <= 2) return launch<TX, 2>(x, ldx, vx, q, ldq, s, lds, o, ldo, m, n, k, st);
+  if (m <= 4) return launch<TX, 4>(x, ldx, vx, q, ldq, s, lds, o, ldo, m, n, k, st);
+  if (m <= 8) return launch<TX, 8>(x, ldx, vx, q, ldq, s, lds, o, ldo, m, n, k, st);
+  return launch<TX, 16>(x, ldx, vx, q, ldq, s, lds, o, ldo, m, n, k, st);
 }
 
 }  // namespace
@@ -134,16 +255,8 @@ extern "C" int q8_matvec(const void* x, int x_bf16, long long ldx,
   const auto* s = static_cast<const float*>(scales);
   auto* o = static_cast<float*>(out);
   auto st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (m == 1)
-    err = launch<1>(x, x_bf16, ldx, q, ldq, s, lds, o, ldo, m, n, k, st);
-  else if (m <= 2)
-    err = launch<2>(x, x_bf16, ldx, q, ldq, s, lds, o, ldo, m, n, k, st);
-  else if (m <= 4)
-    err = launch<4>(x, x_bf16, ldx, q, ldq, s, lds, o, ldo, m, n, k, st);
-  else if (m <= 8)
-    err = launch<8>(x, x_bf16, ldx, q, ldq, s, lds, o, ldo, m, n, k, st);
-  else
-    err = launch<16>(x, x_bf16, ldx, q, ldq, s, lds, o, ldo, m, n, k, st);
+  const cudaError_t err =
+      x_bf16 ? run<bf16>(x, ldx, q, ldq, s, lds, o, ldo, m, n, k, st)
+             : run<float>(x, ldx, q, ldq, s, lds, o, ldo, m, n, k, st);
   return static_cast<int>(err);
 }

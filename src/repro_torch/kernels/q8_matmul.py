@@ -3,16 +3,18 @@ weight W (N, K) -> (M, N) f32.
 
 Replaces the Pallas TPU kernel ``repro/kernels/q8_matmul.py``
 (``q8_matmul``, body ``_q8_matmul_kernel``). At prefill M = 1500 frames and
-x is bf16, so the least time is set by the tensor cores: a bf16 x int8
+x is bf16, so the products belong on the tensor cores: a bf16 x int8
 product is exact in f32, so per-32-block bf16 MMAs with f32 accumulation,
 scaled per block afterwards, compute the same function up to summation
-order, at 989 TFLOP/s; the bytes (about 1 us at 1500 x 384 x 256) then
-bound it. The CUDA kernel (``csrc/q8_matmul.cu``) is, for now, a tiled f32
-product outside the tensor cores (67 TFLOP/s): 64 x 64 output tiles, a K
-loop inside the block in whole Q8_0 blocks, x and the inline-dequantized W
-staged in shared memory, 4 x 4 register sub-tiles per thread, and the
-ragged M and N edges masked in the kernel (no padding, unlike the TPU
-kernel, which needed whole tiles). A wgmma version is later work.
+order, and the bytes (about 1 us at 1500 x 384 x 256) then bound it. The
+CUDA kernel (``csrc/q8_matmul.cu``) does exactly that for bf16 x with
+16-byte aligned rows: ``wgmma`` on 64 x 32 output tiles, x and the raw
+int8 payload copied by ``cp.async``, the payload widened to bf16 in shared
+memory, two products per Q8_0 block into a partial accumulator that is
+scaled and added in f32. f32 x (rounding it to bf16 would change the
+function) and unaligned rows take a tiled f32 product. Both mask ragged M
+and N in the kernel (no padding, unlike the TPU kernel, which needed whole
+tiles).
 
 ``q8_matmul`` runs ``q8_matmul_plain`` only for tensors on the CPU; for
 CUDA tensors it launches the kernel or raises.

@@ -4,13 +4,16 @@ weight W (N, K) -> (B, N) f32.
 Replaces the Pallas TPU kernel ``repro/kernels/q8_matvec.py`` (``q8_matvec``,
 body ``_q8_matvec_kernel``). On the H100 it is bound by device-memory bytes:
 at B = 1 each weight byte feeds one multiply-add, far below the card's
-arithmetic-to-bandwidth ratio. The CUDA kernel (``csrc/q8_matvec.cu``)
-therefore streams the int8 payload and the scales exactly once, with a
-warp per pair of output rows, dequantizes in registers, keeps the
-activation rows in shared memory and reduces across the warp; it masks the
-ragged N edge itself (the 51,872-row vocabulary readout) and reads every
-operand through its row stride, so the burst-aligned K-slice of a wider
-weight needs no copy.
+arithmetic-to-bandwidth ratio, and most decode shapes are so small that
+what counts is keeping loads in flight. The CUDA kernel
+(``csrc/q8_matvec.cu``) streams the int8 payload and the scales exactly
+once in 16-byte loads (half a Q8_0 block each, issued before any is used),
+reads x straight from L1 with no barrier, splits long rows over the warps
+of a block and shrinks blocks at small N so that every SM has work,
+dequantizes in registers and reduces each row across its half-warp; it
+masks the ragged N edge itself (the 51,872-row vocabulary readout) and
+reads every operand through its row stride, so the burst-aligned K-slice
+of a wider weight needs no copy.
 
 ``q8_matvec`` runs ``q8_matvec_plain`` only for tensors on the CPU; for
 CUDA tensors it launches the kernel or raises.

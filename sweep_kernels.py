@@ -1,20 +1,23 @@
 #!/usr/bin/env python3
-"""Sweep the tensor-core launch configurations of the port's bf16 kernels on
-one NVIDIA H100.
+"""Sweep the launch configurations of the port's hand-written kernels on one
+NVIDIA H100.
 
     python3 sweep_kernels.py [--out build/sweep/sweep.json]
 
 Run from the root of a checkout, on a machine with a CUDA device and nvcc.
 For each configuration below, the kernel's source is copied with its
-``constexpr`` configuration constants replaced (``kTcWarps = 4`` becomes
-``kTcWarps = 2``, ...), built with the port's nvcc flags (one nvcc per
-variant, all started together), loaded with ctypes and called through the
-same C interface as the shipped library, at the dense prefill's shapes
-(``chip_smoke.BF16_PREFILL_SHAPES`` and ``chip_smoke.FLASH_SHAPES``). Each
-result is held against the kernel's plain version (the tolerances of
+``constexpr int`` configuration constants replaced (``constexpr int
+kTcWarps = 4`` becomes ``... = 2``; a comment that names a constant is left
+alone), built with the port's nvcc flags (one nvcc per variant, all started
+together), loaded with ctypes and called through the same C interface as
+the shipped library, at the main paths' shapes (``chip_smoke``'s
+``MATMUL_SHAPES`` and ``MATVEC_SHAPES`` for the Q8_0 kernels,
+``BF16_PREFILL_SHAPES`` and ``FLASH_SHAPES`` for the dense prefill's).
+Each result is held against the kernel's plain version (the tolerances of
 chip_smoke.py) and timed on the card (``chip_smoke.device_ms``). The first
 configuration of each kernel is the shipped one. Prints one line per
-configuration and writes them all as JSON to ``--out``.
+configuration, with its device time summed over one prefill or one decode
+step, and writes them all as JSON to ``--out``.
 """
 from __future__ import annotations
 
@@ -46,15 +49,40 @@ CONFIGS = {
         dict(kTcStages=4),
         dict(kTcStages=5),
     ]),
+    # ring slots (copies run kQStages - 1 steps ahead), 64 x 64 tiles,
+    # registers capped for more blocks an SM
+    "q8_matmul": ("q8_matmul", [
+        {},
+        dict(kQStages=2),
+        dict(kQStages=4),
+        dict(kQBN=64),
+        dict(kQBN=64, kQStages=4),
+        dict(kQMinBlocks=6),
+    ]),
+    # rows a half-warp walks at large N, loads a lane issues up front, and
+    # the K split over the warps of a block
+    "q8_matvec": ("q8_matvec", [
+        {},
+        dict(kUnroll=4),
+        dict(kRowsPerSlot=1),
+        dict(kRowsPerSlot=2),
+        dict(kMaxSplit=2),
+        dict(kMaxWarps=8),
+        dict(kMaxWarps=8, kMaxSplit=8),
+    ]),
 }
 
 
 def variant_source(src: str, consts: dict) -> str:
-    """The source with each named constexpr int constant set anew."""
+    """The source with each named ``constexpr int`` constant set anew, in
+    its declaration (which may declare several, ``constexpr int a = 1,
+    b = 2;``); the name in a comment is not a declaration."""
     for name, value in consts.items():
-        src, n = re.subn(rf"\b{name} = \d+", f"{name} = {value}", src, count=1)
+        src, n = re.subn(
+            rf"(\bconstexpr\s+int\s+(?:\w+\s*=\s*\d+\s*,\s*)*{name}\s*=\s*)\d+",
+            rf"\g<1>{value}", src, count=1)
         if n != 1:
-            raise KeyError(f"no constant {name} in the source")
+            raise KeyError(f"no constexpr int {name} in the source")
     return src
 
 
@@ -104,7 +132,7 @@ def main() -> int:
     sys.path.insert(0, os.path.join(ROOT, "src"))
     import chip_smoke
     from repro_torch.core.device import resolve_device
-    from repro_torch.kernels import bf16_matmul, flash_attention
+    from repro_torch.kernels import bf16_matmul, flash_attention, ref
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "sweep",
@@ -120,7 +148,19 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
-    cases = {"bf16_matmul": [], "flash_attention_fwd": []}
+    cases = {name: [] for name in CONFIGS}
+    for name, shapes in (("q8_matmul", chip_smoke.MATMUL_SHAPES),
+                         ("q8_matvec", chip_smoke.MATVEC_SHAPES)):
+        for m, n, k, k_full, count, xdt in shapes:
+            (x, qs, sc), *_ = chip_smoke._q8_case(gen, m, n, k, k_full, xdt)
+            out = torch.empty((m, n), dtype=torch.float32, device="cuda")
+            call_args = (x.data_ptr(), int(x.dtype == torch.bfloat16),
+                         x.stride(0), qs.data_ptr(), qs.stride(0),
+                         sc.data_ptr(), sc.stride(0), out.data_ptr(),
+                         out.stride(0), m, n, k)
+            cases[name].append((f"{m}x{n}x{k}", count, call_args, out,
+                                ref.q8_flat_ref(x, qs, sc),
+                                chip_smoke.KERNEL_TOL, (x, qs, sc)))
     for m, n, k, k_full, count, xdt in chip_smoke.BF16_PREFILL_SHAPES:
         (x, w), *_ = chip_smoke._bf16_case(gen, m, n, k, k_full, xdt)
         out = torch.empty((m, n), dtype=torch.float32, device="cuda")
@@ -163,9 +203,10 @@ def main() -> int:
             per_shape[label] = ms
             total += ms * count
             worst = max(worst, err)
+        per = "decode step" if name == "q8_matvec" else "prefill"
         rows.append(dict(kernel=name, config=tag(consts), ms=per_shape,
-                         ms_per_prefill=total, max_abs_err=worst))
-        print(f"sweep {name} [{tag(consts)}]: per prefill {total:.5f} ms; "
+                         per=per, ms_total=total, max_abs_err=worst))
+        print(f"sweep {name} [{tag(consts)}]: per {per} {total:.5f} ms; "
               + " ".join(f"{k}={v:.5f}" for k, v in per_shape.items())
               + f" max_abs_err={worst:.3e}", flush=True)
     os.makedirs(os.path.dirname(args.out), exist_ok=True)

@@ -162,6 +162,43 @@ def test_q8_matvec_rejects_more_than_16_rows():
         q8_matvec(torch.zeros(17, 64), tq.flat_qs(), tq.scales)
 
 
+def _per_block_tensor_core_route(x, qs, scales):
+    """The arithmetic of q8_matmul's tensor-core launch, in plain PyTorch:
+    bf16 x times the int8 values of qs held as bf16, summed in f32 over
+    each 32-value Q8_0 block, then each block's partial sum times its
+    scale, added over the blocks in order."""
+    m, k = x.shape
+    xb = x.to(torch.bfloat16).float().reshape(m, k // 32, 32)
+    qb = qs.to(torch.bfloat16).float().reshape(qs.shape[0], k // 32, 32)
+    assert torch.equal(qb, qs.float().reshape_as(qb))   # int8 exact in bf16
+    partial = torch.einsum("mbj,nbj->mnb", xb, qb)      # (M, N, K/32) f32
+    out = torch.zeros(m, qs.shape[0])
+    for b in range(k // 32):
+        out += scales[:, b] * partial[:, :, b]
+    return out
+
+
+@pytest.mark.parametrize("m,n,k", [(13, 40, 96), (65, 72, 96),
+                                   (37, 24, 1536)])
+def test_tensor_core_route_computes_the_reference(m, n, k):
+    """Per-block partial sums scaled afterwards compute x @ (q * s).T: each
+    product of a bf16 value and an int8 value is exact in f32, so the two
+    differ only in the order of the f32 sums and in rounding q * s once per
+    value (the reference) or s * partial once per block (the route), both
+    2^-24 relative a step. Tolerance 1e-5 as TOL, at outputs of O(1) (up to
+    about 2 at K = 1536); the ragged M and N are the kernel's masked tiles."""
+    x, w = _operands(m, n, k, seed=m + n + k)
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    tq = quantize_q8_0(torch.from_numpy(w))
+    got = _per_block_tensor_core_route(xb, tq.flat_qs(), tq.scales)
+    np.testing.assert_allclose(
+        got.numpy(), ref.q8_flat_ref(xb, tq.flat_qs(), tq.scales).numpy(),
+        **TOL)
+    jq = JQTensor(jnp.asarray(tq.qs.numpy()), jnp.asarray(tq.scales.numpy()))
+    want = jax_ref.q8_matmul_ref(jnp.asarray(xb.float().numpy()), jq)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
 # bf16_matmul: (m, n, k, k_full, Pallas tiles); k < k_full is the strided
 # K-slice of a wider operand the executor hands the kernel
 BF16_SHAPES = [
@@ -346,5 +383,29 @@ def test_sweep_configurations_name_constants_of_the_sources():
             out = sweep.variant_source(src, consts)
             assert out != src
             assert all(f"{k} = {v}" in out for k, v in consts.items())
+            changed = {a for a, b in zip(src.splitlines(), out.splitlines())
+                       if a != b}
+            assert changed and all(line.startswith("constexpr int ")
+                                   for line in changed)
         with pytest.raises(KeyError):
             sweep.variant_source(src, {"kNoSuchConstant": 1})
+
+
+def test_sweep_sets_declarations_not_comments():
+    """A constant named in a comment before its declaration (as a source's
+    header describes its configuration) stays as written; the declaration,
+    alone or one of several, takes the new value."""
+    import importlib.util
+    import os
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "sweep_kernels.py")
+    spec = importlib.util.spec_from_file_location("sweep_kernels", path)
+    sweep = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(sweep)
+    src = ("// a ring of kStages = 3 steps\n"
+           "constexpr int kStages = 3;\n"
+           "constexpr int kA = 1, kB = 2;\n")
+    assert sweep.variant_source(src, {"kStages": 5, "kB": 4}) == (
+        "// a ring of kStages = 3 steps\n"
+        "constexpr int kStages = 5;\n"
+        "constexpr int kA = 1, kB = 4;\n")

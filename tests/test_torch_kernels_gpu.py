@@ -44,33 +44,53 @@ def _cuda_or_skip():
     return resolve_device("cuda")
 
 
+def _q8_param(name, m, n, k, k_full, x_offset=0):
+    """One case of test_kernel_vs_plain_on_card; x_offset > 0 makes x's
+    base and row stride x_offset elements off 16 bytes."""
+    tag = f"-xoff{x_offset}" if x_offset else ""
+    return pytest.param(name, m, n, k, k_full, x_offset,
+                        id=f"{name}-{m}-{n}-{k}-{k_full}{tag}")
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("name,m,n,k,k_full", [
-    ("q8_matvec", 1, 384, 256, 384),       # decode q/k/v/o, cross q/o
-    ("q8_matvec", 1, 1536, 256, 384),      # decode ffn.up
-    ("q8_matvec", 1, 384, 1536, 1536),     # decode ffn.down
-    ("q8_matvec", 1, 51872, 256, 384),     # decode dec.vocab
-    ("q8_matvec", 16, 100, 96, 96),        # ragged N, full batch tile
-    ("q8_matvec", 3, 33, 4096, 4096),      # K beyond one shared-memory chunk
-    ("q8_matmul", 1500, 384, 256, 384),    # prefill q/k/v/o, cross k/v
-    ("q8_matmul", 1500, 1536, 256, 384),   # prefill ffn.up
-    ("q8_matmul", 1500, 384, 1536, 1536),  # prefill ffn.down
-    ("q8_matmul", 17, 70, 32, 64),         # ragged M and N
+@pytest.mark.parametrize("name,m,n,k,k_full,x_offset", [
+    _q8_param("q8_matvec", 1, 384, 256, 384),       # decode q/k/v/o, cross q/o
+    _q8_param("q8_matvec", 1, 1536, 256, 384),      # decode ffn.up
+    _q8_param("q8_matvec", 1, 384, 1536, 1536),     # decode ffn.down
+    _q8_param("q8_matvec", 1, 51872, 256, 384),     # decode dec.vocab
+    _q8_param("q8_matvec", 16, 100, 96, 96),        # ragged N, full batch tile
+    _q8_param("q8_matvec", 3, 33, 4096, 4096),      # long K, split over warps
+    _q8_param("q8_matvec", 5, 384, 1536, 1536),     # batch rows, split K
+    _q8_param("q8_matvec", 16, 384, 1536, 1536),
+    _q8_param("q8_matvec", 2, 100, 32, 32),         # K of one Q8_0 block
+    _q8_param("q8_matvec", 1, 1, 256, 256),         # one output row
+    _q8_param("q8_matvec", 4, 33, 512, 512),        # N = 33, split by 2
+    _q8_param("q8_matvec", 3, 96, 256, 256, 1),     # unaligned x rows
+    _q8_param("q8_matmul", 1500, 384, 256, 384),    # prefill q/k/v/o, cross k/v
+    _q8_param("q8_matmul", 1500, 1536, 256, 384),   # prefill ffn.up
+    _q8_param("q8_matmul", 1500, 384, 1536, 1536),  # prefill ffn.down
+    _q8_param("q8_matmul", 17, 70, 32, 64),         # ragged M and N
+    _q8_param("q8_matmul", 100, 64, 96, 96),        # K = 96: a ragged 64-step
+    _q8_param("q8_matmul", 70, 64, 32, 32),         # K = 32: one Q8_0 block
+    _q8_param("q8_matmul", 65, 72, 256, 256),       # ragged 64 x 64 tiles
+    _q8_param("q8_matmul", 300, 96, 256, 256, 1),   # unaligned x: SIMT launch
 ])
 @pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
-def test_kernel_vs_plain_on_card(name, m, n, k, k_full, xdtype):
+def test_kernel_vs_plain_on_card(name, m, n, k, k_full, x_offset, xdtype):
     dev = _cuda_or_skip()
     fn, plain = ((q8_matvec, q8_matvec_plain) if name == "q8_matvec"
                  else (q8_matmul, q8_matmul_plain))
-    x, w = _operands(m, n, k_full, seed=m + n + k)
-    xt = torch.from_numpy(x).to(dev, xdtype)
-    tq = quantize_q8_0(torch.from_numpy(w).to(dev))
+    x, w = _operands(m, n, k_full + x_offset, seed=m + n + k)
+    xt = torch.from_numpy(x).to(dev, xdtype)[:, x_offset:x_offset + k]
+    assert (xt.data_ptr() % 16 == 0) == (x_offset == 0)
+    tq = quantize_q8_0(torch.from_numpy(np.ascontiguousarray(
+        w[:, :k_full])).to(dev))
     main = QTensor(tq.qs[:, :k // 32], tq.scales[:, :k // 32])
     before = fn.launches
-    got = fn(xt[:, :k], main.flat_qs(), main.scales)
+    got = fn(xt, main.flat_qs(), main.scales)
     torch.cuda.synchronize()
     assert fn.launches == before + 1
-    want = plain(xt[:, :k], main.flat_qs(), main.scales)
+    want = plain(xt, main.flat_qs(), main.scales)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
 
 
