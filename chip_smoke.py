@@ -46,7 +46,10 @@ own kernels with nvcc. Phases, each of which fails the run on error:
    bf16 weights (``quant="none"``) and ``attn_impl="flash"``, the same
    transcribe. Exactly 32 ``bf16_matmul`` launches per prefill plus 33 per
    decode step, 4 ``flash_attention_fwd`` launches (one per encoder layer)
-   and no Q8_0 launch; first-step logits against the CPU's.
+   and no Q8_0 launch; first-step logits against the CPU's. In the
+   profiled decode steps every one of the 33 ``bf16_matmul`` launches a
+   step must be the decode kernel (``gemv_bf16_kernel``), none the one it
+   replaced (``matvec_kernel``); their device time a step is printed.
 
 The last two lines are the kernels' JSON record and the result line.
 """
@@ -139,6 +142,7 @@ KERNELS = {
                      "the kernel writes f32)"),
 }
 MAX_NEW = 32
+PROFILED_STEPS = 8               # decode steps under torch.profiler
 
 
 def card_line() -> str:
@@ -405,11 +409,28 @@ def _top_kernels(prof, per: int, top: int):
             for e in events]
 
 
-def where_time_goes(eng, mel, vocab: int, steps: int = 8):
+def _by_kernel(prof, per: int = 1):
+    """Each kernel a profile saw on the device: {name: (launches, device
+    ms)}, the launches and time divided by ``per``."""
+    return {e.key: (e.count / per,
+                    getattr(e, "self_device_time_total", 0.0) / 1e3 / per)
+            for e in prof.key_averages()
+            if getattr(e, "self_device_time_total", 0.0) > 0}
+
+
+def by_route(kernels, routes):
+    """Launches and device ms of each route in ``kernels`` (``_by_kernel``'s
+    map), summed over the kernels whose name holds the route's name."""
+    return {route: tuple(sum(v[j] for key, v in kernels.items()
+                             if route in key) for j in (0, 1))
+            for route in routes}
+
+
+def where_time_goes(eng, mel, vocab: int, steps: int = PROFILED_STEPS):
     """One prefill and ``steps`` decode steps under torch.profiler: device
     time (summed kernel time) against host wall time, the device's idle
-    share, and each phase's largest kernels. Returns the summary and the
-    prefill's launches by kernel name."""
+    share, and each phase's largest kernels. Returns the summary and each
+    phase's kernels by name (``_by_kernel``, the decode's per step)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     mel_t = torch.from_numpy(mel).cuda()
@@ -421,8 +442,7 @@ def where_time_goes(eng, mel, vocab: int, steps: int = 8):
         pre_wall = (time.perf_counter() - t0) * 1e3
     pre_dev = device_us(prof) / 1e3
     pre_top = _top_kernels(prof, 1, 12)
-    pre_launches = {e.key: e.count for e in prof.key_averages()
-                    if getattr(e, "self_device_time_total", 0.0) > 0}
+    pre_kernels = _by_kernel(prof)
     tok = torch.full((1, 1), 1, device="cuda")
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -440,7 +460,7 @@ def where_time_goes(eng, mel, vocab: int, steps: int = 8):
                decode_idle_share=1 - dec_dev / dec_wall,
                decode_top_kernels=_top_kernels(prof, steps, 8))
     print(f"where the time goes (profiled): {json.dumps(out)}", flush=True)
-    return out, pre_launches
+    return out, pre_kernels, _by_kernel(prof, steps)
 
 
 def main_path():
@@ -492,9 +512,9 @@ def main_path():
     if int(card_logits[0, -1, :cfg.vocab_size].argmax()) != r.tokens[0]:
         raise AssertionError("first-step argmax differs from transcribe")
     err = check_against_cpu(cfg, params_cpu, mel, card_logits, sot)
-    split, pre_launches = where_time_goes(eng, mel, cfg.vocab_size)
-    routes = {route: sum(c for key, c in pre_launches.items() if route in key)
-              for route in ("q8_wgmma_kernel", "q8_matmul_kernel")}
+    split, pre_kernels, _ = where_time_goes(eng, mel, cfg.vocab_size)
+    routes = {route: launches for route, (launches, _) in by_route(
+        pre_kernels, ("q8_wgmma_kernel", "q8_matmul_kernel")).items()}
     print(f"main path prefill q8_matmul launches by kernel: {routes}",
           flush=True)
     if routes != {"q8_wgmma_kernel": 32, "q8_matmul_kernel": 0}:
@@ -611,11 +631,20 @@ def dense_flash_path():
         raise AssertionError("first-step argmax differs from transcribe")
     err = check_against_cpu(cfg, params_cpu, mel, card_logits, sot,
                             tol=DENSE_FIRST_STEP_TOL)
-    split, _ = where_time_goes(eng, mel, cfg.vocab_size)
+    split, _, dec_kernels = where_time_goes(eng, mel, cfg.vocab_size)
+    routes = by_route(dec_kernels, ("gemv_bf16_kernel", "matvec_kernel"))
+    print(f"dense decode step bf16_matmul by kernel (launches, device ms "
+          f"per step): {routes}", flush=True)
+    if {route: launches for route, (launches, _) in routes.items()} != {
+            "gemv_bf16_kernel": 33, "matvec_kernel": 0}:
+        raise AssertionError(f"decode-step bf16_matmul kernels {routes}: "
+                             "expected 33 gemv_bf16_kernel launches a step "
+                             "and no matvec_kernel")
     return launches, dict(prefill_ms=r.prefill_s * 1e3,
                           decode_ms_per_token=r.decode_s * 1e3 / r.steps,
                           peak_mem_bytes=peak, first_step_cpu_err=err,
-                          **split)
+                          decode_bf16_matmul_device_ms_per_step=routes[
+                              "gemv_bf16_kernel"][1], **split)
 
 
 def main() -> int:

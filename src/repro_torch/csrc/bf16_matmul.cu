@@ -8,26 +8,60 @@
 // kernel (x is f32 or bf16, W bf16 or f32), products are exact in f32 and
 // summed in f32. Three launch configurations in one source:
 //
-//   * M <= 16 (decode, M = 1): each weight byte feeds at most 16
-//     multiply-adds, so the product is bound by the bytes of W streamed from
-//     device memory. Each warp owns kRows output rows and walks them along
-//     K, each lane loading 8 consecutive values (16 bytes of bf16) a step;
-//     the <= 16 activation rows are staged in shared memory as bf16-rounded
-//     f32; each row is reduced across the warp with shuffles. This is the
-//     q8_matvec design on a bf16 payload.
+//   * M <= 16 (decode, M = 1; gemv_bf16_kernel): each weight byte feeds
+//     at most 8 multiply-adds, so the product is bound by the bytes of W
+//     streamed from device memory, and it reaches that bound only with
+//     enough bytes in flight on every SM. Most decode shapes are small
+//     (196 KB of W at 1 x 384 x 256): the time is a launch and a few device
+//     round trips, and what counts is that no round trip waits on another.
+//     This is q8_matvec's design on a bf16 payload. It replaces a kernel
+//     of 8-row blocks (48 blocks at N = 384 on 132 SMs) that staged x in
+//     shared memory behind two barriers and used each lane's loads as they
+//     arrived (six dependent round trips at K = 1536):
+//       - a warp per row (kMvLanes = 32): each lane loads 8 bf16 values
+//         (16 bytes) of a row, so at K = 256 one load instruction of the
+//         warp covers the whole 512-byte row; where N is large (the
+//         51,872-row vocabulary readout) a warp walks kMvRows rows;
+//       - a lane issues its weight loads for all its rows, and kMvUnroll
+//         of them along K for each row, before it uses the first; at K =
+//         256 a lane has one load a row, at K = 1536 (split 4) at most two.
+//         kMvUnroll = 1: two sweeps on the H100 measured 2 loads along K
+//         slower at every decode shape (the readout's 4 rows then hold 8
+//         loads of registers, and fewer warps fit an SM);
+//       - x is read straight from device memory through L1 (16-byte loads
+//         for bf16, float4 for f32), each lane only the values of its own
+//         chunks: no staging in shared memory and no barrier before the
+//         first weight load, and every M <= 16 fits, since a lane holds 8
+//         values of one x row at a time;
+//       - at long K the warps of a block share each row's K (up to
+//         kMvMaxSplit of them, each walking 256-value steps in turn) and
+//         add their partial sums through shared memory at the end, in one
+//         fixed order; at small N a block holds fewer warps (down to one),
+//         so that the grid gives each of the kMvMinBlocks = 132 SMs at
+//         least one block;
+//       - bf16 widens to f32 exactly with a 16-bit shift (or a mask, for
+//         the upper value of a pair); an f32 operand is rounded to bf16 as
+//         it is loaded, so one product serves all four type combinations;
+//         products are exact in f32 and summed in f32; each row is reduced
+//         across its warp with shuffles;
+//       - the ragged N edge (51,872 = 2^5 * 1621) is masked, and so are a
+//         K that is not a whole number of 8 (the last chunk) and rows whose
+//         base or stride is not 16-byte aligned (value by value): every
+//         operand at M <= 16 takes this kernel.
 //   * M > 16 with bf16 x and W whose rows cp.async can copy (16-byte
 //     aligned bases and row strides, K a whole number of 8; every dense
 //     prefill linear of the serving path): bound by bytes at these shapes
 //     (K = 256 or 1536, an f32 output of M x N that is most of them), but
 //     only if the card keeps enough loads in flight. One warpgroup owns a
 //     64 x 64 output tile: x and W tiles are copied raw with 16-byte
-//     cp.async into a ring of kTcStages = 3 steps of kTcBK = 64, in the
-//     128-byte swizzle, so two steps load while one computes, behind one
-//     barrier a step; each step is four wgmma.m64n64k16 (bf16 in, f32
-//     accumulators) that read both tiles straight from shared memory
-//     through descriptors, once for the warpgroup; the f32 outputs are
-//     stored straight from the accumulators as float2, masked at ragged M
-//     and N. The sum over K runs in one fixed order, with no split of K.
+//     cp.async into a ring of kTcStages = 5 steps of kTcBK = 64, in the
+//     128-byte swizzle, so four steps load while one computes, behind one
+//     barrier a step (81 KB of shared memory, two blocks an SM); each
+//     step is four wgmma.m64n64k16 (bf16 in, f32 accumulators) that read
+//     both tiles straight from shared memory through descriptors, once for
+//     the warpgroup; the f32 outputs are stored straight from the
+//     accumulators as float2, masked at ragged M and N. The sum over K
+//     runs in one fixed order, with no split of K.
 //     At N = 384 the 144 tiles re-read x 6 and W 24 times from L2, and at
 //     K = 1536 that traffic (55 MB) is what bounds the launch: the next
 //     step is sharing x between the blocks of a row (TMA multicast in a
@@ -54,10 +88,6 @@
 namespace {
 
 using bf16 = __nv_bfloat16;
-
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
 
 // 8 consecutive values of a row from p, as f32, zero beyond `valid`
 __device__ __forceinline__ void load8(const float* p, bool vec, int valid,
@@ -90,96 +120,171 @@ __device__ __forceinline__ void load8(const bf16* p, bool vec, int valid,
   }
 }
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
-
 // ---------------------------------------------------------------- M <= 16
-constexpr int kWarps = 4;                    // warps per block
-constexpr int kRows = 2;                     // output rows per warp
-constexpr int kRowsPerBlock = kWarps * kRows;
-constexpr int kSmemBytes = 48 * 1024;        // activation chunk, no opt-in needed
+constexpr int kMvLanes = 32;                 // lanes on one row, 16 bytes each
+constexpr int kMvMaxWarps = 4;               // warps a block, at most
+constexpr int kMvRows = 4;                   // rows of a lane group at large N
+constexpr int kMvMaxSplit = 4;               // warps sharing one row's K
+constexpr int kMvUnroll = 1;                 // loads along K issued up front
+constexpr int kMvMinBlocks = 132;            // one block for each SM of an H100
+constexpr int kMvGroups = 32 / kMvLanes;     // lane groups (rows) side by side
+static_assert(32 % kMvLanes == 0, "lane groups tile a warp");
+static_assert(kMvMaxSplit <= kMvMaxWarps, "a split spans warps of one block");
 
-template <typename TX, typename TW, int MT>
-__global__ void __launch_bounds__(kWarps * 32)
-matvec_kernel(const TX* __restrict__ x, long long ldx,
-              const TW* __restrict__ w, long long ldw, bool vw,
-              float* __restrict__ out, long long ldo, int m, int n, int k,
-              int kc) {
-  extern __shared__ __align__(16) float xs[];  // [MT][kc] bf16-rounded x
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int row0 = blockIdx.x * kRowsPerBlock + warp * kRows;
+// 8 f32 rounded to bf16 (as PyTorch's cast), packed in order
+__device__ __forceinline__ uint4 pack8(const float v[8]) {
+  using hopper::pack_bf16;
+  return make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]),
+                    pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7]));
+}
 
-  float acc[kRows][MT];
+// 8 consecutive values of a row from p as packed bf16, zero beyond `valid`:
+// one 16-byte load where `vec` and all 8 are valid; an f32 row is rounded
+__device__ __forceinline__ uint4 load8_bf16(const bf16* p, bool vec,
+                                            int valid) {
+  if (vec && valid == 8) return __ldg(reinterpret_cast<const uint4*>(p));
+  float v[8];
+  load8(p, false, valid, v);
+  return pack8(v);                           // exact: the values are bf16
+}
+
+__device__ __forceinline__ uint4 load8_bf16(const float* p, bool vec,
+                                            int valid) {
+  float v[8];
+  load8(p, vec, valid, v);
+  return pack8(v);
+}
+
+// the two bf16 of a packed word as exact f32: the low one shifted into the
+// upper half, the high one with the low half cleared
+__device__ __forceinline__ float bf16_lo(uint32_t w) {
+  return __uint_as_float(w << 16);
+}
+__device__ __forceinline__ float bf16_hi(uint32_t w) {
+  return __uint_as_float(w & 0xffff0000u);
+}
+
+// a block: `split` warps share the K of each row; blockDim.x / 32 / split
+// warps of kMvGroups lane groups, R rows each
+template <typename TX, typename TW, int MT, int R>
+__global__ void __launch_bounds__(32 * kMvMaxWarps)
+gemv_bf16_kernel(const TX* __restrict__ x, long long ldx, bool vx,
+                 const TW* __restrict__ w, long long ldw, bool vw,
+                 float* __restrict__ out, long long ldo, int m, int n, int k,
+                 int split) {
+  __shared__ float red[kMvMaxWarps * kMvGroups * R * MT];  // partial sums
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int sp = warp % split;               // this warp's share of K
+  const int group = (warp / split) * kMvGroups + lane / kMvLanes;
+  const int rows_per_block = blockDim.x / 32 / split * kMvGroups * R;
+  const int row0 = blockIdx.x * rows_per_block + group * R;
+  const int nc = (k + 7) / 8;                // chunks of 8, the last ragged
+  const int stride = split * kMvLanes;       // chunks between a lane's loads
+  const int li = sp * kMvLanes + lane % kMvLanes;
+
+  const TW* wrow[R];
 #pragma unroll
-  for (int r = 0; r < kRows; ++r)
+  for (int r = 0; r < R; ++r)                // rows past n read row n - 1
+    wrow[r] = w + min(row0 + r, n - 1) * ldw;
+
+  float acc[R][MT];
+#pragma unroll
+  for (int r = 0; r < R; ++r)
 #pragma unroll
     for (int i = 0; i < MT; ++i) acc[r][i] = 0.f;
 
-  for (int k0 = 0; k0 < k; k0 += kc) {
-    const int len = min(kc, k - k0);
-    const int len8 = (len + 7) & ~7;         // zero-filled to whole groups of 8
-    __syncthreads();                         // previous chunk fully consumed
-    for (int i = threadIdx.x; i < MT * len8; i += blockDim.x) {
-      const int r = i / len8, c = i - r * len8;
-      xs[r * kc + c] =
-          r < m && c < len ? round_bf16(to_f32(x[r * ldx + k0 + c])) : 0.f;
+  for (int c0 = li; c0 < nc; c0 += kMvUnroll * stride) {
+    uint4 q[kMvUnroll][R];
+#pragma unroll
+    for (int u = 0; u < kMvUnroll; ++u) {    // every load before any use
+      const int c = c0 + u * stride;
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        q[u][r] = c < nc ? load8_bf16(wrow[r] + 8 * c, vw, min(8, k - 8 * c))
+                         : make_uint4(0, 0, 0, 0);
     }
-    __syncthreads();
-
-    for (int c = lane * 8; c < len; c += 256) {
-      float wv[kRows][8];
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const int row = row0 + r;
-        if (row < n) {
-          load8(w + row * ldw + k0 + c, vw, min(8, len - c), wv[r]);
-#pragma unroll
-          for (int j = 0; j < 8; ++j) wv[r][j] = round_bf16(wv[r][j]);
-        } else {
-#pragma unroll
-          for (int j = 0; j < 8; ++j) wv[r][j] = 0.f;
-        }
-      }
+    for (int u = 0; u < kMvUnroll; ++u) {
+      const int c = c0 + u * stride;
+      if (c >= nc) break;
 #pragma unroll
       for (int i = 0; i < MT; ++i) {
-        const float4 a = *reinterpret_cast<const float4*>(&xs[i * kc + c]);
-        const float4 b = *reinterpret_cast<const float4*>(&xs[i * kc + c + 4]);
-        const float xv[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+        if (i >= m) break;
+        const uint4 xq = load8_bf16(x + i * ldx + 8 * c, vx, min(8, k - 8 * c));
+        const uint32_t xw[4] = {xq.x, xq.y, xq.z, xq.w};
 #pragma unroll
-        for (int r = 0; r < kRows; ++r)
+        for (int r = 0; r < R; ++r) {
+          const uint32_t ww[4] = {q[u][r].x, q[u][r].y, q[u][r].z, q[u][r].w};
 #pragma unroll
-          for (int j = 0; j < 8; ++j) acc[r][i] = fmaf(xv[j], wv[r][j], acc[r][i]);
+          for (int j = 0; j < 4; ++j) {
+            acc[r][i] = fmaf(bf16_lo(xw[j]), bf16_lo(ww[j]), acc[r][i]);
+            acc[r][i] = fmaf(bf16_hi(xw[j]), bf16_hi(ww[j]), acc[r][i]);
+          }
+        }
       }
     }
   }
 
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int row = row0 + r;
+  for (int r = 0; r < R; ++r)
 #pragma unroll
-    for (int i = 0; i < MT; ++i) {
-      float v = acc[r][i];
+    for (int i = 0; i < MT; ++i)
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        v += __shfl_xor_sync(0xffffffffu, v, off);
-      if (lane == 0 && row < n && i < m) out[i * ldo + row] = v;
+      for (int off = kMvLanes / 2; off > 0; off >>= 1)   // within the group
+        acc[r][i] += __shfl_xor_sync(0xffffffffu, acc[r][i], off);
+
+  if (split == 1) {
+    if (lane % kMvLanes == 0) {
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+          if (row0 + r < n && i < m) out[i * ldo + row0 + r] = acc[r][i];
     }
+    return;
+  }
+  if (lane % kMvLanes == 0) {
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+        red[((group * R + r) * MT + i) * split + sp] = acc[r][i];
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < rows_per_block * MT; e += blockDim.x) {
+    const int rb = e / MT, i = e % MT;
+    const int row = blockIdx.x * rows_per_block + rb;
+    float v = 0.f;
+    for (int j = 0; j < split; ++j) v += red[e * split + j];  // fixed order
+    if (row < n && i < m) out[i * ldo + row] = v;
   }
 }
 
+// The grid: split K across warps while each lane keeps whole 256-value
+// steps; then the most rows a block (kMvRows rows a lane group, else 1;
+// then fewer warps) that still gives every SM a block.
 template <typename TX, typename TW, int MT>
-cudaError_t launch_matvec(const TX* x, long long ldx, const TW* w,
-                          long long ldw, bool vw, float* out, long long ldo,
-                          int m, int n, int k, cudaStream_t stream) {
-  // K chunk staged in shared memory: as much of K as fits, whole groups of 8
-  int kc = (kSmemBytes / (4 * MT)) / 8 * 8;
-  const int k8 = (k + 7) / 8 * 8;
-  if (kc > k8) kc = k8;
-  const dim3 grid((n + kRowsPerBlock - 1) / kRowsPerBlock);
-  matvec_kernel<TX, TW, MT><<<grid, kWarps * 32, MT * kc * sizeof(float),
-                              stream>>>(x, ldx, w, ldw, vw, out, ldo, m, n, k,
-                                        kc);
+cudaError_t launch_gemv(const TX* x, long long ldx, bool vx, const TW* w,
+                        long long ldw, bool vw, float* out, long long ldo,
+                        int m, int n, int k, cudaStream_t st) {
+  const int nc = (k + 7) / 8;
+  int split = 1;
+  while (split < kMvMaxSplit && 2 * split * kMvLanes <= nc) split *= 2;
+  auto blocks = [&](int r, int warps) {
+    const int rows = warps / split * kMvGroups * r;
+    return (n + rows - 1) / rows;
+  };
+  int warps = kMvMaxWarps;
+  const bool wide = blocks(kMvRows, warps) >= kMvMinBlocks;
+  const int r = wide ? kMvRows : 1;
+  while (warps > split && blocks(r, warps) < kMvMinBlocks) warps /= 2;
+  const dim3 grid(blocks(r, warps));
+  if (wide)
+    gemv_bf16_kernel<TX, TW, MT, kMvRows><<<grid, 32 * warps, 0, st>>>(
+        x, ldx, vx, w, ldw, vw, out, ldo, m, n, k, split);
+  else
+    gemv_bf16_kernel<TX, TW, MT, 1><<<grid, 32 * warps, 0, st>>>(
+        x, ldx, vx, w, ldw, vw, out, ldo, m, n, k, split);
   return cudaGetLastError();
 }
 
@@ -270,7 +375,7 @@ tiled_kernel(const TX* __restrict__ x, long long ldx, bool vx,
 // -------------------------------------------- M > 16, bf16 x bf16, wgmma
 constexpr int kTcBM = 64, kTcBN = 64;        // output tile: one m64n64 wgmma
 constexpr int kTcBK = 64;                    // K step: rows of 128 bytes
-constexpr int kTcStages = 3;                 // cp.async ring depth
+constexpr int kTcStages = 5;                 // cp.async ring depth
 constexpr int kTcThreads = 128;              // one warpgroup
 constexpr int kTcSmemBytes =                 // the ring, and room to align it
     kTcStages * (kTcBM + kTcBN) * kTcBK * static_cast<int>(sizeof(bf16)) +
@@ -401,11 +506,11 @@ cudaError_t run(const void* xv, long long ldx, bool vx, const void* wv,
                 int k, cudaStream_t st) {
   const auto* x = static_cast<const TX*>(xv);
   const auto* w = static_cast<const TW*>(wv);
-  if (m == 1) return launch_matvec<TX, TW, 1>(x, ldx, w, ldw, vw, out, ldo, m, n, k, st);
-  if (m <= 2) return launch_matvec<TX, TW, 2>(x, ldx, w, ldw, vw, out, ldo, m, n, k, st);
-  if (m <= 4) return launch_matvec<TX, TW, 4>(x, ldx, w, ldw, vw, out, ldo, m, n, k, st);
-  if (m <= 8) return launch_matvec<TX, TW, 8>(x, ldx, w, ldw, vw, out, ldo, m, n, k, st);
-  if (m <= 16) return launch_matvec<TX, TW, 16>(x, ldx, w, ldw, vw, out, ldo, m, n, k, st);
+  if (m == 1) return launch_gemv<TX, TW, 1>(x, ldx, vx, w, ldw, vw, out, ldo, m, n, k, st);
+  if (m <= 2) return launch_gemv<TX, TW, 2>(x, ldx, vx, w, ldw, vw, out, ldo, m, n, k, st);
+  if (m <= 4) return launch_gemv<TX, TW, 4>(x, ldx, vx, w, ldw, vw, out, ldo, m, n, k, st);
+  if (m <= 8) return launch_gemv<TX, TW, 8>(x, ldx, vx, w, ldw, vw, out, ldo, m, n, k, st);
+  if (m <= 16) return launch_gemv<TX, TW, 16>(x, ldx, vx, w, ldw, vw, out, ldo, m, n, k, st);
   const dim3 grid((n + kBN - 1) / kBN, (m + kBM - 1) / kBM);
   tiled_kernel<TX, TW><<<grid, kTileThreads, 0, st>>>(x, ldx, vx, w, ldw, vw,
                                                       out, ldo, m, n, k);
@@ -428,6 +533,8 @@ extern "C" int bf16_matmul(const void* x, int x_bf16, long long ldx,
   const bool vw = rows_aligned(w, ldw, w_bf16 ? 2 : 4);
   auto* o = static_cast<float*>(out);
   auto st = static_cast<cudaStream_t>(stream);
+  // M <= 16: gemv_bf16_kernel for every operand (run); M > 16: wgmma_kernel
+  // for bf16 x and W whose rows cp.async can copy, tiled_kernel otherwise
   cudaError_t err;
   if (m > 16 && x_bf16 && w_bf16 && vx && vw && k % 8 == 0)  // cp.async rows
     err = launch_wgmma(x, ldx, w, ldw, o, ldo, m, n, k, st);

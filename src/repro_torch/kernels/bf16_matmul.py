@@ -7,14 +7,16 @@ dot-product kernel. Rounding both operands to bf16 inside the kernel, as
 the TPU kernel does, makes an f32 x (or an f32 W of the f32 test configs)
 the same function as a bf16 one; bf16 products are exact in f32. The CUDA
 kernel (``csrc/bf16_matmul.cu``) has three launch configurations: at
-M <= 16 (decode, M = 1) a warp-per-rows product that streams the bf16
-weight once, bound by its bytes; above (prefill, M = 1500), for bf16 x and
-W with 16-byte aligned rows and K a whole number of 8, 64 x 64 tiles on the
-tensor cores (``mma.sync`` fed by a ``cp.async`` ring, f32 accumulators);
-other operands above M = 16 take 64 x 64 bf16 WMMA tiles converted in
-shared memory. All read x and W through their row strides, so the
-burst-aligned K-slice of a wider weight needs no copy, and mask ragged M,
-N and K themselves.
+M <= 16 (decode, M = 1) ``gemv_bf16_kernel`` streams the bf16 weight once,
+bound by its bytes: a warp per row of 16-byte loads issued before use, x
+read through L1 with no barrier, long K split over a block's warps, and a
+grid that gives every SM a block; it takes every operand at M <= 16. Above
+(prefill, M = 1500), for bf16 x and W with 16-byte aligned rows and K a
+whole number of 8, ``wgmma_kernel`` runs 64 x 64 tiles on the tensor cores
+(``wgmma`` fed by a ``cp.async`` ring, f32 accumulators); other operands
+above M = 16 take 64 x 64 bf16 WMMA tiles converted in shared memory. All
+read x and W through their row strides, so the burst-aligned K-slice of a
+wider weight needs no copy, and mask ragged M, N and K themselves.
 
 ``bf16_matmul`` runs ``bf16_matmul_plain`` only for tensors on the CPU; for
 CUDA tensors it launches the kernel or raises.

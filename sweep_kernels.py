@@ -12,12 +12,13 @@ alone), built with the port's nvcc flags (one nvcc per variant, all started
 together), loaded with ctypes and called through the same C interface as
 the shipped library, at the main paths' shapes (``chip_smoke``'s
 ``MATMUL_SHAPES`` and ``MATVEC_SHAPES`` for the Q8_0 kernels,
-``BF16_PREFILL_SHAPES`` and ``FLASH_SHAPES`` for the dense prefill's).
-Each result is held against the kernel's plain version (the tolerances of
-chip_smoke.py) and timed on the card (``chip_smoke.device_ms``). The first
-configuration of each kernel is the shipped one. Prints one line per
-configuration, with its device time summed over one prefill or one decode
-step, and writes them all as JSON to ``--out``.
+``BF16_PREFILL_SHAPES``, ``BF16_STEP_SHAPES`` and ``FLASH_SHAPES`` for the
+dense path's). Each result is held against the kernel's plain version (the
+tolerances of chip_smoke.py) and timed on the card
+(``chip_smoke.device_ms``). The first configuration of each kernel is the
+shipped one. Prints one line per configuration, with its device time
+summed over one prefill and over one decode step (``bf16_matmul`` has
+both), and writes them all as JSON to ``--out``.
 """
 from __future__ import annotations
 
@@ -43,11 +44,21 @@ CONFIGS = {
         dict(kTcWarps=4, kTcSub=2, kTcStages=3),
         dict(kTcWarps=8, kTcSub=2, kTcStages=2),
     ]),
+    # the prefill launch's ring depth; the decode launch's loads a lane
+    # issues up front, rows a warp walks at large N, K split and warps a
+    # block, and a half-warp per row
     "bf16_matmul": ("bf16_matmul", [
         {},
         dict(kTcStages=2),
+        dict(kTcStages=3),
         dict(kTcStages=4),
-        dict(kTcStages=5),
+        dict(kMvUnroll=2),
+        dict(kMvUnroll=4),
+        dict(kMvRows=2),
+        dict(kMvRows=8),
+        dict(kMvMaxSplit=2),
+        dict(kMvMaxWarps=8),
+        dict(kMvLanes=16),
     ]),
     # ring slots (copies run kQStages - 1 steps ahead), 64 x 64 tiles,
     # registers capped for more blocks an SM
@@ -158,17 +169,21 @@ def main() -> int:
                          x.stride(0), qs.data_ptr(), qs.stride(0),
                          sc.data_ptr(), sc.stride(0), out.data_ptr(),
                          out.stride(0), m, n, k)
-            cases[name].append((f"{m}x{n}x{k}", count, call_args, out,
+            per = "decode step" if name == "q8_matvec" else "prefill"
+            cases[name].append((f"{m}x{n}x{k}", per, count, call_args, out,
                                 ref.q8_flat_ref(x, qs, sc),
                                 chip_smoke.KERNEL_TOL, (x, qs, sc)))
-    for m, n, k, k_full, count, xdt in chip_smoke.BF16_PREFILL_SHAPES:
-        (x, w), *_ = chip_smoke._bf16_case(gen, m, n, k, k_full, xdt)
-        out = torch.empty((m, n), dtype=torch.float32, device="cuda")
-        call_args = (x.data_ptr(), 1, x.stride(0), w.data_ptr(), 1,
-                     w.stride(0), out.data_ptr(), out.stride(0), m, n, k)
-        cases["bf16_matmul"].append((f"{m}x{n}x{k}", count, call_args, out,
-                                     bf16_matmul.bf16_matmul_plain(x, w),
-                                     chip_smoke.KERNEL_TOL, (x, w)))
+    for per, shapes in (("prefill", chip_smoke.BF16_PREFILL_SHAPES),
+                        ("decode step", chip_smoke.BF16_STEP_SHAPES)):
+        for m, n, k, k_full, count, xdt in shapes:
+            (x, w), *_ = chip_smoke._bf16_case(gen, m, n, k, k_full, xdt)
+            out = torch.empty((m, n), dtype=torch.float32, device="cuda")
+            call_args = (x.data_ptr(), 1, x.stride(0), w.data_ptr(), 1,
+                         w.stride(0), out.data_ptr(), out.stride(0), m, n, k)
+            cases["bf16_matmul"].append((
+                f"{m}x{n}x{k}", per, count, call_args, out,
+                bf16_matmul.bf16_matmul_plain(x, w), chip_smoke.KERNEL_TOL,
+                (x, w)))
     for bh, sq, sk, d, count, dt, causal in chip_smoke.FLASH_SHAPES:
         (q, k, v), *_ = chip_smoke._flash_case(gen, bh, sq, sk, d, dt)
         out = torch.empty((bh, sq, d), dtype=torch.float32, device="cuda")
@@ -179,16 +194,16 @@ def main() -> int:
         want = flash_attention.flash_attention_fwd_plain(q, k, v,
                                                          causal=causal)
         cases["flash_attention_fwd"].append((
-            f"bh{bh} {sq}x{sk} d{d}", count, call_args, out, want,
+            f"bh{bh} {sq}x{sk} d{d}", "prefill", count, call_args, out, want,
             chip_smoke.FLASH_BF16_TOL, (q, k, v)))
 
     rows = []
     for (name, i), so in libs.items():
         fn = bind(name, so)
         consts = CONFIGS[name][1][i]
-        per_shape, total, worst = {}, 0.0, 0.0
+        per_shape, totals, worst = {}, {}, 0.0
         # each case keeps its operands alive: the call holds raw pointers
-        for label, count, call_args, out, want, tol, _ in cases[name]:
+        for label, per, count, call_args, out, want, tol, _ in cases[name]:
             def run(fn=fn, call_args=call_args):
                 rc = fn(*call_args, stream())
                 if rc:
@@ -201,13 +216,13 @@ def main() -> int:
                                      f"max |kernel - plain| = {err}")
             ms = chip_smoke.device_ms(run)
             per_shape[label] = ms
-            total += ms * count
+            totals[per] = totals.get(per, 0.0) + ms * count
             worst = max(worst, err)
-        per = "decode step" if name == "q8_matvec" else "prefill"
         rows.append(dict(kernel=name, config=tag(consts), ms=per_shape,
-                         per=per, ms_total=total, max_abs_err=worst))
-        print(f"sweep {name} [{tag(consts)}]: per {per} {total:.5f} ms; "
-              + " ".join(f"{k}={v:.5f}" for k, v in per_shape.items())
+                         ms_total=totals, max_abs_err=worst))
+        print(f"sweep {name} [{tag(consts)}]: "
+              + "; ".join(f"per {per} {t:.5f} ms" for per, t in totals.items())
+              + "; " + " ".join(f"{k}={v:.5f}" for k, v in per_shape.items())
               + f" max_abs_err={worst:.3e}", flush=True)
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as f:

@@ -249,6 +249,20 @@ def _qkv(bh, sq, sk, d, seed):
                  for s in (sq, sk, sk))
 
 
+def test_bf16_widening_by_shift_is_exact():
+    """bf16_matmul's decode launch widens the two bf16 values of a packed
+    32-bit word to f32 by moving each into the upper half (the low one
+    shifted by 16, the high one with the low half cleared). For every one
+    of the 65,536 bf16 bit patterns, in both halves, that is PyTorch's own
+    bf16 -> f32 conversion bit for bit, NaNs and infinities included."""
+    bits = np.arange(1 << 16, dtype=np.uint32)
+    words = bits | (bits[::-1] << 16)
+    as_f32 = torch.from_numpy(bits.astype(np.uint16).view(np.int16)).view(
+        torch.bfloat16).float().numpy().view(np.uint32)
+    np.testing.assert_array_equal((words << 16).astype(np.uint32), as_f32)
+    np.testing.assert_array_equal(words & 0xFFFF0000, as_f32[::-1])
+
+
 @pytest.mark.parametrize("bh,sq,sk,d,bq,bk,causal", [
     (2, 64, 64, 32, 32, 32, True),      # the shapes of tests/test_flash_kernel
     (1, 128, 128, 64, 64, 64, True),

@@ -181,6 +181,39 @@ def test_bf16_matmul_bf16_edges_on_card(m, n, k, k_full, offset):
                                atol=1e-4)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,n,k,k_full,x_offset", [
+    (2, 384, 1536, 1536, 0),      # batch rows, K split over 4 warps
+    (5, 384, 1536, 1536, 0),
+    (16, 384, 1536, 1536, 0),
+    (3, 33, 4096, 4096, 0),       # long K, each lane several steps
+    (16, 100, 96, 96, 0),         # ragged N, full batch tile
+    (2, 100, 32, 32, 0),          # K of 32: a quarter of a warp's step
+    (3, 96, 100, 104, 0),         # K not a whole number of 8
+    (1, 1, 256, 256, 0),          # one output row
+    (4, 33, 512, 512, 0),         # N = 33, split by 2
+    (3, 96, 256, 256, 1),         # x's base and stride off 16 bytes
+])
+@pytest.mark.parametrize("xdtype,wdtype", [
+    (torch.bfloat16, torch.bfloat16), (torch.float32, torch.bfloat16),
+    (torch.bfloat16, torch.float32)])
+def test_bf16_matmul_decode_edges_on_card(m, n, k, k_full, x_offset, xdtype,
+                                          wdtype):
+    """The M <= 16 launch at the edges of its grid, its K split and its
+    masks; tolerance 1e-4 as in test_bf16_matmul_vs_plain_on_card."""
+    dev = _cuda_or_skip()
+    x, w = _operands(m, n, k_full + x_offset, seed=m + n + k + x_offset)
+    xt = torch.from_numpy(x).to(dev, xdtype)[:, x_offset:x_offset + k]
+    wt = torch.from_numpy(w).to(dev, wdtype)[:, :k]
+    assert (xt.data_ptr() % 16 == 0) == (x_offset == 0)
+    before = bf16_matmul.launches
+    got = bf16_matmul(xt, wt)
+    torch.cuda.synchronize()
+    assert bf16_matmul.launches == before + 1
+    torch.testing.assert_close(got, bf16_matmul_plain(xt, wt), rtol=1e-4,
+                               atol=1e-4)
+
+
 def _qkv(bh, sq, sk, d, dtype, dev, seed):
     rng = np.random.default_rng(seed)
     q, k, v = (torch.from_numpy(rng.standard_normal((bh, s, d)).astype(
