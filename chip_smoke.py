@@ -29,27 +29,52 @@ own kernels with nvcc. Phases, each of which fails the run on error:
    bf16 products alone. Flash attention is also checked causal and at
    ragged lengths.
 3. The main path: full-width whisper-tiny with Q8_0 weights from a seeded
-   generator, ``ServeEngine.transcribe`` of one 1500-frame utterance with
-   ``max_new=32`` and no EOS, through the offload engine. The kernels'
-   launch counts are zeroed just before and read just after: exactly 32
-   ``q8_matmul`` launches (the prefill) and 33 ``q8_matvec`` launches per
-   decode step. Then the same weights and mel run through the port on the
-   CPU, and the first decode step's logits must agree with the card's.
-   A profiled prefill and 8 decode steps give each phase's device time,
-   idle share and top kernels by name; the prefill's 32 ``q8_matmul``
-   launches must all be its tensor-core kernel (``q8_wgmma_kernel``), none
-   the f32 SIMT one.
+   generator, the eager greedy loop through ``ServeEngine.prefill`` and
+   ``ServeEngine.step`` (every kernel launched from Python) over one
+   1500-frame utterance with ``max_new=32`` and no EOS, through the
+   offload engine. The kernels' launch counts are zeroed just before and
+   read just after: exactly 32 ``q8_matmul`` launches (the prefill) and
+   33 ``q8_matvec`` launches per decode step. Then the same weights and
+   mel run through the port on the CPU, and the first decode step's logits
+   must agree with the card's. A profiled prefill and 8 decode steps give
+   each phase's device time, idle share and top kernels by name; the
+   prefill's 32 ``q8_matmul`` launches must all be its tensor-core kernel
+   (``q8_wgmma_kernel``), none the f32 SIMT one.
 4. Batch 2 at full width, where the encoder's ffn.down (M = 3000, K = 1536)
    fails the reference's local-memory rule (``offload=False`` in its plan
-   entries): every Q8_0 linear must still launch a kernel.
+   entries): a captured ``transcribe`` gives the plans and its tokens, and
+   in the eager loop every Q8_0 linear must still launch a kernel; the two
+   loops' tokens must agree.
 5. The dense (FP16) path with flash attention: full-width whisper-tiny with
    bf16 weights (``quant="none"``) and ``attn_impl="flash"``, the same
-   transcribe. Exactly 32 ``bf16_matmul`` launches per prefill plus 33 per
+   eager loop. Exactly 32 ``bf16_matmul`` launches per prefill plus 33 per
    decode step, 4 ``flash_attention_fwd`` launches (one per encoder layer)
    and no Q8_0 launch; first-step logits against the CPU's. In the
    profiled decode steps every one of the 33 ``bf16_matmul`` launches a
    step must be the decode kernel (``gemv_bf16_kernel``), none the one it
    replaced (``matvec_kernel``); their device time a step is printed.
+6. Captured programs, on each path's engine: ``transcribe`` captures the
+   prefill and the greedy step into CUDA graphs at its first request; its
+   tokens must equal the eager loop's. At capture each program's Python
+   runs twice (warm-up and capture), so the launch counts read twice the
+   program's launches; later requests launch nothing from Python, capture
+   nothing more, and their ledger totals must equal as many eager
+   requests'. Printed: prefill ms and decode ms a token (median of 4
+   requests), and one replayed prefill and 8 replayed steps under the
+   profiler (device time, idle share, kernels by name, which must be 32
+   ``q8_wgmma_kernel`` a prefill and 33 ``q8_matvec_kernel`` a step on
+   Q8_0; 32 ``wgmma_kernel`` + 4 ``flash_fwd_mma_kernel`` and 33
+   ``gemv_bf16_kernel`` on dense), beside phase 3's and 5's eager split;
+   the dot-product kernels' share of the replayed step's device time and
+   its Amdahl bound, beside the paper's shares.
+7. Power and PDP, on each path: captured ``transcribe`` of 1500 frames and
+   27 tokens (the paper's workload) over and over for 5 s while
+   ``nvidia-smi`` samples the card's draw every 100 ms; the samples' count,
+   mean and range, the mean transcript time, the PDP at the mean draw and
+   at the power limit, beside the paper's whisper-tiny PDPs. No samples
+   fail the phase.
+8. ``coverage_cdf(enumerate_whisper(whisper-tiny))``: the paper's Table 2
+   structure.
 
 The last two lines are the kernels' JSON record and the result line.
 """
@@ -143,6 +168,14 @@ KERNELS = {
 }
 MAX_NEW = 32
 PROFILED_STEPS = 8               # decode steps under torch.profiler
+CAPTURE_PASSES = 2               # Python runs a program twice: warm-up, capture
+REQUESTS = 4                     # captured requests held against eager ones
+PAPER_TOKENS = 27                # the paper's jfk.wav transcript (enumerate_whisper)
+POWER_S = 5.0                    # seconds of transcripts under the power sampler
+# substrings of the names of dot-product kernels: the port's, and cuBLAS's
+DOT_KERNEL_WORDS = ("q8_matvec", "q8_matmul", "gemv", "gemm",
+                    "wgmma_kernel", "tiled_kernel", "flash_fwd", "xmma",
+                    "cutlass")
 
 
 def card_line() -> str:
@@ -463,6 +496,30 @@ def where_time_goes(eng, mel, vocab: int, steps: int = PROFILED_STEPS):
     return out, pre_kernels, _by_kernel(prof, steps)
 
 
+def eager_transcribe(eng, mel, max_new: int, sot: int = 1):
+    """The eager greedy loop through the engine's public ``prefill`` and
+    ``step`` (every kernel launched from Python, so the launch counts are
+    Python's): one host sync a step, as in ``transcribe``, and no EOS stop
+    (the engines here have ``eos_id=None``). Returns (tokens per row,
+    prefill s, decode s)."""
+    import torch
+    mel_t = torch.from_numpy(mel).cuda()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, state = eng.prefill(mel_t)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    tok = torch.full((mel.shape[0], 1), sot, device="cuda")
+    toks = []
+    t0 = time.perf_counter()
+    for _ in range(max_new):
+        logits, state = eng.step(tok, state)
+        tok = eng._argmax(logits[:, -1])[:, None]
+        toks.append(tok)
+    rows = torch.cat(toks, dim=1).cpu().tolist()
+    return rows, prefill_s, time.perf_counter() - t0
+
+
 def main_path():
     """Phase 3: full-width whisper-tiny Q8_0 transcribe on the card."""
     import numpy as np
@@ -481,24 +538,24 @@ def main_path():
     offload = OffloadEngine()
     eng = ServeEngine(cfg, params_cpu, max_len=MAX_NEW + 8, offload=offload,
                       eos_id=None, device="cuda")
-    eng.transcribe(mel, max_new=2)                    # warm-up
+    eager_transcribe(eng, mel, 2)                     # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     q8_matmul.q8_matmul.launches = 0
     q8_matvec.q8_matvec.launches = 0
-    res = eng.transcribe(mel, max_new=MAX_NEW)
+    (tokens,), prefill_s, decode_s = eager_transcribe(eng, mel, MAX_NEW)
     launches = {"q8_matmul": q8_matmul.q8_matmul.launches,
                 "q8_matvec": q8_matvec.q8_matvec.launches}
     peak = torch.cuda.max_memory_allocated()
-    r = res[0]
-    print(f"main path: whisper-tiny q8_0 transcribe 1x{cfg.encoder_ctx} "
-          f"frames, {r.steps} tokens: prefill_ms={r.prefill_s * 1e3:.3f} "
-          f"decode_ms_per_token={r.decode_s * 1e3 / r.steps:.3f} "
-          f"peak_mem_bytes={peak} launches={launches}", flush=True)
-    print(f"main path tokens: {r.tokens}", flush=True)
-    if r.steps != MAX_NEW or len(r.tokens) != MAX_NEW:
-        raise AssertionError(f"expected {MAX_NEW} tokens, got {r.steps}")
-    if not all(0 <= t < cfg.vocab_size for t in r.tokens):
+    print(f"main path: whisper-tiny q8_0 eager greedy loop 1x"
+          f"{cfg.encoder_ctx} frames, {len(tokens)} tokens: prefill_ms="
+          f"{prefill_s * 1e3:.3f} decode_ms_per_token="
+          f"{decode_s * 1e3 / MAX_NEW:.3f} peak_mem_bytes={peak} "
+          f"launches={launches}", flush=True)
+    print(f"main path tokens: {tokens}", flush=True)
+    if len(tokens) != MAX_NEW:
+        raise AssertionError(f"expected {MAX_NEW} tokens, got {len(tokens)}")
+    if not all(0 <= t < cfg.vocab_size for t in tokens):
         raise AssertionError("token outside the vocabulary")
     if launches != {"q8_matmul": 32, "q8_matvec": 33 * MAX_NEW}:
         raise AssertionError(f"launch counts {launches}: expected 32 "
@@ -509,8 +566,8 @@ def main_path():
     card_logits, _ = eng.step(torch.full((1, 1), sot, device="cuda"), state)
     if not torch.isfinite(card_logits).all():
         raise AssertionError("non-finite logits on the card")
-    if int(card_logits[0, -1, :cfg.vocab_size].argmax()) != r.tokens[0]:
-        raise AssertionError("first-step argmax differs from transcribe")
+    if int(card_logits[0, -1, :cfg.vocab_size].argmax()) != tokens[0]:
+        raise AssertionError("first-step argmax differs from the loop's")
     err = check_against_cpu(cfg, params_cpu, mel, card_logits, sot)
     split, pre_kernels, _ = where_time_goes(eng, mel, cfg.vocab_size)
     routes = {route: launches for route, (launches, _) in by_route(
@@ -520,10 +577,10 @@ def main_path():
     if routes != {"q8_wgmma_kernel": 32, "q8_matmul_kernel": 0}:
         raise AssertionError(f"prefill q8_matmul kernels {routes}: expected "
                              "32 tensor-core launches and no SIMT one")
-    return launches, dict(prefill_ms=r.prefill_s * 1e3,
-                          decode_ms_per_token=r.decode_s * 1e3 / r.steps,
+    return launches, dict(prefill_ms=prefill_s * 1e3,
+                          decode_ms_per_token=decode_s * 1e3 / MAX_NEW,
                           peak_mem_bytes=peak, first_step_cpu_err=err,
-                          **split)
+                          **split), (eng, mel, tokens, split)
 
 
 def batch2_routing():
@@ -548,13 +605,15 @@ def batch2_routing():
     eng = ServeEngine(cfg, params, max_len=8, offload=OffloadEngine(),
                       eos_id=None, device="cuda")
     max_new = 2
+    res = eng.transcribe(mel, max_new=max_new)        # captured: its plans
     q8_matmul.q8_matmul.launches = q8_matvec.q8_matvec.launches = 0
-    res = eng.transcribe(mel, max_new=max_new)
+    rows, _, _ = eager_transcribe(eng, mel, max_new)
     torch.cuda.synchronize()
     got = {"q8_matmul": q8_matmul.q8_matmul.launches,
            "q8_matvec": q8_matvec.q8_matvec.launches}
     pre, step = (
-        [e for e in eng.plans[(phase, 2, cfg.encoder_ctx)].entries
+        [e for e in eng._plans.plans[(phase, "q8_0", 2,
+                                      cfg.encoder_ctx)].entries
          if e.dtype == "q8_0" and e.k_main]
         for phase in ("prefill", "step"))
     fallbacks = sum(not e.offload for e in pre)
@@ -567,6 +626,9 @@ def batch2_routing():
                              f"with some offload=False entries")
     if [r.steps for r in res] != [max_new, max_new]:
         raise AssertionError("batch 2 did not decode every row")
+    if [r.tokens for r in res] != rows:
+        raise AssertionError(f"batch 2 captured tokens "
+                             f"{[r.tokens for r in res]} != eager {rows}")
 
 
 def dense_flash_path():
@@ -597,24 +659,23 @@ def dense_flash_path():
         (1, cfg.encoder_ctx, cfg.n_mels)).astype(np.float32)
     eng = ServeEngine(cfg, params_cpu, max_len=MAX_NEW + 8,
                       offload=OffloadEngine(), eos_id=None, device="cuda")
-    eng.transcribe(mel, max_new=2)                    # warm-up
+    eager_transcribe(eng, mel, 2)                     # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for fn in counted.values():
         fn.launches = 0
-    res = eng.transcribe(mel, max_new=MAX_NEW)
+    (tokens,), prefill_s, decode_s = eager_transcribe(eng, mel, MAX_NEW)
     launches = {name: fn.launches for name, fn in counted.items()}
     peak = torch.cuda.max_memory_allocated()
-    r = res[0]
-    print(f"dense+flash path: whisper-tiny bf16 transcribe 1x"
-          f"{cfg.encoder_ctx} frames, {r.steps} tokens: prefill_ms="
-          f"{r.prefill_s * 1e3:.3f} decode_ms_per_token="
-          f"{r.decode_s * 1e3 / r.steps:.3f} peak_mem_bytes={peak} "
+    print(f"dense+flash path: whisper-tiny bf16 eager greedy loop 1x"
+          f"{cfg.encoder_ctx} frames, {len(tokens)} tokens: prefill_ms="
+          f"{prefill_s * 1e3:.3f} decode_ms_per_token="
+          f"{decode_s * 1e3 / MAX_NEW:.3f} peak_mem_bytes={peak} "
           f"launches={launches}", flush=True)
-    print(f"dense+flash path tokens: {r.tokens}", flush=True)
-    if r.steps != MAX_NEW or len(r.tokens) != MAX_NEW:
-        raise AssertionError(f"expected {MAX_NEW} tokens, got {r.steps}")
-    if not all(0 <= t < cfg.vocab_size for t in r.tokens):
+    print(f"dense+flash path tokens: {tokens}", flush=True)
+    if len(tokens) != MAX_NEW:
+        raise AssertionError(f"expected {MAX_NEW} tokens, got {len(tokens)}")
+    if not all(0 <= t < cfg.vocab_size for t in tokens):
         raise AssertionError("token outside the vocabulary")
     want = {"bf16_matmul": 32 + 33 * MAX_NEW,
             "flash_attention_fwd": cfg.num_encoder_layers,
@@ -627,8 +688,8 @@ def dense_flash_path():
     card_logits, _ = eng.step(torch.full((1, 1), sot, device="cuda"), state)
     if not torch.isfinite(card_logits).all():
         raise AssertionError("non-finite logits on the card")
-    if int(card_logits[0, -1, :cfg.vocab_size].argmax()) != r.tokens[0]:
-        raise AssertionError("first-step argmax differs from transcribe")
+    if int(card_logits[0, -1, :cfg.vocab_size].argmax()) != tokens[0]:
+        raise AssertionError("first-step argmax differs from the loop's")
     err = check_against_cpu(cfg, params_cpu, mel, card_logits, sot,
                             tol=DENSE_FIRST_STEP_TOL)
     split, _, dec_kernels = where_time_goes(eng, mel, cfg.vocab_size)
@@ -640,11 +701,217 @@ def dense_flash_path():
         raise AssertionError(f"decode-step bf16_matmul kernels {routes}: "
                              "expected 33 gemv_bf16_kernel launches a step "
                              "and no matvec_kernel")
-    return launches, dict(prefill_ms=r.prefill_s * 1e3,
-                          decode_ms_per_token=r.decode_s * 1e3 / r.steps,
+    return launches, dict(prefill_ms=prefill_s * 1e3,
+                          decode_ms_per_token=decode_s * 1e3 / MAX_NEW,
                           peak_mem_bytes=peak, first_step_cpu_err=err,
                           decode_bf16_matmul_device_ms_per_step=routes[
-                              "gemv_bf16_kernel"][1], **split)
+                              "gemv_bf16_kernel"][1], **split), \
+        (eng, mel, tokens, split)
+
+
+def _stats(offload):
+    """The ledger's totals as a flat dict (counters and per-name counts)."""
+    import dataclasses
+    return dataclasses.asdict(offload.stats)
+
+
+def _ledger_delta(after, before):
+    return {key: ({k: v - before[key].get(k, 0) for k, v in val.items()}
+                  if isinstance(val, dict) else val - before[key])
+            for key, val in after.items()}
+
+
+def dot_share(kernels) -> float:
+    """Share of a profile's device time in dot-product kernels (``_by_kernel``
+    map): the port's kernels and cuBLAS's (the residual arm's products and
+    the attention's score and value products, which ggml also runs as
+    mul_mat)."""
+    total = sum(ms for _, ms in kernels.values())
+    dots = sum(ms for name, (_, ms) in kernels.items()
+               if any(word in name for word in DOT_KERNEL_WORDS))
+    return dots / total
+
+
+def captured_path(label, eng, mel, eager_tokens, eager_split, counted,
+                  per_run, replay_kernels, share_key):
+    """Phase 6, on one path: captured ``transcribe`` of 1 x 1500 frames, its
+    tokens against the eager loop's on the same engine, the launches from
+    Python at capture (CAPTURE_PASSES runs of each program's Python) and
+    none at replay, no recapture at a repeated key, the ledger after
+    REQUESTS requests against REQUESTS eager requests, and the profiled
+    replays beside the eager split of the same run."""
+    import statistics
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.amdahl import PAPER_SHARE, amdahl_bound
+
+    f = eng.cfg.encoder_ctx
+    for fn in counted.values():
+        fn.launches = 0
+    res = eng.transcribe(mel, max_new=MAX_NEW)    # captures, then replays
+    torch.cuda.synchronize()
+    got = {name: fn.launches for name, fn in counted.items()}
+    want = {name: CAPTURE_PASSES * per_run.get(name, 0) for name in counted}
+    print(f"captured {label}: launches from Python at capture {got} "
+          f"(expected {want}); step captures {eng._step_captures}",
+          flush=True)
+    if got != want:
+        raise AssertionError(f"{label}: capture launches {got} != {want}")
+    if res[0].tokens != eager_tokens:
+        raise AssertionError(f"{label}: captured tokens {res[0].tokens} != "
+                             f"eager {eager_tokens}")
+
+    before = _stats(eng.offload)
+    eager_transcribe(eng, mel, MAX_NEW)
+    one = _ledger_delta(_stats(eng.offload), before)
+    for fn in counted.values():
+        fn.launches = 0
+    before = _stats(eng.offload)
+    results = [eng.transcribe(mel, max_new=MAX_NEW)[0]
+               for _ in range(REQUESTS)]
+    delta = _ledger_delta(_stats(eng.offload), before)
+    got = {name: fn.launches for name, fn in counted.items()}
+    scaled = {key: ({k: v * REQUESTS for k, v in val.items()}
+                    if isinstance(val, dict) else val * REQUESTS)
+              for key, val in one.items()}
+    print(f"captured {label}: {REQUESTS} more requests: launches from "
+          f"Python {got}, step captures {eng._step_captures}, ledger "
+          f"{json.dumps(delta, sort_keys=True)}", flush=True)
+    if any(got.values()):
+        raise AssertionError(f"{label}: replays launched from Python: {got}")
+    if eng._step_captures != 1:
+        raise AssertionError(f"{label}: {eng._step_captures} step captures "
+                             "at one key")
+    if delta != scaled:
+        raise AssertionError(f"{label}: ledger after {REQUESTS} requests "
+                             f"{delta} != {REQUESTS} x one eager request's "
+                             f"{one}")
+    for r in results:
+        if r.tokens != eager_tokens:
+            raise AssertionError(f"{label}: a replayed request's tokens "
+                                 f"{r.tokens} != eager {eager_tokens}")
+    prefill_ms = statistics.median(r.prefill_s for r in results) * 1e3
+    decode_ms = statistics.median(r.decode_s for r in results) * 1e3 / MAX_NEW
+
+    # one replayed prefill and PROFILED_STEPS replayed steps, each step
+    # with transcribe's host sync
+    st = eng._static[(1, f)]
+    pre_key, step_key = eng._key("prefill", 1, f), eng._key("step", 1, f)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng._run(pre_key, None)
+        torch.cuda.synchronize()
+        pre_wall = (time.perf_counter() - t0) * 1e3
+    pre_kernels, pre_top = _by_kernel(prof), _top_kernels(prof, 1, 8)
+    st.token.fill_(1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(PROFILED_STEPS):
+            eng._run(step_key, None)
+            bool(st.done.all())
+        torch.cuda.synchronize()
+        dec_wall = (time.perf_counter() - t0) * 1e3 / PROFILED_STEPS
+    dec_kernels = _by_kernel(prof, PROFILED_STEPS)
+    out = dict(prefill_ms=prefill_ms, decode_ms_per_token=decode_ms,
+               prefill_wall_ms=pre_wall, decode_wall_ms_per_step=dec_wall,
+               eager=eager_split)
+    if not (pre_kernels and dec_kernels):
+        print(f"captured {label}: the profiler saw no kernels inside the "
+              f"replays; launches per replay from the capture pass: "
+              f"{per_run}", flush=True)
+        out.update(replay_launches="not measured: profiler saw no replay",
+                   prefill_device_ms=None, decode_device_ms_per_step=None)
+    else:
+        pre_dev = sum(ms for _, ms in pre_kernels.values())
+        dec_dev = sum(ms for _, ms in dec_kernels.values())
+        launches = {phase: {name: launches for name, (launches, _) in
+                            by_route(kernels, replay_kernels[phase]).items()}
+                    for phase, kernels in (("prefill", pre_kernels),
+                                           ("step", dec_kernels))}
+        share = dot_share(dec_kernels)
+        # the profiler's records of a replay's kernels slow the replay's
+        # host side, so idle shares are also given against the unprofiled
+        # requests' times
+        out.update(prefill_device_ms=pre_dev,
+                   prefill_idle_share=1 - pre_dev / pre_wall,
+                   prefill_idle_share_unprofiled=1 - pre_dev / prefill_ms,
+                   decode_device_ms_per_step=dec_dev,
+                   decode_idle_share=1 - dec_dev / dec_wall,
+                   decode_idle_share_unprofiled=1 - dec_dev / decode_ms,
+                   replay_launches=launches,
+                   prefill_top_kernels=pre_top,
+                   decode_top_kernels=_top_kernels(prof, PROFILED_STEPS, 8),
+                   step_dot_share=share, step_amdahl_bound=amdahl_bound(share),
+                   paper_share=PAPER_SHARE[share_key],
+                   paper_amdahl_bound=amdahl_bound(PAPER_SHARE[share_key]))
+        if launches != replay_kernels:
+            raise AssertionError(f"{label}: kernels per replay {launches} != "
+                                 f"{replay_kernels}")
+    print(f"captured {label} summary: {json.dumps(out)}", flush=True)
+    return out
+
+
+def power_pdp(label, eng, mel, paper_path):
+    """Phase 7, on one path: ``transcribe`` of 1500 frames and PAPER_TOKENS
+    tokens (the paper's workload) over and over for POWER_S seconds while
+    ``nvidia-smi`` samples the card's draw every 100 ms; PDP at the mean
+    draw and at the power limit, beside the paper's whisper-tiny rows."""
+    import statistics
+
+    import torch
+    from repro_torch.core import energy
+
+    eng.transcribe(mel, max_new=PAPER_TOKENS)          # same keys: no capture
+    torch.cuda.synchronize()
+    sampler = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=power.draw",
+         "--format=csv,noheader,nounits", "-lms", "100", "-i", "0"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    results = []
+    try:
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < POWER_S:
+            results += eng.transcribe(mel, max_new=PAPER_TOKENS)
+    finally:
+        sampler.terminate()
+        out, err = sampler.communicate(timeout=30)
+    watts = []
+    for line in out.splitlines():
+        try:
+            watts.append(float(line))
+        except ValueError:
+            pass
+    if not watts:
+        raise RuntimeError(f"{label}: nvidia-smi gave no power samples "
+                           f"({err.strip()[:200]})")
+    if any(r.steps != PAPER_TOKENS for r in results):
+        raise AssertionError(f"{label}: a transcript stopped early")
+    kind = torch.cuda.get_device_name(0)
+    limit = energy.card_power_limit_w(0)
+    mean_s = statistics.fmean(r.total_s for r in results)
+    drawn = energy.card_report(mean_s, statistics.fmean(watts), kind)
+    at_limit = energy.card_report(mean_s, limit, kind)
+    paper = {f"{p}_{plat}": energy.PAPER_PDP_J[("tiny", p, plat)]
+             for p, plat in (("q8_0", "imax"), ("q8_0", "jetson"),
+                             ("q8_0", "rtx4090"), ("fp16", "imax"),
+                             ("fp16", "jetson"))}
+    rep = dict(path=label, paper_path=paper_path, transcripts=len(results),
+               frames=mel.shape[1], tokens=PAPER_TOKENS,
+               transcript_mean_s=mean_s,
+               transcript_median_s=statistics.median(
+                   r.total_s for r in results),
+               prefill_mean_s=statistics.fmean(r.prefill_s for r in results),
+               samples=len(watts), draw_mean_w=statistics.fmean(watts),
+               draw_min_w=min(watts), draw_max_w=max(watts),
+               power_limit_w=limit, pdp_at_draw_j=drawn.pdp_j,
+               edp_at_draw_js=drawn.edp_js, pdp_at_limit_j=at_limit.pdp_j,
+               energy_report_at_limit=eng.energy_report(results, limit),
+               paper_pdp_j=paper)
+    print(f"power {label}: {json.dumps(rep)}", flush=True)
+    return rep
 
 
 def main() -> int:
@@ -672,13 +939,36 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}")
 
     records = check_kernels()
-    launches, path = main_path()
+    launches, path, (q8_eng, q8_mel, q8_tokens, q8_split) = main_path()
     print(f"main path summary: {json.dumps(path)}", flush=True)
     batch2_routing()
-    dense_launches, dense = dense_flash_path()
+    dense_launches, dense, (d_eng, d_mel, d_tokens, d_split) = \
+        dense_flash_path()
     print(f"dense+flash path summary: {json.dumps(dense)}", flush=True)
     launches.update((k, dense_launches[k])
                     for k in ("bf16_matmul", "flash_attention_fwd"))
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.coverage import coverage_cdf, enumerate_whisper
+    from repro_torch.kernels import (
+        bf16_matmul, flash_attention, q8_matmul, q8_matvec)
+    counted = {"bf16_matmul": bf16_matmul.bf16_matmul,
+               "flash_attention_fwd": flash_attention.flash_attention_fwd,
+               "q8_matmul": q8_matmul.q8_matmul,
+               "q8_matvec": q8_matvec.q8_matvec}
+    captured_path("q8_0", q8_eng, q8_mel, q8_tokens, q8_split, counted,
+                  {"q8_matmul": 32, "q8_matvec": 33},
+                  {"prefill": {"q8_wgmma_kernel": 32},
+                   "step": {"q8_matvec_kernel": 33}}, "q8_0")
+    captured_path("dense+flash", d_eng, d_mel, d_tokens, d_split, counted,
+                  {"bf16_matmul": 32 + 33, "flash_attention_fwd": 4},
+                  {"prefill": {"wgmma_kernel": 32, "flash_fwd_mma_kernel": 4},
+                   "step": {"gemv_bf16_kernel": 33}}, "fp16")
+    power_pdp("q8_0", q8_eng, q8_mel, "q8_0")
+    power_pdp("dense+flash", d_eng, d_mel, "fp16")
+    cdf = coverage_cdf(enumerate_whisper(get_config("whisper-tiny")))
+    print(f"coverage whisper-tiny (LMM KB, baseline, optimized): "
+          f"{json.dumps(cdf)}", flush=True)
 
     kernels = []
     for name, meta in KERNELS.items():

@@ -1,18 +1,44 @@
-"""Local-memory kernel coverage: the offload decision of the dispatcher.
+"""Local-memory kernel coverage (paper Table 2 / Table 6, §3.3, §5.1).
 
-A dot-product invocation is *offloadable* iff its working set fits the
-local-memory budget; everything else falls back to the reference path.
-The optimized footprint holds the dense activation operand, ``M*K*2``
-bytes (fp16), so an invocation fits iff ``M*K*2 <= budget_kb * 1024 *
-agg_units``. The port keeps the reference's rule unchanged so that its
-dispatch plans equal the reference's entry for entry.
+The paper's central co-design axis: a dot-product invocation is
+*offloadable* iff its working set fits the local-memory budget; everything
+else falls back to the host. Coverage(budget) = fraction of invocations
+that fit.
+
+Footprint model (the reference's; the paper does not fully specify its
+accounting):
+
+* An invocation is one ``ggml_mul_mat(src0=W[N,K], src1=X[M,K])`` call.
+* **Optimized** (padding stripped, dense DMA packing, weights streamed in
+  double-buffered bursts and never resident): the LMM set must hold the
+  dense activation operand, ``M*K*2`` bytes (fp16), spread across the
+  lane's active PE LMMs -> fits iff ``M*K*2 <= budget_kb * 1024 *
+  AGG_UNITS``.
+* **Baseline** (whisper.cpp layout with alignment padding, whole-operand
+  DMA with scratch duplication): M and K round up to 32 elements and the
+  staging buffer is duplicated: ``2 * pad32(M) * pad32(K) * 2`` bytes.
+
+``AGG_UNITS = 46`` — the Q8_0 kernel's active PEs per lane (paper §3.2);
+the FP16 kernel's 2-lane total (2x22=44) is treated identically, matching
+the paper's identical FP16/Q8_0 optimized coverage columns.
+
+The offload dispatcher keeps the same rule with ``agg_units=1``
+(``core/plan.py``), so that the port's dispatch plans equal the
+reference's entry for entry; on the H100 it decides the ledger's
+offloaded/fallback split, not the routing.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Iterable, List, Sequence, Tuple
+
+from repro_torch.configs.base import ModelConfig
 
 AGG_UNITS = 46            # active PE LMMs aggregated per offloaded invocation
 FP16_BYTES = 2
+PAD = 32                  # baseline alignment padding, elements
+
+LMM_SIZES_KB = (8, 16, 32, 64, 128, 256)
 
 
 @dataclass(frozen=True)
@@ -22,10 +48,111 @@ class MulMat:
     m: int
     k: int
     n: int
+    count: int = 1          # invocations of this class over the workload
+    phase: str = "decode"   # encode | prefill | decode
+
+    @property
+    def flops(self) -> int:
+        return 2 * self.m * self.k * self.n * self.count
+
+    @property
+    def dots(self) -> int:
+        """Row dot-products (the paper counts 477k/645k/1.9M for t/b/s)."""
+        return self.m * self.n * self.count
 
     def act_bytes_dense(self) -> int:
         return self.m * self.k * FP16_BYTES
 
+    def act_bytes_padded(self) -> int:
+        mp = -(-self.m // PAD) * PAD
+        kp = -(-self.k // PAD) * PAD
+        return 2 * mp * kp * FP16_BYTES   # x2: staging-scratch duplication
 
-def fits(mm: MulMat, budget_kb: int, agg_units: int = AGG_UNITS) -> bool:
-    return mm.act_bytes_dense() <= budget_kb * 1024 * agg_units
+
+def enumerate_whisper(cfg: ModelConfig, n_frames: int = 1500,
+                      n_tokens: int = 27) -> List[MulMat]:
+    """All mul_mat invocations of one whisper.cpp inference (the paper's
+    workload: jfk.wav ~10 s, padded to 30 s -> 1500 encoder frames, ~27
+    decoded tokens)."""
+    d, dff, v = cfg.d_model, cfg.d_ff, cfg.vocab_size
+    h, hd = cfg.num_heads, cfg.head_dim
+    el, dl = cfg.num_encoder_layers, cfg.num_layers
+    F, T = n_frames, n_tokens
+    ms: List[MulMat] = []
+    a = ms.append
+    # --- encoder (per layer) ---
+    a(MulMat("enc.attn.qkv", F, d, 3 * d, el, "encode"))
+    a(MulMat("enc.attn.out", F, d, d, el, "encode"))
+    a(MulMat("enc.attn.scores", F, hd, F, el * h, "encode"))
+    a(MulMat("enc.attn.av", F, F, hd, el * h, "encode"))
+    a(MulMat("enc.ffn.up", F, d, dff, el, "encode"))
+    a(MulMat("enc.ffn.down", F, dff, d, el, "encode"))
+    # --- decoder cross K/V projection: once per utterance per layer ---
+    a(MulMat("dec.cross.kv", F, d, 2 * d, dl, "encode"))
+    # --- decoder (per token per layer); self-attn KV length grows ~T/2 avg ---
+    t_avg = max(T // 2, 1)
+    a(MulMat("dec.self.qkv", 1, d, 3 * d, dl * T, "decode"))
+    a(MulMat("dec.self.out", 1, d, d, dl * T, "decode"))
+    a(MulMat("dec.self.scores", 1, hd, t_avg, dl * T * h, "decode"))
+    a(MulMat("dec.self.av", 1, t_avg, hd, dl * T * h, "decode"))
+    a(MulMat("dec.cross.q", 1, d, d, dl * T, "decode"))
+    a(MulMat("dec.cross.out", 1, d, d, dl * T, "decode"))
+    a(MulMat("dec.cross.scores", 1, hd, F, dl * T * h, "decode"))
+    a(MulMat("dec.cross.av", 1, F, hd, dl * T * h, "decode"))
+    a(MulMat("dec.ffn.up", 1, d, dff, dl * T, "decode"))
+    a(MulMat("dec.ffn.down", 1, dff, d, dl * T, "decode"))
+    a(MulMat("dec.vocab", 1, d, v, T, "decode"))
+    return ms
+
+
+def fits(mm: MulMat, budget_kb: int, optimized: bool = True,
+         agg_units: int = AGG_UNITS) -> bool:
+    cap = budget_kb * 1024 * agg_units
+    b = mm.act_bytes_dense() if optimized else mm.act_bytes_padded()
+    return b <= cap
+
+
+def coverage(mulmats: Sequence[MulMat], budget_kb: int, *,
+             optimized: bool = True, weight: str = "dots",
+             agg_units: int = AGG_UNITS) -> float:
+    """Coverage in [0, 1], weighted by ``weight``: calls | dots | flops.
+    'dots' (row dot-products) reproduces the paper's Table 2/6 columns to
+    within ~2 points: its 'cumulative percentage' counts dot-product
+    operations (§5.4)."""
+    def w(mm: MulMat) -> float:
+        if weight == "calls":
+            return mm.count
+        if weight == "dots":
+            return mm.dots
+        if weight == "flops":
+            return mm.flops
+        raise ValueError(weight)
+    total = sum(w(m) for m in mulmats)
+    if total == 0:
+        return 0.0
+    hit = sum(w(m) for m in mulmats
+              if fits(m, budget_kb, optimized, agg_units))
+    return hit / total
+
+
+def coverage_cdf(mulmats: Sequence[MulMat], *,
+                 sizes_kb: Iterable[int] = LMM_SIZES_KB,
+                 weight: str = "dots") -> List[Tuple[int, float, float]]:
+    """[(size_kb, baseline_cov, optimized_cov)] — the Table 2 structure."""
+    return [(s,
+             coverage(mulmats, s, optimized=False, weight=weight),
+             coverage(mulmats, s, optimized=True, weight=weight))
+            for s in sizes_kb]
+
+
+def fallback_time_fraction(mulmats: Sequence[MulMat], budget_kb: int,
+                           accel_speedup: float = 8.0) -> float:
+    """Latency model of §5.1: covered kernels run ``accel_speedup`` x
+    faster; uncovered kernels run at host speed. Returns
+    T(budget)/T(host-only), FLOP-weighted — Fig 11's monotone
+    latency-vs-LMM trend."""
+    total = sum(m.flops for m in mulmats)
+    if total == 0:
+        return 1.0
+    cov = sum(m.flops for m in mulmats if fits(m, budget_kb))
+    return (total - cov) / total + (cov / total) / accel_speedup

@@ -3,9 +3,14 @@
 For each linear call it resolves a ``PlanEntry`` from static shapes
 (``core/plan.py``): whether the working set fits the local-memory budget,
 where the burst splits K, and which kernel and backend run the main
-segment. It executes the entry through the mixed-split executor and
-accounts it in the ``OffloadLedger``. The port runs eagerly, so every
-executed linear is accounted when it runs — the reference's eager branch.
+segment. It executes the entry through the mixed-split executor.
+
+Plan/ledger split, as in the reference: an eager call accounts its entry
+in the ``OffloadLedger`` when it runs. Inside ``recording(plan)`` a call
+appends its entry to the plan and accounts nothing: the serving engine
+records the run of Python that precedes a capture (and every run of the
+same program on the CPU) that way, and accounts each program by
+``ledger.commit(plan, times)`` with the number of times it ran.
 """
 from __future__ import annotations
 
@@ -32,23 +37,42 @@ class OffloadStats:
     by_kernel: Dict[str, int] = field(default_factory=dict)
     by_backend: Dict[str, int] = field(default_factory=dict)
 
+    def offload_rate(self) -> float:
+        t = self.offloaded_calls + self.fallback_calls
+        return self.offloaded_calls / t if t else 0.0
+
+    def offload_flop_rate(self) -> float:
+        t = self.offloaded_flops + self.fallback_flops
+        return self.offloaded_flops / t if t else 0.0
+
 
 @dataclass
 class OffloadLedger:
-    """Host-side accounting: every executed plan entry is accounted once."""
+    """Host-side accounting: an eager call accounts its entry once; a
+    recorded program is committed as its plan times the number of runs."""
     totals: OffloadStats = field(default_factory=OffloadStats)
+    commits: int = 0            # plans committed (not runs)
 
-    def account(self, entry: PlanEntry) -> None:
+    def account(self, entry: PlanEntry, times: int = 1) -> None:
         s = self.totals
         if entry.offload:
-            s.offloaded_calls += 1
-            s.offloaded_flops += entry.offloaded_flops
-            s.residual_flops += entry.residual_flops
+            s.offloaded_calls += times
+            s.offloaded_flops += entry.offloaded_flops * times
+            s.residual_flops += entry.residual_flops * times
         else:
-            s.fallback_calls += 1
-            s.fallback_flops += entry.fallback_flops
-        s.by_kernel[entry.name] = s.by_kernel.get(entry.name, 0) + 1
-        s.by_backend[entry.backend] = s.by_backend.get(entry.backend, 0) + 1
+            s.fallback_calls += times
+            s.fallback_flops += entry.fallback_flops * times
+        s.by_kernel[entry.name] = s.by_kernel.get(entry.name, 0) + times
+        s.by_backend[entry.backend] = (s.by_backend.get(entry.backend, 0)
+                                       + times)
+
+    def commit(self, plan: Optional[DispatchPlan], times: int = 1) -> None:
+        """Account ``times`` runs of a recorded program's plan."""
+        if plan is None or times <= 0:
+            return
+        for entry in plan:
+            self.account(entry, times)
+        self.commits += 1
 
 
 @dataclass
@@ -67,8 +91,9 @@ class OffloadEngine:
 
     @contextmanager
     def recording(self, plan: DispatchPlan):
-        """While active, every ``linear`` call also appends its entry to
-        ``plan``, so a caller can keep the routing of one program run."""
+        """While active, every ``linear`` call appends its entry to
+        ``plan`` instead of accounting it: the routing of one program run,
+        which the caller commits to the ledger per run."""
         prev, self._recording = self._recording, plan
         try:
             yield plan
@@ -76,8 +101,8 @@ class OffloadEngine:
             self._recording = prev
 
     def linear(self, x: torch.Tensor, w, name: str = "linear") -> torch.Tensor:
-        """y = x @ W^T (f32), routed per the plan entry for this shape and
-        accounted in the ledger."""
+        """y = x @ W^T (f32), routed per the plan entry for this shape;
+        recorded into the active plan, or else accounted in the ledger."""
         k = x.shape[-1]
         n = w.shape[0]
         m = x.numel() // k if k else 0
@@ -85,9 +110,10 @@ class OffloadEngine:
                             vmem_budget_kb=self.vmem_budget_kb,
                             default_burst=self.burst)
         y = self.execute(x, w, entry)
-        self.ledger.account(entry)
         if self._recording is not None:
             self._recording.add(entry)
+        else:
+            self.ledger.account(entry)
         return y
 
     def execute(self, x: torch.Tensor, w, entry: PlanEntry) -> torch.Tensor:

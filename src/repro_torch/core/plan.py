@@ -2,9 +2,13 @@
 
 Every routing input — the offload decision, the burst split, the kernel
 and the main-segment backend — is a pure function of static shapes plus
-engine configuration, and is recorded as a ``PlanEntry``. The port runs
-eagerly, so ``OffloadEngine.linear`` resolves its entry, executes it and
-accounts it in one call; there is no separate plan-recording pass.
+engine configuration, and is recorded as a ``PlanEntry``. A
+``DispatchPlan`` holds the entries of one run of a program (a prefill or
+one decode step), and the serving engine keeps one per shape key in a
+``PlanCache`` (``plan_key``). The plan of a captured program is recorded
+while its Python runs once before capture; replays run no Python, so the
+ledger (``core/offload.py``) accounts a program by committing its plan
+times the number of runs.
 
 ``offload`` keeps the reference's local-memory rule (``coverage.fits``), so
 the ledger's offloaded/fallback split stays in step with the reference.
@@ -15,7 +19,7 @@ pins its capacity fallbacks to ``xla_ref``.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Hashable, List
+from typing import Any, Callable, Dict, Hashable, List, Optional, Tuple
 
 from repro_torch.backends import MAIN, REGISTRY, KernelRequest, kernel_for
 from repro_torch.core.coverage import MulMat, fits
@@ -80,7 +84,8 @@ def plan_linear(name: str, m: int, k: int, n: int, *, quantized: bool,
 @dataclass
 class DispatchPlan:
     """The routing of one program: ``PlanEntry`` per linear call, in
-    execution order."""
+    execution order. One plan describes ONE run of the program; the ledger
+    multiplies by the run count."""
     key: Hashable = None
     entries: List[PlanEntry] = field(default_factory=list)
 
@@ -89,3 +94,52 @@ class DispatchPlan:
 
     def __iter__(self):
         return iter(self.entries)
+
+    def __len__(self) -> int:
+        return len(self.entries)
+
+    def signature(self) -> Tuple[PlanEntry, ...]:
+        """Hashable identity: equal signatures mean identical routing."""
+        return tuple(self.entries)
+
+    def summary(self) -> Dict[str, Any]:
+        off = [e for e in self.entries if e.offload]
+        return {
+            "calls": len(self.entries),
+            "offloaded": len(off),
+            "offloaded_flops": sum(e.offloaded_flops for e in self.entries),
+            "fallback_flops": sum(e.fallback_flops for e in self.entries),
+            "residual_flops": sum(e.residual_flops for e in self.entries),
+        }
+
+
+def plan_key(phase: str, quant: Optional[str], batch: int,
+             *extra: Hashable) -> Tuple[Hashable, ...]:
+    """Canonical plan-cache key: ``(phase, quant, batch, *extra)``; the
+    serving engine's extra is the frame count. Routing depends only on
+    static shapes, so equal keys mean one program and one plan."""
+    return (phase, quant, batch, *extra)
+
+
+@dataclass
+class PlanCache:
+    """Plans keyed by ``plan_key``, so that steady-state serving resolves
+    its routing with one dict hit."""
+    plans: Dict[Hashable, DispatchPlan] = field(default_factory=dict)
+    hits: int = 0
+    misses: int = 0
+
+    def get_or_build(self, key: Hashable,
+                     build: Callable[[], DispatchPlan]) -> DispatchPlan:
+        plan = self.plans.get(key)
+        if plan is not None:
+            self.hits += 1
+            return plan
+        self.misses += 1
+        plan = build()
+        plan.key = key
+        self.plans[key] = plan
+        return plan
+
+    def __len__(self) -> int:
+        return len(self.plans)

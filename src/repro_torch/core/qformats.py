@@ -67,6 +67,21 @@ def dequantize_q8_0(t: QTensor) -> torch.Tensor:
     return w.reshape(t.shape)
 
 
+def reconstruction_error(w: torch.Tensor, t: QTensor) -> dict:
+    """The §4.2 error metrics of one tensor (or a flattened stack) against
+    its Q8_0 form: mean and root-mean-square error, the largest error,
+    and the relative L2 error, all in f32."""
+    w = w.to(torch.float32)
+    err = dequantize_q8_0(t) - w
+    rel_l2 = (torch.linalg.vector_norm(err.reshape(-1))
+              / (torch.linalg.vector_norm(w.reshape(-1)) + 1e-30))
+    return {"mae": float(err.abs().mean()),
+            "rmse": float(torch.sqrt((err ** 2).mean())),
+            "max_abs": float(err.abs().max()),
+            "rel_l2": float(rel_l2),
+            "n_values": w.numel()}
+
+
 Path = Tuple[object, ...]
 
 

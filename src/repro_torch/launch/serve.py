@@ -4,7 +4,9 @@
 Boots the ServeEngine with random weights from ``--seed`` (Q8_0 on load by
 default), transcribes a batch of synthetic mel requests and prints each
 request's latency and tokens, then the offload ledger when ``--offload``
-routes the linears through the dispatcher. Runs on the card unless
+routes the linears through the dispatcher, then one ``energy_report`` JSON
+object: PDP/EDP at the card's power limit as nvidia-smi reads it, or at
+``--power-w``, which the CPU requires. Runs on the card unless
 ``--device cpu`` is given.
 """
 from __future__ import annotations
@@ -17,6 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.registry import ALL_ARCHS, get_config, get_smoke_config
+from repro_torch.core import energy
 from repro_torch.core.offload import OffloadEngine
 from repro_torch.models import model as model_lib
 from repro_torch.serve.engine import ServeEngine
@@ -34,7 +37,12 @@ def main(argv=None):
                     help="the published widths (default: the smoke config)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--power-w", type=float, default=None,
+                    help="power for the energy report (default on the card: "
+                         "its power limit; required on the CPU)")
     args = ap.parse_args(argv)
+    if args.power_w is None and args.device == "cpu":
+        ap.error("--device cpu needs --power-w for the energy report")
 
     cfg = get_config(args.arch) if args.full else get_smoke_config(args.arch)
     gen = torch.Generator().manual_seed(args.seed)
@@ -55,6 +63,11 @@ def main(argv=None):
     if offload is not None:
         print(json.dumps({"ledger": asdict(offload.stats)}, indent=1,
                          sort_keys=True))
+    power_w = args.power_w
+    if power_w is None:
+        power_w = energy.card_power_limit_w(engine.device.index or 0)
+    print(json.dumps({"energy": engine.energy_report(results, power_w),
+                      "power_w": power_w}, indent=1, sort_keys=True))
     return 0
 
 

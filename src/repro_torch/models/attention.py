@@ -107,29 +107,33 @@ def attention(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
 
 class KVCache(NamedTuple):
     """Contiguous decode cache with one scalar length: every row of the
-    batch sits at the same position (lockstep decode)."""
+    batch sits at the same position (lockstep decode). ``length`` is an
+    int32 device scalar, as in the reference, so that a decode step reads
+    its position on the device and a captured step replays at whatever
+    position the cache has reached."""
     k: torch.Tensor       # (B, S_max, Hkv, D)
     v: torch.Tensor       # (B, S_max, Hkv, D)
-    length: int           # tokens currently valid
+    length: torch.Tensor  # () int32: tokens currently valid
 
     @classmethod
     def zeros(cls, b: int, s_max: int, hkv: int, hd: int,
               dtype=torch.bfloat16, device="cpu") -> "KVCache":
         return cls(torch.zeros((b, s_max, hkv, hd), dtype=dtype, device=device),
                    torch.zeros((b, s_max, hkv, hd), dtype=dtype, device=device),
-                   0)
+                   torch.zeros((), dtype=torch.int32, device=device))
 
 
 def _cache_update(buf: torch.Tensor, val: torch.Tensor,
-                  length: int) -> torch.Tensor:
-    """Write ``val``'s W positions into every row of ``buf`` at ``length``.
-    Updates ``buf`` in place — the cache is the decode step's largest
-    buffer, and no caller keeps the old contents — and returns it."""
-    w = val.shape[1]
-    if length + w > buf.shape[1]:
-        raise ValueError(f"KV cache full: {length} + {w} > {buf.shape[1]}")
-    buf[:, length:length + w] = val.to(buf.dtype)
-    return buf
+                  length: torch.Tensor) -> torch.Tensor:
+    """Write ``val``'s W positions into every row of ``buf`` from the
+    device index ``length`` on, with no host read. Updates ``buf`` in place
+    — the cache is the decode step's largest buffer, and a captured step
+    rereads the storage it was captured with — and returns it. The caller
+    checks that the cache has room (it knows the step count on the host):
+    an index past the end is not checked here."""
+    idx = length.to(torch.long) + torch.arange(val.shape[1],
+                                               device=buf.device)
+    return buf.index_copy_(1, idx, val.to(buf.dtype))
 
 
 def decode_attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
@@ -139,7 +143,9 @@ def decode_attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
     """One decode step. x: (B, 1, d). Self-attention appends the new K/V
     entry to ``cache`` and attends over positions <= length; with
     ``memory_kv`` (the precomputed cross K/V) it attends over the encoder
-    memory. Returns (out, new_cache)."""
+    memory. Returns (out, cache): the self-attention cache is advanced in
+    place (its K/V and length keep their storage), where the reference
+    returns a new one."""
     b, w = x.shape[0], x.shape[1]
     if w != 1:
         raise ValueError("the port decodes one position per step")
@@ -150,11 +156,10 @@ def decode_attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
         vnew = _split_heads(layers.linear(p["v"], x, engine, "dec.attn.v"), hkv)
         k = _cache_update(cache.k, knew, cache.length)
         v = _cache_update(cache.v, vnew, cache.length)
-        new_cache = KVCache(k, v, cache.length + w)
         valid = torch.arange(k.shape[1], device=x.device) <= cache.length
+        cache.length.add_(w)
     else:
         k, v = memory_kv
-        new_cache = cache
         valid = None
     g = hq // hkv
     qg = q.reshape(b, w, hkv, g, hd).to(torch.float32)
@@ -166,4 +171,4 @@ def decode_attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
     out = torch.einsum("bhgqs,bshd->bqhgd", probs.to(v.dtype).to(torch.float32),
                        v.to(torch.float32))
     out = out.to(x.dtype).reshape(b, w, hq * hd)
-    return layers.linear(p["o"], out, engine, "dec.attn.o"), new_cache
+    return layers.linear(p["o"], out, engine, "dec.attn.o"), cache

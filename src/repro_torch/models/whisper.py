@@ -113,6 +113,8 @@ def init_whisper_decode_state(params: dict, cfg: ModelConfig,
                               memory: torch.Tensor, max_len: int, *,
                               engine=None,
                               dtype=torch.bfloat16) -> WhisperDecodeState:
+    """Zero self-KV caches (lengths 0 on the memory's device) and the cross
+    K/V projected from ``memory``."""
     b = memory.shape[0]
     return WhisperDecodeState(
         self_kv=[KVCache.zeros(b, max_len, cfg.num_kv_heads, cfg.head_dim,
@@ -121,19 +123,37 @@ def init_whisper_decode_state(params: dict, cfg: ModelConfig,
         cross_kv=precompute_cross_kv(params, cfg, memory, engine=engine))
 
 
+def zeros_decode_state(cfg: ModelConfig, batch: int, frames: int,
+                       max_len: int, *, dtype=torch.bfloat16,
+                       device="cpu") -> WhisperDecodeState:
+    """A decode state of zeros for ``batch`` utterances of ``frames``
+    frames: the static buffers that a captured prefill fills and a
+    captured decode step reads."""
+    hkv, hd = cfg.num_kv_heads, cfg.head_dim
+
+    def zeros():
+        return torch.zeros((batch, frames, hkv, hd), dtype=dtype,
+                           device=device)
+    return WhisperDecodeState(
+        self_kv=[KVCache.zeros(batch, max_len, hkv, hd, dtype, device)
+                 for _ in range(cfg.num_layers)],
+        cross_kv=[(zeros(), zeros()) for _ in range(cfg.num_layers)])
+
+
 def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
                 state: WhisperDecodeState, *, engine=None
                 ) -> Tuple[torch.Tensor, WhisperDecodeState]:
     """token: (B, 1) int -> (logits (B, 1, V), state'). The position is
-    the first layer's self-KV length (every row decodes in lockstep)."""
+    the first layer's self-KV length, a device scalar (every row decodes
+    in lockstep). The self-KV caches advance in place, so ``state'``
+    holds the same tensors as ``state``."""
     x = layers.embed(params["embed"], token)
-    pos = state.self_kv[0].length
-    x = x + params["dec_pos"]["table"][pos:pos + 1].to(x.dtype)
-    new_kv = []
+    pos = state.self_kv[0].length.reshape(1)      # read on the device
+    x = x + params["dec_pos"]["table"].index_select(0, pos).to(x.dtype)
     for p, kv, ck_cv in zip(params["dec_blocks"], state.self_kv,
                             state.cross_kv):
         h = layers.norm_apply(p["norm1"], x, cfg.norm)
-        mixed, kv = decode_attention(p["self_attn"], cfg, h, kv, engine=engine)
+        mixed, _ = decode_attention(p["self_attn"], cfg, h, kv, engine=engine)
         x = x + mixed.to(x.dtype)
         h = layers.norm_apply(p["norm_x"], x, cfg.norm)
         mixed, _ = decode_attention(p["cross_attn"], cfg, h, kv,
@@ -142,7 +162,6 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
         h = layers.norm_apply(p["norm2"], x, cfg.norm)
         x = x + layers.mlp_apply(p["ffn"], h, cfg.act, engine=engine
                                  ).to(x.dtype)
-        new_kv.append(kv)
     x = layers.norm_apply(params["dec_norm"], x, cfg.norm)
     logits = layers.unembed(params["embed"], x, engine)
-    return logits, WhisperDecodeState(self_kv=new_kv, cross_kv=state.cross_kv)
+    return logits, state

@@ -6,7 +6,24 @@ Q8_0 on load (or kept dense with ``quant="none"``), every linear routed
 through the offload dispatcher (``core/offload.py`` — the burst-aligned
 main segment on a Hopper kernel, the residual on the host arm) when one
 is attached, and per-request latency for PDP/EDP accounting
-(``core/energy.py``).
+(``core/energy.py``, ``energy_report``).
+
+Compiled programs, the counterpart of the reference's ``_prefill_jit`` and
+``_step_jit``: the prefill and the greedy decode step are each one
+function over static buffers that the engine owns per (batch, frames)
+point (``_Static``): the mel input, the self-KV caches and their device
+lengths, the cross K/V, the token, the ``done`` mask and the generated
+tokens. On a CUDA device each is captured once per plan key
+(``plan_key("prefill" | "step", quant, batch, frames)``) into a
+``torch.cuda.CUDAGraph``, after one warm-up run on a side stream that
+builds the kernels and records the key's ``DispatchPlan``; ``transcribe``
+replays the graphs, with one host sync a step (the ``done.all()`` test).
+Capture and warm-up are set-up, outside the request's timers. A capture
+that fails raises: nothing falls back to the eager loop. On the CPU the
+same functions are called directly, each run recorded apart. Either way
+the ledger is accounted only by committing the plans: the prefill's once,
+the step's once per step taken. The eager ``prefill()`` and ``step()``
+stay public.
 
 Token contract: ``GenerationResult.tokens`` holds exactly the ``steps``
 tokens the request generated — the SOT seed token is not echoed — and rows
@@ -18,16 +35,16 @@ from __future__ import annotations
 import time
 from contextlib import nullcontext
 from dataclasses import dataclass, field
-from typing import Any, Dict, Hashable, List, Optional
+from typing import (Any, Callable, Dict, Hashable, List, NamedTuple,
+                    Optional, Tuple)
 
-import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import energy
 from repro_torch.core.device import resolve_device
 from repro_torch.core.offload import OffloadEngine
-from repro_torch.core.plan import DispatchPlan
+from repro_torch.core.plan import DispatchPlan, PlanCache, plan_key
 from repro_torch.core.qformats import quantize_tree
 from repro_torch.models import model as model_lib
 from repro_torch.models import whisper as whisper_lib
@@ -71,6 +88,23 @@ def _sync(device: torch.device) -> None:
 
 
 @dataclass
+class _Static:
+    """The buffers of one (batch, frames) point, which the prefill and
+    step programs read and write in place: a captured graph rereads the
+    storage it was captured with."""
+    mel: torch.Tensor               # (B, F, n_mels) f32
+    state: model_lib.ServeState     # self-KV + lengths, cross K/V, step
+    token: torch.Tensor             # (B, 1) int64: the last token
+    done: torch.Tensor              # (B,) bool
+    tokens: torch.Tensor            # (B, max_len) int64: step i in column i
+
+
+class _Program(NamedTuple):
+    graph: torch.cuda.CUDAGraph
+    plan: DispatchPlan              # recorded by the warm-up run
+
+
+@dataclass
 class ServeEngine:
     cfg: ModelConfig
     params: Any
@@ -79,32 +113,49 @@ class ServeEngine:
     offload: Optional[OffloadEngine] = None
     eos_id: Optional[int] = 0
     device: Any = "cuda"
-    #: the routing of the last prefill and of one decode step, per
-    #: (phase, batch, frames) key, recorded when ``offload`` is attached
-    plans: Dict[Hashable, DispatchPlan] = field(default_factory=dict)
+    _plans: PlanCache = field(default_factory=PlanCache, repr=False)
+    _static: Dict[Tuple[int, int], _Static] = field(default_factory=dict,
+                                                    repr=False)
+    _graphs: Dict[Hashable, _Program] = field(default_factory=dict,
+                                              repr=False)
+    #: step graphs captured: rises only at a new (batch, frames) key
+    _step_captures: int = field(default=0, repr=False)
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
         params = model_lib.to_device(self.params, self.device)
-        q = self.quant if self.quant is not None else self.cfg.quant
+        self._serve_quant = self.quant if self.quant is not None \
+            else self.cfg.quant
         self._serve_params = (quantize_tree(params, _keep_dense)
-                              if q == "q8_0" else params)
+                              if self._serve_quant == "q8_0" else params)
+        self._eos = -1 if self.eos_id is None else int(self.eos_id)
 
     def _argmax(self, logits: torch.Tensor) -> torch.Tensor:
         """Greedy pick over the true vocab (vocab_pad columns excluded)."""
         return logits[..., :self.cfg.vocab_size].argmax(dim=-1)
 
-    def _record(self, key: Hashable):
-        """Record the routing of the next program run under ``key``."""
+    def _key(self, phase: str, batch: int, frames: int) -> Hashable:
+        return plan_key(phase, self._serve_quant, batch, frames)
+
+    def _recording(self, plan: DispatchPlan):
+        """Record the routing of a program run into ``plan`` (accounting
+        nothing) when an offload engine is attached."""
         if self.offload is None:
             return nullcontext()
-        self.plans[key] = DispatchPlan(key=key)
-        return self.offload.recording(self.plans[key])
+        return self.offload.recording(plan)
 
+    def _plan(self, key: Hashable,
+              recorded: DispatchPlan) -> Optional[DispatchPlan]:
+        """The key's plan from the cache; a miss keeps ``recorded``."""
+        if self.offload is None:
+            return None
+        return self._plans.get_or_build(key, lambda: recorded)
+
+    # -- eager entry points ------------------------------------------------
     def prefill(self, mel: torch.Tensor):
         """Encoder once per utterance batch, then each decoder layer's
-        cross K/V (paper Fig 1). mel: (B, F, n_mels) on the engine's
-        device. Returns (memory, decode state)."""
+        cross K/V (paper Fig 1), run eagerly. mel: (B, F, n_mels) on the
+        engine's device. Returns (memory, decode state)."""
         with torch.inference_mode():
             memory = whisper_lib.encode(self._serve_params, self.cfg, mel,
                                         engine=self.offload)
@@ -114,33 +165,129 @@ class ServeEngine:
         return memory, state
 
     def step(self, token: torch.Tensor, state):
-        """One decode step: token (B, 1) -> (logits (B, 1, V), state')."""
+        """One eager decode step: token (B, 1) -> (logits (B, 1, V),
+        state'), the state advanced in place. Raises, before the step
+        runs, when the self-KV cache is full."""
+        ls = state.layer_states
+        if int(ls.self_kv[0].length) >= ls.self_kv[0].k.shape[1]:
+            raise ValueError(f"KV cache full: {ls.self_kv[0].k.shape[1]} "
+                             "positions")
         with torch.inference_mode():
             return model_lib.serve_step(self._serve_params, self.cfg, token,
                                         state, engine=self.offload)
 
-    def _greedy_loop(self, state, first_token: torch.Tensor, max_new: int,
-                     frames: int) -> Dict[str, Any]:
-        b = first_token.shape[0]
-        eos = -1 if self.eos_id is None else int(self.eos_id)
-        token = first_token
-        done = torch.zeros((b,), dtype=torch.bool, device=self.device)
-        toks = []
+    # -- the compiled programs ---------------------------------------------
+    def _static_for(self, b: int, f: int) -> _Static:
+        st = self._static.get((b, f))
+        if st is None:
+            dev = self.device
+            st = self._static[(b, f)] = _Static(
+                mel=torch.zeros((b, f, self.cfg.n_mels), device=dev),
+                state=model_lib.zeros_serve_state(self.cfg, b, f,
+                                                  self.max_len, device=dev),
+                token=torch.zeros((b, 1), dtype=torch.long, device=dev),
+                done=torch.zeros((b,), dtype=torch.bool, device=dev),
+                tokens=torch.zeros((b, self.max_len), dtype=torch.long,
+                                   device=dev))
+        return st
+
+    def _prefill_fn(self, st: _Static) -> None:
+        """The prefill program: the encoder over ``st.mel`` and each
+        layer's cross K/V written into ``st``; the self-KV caches, their
+        lengths, ``step`` and ``done`` reset."""
+        params, cfg, eng = self._serve_params, self.cfg, self.offload
+        memory = whisper_lib.encode(params, cfg, st.mel, engine=eng)
+        cross = whisper_lib.precompute_cross_kv(params, cfg, memory,
+                                                engine=eng)
+        ls = st.state.layer_states
+        for (k, v), (k_buf, v_buf) in zip(cross, ls.cross_kv):
+            k_buf.copy_(k)
+            v_buf.copy_(v)
+        for kv in ls.self_kv:
+            kv.k.zero_()
+            kv.v.zero_()
+            kv.length.zero_()
+        st.state.step.zero_()
+        st.done.zero_()
+
+    def _step_fn(self, st: _Static) -> None:
+        """The greedy step program (the reference's ``step_fn``): one
+        decode step from ``st.token``, the argmax over the true vocabulary
+        written to ``st.token`` and to column ``step`` of ``st.tokens``,
+        and its EOS test folded into ``st.done``, all on the device."""
+        logits, _ = model_lib.serve_step(self._serve_params, self.cfg,
+                                         st.token, st.state,
+                                         engine=self.offload)
+        nxt = self._argmax(logits[:, -1])[:, None]
+        col = (st.state.step - 1).to(torch.long).reshape(1)
+        st.tokens.index_copy_(1, col, nxt)
+        st.token.copy_(nxt)
+        st.done.logical_or_(nxt[:, 0] == self._eos)
+
+    def _capture(self, key: Hashable, fn: Callable[[], None]) -> _Program:
+        """Warm ``fn`` up on a side stream (its kernels build; its plan is
+        recorded), then capture it into a CUDA graph. The capture pass is
+        recorded apart and must route as the warm-up did. Raises if the
+        capture fails: there is no eager fallback."""
+        dev = self.device
+        plan, again = DispatchPlan(key=key), DispatchPlan(key=key)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.device(dev):
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side), self._recording(plan):
+                fn()
+            torch.cuda.current_stream(dev).wait_stream(side)
+            with self._recording(again), torch.cuda.graph(graph):
+                fn()
+        if again.signature() != plan.signature():
+            raise RuntimeError(f"capture of {key} routed differently from "
+                               "its warm-up")
+        if key[0] == "step":
+            self._step_captures += 1
+        return _Program(graph, plan)
+
+    def _prepare(self, st: _Static, pre_key: Hashable,
+                 step_key: Hashable) -> None:
+        """On a CUDA device, capture the prefill and the step at their
+        keys' first request. The step's warm-up advances the decode state;
+        the prefill that runs next resets it."""
+        if self.device.type != "cuda" or step_key in self._graphs:
+            return
+        self._graphs[pre_key] = self._capture(
+            pre_key, lambda: self._prefill_fn(st))
+        self._graphs[step_key] = self._capture(
+            step_key, lambda: self._step_fn(st))
+
+    def _run(self, key: Hashable,
+             fn: Callable[[], None]) -> DispatchPlan:
+        """One run of a program: its graph replayed on the card, or ``fn``
+        called on the CPU under a fresh recording. Returns the plan of the
+        run (on the card, the one its warm-up recorded)."""
+        if self.device.type == "cuda":
+            prog = self._graphs[key]
+            prog.graph.replay()
+            return prog.plan
+        plan = DispatchPlan(key=key)
+        with self._recording(plan):
+            fn()
+        return plan
+
+    def _greedy_loop(self, st: _Static, step_key: Hashable,
+                     max_new: int) -> Dict[str, Any]:
+        recorded = None
+        steps = 0
         t0 = time.perf_counter()
-        for i in range(max_new):
-            with (self._record(("step", b, frames)) if i == 0
-                  else nullcontext()):
-                logits, state = self.step(token, state)
-            token = self._argmax(logits[:, -1])[:, None]
-            done = done | (token[:, 0] == eos)
-            toks.append(token)
-            if bool(done.all()):             # one host sync per step
+        for _ in range(max_new):
+            plan = self._run(step_key, lambda: self._step_fn(st))
+            if recorded is None:
+                recorded = plan
+            steps += 1
+            if bool(st.done.all()):          # one host sync per step
                 break
-        _sync(self.device)
-        out = (torch.cat(toks, dim=1).cpu().numpy() if toks
-               else np.zeros((b, 0), np.int64))
+        out = st.tokens[:, :steps].cpu().numpy()
         return {"tokens": out, "decode_s": time.perf_counter() - t0,
-                "steps": len(toks), "state": state}
+                "steps": steps, "plan": recorded}
 
     def _finalize(self, r: Dict[str, Any], prefill_s: float
                   ) -> List[GenerationResult]:
@@ -162,16 +309,54 @@ class ServeEngine:
     def transcribe(self, mel, sot_id: int = 1,
                    max_new: int = 32) -> List[GenerationResult]:
         """Whisper path: encoder once per utterance batch, cross-KV
-        projected once, autoregressive greedy decode (paper Fig 1).
-        ``mel``: (B, F, n_mels) numpy array or tensor."""
-        mel_t = torch.as_tensor(mel, dtype=torch.float32).to(self.device)
+        projected once, autoregressive greedy decode (paper Fig 1), each
+        phase one program run (a graph replay on the card). ``mel``: (B,
+        F, n_mels) numpy array or tensor."""
+        if max_new > self.max_len:
+            raise ValueError(f"KV cache full: {max_new} new tokens need "
+                             f"more than max_len={self.max_len} positions")
+        mel_t = torch.as_tensor(mel, dtype=torch.float32)
         b, f = mel_t.shape[0], mel_t.shape[1]
-        t0 = time.perf_counter()
-        with self._record(("prefill", b, f)):
-            _, state = self.prefill(mel_t)
-        _sync(self.device)
-        prefill_s = time.perf_counter() - t0
-        first = torch.full((b, 1), sot_id, dtype=torch.long,
-                           device=self.device)
-        r = self._greedy_loop(state, first, max_new, f)
+        pre_key, step_key = self._key("prefill", b, f), self._key("step", b, f)
+        with torch.no_grad():
+            st = self._static_for(b, f)
+            st.mel.copy_(mel_t)
+            self._prepare(st, pre_key, step_key)
+            _sync(self.device)
+            t0 = time.perf_counter()
+            recorded = self._run(pre_key, lambda: self._prefill_fn(st))
+            _sync(self.device)
+            prefill_s = time.perf_counter() - t0
+            st.token.fill_(sot_id)
+            r = self._greedy_loop(st, step_key, max_new)
+        if self.offload is not None:
+            ledger = self.offload.ledger
+            ledger.commit(self._plan(pre_key, recorded), times=1)
+            if r["plan"] is not None:
+                ledger.commit(self._plan(step_key, r["plan"]),
+                              times=r["steps"])
         return self._finalize(r, prefill_s)
+
+    def energy_report(self, results: List[GenerationResult],
+                      platform_w: float) -> Dict[str, Any]:
+        """Latency and PDP/EDP of ``results`` at ``platform_w`` watts (the
+        card's power limit or a sampled draw: there is no default), the
+        offload rate, and with an offload engine the dispatch counters."""
+        total_s = sum(r.total_s for r in results)
+        rep = {
+            "requests": len(results),
+            "total_s": total_s,
+            "mean_s": total_s / max(len(results), 1),
+            "pdp_j": energy.pdp(total_s, platform_w),
+            "edp_js": energy.edp(total_s, platform_w),
+            "offload_rate": (self.offload.stats.offload_rate()
+                             if self.offload else 0.0),
+        }
+        if self.offload is not None:
+            rep["dispatch"] = {"plans": len(self._plans),
+                               "plan_hits": self._plans.hits,
+                               "plan_misses": self._plans.misses,
+                               "ledger_commits": self.offload.ledger.commits,
+                               "by_backend": dict(
+                                   self.offload.stats.by_backend)}
+        return rep

@@ -126,6 +126,8 @@ def test_ledger_matches_reference_eager_engine():
 
 
 def test_recording_keeps_the_routing_of_a_run():
+    """A recorded run lands in the plan and not in the ledger, as in the
+    reference; committing the plan accounts it, once per run."""
     eng = OffloadEngine(burst=32)
     tq = quantize_q8_0(torch.randn(16, 64))
     plan = DispatchPlan(key="k")
@@ -135,7 +137,11 @@ def test_recording_keeps_the_routing_of_a_run():
     eng.linear(torch.randn(2, 64), tq, name="z")        # not recorded
     assert [(e.name, e.kernel) for e in plan] == [("x", "q8_matvec"),
                                                   ("y", "q8_matmul")]
-    assert eng.stats.offloaded_calls == 3
+    assert eng.stats.offloaded_calls == 1
+    eng.ledger.commit(plan, times=3)
+    assert eng.stats.offloaded_calls == 1 + 2 * 3
+    assert eng.stats.by_kernel == {"x": 3, "y": 3, "z": 1}
+    assert eng.ledger.commits == 1
 
 
 def test_registry_precedence():
@@ -214,6 +220,7 @@ def test_capacity_fallback_runs_on_hopper_and_matches_reference():
     (entry,) = plan.entries
     assert not entry.offload and entry.kernel == "q8_matmul"
     assert entry.backend == "hopper"
+    port.ledger.commit(plan)
     assert port.stats.fallback_calls == ref.stats.fallback_calls == 1
     assert port.stats.by_backend == {"hopper": 1}
     with pytest.raises(KeyError):

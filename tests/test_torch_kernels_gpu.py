@@ -98,8 +98,10 @@ def test_kernel_vs_plain_on_card(name, m, n, k, k_full, x_offset, xdtype):
 def test_full_width_batch2_transcribe_launches_every_q8_linear():
     """At batch 2 the encoder's ffn.down (M = 3000, K = 1536) fails the
     reference's local-memory rule, so its plan entries say offload=False;
-    they still run on the Hopper kernels. q8_matmul launches once per Q8_0
-    prefill linear and q8_matvec once per Q8_0 linear of each decode step."""
+    they still run on the Hopper kernels. transcribe runs each program's
+    Python twice (the warm-up and the capture) and then replays it, so
+    q8_matmul launches twice per Q8_0 prefill linear and q8_matvec twice
+    per Q8_0 linear of a decode step, whatever the number of steps."""
     dev = _cuda_or_skip()
     cfg = get_config("whisper-tiny")
     params = model.init_params(torch.Generator().manual_seed(0), cfg,
@@ -113,14 +115,15 @@ def test_full_width_batch2_transcribe_launches_every_q8_linear():
     res = eng.transcribe(mel, max_new=max_new)
     torch.cuda.synchronize()
     pre, step = (
-        [e for e in eng.plans[(phase, 2, cfg.encoder_ctx)].entries
+        [e for e in eng._plans.plans[(phase, "q8_0", 2,
+                                      cfg.encoder_ctx)].entries
          if e.dtype == "q8_0" and e.k_main]
         for phase in ("prefill", "step"))
     assert len(pre) == 32 and len(step) == 33
     assert sum(not e.offload for e in pre) == 4          # enc ffn.down
     assert {e.backend for e in pre + step} == {"hopper"}
-    assert q8_matmul.launches == len(pre)
-    assert q8_matvec.launches == max_new * len(step)
+    assert q8_matmul.launches == 2 * len(pre)
+    assert q8_matvec.launches == 2 * len(step)
     assert [r.steps for r in res] == [max_new, max_new]
 
 
@@ -306,8 +309,10 @@ def test_flash_attention_unaligned_bf16_rows():
 def test_full_width_dense_flash_transcribe_launches_every_kernel():
     """Dense bf16 whisper-tiny with attn_impl="flash": bf16_matmul launches
     once per dense prefill linear with a main segment (32) and once per
-    dense linear of each decode step (33); flash_attention_fwd once per
-    encoder layer; no Q8_0 kernel runs."""
+    dense linear of a decode step (33); flash_attention_fwd once per
+    encoder layer; no Q8_0 kernel runs. transcribe runs each program's
+    Python twice (the warm-up and the capture) and then replays it, so
+    each count is doubled, whatever the number of steps."""
     dev = _cuda_or_skip()
     cfg = dataclasses.replace(get_config("whisper-tiny"), quant="none",
                               attn_impl="flash")
@@ -322,12 +327,13 @@ def test_full_width_dense_flash_transcribe_launches_every_kernel():
     q8_matmul.launches = q8_matvec.launches = 0
     res = eng.transcribe(mel, max_new=max_new)
     torch.cuda.synchronize()
-    pre, step = ([e for e in eng.plans[(phase, 1, cfg.encoder_ctx)].entries
+    pre, step = ([e for e in eng._plans.plans[(phase, "none", 1,
+                                                cfg.encoder_ctx)].entries
                   if e.k_main] for phase in ("prefill", "step"))
     assert len(pre) == 32 and len(step) == 33
     assert {e.backend for e in pre + step} == {"hopper"}
     assert {e.dtype for e in pre + step} == {"bf16"}
-    assert bf16_matmul.launches == 32 + 33 * max_new
-    assert flash_attention_fwd.launches == cfg.num_encoder_layers
+    assert bf16_matmul.launches == 2 * (32 + 33)
+    assert flash_attention_fwd.launches == 2 * cfg.num_encoder_layers
     assert q8_matmul.launches == q8_matvec.launches == 0
     assert [r.steps for r in res] == [max_new]

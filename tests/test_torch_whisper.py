@@ -180,12 +180,12 @@ def test_plans_and_ledger_match_reference(smoke, burst):
     layers = tcfg.num_layers
     for phase in ("prefill", "step"):
         jplan = je._plans.plans[(phase, "q8_0", 2, 16)].entries
-        tplan = te.plans[(phase, 2, 16)].entries
+        tplan = te._plans.plans[(phase, "q8_0", 2, 16)].entries
         if phase == "prefill":   # collapse the port's per-layer cross K/V
             tplan = tplan[:-2 * layers] + tplan[-2:]
         assert [tuple(getattr(e, f) for f in PLAN_FIELDS) for e in tplan] == \
             [tuple(getattr(e, f) for f in PLAN_FIELDS) for e in jplan]
-    cross = te.plans[("prefill", 2, 16)].entries[-2:]
+    cross = te._plans.plans[("prefill", "q8_0", 2, 16)].entries[-2:]
     extra = layers - 1
     a, b = teng.stats, jeng.stats
     assert a.offloaded_calls == b.offloaded_calls + 2 * extra
