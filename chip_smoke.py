@@ -11,8 +11,10 @@ own kernels with nvcc. Phases, each of which fails the run on error:
    together), with the ``-Xptxas -v`` register and shared-memory report.
 2. Each kernel at every shape its main path gives it: its result against
    its plain PyTorch version on the card, its device time (torch.profiler,
-   warm L2) and its back-to-back time per call (CUDA events, which include
-   the host's launch cost), the plain version's device time, the least
+   warm L2; CUDA events over a captured graph where three profiled
+   windows recorded none, said on its line) and its back-to-back time per
+   call (CUDA events, which include the host's launch cost), the plain
+   version's device time, the least
    time the card could take (the larger of bytes over 3.35 TB/s and FLOPs
    over the peak for the operands' type: 989 TFLOP/s for bf16 operands,
    and for a bf16 x times int8 weights, whose product is exact on the
@@ -61,9 +63,11 @@ own kernels with nvcc. Phases, each of which fails the run on error:
    nothing more, and their ledger totals must equal as many eager
    requests'. Printed: prefill ms and decode ms a token (median of 4
    requests), and one replayed prefill and 8 replayed steps under the
-   profiler (device time, idle share, kernels by name, which must be 32
-   ``q8_wgmma_kernel`` a prefill and 33 ``q8_matvec_kernel`` a step on
-   Q8_0; 32 ``wgmma_kernel`` + 4 ``flash_fwd_mma_kernel`` and 33
+   profiler, each window opened by a spin kernel and profiled again (up
+   to 3 times) where its kernels differ from the graphs' (device time,
+   idle share, kernels by name, which must be 32 ``q8_wgmma_kernel`` a
+   prefill and 33 ``q8_matvec_kernel`` a step on Q8_0; 32
+   ``wgmma_kernel`` + 4 ``flash_fwd_mma_kernel`` and 33
    ``gemv_bf16_kernel`` on dense), beside phase 3's and 5's eager split;
    the dot-product kernels' share of the replayed step's device time and
    its Amdahl bound, beside the paper's shares.
@@ -75,8 +79,37 @@ own kernels with nvcc. Phases, each of which fails the run on error:
    fail the phase.
 8. ``coverage_cdf(enumerate_whisper(whisper-tiny))``: the paper's Table 2
    structure.
+9. Tuning (the autotuner and its calibrated cost model):
+   a. every admissible launch tile of ``q8_matmul``, ``q8_matvec`` and
+      ``bf16_matmul`` at whisper-tiny's shapes (K whole, as a tuned burst
+      leaves it, and the frontend's K = 80) against the plain version
+      (KERNEL_TOL of the largest output), with its device time beside the
+      default launch's;
+   b. ``Autotuner(mode="measured")`` warmed over ``warm_tuning``'s shapes
+      on both paths; every admissible launch of each shape replayed and
+      ``hopper`` coefficients fitted (``calibrate.fit_backend``); the
+      coefficients, their median relative error, and the rank
+      correlation of the analytic and of the calibrated costs with the
+      measured ones (pooled, and the mean within a shape); the cache and
+      its calibration saved under ``build/tuning/``;
+   c. the Fig 7/10-style grid: measured cost and PDP at the power limit
+      of the best launch at each (shared-memory budget, burst) cell for
+      ``q8_matmul`` at enc.ffn.up (1500 x 1536 x 384), beside the untuned
+      split (burst 256: the kernel at K = 256 and the host arm at 128);
+   d. both paths served tuned: an engine with the tuner, its eager loop
+      (launch counts: 32 ``q8_matmul`` + 1 ``bf16_matmul`` (the frontend,
+      K = 80, which the untuned burst left on the host arm) a prefill and
+      33 ``q8_matvec`` a step; dense 33 + 33 ``bf16_matmul`` and 4 flash),
+      its first-step logits against the untuned engine's (1e-2 Q8_0, 3e-2
+      dense), then phase 6 on it: captured tokens equal the tuned eager
+      loop's, prefill ms, decode ms a token, device time and kernels a
+      replay by name; the residual-arm linears a replay (from the plans;
+      0 at every K = 384 linear) beside the untuned engine's, and the
+      cuBLAS launches the profiler saw in each.
 
-The last two lines are the kernels' JSON record and the result line.
+The last two lines are the kernels' JSON record and the result line; each
+kernel's record also carries its launches on the tuned paths' eager loops
+(``tuned_launches``) and its tiles' times (``tiles``).
 """
 from __future__ import annotations
 
@@ -168,6 +201,8 @@ KERNELS = {
 }
 MAX_NEW = 32
 PROFILED_STEPS = 8               # decode steps under torch.profiler
+REPLAY_PROFILES = 3              # profiled windows of the replays, at most
+SPIN_KERNEL = "spin_kernel"      # torch.cuda._sleep's kernel: opens a window
 CAPTURE_PASSES = 2               # Python runs a program twice: warm-up, capture
 REQUESTS = 4                     # captured requests held against eager ones
 PAPER_TOKENS = 27                # the paper's jfk.wav transcript (enumerate_whisper)
@@ -176,6 +211,35 @@ POWER_S = 5.0                    # seconds of transcripts under the power sample
 DOT_KERNEL_WORDS = ("q8_matvec", "q8_matmul", "gemv", "gemm",
                     "wgmma_kernel", "tiled_kernel", "flash_fwd", "xmma",
                     "cutlass")
+# cuBLAS's products (the residual arm's and the attention's), told from
+# the port's kernels by name
+LIBRARY_WORDS = ("gemm", "gemv", "xmma", "cutlass", "cublas")
+PORT_KERNEL_WORDS = ("q8_matvec_kernel", "q8_matmul_kernel",
+                     "q8_wgmma_kernel", "gemv_bf16_kernel", "wgmma_kernel",
+                     "tiled_kernel", "flash_fwd")
+# phase 9a: (kernel, m, n, k, x dtype) — the main paths' products with K
+# whole, as a tuned burst leaves it, and the frontend's K = 80: on the
+# tensor-core launch (bf16 x), and as the tuned paths run it, f32 mel as x
+# on the tiled launch, which takes no tile
+TILE_SHAPES = [
+    ("q8_matmul", 1500, 384, 384, "bfloat16"),
+    ("q8_matmul", 1500, 1536, 384, "bfloat16"),
+    ("q8_matmul", 1500, 384, 1536, "bfloat16"),
+    ("q8_matvec", 1, 384, 384, "float32"),
+    ("q8_matvec", 1, 1536, 384, "float32"),
+    ("q8_matvec", 1, 384, 1536, "float32"),
+    ("q8_matvec", 1, 51872, 384, "float32"),
+    ("bf16_matmul", 1500, 384, 384, "bfloat16"),
+    ("bf16_matmul", 1500, 1536, 384, "bfloat16"),
+    ("bf16_matmul", 1500, 384, 1536, "bfloat16"),
+    ("bf16_matmul", 1500, 384, 80, "bfloat16"),
+    ("bf16_matmul", 1500, 384, 80, "float32"),
+    ("bf16_matmul", 1, 384, 384, "bfloat16"),
+    ("bf16_matmul", 1, 1536, 384, "bfloat16"),
+    ("bf16_matmul", 1, 384, 1536, "bfloat16"),
+    ("bf16_matmul", 1, 51872, 384, "bfloat16"),
+]
+TUNING_DIR = os.path.join(ROOT, "build", "tuning")
 
 
 def card_line() -> str:
@@ -217,12 +281,27 @@ def device_us(prof) -> float:
     return total
 
 
-def device_ms(fn, iters: int = 20, attempts: int = 3) -> float:
-    """Device time per call: the card's own time in the kernels one call
-    launches (torch.profiler, CUPTI), without the host's launch cost. A
-    profiled window in which CUPTI delivered no kernel record (seen once in
-    a run of short windows) is profiled again, up to ``attempts`` times,
-    then raises."""
+def graph_ms(fn, iters: int = 20, reps: int = 3) -> float:
+    """Device time per call from CUDA events around the replay of a CUDA
+    graph that holds ``iters`` calls (``tuning.replay.timed``): no host
+    launch cost between the calls, the graph's small gaps between kernels
+    included. The median of ``reps`` replays."""
+    import statistics
+
+    from repro_torch.tuning.replay import timed
+    return statistics.median(timed(fn, reps, iters, "cuda")[0]) * 1e3
+
+
+def device_ms(fn, iters: int = 20, attempts: int = 3):
+    """Device time per call and how it was taken, as (ms, source): the
+    card's own time in the kernels one call launches (torch.profiler,
+    CUPTI), without the host's launch cost (source "profiler"). A profiled
+    window in which CUPTI delivered no kernel record (seen now and then in
+    runs of short windows) is profiled again, up to ``attempts`` times;
+    then the call is timed with CUDA events over a captured graph
+    (``graph_ms``: source "graph_events", which holds the gaps between the
+    graph's kernels too), and the line says so. Every record that keeps a
+    time keeps its source beside it (``ms_source``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -234,10 +313,43 @@ def device_ms(fn, iters: int = 20, attempts: int = 3) -> float:
             torch.cuda.synchronize()
         total = _device_total_us(prof)
         if total > 0:
-            return total / 1e3 / iters
+            return total / 1e3 / iters, "profiler"
         print("torch.profiler recorded no device time; profiling again",
               flush=True)
-    raise RuntimeError("torch.profiler recorded no device time")
+    ms = graph_ms(fn, iters)
+    print(f"torch.profiler recorded no device time in {attempts} windows: "
+          f"{ms:.5f} ms from CUDA events over a captured graph of {iters} "
+          "calls", flush=True)
+    return ms, "graph_events"
+
+
+def device_ms_each(fns, iters: int = 20):
+    """Device time per call of each of ``fns`` from one profiled window, as
+    ``device_ms``'s (ms, source) pairs: each runs ``iters`` times in turn,
+    and the window's kernel records, in launch order, fall into
+    consecutive groups of ``iters`` (each call launches one kernel). Where
+    the records do not add up, each is timed on its own (``device_ms``)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _open_window()
+        for fn in fns:
+            for _ in range(iters):
+                fn()
+        torch.cuda.synchronize()
+    recs = sorted((e for e in prof.events()
+                   if e.device_type == DeviceType.CUDA
+                   and e.device_time_total > 0 and SPIN_KERNEL not in e.name),
+                  key=lambda e: e.time_range.start)
+    if len(recs) != len(fns) * iters:
+        return [device_ms(fn, iters) for fn in fns]
+    return [(sum(e.device_time_total
+                 for e in recs[i * iters:(i + 1) * iters]) / 1e3 / iters,
+             "profiler") for i in range(len(fns))]
 
 
 def bound(bytes_ms: float, ops_ms: float):
@@ -320,11 +432,14 @@ def _measure(name, label, kernel, plain, library, moved, flops, rate, tol,
     bytes_ms = moved / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / FLOPS_PER_S[rate] * 1e3
     b_ms, b_by = bound(bytes_ms, ops_ms)
+    timed = {"ms": device_ms(kernel), "plain_ms": device_ms(plain),
+             "library_ms": device_ms(library),
+             **{key: device_ms(fn) for key, fn in extra.items()}}
     return dict(max_abs_err=err, bytes=moved, flops=flops,
-                bytes_ms=bytes_ms, ops_ms=ops_ms, ms=device_ms(kernel),
-                wall_ms=wall_ms(kernel), plain_ms=device_ms(plain),
-                library_ms=device_ms(library), bound_ms=b_ms, bound_by=b_by,
-                **{key: device_ms(fn) for key, fn in extra.items()})
+                bytes_ms=bytes_ms, ops_ms=ops_ms, wall_ms=wall_ms(kernel),
+                bound_ms=b_ms, bound_by=b_by,
+                **{key: ms for key, (ms, _) in timed.items()},
+                ms_source={key: src for key, (_, src) in timed.items()})
 
 
 def check_kernels():
@@ -434,7 +549,8 @@ def check_against_cpu(cfg, params_cpu, mel, card_logits, sot,
 def _top_kernels(prof, per: int, top: int):
     """The ``top`` kernels of a profile by device time: (name, launches,
     device ms), each divided by ``per``."""
-    events = sorted(prof.key_averages(),
+    events = sorted((e for e in prof.key_averages()
+                     if SPIN_KERNEL not in e.key),
                     key=lambda e: getattr(e, "self_device_time_total", 0.0),
                     reverse=True)[:top]
     return [(e.key[:80], e.count // per,
@@ -448,7 +564,8 @@ def _by_kernel(prof, per: int = 1):
     return {e.key: (e.count / per,
                     getattr(e, "self_device_time_total", 0.0) / 1e3 / per)
             for e in prof.key_averages()
-            if getattr(e, "self_device_time_total", 0.0) > 0}
+            if getattr(e, "self_device_time_total", 0.0) > 0
+            and SPIN_KERNEL not in e.key}
 
 
 def by_route(kernels, routes):
@@ -732,6 +849,46 @@ def dot_share(kernels) -> float:
     return dots / total
 
 
+def _open_window() -> None:
+    """Start a profiled window with a short spin kernel. On the card the
+    profiler can drop the first kernel record of a window over graph
+    replays (seen as 7 of 8 launches of a step's first kernel, and as a
+    prefill's first kernel missing); the spin kernel takes that place, and
+    ``_by_kernel`` and ``device_ms_each`` leave it out by name."""
+    import torch
+    torch.cuda._sleep(1000)
+
+
+def _profile_replays(eng, f: int):
+    """One replayed prefill and PROFILED_STEPS replayed steps (each with
+    transcribe's host sync) under torch.profiler: each phase's kernels by
+    name (the step's per step), its top kernels and its host wall ms."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    st = eng._static[(1, f)]
+    pre_key, step_key = eng._key("prefill", 1, f), eng._key("step", 1, f)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _open_window()
+        t0 = time.perf_counter()
+        eng._run(pre_key, None)
+        torch.cuda.synchronize()
+        pre_wall = (time.perf_counter() - t0) * 1e3
+    pre_kernels, pre_top = _by_kernel(prof), _top_kernels(prof, 1, 8)
+    st.token.fill_(1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _open_window()
+        t0 = time.perf_counter()
+        for _ in range(PROFILED_STEPS):
+            eng._run(step_key, None)
+            bool(st.done.all())
+        torch.cuda.synchronize()
+        dec_wall = (time.perf_counter() - t0) * 1e3 / PROFILED_STEPS
+    return (pre_kernels, pre_top, pre_wall, _by_kernel(prof, PROFILED_STEPS),
+            _top_kernels(prof, PROFILED_STEPS, 8), dec_wall)
+
+
 def captured_path(label, eng, mel, eager_tokens, eager_split, counted,
                   per_run, replay_kernels, share_key):
     """Phase 6, on one path: captured ``transcribe`` of 1 x 1500 frames, its
@@ -743,7 +900,6 @@ def captured_path(label, eng, mel, eager_tokens, eager_split, counted,
     import statistics
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.amdahl import PAPER_SHARE, amdahl_bound
 
     f = eng.cfg.encoder_ctx
@@ -794,27 +950,21 @@ def captured_path(label, eng, mel, eager_tokens, eager_split, counted,
     prefill_ms = statistics.median(r.prefill_s for r in results) * 1e3
     decode_ms = statistics.median(r.decode_s for r in results) * 1e3 / MAX_NEW
 
-    # one replayed prefill and PROFILED_STEPS replayed steps, each step
-    # with transcribe's host sync
-    st = eng._static[(1, f)]
-    pre_key, step_key = eng._key("prefill", 1, f), eng._key("step", 1, f)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        eng._run(pre_key, None)
-        torch.cuda.synchronize()
-        pre_wall = (time.perf_counter() - t0) * 1e3
-    pre_kernels, pre_top = _by_kernel(prof), _top_kernels(prof, 1, 8)
-    st.token.fill_(1)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(PROFILED_STEPS):
-            eng._run(step_key, None)
-            bool(st.done.all())
-        torch.cuda.synchronize()
-        dec_wall = (time.perf_counter() - t0) * 1e3 / PROFILED_STEPS
-    dec_kernels = _by_kernel(prof, PROFILED_STEPS)
+    # one replayed prefill and PROFILED_STEPS replayed steps; the graphs
+    # are fixed, so a window whose kernels differ from them lost records
+    # and is profiled again
+    for attempt in range(REPLAY_PROFILES):
+        (pre_kernels, pre_top, pre_wall, dec_kernels, dec_top,
+         dec_wall) = _profile_replays(eng, f)
+        launches = {phase: {name: launches for name, (launches, _) in
+                            by_route(kernels, replay_kernels[phase]).items()}
+                    for phase, kernels in (("prefill", pre_kernels),
+                                           ("step", dec_kernels))}
+        if launches == replay_kernels or not (pre_kernels and dec_kernels):
+            break
+        print(f"captured {label}: kernels per replay {launches} in profiled "
+              f"window {attempt + 1}, expected {replay_kernels}; profiling "
+              "again", flush=True)
     out = dict(prefill_ms=prefill_ms, decode_ms_per_token=decode_ms,
                prefill_wall_ms=pre_wall, decode_wall_ms_per_step=dec_wall,
                eager=eager_split)
@@ -827,11 +977,13 @@ def captured_path(label, eng, mel, eager_tokens, eager_split, counted,
     else:
         pre_dev = sum(ms for _, ms in pre_kernels.values())
         dec_dev = sum(ms for _, ms in dec_kernels.values())
-        launches = {phase: {name: launches for name, (launches, _) in
-                            by_route(kernels, replay_kernels[phase]).items()}
-                    for phase, kernels in (("prefill", pre_kernels),
-                                           ("step", dec_kernels))}
         share = dot_share(dec_kernels)
+        library = {phase: sum(n for name, (n, _) in kernels.items()
+                              if any(w in name for w in LIBRARY_WORDS)
+                              and not any(w in name
+                                          for w in PORT_KERNEL_WORDS))
+                   for phase, kernels in (("prefill", pre_kernels),
+                                          ("step", dec_kernels))}
         # the profiler's records of a replay's kernels slow the replay's
         # host side, so idle shares are also given against the unprofiled
         # requests' times
@@ -842,14 +994,19 @@ def captured_path(label, eng, mel, eager_tokens, eager_split, counted,
                    decode_idle_share=1 - dec_dev / dec_wall,
                    decode_idle_share_unprofiled=1 - dec_dev / decode_ms,
                    replay_launches=launches,
+                   library_launches=library,
                    prefill_top_kernels=pre_top,
-                   decode_top_kernels=_top_kernels(prof, PROFILED_STEPS, 8),
+                   decode_top_kernels=dec_top,
                    step_dot_share=share, step_amdahl_bound=amdahl_bound(share),
                    paper_share=PAPER_SHARE[share_key],
                    paper_amdahl_bound=amdahl_bound(PAPER_SHARE[share_key]))
         if launches != replay_kernels:
+            seen = {phase: sorted((name[:70], n) for name, (n, _) in
+                                  kernels.items())
+                    for phase, kernels in (("prefill", pre_kernels),
+                                           ("step", dec_kernels))}
             raise AssertionError(f"{label}: kernels per replay {launches} != "
-                                 f"{replay_kernels}")
+                                 f"{replay_kernels}; the windows saw {seen}")
     print(f"captured {label} summary: {json.dumps(out)}", flush=True)
     return out
 
@@ -914,6 +1071,325 @@ def power_pdp(label, eng, mel, paper_path):
     return rep
 
 
+def _tile_operands(gen, kernel, m, n, k, xdt):
+    """(kernel args, kernel, plain, bound ms, bound by) of one product at
+    one shape, on the serving path's operand types."""
+    from repro_torch.kernels import bf16_matmul, q8_matmul, q8_matvec
+    if kernel == "bf16_matmul":
+        args, _, moved, flops, rate, _ = _bf16_case(gen, m, n, k, k, xdt)
+        fn, plain = bf16_matmul.bf16_matmul, bf16_matmul.bf16_matmul_plain
+    else:
+        args, _, moved, flops, rate, _ = _q8_case(gen, m, n, k, k, xdt)
+        mod = q8_matmul if kernel == "q8_matmul" else q8_matvec
+        fn, plain = getattr(mod, kernel), getattr(mod, f"{kernel}_plain")
+    b_ms, b_by = bound(moved / HBM_BYTES_PER_S * 1e3,
+                       flops / FLOPS_PER_S[rate] * 1e3)
+    return args, fn, plain, b_ms, b_by
+
+
+def check_tiles():
+    """Phase 9a: every admissible launch tile of the three products at
+    whisper-tiny's shapes against the plain version, and its device time
+    beside the default launch's and the bound. The tiled f32 launch of
+    ``bf16_matmul`` (f32 x above M = 16) takes no tile: its one launch is
+    checked and timed as it comes (tile None). Returns {kernel:
+    [records]}."""
+    import torch
+    from repro_torch.kernels.tiles import MAX_ROW_M, tile_m
+    from repro_torch.tuning.space import default_launch, launches
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    records = {}
+    for kernel, m, n, k, xdt in TILE_SHAPES:
+        args, fn, plain, b_ms, b_by = _tile_operands(gen, kernel, m, n, k,
+                                                     xdt)
+        want = plain(*args)
+        tm = tile_m(m)                        # where the tuner keys a tile
+        if kernel == "bf16_matmul" and m > MAX_ROW_M and xdt == "float32":
+            tiles, default = [None], None
+        else:
+            tiles = launches(kernel, tm, n, k)
+            default = default_launch(kernel, tm, n, k)
+        lim = KERNEL_TOL * max(1.0, want.abs().max().item())
+        errs = []
+        for t in tiles:
+            err = (fn(*args, tile=t) - want).abs().max().item()
+            if not err <= lim:
+                raise AssertionError(f"{kernel} {m}x{n}x{k} tile {t}: max "
+                                     f"|kernel - plain| = {err} > {lim}")
+            errs.append(err)
+        times = device_ms_each([lambda t=t: fn(*args, tile=t) for t in tiles])
+        base = times[tiles.index(default)][0]
+        rows = [dict(m=m, n=n, k=k, x=xdt, tile=list(t) if t else None,
+                     default=t == default, ms=ms, ms_source=src,
+                     default_ms=base, bound_ms=b_ms, bound_by=b_by,
+                     max_abs_err=err)
+                for t, (ms, src), err in zip(tiles, times, errs)]
+        best = min(rows, key=lambda r: r["ms"])
+
+        def name(t):
+            return tuple(t) if t else None
+        print(f"tiles {kernel} {m}x{n}x{k} x={xdt}: default {default} "
+              f"{base:.5f} ms; best {name(best['tile'])} {best['ms']:.5f} "
+              "ms; " + " ".join(f"{name(r['tile'])}={r['ms']:.5f}"
+                                for r in rows)
+              + f" bound {b_ms:.5f} ms ({b_by}) max_abs_err={max(errs):.3e}"
+              + "".join(f" {name(r['tile'])} from {r['ms_source']}"
+                        for r in rows if r["ms_source"] != "profiler"),
+              flush=True)
+        records.setdefault(kernel, []).extend(rows)
+    return records
+
+
+def tuning_fit(cfg):
+    """Phase 9b: a measured Autotuner warmed over warm_tuning's shapes on
+    both paths (the paper's 27 tokens and this script's MAX_NEW), every
+    admissible launch of each shape replayed, ``hopper`` coefficients
+    fitted, and the analytic and calibrated rankings held against the
+    measured one. Saves the cache and its calibration under
+    build/tuning/. Returns (tuner, summary)."""
+    import statistics
+
+    from repro_torch.core.offload import OffloadEngine
+    from repro_torch.models.whisper import warm_tuning
+    from repro_torch.tuning import (
+        Autotuner, CalibratedCoefficients, analytic_cost, calibrated_cost,
+        enumerate_candidates, fit_backend, make_operands, rank_correlation,
+        replay_candidate, sibling_path)
+
+    path = os.path.join(TUNING_DIR, "whisper_tiny.json")
+    for stale in (path, sibling_path(path)):
+        if os.path.exists(stale):
+            os.remove(stale)
+    tuner = Autotuner(mode="measured", cache_path=path)
+    eng = OffloadEngine(tuner=tuner)
+    t0 = time.perf_counter()
+    shapes = {quant: max(warm_tuning(cfg, eng, quant=quant, n_tokens=t)
+                         for t in (PAPER_TOKENS, MAX_NEW))
+              for quant in ("q8_0", "none")}
+    warm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    samples, analytic, measured = [], [], []
+    by_shape = {}
+    for key in sorted(tuner.cache.entries, key=lambda key: key.encode()):
+        cands = {c.launch: c for c in enumerate_candidates(
+            key.kernel, key.m, key.n, key.k)}
+        ops = make_operands(key.kernel, key.m, key.n, key.k, key.dtype,
+                            device="cuda")
+        for c in cands.values():
+            sample = replay_candidate(c, key.m, key.n, key.k, key.dtype,
+                                      device="cuda", operands=ops)
+            samples.append(sample)
+            analytic.append(analytic_cost(c, key.m, key.n, key.k).cost_s)
+            measured.append(sample.time_s)
+            by_shape.setdefault(key, []).append((c, len(samples) - 1))
+    coeffs = fit_backend(samples, "hopper")
+    calibrated = [calibrated_cost(c, key.m, key.n, key.k, coeffs=coeffs
+                                  ).cost_s
+                  for key, rows in by_shape.items() for c, _ in rows]
+
+    def within(costs):
+        rhos = [rank_correlation([costs[i] for _, i in rows],
+                                 [measured[i] for _, i in rows])
+                for rows in by_shape.values() if len(rows) > 1]
+        return statistics.fmean(rhos), len(rhos)
+    cal = CalibratedCoefficients()
+    cal.put(coeffs)
+    cal.save(sibling_path(path))
+    tuner.save()
+    fit_s = time.perf_counter() - t0
+    summary = dict(
+        shapes=shapes, cache_entries=len(tuner.cache),
+        searches=tuner.searches, warm_s=warm_s, replays=len(samples),
+        fit_s=fit_s, eff_flops=coeffs.eff_flops, eff_bw=coeffs.eff_bw,
+        overhead_s=coeffs.overhead_s, median_rel_err=coeffs.median_rel_err,
+        rank_analytic=rank_correlation(analytic, measured),
+        rank_calibrated=rank_correlation(calibrated, measured),
+        rank_analytic_within_shape=within(analytic),
+        rank_calibrated_within_shape=within(calibrated),
+        cache=os.path.relpath(path, ROOT),
+        calibration=os.path.relpath(sibling_path(path), ROOT),
+        winners={key.encode(): [rec.block_k, list(rec.launch), rec.cost_s]
+                 for key, rec in sorted(tuner.cache.entries.items(),
+                                        key=lambda kv: kv[0].encode())})
+    print(f"tuning fit: {json.dumps(summary)}", flush=True)
+    return tuner, summary
+
+
+def tuning_grid(power_w: float):
+    """Phase 9c: the measured (shared-memory budget x burst) grid of
+    q8_matmul at enc.ffn.up, each cell's best launch and its PDP at
+    ``power_w``, beside the untuned split at burst 256."""
+    import dataclasses
+
+    from repro_torch.backends import executor
+    from repro_torch.tuning import (
+        budget_grid, make_operands, measured_cost, sweep_grid)
+    from repro_torch.tuning.space import bursts
+
+    m, n, k = 1500, 1536, 384
+    ops = make_operands("q8_matmul", m, n, k, "q8_0", device="cuda")
+    seen = {}
+
+    def cost(c, m, n, k):                   # one replay a launch
+        if c.launch not in seen:
+            seen[c.launch] = measured_cost(c, m, n, k, operands=ops)
+        return dataclasses.replace(seen[c.launch], cand=c)
+    grid = sweep_grid("q8_matmul", m, n, k, budgets=budget_grid(),
+                      block_ks=bursts("q8_matmul", k), cost_fn=cost)
+    x, wq = ops
+    untuned_ms, untuned_src = device_ms(
+        lambda: executor.split_matmul(x, wq, 256))
+    best = min(grid, key=lambda cell: cell[1].cost_s)[1]
+    tuned_ms, tuned_src = device_ms(lambda: executor.split_matmul(
+        x, wq, best.cand.block_k, tiling=best.cand.launch))
+    cells = [dict(budget_kb=b / 1024, burst=r.cand.block_k,
+                  launch=list(r.cand.launch), claim_bytes=r.cand.claim_bytes,
+                  ms=r.cost_s * 1e3, pdp_uj=r.pdp_j(power_w) * 1e6)
+             for b, r in grid]
+    empty = sorted({b / 1024 for b in budget_grid()}
+                   - {c["budget_kb"] for c in cells})
+    for c in cells:
+        print(f"grid q8_matmul {m}x{n}x{k}: budget {c['budget_kb']:g} KB "
+              f"burst {c['burst']}: launch {tuple(c['launch'])} "
+              f"({c['claim_bytes']} B) {c['ms']:.5f} ms, PDP "
+              f"{c['pdp_uj']:.3f} uJ at {power_w:g} W", flush=True)
+    out = dict(shape=[m, n, k], budgets_without_a_launch_kb=empty,
+               cells=cells, untuned_split_device_ms=untuned_ms,
+               tuned_split_device_ms=tuned_ms,
+               split_ms_source=[untuned_src, tuned_src],
+               tuned=[best.cand.block_k, list(best.cand.launch)])
+    print(f"grid summary: {json.dumps(dict(out, cells=len(cells)))}",
+          flush=True)
+    return out
+
+
+def residual_linears(eng, frames: int):
+    """Linears with a host-residual segment in each program's plan: (all,
+    those at K = 384)."""
+    out = {}
+    for phase in ("prefill", "step"):
+        plan = eng._plans.plans[eng._key(phase, 1, frames)]
+        out[phase] = (sum(1 for e in plan if e.k_res),
+                      sum(1 for e in plan if e.k_res and e.k == 384))
+    return out
+
+
+def tiles_vs_own(eng, frames: int):
+    """The launch tiles of a tuned engine's plans against the kernels' own
+    launches (no tile) on the same operands, timed in one profiled window
+    per shape: the device ms of each program's tiled launches, tuned and
+    own, and per shape. Shows whether a tuned tile runs slower than the
+    launch it replaced."""
+    import collections
+
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    out = {}
+    for phase in ("prefill", "step"):
+        plan = eng._plans.plans[eng._key(phase, 1, frames)]
+        counts = collections.Counter(
+            (e.kernel, e.m, e.n, e.k_main, e.tiling) for e in plan
+            if e.tiling)
+        rows = []
+        for (kernel, m, n, k, tile), count in sorted(counts.items()):
+            xdt = "float32" if kernel == "q8_matvec" else "bfloat16"
+            args, fn, _, _, _ = _tile_operands(gen, kernel, m, n, k, xdt)
+            (t_ms, t_src), (o_ms, o_src) = device_ms_each(
+                [lambda: fn(*args, tile=tile), lambda: fn(*args)])
+            rows.append(dict(kernel=kernel, m=m, n=n, k=k, tile=list(tile),
+                             count=count, tuned_ms=t_ms, own_ms=o_ms,
+                             ms_source=[t_src, o_src]))
+        out[phase] = dict(
+            tuned_ms=sum(r["tuned_ms"] * r["count"] for r in rows),
+            own_ms=sum(r["own_ms"] * r["count"] for r in rows), shapes=rows)
+    return out
+
+
+def tuned_path(label, untuned, tuner, counted, eager_want, per_run,
+               replay_kernels, share_key, tol):
+    """Phase 9d, on one path: an engine with the tuner on the untuned
+    engine's weights; its eager loop's launches, its first-step logits
+    against the untuned engine's, then phase 6 on it, and the residual-arm
+    linears a replay against the untuned engine's."""
+    import numpy as np
+    import torch
+    from repro_torch.core.offload import OffloadEngine
+    from repro_torch.models.whisper import warm_tuning
+    from repro_torch.serve.engine import ServeEngine
+
+    eng0, mel, _, _ = untuned
+    cfg = eng0.cfg
+    eng = ServeEngine(cfg, eng0.params, max_len=MAX_NEW + 8,
+                      offload=OffloadEngine(tuner=tuner), eos_id=None,
+                      device="cuda")
+    # every key the path asks warm before its counts are read: warm_tuning's
+    # shapes at MAX_NEW tokens, and the plans' own (the vocabulary readout
+    # at its padded N, the frontend at K = 80) in a short eager run
+    warm_tuning(cfg, eng.offload, n_frames=mel.shape[1], n_tokens=MAX_NEW,
+                quant=eng._serve_quant)
+    eager_transcribe(eng, mel, 2)
+    searches = tuner.searches
+    for fn in counted.values():
+        fn.launches = 0
+    (tokens,), prefill_s, decode_s = eager_transcribe(eng, mel, MAX_NEW)
+    launches = {name: fn.launches for name, fn in counted.items()}
+    print(f"tuned {label}: eager loop launches {launches} (expected "
+          f"{eager_want}), prefill_ms={prefill_s * 1e3:.3f} "
+          f"decode_ms_per_token={decode_s * 1e3 / MAX_NEW:.3f}", flush=True)
+    if launches != eager_want:
+        raise AssertionError(f"tuned {label}: launches {launches} != "
+                             f"{eager_want}")
+    sot = 1
+    logits = []
+    for e in (eng, eng0):
+        _, state = e.prefill(torch.from_numpy(mel).cuda())
+        out, _ = e.step(torch.full((1, 1), sot, device="cuda"), state)
+        logits.append(out)
+    diff = (logits[0] - logits[1]).abs().max().item()
+    print(f"tuned {label}: first-step logits tuned vs untuned max_abs_err="
+          f"{diff:.3e} (tolerance {tol})", flush=True)
+    if not (torch.isfinite(logits[0]).all() and diff <= tol):
+        raise AssertionError(f"tuned {label}: first-step logits differ from "
+                             f"the untuned engine's by {diff}")
+    summary = captured_path(f"{label} tuned", eng, mel, tokens, None,
+                            counted, per_run, replay_kernels, share_key)
+    # the replays recompute from their input: a new mel through the graphs
+    # gives the eager loop's tokens on it
+    mel2 = np.random.default_rng(11).standard_normal(mel.shape).astype(
+        np.float32)
+    (want2,), _, _ = eager_transcribe(eng, mel2, MAX_NEW)
+    got2 = eng.transcribe(mel2, max_new=MAX_NEW)[0].tokens
+    print(f"tuned {label}: a new mel, captured tokens equal the eager "
+          f"loop's: {got2 == want2}", flush=True)
+    if got2 != want2:
+        raise AssertionError(f"tuned {label}: captured tokens on a new mel "
+                             f"{got2} != eager {want2}")
+    f = mel.shape[1]
+    resid = {"tuned": residual_linears(eng, f),
+             "untuned": residual_linears(eng0, f)}
+    print(f"tuned {label}: residual-arm linears a replay (all, at K = 384): "
+          f"{json.dumps(resid)}", flush=True)
+    if any(at384 for _, at384 in resid["tuned"].values()):
+        raise AssertionError(f"tuned {label}: a K = 384 linear kept a "
+                             "residual")
+    if tuner.searches != searches:
+        raise AssertionError(f"tuned {label}: the tuner searched while "
+                             "serving")
+    own = tiles_vs_own(eng, f)
+    print(f"tuned {label}: tiled launches a replay, device ms with the "
+          "tuned tiles vs the kernels' own launches: " + ", ".join(
+              f"{phase} {v['tuned_ms']:.5f} vs {v['own_ms']:.5f}"
+              for phase, v in own.items()), flush=True)
+    entries = [e for p in eng._plans.plans.values() for e in p]
+    return launches, dict(tiles_vs_own=own,
+                          eager_prefill_ms=prefill_s * 1e3,
+                          eager_decode_ms_per_token=decode_s * 1e3 / MAX_NEW,
+                          first_step_vs_untuned=diff, residual_linears=resid,
+                          tuned_entries=sum(e.tuned for e in entries),
+                          entries=len(entries), **summary)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -970,6 +1446,35 @@ def main() -> int:
     print(f"coverage whisper-tiny (LMM KB, baseline, optimized): "
           f"{json.dumps(cdf)}", flush=True)
 
+    from repro_torch.core import energy
+    t0 = time.perf_counter()
+    tile_records = check_tiles()
+    tuner, fit = tuning_fit(get_config("whisper-tiny"))
+    tuning_grid(energy.card_power_limit_w(0))
+    tuned_launches = {name: 0 for name in counted}
+    for args in (
+            ("q8_0", (q8_eng, q8_mel, q8_tokens, q8_split),
+             {"q8_matmul": 32, "q8_matvec": 33 * MAX_NEW,
+              "bf16_matmul": 1, "flash_attention_fwd": 0},
+             {"q8_matmul": 32, "q8_matvec": 33, "bf16_matmul": 1},
+             {"prefill": {"q8_wgmma_kernel": 32, "tiled_kernel": 1},
+              "step": {"q8_matvec_kernel": 33}}, "q8_0", FIRST_STEP_TOL),
+            ("dense+flash", (d_eng, d_mel, d_tokens, d_split),
+             {"bf16_matmul": 33 + 33 * MAX_NEW, "flash_attention_fwd": 4,
+              "q8_matmul": 0, "q8_matvec": 0},
+             {"bf16_matmul": 33 + 33, "flash_attention_fwd": 4},
+             {"prefill": {"wgmma_kernel": 32, "tiled_kernel": 1,
+                          "flash_fwd_mma_kernel": 4},
+              "step": {"gemv_bf16_kernel": 33}}, "fp16",
+             DENSE_FIRST_STEP_TOL)):
+        label, untuned, want, per_run, replay, share, tol = args
+        got, summary = tuned_path(label, untuned, tuner, counted, want,
+                                  per_run, replay, share, tol)
+        print(f"tuned {label} summary: {json.dumps(summary)}", flush=True)
+        for name, n in got.items():
+            tuned_launches[name] += n
+    print(f"tuning phase: {time.perf_counter() - t0:.1f}s", flush=True)
+
     kernels = []
     for name, meta in KERNELS.items():
         rows = records[name]
@@ -990,6 +1495,10 @@ def main() -> int:
             library_ms=total("library_ms"),
             library_call=meta["library_call"],
             per=" + one ".join(meta["shapes"]),
+            ms_source={key: sorted({r["ms_source"][key] for r in rows})
+                       for key in ("ms", "plain_ms", "library_ms", *extras)},
+            tuned_launches=tuned_launches[name],
+            tiles=tile_records.get(name, []),
             **{key: total(key) for key in extras},
             by_phase={per: {key: total(key, per) for key in (
                 "ms", "plain_ms", "library_ms", "bytes_ms", "ops_ms",

@@ -2,15 +2,16 @@
 
 A ``KernelRequest`` describes one *segment* of one linear invocation — the
 burst-aligned main segment or the ragged residual tail of the paper's mixed
-execution — in purely static terms (shapes, dtype). A ``Backend`` looks at
-a request and either declines it (``supports``/``auto``) or returns a
-callable that runs it (``build``). ``registry.REGISTRY.resolve`` is the one
-place that selects an implementation.
+execution — in purely static terms (shapes, dtype, launch tile). A
+``Backend`` looks at a request and either declines it (``supports``/
+``auto``) or returns a callable that runs it (``build``).
+``registry.REGISTRY.resolve`` is the one place that selects an
+implementation.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Protocol, runtime_checkable
+from typing import Callable, Optional, Protocol, Tuple, runtime_checkable
 
 MAIN = "main"
 RESIDUAL = "residual"
@@ -37,13 +38,15 @@ def kernel_for(m: int, quantized: bool) -> str:
 class KernelRequest:
     """One segment of one linear call, described statically. ``m`` is the
     row count of the flattened activation; ``k`` is the contraction length
-    *this segment* sees (k_main or k_res)."""
+    *this segment* sees (k_main or k_res); ``tiling`` is the main segment's
+    launch tile (``kernels/tiles.py``), None for the kernel's own."""
     kernel: str                               # kernel_for's name
     m: int
     n: int
     k: int
     dtype: str                                # "q8_0" | "bf16"
     segment: str = MAIN                       # MAIN | RESIDUAL
+    tiling: Optional[Tuple[int, ...]] = None
 
 
 @runtime_checkable

@@ -11,7 +11,7 @@ an argument.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -31,12 +31,15 @@ def _slice_k(w, start: int, stop: int):
 
 
 def split_matmul(x: torch.Tensor, w, burst: int, *,
-                 backend: Optional[str] = None) -> torch.Tensor:
+                 backend: Optional[str] = None,
+                 tiling: Optional[Tuple[int, ...]] = None) -> torch.Tensor:
     """y = x @ W^T with the K contraction split at the burst boundary.
 
     x: (M, K); w: (N, K) tensor or QTensor. The aligned main segment
-    resolves through the registry (optionally pinned to ``backend``); the
-    residual always resolves by capability — the host arm. Returns f32.
+    resolves through the registry (optionally pinned to ``backend``) and
+    runs with the launch tile ``tiling``; the residual always resolves by
+    capability — the host arm — and runs only where K leaves one: a burst
+    that divides K launches no residual. Returns f32.
     """
     quant = isinstance(w, QTensor)
     if quant and burst % QBLOCK != 0:
@@ -49,7 +52,7 @@ def split_matmul(x: torch.Tensor, w, burst: int, *,
     out = None
     if k_main:
         req = KernelRequest(kernel=kern, m=m, n=n, k=k_main, dtype=dtype,
-                            segment=MAIN)
+                            segment=MAIN, tiling=tiling)
         fn = REGISTRY.resolve(req, pin=backend).build(req)
         out = fn(x[:, :k_main], _slice_k(w, 0, k_main))
     if k_res:
@@ -64,12 +67,14 @@ def split_matmul(x: torch.Tensor, w, burst: int, *,
 
 
 def matmul(x: torch.Tensor, w, *, burst: int = 256,
-           backend: Optional[str] = None) -> torch.Tensor:
+           backend: Optional[str] = None,
+           tiling: Optional[Tuple[int, ...]] = None) -> torch.Tensor:
     """x: (..., K) -> (..., N) f32 through ``split_matmul``. ``backend``
-    pins the main segment (a plan entry's backend)."""
+    and ``tiling`` pin the main segment's backend and launch tile (a plan
+    entry's)."""
     lead = x.shape[:-1]
     x2d = x.reshape(-1, x.shape[-1])
     if x2d.stride(-1) != 1:       # the kernels read rows with unit stride
         x2d = x2d.contiguous()
-    out = split_matmul(x2d, w, burst, backend=backend)
+    out = split_matmul(x2d, w, burst, backend=backend, tiling=tiling)
     return out.reshape(*lead, out.shape[-1])

@@ -2,8 +2,11 @@
 
 For each linear call it resolves a ``PlanEntry`` from static shapes
 (``core/plan.py``): whether the working set fits the local-memory budget,
-where the burst splits K, and which kernel and backend run the main
-segment. It executes the entry through the mixed-split executor.
+where the burst splits K, and which kernel, launch tile and backend run
+the main segment. With an autotuner attached (``tuning.Autotuner``) the
+burst and the tile come from its persistent cache, one dict lookup each
+once a shape is warm. It executes the entry through the mixed-split
+executor.
 
 Plan/ledger split, as in the reference: an eager call accounts its entry
 in the ``OffloadLedger`` when it runs. Inside ``recording(plan)`` a call
@@ -23,6 +26,7 @@ import torch
 from repro_torch.backends import executor
 from repro_torch.core.plan import DispatchPlan, PlanEntry, plan_linear
 from repro_torch.core.qformats import QTensor
+from repro_torch.tuning import Autotuner
 
 
 @dataclass
@@ -34,6 +38,7 @@ class OffloadStats:
     offloaded_flops: int = 0
     fallback_flops: int = 0
     residual_flops: int = 0
+    tuned_calls: int = 0        # offloads that ran on a tuned burst
     by_kernel: Dict[str, int] = field(default_factory=dict)
     by_backend: Dict[str, int] = field(default_factory=dict)
 
@@ -57,6 +62,8 @@ class OffloadLedger:
         s = self.totals
         if entry.offload:
             s.offloaded_calls += times
+            if entry.tuned:
+                s.tuned_calls += times
             s.offloaded_flops += entry.offloaded_flops * times
             s.residual_flops += entry.residual_flops * times
         else:
@@ -79,15 +86,26 @@ class OffloadLedger:
 class OffloadEngine:
     """The dispatcher. ``vmem_budget_kb`` is the local-memory budget an
     invocation's working set must fit to be offloaded (the reference's
-    rule, kept for plan parity); ``burst`` is the split granularity."""
+    rule, kept for plan parity); ``burst`` is the split granularity when no
+    ``tuner`` is attached or none of its launches fits its budget."""
     vmem_budget_kb: int = 8 * 1024
     burst: int = 256
+    tuner: Optional[Autotuner] = None
     ledger: OffloadLedger = field(default_factory=OffloadLedger)
     _recording: Optional[DispatchPlan] = field(default=None, repr=False)
 
     @property
     def stats(self) -> OffloadStats:
         return self.ledger.totals
+
+    def plan_entry(self, m: int, k: int, n: int, *, quantized: bool,
+                   name: str = "linear", dense_f32: bool = False
+                   ) -> PlanEntry:
+        """Resolve the routing of one static shape (``plan_linear``)."""
+        return plan_linear(name, m, k, n, quantized=quantized,
+                           vmem_budget_kb=self.vmem_budget_kb,
+                           default_burst=self.burst, tuner=self.tuner,
+                           dense_f32=dense_f32)
 
     @contextmanager
     def recording(self, plan: DispatchPlan):
@@ -106,9 +124,10 @@ class OffloadEngine:
         k = x.shape[-1]
         n = w.shape[0]
         m = x.numel() // k if k else 0
-        entry = plan_linear(name, m, k, n, quantized=isinstance(w, QTensor),
-                            vmem_budget_kb=self.vmem_budget_kb,
-                            default_burst=self.burst)
+        quantized = isinstance(w, QTensor)
+        entry = self.plan_entry(
+            m, k, n, quantized=quantized, name=name,
+            dense_f32=not quantized and torch.float32 in (x.dtype, w.dtype))
         y = self.execute(x, w, entry)
         if self._recording is not None:
             self._recording.add(entry)
@@ -117,5 +136,7 @@ class OffloadEngine:
         return y
 
     def execute(self, x: torch.Tensor, w, entry: PlanEntry) -> torch.Tensor:
-        """Run one linear per a resolved ``PlanEntry``."""
-        return executor.matmul(x, w, burst=entry.burst, backend=entry.backend)
+        """Run one linear per a resolved ``PlanEntry``: its burst, its
+        backend and its launch tile."""
+        return executor.matmul(x, w, burst=entry.burst, backend=entry.backend,
+                               tiling=entry.tiling)

@@ -1,8 +1,10 @@
 """Dispatch planning: each linear's routing resolved from static shapes.
 
-Every routing input — the offload decision, the burst split, the kernel
-and the main-segment backend — is a pure function of static shapes plus
-engine configuration, and is recorded as a ``PlanEntry``. A
+Every routing input — the offload decision, the burst split, the kernel,
+its launch tile and the main-segment backend — is a function of static
+shapes plus engine configuration (and the autotuner's cache, whose first
+query of a shape runs one search and whose later ones are dict hits), and
+is recorded as a ``PlanEntry``. A
 ``DispatchPlan`` holds the entries of one run of a program (a prefill or
 one decode step), and the serving engine keeps one per shape key in a
 ``PlanCache`` (``plan_key``). The plan of a captured program is recorded
@@ -21,17 +23,21 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, Hashable, List, Optional, Tuple
 
-from repro_torch.backends import MAIN, REGISTRY, KernelRequest, kernel_for
+from repro_torch.backends import (
+    MAIN, REGISTRY, KernelRequest, kernel_for, padded_m)
 from repro_torch.core.coverage import MulMat, fits
-from repro_torch.core.mixed_exec import split_aligned
+from repro_torch.core.mixed_exec import select_burst, split_aligned
+from repro_torch.kernels import tiles
 
 
 @dataclass(frozen=True)
 class PlanEntry:
     """Routing record for one linear call site at one static shape: the
     ``(name, m, k, n, dtype)`` identity, the offload decision, the burst
-    split, the kernel the main segment dispatches to, and the registry
-    backend resolved for the main segment."""
+    split and whether the autotuner chose it (``tuned``), the kernel the
+    main segment dispatches to and its launch tile (``tiling``, None: the
+    kernel's own), and the registry backend resolved for the main
+    segment."""
     name: str
     m: int
     k: int
@@ -39,7 +45,9 @@ class PlanEntry:
     dtype: str                 # "q8_0" | "bf16"
     offload: bool
     burst: int
+    tuned: bool
     kernel: str
+    tiling: Optional[Tuple[int, ...]]
     k_main: int
     k_res: int
     backend: str
@@ -63,22 +71,49 @@ class PlanEntry:
 
 
 def plan_linear(name: str, m: int, k: int, n: int, *, quantized: bool,
-                vmem_budget_kb: int, default_burst: int) -> PlanEntry:
-    """Resolve one linear's routing from static shapes (pure)."""
+                vmem_budget_kb: int, default_burst: int,
+                tuner=None, dense_f32: bool = False) -> PlanEntry:
+    """Resolve one linear's routing from static shapes — pure apart from
+    warming the tuner's cache (a miss runs one search whose winner is
+    cached, so repeated calls are dict hits).
+
+    With a ``tuner`` the burst is its winner for the full-K problem
+    (``select_burst``), keyed by the sublane-padded M as in the reference,
+    and the launch tile its winner for the main segment the kernel sees
+    (``k_main``), keyed by ``tiles.tile_m`` (the batch tile a M <= 16
+    launch runs). Where no launch fits the tuner's budget the entry keeps
+    ``default_burst`` and the kernel's own launch, with ``tuned=False``.
+    ``dense_f32``: a dense operand is f32, so above M = 16 the product runs
+    ``bf16_matmul``'s tiled f32 launch, which takes no tile.
+    """
     dtype = "q8_0" if quantized else "bf16"
     kern = kernel_for(m, quantized)
-    k_main, k_res = split_aligned(k, default_burst)
+    mp = padded_m(m)
+    burst = default_burst
+    tuned = False
+    if tuner is not None:
+        b = select_burst(k, tuner, kernel=kern, m=mp, n=n, dtype=dtype,
+                         default=0)
+        if b:
+            burst, tuned = b, True
+    k_main, k_res = split_aligned(k, burst)
     offload = fits(MulMat(name, m=m, k=k, n=n), vmem_budget_kb, agg_units=1)
+    tiling = None
+    takes_tile = not (dense_f32 and m > tiles.MAX_ROW_M)
+    if tuner is not None and offload and k_main and takes_tile:
+        rec = tuner.best_tiling(kern, tiles.tile_m(m), n, k_main, dtype)
+        if rec is not None:
+            tiling = rec.tiling() or None     # (): a launch with no tile
     if k_main:
         req = KernelRequest(kernel=kern, m=m, n=n, k=k_main, dtype=dtype,
-                            segment=MAIN)
+                            segment=MAIN, tiling=tiling)
         resolved = REGISTRY.resolve(req).name
     else:
         # k < burst: no main segment — the whole linear runs on the host arm
         resolved = "host_residual"
     return PlanEntry(name=name, m=m, k=k, n=n, dtype=dtype, offload=offload,
-                     burst=default_burst, kernel=kern, k_main=k_main,
-                     k_res=k_res, backend=resolved)
+                     burst=burst, tuned=tuned, kernel=kern, tiling=tiling,
+                     k_main=k_main, k_res=k_res, backend=resolved)
 
 
 @dataclass
@@ -107,6 +142,7 @@ class DispatchPlan:
         return {
             "calls": len(self.entries),
             "offloaded": len(off),
+            "tuned": sum(1 for e in off if e.tuned),
             "offloaded_flops": sum(e.offloaded_flops for e in self.entries),
             "fallback_flops": sum(e.fallback_flops for e in self.entries),
             "residual_flops": sum(e.residual_flops for e in self.entries),

@@ -54,9 +54,10 @@
 //     (K = 256 or 1536, an f32 output of M x N that is most of them), but
 //     only if the card keeps enough loads in flight. One warpgroup owns a
 //     64 x 64 output tile: x and W tiles are copied raw with 16-byte
-//     cp.async into a ring of kTcStages = 5 steps of kTcBK = 64, in the
-//     128-byte swizzle, so four steps load while one computes, behind one
-//     barrier a step (81 KB of shared memory, two blocks an SM); each
+//     cp.async into a ring of S steps of kTcBK = 64 (kTcStages = 5 unless
+//     a caller chooses 3 or 4), in the 128-byte swizzle, so S - 1 steps
+//     load while one computes, behind one barrier a step (81 KB of shared
+//     memory at 5, two blocks an SM); each
 //     step is four wgmma.m64n64k16 (bf16 in, f32 accumulators) that read
 //     both tiles straight from shared memory through descriptors, once for
 //     the warpgroup; the f32 outputs are stored straight from the
@@ -75,6 +76,11 @@
 // segment is the first 256 of 384 columns and is never copied), and mask
 // ragged M, N and K in the kernel (M = 1500, N = 51,872 = 2^5 * 1621): no
 // padding.
+//
+// A caller (the autotuner) may choose the M <= 16 launch's rows a lane
+// group (1 or kMvRows), warps a block and K split, and the M > 16
+// tensor-core launch's ring depth (3 to 5: three instantiations of
+// wgmma_kernel); a tile changes the launch, not the function.
 //
 // Plain C interface, loaded with ctypes. The launch allocates nothing, runs on
 // the caller's stream and returns cudaGetLastError().
@@ -260,32 +266,47 @@ gemv_bf16_kernel(const TX* __restrict__ x, long long ldx, bool vx,
   }
 }
 
-// The grid: split K across warps while each lane keeps whole 256-value
-// steps; then the most rows a block (kMvRows rows a lane group, else 1;
-// then fewer warps) that still gives every SM a block.
+// The launch's rows a lane group (R: 1 or kMvRows), warps a block and K
+// split, from the caller when `rows` is not 0 (each checked by the entry),
+// else by the heuristic: split K across warps while each lane keeps whole
+// 256-value steps; then the most rows a block (kMvRows rows a lane group,
+// else 1; then fewer warps) that still gives every SM a block.
 template <typename TX, typename TW, int MT>
 cudaError_t launch_gemv(const TX* x, long long ldx, bool vx, const TW* w,
                         long long ldw, bool vw, float* out, long long ldo,
-                        int m, int n, int k, cudaStream_t st) {
+                        int m, int n, int k, int rows, int warps, int split,
+                        cudaStream_t st) {
   const int nc = (k + 7) / 8;
-  int split = 1;
-  while (split < kMvMaxSplit && 2 * split * kMvLanes <= nc) split *= 2;
-  auto blocks = [&](int r, int warps) {
-    const int rows = warps / split * kMvGroups * r;
-    return (n + rows - 1) / rows;
+  auto blocks = [&](int r, int wp) {
+    const int rows_per_block = wp / split * kMvGroups * r;
+    return (n + rows_per_block - 1) / rows_per_block;
   };
-  int warps = kMvMaxWarps;
-  const bool wide = blocks(kMvRows, warps) >= kMvMinBlocks;
-  const int r = wide ? kMvRows : 1;
-  while (warps > split && blocks(r, warps) < kMvMinBlocks) warps /= 2;
+  int r = rows;
+  if (r == 0) {
+    split = 1;
+    while (split < kMvMaxSplit && 2 * split * kMvLanes <= nc) split *= 2;
+    warps = kMvMaxWarps;
+    r = blocks(kMvRows, warps) >= kMvMinBlocks ? kMvRows : 1;
+    while (warps > split && blocks(r, warps) < kMvMinBlocks) warps /= 2;
+  }
   const dim3 grid(blocks(r, warps));
-  if (wide)
+  if (r == kMvRows)
     gemv_bf16_kernel<TX, TW, MT, kMvRows><<<grid, 32 * warps, 0, st>>>(
         x, ldx, vx, w, ldw, vw, out, ldo, m, n, k, split);
   else
     gemv_bf16_kernel<TX, TW, MT, 1><<<grid, 32 * warps, 0, st>>>(
         x, ldx, vx, w, ldw, vw, out, ldo, m, n, k, split);
   return cudaGetLastError();
+}
+
+// a caller's M <= 16 tile: R rows a lane group, `warps` warps a block of
+// which `split` share each row's K; with a split, every lane has a chunk
+bool gemv_tile_ok(int rows, int warps, int split, int k) {
+  const bool pow2 = warps == 1 || warps == 2 || warps == 4;
+  return (rows == 1 || rows == kMvRows) && pow2 && warps <= kMvMaxWarps &&
+         (split == 1 || split == 2 || split == 4) && split <= kMvMaxSplit &&
+         warps % split == 0 &&
+         (split == 1 || split * kMvLanes <= (k + 7) / 8);
 }
 
 // ------------------------------------------------- M > 16, converting
@@ -375,11 +396,14 @@ tiled_kernel(const TX* __restrict__ x, long long ldx, bool vx,
 // -------------------------------------------- M > 16, bf16 x bf16, wgmma
 constexpr int kTcBM = 64, kTcBN = 64;        // output tile: one m64n64 wgmma
 constexpr int kTcBK = 64;                    // K step: rows of 128 bytes
-constexpr int kTcStages = 5;                 // cp.async ring depth
+constexpr int kTcStages = 5;                 // default cp.async ring depth
 constexpr int kTcThreads = 128;              // one warpgroup
-constexpr int kTcSmemBytes =                 // the ring, and room to align it
-    kTcStages * (kTcBM + kTcBN) * kTcBK * static_cast<int>(sizeof(bf16)) +
-    1024;
+
+// shared memory of an S-slot ring, and room to align it: 82,944 B at 5
+constexpr int tc_smem_bytes(int stages) {
+  return stages * (kTcBM + kTcBN) * kTcBK * static_cast<int>(sizeof(bf16)) +
+         1024;
+}
 
 // element offset of chunk c (8 values) of row r of a K step in the 128-byte
 // swizzle that wgmma reads (chunk c ^ (r % 8))
@@ -406,6 +430,7 @@ __device__ __forceinline__ void copy_step(bf16* dst, const bf16* src,
   }
 }
 
+template <int S>
 __global__ void __launch_bounds__(kTcThreads)
 wgmma_kernel(const bf16* __restrict__ x, long long ldx,
              const bf16* __restrict__ w, long long ldw,
@@ -417,13 +442,13 @@ wgmma_kernel(const bf16* __restrict__ x, long long ldx,
   unsigned char* base =
       smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
   bf16* xs = reinterpret_cast<bf16*>(base);       // [stage][kTcBM][kTcBK]
-  bf16* ws = xs + kTcStages * kTcBM * kTcBK;      // [stage][kTcBN][kTcBK]
+  bf16* ws = xs + S * kTcBM * kTcBK;              // [stage][kTcBN][kTcBK]
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int bm = blockIdx.y * kTcBM, bn = blockIdx.x * kTcBN;
   const int nk = (k + kTcBK - 1) / kTcBK;
 
 #pragma unroll
-  for (int s = 0; s < kTcStages - 1; ++s) {
+  for (int s = 0; s < S - 1; ++s) {
     if (s < nk) {
       copy_step<kTcBM>(xs + s * kTcBM * kTcBK, x, ldx, bm, m, s, k);
       copy_step<kTcBN>(ws + s * kTcBN * kTcBK, w, ldw, bn, n, s, k);
@@ -436,20 +461,20 @@ wgmma_kernel(const bf16* __restrict__ x, long long ldx,
   for (int i = 0; i < 32; ++i) d[i] = 0.f;
 
   for (int t = 0; t < nk; ++t) {
-    cp_async_wait<kTcStages - 2>();          // step t has landed
+    cp_async_wait<S - 2>();                  // step t has landed
     fence_proxy_async();                     // ... for wgmma's reads too
     __syncthreads();                         // ... for all; step t - 1 consumed
-    const int tn = t + kTcStages - 1;
+    const int tn = t + S - 1;
     if (tn < nk) {
-      const int st = tn % kTcStages;
+      const int st = tn % S;
       copy_step<kTcBM>(xs + st * kTcBM * kTcBK, x, ldx, bm, m, tn, k);
       copy_step<kTcBN>(ws + st * kTcBN * kTcBK, w, ldw, bn, n, tn, k);
     }
     cp_async_commit();
 
     // W[n][k] rows are K-major B, as x's rows are K-major A
-    const uint64_t da = wgmma_desc_sw128(xs + (t % kTcStages) * kTcBM * kTcBK);
-    const uint64_t db = wgmma_desc_sw128(ws + (t % kTcStages) * kTcBN * kTcBK);
+    const uint64_t da = wgmma_desc_sw128(xs + (t % S) * kTcBM * kTcBK);
+    const uint64_t db = wgmma_desc_sw128(ws + (t % S) * kTcBN * kTcBK);
     fence_operands(d);
     wgmma_fence();
 #pragma unroll
@@ -481,36 +506,50 @@ wgmma_kernel(const bf16* __restrict__ x, long long ldx,
   }
 }
 
+template <int S>
 cudaError_t launch_wgmma(const void* x, long long ldx, const void* w,
                          long long ldw, float* out, long long ldo, int m,
                          int n, int k, cudaStream_t st) {
+  constexpr int smem = tc_smem_bytes(S);
   static bool opted_in = false;              // above 48 KB only after opt-in
   if (!opted_in) {
     const cudaError_t err = cudaFuncSetAttribute(
-        wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kTcSmemBytes);
+        wgmma_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
     opted_in = true;
   }
   const bool vec_out = reinterpret_cast<uintptr_t>(out) % 8 == 0 && ldo % 2 == 0;
   const dim3 grid((n + kTcBN - 1) / kTcBN, (m + kTcBM - 1) / kTcBM);
-  wgmma_kernel<<<grid, kTcThreads, kTcSmemBytes, st>>>(
+  wgmma_kernel<S><<<grid, kTcThreads, smem, st>>>(
       static_cast<const bf16*>(x), ldx, static_cast<const bf16*>(w), ldw, out,
       ldo, vec_out, m, n, k);
   return cudaGetLastError();
 }
 
+// the ring depths a caller may choose: 3 to 5 slots
+cudaError_t launch_wgmma_stages(int stages, const void* x, long long ldx,
+                                const void* w, long long ldw, float* out,
+                                long long ldo, int m, int n, int k,
+                                cudaStream_t st) {
+  switch (stages) {
+    case 3: return launch_wgmma<3>(x, ldx, w, ldw, out, ldo, m, n, k, st);
+    case 4: return launch_wgmma<4>(x, ldx, w, ldw, out, ldo, m, n, k, st);
+    case 5: return launch_wgmma<5>(x, ldx, w, ldw, out, ldo, m, n, k, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 template <typename TX, typename TW>
 cudaError_t run(const void* xv, long long ldx, bool vx, const void* wv,
                 long long ldw, bool vw, float* out, long long ldo, int m, int n,
-                int k, cudaStream_t st) {
+                int k, int r, int wp, int sp, cudaStream_t st) {
   const auto* x = static_cast<const TX*>(xv);
   const auto* w = static_cast<const TW*>(wv);
-  if (m == 1) return launch_gemv<TX, TW, 1>(x, ldx, vx, w, ldw, vw, out, ldo, m, n, k, st);
-  if (m <= 2) return launch_gemv<TX, TW, 2>(x, ldx, vx, w, ldw, vw, out, ldo, m, n, k, st);
-  if (m <= 4) return launch_gemv<TX, TW, 4>(x, ldx, vx, w, ldw, vw, out, ldo, m, n, k, st);
-  if (m <= 8) return launch_gemv<TX, TW, 8>(x, ldx, vx, w, ldw, vw, out, ldo, m, n, k, st);
-  if (m <= 16) return launch_gemv<TX, TW, 16>(x, ldx, vx, w, ldw, vw, out, ldo, m, n, k, st);
+  if (m == 1) return launch_gemv<TX, TW, 1>(x, ldx, vx, w, ldw, vw, out, ldo, m, n, k, r, wp, sp, st);
+  if (m <= 2) return launch_gemv<TX, TW, 2>(x, ldx, vx, w, ldw, vw, out, ldo, m, n, k, r, wp, sp, st);
+  if (m <= 4) return launch_gemv<TX, TW, 4>(x, ldx, vx, w, ldw, vw, out, ldo, m, n, k, r, wp, sp, st);
+  if (m <= 8) return launch_gemv<TX, TW, 8>(x, ldx, vx, w, ldw, vw, out, ldo, m, n, k, r, wp, sp, st);
+  if (m <= 16) return launch_gemv<TX, TW, 16>(x, ldx, vx, w, ldw, vw, out, ldo, m, n, k, r, wp, sp, st);
   const dim3 grid((n + kBN - 1) / kBN, (m + kBM - 1) / kBM);
   tiled_kernel<TX, TW><<<grid, kTileThreads, 0, st>>>(x, ldx, vx, w, ldw, vw,
                                                       out, ldo, m, n, k);
@@ -524,10 +563,20 @@ bool rows_aligned(const void* p, long long ld, int elem) {
 
 }  // namespace
 
+// A caller's tile: at M <= 16, rows, warps and split of the gemv launch
+// (gemv_tile_ok; all 0 take the heuristic's); at M > 16, the tensor-core
+// launch's ring depth `stages` (3 to 5; 0 takes kTcStages). The tiled f32
+// launch (M > 16 with f32 operands or rows cp.async cannot copy) has one
+// tile: a nonzero `stages` there is refused.
 extern "C" int bf16_matmul(const void* x, int x_bf16, long long ldx,
                            const void* w, int w_bf16, long long ldw, void* out,
-                           long long ldo, int m, int n, int k, void* stream) {
+                           long long ldo, int m, int n, int k, int rows,
+                           int warps, int split, int stages, void* stream) {
   if (m < 1 || n < 1 || k < 1 || (m > 16 && (m + kBM - 1) / kBM > 65535))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool gemv_tile = rows || warps || split;
+  if (m > 16 ? gemv_tile || (stages && (stages < 3 || stages > 5))
+             : stages || (gemv_tile && !gemv_tile_ok(rows, warps, split, k)))
     return static_cast<int>(cudaErrorInvalidValue);
   const bool vx = rows_aligned(x, ldx, x_bf16 ? 2 : 4);
   const bool vw = rows_aligned(w, ldw, w_bf16 ? 2 : 4);
@@ -535,16 +584,21 @@ extern "C" int bf16_matmul(const void* x, int x_bf16, long long ldx,
   auto st = static_cast<cudaStream_t>(stream);
   // M <= 16: gemv_bf16_kernel for every operand (run); M > 16: wgmma_kernel
   // for bf16 x and W whose rows cp.async can copy, tiled_kernel otherwise
+  const bool tensor_core = m > 16 && x_bf16 && w_bf16 && vx && vw &&
+                           k % 8 == 0;               // cp.async rows
+  if (m > 16 && stages && !tensor_core)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err;
-  if (m > 16 && x_bf16 && w_bf16 && vx && vw && k % 8 == 0)  // cp.async rows
-    err = launch_wgmma(x, ldx, w, ldw, o, ldo, m, n, k, st);
+  if (tensor_core)
+    err = launch_wgmma_stages(stages ? stages : kTcStages, x, ldx, w, ldw, o,
+                              ldo, m, n, k, st);
   else if (x_bf16 && w_bf16)
-    err = run<bf16, bf16>(x, ldx, vx, w, ldw, vw, o, ldo, m, n, k, st);
+    err = run<bf16, bf16>(x, ldx, vx, w, ldw, vw, o, ldo, m, n, k, rows, warps, split, st);
   else if (x_bf16)
-    err = run<bf16, float>(x, ldx, vx, w, ldw, vw, o, ldo, m, n, k, st);
+    err = run<bf16, float>(x, ldx, vx, w, ldw, vw, o, ldo, m, n, k, rows, warps, split, st);
   else if (w_bf16)
-    err = run<float, bf16>(x, ldx, vx, w, ldw, vw, o, ldo, m, n, k, st);
+    err = run<float, bf16>(x, ldx, vx, w, ldw, vw, o, ldo, m, n, k, rows, warps, split, st);
   else
-    err = run<float, float>(x, ldx, vx, w, ldw, vw, o, ldo, m, n, k, st);
+    err = run<float, float>(x, ldx, vx, w, ldw, vw, o, ldo, m, n, k, rows, warps, split, st);
   return static_cast<int>(err);
 }

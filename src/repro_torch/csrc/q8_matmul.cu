@@ -15,14 +15,15 @@
 //     in f32, so each 32-value Q8_0 block's partial product, summed in f32
 //     on the tensor cores and then multiplied by its scale, computes the
 //     reference's x @ (q * s).T up to the order of summation. One
-//     warpgroup owns a 64 x kQBN output tile (64 x 32: at N = 384 that is
-//     288 tiles, two or three on each SM, whose steps interleave; 64 x 64
-//     leaves most SMs one tile and was 11% slower a prefill). K steps of
-//     64 (two Q8_0 blocks) go through a cp.async ring that holds, per
-//     step, the bf16 x tile in the 128-byte swizzle, the raw int8 qs tile
-//     (kQBN rows x 64 bytes) and the step's kQBN x 2 f32 scales,
-//     zero-filled past ragged M, N and K (K = 32 mod 64 leaves the last
-//     step's second block zeros, which add 0); copies run two steps ahead,
+//     warpgroup owns a 64 x BN output tile (by default 64 x 32: at N = 384
+//     that is 288 tiles, two or three on each SM, whose steps interleave;
+//     64 x 64 leaves most SMs one tile and was 11% slower a prefill). K
+//     steps of 64 (two Q8_0 blocks) go through a ring of S cp.async slots
+//     (by default 3) that holds, per step, the bf16 x tile in the 128-byte
+//     swizzle, the raw int8 qs tile (BN rows x 64 bytes) and the step's
+//     BN x 2 f32 scales, zero-filled past ragged M, N and K (K = 32 mod 64
+//     leaves the last step's second block zeros, which add 0); copies run
+//     S - 1 steps ahead,
 //     behind one barrier a step. Each thread widens the qs bytes it copied
 //     itself (visible to it after its own cp.async wait, so no barrier)
 //     into a swizzled bf16 W tile, exactly, once per stage, and does so for
@@ -44,7 +45,7 @@
 //     at ragged M and N.
 //     Widening into shared memory, not the "swap A/B" form (out^T = W x^T
 //     with W widened in registers as wgmma's register A operand): the
-//     widened tile costs kQBN x 128 bytes of shared-memory stores a step,
+//     widened tile costs BN x 128 bytes of shared-memory stores a step,
 //     but it keeps bf16_matmul's tile, descriptors and row-major float2
 //     epilogue, and each thread widens whole 16-byte chunks; the swapped
 //     form gathers each thread's A fragment from the raw tile in 2-byte
@@ -61,6 +62,10 @@
 // Both read every operand through its row stride (the burst-aligned main
 // segment is never copied) and mask ragged M (1500 is not a multiple of 64)
 // and N in the kernel: no padding.
+//
+// A caller (the autotuner) may choose the tensor-core launch's tile N (32
+// or 64) and ring depth (2 to 4): six instantiations of q8_wgmma_kernel.
+// A tile changes the launch, not the function.
 //
 // Plain C interface, loaded with ctypes. The launch allocates nothing, runs on
 // the caller's stream and returns cudaGetLastError().
@@ -153,21 +158,22 @@ q8_matmul_kernel(const void* __restrict__ x, int x_bf16, long long ldx,
 }
 
 // ------------------------------------- bf16 x, tensor cores (wgmma)
+// The launch is templated on its tile N (BN, 32 or 64) and its ring depth
+// (S, 2 to 4); kQBN x kQStages is the launch taken with no tile given.
 constexpr int kQBM = 64;                     // tile rows: wgmma m64
-constexpr int kQBN = 32;                     // tile columns: wgmma n32 or n64
+constexpr int kQBN = 32;                     // default tile columns: n32
 constexpr int kQBK = 64;                     // K step: two Q8_0 blocks
-constexpr int kQStages = 3;                  // cp.async ring slots
+constexpr int kQStages = 3;                  // default cp.async ring slots
 constexpr int kQMinBlocks = 1;               // blocks an SM must hold (regs)
 constexpr int kQThreads = 128;               // one warpgroup
 constexpr int kQXBytes = kQBM * kQBK * 2;    // bf16 x tile of one step
-constexpr int kQWBytes = kQBN * kQBK * 2;    // widened bf16 W tile
-constexpr int kQQsBytes = kQBN * kQBK;       // raw int8 qs tile
-constexpr int kQScBytes = kQBN * 2 * 4;      // the step's f32 scales
-constexpr int kQSmemBytes =                  // ring, W tiles, room to align
-    kQStages * (kQXBytes + kQQsBytes + kQScBytes) + 2 * kQWBytes + 1024;
-static_assert(kQBN == 32 || kQBN == 64, "wgmma n32 or n64");
-static_assert(kQStages >= 2, "copies run kQStages - 1 steps ahead");
-static_assert(kQBN % (kQThreads / 4) == 0, "whole passes of the qs copy");
+
+// shared memory of a launch: the ring (x, raw qs and scales a slot), two
+// widened W tiles and room to align; 40,704 B at 32 x 3
+constexpr int q_smem_bytes(int bn, int stages) {
+  return stages * (kQXBytes + bn * kQBK + bn * 2 * 4) + 2 * bn * kQBK * 2 +
+         1024;
+}
 
 // element offset of chunk c (8 values) of row r of a K step in the 128-byte
 // swizzle that wgmma reads (chunk c ^ (r % 8))
@@ -177,7 +183,8 @@ __device__ __forceinline__ int swz(int r, int c) {
 
 // K step kt of the tile's operands into a ring slot: x rows bm.. (bf16,
 // swizzled), qs rows bn.. (raw, 64 bytes a row), and scales[bn.., 2 kt..]
-// stored block-major ([2][kQBN]); zero past m, n and k
+// stored block-major ([2][BN]); zero past m, n and k
+template <int BN>
 __device__ __forceinline__ void copy_step(
     bf16* xs, int8_t* qsr, float* sc, const bf16* x, long long ldx,
     const int8_t* qs, long long ldq, const float* scales, long long lds,
@@ -197,28 +204,29 @@ __device__ __forceinline__ void copy_step(
     constexpr int C = kQBK / 16, STEP = kQThreads / C;
     const int c = tid % C, kc = kt * kQBK + c * 16;
 #pragma unroll
-    for (int j = 0; j < kQBN / STEP; ++j) {
+    for (int j = 0; j < BN / STEP; ++j) {
       const int r = tid / C + j * STEP;
       const bool ok = bn + r < n && kc < k;
       cp_async16(qsr + r * kQBK + c * 16, ok ? qs + (bn + r) * ldq + kc : qs,
                  ok);
     }
   }
-  if (tid < 2 * kQBN) {  // scales: 4 bytes each
+  if (tid < 2 * BN) {  // scales: 4 bytes each
     const int r = tid >> 1, h = tid & 1, b = 2 * kt + h;
     const bool ok = bn + r < n && b * 32 < k;
-    hopper::cp_async4(sc + h * kQBN + r,
+    hopper::cp_async4(sc + h * BN + r,
                       ok ? scales + (bn + r) * lds + b : scales, ok);
   }
 }
 
 // the qs chunks this thread copied for a step (copy_step's mapping),
 // widened exactly to bf16 into the swizzled W tile
+template <int BN>
 __device__ __forceinline__ void widen(bf16* wt, const int8_t* qsr, int tid) {
   constexpr int C = kQBK / 16, STEP = kQThreads / C;
   const int c = tid % C;
 #pragma unroll
-  for (int j = 0; j < kQBN / STEP; ++j) {
+  for (int j = 0; j < BN / STEP; ++j) {
     const int r = tid / C + j * STEP;
     const uint4 q = *reinterpret_cast<const uint4*>(qsr + r * kQBK + c * 16);
     const uint32_t w[4] = {q.x, q.y, q.z, q.w};
@@ -237,10 +245,10 @@ __device__ __forceinline__ void widen(bf16* wt, const int8_t* qsr, int tid) {
   }
 }
 
-using Acc = float[kQBN / 2];                 // a thread's share of a tile
-
-// one Q8_0 block (k16 slices 2 h and 2 h + 1 of the step) into p
-__device__ __forceinline__ void block_product(Acc& p, uint64_t da,
+// one Q8_0 block (k16 slices 2 h and 2 h + 1 of the step) into p, a
+// thread's share of a 64 x BN tile (BN / 2 accumulators)
+template <int N>
+__device__ __forceinline__ void block_product(float (&p)[N], uint64_t da,
                                               uint64_t db, int h) {
   using namespace hopper;
   fence_operands(p);
@@ -252,12 +260,13 @@ __device__ __forceinline__ void block_product(Acc& p, uint64_t da,
 
 // d += s[n] * p for the columns this thread holds (sc: one block's scales
 // of the tile's columns), once p's product has been waited for
-__device__ __forceinline__ void scale_add(Acc& d, Acc& p, const float* sc,
-                                          int tid) {
+template <int N>
+__device__ __forceinline__ void scale_add(float (&d)[N], float (&p)[N],
+                                          const float* sc, int tid) {
   hopper::fence_operands(p);
   const int t4 = tid & 3;
 #pragma unroll
-  for (int j = 0; j < kQBN / 8; ++j) {
+  for (int j = 0; j < N / 4; ++j) {
     const float2 s = *reinterpret_cast<const float2*>(sc + 8 * j + 2 * t4);
     d[4 * j] = fmaf(s.x, p[4 * j], d[4 * j]);
     d[4 * j + 1] = fmaf(s.y, p[4 * j + 1], d[4 * j + 1]);
@@ -266,6 +275,7 @@ __device__ __forceinline__ void scale_add(Acc& d, Acc& p, const float* sc,
   }
 }
 
+template <int BN, int S>
 __global__ void __launch_bounds__(kQThreads, kQMinBlocks)
 q8_wgmma_kernel(const bf16* __restrict__ x, long long ldx,
                 const int8_t* __restrict__ qs, long long ldq,
@@ -273,27 +283,31 @@ q8_wgmma_kernel(const bf16* __restrict__ x, long long ldx,
                 float* __restrict__ out, long long ldo, bool vec_out, int m,
                 int n, int k) {
   using namespace hopper;
+  static_assert(BN == 32 || BN == 64, "wgmma n32 or n64");
+  static_assert(S >= 2, "copies run S - 1 steps ahead");
+  static_assert(BN % (kQThreads / 4) == 0, "whole passes of the qs copy");
+  constexpr int kQsBytes = BN * kQBK;        // raw int8 qs tile of a step
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   // the swizzle repeats every 8 rows of 128 bytes: tiles start at 1024 bytes
   unsigned char* base =
       smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
   const int tid = threadIdx.x;
   bf16* xs = reinterpret_cast<bf16*>(base);              // [slot][64][64]
-  bf16* wt = xs + kQStages * kQBM * kQBK;                // [2][kQBN][64]
-  int8_t* qsr = reinterpret_cast<int8_t*>(wt + 2 * kQBN * kQBK);
-  float* sc = reinterpret_cast<float*>(qsr + kQStages * kQQsBytes);
+  bf16* wt = xs + S * kQBM * kQBK;                       // [2][BN][64]
+  int8_t* qsr = reinterpret_cast<int8_t*>(wt + 2 * BN * kQBK);
+  float* sc = reinterpret_cast<float*>(qsr + S * kQsBytes);
   const int lane = tid & 31, warp = tid >> 5;
-  const int bm = blockIdx.y * kQBM, bn = blockIdx.x * kQBN;
+  const int bm = blockIdx.y * kQBM, bn = blockIdx.x * BN;
   const int steps = (k / 32 + 1) / 2;        // K steps; the last may be ragged
-  constexpr int kAhead = kQStages - 1;       // steps in flight ahead
+  constexpr int kAhead = S - 1;              // steps in flight ahead
 
-  auto slot_x = [&](int i) { return xs + (i % kQStages) * kQBM * kQBK; };
-  auto slot_q = [&](int i) { return qsr + (i % kQStages) * kQQsBytes; };
-  auto slot_s = [&](int i) { return sc + (i % kQStages) * 2 * kQBN; };
-  auto slot_w = [&](int i) { return wt + (i & 1) * kQBN * kQBK; };
+  auto slot_x = [&](int i) { return xs + (i % S) * kQBM * kQBK; };
+  auto slot_q = [&](int i) { return qsr + (i % S) * kQsBytes; };
+  auto slot_s = [&](int i) { return sc + (i % S) * 2 * BN; };
+  auto slot_w = [&](int i) { return wt + (i & 1) * BN * kQBK; };
   auto copy = [&](int i) {
-    copy_step(slot_x(i), slot_q(i), slot_s(i), x, ldx, qs, ldq, scales, lds,
-              bm, bn, m, n, k, i, tid);
+    copy_step<BN>(slot_x(i), slot_q(i), slot_s(i), x, ldx, qs, ldq, scales,
+                  lds, bm, bn, m, n, k, i, tid);
   };
 
 #pragma unroll
@@ -302,11 +316,11 @@ q8_wgmma_kernel(const bf16* __restrict__ x, long long ldx,
     cp_async_commit();                       // one group per K step
   }
   cp_async_wait<kAhead - 1>();               // this thread's copies of step 0
-  widen(slot_w(0), slot_q(0), tid);
+  widen<BN>(slot_w(0), slot_q(0), tid);
 
-  float d[kQBN / 2], p0[kQBN / 2], p1[kQBN / 2];
+  float d[BN / 2], p0[BN / 2], p1[BN / 2];
 #pragma unroll
-  for (int i = 0; i < kQBN / 2; ++i) d[i] = p0[i] = p1[i] = 0.f;
+  for (int i = 0; i < BN / 2; ++i) d[i] = p0[i] = p1[i] = 0.f;
 
   for (int i = 0; i < steps; ++i) {
     fence_proxy_async();                     // x and W of step i visible to
@@ -324,12 +338,12 @@ q8_wgmma_kernel(const bf16* __restrict__ x, long long ldx,
 
     if (i + 1 < steps) {                     // under the products: step
       cp_async_wait<kAhead - 1>();           // i + 1's W, into the buffer
-      widen(slot_w(i + 1), slot_q(i + 1), tid);  // step i - 1 read
+      widen<BN>(slot_w(i + 1), slot_q(i + 1), tid);  // step i - 1 read
     }
     wgmma_wait<1>();                         // the first block's scale-and-
     scale_add(d, p0, slot_s(i), tid);        // add under the second's product
     wgmma_wait<0>();
-    scale_add(d, p1, slot_s(i) + kQBN, tid);
+    scale_add(d, p1, slot_s(i) + BN, tid);
   }
 
   // straight from the accumulators: warp w holds rows 16 w + g and + 8
@@ -340,7 +354,7 @@ q8_wgmma_kernel(const bf16* __restrict__ x, long long ldx,
     if (row >= m) continue;
     float* orow = out + row * ldo;
 #pragma unroll
-    for (int j = 0; j < kQBN / 8; ++j) {
+    for (int j = 0; j < BN / 8; ++j) {
       const int col = bn + 8 * j + 2 * t4;
       const float v0 = d[4 * j + 2 * h], v1 = d[4 * j + 2 * h + 1];
       if (vec_out && col + 1 < n) {
@@ -353,33 +367,55 @@ q8_wgmma_kernel(const bf16* __restrict__ x, long long ldx,
   }
 }
 
+template <int BN, int S>
 cudaError_t launch_wgmma(const void* x, long long ldx, const int8_t* qs,
                          long long ldq, const float* scales, long long lds,
                          float* out, long long ldo, int m, int n, int k,
                          cudaStream_t st) {
+  constexpr int smem = q_smem_bytes(BN, S);
   static bool opted_in = false;              // above 48 KB only after opt-in
   if (!opted_in) {
     const cudaError_t err = cudaFuncSetAttribute(
-        q8_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kQSmemBytes);
+        q8_wgmma_kernel<BN, S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
     if (err != cudaSuccess) return err;
     opted_in = true;
   }
   const bool vec_out = reinterpret_cast<uintptr_t>(out) % 8 == 0 && ldo % 2 == 0;
-  const dim3 grid((n + kQBN - 1) / kQBN, (m + kQBM - 1) / kQBM);
-  q8_wgmma_kernel<<<grid, kQThreads, kQSmemBytes, st>>>(
+  const dim3 grid((n + BN - 1) / BN, (m + kQBM - 1) / kQBM);
+  q8_wgmma_kernel<BN, S><<<grid, kQThreads, smem, st>>>(
       static_cast<const bf16*>(x), ldx, qs, ldq, scales, lds, out, ldo,
       vec_out, m, n, k);
   return cudaGetLastError();
 }
 
+// the tile's launch: tile N 32 or 64, 2 to 4 ring slots
+cudaError_t launch_tile(int bn, int stages, const void* x, long long ldx,
+                        const int8_t* qs, long long ldq, const float* scales,
+                        long long lds, float* out, long long ldo, int m,
+                        int n, int k, cudaStream_t st) {
+#define Q8_TILE(BN, S)                                                    \
+  if (bn == BN && stages == S)                                            \
+    return launch_wgmma<BN, S>(x, ldx, qs, ldq, scales, lds, out, ldo, m, \
+                               n, k, st);
+  Q8_TILE(32, 2) Q8_TILE(32, 3) Q8_TILE(32, 4)
+  Q8_TILE(64, 2) Q8_TILE(64, 3) Q8_TILE(64, 4)
+#undef Q8_TILE
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
+// block_n and stages choose the tensor-core launch's tile N (32 or 64) and
+// ring depth (2 to 4); both 0 take kQBN x kQStages. The SIMT launch (f32 x,
+// unaligned rows) has one tile and takes them as they come.
 extern "C" int q8_matmul(const void* x, int x_bf16, long long ldx,
                          const void* qs, long long ldq, const void* scales,
                          long long lds, void* out, long long ldo, int m, int n,
-                         int k, void* stream) {
+                         int k, int block_n, int stages, void* stream) {
   if (m < 1 || n < 1 || k < 32 || k % 32 != 0 || (m + kBM - 1) / kBM > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if ((block_n == 0) != (stages == 0))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto* q = static_cast<const int8_t*>(qs);
   const auto* s = static_cast<const float*>(scales);
@@ -390,8 +426,9 @@ extern "C" int q8_matmul(const void* x, int x_bf16, long long ldx,
                       ldx % 8 == 0 && reinterpret_cast<uintptr_t>(qs) % 16 == 0 &&
                       ldq % 16 == 0;
   if (x_bf16 && rows16)
-    return static_cast<int>(
-        launch_wgmma(x, ldx, q, ldq, s, lds, o, ldo, m, n, k, st));
+    return static_cast<int>(launch_tile(
+        block_n ? block_n : kQBN, stages ? stages : kQStages, x, ldx, q, ldq,
+        s, lds, o, ldo, m, n, k, st));
   const dim3 grid((n + kBN - 1) / kBN, (m + kBM - 1) / kBM);
   q8_matmul_kernel<<<grid, kThreads, 0, st>>>(x, x_bf16, ldx, q, ldq, s, lds,
                                               o, ldo, m, n, k);

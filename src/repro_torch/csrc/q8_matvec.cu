@@ -35,6 +35,10 @@
 // Operands are read through row strides, so a K-slice of a wider matrix (the
 // burst-aligned main segment of the mixed split) needs no copy.
 //
+// A caller (the autotuner) may choose the rows a half-warp walks (1 or
+// kRowsPerSlot), the warps a block and the K split in place of the
+// heuristic's; a tile changes the launch, not the function.
+//
 // Plain C interface, loaded with ctypes. The launch allocates nothing, runs on
 // the caller's stream and returns cudaGetLastError().
 #include <cuda_bf16.h>
@@ -199,27 +203,31 @@ q8_matvec_kernel(const TX* __restrict__ x, long long ldx, bool vx,
   }
 }
 
-// The grid: split K across warps while each lane keeps whole 256-value
-// steps; then the most rows a block (kRowsPerSlot rows a half-warp, else
-// 1; then fewer warps) that still gives every SM a block.
+// The launch's rows a half-warp (R: 1 or kRowsPerSlot), warps a block and K
+// split, from the caller when `rows` is not 0 (each checked by the entry),
+// else by the heuristic: split K across warps while each lane keeps whole
+// 256-value steps; then the most rows a block (kRowsPerSlot rows a
+// half-warp, else 1; then fewer warps) that still gives every SM a block.
 template <typename TX, int MT>
 cudaError_t launch(const TX* x, long long ldx, bool vx, const int8_t* qs,
                    long long ldq, const float* scales, long long lds,
-                   float* out, long long ldo, int m, int n, int k,
-                   cudaStream_t st) {
+                   float* out, long long ldo, int m, int n, int k, int rows,
+                   int warps, int split, cudaStream_t st) {
   const int nc = k / 16;
-  int split = 1;
-  while (split < kMaxSplit && 2 * split * kLanes <= nc) split *= 2;
-  auto blocks = [&](int r, int warps) {
-    const int rows = warps / split * 2 * r;
-    return (n + rows - 1) / rows;
+  auto blocks = [&](int r, int w) {
+    const int rows_per_block = w / split * 2 * r;
+    return (n + rows_per_block - 1) / rows_per_block;
   };
-  int warps = kMaxWarps;
-  const bool wide = blocks(kRowsPerSlot, warps) >= kMinBlocks;
-  const int r = wide ? kRowsPerSlot : 1;
-  while (warps > split && blocks(r, warps) < kMinBlocks) warps /= 2;
+  int r = rows;
+  if (r == 0) {
+    split = 1;
+    while (split < kMaxSplit && 2 * split * kLanes <= nc) split *= 2;
+    warps = kMaxWarps;
+    r = blocks(kRowsPerSlot, warps) >= kMinBlocks ? kRowsPerSlot : 1;
+    while (warps > split && blocks(r, warps) < kMinBlocks) warps /= 2;
+  }
   const dim3 grid(blocks(r, warps));
-  if (wide)
+  if (r == kRowsPerSlot)
     q8_matvec_kernel<TX, MT, kRowsPerSlot><<<grid, 32 * warps, 0, st>>>(
         x, ldx, vx, qs, ldq, scales, lds, out, ldo, m, n, k, split);
   else
@@ -231,32 +239,47 @@ cudaError_t launch(const TX* x, long long ldx, bool vx, const int8_t* qs,
 template <typename TX>
 cudaError_t run(const void* xv, long long ldx, const int8_t* q, long long ldq,
                 const float* s, long long lds, float* o, long long ldo, int m,
-                int n, int k, cudaStream_t st) {
+                int n, int k, int r, int w, int sp, cudaStream_t st) {
   const auto* x = static_cast<const TX*>(xv);
   // x rows can be read 16 bytes at a time
   const bool vx = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
                   (ldx * sizeof(TX)) % 16 == 0;
-  if (m == 1) return launch<TX, 1>(x, ldx, vx, q, ldq, s, lds, o, ldo, m, n, k, st);
-  if (m <= 2) return launch<TX, 2>(x, ldx, vx, q, ldq, s, lds, o, ldo, m, n, k, st);
-  if (m <= 4) return launch<TX, 4>(x, ldx, vx, q, ldq, s, lds, o, ldo, m, n, k, st);
-  if (m <= 8) return launch<TX, 8>(x, ldx, vx, q, ldq, s, lds, o, ldo, m, n, k, st);
-  return launch<TX, 16>(x, ldx, vx, q, ldq, s, lds, o, ldo, m, n, k, st);
+  if (m == 1) return launch<TX, 1>(x, ldx, vx, q, ldq, s, lds, o, ldo, m, n, k, r, w, sp, st);
+  if (m <= 2) return launch<TX, 2>(x, ldx, vx, q, ldq, s, lds, o, ldo, m, n, k, r, w, sp, st);
+  if (m <= 4) return launch<TX, 4>(x, ldx, vx, q, ldq, s, lds, o, ldo, m, n, k, r, w, sp, st);
+  if (m <= 8) return launch<TX, 8>(x, ldx, vx, q, ldq, s, lds, o, ldo, m, n, k, r, w, sp, st);
+  return launch<TX, 16>(x, ldx, vx, q, ldq, s, lds, o, ldo, m, n, k, r, w, sp, st);
+}
+
+// a caller's tile: R rows a half-warp, `warps` warps a block of which
+// `split` share each row's K; with a split, every lane has a chunk to read
+bool tile_ok(int rows, int warps, int split, int k) {
+  const bool pow2 = warps == 1 || warps == 2 || warps == 4;
+  return (rows == 1 || rows == kRowsPerSlot) && pow2 && warps <= kMaxWarps &&
+         (split == 1 || split == 2 || split == 4) && split <= kMaxSplit &&
+         warps % split == 0 && (split == 1 || split * kLanes <= k / 16);
 }
 
 }  // namespace
 
+// rows, warps and split choose the launch (tile_ok); all 0 take the
+// heuristic's
 extern "C" int q8_matvec(const void* x, int x_bf16, long long ldx,
                          const void* qs, long long ldq, const void* scales,
                          long long lds, void* out, long long ldo, int m, int n,
-                         int k, void* stream) {
+                         int k, int rows, int warps, int split, void* stream) {
   if (m < 1 || m > 16 || n < 1 || k < 32 || k % 32 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if ((rows || warps || split) && !tile_ok(rows, warps, split, k))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto* q = static_cast<const int8_t*>(qs);
   const auto* s = static_cast<const float*>(scales);
   auto* o = static_cast<float*>(out);
   auto st = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      x_bf16 ? run<bf16>(x, ldx, q, ldq, s, lds, o, ldo, m, n, k, st)
-             : run<float>(x, ldx, q, ldq, s, lds, o, ldo, m, n, k, st);
+      x_bf16 ? run<bf16>(x, ldx, q, ldq, s, lds, o, ldo, m, n, k, rows, warps,
+                         split, st)
+             : run<float>(x, ldx, q, ldq, s, lds, o, ldo, m, n, k, rows, warps,
+                          split, st);
   return static_cast<int>(err);
 }

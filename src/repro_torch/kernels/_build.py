@@ -31,14 +31,20 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 #: function of the kernel's name, and that function's argument types (every
 #: one returns an int CUDA error code)
 KERNELS: Dict[str, Tuple[str, list]] = {
-    # (x, x_bf16, ldx, qs, ldq, scales, lds, out, ldo, m, n, k, stream)
+    # (x, x_bf16, ldx, qs, ldq, scales, lds, out, ldo, m, n, k, then the
+    # tile: rows, warps, split; stream)
     "q8_matvec": ("q8_matvec",
-                  [_P, _I, _L, _P, _L, _P, _L, _P, _L, _I, _I, _I, _P]),
+                  [_P, _I, _L, _P, _L, _P, _L, _P, _L, _I, _I, _I,
+                   _I, _I, _I, _P]),
+    # (... as q8_matvec, then the tile: block_n, stages; stream)
     "q8_matmul": ("q8_matmul",
-                  [_P, _I, _L, _P, _L, _P, _L, _P, _L, _I, _I, _I, _P]),
-    # (x, x_bf16, ldx, w, w_bf16, ldw, out, ldo, m, n, k, stream)
+                  [_P, _I, _L, _P, _L, _P, _L, _P, _L, _I, _I, _I,
+                   _I, _I, _P]),
+    # (x, x_bf16, ldx, w, w_bf16, ldw, out, ldo, m, n, k, then the tile:
+    # rows, warps, split at M <= 16, stages at M > 16; stream)
     "bf16_matmul": ("bf16_matmul",
-                    [_P, _I, _L, _P, _I, _L, _P, _L, _I, _I, _I, _P]),
+                    [_P, _I, _L, _P, _I, _L, _P, _L, _I, _I, _I,
+                     _I, _I, _I, _I, _P]),
     # (q, k, v, bf16, q_sbh, q_ss, k_sbh, k_ss, v_sbh, v_ss, out,
     #  bh, sq, sk, d, causal, stream)
     "flash_attention_fwd": ("flash_attention",
@@ -200,8 +206,9 @@ def call(name: str, device: torch.device, *args) -> None:
 
 
 def launch_q8(name: str, x: torch.Tensor, qs: torch.Tensor,
-              scales: torch.Tensor) -> torch.Tensor:
-    """Launch Q8_0 kernel ``name`` on CUDA operands (already checked).
+              scales: torch.Tensor, tile: Tuple[int, ...]) -> torch.Tensor:
+    """Launch Q8_0 kernel ``name`` on CUDA operands (already checked) with
+    the C tile arguments ``tile`` (zeros: the kernel's own choice).
     Returns the (M, N) f32 output."""
     require_cuda(name, x.device)
     m, k = x.shape
@@ -212,5 +219,5 @@ def launch_q8(name: str, x: torch.Tensor, qs: torch.Tensor,
     call(name, x.device,
          x.data_ptr(), int(x.dtype == torch.bfloat16), x.stride(0),
          qs.data_ptr(), qs.stride(0), scales.data_ptr(), scales.stride(0),
-         out.data_ptr(), out.stride(0), m, n, k)
+         out.data_ptr(), out.stride(0), m, n, k, *tile)
     return out

@@ -16,14 +16,20 @@ function) and unaligned rows take a tiled f32 product. Both mask ragged M
 and N in the kernel (no padding, unlike the TPU kernel, which needed whole
 tiles).
 
+The tensor-core launch takes an optional tile (``kernels/tiles.py``,
+chosen by the autotuner): its tile N (32 or 64) and ring depth (2 to 4
+slots); with none it runs 64 x 32 tiles and 3 slots.
+
 ``q8_matmul`` runs ``q8_matmul_plain`` only for tensors on the CPU; for
 CUDA tensors it launches the kernel or raises.
 """
 from __future__ import annotations
 
+from typing import Optional, Tuple
+
 import torch
 
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _build, ref, tiles
 
 
 #: the kernel's arithmetic in plain PyTorch: dequantize W in f32 (q * scale
@@ -31,14 +37,18 @@ from repro_torch.kernels import _build, ref
 q8_matmul_plain = ref.q8_flat_ref
 
 
-def q8_matmul(x: torch.Tensor, qs: torch.Tensor,
-              scales: torch.Tensor) -> torch.Tensor:
+def q8_matmul(x: torch.Tensor, qs: torch.Tensor, scales: torch.Tensor, *,
+              tile: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """x (M, K) f32/bf16; qs (N, K) int8; scales (N, K/32) f32 -> (M, N)
-    f32. Rows of every operand may be strided; M and N may be ragged."""
+    f32. Rows of every operand may be strided; M and N may be ragged.
+    ``tile`` = (block_n, stages), one of ``tiles.Q8_WGMMA_TILES``, chooses
+    the tensor-core launch (None: (32, 3)); the SIMT launch has one tile.
+    A tile not in that list raises."""
     _build.check_q8_operands(x, qs, scales)
+    tiles.check_wgmma_tile("q8_matmul", tile, tiles.Q8_WGMMA_TILES)
     if x.device.type == "cpu":
         return q8_matmul_plain(x, qs, scales)
-    out = _build.launch_q8("q8_matmul", x, qs, scales)
+    out = _build.launch_q8("q8_matmul", x, qs, scales, tile or (0, 0))
     q8_matmul.launches += 1
     return out
 

@@ -117,7 +117,9 @@ class KVCache(NamedTuple):
 
     @classmethod
     def zeros(cls, b: int, s_max: int, hkv: int, hd: int,
-              dtype=torch.bfloat16, device="cpu") -> "KVCache":
+              dtype=torch.bfloat16, *, device) -> "KVCache":
+        """An empty cache on ``device``, which the caller names: there is
+        no default."""
         return cls(torch.zeros((b, s_max, hkv, hd), dtype=dtype, device=device),
                    torch.zeros((b, s_max, hkv, hd), dtype=dtype, device=device),
                    torch.zeros((), dtype=torch.int32, device=device))

@@ -14,7 +14,7 @@ of per-layer parameter dicts.
 """
 from __future__ import annotations
 
-from typing import List, NamedTuple, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -118,26 +118,45 @@ def init_whisper_decode_state(params: dict, cfg: ModelConfig,
     b = memory.shape[0]
     return WhisperDecodeState(
         self_kv=[KVCache.zeros(b, max_len, cfg.num_kv_heads, cfg.head_dim,
-                               dtype, memory.device)
+                               dtype, device=memory.device)
                  for _ in range(cfg.num_layers)],
         cross_kv=precompute_cross_kv(params, cfg, memory, engine=engine))
 
 
 def zeros_decode_state(cfg: ModelConfig, batch: int, frames: int,
-                       max_len: int, *, dtype=torch.bfloat16,
-                       device="cpu") -> WhisperDecodeState:
+                       max_len: int, *, device,
+                       dtype=torch.bfloat16) -> WhisperDecodeState:
     """A decode state of zeros for ``batch`` utterances of ``frames``
-    frames: the static buffers that a captured prefill fills and a
-    captured decode step reads."""
+    frames on ``device`` (no default): the static buffers that a captured
+    prefill fills and a captured decode step reads."""
     hkv, hd = cfg.num_kv_heads, cfg.head_dim
 
     def zeros():
         return torch.zeros((batch, frames, hkv, hd), dtype=dtype,
                            device=device)
     return WhisperDecodeState(
-        self_kv=[KVCache.zeros(batch, max_len, hkv, hd, dtype, device)
+        self_kv=[KVCache.zeros(batch, max_len, hkv, hd, dtype, device=device)
                  for _ in range(cfg.num_layers)],
         cross_kv=[(zeros(), zeros()) for _ in range(cfg.num_layers)])
+
+
+def warm_tuning(cfg: ModelConfig, engine, *, n_frames: int = 1500,
+                n_tokens: int = 27, batch: int = 1,
+                quant: Optional[str] = None) -> int:
+    """Pre-tune every matrix-product shape of one Whisper inference (the
+    coverage enumerator's invocation classes, batch-scaled), so that a
+    request does not stall on a tuning search, as the reference does.
+    ``quant`` is the serving quantization (the engine's, which may override
+    ``cfg.quant``); it selects which kernels' keys are warmed. Returns the
+    number of distinct shapes tuned; 0 if the engine carries no tuner."""
+    if engine is None or getattr(engine, "tuner", None) is None:
+        return 0
+    from repro_torch.core.coverage import MulMat, enumerate_whisper
+    q = quant if quant is not None else cfg.quant
+    dtype = "q8_0" if q == "q8_0" else "bf16"
+    mulmats = [MulMat(m.name, m=m.m * batch, k=m.k, n=m.n)
+               for m in enumerate_whisper(cfg, n_frames, n_tokens)]
+    return engine.tuner.warm(mulmats, dtype=dtype)
 
 
 def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,

@@ -25,6 +25,16 @@ the ledger is accounted only by committing the plans: the prefill's once,
 the step's once per step taken. The eager ``prefill()`` and ``step()``
 stay public.
 
+With an autotuner on the offload engine (``OffloadEngine(tuner=...)``),
+every linear routes by a tuned plan entry: the burst and the kernel's
+launch tile come from the tuner's cache. The engine warms the tuner at
+construction (whisper's shapes at 1 x 1500 frames) and in ``transcribe``
+for the request's batch and frames, before any timer and before any
+capture, and saves the cache when a search ran (after the request, where
+a plan's first query of a shape the warm-up did not enumerate searched);
+a capture then records and replays the tuned launches, and a replay
+consults no tuner.
+
 Token contract: ``GenerationResult.tokens`` holds exactly the ``steps``
 tokens the request generated — the SOT seed token is not echoed — and rows
 that hit EOS before the batch drained are truncated at their first EOS with
@@ -129,6 +139,29 @@ class ServeEngine:
         self._serve_params = (quantize_tree(params, _keep_dense)
                               if self._serve_quant == "q8_0" else params)
         self._eos = -1 if self.eos_id is None else int(self.eos_id)
+        self._save_tuning(self._warm_tuning())
+
+    def _warm_tuning(self, **shape) -> Optional[int]:
+        """Warm the offload engine's tuner (if any) for whisper's shapes
+        at ``shape`` (``warm_tuning``'s frames, tokens and batch; the
+        canonical 1 x 1500 frames by default). Returns the tuner's search
+        count before warming, for ``_save_tuning``; None without a
+        tuner."""
+        tuner = self.offload.tuner if self.offload is not None else None
+        if tuner is None:
+            return None
+        n0 = tuner.searches
+        whisper_lib.warm_tuning(self.cfg, self.offload,
+                                quant=self._serve_quant, **shape)
+        return n0
+
+    def _save_tuning(self, searches_before: Optional[int]) -> None:
+        """Save the tuner's cache if a search ran since
+        ``searches_before`` (a warm-up's, or a plan's first query of a
+        shape the warm-up did not enumerate)."""
+        if (searches_before is not None
+                and self.offload.tuner.searches > searches_before):
+            self.offload.tuner.save()
 
     def _argmax(self, logits: torch.Tensor) -> torch.Tensor:
         """Greedy pick over the true vocab (vocab_pad columns excluded)."""
@@ -318,6 +351,7 @@ class ServeEngine:
         mel_t = torch.as_tensor(mel, dtype=torch.float32)
         b, f = mel_t.shape[0], mel_t.shape[1]
         pre_key, step_key = self._key("prefill", b, f), self._key("step", b, f)
+        searches = self._warm_tuning(n_frames=f, batch=b, n_tokens=max_new)
         with torch.no_grad():
             st = self._static_for(b, f)
             st.mel.copy_(mel_t)
@@ -335,13 +369,16 @@ class ServeEngine:
             if r["plan"] is not None:
                 ledger.commit(self._plan(step_key, r["plan"]),
                               times=r["steps"])
+        self._save_tuning(searches)
         return self._finalize(r, prefill_s)
 
     def energy_report(self, results: List[GenerationResult],
                       platform_w: float) -> Dict[str, Any]:
         """Latency and PDP/EDP of ``results`` at ``platform_w`` watts (the
         card's power limit or a sampled draw: there is no default), the
-        offload rate, and with an offload engine the dispatch counters."""
+        offload rate, and with an offload engine the dispatch counters (and
+        with a tuner, its cache hits and misses, searches and tuned
+        calls)."""
         total_s = sum(r.total_s for r in results)
         rep = {
             "requests": len(results),
@@ -359,4 +396,10 @@ class ServeEngine:
                                "ledger_commits": self.offload.ledger.commits,
                                "by_backend": dict(
                                    self.offload.stats.by_backend)}
+        if self.offload is not None and self.offload.tuner is not None:
+            t = self.offload.tuner
+            rep["tuning"] = {"cache_hits": t.cache.hits,
+                             "cache_misses": t.cache.misses,
+                             "searches": t.searches,
+                             "tuned_calls": self.offload.stats.tuned_calls}
         return rep

@@ -10,7 +10,8 @@ For each configuration below, the kernel's source is copied with its
 kTcWarps = 4`` becomes ``... = 2``; a comment that names a constant is left
 alone), built with the port's nvcc flags (one nvcc per variant, all started
 together), loaded with ctypes and called through the same C interface as
-the shipped library, at the main paths' shapes (``chip_smoke``'s
+the shipped library (with no tile: each launch's own choice), at the main
+paths' shapes (``chip_smoke``'s
 ``MATMUL_SHAPES`` and ``MATVEC_SHAPES`` for the Q8_0 kernels,
 ``BF16_PREFILL_SHAPES``, ``BF16_STEP_SHAPES`` and ``FLASH_SHAPES`` for the
 dense path's). Each result is held against the kernel's plain version (the
@@ -168,7 +169,8 @@ def main() -> int:
             call_args = (x.data_ptr(), int(x.dtype == torch.bfloat16),
                          x.stride(0), qs.data_ptr(), qs.stride(0),
                          sc.data_ptr(), sc.stride(0), out.data_ptr(),
-                         out.stride(0), m, n, k)
+                         out.stride(0), m, n, k,
+                         *((0, 0, 0) if name == "q8_matvec" else (0, 0)))
             per = "decode step" if name == "q8_matvec" else "prefill"
             cases[name].append((f"{m}x{n}x{k}", per, count, call_args, out,
                                 ref.q8_flat_ref(x, qs, sc),
@@ -179,7 +181,8 @@ def main() -> int:
             (x, w), *_ = chip_smoke._bf16_case(gen, m, n, k, k_full, xdt)
             out = torch.empty((m, n), dtype=torch.float32, device="cuda")
             call_args = (x.data_ptr(), 1, x.stride(0), w.data_ptr(), 1,
-                         w.stride(0), out.data_ptr(), out.stride(0), m, n, k)
+                         w.stride(0), out.data_ptr(), out.stride(0), m, n, k,
+                         0, 0, 0, 0)
             cases["bf16_matmul"].append((
                 f"{m}x{n}x{k}", per, count, call_args, out,
                 bf16_matmul.bf16_matmul_plain(x, w), chip_smoke.KERNEL_TOL,
@@ -201,7 +204,7 @@ def main() -> int:
     for (name, i), so in libs.items():
         fn = bind(name, so)
         consts = CONFIGS[name][1][i]
-        per_shape, totals, worst = {}, {}, 0.0
+        per_shape, totals, worst, sources = {}, {}, 0.0, set()
         # each case keeps its operands alive: the call holds raw pointers
         for label, per, count, call_args, out, want, tol, _ in cases[name]:
             def run(fn=fn, call_args=call_args):
@@ -214,12 +217,14 @@ def main() -> int:
             if not err <= tol * max(1.0, want.abs().max().item()):
                 raise AssertionError(f"{name} [{tag(consts)}] {label}: "
                                      f"max |kernel - plain| = {err}")
-            ms = chip_smoke.device_ms(run)
+            ms, src = chip_smoke.device_ms(run)
             per_shape[label] = ms
+            sources.add(src)
             totals[per] = totals.get(per, 0.0) + ms * count
             worst = max(worst, err)
         rows.append(dict(kernel=name, config=tag(consts), ms=per_shape,
-                         ms_total=totals, max_abs_err=worst))
+                         ms_total=totals, ms_source=sorted(sources),
+                         max_abs_err=worst))
         print(f"sweep {name} [{tag(consts)}]: "
               + "; ".join(f"per {per} {t:.5f} ms" for per, t in totals.items())
               + "; " + " ".join(f"{k}={v:.5f}" for k, v in per_shape.items())

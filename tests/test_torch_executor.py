@@ -23,8 +23,8 @@ from repro_torch.core.plan import DispatchPlan, plan_linear
 from repro_torch.core.qformats import QTensor, quantize_q8_0
 
 TOL = dict(rtol=1e-5, atol=1e-5)
-PLAN_FIELDS = ("name", "m", "k", "n", "dtype", "offload", "burst", "kernel",
-               "k_main", "k_res")
+PLAN_FIELDS = ("name", "m", "k", "n", "dtype", "offload", "burst", "tuned",
+               "kernel", "k_main", "k_res")
 BACKEND_NAMES = {"pallas_tpu": "hopper", "host_residual": "host_residual"}
 
 
