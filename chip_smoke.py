@@ -29,7 +29,11 @@ own kernels with nvcc. Phases, each of which fails the run on error:
    same bf16 q, k, v (a bf16 output; the kernel writes f32) for
    ``flash_attention_fwd``. TF32 is off (``resolve_device``), which leaves
    bf16 products alone. Flash attention is also checked causal and at
-   ragged lengths.
+   ragged lengths. The decode kernels are also held against their plain
+   versions at M = 4, the continuous-batching slot step's (their MT = 4
+   instantiations), in rows of their own (``per`` "slot decode step"):
+   those show in the kernels line's ``by_phase`` and ``shapes`` but not in
+   its top-level times, which sum one prefill and one batch-1 decode step.
 3. The main path: full-width whisper-tiny with Q8_0 weights from a seeded
    generator, the eager greedy loop through ``ServeEngine.prefill`` and
    ``ServeEngine.step`` (every kernel launched from Python) over one
@@ -106,10 +110,33 @@ own kernels with nvcc. Phases, each of which fails the run on error:
       replay by name; the residual-arm linears a replay (from the plans;
       0 at every K = 384 linear) beside the untuned engine's, and the
       cuBLAS launches the profiler saw in each.
+10. Continuous batching, on each path's weights (a new engine: max_len 56,
+    no EOS): the scheduler over a pool of 4 slots at 1500 frames, with the
+    workload of ``benchmarks/continuous_batching.py`` (16 requests, max_new
+    in 6-48 from default_rng(0); dense + flash: 6), a first wave, then the
+    rest submitted mid-drain. The launch counts are zeroed just before and
+    read just after: the pool's first admission captures the batch-1
+    prefill and the slot step (twice each program's launches), and nothing
+    after launches from Python. Fails unless the step captures stay put
+    after the pool's first step, the ledger's commits equal admissions plus
+    slot steps, per-request PDP sums to the batch's (rel 1e-9), every
+    request's tokens equal a batch-1 ``transcribe`` of its mel, a free
+    slot's lengths pass max_len with no device assert (Q8_0), a profiled
+    replayed slot step holds 33 ``q8_matvec_kernel`` (dense: 33
+    ``gemv_bf16_kernel``) and a profiled admission 32 ``q8_wgmma_kernel``
+    (dense: 32 ``wgmma_kernel`` and 4 ``flash_fwd_mma_kernel``). Printed:
+    the slot step's device time, idle share and top kernels beside phase
+    6's batch-1 step, the splice's device time an admission, tokens a
+    second of the same drive repeated on the warm pool, the pool's
+    committed KV bytes and peak utilization; on Q8_0 the benchmark's static-vs-continuous comparison
+    by its own method (min-of-probes service times, one Poisson trace at
+    3x load on a virtual clock), printed and not held to a limit.
 
 The last two lines are the kernels' JSON record and the result line; each
 kernel's record also carries its launches on the tuned paths' eager loops
-(``tuned_launches``) and its tiles' times (``tiles``).
+(``tuned_launches``), its launches on each path's drive
+(``launches_by_path``: the main path's, and phase 10's) and its tiles'
+times (``tiles``).
 """
 from __future__ import annotations
 
@@ -156,6 +183,10 @@ BF16_STEP_SHAPES = [
     (1, 384, 1536, 1536, 4, "bfloat16"),    # ffn.down
     (1, 51872, 256, 384, 1, "bfloat16"),    # dec.vocab
 ]
+# the continuous-batching slot step (phase 10): every decode linear at M =
+# SLOTS, on the MT = 4 instantiations of the decode kernels
+MATVEC_SLOT_SHAPES = [(4, *shape[1:]) for shape in MATVEC_SHAPES]
+BF16_SLOT_SHAPES = [(4, *shape[1:]) for shape in BF16_STEP_SHAPES]
 BF16_PREFILL_SHAPES = [
     (1500, 384, 256, 384, 24, "bfloat16"),    # enc q/k/v/o + dec.cross.k/v
     (1500, 1536, 256, 384, 4, "bfloat16"),    # enc ffn.up
@@ -172,7 +203,8 @@ FLASH_CHECKS = [                 # held against the plain version, not timed
 KERNELS = {
     "q8_matvec": dict(source="src/repro_torch/csrc/q8_matvec.cu",
                       replaces="src/repro/kernels/q8_matvec.py:68",
-                      shapes={"decode step": MATVEC_SHAPES},
+                      shapes={"decode step": MATVEC_SHAPES,
+                              "slot decode step": MATVEC_SLOT_SHAPES},
                       library_call="torch.matmul(x_f32, W_dequantized_f32.T):"
                                    " no single PyTorch call computes a Q8_0 "
                                    "product"),
@@ -185,7 +217,8 @@ KERNELS = {
     "bf16_matmul": dict(source="src/repro_torch/csrc/bf16_matmul.cu",
                         replaces="src/repro/kernels/bf16_matmul.py:76",
                         shapes={"prefill": BF16_PREFILL_SHAPES,
-                                "decode step": BF16_STEP_SHAPES},
+                                "decode step": BF16_STEP_SHAPES,
+                                "slot decode step": BF16_SLOT_SHAPES},
                         library_call="torch.mm(x_bf16, W_bf16.T, out_dtype="
                                      "torch.float32) on the same strided "
                                      "bf16 operands (cuBLAS, f32 output as "
@@ -199,6 +232,10 @@ KERNELS = {
                      "the same bf16 q, k, v as (1, BH, S, D) (bf16 output; "
                      "the kernel writes f32)"),
 }
+# the kernels line's top-level times sum these (one prefill + one batch-1
+# decode step, as PERF.md compares across PRs); other rows (the slot step)
+# show in by_phase and shapes
+SUMMED = ("prefill", "decode step")
 MAX_NEW = 32
 PROFILED_STEPS = 8               # decode steps under torch.profiler
 REPLAY_PROFILES = 3              # profiled windows of the replays, at most
@@ -240,6 +277,18 @@ TILE_SHAPES = [
     ("bf16_matmul", 1, 51872, 384, "bfloat16"),
 ]
 TUNING_DIR = os.path.join(ROOT, "build", "tuning")
+# phase 10, the parameters of benchmarks/continuous_batching.py::_variant
+# (full config) at whisper's 1500-frame window: 4 slots, 16 requests whose
+# max_new is drawn in 6-48 after their mels from default_rng(0), no EOS,
+# max_len = 48 + 8
+SLOTS = 4
+CB_REQUESTS = 16
+CB_BUDGETS = (6, 48)
+CB_MAX_LEN = 56
+CB_SECOND_WAVE = 8               # requests of the wave submitted mid-drain
+CB_WAVE_GAP = 10                 # slot steps before it
+CB_DENSE_REQUESTS = 6
+CB_CAL_ROUNDS = 5                # the benchmark's _calibrate rounds
 
 
 def card_line() -> str:
@@ -1390,6 +1439,368 @@ def tuned_path(label, untuned, tuner, counted, eager_want, per_run,
                           entries=len(entries), **summary)
 
 
+def _cb_workload(cfg, n_req):
+    """The benchmark's draws: n_req mels of 1500 frames, then their max_new
+    in CB_BUDGETS, from default_rng(0); the generator is returned for the
+    arrival trace."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    mels = [rng.standard_normal((1, cfg.encoder_ctx, cfg.n_mels)).astype(
+        np.float32) for _ in range(n_req)]
+    lo, hi = CB_BUDGETS
+    max_news = [int(rng.integers(lo, hi + 1)) for _ in range(n_req)]
+    return mels, max_news, rng
+
+
+def _drain_waves(sched, mels, max_news):
+    """A first wave of requests, the second submitted after CB_WAVE_GAP
+    slot steps, drained by hand (admit, step). Returns (rids in submission
+    order, admissions, slot steps, tokens, each step's host seconds, the
+    engine's step captures after the pool's first step, drain seconds)."""
+    import torch
+    eng = sched.engine
+    first = len(mels) - min(CB_SECOND_WAVE, len(mels) - 1)
+    rids = [sched.submit(m, max_new=n)
+            for m, n in zip(mels[:first], max_news[:first])]
+    admissions = steps = tokens = 0
+    step_s, captures = [], None
+    t0 = time.perf_counter()
+    while len(rids) < len(mels) or sched.n_queued or sched.n_active:
+        if len(rids) < len(mels) and (
+                steps >= CB_WAVE_GAP or not (sched.n_queued or sched.n_active)):
+            rids += [sched.submit(m, max_new=n)
+                     for m, n in zip(mels[first:], max_news[first:])]
+        admissions += len(sched.admit())
+        t1 = time.perf_counter()
+        events = sched.decode_step()
+        if events:
+            step_s.append(time.perf_counter() - t1)
+            steps += 1
+            tokens += len(events)
+            if captures is None:
+                captures = eng._step_captures
+    torch.cuda.synchronize()            # a device assert would surface here
+    return rids, admissions, steps, tokens, step_s, captures, \
+        time.perf_counter() - t0
+
+
+def _slot_lengths(sched):
+    """Each slot's self-KV length (layer 0), on the host."""
+    return sched.pool.state.layer_states.self_kv[0].length.tolist()
+
+
+def _profile_slot_steps(sched):
+    """PROFILED_STEPS replays of the pool's slot step, each with the
+    scheduler's host sync, under torch.profiler: kernels by name a step,
+    the top kernels and host wall ms a step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _open_window()
+        t0 = time.perf_counter()
+        for _ in range(PROFILED_STEPS):
+            sched._program.graph.replay()
+            sched._token[:, 0].tolist()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / PROFILED_STEPS
+    return (_by_kernel(prof, PROFILED_STEPS),
+            _top_kernels(prof, PROFILED_STEPS, 8), wall)
+
+
+def _profile_admission(sched, mel):
+    """One admission (the batch-1 prefill replay and its splice) under
+    torch.profiler: kernels by name, the top kernels and host wall ms. The
+    admitted request is drained after."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    rid = sched.submit(mel, max_new=1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _open_window()
+        t0 = time.perf_counter()
+        sched.admit()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    sched.run()
+    return _by_kernel(prof), _top_kernels(prof, 1, 8), wall, rid
+
+
+def cb_benchmark(eng, mels, max_news, rng, power_w):
+    """benchmarks/continuous_batching.py's comparison by its own method:
+    service times as the minimum over interleaved probes (``_calibrate``:
+    CB_CAL_ROUNDS rounds of a static batch of SLOTS x 6 tokens, and two
+    admissions and their slot steps), then one Poisson arrival trace at 3x
+    load replayed on a virtual clock through static run-to-completion
+    batches (``_run_static``) and the scheduler (``_run_continuous``),
+    every prefill and step executed for real. Tokens a second and p50/p95
+    latency of each mode, printed, not held to a limit."""
+    import numpy as np
+    from repro_torch.serve.scheduler import ContinuousBatchingScheduler
+    n = len(mels)
+    f = mels[0].shape[1]
+
+    def lat_summary(xs):
+        return {f"p{q}_s": float(np.percentile(xs, q)) for q in (50, 95, 99)}
+
+    # _calibrate
+    warm = np.concatenate([mels[0]] * SLOTS, axis=0)
+    eng.transcribe(warm, max_new=6)
+    sched = ContinuousBatchingScheduler(eng, n_slots=SLOTS, n_frames=f)
+    sched.submit(mels[0], max_new=2)
+    sched.run()
+    pf_b, st_b, admits, csteps = [], [], [], []
+    for _ in range(CB_CAL_ROUNDS):
+        r = eng.transcribe(warm, max_new=6)
+        pf_b.append(r[0].prefill_s * SLOTS)
+        st_b.append(r[0].decode_s * SLOTS / max(r[0].steps, 1))
+        for _ in range(2):
+            sched.submit(mels[0], max_new=4)
+        while sched.n_queued or sched.n_active:
+            if sched.n_queued and sched.pool.n_free:
+                t0 = time.perf_counter()
+                k = len(sched.admit())
+                admits.append((time.perf_counter() - t0) / max(k, 1))
+            t0 = time.perf_counter()
+            sched.decode_step()
+            csteps.append(time.perf_counter() - t0)
+        sched.run()
+    cal = {"t_prefill_b": float(np.min(pf_b)), "t_step_b": float(np.min(st_b)),
+           "t_admit": float(np.min(admits)), "t_cstep": float(np.min(csteps))}
+    captures0 = eng._step_captures
+    mean_gap = cal["t_step_b"] * float(np.mean(max_news)) / (3 * SLOTS)
+    arrivals = np.cumsum(rng.exponential(mean_gap, n))
+
+    # _run_static
+    t, done_t, tokens, i = 0.0, {}, 0, 0
+    while i < n:
+        t = max(t, float(arrivals[i]))
+        j = i + 1
+        while j - i < SLOTS and j < n and arrivals[j] <= t:
+            j += 1
+        members = list(range(i, j))
+        batch = [mels[k] for k in members]
+        while len(batch) < SLOTS:
+            batch.append(batch[-1])
+        budget = max(max_news[k] for k in members)
+        res = eng.transcribe(np.concatenate(batch, axis=0), max_new=budget)
+        t += cal["t_prefill_b"] + res[0].steps * cal["t_step_b"]
+        for k in members:
+            done_t[k] = t
+            tokens += min(max_news[k], res[0].steps)
+        i = j
+    static = {"tok_s": tokens / max(t, 1e-9),
+              **lat_summary([done_t[k] - float(arrivals[k]) for k in range(n)]),
+              "makespan_s": t, "tokens": tokens,
+              "pdp_j": t * power_w}
+
+    # _run_continuous
+    sched = ContinuousBatchingScheduler(eng, n_slots=SLOTS, n_frames=f)
+    t, done_t, rid2idx = 0.0, {}, {}
+    pending = list(range(n))
+    while pending or sched.n_queued or sched.n_active:
+        while pending and arrivals[pending[0]] <= t:
+            idx = pending.pop(0)
+            rid2idx[sched.submit(mels[idx], max_new=max_news[idx])] = idx
+        if sched.n_queued and sched.pool.n_free:
+            t += len(sched.admit()) * cal["t_admit"]
+        if sched.n_active:
+            events = sched.decode_step()
+            t += cal["t_cstep"]
+            for ev in events:
+                if ev.done:
+                    done_t[rid2idx[ev.rid]] = t
+        elif pending:
+            t = max(t, float(arrivals[pending[0]]))
+    tokens = sum(r.steps for r in sched.finished.values())
+    att = sched.attribution(power_w)
+    per_req = sum(att["per_request_pdp_j"].values())
+    if not abs(per_req - att["batch_pdp_j"]) <= \
+            1e-6 * max(1.0, att["batch_pdp_j"]):
+        raise AssertionError("benchmark replay: per-request PDP does not "
+                             "sum to the batch's")
+    lengths = _slot_lengths(sched)
+    cont = {"tok_s": tokens / max(t, 1e-9),
+            **lat_summary([done_t[k] - float(arrivals[k]) for k in range(n)]),
+            "makespan_s": t, "tokens": tokens, "pdp_j": t * power_w,
+            "attributed_pdp_j": per_req,
+            "kv_committed_bytes": sched.kv_committed_bytes,
+            "kv_utilization": sched.kv_utilization_peak,
+            "slot_lengths_at_end": lengths}
+    out = dict(static=static, continuous=cont, cal=cal,
+               step_captures_after_warmup=eng._step_captures - captures0,
+               speedup_tok_s=cont["tok_s"] / max(static["tok_s"], 1e-9),
+               p95_ratio=static["p95_s"] / max(cont["p95_s"], 1e-9),
+               n_req=n, n_slots=SLOTS, n_frames=f, mean_gap_s=float(mean_gap),
+               power_w=power_w)
+    print(f"continuous batching benchmark replay: {json.dumps(out)}",
+          flush=True)
+    return out
+
+
+def continuous_path(label, eng0, counted, per_run, replay_kernels, n_req,
+                    batch1, bench):
+    """Phase 10, on one path: the continuous-batching scheduler over SLOTS
+    slots at 1500 frames, on a new engine (max_len CB_MAX_LEN, no EOS) with
+    ``eng0``'s weights and quantization. The launch counts are zeroed just
+    before the drive (a first wave, the second submitted mid-drain) and
+    read just after: the pool's first admission captures the batch-1
+    prefill and the slot step, CAPTURE_PASSES runs of each program's
+    Python, and every later admission and step replays. Checks: the step
+    captures do not move after the pool's first step; the ledger's
+    commits equal admissions plus slot steps; per-request PDP sums to the
+    batch's; each request's tokens equal a batch-1 ``transcribe`` of its
+    mel; no device assert (a free slot's lengths pass max_len in the drain
+    tail); a profiled replayed slot step holds ``replay_kernels["step"]``
+    and a profiled admission ``replay_kernels["prefill"]``. Printed beside
+    ``batch1`` (phase 6's captured summary): the slot step's device time,
+    idle share and top kernels, the splice's device time, the pool's KV
+    bytes, and tokens a second and the steps' host time of the same drive
+    run again on the warm pool (its tokens, captures and commits checked
+    too: the first drive's wall holds the captures); with ``bench``, the
+    benchmark's static-vs-continuous comparison."""
+    import statistics
+
+    import torch
+    from repro_torch.core import energy
+    from repro_torch.core.offload import OffloadEngine
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.scheduler import ContinuousBatchingScheduler
+
+    cfg = eng0.cfg
+    f = cfg.encoder_ctx
+    power_w = energy.card_power_limit_w(0)
+    eng = ServeEngine(cfg, eng0.params, max_len=CB_MAX_LEN,
+                      quant=eng0._serve_quant, offload=OffloadEngine(),
+                      eos_id=-1, device="cuda")
+    mels, max_news, rng = _cb_workload(cfg, n_req)
+    torch.cuda.synchronize()
+    for fn in counted.values():
+        fn.launches = 0
+    captures0 = eng._step_captures
+    sched = ContinuousBatchingScheduler(eng, n_slots=SLOTS, n_frames=f)
+    rids, admissions, steps, tokens, step_s, captures, drain_s = \
+        _drain_waves(sched, mels, max_news)
+    launches = {name: fn.launches for name, fn in counted.items()}
+    want = {name: CAPTURE_PASSES * per_run.get(name, 0) for name in counted}
+    lengths = _slot_lengths(sched)
+    commits = eng.offload.ledger.commits
+    att = sched.attribution(power_w)
+    results = sched.run()
+    print(f"continuous {label}: {n_req} requests, {SLOTS} slots, "
+          f"{admissions} admissions, {steps} slot steps, {tokens} tokens in "
+          f"{drain_s * 1e3:.3f} ms; launches from Python {launches} "
+          f"(expected {want}); step captures {captures0} -> {captures} after "
+          f"the first step -> {eng._step_captures}; ledger commits {commits}; "
+          f"slot lengths at the end {lengths} (max_len {CB_MAX_LEN})",
+          flush=True)
+    if launches != want:
+        raise AssertionError(f"continuous {label}: launches {launches} != "
+                             f"{want}")
+    if captures != captures0 + 1 or eng._step_captures != captures:
+        raise AssertionError(f"continuous {label}: step captures "
+                             f"{captures0} -> {captures} -> "
+                             f"{eng._step_captures}")
+    if commits != admissions + steps or admissions != n_req:
+        raise AssertionError(f"continuous {label}: {commits} commits for "
+                             f"{admissions} admissions and {steps} steps")
+    per_req = sum(att["per_request_pdp_j"].values())
+    if not abs(per_req - att["batch_pdp_j"]) <= 1e-9 * att["batch_pdp_j"]:
+        raise AssertionError(f"continuous {label}: per-request PDP {per_req} "
+                             f"!= batch {att['batch_pdp_j']}")
+    got = [results[r] for r in rids]
+    if [r.steps for r in got] != max_news:
+        raise AssertionError(f"continuous {label}: steps "
+                             f"{[r.steps for r in got]} != {max_news}")
+    # batch-1 transcribe of each mel (after the drive: its step capture at
+    # (1, F) is the one-shot path's own)
+    refs = [eng.transcribe(m, max_new=n)[0].tokens
+            for m, n in zip(mels, max_news)]
+    same = [r.tokens == ref for r, ref in zip(got, refs)]
+    print(f"continuous {label}: tokens equal batch-1 transcribe for "
+          f"{sum(same)} of {n_req} requests", flush=True)
+    if not all(same):
+        bad = same.index(False)
+        raise AssertionError(f"continuous {label}: request {bad} tokens "
+                             f"{got[bad].tokens} != transcribe {refs[bad]}")
+
+    # the same drive again on the warm pool (nothing left to capture): its
+    # wall time gives the drain's tokens a second and the steps' host time
+    c0, k0 = eng.offload.ledger.commits, eng._step_captures
+    rids2, admissions2, steps2, tokens2, step_s, _, warm_s = _drain_waves(
+        sched, mels, max_news)
+    again = sched.run()
+    if ([again[r].tokens for r in rids2] != refs
+            or eng._step_captures != k0
+            or eng.offload.ledger.commits - c0 != admissions2 + steps2):
+        raise AssertionError(f"continuous {label}: the warm drive's tokens, "
+                             "captures or commits differ")
+
+    # profiled replays of the slot step; a window whose kernels differ
+    # from the graph's lost records and is profiled again
+    for attempt in range(REPLAY_PROFILES):
+        kernels, top, wall = _profile_slot_steps(sched)
+        seen = {name: n for name, (n, _) in
+                by_route(kernels, replay_kernels["step"]).items()}
+        if seen == replay_kernels["step"]:
+            break
+        print(f"continuous {label}: kernels per slot step {seen} in "
+              f"profiled window {attempt + 1}, expected "
+              f"{replay_kernels['step']}; profiling again", flush=True)
+    if seen != replay_kernels["step"]:
+        raise AssertionError(f"continuous {label}: kernels per replayed "
+                             f"slot step {seen} != {replay_kernels['step']}")
+    dev = sum(ms for _, ms in kernels.values())
+    host = statistics.median(step_s) * 1e3
+    routes = by_route(kernels, replay_kernels["step"])
+    for attempt in range(REPLAY_PROFILES):
+        pre_kernels, pre_top, pre_wall, _ = _profile_admission(sched,
+                                                               mels[0])
+        pre_seen = {name: n for name, (n, _) in
+                    by_route(pre_kernels, replay_kernels["prefill"]).items()}
+        if pre_seen == replay_kernels["prefill"]:
+            break
+    if pre_seen != replay_kernels["prefill"]:
+        raise AssertionError(f"continuous {label}: kernels per admission "
+                             f"{pre_seen} != {replay_kernels['prefill']}")
+    st = eng._static[(1, f)]
+    splice_ms, splice_src = device_ms(lambda: sched.pool.insert(0, st.state))
+    out = dict(
+        path=label, requests=n_req, slots=SLOTS, frames=f,
+        max_len=CB_MAX_LEN, admissions=admissions, slot_steps=steps,
+        tokens=tokens, first_drive_ms=drain_s * 1e3, warm_drive_ms=warm_s * 1e3,
+        drain_tok_s=tokens2 / warm_s, launches=launches,
+        step_captures=eng._step_captures,
+        slot_lengths_after_drain=lengths,
+        slots_past_max_len=sum(n > CB_MAX_LEN for n in lengths),
+        slot_step_host_ms_median=host,
+        slot_step_host_ms_min=min(step_s) * 1e3,
+        slot_step_wall_ms_profiled=wall, slot_step_device_ms=dev,
+        slot_step_idle_share=1 - dev / wall,
+        slot_step_idle_share_unprofiled=1 - dev / host,
+        slot_step_kernels=seen,
+        slot_step_kernel_device_ms={k: v[1] for k, v in routes.items()},
+        slot_step_top_kernels=top,
+        admission_kernels=pre_seen,
+        admission_device_ms=sum(ms for _, ms in pre_kernels.values()),
+        admission_wall_ms_profiled=pre_wall, admission_top_kernels=pre_top,
+        splice_device_ms=splice_ms, splice_ms_source=splice_src,
+        prefill_ms_median=statistics.median(r.prefill_s for r in got) * 1e3,
+        kv_committed_bytes=sched.kv_committed_bytes,
+        kv_utilization_peak=sched.kv_utilization_peak,
+        batch1_step_device_ms=batch1.get("decode_device_ms_per_step"),
+        batch1_decode_ms_per_token=batch1.get("decode_ms_per_token"),
+        attribution_batch_pdp_j=att["batch_pdp_j"],
+        attribution_per_request_sum_j=per_req, power_w=power_w)
+    print(f"continuous {label} summary: {json.dumps(out)}", flush=True)
+    if bench:
+        out["benchmark"] = cb_benchmark(eng, mels, max_news, rng, power_w)
+        lengths = out["benchmark"]["continuous"]["slot_lengths_at_end"]
+        out["slots_past_max_len"] += sum(n > CB_MAX_LEN for n in lengths)
+    return launches, out
+
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1432,14 +1843,16 @@ def main() -> int:
                "flash_attention_fwd": flash_attention.flash_attention_fwd,
                "q8_matmul": q8_matmul.q8_matmul,
                "q8_matvec": q8_matvec.q8_matvec}
-    captured_path("q8_0", q8_eng, q8_mel, q8_tokens, q8_split, counted,
-                  {"q8_matmul": 32, "q8_matvec": 33},
-                  {"prefill": {"q8_wgmma_kernel": 32},
-                   "step": {"q8_matvec_kernel": 33}}, "q8_0")
-    captured_path("dense+flash", d_eng, d_mel, d_tokens, d_split, counted,
-                  {"bf16_matmul": 32 + 33, "flash_attention_fwd": 4},
-                  {"prefill": {"wgmma_kernel": 32, "flash_fwd_mma_kernel": 4},
-                   "step": {"gemv_bf16_kernel": 33}}, "fp16")
+    q8_run = {"q8_matmul": 32, "q8_matvec": 33}
+    q8_replay = {"prefill": {"q8_wgmma_kernel": 32},
+                 "step": {"q8_matvec_kernel": 33}}
+    d_run = {"bf16_matmul": 32 + 33, "flash_attention_fwd": 4}
+    d_replay = {"prefill": {"wgmma_kernel": 32, "flash_fwd_mma_kernel": 4},
+                "step": {"gemv_bf16_kernel": 33}}
+    q8_captured = captured_path("q8_0", q8_eng, q8_mel, q8_tokens, q8_split,
+                                counted, q8_run, q8_replay, "q8_0")
+    d_captured = captured_path("dense+flash", d_eng, d_mel, d_tokens, d_split,
+                               counted, d_run, d_replay, "fp16")
     power_pdp("q8_0", q8_eng, q8_mel, "q8_0")
     power_pdp("dense+flash", d_eng, d_mel, "fp16")
     cdf = coverage_cdf(enumerate_whisper(get_config("whisper-tiny")))
@@ -1475,13 +1888,30 @@ def main() -> int:
             tuned_launches[name] += n
     print(f"tuning phase: {time.perf_counter() - t0:.1f}s", flush=True)
 
+    t0 = time.perf_counter()
+    path_launches = {"main": launches}
+    for label, eng0, run, replay, n_req, batch1, bench in (
+            ("q8_0", q8_eng, q8_run, q8_replay, CB_REQUESTS, q8_captured,
+             True),
+            ("dense+flash", d_eng, d_run, d_replay, CB_DENSE_REQUESTS,
+             d_captured, False)):
+        got, summary = continuous_path(label, eng0, counted, run, replay,
+                                       n_req, batch1, bench)
+        path_launches[f"continuous {label}"] = got
+        if bench and not summary["slots_past_max_len"]:
+            raise AssertionError("continuous q8_0: no free slot passed "
+                                 "max_len, so the clamp went untested")
+    print(f"continuous batching phase: {time.perf_counter() - t0:.1f}s",
+          flush=True)
+
     kernels = []
     for name, meta in KERNELS.items():
         rows = records[name]
 
         def total(key, per=None):   # over one prefill and/or decode step
             return sum(r[key] * r["per_step"] for r in rows
-                       if per in (None, r["per"]))
+                       if r["per"] == per or (per is None
+                                              and r["per"] in SUMMED))
         b_ms, b_by = bound(total("bytes_ms"), total("ops_ms"))
         # further yardsticks' times (bf16_matmul's bf16-output call)
         extras = [key for key in rows[0]
@@ -1494,10 +1924,12 @@ def main() -> int:
             bound_ms=b_ms, bound_by=b_by,
             library_ms=total("library_ms"),
             library_call=meta["library_call"],
-            per=" + one ".join(meta["shapes"]),
+            per=" + one ".join(p for p in meta["shapes"] if p in SUMMED),
             ms_source={key: sorted({r["ms_source"][key] for r in rows})
                        for key in ("ms", "plain_ms", "library_ms", *extras)},
             tuned_launches=tuned_launches[name],
+            launches_by_path={path: got.get(name, 0)
+                              for path, got in path_launches.items()},
             tiles=tile_records.get(name, []),
             **{key: total(key) for key in extras},
             by_phase={per: {key: total(key, per) for key in (

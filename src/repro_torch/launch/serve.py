@@ -1,13 +1,15 @@
-"""One-shot serving launcher of the port:
+"""Serving launcher of the port:
 ``python -m repro_torch.launch.serve --arch whisper-tiny [...]``.
 
 Boots the ServeEngine with random weights from ``--seed`` (Q8_0 on load by
-default), transcribes a batch of synthetic mel requests and prints each
-request's latency and tokens, then the offload ledger when ``--offload``
-routes the linears through the dispatcher, then one ``energy_report`` JSON
-object: PDP/EDP at the card's power limit as nvidia-smi reads it, or at
-``--power-w``, which the CPU requires. Runs on the card unless
-``--device cpu`` is given.
+default) and serves a set of synthetic mel requests: as one static batch
+(``transcribe``), or with ``--continuous`` through the continuous-batching
+scheduler over a pool of ``--slots`` slots, drained step by step, whose
+per-request attribution it prints. Then each request's latency and tokens,
+the offload ledger when ``--offload`` routes the linears through the
+dispatcher, and one ``energy_report`` JSON object. Power is the card's
+limit as nvidia-smi reads it, or ``--power-w``, which the CPU requires.
+Runs on the card unless ``--device cpu`` is given.
 """
 from __future__ import annotations
 
@@ -33,6 +35,11 @@ def main(argv=None):
     ap.add_argument("--quant", default="q8_0", choices=["none", "q8_0"])
     ap.add_argument("--offload", action="store_true",
                     help="route linears through the offload dispatcher")
+    ap.add_argument("--continuous", action="store_true",
+                    help="continuous-batching scheduler instead of one "
+                         "static batch")
+    ap.add_argument("--slots", type=int, default=4,
+                    help="slot-pool width for --continuous")
     ap.add_argument("--full", action="store_true",
                     help="the published widths (default: the smoke config)")
     ap.add_argument("--seed", type=int, default=0)
@@ -56,16 +63,40 @@ def main(argv=None):
     rng = np.random.default_rng(args.seed)
     mel = rng.standard_normal((args.requests, frames, cfg.n_mels)
                               ).astype(np.float32)
-    results = engine.transcribe(mel, max_new=args.max_new)
+    power_w = args.power_w
+    if power_w is None:
+        power_w = energy.card_power_limit_w(engine.device.index or 0)
+    if args.continuous:
+        sched = engine.scheduler(n_slots=args.slots, n_frames=frames)
+        rids = [sched.submit(mel[i:i + 1], max_new=args.max_new)
+                for i in range(args.requests)]
+        streamed = {r: 0 for r in rids}
+
+        def on_token(ev):
+            streamed[ev.rid] += 1
+
+        # drain by hand so that attribution() sees the finished, unclaimed
+        # results; run() then claims them
+        while sched.n_queued or sched.n_active:
+            sched.admit()
+            for ev in sched.decode_step():
+                on_token(ev)
+        attribution = sched.attribution(power_w)
+        got = sched.run(on_token=on_token)
+        results = [got[r] for r in rids]
+        print(f"continuous batching: {args.slots} slots, "
+              f"{sum(streamed.values())} tokens streamed, "
+              f"{sched.step_captures} step capture(s)")
+        print(json.dumps({"attribution": attribution, "power_w": power_w},
+                         indent=1, sort_keys=True))
+    else:
+        results = engine.transcribe(mel, max_new=args.max_new)
     for i, r in enumerate(results):
         print(f"req{i}: {r.steps} tokens in {r.total_s:.3f}s "
               f"(prefill {r.prefill_s:.3f}s) tokens={r.tokens[:8]}...")
     if offload is not None:
         print(json.dumps({"ledger": asdict(offload.stats)}, indent=1,
                          sort_keys=True))
-    power_w = args.power_w
-    if power_w is None:
-        power_w = energy.card_power_limit_w(engine.device.index or 0)
     print(json.dumps({"energy": engine.energy_report(results, power_w),
                       "power_w": power_w}, indent=1, sort_keys=True))
     return 0

@@ -8,6 +8,12 @@ reference writes them. The reference contracts with
 each contraction, which is the same function (bf16 products are exact in
 f32). The probabilities are cast to the value type before the second
 contraction, as in the reference.
+
+A decode step of several rows runs its two contractions one row at a
+time: on the card an einsum becomes a batched GEMM whose kernel, and so
+whose order of summation, depends on how many rows the batch holds. Each
+row of a continuous-batching slot step then gets the bits a batch-1 step
+gives it, and the greedy tokens agree; a batch-1 step is unchanged.
 """
 from __future__ import annotations
 
@@ -106,14 +112,15 @@ def attention(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
 
 
 class KVCache(NamedTuple):
-    """Contiguous decode cache with one scalar length: every row of the
-    batch sits at the same position (lockstep decode). ``length`` is an
-    int32 device scalar, as in the reference, so that a decode step reads
-    its position on the device and a captured step replays at whatever
-    position the cache has reached."""
+    """Contiguous decode cache. ``length`` is an int32 device tensor, as in
+    the reference, so that a decode step reads its positions on the device
+    and a captured step replays at whatever positions the cache has
+    reached: a scalar ``()`` when every row sits at the same position
+    (lockstep decode), or ``(B,)`` in the slot-pool layout, where
+    continuous batching keeps each row at its own decode position."""
     k: torch.Tensor       # (B, S_max, Hkv, D)
     v: torch.Tensor       # (B, S_max, Hkv, D)
-    length: torch.Tensor  # () int32: tokens currently valid
+    length: torch.Tensor  # () or (B,) int32: tokens currently valid
 
     @classmethod
     def zeros(cls, b: int, s_max: int, hkv: int, hd: int,
@@ -127,15 +134,35 @@ class KVCache(NamedTuple):
 
 def _cache_update(buf: torch.Tensor, val: torch.Tensor,
                   length: torch.Tensor) -> torch.Tensor:
-    """Write ``val``'s W positions into every row of ``buf`` from the
-    device index ``length`` on, with no host read. Updates ``buf`` in place
-    — the cache is the decode step's largest buffer, and a captured step
-    rereads the storage it was captured with — and returns it. The caller
-    checks that the cache has room (it knows the step count on the host):
-    an index past the end is not checked here."""
-    idx = length.to(torch.long) + torch.arange(val.shape[1],
-                                               device=buf.device)
-    return buf.index_copy_(1, idx, val.to(buf.dtype))
+    """Write ``val``'s W positions into ``buf`` from the device index
+    ``length`` on, with no host read. Updates ``buf`` in place — the cache
+    is the decode step's largest buffer, and a captured step rereads the
+    storage it was captured with — and returns it.
+
+    A scalar ``length`` writes every row at one index; the caller checks
+    that the cache has room (it knows the step count on the host), and an
+    index past the end is not checked here. A ``(B,)`` length writes row b
+    at ``length[b]`` (W = 1), clamped to the last position: a free slot of
+    the pool keeps decoding after its request left and can pass the end,
+    and an index out of range would be a device-side assert on the card.
+    The reference's ``dynamic_update_slice`` clamps the same way; an active
+    row never reaches the clamp (the scheduler's budget keeps it within the
+    cache)."""
+    if length.dim() == 0:
+        idx = length.to(torch.long) + torch.arange(val.shape[1],
+                                                   device=buf.device)
+        return buf.index_copy_(1, idx, val.to(buf.dtype))
+    rows = torch.arange(buf.shape[0], device=buf.device)
+    idx = length.clamp(max=buf.shape[1] - 1).to(torch.long)
+    return buf.index_put_((rows, idx), val[:, 0].to(buf.dtype))
+
+
+def _rows_apart(fn, a: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``fn(a, c)`` over the batch; with more than one row, one row at a
+    time, each row exactly the batch-1 contraction."""
+    if a.shape[0] == 1:
+        return fn(a, c)
+    return torch.cat([fn(a[i:i + 1], c[i:i + 1]) for i in range(a.shape[0])])
 
 
 def decode_attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
@@ -147,7 +174,9 @@ def decode_attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
     ``memory_kv`` (the precomputed cross K/V) it attends over the encoder
     memory. Returns (out, cache): the self-attention cache is advanced in
     place (its K/V and length keep their storage), where the reference
-    returns a new one."""
+    returns a new one. ``cache.length`` may be ``()`` (lockstep) or
+    ``(B,)`` (slot pool): each row then writes and attends at its own
+    position."""
     b, w = x.shape[0], x.shape[1]
     if w != 1:
         raise ValueError("the port decodes one position per step")
@@ -158,19 +187,26 @@ def decode_attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
         vnew = _split_heads(layers.linear(p["v"], x, engine, "dec.attn.v"), hkv)
         k = _cache_update(cache.k, knew, cache.length)
         v = _cache_update(cache.v, vnew, cache.length)
-        valid = torch.arange(k.shape[1], device=x.device) <= cache.length
+        pos_idx = torch.arange(k.shape[1], device=x.device)
+        if cache.length.dim():                     # (B, 1, 1, 1, S)
+            valid = (pos_idx[None, :] <= cache.length[:, None])[
+                :, None, None, None, :]
+        else:
+            valid = pos_idx <= cache.length
         cache.length.add_(w)
     else:
         k, v = memory_kv
         valid = None
     g = hq // hkv
     qg = q.reshape(b, w, hkv, g, hd).to(torch.float32)
-    logits = torch.einsum("bqhgd,bshd->bhgqs", qg,
-                          k.to(torch.float32)) * hd ** -0.5
+    logits = _rows_apart(lambda qi, ki: torch.einsum("bqhgd,bshd->bhgqs",
+                                                     qi, ki),
+                         qg, k.to(torch.float32)) * hd ** -0.5
     if valid is not None:
         logits = torch.where(valid, logits, torch.full_like(logits, NEG_INF))
     probs = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bhgqs,bshd->bqhgd", probs.to(v.dtype).to(torch.float32),
-                       v.to(torch.float32))
+    out = _rows_apart(lambda pi, vi: torch.einsum("bhgqs,bshd->bqhgd", pi, vi),
+                      probs.to(v.dtype).to(torch.float32),
+                      v.to(torch.float32))
     out = out.to(x.dtype).reshape(b, w, hq * hd)
     return layers.linear(p["o"], out, engine, "dec.attn.o"), cache

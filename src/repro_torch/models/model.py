@@ -4,11 +4,14 @@ reference's family dispatch (the port's configs are audio-only).
   init_params(gen, cfg, max_positions, device) -> param dict
   init_serve_state(params, cfg, batch, max_len, memory=...) -> ServeState
   zeros_serve_state(cfg, batch, frames, max_len, device=...) -> ServeState
+  zeros_slot_state(cfg, n_slots, frames, max_len, device=...) -> ServeState
+  slot_layout(state, batch)                    -> ServeState (slot layout)
+  state_kv_bytes(state)                        -> committed bytes
   serve_step(params, cfg, token, state)        -> (logits, state')
 """
 from __future__ import annotations
 
-from typing import Any, NamedTuple, Optional, Tuple
+from typing import Any, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -19,10 +22,12 @@ from repro_torch.models import layers, whisper
 
 class ServeState(NamedTuple):
     """Decode state: the family's layer states and the number of steps
-    taken, an int32 device scalar advanced in place (the reference's
-    standard layout)."""
+    taken, an int32 device tensor advanced in place: ``()`` in the
+    reference's standard layout, ``(B,)`` in the slot layout of a
+    continuous-batching pool, where every counter (``step`` and each
+    layer's cache length) is per row."""
     layer_states: Any     # WhisperDecodeState
-    step: torch.Tensor    # () int32
+    step: torch.Tensor    # () or (B,) int32
 
 
 def to_device(tree, device: torch.device):
@@ -64,6 +69,48 @@ def zeros_serve_state(cfg: ModelConfig, batch: int, frames: int,
                                     device=device)
     return ServeState(layer_states=st, step=torch.zeros(
         (), dtype=torch.int32, device=device))
+
+
+def zeros_slot_state(cfg: ModelConfig, n_slots: int, frames: int,
+                     max_len: int, *, device) -> ServeState:
+    """A slot-layout ServeState of zeros: the pool of a continuous-batching
+    scheduler, ``n_slots`` rows of ``frames`` cross-K/V frames and
+    ``max_len`` self-KV positions, with ``(n_slots,)`` counters."""
+    st = whisper.zeros_slot_decode_state(cfg, n_slots, frames, max_len,
+                                         dtype=layers.DTYPES[cfg.dtype],
+                                         device=device)
+    return ServeState(layer_states=st, step=torch.zeros(
+        (n_slots,), dtype=torch.int32, device=device))
+
+
+def slot_layout(state: ServeState, batch: int) -> ServeState:
+    """Standard -> slot layout: every scalar counter (``step`` and each
+    layer's cache length) becomes a ``(batch,)`` vector holding its value.
+    Returns a new ServeState: the counters are new tensors, the data
+    tensors (self and cross K/V) are the same tensors as ``state``'s.
+    Counters already per row pass through, so it is idempotent."""
+    def per_row(t: torch.Tensor) -> torch.Tensor:
+        return t.expand(batch).clone() if t.dim() == 0 else t
+    ls = state.layer_states
+    return ServeState(
+        layer_states=ls._replace(self_kv=[
+            kv._replace(length=per_row(kv.length)) for kv in ls.self_kv]),
+        step=per_row(state.step))
+
+
+def state_tensors(state: Any) -> List[torch.Tensor]:
+    """Every tensor of a decode state (NamedTuples, lists and tuples of
+    tensors), in field order."""
+    if isinstance(state, torch.Tensor):
+        return [state]
+    return [t for part in state for t in state_tensors(part)]
+
+
+def state_kv_bytes(state: Any) -> int:
+    """Committed bytes of a decode state: its KV buffers and counters. The
+    reference stacks the layers of a leaf where the port keeps a list per
+    layer; the bytes are the same."""
+    return sum(t.numel() * t.element_size() for t in state_tensors(state))
 
 
 def serve_step(params: dict, cfg: ModelConfig, token: torch.Tensor,

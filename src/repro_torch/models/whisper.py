@@ -140,6 +140,20 @@ def zeros_decode_state(cfg: ModelConfig, batch: int, frames: int,
         cross_kv=[(zeros(), zeros()) for _ in range(cfg.num_layers)])
 
 
+def zeros_slot_decode_state(cfg: ModelConfig, n_slots: int, frames: int,
+                            max_len: int, *, device,
+                            dtype=torch.bfloat16) -> WhisperDecodeState:
+    """The slot-layout twin of ``zeros_decode_state``: ``n_slots`` rows,
+    each layer's cache with ``(n_slots,)`` lengths, so that every slot of a
+    continuous-batching pool decodes at its own position."""
+    st = zeros_decode_state(cfg, n_slots, frames, max_len, device=device,
+                            dtype=dtype)
+    return st._replace(self_kv=[
+        kv._replace(length=torch.zeros((n_slots,), dtype=torch.int32,
+                                       device=device))
+        for kv in st.self_kv])
+
+
 def warm_tuning(cfg: ModelConfig, engine, *, n_frames: int = 1500,
                 n_tokens: int = 27, batch: int = 1,
                 quant: Optional[str] = None) -> int:
@@ -162,13 +176,21 @@ def warm_tuning(cfg: ModelConfig, engine, *, n_frames: int = 1500,
 def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
                 state: WhisperDecodeState, *, engine=None
                 ) -> Tuple[torch.Tensor, WhisperDecodeState]:
-    """token: (B, 1) int -> (logits (B, 1, V), state'). The position is
-    the first layer's self-KV length, a device scalar (every row decodes
-    in lockstep). The self-KV caches advance in place, so ``state'``
-    holds the same tensors as ``state``."""
+    """token: (B, 1) int -> (logits (B, 1, V), state'). The positions are
+    the first layer's self-KV length, read on the device: a scalar when
+    every row decodes in lockstep, ``(B,)`` in the slot-pool layout, where
+    each row reads its own positional row (clamped to the table's last
+    row: a free slot's position keeps rising after its request left).
+    The self-KV caches advance in place, so ``state'`` holds the same
+    tensors as ``state``."""
     x = layers.embed(params["embed"], token)
-    pos = state.self_kv[0].length.reshape(1)      # read on the device
-    x = x + params["dec_pos"]["table"].index_select(0, pos).to(x.dtype)
+    table = params["dec_pos"]["table"]
+    length = state.self_kv[0].length
+    if length.dim():                               # per-slot positions (B,)
+        pos = length.clamp(max=table.shape[0] - 1)
+        x = x + table.index_select(0, pos)[:, None].to(x.dtype)
+    else:
+        x = x + table.index_select(0, length.reshape(1)).to(x.dtype)
     for p, kv, ck_cv in zip(params["dec_blocks"], state.self_kv,
                             state.cross_kv):
         h = layers.norm_apply(p["norm1"], x, cfg.norm)

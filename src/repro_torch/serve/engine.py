@@ -1,5 +1,7 @@
 """Serving engine: one-shot batched Whisper transcription with the paper's
-offload paths, Q8_0 or dense (FP16), on the H100 or (when asked) the CPU.
+offload paths, Q8_0 or dense (FP16), on the H100 or (when asked) the CPU,
+and the entry points of continuous batching (``scheduler``,
+``submit_audio``, ``run``: ``serve/scheduler.py``).
 
 The system the paper builds in whisper.cpp terms: weights quantized to
 Q8_0 on load (or kept dense with ``quant="none"``), every linear routed
@@ -23,7 +25,10 @@ that fails raises: nothing falls back to the eager loop. On the CPU the
 same functions are called directly, each run recorded apart. Either way
 the ledger is accounted only by committing the plans: the prefill's once,
 the step's once per step taken. The eager ``prefill()`` and ``step()``
-stay public.
+stay public. ``prefill_one`` runs the batch-1 prefill program for the
+scheduler's admissions; the scheduler's slot step is a program of its own
+over its pool (its graph is the scheduler's, its plan this engine's at
+``plan_key("step", quant, n_slots, F)``).
 
 With an autotuner on the offload engine (``OffloadEngine(tuner=...)``),
 every linear routes by a tuned plan entry: the burst and the kernel's
@@ -48,6 +53,7 @@ from dataclasses import dataclass, field
 from typing import (Any, Callable, Dict, Hashable, List, NamedTuple,
                     Optional, Tuple)
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
@@ -66,6 +72,11 @@ class GenerationResult:
     prefill_s: float
     decode_s: float
     steps: int
+    # the scheduler's lifecycle timings: wall time queued before admission,
+    # and submit -> first streamed token. The one-shot ``transcribe`` has
+    # no queue, so both stay 0.0 there.
+    queue_wait_s: float = 0.0
+    ttft_s: float = 0.0
 
     @property
     def total_s(self) -> float:
@@ -128,8 +139,10 @@ class ServeEngine:
                                                     repr=False)
     _graphs: Dict[Hashable, _Program] = field(default_factory=dict,
                                               repr=False)
-    #: step graphs captured: rises only at a new (batch, frames) key
+    #: step graphs captured: rises only at a new (batch, frames) key, and
+    #: once per continuous-batching pool (its slot step)
     _step_captures: int = field(default=0, repr=False)
+    _scheduler: Any = field(default=None, repr=False)
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -281,16 +294,19 @@ class ServeEngine:
         return _Program(graph, plan)
 
     def _prepare(self, st: _Static, pre_key: Hashable,
-                 step_key: Hashable) -> None:
-        """On a CUDA device, capture the prefill and the step at their
-        keys' first request. The step's warm-up advances the decode state;
-        the prefill that runs next resets it."""
-        if self.device.type != "cuda" or step_key in self._graphs:
+                 step_key: Optional[Hashable] = None) -> None:
+        """On a CUDA device, capture the prefill (and the step, when
+        ``step_key`` is given) at their keys' first request. The step's
+        warm-up advances the decode state; the prefill that runs next
+        resets it."""
+        if self.device.type != "cuda":
             return
-        self._graphs[pre_key] = self._capture(
-            pre_key, lambda: self._prefill_fn(st))
-        self._graphs[step_key] = self._capture(
-            step_key, lambda: self._step_fn(st))
+        if pre_key not in self._graphs:
+            self._graphs[pre_key] = self._capture(
+                pre_key, lambda: self._prefill_fn(st))
+        if step_key is not None and step_key not in self._graphs:
+            self._graphs[step_key] = self._capture(
+                step_key, lambda: self._step_fn(st))
 
     def _run(self, key: Hashable,
              fn: Callable[[], None]) -> DispatchPlan:
@@ -356,11 +372,7 @@ class ServeEngine:
             st = self._static_for(b, f)
             st.mel.copy_(mel_t)
             self._prepare(st, pre_key, step_key)
-            _sync(self.device)
-            t0 = time.perf_counter()
-            recorded = self._run(pre_key, lambda: self._prefill_fn(st))
-            _sync(self.device)
-            prefill_s = time.perf_counter() - t0
+            recorded, prefill_s = self._timed_prefill(st, pre_key)
             st.token.fill_(sot_id)
             r = self._greedy_loop(st, step_key, max_new)
         if self.offload is not None:
@@ -371,6 +383,81 @@ class ServeEngine:
                               times=r["steps"])
         self._save_tuning(searches)
         return self._finalize(r, prefill_s)
+
+    def _timed_prefill(self, st: _Static, key: Hashable
+                       ) -> Tuple[DispatchPlan, float]:
+        """One run of the prefill program over ``st`` (captured first on the
+        card, outside the timer, if its key has no graph yet): the run's
+        plan and its seconds, host clock, synchronized."""
+        self._prepare(st, key)
+        _sync(self.device)
+        t0 = time.perf_counter()
+        recorded = self._run(key, lambda: self._prefill_fn(st))
+        _sync(self.device)
+        return recorded, time.perf_counter() - t0
+
+    def prefill_one(self, mel: torch.Tensor
+                    ) -> Tuple[model_lib.ServeState, Optional[DispatchPlan],
+                               float]:
+        """One run of the batch-1 prefill program of ``transcribe`` at
+        ``plan_key("prefill", quant, 1, F)`` (a graph replay on the card):
+        the continuous-batching scheduler's admission. ``mel``: (1, F,
+        n_mels). Returns the program's decode state (the engine's static
+        buffers, which the next run at the key overwrites: the caller
+        copies it out first), the key's cached plan (None without an
+        offload engine) and the run's seconds. Commits nothing."""
+        key = self._key("prefill", 1, mel.shape[1])
+        with torch.no_grad():
+            st = self._static_for(1, mel.shape[1])
+            st.mel.copy_(mel)
+            recorded, prefill_s = self._timed_prefill(st, key)
+        return st.state, self._plan(key, recorded), prefill_s
+
+    # -- continuous batching: wrappers over the slot scheduler ---------------
+    def scheduler(self, n_slots: Optional[int] = None,
+                  n_frames: Optional[int] = None):
+        """The engine's continuous-batching scheduler. With no arguments
+        (or matching geometry) the existing scheduler is returned; an
+        explicit geometry change builds a new pool, refusing while the old
+        scheduler still holds queued or active requests or unclaimed
+        results. ``n_frames``, the pool's fixed mel capacity, is needed on
+        first creation (``submit_audio`` infers it from the first
+        utterance); dimensions left as None keep the live scheduler's."""
+        from repro_torch.serve.scheduler import ContinuousBatchingScheduler
+        s = self._scheduler
+        want_slots = n_slots if n_slots is not None else \
+            (s.n_slots if s is not None else 4)
+        want_frames = n_frames if n_frames is not None else \
+            (s.n_frames if s is not None else None)
+        if (s is None or s.n_slots != want_slots
+                or s.n_frames != want_frames):
+            if s is not None and (s.n_queued or s.n_active or s.finished):
+                raise RuntimeError(
+                    "scheduler geometry change with requests in flight or "
+                    "unclaimed results — drain with run() first")
+            self._scheduler = ContinuousBatchingScheduler(
+                self, n_slots=want_slots, n_frames=want_frames)
+        return self._scheduler
+
+    def submit_audio(self, mel, max_new: int = 32, *,
+                     n_slots: Optional[int] = None,
+                     n_frames: Optional[int] = None, sot_id: int = 1) -> int:
+        """Queue one utterance (F, n_mels) / (1, F, n_mels), padded to the
+        pool's frame capacity. ``n_frames`` fixes that capacity on the
+        first call; omitted, it is this utterance's frame count."""
+        if self._scheduler is None and n_frames is None:
+            arr = np.asarray(mel)
+            n_frames = int(arr.shape[0] if arr.ndim == 2 else arr.shape[1])
+        return self.scheduler(n_slots, n_frames).submit(
+            mel, max_new=max_new, sot_id=sot_id)
+
+    def run(self, on_token=None) -> Dict[int, GenerationResult]:
+        """Drain the scheduler: admit, decode and evict until queue and
+        slots are empty, streaming tokens through ``on_token``. Returns
+        {request id: GenerationResult}."""
+        if self._scheduler is None:
+            return {}
+        return self._scheduler.run(on_token=on_token)
 
     def energy_report(self, results: List[GenerationResult],
                       platform_w: float) -> Dict[str, Any]:
