@@ -132,11 +132,44 @@ own kernels with nvcc. Phases, each of which fails the run on error:
     by its own method (min-of-probes service times, one Poisson trace at
     3x load on a virtual clock), printed and not held to a limit.
 
+11. Paged serving, on each path's weights (a new engine: max_len 16 + 8,
+    no EOS): ``benchmarks/paged_serving.py``'s three modes over the same
+    arrival trace (its ``_workload`` at the full config from
+    default_rng(0): 24 requests over 3 utterances drawn with reuse, max_new
+    in 6-16, Poisson arrivals at 3x load, replayed on its virtual step
+    clock; each utterance a 1500-frame mel from default_rng(1)): the paged
+    pool (12 logical slots, pages of 4 positions, ``1 + 12 x pages_per``
+    self pages, one cross page of 1500 frames an utterance, 1 + 3 cross
+    pages), the tight arena (4 slots, ``2 + 2 x pages_per`` self pages)
+    and the contiguous pool (4 slots), the paged pool first. Launches from
+    Python per drive: only the captures of that drive (the paged pool's
+    first admission captures the batch-1 prefill and step, the replays'
+    program, and its slot step). Fails unless every request's tokens agree
+    across the modes and with a batch-1 ``transcribe`` of its mel, the
+    tight arena preempted, the paged pool hit a shared prefix, each pool
+    captured one slot step and the engine the batch-1 step once, the
+    ledger's commits equal prefills (misses and replays') + slot steps +
+    replays and its FLOPs the plans' times prefills, steps and replayed
+    steps, per-request PDP sums to the batch's (rel 1e-9), the paged pool
+    admits at least 2x the contiguous pool's requests per committed byte
+    (the reference's ``mem_2x``), a profiled paged slot step holds 33
+    ``q8_matvec_kernel`` (dense: 33 ``gemv_bf16_kernel``), and a free
+    slot's length passes max_len with no device assert. Printed: each
+    mode's tokens a second (of the same drive repeated on the warm pool:
+    the first one's wall holds the captures), p50/p95/p99 latency in
+    steps, committed KV bytes, peak utilization and activity; the paged
+    slot step's device time, idle share, top kernels and index kernels
+    beside phase 10's 4-slot step, the gathers' device time alone, the
+    replay's device time a token, preemptions and prefix hits. Phase 2
+    holds ``q8_matvec`` and ``bf16_matmul``'s decode launch at M = 12
+    (``per`` "paged slot step", their ``MT = 16`` instantiations).
+
 The last two lines are the kernels' JSON record and the result line; each
 kernel's record also carries its launches on the tuned paths' eager loops
 (``tuned_launches``), its launches on each path's drive
-(``launches_by_path``: the main path's, and phase 10's) and its tiles'
-times (``tiles``).
+(``launches_by_path``: the main path's, phase 10's, and phase 11's paged
+pool drives, both paths summed, under "paged") and its tiles' times
+(``tiles``).
 """
 from __future__ import annotations
 
@@ -187,6 +220,10 @@ BF16_STEP_SHAPES = [
 # SLOTS, on the MT = 4 instantiations of the decode kernels
 MATVEC_SLOT_SHAPES = [(4, *shape[1:]) for shape in MATVEC_SHAPES]
 BF16_SLOT_SHAPES = [(4, *shape[1:]) for shape in BF16_STEP_SHAPES]
+# the paged slot step (phase 11): 12 logical slots, every decode linear at
+# M = 12, on the MT = 16 instantiations
+MATVEC_PAGED_SHAPES = [(12, *shape[1:]) for shape in MATVEC_SHAPES]
+BF16_PAGED_SHAPES = [(12, *shape[1:]) for shape in BF16_STEP_SHAPES]
 BF16_PREFILL_SHAPES = [
     (1500, 384, 256, 384, 24, "bfloat16"),    # enc q/k/v/o + dec.cross.k/v
     (1500, 1536, 256, 384, 4, "bfloat16"),    # enc ffn.up
@@ -204,7 +241,8 @@ KERNELS = {
     "q8_matvec": dict(source="src/repro_torch/csrc/q8_matvec.cu",
                       replaces="src/repro/kernels/q8_matvec.py:68",
                       shapes={"decode step": MATVEC_SHAPES,
-                              "slot decode step": MATVEC_SLOT_SHAPES},
+                              "slot decode step": MATVEC_SLOT_SHAPES,
+                              "paged slot step": MATVEC_PAGED_SHAPES},
                       library_call="torch.matmul(x_f32, W_dequantized_f32.T):"
                                    " no single PyTorch call computes a Q8_0 "
                                    "product"),
@@ -218,7 +256,8 @@ KERNELS = {
                         replaces="src/repro/kernels/bf16_matmul.py:76",
                         shapes={"prefill": BF16_PREFILL_SHAPES,
                                 "decode step": BF16_STEP_SHAPES,
-                                "slot decode step": BF16_SLOT_SHAPES},
+                                "slot decode step": BF16_SLOT_SHAPES,
+                                "paged slot step": BF16_PAGED_SHAPES},
                         library_call="torch.mm(x_bf16, W_bf16.T, out_dtype="
                                      "torch.float32) on the same strided "
                                      "bf16 operands (cuBLAS, f32 output as "
@@ -289,6 +328,20 @@ CB_SECOND_WAVE = 8               # requests of the wave submitted mid-drain
 CB_WAVE_GAP = 10                 # slot steps before it
 CB_DENSE_REQUESTS = 6
 CB_CAL_ROUNDS = 5                # the benchmark's _calibrate rounds
+# phase 11, benchmarks/paged_serving.py::_workload and _variant (full
+# config): 24 requests over 3 distinct utterances drawn with reuse, max_new
+# in 6-16, Poisson arrivals at 3x load, all from default_rng(0) in the
+# reference's order (its 32-frame mels drawn and discarded); each distinct
+# utterance then a 1500-frame mel from default_rng(1). max_len = 16 + 8;
+# pages of 4 positions; 3 logical slots per contiguous slot
+PG_REQUESTS = 24
+PG_DISTINCT = 3
+PG_BUDGETS = (6, 16)
+PG_REF_FRAMES = 32
+PG_MAX_LEN = 16 + 8
+PG_PAGE = 4
+PG_OVERSUB = 3
+PG_SLOTS = PG_OVERSUB * SLOTS    # the paged pool's 12 logical slots
 
 
 def card_line() -> str:
@@ -1801,6 +1854,330 @@ def continuous_path(label, eng0, counted, per_run, replay_kernels, n_req,
 
 
 
+def _pg_workload(cfg):
+    """benchmarks/paged_serving.py::_workload at its full config, drawn
+    from default_rng(0) in the reference's order: PG_DISTINCT mels of
+    PG_REF_FRAMES frames (drawn and discarded: the trace stays the
+    reference's), which utterance each request repeats, the max_news in
+    PG_BUDGETS, the Poisson arrival steps at 3x load. Each distinct
+    utterance is then a 1500-frame mel from default_rng(1). Returns (mels
+    by request, the distinct mels, which one each request is, max_news,
+    arrivals)."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    for _ in range(PG_DISTINCT):
+        rng.standard_normal((1, PG_REF_FRAMES, cfg.n_mels))
+    which = [int(rng.integers(PG_DISTINCT)) for _ in range(PG_REQUESTS)]
+    lo, hi = PG_BUDGETS
+    max_news = [int(rng.integers(lo, hi + 1)) for _ in range(PG_REQUESTS)]
+    mean_gap = float(np.mean(max_news)) / (3 * SLOTS)
+    arrivals = np.floor(np.cumsum(rng.exponential(mean_gap, PG_REQUESTS)))
+    real = np.random.default_rng(1)
+    distinct = [real.standard_normal((1, cfg.encoder_ctx, cfg.n_mels)
+                                     ).astype(np.float32)
+                for _ in range(PG_DISTINCT)]
+    return [distinct[i] for i in which], distinct, which, max_news, arrivals
+
+
+def _pg_drive(sched, mels, max_news, arrivals, power_w):
+    """benchmarks/paged_serving.py::_drive: the arrival trace replayed on a
+    virtual clock of one unit a slot step (an idle scheduler jumps to the
+    next arrival), admissions and steps driven by hand. Returns the tokens
+    in submission order, the slot steps run, each step's host seconds,
+    the drive's wall seconds and tokens a second, p50/p95/p99 latency in
+    steps, the KV bytes and peaks, and the attribution's sums."""
+    import numpy as np
+    import torch
+    t, i, n = 0, 0, len(mels)
+    rid2idx, done_at, step_s = {}, {}, []
+    torch.cuda.synchronize()
+    wall0 = time.perf_counter()
+    while i < n or sched.n_queued or sched.n_active:
+        while i < n and arrivals[i] <= t:
+            rid2idx[sched.submit(mels[i], max_new=max_news[i])] = i
+            i += 1
+        sched.admit()
+        if sched.n_active:
+            t0 = time.perf_counter()
+            events = sched.decode_step()
+            if events:
+                step_s.append(time.perf_counter() - t0)
+            for ev in events:
+                if ev.done:
+                    done_at[rid2idx[ev.rid]] = t + 1
+            t += 1
+        elif i < n:
+            t = int(arrivals[i])
+    torch.cuda.synchronize()            # a device assert would surface here
+    wall = time.perf_counter() - wall0
+    got = sched.finished
+    rids = sorted(rid2idx, key=rid2idx.get)
+    tokens = sum(got[r].steps for r in rids)
+    lat = [done_at[k] - float(arrivals[k]) for k in sorted(done_at)]
+    att = sched.attribution(power_w)
+    return dict(
+        tokens=[got[r].tokens for r in rids], slot_steps=len(step_s),
+        step_s=step_s, wall_s=wall, n_tokens=tokens, tok_s=tokens / wall,
+        **{f"p{q}_steps": float(np.percentile(lat, q)) for q in (50, 95, 99)},
+        kv_committed_bytes=sched.kv_committed_bytes,
+        kv_used_peak_bytes=sched.kv_used_peak,
+        kv_utilization=sched.kv_utilization_peak,
+        active_peak=sched.active_peak,
+        per_request_pdp_j=sum(att["per_request_pdp_j"].values()),
+        batch_pdp_j=att["batch_pdp_j"])
+
+
+def _ledger_want(eng, counts):
+    """The ledger totals that committing each program's cached plan its
+    count of times gives: {plan key: runs}."""
+    out = {}
+    for key, runs in counts.items():
+        for f, v in eng._plans.plans[key].summary().items():
+            if f.endswith("flops"):
+                out[f] = out.get(f, 0) + v * runs
+    return out
+
+
+def _paged_gathers(pool):
+    """One paged slot step's KV gathers, as the step runs them: each
+    layer's self K and V through the block table and cross K and V through
+    the cross table."""
+    from repro_torch.models.attention import paged_window_gather
+    ls = pool.state.layer_states
+    for i in range(ls.self_k.shape[0]):
+        for arena, table in ((ls.self_k, ls.block_table),
+                             (ls.self_v, ls.block_table),
+                             (ls.cross_k, ls.cross_table),
+                             (ls.cross_v, ls.cross_table)):
+            paged_window_gather(arena[i], table)
+
+
+def paged_path(label, eng0, counted, programs, replay_kernels, batch1,
+               slot4):
+    """Phase 11, on one path: benchmarks/paged_serving.py's three modes on
+    one new engine (max_len PG_MAX_LEN, no EOS) with ``eng0``'s weights
+    and quantization, each over its own pool and the same arrival trace
+    (``_pg_workload``): the paged pool (PG_SLOTS logical slots over the
+    reference's page geometry), the tight arena (SLOTS slots, 2 + 2 x
+    pages_per self pages: it must preempt) and the contiguous pool (SLOTS
+    slots). The paged pool drives first, so that its first admission
+    captures the batch-1 prefill, the batch-1 step (the replays') and its
+    slot step. The launch counts are zeroed just before each drive and
+    read just after: CAPTURE_PASSES runs of each program captured in that
+    drive (``programs``: the prefill's and a step's launches), nothing
+    else. Fails unless every request's tokens agree across the modes and
+    with the first max_new tokens of a batch-1 ``transcribe`` of its mel;
+    the tight arena preempted and the paged pool had a prefix hit; each
+    pool captured one slot step and the engine the batch-1 step once; the
+    ledger's commits equal prefills + slot steps + replays and its FLOPs
+    the plans' times prefills, slot steps and replayed steps; per-request
+    PDP sums to the batch's; the paged pool admits at least 2x the
+    contiguous pool's requests per committed byte; a profiled paged slot
+    step holds ``replay_kernels["step"]``; a free slot's length passes
+    max_len with no device assert. Printed: each mode's tokens a second,
+    latency percentiles in steps, committed KV bytes, peak utilization
+    and activity (tokens a second and the steps' host time from the same
+    drive repeated on the warm pool, whose tokens, captures and launches
+    are checked too); the paged slot step's device time, idle share and
+    top kernels beside ``slot4`` (phase 10's 4-slot step) and ``batch1``
+    (phase 6's step), the gathers' device time; the replay's device time
+    a token; preemptions and prefix hits."""
+    import statistics
+
+    import numpy as np
+    import torch
+    from repro_torch.core import energy
+    from repro_torch.core.offload import OffloadEngine
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = eng0.cfg
+    f = cfg.encoder_ctx
+    power_w = energy.card_power_limit_w(0)
+    eng = ServeEngine(cfg, eng0.params, max_len=PG_MAX_LEN,
+                      quant=eng0._serve_quant, offload=OffloadEngine(),
+                      eos_id=-1, device="cuda")
+    mels, distinct, which, max_news, arrivals = _pg_workload(cfg)
+    pages_per = -(-(int(np.mean(max_news)) + 1) // PG_PAGE)
+    cross = dict(cross_page_size=f, n_cross_pages=1 + PG_DISTINCT)
+    geom = dict(page_size=PG_PAGE, n_pages=1 + PG_SLOTS * pages_per, **cross)
+    tight = dict(page_size=PG_PAGE, n_pages=2 + 2 * pages_per, **cross)
+    pre_prog, step_prog = programs
+    pre1, step1 = eng._key("prefill", 1, f), eng._key("step", 1, f)
+    modes = (
+        ("paged", lambda: eng.paged_scheduler(PG_SLOTS, f, **geom),
+         (pre_prog, step_prog, step_prog), 2),
+        ("tight", lambda: eng.paged_scheduler(SLOTS, f, **tight),
+         (step_prog,), 1),
+        ("contiguous", lambda: eng.scheduler(n_slots=SLOTS, n_frames=f),
+         (step_prog,), 1))
+    runs, scheds, launches_by_mode = {}, {}, {}
+    for mode, make, captured, n_captures in modes:
+        torch.cuda.synchronize()
+        for fn in counted.values():
+            fn.launches = 0
+        captures0, commits0 = eng._step_captures, eng.offload.ledger.commits
+        stats0 = _stats(eng.offload)
+        sched = make()
+        r = _pg_drive(sched, mels, max_news, arrivals, power_w)
+        launches = {name: fn.launches for name, fn in counted.items()}
+        want = {name: CAPTURE_PASSES * sum(p.get(name, 0) for p in captured)
+                for name in counted}
+        captures = eng._step_captures - captures0
+        commits = eng.offload.ledger.commits - commits0
+        paged = mode != "contiguous"
+        prefills = sched.prefills if paged else PG_REQUESTS
+        replays = sched.replays if paged else 0
+        replayed = sched.replayed_steps if paged else 0
+        counts = {pre1: prefills, sched._step_key: r["slot_steps"]}
+        if replayed:
+            counts[step1] = replayed
+        delta = _ledger_delta(_stats(eng.offload), stats0)
+        flops = {k: delta[k] for k in _ledger_want(eng, counts)}
+        r.update(launches=launches, step_captures=captures,
+                 ledger_commits=commits, prefills=prefills, replays=replays,
+                 replayed_steps=replayed,
+                 preemptions=getattr(sched, "preemptions", 0),
+                 shared_hits=getattr(sched, "shared_hits", 0))
+        # the same drive again on the warm pool (nothing left to capture):
+        # its wall time gives the tokens a second and the steps' host time
+        sched.run()                       # claims the first drive's results
+        for fn in counted.values():
+            fn.launches = 0
+        captures0 = eng._step_captures
+        warm = _pg_drive(sched, mels, max_news, arrivals, power_w)
+        if (warm["tokens"] != r["tokens"] or eng._step_captures != captures0
+                or any(fn.launches for fn in counted.values())):
+            raise AssertionError(f"paged {label} {mode}: the warm drive's "
+                                 "tokens, captures or launches differ")
+        r.update(first_drive_wall_s=r["wall_s"], wall_s=warm["wall_s"],
+                 tok_s=warm["tok_s"], step_s=warm["step_s"])
+        print(f"paged {label} {mode}: {r['n_tokens']} tokens, "
+              f"{r['slot_steps']} slot steps in {r['wall_s'] * 1e3:.3f} ms "
+              f"warm ({r['tok_s']:.1f} tok/s; the first drive, its captures "
+              f"included, {r['first_drive_wall_s'] * 1e3:.3f} ms); latency "
+              f"p50/p95/p99 "
+              f"{r['p50_steps']}/{r['p95_steps']}/{r['p99_steps']} steps; "
+              f"KV committed {r['kv_committed_bytes']} B, used peak "
+              f"{r['kv_used_peak_bytes']} B, utilization "
+              f"{r['kv_utilization']:.4f}, peak active {r['active_peak']}; "
+              f"preemptions {r['preemptions']}, prefix hits "
+              f"{r['shared_hits']}, prefills {prefills}, replays {replays} "
+              f"({replayed} steps); launches from Python {launches} "
+              f"(expected {want}); step captures {captures}; ledger commits "
+              f"{commits}", flush=True)
+        if launches != want:
+            raise AssertionError(f"paged {label} {mode}: launches "
+                                 f"{launches} != {want}")
+        if captures != n_captures:
+            raise AssertionError(f"paged {label} {mode}: {captures} step "
+                                 f"captures, expected {n_captures}")
+        if commits != prefills + r["slot_steps"] + replays:
+            raise AssertionError(f"paged {label} {mode}: {commits} commits "
+                                 f"for {prefills} prefills, "
+                                 f"{r['slot_steps']} steps, {replays} "
+                                 "replays")
+        if flops != _ledger_want(eng, counts):
+            raise AssertionError(f"paged {label} {mode}: ledger {flops} != "
+                                 f"plans x runs {_ledger_want(eng, counts)}")
+        if not abs(r["per_request_pdp_j"] - r["batch_pdp_j"]) <= \
+                1e-9 * r["batch_pdp_j"]:
+            raise AssertionError(f"paged {label} {mode}: per-request PDP "
+                                 f"{r['per_request_pdp_j']} != batch "
+                                 f"{r['batch_pdp_j']}")
+        runs[mode], scheds[mode], launches_by_mode[mode] = r, sched, launches
+
+    # batch-1 transcribe of each distinct utterance (its graphs exist: the
+    # paged pool captured them); each request's tokens are its first max_new
+    captures0 = eng._step_captures
+    full = [eng.transcribe(m, max_new=PG_MAX_LEN)[0].tokens for m in distinct]
+    refs = [full[w][:n] for w, n in zip(which, max_news)]
+    same = {mode: sum(a == b for a, b in zip(r["tokens"], refs))
+            for mode, r in runs.items()}
+    print(f"paged {label}: tokens equal batch-1 transcribe for {same} of "
+          f"{PG_REQUESTS} requests; step captures by the transcribes "
+          f"{eng._step_captures - captures0}", flush=True)
+    if any(n != PG_REQUESTS for n in same.values()):
+        raise AssertionError(f"paged {label}: tokens differ: {same}")
+    if eng._step_captures != captures0:
+        raise AssertionError(f"paged {label}: transcribe captured the "
+                             "batch-1 step again")
+    sp, st = scheds["paged"], scheds["tight"]
+    rpb = {mode: runs[mode]["active_peak"] / runs[mode]["kv_committed_bytes"]
+           for mode in ("paged", "contiguous")}
+    if not st.preemptions or not st.replays:
+        raise AssertionError(f"paged {label}: the tight arena preempted "
+                             f"{st.preemptions} times, replayed {st.replays}")
+    if not sp.shared_hits:
+        raise AssertionError(f"paged {label}: no prefix hit")
+    if not rpb["paged"] >= 2 * rpb["contiguous"]:
+        raise AssertionError(f"paged {label}: requests per committed byte "
+                             f"{rpb['paged']} < 2 x {rpb['contiguous']}")
+
+    # a free slot drifts: one request of max_len tokens on the paged pool
+    # while the other slots are free; their lengths pass max_len
+    rid = sp.submit(distinct[0], max_new=PG_MAX_LEN)
+    drift = sp.run()[rid].tokens
+    torch.cuda.synchronize()
+    lengths = sp.pool.state.layer_states.length[0].tolist()
+    past = sum(n > PG_MAX_LEN for n in lengths)
+    print(f"paged {label}: a request of {PG_MAX_LEN} tokens on the drained "
+          f"paged pool, tokens equal transcribe: {drift == full[0]}; slot "
+          f"lengths {lengths} (max_len {PG_MAX_LEN})", flush=True)
+    if drift != full[0] or not past:
+        raise AssertionError(f"paged {label}: drift probe: tokens "
+                             f"{drift == full[0]}, {past} slots past max_len")
+
+    # the paged slot step under the profiler; a window whose kernels
+    # differ from the graph's lost records and is profiled again
+    for attempt in range(REPLAY_PROFILES):
+        kernels, top, wall = _profile_slot_steps(sp)
+        seen = {name: n for name, (n, _) in
+                by_route(kernels, replay_kernels["step"]).items()}
+        if seen == replay_kernels["step"]:
+            break
+        print(f"paged {label}: kernels per slot step {seen} in profiled "
+              f"window {attempt + 1}, expected {replay_kernels['step']}; "
+              "profiling again", flush=True)
+    if seen != replay_kernels["step"]:
+        raise AssertionError(f"paged {label}: kernels per paged slot step "
+                             f"{seen} != {replay_kernels['step']}")
+    dev = sum(ms for _, ms in kernels.values())
+    host = statistics.median(runs["paged"]["step_s"]) * 1e3
+    index = {name: v for name, v in kernels.items() if "index" in name}
+    gather_ms, gather_src = device_ms(lambda: _paged_gathers(sp.pool))
+    # the replay's batch-1 step (phase 6's profile over this engine's
+    # static buffers: a prefill replay resets them, then the steps)
+    rep = _profile_replays(eng, f)
+    out = dict(
+        path=label, requests=PG_REQUESTS, frames=f, max_len=PG_MAX_LEN,
+        geometry=dict(paged=dict(slots=PG_SLOTS, **geom),
+                      tight=dict(slots=SLOTS, **tight),
+                      contiguous=dict(slots=SLOTS)),
+        modes={mode: {k: v for k, v in r.items()
+                      if k not in ("tokens", "step_s")}
+               for mode, r in runs.items()},
+        requests_per_byte_ratio=rpb["paged"] / rpb["contiguous"],
+        **{key: runs["tight"][key]
+           for key in ("preemptions", "replays", "replayed_steps")},
+        shared_hits=runs["paged"]["shared_hits"],
+        tight_shared_hits=runs["tight"]["shared_hits"],
+        paged_step_host_ms_median=host,
+        paged_step_wall_ms_profiled=wall, paged_step_device_ms=dev,
+        paged_step_idle_share=1 - dev / wall,
+        paged_step_idle_share_unprofiled=1 - dev / host,
+        paged_step_kernels=seen, paged_step_top_kernels=top,
+        paged_step_index_kernels={k[:80]: v for k, v in index.items()},
+        paged_step_index_device_ms=sum(ms for _, ms in index.values()),
+        gathers_device_ms=gather_ms, gathers_ms_source=gather_src,
+        replay_device_ms_per_token=sum(ms for _, ms in rep[3].values()),
+        replay_wall_ms_per_token_profiled=rep[5],
+        slot4_step_device_ms=slot4.get("slot_step_device_ms"),
+        batch1_step_device_ms=batch1.get("decode_device_ms_per_step"),
+        slot_lengths_after_drift=lengths, power_w=power_w)
+    print(f"paged {label} summary: {json.dumps(out)}", flush=True)
+    return launches_by_mode["paged"], out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1890,18 +2267,34 @@ def main() -> int:
 
     t0 = time.perf_counter()
     path_launches = {"main": launches}
+    slot4 = {}
     for label, eng0, run, replay, n_req, batch1, bench in (
             ("q8_0", q8_eng, q8_run, q8_replay, CB_REQUESTS, q8_captured,
              True),
             ("dense+flash", d_eng, d_run, d_replay, CB_DENSE_REQUESTS,
              d_captured, False)):
-        got, summary = continuous_path(label, eng0, counted, run, replay,
-                                       n_req, batch1, bench)
+        got, slot4[label] = continuous_path(label, eng0, counted, run,
+                                            replay, n_req, batch1, bench)
         path_launches[f"continuous {label}"] = got
-        if bench and not summary["slots_past_max_len"]:
+        if bench and not slot4[label]["slots_past_max_len"]:
             raise AssertionError("continuous q8_0: no free slot passed "
                                  "max_len, so the clamp went untested")
     print(f"continuous batching phase: {time.perf_counter() - t0:.1f}s",
+          flush=True)
+
+    t0 = time.perf_counter()
+    path_launches["paged"] = {name: 0 for name in counted}
+    for label, eng0, programs, replay, batch1 in (
+            ("q8_0", q8_eng, ({"q8_matmul": 32}, {"q8_matvec": 33}),
+             q8_replay, q8_captured),
+            ("dense+flash", d_eng,
+             ({"bf16_matmul": 32, "flash_attention_fwd": 4},
+              {"bf16_matmul": 33}), d_replay, d_captured)):
+        got, _ = paged_path(label, eng0, counted, programs, replay, batch1,
+                            slot4[label])
+        for name, n in got.items():
+            path_launches["paged"][name] += n
+    print(f"paged serving phase: {time.perf_counter() - t0:.1f}s",
           flush=True)
 
     kernels = []

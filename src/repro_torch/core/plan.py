@@ -150,11 +150,22 @@ class DispatchPlan:
 
 
 def plan_key(phase: str, quant: Optional[str], batch: int,
-             *extra: Hashable) -> Tuple[Hashable, ...]:
+             *extra: Hashable,
+             pages: Optional[Tuple[Hashable, ...]] = None
+             ) -> Tuple[Hashable, ...]:
     """Canonical plan-cache key: ``(phase, quant, batch, *extra)``; the
     serving engine's extra is the frame count. Routing depends only on
-    static shapes, so equal keys mean one program and one plan."""
-    return (phase, quant, batch, *extra)
+    static shapes, so equal keys mean one program and one plan.
+
+    ``pages`` appends the paged pool's geometry as ``("pages", pages)``,
+    as the reference does: a paged decode step gathers its KV through
+    block tables, another program than the contiguous step at the same
+    (batch, frames), so the two never share a ``PlanCache`` entry.
+    ``pages=None`` leaves a key as it was."""
+    base = (phase, quant, batch, *extra)
+    if pages is not None:
+        base = (*base, ("pages", tuple(pages)))
+    return base
 
 
 @dataclass

@@ -14,10 +14,16 @@ time: on the card an einsum becomes a batched GEMM whose kernel, and so
 whose order of summation, depends on how many rows the batch holds. Each
 row of a continuous-batching slot step then gets the bits a batch-1 step
 gives it, and the greedy tokens agree; a batch-1 step is unchanged.
+
+The paged cache (``PagedKVCache``) keeps K/V in a page arena that every
+row reaches through its block table: a step scatters its new entries
+into the arena in place (``paged_window_update``) and gathers each row's
+pages back into the contiguous view (``paged_window_gather``), so the
+attention's arithmetic is the contiguous layout's.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -157,6 +163,55 @@ def _cache_update(buf: torch.Tensor, val: torch.Tensor,
     return buf.index_put_((rows, idx), val[:, 0].to(buf.dtype))
 
 
+class PagedKVCache(NamedTuple):
+    """Paged decode cache: K/V live in a page arena shared by every row,
+    each row reaching its pages through its ``block_table`` row. Physical
+    page 0 is the trash page: the table rows of free slots all point at
+    it, so the fixed-shape batch keeps writing garbage rows without owning
+    memory. ``length`` is per row ``(B,)``; all four tensors are updated
+    in place (a captured step rereads their storage)."""
+    k_pages: torch.Tensor       # (P, page, Hkv, D) physical page arena
+    v_pages: torch.Tensor       # (P, page, Hkv, D)
+    block_table: torch.Tensor   # (B, max_pages) int32: logical -> physical
+    length: torch.Tensor        # (B,) int32: tokens currently valid
+
+
+def paged_window_update(pages: torch.Tensor, block_table: torch.Tensor,
+                        length: torch.Tensor,
+                        val: torch.Tensor) -> torch.Tensor:
+    """Scatter a per-row W-token window into the page arena, in place, and
+    return the arena. ``val`` is (B, W, Hkv, D); row b's window position j
+    lands at logical position ``length[b] + j``: physical page
+    ``block_table[b, (length[b] + j) // page]``, offset ``(length[b] + j)
+    % page``, each entry resolving its own pair (a window may straddle a
+    page boundary). The indices are computed on the device, with no host
+    read. The logical page is clamped to the table's width, as the
+    reference does: a free slot's position keeps rising, its table row
+    points at the trash page, and an index past the table would be a
+    device assert on the card. Free rows then write the trash page at the
+    same offsets, duplicate indices whose winner is undefined; no active
+    row reads page 0. Active rows own their pages, so their indices never
+    collide."""
+    ps = pages.shape[1]
+    n_log = block_table.shape[1]
+    w = val.shape[1]
+    pos = (length.to(torch.long)[:, None]
+           + torch.arange(w, device=pages.device)[None, :])      # (B, W)
+    lp = (pos // ps).clamp(max=n_log - 1)
+    phys = torch.gather(block_table.to(torch.long), 1, lp)
+    return pages.index_put_((phys, pos % ps), val.to(pages.dtype))
+
+
+def paged_window_gather(pages: torch.Tensor,
+                        block_table: torch.Tensor) -> torch.Tensor:
+    """Each row's pages gathered into its contiguous ``(n_log * page,
+    ...)`` view: token t sits at position t, so the validity mask is the
+    contiguous layout's and the attention unchanged (token-exact)."""
+    b, n_log = block_table.shape
+    return pages[block_table.to(torch.long)].reshape(
+        b, n_log * pages.shape[1], *pages.shape[2:])
+
+
 def _rows_apart(fn, a: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """``fn(a, c)`` over the batch; with more than one row, one row at a
     time, each row exactly the batch-1 contraction."""
@@ -166,9 +221,10 @@ def _rows_apart(fn, a: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
 
 
 def decode_attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
-                     cache: KVCache, *,
+                     cache: Union[KVCache, PagedKVCache], *,
                      memory_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-                     engine=None) -> Tuple[torch.Tensor, KVCache]:
+                     engine=None
+                     ) -> Tuple[torch.Tensor, Union[KVCache, PagedKVCache]]:
     """One decode step. x: (B, 1, d). Self-attention appends the new K/V
     entry to ``cache`` and attends over positions <= length; with
     ``memory_kv`` (the precomputed cross K/V) it attends over the encoder
@@ -176,7 +232,8 @@ def decode_attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
     place (its K/V and length keep their storage), where the reference
     returns a new one. ``cache.length`` may be ``()`` (lockstep) or
     ``(B,)`` (slot pool): each row then writes and attends at its own
-    position."""
+    position. A ``PagedKVCache`` writes its entry through the block table
+    and attends over each row's gathered pages."""
     b, w = x.shape[0], x.shape[1]
     if w != 1:
         raise ValueError("the port decodes one position per step")
@@ -185,8 +242,15 @@ def decode_attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
     if memory_kv is None:
         knew = _split_heads(layers.linear(p["k"], x, engine, "dec.attn.k"), hkv)
         vnew = _split_heads(layers.linear(p["v"], x, engine, "dec.attn.v"), hkv)
-        k = _cache_update(cache.k, knew, cache.length)
-        v = _cache_update(cache.v, vnew, cache.length)
+        if isinstance(cache, PagedKVCache):
+            for pages, new in ((cache.k_pages, knew), (cache.v_pages, vnew)):
+                paged_window_update(pages, cache.block_table, cache.length,
+                                    new)
+            k = paged_window_gather(cache.k_pages, cache.block_table)
+            v = paged_window_gather(cache.v_pages, cache.block_table)
+        else:
+            k = _cache_update(cache.k, knew, cache.length)
+            v = _cache_update(cache.v, vnew, cache.length)
         pos_idx = torch.arange(k.shape[1], device=x.device)
         if cache.length.dim():                     # (B, 1, 1, 1, S)
             valid = (pos_idx[None, :] <= cache.length[:, None])[

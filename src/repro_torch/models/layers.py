@@ -58,16 +58,18 @@ def init_norm(d: int, dtype=torch.bfloat16) -> dict:
 def norm_apply(p: dict, x: torch.Tensor, kind: str = "layernorm",
                eps: float = 1e-5) -> torch.Tensor:
     """Layer norm in f32 with the population variance, cast back to the
-    input's type (the reference's ``norm_apply``)."""
+    input's type (the reference's ``norm_apply``). It runs as one
+    ``layer_norm``, whose CUDA kernel reduces each row in a block of its
+    own: a row's bits do not depend on how many rows the batch holds. The
+    mean and variance as separate reductions would not do: their launch
+    shape, and with it the order of a row's sums, follows the row count,
+    and a row of a 12-row slot step got other bits than in a batch-1
+    step."""
     if kind != "layernorm":
         raise ValueError(f"the port's audio models use layernorm, not {kind}")
-    xf = x.to(torch.float32)
-    mu = xf.mean(dim=-1, keepdim=True)
-    var = xf.var(dim=-1, keepdim=True, unbiased=False)
-    out = (xf - mu) * torch.rsqrt(var + eps)
-    out = out * p["scale"].to(torch.float32)
-    if "bias" in p:
-        out = out + p["bias"].to(torch.float32)
+    bias = p["bias"].to(torch.float32) if "bias" in p else None
+    out = F.layer_norm(x.to(torch.float32), (x.shape[-1],),
+                       p["scale"].to(torch.float32), bias, eps)
     return out.to(x.dtype)
 
 

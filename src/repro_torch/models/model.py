@@ -5,6 +5,7 @@ reference's family dispatch (the port's configs are audio-only).
   init_serve_state(params, cfg, batch, max_len, memory=...) -> ServeState
   zeros_serve_state(cfg, batch, frames, max_len, device=...) -> ServeState
   zeros_slot_state(cfg, n_slots, frames, max_len, device=...) -> ServeState
+  zeros_paged_state(cfg, n_slots, ..., device=...) -> ServeState (paged)
   slot_layout(state, batch)                    -> ServeState (slot layout)
   state_kv_bytes(state)                        -> committed bytes
   serve_step(params, cfg, token, state)        -> (logits, state')
@@ -83,6 +84,21 @@ def zeros_slot_state(cfg: ModelConfig, n_slots: int, frames: int,
         (n_slots,), dtype=torch.int32, device=device))
 
 
+def zeros_paged_state(cfg: ModelConfig, n_slots: int, *, max_pages: int,
+                      n_pages: int, page_size: int, n_cross_per_req: int,
+                      n_cross_pages: int, cross_page_size: int,
+                      device) -> ServeState:
+    """A paged ServeState of zeros: the arenas, block tables and ``(R,
+    n_slots)`` lengths of a paged pool (``serve/paging.py``), with
+    ``(n_slots,)`` steps. ``serve_step`` dispatches on its layer state."""
+    st = whisper.zeros_paged_decode_state(
+        cfg, n_slots, max_pages, n_pages, page_size, n_cross_per_req,
+        n_cross_pages, cross_page_size, dtype=layers.DTYPES[cfg.dtype],
+        device=device)
+    return ServeState(layer_states=st, step=torch.zeros(
+        (n_slots,), dtype=torch.int32, device=device))
+
+
 def slot_layout(state: ServeState, batch: int) -> ServeState:
     """Standard -> slot layout: every scalar counter (``step`` and each
     layer's cache length) becomes a ``(batch,)`` vector holding its value.
@@ -107,9 +123,10 @@ def state_tensors(state: Any) -> List[torch.Tensor]:
 
 
 def state_kv_bytes(state: Any) -> int:
-    """Committed bytes of a decode state: its KV buffers and counters. The
-    reference stacks the layers of a leaf where the port keeps a list per
-    layer; the bytes are the same."""
+    """Committed bytes of a decode state: its KV buffers and counters (a
+    paged state's arenas, block tables and lengths). The reference stacks
+    the layers of a contiguous leaf where the port keeps a list per layer;
+    the bytes are the same."""
     return sum(t.numel() * t.element_size() for t in state_tensors(state))
 
 
@@ -117,7 +134,8 @@ def serve_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
                state: ServeState, *, engine=None
                ) -> Tuple[torch.Tensor, ServeState]:
     """token: (B, 1) int -> (logits (B, 1, V), state'). The state advances
-    in place: ``state'`` holds the same tensors as ``state``."""
+    in place: ``state'`` holds the same tensors as ``state``. A paged
+    state takes the paged step (``whisper.decode_step`` dispatches)."""
     logits, _ = whisper.decode_step(params, cfg, token, state.layer_states,
                                     engine=engine)
     state.step.add_(1)

@@ -10,7 +10,9 @@ Decode follows whisper.cpp's split: the encoder runs once per utterance,
 each decoder layer's cross K/V is projected once from the encoder memory
 (``dec.cross.k``/``dec.cross.v``), then tokens decode autoregressively
 against the cached self-attention KV. Layers are a Python loop over a list
-of per-layer parameter dicts.
+of per-layer parameter dicts. A paged decode state
+(``WhisperPagedDecodeState``) keeps both KV kinds in page arenas stacked
+over the layers, as the reference does.
 """
 from __future__ import annotations
 
@@ -21,12 +23,31 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers
 from repro_torch.models.attention import (
-    KVCache, attention, decode_attention, init_attention)
+    KVCache, PagedKVCache, attention, decode_attention, init_attention,
+    paged_window_gather)
 
 
 class WhisperDecodeState(NamedTuple):
     self_kv: List[KVCache]                               # one per decoder layer
     cross_kv: List[Tuple[torch.Tensor, torch.Tensor]]    # (B, F, Hkv, hd) x2
+
+
+class WhisperPagedDecodeState(NamedTuple):
+    """Paged slot-pool decode state: the self-attention KV and each
+    utterance's cross K/V live in page arenas, stacked over the R layers
+    as in the reference (a page holds ``page`` positions of all layers, so
+    a splice is one copy a page), reached through one block table a slot
+    shared by every layer. Physical page 0 of each arena is the trash page
+    free slots write and read through. ``length`` holds each layer's
+    per-slot position; layer i reads and advances the view ``length[i]``
+    in place."""
+    self_k: torch.Tensor        # (R, P, page, Hkv, hd) self-KV page arena
+    self_v: torch.Tensor        # (R, P, page, Hkv, hd)
+    cross_k: torch.Tensor       # (R, Pc, cpage, Hkv, hd) cross-KV page arena
+    cross_v: torch.Tensor       # (R, Pc, cpage, Hkv, hd)
+    block_table: torch.Tensor   # (B, max_pages) int32: self logical -> physical
+    cross_table: torch.Tensor   # (B, n_cross_pages) int32: frames -> physical
+    length: torch.Tensor        # (R, B) int32: tokens valid per layer and slot
 
 
 def _init_enc_block(gen, cfg: ModelConfig, dtype) -> dict:
@@ -154,6 +175,28 @@ def zeros_slot_decode_state(cfg: ModelConfig, n_slots: int, frames: int,
         for kv in st.self_kv])
 
 
+def zeros_paged_decode_state(cfg: ModelConfig, n_slots: int, max_pages: int,
+                             n_pages: int, page_size: int,
+                             n_cross_per_req: int, n_cross_pages: int,
+                             cross_page_size: int, *, device,
+                             dtype=torch.bfloat16) -> WhisperPagedDecodeState:
+    """A paged decode state of zeros on ``device`` (no default): the arenas
+    of ``n_pages`` self pages and ``n_cross_pages`` cross pages, and
+    ``n_slots`` table rows all pointing at the trash page."""
+    r, hkv, hd = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
+
+    def zeros(*shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=device)
+    return WhisperPagedDecodeState(
+        self_k=zeros(r, n_pages, page_size, hkv, hd),
+        self_v=zeros(r, n_pages, page_size, hkv, hd),
+        cross_k=zeros(r, n_cross_pages, cross_page_size, hkv, hd),
+        cross_v=zeros(r, n_cross_pages, cross_page_size, hkv, hd),
+        block_table=zeros(n_slots, max_pages, dt=torch.int32),
+        cross_table=zeros(n_slots, n_cross_per_req, dt=torch.int32),
+        length=zeros(r, n_slots, dt=torch.int32))
+
+
 def warm_tuning(cfg: ModelConfig, engine, *, n_frames: int = 1500,
                 n_tokens: int = 27, batch: int = 1,
                 quant: Optional[str] = None) -> int:
@@ -182,7 +225,10 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
     each row reads its own positional row (clamped to the table's last
     row: a free slot's position keeps rising after its request left).
     The self-KV caches advance in place, so ``state'`` holds the same
-    tensors as ``state``."""
+    tensors as ``state``. A ``WhisperPagedDecodeState`` takes the paged
+    twin (``_decode_step_paged``)."""
+    if isinstance(state, WhisperPagedDecodeState):
+        return _decode_step_paged(params, cfg, token, state, engine=engine)
     x = layers.embed(params["embed"], token)
     table = params["dec_pos"]["table"]
     length = state.self_kv[0].length
@@ -206,3 +252,48 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
     x = layers.norm_apply(params["dec_norm"], x, cfg.norm)
     logits = layers.unembed(params["embed"], x, engine)
     return logits, state
+
+
+def _paged_stack(params: dict, cfg: ModelConfig, x: torch.Tensor,
+                 state: WhisperPagedDecodeState, *, engine=None
+                 ) -> Tuple[torch.Tensor, WhisperPagedDecodeState]:
+    """The decoder blocks over an embedded, positioned (B, 1, d) input on
+    the paged state: the self-KV writes and reads go through the block
+    table (``PagedKVCache``, layer i on its arena and ``length[i]``
+    views), and each layer's cross K/V is gathered from its pages through
+    ``cross_table`` into the contiguous (B, F, Hkv, hd) view. F is a whole
+    number of cross pages (a pool invariant), so position t of the
+    gathered view is position t of the contiguous one and every token is
+    unchanged."""
+    bt, ct = state.block_table, state.cross_table
+    for i, p in enumerate(params["dec_blocks"]):
+        cache = PagedKVCache(state.self_k[i], state.self_v[i], bt,
+                             state.length[i])
+        h = layers.norm_apply(p["norm1"], x, cfg.norm)
+        mixed, _ = decode_attention(p["self_attn"], cfg, h, cache,
+                                    engine=engine)
+        x = x + mixed.to(x.dtype)
+        memory_kv = (paged_window_gather(state.cross_k[i], ct),
+                     paged_window_gather(state.cross_v[i], ct))
+        h = layers.norm_apply(p["norm_x"], x, cfg.norm)
+        mixed, _ = decode_attention(p["cross_attn"], cfg, h, cache,
+                                    memory_kv=memory_kv, engine=engine)
+        x = x + mixed.to(x.dtype)
+        h = layers.norm_apply(p["norm2"], x, cfg.norm)
+        x = x + layers.mlp_apply(p["ffn"], h, cfg.act, engine=engine
+                                 ).to(x.dtype)
+    x = layers.norm_apply(params["dec_norm"], x, cfg.norm)
+    return layers.unembed(params["embed"], x, engine), state
+
+
+def _decode_step_paged(params: dict, cfg: ModelConfig, token: torch.Tensor,
+                       state: WhisperPagedDecodeState, *, engine=None
+                       ) -> Tuple[torch.Tensor, WhisperPagedDecodeState]:
+    """The paged twin of ``decode_step``: embedding and per-slot positions
+    (the first layer's lengths, clamped as the contiguous slot step
+    clamps them), then the paged stack at W = 1."""
+    x = layers.embed(params["embed"], token)
+    table = params["dec_pos"]["table"]
+    pos = state.length[0].clamp(max=table.shape[0] - 1)
+    x = x + table.index_select(0, pos)[:, None].to(x.dtype)
+    return _paged_stack(params, cfg, x, state, engine=engine)

@@ -28,7 +28,8 @@ the step's once per step taken. The eager ``prefill()`` and ``step()``
 stay public. ``prefill_one`` runs the batch-1 prefill program for the
 scheduler's admissions; the scheduler's slot step is a program of its own
 over its pool (its graph is the scheduler's, its plan this engine's at
-``plan_key("step", quant, n_slots, F)``).
+``plan_key("step", quant, n_slots, F)``, with the page geometry appended
+for a paged pool: ``paged_scheduler``, ``serve/paging.py``).
 
 With an autotuner on the offload engine (``OffloadEngine(tuner=...)``),
 every linear routes by a tuned plan entry: the burst and the kernel's
@@ -180,8 +181,9 @@ class ServeEngine:
         """Greedy pick over the true vocab (vocab_pad columns excluded)."""
         return logits[..., :self.cfg.vocab_size].argmax(dim=-1)
 
-    def _key(self, phase: str, batch: int, frames: int) -> Hashable:
-        return plan_key(phase, self._serve_quant, batch, frames)
+    def _key(self, phase: str, batch: int, frames: int, *,
+             pages: Optional[Tuple[Hashable, ...]] = None) -> Hashable:
+        return plan_key(phase, self._serve_quant, batch, frames, pages=pages)
 
     def _recording(self, plan: DispatchPlan):
         """Record the routing of a program run into ``plan`` (accounting
@@ -438,6 +440,20 @@ class ServeEngine:
             self._scheduler = ContinuousBatchingScheduler(
                 self, n_slots=want_slots, n_frames=want_frames)
         return self._scheduler
+
+    def paged_scheduler(self, n_slots: int = 4,
+                        n_frames: Optional[int] = None, **page_cfg):
+        """A paged-pool continuous-batching scheduler over this engine
+        (``serve/paging.py``): page arenas instead of per-slot
+        preallocation, whole-utterance prefix sharing, and admission that
+        oversubscribes logical slots against physical pages with
+        preempt-and-recompute. Built fresh per call, as the reference's:
+        the page geometry (``page_size``, ``n_pages``, ``cross_page_size``,
+        ``n_cross_pages``) is the workload's and the caller owns the
+        instance; ``scheduler()`` stays the contiguous path."""
+        from repro_torch.serve.paging import PagedScheduler
+        return PagedScheduler(self, n_slots=n_slots, n_frames=n_frames,
+                              **page_cfg)
 
     def submit_audio(self, mel, max_new: int = 32, *,
                      n_slots: Optional[int] = None,

@@ -126,7 +126,7 @@ class ContinuousBatchingScheduler:
         # step's output back without an upload
         self._token = torch.zeros((n_slots, 1), dtype=torch.long,
                                   device=engine.device)
-        self._step_key = engine._key("step", n_slots, n_frames)
+        self._step_key = self._make_step_key()
         self._program = None             # the captured slot step (card)
         self._step_plan: Optional[DispatchPlan] = None
         self._next_rid = 0
@@ -146,6 +146,11 @@ class ContinuousBatchingScheduler:
         eng = self.engine
         return SlotKVPool(eng.cfg, self.n_slots, eng.max_len,
                           n_frames=self.n_frames, device=eng.device)
+
+    def _make_step_key(self):
+        """The slot step's plan key: the one-shot step's at (n_slots,
+        F). A paged scheduler appends its pool's page geometry."""
+        return self.engine._key("step", self.n_slots, self.n_frames)
 
     # -- KV accounting ----------------------------------------------------
     @property
