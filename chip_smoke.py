@@ -163,13 +163,55 @@ own kernels with nvcc. Phases, each of which fails the run on error:
     replay's device time a token, preemptions and prefix hits. Phase 2
     holds ``q8_matvec`` and ``bf16_matmul``'s decode launch at M = 12
     (``per`` "paged slot step", their ``MT = 16`` instantiations).
+12. Speculative decoding (``serve/speculative.py``): whisper-base verifies
+    at its published widths (Q8_0 through an untuned offload engine, and
+    dense in one case), whisper-tiny drafts (dense, on ``bf16_matmul``),
+    both from seeded random weights, 1500-frame mels, no EOS.
+    a. The paper's other rungs: captured ``transcribe`` of whisper-base and
+       whisper-small (Q8_0, 27 tokens): prefill ms, decode ms a token and
+       PDP at the power limit, beside phase 7's whisper-tiny figure and
+       each model's 32 KB coverage (the port's and the paper's).
+    b. ``SpeculativeEngine.transcribe`` (``spec_case``): raw weights at
+       batch 1, k = 4, 24 tokens (acceptance near 0: the correction path);
+       the echo parameterization of ``benchmarks/speculative.py``
+       (alpha 0.02 on every decoder block's self ``o``, cross ``o`` and
+       ``ffn.down``, both models) at batch 1, k = 4, 48 tokens (window M =
+       5) and batch 4, k = 6, 48 tokens (M = 28); the last again with a
+       dense verifier. Fails unless every row's tokens equal the
+       verifier's batch-1 ``transcribe``'s; the first request's launches
+       are exactly the captures of the draft's prefill, the draft step and
+       the window (twice each program's plan) and the second request's
+       none; the captures stay put; commits equal prefills + 2 a round and
+       each role's FLOPs its plans times prefills, rounds x (k + 1) draft
+       steps and rounds windows, ``by_role`` summing to the FLOP totals;
+       the window's logits at each position equal k + 1 sequential steps'
+       from the same state bit for bit at M <= 16, within FIRST_STEP_TOL
+       (Q8_0) or DENSE_FIRST_STEP_TOL (dense) at M = 28. Printed:
+       acceptance and rounds, tokens a second speculative and plain and
+       their ratio (held to no limit), a round's device time split into
+       the draft steps and the window, its idle share against the host's
+       round time, the window's top kernels, PDP per transcript at the
+       limit, speculative beside plain.
+    c. The schedulers on ``benchmarks/paged_speculative.py``'s trace
+       (``spec_schedulers``: 14 requests, 2 slots, k = 4, max_len 22, echo
+       Q8_0 verifier): the ``SpecScheduler`` wave, the
+       ``SpecContinuousScheduler``, the ``PagedSpecScheduler`` and its
+       tight arena, with the gates of its docstring.
+    d. The phase's wall time. Phase 2 holds the kernels at the verifier's
+       shapes: ``q8_matvec`` at M = 1 (``per`` "whisper-base decode step")
+       and M = 5, ``q8_matmul`` at M = 28 with the decoder's f32 x, and
+       ``bf16_matmul`` at M = 5 and 28 (``per`` "verify window M=5" and
+       "verify window M=28").
 
 The last two lines are the kernels' JSON record and the result line; each
 kernel's record also carries its launches on the tuned paths' eager loops
 (``tuned_launches``), its launches on each path's drive
-(``launches_by_path``: the main path's, phase 10's, and phase 11's paged
-pool drives, both paths summed, under "paged") and its tiles' times
-(``tiles``).
+(``launches_by_path``: the main path's, phase 10's, phase 11's paged
+pool drives, both paths summed, under "paged", and phase 12's captures
+under "speculative") and its tiles' times (``tiles``).
+
+Copied out of a checkout (no ``src/repro_torch`` beside the script), or
+without a CUDA device, it prints why and exits 1.
 """
 from __future__ import annotations
 
@@ -224,6 +266,21 @@ BF16_SLOT_SHAPES = [(4, *shape[1:]) for shape in BF16_STEP_SHAPES]
 # M = 12, on the MT = 16 instantiations
 MATVEC_PAGED_SHAPES = [(12, *shape[1:]) for shape in MATVEC_SHAPES]
 BF16_PAGED_SHAPES = [(12, *shape[1:]) for shape in BF16_STEP_SHAPES]
+# whisper-base's decode linears, the verifier's (phase 12): (n, k, launches
+# a step or a window); burst 256 divides every K, so k_main = K
+BASE_DECODE = [(512, 512, 36),     # self q/k/v/o + cross q/o, 6 layers
+               (2048, 512, 6),     # ffn.up
+               (512, 2048, 6),     # ffn.down
+               (51872, 512, 1)]    # dec.vocab
+# the verify window: whisper-base's step (M = 1), and its window at M = 5
+# (batch 1, k = 4) and M = 28 (batch 4, k = 6: above 16 rows, where
+# kernel_for sends it to q8_matmul, the f32 tiled launch with the Q8_0
+# decoder's f32 x, and to bf16_matmul's tensor-core launch)
+BASE_STEP_Q8 = [(1, n, k, k, c, "float32") for n, k, c in BASE_DECODE]
+WINDOW5_Q8 = [(5, n, k, k, c, "float32") for n, k, c in BASE_DECODE]
+WINDOW28_Q8 = [(28, n, k, k, c, "float32") for n, k, c in BASE_DECODE]
+WINDOW5_BF16 = [(5, n, k, k, c, "bfloat16") for n, k, c in BASE_DECODE]
+WINDOW28_BF16 = [(28, n, k, k, c, "bfloat16") for n, k, c in BASE_DECODE]
 BF16_PREFILL_SHAPES = [
     (1500, 384, 256, 384, 24, "bfloat16"),    # enc q/k/v/o + dec.cross.k/v
     (1500, 1536, 256, 384, 4, "bfloat16"),    # enc ffn.up
@@ -242,13 +299,16 @@ KERNELS = {
                       replaces="src/repro/kernels/q8_matvec.py:68",
                       shapes={"decode step": MATVEC_SHAPES,
                               "slot decode step": MATVEC_SLOT_SHAPES,
-                              "paged slot step": MATVEC_PAGED_SHAPES},
+                              "paged slot step": MATVEC_PAGED_SHAPES,
+                              "whisper-base decode step": BASE_STEP_Q8,
+                              "verify window M=5": WINDOW5_Q8},
                       library_call="torch.matmul(x_f32, W_dequantized_f32.T):"
                                    " no single PyTorch call computes a Q8_0 "
                                    "product"),
     "q8_matmul": dict(source="src/repro_torch/csrc/q8_matmul.cu",
                       replaces="src/repro/kernels/q8_matmul.py:87",
-                      shapes={"prefill": MATMUL_SHAPES},
+                      shapes={"prefill": MATMUL_SHAPES,
+                              "verify window M=28": WINDOW28_Q8},
                       library_call="torch.matmul(x_f32, W_dequantized_f32.T):"
                                    " no single PyTorch call computes a Q8_0 "
                                    "product"),
@@ -257,7 +317,9 @@ KERNELS = {
                         shapes={"prefill": BF16_PREFILL_SHAPES,
                                 "decode step": BF16_STEP_SHAPES,
                                 "slot decode step": BF16_SLOT_SHAPES,
-                                "paged slot step": BF16_PAGED_SHAPES},
+                                "paged slot step": BF16_PAGED_SHAPES,
+                                "verify window M=5": WINDOW5_BF16,
+                                "verify window M=28": WINDOW28_BF16},
                         library_call="torch.mm(x_bf16, W_bf16.T, out_dtype="
                                      "torch.float32) on the same strided "
                                      "bf16 operands (cuBLAS, f32 output as "
@@ -342,6 +404,24 @@ PG_MAX_LEN = 16 + 8
 PG_PAGE = 4
 PG_OVERSUB = 3
 PG_SLOTS = PG_OVERSUB * SLOTS    # the paged pool's 12 logical slots
+# phase 12, speculative decoding: whisper-base verifies (Q8_0, and dense
+# in one case), whisper-tiny drafts (dense), both at their published
+# widths with seeded random weights, 1500 frames, no EOS
+SPEC_RUNG_REQUESTS = 3           # timed transcripts a rung (12a), median
+ECHO_ALPHA = 0.02                # benchmarks/speculative.py's alpha
+SPEC_MAX_NEW = 48                # benchmarks/speculative.py::run, full
+SPEC_RAW_MAX_NEW = 24
+SPEC_MAX_LEN = SPEC_MAX_NEW + 6 + 2      # max_new + k + 1 at k = 6, and one
+# 12c, benchmarks/paged_speculative.py::_workload and _variant at the full
+# setting: 14 requests, max_new in 6-16, Poisson arrivals in rounds at 2x
+# load on 2 slots, k = 4, max_len = 16 + k + 2, pages of 4
+PS_REQUESTS = 14
+PS_REF_FRAMES = 32
+PS_BUDGETS = (6, 16)
+PS_SLOTS = 2
+PS_K = 4
+PS_MAX_LEN = PS_BUDGETS[1] + PS_K + 2
+PS_PAGE = 4
 
 
 def card_line() -> str:
@@ -2178,12 +2258,604 @@ def paged_path(label, eng0, counted, programs, replay_kernels, batch1,
     return launches_by_mode["paged"], out
 
 
+def _echo_params(params, alpha: float):
+    """benchmarks/speculative.py::_echo_params: every decoder block's self
+    ``o``, cross ``o`` and ``ffn.down`` scaled by ``alpha``. At a small
+    alpha the blocks approach the identity and, with tied embeddings, each
+    model's argmax approaches its input token: draft and verifier agree on
+    most positions despite independent random weights."""
+    out = dict(params)
+    out["dec_blocks"] = []
+    for block in params["dec_blocks"]:
+        block = dict(block)
+        for arm, proj in (("self_attn", "o"), ("cross_attn", "o"),
+                          ("ffn", "down")):
+            block[arm] = dict(block[arm])
+            block[arm][proj] = {key: leaf * alpha
+                                for key, leaf in block[arm][proj].items()}
+        out["dec_blocks"].append(block)
+    return out
+
+
+def _zero(counted):
+    for fn in counted.values():
+        fn.launches = 0
+
+
+def _read(counted):
+    return {name: fn.launches for name, fn in counted.items()}
+
+
+def _plan_launches(*plans):
+    """The kernel launches one run of each plan makes: its entries with a
+    main segment, by kernel."""
+    out = {}
+    for plan in plans:
+        for e in plan:
+            if e.k_main:
+                out[e.kernel] = out.get(e.kernel, 0) + 1
+    return out
+
+
+def _role_flops(eng, counts):
+    """Whole-linear FLOPs (``by_role``'s measure) of committing each of
+    ``eng``'s cached plans its count of times: {plan key: runs}."""
+    return sum(e.flops * runs for key, runs in counts.items()
+               for e in eng._plans.plans[key])
+
+
+def rung_pdp(arch: str, seed: int, tiny_power):
+    """Phase 12a, on one rung of the paper's ladder: captured ``transcribe``
+    of whisper-base or whisper-small at its published widths, Q8_0 through
+    an untuned offload engine, seeded random weights, 1500 frames and
+    PAPER_TOKENS tokens, no EOS: prefill ms, decode ms a token and the
+    transcript's PDP at the power limit (the median of SPEC_RUNG_REQUESTS
+    requests after the capturing one), beside phase 7's whisper-tiny
+    figure, the port's 32 KB coverage of each model and the paper's."""
+    import statistics
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import energy
+    from repro_torch.core.coverage import coverage, enumerate_whisper
+    from repro_torch.core.offload import OffloadEngine
+    from repro_torch.models import model
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = get_config(arch)
+    params = model.init_params(torch.Generator().manual_seed(seed), cfg,
+                               device="cpu")
+    eng = ServeEngine(cfg, params, max_len=PAPER_TOKENS + 8,
+                      offload=OffloadEngine(), eos_id=-1, device="cuda")
+    mel = np.random.default_rng(seed).standard_normal(
+        (1, cfg.encoder_ctx, cfg.n_mels)).astype(np.float32)
+    first = eng.transcribe(mel, max_new=PAPER_TOKENS)[0]
+    runs = [eng.transcribe(mel, max_new=PAPER_TOKENS)[0]
+            for _ in range(SPEC_RUNG_REQUESTS)]
+    if any(r.tokens != first.tokens for r in runs) or \
+            len(first.tokens) != PAPER_TOKENS:
+        raise AssertionError(f"rung {arch}: captured transcripts differ or "
+                             "stopped early")
+    limit = energy.card_power_limit_w(0)
+    total = statistics.median(r.total_s for r in runs)
+    out = dict(
+        arch=arch, frames=cfg.encoder_ctx, tokens=PAPER_TOKENS,
+        layers=cfg.num_layers, d_model=cfg.d_model,
+        prefill_ms=statistics.median(r.prefill_s for r in runs) * 1e3,
+        decode_ms_per_token=statistics.median(
+            r.decode_s for r in runs) * 1e3 / PAPER_TOKENS,
+        transcript_s=total, power_limit_w=limit,
+        pdp_at_limit_j=energy.pdp(total, limit),
+        coverage_32kb=coverage(enumerate_whisper(cfg), 32),
+        tiny_pdp_at_limit_j=tiny_power["pdp_at_limit_j"],
+        tiny_transcript_s=tiny_power["transcript_median_s"],
+        tiny_coverage_32kb=coverage(
+            enumerate_whisper(get_config("whisper-tiny")), 32),
+        paper_coverage_32kb={"tiny": 0.938, "base": 0.665, "small": 0.665},
+        paper_tiny_pdp_j={"q8_0_imax": energy.PAPER_PDP_J[
+            ("tiny", "q8_0", "imax")], "q8_0_rtx4090": energy.PAPER_PDP_J[
+            ("tiny", "q8_0", "rtx4090")]},
+        step_captures=eng._step_captures)
+    print(f"rung {arch}: {json.dumps(out)}", flush=True)
+    return out
+
+
+def _window_vs_steps(spec, b: int, f: int, tol: float):
+    """The verifier's window over the one-shot path's state at (b, f), as
+    the last request left it (each row at its final length, real KV),
+    eagerly beside k + 1 eager decode steps of the same tokens from the
+    same state (the kernels the graphs captured): bit for bit at M = b x
+    (k + 1) <= 16, else within ``tol``. The state is restored. Returns
+    (max |logit difference|, bit-equal)."""
+    import torch
+    from repro_torch.models import model
+    v, k = spec.verifier, spec.k
+    rounds = spec._statics[(b, f)]
+    st = rounds.v_state
+    tok = rounds.window[:, :k + 1].clone()
+    snap = [t.clone() for t in model.state_tensors(st)]
+    with torch.no_grad():
+        win, _ = model.verify_step(v._serve_params, v.cfg, tok, st,
+                                   engine=v.offload)
+        for t, s in zip(model.state_tensors(st), snap):
+            t.copy_(s)
+        seq = torch.cat([model.serve_step(v._serve_params, v.cfg,
+                                          tok[:, j:j + 1], st,
+                                          engine=v.offload)[0]
+                         for j in range(k + 1)], dim=1)
+        for t, s in zip(model.state_tensors(st), snap):
+            t.copy_(s)
+    torch.cuda.synchronize()
+    diff = (win - seq).abs().max().item()
+    exact = bool(torch.equal(win, seq))
+    if b * (k + 1) <= 16 and not exact:
+        raise AssertionError(f"window at M = {b * (k + 1)}: logits differ "
+                             f"from the sequential steps' by {diff}")
+    if not diff <= tol:
+        raise AssertionError(f"window at M = {b * (k + 1)}: max |logit "
+                             f"difference| {diff} > {tol}")
+    return diff, exact
+
+
+def _profile_round(spec, b: int, f: int):
+    """One round of the one-shot path at (b, f) under torch.profiler: the
+    k + 1 draft-step replays and the verify replay, each timed apart
+    (``device_ms``: the draft's column index reset first, a one-element
+    fill), and the window's top kernels by name. The replays run past the
+    state's lengths (clamped, as a free slot's); the next request
+    re-prefills."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    rounds = spec._statics[(b, f)]
+    dprog, vprog = rounds.programs
+
+    def drafts():
+        rounds.col.zero_()
+        for _ in range(spec.k + 1):
+            dprog.graph.replay()
+    draft_ms, draft_src = device_ms(drafts)
+    window_ms, window_src = device_ms(vprog.graph.replay)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _open_window()
+        vprog.graph.replay()
+        torch.cuda.synchronize()
+    return dict(draft_steps_device_ms=draft_ms, draft_ms_source=draft_src,
+                window_device_ms=window_ms, window_ms_source=window_src,
+                window_top_kernels=_top_kernels(prof, 1, 8),
+                window_kernels={name[:60]: n for name, (n, _) in
+                                _by_kernel(prof).items()
+                                if any(w in name for w in PORT_KERNEL_WORDS)})
+
+
+def spec_case(label, v, spec, mel, max_new: int, tol: float, counted,
+              power_w: float):
+    """Phase 12b, one case: ``SpeculativeEngine.transcribe`` of ``mel``
+    (B x 1500 frames) against the verifier's batch-1 ``transcribe`` of each
+    row. The verifier's batch-B greedy ``transcribe`` runs first (its
+    graphs), so the first speculative request captures exactly the
+    draft's prefill, the draft step and the window: the launch counts,
+    zeroed just before and read just after, must be CAPTURE_PASSES times
+    those programs' plans. A second request (timed) must capture and
+    launch nothing. Fails unless every row's tokens equal its batch-1
+    transcribe's; on Q8_0, the commits equal prefills + 2 a round and
+    each role's FLOPs its plans times prefills, rounds x (k + 1) draft
+    steps and rounds windows, and ``by_role`` sums to the FLOP totals;
+    the window's logits equal the sequential steps' (``_window_vs_steps``).
+    Returns (launches, summary)."""
+    import numpy as np
+    import torch
+    b, f = mel.shape[0], mel.shape[1]
+    k, d = spec.k, spec.draft
+    refs = [v.transcribe(mel[i:i + 1], max_new=max_new)[0].tokens
+            for i in range(b)]
+    v.transcribe(mel, max_new=max_new)               # the batch's graphs
+    plain = v.transcribe(mel, max_new=max_new)
+    stats0, commits0 = _stats(v.offload), v.offload.ledger.commits
+    r0, dr0, a0 = spec.rounds, spec.drafted, spec.accepted
+    torch.cuda.synchronize()
+    _zero(counted)
+    got = spec.transcribe(mel, max_new=max_new)
+    torch.cuda.synchronize()
+    launches = _read(counted)
+    rounds = spec._statics[(b, f)]
+    want = {name: 0 for name in counted}
+    for name, n in _plan_launches(
+            d._plans.plans[d._key("prefill", b, f)], rounds.d_plan,
+            rounds.v_plan).items():
+        want[name] = CAPTURE_PASSES * n
+    captures = (v._verify_captures, d._step_captures)
+    r1 = spec.rounds
+    _zero(counted)
+    got2 = spec.transcribe(mel, max_new=max_new)
+    torch.cuda.synchronize()
+    launches2 = _read(counted)
+    n_rounds, rounds2 = spec.rounds - r0, spec.rounds - r1
+    tokens = [r.tokens for r in got]
+    same = sum(t == r for t, r in zip(tokens, refs))
+    acceptance = (spec.accepted - a0) / max(spec.drafted - dr0, 1)
+    spec_tok_s = sum(r.steps for r in got2) / sum(r.decode_s for r in got2)
+    plain_tok_s = sum(r.steps for r in plain) / sum(r.decode_s for r in plain)
+    spec_s = sum(r.total_s for r in got2) / b
+    plain_s = sum(r.total_s for r in plain) / b
+    commits = v.offload.ledger.commits - commits0
+    delta = _ledger_delta(_stats(v.offload), stats0)
+    roles = {role: delta["by_role"].get(role, 0)
+             for role in ("verify", "draft")}
+    runs_v = {v._key("prefill", b, f): 2, rounds.v_key: n_rounds}
+    runs_d = {d._key("prefill", b, f): 2, rounds.d_key: n_rounds * (k + 1)}
+    want_roles = {"verify": _role_flops(v, runs_v),
+                  "draft": _role_flops(d, runs_d)}
+    s = v.offload.stats
+    sums = sum(s.by_role.values()) == (s.offloaded_flops + s.fallback_flops
+                                       + s.residual_flops)
+    ledger = dict(commits=commits, by_role_delta=roles,
+                  by_role_want=want_roles, by_role_sum_equals_flops=sums)
+    if commits != 2 * 2 + 2 * n_rounds or roles != want_roles or not sums:
+        raise AssertionError(f"spec {label}: ledger {ledger}, rounds "
+                             f"{n_rounds}")
+    diff, exact = _window_vs_steps(spec, b, f, tol)
+    prof = _profile_round(spec, b, f)
+    round_host_ms = sum(r.decode_s for r in got2) * 1e3 / rounds2
+    round_dev = prof["draft_steps_device_ms"] + prof["window_device_ms"]
+    out = dict(
+        case=label, batch=b, k=k, window_m=b * (k + 1), max_new=max_new,
+        quant=v._serve_quant, rows_equal_transcribe=same,
+        rounds=rounds2, acceptance=acceptance,
+        spec_tok_s=spec_tok_s, plain_tok_s=plain_tok_s,
+        speedup=spec_tok_s / plain_tok_s,
+        spec_transcript_s=spec_s, plain_transcript_s=plain_s,
+        spec_pdp_at_limit_j=spec_s * power_w,
+        plain_pdp_at_limit_j=plain_s * power_w, power_w=power_w,
+        launches=launches, launches_expected=want,
+        launches_second_request=launches2, captures=captures,
+        window_max_abs_logit_diff=diff, window_bit_equal=exact,
+        round_host_ms=round_host_ms, round_device_ms=round_dev,
+        round_idle_share=1 - round_dev / round_host_ms, **prof, **ledger)
+    print(f"spec {label}: {json.dumps(out)}", flush=True)
+    if same != b:
+        raise AssertionError(f"spec {label}: {same} of {b} rows equal "
+                             f"transcribe: {tokens} vs {refs}")
+    if [r.tokens for r in got2] != tokens:
+        raise AssertionError(f"spec {label}: the second request's tokens "
+                             "differ")
+    if launches != want or any(launches2.values()):
+        raise AssertionError(f"spec {label}: launches {launches} (expected "
+                             f"{want}), then {launches2}")
+    if (v._verify_captures, d._step_captures) != captures:
+        raise AssertionError(f"spec {label}: recaptured")
+    if not np.isfinite(out["speedup"]):
+        raise AssertionError(f"spec {label}: no tokens a second")
+    return launches, out
+
+
+def _ps_workload(cfg):
+    """benchmarks/paged_speculative.py::_workload at its full setting from
+    default_rng(0) in the reference's order: its PS_REQUESTS mels of
+    PS_REF_FRAMES frames (drawn and discarded: the trace stays the
+    reference's), the max_news in PS_BUDGETS, the Poisson arrival rounds
+    at 2x load on 2 slots. Each request's mel is then a 1500-frame mel
+    from default_rng(1). Returns (mels, max_news, arrivals)."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    for _ in range(PS_REQUESTS):
+        rng.standard_normal((1, PS_REF_FRAMES, cfg.n_mels))
+    lo, hi = PS_BUDGETS
+    max_news = [int(rng.integers(lo, hi + 1)) for _ in range(PS_REQUESTS)]
+    mean_gap = float(np.mean(max_news)) / (PS_K + 1) / (2 * 2)
+    arrivals = np.floor(np.cumsum(rng.exponential(mean_gap, PS_REQUESTS)))
+    real = np.random.default_rng(1)
+    mels = [real.standard_normal((1, cfg.encoder_ctx, cfg.n_mels)
+                                 ).astype(np.float32)
+            for _ in range(PS_REQUESTS)]
+    return mels, max_news, arrivals
+
+
+def _ps_drive(sched, mels, max_news, arrivals, power_w):
+    """benchmarks/paged_speculative.py::_drive: the arrival trace on a
+    virtual clock of one unit a round (an idle scheduler jumps to the next
+    arrival), counting admissions that land while earlier requests hold
+    live rows. Returns the tokens in submission order, rounds, wall
+    seconds, tokens a second, mid-flight admissions and the attribution's
+    sums."""
+    import torch
+    t, i, n = 0, 0, len(mels)
+    rid2idx, midflight, rounds = {}, 0, 0
+    torch.cuda.synchronize()
+    wall0 = time.perf_counter()
+    while i < n or sched.n_queued or sched.n_active:
+        while i < n and arrivals[i] <= t:
+            rid2idx[sched.submit(mels[i], max_new=max_news[i])] = i
+            i += 1
+        was_active = sched.n_active
+        admitted = sched.admit()
+        if was_active and admitted:
+            midflight += len(admitted)
+        if sched.n_active:
+            sched.decode_step()
+            rounds += 1
+            t += 1
+        elif i < n:
+            t = int(arrivals[i])
+    torch.cuda.synchronize()            # a device assert would surface here
+    wall = time.perf_counter() - wall0
+    got = sched.finished
+    rids = sorted(rid2idx, key=rid2idx.get)
+    n_tok = sum(got[r].steps for r in rids)
+    att = sched.attribution(power_w)
+    return dict(tokens=[got[r].tokens for r in rids], rounds=rounds,
+                wall_s=wall, n_tokens=n_tok, tok_s=n_tok / wall,
+                midflight=midflight,
+                per_request_pdp_j=sum(att["per_request_pdp_j"].values()),
+                batch_pdp_j=att["batch_pdp_j"])
+
+
+def spec_schedulers(v, spec, counted, power_w):
+    """Phase 12c: benchmarks/paged_speculative.py's trace (``_ps_workload``)
+    over PS_SLOTS slots at k = PS_K, driven four ways on one echo Q8_0
+    verifier (max_len PS_MAX_LEN): the ``SpecScheduler`` wave, the
+    ``SpecContinuousScheduler``, the ``PagedSpecScheduler`` (pages of
+    PS_PAGE, 1 + 2 x pages_per self pages, a 1500-frame cross page a
+    request and 1 + 2 cross pages) and its tight arena (1 + pages_per self
+    pages). The launch counts are zeroed before each mode's first drive
+    and read after it: only that drive's captures launch. Fails unless
+    every request's tokens equal the wave's and its batch-1
+    ``transcribe``'s; the tight arena preempted; admissions landed
+    mid-flight; each pool captured one window and one draft step (the
+    first paged pool also the draft's batch-1 step, for replays); commits
+    equal 2 x (prefills + replays + rounds) and the ledger's FLOPs by role
+    the plans times their runs; per-request PDP sums to the batch's (rel
+    1e-9); a repeated drive on the warm pool gives the same tokens with
+    no capture and no launch; a free slot past max_len takes a round with
+    no device assert. Printed: each mode's tokens a second (the warm
+    drive), acceptance, preemptions, trimmed pages, committed KV bytes.
+    Returns (launches over the drives, summary)."""
+    import numpy as np
+    import torch
+    from repro_torch.models import model
+    from repro_torch.serve.speculative import SpecScheduler
+
+    cfg, d, k = v.cfg, spec.draft, spec.k
+    f = cfg.encoder_ctx
+    mels, max_news, arrivals = _ps_workload(cfg)
+    refs = [v.transcribe(m, max_new=n)[0].tokens
+            for m, n in zip(mels, max_news)]
+    pages_per = -(-PS_MAX_LEN // PS_PAGE)
+    cross = dict(cross_page_size=f, n_cross_pages=1 + PS_SLOTS)
+    geom = dict(page_size=PS_PAGE, n_pages=1 + PS_SLOTS * pages_per, **cross)
+    tight = dict(page_size=PS_PAGE, n_pages=1 + pages_per, **cross)
+    total = {name: 0 for name in counted}
+    out, wave = {}, None
+    for mode in ("wave", "continuous", "paged", "tight"):
+        caps0 = (v._verify_captures, d._step_captures)
+        commits0, stats0 = v.offload.ledger.commits, _stats(v.offload)
+        r0, dr0, a0 = spec.rounds, spec.drafted, spec.accepted
+        torch.cuda.synchronize()
+        _zero(counted)
+        if mode == "wave":
+            sched = SpecScheduler(spec, n_slots=PS_SLOTS)
+            t0 = time.perf_counter()
+            rids = [sched.submit(m, max_new=n)
+                    for m, n in zip(mels, max_news)]
+            res = sched.run()
+            torch.cuda.synchronize()
+            r = dict(tokens=[res[i].tokens for i in rids],
+                     wall_s=time.perf_counter() - t0, midflight=0,
+                     rounds=spec.rounds - r0)
+        else:
+            sched = (spec.continuous(PS_SLOTS, f) if mode == "continuous"
+                     else spec.paged(PS_SLOTS, f,
+                                     **(geom if mode == "paged" else tight)))
+            r = _ps_drive(sched, mels, max_news, arrivals, power_w)
+        launches = _read(counted)
+        for name, n in launches.items():
+            total[name] += n
+        caps = (v._verify_captures - caps0[0], d._step_captures - caps0[1])
+        commits = v.offload.ledger.commits - commits0
+        delta = _ledger_delta(_stats(v.offload), stats0)
+        rounds = spec.rounds - r0
+        acc = (spec.accepted - a0) / max(spec.drafted - dr0, 1)
+        paged = mode in ("paged", "tight")
+        n_pre = sched.prefills if paged else PS_REQUESTS
+        replays = sched.replays if paged else 0
+        replayed = sched.replayed_steps if paged else 0
+        if mode == "wave":
+            waves = -(-PS_REQUESTS // PS_SLOTS)
+            ok_commits = commits == 2 * waves + 2 * rounds
+            rk = spec._statics[(PS_SLOTS, f)]
+            want_flops = (_role_flops(v, {v._key("prefill", PS_SLOTS, f):
+                                          waves, rk.v_key: rounds})
+                          + _role_flops(d, {d._key("prefill", PS_SLOTS, f):
+                                            waves,
+                                            rk.d_key: rounds * (k + 1)}))
+        else:
+            rk = sched._spec_rounds
+            ok_commits = commits == 2 * (n_pre + replays + rounds)
+            runs_v = {v._key("prefill", 1, f): n_pre, rk.v_key: rounds}
+            runs_d = {d._key("prefill", 1, f): n_pre,
+                      rk.d_key: rounds * (k + 1)}
+            if replayed:
+                runs_v[v._key("step", 1, f)] = replayed
+                runs_d[d._key("step", 1, f, role="draft")] = replayed
+            want_flops = _role_flops(v, runs_v) + _role_flops(d, runs_d)
+        flops = sum(delta["by_role"].values())
+        ledger_flops = (delta["offloaded_flops"] + delta["fallback_flops"]
+                        + delta["residual_flops"])
+        want_caps = (1, 1 + (mode == "paged"))
+        r.update(launches=launches, captures=caps, commits=commits,
+                 rounds=rounds, acceptance=acc,
+                 preemptions=getattr(sched, "preemptions", 0),
+                 replays=replays, pages_trimmed=getattr(
+                     sched, "pages_trimmed", 0),
+                 shared_hits=getattr(sched, "shared_hits", 0),
+                 flops=flops, flops_expected=want_flops)
+        if mode != "wave":
+            r.update(kv_committed_bytes=sched.kv_committed_bytes,
+                     draft_kv_committed_bytes=sched._draft_pool
+                     .committed_kv_bytes())
+            sched.run()                       # claims the first drive's
+            _zero(counted)
+            caps1 = (v._verify_captures, d._step_captures)
+            warm = _ps_drive(sched, mels, max_news, arrivals, power_w)
+            if (warm["tokens"] != r["tokens"] or any(_read(counted).values())
+                    or (v._verify_captures, d._step_captures) != caps1):
+                raise AssertionError(f"spec sched {mode}: the warm drive's "
+                                     "tokens, captures or launches differ")
+            r.update(first_drive_wall_s=r["wall_s"], wall_s=warm["wall_s"],
+                     tok_s=warm["tok_s"])
+        else:
+            t0 = time.perf_counter()
+            rids = [sched.submit(m, max_new=n)
+                    for m, n in zip(mels, max_news)]
+            res = sched.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            if [res[i].tokens for i in rids] != r["tokens"]:
+                raise AssertionError("spec sched wave: the warm run's "
+                                     "tokens differ")
+            r.update(first_drive_wall_s=r["wall_s"], wall_s=wall,
+                     tok_s=sum(map(len, r["tokens"])) / wall)
+        same = sum(a == b for a, b in zip(r["tokens"], refs))
+        shown = {key: val for key, val in r.items() if key != "tokens"}
+        print(f"spec sched {mode}: {json.dumps(shown)}; tokens equal "
+              f"transcribe for {same} of {PS_REQUESTS}", flush=True)
+        if same != PS_REQUESTS or (wave is not None
+                                   and r["tokens"] != wave):
+            raise AssertionError(f"spec sched {mode}: tokens differ")
+        if caps != want_caps:
+            raise AssertionError(f"spec sched {mode}: captures {caps}, "
+                                 f"expected {want_caps}")
+        if not ok_commits or flops != want_flops or flops != ledger_flops:
+            raise AssertionError(f"spec sched {mode}: commits {commits}, "
+                                 f"FLOPs {flops} (plans x runs "
+                                 f"{want_flops}, ledger {ledger_flops})")
+        if r["shared_hits"]:
+            raise AssertionError(f"spec sched {mode}: a prefix hit among "
+                                 "distinct mels")
+        if mode != "wave":
+            if not abs(r["per_request_pdp_j"] - r["batch_pdp_j"]) <= \
+                    1e-9 * r["batch_pdp_j"]:
+                raise AssertionError(f"spec sched {mode}: per-request PDP "
+                                     "does not sum to the batch's")
+            if not r["midflight"]:
+                raise AssertionError(f"spec sched {mode}: no admission "
+                                     "landed mid-flight")
+        if mode == "tight" and not r["preemptions"]:
+            raise AssertionError("spec sched tight: no preemption")
+        if mode == "wave":
+            wave = r["tokens"]
+        out[mode] = {key: val for key, val in r.items() if key != "tokens"}
+        if mode == "continuous":
+            cont = sched
+
+    # a free slot past max_len takes a window: one request on the drained
+    # contiguous pool with the other slot's counters set past max_len
+    rid = cont.submit(mels[0], max_new=max_news[0])
+    cont.admit()
+    far = torch.full((PS_SLOTS,), PS_MAX_LEN + 5, dtype=torch.int32,
+                     device="cuda")
+    far[0] = 0
+    model.set_slot_lengths(cont.pool.state, far)
+    model.set_slot_lengths(cont._draft_pool.state, far)
+    probe = cont.run()[rid].tokens
+    torch.cuda.synchronize()
+    print(f"spec sched: a free slot at length {PS_MAX_LEN + 5} (max_len "
+          f"{PS_MAX_LEN}) beside a live request: tokens equal transcribe: "
+          f"{probe == refs[0]}", flush=True)
+    if probe != refs[0]:
+        raise AssertionError("spec sched: the free-slot probe's tokens "
+                             "differ")
+    out.update(requests=PS_REQUESTS, slots=PS_SLOTS, k=PS_K,
+               max_len=PS_MAX_LEN, geometry=dict(paged=geom, tight=tight),
+               free_slot_probe_length=PS_MAX_LEN + 5)
+    return total, out
+
+
+def speculative_phase(counted, tiny_power):
+    """Phase 12: speculative decoding at full width (12a-c; see the
+    module docstring). Returns (launches on the speculative path, the
+    summary)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import energy
+    from repro_torch.core.offload import OffloadEngine
+    from repro_torch.models import model
+    from repro_torch.serve.engine import ServeEngine
+
+    t0 = time.perf_counter()
+    power_w = energy.card_power_limit_w(0)
+    rungs = [rung_pdp(arch, seed, tiny_power)
+             for arch, seed in (("whisper-base", 30), ("whisper-small", 31))]
+    base, tiny = get_config("whisper-base"), get_config("whisper-tiny")
+    bp = model.init_params(torch.Generator().manual_seed(32), base,
+                           device="cpu")
+    tp = model.init_params(torch.Generator().manual_seed(33), tiny,
+                           device="cpu")
+    bp_echo, tp_echo = (_echo_params(bp, ECHO_ALPHA),
+                        _echo_params(tp, ECHO_ALPHA))
+    rng = np.random.default_rng(34)
+    mel1 = rng.standard_normal((1, base.encoder_ctx, base.n_mels)
+                               ).astype(np.float32)
+    mel4 = rng.standard_normal((4, base.encoder_ctx, base.n_mels)
+                               ).astype(np.float32)
+    launches = {name: 0 for name in counted}
+
+    def engine(params, quant, max_len):
+        cfg = dataclasses.replace(base, quant=quant)
+        return ServeEngine(cfg, params, max_len=max_len, quant=quant,
+                           offload=OffloadEngine(), eos_id=-1,
+                           device="cuda")
+
+    cases = []
+    v_raw = engine(bp, "q8_0", SPEC_MAX_LEN)
+    v_echo = engine(bp_echo, "q8_0", SPEC_MAX_LEN)
+    v_dense = engine(bp_echo, "none", SPEC_MAX_LEN)
+    for label, v, tparams, mel, k, max_new, tol in (
+            ("raw q8_0 b1 k4", v_raw, tp, mel1, 4, SPEC_RAW_MAX_NEW,
+             FIRST_STEP_TOL),
+            ("echo q8_0 b1 k4", v_echo, tp_echo, mel1, 4, SPEC_MAX_NEW,
+             FIRST_STEP_TOL),
+            ("echo q8_0 b4 k6", v_echo, tp_echo, mel4, 6, SPEC_MAX_NEW,
+             FIRST_STEP_TOL),
+            ("echo dense b4 k6", v_dense, tp_echo, mel4, 6, SPEC_MAX_NEW,
+             DENSE_FIRST_STEP_TOL)):
+        spec = v.speculative(tiny, tparams, k=k)
+        got, summary = spec_case(label, v, spec, mel, max_new, tol,
+                                 counted, power_w)
+        for name, n in got.items():
+            launches[name] += n
+        cases.append(summary)
+    v_ps = engine(bp_echo, "q8_0", PS_MAX_LEN)
+    got, sched = spec_schedulers(v_ps, v_ps.speculative(tiny, tp_echo,
+                                                        k=PS_K),
+                                 counted, power_w)
+    for name, n in got.items():
+        launches[name] += n
+    missing = [name for name in ("q8_matvec", "q8_matmul", "bf16_matmul")
+               if not launches[name]]
+    wall = time.perf_counter() - t0
+    print(f"speculative phase: {wall:.1f}s; launches {launches}", flush=True)
+    if missing:
+        raise AssertionError(f"speculative path: {missing} never launched")
+    return launches, dict(rungs=rungs, cases=cases, schedulers=sched,
+                          wall_s=wall)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    sys.path.insert(0, os.path.join(ROOT, "src"))
+    src = os.path.join(ROOT, "src")
+    if not os.path.isdir(os.path.join(src, "repro_torch")):
+        print(f"chip_smoke: no src/repro_torch beside {__file__}: run it "
+              "from the root of a checkout", file=sys.stderr)
+        return 1
+    sys.path.insert(0, src)
     from repro_torch.core.device import resolve_device
     from repro_torch.kernels import _build
 
@@ -2230,7 +2902,7 @@ def main() -> int:
                                 counted, q8_run, q8_replay, "q8_0")
     d_captured = captured_path("dense+flash", d_eng, d_mel, d_tokens, d_split,
                                counted, d_run, d_replay, "fp16")
-    power_pdp("q8_0", q8_eng, q8_mel, "q8_0")
+    tiny_power = power_pdp("q8_0", q8_eng, q8_mel, "q8_0")
     power_pdp("dense+flash", d_eng, d_mel, "fp16")
     cdf = coverage_cdf(enumerate_whisper(get_config("whisper-tiny")))
     print(f"coverage whisper-tiny (LMM KB, baseline, optimized): "
@@ -2296,6 +2968,10 @@ def main() -> int:
             path_launches["paged"][name] += n
     print(f"paged serving phase: {time.perf_counter() - t0:.1f}s",
           flush=True)
+
+    path_launches["speculative"], spec_summary = speculative_phase(
+        counted, tiny_power)
+    print(f"speculative summary: {json.dumps(spec_summary)}", flush=True)
 
     kernels = []
     for name, meta in KERNELS.items():

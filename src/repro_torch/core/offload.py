@@ -24,6 +24,7 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.backends import executor
+from repro_torch.core.coverage import MulMat, fits
 from repro_torch.core.plan import DispatchPlan, PlanEntry, plan_linear
 from repro_torch.core.qformats import QTensor
 from repro_torch.tuning import Autotuner
@@ -41,6 +42,10 @@ class OffloadStats:
     tuned_calls: int = 0        # offloads that ran on a tuned burst
     by_kernel: Dict[str, int] = field(default_factory=dict)
     by_backend: Dict[str, int] = field(default_factory=dict)
+    # FLOPs per role of a two-model (speculative) engine: "draft" and
+    # "verify" commits, "main" for everything else. Whole-linear FLOPs,
+    # so sum(by_role) == offloaded + fallback + residual FLOPs exactly.
+    by_role: Dict[str, int] = field(default_factory=dict)
 
     def offload_rate(self) -> float:
         t = self.offloaded_calls + self.fallback_calls
@@ -58,7 +63,8 @@ class OffloadLedger:
     totals: OffloadStats = field(default_factory=OffloadStats)
     commits: int = 0            # plans committed (not runs)
 
-    def account(self, entry: PlanEntry, times: int = 1) -> None:
+    def account(self, entry: PlanEntry, times: int = 1,
+                role: str = "main") -> None:
         s = self.totals
         if entry.offload:
             s.offloaded_calls += times
@@ -72,13 +78,17 @@ class OffloadLedger:
         s.by_kernel[entry.name] = s.by_kernel.get(entry.name, 0) + times
         s.by_backend[entry.backend] = (s.by_backend.get(entry.backend, 0)
                                        + times)
+        s.by_role[role] = s.by_role.get(role, 0) + entry.flops * times
 
-    def commit(self, plan: Optional[DispatchPlan], times: int = 1) -> None:
-        """Account ``times`` runs of a recorded program's plan."""
+    def commit(self, plan: Optional[DispatchPlan], times: int = 1,
+               role: str = "main") -> None:
+        """Account ``times`` runs of a recorded program's plan, its FLOPs
+        under ``role`` ("draft" or "verify" from a speculative engine,
+        "main" everywhere else)."""
         if plan is None or times <= 0:
             return
         for entry in plan:
-            self.account(entry, times)
+            self.account(entry, times, role=role)
         self.commits += 1
 
 
@@ -97,6 +107,14 @@ class OffloadEngine:
     @property
     def stats(self) -> OffloadStats:
         return self.ledger.totals
+
+    def should_offload(self, m: int, k: int, n: int,
+                       name: str = "linear") -> bool:
+        """Whether an (m, k, n) product's working set fits the local-memory
+        budget with the optimized data layout (the reference's rule, one
+        aggregation unit)."""
+        return fits(MulMat(name, m=m, k=k, n=n), self.vmem_budget_kb,
+                    optimized=True, agg_units=1)
 
     def plan_entry(self, m: int, k: int, n: int, *, quantized: bool,
                    name: str = "linear", dense_f32: bool = False

@@ -151,8 +151,9 @@ class DispatchPlan:
 
 def plan_key(phase: str, quant: Optional[str], batch: int,
              *extra: Hashable,
-             pages: Optional[Tuple[Hashable, ...]] = None
-             ) -> Tuple[Hashable, ...]:
+             pages: Optional[Tuple[Hashable, ...]] = None,
+             role: Optional[str] = None,
+             k: Optional[int] = None) -> Tuple[Hashable, ...]:
     """Canonical plan-cache key: ``(phase, quant, batch, *extra)``; the
     serving engine's extra is the frame count. Routing depends only on
     static shapes, so equal keys mean one program and one plan.
@@ -161,10 +162,19 @@ def plan_key(phase: str, quant: Optional[str], batch: int,
     as the reference does: a paged decode step gathers its KV through
     block tables, another program than the contiguous step at the same
     (batch, frames), so the two never share a ``PlanCache`` entry.
-    ``pages=None`` leaves a key as it was."""
+
+    ``role`` and ``k`` append the speculative identity, ``("role",
+    role)`` then ``("k", k)``, after the pages qualifier, in the
+    reference's order: a draft step and a verify window of ``k + 1``
+    positions (M = batch x (k + 1) a linear) are other programs than the
+    plain step at the same batch. ``None`` leaves a key as it was."""
     base = (phase, quant, batch, *extra)
     if pages is not None:
         base = (*base, ("pages", tuple(pages)))
+    if role is not None:
+        base = (*base, ("role", role))
+    if k is not None:
+        base = (*base, ("k", k))
     return base
 
 

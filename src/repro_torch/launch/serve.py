@@ -5,7 +5,12 @@ Boots the ServeEngine with random weights from ``--seed`` (Q8_0 on load by
 default) and serves a set of synthetic mel requests: as one static batch
 (``transcribe``), or with ``--continuous`` through the continuous-batching
 scheduler over a pool of ``--slots`` slots, drained step by step, whose
-per-request attribution it prints. Then each request's latency and tokens,
+per-request attribution it prints, or with ``--speculative`` through a
+two-model speculative engine: a ``--draft`` arch (whisper-tiny by default,
+dense, its weights from ``--seed`` + 1) proposes ``-k`` tokens a round and
+the served arch verifies them, token-exact with its own greedy decode; the
+report adds ``spec.stats()`` (acceptance, captures, FLOPs by role). Then
+each request's latency and tokens,
 the offload ledger when ``--offload`` routes the linears through the
 dispatcher, and one ``energy_report`` JSON object. Power is the card's
 limit as nvidia-smi reads it, or ``--power-w``, which the CPU requires.
@@ -40,6 +45,14 @@ def main(argv=None):
                          "static batch")
     ap.add_argument("--slots", type=int, default=4,
                     help="slot-pool width for --continuous")
+    ap.add_argument("--speculative", action="store_true",
+                    help="speculative decoding: a --draft model proposes "
+                         "-k tokens a round, the served arch verifies them")
+    ap.add_argument("--draft", default="whisper-tiny",
+                    choices=sorted(ALL_ARCHS),
+                    help="draft arch for --speculative")
+    ap.add_argument("-k", type=int, default=6,
+                    help="draft window size for --speculative")
     ap.add_argument("--full", action="store_true",
                     help="the published widths (default: the smoke config)")
     ap.add_argument("--seed", type=int, default=0)
@@ -50,6 +63,9 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.power_w is None and args.device == "cpu":
         ap.error("--device cpu needs --power-w for the energy report")
+    if args.speculative and args.continuous:
+        ap.error("--speculative batches its requests in one wave; drop "
+                 "--continuous")
 
     cfg = get_config(args.arch) if args.full else get_smoke_config(args.arch)
     gen = torch.Generator().manual_seed(args.seed)
@@ -89,6 +105,18 @@ def main(argv=None):
               f"{sched.step_captures} step capture(s)")
         print(json.dumps({"attribution": attribution, "power_w": power_w},
                          indent=1, sort_keys=True))
+    elif args.speculative:
+        dcfg = (get_config(args.draft) if args.full
+                else get_smoke_config(args.draft))
+        dparams = model_lib.init_params(
+            torch.Generator().manual_seed(args.seed + 1), dcfg,
+            max_positions=512, device=args.device)
+        spec = engine.speculative(dcfg, dparams, k=args.k)
+        results = spec.transcribe(mel, max_new=args.max_new)
+        print(f"speculative: draft={args.draft} k={args.k} "
+              f"acceptance={spec.acceptance_rate():.2f} "
+              f"rounds={spec.rounds} "
+              f"verify_captures={spec.stats()['verify_captures']}")
     else:
         results = engine.transcribe(mel, max_new=args.max_new)
     for i, r in enumerate(results):
@@ -97,8 +125,11 @@ def main(argv=None):
     if offload is not None:
         print(json.dumps({"ledger": asdict(offload.stats)}, indent=1,
                          sort_keys=True))
-    print(json.dumps({"energy": engine.energy_report(results, power_w),
-                      "power_w": power_w}, indent=1, sort_keys=True))
+    report = {"energy": engine.energy_report(results, power_w),
+              "power_w": power_w}
+    if args.speculative:
+        report["speculative"] = spec.stats()
+    print(json.dumps(report, indent=1, sort_keys=True))
     return 0
 
 

@@ -13,7 +13,11 @@ A decode step of several rows runs its two contractions one row at a
 time: on the card an einsum becomes a batched GEMM whose kernel, and so
 whose order of summation, depends on how many rows the batch holds. Each
 row of a continuous-batching slot step then gets the bits a batch-1 step
-gives it, and the greedy tokens agree; a batch-1 step is unchanged.
+gives it, and the greedy tokens agree; a batch-1 step is unchanged. A
+speculative verify window of W positions extends the rule to positions:
+each (row, position) is contracted alone, as the W = 1 step of that row
+would contract it, so position j's logits are the bits the j-th
+sequential step gives.
 
 The paged cache (``PagedKVCache``) keeps K/V in a page arena that every
 row reaches through its block table: a step scatters its new entries
@@ -147,20 +151,23 @@ def _cache_update(buf: torch.Tensor, val: torch.Tensor,
 
     A scalar ``length`` writes every row at one index; the caller checks
     that the cache has room (it knows the step count on the host), and an
-    index past the end is not checked here. A ``(B,)`` length writes row b
-    at ``length[b]`` (W = 1), clamped to the last position: a free slot of
-    the pool keeps decoding after its request left and can pass the end,
-    and an index out of range would be a device-side assert on the card.
-    The reference's ``dynamic_update_slice`` clamps the same way; an active
-    row never reaches the clamp (the scheduler's budget keeps it within the
-    cache)."""
+    index past the end is not checked here. A ``(B,)`` length writes row
+    b's W entries from ``length[b]`` on, the start clamped to ``S_max -
+    W``: a free slot of the pool keeps decoding after its request left and
+    can pass the end, and an index out of range would be a device-side
+    assert on the card. The reference's ``dynamic_update_slice`` clamps a
+    start that would overrun the same way; an active row never reaches the
+    clamp (the scheduler's budget keeps it within the cache)."""
+    w = val.shape[1]
     if length.dim() == 0:
-        idx = length.to(torch.long) + torch.arange(val.shape[1],
-                                                   device=buf.device)
+        idx = length.to(torch.long) + torch.arange(w, device=buf.device)
         return buf.index_copy_(1, idx, val.to(buf.dtype))
     rows = torch.arange(buf.shape[0], device=buf.device)
-    idx = length.clamp(max=buf.shape[1] - 1).to(torch.long)
-    return buf.index_put_((rows, idx), val[:, 0].to(buf.dtype))
+    start = length.clamp(max=buf.shape[1] - w).to(torch.long)
+    if w == 1:                  # the decode step's launches, unchanged
+        return buf.index_put_((rows, start), val[:, 0].to(buf.dtype))
+    idx = start[:, None] + torch.arange(w, device=buf.device)[None, :]
+    return buf.index_put_((rows[:, None], idx), val.to(buf.dtype))
 
 
 class PagedKVCache(NamedTuple):
@@ -212,12 +219,16 @@ def paged_window_gather(pages: torch.Tensor,
         b, n_log * pages.shape[1], *pages.shape[2:])
 
 
-def _rows_apart(fn, a: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """``fn(a, c)`` over the batch; with more than one row, one row at a
-    time, each row exactly the batch-1 contraction."""
+def _rows_apart(fn, a: torch.Tensor, c: torch.Tensor,
+                w: int = 1) -> torch.Tensor:
+    """``fn(a, c)`` over the rows of ``a``, which are (row, window
+    position) pairs, ``w`` a row of ``c``: with more than one, one at a
+    time, each exactly the batch-1, W = 1 contraction against its row of
+    ``c``."""
     if a.shape[0] == 1:
         return fn(a, c)
-    return torch.cat([fn(a[i:i + 1], c[i:i + 1]) for i in range(a.shape[0])])
+    return torch.cat([fn(a[r:r + 1], c[r // w:r // w + 1])
+                      for r in range(a.shape[0])])
 
 
 def decode_attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
@@ -225,18 +236,18 @@ def decode_attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
                      memory_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                      engine=None
                      ) -> Tuple[torch.Tensor, Union[KVCache, PagedKVCache]]:
-    """One decode step. x: (B, 1, d). Self-attention appends the new K/V
-    entry to ``cache`` and attends over positions <= length; with
-    ``memory_kv`` (the precomputed cross K/V) it attends over the encoder
-    memory. Returns (out, cache): the self-attention cache is advanced in
-    place (its K/V and length keep their storage), where the reference
-    returns a new one. ``cache.length`` may be ``()`` (lockstep) or
-    ``(B,)`` (slot pool): each row then writes and attends at its own
-    position. A ``PagedKVCache`` writes its entry through the block table
-    and attends over each row's gathered pages."""
+    """One decode step over a window of W positions. x: (B, W, d); W = 1
+    is the autoregressive step, W = k + 1 the speculative verify window.
+    Self-attention appends the W new K/V entries to ``cache`` and query j
+    attends over positions <= length + j (its own entry, no later one);
+    with ``memory_kv`` (the precomputed cross K/V) it attends over the
+    encoder memory. Returns (out, cache): the self-attention cache is
+    advanced by W in place (its K/V and length keep their storage), where
+    the reference returns a new one. ``cache.length`` may be ``()``
+    (lockstep) or ``(B,)`` (slot pool): each row then writes and attends
+    at its own position. A ``PagedKVCache`` writes its entries through the
+    block table and attends over each row's gathered pages."""
     b, w = x.shape[0], x.shape[1]
-    if w != 1:
-        raise ValueError("the port decodes one position per step")
     hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = _split_heads(layers.linear(p["q"], x, engine, "dec.attn.q"), hq)
     if memory_kv is None:
@@ -251,9 +262,18 @@ def decode_attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
         else:
             k = _cache_update(cache.k, knew, cache.length)
             v = _cache_update(cache.v, vnew, cache.length)
+        # query j of row b sees keys s <= length[b] + j: a (B, W, S)
+        # mask, or (W, S) in lockstep, one mask row a (row, position)
+        # pair of the contractions below; W = 1 needs no offsets
         pos_idx = torch.arange(k.shape[1], device=x.device)
-        if cache.length.dim():                     # (B, 1, 1, 1, S)
-            valid = (pos_idx[None, :] <= cache.length[:, None])[
+        qpos = cache.length[..., None]                 # (B, 1) or (1,)
+        if w > 1:
+            qpos = qpos + torch.arange(w, device=x.device)
+        if cache.length.dim():                         # (B * W, 1, 1, 1, S)
+            valid = (pos_idx[None, None, :] <= qpos[:, :, None]).reshape(
+                b * w, 1, 1, 1, -1)
+        elif w > 1:
+            valid = (pos_idx[None, :] <= qpos[:, None]).repeat(b, 1)[
                 :, None, None, None, :]
         else:
             valid = pos_idx <= cache.length
@@ -262,15 +282,16 @@ def decode_attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
         k, v = memory_kv
         valid = None
     g = hq // hkv
-    qg = q.reshape(b, w, hkv, g, hd).to(torch.float32)
+    # one row a (row, position) pair: (B * W, 1, Hkv, G, D)
+    qg = q.reshape(b * w, 1, hkv, g, hd).to(torch.float32)
     logits = _rows_apart(lambda qi, ki: torch.einsum("bqhgd,bshd->bhgqs",
                                                      qi, ki),
-                         qg, k.to(torch.float32)) * hd ** -0.5
+                         qg, k.to(torch.float32), w) * hd ** -0.5
     if valid is not None:
         logits = torch.where(valid, logits, torch.full_like(logits, NEG_INF))
     probs = torch.softmax(logits, dim=-1)
     out = _rows_apart(lambda pi, vi: torch.einsum("bhgqs,bshd->bqhgd", pi, vi),
                       probs.to(v.dtype).to(torch.float32),
-                      v.to(torch.float32))
+                      v.to(torch.float32), w)
     out = out.to(x.dtype).reshape(b, w, hq * hd)
     return layers.linear(p["o"], out, engine, "dec.attn.o"), cache

@@ -9,6 +9,8 @@ reference's family dispatch (the port's configs are audio-only).
   slot_layout(state, batch)                    -> ServeState (slot layout)
   state_kv_bytes(state)                        -> committed bytes
   serve_step(params, cfg, token, state)        -> (logits, state')
+  verify_step(params, cfg, tokens, state)      -> (logits (B, W, V), state')
+  set_slot_lengths(state, new_len)             -> None (in place)
 """
 from __future__ import annotations
 
@@ -140,3 +142,35 @@ def serve_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
                                     engine=engine)
     state.step.add_(1)
     return logits, state
+
+
+def verify_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+                state: ServeState, *, engine=None
+                ) -> Tuple[torch.Tensor, ServeState]:
+    """Score a W-token verify window in one forward: tokens (B, W) int ->
+    (logits (B, W, V), state') with every cache length and ``step``
+    advanced by W, in place. ``logits[:, j]`` is what ``serve_step`` gives
+    after ``tokens[:, :j + 1]`` fed one at a time."""
+    logits, _ = whisper.verify_step(params, cfg, tokens, state.layer_states,
+                                    engine=engine)
+    state.step.add_(tokens.shape[1])
+    return logits, state
+
+
+def set_slot_lengths(state: ServeState, new_len: torch.Tensor) -> None:
+    """The speculative rollback: every per-slot counter (``step`` and each
+    layer's cache length) set to ``new_len`` (B,), in place. After a
+    verify window advanced them by W, the accepted prefix keeps fewer of
+    its entries; the entries past ``new_len`` stay (masked, then
+    overwritten by the next window). In the paged layout only ``length``
+    and ``step`` rewind: tables and arenas are left as they are (the
+    paged scheduler trims the pages a rejected suffix crossed into). No
+    tensor is created or replaced: a captured program rereads the
+    counters' storage."""
+    ls = state.layer_states
+    if isinstance(ls, whisper.WhisperPagedDecodeState):
+        ls.length.copy_(new_len)                   # broadcast over layers
+    else:
+        for kv in ls.self_kv:
+            kv.length.copy_(new_len)
+    state.step.copy_(new_len)

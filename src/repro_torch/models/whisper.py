@@ -216,27 +216,42 @@ def warm_tuning(cfg: ModelConfig, engine, *, n_frames: int = 1500,
     return engine.tuner.warm(mulmats, dtype=dtype)
 
 
-def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
-                state: WhisperDecodeState, *, engine=None
-                ) -> Tuple[torch.Tensor, WhisperDecodeState]:
-    """token: (B, 1) int -> (logits (B, 1, V), state'). The positions are
-    the first layer's self-KV length, read on the device: a scalar when
-    every row decodes in lockstep, ``(B,)`` in the slot-pool layout, where
-    each row reads its own positional row (clamped to the table's last
-    row: a free slot's position keeps rising after its request left).
-    The self-KV caches advance in place, so ``state'`` holds the same
-    tensors as ``state``. A ``WhisperPagedDecodeState`` takes the paged
-    twin (``_decode_step_paged``)."""
-    if isinstance(state, WhisperPagedDecodeState):
-        return _decode_step_paged(params, cfg, token, state, engine=engine)
-    x = layers.embed(params["embed"], token)
+def _embed_window(params: dict, tokens: torch.Tensor,
+                  length: torch.Tensor) -> torch.Tensor:
+    """tokens (B, W) embedded, plus window position j's learned positional
+    row ``length + j``: a scalar ``length`` in lockstep (the window's
+    start clamped to the table, as the reference's ``dynamic_slice``
+    clamps it), or ``(B,)`` in the slot layout, where each row reads its
+    own rows, clamped to the table's last row (a free slot's position
+    keeps rising after its request left; an index past the table would be
+    a device assert on the card). At W = 1 these are the decode step's
+    operations, one for one."""
+    x = layers.embed(params["embed"], tokens)
     table = params["dec_pos"]["table"]
-    length = state.self_kv[0].length
+    w = tokens.shape[1]
+    last = table.shape[0] - 1
     if length.dim():                               # per-slot positions (B,)
-        pos = length.clamp(max=table.shape[0] - 1)
-        x = x + table.index_select(0, pos)[:, None].to(x.dtype)
-    else:
-        x = x + table.index_select(0, length.reshape(1)).to(x.dtype)
+        if w == 1:
+            pos = length.clamp(max=last)
+            return x + table.index_select(0, pos)[:, None].to(x.dtype)
+        posw = (length[:, None] + torch.arange(w, device=length.device)
+                ).clamp(max=last)
+        return x + table[posw].to(x.dtype)
+    if w == 1:
+        return x + table.index_select(0, length.reshape(1)).to(x.dtype)
+    start = length.clamp(max=table.shape[0] - w)
+    return x + table.index_select(
+        0, start + torch.arange(w, device=length.device)).to(x.dtype)
+
+
+def _decoder_stack(params: dict, cfg: ModelConfig, x: torch.Tensor,
+                   state: WhisperDecodeState, *, engine=None
+                   ) -> Tuple[torch.Tensor, WhisperDecodeState]:
+    """The decoder blocks and the readout over an embedded, positioned
+    (B, W, d) input on the contiguous state, shared by the one-token step
+    and the W-token verify window: each layer's ``decode_attention``
+    appends its W self-KV entries and masks the window's causality, so
+    W = 1 is the decode step."""
     for p, kv, ck_cv in zip(params["dec_blocks"], state.self_kv,
                             state.cross_kv):
         h = layers.norm_apply(p["norm1"], x, cfg.norm)
@@ -254,10 +269,42 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
     return logits, state
 
 
+def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
+                state: WhisperDecodeState, *, engine=None
+                ) -> Tuple[torch.Tensor, WhisperDecodeState]:
+    """token: (B, 1) int -> (logits (B, 1, V), state'). The positions are
+    the first layer's self-KV length, read on the device: a scalar when
+    every row decodes in lockstep, ``(B,)`` in the slot-pool layout, where
+    each row reads its own positional row (clamped to the table's last
+    row: a free slot's position keeps rising after its request left).
+    The self-KV caches advance in place, so ``state'`` holds the same
+    tensors as ``state``. A ``WhisperPagedDecodeState`` takes the paged
+    twin (``_verify_step_paged`` at W = 1)."""
+    return verify_step(params, cfg, token, state, engine=engine)
+
+
+def verify_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+                state: WhisperDecodeState, *, engine=None
+                ) -> Tuple[torch.Tensor, WhisperDecodeState]:
+    """Score a W-token window in one forward: tokens (B, W) int ->
+    (logits (B, W, V), state') with every layer's self-KV advanced by W,
+    in place. ``logits[:, j]`` is the next-token distribution after
+    ``tokens[:, :j + 1]``, what ``decode_step`` gives fed those tokens one
+    at a time, which makes speculative acceptance token-exact against the
+    greedy verifier. The window's base is the first layer's self-KV
+    length, scalar (lockstep) or per row (slot layout), as in
+    ``decode_step``, which is this function at W = 1. A
+    ``WhisperPagedDecodeState`` takes the paged twin."""
+    if isinstance(state, WhisperPagedDecodeState):
+        return _verify_step_paged(params, cfg, tokens, state, engine=engine)
+    x = _embed_window(params, tokens, state.self_kv[0].length)
+    return _decoder_stack(params, cfg, x, state, engine=engine)
+
+
 def _paged_stack(params: dict, cfg: ModelConfig, x: torch.Tensor,
                  state: WhisperPagedDecodeState, *, engine=None
                  ) -> Tuple[torch.Tensor, WhisperPagedDecodeState]:
-    """The decoder blocks over an embedded, positioned (B, 1, d) input on
+    """The decoder blocks over an embedded, positioned (B, W, d) input on
     the paged state: the self-KV writes and reads go through the block
     table (``PagedKVCache``, layer i on its arena and ``length[i]``
     views), and each layer's cross K/V is gathered from its pages through
@@ -286,14 +333,12 @@ def _paged_stack(params: dict, cfg: ModelConfig, x: torch.Tensor,
     return layers.unembed(params["embed"], x, engine), state
 
 
-def _decode_step_paged(params: dict, cfg: ModelConfig, token: torch.Tensor,
+def _verify_step_paged(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                        state: WhisperPagedDecodeState, *, engine=None
                        ) -> Tuple[torch.Tensor, WhisperPagedDecodeState]:
-    """The paged twin of ``decode_step``: embedding and per-slot positions
-    (the first layer's lengths, clamped as the contiguous slot step
-    clamps them), then the paged stack at W = 1."""
-    x = layers.embed(params["embed"], token)
-    table = params["dec_pos"]["table"]
-    pos = state.length[0].clamp(max=table.shape[0] - 1)
-    x = x + table.index_select(0, pos)[:, None].to(x.dtype)
+    """The paged twin of ``verify_step`` (and at W = 1 of ``decode_step``):
+    embedding and per-slot positions (the first layer's lengths, clamped
+    as the contiguous slot step clamps them), then the paged stack, whose
+    self-KV writes scatter the W entries through the block table."""
+    x = _embed_window(params, tokens, state.length[0])
     return _paged_stack(params, cfg, x, state, engine=engine)

@@ -31,6 +31,15 @@ over its pool (its graph is the scheduler's, its plan this engine's at
 ``plan_key("step", quant, n_slots, F)``, with the page geometry appended
 for a paged pool: ``paged_scheduler``, ``serve/paging.py``).
 
+Speculative decoding (``speculative``, ``serve/speculative.py``) adds two
+programs over slot-layout buffers that its caller owns: the verify window
+(``_verify_fn``: a (B, k + 1) window scored in one forward, at
+``plan_key("verify", quant, B, F, role="verify", k=k)``; its captures
+count in ``_verify_captures``) and the draft step (``_draft_fn``: one
+step whose token is read from and written to a window column, at
+``plan_key("step", quant, B, F, role="draft")``). ``_capture`` captures
+either, as it captures the prefill and the step.
+
 With an autotuner on the offload engine (``OffloadEngine(tuner=...)``),
 every linear routes by a tuned plan entry: the burst and the kernel's
 launch tile come from the tuner's cache. The engine warms the tuner at
@@ -143,6 +152,9 @@ class ServeEngine:
     #: step graphs captured: rises only at a new (batch, frames) key, and
     #: once per continuous-batching pool (its slot step)
     _step_captures: int = field(default=0, repr=False)
+    #: verify-window graphs captured: once per speculative (batch, frames,
+    #: k) point, and once per speculative scheduler's pool
+    _verify_captures: int = field(default=0, repr=False)
     _scheduler: Any = field(default=None, repr=False)
 
     def __post_init__(self):
@@ -182,8 +194,11 @@ class ServeEngine:
         return logits[..., :self.cfg.vocab_size].argmax(dim=-1)
 
     def _key(self, phase: str, batch: int, frames: int, *,
-             pages: Optional[Tuple[Hashable, ...]] = None) -> Hashable:
-        return plan_key(phase, self._serve_quant, batch, frames, pages=pages)
+             pages: Optional[Tuple[Hashable, ...]] = None,
+             role: Optional[str] = None,
+             k: Optional[int] = None) -> Hashable:
+        return plan_key(phase, self._serve_quant, batch, frames, pages=pages,
+                        role=role, k=k)
 
     def _recording(self, plan: DispatchPlan):
         """Record the routing of a program run into ``plan`` (accounting
@@ -272,6 +287,35 @@ class ServeEngine:
         st.token.copy_(nxt)
         st.done.logical_or_(nxt[:, 0] == self._eos)
 
+    def _verify_fn(self, state: model_lib.ServeState, window: torch.Tensor,
+                   out: torch.Tensor) -> None:
+        """The verify program (the reference's ``verify_fn``): the first W
+        = (out's width + 1) / 2 columns of ``window`` (B, >= W), the pending
+        token and the k drafts, scored in one forward over the slot-layout
+        ``state`` (every counter advanced by W); the verifier's argmax at
+        each position written to ``out[:, :W]`` and the drafts to
+        ``out[:, W:]``, so that the round reads both in one host sync."""
+        w = (out.shape[1] + 1) // 2
+        logits, _ = model_lib.verify_step(self._serve_params, self.cfg,
+                                          window[:, :w], state,
+                                          engine=self.offload)
+        out[:, :w].copy_(self._argmax(logits))
+        out[:, w:].copy_(window[:, 1:w])
+
+    def _draft_fn(self, state: model_lib.ServeState, window: torch.Tensor,
+                  col: torch.Tensor) -> None:
+        """The draft step program: one decode step of every row of the
+        slot-layout ``state`` from window column ``col`` (a (1,) device
+        index), its argmax written to column ``col + 1`` and ``col``
+        advanced, all on the device, so that k + 1 runs of one captured
+        step fill the window's drafts (the last run's argmax lands in a
+        scratch column)."""
+        logits, _ = model_lib.serve_step(self._serve_params, self.cfg,
+                                         window.index_select(1, col), state,
+                                         engine=self.offload)
+        window.index_copy_(1, col + 1, self._argmax(logits[:, -1])[:, None])
+        col.add_(1)
+
     def _capture(self, key: Hashable, fn: Callable[[], None]) -> _Program:
         """Warm ``fn`` up on a side stream (its kernels build; its plan is
         recorded), then capture it into a CUDA graph. The capture pass is
@@ -293,6 +337,8 @@ class ServeEngine:
                                "its warm-up")
         if key[0] == "step":
             self._step_captures += 1
+        elif key[0] == "verify":
+            self._verify_captures += 1
         return _Program(graph, plan)
 
     def _prepare(self, st: _Static, pre_key: Hashable,
@@ -441,6 +487,33 @@ class ServeEngine:
                 self, n_slots=want_slots, n_frames=want_frames)
         return self._scheduler
 
+    def speculative(self, draft_cfg: ModelConfig, draft_params: Any, *,
+                    k: int = 4, draft_quant: str = "none"):
+        """A speculative-decoding engine over this verifier
+        (``serve/speculative.py``): the ``draft_cfg``/``draft_params``
+        model (whisper-tiny against a base or small verifier) proposes
+        ``k`` tokens a round, this engine's verify program scores the
+        k + 1 window, and greedy acceptance keeps the tokens exactly those
+        of ``transcribe``.
+
+        The draft is a dense ``ServeEngine`` on this engine's device with
+        its ``max_len`` and ``eos_id``. With an offload engine attached,
+        the draft's has the same burst and budget and shares this engine's
+        ledger: one ledger for two models, its FLOPs split by role. The
+        reference pins its draft to its plain backend; the port has none
+        on a card, so its draft runs on the Hopper kernels too
+        (``bf16_matmul``)."""
+        from repro_torch.serve.speculative import SpeculativeEngine
+        draft_offload = None
+        if self.offload is not None:
+            draft_offload = OffloadEngine(
+                vmem_budget_kb=self.offload.vmem_budget_kb,
+                burst=self.offload.burst, ledger=self.offload.ledger)
+        draft = ServeEngine(draft_cfg, draft_params, max_len=self.max_len,
+                            quant=draft_quant, offload=draft_offload,
+                            eos_id=self.eos_id, device=self.device)
+        return SpeculativeEngine(verifier=self, draft=draft, k=k)
+
     def paged_scheduler(self, n_slots: int = 4,
                         n_frames: Optional[int] = None, **page_cfg):
         """A paged-pool continuous-batching scheduler over this engine
@@ -498,7 +571,12 @@ class ServeEngine:
                                "plan_misses": self._plans.misses,
                                "ledger_commits": self.offload.ledger.commits,
                                "by_backend": dict(
-                                   self.offload.stats.by_backend)}
+                                   self.offload.stats.by_backend),
+                               # FLOPs by role (a speculative engine's
+                               # draft and verify); sums to the ledger's
+                               # FLOP totals
+                               "by_role": dict(
+                                   self.offload.stats.by_role)}
         if self.offload is not None and self.offload.tuner is not None:
             t = self.offload.tuner
             rep["tuning"] = {"cache_hits": t.cache.hits,

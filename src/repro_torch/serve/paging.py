@@ -42,8 +42,9 @@ graph of ``transcribe``'s batch-1 step over the engine's static prefill
 buffers, captured with the batch-1 prefill graph when the pool is first
 used, before any request owns those buffers.
 
-Not ported from the reference: ``trim_self_pages`` (the speculative
-rollback), the serving mesh (one shard) and the telemetry hooks.
+``PagedKVPool.trim_self_pages`` is the paged half of the speculative
+rollback (``serve/speculative.py``). Not ported from the reference: the
+serving mesh (one shard) and the telemetry hooks.
 """
 from __future__ import annotations
 
@@ -411,6 +412,25 @@ class PagedKVPool:
         self._ct[slot, :] = 0
         self._dirty = True
         self._slots.release(slot)
+
+    def trim_self_pages(self, slot: int, n_keep: int) -> int:
+        """Release ``slot``'s self pages past logical index ``n_keep - 1``:
+        the paged half of the speculative rollback. A rejected window
+        suffix may have crossed into pages the pre-round capacity pass
+        allocated; once the rollback rewound the length, a page whose
+        first position is at or past it holds only dead entries, so it
+        returns to the allocator (its table entries point at the trash
+        page again, synced before the next step). A shared page drops one
+        reference. Returns the number of references released."""
+        dropped = self._slot_pages[slot][n_keep:]
+        if not dropped:
+            return 0
+        del self._slot_pages[slot][n_keep:]
+        for p in dropped:
+            self.self_alloc.release(p)
+        self._bt[slot, n_keep:] = 0
+        self._dirty = True
+        return len(dropped)
 
     # -- device side ---------------------------------------------------------
     def sync(self) -> None:

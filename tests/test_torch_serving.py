@@ -221,9 +221,15 @@ def test_energy_report_matches_reference(smoke):
     assert set(got) == {"requests", "total_s", "mean_s", "pdp_j", "edp_js",
                         "offload_rate", "dispatch"}
     assert set(got["dispatch"]) == {"plans", "plan_hits", "plan_misses",
-                                    "ledger_commits", "by_backend"}
+                                    "ledger_commits", "by_backend",
+                                    "by_role"}
     for key in ("plans", "plan_hits", "plan_misses", "ledger_commits"):
         assert got["dispatch"][key] == want["dispatch"][key], key
+    s = teng.stats
+    assert set(got["dispatch"]["by_role"]) == set(
+        want["dispatch"]["by_role"]) == {"main"}
+    assert got["dispatch"]["by_role"]["main"] == \
+        s.offloaded_flops + s.fallback_flops + s.residual_flops
     assert got["requests"] == want["requests"] == 4
     assert got["offload_rate"] == want["offload_rate"]
     total = sum(r.total_s for r in tres)
