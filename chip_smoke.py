@@ -203,18 +203,47 @@ own kernels with nvcc. Phases, each of which fails the run on error:
        ``bf16_matmul`` at M = 5 and 28 (``per`` "verify window M=5" and
        "verify window M=28").
 
+13. Telemetry (``repro_torch.obs``), the port's counterpart of
+    ``benchmarks/telemetry_overhead.py``; with telemetry off, phases 2-12
+    print what they printed before.
+    a. The gate (``telemetry_gate``): two whisper-tiny engines at
+       published widths, Q8_0, untuned ``OffloadEngine()``, one with
+       ``Telemetry()`` and one without, over 4-slot pools, on the
+       reference's full trace (16 requests, max_new 6-24 from
+       default_rng(0); 1500-frame mels in place of its 32-frame ones).
+       Both drain 2 requests to warm up, then 5 lockstep drains of the
+       trace, one step each in turn. Fails unless the overhead, the
+       median of the paired per-step deltas over the median
+       telemetry-off step, is at most 3% (1.03x); tokens, the captures'
+       launches from Python, the one slot-step capture a pool and a
+       replayed step's kernels are equal with telemetry on and off; and
+       the telemetry-on engine's ledger is exact, every rid's phases are
+       closed, the spans nest, every histogram's buckets sum to its
+       count and its Perfetto JSON passes ``tools/check_trace.py``.
+    b. ``telemetry_drives``: phase 11's paged geometry on its 24-request
+       trace, and phase 12c's tight speculative pool on its 14-request
+       trace, each with telemetry on against its telemetry-off twin in
+       lockstep: the same invariants, ``prefix_hit`` (paged) and
+       ``preempt``, ``replay`` and ``spec_round`` (speculative) present,
+       ``repro_preemptions_total`` equal to the scheduler's preemptions;
+       each overhead printed, not gated.
+    One ``telemetry ...: {...}`` line per drive, then the phase's wall
+    time.
+
 The last two lines are the kernels' JSON record and the result line; each
 kernel's record also carries its launches on the tuned paths' eager loops
 (``tuned_launches``), its launches on each path's drive
 (``launches_by_path``: the main path's, phase 10's, phase 11's paged
-pool drives, both paths summed, under "paged", and phase 12's captures
-under "speculative") and its tiles' times (``tiles``).
+pool drives, both paths summed, under "paged", phase 12's captures
+under "speculative" and phase 13's captures, every engine's summed,
+under "telemetry") and its tiles' times (``tiles``).
 
 Copied out of a checkout (no ``src/repro_torch`` beside the script), or
 without a CUDA device, it prints why and exits 1.
 """
 from __future__ import annotations
 
+import collections
 import json
 import os
 import subprocess
@@ -422,6 +451,14 @@ PS_SLOTS = 2
 PS_K = 4
 PS_MAX_LEN = PS_BUDGETS[1] + PS_K + 2
 PS_PAGE = 4
+# phase 13: benchmarks/telemetry_overhead.py's full trace
+TE_REQUESTS = 16
+TE_REF_FRAMES = 32                # its mels' frames (drawn, then discarded)
+TE_BUDGETS = (6, 24)
+TE_WARM = 2                       # requests each engine drains to warm up
+TE_ROUNDS = 5                     # lockstep drains of the trace
+TE_BUDGET = 0.03                  # the gate: telemetry-on step <= 1.03x off
+TE_BARE = 200                     # paired bare replays: the pools' own gap
 
 
 def card_line() -> str:
@@ -1669,12 +1706,13 @@ def cb_benchmark(eng, mels, max_news, rng, power_w):
     every prefill and step executed for real. Tokens a second and p50/p95
     latency of each mode, printed, not held to a limit."""
     import numpy as np
+    from repro_torch.obs.metrics import percentile
     from repro_torch.serve.scheduler import ContinuousBatchingScheduler
     n = len(mels)
     f = mels[0].shape[1]
 
     def lat_summary(xs):
-        return {f"p{q}_s": float(np.percentile(xs, q)) for q in (50, 95, 99)}
+        return {f"p{q}_s": percentile(xs, q) for q in (50, 95, 99)}
 
     # _calibrate
     warm = np.concatenate([mels[0]] * SLOTS, axis=0)
@@ -1966,8 +2004,8 @@ def _pg_drive(sched, mels, max_news, arrivals, power_w):
     in submission order, the slot steps run, each step's host seconds,
     the drive's wall seconds and tokens a second, p50/p95/p99 latency in
     steps, the KV bytes and peaks, and the attribution's sums."""
-    import numpy as np
     import torch
+    from repro_torch.obs.metrics import percentile
     t, i, n = 0, 0, len(mels)
     rid2idx, done_at, step_s = {}, {}, []
     torch.cuda.synchronize()
@@ -1998,7 +2036,7 @@ def _pg_drive(sched, mels, max_news, arrivals, power_w):
     return dict(
         tokens=[got[r].tokens for r in rids], slot_steps=len(step_s),
         step_s=step_s, wall_s=wall, n_tokens=tokens, tok_s=tokens / wall,
-        **{f"p{q}_steps": float(np.percentile(lat, q)) for q in (50, 95, 99)},
+        **{f"p{q}_steps": percentile(lat, q) for q in (50, 95, 99)},
         kv_committed_bytes=sched.kv_committed_bytes,
         kv_used_peak_bytes=sched.kv_used_peak,
         kv_utilization=sched.kv_utilization_peak,
@@ -2845,6 +2883,342 @@ def speculative_phase(counted, tiny_power):
                           wall_s=wall)
 
 
+def _check_trace_module():
+    """tools/check_trace.py, loaded by path (tools/ is not a package)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "check_trace", os.path.join(ROOT, "tools", "check_trace.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _te_workload(cfg):
+    """benchmarks/telemetry_overhead.py's full trace from default_rng(0)
+    in the reference's order: TE_REQUESTS mels of TE_REF_FRAMES frames
+    (drawn and discarded: the trace stays the reference's), then the
+    max_news in TE_BUDGETS; each request's mel is then a 1500-frame mel
+    from default_rng(1). Returns (mels, max_news)."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    for _ in range(TE_REQUESTS):
+        rng.standard_normal((1, TE_REF_FRAMES, cfg.n_mels))
+    lo, hi = TE_BUDGETS
+    max_news = [int(rng.integers(lo, hi + 1)) for _ in range(TE_REQUESTS)]
+    real = np.random.default_rng(1)
+    mels = [real.standard_normal((1, cfg.encoder_ctx, cfg.n_mels)
+                                 ).astype(np.float32)
+            for _ in range(TE_REQUESTS)]
+    return mels, max_news
+
+
+def _lockstep(scheds, mels, max_news, arrivals, times, first):
+    """One trace through both schedulers ({"off": ..., "on": ...}) in
+    lockstep on a virtual clock of one unit a step (an idle pair jumps to
+    the next arrival): each submits the same arrivals, admits, and takes
+    one step, in turn, ``first`` going first; every ``decode_step`` is
+    timed alone into ``times[mode]``. The schedules are identical (same
+    trace, deterministic tokens), so each off/on pair of steps sees the
+    same work and nearly the same machine state. Returns {mode: tokens in
+    submission order}."""
+    t, i, n = 0, 0, len(mels)
+    rids = {mode: [] for mode in scheds}
+    order = [first] + [m for m in scheds if m != first]
+    while i < n or any(s.n_queued or s.n_active for s in scheds.values()):
+        while i < n and arrivals[i] <= t:
+            for mode, s in scheds.items():
+                rids[mode].append(s.submit(mels[i], max_new=max_news[i]))
+            i += 1
+        stepped = False
+        for mode in order:
+            s = scheds[mode]
+            s.admit()
+            if s.n_active:
+                t0 = time.perf_counter()
+                s.decode_step()
+                times[mode].append(time.perf_counter() - t0)
+                stepped = True
+        if stepped:
+            t += 1
+        elif i < n:
+            t = int(arrivals[i])
+    out = {}
+    for mode, s in scheds.items():
+        got = s.run()                   # claims the results, flushes metrics
+        out[mode] = [got[r].tokens for r in rids[mode]]
+    if len(times["on"]) != len(times["off"]):
+        raise AssertionError(f"lockstep: {len(times['on'])} telemetry-on "
+                             f"steps against {len(times['off'])} off")
+    return out
+
+
+def _overhead(times):
+    """benchmarks/telemetry_overhead.py's estimate: the median of the
+    paired per-step deltas over the median telemetry-off step."""
+    import statistics
+    deltas = [a - b for a, b in zip(times["on"], times["off"])]
+    med = {mode: statistics.median(ts) for mode, ts in times.items()}
+    return statistics.median(deltas) / med["off"], med, len(deltas)
+
+
+def _tele_checks(tele, label, rids):
+    """The telemetry-on engine's invariants: the ledger exact, every
+    phase closed and every submitted rid among the closed, per-track
+    nesting, ``sum(bucket_counts) == count`` for every histogram, and the
+    Perfetto JSON (written under build/telemetry/) valid by
+    tools/check_trace.py. Raises on any failure; returns the record."""
+    tr = tele.tracer
+    cons = tele.ledger_consistent()
+    path = tele.write_trace(os.path.join(
+        ROOT, "build", "telemetry", label.replace(" ", "_") + ".json"))
+    with open(path) as fh:
+        errors = _check_trace_module().validate(json.load(fh))
+    snap = tele.snapshot()
+    checks = {
+        "ledger_exact": bool(cons["exact"]),
+        "phases_closed": (tr.all_closed() and not tr.open_phases()
+                          and tr.rids_closed == tr.rids_opened
+                          and set(rids) <= tr.rids_closed),
+        "nesting_ok": tr.check_nesting() == [],
+        "histogram_sums": all(
+            sum(c for _, c in h["buckets"]) == h["count"]
+            for h in snap["metrics"]["histograms"].values()),
+        "trace_valid": not errors}
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"telemetry {label}: {failed} failed "
+                             f"({cons}; trace: {errors[:5]})")
+    return dict(checks=checks, ledger=cons, trace=snap["trace"],
+                spans=dict(sorted(collections.Counter(
+                    s.name for s in tr.spans).items())),
+                events=dict(sorted(collections.Counter(
+                    e.name for e in tr.events).items())))
+
+
+def telemetry_gate(q8_eng, counted):
+    """Phase 13a: benchmarks/telemetry_overhead.py on the card. Two
+    whisper-tiny engines at published widths with ``q8_eng``'s weights
+    (Q8_0, untuned ``OffloadEngine()``, max_len 32, no EOS), one with
+    ``Telemetry()`` and one without, each over a SLOTS-slot pool. Each
+    drains TE_WARM requests to warm up (the pool's captures), the launch
+    counts zeroed before and read after each engine's warm-up; then
+    TE_ROUNDS lockstep drains of the trace (``_te_workload``), the first
+    mover alternating by round. Fails unless the overhead (``_overhead``)
+    is at most TE_BUDGET; both engines gave the same tokens, launched the
+    same kernels from Python at their captures and captured one slot step
+    each, none after the warm-up; a replayed slot step of each holds the
+    same kernels by name and count; and the telemetry-on engine's
+    invariants hold (``_tele_checks``). Printed beside the overhead, not
+    gated: TE_BARE paired replays of each pool's slot step with its host
+    sync and nothing else, whose gap is the engines' own, telemetry
+    apart. Returns the launches."""
+    import numpy as np
+    import torch
+    from repro_torch import obs
+    from repro_torch.core.offload import OffloadEngine
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = q8_eng.cfg
+    f = cfg.encoder_ctx
+    mels, max_news = _te_workload(cfg)
+    engines, scheds, warm = {}, {}, {}
+    for mode in ("off", "on"):
+        torch.cuda.synchronize()
+        _zero(counted)
+        eng = engines[mode] = ServeEngine(
+            cfg, q8_eng.params, max_len=TE_BUDGETS[1] + 8, quant="q8_0",
+            offload=OffloadEngine(), eos_id=-1, device="cuda",
+            telemetry=obs.Telemetry() if mode == "on" else None)
+        s = scheds[mode] = eng.scheduler(SLOTS, f)
+        for m, n in zip(mels[:TE_WARM], max_news[:TE_WARM]):
+            s.submit(m, max_new=n)
+        s.run()
+        torch.cuda.synchronize()
+        warm[mode] = _read(counted)
+    captures0 = {mode: e._step_captures for mode, e in engines.items()}
+    times = {"off": [], "on": []}
+    _zero(counted)
+    tokens = None
+    for r in range(TE_ROUNDS):
+        got = _lockstep(scheds, mels, max_news, np.zeros(TE_REQUESTS),
+                        times, "on" if r % 2 else "off")
+        if got["on"] != got["off"] or (tokens is not None
+                                       and got["on"] != tokens):
+            raise AssertionError("telemetry gate: telemetry-on tokens "
+                                 "differ from telemetry-off tokens")
+        tokens = got["on"]
+    torch.cuda.synchronize()
+    replays = _read(counted)
+    overhead, med, pairs = _overhead(times)
+    # the control: each pool's slot-step replay and its host sync alone,
+    # paired the same way, with no scheduler and no telemetry code: what
+    # the two engines' graphs differ by on their own
+    bare = {"off": [], "on": []}
+    for _ in range(TE_BARE):
+        for mode in ("off", "on"):
+            s = scheds[mode]
+            t0 = time.perf_counter()
+            s._program.graph.replay()
+            s._token[:, 0].tolist()
+            bare[mode].append(time.perf_counter() - t0)
+    bare_gap, bare_med, _ = _overhead(bare)
+    kernels = {mode: {k: v[0] for k, v in
+                      _profile_slot_steps(scheds[mode])[0].items()}
+               for mode in scheds}
+    matvec = sum(n for k, n in kernels["on"].items()
+                 if "q8_matvec_kernel" in k)
+    tele = engines["on"].telemetry
+    record = _tele_checks(tele, "gate q8_0", range(
+        TE_WARM + TE_ROUNDS * TE_REQUESTS))
+    captures = {mode: e._step_captures for mode, e in engines.items()}
+    out = dict(overhead=overhead, overhead_x=1 + overhead,
+               budget=TE_BUDGET, pairs=pairs,
+               median_step_ms={k: v * 1e3 for k, v in med.items()},
+               bare_replay_ms={k: v * 1e3 for k, v in bare_med.items()},
+               bare_replay_gap=bare_gap,
+               captures=captures, launches_warm=warm,
+               launches_lockstep=replays,
+               replay_kernels={"equal": kernels["on"] == kernels["off"],
+                               "distinct": len(kernels["on"]),
+                               "launches": sum(kernels["on"].values()),
+                               "q8_matvec_kernel": matvec},
+               tokens=sum(len(t) for t in tokens) * TE_ROUNDS, **record)
+    print(f"telemetry gate q8_0: {json.dumps(out)}", flush=True)
+    problems = []
+    if overhead > TE_BUDGET:
+        problems.append(f"overhead {overhead:.4f} > {TE_BUDGET}")
+    if warm["on"] != warm["off"] or not warm["on"]["q8_matvec"]:
+        problems.append(f"capture launches differ: {warm}")
+    if any(captures[m] != 1 or captures0[m] != 1 for m in captures):
+        problems.append(f"step captures {captures0} -> {captures}")
+    if any(replays.values()):
+        problems.append(f"launches from Python after the warm-up: {replays}")
+    if kernels["on"] != kernels["off"] or matvec != 33:
+        problems.append(f"replayed slot step kernels: {matvec} "
+                        "q8_matvec_kernel, or on and off differ")
+    if problems:
+        raise AssertionError(f"telemetry gate: {problems}")
+    return {name: warm["on"][name] + warm["off"][name] for name in counted}
+
+
+def _te_pair(make, label, mels, max_news, arrivals, counted):
+    """One telemetry drive (13b): ``make(telemetry)`` builds a scheduler
+    (its own engine); the off and on schedulers take the trace in
+    lockstep, the launch counts zeroed before and read after (the pools'
+    captures). Fails unless both gave the same tokens and the same step
+    and window captures, and the on engine's invariants hold. Returns
+    (the on scheduler, the record, the launches)."""
+    import torch
+    from repro_torch import obs
+    torch.cuda.synchronize()
+    _zero(counted)
+    scheds = {"off": make(None), "on": make(obs.Telemetry())}
+    times = {"off": [], "on": []}
+    got = _lockstep(scheds, mels, max_news, arrivals, times, "off")
+    torch.cuda.synchronize()
+    launches = _read(counted)
+    if got["on"] != got["off"]:
+        raise AssertionError(f"telemetry {label}: telemetry-on tokens "
+                             "differ from telemetry-off tokens")
+    caps = {mode: (s.engine._step_captures, s.engine._verify_captures)
+            for mode, s in scheds.items()}
+    if caps["on"] != caps["off"]:
+        raise AssertionError(f"telemetry {label}: captures differ {caps}")
+    s = scheds["on"]
+    tele = s.engine.telemetry
+    record = _tele_checks(tele, label, range(len(mels)))
+    overhead, med, pairs = _overhead(times)
+    record.update(
+        overhead=overhead, overhead_x=1 + overhead, pairs=pairs,
+        median_step_ms={k: v * 1e3 for k, v in med.items()},
+        captures=caps, preemptions=s.preemptions,
+        preemptions_counter=tele.metrics.counter(
+            "repro_preemptions_total").value(),
+        prefix_hits=s.shared_hits, launches=launches,
+        tokens=sum(len(t) for t in got["on"]))
+    if record["preemptions_counter"] != s.preemptions:
+        raise AssertionError(f"telemetry {label}: repro_preemptions_total "
+                             f"{record['preemptions_counter']} != "
+                             f"{s.preemptions} preemptions")
+    print(f"telemetry {label}: {json.dumps(record)}", flush=True)
+    print(f"telemetry {label} overhead (not gated): {overhead:+.4%} of a "
+          f"{med['off'] * 1e3:.3f} ms step", flush=True)
+    return s, record, launches
+
+
+def telemetry_drives(q8_eng, counted):
+    """Phase 13b: telemetry on the paged pool (phase 11's paged geometry
+    on ``_pg_workload``'s 24-request trace, whisper-tiny Q8_0, max_len
+    PG_MAX_LEN) and on the speculative paged scheduler (phase 12c's tight
+    pool on ``_ps_workload``'s 14-request trace: an echo whisper-base Q8_0
+    verifier, an echo whisper-tiny draft, k = PS_K), each against its
+    telemetry-off twin in lockstep (``_te_pair``). Fails unless the
+    invariants hold, ``prefix_hit`` (paged) and ``preempt``, ``replay``
+    and ``spec_round`` (speculative) appear, and
+    ``repro_preemptions_total`` equals the scheduler's preemptions. Each
+    overhead is printed, not gated. Returns the launches."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.offload import OffloadEngine
+    from repro_torch.models import model
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = q8_eng.cfg
+    f = cfg.encoder_ctx
+    mels, _, _, max_news, arrivals = _pg_workload(cfg)
+    pages_per = -(-(int(np.mean(max_news)) + 1) // PG_PAGE)
+    geom = dict(page_size=PG_PAGE, n_pages=1 + PG_SLOTS * pages_per,
+                cross_page_size=f, n_cross_pages=1 + PG_DISTINCT)
+
+    def paged(tele):
+        eng = ServeEngine(cfg, q8_eng.params, max_len=PG_MAX_LEN,
+                          quant="q8_0", offload=OffloadEngine(), eos_id=-1,
+                          device="cuda", telemetry=tele)
+        return eng.paged_scheduler(PG_SLOTS, f, **geom)
+
+    launches = {name: 0 for name in counted}
+    _, rec, got = _te_pair(paged, "paged q8_0", mels, max_news, arrivals,
+                           counted)
+    for name, n in got.items():
+        launches[name] += n
+    if "prefix_hit" not in rec["events"]:
+        raise AssertionError("telemetry paged q8_0: no prefix_hit event")
+
+    base, tiny = get_config("whisper-base"), get_config("whisper-tiny")
+    bp = _echo_params(model.init_params(torch.Generator().manual_seed(32),
+                                        base, device="cpu"), ECHO_ALPHA)
+    tp = _echo_params(model.init_params(torch.Generator().manual_seed(33),
+                                        tiny, device="cpu"), ECHO_ALPHA)
+    mels, max_news, arrivals = _ps_workload(base)
+    tight = dict(page_size=PS_PAGE, n_pages=1 + -(-PS_MAX_LEN // PS_PAGE),
+                 cross_page_size=base.encoder_ctx,
+                 n_cross_pages=1 + PS_SLOTS)
+
+    def spec_tight(tele):
+        v = ServeEngine(dataclasses.replace(base, quant="q8_0"), bp,
+                        max_len=PS_MAX_LEN, quant="q8_0",
+                        offload=OffloadEngine(), eos_id=-1, device="cuda",
+                        telemetry=tele)
+        return v.speculative(tiny, tp, k=PS_K).paged(
+            PS_SLOTS, base.encoder_ctx, **tight)
+
+    s, rec, got = _te_pair(spec_tight, "spec tight q8_0", mels, max_news,
+                           arrivals, counted)
+    for name, n in got.items():
+        launches[name] += n
+    missing = [name for name in ("preempt", "replay")
+               if name not in rec["events"]]
+    if "spec_round" not in rec["spans"]:
+        missing.append("spec_round")
+    if missing or not s.preemptions:
+        raise AssertionError(f"telemetry spec tight q8_0: {missing} absent "
+                             f"({s.preemptions} preemptions)")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2972,6 +3346,13 @@ def main() -> int:
     path_launches["speculative"], spec_summary = speculative_phase(
         counted, tiny_power)
     print(f"speculative summary: {json.dumps(spec_summary)}", flush=True)
+
+    t0 = time.perf_counter()
+    path_launches["telemetry"] = telemetry_gate(q8_eng, counted)
+    for name, n in telemetry_drives(q8_eng, counted).items():
+        path_launches["telemetry"][name] += n
+    print(f"telemetry phase: {time.perf_counter() - t0:.1f}s; launches "
+          f"{path_launches['telemetry']}", flush=True)
 
     kernels = []
     for name, meta in KERNELS.items():

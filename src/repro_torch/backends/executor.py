@@ -8,17 +8,50 @@ sums in f32.
 Slicing a weight to a K range makes a view, never a copy: a Q8_0 weight's
 main segment keeps its full row stride, which the Hopper kernels take as
 an argument.
+
+Each resolution counts in ``repro_dispatch_total`` on the active
+telemetry, by segment, backend and kernel. A program's linears resolve on
+every run of its Python (on the CPU) and twice per capture (its warm-up
+and the captured pass, on the card); the serving engine runs every pass
+but a program's build under ``quiet_dispatch()``, so the counter moves
+once per linear per program build and once per eager call.
 """
 from __future__ import annotations
 
+from contextlib import contextmanager
 from typing import Optional, Tuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.backends.base import MAIN, RESIDUAL, KernelRequest, kernel_for
 from repro_torch.backends.registry import REGISTRY
 from repro_torch.core.mixed_exec import split_aligned
 from repro_torch.core.qformats import QBLOCK, QTensor
+
+
+_quiet = 0                   # open quiet_dispatch() scopes
+
+
+@contextmanager
+def quiet_dispatch():
+    """Resolutions inside this scope count nothing: a run of a program
+    that was already built."""
+    global _quiet
+    _quiet += 1
+    try:
+        yield
+    finally:
+        _quiet -= 1
+
+
+def _note_dispatch(segment: str, backend_name: str, kernel: str) -> None:
+    """Count one registry dispatch on the active telemetry, outside a
+    ``quiet_dispatch()`` scope; a no-op when telemetry is off."""
+    tele = obs.active()
+    if tele is not None and not _quiet:
+        tele.inc("repro_dispatch_total", segment=segment,
+                 backend=backend_name, kernel=kernel)
 
 
 def _slice_k(w, start: int, stop: int):
@@ -53,13 +86,15 @@ def split_matmul(x: torch.Tensor, w, burst: int, *,
     if k_main:
         req = KernelRequest(kernel=kern, m=m, n=n, k=k_main, dtype=dtype,
                             segment=MAIN, tiling=tiling)
-        fn = REGISTRY.resolve(req, pin=backend).build(req)
-        out = fn(x[:, :k_main], _slice_k(w, 0, k_main))
+        b = REGISTRY.resolve(req, pin=backend)
+        _note_dispatch("main", b.name, kern)
+        out = b.build(req)(x[:, :k_main], _slice_k(w, 0, k_main))
     if k_res:
         req = KernelRequest(kernel=kern, m=m, n=n, k=k_res, dtype=dtype,
                             segment=RESIDUAL)
-        fn = REGISTRY.resolve(req).build(req)
-        res = fn(x[:, k_main:], _slice_k(w, k_main, k))
+        b = REGISTRY.resolve(req)
+        _note_dispatch("residual", b.name, kern)
+        res = b.build(req)(x[:, k_main:], _slice_k(w, k_main, k))
         out = res if out is None else out + res
     if out is None:
         return torch.zeros((m, n), dtype=torch.float32, device=x.device)

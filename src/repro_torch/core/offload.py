@@ -23,6 +23,7 @@ from typing import Dict, Optional
 
 import torch
 
+from repro_torch import obs
 from repro_torch.backends import executor
 from repro_torch.core.coverage import MulMat, fits
 from repro_torch.core.plan import DispatchPlan, PlanEntry, plan_linear
@@ -151,6 +152,12 @@ class OffloadEngine:
             self._recording.add(entry)
         else:
             self.ledger.account(entry)
+            # an eager account lands outside any ledger span; claiming it
+            # on the active telemetry keeps the span FLOPs == ledger delta
+            # invariant exact under mixed eager and program use
+            tele = obs.active()
+            if tele is not None and tele._ledger is self.ledger:
+                tele.claim_eager(entry)
         return y
 
     def execute(self, x: torch.Tensor, w, entry: PlanEntry) -> torch.Tensor:

@@ -15,6 +15,12 @@ the offload ledger when ``--offload`` routes the linears through the
 dispatcher, and one ``energy_report`` JSON object. Power is the card's
 limit as nvidia-smi reads it, or ``--power-w``, which the CPU requires.
 Runs on the card unless ``--device cpu`` is given.
+
+``--trace-out PATH`` writes the run's Perfetto ``trace_event`` JSON and
+``--metrics-out PATH`` its Prometheus text exposition; either one turns
+telemetry on (``repro_torch.obs``), and the report then carries
+``"telemetry": snapshot()`` (metrics, trace shape, the ledger
+consistency record).
 """
 from __future__ import annotations
 
@@ -25,6 +31,7 @@ from dataclasses import asdict
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.configs.registry import ALL_ARCHS, get_config, get_smoke_config
 from repro_torch.core import energy
 from repro_torch.core.offload import OffloadEngine
@@ -53,6 +60,12 @@ def main(argv=None):
                     help="draft arch for --speculative")
     ap.add_argument("-k", type=int, default=6,
                     help="draft window size for --speculative")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="write the run's Perfetto trace_event JSON here "
+                         "(enables telemetry)")
+    ap.add_argument("--metrics-out", default=None, metavar="PATH",
+                    help="write Prometheus text exposition here "
+                         "(enables telemetry)")
     ap.add_argument("--full", action="store_true",
                     help="the published widths (default: the smoke config)")
     ap.add_argument("--seed", type=int, default=0)
@@ -72,9 +85,11 @@ def main(argv=None):
     params = model_lib.init_params(gen, cfg, max_positions=512,
                                    device=args.device)
     offload = OffloadEngine() if args.offload else None
+    telemetry = (obs.Telemetry()
+                 if (args.trace_out or args.metrics_out) else None)
     engine = ServeEngine(cfg, params, max_len=args.max_new + 32,
                          quant=args.quant, offload=offload,
-                         device=args.device)
+                         device=args.device, telemetry=telemetry)
     frames = cfg.encoder_ctx if args.full else 64
     rng = np.random.default_rng(args.seed)
     mel = rng.standard_normal((args.requests, frames, cfg.n_mels)
@@ -129,7 +144,14 @@ def main(argv=None):
               "power_w": power_w}
     if args.speculative:
         report["speculative"] = spec.stats()
-    print(json.dumps(report, indent=1, sort_keys=True))
+    if telemetry is not None:
+        report["telemetry"] = telemetry.snapshot()
+        if args.trace_out:
+            print("trace written:", telemetry.write_trace(args.trace_out))
+        if args.metrics_out:
+            print("metrics written:",
+                  telemetry.write_metrics(args.metrics_out))
+    print(json.dumps(report, indent=1, default=str, sort_keys=True))
     return 0
 
 

@@ -50,6 +50,17 @@ a plan's first query of a shape the warm-up did not enumerate searched);
 a capture then records and replays the tuned launches, and a replay
 consults no tuner.
 
+Telemetry (``obs.Telemetry``, ``telemetry=``; None by default): the
+engine binds the offload ledger to it after warming the tuner (warm-up
+commits predate the consistency window) and makes it the process-global
+active handle. ``transcribe`` wraps its prefill and its decode, each with
+its plan commit, in ``prefill`` and ``decode`` ledger spans; a program's
+build is a ``plan_build`` span (the capture on the card, the plan-cache
+miss on the CPU). The executor's ``repro_dispatch_total`` counts each
+linear once per program build: a capture's warm-up on the card, a key's
+first run on the CPU (``_record_run``); every other pass runs under
+``executor.quiet_dispatch()``. No telemetry call runs inside a capture.
+
 Token contract: ``GenerationResult.tokens`` holds exactly the ``steps``
 tokens the request generated — the SOT seed token is not echoed — and rows
 that hit EOS before the batch drained are truncated at their first EOS with
@@ -66,6 +77,8 @@ from typing import (Any, Callable, Dict, Hashable, List, NamedTuple,
 import numpy as np
 import torch
 
+from repro_torch import obs
+from repro_torch.backends import executor
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import energy
 from repro_torch.core.device import resolve_device
@@ -144,6 +157,11 @@ class ServeEngine:
     offload: Optional[OffloadEngine] = None
     eos_id: Optional[int] = 0
     device: Any = "cuda"
+    # the nullable observability handle: None keeps every instrumentation
+    # site one ``is not None`` test; a Telemetry instruments the engine,
+    # its schedulers and the paged pool, binds the offload ledger for
+    # span FLOP attribution, and becomes the active handle
+    telemetry: Optional[obs.Telemetry] = None
     _plans: PlanCache = field(default_factory=PlanCache, repr=False)
     _static: Dict[Tuple[int, int], _Static] = field(default_factory=dict,
                                                     repr=False)
@@ -156,6 +174,8 @@ class ServeEngine:
     #: k) point, and once per speculative scheduler's pool
     _verify_captures: int = field(default=0, repr=False)
     _scheduler: Any = field(default=None, repr=False)
+    #: plan keys whose program has run on the CPU (its build counted)
+    _built: set = field(default_factory=set, repr=False)
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -166,6 +186,13 @@ class ServeEngine:
                               if self._serve_quant == "q8_0" else params)
         self._eos = -1 if self.eos_id is None else int(self.eos_id)
         self._save_tuning(self._warm_tuning())
+        if self.telemetry is not None:
+            # bind AFTER the tuner's warm-up: its commits predate the
+            # consistency window, so span-claimed FLOPs start from zero
+            # exactly where the ledger baseline does
+            if self.offload is not None:
+                self.telemetry.bind_ledger(self.offload.ledger)
+            obs.activate(self.telemetry)
 
     def _warm_tuning(self, **shape) -> Optional[int]:
         """Warm the offload engine's tuner (if any) for whisper's shapes
@@ -209,9 +236,16 @@ class ServeEngine:
 
     def _plan(self, key: Hashable,
               recorded: DispatchPlan) -> Optional[DispatchPlan]:
-        """The key's plan from the cache; a miss keeps ``recorded``."""
+        """The key's plan from the cache; a miss keeps ``recorded`` (on
+        the CPU, in a ``plan_build`` span: the card's is the capture)."""
         if self.offload is None:
             return None
+        tele = self.telemetry
+        if (tele is not None and self.device.type != "cuda"
+                and key not in self._plans.plans):
+            with tele.span("plan_build", cat="engine",
+                           args={"key": str(key)}):
+                return self._plans.get_or_build(key, lambda: recorded)
         return self._plans.get_or_build(key, lambda: recorded)
 
     # -- eager entry points ------------------------------------------------
@@ -319,18 +353,22 @@ class ServeEngine:
     def _capture(self, key: Hashable, fn: Callable[[], None]) -> _Program:
         """Warm ``fn`` up on a side stream (its kernels build; its plan is
         recorded), then capture it into a CUDA graph. The capture pass is
-        recorded apart and must route as the warm-up did. Raises if the
-        capture fails: there is no eager fallback."""
+        recorded apart, counts no dispatch and must route as the warm-up
+        did. With telemetry, the whole build is one ``plan_build`` span,
+        recorded outside the capture. Raises if the capture fails: there
+        is no eager fallback."""
         dev = self.device
         plan, again = DispatchPlan(key=key), DispatchPlan(key=key)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.device(dev):
+        with obs.maybe_span(self.telemetry, "plan_build", cat="engine",
+                            args={"key": str(key)}), torch.cuda.device(dev):
             side = torch.cuda.Stream(dev)
             side.wait_stream(torch.cuda.current_stream(dev))
             with torch.cuda.stream(side), self._recording(plan):
                 fn()
             torch.cuda.current_stream(dev).wait_stream(side)
-            with self._recording(again), torch.cuda.graph(graph):
+            with self._recording(again), executor.quiet_dispatch(), \
+                    torch.cuda.graph(graph):
                 fn()
         if again.signature() != plan.signature():
             raise RuntimeError(f"capture of {key} routed differently from "
@@ -365,8 +403,18 @@ class ServeEngine:
             prog = self._graphs[key]
             prog.graph.replay()
             return prog.plan
+        return self._record_run(key, fn)
+
+    def _record_run(self, key: Hashable,
+                    fn: Callable[[], None]) -> DispatchPlan:
+        """``fn``, a program's Python, called on the CPU under a fresh
+        recording; returns the run's plan. Only the key's first run here
+        (the program's build) counts its dispatches."""
         plan = DispatchPlan(key=key)
-        with self._recording(plan):
+        quiet = (executor.quiet_dispatch() if key in self._built
+                 else nullcontext())
+        self._built.add(key)
+        with self._recording(plan), quiet:
             fn()
         return plan
 
@@ -416,19 +464,26 @@ class ServeEngine:
         b, f = mel_t.shape[0], mel_t.shape[1]
         pre_key, step_key = self._key("prefill", b, f), self._key("step", b, f)
         searches = self._warm_tuning(n_frames=f, batch=b, n_tokens=max_new)
+        tele = self.telemetry
         with torch.no_grad():
             st = self._static_for(b, f)
             st.mel.copy_(mel_t)
             self._prepare(st, pre_key, step_key)
-            recorded, prefill_s = self._timed_prefill(st, pre_key)
+            # each ledger span scopes one phase's run(s) and its commit,
+            # so its FLOP delta is that phase's exact attribution
+            with obs.maybe_span(tele, "prefill", cat="engine", ledger=True,
+                                args={"batch": b, "frames": f}):
+                recorded, prefill_s = self._timed_prefill(st, pre_key)
+                if self.offload is not None:
+                    self.offload.ledger.commit(self._plan(pre_key, recorded),
+                                               times=1)
             st.token.fill_(sot_id)
-            r = self._greedy_loop(st, step_key, max_new)
-        if self.offload is not None:
-            ledger = self.offload.ledger
-            ledger.commit(self._plan(pre_key, recorded), times=1)
-            if r["plan"] is not None:
-                ledger.commit(self._plan(step_key, r["plan"]),
-                              times=r["steps"])
+            with obs.maybe_span(tele, "decode", cat="engine", ledger=True,
+                                args={"batch": b}):
+                r = self._greedy_loop(st, step_key, max_new)
+                if self.offload is not None and r["plan"] is not None:
+                    self.offload.ledger.commit(
+                        self._plan(step_key, r["plan"]), times=r["steps"])
         self._save_tuning(searches)
         return self._finalize(r, prefill_s)
 

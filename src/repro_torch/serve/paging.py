@@ -43,8 +43,16 @@ buffers, captured with the batch-1 prefill graph when the pool is first
 used, before any request owns those buffers.
 
 ``PagedKVPool.trim_self_pages`` is the paged half of the speculative
-rollback (``serve/speculative.py``). Not ported from the reference: the
-serving mesh (one shard) and the telemetry hooks.
+rollback (``serve/speculative.py``).
+
+Telemetry (the engine's, handed to the pool as ``pool.telemetry``): a
+``cow_split`` instant per copy-on-write; on admission a ``prefix_hit``
+instant and an ``attach`` ledger span (zero FLOPs: no linear runs) or a
+``prefill`` ledger span; a ``replay`` ledger span and instant per
+recomputed request; a ``preempt`` instant that closes the request's
+``decode`` phase and reopens ``queued``; and the page gauges by kind
+(self, cross), set when the allocators' host-side counts change. Not
+ported from the reference: the serving mesh (one shard).
 """
 from __future__ import annotations
 
@@ -57,6 +65,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import model as model_lib
 from repro_torch.models.model import ServeState
@@ -292,6 +301,9 @@ class PagedKVPool:
             [None] * n_slots)
         self._shared: Dict[str, List[int]] = {}
         self._dirty = False
+        # the owning scheduler hands down its nullable telemetry, so that
+        # page-level events (cow_split) record
+        self.telemetry = None
 
     @property
     def plan_geometry(self) -> Tuple[int, int, int, int]:
@@ -359,6 +371,10 @@ class PagedKVPool:
         self._slot_pages[slot][lp] = fresh
         self._bt[slot, lp] = fresh
         self._dirty = True
+        if self.telemetry is not None:
+            self.telemetry.instant("cow_split", slot=slot, lp=lp,
+                                   src=int(page), dst=int(fresh))
+            self.telemetry.inc("repro_cow_splits_total")
         return fresh
 
     def attach_shared(self, slot: int, digest: str) -> None:
@@ -523,6 +539,8 @@ class PagedScheduler(ContinuousBatchingScheduler):
                               cross_page_size=cross_page_size,
                               n_cross_pages=n_cross_pages)
         super().__init__(engine, n_slots=n_slots, n_frames=n_frames)
+        self.pool.telemetry = self.telemetry
+        self._kv_gauge_state = None
         self.preemptions = 0
         self.shared_hits = 0
         self.prefills = 0
@@ -559,6 +577,7 @@ class PagedScheduler(ContinuousBatchingScheduler):
         admitted = []
         eng = self.engine
         pool = self.pool
+        tele = self.telemetry
         if self.queue and pool.n_free:
             self._capture_step()
             self._prepare_replay()
@@ -583,32 +602,47 @@ class PagedScheduler(ContinuousBatchingScheduler):
             wait_base = req.requeue_t if replay else req.submit_t
             queue_wait = (req.queue_wait_s if replay else 0.0) + (
                 time.perf_counter() - wait_base if wait_base else 0.0)
+            if tele is not None:
+                tele.end(req.rid, "queued", wait_s=queue_wait)
+                tele.observe("repro_queue_wait_seconds", queue_wait)
             slot = pool.acquire()
             if shared and not replay:
                 # prefix hit: no encoder and no prefill, so no ledger
                 # commit either (no linear ran: committing plan work here
-                # would break the attribution)
+                # would break the attribution); the ledger span's zero
+                # FLOP delta is the checkable form of that claim
                 self.shared_hits += 1
-                t0 = time.perf_counter()
-                pool.attach_shared(slot, digest)
-                for _ in range(need_self):
-                    pool.alloc_self_page(slot)
-                pool.attach_reset(slot)
-                _sync(eng.device)
-                prefill_s = time.perf_counter() - t0
-                self._busy_s += prefill_s
+                if tele is not None:
+                    tele.instant("prefix_hit", rid=req.rid)
+                    tele.inc("repro_prefix_hits_total")
+                with obs.maybe_span(tele, "attach", cat="lifecycle",
+                                    track=obs.request_track(req.rid),
+                                    rid=req.rid, ledger=True):
+                    t0 = time.perf_counter()
+                    pool.attach_shared(slot, digest)
+                    for _ in range(need_self):
+                        pool.alloc_self_page(slot)
+                    pool.attach_reset(slot)
+                    _sync(eng.device)
+                    prefill_s = time.perf_counter() - t0
+                    self._busy_s += prefill_s
                 first = req.sot_id
                 active = _ActiveSlot(rid=req.rid, max_new=req.max_new,
                                      prefill_s=prefill_s,
                                      submit_t=req.submit_t,
                                      queue_wait_s=queue_wait)
             else:
-                state, plan, prefill_s = eng.prefill_one(
-                    torch.from_numpy(req.payload))
-                self.prefills += 1
-                self._busy_s += prefill_s
-                if eng.offload is not None:
-                    eng.offload.ledger.commit(plan, times=1)
+                with obs.maybe_span(tele, "prefill", cat="lifecycle",
+                                    track=obs.request_track(req.rid),
+                                    rid=req.rid, ledger=True):
+                    state, plan, prefill_s = eng.prefill_one(
+                        torch.from_numpy(req.payload))
+                    self.prefills += 1
+                    self._busy_s += prefill_s
+                    if eng.offload is not None:
+                        eng.offload.ledger.commit(plan, times=1)
+                if tele is not None:
+                    tele.observe("repro_prefill_seconds", prefill_s)
                 if shared:
                     pool.attach_shared(slot, digest)
                 else:
@@ -630,6 +664,8 @@ class PagedScheduler(ContinuousBatchingScheduler):
                     submit_t=req.submit_t,
                     queue_wait_s=queue_wait,
                     ttft_s=req.ttft_s if replay else 0.0)
+            if tele is not None:
+                tele.begin(req.rid, "decode")
             self._token[slot].fill_(int(first))
             self._active[slot] = active
             admitted.append(req.rid)
@@ -651,7 +687,11 @@ class PagedScheduler(ContinuousBatchingScheduler):
         key = eng._key("step", 1, self.n_frames)
         inputs = [req.sot_id] + req.tokens[:-1]
         recorded = None
-        with torch.no_grad():
+        tele = self.telemetry
+        with obs.maybe_span(tele, "replay", cat="lifecycle",
+                            track=obs.request_track(req.rid), rid=req.rid,
+                            ledger=True, args={"tokens": len(inputs)}), \
+                torch.no_grad():
             _sync(eng.device)
             t0 = time.perf_counter()
             for tok in inputs:
@@ -660,12 +700,16 @@ class PagedScheduler(ContinuousBatchingScheduler):
                 recorded = plan if recorded is None else recorded
             _sync(eng.device)
             replay_s = time.perf_counter() - t0
-        self._busy_s += replay_s
-        self.replays += 1
-        self.replayed_steps += len(inputs)
-        if eng.offload is not None:
-            eng.offload.ledger.commit(eng._plan(key, recorded),
-                                      times=len(inputs))
+            self._busy_s += replay_s
+            self.replays += 1
+            self.replayed_steps += len(inputs)
+            if eng.offload is not None:
+                eng.offload.ledger.commit(eng._plan(key, recorded),
+                                          times=len(inputs))
+        if tele is not None:
+            tele.instant("replay", rid=req.rid, tokens=len(inputs))
+            tele.inc("repro_replays_total")
+            tele.observe("repro_replay_seconds", replay_s)
         return replay_s
 
     # -- the capacity pass before each step -------------------------------------
@@ -678,6 +722,12 @@ class PagedScheduler(ContinuousBatchingScheduler):
     def _preempt(self, slot: int) -> None:
         a = self._active.pop(slot)
         self.preemptions += 1
+        tele = self.telemetry
+        if tele is not None:
+            tele.instant("preempt", rid=a.rid)
+            tele.inc("repro_preemptions_total")
+            tele.end(a.rid, "decode", preempted=True, steps=a.steps)
+            tele.begin(a.rid, "queued")
         # the FRONT of the queue: a preempted request has streamed tokens
         # already; its payload stays kept, it may be preempted again
         self.queue.appendleft(_PreemptedRequest(
@@ -729,4 +779,24 @@ class PagedScheduler(ContinuousBatchingScheduler):
         for ev in events:
             if ev.done:                   # finished: no replay can follow
                 self._payloads.pop(ev.rid, None)
+        if self.telemetry is not None:
+            self._note_page_gauges()
         return events
+
+    def _note_page_gauges(self) -> None:
+        """The page gauges by kind, set when the allocators' host-side
+        counts changed (on admissions and evictions, not every step)."""
+        pool = self.pool
+        g = (pool.self_alloc.n_free, pool.cross_alloc.n_free,
+             pool.self_alloc.n_allocated, pool.cross_alloc.n_allocated,
+             int(np.count_nonzero(pool.self_alloc.refcount > 1)),
+             int(np.count_nonzero(pool.cross_alloc.refcount > 1)))
+        if g != self._kv_gauge_state:
+            self._kv_gauge_state = g
+            tele = self.telemetry
+            tele.gauge("repro_kv_pages_free", g[0], kind="self")
+            tele.gauge("repro_kv_pages_free", g[1], kind="cross")
+            tele.gauge("repro_kv_pages_used", g[2], kind="self")
+            tele.gauge("repro_kv_pages_used", g[3], kind="cross")
+            tele.gauge("repro_kv_pages_shared", g[4], kind="self")
+            tele.gauge("repro_kv_pages_shared", g[5], kind="cross")

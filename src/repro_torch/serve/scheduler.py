@@ -41,8 +41,20 @@ program is called directly, each run recorded apart.
 The engine's tuner, if any, is warmed for the pool's shapes (batch 1 and
 ``n_slots``) at construction, before any capture.
 
-Not ported from the reference: telemetry hooks, the serving mesh (one
-shard) and the language-model prompt path of ``submit``.
+Telemetry (the engine's ``telemetry``, None by default): a request's
+lifecycle is a ``queued`` then a ``decode`` phase on its track, with a
+``prefill`` ledger span (the admission's prefill run and its commit)
+between them, and ``submit``/``evict`` instants; each step is one
+``decode_step`` ledger span, opened before the run and closed after the
+step's one host sync and its commit, never inside the graph. The hot
+path appends to plain lists and ints and sets the gauges only when the
+host-side ints they read change; ``flush_telemetry`` (called by ``run()``
+and ``attribution()``) drains the buffers into the registry. The
+``repro_step_traces`` gauge reads the engine's step captures, the port's
+counterpart of the reference's step traces.
+
+Not ported from the reference: the serving mesh (one shard), with its
+per-device telemetry, and the language-model prompt path of ``submit``.
 """
 from __future__ import annotations
 
@@ -54,6 +66,7 @@ from typing import Any, Callable, Deque, Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import energy
 from repro_torch.core.plan import DispatchPlan
 from repro_torch.models import model as model_lib
@@ -111,6 +124,29 @@ class ContinuousBatchingScheduler:
             raise ValueError("audio scheduler needs n_frames (the pool's "
                              "fixed mel-frame capacity)")
         self.engine = engine
+        # the engine's nullable telemetry: every instrumentation site below
+        # is one ``is not None`` test when off
+        self.telemetry = engine.telemetry
+        if self.telemetry is not None:
+            # pre-resolved per-step instruments and a change-gated gauge
+            # cache: the step is what the 3% overhead gate prices, so it
+            # pays no registry lookup per metric
+            m = self.telemetry.metrics
+            self._step_instruments = (m.counter("repro_tokens_total"),
+                                      m.histogram("repro_step_seconds"),
+                                      m.histogram("repro_token_seconds"))
+            self._step_gauges = (m.gauge("repro_queue_depth"),
+                                 m.gauge("repro_slots_active"),
+                                 m.gauge("repro_step_traces"),
+                                 m.gauge("repro_kv_utilization"))
+            self._gauge_state = None
+            # per-step observations buffer in plain lists and ints and
+            # drain into the registry off the hot path (flush_telemetry)
+            self._buf_steps: List[float] = []
+            self._buf_shares: List[float] = []
+            self._buf_ttft: List[float] = []
+            self._buf_tokens = 0
+            self._buf_finished = 0
         self.n_slots = n_slots
         self.n_frames = n_frames
         searches = engine._warm_tuning(n_frames=n_frames, batch=1,
@@ -219,6 +255,12 @@ class ContinuousBatchingScheduler:
             return rid
         self.queue.append(_QueuedRequest(rid, arr, max_new, sot_id,
                                          submit_t=time.perf_counter()))
+        tele = self.telemetry
+        if tele is not None:
+            tele.instant("submit", rid=rid)
+            tele.begin(rid, "queued")
+            tele.inc("repro_requests_submitted_total")
+            tele.gauge("repro_queue_depth", len(self.queue))
         return rid
 
     # -- the slot step program --------------------------------------------
@@ -253,10 +295,8 @@ class ContinuousBatchingScheduler:
         if self._program is not None:
             self._program.graph.replay()
             return self._program.plan
-        plan = DispatchPlan(key=self._step_key)
-        with torch.no_grad(), self.engine._recording(plan):
-            self._step_fn()
-        return plan
+        with torch.no_grad():
+            return self.engine._record_run(self._step_key, self._step_fn)
 
     # -- admission ----------------------------------------------------------
     def admit(self) -> List[int]:
@@ -265,16 +305,28 @@ class ContinuousBatchingScheduler:
         request ids."""
         admitted = []
         eng = self.engine
+        tele = self.telemetry
         if self.queue and self.pool.n_free:
             self._capture_step()
         while self.queue and self.pool.n_free:
             req = self.queue.popleft()
             queue_wait = time.perf_counter() - req.submit_t
-            state, plan, prefill_s = eng.prefill_one(
-                torch.from_numpy(req.payload))
-            self._busy_s += prefill_s
-            if eng.offload is not None:
-                eng.offload.ledger.commit(plan, times=1)
+            if tele is not None:
+                tele.end(req.rid, "queued", wait_s=queue_wait)
+                tele.observe("repro_queue_wait_seconds", queue_wait)
+            # the ledger span scopes this request's prefill run and commit,
+            # so its FLOP delta IS the prefill's attribution
+            with obs.maybe_span(tele, "prefill", cat="lifecycle",
+                                track=obs.request_track(req.rid),
+                                rid=req.rid, ledger=True):
+                state, plan, prefill_s = eng.prefill_one(
+                    torch.from_numpy(req.payload))
+                self._busy_s += prefill_s
+                if eng.offload is not None:
+                    eng.offload.ledger.commit(plan, times=1)
+            if tele is not None:
+                tele.observe("repro_prefill_seconds", prefill_s)
+                tele.begin(req.rid, "decode")
             slot = self.pool.acquire()
             with torch.no_grad():
                 self.pool.insert(slot, state)
@@ -296,6 +348,14 @@ class ContinuousBatchingScheduler:
             return []
         self._note_kv_usage()
         eng = self.engine
+        tele = self.telemetry
+        # the step's ledger span scopes the run, the host sync and the one
+        # plan commit: its FLOP delta is the step's exact attribution, and
+        # it closes after the sync, so it times the step, not the launch.
+        # ledger_open/close, not the with-form: the lighter pair is what
+        # the 3% overhead gate prices
+        if tele is not None:
+            h = tele.ledger_open()
         t0 = time.perf_counter()
         plan = self._run_step()
         nxt = self._token[:, 0].tolist()               # host sync: streaming
@@ -305,6 +365,9 @@ class ContinuousBatchingScheduler:
             self._step_plan = eng._plan(self._step_key, plan)
         if eng.offload is not None:
             eng.offload.ledger.commit(self._step_plan, times=1)
+        if tele is not None:
+            tele.ledger_close(h, "decode_step", cat="step",
+                              args={"active": len(self._active)})
         share = dt / len(self._active)
         now = time.perf_counter()
         eos = eng.eos_id
@@ -319,6 +382,8 @@ class ContinuousBatchingScheduler:
                 # time to the first generated token, from submit: queue
                 # wait and prefill included
                 a.ttft_s = now - a.submit_t
+                if tele is not None:
+                    self._buf_ttft.append(a.ttft_s)
             done = a.steps >= a.max_new or (eos is not None and tok == eos)
             events.append(TokenEvent(a.rid, tok, a.steps, done))
             if done:
@@ -326,10 +391,62 @@ class ContinuousBatchingScheduler:
                     tokens=a.tokens, prefill_s=a.prefill_s,
                     decode_s=a.decode_s, steps=a.steps,
                     queue_wait_s=a.queue_wait_s, ttft_s=a.ttft_s)
+                if tele is not None:
+                    tele.instant("evict", rid=a.rid)
+                    tele.end(a.rid, "decode", steps=a.steps)
+                    self._buf_finished += 1
                 del self._active[slot]
                 # reset=False: the next admission overwrites the row
                 self.pool.release(slot, reset=False)
+        if tele is not None:
+            self._buf_tokens += len(events)
+            self._buf_steps.append(dt)
+            self._buf_shares.append(share)
+            self._note_gauges(eng._step_captures)
         return events
+
+    # -- telemetry ------------------------------------------------------------
+    def _note_gauges(self, captures: int) -> None:
+        """Set the step gauges when the host-side ints they read changed
+        (queue depth, active slots, ``captures``, the peak KV bytes):
+        they move on admissions and evictions, not every step. No device
+        tensor is read."""
+        g = (len(self.queue), len(self._active), captures,
+             self.kv_used_peak)
+        if g != self._gauge_state:
+            self._gauge_state = g
+            gq, gs, gt, gu = self._step_gauges
+            gq.set(g[0])
+            gs.set(g[1])
+            gt.set(g[2])
+            gu.set(self.kv_utilization_peak)
+
+    def flush_telemetry(self) -> None:
+        """Drain the buffered per-step observations into the registry:
+        the hot path appends to plain lists and bumps plain ints, and the
+        registry work (bucket search) happens here. Called by ``run()``
+        and ``attribution()``; call it after a manual ``admit()``/
+        ``decode_step()`` loop before reading metrics."""
+        tele = self.telemetry
+        if tele is None:
+            return
+        ctok, hstep, htok = self._step_instruments
+        if self._buf_tokens:
+            ctok.inc(self._buf_tokens)
+            self._buf_tokens = 0
+        for v in self._buf_steps:
+            hstep.observe(v)
+        self._buf_steps.clear()
+        for v in self._buf_shares:
+            htok.observe(v)
+        self._buf_shares.clear()
+        for v in self._buf_ttft:
+            tele.observe("repro_ttft_seconds", v)
+        self._buf_ttft.clear()
+        if self._buf_finished:
+            tele.inc("repro_requests_finished_total", self._buf_finished)
+            tele.inc("repro_evictions_total", self._buf_finished)
+            self._buf_finished = 0
 
     # -- drain ----------------------------------------------------------------
     def run(self, on_token: Optional[Callable[[TokenEvent], Any]] = None
@@ -347,6 +464,7 @@ class ContinuousBatchingScheduler:
         out = dict(self.finished)
         self.finished.clear()
         self._claimed_s += sum(r.total_s for r in out.values())
+        self.flush_telemetry()
         return out
 
     # -- attribution ----------------------------------------------------------
@@ -358,6 +476,7 @@ class ContinuousBatchingScheduler:
         from the independently accumulated busy time (whole prefills and
         whole steps), less the busy time of results ``run()`` already
         claimed; exact once every request has drained."""
+        self.flush_telemetry()
         per_req = {rid: r.pdp_j(power_w) for rid, r in self.finished.items()}
         window_s = self._busy_s - self._claimed_s
         return {"per_request_pdp_j": per_req,

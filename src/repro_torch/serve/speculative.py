@@ -43,8 +43,18 @@ and never replaces a tensor. A capture that fails raises. On the CPU the
 programs are called directly, each run recorded apart. The prefills are
 ``transcribe``'s own programs and plan keys.
 
-Not ported from the reference: the telemetry hooks (spans, ledger spans
-and the ``repro_spec_*`` counters) and the serving mesh.
+Telemetry (the verifier's; the draft engine has none, as in the
+reference): the one-shot path's prefills and their commits are one
+``spec_prefill`` ledger span, and every round, one-shot or scheduled, is
+one ``spec_round`` ledger span from before the draft steps to after the
+round's host sync and both commits, with the ``repro_spec_rounds_total``,
+``_drafted_total`` and ``_accepted_total`` counters. A scheduler's draft
+admission (prefill and, after a preemption, replay, with their commits)
+is a ``spec_draft_admit`` ledger span on the request's track and a
+``spec_admit`` instant; the paged scheduler's post-round trim a
+``spec_trim`` instant. The one-shot path's ``repro_spec_verify_traces``
+gauge and the schedulers' ``repro_step_traces`` read the verifier's
+window captures. Not ported from the reference: the serving mesh.
 """
 from __future__ import annotations
 
@@ -55,6 +65,7 @@ from typing import Any, Callable, Dict, Hashable, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.plan import DispatchPlan
 from repro_torch.models import model as model_lib
 from repro_torch.serve.engine import (
@@ -143,10 +154,8 @@ class _Rounds:
         if prog is not None:
             prog.graph.replay()
             return prog.plan
-        plan = DispatchPlan(key=key)
-        with torch.no_grad(), eng._recording(plan):
-            fn()
-        return plan
+        with torch.no_grad():
+            return eng._record_run(key, fn)
 
     def round(self) -> np.ndarray:
         """The k + 1 draft steps and the verify window, then the round's
@@ -260,6 +269,7 @@ class SpeculativeEngine:
         searches = v._warm_tuning(n_frames=f, batch=b, n_tokens=max_new)
         v._warm_tuning(n_frames=f, batch=b * (k + 1), n_tokens=max_new)
         pre_v, pre_d = v._key("prefill", b, f), d._key("prefill", b, f)
+        tele = v.telemetry
         with torch.no_grad():
             st_v, st_d = v._static_for(b, f), d._static_for(b, f)
             rounds = self._static_for(b, f)
@@ -269,15 +279,17 @@ class SpeculativeEngine:
             v._prepare(st_v, pre_v)
             d._prepare(st_d, pre_d)
             rounds.capture()
-            rec_v, pre_s_v = v._timed_prefill(st_v, pre_v)
-            rec_d, pre_s_d = d._timed_prefill(st_d, pre_d)
+            with obs.maybe_span(tele, "spec_prefill", cat="engine",
+                                ledger=True, args={"batch": b, "frames": f}):
+                rec_v, pre_s_v = v._timed_prefill(st_v, pre_v)
+                rec_d, pre_s_d = d._timed_prefill(st_d, pre_d)
+                if v.offload is not None:
+                    v.offload.ledger.commit(v._plan(pre_v, rec_v), times=1,
+                                            role="verify")
+                if d.offload is not None:
+                    d.offload.ledger.commit(d._plan(pre_d, rec_d), times=1,
+                                            role="draft")
         prefill_s = pre_s_v + pre_s_d
-        if v.offload is not None:
-            v.offload.ledger.commit(v._plan(pre_v, rec_v), times=1,
-                                    role="verify")
-        if d.offload is not None:
-            d.offload.ledger.commit(d._plan(pre_d, rec_d), times=1,
-                                    role="draft")
 
         toks: List[List[int]] = [[] for _ in range(b)]
         done = np.zeros(b, bool)
@@ -287,6 +299,9 @@ class SpeculativeEngine:
         rows = np.arange(b)
         t0 = time.perf_counter()
         while not done.all():
+            # one ledger span a round: the draft and verify runs, the
+            # round's host sync and both commits
+            h = tele.ledger_open() if tele is not None else None
             active_mask = ~done
             res = rounds.round()
             vt, drafts = res[:, :k + 1], res[:, k + 1:]
@@ -309,11 +324,23 @@ class SpeculativeEngine:
             prev_len = new_len
             rounds.rollback(new_len, vt[rows, accept_len])
             self.rounds += 1
-            self.drafted += int(active_mask.sum()) * k
-            self.accepted += int(accept_len[active_mask].sum())
+            active = int(active_mask.sum())
+            accepted = int(accept_len[active_mask].sum())
+            self.drafted += active * k
+            self.accepted += accepted
             rounds.commit()
+            if tele is not None:
+                tele.ledger_close(h, "spec_round", cat="step",
+                                  args={"round": self.rounds,
+                                        "active": active})
+                tele.inc("repro_spec_rounds_total")
+                tele.inc("repro_spec_drafted_total", active * k)
+                tele.inc("repro_spec_accepted_total", accepted)
         _sync(v.device)
         decode_s = time.perf_counter() - t0
+        if tele is not None:
+            tele.gauge("repro_spec_acceptance_rate", self.acceptance_rate())
+            tele.gauge("repro_spec_verify_traces", v._verify_captures)
         v._save_tuning(searches)
         return [GenerationResult(tokens=toks[i], prefill_s=prefill_s / b,
                                  decode_s=decode_s / b, steps=len(toks[i]))
@@ -485,35 +512,55 @@ class _SpecRoundsMixin:
         for [SOT, e_0..e_{L-2}] at length L with pending token e_{L-1},
         the verifier slot's invariant after every round."""
         d = self.spec.draft
+        tele = self.telemetry
         a = self._active[slot]
         tokens = list(a.tokens)          # not empty only after a preemption
-        state, plan, wall = d.prefill_one(torch.from_numpy(req.payload))
-        if d.offload is not None:
-            d.offload.ledger.commit(plan, times=1, role="draft")
-        if tokens:
-            inputs = [req.sot_id] + tokens[:-1]
-            st = d._static_for(1, self.n_frames)
-            key = d._key("step", 1, self.n_frames)
-            recorded = None
-            with torch.no_grad():
-                _sync(d.device)
-                t0 = time.perf_counter()
-                for tok in inputs:
-                    st.token.fill_(tok)
-                    run = d._run(key, lambda: d._step_fn(st))
-                    recorded = run if recorded is None else recorded
-                _sync(d.device)
-                wall += time.perf_counter() - t0
+        # the ledger span scopes the draft's prefill and replay runs and
+        # their commits (the draft shares the verifier's ledger, so an
+        # unclaimed commit here would break the exact attribution)
+        with obs.maybe_span(tele, "spec_draft_admit", cat="lifecycle",
+                            track=obs.request_track(a.rid), rid=a.rid,
+                            ledger=True):
+            state, plan, wall = d.prefill_one(torch.from_numpy(req.payload))
             if d.offload is not None:
-                # a copy: the cache names its plans by key, and ``recorded``
-                # may be the batch-1 step graph's, at the plain step key
-                plan = d._plan(d._key("step", 1, self.n_frames, role="draft"),
-                               DispatchPlan(entries=list(recorded)))
-                d.offload.ledger.commit(plan, times=len(inputs), role="draft")
+                d.offload.ledger.commit(plan, times=1, role="draft")
+            if tokens:
+                wall += self._replay_draft(req.sot_id, tokens)
         with torch.no_grad():
             self._draft_pool.insert(slot, state)
         self._busy_s += wall
         a.prefill_s += wall
+        if tele is not None:
+            tele.instant("spec_admit", rid=a.rid, slot=slot,
+                         replayed=len(tokens))
+            tele.inc("repro_spec_admissions_total")
+
+    def _replay_draft(self, sot_id: int, tokens: List[int]) -> float:
+        """A preempted request's draft replay: its SOT and all but its
+        last streamed token through the draft's batch-1 step program over
+        its static buffers (the prefill state just run), committed at role
+        "draft". Returns the seconds."""
+        d = self.spec.draft
+        inputs = [sot_id] + tokens[:-1]
+        st = d._static_for(1, self.n_frames)
+        key = d._key("step", 1, self.n_frames)
+        recorded = None
+        with torch.no_grad():
+            _sync(d.device)
+            t0 = time.perf_counter()
+            for tok in inputs:
+                st.token.fill_(tok)
+                run = d._run(key, lambda: d._step_fn(st))
+                recorded = run if recorded is None else recorded
+            _sync(d.device)
+            wall = time.perf_counter() - t0
+        if d.offload is not None:
+            # a copy: the cache names its plans by key, and ``recorded``
+            # may be the batch-1 step graph's, at the plain step key
+            plan = d._plan(d._key("step", 1, self.n_frames, role="draft"),
+                           DispatchPlan(entries=list(recorded)))
+            d.offload.ledger.commit(plan, times=len(inputs), role="draft")
+        return wall
 
     # -- layout hooks (the paged subclass overrides them) ---------------------
     def _pre_round(self, w: int) -> None:
@@ -542,11 +589,17 @@ class _SpecRoundsMixin:
             return []
         self._note_kv_usage()
         rounds = self._spec_rounds
+        tele = self.telemetry
+        if tele is not None:
+            h = tele.ledger_open()
         t0 = time.perf_counter()
         res = rounds.round()
         dt = time.perf_counter() - t0
         self._busy_s += dt
         rounds.commit()
+        if tele is not None:
+            tele.ledger_close(h, "spec_round", cat="step",
+                              args={"active": len(self._active)})
         vt, drafts = res[:, :k + 1], res[:, k + 1:]
         accept_len, committed, n_emit = accept_spec(drafts, vt)
         share = dt / len(self._active)
@@ -568,6 +621,8 @@ class _SpecRoundsMixin:
                 a.steps += 1
                 if a.steps == 1:
                     a.ttft_s = now - a.submit_t
+                    if tele is not None:
+                        self._buf_ttft.append(a.ttft_s)
                 done = (a.steps >= a.max_new
                         or (eos is not None and tok == eos))
                 events.append(TokenEvent(a.rid, tok, a.steps, done))
@@ -582,6 +637,10 @@ class _SpecRoundsMixin:
                     tokens=a.tokens, prefill_s=a.prefill_s,
                     decode_s=a.decode_s, steps=a.steps,
                     queue_wait_s=a.queue_wait_s, ttft_s=a.ttft_s)
+                if tele is not None:
+                    tele.instant("evict", rid=a.rid)
+                    tele.end(a.rid, "decode", steps=a.steps)
+                    self._buf_finished += 1
                 del self._active[slot]
                 self._evict_slot(slot, a.rid)
                 new_len[slot] = 0        # freeze the freed row
@@ -591,6 +650,14 @@ class _SpecRoundsMixin:
         spec.rounds += 1
         spec.drafted += drafted
         spec.accepted += accepted
+        if tele is not None:
+            self._buf_tokens += len(events)
+            self._buf_steps.append(dt)
+            self._buf_shares.append(share)
+            tele.inc("repro_spec_rounds_total")
+            tele.inc("repro_spec_drafted_total", drafted)
+            tele.inc("repro_spec_accepted_total", accepted)
+            self._note_gauges(spec.verifier._verify_captures)
         return events
 
 
@@ -647,6 +714,11 @@ class PagedSpecScheduler(_SpecRoundsMixin, PagedScheduler):
         # after the rollback, a page whose first position is at or past
         # the new length holds only dead entries
         pool = self.pool
+        released = 0
         for slot in sorted(self._active):
             keep = max(-(-int(new_len[slot]) // pool.page_size), 1)
-            self.pages_trimmed += pool.trim_self_pages(slot, keep)
+            released += pool.trim_self_pages(slot, keep)
+        self.pages_trimmed += released
+        if released and self.telemetry is not None:
+            self.telemetry.instant("spec_trim", pages=released)
+            self.telemetry.inc("repro_spec_pages_trimmed_total", released)

@@ -69,12 +69,14 @@ def trimmed_mean(ts: Sequence[float], trim: float = 0.25) -> float:
 
 
 def make_operands(kernel: str, m: int, n: int, k: int, dtype: str,
-                  seed: int = 0, device="cpu"):
-    """Operands (x, w) of a replay, from a seeded generator on ``device``:
+                  seed: int = 0, device="cuda"):
+    """Operands (x, w) of a replay, from a seeded generator on ``device``
+    (the card unless the caller asks for the CPU; raises without a card):
     x (M, K) in the kernel's activation type, w (N, K) a Q8_0 ``QTensor``
     or a bf16 tensor."""
+    from repro_torch.core.device import resolve_device
     from repro_torch.core.qformats import quantize_q8_0
-    device = torch.device(device)
+    device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     x = torch.randn((m, k), generator=gen, device=device).to(
         X_DTYPES[kernel])
@@ -125,8 +127,10 @@ def replay(kernel: str, m: int, n: int, k: int, dtype: str, *,
            backend: Optional[str] = None,
            tiling: Optional[Tuple[int, ...]] = None,
            reps: int = 5, warmup: int = 2, inner: int = 50, seed: int = 0,
-           device="cpu", operands=None) -> ReplaySample:
-    """Time one request on one backend.
+           device="cuda", operands=None) -> ReplaySample:
+    """Time one request on one backend, on ``device``: the card unless the
+    caller asks for the CPU (where the plain version runs); raises without
+    a card.
 
     ``backend`` is a registry pin, not a force: a ``REGISTRY.force``
     context outranks it, as in production dispatch, and the sample records
@@ -136,8 +140,9 @@ def replay(kernel: str, m: int, n: int, k: int, dtype: str, *,
     one shape."""
     from repro_torch.backends.base import MAIN, KernelRequest
     from repro_torch.backends.registry import REGISTRY
+    from repro_torch.core.device import resolve_device
 
-    device = torch.device(device)
+    device = resolve_device(device)
     req = KernelRequest(kernel=kernel, m=m, n=n, k=k, dtype=dtype,
                         segment=MAIN, tiling=tiling)
     resolved = REGISTRY.resolve(req, pin=backend)

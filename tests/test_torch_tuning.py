@@ -602,30 +602,42 @@ def test_tuner_autoloads_sibling_calibration(tmp_path):
 
 # ------------------------------------------------------ replay and the fit
 def test_replay_deterministic_and_seeded():
-    a = replay("q8_matvec", 8, 96, 64, "q8_0", reps=3)
-    b = replay("q8_matvec", 8, 96, 64, "q8_0", reps=3)
-    c = replay("q8_matvec", 8, 96, 64, "q8_0", reps=3, seed=1)
+    a = replay("q8_matvec", 8, 96, 64, "q8_0", reps=3, device="cpu")
+    b = replay("q8_matvec", 8, 96, 64, "q8_0", reps=3, device="cpu")
+    c = replay("q8_matvec", 8, 96, 64, "q8_0", reps=3, seed=1, device="cpu")
     assert a.checksum == b.checksum != c.checksum
     assert a.backend == "hopper" and a.tiling is None
     assert len(a.times_s) == 3 and a.time_s > 0
-    x, w = make_operands("q8_matmul", 24, 64, 64, "q8_0")
+    x, w = make_operands("q8_matmul", 24, 64, 64, "q8_0", device="cpu")
     assert x.dtype == torch.bfloat16 and w.qs.dtype == torch.int8
-    x, w = make_operands("bf16_matmul", 8, 64, 64, "bf16")
+    x, w = make_operands("bf16_matmul", 8, 64, 64, "bf16", device="cpu")
     assert x.dtype == w.dtype == torch.bfloat16
+
+
+def test_replay_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cand = enumerate_candidates("q8_matvec", 8, 96, 64)[0]
+    for call in (lambda: replay("q8_matvec", 8, 96, 64, "q8_0", reps=1),
+                 lambda: replay_candidate(cand, 8, 96, 64, "q8_0", reps=1),
+                 lambda: make_operands("q8_matvec", 8, 96, 64, "q8_0")):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert replay("q8_matvec", 8, 96, 64, "q8_0", reps=1,
+                  device="cpu").backend == "hopper"
 
 
 def test_replay_records_pinned_tiling_and_its_features():
     cand = enumerate_candidates("q8_matvec", 8, 384, 1536)[3]
-    s = replay_candidate(cand, 8, 384, 1536, "q8_0", reps=3)
+    s = replay_candidate(cand, 8, 384, 1536, "q8_0", reps=3, device="cpu")
     assert s.tiling == cand.launch
     assert (s.flops, s.bytes_hbm, s.steps) == analytic_features(cand, 8, 384,
                                                                 1536)
-    base = replay("q8_matvec", 8, 384, 1536, "q8_0", reps=3)
+    base = replay("q8_matvec", 8, 384, 1536, "q8_0", reps=3, device="cpu")
     assert base.checksum == s.checksum          # a tile is not a function
 
 
 def test_fit_from_replays_is_storable(tmp_path):
-    samples = [replay_candidate(c, m, n, k, "q8_0", reps=3)
+    samples = [replay_candidate(c, m, n, k, "q8_0", reps=3, device="cpu")
                for m, n, k in ((1504, 64, 64), (8, 384, 384),
                                (8, 1536, 1536))
                for c in enumerate_candidates(
