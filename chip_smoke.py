@@ -230,13 +230,46 @@ own kernels with nvcc. Phases, each of which fails the run on error:
     One ``telemetry ...: {...}`` line per drive, then the phase's wall
     time.
 
+14. The dense LM family (``lm_phase``): qwen2.5-14b at its published
+    widths (48 layers, d_model 5120, vocabulary 152,064), weights drawn
+    on the card from a seeded CUDA generator, no EOS, max_len 160. Every
+    linear of a step runs at M = batch, 337 a step.
+    a. Q8_0: the peak memory while the engine quantizes and what stays
+       once the bf16 draw is freed; the first logits of a short prompt
+       against the port on the CPU at depth 2 (the same embedding, first
+       two layers, final norm and head), within 1e-2 of the CPU's
+       largest logit; ``generate`` of one 64-token prompt and 64 new
+       tokens: the eager loop (``prefill``/``step``) launches 337
+       ``q8_matvec`` a step from Python, the captured request's tokens
+       equal its tokens, the capture launches two passes of one step and
+       later requests none, their ledger is as many eager requests';
+       the profiler counts 337 ``q8_matvec_kernel`` a replayed step;
+       prefill ms, decode ms a token, device ms a step, idle shares
+       (profiled and unprofiled), the top kernels, the dot-product share
+       and the PDP of the request at the power limit; batch 4, prompts
+       of 16-64 tokens left-padded with token 0, captured against eager.
+    b. bf16 (``quant="none"``), the Q8_0 engine freed first: the same at
+       batch 1, 337 ``gemv_bf16_kernel`` a replayed step.
+    c. The slot scheduler: 12 requests (prompts of 16-64 tokens, max_new
+       8-32 from default_rng(0)) over 4 slots: every request's tokens
+       equal its batch-1 ``generate``'s, one slot-step capture, one
+       commit an admission and a step, lm_head run once a prompt token
+       and a step; a warm drive's tokens a second, KV bytes, and the
+       4-row step's replay profiled.
+    d. ``kv_quant="q8"``: one captured batch-1 ``generate`` whose tokens
+       equal its eager loop's.
+    ``lm ...`` lines, then ``lm phase: N s``. Phase 2 holds both decode
+    kernels at its shapes at M = 1 and 4 (``per`` "qwen2.5-14b decode
+    step" and "qwen2.5-14b slot step").
+
 The last two lines are the kernels' JSON record and the result line; each
 kernel's record also carries its launches on the tuned paths' eager loops
 (``tuned_launches``), its launches on each path's drive
 (``launches_by_path``: the main path's, phase 10's, phase 11's paged
 pool drives, both paths summed, under "paged", phase 12's captures
-under "speculative" and phase 13's captures, every engine's summed,
-under "telemetry") and its tiles' times (``tiles``).
+under "speculative", phase 13's captures, every engine's summed, under
+"telemetry", and every Python launch of phase 14 under "lm") and its
+tiles' times (``tiles``).
 
 Copied out of a checkout (no ``src/repro_torch`` beside the script), or
 without a CUDA device, it prints why and exits 1.
@@ -310,6 +343,17 @@ WINDOW5_Q8 = [(5, n, k, k, c, "float32") for n, k, c in BASE_DECODE]
 WINDOW28_Q8 = [(28, n, k, k, c, "float32") for n, k, c in BASE_DECODE]
 WINDOW5_BF16 = [(5, n, k, k, c, "bfloat16") for n, k, c in BASE_DECODE]
 WINDOW28_BF16 = [(28, n, k, k, c, "bfloat16") for n, k, c in BASE_DECODE]
+# the decode linears of a qwen2.5-14b step: (n, k, launches a step);
+# burst 256 divides both K, so k_main = K
+QWEN_DECODE = [(5120, 5120, 96),      # attn.q and attn.o, 48 layers
+               (1024, 5120, 96),      # attn.k and attn.v (8 KV heads x 128)
+               (13824, 5120, 96),     # ffn.gate and ffn.up
+               (5120, 13824, 48),     # ffn.down
+               (152064, 5120, 1)]     # lm_head
+# x is bf16 on both paths (the LM embeds in the model's type), at M = 1
+# and at M = 4, the 4-slot step's (phase 14)
+QWEN_M1 = [(1, n, k, k, c, "bfloat16") for n, k, c in QWEN_DECODE]
+QWEN_M4 = [(4, n, k, k, c, "bfloat16") for n, k, c in QWEN_DECODE]
 BF16_PREFILL_SHAPES = [
     (1500, 384, 256, 384, 24, "bfloat16"),    # enc q/k/v/o + dec.cross.k/v
     (1500, 1536, 256, 384, 4, "bfloat16"),    # enc ffn.up
@@ -330,7 +374,9 @@ KERNELS = {
                               "slot decode step": MATVEC_SLOT_SHAPES,
                               "paged slot step": MATVEC_PAGED_SHAPES,
                               "whisper-base decode step": BASE_STEP_Q8,
-                              "verify window M=5": WINDOW5_Q8},
+                              "verify window M=5": WINDOW5_Q8,
+                              "qwen2.5-14b decode step": QWEN_M1,
+                              "qwen2.5-14b slot step": QWEN_M4},
                       library_call="torch.matmul(x_f32, W_dequantized_f32.T):"
                                    " no single PyTorch call computes a Q8_0 "
                                    "product"),
@@ -348,7 +394,9 @@ KERNELS = {
                                 "slot decode step": BF16_SLOT_SHAPES,
                                 "paged slot step": BF16_PAGED_SHAPES,
                                 "verify window M=5": WINDOW5_BF16,
-                                "verify window M=28": WINDOW28_BF16},
+                                "verify window M=28": WINDOW28_BF16,
+                                "qwen2.5-14b decode step": QWEN_M1,
+                                "qwen2.5-14b slot step": QWEN_M4},
                         library_call="torch.mm(x_bf16, W_bf16.T, out_dtype="
                                      "torch.float32) on the same strided "
                                      "bf16 operands (cuBLAS, f32 output as "
@@ -451,6 +499,37 @@ PS_SLOTS = 2
 PS_K = 4
 PS_MAX_LEN = PS_BUDGETS[1] + PS_K + 2
 PS_PAGE = 4
+# phase 14: the dense LM family, qwen2.5-14b at its published widths
+# (configs/qwen2_5_14b.py: 48 layers, d_model 5120, 40 heads over 8 KV
+# heads, d_ff 13,824, vocabulary 152,064), seeded random weights drawn on
+# the card, no EOS. Every linear of a step runs at M = batch: the 337 of
+# one step (q/k/v/o, gate/up/down a layer, and lm_head)
+LM_ARCH = "qwen2.5-14b"
+LM_SEED = 0
+LM_PER_STEP = 7 * 48 + 1
+LM_PROMPT = 64                    # 14a: one prompt of 64 tokens, 64 new
+LM_NEW = 64
+LM_BATCH = 4                      # 14a: batch 4, prompts of 16-64 tokens
+LM_B4_LENS = (16, 64)             # left-padded with token 0 to the longest
+LM_MAX_LEN = 160
+LM_CPU_LAYERS = 2                 # the CPU check: embed, 2 layers, head
+LM_CPU_PROMPT = 3
+LM_CPU_TOL = 1e-2                 # of the CPU's largest logit
+LM_REQUESTS = 2                   # captured requests after the capturing one
+LM_SLOTS = 4                      # 14c: 12 requests over 4 slots
+LM_SCHED_REQUESTS = 12
+LM_SCHED_PROMPTS = (16, 64)
+LM_SCHED_BUDGETS = (8, 32)
+LM_KVQ_NEW = 32                   # 14d: one batch-1 request, int8 KV
+# profiled windows of replayed LM steps lose a kernel record now and then
+# on the card (one to nine of 36,000 in 8 steps; one in every window of
+# 2 steps, window after window, late in a long run). So a spin kernel
+# follows each replay, each replay's records are read apart, and the
+# kernels of a replay the profiler saw whole (its spin kernels on both
+# sides, the graph's fixed launches all there) are the step's; windows
+# of LM_PROFILED_STEPS replays, LM_PROFILE_WINDOWS of them at most
+LM_PROFILED_STEPS = 4
+LM_PROFILE_WINDOWS = 8
 # phase 13: benchmarks/telemetry_overhead.py's full trace
 TE_REQUESTS = 16
 TE_REF_FRAMES = 32                # its mels' frames (drawn, then discarded)
@@ -3219,6 +3298,470 @@ def telemetry_drives(q8_eng, counted):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the dense LM family (qwen2.5-14b at full width)
+# ---------------------------------------------------------------------------
+def _take(counted, total):
+    """Add the launch counts since the last zeroing to ``total`` and zero
+    them: the phase's Python launches, summed over its checks."""
+    for name, n in _read(counted).items():
+        total[name] = total.get(name, 0) + n
+    _zero(counted)
+
+
+def _lm_params(quant_note: str):
+    """qwen2.5-14b's weights drawn on the card from LM_SEED, tensor by
+    tensor (no weight passes through host memory): (cfg, params)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model
+    cfg = get_config(LM_ARCH)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init_params(
+        torch.Generator(device="cuda").manual_seed(LM_SEED), cfg,
+        device="cuda")
+    torch.cuda.synchronize()
+    print(f"lm init {quant_note}: {cfg.name} drawn on the card in "
+          f"{time.perf_counter() - t0:.1f}s, "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated "
+          f"({cfg.n_params() / 1e9:.3f} G parameters)", flush=True)
+    return cfg, params
+
+
+def _lm_eager(eng, prompts, max_new: int):
+    """The eager greedy loop through the engine's public ``prefill`` and
+    ``step`` (every kernel launched from Python; one host read a step,
+    ``step``'s cache check): (tokens per row, prefill s, decode s)."""
+    import torch
+    x = torch.from_numpy(prompts).long().cuda()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, state = eng.prefill(x)
+    tok = eng._argmax(logits[:, -1])[:, None]
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    toks = []
+    t0 = time.perf_counter()
+    for _ in range(max_new):
+        logits, state = eng.step(tok, state)
+        tok = eng._argmax(logits[:, -1])[:, None]
+        toks.append(tok)
+    rows = torch.cat(toks, dim=1).cpu().tolist()
+    return rows, prefill_s, time.perf_counter() - t0
+
+
+def _lm_cpu_check(eng):
+    """The first logits of a short prompt on the card and on the CPU with
+    the same Q8_0 weights cut to depth LM_CPU_LAYERS (the seed's embedding,
+    first layers, final norm and head), through the offload engine on
+    both: within LM_CPU_TOL of the CPU's largest logit. The logits are
+    bf16 (the model's type), a step of 2^-8 relative; random weights keep
+    the largest logit of O(1)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.core.offload import OffloadEngine
+    from repro_torch.models import model
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = dataclasses.replace(eng.cfg, num_layers=LM_CPU_LAYERS)
+    sp = eng._serve_params
+    sub = {"embed": sp["embed"],
+           "stack": {"blocks": sp["stack"]["blocks"][:LM_CPU_LAYERS]},
+           "final_norm": sp["final_norm"], "lm_head": sp["lm_head"]}
+    prompt = np.random.default_rng(7).integers(
+        0, cfg.vocab_size, (1, LM_CPU_PROMPT)).astype(np.int32)
+    card = ServeEngine(cfg, sub, max_len=8, offload=OffloadEngine(),
+                       eos_id=None, device="cuda")
+    card_logits, _ = card.prefill(torch.from_numpy(prompt).long().cuda())
+    t0 = time.perf_counter()
+    cpu = ServeEngine(cfg, model.to_device(sub, torch.device("cpu")),
+                      max_len=8, offload=OffloadEngine(), eos_id=None,
+                      device="cpu")
+    cpu_logits, _ = cpu.prefill(torch.from_numpy(prompt).long())
+    cpu_s = time.perf_counter() - t0
+    got, want = card_logits.float().cpu(), cpu_logits.float()
+    if not torch.isfinite(got).all():
+        raise AssertionError("lm: non-finite logits on the card")
+    err = (got - want).abs().max().item()
+    big = want.abs().max().item()
+    agree = int(got[0, -1, :cfg.vocab_size].argmax()) == int(
+        want[0, -1, :cfg.vocab_size].argmax())
+    print(f"lm first logits card vs cpu ({LM_CPU_LAYERS} layers, full "
+          f"width, {LM_CPU_PROMPT}-token prompt): max_abs_err={err:.3e}, "
+          f"|logits|max={big:.3f}, tolerance {LM_CPU_TOL} x |logits|max, "
+          f"argmax agrees: {agree}; cpu {cpu_s:.1f}s", flush=True)
+    if not err <= LM_CPU_TOL * big:
+        raise AssertionError(f"lm: card and CPU logits differ by {err}")
+    return dict(cpu_max_abs_err=err, cpu_logits_absmax=big,
+                cpu_argmax_agrees=agree)
+
+
+def _lm_profile_steps(step_graph, done, want_name: str):
+    """LM_PROFILED_STEPS replays of a step graph under torch.profiler,
+    each with the one host sync its caller makes and a spin kernel after
+    it: the kernels by name of one replay the profiler saw whole (its
+    ``want_name`` launches LM_PER_STEP, the graph's fixed count; see
+    LM_PROFILE_WINDOWS), that replay's top kernels, and the window's host
+    wall ms a step. A window in which no replay was seen whole is
+    profiled again, LM_PROFILE_WINDOWS times at most; then the last
+    replay seen is returned, and its count fails the caller's check."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    steps = LM_PROFILED_STEPS
+    for attempt in range(LM_PROFILE_WINDOWS):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _open_window()
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                step_graph.replay()
+                done()
+                _open_window()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / steps
+        recs = sorted((e for e in prof.events()
+                       if e.device_type == DeviceType.CUDA
+                       and e.device_time_total > 0),
+                      key=lambda e: e.time_range.start)
+        replays, cur = [], None
+        for e in recs:                       # a spin kernel opens a replay
+            if SPIN_KERNEL in e.name:
+                if cur:
+                    replays.append(cur)
+                cur = {}
+            elif cur is not None:
+                n, ms = cur.get(e.name, (0, 0.0))
+                cur[e.name] = (n + 1, ms + e.device_time_total / 1e3)
+        counts = [by_route(k, (want_name,))[want_name][0] for k in replays]
+        kernels = next((k for k, n in zip(replays, counts)
+                        if n == LM_PER_STEP), replays[-1] if replays else {})
+        if LM_PER_STEP in counts or not recs:
+            break
+        print(f"lm: {want_name} a replay {counts} in profiled window "
+              f"{attempt + 1}, none whole; profiling again", flush=True)
+    top = sorted(kernels.items(), key=lambda kv: kv[1][1], reverse=True)[:8]
+    return kernels, [(name[:80], n, ms) for name, (n, ms) in top], wall
+
+
+def _lm_host_ms(step_graph, done, reps: int = 4 * PROFILED_STEPS) -> float:
+    """Host ms a step of ``reps`` unprofiled replays, each with its
+    caller's host sync: the time the idle share is taken against."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        step_graph.replay()
+        done()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def _replay_summary(label, kernels, top, wall, host_ms, want_name):
+    """Device ms a step, idle shares (profiled, and against the unprofiled
+    host time), the dot-product share and ``want_name``'s launches a
+    replay, which must be LM_PER_STEP where the profiler saw the replay."""
+    if not kernels:
+        print(f"lm {label}: the profiler saw no kernels inside the "
+              "replays", flush=True)
+        return dict(step_device_ms="not measured: profiler saw no replay")
+    dev = sum(ms for _, ms in kernels.values())
+    n = by_route(kernels, (want_name,))[want_name][0]
+    if n != LM_PER_STEP:
+        raise AssertionError(f"lm {label}: {n} {want_name} a replayed step, "
+                             f"expected {LM_PER_STEP}")
+    return dict(step_device_ms=dev, step_wall_ms_profiled=wall,
+                step_idle_share=1 - dev / wall,
+                step_idle_share_unprofiled=1 - dev / host_ms,
+                replay_kernel_launches={want_name: n},
+                kernels_a_replay=round(sum(c for c, _ in kernels.values())),
+                step_dot_share=dot_share(kernels), top_kernels=top)
+
+
+def lm_oneshot(label, eng, counted, total, want_name, batch4: bool):
+    """14a/14b: ``generate`` of one LM_PROMPT-token prompt and LM_NEW new
+    tokens at full width: the eager loop's launches (LM_PER_STEP a step,
+    prefill steps included) and tokens; the captured request's tokens
+    equal them, its launches from Python only at the capture (two passes
+    of one step), then none for LM_REQUESTS more requests, whose ledger is
+    that many eager requests'; the profiled replay's kernels, device ms a
+    step and idle shares; PDP of one request at the power limit. With
+    ``batch4``, batch LM_BATCH of prompts of LM_B4_LENS tokens, left-padded
+    with token 0, captured against eager."""
+    import statistics
+
+    import numpy as np
+    import torch
+    from repro_torch.core import energy
+
+    cfg = eng.cfg
+    name = "q8_matvec" if want_name == "q8_matvec_kernel" else "bf16_matmul"
+    prompt = np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (1, LM_PROMPT)).astype(np.int32)
+    _take(counted, total)
+    before = _stats(eng.offload)
+    rows, e_pre, e_dec = _lm_eager(eng, prompt, LM_NEW)
+    one = _ledger_delta(_stats(eng.offload), before)
+    got = _read(counted)
+    want = {k: (LM_PER_STEP * (LM_PROMPT + LM_NEW) if k == name else 0)
+            for k in counted}
+    print(f"lm {label} eager: prefill_ms={e_pre * 1e3:.3f} "
+          f"decode_ms_per_token={e_dec * 1e3 / LM_NEW:.3f} launches={got}",
+          flush=True)
+    if got != want:
+        raise AssertionError(f"lm {label}: eager launches {got} != {want}")
+    _take(counted, total)
+    captures = eng._step_captures
+    res = eng.generate(prompt, max_new=LM_NEW)
+    torch.cuda.synchronize()
+    got = _read(counted)
+    want = {k: (CAPTURE_PASSES * LM_PER_STEP if k == name else 0)
+            for k in counted}
+    print(f"lm {label} captured: launches from Python at capture {got} "
+          f"(expected {want}); step captures "
+          f"{eng._step_captures - captures}", flush=True)
+    if got != want or eng._step_captures != captures + 1:
+        raise AssertionError(f"lm {label}: capture launches {got}")
+    if res[0].tokens != rows[0]:
+        raise AssertionError(f"lm {label}: captured tokens {res[0].tokens} "
+                             f"!= eager {rows[0]}")
+    if not all(0 <= t < cfg.vocab_size for t in rows[0]):
+        raise AssertionError(f"lm {label}: token outside the vocabulary")
+    _take(counted, total)
+    before = _stats(eng.offload)
+    results = [eng.generate(prompt, max_new=LM_NEW)[0]
+               for _ in range(LM_REQUESTS)]
+    delta = _ledger_delta(_stats(eng.offload), before)
+    got = _read(counted)
+    scaled = {key: ({k: v * LM_REQUESTS for k, v in val.items()}
+                    if isinstance(val, dict) else val * LM_REQUESTS)
+              for key, val in one.items()}
+    if any(got.values()) or eng._step_captures != captures + 1:
+        raise AssertionError(f"lm {label}: replays launched {got} or "
+                             "captured again")
+    if delta != scaled:
+        raise AssertionError(f"lm {label}: ledger {delta} != "
+                             f"{LM_REQUESTS} x eager {one}")
+    if any(r.tokens != rows[0] for r in results):
+        raise AssertionError(f"lm {label}: a replayed request's tokens "
+                             "differ")
+    prefill_ms = statistics.median(r.prefill_s for r in results) * 1e3
+    decode_ms = statistics.median(r.decode_s for r in results) * 1e3 / LM_NEW
+    st = eng._lm_static[1]
+    kernels, top, wall = _lm_profile_steps(
+        eng._graphs[eng._key("step", 1)].graph,
+        lambda: bool(st.done.all()), want_name)
+    limit = energy.card_power_limit_w(0)
+    total_s = statistics.median(r.total_s for r in results)
+    out = dict(path=label, prompt=LM_PROMPT, new=LM_NEW,
+               eager_prefill_ms=e_pre * 1e3,
+               eager_decode_ms_per_token=e_dec * 1e3 / LM_NEW,
+               prefill_ms=prefill_ms,
+               prefill_ms_per_token=prefill_ms / LM_PROMPT,
+               decode_ms_per_token=decode_ms, request_s=total_s,
+               power_limit_w=limit,
+               pdp_at_limit_j=energy.pdp(total_s, limit),
+               **_replay_summary(label, kernels, top, wall, decode_ms,
+                                 want_name))
+    _take(counted, total)
+    if batch4:
+        rng = np.random.default_rng(2)
+        lens = rng.integers(LM_B4_LENS[0], LM_B4_LENS[1] + 1, LM_BATCH)
+        width = int(lens.max())
+        prompts = np.zeros((LM_BATCH, width), np.int32)
+        for i, n in enumerate(lens):
+            prompts[i, width - n:] = rng.integers(0, cfg.vocab_size, n)
+        rows4, _, _ = _lm_eager(eng, prompts, LM_NEW)
+        _take(counted, total)
+        res4 = eng.generate(prompts, max_new=LM_NEW)
+        got = _read(counted)
+        if got[name] != CAPTURE_PASSES * LM_PER_STEP:
+            raise AssertionError(f"lm {label} batch {LM_BATCH}: capture "
+                                 f"launches {got}")
+        if [r.tokens for r in res4] != rows4:
+            raise AssertionError(f"lm {label} batch {LM_BATCH}: captured "
+                                 "tokens differ from eager")
+        out.update(batch4_prompt_lens=lens.tolist(),
+                   batch4_prefill_ms=res4[0].prefill_s * LM_BATCH * 1e3,
+                   batch4_decode_ms_per_step=(res4[0].decode_s * LM_BATCH
+                                              * 1e3 / LM_NEW))
+        _take(counted, total)
+    print(f"lm {label} summary: {json.dumps(out)}", flush=True)
+    return out
+
+
+def lm_scheduler(eng, counted, total):
+    """14c: LM_SCHED_REQUESTS prompts of LM_SCHED_PROMPTS tokens and
+    budgets of LM_SCHED_BUDGETS from default_rng(0) over LM_SLOTS slots,
+    max_len LM_MAX_LEN: every request's tokens equal its batch-1
+    ``generate``'s; one slot-step capture for the pool (two Python passes
+    of its LM_PER_STEP launches), the admissions replaying the batch-1
+    step graph; one commit an admission and a step, and lm_head run once
+    a prompt token and a step; a warm drive of the same requests for
+    tokens a second; the slot step's replay profiled; KV bytes."""
+    import numpy as np
+    import torch
+    from repro_torch.serve.scheduler import ContinuousBatchingScheduler
+
+    cfg = eng.cfg
+    rng = np.random.default_rng(0)
+    lens = rng.integers(LM_SCHED_PROMPTS[0], LM_SCHED_PROMPTS[1] + 1,
+                        LM_SCHED_REQUESTS)
+    budgets = rng.integers(LM_SCHED_BUDGETS[0], LM_SCHED_BUDGETS[1] + 1,
+                           LM_SCHED_REQUESTS).tolist()
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
+               for n in lens]
+    refs = [eng.generate(p[None], max_new=n)[0].tokens
+            for p, n in zip(prompts, budgets)]
+    _take(counted, total)
+    captures = eng._step_captures
+    commits = eng.offload.ledger.commits
+    before = _stats(eng.offload)
+    sched = ContinuousBatchingScheduler(eng, n_slots=LM_SLOTS)
+    rids = [sched.submit(p, max_new=n) for p, n in zip(prompts, budgets)]
+    steps = 0
+    while sched.n_queued or sched.n_active:
+        sched.admit()
+        steps += bool(sched.decode_step())
+    res = sched.run()
+    torch.cuda.synchronize()
+    got = _read(counted)
+    delta = _ledger_delta(_stats(eng.offload), before)
+    runs = int(lens.sum()) + steps
+    print(f"lm scheduler: {LM_SCHED_REQUESTS} requests over {LM_SLOTS} "
+          f"slots in {steps} slot steps; launches from Python {got}; step "
+          f"captures {eng._step_captures - captures}; commits "
+          f"{eng.offload.ledger.commits - commits}; lm_head runs "
+          f"{delta['by_kernel'].get('lm_head')} (prompt tokens + steps = "
+          f"{runs})", flush=True)
+    if [res[r].tokens for r in rids] != refs:
+        raise AssertionError("lm scheduler: tokens differ from batch-1 "
+                             "generate")
+    if eng._step_captures != captures + 1 or \
+            got["q8_matvec"] != CAPTURE_PASSES * LM_PER_STEP:
+        raise AssertionError(f"lm scheduler: captures or launches {got}")
+    if eng.offload.ledger.commits - commits != LM_SCHED_REQUESTS + steps \
+            or delta["by_kernel"].get("lm_head") != runs:
+        raise AssertionError(f"lm scheduler: commits or runs {delta}")
+    _take(counted, total)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rids = [sched.submit(p, max_new=n) for p, n in zip(prompts, budgets)]
+    res = sched.run()
+    wall = time.perf_counter() - t0
+    if [res[r].tokens for r in rids] != refs or any(_read(counted).values()):
+        raise AssertionError("lm scheduler: the warm drive's tokens or "
+                             "launches")
+    sync = (lambda: sched._token[:, 0].tolist())
+    host_ms = _lm_host_ms(sched._program.graph, sync)
+    kernels, top, pwall = _lm_profile_steps(sched._program.graph, sync,
+                                            "q8_matvec_kernel")
+    out = dict(requests=LM_SCHED_REQUESTS, slots=LM_SLOTS,
+               prompt_lens=lens.tolist(), budgets=budgets, slot_steps=steps,
+               warm_drain_s=wall, tokens=sum(budgets),
+               tokens_per_s=sum(budgets) / wall,
+               kv_committed_bytes=sched.kv_committed_bytes,
+               kv_used_peak_bytes=sched.kv_used_peak,
+               kv_utilization_peak=sched.kv_utilization_peak,
+               slot_step_host_ms=host_ms,
+               **{f"slot_{k}": v for k, v in _replay_summary(
+                   "slot step", kernels, top, pwall, host_ms,
+                   "q8_matvec_kernel").items()})
+    print(f"lm scheduler summary: {json.dumps(out)}", flush=True)
+    return out
+
+
+def lm_kv_quant(eng, counted, total):
+    """14d: the Q8_0 weights with the int8 KV cache (kv_quant="q8"): one
+    captured batch-1 ``generate`` whose tokens equal its eager loop's."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.core.offload import OffloadEngine
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = dataclasses.replace(eng.cfg, kv_quant="q8")
+    q = ServeEngine(cfg, eng._serve_params, max_len=LM_MAX_LEN,
+                    offload=OffloadEngine(), eos_id=None, device="cuda")
+    prompt = np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (1, LM_PROMPT)).astype(np.int32)
+    rows, _, _ = _lm_eager(q, prompt, LM_KVQ_NEW)
+    _take(counted, total)
+    res = q.generate(prompt, max_new=LM_KVQ_NEW)
+    got = _read(counted)
+    out = dict(kv_quant="q8", tokens_equal=res[0].tokens == rows[0],
+               capture_launches=got,
+               prefill_ms=res[0].prefill_s * 1e3,
+               decode_ms_per_token=res[0].decode_s * 1e3 / LM_KVQ_NEW,
+               kv_bytes_batch1=sum(
+                   t.numel() * t.element_size() for c in
+                   q._lm_static[1].state.layer_states for t in c))
+    print(f"lm kv_quant q8: {json.dumps(out)}", flush=True)
+    if not out["tokens_equal"] or got["q8_matvec"] != \
+            CAPTURE_PASSES * LM_PER_STEP:
+        raise AssertionError(f"lm kv_quant: tokens {res[0].tokens} vs "
+                             f"eager {rows[0]}, launches {got}")
+    _take(counted, total)
+    return out
+
+
+def lm_phase(counted):
+    """Phase 14: qwen2.5-14b at full width. The Q8_0 engine first (14a,
+    14c, 14d), its bf16 draw freed once quantized; then, the Q8_0 engine
+    freed, the same seed's bf16 weights for 14b. Returns the phase's
+    Python launches by kernel and its summary."""
+    import gc
+
+    import torch
+    from repro_torch.core.offload import OffloadEngine
+    from repro_torch.serve.engine import ServeEngine
+
+    t0 = time.perf_counter()
+    total = {}
+    _zero(counted)
+    cfg, params = _lm_params("q8_0")
+    eng = ServeEngine(cfg, params, max_len=LM_MAX_LEN,
+                      offload=OffloadEngine(), eos_id=None, device="cuda")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    eng.params = params = None          # the bf16 draw: freed, quantized
+    gc.collect()
+    torch.cuda.empty_cache()
+    q8_bytes = torch.cuda.memory_allocated()
+    print(f"lm q8_0 engine: peak {peak / 1e9:.2f} GB while quantizing, "
+          f"{q8_bytes / 1e9:.2f} GB after the bf16 draw is freed",
+          flush=True)
+    summary = {"q8_0_peak_bytes": peak, "q8_0_resident_bytes": q8_bytes}
+    summary["cpu"] = _lm_cpu_check(eng)
+    _take(counted, total)
+    summary["q8_0"] = lm_oneshot("q8_0", eng, counted, total,
+                                 "q8_matvec_kernel", batch4=True)
+    summary["scheduler"] = lm_scheduler(eng, counted, total)
+    summary["kv_quant"] = lm_kv_quant(eng, counted, total)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg, params = _lm_params("bf16")
+    eng = ServeEngine(cfg, params, max_len=LM_MAX_LEN, quant="none",
+                      offload=OffloadEngine(), eos_id=None, device="cuda")
+    del params
+    summary["bf16"] = lm_oneshot("bf16", eng, counted, total,
+                                 "gemv_bf16_kernel", batch4=False)
+    summary["bf16_resident_bytes"] = torch.cuda.memory_allocated()
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    _take(counted, total)
+    wall = time.perf_counter() - t0
+    summary["phase_s"] = wall
+    print(f"lm phase: {wall:.1f} s; launches {total}", flush=True)
+    return total, summary
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3353,6 +3896,9 @@ def main() -> int:
         path_launches["telemetry"][name] += n
     print(f"telemetry phase: {time.perf_counter() - t0:.1f}s; launches "
           f"{path_launches['telemetry']}", flush=True)
+
+    path_launches["lm"], lm_summary = lm_phase(counted)
+    print(f"lm summary: {json.dumps(lm_summary)}", flush=True)
 
     kernels = []
     for name, meta in KERNELS.items():

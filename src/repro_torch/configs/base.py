@@ -1,21 +1,66 @@
 """Model configuration for the PyTorch port: the subset of the reference's
-``ModelConfig`` that the Whisper (audio) ladder reads.
+``ModelConfig`` that the Whisper (audio) ladder and the dense decoder-only
+LM family read.
 
 This is the port's own copy: the port imports nothing of the JAX package.
-Field names, defaults and ``reduced`` follow the reference
-(``repro/configs/base.py``) so that a config built here describes the same
-model as its reference twin.
+Field names, defaults, the derived quantities (``attention_layers``,
+``moe_layers``, ``n_params``, ``n_active_params``) and ``reduced`` follow
+the reference (``repro/configs/base.py``) so that a config built here
+describes the same model as its reference twin. ``MoEConfig`` and
+``SSMConfig`` are carried as plain data (``reduced`` and the parameter
+count read them); the families that run them (MoE, SSM, hybrid, VLM) are
+refused until the port has their layers.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional, Tuple
 
+DENSE = "dense"
+MOE = "moe"
+SSM = "ssm"
+HYBRID = "hybrid"
 AUDIO = "audio"   # encoder-decoder with stubbed conv frontend
+VLM = "vlm"       # decoder-only LM backbone with stubbed vision frontend
+
+FAMILIES = (DENSE, MOE, SSM, HYBRID, AUDIO, VLM)
+#: the families the port serves
+SERVED = (DENSE, AUDIO)
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    """Mixture-of-experts block parameters (data only in the port)."""
+    num_experts: int
+    experts_per_token: int
+    d_ff: int                    # per-expert hidden dim
+    dense_residual_d_ff: int = 0 # arctic: dense MLP running in parallel
+    router_jitter: float = 0.0
+    load_balance_coef: float = 0.01
+    capacity_factor: float = 1.25
+    dispatch_group: int = 512
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    """Mamba2 / SSD block parameters (data only in the port)."""
+    d_state: int
+    d_conv: int = 4
+    expand: int = 2              # d_inner = expand * d_model
+    head_dim: int = 64           # P; n_heads = d_inner // head_dim
+    n_groups: int = 1
+    chunk: int = 64
+
+    def d_inner(self, d_model: int) -> int:
+        return self.expand * d_model
+
+    def n_heads(self, d_model: int) -> int:
+        return self.d_inner(d_model) // self.head_dim
 
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """One encoder-decoder audio architecture."""
+    """One architecture: an audio encoder-decoder or a dense LM."""
     name: str
     family: str
     num_layers: int              # decoder layers
@@ -29,16 +74,28 @@ class ModelConfig:
     # columns are masked out of the greedy argmax
     vocab_pad: int = 0
 
-    norm: str = "layernorm"
-    act: str = "gelu"
+    norm: str = "rmsnorm"        # rmsnorm | layernorm
+    act: str = "swiglu"          # swiglu | gelu
     qkv_bias: bool = False
+    rope_theta: float = 10_000.0
     tie_embeddings: bool = False
-    pos_embedding: str = "learned"
+    pos_embedding: str = "rope"  # rope | learned
+
+    moe: Optional[MoEConfig] = None
+    moe_every: int = 1
+    moe_offset: int = 0
+
+    ssm: Optional[SSMConfig] = None
+    attn_every: int = 1
+    attn_offset: int = 0
 
     is_encoder_decoder: bool = False
     num_encoder_layers: int = 0
     encoder_ctx: int = 1500      # whisper n_audio_ctx (frames after conv stride 2)
     n_mels: int = 80
+
+    vision_patches: int = 0
+    vision_embed_dim: int = 0
 
     dtype: str = "bfloat16"
     param_dtype: str = "bfloat16"
@@ -48,31 +105,122 @@ class ModelConfig:
     # encoder attention: "chunked" (q-chunked full-row softmax) | "flash"
     # (k-blocked online softmax on the flash_attention_fwd kernel)
     attn_impl: str = "chunked"
+    # decode KV-cache storage: "none" (model dtype) | "q8" (int8 + one f32
+    # scale a position and head)
+    kv_quant: str = "none"
 
     def __post_init__(self):
         if self.head_dim == 0:
             object.__setattr__(self, "head_dim",
                                self.d_model // max(self.num_heads, 1))
+        if self.family not in FAMILIES:
+            raise ValueError(f"{self.name}: unknown family {self.family!r}")
         if self.attn_impl not in ("chunked", "flash"):
             raise ValueError(f"attn_impl {self.attn_impl!r}: 'chunked' or "
                              "'flash'")
-        if self.family != AUDIO or not self.is_encoder_decoder:
-            raise ValueError(f"{self.name}: the port serves the audio "
-                             "encoder-decoder family only")
+        if self.kv_quant not in ("none", "q8"):
+            raise ValueError(f"kv_quant {self.kv_quant!r}: 'none' or 'q8'")
+        if self.family not in SERVED:
+            raise ValueError(f"{self.name}: the port serves the {SERVED} "
+                             f"families; {self.family!r} comes with ROADMAP "
+                             "item 15a")
+        if (self.family == AUDIO) != self.is_encoder_decoder:
+            # the port's models dispatch on the family: only the audio
+            # family is an encoder-decoder, and it always is
+            raise ValueError(f"{self.name}: the encoder-decoder models are "
+                             "the audio family's, and only theirs")
 
     @property
     def padded_vocab(self) -> int:
         return self.vocab_size + self.vocab_pad
 
+    # ----- derived quantities used by coverage and the parameter count -----
+    @property
+    def attention_layers(self) -> Tuple[int, ...]:
+        if self.family == SSM:
+            return ()
+        if self.family == HYBRID:
+            return tuple(i for i in range(self.num_layers)
+                         if i % self.attn_every == self.attn_offset)
+        return tuple(range(self.num_layers))
+
+    @property
+    def moe_layers(self) -> Tuple[int, ...]:
+        if self.moe is None:
+            return ()
+        return tuple(i for i in range(self.num_layers)
+                     if i % self.moe_every == self.moe_offset)
+
+    def n_params(self) -> int:
+        """Total parameter count (embedding included once)."""
+        return sum(int(p) for p in self._param_terms().values())
+
+    def n_active_params(self) -> int:
+        """Active-per-token parameters (MoE: top-k experts only)."""
+        terms = self._param_terms()
+        total = sum(int(v) for v in terms.values())
+        if self.moe is not None:
+            total -= int(terms["moe_experts"])
+            frac = self.moe.experts_per_token / self.moe.num_experts
+            total += int(terms["moe_experts"] * frac)
+        return int(total)
+
+    def _param_terms(self) -> dict:
+        d, dff, V = self.d_model, self.d_ff, self.vocab_size
+        hq, hkv, hd = self.num_heads, self.num_kv_heads, self.head_dim
+        attn = d * (hq * hd) + 2 * d * (hkv * hd) + (hq * hd) * d
+        ffn_mults = 3 if self.act == "swiglu" else 2
+        dense_ffn = ffn_mults * d * dff
+        terms = {"embed": V * d, "head": 0 if self.tie_embeddings else V * d}
+        n_attn = len(self.attention_layers)
+        n_layers = self.num_layers + (self.num_encoder_layers
+                                      if self.is_encoder_decoder else 0)
+        if self.is_encoder_decoder:
+            # decoder cross-attention adds another attn block per decoder layer
+            terms["attn"] = attn * (self.num_encoder_layers
+                                    + 2 * self.num_layers)
+            terms["ffn"] = dense_ffn * n_layers
+        else:
+            terms["attn"] = attn * n_attn
+            moe_l = set(self.moe_layers)
+            dense_l = [i for i in range(self.num_layers) if i not in moe_l]
+            terms["ffn"] = dense_ffn * len(dense_l)
+            if self.moe is not None:
+                e_ffn = ffn_mults * d * self.moe.d_ff
+                terms["moe_experts"] = e_ffn * self.moe.num_experts * len(moe_l)
+                terms["router"] = d * self.moe.num_experts * len(moe_l)
+                if self.moe.dense_residual_d_ff:
+                    terms["ffn"] += (ffn_mults * d * self.moe.dense_residual_d_ff
+                                     * len(moe_l))
+            if self.ssm is not None:
+                di = self.ssm.d_inner(d)
+                nh = self.ssm.n_heads(d)
+                ssm_l = (self.num_layers - n_attn if self.family == HYBRID
+                         else self.num_layers)
+                per = d * (2 * di + 2 * self.ssm.n_groups * self.ssm.d_state
+                           + nh) \
+                    + di * d + self.ssm.d_conv * (
+                        di + 2 * self.ssm.n_groups * self.ssm.d_state) \
+                    + 2 * nh
+                terms["ssm"] = per * ssm_l
+        terms["norms"] = 2 * d * n_layers + d
+        return terms
+
 
 def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
     """Family-preserving reduction for smoke tests, the same cut as the
-    reference's ``reduced``: tiny layers, width, vocab and frame count."""
+    reference's ``reduced``: tiny layers, width, heads (the GQA ratio
+    kept where it can be), vocabulary, experts and frame count."""
     d_model = min(cfg.d_model, 64)
-    num_heads = min(cfg.num_heads, 4)
-    num_kv = max(1, min(cfg.num_kv_heads, num_heads))
-    if cfg.num_kv_heads < cfg.num_heads:
-        num_kv = max(1, num_heads // max(1, cfg.num_heads // cfg.num_kv_heads))
+    if cfg.num_heads == 0:       # attention-free (SSM)
+        num_heads = num_kv = 0
+    else:
+        num_heads = min(cfg.num_heads, 4)
+        num_kv = max(1, min(cfg.num_kv_heads, num_heads))
+        # keep the GQA-vs-MHA character: preserve ratio when possible
+        if cfg.num_kv_heads < cfg.num_heads:
+            num_kv = max(1, num_heads // max(1, cfg.num_heads
+                                             // cfg.num_kv_heads))
     base = dict(
         name=cfg.name + "-smoke",
         family=cfg.family,
@@ -80,18 +228,35 @@ def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
         d_model=d_model,
         num_heads=num_heads,
         num_kv_heads=num_kv,
-        head_dim=d_model // num_heads,
-        d_ff=min(cfg.d_ff, 128),
+        head_dim=d_model // num_heads if num_heads else 16,
+        d_ff=min(cfg.d_ff, 128) if cfg.d_ff else 0,
         vocab_size=min(cfg.vocab_size, 512),
         norm=cfg.norm, act=cfg.act, qkv_bias=cfg.qkv_bias,
-        tie_embeddings=cfg.tie_embeddings,
+        rope_theta=cfg.rope_theta, tie_embeddings=cfg.tie_embeddings,
         pos_embedding=cfg.pos_embedding,
+        moe_every=cfg.moe_every, moe_offset=cfg.moe_offset,
+        attn_every=min(cfg.attn_every, 2), attn_offset=min(cfg.attn_offset, 1),
         is_encoder_decoder=cfg.is_encoder_decoder,
         num_encoder_layers=min(cfg.num_encoder_layers, 2),
         encoder_ctx=min(cfg.encoder_ctx, 32),
         n_mels=min(cfg.n_mels, 8),
+        vision_patches=min(cfg.vision_patches, 8),
+        vision_embed_dim=min(cfg.vision_embed_dim, 32),
         dtype="float32", param_dtype="float32",
         quant=cfg.quant, burst=128,
     )
+    if cfg.moe is not None:
+        base["moe"] = MoEConfig(
+            num_experts=min(cfg.moe.num_experts, 4),
+            experts_per_token=min(cfg.moe.experts_per_token, 2),
+            d_ff=min(cfg.moe.d_ff, 64),
+            dense_residual_d_ff=min(cfg.moe.dense_residual_d_ff, 64)
+            if cfg.moe.dense_residual_d_ff else 0,
+        )
+    if cfg.ssm is not None:
+        base["ssm"] = SSMConfig(
+            d_state=min(cfg.ssm.d_state, 16), d_conv=cfg.ssm.d_conv,
+            expand=2, head_dim=16, n_groups=1, chunk=8,
+        )
     base.update(overrides)
     return ModelConfig(**base)

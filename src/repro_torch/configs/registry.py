@@ -1,23 +1,44 @@
 """Architecture registry of the port: ``--arch <id>`` -> (CONFIG, SMOKE).
 
-The port serves the Whisper ladder only; the language-model archs of the
-reference come with later slices.
+The port serves the Whisper ladder and the dense decoder-only LMs. The
+reference's other language-model archs (mixture-of-experts, state-space,
+hybrid and vision-language) are known ids that raise ``KeyError`` naming
+the slice of ROADMAP item 15a that brings them.
 """
 from __future__ import annotations
 
 from typing import Dict
 
-from repro_torch.configs import whisper_base, whisper_small, whisper_tiny
+from repro_torch.configs import (
+    internlm2_20b, phi3_mini_3_8b, qwen1_5_110b, qwen2_5_14b, whisper_base,
+    whisper_small, whisper_tiny)
 from repro_torch.configs.base import ModelConfig
 
 ALL_ARCHS: Dict[str, object] = {
     "whisper-tiny": whisper_tiny,
     "whisper-base": whisper_base,
     "whisper-small": whisper_small,
+    "phi3-mini-3.8b": phi3_mini_3_8b,
+    "qwen2.5-14b": qwen2_5_14b,
+    "internlm2-20b": internlm2_20b,
+    "qwen1.5-110b": qwen1_5_110b,
+}
+
+#: the reference's archs the port does not serve yet, with the slice of
+#: ROADMAP item 15a that brings each
+LATER: Dict[str, str] = {
+    "olmoe-1b-7b": "15a MoE (moe.py)",
+    "arctic-480b": "15a MoE (moe.py)",
+    "mamba2-780m": "15a SSM (ssm.py)",
+    "jamba-v0.1-52b": "15a hybrid (moe.py and ssm.py)",
+    "llava-next-mistral-7b": "15a VLM (projector and patches)",
 }
 
 
 def _module(arch: str):
+    if arch in LATER:
+        raise KeyError(f"arch {arch!r} is not in the port yet: it comes with "
+                       f"ROADMAP item {LATER[arch]}")
     if arch not in ALL_ARCHS:
         raise KeyError(f"unknown arch {arch!r}; known: {sorted(ALL_ARCHS)}")
     return ALL_ARCHS[arch]

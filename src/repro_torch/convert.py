@@ -1,11 +1,15 @@
 """Carry a reference parameter tree over to the port's layout.
 
-``from_jax_params`` takes the reference's Whisper parameter tree with
-every leaf already converted to numpy (``np.asarray``) — this module
+``from_jax_params`` takes the reference's Whisper or LM parameter tree
+with every leaf already converted to numpy (``np.asarray``) — this module
 imports no JAX — and returns the port's tree: the same dict keys, with
-the reference's layer-stacked ``enc_blocks``/``dec_blocks`` (a leading
-layer axis on every leaf) split into a list of per-layer dicts. Tests use
-it to run both packages on identical weights.
+the reference's layer-stacked blocks (a leading layer axis on every leaf)
+split into a list of per-layer dicts. Whisper's ``enc_blocks`` and
+``dec_blocks`` each stack all layers; an LM's ``stack/blocks`` is a list
+of P pattern positions, each stacked over R repeats (a smoke config,
+``scan_layers=False``, still stacks: R = num_layers), and layer i of the
+port is repeat ``i // P`` of position ``i % P``. Tests use it to run both
+packages on identical weights.
 """
 from __future__ import annotations
 
@@ -44,13 +48,21 @@ def _layers(tree) -> int:
 
 
 def from_jax_params(tree: dict, *, device="cuda") -> dict:
-    """Reference Whisper params (numpy leaves) -> the port's params."""
+    """Reference Whisper or LM params (numpy leaves) -> the port's
+    params."""
     dev = resolve_device(device)
     out = {}
     for key, sub in tree.items():
         if key in STACKED:
             out[key] = [_convert(_unstack(sub, i), dev)
                         for i in range(_layers(sub))]
+        elif key == "stack":
+            pattern = sub["blocks"]
+            n = len(pattern) * _layers(pattern[0])
+            out[key] = {"blocks": [
+                _convert(_unstack(pattern[i % len(pattern)],
+                                  i // len(pattern)), dev)
+                for i in range(n)]}
         else:
             out[key] = _convert(sub, dev)
     return out

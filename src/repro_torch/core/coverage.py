@@ -105,6 +105,60 @@ def enumerate_whisper(cfg: ModelConfig, n_frames: int = 1500,
     return ms
 
 
+def enumerate_lm(cfg: ModelConfig, seq: int, new_tokens: int = 0,
+                 batch: int = 1) -> List[MulMat]:
+    """Decoder-only LM: prefill over ``seq`` + ``new_tokens`` decode steps
+    (the reference's count, term for term, its MoE and SSM terms
+    included: pure arithmetic over the config)."""
+    d, dff, v = cfg.d_model, cfg.d_ff, cfg.vocab_size
+    hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    ms: List[MulMat] = []
+    a = ms.append
+    n_attn = len(cfg.attention_layers)
+    moe_layers = len(cfg.moe_layers)
+    dense_layers = cfg.num_layers - moe_layers
+    ffn_mult = 3 if cfg.act == "swiglu" else 2
+    if seq and n_attn:
+        a(MulMat("attn.qkv", seq * batch, d, (hq + 2 * hkv) * hd, n_attn,
+                 "prefill"))
+        a(MulMat("attn.out", seq * batch, hq * hd, d, n_attn, "prefill"))
+        a(MulMat("attn.scores", seq, hd, seq, n_attn * hq * batch, "prefill"))
+        a(MulMat("attn.av", seq, seq, hd, n_attn * hq * batch, "prefill"))
+    if seq and dense_layers and dff:
+        a(MulMat("ffn", seq * batch, d, ffn_mult * dff, dense_layers,
+                 "prefill"))
+    if seq and moe_layers and cfg.moe is not None:
+        tok_per_e = max(1, seq * batch * cfg.moe.experts_per_token
+                        // cfg.moe.num_experts)
+        a(MulMat("moe.expert", tok_per_e, d, ffn_mult * cfg.moe.d_ff,
+                 moe_layers * cfg.moe.num_experts, "prefill"))
+    if cfg.ssm is not None and seq:
+        ssm_layers = (cfg.num_layers - n_attn if cfg.family == "hybrid"
+                      else cfg.num_layers)
+        di = cfg.ssm.d_inner(d)
+        a(MulMat("ssm.in_proj", seq * batch, d,
+                 2 * di + 2 * cfg.ssm.n_groups * cfg.ssm.d_state
+                 + cfg.ssm.n_heads(d), ssm_layers, "prefill"))
+        a(MulMat("ssm.out_proj", seq * batch, di, d, ssm_layers, "prefill"))
+    if seq:
+        a(MulMat("vocab", seq * batch, d, v, 1, "prefill"))
+    for t in range(new_tokens):
+        kvlen = seq + t
+        if n_attn:
+            a(MulMat("dec.attn.qkv", batch, d, (hq + 2 * hkv) * hd, n_attn,
+                     "decode"))
+            a(MulMat("dec.attn.out", batch, hq * hd, d, n_attn, "decode"))
+            a(MulMat("dec.attn.scores", 1, hd, kvlen, n_attn * hq * batch,
+                     "decode"))
+            a(MulMat("dec.attn.av", 1, kvlen, hd, n_attn * hq * batch,
+                     "decode"))
+        if dense_layers and dff:
+            a(MulMat("dec.ffn", batch, d, ffn_mult * dff, dense_layers,
+                     "decode"))
+        a(MulMat("dec.vocab", batch, d, v, 1, "decode"))
+    return ms
+
+
 def fits(mm: MulMat, budget_kb: int, optimized: bool = True,
          agg_units: int = AGG_UNITS) -> bool:
     cap = budget_kb * 1024 * agg_units

@@ -5,8 +5,14 @@ they raise unless the caller asked for the CPU: the port never moves to the
 CPU silently. On the card, TF32 is switched off for matrix products and
 convolutions, because the reference's residual arm and oracles contract in
 full f32 and TF32 would break parity with them.
+
+``gc_paused`` keeps Python's cyclic collector from running inside a CUDA
+graph capture.
 """
 from __future__ import annotations
+
+import gc
+from contextlib import contextmanager
 
 import torch
 
@@ -23,3 +29,20 @@ def resolve_device(device="cuda") -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     return dev
+
+
+@contextmanager
+def gc_paused():
+    """Python's cyclic garbage collector paused for the scope, as it was
+    before after. Wrap every CUDA graph capture in it: an engine that died
+    in a reference cycle keeps its graphs until the collector runs, and a
+    graph destroyed while a stream captures invalidates the capture
+    (``cudaErrorStreamCaptureInvalidated``). PyTorch's ``torch.cuda.graph``
+    no longer collects before it begins."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()

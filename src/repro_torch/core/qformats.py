@@ -42,12 +42,39 @@ class QTensor(NamedTuple):
         return QTensor(self.qs.to(device), self.scales.to(device))
 
 
+#: rows of a large tensor are quantized in chunks of about this many
+#: values, so that the f32 temporaries stay near 1 GB whatever the tensor
+#: (qwen2.5-14b's 152,064 x 5,120 readout would take four 3.1 GB ones);
+#: every block is computed alone, so chunking changes no bit
+CHUNK_VALUES = 1 << 26
+
+
 def quantize_q8_0(w: torch.Tensor) -> QTensor:
     """Quantize along the last axis in blocks of 32. K must divide by 32."""
     *lead, k = w.shape
     if k % QBLOCK != 0:
         raise ValueError(f"K={k} not a multiple of {QBLOCK}; pad or use "
                          "mixed_exec.split_aligned for the residual")
+    rows = w.numel() // k if k else 0
+    step = max(1, CHUNK_VALUES // max(k, 1))
+    if rows > step:
+        flat = w.reshape(rows, k)
+        qs = torch.empty((rows, k // QBLOCK, QBLOCK), dtype=torch.int8,
+                         device=w.device)
+        scales = torch.empty((rows, k // QBLOCK), dtype=torch.float32,
+                             device=w.device)
+        for r0 in range(0, rows, step):
+            part = _quantize_blocks(flat[r0:r0 + step])
+            qs[r0:r0 + step] = part.qs
+            scales[r0:r0 + step] = part.scales
+        return QTensor(qs=qs.reshape(*lead, k // QBLOCK, QBLOCK),
+                       scales=scales.reshape(*lead, k // QBLOCK))
+    return _quantize_blocks(w)
+
+
+def _quantize_blocks(w: torch.Tensor) -> QTensor:
+    """``quantize_q8_0`` of one tensor or one chunk of rows, at once."""
+    *lead, k = w.shape
     blocks = w.to(torch.float32).reshape(*lead, k // QBLOCK, QBLOCK)
     amax = blocks.abs().amax(dim=-1)
     # divide by a full tensor, not a Python scalar: CUDA's division by a

@@ -2,14 +2,19 @@
 ``python -m repro_torch.launch.serve --arch whisper-tiny [...]``.
 
 Boots the ServeEngine with random weights from ``--seed`` (Q8_0 on load by
-default) and serves a set of synthetic mel requests: as one static batch
-(``transcribe``), or with ``--continuous`` through the continuous-batching
+default) and serves a set of synthetic requests: mels for a Whisper arch,
+for a dense LM (``--arch qwen2.5-14b``, ...) prompts of 8 tokens drawn
+from ``--seed`` as the reference's launcher draws them (an LM's weights
+are drawn on ``--device``, from a generator there). It serves them as one
+static batch (``transcribe`` or ``generate``), or with ``--continuous``
+through the continuous-batching
 scheduler over a pool of ``--slots`` slots, drained step by step, whose
 per-request attribution it prints, or with ``--speculative`` through a
-two-model speculative engine: a ``--draft`` arch (whisper-tiny by default,
-dense, its weights from ``--seed`` + 1) proposes ``-k`` tokens a round and
-the served arch verifies them, token-exact with its own greedy decode; the
-report adds ``spec.stats()`` (acceptance, captures, FLOPs by role). Then
+two-model speculative engine (Whisper archs only, as the reference): a
+``--draft`` arch (whisper-tiny by default, dense, its weights from
+``--seed`` + 1) proposes ``-k`` tokens a round and the served arch
+verifies them, token-exact with its own greedy decode; the report adds
+``spec.stats()`` (acceptance, captures, FLOPs by role). Then
 each request's latency and tokens,
 the offload ledger when ``--offload`` routes the linears through the
 dispatcher, and one ``energy_report`` JSON object. Power is the card's
@@ -81,7 +86,11 @@ def main(argv=None):
                  "--continuous")
 
     cfg = get_config(args.arch) if args.full else get_smoke_config(args.arch)
-    gen = torch.Generator().manual_seed(args.seed)
+    audio = cfg.family == "audio"
+    if args.speculative and not audio:
+        ap.error("--speculative serves the Whisper ladder (audio archs)")
+    gen = torch.Generator(device="cpu" if audio else args.device
+                          ).manual_seed(args.seed)
     params = model_lib.init_params(gen, cfg, max_positions=512,
                                    device=args.device)
     offload = OffloadEngine() if args.offload else None
@@ -92,15 +101,21 @@ def main(argv=None):
                          device=args.device, telemetry=telemetry)
     frames = cfg.encoder_ctx if args.full else 64
     rng = np.random.default_rng(args.seed)
-    mel = rng.standard_normal((args.requests, frames, cfg.n_mels)
-                              ).astype(np.float32)
+    if audio:
+        mel = rng.standard_normal((args.requests, frames, cfg.n_mels)
+                                  ).astype(np.float32)
+        payloads = [mel[i:i + 1] for i in range(args.requests)]
+    else:
+        prompts = rng.integers(0, cfg.vocab_size,
+                               (args.requests, 8)).astype(np.int32)
+        payloads = [prompts[i:i + 1] for i in range(args.requests)]
     power_w = args.power_w
     if power_w is None:
         power_w = energy.card_power_limit_w(engine.device.index or 0)
     if args.continuous:
-        sched = engine.scheduler(n_slots=args.slots, n_frames=frames)
-        rids = [sched.submit(mel[i:i + 1], max_new=args.max_new)
-                for i in range(args.requests)]
+        sched = engine.scheduler(n_slots=args.slots,
+                                 n_frames=frames if audio else None)
+        rids = [sched.submit(p, max_new=args.max_new) for p in payloads]
         streamed = {r: 0 for r in rids}
 
         def on_token(ev):
@@ -132,8 +147,10 @@ def main(argv=None):
               f"acceptance={spec.acceptance_rate():.2f} "
               f"rounds={spec.rounds} "
               f"verify_captures={spec.stats()['verify_captures']}")
-    else:
+    elif audio:
         results = engine.transcribe(mel, max_new=args.max_new)
+    else:
+        results = engine.generate(prompts, max_new=args.max_new)
     for i, r in enumerate(results):
         print(f"req{i}: {r.steps} tokens in {r.total_s:.3f}s "
               f"(prefill {r.prefill_s:.3f}s) tokens={r.tokens[:8]}...")

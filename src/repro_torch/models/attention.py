@@ -1,13 +1,17 @@
-"""Attention for the Whisper port: the encoder's self-attention, either
+"""Attention for the port: the Whisper encoder's self-attention, either
 query-chunked (``attn_impl="chunked"``) or flash (``"flash"``, on the
-``flash_attention_fwd`` kernel), and single-step KV-cache decode attention.
+``flash_attention_fwd`` kernel), and single-step KV-cache decode
+attention, which the Whisper decoder and the dense LMs share.
 
 The chunked and decode paths are plain einsum and softmax ops, as the
 reference writes them. The reference contracts with
 ``preferred_element_type=f32``; here the operands are upcast to f32 before
 each contraction, which is the same function (bf16 products are exact in
 f32). The probabilities are cast to the value type before the second
-contraction, as in the reference.
+contraction, as in the reference. Decode attention is the reference's
+grouped contraction: ``g = Hq / Hkv`` query heads share each K/V head
+(GQA), and the repeated K/V is never materialized. An LM's self branch
+rotates q and the new k by RoPE at positions ``length + j``.
 
 A decode step of several rows runs its two contractions one row at a
 time: on the card an einsum becomes a batched GEMM whose kernel, and so
@@ -23,7 +27,10 @@ The paged cache (``PagedKVCache``) keeps K/V in a page arena that every
 row reaches through its block table: a step scatters its new entries
 into the arena in place (``paged_window_update``) and gathers each row's
 pages back into the contiguous view (``paged_window_gather``), so the
-attention's arithmetic is the contiguous layout's.
+attention's arithmetic is the contiguous layout's. The int8 cache
+(``QKVCache``, ``kv_quant="q8"``) stores K/V as int8 with one f32 scale a
+position and head (``quantize_kv``) and dequantizes the whole cache to
+the model's type before the contractions (``dequantize_kv``).
 """
 from __future__ import annotations
 
@@ -183,6 +190,50 @@ class PagedKVCache(NamedTuple):
     length: torch.Tensor        # (B,) int32: tokens currently valid
 
 
+class QKVCache(NamedTuple):
+    """Int8 decode cache: K/V as int8 with one f32 scale a (position,
+    head) over the head_dim block, the reference's ``QKVCache``. All five
+    tensors are updated in place, like ``KVCache``'s."""
+    k_qs: torch.Tensor        # int8 (B, S_max, Hkv, D)
+    v_qs: torch.Tensor        # int8 (B, S_max, Hkv, D)
+    k_scale: torch.Tensor     # f32  (B, S_max, Hkv)
+    v_scale: torch.Tensor     # f32  (B, S_max, Hkv)
+    length: torch.Tensor      # () or (B,) int32
+
+    @classmethod
+    def zeros(cls, b: int, s_max: int, hkv: int, hd: int, dtype=None, *,
+              device) -> "QKVCache":
+        """An empty int8 cache on ``device`` (``dtype`` is ignored: the
+        storage is int8 and f32, as in the reference)."""
+        def z(*shape, dt):
+            return torch.zeros(shape, dtype=dt, device=device)
+        return cls(z(b, s_max, hkv, hd, dt=torch.int8),
+                   z(b, s_max, hkv, hd, dt=torch.int8),
+                   z(b, s_max, hkv, dt=torch.float32),
+                   z(b, s_max, hkv, dt=torch.float32),
+                   z(dt=torch.int32))
+
+
+def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(B, S, H, D) -> (int8 qs, f32 scale (B, S, H)): symmetric, one
+    scale ``max |x| / 127`` a head vector, values rounded half to even and
+    clipped to [-127, 127], as the reference. Both divisions are by a
+    tensor: the card's division by a Python scalar multiplies by its
+    reciprocal, which is not the reference's rounding."""
+    xf = x.to(torch.float32)
+    amax = xf.abs().amax(dim=-1)
+    scale = amax / torch.full_like(amax, 127.0)
+    inv = torch.where(scale > 0, torch.ones_like(scale) / scale,
+                      torch.zeros_like(scale))
+    q = torch.round(xf * inv[..., None]).clamp(-127, 127).to(torch.int8)
+    return q, scale
+
+
+def dequantize_kv(qs: torch.Tensor, scale: torch.Tensor,
+                  dtype=torch.bfloat16) -> torch.Tensor:
+    return (qs.to(torch.float32) * scale[..., None]).to(dtype)
+
+
 def paged_window_update(pages: torch.Tensor, block_table: torch.Tensor,
                         length: torch.Tensor,
                         val: torch.Tensor) -> torch.Tensor:
@@ -232,10 +283,11 @@ def _rows_apart(fn, a: torch.Tensor, c: torch.Tensor,
 
 
 def decode_attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
-                     cache: Union[KVCache, PagedKVCache], *,
+                     cache: Union[KVCache, QKVCache, PagedKVCache], *,
                      memory_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                      engine=None
-                     ) -> Tuple[torch.Tensor, Union[KVCache, PagedKVCache]]:
+                     ) -> Tuple[torch.Tensor,
+                                Union[KVCache, QKVCache, PagedKVCache]]:
     """One decode step over a window of W positions. x: (B, W, d); W = 1
     is the autoregressive step, W = k + 1 the speculative verify window.
     Self-attention appends the W new K/V entries to ``cache`` and query j
@@ -245,20 +297,37 @@ def decode_attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
     advanced by W in place (its K/V and length keep their storage), where
     the reference returns a new one. ``cache.length`` may be ``()``
     (lockstep) or ``(B,)`` (slot pool): each row then writes and attends
-    at its own position. A ``PagedKVCache`` writes its entries through the
-    block table and attends over each row's gathered pages."""
+    at its own position. With ``cfg.pos_embedding == "rope"`` (the LMs) q
+    and the new k are rotated at positions ``length + j`` first. A
+    ``PagedKVCache`` writes its entries through the block table and
+    attends over each row's gathered pages; a ``QKVCache`` stores them
+    quantized and attends over the dequantized cache."""
     b, w = x.shape[0], x.shape[1]
     hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = _split_heads(layers.linear(p["q"], x, engine, "dec.attn.q"), hq)
     if memory_kv is None:
         knew = _split_heads(layers.linear(p["k"], x, engine, "dec.attn.k"), hkv)
         vnew = _split_heads(layers.linear(p["v"], x, engine, "dec.attn.v"), hkv)
+        if cfg.pos_embedding == "rope":
+            pos = cache.length[..., None]          # (B, 1) or (1,)
+            if w > 1:
+                pos = pos + torch.arange(w, device=x.device)
+            q = layers.apply_rope(q, pos, cfg.rope_theta)
+            knew = layers.apply_rope(knew, pos, cfg.rope_theta)
         if isinstance(cache, PagedKVCache):
             for pages, new in ((cache.k_pages, knew), (cache.v_pages, vnew)):
                 paged_window_update(pages, cache.block_table, cache.length,
                                     new)
             k = paged_window_gather(cache.k_pages, cache.block_table)
             v = paged_window_gather(cache.v_pages, cache.block_table)
+        elif isinstance(cache, QKVCache):
+            kq, ks = quantize_kv(knew)
+            vq, vs = quantize_kv(vnew)
+            for buf, val in ((cache.k_qs, kq), (cache.v_qs, vq),
+                             (cache.k_scale, ks), (cache.v_scale, vs)):
+                _cache_update(buf, val, cache.length)
+            k = dequantize_kv(cache.k_qs, cache.k_scale, x.dtype)
+            v = dequantize_kv(cache.v_qs, cache.v_scale, x.dtype)
         else:
             k = _cache_update(cache.k, knew, cache.length)
             v = _cache_update(cache.v, vnew, cache.length)

@@ -1,5 +1,5 @@
-"""Shared building blocks: linear, layer norm, GELU MLP, positional tables
-and embeddings.
+"""Shared building blocks: linear, layer and RMS norms, GELU and SwiGLU
+MLPs, rotary and positional tables, and embeddings.
 
 Functional style over parameter dicts of tensors. Weights are stored
 (out_features, in_features) — the kernels' W[N, K] layout. ``engine``
@@ -20,10 +20,13 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
 
 def init_linear(gen: torch.Generator, d_in: int, d_out: int, *,
                 bias: bool = False, dtype=torch.bfloat16) -> dict:
-    p = {"w": (torch.randn((d_out, d_in), generator=gen) * d_in ** -0.5
-               ).to(dtype)}
+    """W (d_out, d_in) ~ N(0, 1/d_in) and an optional zero bias, drawn on
+    the generator's device."""
+    dev = gen.device
+    p = {"w": (torch.randn((d_out, d_in), generator=gen, device=dev)
+               * d_in ** -0.5).to(dtype)}
     if bias:
-        p["b"] = torch.zeros((d_out,), dtype=dtype)
+        p["b"] = torch.zeros((d_out,), dtype=dtype, device=dev)
     return p
 
 
@@ -50,26 +53,58 @@ def _dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return x.to(dt) @ w.to(dt).t()
 
 
-def init_norm(d: int, dtype=torch.bfloat16) -> dict:
-    return {"scale": torch.ones((d,), dtype=dtype),
-            "bias": torch.zeros((d,), dtype=dtype)}
+def init_norm(d: int, dtype=torch.bfloat16, *, kind: str = "layernorm",
+              device=None) -> dict:
+    """A norm's scale (ones) and, for a layer norm, its bias (zeros)."""
+    p = {"scale": torch.ones((d,), dtype=dtype, device=device)}
+    if kind == "layernorm":
+        p["bias"] = torch.zeros((d,), dtype=dtype, device=device)
+    return p
 
 
 def norm_apply(p: dict, x: torch.Tensor, kind: str = "layernorm",
                eps: float = 1e-5) -> torch.Tensor:
-    """Layer norm in f32 with the population variance, cast back to the
-    input's type (the reference's ``norm_apply``). It runs as one
-    ``layer_norm``, whose CUDA kernel reduces each row in a block of its
-    own: a row's bits do not depend on how many rows the batch holds. The
-    mean and variance as separate reductions would not do: their launch
-    shape, and with it the order of a row's sums, follows the row count,
-    and a row of a 12-row slot step got other bits than in a batch-1
-    step."""
-    if kind != "layernorm":
-        raise ValueError(f"the port's audio models use layernorm, not {kind}")
-    bias = p["bias"].to(torch.float32) if "bias" in p else None
-    out = F.layer_norm(x.to(torch.float32), (x.shape[-1],),
-                       p["scale"].to(torch.float32), bias, eps)
+    """Layer norm (population variance) or RMS norm in f32, cast back to
+    the input's type (the reference's ``norm_apply``). Each runs as one
+    fused call, ``layer_norm`` or ``rms_norm``, whose CUDA kernel reduces
+    each row in a block of its own: a row's bits do not depend on how many
+    rows the batch holds. The statistics as separate reductions would not
+    do: their launch shape, and with it the order of a row's sums, follows
+    the row count, and a row of a 12-row slot step got other bits than in
+    a batch-1 step."""
+    xf = x.to(torch.float32)
+    scale = p["scale"].to(torch.float32)
+    if kind == "rmsnorm":
+        out = F.rms_norm(xf, (x.shape[-1],), scale, eps)
+    elif kind == "layernorm":
+        bias = p["bias"].to(torch.float32) if "bias" in p else None
+        out = F.layer_norm(xf, (x.shape[-1],), scale, bias, eps)
+    else:
+        raise ValueError(f"norm {kind!r}: 'layernorm' or 'rmsnorm'")
+    return out.to(x.dtype)
+
+
+def rope_frequencies(head_dim: int, theta: float,
+                     device=None) -> torch.Tensor:
+    """The rotary inverse frequencies ``theta ** -(2i / head_dim)``, f32."""
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                          device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """Rotary embedding of x (..., S, H, D) at integer ``positions``
+    broadcastable to (..., S): the angles in f32, the split-halves
+    rotation of the reference (the first D/2 channels against the last),
+    cast back to x's type. Elementwise, so a row's bits do not depend on
+    the batch."""
+    d = x.shape[-1]
+    freqs = rope_frequencies(d, theta, x.device)
+    angles = positions[..., None].to(torch.float32) * freqs   # (..., S, D/2)
+    cos = torch.cos(angles)[..., None, :]                     # (..., S, 1, D/2)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
 
 
@@ -90,24 +125,34 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 def init_mlp(gen: torch.Generator, d: int, d_ff: int,
-             dtype=torch.bfloat16) -> dict:
-    return {"up": init_linear(gen, d, d_ff, dtype=dtype),
-            "down": init_linear(gen, d_ff, d, dtype=dtype)}
+             dtype=torch.bfloat16, *, act: str = "gelu") -> dict:
+    """up and down projections, and a SwiGLU's gate (drawn last)."""
+    p = {"up": init_linear(gen, d, d_ff, dtype=dtype),
+         "down": init_linear(gen, d_ff, d, dtype=dtype)}
+    if act == "swiglu":
+        p["gate"] = init_linear(gen, d, d_ff, dtype=dtype)
+    return p
 
 
 def mlp_apply(p: dict, x: torch.Tensor, act: str = "gelu",
               engine=None) -> torch.Tensor:
-    if act != "gelu":
-        raise ValueError(f"the port's audio models use gelu, not {act}")
+    """GELU: down(gelu(up(x))); SwiGLU: down(silu(gate(x)) * up(x)), the
+    product in f32, cast to x's type before ``down``, as the reference."""
     up = linear(p["up"], x, engine, "ffn.up")
-    h = gelu(up.to(torch.float32))
+    if act == "swiglu":
+        gate = linear(p["gate"], x, engine, "ffn.gate")
+        h = F.silu(gate.to(torch.float32)) * up.to(torch.float32)
+    elif act == "gelu":
+        h = gelu(up.to(torch.float32))
+    else:
+        raise ValueError(f"act {act!r}: 'gelu' or 'swiglu'")
     return linear(p["down"], h.to(x.dtype), engine, "ffn.down")
 
 
 def init_embedding(gen: torch.Generator, vocab: int, d: int,
                    dtype=torch.bfloat16) -> dict:
-    return {"table": (torch.randn((vocab, d), generator=gen) * 0.02
-                      ).to(dtype)}
+    return {"table": (torch.randn((vocab, d), generator=gen,
+                                  device=gen.device) * 0.02).to(dtype)}
 
 
 def embed(p: dict, ids: torch.Tensor) -> torch.Tensor:

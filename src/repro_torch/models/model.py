@@ -1,16 +1,24 @@
-"""The model API of the port: the audio (Whisper) branches of the
-reference's family dispatch (the port's configs are audio-only).
+"""The model API of the port: the audio (Whisper) and dense LM branches of
+the reference's family dispatch.
 
   init_params(gen, cfg, max_positions, device) -> param dict
   init_serve_state(params, cfg, batch, max_len, memory=...) -> ServeState
   zeros_serve_state(cfg, batch, frames, max_len, device=...) -> ServeState
   zeros_slot_state(cfg, n_slots, frames, max_len, device=...) -> ServeState
+  prefill(params, cfg, tokens, state)          -> (last logits, state') LM
   zeros_paged_state(cfg, n_slots, ..., device=...) -> ServeState (paged)
   slot_layout(state, batch)                    -> ServeState (slot layout)
   state_kv_bytes(state)                        -> committed bytes
   serve_step(params, cfg, token, state)        -> (logits, state')
   verify_step(params, cfg, tokens, state)      -> (logits (B, W, V), state')
   set_slot_lengths(state, new_len)             -> None (in place)
+
+An LM's layer state is a list of one cache a layer (``KVCache``, or
+``QKVCache`` with ``kv_quant="q8"``), where the reference stacks the
+layers of each leaf; every tensor still has the batch on axis 0, so the
+slot splice (``serve/kvcache.py``) treats both families alike. An LM's
+prefill is the reference's: a loop of ``serve_step`` over the prompt's
+tokens (the reference's ``lax.scan``), not a full-sequence forward.
 """
 from __future__ import annotations
 
@@ -20,7 +28,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import resolve_device
-from repro_torch.models import layers, whisper
+from repro_torch.models import layers, transformer, whisper
 
 
 class ServeState(NamedTuple):
@@ -29,7 +37,7 @@ class ServeState(NamedTuple):
     reference's standard layout, ``(B,)`` in the slot layout of a
     continuous-batching pool, where every counter (``step`` and each
     layer's cache length) is per row."""
-    layer_states: Any     # WhisperDecodeState
+    layer_states: Any     # WhisperDecodeState | [KVCache | QKVCache] (LM)
     step: torch.Tensor    # () or (B,) int32
 
 
@@ -46,14 +54,64 @@ def to_device(tree, device: torch.device):
 def init_params(gen: torch.Generator, cfg: ModelConfig,
                 max_positions: int = 0, *, device="cuda") -> dict:
     """Random weights from ``gen`` (drawn on the generator's device), placed
-    on ``device``."""
+    on ``device``. An LM's tree is the reference's (``embed``, ``stack``
+    with one dict a layer, ``final_norm``, ``lm_head`` unless tied), drawn
+    tensor by tensor: with a CUDA generator no weight passes through host
+    memory."""
     dev = resolve_device(device)
-    return to_device(whisper.init_whisper(gen, cfg, max_positions), dev)
+    if cfg.family == "audio":
+        return to_device(whisper.init_whisper(gen, cfg, max_positions), dev)
+    pdtype = layers.DTYPES[cfg.param_dtype]
+    params = {
+        "embed": layers.init_embedding(gen, cfg.padded_vocab, cfg.d_model,
+                                       pdtype),
+        "stack": transformer.init_decoder_stack(gen, cfg),
+        "final_norm": layers.init_norm(cfg.d_model, pdtype, kind=cfg.norm,
+                                       device=gen.device),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = layers.init_linear(gen, cfg.d_model,
+                                               cfg.padded_vocab, dtype=pdtype)
+    return to_device(params, dev)
+
+
+def _readout(params: dict, cfg: ModelConfig, x: torch.Tensor,
+             engine=None) -> torch.Tensor:
+    """An LM's final norm and vocabulary readout (tied or ``lm_head``)."""
+    x = layers.norm_apply(params["final_norm"], x, cfg.norm)
+    if cfg.tie_embeddings:
+        return layers.unembed(params["embed"], x, engine)
+    return layers.linear(params["lm_head"], x, engine, "lm_head")
+
+
+def _lm_state(cfg: ModelConfig, batch: int, max_len: int, device,
+              per_row: bool) -> ServeState:
+    caches = transformer.init_decode_state(cfg, batch, max_len,
+                                           layers.DTYPES[cfg.dtype],
+                                           device=device)
+    shape = (batch,) if per_row else ()
+    if per_row:
+        caches = [c._replace(length=torch.zeros(shape, dtype=torch.int32,
+                                                device=device))
+                  for c in caches]
+    return ServeState(layer_states=caches, step=torch.zeros(
+        shape, dtype=torch.int32, device=device))
+
+
+def _device_of(params: dict) -> torch.device:
+    t = params["embed"]["table"]
+    return (t.qs if hasattr(t, "qs") else t).device
 
 
 def init_serve_state(params: dict, cfg: ModelConfig, batch: int,
                      max_len: int, *, memory: Optional[torch.Tensor] = None,
                      engine=None) -> ServeState:
+    """The decode state at step 0: an LM's empty caches on the weights'
+    device, or whisper's empty self caches and the cross K/V projected
+    from ``memory``."""
+    if cfg.family != "audio":
+        return _lm_state(cfg, batch, max_len, _device_of(params),
+                         per_row=False)
     if memory is None:
         raise ValueError("whisper decode needs encoder memory")
     st = whisper.init_whisper_decode_state(params, cfg, memory, max_len,
@@ -66,7 +124,10 @@ def init_serve_state(params: dict, cfg: ModelConfig, batch: int,
 def zeros_serve_state(cfg: ModelConfig, batch: int, frames: int,
                       max_len: int, *, device) -> ServeState:
     """A ServeState of zeros: the static buffers of the serving engine's
-    captured prefill and decode step at (batch, frames)."""
+    captured prefill and decode step at (batch, frames); an LM's caches
+    (``frames`` unused)."""
+    if cfg.family != "audio":
+        return _lm_state(cfg, batch, max_len, device, per_row=False)
     st = whisper.zeros_decode_state(cfg, batch, frames, max_len,
                                     dtype=layers.DTYPES[cfg.dtype],
                                     device=device)
@@ -78,7 +139,10 @@ def zeros_slot_state(cfg: ModelConfig, n_slots: int, frames: int,
                      max_len: int, *, device) -> ServeState:
     """A slot-layout ServeState of zeros: the pool of a continuous-batching
     scheduler, ``n_slots`` rows of ``frames`` cross-K/V frames and
-    ``max_len`` self-KV positions, with ``(n_slots,)`` counters."""
+    ``max_len`` self-KV positions, with ``(n_slots,)`` counters (an LM's
+    pool has no frames)."""
+    if cfg.family != "audio":
+        return _lm_state(cfg, n_slots, max_len, device, per_row=True)
     st = whisper.zeros_slot_decode_state(cfg, n_slots, frames, max_len,
                                          dtype=layers.DTYPES[cfg.dtype],
                                          device=device)
@@ -110,6 +174,10 @@ def slot_layout(state: ServeState, batch: int) -> ServeState:
     def per_row(t: torch.Tensor) -> torch.Tensor:
         return t.expand(batch).clone() if t.dim() == 0 else t
     ls = state.layer_states
+    if isinstance(ls, list):                       # an LM's caches
+        return ServeState(
+            layer_states=[c._replace(length=per_row(c.length)) for c in ls],
+            step=per_row(state.step))
     return ServeState(
         layer_states=ls._replace(self_kv=[
             kv._replace(length=per_row(kv.length)) for kv in ls.self_kv]),
@@ -137,10 +205,32 @@ def serve_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
                ) -> Tuple[torch.Tensor, ServeState]:
     """token: (B, 1) int -> (logits (B, 1, V), state'). The state advances
     in place: ``state'`` holds the same tensors as ``state``. A paged
-    state takes the paged step (``whisper.decode_step`` dispatches)."""
-    logits, _ = whisper.decode_step(params, cfg, token, state.layer_states,
-                                    engine=engine)
+    state takes the paged step (``whisper.decode_step`` dispatches). An
+    LM embeds the token in the model's type, runs the decoder stack and
+    the readout."""
+    if cfg.family == "audio":
+        logits, _ = whisper.decode_step(params, cfg, token,
+                                        state.layer_states, engine=engine)
+    else:
+        x = layers.embed(params["embed"], token).to(layers.DTYPES[cfg.dtype])
+        x, _ = transformer.decode_step_stack(params["stack"], cfg, x,
+                                             state.layer_states,
+                                             engine=engine)
+        logits = _readout(params, cfg, x, engine)
     state.step.add_(1)
+    return logits, state
+
+
+def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+            state: ServeState, *, engine=None
+            ) -> Tuple[torch.Tensor, ServeState]:
+    """An LM's prefill, the reference's: ``serve_step`` over the prompt's
+    tokens (B, S), one at a time, filling the caches in place. Returns the
+    last token's logits (B, 1, V) and the state."""
+    logits = None
+    for t in range(tokens.shape[1]):
+        logits, state = serve_step(params, cfg, tokens[:, t:t + 1], state,
+                                   engine=engine)
     return logits, state
 
 
@@ -150,7 +240,12 @@ def verify_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     """Score a W-token verify window in one forward: tokens (B, W) int ->
     (logits (B, W, V), state') with every cache length and ``step``
     advanced by W, in place. ``logits[:, j]`` is what ``serve_step`` gives
-    after ``tokens[:, :j + 1]`` fed one at a time."""
+    after ``tokens[:, :j + 1]`` fed one at a time. Audio only, as the
+    reference: an LM serves one token a step."""
+    if cfg.family != "audio":
+        raise NotImplementedError(
+            "speculative verify windows are wired for the audio family "
+            "(the Whisper ladder); LM families still serve_step one token")
     logits, _ = whisper.verify_step(params, cfg, tokens, state.layer_states,
                                     engine=engine)
     state.step.add_(tokens.shape[1])

@@ -1,0 +1,135 @@
+"""Decoder-only transformer stack of the dense LM family.
+
+The reference groups its layers into a repeating pattern of length P
+(``layer_pattern``: the attention and MoE periods of heterogeneous
+stacks), stacks each pattern position's parameters over R = num_layers /
+P repeats and scans over R. The port keeps the pattern and its names, but
+its layers are a Python list of per-layer dicts (``params["blocks"][i]``,
+layer i of pattern position ``i % P``) and its decode state a list of one
+cache a layer: no stacking and no scan. On the card a step is captured
+whole into a CUDA graph, which removes the Python loop's cost that the
+scan saves the reference's trace.
+
+Only the dense pattern (attention mixer, dense or no FFN) is built here;
+a MoE or SSM layer spec raises until the port has those layers.
+"""
+from __future__ import annotations
+
+import math
+from typing import List, NamedTuple, Tuple, Union
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers
+from repro_torch.models.attention import (
+    KVCache, QKVCache, decode_attention, init_attention)
+
+
+class LayerSpec(NamedTuple):
+    mixer: str   # "attn" | "ssm"
+    ffn: str     # "dense" | "moe" | "none"
+
+
+def layer_pattern(cfg: ModelConfig) -> Tuple[LayerSpec, ...]:
+    """The reference's repeating layer pattern (its ``layer_pattern``)."""
+    p = 1
+    if cfg.family == "hybrid":
+        p = math.lcm(cfg.attn_every, cfg.moe_every if cfg.moe else 1)
+    elif cfg.moe is not None and cfg.moe_every > 1:
+        p = cfg.moe_every
+    if cfg.num_layers % p:
+        raise ValueError(f"{cfg.name}: num_layers {cfg.num_layers} "
+                         f"not divisible by pattern {p}")
+    specs = []
+    for i in range(p):
+        if cfg.family == "ssm":
+            mixer = "ssm"
+        elif cfg.family == "hybrid":
+            mixer = "attn" if i % cfg.attn_every == cfg.attn_offset else "ssm"
+        else:
+            mixer = "attn"
+        if cfg.moe is not None and i % cfg.moe_every == cfg.moe_offset:
+            ffn = "moe"
+        elif cfg.d_ff:
+            ffn = "dense"
+        else:
+            ffn = "none"
+        specs.append(LayerSpec(mixer, ffn))
+    return tuple(specs)
+
+
+def n_repeats(cfg: ModelConfig) -> int:
+    return cfg.num_layers // len(layer_pattern(cfg))
+
+
+def layer_specs(cfg: ModelConfig) -> List[LayerSpec]:
+    """Each layer's spec, in order; raises on a layer the port cannot
+    build (a MoE FFN or an SSM mixer: ROADMAP item 15a)."""
+    pattern = layer_pattern(cfg)
+    for spec in pattern:
+        if spec.mixer != "attn" or spec.ffn == "moe":
+            raise NotImplementedError(
+                f"{cfg.name}: layer {spec} needs the port's moe.py / ssm.py "
+                "(ROADMAP item 15a)")
+    return list(pattern) * n_repeats(cfg)
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+def _init_block(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec,
+                dtype) -> dict:
+    dev = gen.device
+    p = {"norm1": layers.init_norm(cfg.d_model, dtype, kind=cfg.norm,
+                                   device=dev),
+         "attn": init_attention(gen, cfg, dtype)}
+    if spec.ffn != "none":
+        p["norm2"] = layers.init_norm(cfg.d_model, dtype, kind=cfg.norm,
+                                      device=dev)
+        p["ffn"] = layers.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype,
+                                   act=cfg.act)
+    return p
+
+
+def init_decoder_stack(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    """{"blocks": [one parameter dict a layer]}, drawn from ``gen`` on its
+    device, layer by layer."""
+    dtype = layers.DTYPES[cfg.param_dtype]
+    return {"blocks": [_init_block(gen, cfg, spec, dtype)
+                       for spec in layer_specs(cfg)]}
+
+
+# ---------------------------------------------------------------------------
+# Decode (one token, carried state)
+# ---------------------------------------------------------------------------
+LayerState = Union[KVCache, QKVCache]
+
+
+def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
+                      dtype=torch.bfloat16, *, device) -> List[LayerState]:
+    """One empty cache a layer on ``device`` (no default), with a scalar
+    length: ``QKVCache`` when ``cfg.kv_quant == "q8"``, else ``KVCache``."""
+    cache_cls = QKVCache if cfg.kv_quant == "q8" else KVCache
+    return [cache_cls.zeros(batch, max_len, cfg.num_kv_heads, cfg.head_dim,
+                            dtype, device=device)
+            for _ in layer_specs(cfg)]
+
+
+def decode_step_stack(params: dict, cfg: ModelConfig, x: torch.Tensor,
+                      states: List[LayerState], *, engine=None
+                      ) -> Tuple[torch.Tensor, List[LayerState]]:
+    """x: (B, 1, d) through every layer: pre-norm attention over the
+    layer's cache (advanced in place), then the pre-norm FFN, each added
+    to the residual stream in x's type. Returns (y, states), ``states``
+    the same caches."""
+    for p, spec, st in zip(params["blocks"], layer_specs(cfg), states,
+                           strict=True):
+        h = layers.norm_apply(p["norm1"], x, cfg.norm)
+        mixed, _ = decode_attention(p["attn"], cfg, h, st, engine=engine)
+        x = x + mixed.to(x.dtype)
+        if spec.ffn != "none":
+            h = layers.norm_apply(p["norm2"], x, cfg.norm)
+            y = layers.mlp_apply(p["ffn"], h, cfg.act, engine=engine)
+            x = x + y.to(x.dtype)
+    return x, states

@@ -1,7 +1,8 @@
-"""Serving engine: one-shot batched Whisper transcription with the paper's
-offload paths, Q8_0 or dense (FP16), on the H100 or (when asked) the CPU,
-and the entry points of continuous batching (``scheduler``,
-``submit_audio``, ``run``: ``serve/scheduler.py``).
+"""Serving engine: one-shot batched Whisper transcription and dense-LM
+generation with the paper's offload paths, Q8_0 or dense (FP16), on the
+H100 or (when asked) the CPU, and the entry points of continuous batching
+(``scheduler``, ``submit_audio``, ``submit``, ``run``:
+``serve/scheduler.py``).
 
 The system the paper builds in whisper.cpp terms: weights quantized to
 Q8_0 on load (or kept dense with ``quant="none"``), every linear routed
@@ -30,6 +31,21 @@ scheduler's admissions; the scheduler's slot step is a program of its own
 over its pool (its graph is the scheduler's, its plan this engine's at
 ``plan_key("step", quant, n_slots, F)``, with the page geometry appended
 for a paged pool: ``paged_scheduler``, ``serve/paging.py``).
+
+A dense LM (``generate``) has one program a batch B: the greedy step
+(``_lm_step_fn``) over static buffers of its own (``_LMStatic``: the
+prompt, its length, the caches and counters, the token, ``done`` and the
+generated tokens), captured on the card at ``plan_key("step", quant,
+B)``. It reads its input token from the prompt buffer at its own device
+position while that position is inside the prompt, else from the last
+argmax, so the prefill is the reference's scan of the step: the same
+graph replayed once a prompt token (the caches and counters zeroed and
+the prompt copied in first), with no capture per prompt length. The
+prefill's plan is the step's entries at ``plan_key("prefill", quant, B,
+S)``, committed S times, as the reference's scan body; the last prefill
+step's argmax is the first decode step's input, not a generated token.
+``prefill_prompt`` runs the batch-1 prefill for the scheduler's LM
+admissions.
 
 Speculative decoding (``speculative``, ``serve/speculative.py``) adds two
 programs over slot-layout buffers that its caller owns: the verify window
@@ -62,7 +78,8 @@ first run on the CPU (``_record_run``); every other pass runs under
 ``executor.quiet_dispatch()``. No telemetry call runs inside a capture.
 
 Token contract: ``GenerationResult.tokens`` holds exactly the ``steps``
-tokens the request generated — the SOT seed token is not echoed — and rows
+tokens the request generated — the SOT seed token and an LM's prompt are
+not echoed — and rows
 that hit EOS before the batch drained are truncated at their first EOS with
 ``steps`` reported per request.
 """
@@ -81,7 +98,7 @@ from repro_torch import obs
 from repro_torch.backends import executor
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import energy
-from repro_torch.core.device import resolve_device
+from repro_torch.core.device import gc_paused, resolve_device
 from repro_torch.core.offload import OffloadEngine
 from repro_torch.core.plan import DispatchPlan, PlanCache, plan_key
 from repro_torch.core.qformats import quantize_tree
@@ -143,6 +160,18 @@ class _Static:
     tokens: torch.Tensor            # (B, max_len) int64: step i in column i
 
 
+@dataclass
+class _LMStatic:
+    """The buffers of an LM's one-shot batch point, which its step program
+    reads and writes in place."""
+    prompt: torch.Tensor            # (B, max_len) int64: the prompt in :S
+    plen: torch.Tensor              # () int64: the prompt's length
+    state: model_lib.ServeState     # the caches and lengths, step
+    token: torch.Tensor             # (B, 1) int64: the last argmax
+    done: torch.Tensor              # (B,) bool
+    tokens: torch.Tensor            # (B, max_len) int64: step i in column i
+
+
 class _Program(NamedTuple):
     graph: torch.cuda.CUDAGraph
     plan: DispatchPlan              # recorded by the warm-up run
@@ -165,6 +194,8 @@ class ServeEngine:
     _plans: PlanCache = field(default_factory=PlanCache, repr=False)
     _static: Dict[Tuple[int, int], _Static] = field(default_factory=dict,
                                                     repr=False)
+    _lm_static: Dict[int, _LMStatic] = field(default_factory=dict,
+                                             repr=False)
     _graphs: Dict[Hashable, _Program] = field(default_factory=dict,
                                               repr=False)
     #: step graphs captured: rises only at a new (batch, frames) key, and
@@ -201,7 +232,7 @@ class ServeEngine:
         count before warming, for ``_save_tuning``; None without a
         tuner."""
         tuner = self.offload.tuner if self.offload is not None else None
-        if tuner is None:
+        if tuner is None or self.cfg.family != "audio":
             return None
         n0 = tuner.searches
         whisper_lib.warm_tuning(self.cfg, self.offload,
@@ -220,11 +251,13 @@ class ServeEngine:
         """Greedy pick over the true vocab (vocab_pad columns excluded)."""
         return logits[..., :self.cfg.vocab_size].argmax(dim=-1)
 
-    def _key(self, phase: str, batch: int, frames: int, *,
+    def _key(self, phase: str, batch: int, *extra: Hashable,
              pages: Optional[Tuple[Hashable, ...]] = None,
              role: Optional[str] = None,
              k: Optional[int] = None) -> Hashable:
-        return plan_key(phase, self._serve_quant, batch, frames, pages=pages,
+        """``plan_key(phase, quant, batch, *extra)``: whisper's extra is the
+        frame count; an LM's prefill's the prompt length, its step none."""
+        return plan_key(phase, self._serve_quant, batch, *extra, pages=pages,
                         role=role, k=k)
 
     def _recording(self, plan: DispatchPlan):
@@ -249,15 +282,24 @@ class ServeEngine:
         return self._plans.get_or_build(key, lambda: recorded)
 
     # -- eager entry points ------------------------------------------------
-    def prefill(self, mel: torch.Tensor):
-        """Encoder once per utterance batch, then each decoder layer's
-        cross K/V (paper Fig 1), run eagerly. mel: (B, F, n_mels) on the
-        engine's device. Returns (memory, decode state)."""
+    def prefill(self, x: torch.Tensor):
+        """The prefill, run eagerly. Whisper: the encoder once per utterance
+        batch, then each decoder layer's cross K/V (paper Fig 1); ``x`` is
+        the mel (B, F, n_mels) and it returns (memory, decode state). An
+        LM: ``serve_step`` over the prompt ``x`` (B, S) int; it returns
+        (the last token's logits (B, 1, V), decode state). ``x`` on the
+        engine's device."""
+        if self.cfg.family != "audio":
+            with torch.inference_mode():
+                state = model_lib.init_serve_state(
+                    self._serve_params, self.cfg, x.shape[0], self.max_len)
+                return model_lib.prefill(self._serve_params, self.cfg, x,
+                                         state, engine=self.offload)
         with torch.inference_mode():
-            memory = whisper_lib.encode(self._serve_params, self.cfg, mel,
+            memory = whisper_lib.encode(self._serve_params, self.cfg, x,
                                         engine=self.offload)
             state = model_lib.init_serve_state(
-                self._serve_params, self.cfg, mel.shape[0], self.max_len,
+                self._serve_params, self.cfg, x.shape[0], self.max_len,
                 memory=memory, engine=self.offload)
         return memory, state
 
@@ -266,9 +308,9 @@ class ServeEngine:
         state'), the state advanced in place. Raises, before the step
         runs, when the self-KV cache is full."""
         ls = state.layer_states
-        if int(ls.self_kv[0].length) >= ls.self_kv[0].k.shape[1]:
-            raise ValueError(f"KV cache full: {ls.self_kv[0].k.shape[1]} "
-                             "positions")
+        kv = ls[0] if isinstance(ls, list) else ls.self_kv[0]
+        if int(kv.length.max()) >= kv[0].shape[1]:
+            raise ValueError(f"KV cache full: {kv[0].shape[1]} positions")
         with torch.inference_mode():
             return model_lib.serve_step(self._serve_params, self.cfg, token,
                                         state, engine=self.offload)
@@ -368,7 +410,7 @@ class ServeEngine:
                 fn()
             torch.cuda.current_stream(dev).wait_stream(side)
             with self._recording(again), executor.quiet_dispatch(), \
-                    torch.cuda.graph(graph):
+                    gc_paused(), torch.cuda.graph(graph):
                 fn()
         if again.signature() != plan.signature():
             raise RuntimeError(f"capture of {key} routed differently from "
@@ -418,19 +460,24 @@ class ServeEngine:
             fn()
         return plan
 
-    def _greedy_loop(self, st: _Static, step_key: Hashable,
-                     max_new: int) -> Dict[str, Any]:
+    def _greedy_loop(self, st, step_key: Hashable, max_new: int,
+                     fn: Optional[Callable[[], None]] = None,
+                     start: int = 0) -> Dict[str, Any]:
+        """Up to ``max_new`` runs of the step program (``fn``; whisper's
+        ``_step_fn`` by default), one host sync a step, stopping when every
+        row is done; the tokens are columns ``start`` on of ``st.tokens``."""
+        fn = fn if fn is not None else (lambda: self._step_fn(st))
         recorded = None
         steps = 0
         t0 = time.perf_counter()
         for _ in range(max_new):
-            plan = self._run(step_key, lambda: self._step_fn(st))
+            plan = self._run(step_key, fn)
             if recorded is None:
                 recorded = plan
             steps += 1
             if bool(st.done.all()):          # one host sync per step
                 break
-        out = st.tokens[:, :steps].cpu().numpy()
+        out = st.tokens[:, start:start + steps].cpu().numpy()
         return {"tokens": out, "decode_s": time.perf_counter() - t0,
                 "steps": steps, "plan": recorded}
 
@@ -516,6 +563,142 @@ class ServeEngine:
             recorded, prefill_s = self._timed_prefill(st, key)
         return st.state, self._plan(key, recorded), prefill_s
 
+    # -- the dense LM's one-shot path -----------------------------------------
+    def _lm_static_for(self, b: int) -> _LMStatic:
+        st = self._lm_static.get(b)
+        if st is None:
+            dev = self.device
+            st = self._lm_static[b] = _LMStatic(
+                prompt=torch.zeros((b, self.max_len), dtype=torch.long,
+                                   device=dev),
+                plen=torch.zeros((), dtype=torch.long, device=dev),
+                state=model_lib.zeros_serve_state(self.cfg, b, 0,
+                                                  self.max_len, device=dev),
+                token=torch.zeros((b, 1), dtype=torch.long, device=dev),
+                done=torch.zeros((b,), dtype=torch.bool, device=dev),
+                tokens=torch.zeros((b, self.max_len), dtype=torch.long,
+                                   device=dev))
+        return st
+
+    def _lm_step_fn(self, st: _LMStatic) -> None:
+        """An LM's greedy step program: the input token is the prompt's at
+        the state's position while that is inside the prompt, else the
+        last argmax; one ``serve_step``, its argmax over the true
+        vocabulary written to ``st.token`` and to column ``step`` of
+        ``st.tokens``, and its EOS test folded into ``st.done`` only past
+        the prompt (the last prompt position's argmax is the first input,
+        not a generated token), all on the device."""
+        pos = st.state.step.to(torch.long)
+        prompt_tok = st.prompt.index_select(
+            1, pos.clamp(max=self.max_len - 1).reshape(1))
+        decoding = pos >= st.plen
+        fed = torch.where(decoding, st.token, prompt_tok)
+        logits, _ = model_lib.serve_step(self._serve_params, self.cfg, fed,
+                                         st.state, engine=self.offload)
+        nxt = self._argmax(logits[:, -1])[:, None]
+        st.tokens.index_copy_(1, pos.reshape(1), nxt)
+        st.token.copy_(nxt)
+        st.done.logical_or_((nxt[:, 0] == self._eos) & decoding)
+
+    def _lm_load(self, st: _LMStatic, prompts: torch.Tensor) -> None:
+        """Reset ``st`` for a new batch of prompts (B, S): the caches,
+        lengths, step and ``done`` zeroed in place, the prompts copied in."""
+        for t in model_lib.state_tensors(st.state):
+            t.zero_()
+        st.done.zero_()
+        st.prompt[:, :prompts.shape[1]].copy_(prompts)
+        st.plen.fill_(prompts.shape[1])
+
+    def _lm_prepare(self, b: int) -> Tuple[_LMStatic, Hashable]:
+        """Batch ``b``'s buffers and step key; on a CUDA device the step
+        program is captured at the key's first request, over the new
+        buffers (the warm-up's writes are reset by the next load)."""
+        st, key = self._lm_static_for(b), self._key("step", b)
+        if self.device.type == "cuda" and key not in self._graphs:
+            self._graphs[key] = self._capture(
+                key, lambda: self._lm_step_fn(st))
+        return st, key
+
+    def _lm_prefill(self, st: _LMStatic, pre_key: Hashable,
+                    step_key: Hashable, s: int) -> Tuple[DispatchPlan, float]:
+        """The prefill over the loaded prompts: the step program once a
+        prompt token (its graph replayed on the card). Returns the
+        prefill's plan (the step's entries at ``pre_key``) and its seconds,
+        host clock, synchronized."""
+        fn = (lambda: self._lm_step_fn(st))
+        _sync(self.device)
+        t0 = time.perf_counter()
+        recorded = None
+        for _ in range(s):
+            if self.device.type == "cuda":
+                self._graphs[step_key].graph.replay()
+            else:
+                plan = self._record_run(pre_key, fn)
+                recorded = recorded or plan
+        _sync(self.device)
+        prefill_s = time.perf_counter() - t0
+        if recorded is None:                 # the card: the step's routing
+            recorded = DispatchPlan(
+                key=pre_key, entries=list(self._graphs[step_key].plan))
+        return recorded, prefill_s
+
+    def generate(self, prompts, max_new: int = 32) -> List[GenerationResult]:
+        """Dense LMs. prompts: (B, S) int (already padded), numpy or
+        tensor. The prefill runs the step program once a prompt token and
+        the greedy loop up to ``max_new`` more, each a graph replay on the
+        card. Returns one result per row; ``tokens`` are the generated
+        tokens only (the module's token contract)."""
+        if self.cfg.family == "audio":
+            raise ValueError("generate serves the LM families; whisper "
+                             "transcribes (transcribe)")
+        tokens = torch.as_tensor(np.asarray(prompts), dtype=torch.long)
+        b, s = tokens.shape
+        if s + max_new > self.max_len:
+            raise ValueError(f"KV cache full: a {s}-token prompt and "
+                             f"{max_new} new tokens need more than "
+                             f"max_len={self.max_len} positions")
+        pre_key = self._key("prefill", b, s)
+        tele = self.telemetry
+        with torch.no_grad():
+            st, step_key = self._lm_prepare(b)
+            self._lm_load(st, tokens.to(self.device))
+            with obs.maybe_span(tele, "prefill", cat="engine", ledger=True,
+                                args={"batch": b, "seq": s}):
+                recorded, prefill_s = self._lm_prefill(st, pre_key,
+                                                       step_key, s)
+                if self.offload is not None:
+                    # one plan describes one step; the prefill ran s
+                    self.offload.ledger.commit(self._plan(pre_key, recorded),
+                                               times=s)
+            with obs.maybe_span(tele, "decode", cat="engine", ledger=True,
+                                args={"batch": b}):
+                r = self._greedy_loop(st, step_key, max_new,
+                                      fn=lambda: self._lm_step_fn(st),
+                                      start=s)
+                if self.offload is not None and r["plan"] is not None:
+                    self.offload.ledger.commit(
+                        self._plan(step_key, r["plan"]), times=r["steps"])
+        return self._finalize(r, prefill_s)
+
+    def prefill_prompt(self, prompt: torch.Tensor
+                       ) -> Tuple[model_lib.ServeState, torch.Tensor,
+                                  Optional[DispatchPlan], float]:
+        """The batch-1 prefill of ``generate`` over ``prompt`` (1, S) int:
+        the continuous-batching scheduler's LM admission. Returns the
+        program's decode state (the engine's static buffers, which the
+        next run overwrites: the caller copies it out first), the first
+        input token (the argmax of the last prompt position, (1, 1) on the
+        device), the plan at ``plan_key("prefill", quant, 1, S)`` (None
+        without an offload engine) and the run's seconds. Commits
+        nothing."""
+        s = prompt.shape[1]
+        key = self._key("prefill", 1, s)
+        with torch.no_grad():
+            st, step_key = self._lm_prepare(1)
+            self._lm_load(st, prompt.to(self.device))
+            recorded, prefill_s = self._lm_prefill(st, key, step_key, s)
+        return st.state, st.token, self._plan(key, recorded), prefill_s
+
     # -- continuous batching: wrappers over the slot scheduler ---------------
     def scheduler(self, n_slots: Optional[int] = None,
                   n_frames: Optional[int] = None):
@@ -523,9 +706,10 @@ class ServeEngine:
         (or matching geometry) the existing scheduler is returned; an
         explicit geometry change builds a new pool, refusing while the old
         scheduler still holds queued or active requests or unclaimed
-        results. ``n_frames``, the pool's fixed mel capacity, is needed on
-        first creation (``submit_audio`` infers it from the first
-        utterance); dimensions left as None keep the live scheduler's."""
+        results. For whisper, ``n_frames``, the pool's fixed mel capacity,
+        is needed on first creation (``submit_audio`` infers it from the
+        first utterance); an LM's pool has none. Dimensions left as None
+        keep the live scheduler's."""
         from repro_torch.serve.scheduler import ContinuousBatchingScheduler
         s = self._scheduler
         want_slots = n_slots if n_slots is not None else \
@@ -582,6 +766,11 @@ class ServeEngine:
         from repro_torch.serve.paging import PagedScheduler
         return PagedScheduler(self, n_slots=n_slots, n_frames=n_frames,
                               **page_cfg)
+
+    def submit(self, prompt, max_new: int = 32, *,
+               n_slots: Optional[int] = None) -> int:
+        """Queue one LM prompt (S,) / (1, S) on the scheduler."""
+        return self.scheduler(n_slots).submit(prompt, max_new=max_new)
 
     def submit_audio(self, mel, max_new: int = 32, *,
                      n_slots: Optional[int] = None,

@@ -1,14 +1,17 @@
 """Fixed-shape slot KV-cache pool for continuous batching.
 
-The pool allocates ONE slot-layout decode state of ``n_slots`` rows (and,
-for whisper, ``n_frames`` cross-K/V frames) at construction and never
+The pool allocates ONE slot-layout decode state of ``n_slots`` rows (for
+whisper with ``n_frames`` cross-K/V frames; for an LM its caches, int8
+with ``kv_quant="q8"``) at construction and never
 reshapes it or replaces its tensors: admission and eviction are copies
 into row ``slot`` of the pool's own tensors, so the scheduler's captured
 slot step (a CUDA graph on the card) keeps reading the storage it was
 captured with, across any admission and eviction schedule.
 
   slot_insert(pool, slot, req)  copy a single-request prefill state
-                                (standard layout, batch 1) into row
+                                (whisper's encoder and cross-K/V, or an
+                                LM's prompt prefill; standard layout,
+                                batch 1) into row
                                 ``slot``; its scalar counters land in the
                                 pool's per-slot vectors.
   slot_reset(pool, slot)        zero row ``slot`` (KV buffers and
@@ -63,7 +66,8 @@ class SlotKVPool:
     ``state`` is a slot-layout ``ServeState`` of fixed shape ``(n_slots,
     max_len, ...)`` built once, of zeros, on ``device`` (which the caller
     names); for whisper the cross-K/V rows hold ``n_frames`` frames, the
-    capacity every admitted utterance is padded to. ``acquire`` and
+    capacity every admitted utterance is padded to (an LM's pool has no
+    frames). ``acquire`` and
     ``release`` manage the free list (the lowest free slot first, as the
     reference's unsharded pool); ``insert`` is the splice a scheduler
     calls on admission.
@@ -71,7 +75,7 @@ class SlotKVPool:
 
     def __init__(self, cfg: ModelConfig, n_slots: int, max_len: int,
                  n_frames: Optional[int] = None, *, device):
-        if n_frames is None:
+        if cfg.family == "audio" and n_frames is None:
             raise ValueError("audio slot pool needs a fixed n_frames "
                              "capacity (utterances are padded to it)")
         self.n_slots = n_slots
@@ -113,16 +117,22 @@ class SlotKVPool:
         proportion to their filled length, fixed-size rows (whisper's
         cross K/V and the lengths) whole per active slot. Summed field by
         field over the layers, in the reference's leaf order, so that the
-        result equals the reference's for its layer-stacked state."""
+        result equals the reference's for its layer-stacked state (an
+        LM's: each cache field, K/V data, their int8 scales, lengths)."""
         if not lengths:
             return 0
         n_active = len(lengths)
         frac = sum(min(n, self.max_len)
                    for n in lengths.values()) / self.max_len
         ls = self.state.layer_states
-        fields = [[kv.k for kv in ls.self_kv], [kv.v for kv in ls.self_kv],
-                  [kv.length for kv in ls.self_kv],
-                  [k for k, _ in ls.cross_kv], [v for _, v in ls.cross_kv]]
+        if isinstance(ls, list):                   # an LM's caches
+            fields = [list(f) for f in zip(*ls)]
+        else:
+            fields = [[kv.k for kv in ls.self_kv],
+                      [kv.v for kv in ls.self_kv],
+                      [kv.length for kv in ls.self_kv],
+                      [k for k, _ in ls.cross_kv],
+                      [v for _, v in ls.cross_kv]]
         total = 0.0
         for leaves in fields:
             per_slot = sum(t.numel() // t.shape[0] * t.element_size()

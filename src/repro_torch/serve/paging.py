@@ -255,6 +255,10 @@ class PagedKVPool:
                  n_pages: Optional[int] = None,
                  cross_page_size: Optional[int] = None,
                  n_cross_pages: Optional[int] = None, device):
+        if cfg.family != "audio":
+            raise NotImplementedError(
+                "PagedKVPool currently serves the audio family only; LM "
+                "families use the contiguous SlotKVPool")
         if n_frames is None:
             raise ValueError("audio paged pool needs a fixed n_frames "
                              "capacity (utterances are padded to it)")

@@ -1,8 +1,8 @@
 """Continuous-batching serve scheduler over a fixed-shape slot KV pool.
 
-``ServeEngine.transcribe`` decodes static run-to-completion batches:
-finished utterances keep running steps and new arrivals wait until the
-whole batch drains. This scheduler decodes a fixed-width slot batch
+``ServeEngine.transcribe`` and ``generate`` decode static
+run-to-completion batches: finished requests keep running steps and new
+arrivals wait until the whole batch drains. This scheduler decodes a fixed-width slot batch
 instead (``n_slots`` rows, the pool of ``serve/kvcache.py``), admits
 queued requests into freed slots between steps, evicts on EOS or
 ``max_new``, and streams each request's tokens as they are produced.
@@ -12,7 +12,12 @@ Per step:
             prefill program at ``plan_key("prefill", quant, 1, F)`` (on
             the card the graph ``transcribe`` captures at that key), its
             state copied into a free slot (``SlotKVPool.insert``); its
-            time and its one plan commit go to that request.
+            time and its one plan commit go to that request. An LM's
+            prompt of S tokens runs ``generate``'s batch-1 prefill (the
+            step graph at ``plan_key("step", quant, 1)`` replayed S
+            times, its plan at ``plan_key("prefill", quant, 1, S)``
+            committed S times), and the argmax of its last position is the
+            slot's first input token, copied on the device.
   decode  — ONE run of the slot step over all ``n_slots`` rows (free
             slots compute garbage: the fixed-shape contract): the decode
             step, the argmax over the true vocabulary, the token written
@@ -32,11 +37,13 @@ admission while no slot holds a request (its warm-up run on a side stream
 writes garbage into free rows only), and then only replayed; a capture
 that fails raises, and nothing falls back to eager steps. Its capture
 counts in the engine's ``_step_captures``. Its PLAN key is
-``plan_key("step", quant, n_slots, F)``, the same ``PlanCache`` entry as
-a ``transcribe`` of ``n_slots`` utterances of F frames (the slot step IS
-that decode step), while its graph belongs to the scheduler: the engine's
-graph at that key runs over the one-shot path's buffers. On the CPU the
-program is called directly, each run recorded apart.
+``plan_key("step", quant, n_slots, F)`` (an LM's ``plan_key("step",
+quant, n_slots)``), the same ``PlanCache`` entry as a ``transcribe`` of
+``n_slots`` utterances of F frames (or a ``generate`` of ``n_slots``
+prompts: the slot step IS that decode step), while its graph belongs to
+the scheduler: the engine's graph at that key runs over the one-shot
+path's buffers. On the CPU the program is called directly, each run
+recorded apart.
 
 The engine's tuner, if any, is warmed for the pool's shapes (batch 1 and
 ``n_slots``) at construction, before any capture.
@@ -54,7 +61,7 @@ and ``attribution()``) drains the buffers into the registry. The
 counterpart of the reference's step traces.
 
 Not ported from the reference: the serving mesh (one shard), with its
-per-device telemetry, and the language-model prompt path of ``submit``.
+per-device telemetry.
 """
 from __future__ import annotations
 
@@ -87,7 +94,7 @@ class TokenEvent:
 @dataclass
 class _QueuedRequest:
     rid: int
-    payload: np.ndarray          # (1, F, n_mels) mel, padded to the pool
+    payload: np.ndarray          # (1, F, n_mels) mel, padded | (1, S) prompt
     max_new: int
     sot_id: int = 1
     submit_t: float = 0.0        # perf_counter at submit: queue-wait base
@@ -112,15 +119,16 @@ class ContinuousBatchingScheduler:
     The engine supplies the prefill program, the serving weights, the plan
     cache and the offload ledger; the scheduler owns the ``SlotKVPool``,
     the slot step program, the admission queue and per-request
-    attribution. ``n_frames`` fixes the pool's mel-frame capacity:
-    admitted utterances are zero-padded to it, so the prefill and the
-    splice see one shape (Whisper pads every utterance to its 30 s window
-    the same way).
+    attribution. ``n_frames`` (audio only) fixes the pool's mel-frame
+    capacity: admitted utterances are zero-padded to it, so the prefill
+    and the splice see one shape (Whisper pads every utterance to its
+    30 s window the same way).
     """
 
     def __init__(self, engine: ServeEngine, n_slots: int = 4,
                  n_frames: Optional[int] = None):
-        if n_frames is None:
+        self._audio = engine.cfg.family == "audio"
+        if self._audio and n_frames is None:
             raise ValueError("audio scheduler needs n_frames (the pool's "
                              "fixed mel-frame capacity)")
         self.engine = engine
@@ -185,8 +193,10 @@ class ContinuousBatchingScheduler:
 
     def _make_step_key(self):
         """The slot step's plan key: the one-shot step's at (n_slots,
-        F). A paged scheduler appends its pool's page geometry."""
-        return self.engine._key("step", self.n_slots, self.n_frames)
+        F), an LM's at n_slots. A paged scheduler appends its pool's page
+        geometry."""
+        extra = (self.n_frames,) if self._audio else ()
+        return self.engine._key("step", self.n_slots, *extra)
 
     # -- KV accounting ----------------------------------------------------
     @property
@@ -229,22 +239,31 @@ class ContinuousBatchingScheduler:
     def submit(self, payload, max_new: int = 32, sot_id: int = 1) -> int:
         """Queue one request; returns its request id. ``payload`` is a mel
         (F, n_mels) or (1, F, n_mels), zero-padded to the pool's
-        ``n_frames``."""
-        arr = np.asarray(payload, dtype=np.float32)
-        if arr.ndim == 2:
+        ``n_frames``, or for an LM an int prompt (S,) or (1, S), whose
+        tokens and ``max_new`` must fit the pool's ``max_len``."""
+        arr = np.asarray(payload, dtype=np.float32 if self._audio
+                         else np.int64)
+        want = 2 if self._audio else 1
+        if arr.ndim == want:
             arr = arr[None]
-        if arr.ndim != 3 or arr.shape[0] != 1:
+        if arr.ndim != want + 1 or arr.shape[0] != 1:
             # one request per submit: a stacked batch would insert
             # several rows at one slot
             raise ValueError(
-                f"submit() takes ONE request — expected shape (F, n_mels) "
-                f"or batch-1, got {arr.shape}; submit rows separately")
-        f = arr.shape[1]
-        if f > self.n_frames:
-            raise ValueError(f"utterance has {f} frames > pool capacity "
-                             f"{self.n_frames}")
-        if f < self.n_frames:
-            arr = np.pad(arr, ((0, 0), (0, self.n_frames - f), (0, 0)))
+                f"submit() takes ONE request — expected shape "
+                f"({'F, n_mels' if self._audio else 'S'},) or batch-1, got "
+                f"{arr.shape}; submit rows separately")
+        if self._audio:
+            f = arr.shape[1]
+            if f > self.n_frames:
+                raise ValueError(f"utterance has {f} frames > pool "
+                                 f"capacity {self.n_frames}")
+            if f < self.n_frames:
+                arr = np.pad(arr, ((0, 0), (0, self.n_frames - f), (0, 0)))
+        elif arr.shape[1] + max(max_new, 0) > self.engine.max_len:
+            raise ValueError(f"a {arr.shape[1]}-token prompt and {max_new} "
+                             f"new tokens do not fit max_len="
+                             f"{self.engine.max_len}")
         rid = self._next_rid
         self._next_rid += 1
         if max_new <= 0:
@@ -316,21 +335,29 @@ class ContinuousBatchingScheduler:
                 tele.observe("repro_queue_wait_seconds", queue_wait)
             # the ledger span scopes this request's prefill run and commit,
             # so its FLOP delta IS the prefill's attribution
+            times = 1 if self._audio else req.payload.shape[1]
             with obs.maybe_span(tele, "prefill", cat="lifecycle",
                                 track=obs.request_track(req.rid),
                                 rid=req.rid, ledger=True):
-                state, plan, prefill_s = eng.prefill_one(
-                    torch.from_numpy(req.payload))
+                if self._audio:
+                    state, plan, prefill_s = eng.prefill_one(
+                        torch.from_numpy(req.payload))
+                else:
+                    state, first, plan, prefill_s = eng.prefill_prompt(
+                        torch.from_numpy(req.payload))
                 self._busy_s += prefill_s
                 if eng.offload is not None:
-                    eng.offload.ledger.commit(plan, times=1)
+                    eng.offload.ledger.commit(plan, times=times)
             if tele is not None:
                 tele.observe("repro_prefill_seconds", prefill_s)
                 tele.begin(req.rid, "decode")
             slot = self.pool.acquire()
             with torch.no_grad():
                 self.pool.insert(slot, state)
-                self._token[slot].fill_(req.sot_id)
+                if self._audio:
+                    self._token[slot].fill_(req.sot_id)
+                else:                       # on the device: no host read
+                    self._token[slot].copy_(first[0])
             self._active[slot] = _ActiveSlot(rid=req.rid, max_new=req.max_new,
                                              prefill_s=prefill_s,
                                              submit_t=req.submit_t,

@@ -26,6 +26,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.core.device import gc_paused
 from repro_torch.tuning.cost import analytic_features
 from repro_torch.tuning.space import (
     TileCandidate, default_candidate, launch_candidate)
@@ -108,7 +109,7 @@ def timed(fn, reps: int, inner: int, device) -> Tuple[list, object]:
         fn()
     torch.cuda.current_stream(device).wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with gc_paused(), torch.cuda.graph(graph):
         for _ in range(inner):
             out = fn()
     graph.replay()
