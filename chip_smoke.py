@@ -262,14 +262,44 @@ own kernels with nvcc. Phases, each of which fails the run on error:
     kernels at its shapes at M = 1 and 4 (``per`` "qwen2.5-14b decode
     step" and "qwen2.5-14b slot step").
 
+15. The MoE family (``moe_phase``), in bf16 (``quant="none"``: the
+    reference fails on Q8_0 expert stacks), weights drawn on the card
+    from a seeded CUDA generator, no EOS, max_len 160. The engine's
+    linears run ``gemv_bf16_kernel``; the experts' products are library
+    batched matmuls over every expert's capacity slots.
+    a. olmoe-1b-7b at its published widths and depth (16 layers, 64
+       experts, top-8): the first logits against the port on the CPU at
+       depth 2, within 3e-2 of the largest logit; ``lm_oneshot`` at batch
+       1 (64 + 64 tokens) and 4: 65 ``gemv_bf16_kernel`` a step, eagerly
+       and at a replay, captured tokens equal the eager loop's, prefill
+       ms a prompt token, decode ms a token, device ms a step, idle
+       shares, PDP at the power limit; the step's device time split into
+       expert products, dispatch/combine, the gemv and the rest, beside
+       its byte bounds (every expert streamed, and the chosen experts
+       only, each plus the gemv weights).
+    b. Its slot scheduler (``lm_scheduler``, 14c's trace over 4 slots):
+       tokens equal batch-1 ``generate``'s; the keep masks of an eager
+       4-row step drop nothing (cap 8).
+    c. arctic-480b at its published widths with its 35 layers cut to 1
+       (28 GB; the whole model is 954 GB): the draw's peak memory;
+       ``lm_oneshot`` at batch 1 (64 + 32 tokens, 8 ``gemv_bf16_kernel``
+       a step), the split and the bounds; four identical prompts over 4
+       slots (cap 2): the dropped (token, choice) pairs a step of an eager
+       4-row prefill (more than 0), rows 0-1 equal batch-1 ``generate``.
+    d. Both smoke configs, four identical prompts over 4 slots: the
+       card's tokens equal the port's on the CPU, rows 2-3 differ.
+    ``moe ...`` lines, then ``moe phase: N s``. Phase 2 holds
+    ``bf16_matmul`` at the new shapes (``per`` "olmoe-1b-7b decode step",
+    "olmoe-1b-7b slot step" and "arctic-480b decode step").
+
 The last two lines are the kernels' JSON record and the result line; each
 kernel's record also carries its launches on the tuned paths' eager loops
 (``tuned_launches``), its launches on each path's drive
 (``launches_by_path``: the main path's, phase 10's, phase 11's paged
 pool drives, both paths summed, under "paged", phase 12's captures
 under "speculative", phase 13's captures, every engine's summed, under
-"telemetry", and every Python launch of phase 14 under "lm") and its
-tiles' times (``tiles``).
+"telemetry", every Python launch of phase 14 under "lm" and of phase 15
+under "moe") and its tiles' times (``tiles``).
 
 Copied out of a checkout (no ``src/repro_torch`` beside the script), or
 without a CUDA device, it prints why and exits 1.
@@ -354,6 +384,17 @@ QWEN_DECODE = [(5120, 5120, 96),      # attn.q and attn.o, 48 layers
 # and at M = 4, the 4-slot step's (phase 14)
 QWEN_M1 = [(1, n, k, k, c, "bfloat16") for n, k, c in QWEN_DECODE]
 QWEN_M4 = [(4, n, k, k, c, "bfloat16") for n, k, c in QWEN_DECODE]
+# phase 15, the MoE family in bf16: the engine's linears of an olmoe-1b-7b
+# step (q/k/v/o at 2048 -> 2048, 16 layers, and lm_head), at M = 1 and at
+# M = 4 (the 4-slot step), and of arctic-480b's one-layer step (q and o
+# at 7168, k and v at 7168 -> 1024, the dense branch's up and gate at
+# 7168 -> 4864 and down at 4864 -> 7168, and lm_head)
+OLMOE_DECODE = [(2048, 2048, 64), (50304, 2048, 1)]
+ARCTIC_DECODE = [(7168, 7168, 2), (1024, 7168, 2), (4864, 7168, 2),
+                 (7168, 4864, 1), (32000, 7168, 1)]
+OLMOE_M1 = [(1, n, k, k, c, "bfloat16") for n, k, c in OLMOE_DECODE]
+OLMOE_M4 = [(4, n, k, k, c, "bfloat16") for n, k, c in OLMOE_DECODE]
+ARCTIC_M1 = [(1, n, k, k, c, "bfloat16") for n, k, c in ARCTIC_DECODE]
 BF16_PREFILL_SHAPES = [
     (1500, 384, 256, 384, 24, "bfloat16"),    # enc q/k/v/o + dec.cross.k/v
     (1500, 1536, 256, 384, 4, "bfloat16"),    # enc ffn.up
@@ -396,7 +437,10 @@ KERNELS = {
                                 "verify window M=5": WINDOW5_BF16,
                                 "verify window M=28": WINDOW28_BF16,
                                 "qwen2.5-14b decode step": QWEN_M1,
-                                "qwen2.5-14b slot step": QWEN_M4},
+                                "qwen2.5-14b slot step": QWEN_M4,
+                                "olmoe-1b-7b decode step": OLMOE_M1,
+                                "olmoe-1b-7b slot step": OLMOE_M4,
+                                "arctic-480b decode step": ARCTIC_M1},
                         library_call="torch.mm(x_bf16, W_bf16.T, out_dtype="
                                      "torch.float32) on the same strided "
                                      "bf16 operands (cuBLAS, f32 output as "
@@ -423,12 +467,13 @@ REQUESTS = 4                     # captured requests held against eager ones
 PAPER_TOKENS = 27                # the paper's jfk.wav transcript (enumerate_whisper)
 POWER_S = 5.0                    # seconds of transcripts under the power sampler
 # substrings of the names of dot-product kernels: the port's, and cuBLAS's
+# (CUDA 12.8's cuBLAS names its bf16 batched GEMMs "nvjet_...")
 DOT_KERNEL_WORDS = ("q8_matvec", "q8_matmul", "gemv", "gemm",
                     "wgmma_kernel", "tiled_kernel", "flash_fwd", "xmma",
-                    "cutlass")
-# cuBLAS's products (the residual arm's and the attention's), told from
-# the port's kernels by name
-LIBRARY_WORDS = ("gemm", "gemv", "xmma", "cutlass", "cublas")
+                    "cutlass", "nvjet")
+# cuBLAS's products (the residual arm's, the attention's and the MoE
+# experts'), told from the port's kernels by name
+LIBRARY_WORDS = ("gemm", "gemv", "xmma", "cutlass", "cublas", "nvjet")
 PORT_KERNEL_WORDS = ("q8_matvec_kernel", "q8_matmul_kernel",
                      "q8_wgmma_kernel", "gemv_bf16_kernel", "wgmma_kernel",
                      "tiled_kernel", "flash_fwd")
@@ -530,6 +575,23 @@ LM_KVQ_NEW = 32                   # 14d: one batch-1 request, int8 KV
 # of LM_PROFILED_STEPS replays, LM_PROFILE_WINDOWS of them at most
 LM_PROFILED_STEPS = 4
 LM_PROFILE_WINDOWS = 8
+# phase 15: the MoE family in bf16 (quant="none": the reference cannot
+# serve a MoE model in Q8_0), weights drawn on the card from MOE_SEED, no
+# EOS, max_len LM_MAX_LEN. olmoe-1b-7b at its published widths and depth
+# (configs/olmoe_1b_7b.py: 16 layers, d_model 2048, 64 experts of d_ff
+# 1024, top-8, vocabulary 50,304); arctic-480b at its published widths
+# (d_model 7168, 56 heads over 8 KV heads, 128 experts of 4864, top-2, a
+# dense branch of 4864, vocabulary 32,000) with its 35 layers cut to 1:
+# its 954 GB of bf16 do not fit one card, one layer is 28 GB
+MOE_SEED = 0
+OLMOE_PER_STEP = 4 * 16 + 1       # q/k/v/o a layer and lm_head
+ARCTIC_LAYERS = 1
+ARCTIC_PER_STEP = 4 + 3 + 1       # q/k/v/o, the dense up/gate/down, lm_head
+ARCTIC_NEW = 32                   # 15c: one 64-token prompt, 32 new
+MOE_CPU_TOL = 3e-2                # of the CPU's largest logit: bf16 weights
+# 15d: the smoke configs, four identical prompts over 4 slots (cap 2)
+MOE_DROP_PROMPT = (3, 5, 7, 9)
+MOE_DROP_NEW = 6
 # phase 13: benchmarks/telemetry_overhead.py's full trace
 TE_REQUESTS = 16
 TE_REF_FRAMES = 32                # its mels' frames (drawn, then discarded)
@@ -3352,13 +3414,13 @@ def _lm_eager(eng, prompts, max_new: int):
     return rows, prefill_s, time.perf_counter() - t0
 
 
-def _lm_cpu_check(eng):
+def _lm_cpu_check(eng, tol: float = LM_CPU_TOL, prefix: str = "lm"):
     """The first logits of a short prompt on the card and on the CPU with
-    the same Q8_0 weights cut to depth LM_CPU_LAYERS (the seed's embedding,
-    first layers, final norm and head), through the offload engine on
-    both: within LM_CPU_TOL of the CPU's largest logit. The logits are
-    bf16 (the model's type), a step of 2^-8 relative; random weights keep
-    the largest logit of O(1)."""
+    the same weights (Q8_0, or bf16 for a MoE model) cut to depth
+    LM_CPU_LAYERS (the seed's embedding, first layers, final norm and
+    head), through the offload engine on both: within ``tol`` of the CPU's
+    largest logit. The logits are bf16 (the model's type), a step of 2^-8
+    relative; random weights keep the largest logit of O(1)."""
     import dataclasses
 
     import numpy as np
@@ -3374,37 +3436,39 @@ def _lm_cpu_check(eng):
            "final_norm": sp["final_norm"], "lm_head": sp["lm_head"]}
     prompt = np.random.default_rng(7).integers(
         0, cfg.vocab_size, (1, LM_CPU_PROMPT)).astype(np.int32)
-    card = ServeEngine(cfg, sub, max_len=8, offload=OffloadEngine(),
-                       eos_id=None, device="cuda")
+    quant = eng._serve_quant
+    card = ServeEngine(cfg, sub, max_len=8, quant=quant,
+                       offload=OffloadEngine(), eos_id=None, device="cuda")
     card_logits, _ = card.prefill(torch.from_numpy(prompt).long().cuda())
     t0 = time.perf_counter()
     cpu = ServeEngine(cfg, model.to_device(sub, torch.device("cpu")),
-                      max_len=8, offload=OffloadEngine(), eos_id=None,
-                      device="cpu")
+                      max_len=8, quant=quant, offload=OffloadEngine(),
+                      eos_id=None, device="cpu")
     cpu_logits, _ = cpu.prefill(torch.from_numpy(prompt).long())
     cpu_s = time.perf_counter() - t0
     got, want = card_logits.float().cpu(), cpu_logits.float()
     if not torch.isfinite(got).all():
-        raise AssertionError("lm: non-finite logits on the card")
+        raise AssertionError(f"{prefix}: non-finite logits on the card")
     err = (got - want).abs().max().item()
     big = want.abs().max().item()
     agree = int(got[0, -1, :cfg.vocab_size].argmax()) == int(
         want[0, -1, :cfg.vocab_size].argmax())
-    print(f"lm first logits card vs cpu ({LM_CPU_LAYERS} layers, full "
+    print(f"{prefix} first logits card vs cpu ({LM_CPU_LAYERS} layers, full "
           f"width, {LM_CPU_PROMPT}-token prompt): max_abs_err={err:.3e}, "
-          f"|logits|max={big:.3f}, tolerance {LM_CPU_TOL} x |logits|max, "
+          f"|logits|max={big:.3f}, tolerance {tol} x |logits|max, "
           f"argmax agrees: {agree}; cpu {cpu_s:.1f}s", flush=True)
-    if not err <= LM_CPU_TOL * big:
-        raise AssertionError(f"lm: card and CPU logits differ by {err}")
+    if not err <= tol * big:
+        raise AssertionError(f"{prefix}: card and CPU logits differ by {err}")
     return dict(cpu_max_abs_err=err, cpu_logits_absmax=big,
                 cpu_argmax_agrees=agree)
 
 
-def _lm_profile_steps(step_graph, done, want_name: str):
+def _lm_profile_steps(step_graph, done, want_name: str,
+                      per_step: int = LM_PER_STEP, prefix: str = "lm"):
     """LM_PROFILED_STEPS replays of a step graph under torch.profiler,
     each with the one host sync its caller makes and a spin kernel after
     it: the kernels by name of one replay the profiler saw whole (its
-    ``want_name`` launches LM_PER_STEP, the graph's fixed count; see
+    ``want_name`` launches ``per_step``, the graph's fixed count; see
     LM_PROFILE_WINDOWS), that replay's top kernels, and the window's host
     wall ms a step. A window in which no replay was seen whole is
     profiled again, LM_PROFILE_WINDOWS times at most; then the last
@@ -3439,10 +3503,10 @@ def _lm_profile_steps(step_graph, done, want_name: str):
                 cur[e.name] = (n + 1, ms + e.device_time_total / 1e3)
         counts = [by_route(k, (want_name,))[want_name][0] for k in replays]
         kernels = next((k for k, n in zip(replays, counts)
-                        if n == LM_PER_STEP), replays[-1] if replays else {})
-        if LM_PER_STEP in counts or not recs:
+                        if n == per_step), replays[-1] if replays else {})
+        if per_step in counts or not recs:
             break
-        print(f"lm: {want_name} a replay {counts} in profiled window "
+        print(f"{prefix}: {want_name} a replay {counts} in profiled window "
               f"{attempt + 1}, none whole; profiling again", flush=True)
     top = sorted(kernels.items(), key=lambda kv: kv[1][1], reverse=True)[:8]
     return kernels, [(name[:80], n, ms) for name, (n, ms) in top], wall
@@ -3461,19 +3525,21 @@ def _lm_host_ms(step_graph, done, reps: int = 4 * PROFILED_STEPS) -> float:
     return (time.perf_counter() - t0) * 1e3 / reps
 
 
-def _replay_summary(label, kernels, top, wall, host_ms, want_name):
+def _replay_summary(label, kernels, top, wall, host_ms, want_name,
+                    per_step: int = LM_PER_STEP, prefix: str = "lm"):
     """Device ms a step, idle shares (profiled, and against the unprofiled
     host time), the dot-product share and ``want_name``'s launches a
-    replay, which must be LM_PER_STEP where the profiler saw the replay."""
+    replay, which must be ``per_step`` where the profiler saw the
+    replay."""
     if not kernels:
-        print(f"lm {label}: the profiler saw no kernels inside the "
+        print(f"{prefix} {label}: the profiler saw no kernels inside the "
               "replays", flush=True)
         return dict(step_device_ms="not measured: profiler saw no replay")
     dev = sum(ms for _, ms in kernels.values())
     n = by_route(kernels, (want_name,))[want_name][0]
-    if n != LM_PER_STEP:
-        raise AssertionError(f"lm {label}: {n} {want_name} a replayed step, "
-                             f"expected {LM_PER_STEP}")
+    if n != per_step:
+        raise AssertionError(f"{prefix} {label}: {n} {want_name} a replayed "
+                             f"step, expected {per_step}")
     return dict(step_device_ms=dev, step_wall_ms_profiled=wall,
                 step_idle_share=1 - dev / wall,
                 step_idle_share_unprofiled=1 - dev / host_ms,
@@ -3482,16 +3548,19 @@ def _replay_summary(label, kernels, top, wall, host_ms, want_name):
                 step_dot_share=dot_share(kernels), top_kernels=top)
 
 
-def lm_oneshot(label, eng, counted, total, want_name, batch4: bool):
-    """14a/14b: ``generate`` of one LM_PROMPT-token prompt and LM_NEW new
-    tokens at full width: the eager loop's launches (LM_PER_STEP a step,
-    prefill steps included) and tokens; the captured request's tokens
-    equal them, its launches from Python only at the capture (two passes
-    of one step), then none for LM_REQUESTS more requests, whose ledger is
-    that many eager requests'; the profiled replay's kernels, device ms a
-    step and idle shares; PDP of one request at the power limit. With
-    ``batch4``, batch LM_BATCH of prompts of LM_B4_LENS tokens, left-padded
-    with token 0, captured against eager."""
+def lm_oneshot(label, eng, counted, total, want_name, batch4: bool,
+               per_step: int = LM_PER_STEP, new: int = LM_NEW,
+               prefix: str = "lm"):
+    """14a/14b (and 15a/15c): ``generate`` of one LM_PROMPT-token prompt
+    and ``new`` new tokens at full width: the eager loop's launches
+    (``per_step`` a step, prefill steps included) and tokens; the captured
+    request's tokens equal them, its launches from Python only at the
+    capture (two passes of one step), then none for LM_REQUESTS more
+    requests, whose ledger is that many eager requests'; the profiled
+    replay's kernels, device ms a step and idle shares; PDP of one request
+    at the power limit. With ``batch4``, batch LM_BATCH of prompts of
+    LM_B4_LENS tokens, left-padded with token 0, captured against eager.
+    Returns the summary and the profiled replay's kernels by name."""
     import statistics
 
     import numpy as np
@@ -3504,36 +3573,37 @@ def lm_oneshot(label, eng, counted, total, want_name, batch4: bool):
         0, cfg.vocab_size, (1, LM_PROMPT)).astype(np.int32)
     _take(counted, total)
     before = _stats(eng.offload)
-    rows, e_pre, e_dec = _lm_eager(eng, prompt, LM_NEW)
+    rows, e_pre, e_dec = _lm_eager(eng, prompt, new)
     one = _ledger_delta(_stats(eng.offload), before)
     got = _read(counted)
-    want = {k: (LM_PER_STEP * (LM_PROMPT + LM_NEW) if k == name else 0)
+    want = {k: (per_step * (LM_PROMPT + new) if k == name else 0)
             for k in counted}
-    print(f"lm {label} eager: prefill_ms={e_pre * 1e3:.3f} "
-          f"decode_ms_per_token={e_dec * 1e3 / LM_NEW:.3f} launches={got}",
+    print(f"{prefix} {label} eager: prefill_ms={e_pre * 1e3:.3f} "
+          f"decode_ms_per_token={e_dec * 1e3 / new:.3f} launches={got}",
           flush=True)
     if got != want:
-        raise AssertionError(f"lm {label}: eager launches {got} != {want}")
+        raise AssertionError(f"{prefix} {label}: eager launches {got} != "
+                             f"{want}")
     _take(counted, total)
     captures = eng._step_captures
-    res = eng.generate(prompt, max_new=LM_NEW)
+    res = eng.generate(prompt, max_new=new)
     torch.cuda.synchronize()
     got = _read(counted)
-    want = {k: (CAPTURE_PASSES * LM_PER_STEP if k == name else 0)
+    want = {k: (CAPTURE_PASSES * per_step if k == name else 0)
             for k in counted}
-    print(f"lm {label} captured: launches from Python at capture {got} "
+    print(f"{prefix} {label} captured: launches from Python at capture {got} "
           f"(expected {want}); step captures "
           f"{eng._step_captures - captures}", flush=True)
     if got != want or eng._step_captures != captures + 1:
-        raise AssertionError(f"lm {label}: capture launches {got}")
+        raise AssertionError(f"{prefix} {label}: capture launches {got}")
     if res[0].tokens != rows[0]:
-        raise AssertionError(f"lm {label}: captured tokens {res[0].tokens} "
-                             f"!= eager {rows[0]}")
+        raise AssertionError(f"{prefix} {label}: captured tokens "
+                             f"{res[0].tokens} != eager {rows[0]}")
     if not all(0 <= t < cfg.vocab_size for t in rows[0]):
-        raise AssertionError(f"lm {label}: token outside the vocabulary")
+        raise AssertionError(f"{prefix} {label}: token outside the vocabulary")
     _take(counted, total)
     before = _stats(eng.offload)
-    results = [eng.generate(prompt, max_new=LM_NEW)[0]
+    results = [eng.generate(prompt, max_new=new)[0]
                for _ in range(LM_REQUESTS)]
     delta = _ledger_delta(_stats(eng.offload), before)
     got = _read(counted)
@@ -3541,32 +3611,32 @@ def lm_oneshot(label, eng, counted, total, want_name, batch4: bool):
                     if isinstance(val, dict) else val * LM_REQUESTS)
               for key, val in one.items()}
     if any(got.values()) or eng._step_captures != captures + 1:
-        raise AssertionError(f"lm {label}: replays launched {got} or "
+        raise AssertionError(f"{prefix} {label}: replays launched {got} or "
                              "captured again")
     if delta != scaled:
-        raise AssertionError(f"lm {label}: ledger {delta} != "
+        raise AssertionError(f"{prefix} {label}: ledger {delta} != "
                              f"{LM_REQUESTS} x eager {one}")
     if any(r.tokens != rows[0] for r in results):
-        raise AssertionError(f"lm {label}: a replayed request's tokens "
+        raise AssertionError(f"{prefix} {label}: a replayed request's tokens "
                              "differ")
     prefill_ms = statistics.median(r.prefill_s for r in results) * 1e3
-    decode_ms = statistics.median(r.decode_s for r in results) * 1e3 / LM_NEW
+    decode_ms = statistics.median(r.decode_s for r in results) * 1e3 / new
     st = eng._lm_static[1]
     kernels, top, wall = _lm_profile_steps(
         eng._graphs[eng._key("step", 1)].graph,
-        lambda: bool(st.done.all()), want_name)
+        lambda: bool(st.done.all()), want_name, per_step, prefix)
     limit = energy.card_power_limit_w(0)
     total_s = statistics.median(r.total_s for r in results)
-    out = dict(path=label, prompt=LM_PROMPT, new=LM_NEW,
+    out = dict(path=label, prompt=LM_PROMPT, new=new,
                eager_prefill_ms=e_pre * 1e3,
-               eager_decode_ms_per_token=e_dec * 1e3 / LM_NEW,
+               eager_decode_ms_per_token=e_dec * 1e3 / new,
                prefill_ms=prefill_ms,
                prefill_ms_per_token=prefill_ms / LM_PROMPT,
                decode_ms_per_token=decode_ms, request_s=total_s,
                power_limit_w=limit,
                pdp_at_limit_j=energy.pdp(total_s, limit),
                **_replay_summary(label, kernels, top, wall, decode_ms,
-                                 want_name))
+                                 want_name, per_step, prefix))
     _take(counted, total)
     if batch4:
         rng = np.random.default_rng(2)
@@ -3575,34 +3645,37 @@ def lm_oneshot(label, eng, counted, total, want_name, batch4: bool):
         prompts = np.zeros((LM_BATCH, width), np.int32)
         for i, n in enumerate(lens):
             prompts[i, width - n:] = rng.integers(0, cfg.vocab_size, n)
-        rows4, _, _ = _lm_eager(eng, prompts, LM_NEW)
+        rows4, _, _ = _lm_eager(eng, prompts, new)
         _take(counted, total)
-        res4 = eng.generate(prompts, max_new=LM_NEW)
+        res4 = eng.generate(prompts, max_new=new)
         got = _read(counted)
-        if got[name] != CAPTURE_PASSES * LM_PER_STEP:
-            raise AssertionError(f"lm {label} batch {LM_BATCH}: capture "
+        if got[name] != CAPTURE_PASSES * per_step:
+            raise AssertionError(f"{prefix} {label} batch {LM_BATCH}: capture "
                                  f"launches {got}")
         if [r.tokens for r in res4] != rows4:
-            raise AssertionError(f"lm {label} batch {LM_BATCH}: captured "
-                                 "tokens differ from eager")
+            raise AssertionError(f"{prefix} {label} batch {LM_BATCH}: "
+                                 "captured tokens differ from eager")
         out.update(batch4_prompt_lens=lens.tolist(),
                    batch4_prefill_ms=res4[0].prefill_s * LM_BATCH * 1e3,
                    batch4_decode_ms_per_step=(res4[0].decode_s * LM_BATCH
-                                              * 1e3 / LM_NEW))
+                                              * 1e3 / new))
         _take(counted, total)
-    print(f"lm {label} summary: {json.dumps(out)}", flush=True)
-    return out
+    print(f"{prefix} {label} summary: {json.dumps(out)}", flush=True)
+    return out, kernels
 
 
-def lm_scheduler(eng, counted, total):
-    """14c: LM_SCHED_REQUESTS prompts of LM_SCHED_PROMPTS tokens and
-    budgets of LM_SCHED_BUDGETS from default_rng(0) over LM_SLOTS slots,
-    max_len LM_MAX_LEN: every request's tokens equal its batch-1
+def lm_scheduler(eng, counted, total, name: str = "q8_matvec",
+                 want_name: str = "q8_matvec_kernel",
+                 per_step: int = LM_PER_STEP, prefix: str = "lm"):
+    """14c (and 15b): LM_SCHED_REQUESTS prompts of LM_SCHED_PROMPTS tokens
+    and budgets of LM_SCHED_BUDGETS from default_rng(0) over LM_SLOTS
+    slots, max_len LM_MAX_LEN: every request's tokens equal its batch-1
     ``generate``'s; one slot-step capture for the pool (two Python passes
-    of its LM_PER_STEP launches), the admissions replaying the batch-1
-    step graph; one commit an admission and a step, and lm_head run once
-    a prompt token and a step; a warm drive of the same requests for
-    tokens a second; the slot step's replay profiled; KV bytes."""
+    of its ``per_step`` launches of ``name``), the admissions replaying
+    the batch-1 step graph; one commit an admission and a step, and
+    lm_head run once a prompt token and a step; a warm drive of the same
+    requests for tokens a second; the slot step's replay profiled; KV
+    bytes."""
     import numpy as np
     import torch
     from repro_torch.serve.scheduler import ContinuousBatchingScheduler
@@ -3632,21 +3705,22 @@ def lm_scheduler(eng, counted, total):
     got = _read(counted)
     delta = _ledger_delta(_stats(eng.offload), before)
     runs = int(lens.sum()) + steps
-    print(f"lm scheduler: {LM_SCHED_REQUESTS} requests over {LM_SLOTS} "
+    print(f"{prefix} scheduler: {LM_SCHED_REQUESTS} requests over {LM_SLOTS} "
           f"slots in {steps} slot steps; launches from Python {got}; step "
           f"captures {eng._step_captures - captures}; commits "
           f"{eng.offload.ledger.commits - commits}; lm_head runs "
           f"{delta['by_kernel'].get('lm_head')} (prompt tokens + steps = "
           f"{runs})", flush=True)
     if [res[r].tokens for r in rids] != refs:
-        raise AssertionError("lm scheduler: tokens differ from batch-1 "
-                             "generate")
+        raise AssertionError(f"{prefix} scheduler: tokens differ from "
+                             "batch-1 generate")
     if eng._step_captures != captures + 1 or \
-            got["q8_matvec"] != CAPTURE_PASSES * LM_PER_STEP:
-        raise AssertionError(f"lm scheduler: captures or launches {got}")
+            got[name] != CAPTURE_PASSES * per_step:
+        raise AssertionError(f"{prefix} scheduler: captures or launches "
+                             f"{got}")
     if eng.offload.ledger.commits - commits != LM_SCHED_REQUESTS + steps \
             or delta["by_kernel"].get("lm_head") != runs:
-        raise AssertionError(f"lm scheduler: commits or runs {delta}")
+        raise AssertionError(f"{prefix} scheduler: commits or runs {delta}")
     _take(counted, total)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3654,12 +3728,12 @@ def lm_scheduler(eng, counted, total):
     res = sched.run()
     wall = time.perf_counter() - t0
     if [res[r].tokens for r in rids] != refs or any(_read(counted).values()):
-        raise AssertionError("lm scheduler: the warm drive's tokens or "
-                             "launches")
+        raise AssertionError(f"{prefix} scheduler: the warm drive's tokens "
+                             "or launches")
     sync = (lambda: sched._token[:, 0].tolist())
     host_ms = _lm_host_ms(sched._program.graph, sync)
     kernels, top, pwall = _lm_profile_steps(sched._program.graph, sync,
-                                            "q8_matvec_kernel")
+                                            want_name, per_step, prefix)
     out = dict(requests=LM_SCHED_REQUESTS, slots=LM_SLOTS,
                prompt_lens=lens.tolist(), budgets=budgets, slot_steps=steps,
                warm_drain_s=wall, tokens=sum(budgets),
@@ -3670,8 +3744,8 @@ def lm_scheduler(eng, counted, total):
                slot_step_host_ms=host_ms,
                **{f"slot_{k}": v for k, v in _replay_summary(
                    "slot step", kernels, top, pwall, host_ms,
-                   "q8_matvec_kernel").items()})
-    print(f"lm scheduler summary: {json.dumps(out)}", flush=True)
+                   want_name, per_step, prefix).items()})
+    print(f"{prefix} scheduler summary: {json.dumps(out)}", flush=True)
     return out
 
 
@@ -3738,8 +3812,8 @@ def lm_phase(counted):
     summary = {"q8_0_peak_bytes": peak, "q8_0_resident_bytes": q8_bytes}
     summary["cpu"] = _lm_cpu_check(eng)
     _take(counted, total)
-    summary["q8_0"] = lm_oneshot("q8_0", eng, counted, total,
-                                 "q8_matvec_kernel", batch4=True)
+    summary["q8_0"], _ = lm_oneshot("q8_0", eng, counted, total,
+                                    "q8_matvec_kernel", batch4=True)
     summary["scheduler"] = lm_scheduler(eng, counted, total)
     summary["kv_quant"] = lm_kv_quant(eng, counted, total)
     del eng
@@ -3749,8 +3823,8 @@ def lm_phase(counted):
     eng = ServeEngine(cfg, params, max_len=LM_MAX_LEN, quant="none",
                       offload=OffloadEngine(), eos_id=None, device="cuda")
     del params
-    summary["bf16"] = lm_oneshot("bf16", eng, counted, total,
-                                 "gemv_bf16_kernel", batch4=False)
+    summary["bf16"], _ = lm_oneshot("bf16", eng, counted, total,
+                                    "gemv_bf16_kernel", batch4=False)
     summary["bf16_resident_bytes"] = torch.cuda.memory_allocated()
     del eng
     gc.collect()
@@ -3759,6 +3833,282 @@ def lm_phase(counted):
     wall = time.perf_counter() - t0
     summary["phase_s"] = wall
     print(f"lm phase: {wall:.1f} s; launches {total}", flush=True)
+    return total, summary
+
+
+# ---------------------------------------------------------------------------
+# Phase 15: the MoE family (olmoe-1b-7b at full width, arctic-480b's layer)
+# ---------------------------------------------------------------------------
+def _moe_params(arch: str, layers: int = 0):
+    """The arch's published config (its depth cut to ``layers`` when
+    given) and its bf16 weights drawn on the card from MOE_SEED, the expert
+    stacks a chunk of experts at a time: (cfg, params, the draw's record
+    with the allocator's peak)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model
+    cfg = get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init_params(
+        torch.Generator(device="cuda").manual_seed(MOE_SEED), cfg,
+        device="cuda")
+    torch.cuda.synchronize()
+    info = dict(arch=cfg.name, layers=cfg.num_layers,
+                n_params=cfg.n_params(),
+                n_active_params=cfg.n_active_params(),
+                init_s=time.perf_counter() - t0,
+                allocated_bytes=torch.cuda.memory_allocated(),
+                peak_bytes=torch.cuda.max_memory_allocated())
+    print(f"moe init {cfg.name}: {cfg.num_layers} layer(s) drawn on the card "
+          f"in {info['init_s']:.1f}s, {info['allocated_bytes'] / 1e9:.2f} GB "
+          f"allocated, peak {info['peak_bytes'] / 1e9:.2f} GB "
+          f"({info['n_params'] / 1e9:.3f} G parameters)", flush=True)
+    return cfg, params, info
+
+
+def _moe_bounds(cfg, batch: int = 1):
+    """A decode step's byte bounds at HBM_BYTES_PER_S, weights read once
+    (the activations are kilobytes): every expert's stacks, which the
+    reference's formulation streams each step; the stacks of the experts a
+    batch of ``batch`` rows chooses (k a row, E at most); and the engine's
+    linears (q/k/v/o, arctic's dense branch, lm_head)."""
+    m = cfg.moe
+    d, hd = cfg.d_model, cfg.head_dim
+    n_moe = len(cfg.moe_layers)
+    per_expert = 3 * d * m.d_ff * 2                 # up, gate, down in bf16
+    all_b = n_moe * m.num_experts * per_expert
+    chosen = n_moe * min(m.num_experts, batch * m.experts_per_token) \
+        * per_expert
+    attn = 2 * d * cfg.num_heads * hd + 2 * d * cfg.num_kv_heads * hd
+    lin = cfg.num_layers * attn + d * cfg.padded_vocab
+    lin += n_moe * 3 * d * m.dense_residual_d_ff
+    lin_b = 2 * lin
+
+    def ms(b):
+        return b / HBM_BYTES_PER_S * 1e3
+    return dict(all_experts_bytes=all_b, all_experts_ms=ms(all_b),
+                chosen_experts_bytes=chosen, chosen_experts_ms=ms(chosen),
+                gemv_bytes=lin_b, gemv_ms=ms(lin_b),
+                bound_all_experts_ms=ms(all_b + lin_b),
+                bound_chosen_experts_ms=ms(chosen + lin_b))
+
+
+def _moe_split(eng, kernels, step_ms: float, counted, batch: int = 1):
+    """A replayed decode step's device ms split four ways: the expert
+    products, dispatch/combine (the router, the routing, the gathers and
+    the combine), the engine's ``gemv_bf16_kernel`` launches and the rest
+    (attention, norms, the embedding, the argmax). The first two are one
+    layer's ``moe._experts`` and ``moe.moe_ffn`` run alone at the step's
+    shapes (device time, torch.profiler), times the MoE layers, less the
+    dense branch's linears; the gemv is the replay's kernels by name. The
+    launches these timings make are not the path's: they are zeroed."""
+    import torch
+    from repro_torch.models import layers, moe
+    cfg = eng.cfg
+    p = eng._serve_params["stack"]["blocks"][0]["moe"]
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    h = torch.randn((batch, 1, cfg.d_model), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    cap = moe._capacity(batch, cfg.moe)
+    xe = torch.randn((1, cfg.moe.num_experts, cap, cfg.d_model),
+                     generator=gen, device="cuda").to(torch.bfloat16)
+    with torch.no_grad():
+        exp_ms, exp_src = device_ms(lambda: moe._experts(p, cfg, xe))
+        ffn_ms, ffn_src = device_ms(
+            lambda: moe.moe_ffn(p, cfg, h, engine=eng.offload))
+        dense_ms = 0.0
+        if "dense" in p:
+            dense_ms, _ = device_ms(lambda: layers.mlp_apply(
+                p["dense"], h, cfg.act, eng.offload))
+    _zero(counted)
+    n = len(cfg.moe_layers)
+    gemv = by_route(kernels, ("gemv_bf16_kernel",))["gemv_bf16_kernel"][1] \
+        if kernels else float("nan")
+    experts = n * exp_ms
+    routing = n * (ffn_ms - exp_ms - dense_ms)
+    return dict(expert_products_ms=experts, dispatch_combine_ms=routing,
+                gemv_bf16_kernel_ms=gemv,
+                rest_ms=step_ms - experts - routing - gemv,
+                split_source=f"layer alone x {n}: {exp_src}/{ffn_src}; gemv "
+                             "from the replay")
+
+
+def _moe_drops(eng, prompts):
+    """One eager prefill of ``prompts`` (B, S) with ``moe.route`` wrapped
+    to read each MoE layer's keep mask: the (token, choice) pairs dropped
+    a step, summed over the layers, one entry a prompt position."""
+    import torch
+    from repro_torch.models import moe
+    seen = []
+    route = moe.route
+
+    def reading(p, cfg, x):
+        r, aux = route(p, cfg, x)
+        seen.append(int((~r.keep).sum()))
+        return r, aux
+
+    moe.route = reading
+    try:
+        eng.prefill(torch.from_numpy(prompts).long().cuda())
+    finally:
+        moe.route = route
+    n = len(eng.cfg.moe_layers)
+    return [sum(seen[i:i + n]) for i in range(0, len(seen), n)]
+
+
+def _moe_step_report(label, eng, one, kernels, counted, batch: int = 1):
+    """15a/15c's step: the device ms split and the byte bounds beside the
+    replayed step's time (decode ms a token)."""
+    bounds = _moe_bounds(eng.cfg, batch)
+    step_ms = one.get("step_device_ms")
+    split = (_moe_split(eng, kernels, step_ms, counted, batch)
+             if isinstance(step_ms, float) else {})
+    dec = one["decode_ms_per_token"]
+    out = dict(**bounds, **split,
+               decode_vs_bound_all_experts=dec / bounds[
+                   "bound_all_experts_ms"],
+               decode_vs_bound_chosen_experts=dec / bounds[
+                   "bound_chosen_experts_ms"])
+    print(f"moe {label} step: {json.dumps(out)}", flush=True)
+    return out
+
+
+def moe_drop_semantics(counted, total):
+    """15d: olmoe's and arctic's smoke configs (cap 2 at four rows), four
+    identical prompts over 4 slots on the card and on the CPU, the same
+    weights (seeded on the CPU): equal tokens, and rows 2-3, whose choices
+    were dropped, differ from rows 0-1."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.offload import OffloadEngine
+    from repro_torch.models import model
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.scheduler import ContinuousBatchingScheduler
+    out = {}
+    prompt = np.array(MOE_DROP_PROMPT, np.int32)
+    for arch in ("olmoe-1b-7b", "arctic-480b"):
+        cfg = get_smoke_config(arch)
+        params = model.init_params(torch.Generator().manual_seed(MOE_SEED),
+                                   cfg, device="cpu")
+        rows = {}
+        for device in ("cuda", "cpu"):
+            # burst 32 sends the smoke widths' main segments to the kernel
+            eng = ServeEngine(cfg, params, max_len=16, quant="none",
+                              offload=OffloadEngine(burst=32), eos_id=None,
+                              device=device)
+            sched = ContinuousBatchingScheduler(eng, n_slots=SLOTS)
+            rids = [sched.submit(prompt, max_new=MOE_DROP_NEW)
+                    for _ in range(SLOTS)]
+            res = sched.run()
+            rows[device] = [res[r].tokens for r in rids]
+        out[arch] = dict(card=rows["cuda"], cpu=rows["cpu"],
+                         equal=rows["cuda"] == rows["cpu"])
+        print(f"moe drops {arch} smoke: {json.dumps(out[arch])}", flush=True)
+        r = rows["cuda"]
+        if r != rows["cpu"] or r[0] != r[1] or r[2] != r[3] or r[0] == r[2]:
+            raise AssertionError(f"moe drops {arch}: card {r} vs cpu "
+                                 f"{rows['cpu']}")
+    _take(counted, total)
+    return out
+
+
+def moe_phase(counted):
+    """Phase 15: the MoE family in bf16. 15a olmoe-1b-7b at full width
+    (16 layers): the first logits against the CPU at depth 2, ``generate``
+    eager and captured at batch 1 and 4 (``lm_oneshot``), the step's
+    split and bounds; 15b its slot scheduler (``lm_scheduler``) and a
+    4-row step's keep masks; 15c, the olmoe engine freed, arctic-480b at
+    full width with one layer: ``generate`` at batch 1, the split and
+    bounds, and four identical prompts over 4 slots, which drop choices;
+    15d the smoke configs' drop case against the CPU. Returns the phase's
+    Python launches by kernel and its summary."""
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.core.offload import OffloadEngine
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.scheduler import ContinuousBatchingScheduler
+
+    t0 = time.perf_counter()
+    total = {}
+    _zero(counted)
+    gc.collect()
+    torch.cuda.empty_cache()
+    summary = {}
+    cfg, params, summary["olmoe_init"] = _moe_params("olmoe-1b-7b")
+    eng = ServeEngine(cfg, params, max_len=LM_MAX_LEN, quant="none",
+                      offload=OffloadEngine(), eos_id=None, device="cuda")
+    del params
+    summary["olmoe_cpu"] = _lm_cpu_check(eng, MOE_CPU_TOL, "moe olmoe")
+    _take(counted, total)
+    one, kernels = lm_oneshot("bf16", eng, counted, total,
+                              "gemv_bf16_kernel", batch4=True,
+                              per_step=OLMOE_PER_STEP, prefix="moe olmoe")
+    summary["olmoe"] = one
+    summary["olmoe_step"] = _moe_step_report("olmoe", eng, one, kernels,
+                                             counted)
+    summary["olmoe_scheduler"] = lm_scheduler(
+        eng, counted, total, "bf16_matmul", "gemv_bf16_kernel",
+        OLMOE_PER_STEP, "moe olmoe")
+    rng = np.random.default_rng(0)
+    four = rng.integers(0, cfg.vocab_size, (SLOTS, 16)).astype(np.int32)
+    drops = _moe_drops(eng, four)
+    print(f"moe olmoe keep: a 4-row eager step drops {max(drops)} (token, "
+          f"choice) pairs at most over {len(drops)} steps (cap "
+          f"{eng.cfg.moe.experts_per_token} >= 4 rows)", flush=True)
+    if any(drops):
+        raise AssertionError(f"moe olmoe: 4 rows dropped choices {drops}")
+    summary["olmoe_scheduler"]["dropped_a_step_4_rows"] = max(drops)
+    _take(counted, total)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg, params, summary["arctic_init"] = _moe_params("arctic-480b",
+                                                      ARCTIC_LAYERS)
+    eng = ServeEngine(cfg, params, max_len=LM_MAX_LEN, quant="none",
+                      offload=OffloadEngine(), eos_id=None, device="cuda")
+    del params
+    one, kernels = lm_oneshot("bf16", eng, counted, total,
+                              "gemv_bf16_kernel", batch4=False,
+                              per_step=ARCTIC_PER_STEP, new=ARCTIC_NEW,
+                              prefix="moe arctic")
+    summary["arctic"] = one
+    summary["arctic_step"] = _moe_step_report("arctic", eng, one, kernels,
+                                              counted)
+    prompt = np.random.default_rng(4).integers(
+        0, cfg.vocab_size, LM_CPU_PROMPT * 4).astype(np.int32)
+    drops = _moe_drops(eng, np.stack([prompt] * SLOTS))
+    _take(counted, total)
+    batch1 = eng.generate(prompt[None], max_new=ARCTIC_NEW)[0].tokens
+    sched = ContinuousBatchingScheduler(eng, n_slots=SLOTS)
+    rids = [sched.submit(prompt, max_new=ARCTIC_NEW) for _ in range(SLOTS)]
+    res = sched.run()
+    rows = [res[r].tokens for r in rids]
+    out = dict(dropped_a_step=drops, rows=rows, batch1=batch1,
+               rows01_equal_batch1=rows[0] == rows[1] == batch1,
+               rows23_differ=rows[2] != rows[0])
+    print(f"moe arctic drops: {json.dumps(out)}", flush=True)
+    if not min(drops) > 0 or not out["rows01_equal_batch1"]:
+        raise AssertionError(f"moe arctic: drops {drops}, rows 0-1 "
+                             f"{rows[:2]} vs batch 1 {batch1}")
+    summary["arctic_drops"] = out
+    _take(counted, total)
+    del eng, sched
+    gc.collect()
+    torch.cuda.empty_cache()
+    summary["drop_semantics"] = moe_drop_semantics(counted, total)
+    wall = time.perf_counter() - t0
+    summary["phase_s"] = wall
+    print(f"moe phase: {wall:.1f} s; launches {total}", flush=True)
     return total, summary
 
 
@@ -3899,6 +4249,8 @@ def main() -> int:
 
     path_launches["lm"], lm_summary = lm_phase(counted)
     print(f"lm summary: {json.dumps(lm_summary)}", flush=True)
+    path_launches["moe"], moe_summary = moe_phase(counted)
+    print(f"moe summary: {json.dumps(moe_summary)}", flush=True)
 
     kernels = []
     for name, meta in KERNELS.items():

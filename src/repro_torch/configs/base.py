@@ -1,15 +1,15 @@
 """Model configuration for the PyTorch port: the subset of the reference's
-``ModelConfig`` that the Whisper (audio) ladder and the dense decoder-only
-LM family read.
+``ModelConfig`` that the Whisper (audio) ladder and the dense and
+mixture-of-experts decoder-only LM families read.
 
 This is the port's own copy: the port imports nothing of the JAX package.
 Field names, defaults, the derived quantities (``attention_layers``,
 ``moe_layers``, ``n_params``, ``n_active_params``) and ``reduced`` follow
 the reference (``repro/configs/base.py``) so that a config built here
 describes the same model as its reference twin. ``MoEConfig`` and
-``SSMConfig`` are carried as plain data (``reduced`` and the parameter
-count read them); the families that run them (MoE, SSM, hybrid, VLM) are
-refused until the port has their layers.
+``SSMConfig`` are carried as data (``reduced`` and the parameter count
+read them; ``models/moe.py`` runs the MoE block); the families the port
+has no layers for yet (SSM, hybrid, VLM) are refused.
 """
 from __future__ import annotations
 
@@ -25,12 +25,12 @@ VLM = "vlm"       # decoder-only LM backbone with stubbed vision frontend
 
 FAMILIES = (DENSE, MOE, SSM, HYBRID, AUDIO, VLM)
 #: the families the port serves
-SERVED = (DENSE, AUDIO)
+SERVED = (DENSE, MOE, AUDIO)
 
 
 @dataclass(frozen=True)
 class MoEConfig:
-    """Mixture-of-experts block parameters (data only in the port)."""
+    """Mixture-of-experts block parameters."""
     num_experts: int
     experts_per_token: int
     d_ff: int                    # per-expert hidden dim
@@ -60,7 +60,7 @@ class SSMConfig:
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """One architecture: an audio encoder-decoder or a dense LM."""
+    """One architecture: an audio encoder-decoder, or a dense or MoE LM."""
     name: str
     family: str
     num_layers: int              # decoder layers
@@ -124,6 +124,8 @@ class ModelConfig:
             raise ValueError(f"{self.name}: the port serves the {SERVED} "
                              f"families; {self.family!r} comes with ROADMAP "
                              "item 15a")
+        if self.family == MOE and self.moe is None:
+            raise ValueError(f"{self.name}: the moe family needs a MoEConfig")
         if (self.family == AUDIO) != self.is_encoder_decoder:
             # the port's models dispatch on the family: only the audio
             # family is an encoder-decoder, and it always is

@@ -8,8 +8,10 @@ split into a list of per-layer dicts. Whisper's ``enc_blocks`` and
 ``dec_blocks`` each stack all layers; an LM's ``stack/blocks`` is a list
 of P pattern positions, each stacked over R repeats (a smoke config,
 ``scan_layers=False``, still stacks: R = num_layers), and layer i of the
-port is repeat ``i // P`` of position ``i % P``. Tests use it to run both
-packages on identical weights.
+port is repeat ``i // P`` of position ``i % P``. A MoE layer's leaves
+(``moe/router/w``, the (E, in, out) expert stacks ``moe/w_up``,
+``w_gate`` and ``w_down``, ``moe/dense/*``) unstack like any other. Tests
+use it to run both packages on identical weights.
 """
 from __future__ import annotations
 

@@ -3,7 +3,8 @@
 
 Boots the ServeEngine with random weights from ``--seed`` (Q8_0 on load by
 default) and serves a set of synthetic requests: mels for a Whisper arch,
-for a dense LM (``--arch qwen2.5-14b``, ...) prompts of 8 tokens drawn
+for a dense or MoE LM (``--arch qwen2.5-14b``; ``--arch olmoe-1b-7b
+--quant none``, a MoE LM in Q8_0 being refused) prompts of 8 tokens drawn
 from ``--seed`` as the reference's launcher draws them (an LM's weights
 are drawn on ``--device``, from a generator there). It serves them as one
 static batch (``transcribe`` or ``generate``), or with ``--continuous``
@@ -41,7 +42,7 @@ from repro_torch.configs.registry import ALL_ARCHS, get_config, get_smoke_config
 from repro_torch.core import energy
 from repro_torch.core.offload import OffloadEngine
 from repro_torch.models import model as model_lib
-from repro_torch.serve.engine import ServeEngine
+from repro_torch.serve.engine import ServeEngine, check_servable
 
 
 def main(argv=None):
@@ -86,6 +87,7 @@ def main(argv=None):
                  "--continuous")
 
     cfg = get_config(args.arch) if args.full else get_smoke_config(args.arch)
+    check_servable(cfg, args.quant)
     audio = cfg.family == "audio"
     if args.speculative and not audio:
         ap.error("--speculative serves the Whisper ladder (audio archs)")

@@ -1,0 +1,237 @@
+"""Mixture-of-experts FFN with capacity-based dispatch (GShard/Switch
+style), the port's counterpart of the reference's ``models/moe.py``.
+
+Used by olmoe-1b-7b (64 experts, top-8) and arctic-480b (128 experts,
+top-2, plus a dense residual MLP beside them). The formulation is the
+reference's: tokens route within groups of ``moe.dispatch_group`` (one
+group on ragged shapes); each group gives every expert C capacity slots
+(``_capacity``); the (token, choice) pairs claim slots k-major (every
+token's first choice before any second choice), then in token order; a
+pair past its expert's capacity is dropped (its combine weight is zero).
+The experts then run over all (E, C) slots of a group, empty slots
+included, so a step streams every expert's weights; the combine sums each
+token's kept choices weighted by their renormalised router probabilities.
+The expert products are library batched matmuls: the reference's einsums
+lie outside any Pallas kernel. Arctic's dense branch goes through the
+offload engine (``layers.mlp_apply``).
+
+Precision is the reference's: the router, its softmax, top-k and
+renormalisation in f32; the combine weights rounded to x's type; the
+expert products in x's type, the SwiGLU (or GELU) in f32 on them, cast
+back; the combine summed in f32 and rounded once to x's type.
+
+The routing stays on the device and every shape follows from the token
+count alone, so a decode step with MoE layers is captured into a CUDA
+graph whole. Where nothing is dropped a row's bits do not depend on the
+batch: the router's rows are padded to one shape (``ROUTER_ROWS``), C is
+the same for every decode batch up to 51 rows of olmoe or arctic, dispatch
+and combine are gathers, and the sums over a row's k choices are
+elementwise adds in index order. Where the batch fills an expert's slots
+the drops, as the reference's, depend on the other rows.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers
+
+#: f32 values an expert stack's draw holds at a time (256 MiB): arctic's
+#: whole (128, 7168, 4864) stack in f32 would be a 17.8 GB temporary
+DRAW_CHUNK_VALUES = 1 << 26
+#: the router's rows are padded to a multiple of this before its product
+ROUTER_ROWS = 16
+
+
+def _draw_experts(gen: torch.Generator, shape: Tuple[int, int, int],
+                  scale: float, dtype) -> torch.Tensor:
+    """An (E, in, out) stack ~ N(0, scale^2) drawn in f32 on the
+    generator's device and cast to ``dtype``, a chunk of experts at a
+    time."""
+    e, a, b = shape
+    out = torch.empty(shape, dtype=dtype, device=gen.device)
+    step = max(1, DRAW_CHUNK_VALUES // (a * b))
+    for i in range(0, e, step):
+        n = min(step, e - i)
+        out[i:i + n] = (torch.randn((n, a, b), generator=gen,
+                                    device=gen.device) * scale).to(dtype)
+    return out
+
+
+def init_moe(gen: torch.Generator, cfg: ModelConfig,
+             dtype=torch.bfloat16) -> dict:
+    """The reference's layout and scales: ``router`` (E, d) f32 ~ N(0,
+    1/d); ``w_up`` and ``w_gate`` (E, d, d_ff) ~ N(0, 1/d); ``w_down`` (E,
+    d_ff, d) ~ N(0, 1/d_ff); arctic's ``dense`` MLP. Drawn from ``gen`` on
+    its device."""
+    moe = cfg.moe
+    d, dff, n_exp = cfg.d_model, moe.d_ff, moe.num_experts
+    p = {"router": layers.init_linear(gen, d, n_exp, dtype=torch.float32),
+         "w_up": _draw_experts(gen, (n_exp, d, dff), d ** -0.5, dtype),
+         "w_down": _draw_experts(gen, (n_exp, dff, d), dff ** -0.5, dtype)}
+    if cfg.act == "swiglu":
+        p["w_gate"] = _draw_experts(gen, (n_exp, d, dff), d ** -0.5, dtype)
+    if moe.dense_residual_d_ff:
+        p["dense"] = layers.init_mlp(gen, d, moe.dense_residual_d_ff, dtype,
+                                     act=cfg.act)
+    return p
+
+
+def _capacity(tokens_per_group: int, moe) -> int:
+    cap = int(tokens_per_group * moe.experts_per_token
+              * moe.capacity_factor / moe.num_experts)
+    return max(cap, moe.experts_per_token)
+
+
+def router_probs(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """Softmax over the experts of the f32 router logits: (..., d) ->
+    (..., E) f32. The rows are padded to a multiple of ROUTER_ROWS for the
+    product: the library picks its kernel by shape, and at one shape each
+    row is summed in one order, whatever the batch beside it."""
+    xf = x.float().reshape(-1, x.shape[-1])
+    t = xf.shape[0]
+    pad = -t % ROUTER_ROWS
+    if pad:
+        xf = torch.cat([xf, xf.new_zeros((pad, xf.shape[1]))])
+    logits = layers.linear(p["router"], xf)[:t]
+    return torch.softmax(logits, dim=-1).reshape(*x.shape[:-1], -1)
+
+
+def _top_k(probs: torch.Tensor, k: int
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The k largest probabilities and their experts, ties to the lower
+    index as ``jax.lax.top_k`` breaks them: a stable descending sort."""
+    w, i = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return w[..., :k], i[..., :k]
+
+
+def _sum_choices(t: torch.Tensor) -> torch.Tensor:
+    """The sum over dim -2 (a row's k choices), one elementwise add at a
+    time in index order: a reduction kernel's split would follow the row
+    count."""
+    out = t[..., 0, :]
+    for j in range(1, t.shape[-2]):
+        out = out + t[..., j, :]
+    return out
+
+
+class Routing(NamedTuple):
+    """A group's routing, each (G, Tg, k): the renormalised top-k weights
+    (f32), their experts, each choice's slot in its expert's queue, and
+    whether that slot lies within the capacity ``cap``."""
+    weights: torch.Tensor
+    experts: torch.Tensor
+    pos: torch.Tensor
+    keep: torch.Tensor
+    cap: int
+
+
+def route(p: dict, cfg: ModelConfig, x: torch.Tensor
+          ) -> Tuple[Routing, torch.Tensor]:
+    """x (B, S, d) -> (the grouped routing, the Switch load-balance loss)."""
+    moe = cfg.moe
+    b, s, _ = x.shape
+    n_exp, k = moe.num_experts, moe.experts_per_token
+    experts = torch.arange(n_exp, device=x.device)
+
+    probs = router_probs(p, cfg, x)                       # (B, S, E) f32
+    topw, topi = _top_k(probs, k)
+    topw = topw / _sum_choices(topw[..., None])           # renormalise
+
+    # load-balance auxiliary loss (Switch eq. 4)
+    me = probs.reshape(-1, n_exp).mean(0)                 # mean probability
+    ce = (topi[..., 0].reshape(-1, 1) == experts).float().mean(0)
+    aux = n_exp * (me * ce).sum() * moe.load_balance_coef
+
+    t = b * s
+    tg = min(moe.dispatch_group, t)
+    if t % tg:
+        tg = t                     # ragged shapes: one group
+    g = t // tg
+    gi = topi.reshape(g, tg, k)
+    # each (token, choice)'s place in its expert's queue, k-major so that
+    # higher-priority choices claim capacity first
+    flat = gi.transpose(1, 2).reshape(g, k * tg)
+    queue = (flat[..., None] == experts).long().cumsum(1)    # (G, k*Tg, E)
+    pos = (queue.gather(2, flat[..., None])[..., 0] - 1
+           ).reshape(g, k, tg).transpose(1, 2)
+    cap = _capacity(tg, moe)
+    return Routing(topw.reshape(g, tg, k), gi, pos, pos < cap, cap), aux
+
+
+def _experts(p: dict, cfg: ModelConfig, xe: torch.Tensor) -> torch.Tensor:
+    """Every expert over its slots: xe (G, E, C, d) -> (G, E, C, d), in
+    xe's type."""
+    g, n_exp, c, d = xe.shape
+    dt = xe.dtype
+    xs = xe.transpose(0, 1).reshape(n_exp, g * c, d)
+    up = torch.bmm(xs, p["w_up"].to(dt))
+    if cfg.act == "swiglu":
+        gate = torch.bmm(xs, p["w_gate"].to(dt))
+        h = F.silu(gate.float()) * up.float()
+    else:
+        h = layers.gelu(up.float())
+    ye = torch.bmm(h.to(dt), p["w_down"].to(dt))
+    return ye.reshape(n_exp, g, c, d).transpose(0, 1)
+
+
+def moe_ffn(p: dict, cfg: ModelConfig, x: torch.Tensor, *, engine=None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (B, S, d) -> (y in x's type, the load-balance loss): grouped
+    capacity-based top-k dispatch, every expert over its C slots, the
+    combine, and arctic's dense branch through ``engine``."""
+    b, s, d = x.shape
+    dt = x.dtype
+    r, aux = route(p, cfg, x)
+    g, tg, k = r.experts.shape
+    n_exp, cap = cfg.moe.num_experts, r.cap
+    dev = x.device
+
+    # dispatch: slot (e, c) of group g holds token src[g, e, c], an empty
+    # slot the zero row tg; dropped choices all land in the spare column
+    slot = r.experts * (cap + 1) + torch.where(r.keep, r.pos, cap)
+    src = torch.full((g, n_exp * (cap + 1)), tg, dtype=torch.long,
+                     device=dev)
+    tok = torch.arange(tg, device=dev).view(1, tg, 1).expand(g, tg, k)
+    src.scatter_(1, slot.reshape(g, -1), tok.reshape(g, -1))
+    src = src.view(g, n_exp, cap + 1)[..., :cap].reshape(g, n_exp * cap, 1)
+    xin = torch.cat([x.reshape(g, tg, d), x.new_zeros((g, 1, d))], dim=1)
+    xe = xin.gather(1, src.expand(g, n_exp * cap, d))
+    ye = _experts(p, cfg, xe.view(g, n_exp, cap, d))
+
+    # combine: each token's k slots, weighted in x's type, summed in f32
+    grp = torch.arange(g, device=dev).view(g, 1, 1)
+    picked = ye[grp, r.experts, torch.where(r.keep, r.pos, 0)]  # (G,Tg,k,d)
+    w = (r.weights * r.keep).to(dt)
+    y = _sum_choices(w[..., None].float() * picked.float()).to(dt)
+    y = y.reshape(b, s, d)
+    if "dense" in p:               # arctic's always-on dense residual branch
+        y = y + layers.mlp_apply(p["dense"], x, cfg.act, engine)
+    return y.to(dt), aux
+
+
+def moe_ffn_dense_oracle(p: dict, cfg: ModelConfig,
+                         x: torch.Tensor) -> torch.Tensor:
+    """No-drop reference: every expert over every token in f32, weighted
+    by its renormalised top-k probability (tests only)."""
+    moe = cfg.moe
+    probs = router_probs(p, cfg, x)
+    topw, topi = _top_k(probs, moe.experts_per_token)
+    topw = topw / topw.sum(-1, keepdim=True)
+    xf = x.float()
+    y = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for e in range(moe.num_experts):
+        up = xf @ p["w_up"][e].float()
+        if cfg.act == "swiglu":
+            h = F.silu(xf @ p["w_gate"][e].float()) * up
+        else:
+            h = layers.gelu(up)
+        ye = h @ p["w_down"][e].float()
+        w_e = torch.where(topi == e, topw, 0.0).sum(-1)
+        y = y + ye * w_e[..., None]
+    if "dense" in p:
+        y = y + layers.mlp_apply(p["dense"], x, cfg.act).float()
+    return y.to(x.dtype)

@@ -1,4 +1,4 @@
-"""Decoder-only transformer stack of the dense LM family.
+"""Decoder-only transformer stack of the dense and MoE LM families.
 
 The reference groups its layers into a repeating pattern of length P
 (``layer_pattern``: the attention and MoE periods of heterogeneous
@@ -10,8 +10,8 @@ cache a layer: no stacking and no scan. On the card a step is captured
 whole into a CUDA graph, which removes the Python loop's cost that the
 scan saves the reference's trace.
 
-Only the dense pattern (attention mixer, dense or no FFN) is built here;
-a MoE or SSM layer spec raises until the port has those layers.
+The attention mixer is built here, with a dense, MoE (``models/moe.py``)
+or no FFN; an SSM layer spec raises until the port has that layer.
 """
 from __future__ import annotations
 
@@ -21,7 +21,7 @@ from typing import List, NamedTuple, Tuple, Union
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import layers
+from repro_torch.models import layers, moe as moe_lib
 from repro_torch.models.attention import (
     KVCache, QKVCache, decode_attention, init_attention)
 
@@ -65,12 +65,12 @@ def n_repeats(cfg: ModelConfig) -> int:
 
 def layer_specs(cfg: ModelConfig) -> List[LayerSpec]:
     """Each layer's spec, in order; raises on a layer the port cannot
-    build (a MoE FFN or an SSM mixer: ROADMAP item 15a)."""
+    build (an SSM mixer: ROADMAP item 15a)."""
     pattern = layer_pattern(cfg)
     for spec in pattern:
-        if spec.mixer != "attn" or spec.ffn == "moe":
+        if spec.mixer != "attn":
             raise NotImplementedError(
-                f"{cfg.name}: layer {spec} needs the port's moe.py / ssm.py "
+                f"{cfg.name}: layer {spec} needs the port's ssm.py "
                 "(ROADMAP item 15a)")
     return list(pattern) * n_repeats(cfg)
 
@@ -87,8 +87,11 @@ def _init_block(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec,
     if spec.ffn != "none":
         p["norm2"] = layers.init_norm(cfg.d_model, dtype, kind=cfg.norm,
                                       device=dev)
-        p["ffn"] = layers.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype,
-                                   act=cfg.act)
+        if spec.ffn == "moe":
+            p["moe"] = moe_lib.init_moe(gen, cfg, dtype)
+        else:
+            p["ffn"] = layers.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype,
+                                       act=cfg.act)
     return p
 
 
@@ -120,9 +123,10 @@ def decode_step_stack(params: dict, cfg: ModelConfig, x: torch.Tensor,
                       states: List[LayerState], *, engine=None
                       ) -> Tuple[torch.Tensor, List[LayerState]]:
     """x: (B, 1, d) through every layer: pre-norm attention over the
-    layer's cache (advanced in place), then the pre-norm FFN, each added
-    to the residual stream in x's type. Returns (y, states), ``states``
-    the same caches."""
+    layer's cache (advanced in place), then the pre-norm FFN (dense, or
+    MoE with its load-balance loss dropped, as the reference's decode
+    drops it), each added to the residual stream in x's type. Returns (y,
+    states), ``states`` the same caches."""
     for p, spec, st in zip(params["blocks"], layer_specs(cfg), states,
                            strict=True):
         h = layers.norm_apply(p["norm1"], x, cfg.norm)
@@ -130,6 +134,9 @@ def decode_step_stack(params: dict, cfg: ModelConfig, x: torch.Tensor,
         x = x + mixed.to(x.dtype)
         if spec.ffn != "none":
             h = layers.norm_apply(p["norm2"], x, cfg.norm)
-            y = layers.mlp_apply(p["ffn"], h, cfg.act, engine=engine)
+            if spec.ffn == "moe":
+                y, _ = moe_lib.moe_ffn(p["moe"], cfg, h, engine=engine)
+            else:
+                y = layers.mlp_apply(p["ffn"], h, cfg.act, engine=engine)
             x = x + y.to(x.dtype)
     return x, states

@@ -1,7 +1,7 @@
-"""Serving engine: one-shot batched Whisper transcription and dense-LM
-generation with the paper's offload paths, Q8_0 or dense (FP16), on the
-H100 or (when asked) the CPU, and the entry points of continuous batching
-(``scheduler``, ``submit_audio``, ``submit``, ``run``:
+"""Serving engine: one-shot batched Whisper transcription and dense- and
+MoE-LM generation with the paper's offload paths, Q8_0 or dense (FP16),
+on the H100 or (when asked) the CPU, and the entry points of continuous
+batching (``scheduler``, ``submit_audio``, ``submit``, ``run``:
 ``serve/scheduler.py``).
 
 The system the paper builds in whisper.cpp terms: weights quantized to
@@ -45,7 +45,9 @@ prefill's plan is the step's entries at ``plan_key("prefill", quant, B,
 S)``, committed S times, as the reference's scan body; the last prefill
 step's argmax is the first decode step's input, not a generated token.
 ``prefill_prompt`` runs the batch-1 prefill for the scheduler's LM
-admissions.
+admissions. A MoE LM serves the same way, in bf16 only: the reference
+quantizes its expert stacks into Q8_0 and then fails on them
+(``check_servable``).
 
 Speculative decoding (``speculative``, ``serve/speculative.py``) adds two
 programs over slot-layout buffers that its caller owns: the verify window
@@ -143,6 +145,21 @@ def _keep_dense(path, leaf) -> bool:
     return True
 
 
+def check_servable(cfg: ModelConfig, quant: str) -> None:
+    """Raise ``NotImplementedError`` for a model the port does not serve at
+    ``quant``: a MoE LM in Q8_0. There the reference's ``quantize_tree``
+    turns the 3-D expert stacks into ``QTensor``, and its ``moe_ffn`` then
+    fails on them (``AttributeError: 'QTensor' object has no attribute
+    'astype'``, ``repro/models/moe.py:121``); the port serves such a model
+    with ``quant="none"`` and falls back to nothing."""
+    if quant == "q8_0" and cfg.moe is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: a MoE model is not served in Q8_0 (the reference "
+            "quantizes its expert stacks and its moe_ffn then fails: "
+            "'QTensor' object has no attribute 'astype', moe.py:121); "
+            "serve it with quant='none'")
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -210,9 +227,10 @@ class ServeEngine:
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
-        params = model_lib.to_device(self.params, self.device)
         self._serve_quant = self.quant if self.quant is not None \
             else self.cfg.quant
+        check_servable(self.cfg, self._serve_quant)
+        params = model_lib.to_device(self.params, self.device)
         self._serve_params = (quantize_tree(params, _keep_dense)
                               if self._serve_quant == "q8_0" else params)
         self._eos = -1 if self.eos_id is None else int(self.eos_id)

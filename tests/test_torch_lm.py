@@ -2,9 +2,10 @@
 CPU at the smoke configs, with identical weights (the reference's
 ``init_params`` through ``convert.py``) and numpy-seeded prompts:
 
-- the four dense archs' configs: ``reduced`` field for field,
-  ``n_params``/``n_active_params`` and ``enumerate_lm`` equal to the
-  reference's; the archs the port does not serve yet raise ``KeyError``;
+- the four dense archs' and the two MoE archs' configs: ``reduced`` field
+  for field, ``n_params``/``n_active_params`` and ``enumerate_lm`` equal
+  to the reference's; the archs the port does not serve yet raise
+  ``KeyError``;
 - ``rmsnorm``, ``apply_rope`` (lockstep and per-row positions), SwiGLU and
   a biased ``linear`` within 1e-6 of the reference's;
 - ``quantize_kv``/``dequantize_kv`` bit-equal, and the Q8_0 weights
@@ -61,8 +62,8 @@ from repro_torch.serve.kvcache import SlotKVPool
 from repro_torch.serve.scheduler import ContinuousBatchingScheduler
 
 DENSE = ["qwen2.5-14b", "phi3-mini-3.8b", "internlm2-20b", "qwen1.5-110b"]
-LATER = ["olmoe-1b-7b", "arctic-480b", "mamba2-780m", "jamba-v0.1-52b",
-         "llava-next-mistral-7b"]
+MOE = ["olmoe-1b-7b", "arctic-480b"]
+LATER = ["mamba2-780m", "jamba-v0.1-52b", "llava-next-mistral-7b"]
 SERVED = ["qwen2.5-14b", "phi3-mini-3.8b"]
 BURSTS = [None, 256, 32]
 MAX_LEN = 32
@@ -155,14 +156,17 @@ def _entries(plan):
 # ---------------------------------------------------------------------------
 # Configs, the registry and the coverage arithmetic
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + MOE)
 def test_configs_reduced_params_and_coverage_match_reference(arch):
     for port, ref in ((get_config(arch), jax_config(arch)),
                       (get_smoke_config(arch), jax_smoke_config(arch)),
                       (base.reduced(get_config(arch), num_layers=3),
                        jax_base.reduced(jax_config(arch), num_layers=3))):
         for f in dataclasses.fields(port):
-            assert getattr(port, f.name) == getattr(ref, f.name), f.name
+            got, want = getattr(port, f.name), getattr(ref, f.name)
+            if dataclasses.is_dataclass(got):    # the MoE block's data
+                got, want = dataclasses.asdict(got), dataclasses.asdict(want)
+            assert got == want, f.name
         assert port.attention_layers == ref.attention_layers
         assert port.moe_layers == ref.moe_layers
         assert port.n_params() == ref.n_params()
@@ -176,9 +180,9 @@ def test_configs_reduced_params_and_coverage_match_reference(arch):
 
 
 def test_moe_and_ssm_data_reduce_as_the_reference_does():
-    """The MoE and SSM configs are plain data here: ``reduced`` cuts them
-    as the reference does, and a model of those families is refused,
-    naming ROADMAP item 15a."""
+    """The MoE and SSM configs: ``reduced`` cuts them as the reference
+    does; a model of the SSM family is refused, naming ROADMAP item 15a,
+    and one of the MoE family is served."""
     for arch in ("olmoe-1b-7b", "arctic-480b", "mamba2-780m"):
         ref = jax_config(arch)
         moe = (None if ref.moe is None
@@ -193,6 +197,11 @@ def test_moe_and_ssm_data_reduce_as_the_reference_does():
             dataclasses.asdict(want.moe or jax_base.MoEConfig(0, 0, 0))
         assert dataclasses.asdict(got.ssm or base.SSMConfig(0)) == \
             dataclasses.asdict(want.ssm or jax_base.SSMConfig(0))
+        if ref.family == base.MOE:
+            cfg = dataclasses.replace(get_config("qwen2.5-14b"),
+                                      family=ref.family, moe=moe, ssm=ssm)
+            assert cfg.moe_layers == tuple(range(cfg.num_layers))
+            continue
         with pytest.raises(ValueError, match="15a"):
             dataclasses.replace(get_config("qwen2.5-14b"), family=ref.family,
                                 moe=moe, ssm=ssm)
