@@ -292,14 +292,51 @@ own kernels with nvcc. Phases, each of which fails the run on error:
     ``bf16_matmul`` at the new shapes (``per`` "olmoe-1b-7b decode step",
     "olmoe-1b-7b slot step" and "arctic-480b decode step").
 
+16. The SSM and hybrid families (``ssm_phase``), weights drawn on the
+    card from a seeded CUDA generator, no EOS, max_len 160. A step reads
+    f32 conv windows and SSD states besides the weights; the engine's
+    linears run the decode kernels.
+    a. mamba2-780m at its published widths and depth (48 layers, d_model
+       1536, 48 SSD heads of 64, d_state 128), Q8_0: the first logits
+       against the port on the CPU at depth 2, within 1e-2 of the
+       largest logit; ``lm_oneshot`` at batch 1 (64 + 64 tokens) and 4:
+       97 ``q8_matvec_kernel`` a step, eagerly and at a replay, captured
+       tokens equal the eager loop's, prefill ms a prompt token, decode
+       ms a token, device ms a step, idle shares, top kernels, dot
+       share, PDP at the power limit; the step's device time split into
+       the decode kernel, the SSM layers' small kernels (one layer run
+       alone) and the rest, beside its byte bound (the Q8_0 linears and
+       the f32 states read and written). The same in bf16 (97
+       ``gemv_bf16_kernel``), the Q8_0 engine freed first.
+    b. The Q8_0 slot scheduler (``lm_scheduler``): 12 requests, prompts
+       of 8-32 tokens and max_new 16-48 from default_rng(0), over 4
+       slots: tokens equal batch-1 ``generate``'s, one slot-step capture,
+       commits = admissions + steps, tokens a second, committed and used
+       state bytes; row 0 of an eager 4-slot step bit for bit a batch-1
+       step's (logits, conv windows, SSD states).
+    c. jamba-v0.1-52b at its published widths with its 32 layers cut to
+       one pattern repeat of 8 (26.5 GB of bf16; the whole model is
+       about 104 GB), bf16: the draw's peak memory; the first SSM
+       layer's ``ssm_decode_step`` card vs CPU over 16 carried steps
+       (within 1e-2); ``lm_oneshot`` at batch 1 (64 + 32 tokens, 31
+       ``gemv_bf16_kernel`` a step); the step's split (expert products,
+       dispatch/combine, gemv, SSM small kernels, rest) beside the
+       all-expert and chosen-expert byte bounds; the smoke config's
+       ``generate`` and drop-case scheduler tokens, card vs CPU.
+    ``ssm ...`` lines, then ``ssm phase: N s``. Phase 2 holds both
+    decode kernels at mamba2's shapes at M = 1 and 4 (``per``
+    "mamba2-780m decode step", "mamba2-780m slot step") and
+    ``bf16_matmul`` at jamba's ("jamba-v0.1-52b repeat step").
+
 The last two lines are the kernels' JSON record and the result line; each
 kernel's record also carries its launches on the tuned paths' eager loops
 (``tuned_launches``), its launches on each path's drive
 (``launches_by_path``: the main path's, phase 10's, phase 11's paged
 pool drives, both paths summed, under "paged", phase 12's captures
 under "speculative", phase 13's captures, every engine's summed, under
-"telemetry", every Python launch of phase 14 under "lm" and of phase 15
-under "moe") and its tiles' times (``tiles``).
+"telemetry", every Python launch of phase 14 under "lm", of phase 15
+under "moe" and of phase 16 under "ssm") and its tiles' times
+(``tiles``).
 
 Copied out of a checkout (no ``src/repro_torch`` beside the script), or
 without a CUDA device, it prints why and exits 1.
@@ -395,6 +432,20 @@ ARCTIC_DECODE = [(7168, 7168, 2), (1024, 7168, 2), (4864, 7168, 2),
 OLMOE_M1 = [(1, n, k, k, c, "bfloat16") for n, k, c in OLMOE_DECODE]
 OLMOE_M4 = [(4, n, k, k, c, "bfloat16") for n, k, c in OLMOE_DECODE]
 ARCTIC_M1 = [(1, n, k, k, c, "bfloat16") for n, k, c in ARCTIC_DECODE]
+# phase 16, the SSM and hybrid families: the engine's linears of a
+# mamba2-780m step (ssm.in_proj 1536 -> 6448 and ssm.out_proj 3072 ->
+# 1536, 48 layers, and lm_head 1536 -> 50,288) at M = 1 and at M = 4 (the
+# 4-slot step), and of jamba-v0.1-52b's one-repeat step (7 SSM layers'
+# in_proj 4096 -> 16,544 and out_proj 8192 -> 4096; the attention layer's
+# q and o at 4096 and k and v at 4096 -> 1024; 4 dense FFNs' gate and up
+# 4096 -> 14,336 and down 14,336 -> 4096; lm_head 4096 -> 65,536)
+MAMBA_DECODE = [(6448, 1536, 48), (1536, 3072, 48), (50288, 1536, 1)]
+JAMBA_DECODE = [(16544, 4096, 7), (4096, 8192, 7), (4096, 4096, 2),
+                (1024, 4096, 2), (14336, 4096, 8), (4096, 14336, 4),
+                (65536, 4096, 1)]
+MAMBA_M1 = [(1, n, k, k, c, "bfloat16") for n, k, c in MAMBA_DECODE]
+MAMBA_M4 = [(4, n, k, k, c, "bfloat16") for n, k, c in MAMBA_DECODE]
+JAMBA_M1 = [(1, n, k, k, c, "bfloat16") for n, k, c in JAMBA_DECODE]
 BF16_PREFILL_SHAPES = [
     (1500, 384, 256, 384, 24, "bfloat16"),    # enc q/k/v/o + dec.cross.k/v
     (1500, 1536, 256, 384, 4, "bfloat16"),    # enc ffn.up
@@ -417,7 +468,9 @@ KERNELS = {
                               "whisper-base decode step": BASE_STEP_Q8,
                               "verify window M=5": WINDOW5_Q8,
                               "qwen2.5-14b decode step": QWEN_M1,
-                              "qwen2.5-14b slot step": QWEN_M4},
+                              "qwen2.5-14b slot step": QWEN_M4,
+                              "mamba2-780m decode step": MAMBA_M1,
+                              "mamba2-780m slot step": MAMBA_M4},
                       library_call="torch.matmul(x_f32, W_dequantized_f32.T):"
                                    " no single PyTorch call computes a Q8_0 "
                                    "product"),
@@ -440,7 +493,10 @@ KERNELS = {
                                 "qwen2.5-14b slot step": QWEN_M4,
                                 "olmoe-1b-7b decode step": OLMOE_M1,
                                 "olmoe-1b-7b slot step": OLMOE_M4,
-                                "arctic-480b decode step": ARCTIC_M1},
+                                "arctic-480b decode step": ARCTIC_M1,
+                                "mamba2-780m decode step": MAMBA_M1,
+                                "mamba2-780m slot step": MAMBA_M4,
+                                "jamba-v0.1-52b repeat step": JAMBA_M1},
                         library_call="torch.mm(x_bf16, W_bf16.T, out_dtype="
                                      "torch.float32) on the same strided "
                                      "bf16 operands (cuBLAS, f32 output as "
@@ -592,6 +648,20 @@ MOE_CPU_TOL = 3e-2                # of the CPU's largest logit: bf16 weights
 # 15d: the smoke configs, four identical prompts over 4 slots (cap 2)
 MOE_DROP_PROMPT = (3, 5, 7, 9)
 MOE_DROP_NEW = 6
+# phase 16: the SSM and hybrid families, weights drawn on the card from
+# MOE_SEED as phase 15's, no EOS, max_len LM_MAX_LEN
+MAMBA_ARCH = "mamba2-780m"
+JAMBA_ARCH = "jamba-v0.1-52b"
+MAMBA_PER_STEP = 2 * 48 + 1       # ssm.in_proj, ssm.out_proj; lm_head
+JAMBA_LAYERS = 8                  # one pattern repeat of its 32 layers
+# 7 SSM layers' 2, the attention layer's q/k/v/o, 4 dense FFNs' 3, lm_head
+JAMBA_PER_STEP = 7 * 2 + 4 + 4 * 3 + 1
+JAMBA_NEW = 32                    # 16c: one 64-token prompt, 32 new
+SSM_CPU_TOL = 1e-2                # first logits, of the CPU's largest
+SSM_LAYER_STEPS = 16              # 16c: one SSM layer's carried steps
+SSM_LAYER_TOL = 1e-2              # bf16 at full width, of the largest
+SSM_SCHED_PROMPTS = (8, 32)       # 16b: 12 requests over 4 slots
+SSM_SCHED_BUDGETS = (16, 48)
 # phase 13: benchmarks/telemetry_overhead.py's full trace
 TE_REQUESTS = 16
 TE_REF_FRAMES = 32                # its mels' frames (drawn, then discarded)
@@ -3666,10 +3736,12 @@ def lm_oneshot(label, eng, counted, total, want_name, batch4: bool,
 
 def lm_scheduler(eng, counted, total, name: str = "q8_matvec",
                  want_name: str = "q8_matvec_kernel",
-                 per_step: int = LM_PER_STEP, prefix: str = "lm"):
-    """14c (and 15b): LM_SCHED_REQUESTS prompts of LM_SCHED_PROMPTS tokens
-    and budgets of LM_SCHED_BUDGETS from default_rng(0) over LM_SLOTS
-    slots, max_len LM_MAX_LEN: every request's tokens equal its batch-1
+                 per_step: int = LM_PER_STEP, prefix: str = "lm",
+                 prompt_lens=LM_SCHED_PROMPTS, budget_lens=LM_SCHED_BUDGETS):
+    """14c (and 15b, 16b): LM_SCHED_REQUESTS prompts of ``prompt_lens``
+    tokens and budgets of ``budget_lens`` from default_rng(0) over
+    LM_SLOTS slots, max_len LM_MAX_LEN: every request's tokens equal its
+    batch-1
     ``generate``'s; one slot-step capture for the pool (two Python passes
     of its ``per_step`` launches of ``name``), the admissions replaying
     the batch-1 step graph; one commit an admission and a step, and
@@ -3682,9 +3754,9 @@ def lm_scheduler(eng, counted, total, name: str = "q8_matvec",
 
     cfg = eng.cfg
     rng = np.random.default_rng(0)
-    lens = rng.integers(LM_SCHED_PROMPTS[0], LM_SCHED_PROMPTS[1] + 1,
+    lens = rng.integers(prompt_lens[0], prompt_lens[1] + 1,
                         LM_SCHED_REQUESTS)
-    budgets = rng.integers(LM_SCHED_BUDGETS[0], LM_SCHED_BUDGETS[1] + 1,
+    budgets = rng.integers(budget_lens[0], budget_lens[1] + 1,
                            LM_SCHED_REQUESTS).tolist()
     prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
                for n in lens]
@@ -3839,7 +3911,7 @@ def lm_phase(counted):
 # ---------------------------------------------------------------------------
 # Phase 15: the MoE family (olmoe-1b-7b at full width, arctic-480b's layer)
 # ---------------------------------------------------------------------------
-def _moe_params(arch: str, layers: int = 0):
+def _moe_params(arch: str, layers: int = 0, prefix: str = "moe"):
     """The arch's published config (its depth cut to ``layers`` when
     given) and its bf16 weights drawn on the card from MOE_SEED, the expert
     stacks a chunk of experts at a time: (cfg, params, the draw's record
@@ -3865,9 +3937,9 @@ def _moe_params(arch: str, layers: int = 0):
                 init_s=time.perf_counter() - t0,
                 allocated_bytes=torch.cuda.memory_allocated(),
                 peak_bytes=torch.cuda.max_memory_allocated())
-    print(f"moe init {cfg.name}: {cfg.num_layers} layer(s) drawn on the card "
-          f"in {info['init_s']:.1f}s, {info['allocated_bytes'] / 1e9:.2f} GB "
-          f"allocated, peak {info['peak_bytes'] / 1e9:.2f} GB "
+    print(f"{prefix} init {cfg.name}: {cfg.num_layers} layer(s) drawn on "
+          f"the card in {info['init_s']:.1f}s, "
+          f"{info['allocated_bytes'] / 1e9:.2f} GB allocated, peak {info['peak_bytes'] / 1e9:.2f} GB "
           f"({info['n_params'] / 1e9:.3f} G parameters)", flush=True)
     return cfg, params, info
 
@@ -3911,7 +3983,8 @@ def _moe_split(eng, kernels, step_ms: float, counted, batch: int = 1):
     import torch
     from repro_torch.models import layers, moe
     cfg = eng.cfg
-    p = eng._serve_params["stack"]["blocks"][0]["moe"]
+    p = next(b["moe"] for b in eng._serve_params["stack"]["blocks"]
+             if "moe" in b)
     gen = torch.Generator(device="cuda").manual_seed(5)
     h = torch.randn((batch, 1, cfg.d_model), generator=gen,
                     device="cuda").to(torch.bfloat16)
@@ -4112,6 +4185,323 @@ def moe_phase(counted):
     return total, summary
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the SSM and hybrid families (mamba2-780m whole, jamba's repeat)
+# ---------------------------------------------------------------------------
+def _ssm_state_bytes(cfg, batch: int = 1) -> int:
+    """Bytes of the f32 conv windows and SSD states of every SSM layer at
+    ``batch`` rows."""
+    m = cfg.ssm
+    di = m.d_inner(cfg.d_model)
+    per = ((m.d_conv - 1) * (di + 2 * m.n_groups * m.d_state)
+           + m.n_heads(cfg.d_model) * m.head_dim * m.d_state)
+    return 4 * per * batch * (cfg.num_layers - len(cfg.attention_layers))
+
+
+def _step_bounds(eng, batch: int = 1):
+    """A decode step's byte bounds at HBM_BYTES_PER_S: the weights of the
+    engine's linears as the step's plan lists them, read once (bf16: 2
+    bytes a weight; Q8_0: 1.125, int8 and an f32 scale a block of 32);
+    the SSM layers' f32 conv windows and SSD states, read and written;
+    with MoE layers every expert's bf16 stacks (the reference's
+    formulation streams them all), or only the experts a batch of
+    ``batch`` rows chooses."""
+    cfg = eng.cfg
+    plan = eng._plans.plans[eng._key("step", batch)]
+    per_w = 1.125 if eng._serve_quant == "q8_0" else 2
+    lin = int(sum(e.n * e.k for e in plan) * per_w)
+    state = 2 * _ssm_state_bytes(cfg, batch)
+
+    def ms(b):
+        return b / HBM_BYTES_PER_S * 1e3
+    out = dict(linear_bytes=lin, linear_ms=ms(lin), state_bytes=state,
+               state_ms=ms(state), bound_ms=ms(lin + state))
+    if cfg.moe is not None:
+        m = cfg.moe
+        per_expert = 3 * cfg.d_model * m.d_ff * 2
+        n_moe = len(cfg.moe_layers)
+        all_b = n_moe * m.num_experts * per_expert
+        chosen = n_moe * min(m.num_experts, batch * m.experts_per_token) \
+            * per_expert
+        out.pop("bound_ms")
+        out.update(all_experts_bytes=all_b, chosen_experts_bytes=chosen,
+                   bound_all_experts_bytes=all_b + lin + state,
+                   bound_all_experts_ms=ms(all_b + lin + state),
+                   bound_chosen_experts_bytes=chosen + lin + state,
+                   bound_chosen_experts_ms=ms(chosen + lin + state))
+    return out
+
+
+def _ssm_small_ms(eng, counted, batch: int = 1):
+    """One SSM layer's small kernels at the step's shapes: its
+    ``ssm_decode_step`` run alone (device time, torch.profiler, over a
+    scratch state) less its two linears run alone. The launches these
+    timings make are not the path's: they are zeroed."""
+    import torch
+    from repro_torch.core.offload import OffloadEngine
+    from repro_torch.models import layers, ssm
+    cfg = eng.cfg
+    p = next(b["ssm"] for b in eng._serve_params["stack"]["blocks"]
+             if "ssm" in b)
+    off = OffloadEngine()
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    dt = torch.bfloat16
+    h = torch.randn((batch, 1, cfg.d_model), generator=gen,
+                    device="cuda").to(dt)
+    y = torch.randn((batch, 1, cfg.ssm.d_inner(cfg.d_model)), generator=gen,
+                    device="cuda").to(dt)
+    st = ssm.SSMState.zeros(batch, cfg.ssm, cfg.d_model, device="cuda")
+
+    def linears():
+        layers.linear(p["in_proj"], h[:, 0], off, "ssm.in_proj")
+        layers.linear(p["out_proj"], y, off, "ssm.out_proj")
+    with torch.no_grad():
+        step_ms, src = device_ms(
+            lambda: ssm.ssm_decode_step(p, cfg, h, st, engine=off))
+        lin_ms, _ = device_ms(linears)
+    _zero(counted)
+    return step_ms - lin_ms, src
+
+
+def _ssm_step_report(label, eng, one, kernels, counted, want_name):
+    """16a/16c's step: the replayed step's device ms split into the
+    engine's ``want_name`` launches (from the replay), the SSM layers'
+    small kernels (one layer alone times the SSM layers), with MoE layers
+    the expert products and dispatch/combine (``_moe_split``), and the
+    rest, beside the step's byte bounds (decode ms a token over each)."""
+    cfg = eng.cfg
+    bounds = _step_bounds(eng)
+    out = dict(**bounds)
+    step_ms = one.get("step_device_ms")
+    if isinstance(step_ms, float):
+        split = (_moe_split(eng, kernels, step_ms, counted)
+                 if cfg.moe is not None else {})
+        split.pop("gemv_bf16_kernel_ms", None)
+        dec_ms = by_route(kernels, (want_name,))[want_name][1]
+        small, src = _ssm_small_ms(eng, counted)
+        n_ssm = cfg.num_layers - len(cfg.attention_layers)
+        out.update(split, **{f"{want_name}_ms": dec_ms},
+                   ssm_small_kernels_ms=n_ssm * small,
+                   ssm_small_kernels_a_layer_ms=small,
+                   ssm_small_source=f"layer alone x {n_ssm}: {src}")
+        out["rest_ms"] = (step_ms - dec_ms - n_ssm * small
+                          - split.get("expert_products_ms", 0.0)
+                          - split.get("dispatch_combine_ms", 0.0))
+    dec = one["decode_ms_per_token"]
+    for key in [k for k in bounds if k.startswith("bound") and
+                k.endswith("_ms")]:
+        out[f"decode_vs_{key}"] = dec / bounds[key]
+    print(f"ssm {label} step: {json.dumps(out)}", flush=True)
+    return out
+
+
+def _ssm_row_invariance(eng, counted, total):
+    """16b: row 0 of an eager 4-slot step gets exactly the logits, conv
+    windows and SSD states a batch-1 step gives it, over three steps from
+    random states (lengths 5, 2, 9, 0)."""
+    import torch
+    from repro_torch.core.offload import OffloadEngine
+    from repro_torch.models import model
+    cfg, dev = eng.cfg, torch.device("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    one = model.zeros_serve_state(cfg, 1, 0, LM_MAX_LEN, device=dev)
+    pool = model.zeros_slot_state(cfg, SLOTS, 0, LM_MAX_LEN, device=dev)
+    for a, b in zip(model.state_tensors(one), model.state_tensors(pool)):
+        if b.is_floating_point():
+            b.copy_(torch.randn(b.shape, generator=gen, device=dev))
+        else:
+            b.copy_(torch.tensor([5, 2, 9, 0]))
+        a.copy_(b[:1].reshape(a.shape))
+    tok = torch.tensor([[11], [22], [33], [44]], device=dev)
+    off = OffloadEngine()
+    equal = []
+    with torch.no_grad():
+        for _ in range(3):
+            l4, _ = model.serve_step(eng._serve_params, cfg, tok, pool,
+                                     engine=off)
+            l1, _ = model.serve_step(eng._serve_params, cfg, tok[:1], one,
+                                     engine=off)
+            equal.append(bool(torch.equal(l1, l4[:1])))
+    states = all(torch.equal(a.reshape(b[:1].shape), b[:1]) for a, b in
+                 zip(model.state_tensors(one), model.state_tensors(pool)))
+    _take(counted, total)
+    out = dict(logits_bit_equal=equal, states_bit_equal=states)
+    print(f"ssm mamba2 row: a {SLOTS}-slot step's row 0 against a batch-1 "
+          f"step: {json.dumps(out)}", flush=True)
+    if not all(equal) or not states:
+        raise AssertionError(f"ssm mamba2: a slot row differs from its "
+                             f"batch-1 step {out}")
+    return out
+
+
+def _ssm_layer_vs_cpu(eng, counted, total):
+    """16c: the first full-width SSM layer's ``ssm_decode_step`` on the
+    card and, on a copy of its weights, on the CPU (the kernels' plain
+    versions), one row over SSM_LAYER_STEPS carried steps of seeded
+    inputs: the outputs, conv window and SSD state within SSM_LAYER_TOL
+    of the CPU's largest value."""
+    import torch
+    from repro_torch.core.offload import OffloadEngine
+    from repro_torch.models import model, ssm
+    cfg = eng.cfg
+    p = next(b["ssm"] for b in eng._serve_params["stack"]["blocks"]
+             if "ssm" in b)
+    p_cpu = model.to_device(p, torch.device("cpu"))
+    st = ssm.SSMState.zeros(1, cfg.ssm, cfg.d_model, device="cuda")
+    st_cpu = ssm.SSMState.zeros(1, cfg.ssm, cfg.d_model, device="cpu")
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    off = OffloadEngine()
+    errs = []
+
+    def rel(got, want):
+        want = want.float()
+        return ((got.float().cpu() - want).abs().max().item()
+                / max(1.0, want.abs().max().item()))
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for _ in range(SSM_LAYER_STEPS):
+            u = torch.randn((1, 1, cfg.d_model), generator=gen,
+                            device="cuda").to(torch.bfloat16)
+            y, st = ssm.ssm_decode_step(p, cfg, u, st, engine=off)
+            yc, st_cpu = ssm.ssm_decode_step(p_cpu, cfg, u.cpu(), st_cpu,
+                                             engine=off)
+            errs.append(rel(y, yc))
+    _take(counted, total)
+    out = dict(steps=SSM_LAYER_STEPS, out_rel_err_max=max(errs),
+               conv_rel_err=rel(st.conv, st_cpu.conv),
+               ssd_rel_err=rel(st.ssd, st_cpu.ssd),
+               ssd_absmax=st_cpu.ssd.abs().max().item(),
+               tolerance=SSM_LAYER_TOL, s=time.perf_counter() - t0)
+    print(f"ssm jamba layer card vs cpu: {json.dumps(out)}", flush=True)
+    if not max(out["out_rel_err_max"], out["conv_rel_err"],
+               out["ssd_rel_err"]) <= SSM_LAYER_TOL:
+        raise AssertionError(f"ssm jamba layer: card and CPU differ {out}")
+    return out
+
+
+def _jamba_smoke_vs_cpu(counted, total):
+    """16c: jamba's smoke config (weights seeded on the CPU), the same
+    requests on the card and on the CPU: ``generate`` of two prompts, and
+    four identical prompts over 4 slots (capacity 2: their MoE choices
+    drop): equal tokens."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.offload import OffloadEngine
+    from repro_torch.models import model
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.scheduler import ContinuousBatchingScheduler
+    cfg = get_smoke_config(JAMBA_ARCH)
+    params = model.init_params(torch.Generator().manual_seed(MOE_SEED), cfg,
+                               device="cpu")
+    prompts = np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (2, 5)).astype(np.int32)
+    rows = {}
+    for device in ("cuda", "cpu"):
+        # burst 32 sends the smoke widths' main segments to the kernel
+        eng = ServeEngine(cfg, params, max_len=16, quant="none",
+                          offload=OffloadEngine(burst=32), eos_id=None,
+                          device=device)
+        gen = [r.tokens for r in eng.generate(prompts, max_new=8)]
+        sched = ContinuousBatchingScheduler(eng, n_slots=SLOTS)
+        rids = [sched.submit(np.array(MOE_DROP_PROMPT, np.int32),
+                             max_new=MOE_DROP_NEW) for _ in range(SLOTS)]
+        res = sched.run()
+        rows[device] = dict(generate=gen,
+                            scheduler=[res[r].tokens for r in rids])
+    _take(counted, total)
+    out = dict(card=rows["cuda"], cpu=rows["cpu"],
+               equal=rows["cuda"] == rows["cpu"])
+    print(f"ssm jamba smoke card vs cpu: {json.dumps(out)}", flush=True)
+    if not out["equal"]:
+        raise AssertionError(f"ssm jamba smoke: card and CPU differ {out}")
+    return out
+
+
+def ssm_phase(counted):
+    """Phase 16: the SSM and hybrid families. 16a mamba2-780m at full
+    width (48 layers) in Q8_0: the first logits against the CPU at depth
+    2, ``generate`` eager and captured at batch 1 and 4 (``lm_oneshot``,
+    97 ``q8_matvec_kernel`` a replay), the step's split and bounds; 16b
+    its slot scheduler (``lm_scheduler``) and a 4-slot row bit for bit a
+    batch-1 row; 16a again in bf16 (97 ``gemv_bf16_kernel``); 16c, mamba2
+    freed, jamba-v0.1-52b at full width cut to one 8-layer repeat: one
+    SSM layer card vs CPU, ``generate`` at batch 1 (31
+    ``gemv_bf16_kernel``), the split and bounds, and the smoke config's
+    tokens card vs CPU. Returns the phase's Python launches by kernel and
+    its summary."""
+    import gc
+
+    import torch
+    from repro_torch.core.offload import OffloadEngine
+    from repro_torch.serve.engine import ServeEngine
+
+    t0 = time.perf_counter()
+    total = {}
+    _zero(counted)
+    gc.collect()
+    torch.cuda.empty_cache()
+    summary = {}
+    cfg, params, summary["mamba2_init"] = _moe_params(MAMBA_ARCH,
+                                                      prefix="ssm")
+    eng = ServeEngine(cfg, params, max_len=LM_MAX_LEN,
+                      offload=OffloadEngine(), eos_id=None, device="cuda")
+    eng.params = params = None          # the bf16 draw: freed, quantized
+    gc.collect()
+    torch.cuda.empty_cache()
+    summary["mamba2_cpu"] = _lm_cpu_check(eng, SSM_CPU_TOL, "ssm mamba2")
+    _take(counted, total)
+    one, kernels = lm_oneshot("q8_0", eng, counted, total,
+                              "q8_matvec_kernel", batch4=True,
+                              per_step=MAMBA_PER_STEP, prefix="ssm mamba2")
+    summary["mamba2_q8_0"] = one
+    summary["mamba2_q8_0_step"] = _ssm_step_report(
+        "mamba2 q8_0", eng, one, kernels, counted, "q8_matvec_kernel")
+    summary["mamba2_scheduler"] = lm_scheduler(
+        eng, counted, total, "q8_matvec", "q8_matvec_kernel",
+        MAMBA_PER_STEP, "ssm mamba2", SSM_SCHED_PROMPTS, SSM_SCHED_BUDGETS)
+    summary["mamba2_row"] = _ssm_row_invariance(eng, counted, total)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg, params, _ = _moe_params(MAMBA_ARCH, prefix="ssm")
+    eng = ServeEngine(cfg, params, max_len=LM_MAX_LEN, quant="none",
+                      offload=OffloadEngine(), eos_id=None, device="cuda")
+    del params
+    one, kernels = lm_oneshot("bf16", eng, counted, total,
+                              "gemv_bf16_kernel", batch4=True,
+                              per_step=MAMBA_PER_STEP, prefix="ssm mamba2")
+    summary["mamba2_bf16"] = one
+    summary["mamba2_bf16_step"] = _ssm_step_report(
+        "mamba2 bf16", eng, one, kernels, counted, "gemv_bf16_kernel")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg, params, summary["jamba_init"] = _moe_params(
+        JAMBA_ARCH, JAMBA_LAYERS, prefix="ssm")
+    eng = ServeEngine(cfg, params, max_len=LM_MAX_LEN, quant="none",
+                      offload=OffloadEngine(), eos_id=None, device="cuda")
+    del params
+    summary["jamba_layer"] = _ssm_layer_vs_cpu(eng, counted, total)
+    one, kernels = lm_oneshot("bf16", eng, counted, total,
+                              "gemv_bf16_kernel", batch4=False,
+                              per_step=JAMBA_PER_STEP, new=JAMBA_NEW,
+                              prefix="ssm jamba")
+    summary["jamba"] = one
+    summary["jamba_step"] = _ssm_step_report(
+        "jamba", eng, one, kernels, counted, "gemv_bf16_kernel")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    summary["jamba_smoke"] = _jamba_smoke_vs_cpu(counted, total)
+    wall = time.perf_counter() - t0
+    summary["phase_s"] = wall
+    print(f"ssm phase: {wall:.1f} s; launches {total}", flush=True)
+    return total, summary
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4251,6 +4641,8 @@ def main() -> int:
     print(f"lm summary: {json.dumps(lm_summary)}", flush=True)
     path_launches["moe"], moe_summary = moe_phase(counted)
     print(f"moe summary: {json.dumps(moe_summary)}", flush=True)
+    path_launches["ssm"], ssm_summary = ssm_phase(counted)
+    print(f"ssm summary: {json.dumps(ssm_summary)}", flush=True)
 
     kernels = []
     for name, meta in KERNELS.items():

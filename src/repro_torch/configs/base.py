@@ -1,15 +1,16 @@
 """Model configuration for the PyTorch port: the subset of the reference's
-``ModelConfig`` that the Whisper (audio) ladder and the dense and
-mixture-of-experts decoder-only LM families read.
+``ModelConfig`` that the Whisper (audio) ladder and the dense,
+mixture-of-experts, state-space (SSM) and hybrid decoder-only LM families
+read.
 
 This is the port's own copy: the port imports nothing of the JAX package.
 Field names, defaults, the derived quantities (``attention_layers``,
 ``moe_layers``, ``n_params``, ``n_active_params``) and ``reduced`` follow
 the reference (``repro/configs/base.py``) so that a config built here
 describes the same model as its reference twin. ``MoEConfig`` and
-``SSMConfig`` are carried as data (``reduced`` and the parameter count
-read them; ``models/moe.py`` runs the MoE block); the families the port
-has no layers for yet (SSM, hybrid, VLM) are refused.
+``SSMConfig`` configure ``models/moe.py``'s block and ``models/ssm.py``'s
+mixer (``reduced`` and the parameter count read them too); the family the
+port has no layers for yet (VLM) is refused.
 """
 from __future__ import annotations
 
@@ -25,7 +26,7 @@ VLM = "vlm"       # decoder-only LM backbone with stubbed vision frontend
 
 FAMILIES = (DENSE, MOE, SSM, HYBRID, AUDIO, VLM)
 #: the families the port serves
-SERVED = (DENSE, MOE, AUDIO)
+SERVED = (DENSE, MOE, SSM, HYBRID, AUDIO)
 
 
 @dataclass(frozen=True)
@@ -43,7 +44,7 @@ class MoEConfig:
 
 @dataclass(frozen=True)
 class SSMConfig:
-    """Mamba2 / SSD block parameters (data only in the port)."""
+    """Mamba2 / SSD mixer parameters."""
     d_state: int
     d_conv: int = 4
     expand: int = 2              # d_inner = expand * d_model
@@ -60,7 +61,8 @@ class SSMConfig:
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """One architecture: an audio encoder-decoder, or a dense or MoE LM."""
+    """One architecture: an audio encoder-decoder, or a dense, MoE, SSM or
+    hybrid LM."""
     name: str
     family: str
     num_layers: int              # decoder layers
@@ -126,6 +128,9 @@ class ModelConfig:
                              "item 15a")
         if self.family == MOE and self.moe is None:
             raise ValueError(f"{self.name}: the moe family needs a MoEConfig")
+        if self.family in (SSM, HYBRID) and self.ssm is None:
+            raise ValueError(f"{self.name}: the {self.family} family needs "
+                             "an SSMConfig")
         if (self.family == AUDIO) != self.is_encoder_decoder:
             # the port's models dispatch on the family: only the audio
             # family is an encoder-decoder, and it always is

@@ -1,17 +1,18 @@
 """Architecture registry of the port: ``--arch <id>`` -> (CONFIG, SMOKE).
 
-The port serves the Whisper ladder, the dense decoder-only LMs and the
-mixture-of-experts LMs. The reference's other language-model archs
-(state-space, hybrid and vision-language) are known ids that raise
-``KeyError`` naming the slice of ROADMAP item 15a that brings them.
+The port serves the Whisper ladder and the dense, mixture-of-experts,
+state-space and hybrid decoder-only LMs. The reference's other
+language-model arch (vision-language) is a known id that raises
+``KeyError`` naming the slice of ROADMAP item 15a that brings it.
 """
 from __future__ import annotations
 
 from typing import Dict
 
 from repro_torch.configs import (
-    arctic_480b, internlm2_20b, olmoe_1b_7b, phi3_mini_3_8b, qwen1_5_110b,
-    qwen2_5_14b, whisper_base, whisper_small, whisper_tiny)
+    arctic_480b, internlm2_20b, jamba_v0_1_52b, mamba2_780m, olmoe_1b_7b,
+    phi3_mini_3_8b, qwen1_5_110b, qwen2_5_14b, whisper_base, whisper_small,
+    whisper_tiny)
 from repro_torch.configs.base import ModelConfig
 
 ALL_ARCHS: Dict[str, object] = {
@@ -24,13 +25,13 @@ ALL_ARCHS: Dict[str, object] = {
     "qwen1.5-110b": qwen1_5_110b,
     "olmoe-1b-7b": olmoe_1b_7b,
     "arctic-480b": arctic_480b,
+    "mamba2-780m": mamba2_780m,
+    "jamba-v0.1-52b": jamba_v0_1_52b,
 }
 
 #: the reference's archs the port does not serve yet, with the slice of
 #: ROADMAP item 15a that brings each
 LATER: Dict[str, str] = {
-    "mamba2-780m": "15a SSM (ssm.py)",
-    "jamba-v0.1-52b": "15a hybrid (moe.py and ssm.py)",
     "llava-next-mistral-7b": "15a VLM (projector and patches)",
 }
 

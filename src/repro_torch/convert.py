@@ -10,8 +10,11 @@ of P pattern positions, each stacked over R repeats (a smoke config,
 ``scan_layers=False``, still stacks: R = num_layers), and layer i of the
 port is repeat ``i // P`` of position ``i % P``. A MoE layer's leaves
 (``moe/router/w``, the (E, in, out) expert stacks ``moe/w_up``,
-``w_gate`` and ``w_down``, ``moe/dense/*``) unstack like any other. Tests
-use it to run both packages on identical weights.
+``w_gate`` and ``w_down``, ``moe/dense/*``) and an SSM layer's leaves
+(``ssm/in_proj/w``, ``ssm/out_proj/w``, ``ssm/conv_w``, ``ssm/conv_b``,
+``ssm/A_log``, ``ssm/D``, ``ssm/dt_bias``, ``ssm/norm/scale``) unstack like
+any other: a hybrid's pattern mixes both kinds of position. Tests use it
+to run both packages on identical weights.
 """
 from __future__ import annotations
 

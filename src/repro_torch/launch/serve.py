@@ -3,8 +3,10 @@
 
 Boots the ServeEngine with random weights from ``--seed`` (Q8_0 on load by
 default) and serves a set of synthetic requests: mels for a Whisper arch,
-for a dense or MoE LM (``--arch qwen2.5-14b``; ``--arch olmoe-1b-7b
---quant none``, a MoE LM in Q8_0 being refused) prompts of 8 tokens drawn
+for a dense, MoE, SSM or hybrid LM (``--arch qwen2.5-14b``, ``--arch
+mamba2-780m``; ``--arch olmoe-1b-7b --quant none``, ``--arch
+jamba-v0.1-52b --quant none``, a model with MoE layers in Q8_0 being
+refused) prompts of 8 tokens drawn
 from ``--seed`` as the reference's launcher draws them (an LM's weights
 are drawn on ``--device``, from a generator there). It serves them as one
 static batch (``transcribe`` or ``generate``), or with ``--continuous``

@@ -1,5 +1,5 @@
-"""The model API of the port: the audio (Whisper) and dense LM branches of
-the reference's family dispatch.
+"""The model API of the port: the audio (Whisper) and decoder-only LM
+(dense, MoE, SSM, hybrid) branches of the reference's family dispatch.
 
   init_params(gen, cfg, max_positions, device) -> param dict
   init_serve_state(params, cfg, batch, max_len, memory=...) -> ServeState
@@ -13,10 +13,12 @@ the reference's family dispatch.
   verify_step(params, cfg, tokens, state)      -> (logits (B, W, V), state')
   set_slot_lengths(state, new_len)             -> None (in place)
 
-An LM's layer state is a list of one cache a layer (``KVCache``, or
-``QKVCache`` with ``kv_quant="q8"``), where the reference stacks the
-layers of each leaf; every tensor still has the batch on axis 0, so the
-slot splice (``serve/kvcache.py``) treats both families alike. An LM's
+An LM's layer state is a list of one state a layer (an attention layer's
+``KVCache``, or ``QKVCache`` with ``kv_quant="q8"``; an SSM layer's
+``SSMState``), where the reference stacks the layers of each pattern
+position's leaves; every tensor still has the batch on axis 0, so the
+slot splice (``serve/kvcache.py``) treats every family alike, and each
+layer's ``length`` is its counter (per row in the slot layout). An LM's
 prefill is the reference's: a loop of ``serve_step`` over the prompt's
 tokens (the reference's ``lax.scan``), not a full-sequence forward.
 """
@@ -37,7 +39,7 @@ class ServeState(NamedTuple):
     reference's standard layout, ``(B,)`` in the slot layout of a
     continuous-batching pool, where every counter (``step`` and each
     layer's cache length) is per row."""
-    layer_states: Any     # WhisperDecodeState | [KVCache | QKVCache] (LM)
+    layer_states: Any     # WhisperDecodeState | [a state a layer] (LM)
     step: torch.Tensor    # () or (B,) int32
 
 
@@ -167,14 +169,15 @@ def zeros_paged_state(cfg: ModelConfig, n_slots: int, *, max_pages: int,
 
 def slot_layout(state: ServeState, batch: int) -> ServeState:
     """Standard -> slot layout: every scalar counter (``step`` and each
-    layer's cache length) becomes a ``(batch,)`` vector holding its value.
+    layer's length) becomes a ``(batch,)`` vector holding its value.
     Returns a new ServeState: the counters are new tensors, the data
-    tensors (self and cross K/V) are the same tensors as ``state``'s.
+    tensors (self and cross K/V, SSM states) are the same tensors as
+    ``state``'s.
     Counters already per row pass through, so it is idempotent."""
     def per_row(t: torch.Tensor) -> torch.Tensor:
         return t.expand(batch).clone() if t.dim() == 0 else t
     ls = state.layer_states
-    if isinstance(ls, list):                       # an LM's caches
+    if isinstance(ls, list):                       # an LM's layer states
         return ServeState(
             layer_states=[c._replace(length=per_row(c.length)) for c in ls],
             step=per_row(state.step))

@@ -1,4 +1,4 @@
-"""Decoder-only transformer stack of the dense and MoE LM families.
+"""Decoder-only stack of the dense, MoE, SSM and hybrid LM families.
 
 The reference groups its layers into a repeating pattern of length P
 (``layer_pattern``: the attention and MoE periods of heterogeneous
@@ -10,8 +10,11 @@ cache a layer: no stacking and no scan. On the card a step is captured
 whole into a CUDA graph, which removes the Python loop's cost that the
 scan saves the reference's trace.
 
-The attention mixer is built here, with a dense, MoE (``models/moe.py``)
-or no FFN; an SSM layer spec raises until the port has that layer.
+A layer's mixer is attention or the SSD recurrence (``models/ssm.py``),
+and its FFN dense, MoE (``models/moe.py``) or none: jamba's pattern of 8
+puts attention at position 4 and MoE at the odd positions, mamba2's is
+one SSM layer with no FFN. The decode state holds one entry a layer, a
+KV cache for an attention layer and an ``SSMState`` for an SSM layer.
 """
 from __future__ import annotations
 
@@ -21,7 +24,7 @@ from typing import List, NamedTuple, Tuple, Union
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import layers, moe as moe_lib
+from repro_torch.models import layers, moe as moe_lib, ssm as ssm_lib
 from repro_torch.models.attention import (
     KVCache, QKVCache, decode_attention, init_attention)
 
@@ -64,15 +67,9 @@ def n_repeats(cfg: ModelConfig) -> int:
 
 
 def layer_specs(cfg: ModelConfig) -> List[LayerSpec]:
-    """Each layer's spec, in order; raises on a layer the port cannot
-    build (an SSM mixer: ROADMAP item 15a)."""
-    pattern = layer_pattern(cfg)
-    for spec in pattern:
-        if spec.mixer != "attn":
-            raise NotImplementedError(
-                f"{cfg.name}: layer {spec} needs the port's ssm.py "
-                "(ROADMAP item 15a)")
-    return list(pattern) * n_repeats(cfg)
+    """Each layer's spec, in order: layer i is position ``i % P`` of the
+    pattern."""
+    return list(layer_pattern(cfg)) * n_repeats(cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -82,8 +79,11 @@ def _init_block(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec,
                 dtype) -> dict:
     dev = gen.device
     p = {"norm1": layers.init_norm(cfg.d_model, dtype, kind=cfg.norm,
-                                   device=dev),
-         "attn": init_attention(gen, cfg, dtype)}
+                                   device=dev)}
+    if spec.mixer == "attn":
+        p["attn"] = init_attention(gen, cfg, dtype)
+    else:
+        p["ssm"] = ssm_lib.init_ssm(gen, cfg, dtype)
     if spec.ffn != "none":
         p["norm2"] = layers.init_norm(cfg.d_model, dtype, kind=cfg.norm,
                                       device=dev)
@@ -106,31 +106,40 @@ def init_decoder_stack(gen: torch.Generator, cfg: ModelConfig) -> dict:
 # ---------------------------------------------------------------------------
 # Decode (one token, carried state)
 # ---------------------------------------------------------------------------
-LayerState = Union[KVCache, QKVCache]
+LayerState = Union[KVCache, QKVCache, ssm_lib.SSMState]
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
                       dtype=torch.bfloat16, *, device) -> List[LayerState]:
-    """One empty cache a layer on ``device`` (no default), with a scalar
-    length: ``QKVCache`` when ``cfg.kv_quant == "q8"``, else ``KVCache``."""
+    """One empty state a layer on ``device`` (no default), with a scalar
+    length: an attention layer's cache (``QKVCache`` when ``cfg.kv_quant
+    == "q8"``, else ``KVCache``), an SSM layer's ``SSMState`` (f32, as
+    the reference's, which passes no type)."""
     cache_cls = QKVCache if cfg.kv_quant == "q8" else KVCache
     return [cache_cls.zeros(batch, max_len, cfg.num_kv_heads, cfg.head_dim,
                             dtype, device=device)
-            for _ in layer_specs(cfg)]
+            if spec.mixer == "attn" else
+            ssm_lib.SSMState.zeros(batch, cfg.ssm, cfg.d_model, device=device)
+            for spec in layer_specs(cfg)]
 
 
 def decode_step_stack(params: dict, cfg: ModelConfig, x: torch.Tensor,
                       states: List[LayerState], *, engine=None
                       ) -> Tuple[torch.Tensor, List[LayerState]]:
-    """x: (B, 1, d) through every layer: pre-norm attention over the
-    layer's cache (advanced in place), then the pre-norm FFN (dense, or
+    """x: (B, 1, d) through every layer: the pre-norm mixer, attention
+    over the layer's cache or the SSD recurrence over its state (either
+    advanced in place), then the pre-norm FFN (dense, or
     MoE with its load-balance loss dropped, as the reference's decode
     drops it), each added to the residual stream in x's type. Returns (y,
     states), ``states`` the same caches."""
     for p, spec, st in zip(params["blocks"], layer_specs(cfg), states,
                            strict=True):
         h = layers.norm_apply(p["norm1"], x, cfg.norm)
-        mixed, _ = decode_attention(p["attn"], cfg, h, st, engine=engine)
+        if spec.mixer == "attn":
+            mixed, _ = decode_attention(p["attn"], cfg, h, st, engine=engine)
+        else:
+            mixed, _ = ssm_lib.ssm_decode_step(p["ssm"], cfg, h, st,
+                                               engine=engine)
         x = x + mixed.to(x.dtype)
         if spec.ffn != "none":
             h = layers.norm_apply(p["norm2"], x, cfg.norm)

@@ -1,5 +1,6 @@
-"""Serving engine: one-shot batched Whisper transcription and dense- and
-MoE-LM generation with the paper's offload paths, Q8_0 or dense (FP16),
+"""Serving engine: one-shot batched Whisper transcription and LM generation
+(dense, MoE, SSM and hybrid) with the paper's offload paths, Q8_0 or
+dense (FP16),
 on the H100 or (when asked) the CPU, and the entry points of continuous
 batching (``scheduler``, ``submit_audio``, ``submit``, ``run``:
 ``serve/scheduler.py``).
@@ -32,7 +33,7 @@ over its pool (its graph is the scheduler's, its plan this engine's at
 ``plan_key("step", quant, n_slots, F)``, with the page geometry appended
 for a paged pool: ``paged_scheduler``, ``serve/paging.py``).
 
-A dense LM (``generate``) has one program a batch B: the greedy step
+An LM (``generate``) has one program a batch B: the greedy step
 (``_lm_step_fn``) over static buffers of its own (``_LMStatic``: the
 prompt, its length, the caches and counters, the token, ``done`` and the
 generated tokens), captured on the card at ``plan_key("step", quant,
@@ -45,9 +46,11 @@ prefill's plan is the step's entries at ``plan_key("prefill", quant, B,
 S)``, committed S times, as the reference's scan body; the last prefill
 step's argmax is the first decode step's input, not a generated token.
 ``prefill_prompt`` runs the batch-1 prefill for the scheduler's LM
-admissions. A MoE LM serves the same way, in bf16 only: the reference
-quantizes its expert stacks into Q8_0 and then fails on them
-(``check_servable``).
+admissions. An SSM or hybrid LM serves the same way: its SSM layers'
+conv windows and states are zeroed with the caches at each load, which
+starts their recurrence. A MoE LM (and the hybrid jamba, whose FFNs are
+half MoE) serves in bf16 only: the reference quantizes its expert stacks
+into Q8_0 and then fails on them (``check_servable``).
 
 Speculative decoding (``speculative``, ``serve/speculative.py``) adds two
 programs over slot-layout buffers that its caller owns: the verify window
@@ -106,6 +109,7 @@ from repro_torch.core.plan import DispatchPlan, PlanCache, plan_key
 from repro_torch.core.qformats import quantize_tree
 from repro_torch.models import model as model_lib
 from repro_torch.models import whisper as whisper_lib
+from repro_torch.models.ssm import SSMState
 
 
 @dataclass
@@ -147,7 +151,8 @@ def _keep_dense(path, leaf) -> bool:
 
 def check_servable(cfg: ModelConfig, quant: str) -> None:
     """Raise ``NotImplementedError`` for a model the port does not serve at
-    ``quant``: a MoE LM in Q8_0. There the reference's ``quantize_tree``
+    ``quant``: a model with MoE layers (the MoE family, the hybrid jamba)
+    in Q8_0. There the reference's ``quantize_tree``
     turns the 3-D expert stacks into ``QTensor``, and its ``moe_ffn`` then
     fails on them (``AttributeError: 'QTensor' object has no attribute
     'astype'``, ``repro/models/moe.py:121``); the port serves such a model
@@ -324,10 +329,12 @@ class ServeEngine:
     def step(self, token: torch.Tensor, state):
         """One eager decode step: token (B, 1) -> (logits (B, 1, V),
         state'), the state advanced in place. Raises, before the step
-        runs, when the self-KV cache is full."""
+        runs, when the self-KV cache is full (an attention-free model's
+        state has no positions to fill)."""
         ls = state.layer_states
-        kv = ls[0] if isinstance(ls, list) else ls.self_kv[0]
-        if int(kv.length.max()) >= kv[0].shape[1]:
+        kv = next((st for st in ls if not isinstance(st, SSMState)), None) \
+            if isinstance(ls, list) else ls.self_kv[0]
+        if kv is not None and int(kv.length.max()) >= kv[0].shape[1]:
             raise ValueError(f"KV cache full: {kv[0].shape[1]} positions")
         with torch.inference_mode():
             return model_lib.serve_step(self._serve_params, self.cfg, token,
@@ -661,7 +668,7 @@ class ServeEngine:
         return recorded, prefill_s
 
     def generate(self, prompts, max_new: int = 32) -> List[GenerationResult]:
-        """Dense LMs. prompts: (B, S) int (already padded), numpy or
+        """The LMs. prompts: (B, S) int (already padded), numpy or
         tensor. The prefill runs the step program once a prompt token and
         the greedy loop up to ``max_new`` more, each a graph replay on the
         card. Returns one result per row; ``tokens`` are the generated

@@ -1,8 +1,9 @@
 """Fixed-shape slot KV-cache pool for continuous batching.
 
 The pool allocates ONE slot-layout decode state of ``n_slots`` rows (for
-whisper with ``n_frames`` cross-K/V frames; for an LM its caches, int8
-with ``kv_quant="q8"``) at construction and never
+whisper with ``n_frames`` cross-K/V frames; for an LM its layer states:
+KV caches, int8 with ``kv_quant="q8"``, and SSM conv windows and states)
+at construction and never
 reshapes it or replaces its tensors: admission and eviction are copies
 into row ``slot`` of the pool's own tensors, so the scheduler's captured
 slot step (a CUDA graph on the card) keeps reading the storage it was
@@ -37,6 +38,7 @@ from typing import Dict, List, Optional
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import model as model_lib
 from repro_torch.models.model import ServeState
+from repro_torch.models.transformer import layer_pattern
 
 
 def slot_insert(pool: ServeState, slot: int, req: ServeState) -> None:
@@ -83,6 +85,10 @@ class SlotKVPool:
         self.n_frames = n_frames
         self.state: ServeState = model_lib.zeros_slot_state(
             cfg, n_slots, n_frames, max_len, device=device)
+        # an LM's layer pattern length: the reference stacks its state's
+        # leaves by pattern position
+        self._period = (len(layer_pattern(cfg)) if cfg.family != "audio"
+                        else 1)
         self._free: List[int] = list(range(n_slots))
 
     # -- free-slot bookkeeping (host side) -----------------------------
@@ -115,18 +121,25 @@ class SlotKVPool:
         """Bytes of committed state holding live request data, given the
         active slots' decode lengths: positional KV rows count in
         proportion to their filled length, fixed-size rows (whisper's
-        cross K/V and the lengths) whole per active slot. Summed field by
-        field over the layers, in the reference's leaf order, so that the
-        result equals the reference's for its layer-stacked state (an
-        LM's: each cache field, K/V data, their int8 scales, lengths)."""
+        cross K/V, SSM states and the lengths) whole per active slot. A
+        leaf is positional when its axis after the batch is ``max_len``
+        long: the reference's test, which also takes an ``SSMState.ssd``
+        whose head count equals ``max_len`` for positional (a reference
+        quirk, kept). Summed field by field over the layers of each
+        pattern position, in the reference's leaf order, so that the
+        result equals the reference's for its stacked state (an LM's: a
+        position's fields, K/V data, their int8 scales and lengths, or
+        conv window, SSD state and length)."""
         if not lengths:
             return 0
         n_active = len(lengths)
         frac = sum(min(n, self.max_len)
                    for n in lengths.values()) / self.max_len
         ls = self.state.layer_states
-        if isinstance(ls, list):                   # an LM's caches
-            fields = [list(f) for f in zip(*ls)]
+        if isinstance(ls, list):                   # an LM's layer states
+            p = self._period
+            fields = [[st[f] for st in ls[j::p]]
+                      for j in range(p) for f in range(len(ls[j]))]
         else:
             fields = [[kv.k for kv in ls.self_kv],
                       [kv.v for kv in ls.self_kv],

@@ -1,6 +1,8 @@
 """The port stands alone: no file of ``src/repro_torch/``, not
-``chip_smoke.py`` and not ``sweep_kernels.py`` imports JAX or anything of the reference package
-``repro``, even a module of it that does not import JAX."""
+``chip_smoke.py``, not ``sweep_kernels.py`` and no card test file
+(``tests/test_torch_*_gpu.py``, which run where there is no JAX) imports
+JAX or anything of the reference package ``repro``, even a module of it
+that does not import JAX."""
 import ast
 import os
 
@@ -15,6 +17,9 @@ def _files():
            os.path.join(ROOT, "sweep_kernels.py")]
     for d, _, names in os.walk(PORT):
         out += [os.path.join(d, n) for n in names if n.endswith(".py")]
+    tests = os.path.join(ROOT, "tests")
+    out += [os.path.join(tests, n) for n in os.listdir(tests)
+            if n.startswith("test_torch_") and n.endswith("_gpu.py")]
     return sorted(out)
 
 

@@ -63,7 +63,7 @@ from repro_torch.serve.scheduler import ContinuousBatchingScheduler
 
 DENSE = ["qwen2.5-14b", "phi3-mini-3.8b", "internlm2-20b", "qwen1.5-110b"]
 MOE = ["olmoe-1b-7b", "arctic-480b"]
-LATER = ["mamba2-780m", "jamba-v0.1-52b", "llava-next-mistral-7b"]
+LATER = ["llava-next-mistral-7b"]
 SERVED = ["qwen2.5-14b", "phi3-mini-3.8b"]
 BURSTS = [None, 256, 32]
 MAX_LEN = 32
@@ -181,9 +181,10 @@ def test_configs_reduced_params_and_coverage_match_reference(arch):
 
 def test_moe_and_ssm_data_reduce_as_the_reference_does():
     """The MoE and SSM configs: ``reduced`` cuts them as the reference
-    does; a model of the SSM family is refused, naming ROADMAP item 15a,
-    and one of the MoE family is served."""
-    for arch in ("olmoe-1b-7b", "arctic-480b", "mamba2-780m"):
+    does; models of the MoE, SSM and hybrid families are built, and one of
+    the VLM family is refused, naming ROADMAP item 15a."""
+    for arch in ("olmoe-1b-7b", "arctic-480b", "mamba2-780m",
+                 "jamba-v0.1-52b"):
         ref = jax_config(arch)
         moe = (None if ref.moe is None
                else base.MoEConfig(**dataclasses.asdict(ref.moe)))
@@ -197,14 +198,15 @@ def test_moe_and_ssm_data_reduce_as_the_reference_does():
             dataclasses.asdict(want.moe or jax_base.MoEConfig(0, 0, 0))
         assert dataclasses.asdict(got.ssm or base.SSMConfig(0)) == \
             dataclasses.asdict(want.ssm or jax_base.SSMConfig(0))
-        if ref.family == base.MOE:
-            cfg = dataclasses.replace(get_config("qwen2.5-14b"),
-                                      family=ref.family, moe=moe, ssm=ssm)
-            assert cfg.moe_layers == tuple(range(cfg.num_layers))
-            continue
-        with pytest.raises(ValueError, match="15a"):
-            dataclasses.replace(get_config("qwen2.5-14b"), family=ref.family,
-                                moe=moe, ssm=ssm)
+        cfg = dataclasses.replace(get_config("qwen2.5-14b"),
+                                  family=ref.family, moe=moe, ssm=ssm)
+        assert cfg.moe_layers == jax_base.ModelConfig(
+            **{f.name: getattr(cfg, f.name)
+               for f in dataclasses.fields(cfg)}).moe_layers
+        assert cfg.attention_layers == (
+            () if ref.family == base.SSM else tuple(range(cfg.num_layers)))
+    with pytest.raises(ValueError, match="15a"):
+        dataclasses.replace(get_config("qwen2.5-14b"), family=base.VLM)
 
 
 @pytest.mark.parametrize("arch", LATER)
