@@ -328,6 +328,60 @@ own kernels with nvcc. Phases, each of which fails the run on error:
     "mamba2-780m decode step", "mamba2-780m slot step") and
     ``bf16_matmul`` at jamba's ("jamba-v0.1-52b repeat step").
 
+17. The full-sequence forward and loss of every family (``forward_phase``),
+    and the VLM served. The memory still allocated at its start is
+    printed, before and after the cuBLAS workspaces are cleared
+    (``release_memory``, also called before phases 14-16; every earlier
+    phase frees its engines, trees and graph pools).
+    a. llava-next-mistral-7b at its published widths and depth (32
+       layers, d_model 4096, 32 heads over 8 KV heads of 128, d_ff 14,336,
+       vocabulary 32,000, a projector from 1024-wide patches), bf16
+       weights drawn on the card from a seeded CUDA generator, a second
+       engine quantizing them to Q8_0: the memory both trees hold and the
+       draw's peak.
+    b. ``forward`` and ``loss_fn`` through the offload engine at one row
+       of the reference's train_4k cell (S = 4096, 1152 f32 patches from a
+       seeded CUDA generator), Q8_0 and bf16, ``attn_impl`` "chunked" and
+       "flash": the depth-2 cut's logits and loss on a 256-token row
+       against the port on the CPU (1e-2 of the largest logit in Q8_0,
+       3e-2 in bf16); the launches from Python a forward (224 decoder
+       linears, the projector and lm_head on ``q8_matmul`` or
+       ``bf16_matmul``; 32 ``flash_attention_fwd`` under flash; in
+       ``loss_fn`` lm_head once a CE chunk, 8 at S = 4096); forward ms
+       (host clock, synchronized) and tokens a second; one profiled
+       forward's device ms split into the product kernels, attention
+       (flash, or the chunked path's library products and softmax) and
+       the rest, its idle share, beside the bound (the plan's linears'
+       operations and the causal attention's, against their bytes);
+       flash's logits within 3e-2 of chunked's largest logit and its loss
+       within 1e-2; every loss finite.
+    c. ``_embed_inputs`` alone, Q8_0, card against CPU: the projector's
+       product (M = 1152, K = 1024, N = 4096, f32 x) one ``q8_matmul``
+       launch, the splice within 1e-2, the token rows equal.
+    d. llava served on tokens alone, as the reference serves it:
+       ``lm_oneshot`` at batch 1 (64 + 64 tokens) and 4, and
+       ``lm_scheduler`` (14c's trace over 4 slots), in Q8_0 (225
+       ``q8_matvec_kernel`` a step) and in bf16 (225 ``gemv_bf16_kernel``),
+       the gates of phase 14's.
+    e. mamba2-780m's forward at full width in Q8_0 (S = 4096: the chunked
+       SSD scan, ``q8_matmul`` at in_proj 1536 -> 6448): the depth-2 cut
+       against the CPU, the launches (97 a forward), forward ms, the
+       device split into products, the scan's library products and the
+       rest.
+    f. The smoke config of each family (dense, MoE at a no-drop capacity,
+       SSM, hybrid, VLM with 4 patches, whisper-tiny through
+       ``decode_train``): ``forward`` and ``loss_fn`` on the card against
+       the CPU, and a teacher-forced ``forward`` against the
+       ``serve_step`` loop on the card (2e-4).
+    ``forward ...`` lines, then ``forward phase: N s``. Phase 2 holds
+    the decode kernels at llava's step at M = 1 and 4 ("llava decode
+    step", "llava slot step"); its rows at the forward's shapes are
+    measured after this phase (``LATE_ROWS``): ``q8_matmul`` and
+    ``bf16_matmul`` at M = 4096, and the projector at M = 1152 with f32
+    x (``per`` "llava forward"), and ``flash_attention_fwd`` causal at S
+    = 4096 over 32 heads at D = 128 ("llava forward") and D = 96
+    ("phi3-mini forward").
+
 The last two lines are the kernels' JSON record and the result line; each
 kernel's record also carries its launches on the tuned paths' eager loops
 (``tuned_launches``), its launches on each path's drive
@@ -335,7 +389,8 @@ kernel's record also carries its launches on the tuned paths' eager loops
 pool drives, both paths summed, under "paged", phase 12's captures
 under "speculative", phase 13's captures, every engine's summed, under
 "telemetry", every Python launch of phase 14 under "lm", of phase 15
-under "moe" and of phase 16 under "ssm") and its tiles' times
+under "moe", of phase 16 under "ssm", of phase 17 under "forward" and of
+phase 17d under "vlm") and its tiles' times
 (``tiles``).
 
 Copied out of a checkout (no ``src/repro_torch`` beside the script), or
@@ -446,6 +501,19 @@ JAMBA_DECODE = [(16544, 4096, 7), (4096, 8192, 7), (4096, 4096, 2),
 MAMBA_M1 = [(1, n, k, k, c, "bfloat16") for n, k, c in MAMBA_DECODE]
 MAMBA_M4 = [(4, n, k, k, c, "bfloat16") for n, k, c in MAMBA_DECODE]
 JAMBA_M1 = [(1, n, k, k, c, "bfloat16") for n, k, c in JAMBA_DECODE]
+# phase 17, llava-next-mistral-7b: its linears (n, k, launches) at a
+# forward of S = 4096 tokens (M = 4096) and at a decode step (M = 1, 4):
+# q and o at 4096, k and v at 4096 -> 1024, gate and up 4096 -> 14,336 and
+# down 14,336 -> 4096, 32 layers; lm_head 4096 -> 32,000. The projector
+# takes the 1152 f32 patches (M = 1152, 1024 -> 4096): f32 x on
+# q8_matmul's tiled launch, and rounded to bf16 inside bf16_matmul
+LLAVA_LINEARS = [(4096, 4096, 64), (1024, 4096, 64), (14336, 4096, 64),
+                 (4096, 14336, 32), (32000, 4096, 1)]
+LLAVA_PROJECTOR = (1152, 4096, 1024, 1024, 1, "float32")
+LLAVA_FWD = [(4096, n, k, k, c, "bfloat16") for n, k, c in LLAVA_LINEARS] \
+    + [LLAVA_PROJECTOR]
+LLAVA_M1 = [(1, n, k, k, c, "bfloat16") for n, k, c in LLAVA_LINEARS]
+LLAVA_M4 = [(4, n, k, k, c, "bfloat16") for n, k, c in LLAVA_LINEARS]
 BF16_PREFILL_SHAPES = [
     (1500, 384, 256, 384, 24, "bfloat16"),    # enc q/k/v/o + dec.cross.k/v
     (1500, 1536, 256, 384, 4, "bfloat16"),    # enc ffn.up
@@ -453,6 +521,20 @@ BF16_PREFILL_SHAPES = [
 ]
 # (batch*heads, Sq, Sk, D, launches per prefill, dtype, causal)
 FLASH_SHAPES = [(6, 1500, 1500, 64, 4, "bfloat16", False)]   # encoder
+# phase 17: the causal self-attention of a 4096-token forward, 32 heads a
+# layer folded to BH = 32: llava (D = 128) and phi3-mini (D = 96), 32
+# layers each
+FLASH_LLAVA = [(32, 4096, 4096, 128, 32, "bfloat16", True)]
+FLASH_PHI3 = [(32, 4096, 4096, 96, 32, "bfloat16", True)]
+# phase 2's rows at the 4096-token forward's shapes, measured last (after
+# phase 17), so that phases 3-16 run after the same phase 2 as before
+# they were added: their plain versions launch some 13,000 kernels a
+# profiled window (the flash rows), and on the card torch.profiler's
+# records of the tuned prefill replays' first kernel went missing twice
+# with them in place. Late in the run the profiler drops records too (a
+# library call's time came out below its bound), so these rows are timed
+# with CUDA events over captured graphs (``graph_ms``; PERF.md §6)
+LATE_ROWS = ("llava forward", "phi3-mini forward")
 FLASH_CHECKS = [                 # held against the plain version, not timed
     (6, 1500, 1500, 64, 0, "bfloat16", True),
     (3, 37, 101, 64, 0, "bfloat16", False),
@@ -470,14 +552,17 @@ KERNELS = {
                               "qwen2.5-14b decode step": QWEN_M1,
                               "qwen2.5-14b slot step": QWEN_M4,
                               "mamba2-780m decode step": MAMBA_M1,
-                              "mamba2-780m slot step": MAMBA_M4},
+                              "mamba2-780m slot step": MAMBA_M4,
+                              "llava decode step": LLAVA_M1,
+                              "llava slot step": LLAVA_M4},
                       library_call="torch.matmul(x_f32, W_dequantized_f32.T):"
                                    " no single PyTorch call computes a Q8_0 "
                                    "product"),
     "q8_matmul": dict(source="src/repro_torch/csrc/q8_matmul.cu",
                       replaces="src/repro/kernels/q8_matmul.py:87",
                       shapes={"prefill": MATMUL_SHAPES,
-                              "verify window M=28": WINDOW28_Q8},
+                              "verify window M=28": WINDOW28_Q8,
+                              "llava forward": LLAVA_FWD},
                       library_call="torch.matmul(x_f32, W_dequantized_f32.T):"
                                    " no single PyTorch call computes a Q8_0 "
                                    "product"),
@@ -496,7 +581,10 @@ KERNELS = {
                                 "arctic-480b decode step": ARCTIC_M1,
                                 "mamba2-780m decode step": MAMBA_M1,
                                 "mamba2-780m slot step": MAMBA_M4,
-                                "jamba-v0.1-52b repeat step": JAMBA_M1},
+                                "jamba-v0.1-52b repeat step": JAMBA_M1,
+                                "llava forward": LLAVA_FWD,
+                                "llava decode step": LLAVA_M1,
+                                "llava slot step": LLAVA_M4},
                         library_call="torch.mm(x_bf16, W_bf16.T, out_dtype="
                                      "torch.float32) on the same strided "
                                      "bf16 operands (cuBLAS, f32 output as "
@@ -505,7 +593,8 @@ KERNELS = {
     "flash_attention_fwd": dict(
         source="src/repro_torch/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:94",
-        shapes={"prefill": FLASH_SHAPES},
+        shapes={"prefill": FLASH_SHAPES, "llava forward": FLASH_LLAVA,
+                "phi3-mini forward": FLASH_PHI3},
         library_call="torch.nn.functional.scaled_dot_product_attention on "
                      "the same bf16 q, k, v as (1, BH, S, D) (bf16 output; "
                      "the kernel writes f32)"),
@@ -662,6 +751,37 @@ SSM_LAYER_STEPS = 16              # 16c: one SSM layer's carried steps
 SSM_LAYER_TOL = 1e-2              # bf16 at full width, of the largest
 SSM_SCHED_PROMPTS = (8, 32)       # 16b: 12 requests over 4 slots
 SSM_SCHED_BUDGETS = (16, 48)
+# phase 17: the full-sequence forward and loss of every family, and the VLM
+# served. llava-next-mistral-7b at its published widths and depth
+# (configs/llava_next_mistral_7b.py: 32 layers, d_model 4096, 32 heads over
+# 8 KV heads of 128, d_ff 14,336, vocabulary 32,000, a biased projector
+# from 1024-wide patches), bf16 weights drawn on the card from MOE_SEED and
+# quantized to Q8_0 by a second engine. The forward runs one row of the
+# reference's train_4k cell: B = 1, S = 4096 and P = min(vision_patches,
+# S // 2) = 1152 f32 patches (launch/input_specs.py), drawn from a CUDA
+# generator seeded with FWD_SEED (the reference's vision tower is a stub)
+VLM_ARCH = "llava-next-mistral-7b"
+VLM_PER_STEP = 7 * 32 + 1         # q/k/v/o, gate/up/down a layer; lm_head
+FWD_SEQ = 4096
+FWD_SEED = 0
+FWD_CE_CHUNK = 512                # loss_fn's: 8 readout chunks at 4096
+FWD_REPS = 2                      # timed forwards after the recorded one
+FWD_CPU_LAYERS = 2                # the CPU check: depth 2, a shorter row
+FWD_CPU_SEQ = 256
+# flash vs chunked logits, of the largest: the two round the bf16
+# probabilities against other maxima (chunked: the row's, normalized;
+# flash: a key block's running one), and each layer's bf16 output can
+# land a step apart. At the depth-2 cut 3e-2; over llava's 32 layers the
+# steps add up: 6 bf16 steps (0.1875) at |logit| 5.66 were measured, 3.3e-2
+# (NVIDIA H100 80GB HBM3, 700.00 W), so the full depth is held at 5e-2. A
+# wrong mask or layout moves the logits by O(1) and the loss with them.
+FWD_FLASH_TOL = 3e-2
+FWD_FLASH_FULL_TOL = 5e-2
+FWD_LOSS_TOL = 1e-2               # flash vs chunked loss, absolute
+# 17f: a smoke config of each family (dense, MoE, SSM, hybrid, VLM, audio)
+SMOKE_FORWARD_ARCHS = ("qwen2.5-14b", "olmoe-1b-7b", "mamba2-780m",
+                       "jamba-v0.1-52b", "llava-next-mistral-7b",
+                       "whisper-tiny")
 # phase 13: benchmarks/telemetry_overhead.py's full trace
 TE_REQUESTS = 16
 TE_REF_FRAMES = 32                # its mels' frames (drawn, then discarded)
@@ -677,6 +797,39 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def release_memory(label: str) -> dict:
+    """Free what the phases before ``label`` left on the card, with no
+    live CUDA graph: unreachable engines and trees (the collector), the
+    allocator's cached blocks, and the cuBLAS workspaces that PyTorch
+    keeps for every stream a library product ran on (each capture warms
+    up on a new side stream). Prints the allocated bytes and the
+    allocator's live blocks by size before, and the allocated bytes
+    after."""
+    import gc
+
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    blocks = collections.Counter(
+        b["size"] for seg in torch.cuda.memory_snapshot()
+        for b in seg["blocks"] if b["state"] == "active_allocated")
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        clear()
+    torch.cuda.empty_cache()
+    out = dict(allocated_bytes=before,
+               largest_blocks=sorted(blocks.items(), reverse=True)[:8],
+               cublas_workspaces_cleared=clear is not None,
+               allocated_after_bytes=torch.cuda.memory_allocated())
+    print(f"{label}: {before / 1e9:.3f} GB allocated at their start "
+          f"(largest live blocks, bytes: count {out['largest_blocks']}); "
+          f"{out['allocated_after_bytes'] / 1e9:.3f} GB after the cuBLAS "
+          f"workspaces are cleared ({out['cublas_workspaces_cleared']})",
+          flush=True)
+    return out
 
 
 def wall_ms(fn, iters: int = 50) -> float:
@@ -830,9 +983,11 @@ def _bf16_case(gen, m, n, k, k_full, xdt):
         {"library_bf16_out_ms": lambda: torch.matmul(xb, w.t())}
 
 
-def _flash_case(gen, bh, sq, sk, d, dt):
-    """q, k, v of flash_attention_fwd as the encoder hands them over: the
-    (B, S, H, D) projections folded to (B*H, S, D) views."""
+def _flash_case(gen, bh, sq, sk, d, dt, causal=False):
+    """q, k, v of flash_attention_fwd as the encoder and the forward hand
+    them over: the (B, S, H, D) projections folded to (B*H, S, D) views.
+    The operations count the query-key pairs the mask leaves (query i
+    sees keys 0..i when causal), and the library call masks alike."""
     import torch
     dtype = getattr(torch, dt)
     q, k, v = (torch.randn((1, s, bh, d), generator=gen, device="cuda").to(
@@ -841,15 +996,24 @@ def _flash_case(gen, bh, sq, sk, d, dt):
     moved = (bh * sq * d + 2 * bh * sk * d) * size + bh * sq * d * 4
     q4, k4, v4 = (t.contiguous()[None] for t in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    return (q, k, v), lambda: sdpa(q4, k4, v4), moved, \
-        4 * bh * sq * sk * d, dt, {}
+    pairs = (sum(min(i + 1, sk) for i in range(sq)) if causal
+             else sq * sk)
+    return (q, k, v), lambda: sdpa(q4, k4, v4, is_causal=causal), moved, \
+        4 * bh * pairs * d, dt, {}
+
+
+def _graph_timer(fn):
+    """``graph_ms``'s time of ``fn`` as ``device_ms``'s (ms, source)
+    pair."""
+    return graph_ms(fn), "graph_events"
 
 
 def _measure(name, label, kernel, plain, library, moved, flops, rate, tol,
-             extra):
-    """Kernel against plain at one shape, then the times and the bound, and
-    the device time of each further yardstick in ``extra``. ``tol`` is
-    relative to the plain output's largest value (at least 1)."""
+             extra, timer=device_ms):
+    """Kernel against plain at one shape, then the times (by ``timer``)
+    and the bound, and the time of each further yardstick in ``extra``.
+    ``tol`` is relative to the plain output's largest value (at least
+    1)."""
     import torch
     got = kernel()
     want = plain()
@@ -862,9 +1026,9 @@ def _measure(name, label, kernel, plain, library, moved, flops, rate, tol,
     bytes_ms = moved / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / FLOPS_PER_S[rate] * 1e3
     b_ms, b_by = bound(bytes_ms, ops_ms)
-    timed = {"ms": device_ms(kernel), "plain_ms": device_ms(plain),
-             "library_ms": device_ms(library),
-             **{key: device_ms(fn) for key, fn in extra.items()}}
+    timed = {"ms": timer(kernel), "plain_ms": timer(plain),
+             "library_ms": timer(library),
+             **{key: timer(fn) for key, fn in extra.items()}}
     return dict(max_abs_err=err, bytes=moved, flops=flops,
                 bytes_ms=bytes_ms, ops_ms=ops_ms, wall_ms=wall_ms(kernel),
                 bound_ms=b_ms, bound_by=b_by,
@@ -872,10 +1036,12 @@ def _measure(name, label, kernel, plain, library, moved, flops, rate, tol,
                 ms_source={key: src for key, (_, src) in timed.items()})
 
 
-def check_kernels():
+def check_kernels(late: bool = False):
     """Phase 2: every kernel against its plain version at the main paths'
-    shapes, with its times and bound, and the extra flash checks. Returns
-    the per-kernel records."""
+    shapes, with its times and bound, and the extra flash checks; with
+    ``late``, only the rows of LATE_ROWS (the 4096-token forward's, run
+    after phase 17, timed with CUDA events over captured graphs), else
+    every other. Returns the per-kernel records."""
     import torch
     from repro_torch.kernels import (
         bf16_matmul, flash_attention, q8_matmul, q8_matvec)
@@ -891,11 +1057,13 @@ def check_kernels():
     for name, meta in KERNELS.items():
         rows = []
         for per, shapes in meta["shapes"].items():
+            if (per in LATE_ROWS) != late:
+                continue
             for shape in shapes:
                 if name == "flash_attention_fwd":
                     bh, sq, sk, d, count, dt, causal = shape
                     args, library, moved, flops, rate, extra = _flash_case(
-                        gen, bh, sq, sk, d, dt)
+                        gen, bh, sq, sk, d, dt, causal)
                     kw = dict(causal=causal)
                     kernel = flash_attention.flash_attention_fwd
                     plain = flash_attention.flash_attention_fwd_plain
@@ -916,7 +1084,8 @@ def check_kernels():
                 row = _measure(name, label,
                                lambda: kernel(*args, **kw),
                                lambda: plain(*args, **kw),
-                               library, moved, flops, rate, tol, extra)
+                               library, moved, flops, rate, tol, extra,
+                               _graph_timer if late else device_ms)
                 row.update(dims, per=per, per_step=count)
                 print(f"kernel {name} {label} x{count} per {per}: "
                       f"max_abs_err={row['max_abs_err']:.3e} "
@@ -928,7 +1097,7 @@ def check_kernels():
                       flush=True)
                 rows.append(row)
         records[name] = rows
-    for bh, sq, sk, d, _, dt, causal in FLASH_CHECKS:
+    for bh, sq, sk, d, _, dt, causal in ([] if late else FLASH_CHECKS):
         (q, k, v), *_ = _flash_case(gen, bh, sq, sk, d, dt)
         got = flash_attention.flash_attention_fwd(q, k, v, causal=causal)
         want = flash_attention.flash_attention_fwd_plain(q, k, v,
@@ -4502,6 +4671,479 @@ def ssm_phase(counted):
     return total, summary
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: the full-sequence forward and loss of every family; llava served
+# ---------------------------------------------------------------------------
+def _fwd_batch(cfg, s: int, seed: int = FWD_SEED):
+    """One row of ``s`` tokens from default_rng(seed) with its shifted
+    labels (the last masked), on the card; a VLM's min(vision_patches, s
+    // 2) f32 patches (launch/input_specs.py's rule) from a CUDA generator
+    seeded alike: the reference's vision tower is a stub."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, s)))
+    labels = toks.roll(-1, 1)
+    labels[:, -1] = -1
+    batch = {"tokens": toks.cuda(), "labels": labels.cuda()}
+    if cfg.family == "vlm":
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        batch["patches"] = torch.randn(
+            (1, min(cfg.vision_patches, s // 2), cfg.vision_embed_dim),
+            generator=gen, device="cuda")
+    return batch
+
+
+def _fwd_bounds(eng, plan, cfg, s: int):
+    """The least time of one forward at ``s`` tokens: the operations of
+    the linears its plan lists (2 m k n each; at 989 TFLOP/s for bf16 x,
+    and at 67 for the f32 patches on the Q8_0 projector) and of the causal
+    attention (QK and PV over the s (s + 1) / 2 query-key pairs a head
+    needs, bf16 rate), against the bytes that each linear reads (x, bf16
+    or the projector's f32 patches; the weight at 2 bytes or Q8_0's 1.125;
+    its f32 output written) at the memory rate."""
+    q8 = eng._serve_quant == "q8_0"
+    ops_ms = bytes_ = 0
+    lin_flops = 0
+    for e in plan:
+        flops = 2 * e.m * e.k * e.n
+        lin_flops += flops
+        f32_x = e.name == "vlm.projector"
+        rate = "float32" if q8 and f32_x else "bfloat16"
+        ops_ms += flops / FLOPS_PER_S[rate] * 1e3
+        bytes_ += e.m * e.k * (4 if f32_x else 2) \
+            + e.n * e.k * (1.125 if q8 else 2) + e.m * e.n * 4
+    attn_flops = (4 * cfg.num_heads * cfg.head_dim * s * (s + 1) // 2
+                  * len(cfg.attention_layers))
+    ops_ms += attn_flops / FLOPS_PER_S["bfloat16"] * 1e3
+    bytes_ms = bytes_ / HBM_BYTES_PER_S * 1e3
+    b_ms, b_by = bound(bytes_ms, ops_ms)
+    return dict(linear_flops=lin_flops, attention_flops=attn_flops,
+                bytes=int(bytes_), bytes_ms=bytes_ms, ops_ms=ops_ms,
+                bound_ms=b_ms, bound_by=b_by)
+
+
+def _core_ms(cfg, s: int, counted):
+    """One mixer core alone at a forward's shapes on random bf16 inputs,
+    times the layers that run it (CUDA events over a captured graph of 3
+    calls, ``graph_ms``: late in the run the profiler drops records): an
+    attention layer's causal attention over RoPE'd q, k, v (``attn_impl``
+    "flash" or "chunked"), an SSM layer's chunked SSD scan. Returns
+    (part name, ms, source). The launches it makes are not the path's:
+    they are zeroed."""
+    import torch
+    from repro_torch.models import attention, ssm
+    gen = torch.Generator(device="cuda").manual_seed(4)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+    if cfg.family == "ssm":
+        m = cfg.ssm
+        h = m.n_heads(cfg.d_model)
+        x = rnd(1, s, h, m.head_dim).float()
+        dt = torch.rand((1, s, h), generator=gen, device="cuda") * 0.1
+        a = -torch.rand((h,), generator=gen, device="cuda")
+        bm, cm = (rnd(1, s, m.n_groups, m.d_state).float() for _ in "bc")
+        fn = (lambda: ssm.ssd_scan(x, dt, a, bm, cm, m.chunk))
+        part, n = "scan_ms", cfg.num_layers
+    else:
+        q = rnd(1, s, cfg.num_heads, cfg.head_dim)
+        k, v = (rnd(1, s, cfg.num_kv_heads, cfg.head_dim) for _ in "kv")
+        fn = ((lambda: attention._flash_attention(q, k, v, causal=True))
+              if cfg.attn_impl == "flash" else
+              (lambda: attention._chunked_attention(q, k, v, True)))
+        part, n = "attention_ms", len(cfg.attention_layers)
+    with torch.inference_mode():
+        ms = graph_ms(fn, iters=3)
+    _zero(counted)
+    return part, n * ms, f"one layer alone x {n}: graph_events"
+
+
+def _fwd_split(kernels, core):
+    """A profiled forward's device ms by part: the port's product kernels
+    by name (``PORT_KERNEL_WORDS`` but flash), the mixer cores
+    (``_core_ms``: attention, or an SSM model's scan), and the rest (norms,
+    RoPE, casts, copies, the conv, the gate, the embedding, the CE)."""
+    part, core_ms, src = core
+    products = sum(ms for name, (_, ms) in kernels.items()
+                   if any(w in name for w in PORT_KERNEL_WORDS
+                          if w != "flash_fwd"))
+    device = sum(ms for _, ms in kernels.values())
+    return {"products_ms": products, part: core_ms,
+            "rest_ms": device - products - core_ms, "device_ms": device,
+            "core_source": src}
+
+
+def _forward_case(label, eng, cfg, batch, counted, total, want, want_loss,
+                  prefix="forward"):
+    """One forward configuration at full width: a recorded forward (its
+    Python launches ``want``, its plan the bound's), FWD_REPS timed
+    forwards (host clock, synchronized), ``loss_fn`` (launches
+    ``want_loss``: lm_head once a CE chunk), and one profiled forward:
+    its device ms split by part and its idle share. Returns (summary,
+    logits, loss)."""
+    import statistics
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.plan import DispatchPlan
+    from repro_torch.models import model
+
+    sp, off = eng._serve_params, eng.offload
+    s = batch["tokens"].shape[1]
+    plan = DispatchPlan()
+    _take(counted, total)
+    with torch.inference_mode():
+        with off.recording(plan):
+            logits, _ = model.forward(sp, cfg, batch, engine=off)
+        torch.cuda.synchronize()
+        got = _read(counted)
+        _take(counted, total)
+        walls = []
+        for _ in range(FWD_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, _ = model.forward(sp, cfg, batch, engine=off)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        _take(counted, total)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, metrics = model.loss_fn(sp, cfg, batch, engine=off,
+                                      ce_chunk=FWD_CE_CHUNK)
+        torch.cuda.synchronize()
+        loss_ms = (time.perf_counter() - t0) * 1e3
+        got_loss = _read(counted)
+        _take(counted, total)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _open_window()
+            t0 = time.perf_counter()
+            model.forward(sp, cfg, batch, engine=off)
+            torch.cuda.synchronize()
+            pwall = (time.perf_counter() - t0) * 1e3
+        _take(counted, total)
+    split = _fwd_split(_by_kernel(prof), _core_ms(cfg, s, counted))
+    host_ms = statistics.median(walls)
+    bounds = _fwd_bounds(eng, plan, cfg, s)
+    out = dict(case=label, tokens=s, forward_ms=host_ms,
+               forward_ms_each=walls, tokens_per_s=s / host_ms * 1e3,
+               loss_ms=loss_ms, loss=float(loss), ce=float(metrics["ce"]),
+               ntok=float(metrics["ntok"]), launches=got,
+               loss_launches=got_loss, linears_a_forward=len(plan),
+               **split, profiled_wall_ms=pwall,
+               idle_share=1 - split["device_ms"] / pwall,
+               idle_share_unprofiled=1 - split["device_ms"] / host_ms,
+               **bounds, forward_vs_bound=host_ms / bounds["bound_ms"],
+               device_vs_bound=split["device_ms"] / bounds["bound_ms"])
+    print(f"{prefix} {label}: {json.dumps(out)}", flush=True)
+    if got != want or got_loss != want_loss:
+        raise AssertionError(f"{prefix} {label}: launches {got} (loss "
+                             f"{got_loss}), expected {want} ({want_loss})")
+    if not (torch.isfinite(loss) and torch.isfinite(logits).all()):
+        raise AssertionError(f"{prefix} {label}: non-finite logits or loss")
+    if logits.shape != (1, s, cfg.padded_vocab):
+        raise AssertionError(f"{prefix} {label}: logits {logits.shape}")
+    return out, logits, loss
+
+
+def _fwd_cpu_check(label, eng, cfg, tol: float, prefix="forward"):
+    """The logits of the forward cut to depth FWD_CPU_LAYERS (the seed's
+    embedding, first layers, final norm, head and projector) over a row of
+    FWD_CPU_SEQ tokens (and its share of patches), on the card and on the
+    CPU through the offload engine: within ``tol`` of the CPU's largest
+    logit; the losses alike. With attention layers, the card's flash
+    forward of the same cut within FWD_FLASH_TOL of its chunked one."""
+    import dataclasses
+
+    import torch
+    from repro_torch.core.offload import OffloadEngine
+    from repro_torch.models import model
+
+    sub_cfg = dataclasses.replace(cfg, num_layers=FWD_CPU_LAYERS)
+    sp = eng._serve_params
+    sub = {k: v for k, v in sp.items() if k != "stack"}
+    sub["stack"] = {"blocks": sp["stack"]["blocks"][:FWD_CPU_LAYERS]}
+    batch = _fwd_batch(cfg, FWD_CPU_SEQ, seed=FWD_SEED + 1)
+    with torch.inference_mode():
+        card, _ = model.forward(sub, sub_cfg, batch, engine=eng.offload)
+        card_loss, _ = model.loss_fn(sub, sub_cfg, batch, engine=eng.offload)
+        t0 = time.perf_counter()
+        sub_cpu = model.to_device(sub, torch.device("cpu"))
+        batch_cpu = {k: v.cpu() for k, v in batch.items()}
+        cpu, _ = model.forward(sub_cpu, sub_cfg, batch_cpu,
+                               engine=OffloadEngine())
+        cpu_loss, _ = model.loss_fn(sub_cpu, sub_cfg, batch_cpu,
+                                    engine=OffloadEngine())
+        cpu_s = time.perf_counter() - t0
+        flash = None
+        if sub_cfg.attention_layers:
+            flash, _ = model.forward(
+                sub, dataclasses.replace(sub_cfg, attn_impl="flash"), batch,
+                engine=eng.offload)
+    got, want = card.float().cpu(), cpu.float()
+    err = (got - want).abs().max().item()
+    big = want.abs().max().item()
+    loss_err = abs(float(card_loss) - float(cpu_loss))
+    out = dict(layers=FWD_CPU_LAYERS, tokens=FWD_CPU_SEQ, max_abs_err=err,
+               logits_absmax=big, tolerance=tol, loss_card=float(card_loss),
+               loss_cpu=float(cpu_loss), loss_abs_err=loss_err, cpu_s=cpu_s)
+    if flash is not None:
+        out["flash_vs_chunked_err"] = (flash.float() - card.float()
+                                       ).abs().max().item()
+        out["flash_tolerance"] = FWD_FLASH_TOL
+    print(f"{prefix} {label} card vs cpu: {json.dumps(out)}", flush=True)
+    if not (torch.isfinite(got).all() and err <= tol * big
+            and loss_err <= tol * float(cpu_loss)):
+        raise AssertionError(f"{prefix} {label}: card and CPU differ by "
+                             f"{err} (loss {loss_err})")
+    if flash is not None and not out["flash_vs_chunked_err"] <= \
+            FWD_FLASH_TOL * card.float().abs().max().item():
+        raise AssertionError(f"{prefix} {label}: flash and chunked differ "
+                             f"by {out['flash_vs_chunked_err']} at depth "
+                             f"{FWD_CPU_LAYERS}")
+    return out
+
+
+def _embed_vs_cpu(eng, cfg, batch, counted, total, prefix="forward vlm"):
+    """17c: the patch splice alone (``_embed_inputs``), card against CPU,
+    within 1e-2 of the CPU's largest value (the splice is cast to bf16):
+    the projector's product (M = 1152, K = 1024, N = 4096, f32 x) is one
+    ``q8_matmul`` launch, and kernel_for sends M > 16 there."""
+    import torch
+    from repro_torch.core.offload import OffloadEngine
+    from repro_torch.models import model
+
+    sub = {k: eng._serve_params[k] for k in ("embed", "projector")}
+    _take(counted, total)
+    with torch.inference_mode():
+        got = model._embed_inputs(sub, cfg, batch, eng.offload)
+        torch.cuda.synchronize()
+        launches = _read(counted)
+        _take(counted, total)
+        want = model._embed_inputs(model.to_device(sub, torch.device("cpu")),
+                                   cfg, {k: v.cpu() for k, v in batch.items()},
+                                   OffloadEngine())
+    p = batch["patches"].shape[1]
+    err = (got.float().cpu() - want.float()).abs().max().item()
+    big = want.float().abs().max().item()
+    out = dict(patches=p, m=p, k=cfg.vision_embed_dim, n=cfg.d_model,
+               launches=launches, max_abs_err=err, absmax=big,
+               tokens_equal=bool(torch.equal(got[:, p:].cpu(), want[:, p:])))
+    print(f"{prefix} embed_inputs card vs cpu: {json.dumps(out)}", flush=True)
+    if launches.get("q8_matmul") != 1 or not err <= 1e-2 * big \
+            or not out["tokens_equal"]:
+        raise AssertionError(f"{prefix}: _embed_inputs {out}")
+    return out
+
+
+def _smoke_forwards(counted, total, prefix="forward smoke"):
+    """17f: every family's smoke config (weights from seed 0 on the card),
+    through an engine with burst 32 (every main segment on a kernel): the
+    forward's logits and the loss on the card against the CPU (Q8_0, or
+    bf16 for a MoE model, as it is served; f32 activations: 1e-4 of the
+    largest logit for Q8_0, 2e-2 where bf16 rounds the operands), a VLM
+    with 4 patches; and a teacher-forced forward against the
+    ``serve_step`` loop on the card (2e-4, as the reference's
+    test_prefill_decode_consistency; a MoE's capacity made no-drop)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.offload import OffloadEngine
+    from repro_torch.models import model, whisper
+    from repro_torch.serve.engine import ServeEngine
+
+    out = {}
+    for arch in SMOKE_FORWARD_ARCHS:
+        cfg = get_smoke_config(arch)
+        if cfg.moe is not None:
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, capacity_factor=8.0))
+        quant = "none" if cfg.moe is not None else "q8_0"
+        params = model.init_params(torch.Generator().manual_seed(0), cfg,
+                                   max_positions=64, device="cuda")
+        eng = ServeEngine(cfg, params, max_len=32, quant=quant,
+                          offload=OffloadEngine(burst=32), eos_id=None,
+                          device="cuda")
+        sp = eng._serve_params
+        rng = np.random.default_rng(3)
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 10)))
+        batch = {"tokens": toks, "labels": toks.roll(-1, 1)}
+        if cfg.family == "vlm":
+            batch["patches"] = torch.from_numpy(rng.standard_normal(
+                (2, 4, cfg.vision_embed_dim)).astype(np.float32))
+        if cfg.family == "audio":
+            batch["mel"] = torch.from_numpy(rng.standard_normal(
+                (2, 12, cfg.n_mels)).astype(np.float32))
+        card_b = {k: v.cuda() for k, v in batch.items()}
+        with torch.inference_mode():
+            logits, _ = model.forward(sp, cfg, card_b, engine=eng.offload)
+            loss, _ = model.loss_fn(sp, cfg, card_b, engine=eng.offload)
+            cpu_p = model.to_device(sp, torch.device("cpu"))
+            want, _ = model.forward(cpu_p, cfg, batch,
+                                    engine=OffloadEngine(burst=32))
+            want_loss, _ = model.loss_fn(cpu_p, cfg, batch,
+                                         engine=OffloadEngine(burst=32))
+            memory = (whisper.encode(sp, cfg, card_b["mel"],
+                                     engine=eng.offload)
+                      if cfg.family == "audio" else None)
+            st = model.init_serve_state(sp, cfg, 2, 32, memory=memory,
+                                        engine=eng.offload)
+            tf_b = {k: v for k, v in card_b.items() if k != "patches"}
+            tf, _ = model.forward(sp, cfg, tf_b, engine=eng.offload)
+            steps = []
+            for t in range(toks.shape[1]):
+                lg, st = model.serve_step(sp, cfg, card_b["tokens"][:, t:t + 1],
+                                          st, engine=eng.offload)
+                steps.append(lg[:, 0])
+            steps = torch.stack(steps, dim=1)
+        torch.cuda.synchronize()
+        tol = 1e-4 if quant == "q8_0" else 2e-2
+
+        def rel(a, b):
+            a, b = a.float().cpu(), b.float().cpu()
+            return (a - b).abs().max().item() / max(1.0, b.abs().max().item())
+        row = dict(quant=quant, card_vs_cpu=rel(logits, want),
+                   loss_card=float(loss), loss_cpu=float(want_loss),
+                   forward_vs_steps=rel(tf, steps), tolerance=tol)
+        out[arch] = row
+        print(f"{prefix} {arch}: {json.dumps(row)}", flush=True)
+        if not (row["card_vs_cpu"] <= tol and row["forward_vs_steps"] <= 2e-4
+                and abs(row["loss_card"] - row["loss_cpu"])
+                <= tol * row["loss_cpu"]):
+            raise AssertionError(f"{prefix} {arch}: {row}")
+        del eng, params, sp, cpu_p
+    _take(counted, total)
+    return out
+
+
+def forward_phase(counted):
+    """Phase 17: 17a llava-next-mistral-7b at full width drawn on the card
+    (bf16, and quantized to Q8_0 by a second engine); 17b ``forward`` and
+    ``loss_fn`` at one row of S = FWD_SEQ with its 1152 patches, Q8_0 and
+    bf16, chunked and flash (the depth-2 cut against the CPU, flash
+    against chunked, launches, time, the device split beside the bound,
+    idle share); 17c ``_embed_inputs`` alone against the CPU; 17d llava
+    served, Q8_0 then bf16 (``lm_oneshot`` batch 1 and 4, 225 decode
+    launches a step; ``lm_scheduler``); 17e mamba2-780m's forward at full
+    width in Q8_0 (the chunked SSD scan); 17f every family's smoke config
+    (``_smoke_forwards``). Returns the phase's Python launches, those of
+    17d alone, and its summary."""
+    import dataclasses
+    import gc
+
+    import torch
+    from repro_torch.core.offload import OffloadEngine
+    from repro_torch.serve.engine import ServeEngine
+
+    t0 = time.perf_counter()
+    total, served = {}, {}
+    _zero(counted)
+    summary = {"memory_at_start": release_memory("forward phase")}
+    cfg, params, summary["llava_init"] = _moe_params(VLM_ARCH,
+                                                     prefix="forward")
+    engines = {"bf16": ServeEngine(cfg, params, max_len=LM_MAX_LEN,
+                                   quant="none", offload=OffloadEngine(),
+                                   eos_id=None, device="cuda")}
+    engines["q8_0"] = ServeEngine(cfg, params, max_len=LM_MAX_LEN,
+                                  offload=OffloadEngine(), eos_id=None,
+                                  device="cuda")
+    del params
+    torch.cuda.synchronize()
+    summary["llava_both_trees_bytes"] = torch.cuda.memory_allocated()
+    summary["llava_peak_bytes"] = torch.cuda.max_memory_allocated()
+    batch = _fwd_batch(cfg, FWD_SEQ)
+    per_fwd = 7 * cfg.num_layers + 2        # the linears, projector, lm_head
+    n_chunks = FWD_SEQ // FWD_CE_CHUNK
+    for quant, name, tol in (("q8_0", "q8_matmul", FIRST_STEP_TOL),
+                             ("bf16", "bf16_matmul", DENSE_FIRST_STEP_TOL)):
+        eng = engines[quant]
+        summary[f"{quant}_cpu"] = _fwd_cpu_check(quant, eng, cfg, tol)
+        cases = {}
+        for impl in ("chunked", "flash"):
+            icfg = dataclasses.replace(cfg, attn_impl=impl)
+            nflash = cfg.num_layers if impl == "flash" else 0
+            want = {k: 0 for k in counted}
+            want[name] = per_fwd
+            want["flash_attention_fwd"] = nflash
+            want_loss = dict(want, **{name: per_fwd - 1 + n_chunks})
+            cases[impl] = _forward_case(f"{quant} {impl}", eng, icfg, batch,
+                                        counted, total, want, want_loss)
+        (c_out, c_logits, c_loss), (f_out, f_logits, f_loss) = \
+            cases["chunked"], cases["flash"]
+        err = (f_logits.float() - c_logits.float()).abs().max().item()
+        big = c_logits.float().abs().max().item()
+        loss_err = abs(float(f_loss) - float(c_loss))
+        print(f"forward {quant} flash vs chunked: max_abs_err={err:.4e} of "
+              f"|logits|max {big:.3f} (tolerance {FWD_FLASH_FULL_TOL}); loss "
+              f"{float(f_loss):.5f} vs {float(c_loss):.5f} (tolerance "
+              f"{FWD_LOSS_TOL})", flush=True)
+        if not (err <= FWD_FLASH_FULL_TOL * big
+                and loss_err <= FWD_LOSS_TOL):
+            raise AssertionError(f"forward {quant}: flash and chunked differ "
+                                 f"by {err} (loss {loss_err})")
+        summary[quant] = dict(chunked=c_out, flash=f_out,
+                              flash_vs_chunked_err=err, logits_absmax=big,
+                              flash_vs_chunked_loss_err=loss_err)
+        del cases, c_logits, f_logits
+    summary["embed_inputs"] = _embed_vs_cpu(engines["q8_0"], cfg, batch,
+                                            counted, total)
+    del batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    _take(counted, total)
+    for quant, want_name, name in (("q8_0", "q8_matvec_kernel", "q8_matvec"),
+                                   ("bf16", "gemv_bf16_kernel",
+                                    "bf16_matmul")):
+        eng = engines.pop(quant)
+        before = dict(total)
+        summary[f"served_{quant}"], _ = lm_oneshot(
+            quant, eng, counted, total, want_name, batch4=True,
+            per_step=VLM_PER_STEP, prefix="forward vlm")
+        summary[f"served_{quant}_scheduler"] = lm_scheduler(
+            eng, counted, total, name, want_name, VLM_PER_STEP,
+            "forward vlm")
+        _take(counted, total)
+        for k, n in total.items():
+            served[k] = served.get(k, 0) + n - before.get(k, 0)
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    mcfg, mparams, summary["mamba2_init"] = _moe_params(MAMBA_ARCH,
+                                                        prefix="forward")
+    eng = ServeEngine(mcfg, mparams, max_len=8, offload=OffloadEngine(),
+                      eos_id=None, device="cuda")
+    del mparams
+    eng.params = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    summary["mamba2_cpu"] = _fwd_cpu_check("mamba2 q8_0", eng, mcfg,
+                                           FIRST_STEP_TOL)
+    want = {k: 0 for k in counted}
+    want["q8_matmul"] = 2 * mcfg.num_layers + 1
+    want_loss = dict(want, q8_matmul=2 * mcfg.num_layers + n_chunks)
+    summary["mamba2"], _, _ = _forward_case(
+        "mamba2 q8_0", eng, mcfg, _fwd_batch(mcfg, FWD_SEQ), counted, total,
+        want, want_loss)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    summary["smoke"] = _smoke_forwards(counted, total)
+    _take(counted, total)
+    gc.collect()
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t0
+    summary["phase_s"] = wall
+    summary["allocated_at_end_bytes"] = torch.cuda.memory_allocated()
+    print(f"forward phase: {wall:.1f} s; launches {total}; llava served "
+          f"{served}", flush=True)
+    return total, served, summary
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4637,12 +5279,22 @@ def main() -> int:
     print(f"telemetry phase: {time.perf_counter() - t0:.1f}s; launches "
           f"{path_launches['telemetry']}", flush=True)
 
+    # the whisper engines' buffers and graph pools, freed before the LMs
+    del q8_eng, d_eng, q8_mel, d_mel
+    release_memory("lm phases")
     path_launches["lm"], lm_summary = lm_phase(counted)
     print(f"lm summary: {json.dumps(lm_summary)}", flush=True)
+    release_memory("moe phase")
     path_launches["moe"], moe_summary = moe_phase(counted)
     print(f"moe summary: {json.dumps(moe_summary)}", flush=True)
+    release_memory("ssm phase")
     path_launches["ssm"], ssm_summary = ssm_phase(counted)
     print(f"ssm summary: {json.dumps(ssm_summary)}", flush=True)
+    path_launches["forward"], path_launches["vlm"], fwd_summary = \
+        forward_phase(counted)
+    print(f"forward summary: {json.dumps(fwd_summary)}", flush=True)
+    for name, rows in check_kernels(late=True).items():
+        records[name] += rows
 
     kernels = []
     for name, meta in KERNELS.items():

@@ -1,7 +1,8 @@
 """Model configuration for the PyTorch port: the subset of the reference's
 ``ModelConfig`` that the Whisper (audio) ladder and the dense,
 mixture-of-experts, state-space (SSM) and hybrid decoder-only LM families
-read.
+read, and the vision-language (VLM) family's: a dense backbone whose
+first token positions take projected patch embeddings.
 
 This is the port's own copy: the port imports nothing of the JAX package.
 Field names, defaults, the derived quantities (``attention_layers``,
@@ -9,8 +10,7 @@ Field names, defaults, the derived quantities (``attention_layers``,
 the reference (``repro/configs/base.py``) so that a config built here
 describes the same model as its reference twin. ``MoEConfig`` and
 ``SSMConfig`` configure ``models/moe.py``'s block and ``models/ssm.py``'s
-mixer (``reduced`` and the parameter count read them too); the family the
-port has no layers for yet (VLM) is refused.
+mixer (``reduced`` and the parameter count read them too).
 """
 from __future__ import annotations
 
@@ -24,9 +24,8 @@ HYBRID = "hybrid"
 AUDIO = "audio"   # encoder-decoder with stubbed conv frontend
 VLM = "vlm"       # decoder-only LM backbone with stubbed vision frontend
 
+#: the reference's families, every one of which the port serves
 FAMILIES = (DENSE, MOE, SSM, HYBRID, AUDIO, VLM)
-#: the families the port serves
-SERVED = (DENSE, MOE, SSM, HYBRID, AUDIO)
 
 
 @dataclass(frozen=True)
@@ -61,8 +60,8 @@ class SSMConfig:
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """One architecture: an audio encoder-decoder, or a dense, MoE, SSM or
-    hybrid LM."""
+    """One architecture: an audio encoder-decoder, or a dense, MoE, SSM,
+    hybrid or vision-language LM."""
     name: str
     family: str
     num_layers: int              # decoder layers
@@ -122,10 +121,6 @@ class ModelConfig:
                              "'flash'")
         if self.kv_quant not in ("none", "q8"):
             raise ValueError(f"kv_quant {self.kv_quant!r}: 'none' or 'q8'")
-        if self.family not in SERVED:
-            raise ValueError(f"{self.name}: the port serves the {SERVED} "
-                             f"families; {self.family!r} comes with ROADMAP "
-                             "item 15a")
         if self.family == MOE and self.moe is None:
             raise ValueError(f"{self.name}: the moe family needs a MoEConfig")
         if self.family in (SSM, HYBRID) and self.ssm is None:

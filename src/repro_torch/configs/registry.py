@@ -1,17 +1,18 @@
 """Architecture registry of the port: ``--arch <id>`` -> (CONFIG, SMOKE).
 
-The port serves the Whisper ladder and the dense, mixture-of-experts,
-state-space and hybrid decoder-only LMs. The reference's other
-language-model arch (vision-language) is a known id that raises
-``KeyError`` naming the slice of ROADMAP item 15a that brings it.
+The port serves every arch of the reference: the Whisper ladder and the
+dense, mixture-of-experts, state-space, hybrid and vision-language
+decoder-only LMs. ``LATER`` names the reference's archs that the port does
+not serve yet, each with the ROADMAP item that brings it (none now); an
+id that is neither raises ``KeyError``.
 """
 from __future__ import annotations
 
 from typing import Dict
 
 from repro_torch.configs import (
-    arctic_480b, internlm2_20b, jamba_v0_1_52b, mamba2_780m, olmoe_1b_7b,
-    phi3_mini_3_8b, qwen1_5_110b, qwen2_5_14b, whisper_base, whisper_small,
+    arctic_480b, internlm2_20b, jamba_v0_1_52b, llava_next_mistral_7b,
+    mamba2_780m, olmoe_1b_7b, phi3_mini_3_8b, qwen1_5_110b, qwen2_5_14b, whisper_base, whisper_small,
     whisper_tiny)
 from repro_torch.configs.base import ModelConfig
 
@@ -27,13 +28,12 @@ ALL_ARCHS: Dict[str, object] = {
     "arctic-480b": arctic_480b,
     "mamba2-780m": mamba2_780m,
     "jamba-v0.1-52b": jamba_v0_1_52b,
+    "llava-next-mistral-7b": llava_next_mistral_7b,
 }
 
-#: the reference's archs the port does not serve yet, with the slice of
-#: ROADMAP item 15a that brings each
-LATER: Dict[str, str] = {
-    "llava-next-mistral-7b": "15a VLM (projector and patches)",
-}
+#: the reference's archs the port does not serve yet, with the ROADMAP
+#: item that brings each
+LATER: Dict[str, str] = {}
 
 
 def _module(arch: str):

@@ -13,8 +13,9 @@ port is repeat ``i // P`` of position ``i % P``. A MoE layer's leaves
 ``w_gate`` and ``w_down``, ``moe/dense/*``) and an SSM layer's leaves
 (``ssm/in_proj/w``, ``ssm/out_proj/w``, ``ssm/conv_w``, ``ssm/conv_b``,
 ``ssm/A_log``, ``ssm/D``, ``ssm/dt_bias``, ``ssm/norm/scale``) unstack like
-any other: a hybrid's pattern mixes both kinds of position. Tests use it
-to run both packages on identical weights.
+any other: a hybrid's pattern mixes both kinds of position. A VLM's
+``projector`` (``w`` (d_model, E_vis) and its bias ``b``) is unstacked and
+crosses as it is. Tests use it to run both packages on identical weights.
 """
 from __future__ import annotations
 

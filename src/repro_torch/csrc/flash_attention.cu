@@ -55,8 +55,12 @@
 //     function) and bf16 rows that are not 16-byte aligned: the SIMT kernel
 //     of f32 FMAs (256 threads as 16 x 16, a 4 x 4 score tile each, 64 query
 //     rows a block, the probabilities through shared memory).
-// Built for head sizes D = 64 (the Whisper ladder) and 16 (the smoke
-// configs; one k-step of the m16n8k16).
+// Built for head sizes D = 64 (the Whisper ladder), 128 (llava and the
+// other attention LMs), 96 (phi3-mini), 32 and 16 (the smoke and test
+// configs; D = 16 is one k-step of the m16n8k16). At D = 128 the tensor-core
+// kernel's shared memory is 144 KB (one block an SM) and a thread holds 64
+// f32 accumulators and 32 q fragment registers; D = 96 pads each tile row
+// to 128 values so that the swizzle stays a permutation within the row.
 //
 // Plain C interface, loaded with ctypes. The launch allocates nothing, runs on
 // the caller's stream and returns cudaGetLastError().
@@ -300,35 +304,50 @@ constexpr int kTcRows = 16 * kTcWarps;       // query rows per block
 constexpr int kTcThreads = 32 * kTcWarps;
 constexpr int kTcKeys = kBK * kTcSub;        // keys per ring stage
 
+// elements a row of a shared-memory tile spans: D, or 128 at D = 96, whose
+// 12 chunks of 8 values the swizzle below cannot permute within the row
+template <int D>
+__host__ __device__ constexpr int tc_ld() {
+  return D == 96 ? 128 : D;
+}
+
 template <int D>
 constexpr int tc_smem_bytes() {              // q tile + k and v rings
-  return (kTcRows + 2 * kTcStages * kTcKeys) * D *
+  return (kTcRows + 2 * kTcStages * kTcKeys) * tc_ld<D>() *
          static_cast<int>(sizeof(bf16));
 }
 
 // element offset of chunk c (8 values, 16 bytes) of row r in a tile of rows
-// of D values, swizzled so that the 8 rows an ldmatrix reads (and the rows
-// a warp's copies write) fall on distinct banks: chunk c ^ (a function of r)
+// of tc_ld<D>() values, swizzled so that the 8 rows an ldmatrix reads (and
+// the rows a warp's copies write) fall on distinct banks: chunk c ^ (a
+// function of r). A row of C = D/8 chunks: at C = 2, 4 or 8 the row spans
+// 8 / C of the 8 chunk slots of 128 bytes, and the XOR reads the row index
+// above them; at D = 128 (C = 16) and D = 96 (12 chunks in a padded row
+// of 16) the XOR permutes the low 3 bits of c, within each group of 8.
 template <int D>
 __device__ __forceinline__ int swz(int r, int c) {
-  constexpr int C = D / 8;                   // chunks per row: 8 or 2
-  return r * D + ((c ^ ((r / (8 / C)) & (C - 1))) << 3);
+  constexpr int C = D / 8;
+  if constexpr (C <= 8)
+    return r * D + ((c ^ ((r / (8 / C)) & (C - 1))) << 3);
+  else
+    return r * tc_ld<D>() + (((c & ~7) | ((c ^ r) & 7)) << 3);
 }
 
 // R rows r0.. of a (rows, D) bf16 operand with row stride ld into a
-// swizzled tile, raw, with 16-byte cp.async; zero past `rows`
+// swizzled tile, raw, with 16-byte cp.async; zero past `rows`. Copy i of
+// thread t is chunk (t + i kTcThreads) % C of row (t + i kTcThreads) / C.
 template <int R, int D>
 __device__ __forceinline__ void copy_rows(bf16* dst, const bf16* src,
                                           long long ld, int r0, int rows) {
-  constexpr int C = D / 8, STEP = kTcThreads / C;  // rows a pass copies
-  static_assert(R % STEP == 0, "whole passes");
-  const int c = threadIdx.x % C;
-  int r = threadIdx.x / C;
-  const bf16* g = src + (r0 + r) * ld + c * 8;
+  constexpr int C = D / 8;
+  static_assert(R * C % kTcThreads == 0, "whole passes");
 #pragma unroll
-  for (int i = 0; i < R / STEP; ++i, r += STEP, g += STEP * ld) {
+  for (int i = 0; i < R * C / kTcThreads; ++i) {
+    const int idx = threadIdx.x + i * kTcThreads;
+    const int r = idx / C, c = idx % C;
     const bool ok = r0 + r < rows;
-    hopper::cp_async16(dst + swz<D>(r, c), ok ? g : src, ok);
+    hopper::cp_async16(dst + swz<D>(r, c),
+                       ok ? src + (r0 + r) * ld + c * 8 : src, ok);
   }
 }
 
@@ -465,11 +484,11 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   using namespace hopper;
   constexpr int BQ = kTcRows, KS = kTcKeys, SUB = kTcSub;
   constexpr int STAGES = kTcStages;
-  constexpr int KT = D / 16, DT = D / 8;
+  constexpr int KT = D / 16, DT = D / 8, LD = tc_ld<D>();
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [BQ][D]
-  bf16* ks = qs + BQ * D;                        // [STAGES][KS][D]
-  bf16* vs = ks + STAGES * KS * D;               // [STAGES][KS][D]
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [BQ][LD]
+  bf16* ks = qs + BQ * LD;                       // [STAGES][KS][LD]
+  bf16* vs = ks + STAGES * KS * LD;              // [STAGES][KS][LD]
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int bh = blockIdx.y, q0 = blockIdx.x * BQ;
@@ -487,8 +506,8 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
   for (int st = 0; st < STAGES - 1; ++st) {
     if (st < nst) {
-      copy_rows<KS, D>(ks + st * KS * D, k, k_ss, st * KS, sk);
-      copy_rows<KS, D>(vs + st * KS * D, v, v_ss, st * KS, sk);
+      copy_rows<KS, D>(ks + st * KS * LD, k, k_ss, st * KS, sk);
+      copy_rows<KS, D>(vs + st * KS * LD, v, v_ss, st * KS, sk);
     }
     cp_async_commit();                       // one group per stage
   }
@@ -526,13 +545,13 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int jn = j + STAGES - 1;
     if (jn < nst) {
       const int st = jn % STAGES;
-      copy_rows<KS, D>(ks + st * KS * D, k, k_ss, jn * KS, sk);
-      copy_rows<KS, D>(vs + st * KS * D, v, v_ss, jn * KS, sk);
+      copy_rows<KS, D>(ks + st * KS * LD, k, k_ss, jn * KS, sk);
+      copy_rows<KS, D>(vs + st * KS * LD, v, v_ss, jn * KS, sk);
     }
     cp_async_commit();
     if (w0 > w_last) continue;               // warp-uniform from here on
-    const bf16* kst = ks + (j % STAGES) * KS * D;
-    const bf16* vst = vs + (j % STAGES) * KS * D;
+    const bf16* kst = ks + (j % STAGES) * KS * LD;
+    const bf16* vst = vs + (j % STAGES) * KS * LD;
     if (j < plain_stages)
       flash_stage<D, false>(kst, vst, qf, o, m0, m1, l0, l1, j * SUB, nkb,
                             sk, causal, w0, w_last, row0, scale_log2);
@@ -614,6 +633,18 @@ bool rows16(const void* p, long long sbh, long long ss) {
          (ss * static_cast<long long>(sizeof(bf16))) % 16 == 0;
 }
 
+template <typename T, int D>
+cudaError_t launch_d(bool mma, const void* q, const void* k, const void* v,
+                     long long q_sbh, long long q_ss, long long k_sbh,
+                     long long k_ss, long long v_sbh, long long v_ss,
+                     float* out, int bh, int sq, int sk, int causal,
+                     cudaStream_t st) {
+  return mma ? launch_mma<D>(q, k, v, q_sbh, q_ss, k_sbh, k_ss, v_sbh, v_ss,
+                             out, bh, sq, sk, causal, st)
+             : launch<T, D>(q, k, v, q_sbh, q_ss, k_sbh, k_ss, v_sbh, v_ss,
+                            out, bh, sq, sk, causal, st);
+}
+
 template <typename T>
 cudaError_t dispatch(int d, bool mma, const void* q, const void* k,
                      const void* v, long long q_sbh, long long q_ss,
@@ -622,15 +653,20 @@ cudaError_t dispatch(int d, bool mma, const void* q, const void* k,
                      int causal, cudaStream_t st) {
   switch (d) {
     case 16:
-      return mma ? launch_mma<16>(q, k, v, q_sbh, q_ss, k_sbh, k_ss, v_sbh,
-                                  v_ss, out, bh, sq, sk, causal, st)
-                 : launch<T, 16>(q, k, v, q_sbh, q_ss, k_sbh, k_ss, v_sbh,
-                                 v_ss, out, bh, sq, sk, causal, st);
+      return launch_d<T, 16>(mma, q, k, v, q_sbh, q_ss, k_sbh, k_ss, v_sbh,
+                             v_ss, out, bh, sq, sk, causal, st);
+    case 32:
+      return launch_d<T, 32>(mma, q, k, v, q_sbh, q_ss, k_sbh, k_ss, v_sbh,
+                             v_ss, out, bh, sq, sk, causal, st);
     case 64:
-      return mma ? launch_mma<64>(q, k, v, q_sbh, q_ss, k_sbh, k_ss, v_sbh,
-                                  v_ss, out, bh, sq, sk, causal, st)
-                 : launch<T, 64>(q, k, v, q_sbh, q_ss, k_sbh, k_ss, v_sbh,
-                                 v_ss, out, bh, sq, sk, causal, st);
+      return launch_d<T, 64>(mma, q, k, v, q_sbh, q_ss, k_sbh, k_ss, v_sbh,
+                             v_ss, out, bh, sq, sk, causal, st);
+    case 96:
+      return launch_d<T, 96>(mma, q, k, v, q_sbh, q_ss, k_sbh, k_ss, v_sbh,
+                             v_ss, out, bh, sq, sk, causal, st);
+    case 128:
+      return launch_d<T, 128>(mma, q, k, v, q_sbh, q_ss, k_sbh, k_ss, v_sbh,
+                              v_ss, out, bh, sq, sk, causal, st);
     default:
       return cudaErrorInvalidValue;
   }

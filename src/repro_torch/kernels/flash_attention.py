@@ -9,7 +9,8 @@ product against the running max of their key block, and the denominator
 floored at 1e-30. Unlike the TPU kernel, which needs tiles that divide Sq
 and Sk (1500 does not), the CUDA kernel (``csrc/flash_attention.cu``)
 masks ragged Sq and Sk itself. It is bound by operations at the whisper
-encoder's shapes. bf16 q, k and v with 16-byte aligned rows run on the
+encoder's shapes and at llava's causal prefill (BH = 32, S = 4096, D =
+128). bf16 q, k and v with 16-byte aligned rows run on the
 tensor cores (``mma.sync``, 16 query rows a warp, k and v through a
 ``cp.async`` ring); f32 operands and unaligned rows run on f32 FMAs. Both
 walk the keys in blocks of ``BLOCK_K``.
@@ -25,9 +26,10 @@ from repro_torch.kernels import _build
 
 NEG_INF = -1e30
 BLOCK_K = 64          # keys per online-softmax step, as in the CUDA kernel
-# the head sizes the CUDA kernel is built for: the Whisper ladder's 64 and
-# the smoke configs' 16
-HEAD_DIMS = (16, 64)
+# the head sizes the CUDA kernel is built for: the Whisper ladder's 64, the
+# LMs' 128 (llava and the other attention LMs) and 96 (phi3-mini), and the
+# smoke and test configs' 16 and 32
+HEAD_DIMS = (16, 32, 64, 96, 128)
 
 
 def flash_attention_fwd_plain(q: torch.Tensor, k: torch.Tensor,

@@ -1,7 +1,9 @@
-"""Attention for the port: the Whisper encoder's self-attention, either
-query-chunked (``attn_impl="chunked"``) or flash (``"flash"``, on the
-``flash_attention_fwd`` kernel), and single-step KV-cache decode
-attention, which the Whisper decoder and the dense LMs share.
+"""Attention for the port: full-sequence self- and cross-attention (the
+Whisper encoder, Whisper's teacher-forced decoder, and every LM's
+``forward``), either query-chunked (``attn_impl="chunked"``) or flash
+(``"flash"``, on the ``flash_attention_fwd`` kernel), causal or not, and
+single-step KV-cache decode attention, which the Whisper decoder and the
+LMs share.
 
 The chunked and decode paths are plain einsum and softmax ops, as the
 reference writes them. The reference contracts with
@@ -70,11 +72,14 @@ def _repeat_kv_heads(kv: torch.Tensor, hq: int) -> torch.Tensor:
 
 
 def _chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                       chunk: int) -> torch.Tensor:
-    """Query-chunked non-causal attention, flat heads (the encoder's).
-    q: (B, Sq, Hq, D); k/v: (B, Sk, Hkv, D). Returns (B, Sq, Hq, D) in
-    q's type."""
+                       causal: bool = False, chunk: int = 2048,
+                       q_offset: int = 0) -> torch.Tensor:
+    """Query-chunked attention, flat heads, the reference's
+    ``_chunked_attention``. q: (B, Sq, Hq, D); k/v: (B, Sk, Hkv, D).
+    Returns (B, Sq, Hq, D) in q's type. ``causal`` masks key s for query
+    i where s > ``q_offset`` + i, at NEG_INF before the softmax."""
     sq, hq, d = q.shape[1:]
+    sk = k.shape[1]
     scale = d ** -0.5
     chunk = min(chunk, sq)
     if sq % chunk:
@@ -85,6 +90,12 @@ def _chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for ci in range(sq // chunk):
         qi = q[:, ci * chunk:(ci + 1) * chunk].to(torch.float32)
         logits = torch.einsum("bqhd,bshd->bhqs", qi, k) * scale
+        if causal:      # the encoder's (non-causal) launches stay as they were
+            kpos = torch.arange(sk, device=q.device)
+            qpos = q_offset + ci * chunk + torch.arange(chunk,
+                                                        device=q.device)
+            logits = torch.where(kpos[None, :] <= qpos[:, None], logits,
+                                 torch.full_like(logits, NEG_INF))
         probs = torch.softmax(logits, dim=-1)
         out = torch.einsum("bhqs,bshd->bqhd",
                            probs.to(v.dtype).to(torch.float32), vf)
@@ -96,8 +107,9 @@ def _flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      causal: bool = False) -> torch.Tensor:
     """Online-softmax (flash-2) attention forward on the
     ``flash_attention_fwd`` kernel: the reference's ``_flash_attention``
-    with its (B, H) fold and GQA repeat. q: (B, Sq, Hq, D); k/v: (B, Sk,
-    Hkv, D). Returns (B, Sq, Hq, D) in q's type. The kernel walks keys in
+    with its (B, H) fold and GQA repeat, causal or not (the kernel masks
+    key s for query i where s > i). q: (B, Sq, Hq, D); k/v: (B, Sk, Hkv,
+    D). Returns (B, Sq, Hq, D) in q's type. The kernel walks keys in
     blocks of 64 and masks ragged lengths, where the reference's k-blocks
     must divide Sk (one block at 1500 frames): in bf16 the two round the
     probabilities against different running maxima."""
@@ -112,19 +124,32 @@ def _flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def attention(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
-              chunk: int = 2048, engine=None) -> torch.Tensor:
-    """Non-causal self-attention over a full sequence (the encoder), by
-    ``cfg.attn_impl``. The reference's causal and cross variants serve
-    training (``decode_train``), which the port does not run yet."""
+              positions: Optional[torch.Tensor] = None,
+              memory: Optional[torch.Tensor] = None,
+              causal: bool = True, chunk: int = 2048,
+              engine=None) -> torch.Tensor:
+    """Self- or cross-attention over a full sequence, the reference's
+    ``attention``, by ``cfg.attn_impl``. x: (B, S, d) -> (B, S, d).
+    ``memory`` (B, F, d), the encoder's states, makes it cross-attention:
+    K/V are projected from it and nothing is masked or rotated. Otherwise
+    ``causal`` masks later keys, and with ``cfg.pos_embedding == "rope"``
+    q and k are rotated at ``positions`` (default 0..S-1)."""
     b, s, _ = x.shape
     hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    src = x if memory is None else memory
     q = _split_heads(layers.linear(p["q"], x, engine, "attn.q"), hq)
-    k = _split_heads(layers.linear(p["k"], x, engine, "attn.k"), hkv)
-    v = _split_heads(layers.linear(p["v"], x, engine, "attn.v"), hkv)
+    k = _split_heads(layers.linear(p["k"], src, engine, "attn.k"), hkv)
+    v = _split_heads(layers.linear(p["v"], src, engine, "attn.v"), hkv)
+    if memory is None and cfg.pos_embedding == "rope":
+        if positions is None:
+            positions = torch.arange(s, device=x.device)[None, :]
+        q = layers.apply_rope(q, positions, cfg.rope_theta)
+        k = layers.apply_rope(k, positions, cfg.rope_theta)
+    causal = memory is None and causal
     if cfg.attn_impl == "flash":
-        out = _flash_attention(q, k, v)
+        out = _flash_attention(q, k, v, causal=causal)
     else:
-        out = _chunked_attention(q, k, v, chunk=chunk)
+        out = _chunked_attention(q, k, v, causal=causal, chunk=chunk)
     return layers.linear(p["o"], out.reshape(b, s, hq * hd), engine, "attn.o")
 
 

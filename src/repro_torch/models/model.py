@@ -1,7 +1,11 @@
 """The model API of the port: the audio (Whisper) and decoder-only LM
-(dense, MoE, SSM, hybrid) branches of the reference's family dispatch.
+(dense, MoE, SSM, hybrid, VLM) branches of the reference's family
+dispatch.
 
   init_params(gen, cfg, max_positions, device) -> param dict
+  hidden_forward(params, cfg, batch)           -> (hidden, moe_aux)
+  forward(params, cfg, batch)                  -> (logits, moe_aux)
+  loss_fn(params, cfg, batch)                  -> (loss, metrics)
   init_serve_state(params, cfg, batch, max_len, memory=...) -> ServeState
   zeros_serve_state(cfg, batch, frames, max_len, device=...) -> ServeState
   zeros_slot_state(cfg, n_slots, frames, max_len, device=...) -> ServeState
@@ -21,6 +25,19 @@ slot splice (``serve/kvcache.py``) treats every family alike, and each
 layer's ``length`` is its counter (per row in the slot layout). An LM's
 prefill is the reference's: a loop of ``serve_step`` over the prompt's
 tokens (the reference's ``lax.scan``), not a full-sequence forward.
+
+``forward`` and ``loss_fn`` run a whole sequence at once, for inference
+only (nothing is differentiated). The batch is a dict of tensors, the
+reference's conventions:
+
+  LM families : {"tokens": (B, S) int, "labels": (B, S) int}
+  vlm         : + {"patches": (B, P, E_vis) f32}, projected and spliced
+                over the first P token positions
+  audio       : {"mel": (B, F, n_mels) f32, "tokens": (B, T), "labels"}
+
+The VLM serves on tokens alone, as the reference does: ``serve_step`` and
+``prefill`` never read patches, so only ``hidden_forward`` runs the
+projector.
 """
 from __future__ import annotations
 
@@ -74,6 +91,9 @@ def init_params(gen: torch.Generator, cfg: ModelConfig,
     if not cfg.tie_embeddings:
         params["lm_head"] = layers.init_linear(gen, cfg.d_model,
                                                cfg.padded_vocab, dtype=pdtype)
+    if cfg.family == "vlm":
+        params["projector"] = layers.init_linear(
+            gen, cfg.vision_embed_dim, cfg.d_model, bias=True, dtype=pdtype)
     return to_device(params, dev)
 
 
@@ -84,6 +104,105 @@ def _readout(params: dict, cfg: ModelConfig, x: torch.Tensor,
     if cfg.tie_embeddings:
         return layers.unembed(params["embed"], x, engine)
     return layers.linear(params["lm_head"], x, engine, "lm_head")
+
+
+def _embed_inputs(params: dict, cfg: ModelConfig, batch: dict,
+                  engine=None) -> torch.Tensor:
+    """The token embeddings in the model's type; a VLM's ``patches`` (B,
+    P, E_vis) go through the projector (``vlm.projector``), are cast to
+    that type and replace the first P positions."""
+    x = layers.embed(params["embed"], batch["tokens"]).to(
+        layers.DTYPES[cfg.dtype])
+    if cfg.family == "vlm" and "patches" in batch:
+        proj = layers.linear(params["projector"], batch["patches"], engine,
+                             "vlm.projector").to(x.dtype)
+        x = torch.cat([proj, x[:, proj.shape[1]:]], dim=1)
+    return x
+
+
+def hidden_forward(params: dict, cfg: ModelConfig, batch: dict, *,
+                   engine=None, attn_chunk: int = 2048
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The backbone only: (final hidden states before the readout, the MoE
+    load-balance loss, f32). Whisper encodes ``mel`` and runs the decoder
+    teacher-forced over ``tokens``; an LM embeds (a VLM splicing its
+    patches) and runs the decoder stack at positions 0..S-1."""
+    if cfg.family == "audio":
+        memory = whisper.encode(params, cfg, batch["mel"], engine=engine,
+                                attn_chunk=attn_chunk)
+        h = whisper.decode_train(params, cfg, batch["tokens"], memory,
+                                 engine=engine, attn_chunk=attn_chunk,
+                                 return_hidden=True)
+        return h, torch.zeros((), dtype=torch.float32, device=h.device)
+    x = _embed_inputs(params, cfg, batch, engine)
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    return transformer.apply_decoder_stack(params["stack"], cfg, x,
+                                           positions=positions,
+                                           engine=engine,
+                                           attn_chunk=attn_chunk)
+
+
+def whisper_readout(params: dict, cfg: ModelConfig, x: torch.Tensor,
+                    engine=None) -> torch.Tensor:
+    """Whisper's final decoder norm and tied vocabulary readout."""
+    x = layers.norm_apply(params["dec_norm"], x, cfg.norm)
+    return layers.unembed(params["embed"], x, engine)
+
+
+def forward(params: dict, cfg: ModelConfig, batch: dict, *, engine=None,
+            attn_chunk: int = 2048) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(logits (B, S, padded vocab), the MoE load-balance loss)."""
+    h, aux = hidden_forward(params, cfg, batch, engine=engine,
+                            attn_chunk=attn_chunk)
+    readout = whisper_readout if cfg.family == "audio" else _readout
+    return readout(params, cfg, h, engine), aux
+
+
+def _ce_of_logits(logits: torch.Tensor, labels: torch.Tensor,
+                  vocab_size: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One chunk's masked cross-entropy sums (the sum over labelled
+    positions, their count), in f32: the pad columns (>= vocab_size) are
+    masked out of the log-sum-exp, and labels < 0 out of both sums."""
+    logits = logits.to(torch.float32)
+    v = logits.shape[-1]
+    if v > vocab_size:                     # the vocabulary's pad columns
+        col = torch.arange(v, device=logits.device)
+        logits = torch.where(col < vocab_size, logits,
+                             torch.full_like(logits, -1e30))
+    mask = (labels >= 0).to(torch.float32)
+    safe = labels.clamp(min=0).to(torch.long)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+    return ((logz - gold) * mask).sum(), mask.sum()
+
+
+def loss_fn(params: dict, cfg: ModelConfig, batch: dict, *, engine=None,
+            attn_chunk: int = 2048, ce_chunk: int = 512
+            ) -> Tuple[torch.Tensor, dict]:
+    """Next-token cross-entropy over ``labels`` (already shifted; label
+    -1 masked) plus the MoE load-balance loss: (total, {"ce", "moe_aux",
+    "ntok"}). The readout and its CE run a ``ce_chunk`` of the sequence at
+    a time where it divides S and S > ``ce_chunk``, as the reference's
+    sequence chunking: the logits never exceed (B, ce_chunk, V), and the
+    readout launches once a chunk. Nothing is differentiated, so nothing
+    is recomputed."""
+    h, aux = hidden_forward(params, cfg, batch, engine=engine,
+                            attn_chunk=attn_chunk)
+    labels = batch["labels"]
+    readout = whisper_readout if cfg.family == "audio" else _readout
+    s = h.shape[1]
+    n_chunks = s // ce_chunk if (s % ce_chunk == 0 and s > ce_chunk) else 1
+    size = s // n_chunks
+    ce_sum = torch.zeros((), dtype=torch.float32, device=h.device)
+    ntok = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(n_chunks):
+        cs, nt = _ce_of_logits(
+            readout(params, cfg, h[:, i * size:(i + 1) * size], engine),
+            labels[:, i * size:(i + 1) * size], cfg.vocab_size)
+        ce_sum, ntok = ce_sum + cs, ntok + nt
+    ntok = ntok.clamp(min=1.0)
+    loss = ce_sum / ntok
+    return loss + aux, {"ce": loss, "moe_aux": aux, "ntok": ntok}
 
 
 def _lm_state(cfg: ModelConfig, batch: int, max_len: int, device,

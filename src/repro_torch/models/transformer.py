@@ -15,18 +15,20 @@ and its FFN dense, MoE (``models/moe.py``) or none: jamba's pattern of 8
 puts attention at position 4 and MoE at the odd positions, mamba2's is
 one SSM layer with no FFN. The decode state holds one entry a layer, a
 KV cache for an attention layer and an ``SSMState`` for an SSM layer.
+``apply_decoder_stack`` runs the same layers over a whole sequence (the
+model API's ``forward``), the SSM layers by the chunked SSD scan.
 """
 from __future__ import annotations
 
 import math
-from typing import List, NamedTuple, Tuple, Union
+from typing import List, NamedTuple, Optional, Tuple, Union
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers, moe as moe_lib, ssm as ssm_lib
 from repro_torch.models.attention import (
-    KVCache, QKVCache, decode_attention, init_attention)
+    KVCache, QKVCache, attention, decode_attention, init_attention)
 
 
 class LayerSpec(NamedTuple):
@@ -101,6 +103,50 @@ def init_decoder_stack(gen: torch.Generator, cfg: ModelConfig) -> dict:
     dtype = layers.DTYPES[cfg.param_dtype]
     return {"blocks": [_init_block(gen, cfg, spec, dtype)
                        for spec in layer_specs(cfg)]}
+
+
+# ---------------------------------------------------------------------------
+# Full-sequence apply (forward and loss)
+# ---------------------------------------------------------------------------
+def _apply_block(p: dict, cfg: ModelConfig, spec: LayerSpec,
+                 x: torch.Tensor, *, positions, engine, attn_chunk: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One layer over a full sequence: the pre-norm mixer (causal
+    attention or the chunked SSD scan), then the pre-norm FFN, each added
+    to the residual stream in x's type. Returns (x, the layer's MoE
+    load-balance loss, 0 for another FFN)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    h = layers.norm_apply(p["norm1"], x, cfg.norm)
+    if spec.mixer == "attn":
+        mixed = attention(p["attn"], cfg, h, positions=positions,
+                          causal=True, chunk=attn_chunk, engine=engine)
+    else:
+        mixed = ssm_lib.ssm_mixer(p["ssm"], cfg, h, engine=engine)
+    x = x + mixed.to(x.dtype)
+    if spec.ffn != "none":
+        h = layers.norm_apply(p["norm2"], x, cfg.norm)
+        if spec.ffn == "moe":
+            y, aux = moe_lib.moe_ffn(p["moe"], cfg, h, engine=engine)
+        else:
+            y = layers.mlp_apply(p["ffn"], h, cfg.act, engine=engine)
+        x = x + y.to(x.dtype)
+    return x, aux
+
+
+def apply_decoder_stack(params: dict, cfg: ModelConfig, x: torch.Tensor, *,
+                        positions: Optional[torch.Tensor] = None,
+                        engine=None, attn_chunk: int = 2048
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, d) through every layer in order -> (y, the MoE
+    load-balance losses summed over the layers, f32). The reference's
+    ``apply_decoder_stack`` with ``scan_layers=False``: inference only, so
+    no remat."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for p, spec in zip(params["blocks"], layer_specs(cfg), strict=True):
+        x, a = _apply_block(p, cfg, spec, x, positions=positions,
+                            engine=engine, attn_chunk=attn_chunk)
+        aux = aux + a
+    return x, aux
 
 
 # ---------------------------------------------------------------------------

@@ -6,7 +6,9 @@ downstream — encoder self-attention stack, decoder self- and
 cross-attention, tied vocabulary readout — routes every linear through the
 offload engine when one is passed.
 
-Decode follows whisper.cpp's split: the encoder runs once per utterance,
+``decode_train`` runs the decoder teacher-forced over a whole token
+sequence (the model API's ``forward`` and ``loss_fn``). Decode follows
+whisper.cpp's split: the encoder runs once per utterance,
 each decoder layer's cross K/V is projected once from the encoder memory
 (``dec.cross.k``/``dec.cross.v``), then tokens decode autoregressively
 against the cached self-attention KV. Layers are a Python loop over a list
@@ -104,12 +106,40 @@ def encode(params: dict, cfg: ModelConfig, mel: torch.Tensor, *,
     x = (x + params["enc_pos"]["table"][:f].to(torch.float32)).to(dtype)
     for p in params["enc_blocks"]:
         h = layers.norm_apply(p["norm1"], x, cfg.norm)
-        x = x + attention(p["attn"], cfg, h, chunk=attn_chunk,
-                          engine=engine).to(x.dtype)
+        x = x + attention(p["attn"], cfg, h, causal=False,
+                          chunk=attn_chunk, engine=engine).to(x.dtype)
         h = layers.norm_apply(p["norm2"], x, cfg.norm)
         x = x + layers.mlp_apply(p["ffn"], h, cfg.act, engine=engine
                                  ).to(x.dtype)
     return layers.norm_apply(params["enc_norm"], x, cfg.norm)
+
+
+def decode_train(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+                 memory: torch.Tensor, *, engine=None,
+                 attn_chunk: int = 2048,
+                 return_hidden: bool = False) -> torch.Tensor:
+    """The teacher-forced decoder over a whole sequence, the reference's
+    ``decode_train``: tokens (B, T) -> logits (B, T, V), each layer's
+    causal self-attention, cross-attention over the encoder ``memory``
+    (B, F, d), then its MLP. ``return_hidden`` skips the final norm and
+    the readout (the chunked loss reads them a chunk at a time)."""
+    t = tokens.shape[1]
+    x = layers.embed(params["embed"], tokens)
+    x = x + params["dec_pos"]["table"][:t].to(x.dtype)
+    for p in params["dec_blocks"]:
+        h = layers.norm_apply(p["norm1"], x, cfg.norm)
+        x = x + attention(p["self_attn"], cfg, h, causal=True,
+                          chunk=attn_chunk, engine=engine).to(x.dtype)
+        h = layers.norm_apply(p["norm_x"], x, cfg.norm)
+        x = x + attention(p["cross_attn"], cfg, h, memory=memory,
+                          chunk=attn_chunk, engine=engine).to(x.dtype)
+        h = layers.norm_apply(p["norm2"], x, cfg.norm)
+        x = x + layers.mlp_apply(p["ffn"], h, cfg.act, engine=engine
+                                 ).to(x.dtype)
+    if return_hidden:
+        return x
+    x = layers.norm_apply(params["dec_norm"], x, cfg.norm)
+    return layers.unembed(params["embed"], x, engine)
 
 
 def precompute_cross_kv(params: dict, cfg: ModelConfig, memory: torch.Tensor,

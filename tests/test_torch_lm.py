@@ -4,8 +4,8 @@ CPU at the smoke configs, with identical weights (the reference's
 
 - the four dense archs' and the two MoE archs' configs: ``reduced`` field
   for field, ``n_params``/``n_active_params`` and ``enumerate_lm`` equal
-  to the reference's; the archs the port does not serve yet raise
-  ``KeyError``;
+  to the reference's; every reference arch in the registry, an unknown
+  id raising ``KeyError``;
 - ``rmsnorm``, ``apply_rope`` (lockstep and per-row positions), SwiGLU and
   a biased ``linear`` within 1e-6 of the reference's;
 - ``quantize_kv``/``dequantize_kv`` bit-equal, and the Q8_0 weights
@@ -38,6 +38,7 @@ import torch
 
 from repro import obs as jax_obs
 from repro.configs import base as jax_base
+from repro.configs import registry as jax_registry
 from repro.configs.registry import get_config as jax_config
 from repro.configs.registry import get_smoke_config as jax_smoke_config
 from repro.core import coverage as jax_coverage
@@ -50,7 +51,7 @@ from repro.serve.scheduler import \
     ContinuousBatchingScheduler as JaxScheduler
 from repro_torch import obs
 from repro_torch.configs import get_config, get_smoke_config
-from repro_torch.configs import base
+from repro_torch.configs import base, registry
 from repro_torch.convert import _tensor, from_jax_params
 from repro_torch.core import coverage
 from repro_torch.core.offload import OffloadEngine
@@ -63,7 +64,6 @@ from repro_torch.serve.scheduler import ContinuousBatchingScheduler
 
 DENSE = ["qwen2.5-14b", "phi3-mini-3.8b", "internlm2-20b", "qwen1.5-110b"]
 MOE = ["olmoe-1b-7b", "arctic-480b"]
-LATER = ["llava-next-mistral-7b"]
 SERVED = ["qwen2.5-14b", "phi3-mini-3.8b"]
 BURSTS = [None, 256, 32]
 MAX_LEN = 32
@@ -181,8 +181,8 @@ def test_configs_reduced_params_and_coverage_match_reference(arch):
 
 def test_moe_and_ssm_data_reduce_as_the_reference_does():
     """The MoE and SSM configs: ``reduced`` cuts them as the reference
-    does; models of the MoE, SSM and hybrid families are built, and one of
-    the VLM family is refused, naming ROADMAP item 15a."""
+    does; models of the MoE, SSM, hybrid and VLM families are built, and
+    an unknown family is refused."""
     for arch in ("olmoe-1b-7b", "arctic-480b", "mamba2-780m",
                  "jamba-v0.1-52b"):
         ref = jax_config(arch)
@@ -205,18 +205,25 @@ def test_moe_and_ssm_data_reduce_as_the_reference_does():
                for f in dataclasses.fields(cfg)}).moe_layers
         assert cfg.attention_layers == (
             () if ref.family == base.SSM else tuple(range(cfg.num_layers)))
-    with pytest.raises(ValueError, match="15a"):
-        dataclasses.replace(get_config("qwen2.5-14b"), family=base.VLM)
+    assert dataclasses.replace(get_config("qwen2.5-14b"),
+                               family=base.VLM).family == base.VLM
+    with pytest.raises(ValueError, match="unknown family"):
+        dataclasses.replace(get_config("qwen2.5-14b"), family="cnn")
 
 
-@pytest.mark.parametrize("arch", LATER)
-def test_registry_refuses_archs_of_later_slices(arch):
-    jax_config(arch)                             # the reference knows it
+def test_registry_serves_every_reference_arch_and_refuses_unknown_ids():
+    """Every arch the reference knows is in the port's registry (llava's
+    VLM the last to come), nothing is left for a later slice, and an
+    unknown id raises ``KeyError``."""
+    assert registry.LATER == {}
+    assert set(registry.ALL_ARCHS) == set(jax_registry.ALL_ARCHS)
+    for arch in jax_registry.ALL_ARCHS:
+        assert get_config(arch).name == jax_config(arch).name
+        assert get_smoke_config(arch).name == jax_smoke_config(arch).name
+    assert get_config("llava-next-mistral-7b").family == base.VLM
     for get in (get_config, get_smoke_config):
-        with pytest.raises(KeyError, match="15a"):
-            get(arch)
-    with pytest.raises(KeyError, match="unknown"):
-        get_config("no-such-arch")
+        with pytest.raises(KeyError, match="unknown"):
+            get("no-such-arch")
 
 
 # ---------------------------------------------------------------------------
