@@ -238,16 +238,19 @@ own kernels with nvcc. Phases, each of which fails the run on error:
        once the bf16 draw is freed; the first logits of a short prompt
        against the port on the CPU at depth 2 (the same embedding, first
        two layers, final norm and head), within 1e-2 of the CPU's
-       largest logit; ``generate`` of one 64-token prompt and 64 new
-       tokens: the eager loop (``prefill``/``step``) launches 337
-       ``q8_matvec`` a step from Python, the captured request's tokens
-       equal its tokens, the capture launches two passes of one step and
-       later requests none, their ledger is as many eager requests';
+       largest logit; the eager loop (``prefill``/``step``) over the last
+       16 tokens of a 64-token prompt and 16 new tokens launches 337
+       ``q8_matvec`` a step from Python, a captured request of the same
+       tokens equals it, the capture launches two passes of one step and
+       later requests none; the timed requests, 64 + 64 tokens, launch
+       nothing, their tokens equal each other's and their ledger is
+       four eager loops';
        the profiler counts 337 ``q8_matvec_kernel`` a replayed step;
        prefill ms, decode ms a token, device ms a step, idle shares
        (profiled and unprofiled), the top kernels, the dot-product share
        and the PDP of the request at the power limit; batch 4, prompts
-       of 16-64 tokens left-padded with token 0, captured against eager.
+       of 16-64 tokens left-padded with token 0, their last 16 tokens and
+       16 new captured against eager, then the whole prompts timed.
     b. bf16 (``quant="none"``), the Q8_0 engine freed first: the same at
        batch 1, 337 ``gemv_bf16_kernel`` a replayed step.
     c. The slot scheduler: 12 requests (prompts of 16-64 tokens, max_new
@@ -256,6 +259,12 @@ own kernels with nvcc. Phases, each of which fails the run on error:
        commit an admission and a step, lm_head run once a prompt token
        and a step; a warm drive's tokens a second, KV bytes, and the
        4-row step's replay profiled.
+    e. (run after c) sharded: c's trace over 4 slots of a new engine on a
+       mesh of 2 entries of the card, built from a's quantized weights
+       (every leaf the same tensor: no second draw): tokens equal c's
+       streams, one slot-step build captured once a shard (and the
+       admissions' batch-1 step); a warm drive's tokens a second beside
+       c's. Its launches count under "sharded".
     d. ``kv_quant="q8"``: one captured batch-1 ``generate`` whose tokens
        equal its eager loop's.
     ``lm ...`` lines, then ``lm phase: N s``. Phase 2 holds both decode
@@ -270,7 +279,8 @@ own kernels with nvcc. Phases, each of which fails the run on error:
     a. olmoe-1b-7b at its published widths and depth (16 layers, 64
        experts, top-8): the first logits against the port on the CPU at
        depth 2, within 3e-2 of the largest logit; ``lm_oneshot`` at batch
-       1 (64 + 64 tokens) and 4: 65 ``gemv_bf16_kernel`` a step, eagerly
+       1 (64 + 64 tokens timed, its eager loops 16 + 16 as phase 14's)
+       and 4: 65 ``gemv_bf16_kernel`` a step, eagerly
        and at a replay, captured tokens equal the eager loop's, prefill
        ms a prompt token, decode ms a token, device ms a step, idle
        shares, PDP at the power limit; the step's device time split into
@@ -299,8 +309,9 @@ own kernels with nvcc. Phases, each of which fails the run on error:
     a. mamba2-780m at its published widths and depth (48 layers, d_model
        1536, 48 SSD heads of 64, d_state 128), Q8_0: the first logits
        against the port on the CPU at depth 2, within 1e-2 of the
-       largest logit; ``lm_oneshot`` at batch 1 (64 + 64 tokens) and 4:
-       97 ``q8_matvec_kernel`` a step, eagerly and at a replay, captured
+       largest logit; ``lm_oneshot`` at batch 1 (64 + 64 tokens timed,
+       its eager loops 16 + 16 as phase 14's) and 4: 97
+       ``q8_matvec_kernel`` a step, eagerly and at a replay, captured
        tokens equal the eager loop's, prefill ms a prompt token, decode
        ms a token, device ms a step, idle shares, top kernels, dot
        share, PDP at the power limit; the step's device time split into
@@ -359,7 +370,8 @@ own kernels with nvcc. Phases, each of which fails the run on error:
        product (M = 1152, K = 1024, N = 4096, f32 x) one ``q8_matmul``
        launch, the splice within 1e-2, the token rows equal.
     d. llava served on tokens alone, as the reference serves it:
-       ``lm_oneshot`` at batch 1 (64 + 64 tokens) and 4, and
+       ``lm_oneshot`` at batch 1 (64 + 64 tokens timed, its eager loops
+       16 + 16 as phase 14's) and 4, and
        ``lm_scheduler`` (14c's trace over 4 slots), in Q8_0 (225
        ``q8_matvec_kernel`` a step) and in bf16 (225 ``gemv_bf16_kernel``),
        the gates of phase 14's.
@@ -382,6 +394,41 @@ own kernels with nvcc. Phases, each of which fails the run on error:
     = 4096 over 32 heads at D = 128 ("llava forward") and D = 96
     ("phi3-mini forward").
 
+18. Sharded serving (``sharded_phase``), run after phase 13 on its
+    engines' weights: slot-DP over meshes of logical devices that are
+    all the card (``make_serve_mesh(data=n, devices=[cuda:0] * n)``).
+    On one card it checks the sharded machinery with real kernels and
+    graphs (placement, one captured program a shard, shard-local
+    admission, the ledger's split, parity), not scaling.
+    a. whisper-tiny on phase 10's trace over 4 slots, Q8_0 and dense +
+       flash, at data 4 and 2, after the unsharded drive: tokens equal
+       the unsharded scheduler's; the step key built once and captured
+       once a shard, then never; Python launches two passes of the
+       batch-1 prefill and of n shards' steps; the profiler counts n x
+       33 ``q8_matvec_kernel`` (``gemv_bf16_kernel``) a replayed step;
+       ``sum(by_device)`` the ledger's FLOPs over n devices; plan keys
+       disjoint from the unsharded engine's; ledger totals and commits
+       the unsharded drive's; a warm drive with no capture or launch; a
+       shard's row bit for bit the batch-1 step's. The sharded step's
+       host ms, device ms and idle share beside phase 10's.
+    b. the paged pool at data 4 on phase 11's trace (its self arena
+       rounded up to a multiple of 4 pages): tokens equal the unsharded
+       paged pool's and the contiguous scheduler's; commits = prefills +
+       steps + replays; a slot's self pages from its shard's range
+       whenever that range had one; requests per committed byte against
+       the contiguous pool's.
+    c. ``SpecScheduler``'s waves with phase 12c's echo whisper-base
+       verifier and whisper-tiny draft at data 2 on phase 12c's trace,
+       each wave's batch split over the data shards: tokens equal the
+       unsharded waves'; the window and the draft step built once and
+       captured once a shard; the round schedulers refuse the mesh, as
+       the reference's do.
+    ``sharded ...`` lines, then ``sharded phase: N s``. Phase 2 holds
+    ``q8_matvec`` at the data-4 step's shapes (``per`` "sharded slot step
+    data=4": each decode linear 4 x at M = 1), whose bytes are four
+    graphs' weight streams; the step's own byte bound, the weights once,
+    is the "slot decode step" row's.
+
 The last two lines are the kernels' JSON record and the result line; each
 kernel's record also carries its launches on the tuned paths' eager loops
 (``tuned_launches``), its launches on each path's drive
@@ -389,8 +436,9 @@ kernel's record also carries its launches on the tuned paths' eager loops
 pool drives, both paths summed, under "paged", phase 12's captures
 under "speculative", phase 13's captures, every engine's summed, under
 "telemetry", every Python launch of phase 14 under "lm", of phase 15
-under "moe", of phase 16 under "ssm", of phase 17 under "forward" and of
-phase 17d under "vlm") and its tiles' times
+under "moe", of phase 16 under "ssm", of phase 17 under "forward", of
+phase 17d under "vlm" and of phases 18 and 14e under "sharded") and its
+tiles' times
 (``tiles``).
 
 Copied out of a checkout (no ``src/repro_torch`` beside the script), or
@@ -404,6 +452,7 @@ import os
 import subprocess
 import sys
 import time
+from typing import Optional
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
@@ -449,6 +498,13 @@ BF16_SLOT_SHAPES = [(4, *shape[1:]) for shape in BF16_STEP_SHAPES]
 # the paged slot step (phase 11): 12 logical slots, every decode linear at
 # M = 12, on the MT = 16 instantiations
 MATVEC_PAGED_SHAPES = [(12, *shape[1:]) for shape in MATVEC_SHAPES]
+# the sharded 4-row slot step at data 4 (phase 18a): four graphs of the
+# batch-1 step, each streaming every weight, so each linear 4 x at M = 1;
+# its plain and library times are those of the same 4 x M = 1 calls. The
+# step's own byte bound (the weights once) is the slot step's row's
+SHARD_STEP_DATA = 4
+MATVEC_SHARDED_SHAPES = [(*shape[:4], SHARD_STEP_DATA * shape[4], shape[5])
+                         for shape in MATVEC_SHAPES]
 BF16_PAGED_SHAPES = [(12, *shape[1:]) for shape in BF16_STEP_SHAPES]
 # whisper-base's decode linears, the verifier's (phase 12): (n, k, launches
 # a step or a window); burst 256 divides every K, so k_main = K
@@ -547,6 +603,8 @@ KERNELS = {
                       shapes={"decode step": MATVEC_SHAPES,
                               "slot decode step": MATVEC_SLOT_SHAPES,
                               "paged slot step": MATVEC_PAGED_SHAPES,
+                              "sharded slot step data=4":
+                                  MATVEC_SHARDED_SHAPES,
                               "whisper-base decode step": BASE_STEP_Q8,
                               "verify window M=5": WINDOW5_Q8,
                               "qwen2.5-14b decode step": QWEN_M1,
@@ -711,6 +769,14 @@ LM_SCHED_REQUESTS = 12
 LM_SCHED_PROMPTS = (16, 64)
 LM_SCHED_BUDGETS = (8, 32)
 LM_KVQ_NEW = 32                   # 14d: one batch-1 request, int8 KV
+LM_EAGER = 16                     # the eager loops' prompt and new tokens
+LM_SHARD_DATA = 2                 # 14e: 14c's trace over a data-2 mesh
+# phase 18, sharded serving over meshes of logical devices, all the card:
+# whisper-tiny at data 4 and 2 (18a), the paged pool at 4 (18b), the
+# speculative waves at 2 (18c)
+SHARD_DATAS = (SHARD_STEP_DATA, 2)
+SHARD_PG_DATA = 4
+SHARD_SPEC_DATA = 2
 # profiled windows of replayed LM steps lose a kernel record now and then
 # on the card (one to nine of 36,000 in 8 steps; one in every window of
 # 2 steps, window after window, late in a long run). So a spin kernel
@@ -2789,7 +2855,7 @@ def _window_vs_steps(spec, b: int, f: int, tol: float):
     import torch
     from repro_torch.models import model
     v, k = spec.verifier, spec.k
-    rounds = spec._statics[(b, f)]
+    rounds = spec._statics[(b, f)][0].rounds
     st = rounds.v_state
     tok = rounds.window[:, :k + 1].clone()
     snap = [t.clone() for t in model.state_tensors(st)]
@@ -2825,7 +2891,7 @@ def _profile_round(spec, b: int, f: int):
     re-prefills."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    rounds = spec._statics[(b, f)]
+    rounds = spec._statics[(b, f)][0].rounds
     dprog, vprog = rounds.programs
 
     def drafts():
@@ -2877,7 +2943,7 @@ def spec_case(label, v, spec, mel, max_new: int, tol: float, counted,
     got = spec.transcribe(mel, max_new=max_new)
     torch.cuda.synchronize()
     launches = _read(counted)
-    rounds = spec._statics[(b, f)]
+    rounds = spec._statics[(b, f)][0].rounds
     want = {name: 0 for name in counted}
     for name, n in _plan_launches(
             d._plans.plans[d._key("prefill", b, f)], rounds.d_plan,
@@ -3081,7 +3147,7 @@ def spec_schedulers(v, spec, counted, power_w):
         if mode == "wave":
             waves = -(-PS_REQUESTS // PS_SLOTS)
             ok_commits = commits == 2 * waves + 2 * rounds
-            rk = spec._statics[(PS_SLOTS, f)]
+            rk = spec._statics[(PS_SLOTS, f)][0].rounds
             want_flops = (_role_flops(v, {v._key("prefill", PS_SLOTS, f):
                                           waves, rk.v_key: rounds})
                           + _role_flops(d, {d._key("prefill", PS_SLOTS, f):
@@ -3260,7 +3326,7 @@ def speculative_phase(counted, tiny_power):
     if missing:
         raise AssertionError(f"speculative path: {missing} never launched")
     return launches, dict(rungs=rungs, cases=cases, schedulers=sched,
-                          wall_s=wall)
+                          wall_s=wall), (bp_echo, tp_echo)
 
 
 def _check_trace_module():
@@ -3600,6 +3666,427 @@ def telemetry_drives(q8_eng, counted):
 
 
 # ---------------------------------------------------------------------------
+# Phase 18: sharded serving (slot-DP over a mesh of logical devices)
+# ---------------------------------------------------------------------------
+def _shard_mesh(n: int):
+    """A data-only serving mesh of ``n`` logical devices, all the card."""
+    import torch
+    from repro_torch.launch.mesh import make_serve_mesh
+    return make_serve_mesh(data=n, devices=[torch.device("cuda:0")] * n)
+
+
+def _profile_sharded_steps(sched):
+    """PROFILED_STEPS sharded slot steps under torch.profiler, each every
+    shard's replay and the scheduler's host read: kernels by name a step,
+    the top kernels and host wall ms a step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _open_window()
+        t0 = time.perf_counter()
+        for _ in range(PROFILED_STEPS):
+            sched._replay_all(sched._programs)
+            sched._host_rows(sched._tokens)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / PROFILED_STEPS
+    return (_by_kernel(prof, PROFILED_STEPS),
+            _top_kernels(prof, PROFILED_STEPS, 8), wall)
+
+
+def _row_bits(eng, sched, mel) -> bool:
+    """One request of 2 tokens through the sharded pool, then a batch-1
+    ``transcribe`` of its mel on the same engine: the last decoder layer's
+    self K and V of the request's slot at positions 0-1 equal the batch-1
+    step's, bit for bit."""
+    import torch
+    f = mel.shape[1]
+    rid = sched.submit(mel, max_new=2)
+    sched.admit()
+    slot = next(s for s, a in sched._active.items() if a.rid == rid)
+    sched.run()
+    dev, row = sched.pool.locate(slot)
+    kv = sched.pool.states[dev].layer_states.self_kv[-1]
+    eng.transcribe(mel, max_new=2)
+    st = eng._static[(1, f)].state.layer_states.self_kv[-1]
+    torch.cuda.synchronize()
+    return (torch.equal(kv.k[row, :2], st.k[0, :2])
+            and torch.equal(kv.v[row, :2], st.v[0, :2]))
+
+
+_LEDGER_TOTALS = ("offloaded_calls", "fallback_calls", "offloaded_flops",
+                  "fallback_flops", "residual_flops", "tuned_calls",
+                  "by_kernel", "by_backend")
+
+
+def sharded_path(label, eng0, counted, programs, replay_kernels, n_req,
+                 slot4):
+    """Phase 18a on one path: phase 10's trace (``_cb_workload``, n_req
+    requests, the second wave mid-drain) over SLOTS slots at 1500 frames,
+    first unsharded, then over meshes of SHARD_DATAS entries of the card,
+    each on a new engine (max_len CB_MAX_LEN, no EOS) with ``eng0``'s
+    weights and quantization. The launch counts are zeroed before each
+    sharded drive and read after it. Gates: tokens equal the unsharded
+    scheduler's; the step key built once and captured once a shard, then
+    never; Python launches two passes of the batch-1 prefill and of n
+    shards' steps; a replayed step n x the unsharded step's kernels by
+    name; ``sum(by_device)`` the ledger's FLOPs over n devices; sharded
+    and unsharded plan keys disjoint; the ledger's totals and commits the
+    unsharded drive's; a warm drive's tokens with no capture and no
+    launch; a shard's row bit for bit the batch-1 step's. Printed beside
+    ``slot4`` (phase 10's 4-row step): the sharded step's host ms (the
+    warm drive's median), device ms and idle share. Returns (launches,
+    summary by n)."""
+    import statistics
+
+    import torch
+    from repro_torch.core.offload import OffloadEngine
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = eng0.cfg
+    f = cfg.encoder_ctx
+    mels, max_news, _ = _cb_workload(cfg, n_req)
+
+    def make(mesh):
+        return ServeEngine(cfg, eng0.params, max_len=CB_MAX_LEN,
+                           quant=eng0._serve_quant, offload=OffloadEngine(),
+                           eos_id=-1, device="cuda", mesh=mesh)
+
+    one = make(None)
+    s1 = one.scheduler(SLOTS, f)
+    rids, adm1, steps1, _, _, _, _ = _drain_waves(s1, mels, max_news)
+    got1 = s1.run()
+    want = [got1[r].tokens for r in rids]
+    totals1 = _stats(one.offload)
+    commits1 = one.offload.ledger.commits
+    pre_run, step_run = programs
+    launches = {name: 0 for name in counted}
+    out = {}
+    for n in SHARD_DATAS:
+        eng = make(_shard_mesh(n))
+        torch.cuda.synchronize()
+        _zero(counted)
+        sched = eng.scheduler(SLOTS, f)
+        rids, admissions, steps, tokens, _, captures, drain_s = \
+            _drain_waves(sched, mels, max_news)
+        got = _read(counted)
+        for name, c in got.items():
+            launches[name] += c
+        res = sched.run()
+        toks = [res[r].tokens for r in rids]
+        want_l = {name: CAPTURE_PASSES * (pre_run.get(name, 0)
+                                          + n * step_run.get(name, 0))
+                  for name in counted}
+        totals = _stats(eng.offload)
+        flops = (totals["offloaded_flops"] + totals["fallback_flops"]
+                 + totals["residual_flops"])
+        by_dev = totals["by_device"]
+        disjoint = not set(one._plans.plans) & set(eng._plans.plans)
+        same = all(totals[k] == totals1[k] for k in _LEDGER_TOTALS)
+        print(f"sharded {label} data={n}: {n_req} requests, {SLOTS} slots "
+              f"({sched.pool.n_shards} shards of {sched.pool.shard_size}), "
+              f"{admissions} admissions, {steps} steps, {tokens} tokens in "
+              f"{drain_s * 1e3:.3f} ms; tokens equal the unsharded "
+              f"scheduler's: {toks == want}; step captures {captures} after "
+              f"the first step -> {eng._step_captures}, builds "
+              f"{eng._step_builds}; launches from Python {got} (expected "
+              f"{want_l}); by_device {by_dev} (sum {sum(by_dev.values())}, "
+              f"ledger {flops}); keys disjoint {disjoint}; ledger totals "
+              f"equal the unsharded drive's {same}; commits "
+              f"{eng.offload.ledger.commits} (unsharded {commits1})",
+              flush=True)
+        if toks != want:
+            bad = next(i for i, (a, b) in enumerate(zip(toks, want))
+                       if a != b)
+            raise AssertionError(f"sharded {label} data={n}: request {bad} "
+                                 f"tokens {toks[bad]} != {want[bad]}")
+        if (captures != n or eng._step_captures != n
+                or eng._step_builds != 1):
+            raise AssertionError(f"sharded {label} data={n}: captures "
+                                 f"{captures} -> {eng._step_captures}, "
+                                 f"builds {eng._step_builds}")
+        if got != want_l:
+            raise AssertionError(f"sharded {label} data={n}: launches {got} "
+                                 f"!= {want_l}")
+        if (sum(by_dev.values()) != flops
+                or sorted(by_dev) != [f"dev{i}" for i in range(n)]):
+            raise AssertionError(f"sharded {label} data={n}: by_device "
+                                 f"{by_dev} against {flops} FLOPs")
+        if not disjoint or not same or \
+                eng.offload.ledger.commits != commits1 or \
+                commits1 != adm1 + steps1:
+            raise AssertionError(f"sharded {label} data={n}: keys disjoint "
+                                 f"{disjoint}, ledger equal {same}, commits "
+                                 f"{eng.offload.ledger.commits} vs "
+                                 f"{commits1}")
+        # the same drive on the warm pool: nothing captured or launched
+        k0 = eng._step_captures
+        _zero(counted)
+        rids2, _, steps2, tokens2, step_s, _, warm_s = _drain_waves(
+            sched, mels, max_news)
+        again = sched.run()
+        if ([again[r].tokens for r in rids2] != want
+                or eng._step_captures != k0 or any(_read(counted).values())):
+            raise AssertionError(f"sharded {label} data={n}: the warm "
+                                 "drive's tokens, captures or launches")
+        want_step = {k: v * n for k, v in replay_kernels["step"].items()}
+        for attempt in range(REPLAY_PROFILES):
+            kernels, top, wall = _profile_sharded_steps(sched)
+            seen = {name: c for name, (c, _) in
+                    by_route(kernels, want_step).items()}
+            if seen == want_step:
+                break
+            print(f"sharded {label} data={n}: kernels a step {seen} in "
+                  f"profiled window {attempt + 1}, expected {want_step}; "
+                  "profiling again", flush=True)
+        if seen != want_step:
+            raise AssertionError(f"sharded {label} data={n}: kernels a "
+                                 f"replayed step {seen} != {want_step}")
+        dev = sum(ms for _, ms in kernels.values())
+        host = statistics.median(step_s) * 1e3
+        routes = by_route(kernels, want_step)
+        bits = _row_bits(eng, sched, mels[0])
+        print(f"sharded {label} data={n}: a shard's row bit for bit the "
+              f"batch-1 step's: {bits}", flush=True)
+        if not bits:
+            raise AssertionError(f"sharded {label} data={n}: a shard's row "
+                                 "differs from the batch-1 step's")
+        out[n] = dict(
+            path=label, data=n, requests=n_req, slots=SLOTS,
+            shard_size=sched.pool.shard_size, slot_steps=steps,
+            tokens=tokens, first_drive_ms=drain_s * 1e3,
+            warm_drive_ms=warm_s * 1e3, drain_tok_s=tokens2 / warm_s,
+            launches=got, step_captures=eng._step_captures,
+            step_builds=eng._step_builds, by_device=by_dev,
+            step_host_ms_median=host, step_host_ms_min=min(step_s) * 1e3,
+            step_wall_ms_profiled=wall, step_device_ms=dev,
+            step_idle_share=1 - dev / wall,
+            step_idle_share_unprofiled=1 - dev / host,
+            step_kernels=seen,
+            step_kernel_device_ms={k: v[1] for k, v in routes.items()},
+            step_top_kernels=top,
+            unsharded_step_host_ms=slot4.get("slot_step_host_ms_median"),
+            unsharded_step_device_ms=slot4.get("slot_step_device_ms"),
+            unsharded_step_idle_share=slot4.get(
+                "slot_step_idle_share_unprofiled"),
+            unsharded_tok_s=slot4.get("drain_tok_s"))
+        print(f"sharded {label} data={n} summary: {json.dumps(out[n])}",
+              flush=True)
+        del eng, sched
+    return launches, out
+
+
+def sharded_paged(eng0, counted, power_w):
+    """Phase 18b: phase 11's trace (``_pg_workload``) over PG_SLOTS logical
+    slots of the paged pool, unsharded and over a mesh of SHARD_PG_DATA
+    entries of the card (one physical device: the arenas stay one tensor),
+    and over the contiguous SLOTS-slot pool, on new Q8_0 engines (max_len
+    PG_MAX_LEN, no EOS). The self arena has phase 11's pages and the few
+    more that make its page count divide over the shards. Gates: the
+    sharded tokens equal the unsharded paged pool's and the contiguous
+    scheduler's; commits = prefills + steps + replays; a slot's self pages
+    come from its shard's range whenever that range had a free page;
+    captures n shards' paged steps and the batch-1 step (replays). Printed:
+    requests per committed byte against the contiguous pool's (phase 11:
+    2.97x). Returns (launches, summary)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.offload import OffloadEngine
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = eng0.cfg
+    f = cfg.encoder_ctx
+    n = SHARD_PG_DATA
+    mels, _, _, max_news, arrivals = _pg_workload(cfg)
+    pages_per = -(-(int(np.mean(max_news)) + 1) // PG_PAGE)
+    n_pages = 1 + PG_SLOTS * pages_per
+    n_pages += -n_pages % n
+    geom = dict(page_size=PG_PAGE, n_pages=n_pages, cross_page_size=f,
+                n_cross_pages=1 + PG_DISTINCT)
+
+    def make(mesh):
+        return ServeEngine(cfg, eng0.params, max_len=PG_MAX_LEN,
+                           quant=eng0._serve_quant, offload=OffloadEngine(),
+                           eos_id=-1, device="cuda", mesh=mesh)
+
+    one = make(None)
+    r_one = _pg_drive(one.paged_scheduler(PG_SLOTS, f, **geom), mels,
+                      max_news, arrivals, power_w)
+    r_cont = _pg_drive(one.scheduler(n_slots=SLOTS, n_frames=f), mels,
+                       max_news, arrivals, power_w)
+    eng = make(_shard_mesh(n))
+    torch.cuda.synchronize()
+    _zero(counted)
+    sched = eng.paged_scheduler(PG_SLOTS, f, **geom)
+    pool = sched.pool
+    picks = []
+    alloc = pool.alloc_self_page
+
+    def tracked(slot):
+        want = pool.slot_shard(slot) % pool.self_alloc.n_shards
+        had = bool(pool.self_alloc._free[want])
+        page = alloc(slot)
+        picks.append((want, pool.self_alloc.page_shard(page), had))
+        return page
+
+    pool.alloc_self_page = tracked
+    r = _pg_drive(sched, mels, max_news, arrivals, power_w)
+    launches = _read(counted)
+    commits = eng.offload.ledger.commits
+    local = [w == p for w, p, had in picks if had]
+    rpb = {k: v["active_peak"] / v["kv_committed_bytes"]
+           for k, v in (("sharded", r), ("unsharded", r_one),
+                        ("contiguous", r_cont))}
+    out = dict(data=n, slots=PG_SLOTS, geometry=geom,
+               n_shards=pool.n_shards, page_shards=pool.self_alloc.n_shards,
+               tokens_equal_unsharded=r["tokens"] == r_one["tokens"],
+               tokens_equal_contiguous=r["tokens"] == r_cont["tokens"],
+               prefills=sched.prefills, replays=sched.replays,
+               slot_steps=r["slot_steps"], commits=commits,
+               shared_hits=sched.shared_hits, preemptions=sched.preemptions,
+               self_page_allocations=len(picks),
+               shard_local_when_free=sum(local), with_free_page=len(local),
+               step_captures=eng._step_captures,
+               step_builds=eng._step_builds, launches=launches,
+               tok_s=r["tok_s"], unsharded_tok_s=r_one["tok_s"],
+               kv_committed_bytes=r["kv_committed_bytes"],
+               active_peak=r["active_peak"],
+               requests_per_byte_ratio=rpb["sharded"] / rpb["contiguous"],
+               unsharded_requests_per_byte_ratio=(rpb["unsharded"]
+                                                  / rpb["contiguous"]))
+    print(f"sharded paged summary: {json.dumps(out)}", flush=True)
+    if not (out["tokens_equal_unsharded"] and out["tokens_equal_contiguous"]):
+        raise AssertionError("sharded paged: tokens differ from the "
+                             "unsharded paged pool's or the contiguous "
+                             "scheduler's")
+    if commits != sched.prefills + r["slot_steps"] + sched.replays:
+        raise AssertionError(f"sharded paged: {commits} commits")
+    if not local or not all(local) or pool.self_alloc.n_shards != n:
+        raise AssertionError(f"sharded paged: self pages off their shard's "
+                             f"range {sum(local)} of {len(local)}")
+    if eng._step_captures != n + 1 or eng._step_builds != 2:
+        raise AssertionError(f"sharded paged: {eng._step_captures} captures, "
+                             f"{eng._step_builds} builds")
+    return launches, out
+
+
+def sharded_spec(spec_params, counted):
+    """Phase 18c: phase 12c's trace (``_ps_workload``) through
+    ``SpecScheduler``'s waves of PS_SLOTS rows with phase 12's echo
+    whisper-base verifier (Q8_0) and whisper-tiny draft, unsharded and
+    over a mesh of SHARD_SPEC_DATA entries of the card shared by both
+    models: each wave's one-shot batch splits over the data shards, as
+    the reference's waves serve on a mesh. Gates: tokens equal the
+    unsharded waves'; the window and the draft step each built once and
+    captured once a shard; ``by_device`` over the mesh's devices; the
+    round schedulers refuse the mesh, as the reference's do. Returns
+    (launches, summary)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.offload import OffloadEngine
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.speculative import SpecScheduler
+
+    bp_echo, tp_echo = spec_params
+    base = dataclasses.replace(get_config("whisper-base"), quant="q8_0")
+    tiny = get_config("whisper-tiny")
+    f = base.encoder_ctx
+    n = SHARD_SPEC_DATA
+    mels, max_news, _ = _ps_workload(base)
+    launches = {name: 0 for name in counted}
+    toks = {}
+    for mesh in (None, _shard_mesh(n)):
+        v = ServeEngine(base, bp_echo, max_len=PS_MAX_LEN, quant="q8_0",
+                        offload=OffloadEngine(), eos_id=-1, device="cuda",
+                        mesh=mesh)
+        spec = v.speculative(tiny, tp_echo, k=PS_K)
+        torch.cuda.synchronize()
+        _zero(counted)
+        sched = SpecScheduler(spec, n_slots=PS_SLOTS)
+        t0 = time.perf_counter()
+        rids = [sched.submit(m, max_new=mn) for m, mn in zip(mels, max_news)]
+        res = sched.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = _read(counted)
+        n_tok = sum(res[r].steps for r in rids)
+        toks[mesh is None] = dict(tokens=[res[r].tokens for r in rids],
+                                  tok_s=n_tok / wall, rounds=spec.rounds)
+        if mesh is None:
+            del spec, v, sched
+            continue
+        for name, c in got.items():
+            launches[name] += c
+        refused = {}
+        for mode in ("continuous", "paged"):
+            try:
+                spec.continuous(PS_SLOTS, f) if mode == "continuous" \
+                    else spec.paged(PS_SLOTS, f, page_size=PS_PAGE)
+                refused[mode] = False
+            except NotImplementedError:
+                refused[mode] = True
+        out = dict(
+            mode="wave", data=n, requests=PS_REQUESTS, slots=PS_SLOTS,
+            rounds=spec.rounds, tok_s=toks[False]["tok_s"],
+            unsharded_tok_s=toks[True]["tok_s"],
+            unsharded_rounds=toks[True]["rounds"],
+            verify_captures=v._verify_captures,
+            verify_builds=v._verify_builds,
+            draft_captures=spec.draft._step_captures,
+            draft_builds=spec.draft._step_builds,
+            by_device=dict(v.offload.stats.by_device), launches=got,
+            rounds_schedulers_refused=refused,
+            tokens_equal_unsharded=toks[False]["tokens"]
+            == toks[True]["tokens"])
+        del spec, v, sched
+    print(f"sharded spec wave data={n}: {json.dumps(out)}", flush=True)
+    if not out["tokens_equal_unsharded"]:
+        raise AssertionError("sharded spec wave: tokens differ from the "
+                             "unsharded waves'")
+    if (out["verify_captures"] != n or out["verify_builds"] != 1
+            or out["draft_captures"] != n or out["draft_builds"] != 1
+            or sorted(out["by_device"]) != [f"dev{i}" for i in range(n)]
+            or not all(refused.values())):
+        raise AssertionError(f"sharded spec wave: {out}")
+    return launches, out
+
+
+def sharded_phase(q8_eng, d_eng, counted, slot4, spec_params):
+    """Phase 18: 18a (both paths at SHARD_DATAS), 18b and 18c. Returns
+    (the phase's Python launches by kernel, its summary)."""
+    from repro_torch.core import energy
+
+    t0 = time.perf_counter()
+    power_w = energy.card_power_limit_w(0)
+    total = {name: 0 for name in counted}
+    summary = {}
+    for label, eng0, programs, replay, n_req in (
+            ("q8_0", q8_eng, ({"q8_matmul": 32}, {"q8_matvec": 33}),
+             {"step": {"q8_matvec_kernel": 33}}, CB_REQUESTS),
+            ("dense+flash", d_eng,
+             ({"bf16_matmul": 32, "flash_attention_fwd": 4},
+              {"bf16_matmul": 33}),
+             {"step": {"gemv_bf16_kernel": 33}}, CB_DENSE_REQUESTS)):
+        got, summary[label] = sharded_path(label, eng0, counted, programs,
+                                           replay, n_req, slot4[label])
+        for name, c in got.items():
+            total[name] += c
+    for key, fn in (("paged", lambda: sharded_paged(q8_eng, counted,
+                                                    power_w)),
+                    ("speculative", lambda: sharded_spec(spec_params,
+                                                         counted))):
+        got, summary[key] = fn()
+        for name, c in got.items():
+            total[name] += c
+    wall = time.perf_counter() - t0
+    summary["phase_s"] = wall
+    print(f"sharded phase: {wall:.1f} s; launches {total}", flush=True)
+    return total, summary
+
+
+# ---------------------------------------------------------------------------
 # Phase 14: the dense LM family (qwen2.5-14b at full width)
 # ---------------------------------------------------------------------------
 def _take(counted, total):
@@ -3789,7 +4276,7 @@ def _replay_summary(label, kernels, top, wall, host_ms, want_name,
 
 def lm_oneshot(label, eng, counted, total, want_name, batch4: bool,
                per_step: int = LM_PER_STEP, new: int = LM_NEW,
-               prefix: str = "lm"):
+               prefix: str = "lm", eager: Optional[int] = None):
     """14a/14b (and 15a/15c): ``generate`` of one LM_PROMPT-token prompt
     and ``new`` new tokens at full width: the eager loop's launches
     (``per_step`` a step, prefill steps included) and tokens; the captured
@@ -3799,7 +4286,12 @@ def lm_oneshot(label, eng, counted, total, want_name, batch4: bool,
     replay's kernels, device ms a step and idle shares; PDP of one request
     at the power limit. With ``batch4``, batch LM_BATCH of prompts of
     LM_B4_LENS tokens, left-padded with token 0, captured against eager.
-    Returns the summary and the profiled replay's kernels by name."""
+    Returns the summary and the profiled replay's kernels by name.
+
+    With ``eager`` (LM_EAGER), the eager loops and the captured requests
+    held against them run the last ``eager`` tokens of each prompt and
+    ``eager`` new tokens; the timed requests keep LM_PROMPT + ``new``,
+    their ledger that many eager steps', their tokens equal each other's."""
     import statistics
 
     import numpy as np
@@ -3810,22 +4302,28 @@ def lm_oneshot(label, eng, counted, total, want_name, batch4: bool,
     name = "q8_matvec" if want_name == "q8_matvec_kernel" else "bf16_matmul"
     prompt = np.random.default_rng(1).integers(
         0, cfg.vocab_size, (1, LM_PROMPT)).astype(np.int32)
+    e_prompt, e_new = ((prompt, new) if eager is None
+                       else (prompt[:, -eager:], eager))
+    e_runs, runs = e_prompt.shape[1] + e_new, LM_PROMPT + new
+    if runs % e_runs:
+        raise AssertionError(f"{prefix} {label}: {runs} steps are no "
+                             f"multiple of the eager loop's {e_runs}")
     _take(counted, total)
     before = _stats(eng.offload)
-    rows, e_pre, e_dec = _lm_eager(eng, prompt, new)
+    rows, e_pre, e_dec = _lm_eager(eng, e_prompt, e_new)
     one = _ledger_delta(_stats(eng.offload), before)
     got = _read(counted)
-    want = {k: (per_step * (LM_PROMPT + new) if k == name else 0)
-            for k in counted}
-    print(f"{prefix} {label} eager: prefill_ms={e_pre * 1e3:.3f} "
-          f"decode_ms_per_token={e_dec * 1e3 / new:.3f} launches={got}",
+    want = {k: (per_step * e_runs if k == name else 0) for k in counted}
+    print(f"{prefix} {label} eager ({e_prompt.shape[1]} + {e_new} tokens): "
+          f"prefill_ms={e_pre * 1e3:.3f} "
+          f"decode_ms_per_token={e_dec * 1e3 / e_new:.3f} launches={got}",
           flush=True)
     if got != want:
         raise AssertionError(f"{prefix} {label}: eager launches {got} != "
                              f"{want}")
     _take(counted, total)
     captures = eng._step_captures
-    res = eng.generate(prompt, max_new=new)
+    res = eng.generate(e_prompt, max_new=e_new)
     torch.cuda.synchronize()
     got = _read(counted)
     want = {k: (CAPTURE_PASSES * per_step if k == name else 0)
@@ -3846,8 +4344,9 @@ def lm_oneshot(label, eng, counted, total, want_name, batch4: bool,
                for _ in range(LM_REQUESTS)]
     delta = _ledger_delta(_stats(eng.offload), before)
     got = _read(counted)
-    scaled = {key: ({k: v * LM_REQUESTS for k, v in val.items()}
-                    if isinstance(val, dict) else val * LM_REQUESTS)
+    times = LM_REQUESTS * (runs // e_runs)
+    scaled = {key: ({k: v * times for k, v in val.items()}
+                    if isinstance(val, dict) else val * times)
               for key, val in one.items()}
     if any(got.values()) or eng._step_captures != captures + 1:
         raise AssertionError(f"{prefix} {label}: replays launched {got} or "
@@ -3855,7 +4354,8 @@ def lm_oneshot(label, eng, counted, total, want_name, batch4: bool,
     if delta != scaled:
         raise AssertionError(f"{prefix} {label}: ledger {delta} != "
                              f"{LM_REQUESTS} x eager {one}")
-    if any(r.tokens != rows[0] for r in results):
+    first = rows[0] if eager is None else results[0].tokens
+    if any(r.tokens != first for r in results) or len(first) != new:
         raise AssertionError(f"{prefix} {label}: a replayed request's tokens "
                              "differ")
     prefill_ms = statistics.median(r.prefill_s for r in results) * 1e3
@@ -3867,8 +4367,9 @@ def lm_oneshot(label, eng, counted, total, want_name, batch4: bool,
     limit = energy.card_power_limit_w(0)
     total_s = statistics.median(r.total_s for r in results)
     out = dict(path=label, prompt=LM_PROMPT, new=new,
+               eager_prompt=e_prompt.shape[1], eager_new=e_new,
                eager_prefill_ms=e_pre * 1e3,
-               eager_decode_ms_per_token=e_dec * 1e3 / new,
+               eager_decode_ms_per_token=e_dec * 1e3 / e_new,
                prefill_ms=prefill_ms,
                prefill_ms_per_token=prefill_ms / LM_PROMPT,
                decode_ms_per_token=decode_ms, request_s=total_s,
@@ -3884,9 +4385,10 @@ def lm_oneshot(label, eng, counted, total, want_name, batch4: bool,
         prompts = np.zeros((LM_BATCH, width), np.int32)
         for i, n in enumerate(lens):
             prompts[i, width - n:] = rng.integers(0, cfg.vocab_size, n)
-        rows4, _, _ = _lm_eager(eng, prompts, new)
+        prompts_e = prompts if eager is None else prompts[:, -eager:]
+        rows4, _, _ = _lm_eager(eng, prompts_e, e_new)
         _take(counted, total)
-        res4 = eng.generate(prompts, max_new=new)
+        res4 = eng.generate(prompts_e, max_new=e_new)
         got = _read(counted)
         if got[name] != CAPTURE_PASSES * per_step:
             raise AssertionError(f"{prefix} {label} batch {LM_BATCH}: capture "
@@ -3894,6 +4396,12 @@ def lm_oneshot(label, eng, counted, total, want_name, batch4: bool,
         if [r.tokens for r in res4] != rows4:
             raise AssertionError(f"{prefix} {label} batch {LM_BATCH}: "
                                  "captured tokens differ from eager")
+        if eager is not None:            # the timed batch: replays only
+            _take(counted, total)
+            res4 = eng.generate(prompts, max_new=new)
+            if any(_read(counted).values()):
+                raise AssertionError(f"{prefix} {label} batch {LM_BATCH}: "
+                                     "the timed batch launched")
         out.update(batch4_prompt_lens=lens.tolist(),
                    batch4_prefill_ms=res4[0].prefill_s * LM_BATCH * 1e3,
                    batch4_decode_ms_per_step=(res4[0].decode_s * LM_BATCH
@@ -3906,7 +4414,8 @@ def lm_oneshot(label, eng, counted, total, want_name, batch4: bool,
 def lm_scheduler(eng, counted, total, name: str = "q8_matvec",
                  want_name: str = "q8_matvec_kernel",
                  per_step: int = LM_PER_STEP, prefix: str = "lm",
-                 prompt_lens=LM_SCHED_PROMPTS, budget_lens=LM_SCHED_BUDGETS):
+                 prompt_lens=LM_SCHED_PROMPTS, budget_lens=LM_SCHED_BUDGETS,
+                 keep_trace: bool = False):
     """14c (and 15b, 16b): LM_SCHED_REQUESTS prompts of ``prompt_lens``
     tokens and budgets of ``budget_lens`` from default_rng(0) over
     LM_SLOTS slots, max_len LM_MAX_LEN: every request's tokens equal its
@@ -3916,7 +4425,8 @@ def lm_scheduler(eng, counted, total, name: str = "q8_matvec",
     the batch-1 step graph; one commit an admission and a step, and
     lm_head run once a prompt token and a step; a warm drive of the same
     requests for tokens a second; the slot step's replay profiled; KV
-    bytes."""
+    bytes. With ``keep_trace``, the summary returned (not printed) keeps
+    the trace and its streams under "trace" for 14e."""
     import numpy as np
     import torch
     from repro_torch.serve.scheduler import ContinuousBatchingScheduler
@@ -3987,6 +4497,76 @@ def lm_scheduler(eng, counted, total, name: str = "q8_matvec",
                    "slot step", kernels, top, pwall, host_ms,
                    want_name, per_step, prefix).items()})
     print(f"{prefix} scheduler summary: {json.dumps(out)}", flush=True)
+    if keep_trace:
+        out["trace"] = (prompts, budgets, [res[r].tokens for r in rids])
+    return out
+
+
+def lm_sharded(eng, counted, total, sharded, sched_out):
+    """14e: 14c's trace (``sched_out["trace"]``, popped) over LM_SLOTS
+    slots of a new Q8_0 engine on a mesh of LM_SHARD_DATA entries of the
+    card, built from ``eng``'s serving weights: no second draw, no copy.
+    Gates: every leaf of its weights is ``eng``'s tensor; the tokens equal
+    14c's streams; one build of the slot step, LM_SHARD_DATA captures (and
+    the admissions' batch-1 step). Printed: a warm drive's tokens a
+    second beside 14c's. The drive's Python launches go to ``sharded``.
+    Returns the summary."""
+    import torch
+    from repro_torch.core.offload import OffloadEngine
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.sharding.rules import tree_leaves
+
+    prompts, budgets, streams = sched_out.pop("trace")
+    n = LM_SHARD_DATA
+    _take(counted, total)
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    sh = ServeEngine(eng.cfg, eng._serve_params, max_len=LM_MAX_LEN,
+                     quant="q8_0", offload=OffloadEngine(), eos_id=None,
+                     device="cuda", mesh=_shard_mesh(n))
+    pairs = list(zip(tree_leaves(sh._serve_params),
+                     tree_leaves(eng._serve_params)))
+    shared = bool(pairs) and all(a.data_ptr() == b.data_ptr()
+                                 for a, b in pairs)
+    grown = torch.cuda.memory_allocated() - mem0
+    sched = sh.scheduler(n_slots=LM_SLOTS)
+    rids = [sched.submit(p, max_new=b) for p, b in zip(prompts, budgets)]
+    steps = 0
+    while sched.n_queued or sched.n_active:
+        sched.admit()
+        steps += bool(sched.decode_step())
+    res = sched.run()
+    torch.cuda.synchronize()
+    toks = [res[r].tokens for r in rids]
+    _take(counted, sharded)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rids2 = [sched.submit(p, max_new=b) for p, b in zip(prompts, budgets)]
+    again = sched.run()
+    wall = time.perf_counter() - t0
+    warm_ok = [again[r].tokens for r in rids2] == streams
+    warm_launches = _read(counted)
+    out = dict(data=n, requests=len(prompts), slots=LM_SLOTS,
+               shard_size=sched.pool.shard_size, slot_steps=steps,
+               weights_shared=shared, leaves=len(pairs),
+               allocated_growth_bytes=grown,
+               tokens_equal_14c=toks == streams, warm_tokens_equal=warm_ok,
+               step_captures=sh._step_captures, step_builds=sh._step_builds,
+               by_device=dict(sh.offload.stats.by_device),
+               warm_drain_s=wall, tokens_per_s=sum(budgets) / wall,
+               unsharded_tokens_per_s=sched_out.get("tokens_per_s"))
+    print(f"lm sharded (14e) summary: {json.dumps(out)}", flush=True)
+    if not shared:
+        raise AssertionError("lm sharded: the mesh engine's weights are not "
+                             "14's tensors")
+    if toks != streams or not warm_ok:
+        raise AssertionError("lm sharded: tokens differ from 14c's streams")
+    if (sh._step_captures != n + 1 or sh._step_builds != 2
+            or any(warm_launches.values())):
+        raise AssertionError(f"lm sharded: captures {sh._step_captures}, "
+                             f"builds {sh._step_builds}, warm launches "
+                             f"{warm_launches}")
+    del sched, sh
     return out
 
 
@@ -4054,8 +4634,14 @@ def lm_phase(counted):
     summary["cpu"] = _lm_cpu_check(eng)
     _take(counted, total)
     summary["q8_0"], _ = lm_oneshot("q8_0", eng, counted, total,
-                                    "q8_matvec_kernel", batch4=True)
-    summary["scheduler"] = lm_scheduler(eng, counted, total)
+                                    "q8_matvec_kernel", batch4=True,
+                                    eager=LM_EAGER)
+    summary["scheduler"] = lm_scheduler(eng, counted, total,
+                                        keep_trace=True)
+    sharded = {name: 0 for name in counted}
+    summary["sharded"] = lm_sharded(eng, counted, total, sharded,
+                                    summary["scheduler"])
+    summary["sharded_launches"] = sharded
     summary["kv_quant"] = lm_kv_quant(eng, counted, total)
     del eng
     gc.collect()
@@ -4065,7 +4651,8 @@ def lm_phase(counted):
                       offload=OffloadEngine(), eos_id=None, device="cuda")
     del params
     summary["bf16"], _ = lm_oneshot("bf16", eng, counted, total,
-                                    "gemv_bf16_kernel", batch4=False)
+                                    "gemv_bf16_kernel", batch4=False,
+                                    eager=LM_EAGER)
     summary["bf16_resident_bytes"] = torch.cuda.memory_allocated()
     del eng
     gc.collect()
@@ -4293,7 +4880,8 @@ def moe_phase(counted):
     _take(counted, total)
     one, kernels = lm_oneshot("bf16", eng, counted, total,
                               "gemv_bf16_kernel", batch4=True,
-                              per_step=OLMOE_PER_STEP, prefix="moe olmoe")
+                              per_step=OLMOE_PER_STEP, prefix="moe olmoe",
+                              eager=LM_EAGER)
     summary["olmoe"] = one
     summary["olmoe_step"] = _moe_step_report("olmoe", eng, one, kernels,
                                              counted)
@@ -4622,7 +5210,8 @@ def ssm_phase(counted):
     _take(counted, total)
     one, kernels = lm_oneshot("q8_0", eng, counted, total,
                               "q8_matvec_kernel", batch4=True,
-                              per_step=MAMBA_PER_STEP, prefix="ssm mamba2")
+                              per_step=MAMBA_PER_STEP, prefix="ssm mamba2",
+                              eager=LM_EAGER)
     summary["mamba2_q8_0"] = one
     summary["mamba2_q8_0_step"] = _ssm_step_report(
         "mamba2 q8_0", eng, one, kernels, counted, "q8_matvec_kernel")
@@ -4640,7 +5229,8 @@ def ssm_phase(counted):
     del params
     one, kernels = lm_oneshot("bf16", eng, counted, total,
                               "gemv_bf16_kernel", batch4=True,
-                              per_step=MAMBA_PER_STEP, prefix="ssm mamba2")
+                              per_step=MAMBA_PER_STEP, prefix="ssm mamba2",
+                              eager=LM_EAGER)
     summary["mamba2_bf16"] = one
     summary["mamba2_bf16_step"] = _ssm_step_report(
         "mamba2 bf16", eng, one, kernels, counted, "gemv_bf16_kernel")
@@ -5102,7 +5692,7 @@ def forward_phase(counted):
         before = dict(total)
         summary[f"served_{quant}"], _ = lm_oneshot(
             quant, eng, counted, total, want_name, batch4=True,
-            per_step=VLM_PER_STEP, prefix="forward vlm")
+            per_step=VLM_PER_STEP, prefix="forward vlm", eager=LM_EAGER)
         summary[f"served_{quant}_scheduler"] = lm_scheduler(
             eng, counted, total, name, want_name, VLM_PER_STEP,
             "forward vlm")
@@ -5159,6 +5749,7 @@ def main() -> int:
     from repro_torch.kernels import _build
 
     resolve_device("cuda")
+    start = time.perf_counter()
     card = card_line()
     print(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}",
           flush=True)
@@ -5173,7 +5764,10 @@ def main() -> int:
                     "Compiling entry", "Used", "spill", "(C75")):
                 print(f"  {name}: {line.strip()}")
 
+    t0 = time.perf_counter()
     records = check_kernels()
+    print(f"kernels phase: {time.perf_counter() - t0:.1f}s", flush=True)
+    t0 = time.perf_counter()
     launches, path, (q8_eng, q8_mel, q8_tokens, q8_split) = main_path()
     print(f"main path summary: {json.dumps(path)}", flush=True)
     batch2_routing()
@@ -5206,6 +5800,8 @@ def main() -> int:
     cdf = coverage_cdf(enumerate_whisper(get_config("whisper-tiny")))
     print(f"coverage whisper-tiny (LMM KB, baseline, optimized): "
           f"{json.dumps(cdf)}", flush=True)
+    print(f"main paths phase (3-8): {time.perf_counter() - t0:.1f}s",
+          flush=True)
 
     from repro_torch.core import energy
     t0 = time.perf_counter()
@@ -5268,8 +5864,8 @@ def main() -> int:
     print(f"paged serving phase: {time.perf_counter() - t0:.1f}s",
           flush=True)
 
-    path_launches["speculative"], spec_summary = speculative_phase(
-        counted, tiny_power)
+    path_launches["speculative"], spec_summary, spec_params = \
+        speculative_phase(counted, tiny_power)
     print(f"speculative summary: {json.dumps(spec_summary)}", flush=True)
 
     t0 = time.perf_counter()
@@ -5279,10 +5875,17 @@ def main() -> int:
     print(f"telemetry phase: {time.perf_counter() - t0:.1f}s; launches "
           f"{path_launches['telemetry']}", flush=True)
 
+    path_launches["sharded"], shard_summary = sharded_phase(
+        q8_eng, d_eng, counted, slot4, spec_params)
+    print(f"sharded summary: {json.dumps(shard_summary)}", flush=True)
+    del spec_params
+
     # the whisper engines' buffers and graph pools, freed before the LMs
     del q8_eng, d_eng, q8_mel, d_mel
     release_memory("lm phases")
     path_launches["lm"], lm_summary = lm_phase(counted)
+    for name, n in lm_summary.pop("sharded_launches").items():
+        path_launches["sharded"][name] += n
     print(f"lm summary: {json.dumps(lm_summary)}", flush=True)
     release_memory("moe phase")
     path_launches["moe"], moe_summary = moe_phase(counted)
@@ -5293,8 +5896,10 @@ def main() -> int:
     path_launches["forward"], path_launches["vlm"], fwd_summary = \
         forward_phase(counted)
     print(f"forward summary: {json.dumps(fwd_summary)}", flush=True)
+    t0 = time.perf_counter()
     for name, rows in check_kernels(late=True).items():
         records[name] += rows
+    print(f"late kernel rows: {time.perf_counter() - t0:.1f}s", flush=True)
 
     kernels = []
     for name, meta in KERNELS.items():
@@ -5329,6 +5934,8 @@ def main() -> int:
                 *extras)}
                 for per in meta["shapes"]},
             shapes=rows))
+    print(f"chip_smoke total: {time.perf_counter() - start:.1f}s",
+          flush=True)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

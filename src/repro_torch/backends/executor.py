@@ -15,6 +15,13 @@ every run of its Python (on the CPU) and twice per capture (its warm-up
 and the captured pass, on the card); the serving engine runs every pass
 but a program's build under ``quiet_dispatch()``, so the counter moves
 once per linear per program build and once per eager call.
+
+Every linear's output passes ``sharding.ctx.constrain(out, "batch", ...)``,
+the point where the reference re-anchors the slot-DP batch sharding. The
+port has no compiler to hint: while a mesh is active (a serving engine on
+a mesh runs its programs' Python under ``activation_sharding``) the
+tokens are resolved on it and their rank checked, and the output is
+returned as it is; with no mesh active the call returns at once.
 """
 from __future__ import annotations
 
@@ -28,6 +35,7 @@ from repro_torch.backends.base import MAIN, RESIDUAL, KernelRequest, kernel_for
 from repro_torch.backends.registry import REGISTRY
 from repro_torch.core.mixed_exec import split_aligned
 from repro_torch.core.qformats import QBLOCK, QTensor
+from repro_torch.sharding import ctx
 
 
 _quiet = 0                   # open quiet_dispatch() scopes
@@ -112,4 +120,11 @@ def matmul(x: torch.Tensor, w, *, burst: int = 256,
     if x2d.stride(-1) != 1:       # the kernels read rows with unit stride
         x2d = x2d.contiguous()
     out = split_matmul(x2d, w, burst, backend=backend, tiling=tiling)
-    return out.reshape(*lead, out.shape[-1])
+    out = out.reshape(*lead, out.shape[-1])
+    if lead:
+        # the reference re-anchors the batch dim here under sharded
+        # serving (a sharding constraint on every linear's output); the
+        # port's counterpart passes the same point (the module's
+        # docstring) and returns the output as it is
+        out = ctx.constrain(out, "batch", *([None] * (out.dim() - 1)))
+    return out

@@ -14,6 +14,16 @@ appends its entry to the plan and accounts nothing: the serving engine
 records the run of Python that precedes a capture (and every run of the
 same program on the CPU) that way, and accounts each program by
 ``ledger.commit(plan, times)`` with the number of times it ran.
+
+Sharded serving: an engine on a serving mesh stamps the mesh's signature
+(``mesh_sig``) into every entry, and the ledger splits each entry's FLOPs
+evenly over the mesh's devices (``OffloadStats.by_device``), the
+reference's rule. A program that runs one of n data shards of a batch
+(``sharding.ctx.shard_program``) plans each linear at the global M, n
+times its own rows: one plan describes the step, whichever shard
+recorded it, and the step commits it once. The entry's kernel, burst,
+launch tile and backend are resolved at the shard's own rows, the launch
+that runs (``plan_linear``'s ``shards``).
 """
 from __future__ import annotations
 
@@ -28,6 +38,7 @@ from repro_torch.backends import executor
 from repro_torch.core.coverage import MulMat, fits
 from repro_torch.core.plan import DispatchPlan, PlanEntry, plan_linear
 from repro_torch.core.qformats import QTensor
+from repro_torch.sharding import ctx
 from repro_torch.tuning import Autotuner
 
 
@@ -47,6 +58,11 @@ class OffloadStats:
     # "verify" commits, "main" for everything else. Whole-linear FLOPs,
     # so sum(by_role) == offloaded + fallback + residual FLOPs exactly.
     by_role: Dict[str, int] = field(default_factory=dict)
+    # FLOPs per mesh device under sharded serving: slot-DP splits every
+    # linear's rows evenly over the mesh, so each device's share is
+    # flops / n_devices, the remainder to dev0; an unsharded entry's all
+    # to dev0. sum(by_device) == offloaded + fallback + residual FLOPs.
+    by_device: Dict[str, int] = field(default_factory=dict)
 
     def offload_rate(self) -> float:
         t = self.offloaded_calls + self.fallback_calls
@@ -80,6 +96,14 @@ class OffloadLedger:
         s.by_backend[entry.backend] = (s.by_backend.get(entry.backend, 0)
                                        + times)
         s.by_role[role] = s.by_role.get(role, 0) + entry.flops * times
+        n_dev = 1
+        for _, size in (entry.mesh or ()):
+            n_dev *= int(size)
+        share, rem = divmod(entry.flops * times, n_dev)
+        for i in range(n_dev):
+            dev = f"dev{i}"
+            s.by_device[dev] = (s.by_device.get(dev, 0) + share
+                                + (rem if i == 0 else 0))
 
     def commit(self, plan: Optional[DispatchPlan], times: int = 1,
                role: str = "main") -> None:
@@ -98,11 +122,14 @@ class OffloadEngine:
     """The dispatcher. ``vmem_budget_kb`` is the local-memory budget an
     invocation's working set must fit to be offloaded (the reference's
     rule, kept for plan parity); ``burst`` is the split granularity when no
-    ``tuner`` is attached or none of its launches fits its budget."""
+    ``tuner`` is attached or none of its launches fits its budget.
+    ``mesh_sig`` is the serving mesh's signature, set by a ``ServeEngine``
+    on a mesh and stamped into every entry."""
     vmem_budget_kb: int = 8 * 1024
     burst: int = 256
     tuner: Optional[Autotuner] = None
     ledger: OffloadLedger = field(default_factory=OffloadLedger)
+    mesh_sig: Optional[tuple] = None
     _recording: Optional[DispatchPlan] = field(default=None, repr=False)
 
     @property
@@ -118,13 +145,14 @@ class OffloadEngine:
                     optimized=True, agg_units=1)
 
     def plan_entry(self, m: int, k: int, n: int, *, quantized: bool,
-                   name: str = "linear", dense_f32: bool = False
-                   ) -> PlanEntry:
+                   name: str = "linear", dense_f32: bool = False,
+                   shards: int = 1) -> PlanEntry:
         """Resolve the routing of one static shape (``plan_linear``)."""
         return plan_linear(name, m, k, n, quantized=quantized,
                            vmem_budget_kb=self.vmem_budget_kb,
                            default_burst=self.burst, tuner=self.tuner,
-                           dense_f32=dense_f32)
+                           dense_f32=dense_f32, mesh_sig=self.mesh_sig,
+                           shards=shards)
 
     @contextmanager
     def recording(self, plan: DispatchPlan):
@@ -139,14 +167,19 @@ class OffloadEngine:
 
     def linear(self, x: torch.Tensor, w, name: str = "linear") -> torch.Tensor:
         """y = x @ W^T (f32), routed per the plan entry for this shape;
-        recorded into the active plan, or else accounted in the ledger."""
+        recorded into the active plan, or else accounted in the ledger.
+        Inside a data shard's program the entry is the whole step's: M is
+        this shard's rows times the number of shards, and its kernel the
+        one this shard's rows launch."""
         k = x.shape[-1]
         n = w.shape[0]
-        m = x.numel() // k if k else 0
+        shards = ctx.batch_shards()
+        m = (x.numel() // k if k else 0) * shards
         quantized = isinstance(w, QTensor)
         entry = self.plan_entry(
             m, k, n, quantized=quantized, name=name,
-            dense_f32=not quantized and torch.float32 in (x.dtype, w.dtype))
+            dense_f32=not quantized and torch.float32 in (x.dtype, w.dtype),
+            shards=shards)
         y = self.execute(x, w, entry)
         if self._recording is not None:
             self._recording.add(entry)

@@ -28,6 +28,7 @@ from repro_torch.backends import (
 from repro_torch.core.coverage import MulMat, fits
 from repro_torch.core.mixed_exec import select_burst, split_aligned
 from repro_torch.kernels import tiles
+from repro_torch.sharding.rules import mesh_signature
 
 
 @dataclass(frozen=True)
@@ -37,7 +38,10 @@ class PlanEntry:
     split and whether the autotuner chose it (``tuned``), the kernel the
     main segment dispatches to and its launch tile (``tiling``, None: the
     kernel's own), and the registry backend resolved for the main
-    segment."""
+    segment. ``mesh`` is the signature of the serving mesh the program was
+    planned under (None unsharded): sharded and unsharded entries never
+    compare equal at the same shapes, and the ledger splits a sharded
+    entry's FLOPs over the mesh's devices."""
     name: str
     m: int
     k: int
@@ -51,6 +55,7 @@ class PlanEntry:
     k_main: int
     k_res: int
     backend: str
+    mesh: Optional[Tuple[Tuple[str, int], ...]] = None
 
     @property
     def flops(self) -> int:
@@ -72,7 +77,8 @@ class PlanEntry:
 
 def plan_linear(name: str, m: int, k: int, n: int, *, quantized: bool,
                 vmem_budget_kb: int, default_burst: int,
-                tuner=None, dense_f32: bool = False) -> PlanEntry:
+                tuner=None, dense_f32: bool = False,
+                mesh_sig=None, shards: int = 1) -> PlanEntry:
     """Resolve one linear's routing from static shapes — pure apart from
     warming the tuner's cache (a miss runs one search whose winner is
     cached, so repeated calls are dict hits).
@@ -84,11 +90,19 @@ def plan_linear(name: str, m: int, k: int, n: int, *, quantized: bool,
     launch runs). Where no launch fits the tuner's budget the entry keeps
     ``default_burst`` and the kernel's own launch, with ``tuned=False``.
     ``dense_f32``: a dense operand is f32, so above M = 16 the product runs
-    ``bf16_matmul``'s tiled f32 launch, which takes no tile.
+    ``bf16_matmul``'s tiled f32 launch, which takes no tile. ``mesh_sig``
+    is stamped into the entry.
+
+    ``shards``: the program is one of that many data shards of a step of
+    ``m`` rows, each launching its ``m / shards`` rows. The entry's M, its
+    FLOPs and the reference's offload rule stay the whole step's; the
+    kernel, the burst, the launch tile and the backend are those of the
+    launch a shard runs, so the entry names the kernel that ran.
     """
     dtype = "q8_0" if quantized else "bf16"
-    kern = kernel_for(m, quantized)
-    mp = padded_m(m)
+    run_m = m // shards
+    kern = kernel_for(run_m, quantized)
+    mp = padded_m(run_m)
     burst = default_burst
     tuned = False
     if tuner is not None:
@@ -99,13 +113,13 @@ def plan_linear(name: str, m: int, k: int, n: int, *, quantized: bool,
     k_main, k_res = split_aligned(k, burst)
     offload = fits(MulMat(name, m=m, k=k, n=n), vmem_budget_kb, agg_units=1)
     tiling = None
-    takes_tile = not (dense_f32 and m > tiles.MAX_ROW_M)
+    takes_tile = not (dense_f32 and run_m > tiles.MAX_ROW_M)
     if tuner is not None and offload and k_main and takes_tile:
-        rec = tuner.best_tiling(kern, tiles.tile_m(m), n, k_main, dtype)
+        rec = tuner.best_tiling(kern, tiles.tile_m(run_m), n, k_main, dtype)
         if rec is not None:
             tiling = rec.tiling() or None     # (): a launch with no tile
     if k_main:
-        req = KernelRequest(kernel=kern, m=m, n=n, k=k_main, dtype=dtype,
+        req = KernelRequest(kernel=kern, m=run_m, n=n, k=k_main, dtype=dtype,
                             segment=MAIN, tiling=tiling)
         resolved = REGISTRY.resolve(req).name
     else:
@@ -113,7 +127,8 @@ def plan_linear(name: str, m: int, k: int, n: int, *, quantized: bool,
         resolved = "host_residual"
     return PlanEntry(name=name, m=m, k=k, n=n, dtype=dtype, offload=offload,
                      burst=burst, tuned=tuned, kernel=kern, tiling=tiling,
-                     k_main=k_main, k_res=k_res, backend=resolved)
+                     k_main=k_main, k_res=k_res, backend=resolved,
+                     mesh=mesh_sig)
 
 
 @dataclass
@@ -150,13 +165,19 @@ class DispatchPlan:
 
 
 def plan_key(phase: str, quant: Optional[str], batch: int,
-             *extra: Hashable,
+             *extra: Hashable, mesh=None,
              pages: Optional[Tuple[Hashable, ...]] = None,
              role: Optional[str] = None,
              k: Optional[int] = None) -> Tuple[Hashable, ...]:
     """Canonical plan-cache key: ``(phase, quant, batch, *extra)``; the
     serving engine's extra is the frame count. Routing depends only on
     static shapes, so equal keys mean one program and one plan.
+
+    ``mesh`` (a ``Mesh``, or a ``mesh_signature`` tuple) appends
+    ``("mesh", signature)`` first, in the reference's position: a sharded
+    step at (batch, frames) is another program than its unsharded twin,
+    so the two never share an entry. ``mesh=None`` leaves a key as it
+    was.
 
     ``pages`` appends the paged pool's geometry as ``("pages", pages)``,
     as the reference does: a paged decode step gathers its KV through
@@ -169,6 +190,9 @@ def plan_key(phase: str, quant: Optional[str], batch: int,
     positions (M = batch x (k + 1) a linear) are other programs than the
     plain step at the same batch. ``None`` leaves a key as it was."""
     base = (phase, quant, batch, *extra)
+    sig = mesh_signature(mesh) if hasattr(mesh, "axis_names") else mesh
+    if sig is not None:
+        base = (*base, ("mesh", sig))
     if pages is not None:
         base = (*base, ("pages", tuple(pages)))
     if role is not None:

@@ -24,6 +24,12 @@ dispatcher, and one ``energy_report`` JSON object. Power is the card's
 limit as nvidia-smi reads it, or ``--power-w``, which the CPU requires.
 Runs on the card unless ``--device cpu`` is given.
 
+``--mesh`` serves sharded over every visible card: slot-DP over the
+mesh's data axis (``launch/mesh.py``), a scheduler's pool split into data
+shards, the energy report's ``dispatch.by_device`` one entry a device.
+With ``--device cpu`` the mesh is (1, 1), of the CPU. ``--speculative``
+with ``--mesh`` is refused, as the reference refuses it.
+
 ``--trace-out PATH`` writes the run's Perfetto ``trace_event`` JSON and
 ``--metrics-out PATH`` its Prometheus text exposition; either one turns
 telemetry on (``repro_torch.obs``), and the report then carries
@@ -60,6 +66,10 @@ def main(argv=None):
                          "static batch")
     ap.add_argument("--slots", type=int, default=4,
                     help="slot-pool width for --continuous")
+    ap.add_argument("--mesh", action="store_true",
+                    help="serve sharded over every visible device (slot-DP "
+                         "over the data axis; with --device cpu, a (1, 1) "
+                         "mesh of the CPU)")
     ap.add_argument("--speculative", action="store_true",
                     help="speculative decoding: a --draft model proposes "
                          "-k tokens a round, the served arch verifies them")
@@ -87,6 +97,8 @@ def main(argv=None):
     if args.speculative and args.continuous:
         ap.error("--speculative batches its requests in one wave; drop "
                  "--continuous")
+    if args.speculative and args.mesh:
+        ap.error("--speculative over a sharded mesh is not supported yet")
 
     cfg = get_config(args.arch) if args.full else get_smoke_config(args.arch)
     check_servable(cfg, args.quant)
@@ -100,9 +112,16 @@ def main(argv=None):
     offload = OffloadEngine() if args.offload else None
     telemetry = (obs.Telemetry()
                  if (args.trace_out or args.metrics_out) else None)
+    mesh = None
+    if args.mesh:
+        from repro_torch.launch.mesh import make_serve_mesh
+        mesh = make_serve_mesh(devices=[torch.device("cpu")]
+                               if args.device == "cpu" else None)
+        print(f"serving mesh: {mesh.shape} over "
+              f"{len(mesh.physical_devices)} device(s)")
     engine = ServeEngine(cfg, params, max_len=args.max_new + 32,
                          quant=args.quant, offload=offload,
-                         device=args.device, telemetry=telemetry)
+                         device=args.device, mesh=mesh, telemetry=telemetry)
     frames = cfg.encoder_ctx if args.full else 64
     rng = np.random.default_rng(args.seed)
     if audio:

@@ -12,6 +12,8 @@ dispatch.
   prefill(params, cfg, tokens, state)          -> (last logits, state') LM
   zeros_paged_state(cfg, n_slots, ..., device=...) -> ServeState (paged)
   slot_layout(state, batch)                    -> ServeState (slot layout)
+  slot_state_specs(state, mesh)                -> spec tree (sharded pool)
+  slot_view(state, lo, n)                      -> ServeState (rows lo..lo+n)
   state_kv_bytes(state)                        -> committed bytes
   serve_step(params, cfg, token, state)        -> (logits, state')
   verify_step(params, cfg, tokens, state)      -> (logits (B, W, V), state')
@@ -304,6 +306,41 @@ def slot_layout(state: ServeState, batch: int) -> ServeState:
         layer_states=ls._replace(self_kv=[
             kv._replace(length=per_row(kv.length)) for kv in ls.self_kv]),
         step=per_row(state.step))
+
+
+def slot_state_specs(state: ServeState, mesh) -> ServeState:
+    """Partition specs of a slot-layout ``ServeState``: the slot axis
+    shards over the mesh's "data" axis whenever the pool's width divides
+    by its size; every other dim stays replicated. The port keeps the slot
+    axis on axis 0 of every tensor, where the reference's stacked
+    ``layer_states`` leaves keep it on axis 1 (and ``step`` on axis 0): the
+    same leaves are split, along their slot axis."""
+    from repro_torch.sharding.rules import P, tree_map_with_path
+    dsize = mesh.shape["data"] if "data" in mesh.axis_names else 1
+
+    def spec(path, t):
+        if dsize <= 1 or t.dim() == 0 or t.shape[0] % dsize:
+            return P()
+        return P("data")
+
+    return tree_map_with_path(spec, state)
+
+
+def slot_view(state: ServeState, lo: int, n: int) -> ServeState:
+    """Rows ``lo`` to ``lo + n`` of a slot-layout or paged state, as
+    views: a data shard's part of a pool, which its program reads and
+    writes in place. A paged state's arenas stay whole (its block tables
+    hold the arena's own page numbers); its tables, lengths (slot axis 1)
+    and steps are narrowed."""
+    ls = state.layer_states
+    if isinstance(ls, whisper.WhisperPagedDecodeState):
+        ls = ls._replace(block_table=ls.block_table.narrow(0, lo, n),
+                         cross_table=ls.cross_table.narrow(0, lo, n),
+                         length=ls.length.narrow(1, lo, n))
+    else:
+        from repro_torch.sharding.rules import tree_map_with_path
+        ls = tree_map_with_path(lambda _, t: t.narrow(0, lo, n), ls)
+    return ServeState(layer_states=ls, step=state.step.narrow(0, lo, n))
 
 
 def state_tensors(state: Any) -> List[torch.Tensor]:

@@ -27,7 +27,11 @@ batch: the router's rows are padded to one shape (``ROUTER_ROWS``), C is
 the same for every decode batch up to 51 rows of olmoe or arctic, dispatch
 and combine are gathers, and the sums over a row's k choices are
 elementwise adds in index order. Where the batch fills an expert's slots
-the drops, as the reference's, depend on the other rows.
+the drops, as the reference's, depend on the other rows. Under sharded
+serving (``sharding.ctx.shard_program``) C comes from the whole step's
+token count, as the reference's one program computes it, but each data
+shard's pairs claim slots among its own rows: where tokens drop, which
+ones may differ from the reference's.
 """
 from __future__ import annotations
 
@@ -38,6 +42,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers
+from repro_torch.sharding import ctx
 
 #: f32 values an expert stack's draw holds at a time (256 MiB): arctic's
 #: whole (128, 7168, 4864) stack in f32 would be a 17.8 GB temporary
@@ -151,6 +156,13 @@ def route(p: dict, cfg: ModelConfig, x: torch.Tensor
     if t % tg:
         tg = t                     # ragged shapes: one group
     g = t // tg
+    # in one of n data shards of a step (sharded serving), C is the whole
+    # step's: its groups are sized from the step's n * t tokens, while
+    # each shard's (token, choice) pairs claim among its own rows
+    t_all = t * ctx.batch_shards()
+    tg_all = min(moe.dispatch_group, t_all)
+    if t_all % tg_all:
+        tg_all = t_all
     gi = topi.reshape(g, tg, k)
     # each (token, choice)'s place in its expert's queue, k-major so that
     # higher-priority choices claim capacity first
@@ -158,7 +170,7 @@ def route(p: dict, cfg: ModelConfig, x: torch.Tensor
     queue = (flat[..., None] == experts).long().cumsum(1)    # (G, k*Tg, E)
     pos = (queue.gather(2, flat[..., None])[..., 0] - 1
            ).reshape(g, k, tg).transpose(1, 2)
-    cap = _capacity(tg, moe)
+    cap = _capacity(tg_all, moe)
     return Routing(topw.reshape(g, tg, k), gi, pos, pos < cap, cap), aux
 
 

@@ -214,9 +214,9 @@ class Telemetry:
     def sync_ledger_metrics(self) -> None:
         """Copy the bound ledger's totals into the ledger-fed counters —
         called at snapshot/export time; the ledger is the source of
-        truth, the counters are its exposition. The port serves on one
-        device, so the ``device`` series is one: ``dev0`` (the
-        reference's name for a mesh's first device) holds every FLOP."""
+        truth, the counters are its exposition. The ``device`` series
+        are the ledger's ``by_device``: one a mesh device under sharded
+        serving (``dev0``, ``dev1``, ...), ``dev0`` alone unsharded."""
         if self._ledger is None:
             return
         s = self._ledger.totals
@@ -224,8 +224,8 @@ class Telemetry:
         flops.set_total(s.offloaded_flops, kind="offloaded")
         flops.set_total(s.fallback_flops, kind="fallback")
         flops.set_total(s.residual_flops, kind="residual")
-        flops.set_total(s.offloaded_flops + s.fallback_flops
-                        + s.residual_flops, device="dev0")
+        for dev, v in sorted(s.by_device.items()):
+            flops.set_total(v, device=dev)
         # per-role split of a two-model (speculative) engine: sums to the
         # kind= totals exactly
         for role, v in sorted(s.by_role.items()):

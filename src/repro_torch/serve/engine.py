@@ -82,6 +82,27 @@ linear once per program build: a capture's warm-up on the card, a key's
 first run on the CPU (``_record_run``); every other pass runs under
 ``executor.quiet_dispatch()``. No telemetry call runs inside a capture.
 
+Sharded serving (``mesh=``, a ``launch.mesh.Mesh``): slot-axis data
+parallelism over the mesh's "data" axis, one controller for the whole
+mesh. The weights are placed per ``sharding.serve_param_specs``,
+replicated over "data", one copy a distinct physical device (four
+``cuda:0`` entries share one); ``offload.mesh_sig`` is stamped and every
+plan key carries the mesh (``plan_key(..., mesh=)``). The engine's
+device is the mesh's first data device. A scheduler's pool splits its
+slots into data shards (``serve/kvcache.py``), runs one captured slot
+step a shard on that shard's device and commits the step's plan once a
+step; an admission's prefill runs on the target shard's device
+(``prefill_one``/``prefill_prompt`` take ``device=``). One-shot
+``transcribe``/``generate`` split their batch over the data shards where
+the "batch" token resolves (``sharding.ctx``), each shard's rows through
+its own buffers and graphs on its device, the linears planned at the
+whole batch (``ctx.shard_program``), and run on the first device
+otherwise; either way the keys carry the mesh. ``_step_builds`` counts
+step-key builds: once a key, however many shard graphs it captured
+(``_step_captures`` counts graphs). ``energy_report()["dispatch"]``
+gains ``by_device``. Not in this slice (ROADMAP item 14b): a mesh with
+``model > 1`` (tensor parallelism), which raises ``NotImplementedError``.
+
 Token contract: ``GenerationResult.tokens`` holds exactly the ``steps``
 tokens the request generated — the SOT seed token and an LM's prompt are
 not echoed — and rows
@@ -91,7 +112,7 @@ that hit EOS before the batch drained are truncated at their first EOS with
 from __future__ import annotations
 
 import time
-from contextlib import nullcontext
+from contextlib import contextmanager, nullcontext
 from dataclasses import dataclass, field
 from typing import (Any, Callable, Dict, Hashable, List, NamedTuple,
                     Optional, Tuple)
@@ -107,9 +128,12 @@ from repro_torch.core.device import gc_paused, resolve_device
 from repro_torch.core.offload import OffloadEngine
 from repro_torch.core.plan import DispatchPlan, PlanCache, plan_key
 from repro_torch.core.qformats import quantize_tree
+from repro_torch.launch.mesh import physical_device
 from repro_torch.models import model as model_lib
 from repro_torch.models import whisper as whisper_lib
 from repro_torch.models.ssm import SSMState
+from repro_torch.sharding import ctx as shard_ctx
+from repro_torch.sharding import rules as shard_rules
 
 
 @dataclass
@@ -180,6 +204,8 @@ class _Static:
     token: torch.Tensor             # (B, 1) int64: the last token
     done: torch.Tensor              # (B,) bool
     tokens: torch.Tensor            # (B, max_len) int64: step i in column i
+    device: Any = None              # the physical device of the buffers
+    tag: Any = None                 # a data shard's buffers: (device, shard)
 
 
 @dataclass
@@ -192,6 +218,8 @@ class _LMStatic:
     token: torch.Tensor             # (B, 1) int64: the last argmax
     done: torch.Tensor              # (B,) bool
     tokens: torch.Tensor            # (B, max_len) int64: step i in column i
+    device: Any = None              # the physical device of the buffers
+    tag: Any = None                 # a data shard's buffers: (device, shard)
 
 
 class _Program(NamedTuple):
@@ -208,6 +236,8 @@ class ServeEngine:
     offload: Optional[OffloadEngine] = None
     eos_id: Optional[int] = 0
     device: Any = "cuda"
+    # the serving mesh (module docstring): None serves on ``device``
+    mesh: Optional[Any] = None
     # the nullable observability handle: None keeps every instrumentation
     # site one ``is not None`` test; a Telemetry instruments the engine,
     # its schedulers and the paged pool, binds the offload ledger for
@@ -226,18 +256,46 @@ class ServeEngine:
     #: verify-window graphs captured: once per speculative (batch, frames,
     #: k) point, and once per speculative scheduler's pool
     _verify_captures: int = field(default=0, repr=False)
+    #: step-key builds: one a key, whatever number of data shards' graphs
+    #: it captured (the reference's step traces)
+    _step_builds: int = field(default=0, repr=False)
+    #: verify-window builds: one a key, whatever its shards' graphs
+    _verify_builds: int = field(default=0, repr=False)
     _scheduler: Any = field(default=None, repr=False)
     #: plan keys whose program has run on the CPU (its build counted)
     _built: set = field(default_factory=set, repr=False)
 
     def __post_init__(self):
+        mesh = self.mesh
+        if mesh is not None:
+            if mesh.is_abstract:
+                raise ValueError("serving needs a mesh of devices, not an "
+                                 "abstract mesh")
+            if mesh.shape.get("model", 1) > 1:
+                raise NotImplementedError(
+                    f"serving over a mesh with model={mesh.shape['model']} "
+                    "(tensor parallelism over 'model') is not ported: "
+                    "ROADMAP item 14b; serve on a data-only mesh")
+            self.device = mesh.axis_devices("data")[0]
         self.device = resolve_device(self.device)
+        self._phys = physical_device(self.device)
         self._serve_quant = self.quant if self.quant is not None \
             else self.cfg.quant
         check_servable(self.cfg, self._serve_quant)
         params = model_lib.to_device(self.params, self.device)
         self._serve_params = (quantize_tree(params, _keep_dense)
                               if self._serve_quant == "q8_0" else params)
+        # {physical device: the serving weights there}
+        self._placed = {self._phys: self._serve_params}
+        if mesh is not None:
+            for d in mesh.physical_devices:
+                resolve_device(d)
+            specs = shard_rules.serve_param_specs(self._serve_params, mesh)
+            self._placed.update(shard_rules.place(self._serve_params, mesh,
+                                                  specs))
+            self._placed[self._phys] = self._serve_params
+            if self.offload is not None:
+                self.offload.mesh_sig = shard_rules.mesh_signature(mesh)
         self._eos = -1 if self.eos_id is None else int(self.eos_id)
         self._save_tuning(self._warm_tuning())
         if self.telemetry is not None:
@@ -270,6 +328,22 @@ class ServeEngine:
                 and self.offload.tuner.searches > searches_before):
             self.offload.tuner.save()
 
+    def _params_on(self, device) -> Any:
+        """The serving weights on ``device`` (a physical device of the
+        mesh, or the engine's)."""
+        return self._placed[physical_device(device)
+                            if device is not None else self._phys]
+
+    def _batch_shards(self, b: int) -> int:
+        """Data shards a one-shot batch of ``b`` rows splits over: the mesh's
+        data axis where ctx's "batch" token resolves for ``b``, else 1."""
+        mesh = self.mesh
+        if mesh is None or mesh.shape.get("data", 1) <= 1:
+            return 1
+        if shard_ctx._resolve("batch", b, mesh) is None:
+            return 1
+        return mesh.shape["data"]
+
     def _argmax(self, logits: torch.Tensor) -> torch.Tensor:
         """Greedy pick over the true vocab (vocab_pad columns excluded)."""
         return logits[..., :self.cfg.vocab_size].argmax(dim=-1)
@@ -280,15 +354,22 @@ class ServeEngine:
              k: Optional[int] = None) -> Hashable:
         """``plan_key(phase, quant, batch, *extra)``: whisper's extra is the
         frame count; an LM's prefill's the prompt length, its step none."""
-        return plan_key(phase, self._serve_quant, batch, *extra, pages=pages,
-                        role=role, k=k)
+        return plan_key(phase, self._serve_quant, batch, *extra,
+                        mesh=self.mesh, pages=pages, role=role, k=k)
 
+    @contextmanager
     def _recording(self, plan: DispatchPlan):
         """Record the routing of a program run into ``plan`` (accounting
-        nothing) when an offload engine is attached."""
-        if self.offload is None:
-            return nullcontext()
-        return self.offload.recording(plan)
+        nothing) when an offload engine is attached. On a mesh the run's
+        Python runs with the mesh active, as the reference traces its
+        programs (``sharding.ctx.activation_sharding``): every linear's
+        output passes ``ctx.constrain``, which resolves its tokens on the
+        mesh and checks their rank."""
+        with (self.offload.recording(plan) if self.offload is not None
+              else nullcontext()), \
+                (shard_ctx.activation_sharding(self.mesh)
+                 if self.mesh is not None else nullcontext()):
+            yield
 
     def _plan(self, key: Hashable,
               recorded: DispatchPlan) -> Optional[DispatchPlan]:
@@ -341,25 +422,34 @@ class ServeEngine:
                                         state, engine=self.offload)
 
     # -- the compiled programs ---------------------------------------------
-    def _static_for(self, b: int, f: int) -> _Static:
-        st = self._static.get((b, f))
+    def _static_for(self, b: int, f: int, device=None,
+                    shard: Optional[int] = None) -> _Static:
+        """The buffers at (b, f) on ``device`` (the engine's by default);
+        a one-shot data shard's own, tagged, with ``shard``."""
+        dev = physical_device(device) if device is not None else self._phys
+        tag = None if (dev == self._phys and shard is None) else (dev, shard)
+        skey = (b, f) if tag is None else (b, f, tag)
+        st = self._static.get(skey)
         if st is None:
-            dev = self.device
-            st = self._static[(b, f)] = _Static(
+            st = self._static[skey] = _Static(
                 mel=torch.zeros((b, f, self.cfg.n_mels), device=dev),
                 state=model_lib.zeros_serve_state(self.cfg, b, f,
                                                   self.max_len, device=dev),
                 token=torch.zeros((b, 1), dtype=torch.long, device=dev),
                 done=torch.zeros((b,), dtype=torch.bool, device=dev),
                 tokens=torch.zeros((b, self.max_len), dtype=torch.long,
-                                   device=dev))
+                                   device=dev), device=dev, tag=tag)
         return st
+
+    def _gkey(self, key: Hashable, st) -> Hashable:
+        """The graph key of a program at plan key ``key`` over ``st``."""
+        return key if st.tag is None else (key, st.tag)
 
     def _prefill_fn(self, st: _Static) -> None:
         """The prefill program: the encoder over ``st.mel`` and each
         layer's cross K/V written into ``st``; the self-KV caches, their
         lengths, ``step`` and ``done`` reset."""
-        params, cfg, eng = self._serve_params, self.cfg, self.offload
+        params, cfg, eng = self._params_on(st.device), self.cfg, self.offload
         memory = whisper_lib.encode(params, cfg, st.mel, engine=eng)
         cross = whisper_lib.precompute_cross_kv(params, cfg, memory,
                                                 engine=eng)
@@ -379,7 +469,7 @@ class ServeEngine:
         decode step from ``st.token``, the argmax over the true vocabulary
         written to ``st.token`` and to column ``step`` of ``st.tokens``,
         and its EOS test folded into ``st.done``, all on the device."""
-        logits, _ = model_lib.serve_step(self._serve_params, self.cfg,
+        logits, _ = model_lib.serve_step(self._params_on(st.device), self.cfg,
                                          st.token, st.state,
                                          engine=self.offload)
         nxt = self._argmax(logits[:, -1])[:, None]
@@ -389,7 +479,7 @@ class ServeEngine:
         st.done.logical_or_(nxt[:, 0] == self._eos)
 
     def _verify_fn(self, state: model_lib.ServeState, window: torch.Tensor,
-                   out: torch.Tensor) -> None:
+                   out: torch.Tensor, device=None) -> None:
         """The verify program (the reference's ``verify_fn``): the first W
         = (out's width + 1) / 2 columns of ``window`` (B, >= W), the pending
         token and the k drafts, scored in one forward over the slot-layout
@@ -397,53 +487,67 @@ class ServeEngine:
         each position written to ``out[:, :W]`` and the drafts to
         ``out[:, W:]``, so that the round reads both in one host sync."""
         w = (out.shape[1] + 1) // 2
-        logits, _ = model_lib.verify_step(self._serve_params, self.cfg,
+        logits, _ = model_lib.verify_step(self._params_on(device), self.cfg,
                                           window[:, :w], state,
                                           engine=self.offload)
         out[:, :w].copy_(self._argmax(logits))
         out[:, w:].copy_(window[:, 1:w])
 
     def _draft_fn(self, state: model_lib.ServeState, window: torch.Tensor,
-                  col: torch.Tensor) -> None:
+                  col: torch.Tensor, device=None) -> None:
         """The draft step program: one decode step of every row of the
         slot-layout ``state`` from window column ``col`` (a (1,) device
         index), its argmax written to column ``col + 1`` and ``col``
         advanced, all on the device, so that k + 1 runs of one captured
         step fill the window's drafts (the last run's argmax lands in a
         scratch column)."""
-        logits, _ = model_lib.serve_step(self._serve_params, self.cfg,
+        logits, _ = model_lib.serve_step(self._params_on(device), self.cfg,
                                          window.index_select(1, col), state,
                                          engine=self.offload)
         window.index_copy_(1, col + 1, self._argmax(logits[:, -1])[:, None])
         col.add_(1)
 
-    def _capture(self, key: Hashable, fn: Callable[[], None]) -> _Program:
+    def _capture(self, key: Hashable, fn: Callable[[], None], *,
+                 device=None, pool=None, build: bool = True) -> _Program:
         """Warm ``fn`` up on a side stream (its kernels build; its plan is
         recorded), then capture it into a CUDA graph. The capture pass is
         recorded apart, counts no dispatch and must route as the warm-up
         did. With telemetry, the whole build is one ``plan_build`` span,
         recorded outside the capture. Raises if the capture fails: there
-        is no eager fallback."""
-        dev = self.device
+        is no eager fallback.
+
+        A data shard's program is captured on its ``device`` (the
+        engine's by default), in that device's context and on a stream of
+        its own, into the memory ``pool`` its device's shards share (a
+        ``torch.cuda.graph_pool_handle()``; None: a pool of its own). The
+        graphs of one key's shards are one build: only the first
+        (``build``) counts a step build, a ``plan_build`` span and its
+        warm-up's dispatches."""
+        dev = physical_device(device) if device is not None else self._phys
         plan, again = DispatchPlan(key=key), DispatchPlan(key=key)
         graph = torch.cuda.CUDAGraph()
-        with obs.maybe_span(self.telemetry, "plan_build", cat="engine",
-                            args={"key": str(key)}), torch.cuda.device(dev):
+        span = (obs.maybe_span(self.telemetry, "plan_build", cat="engine",
+                               args={"key": str(key)}) if build
+                else nullcontext())
+        with span, torch.cuda.device(dev):
             side = torch.cuda.Stream(dev)
             side.wait_stream(torch.cuda.current_stream(dev))
-            with torch.cuda.stream(side), self._recording(plan):
+            with torch.cuda.stream(side), self._recording(plan), \
+                    (nullcontext() if build else executor.quiet_dispatch()):
                 fn()
             torch.cuda.current_stream(dev).wait_stream(side)
             with self._recording(again), executor.quiet_dispatch(), \
-                    gc_paused(), torch.cuda.graph(graph):
+                    gc_paused(), torch.cuda.graph(graph, pool=pool):
                 fn()
         if again.signature() != plan.signature():
             raise RuntimeError(f"capture of {key} routed differently from "
                                "its warm-up")
         if key[0] == "step":
             self._step_captures += 1
+            self._step_builds += build
         elif key[0] == "verify":
             self._verify_captures += 1
+            self._verify_builds += build
         return _Program(graph, plan)
 
     def _prepare(self, st: _Static, pre_key: Hashable,
@@ -454,20 +558,26 @@ class ServeEngine:
         resets it."""
         if self.device.type != "cuda":
             return
-        if pre_key not in self._graphs:
-            self._graphs[pre_key] = self._capture(
-                pre_key, lambda: self._prefill_fn(st))
-        if step_key is not None and step_key not in self._graphs:
-            self._graphs[step_key] = self._capture(
-                step_key, lambda: self._step_fn(st))
+        first = st.tag is None or st.tag[1] in (None, 0)
+        gpre = self._gkey(pre_key, st)
+        if gpre not in self._graphs:
+            self._graphs[gpre] = self._capture(
+                pre_key, lambda: self._prefill_fn(st), device=st.device,
+                build=first)
+        gstep = None if step_key is None else self._gkey(step_key, st)
+        if gstep is not None and gstep not in self._graphs:
+            self._graphs[gstep] = self._capture(
+                step_key, lambda: self._step_fn(st), device=st.device,
+                build=first)
 
-    def _run(self, key: Hashable,
-             fn: Callable[[], None]) -> DispatchPlan:
-        """One run of a program: its graph replayed on the card, or ``fn``
-        called on the CPU under a fresh recording. Returns the plan of the
-        run (on the card, the one its warm-up recorded)."""
+    def _run(self, key: Hashable, fn: Callable[[], None],
+             st=None) -> DispatchPlan:
+        """One run of a program: its graph (over ``st``'s buffers, the
+        default ones when None) replayed on the card, or ``fn`` called on
+        the CPU under a fresh recording. Returns the plan of the run (on
+        the card, the one its warm-up recorded)."""
         if self.device.type == "cuda":
-            prog = self._graphs[key]
+            prog = self._graphs[key if st is None else self._gkey(key, st)]
             prog.graph.replay()
             return prog.plan
         return self._record_run(key, fn)
@@ -476,10 +586,13 @@ class ServeEngine:
                     fn: Callable[[], None]) -> DispatchPlan:
         """``fn``, a program's Python, called on the CPU under a fresh
         recording; returns the run's plan. Only the key's first run here
-        (the program's build) counts its dispatches."""
+        (the program's build) counts its dispatches and, for a step key,
+        a step build."""
         plan = DispatchPlan(key=key)
-        quiet = (executor.quiet_dispatch() if key in self._built
-                 else nullcontext())
+        built = key in self._built
+        quiet = executor.quiet_dispatch() if built else nullcontext()
+        if not built and key[0] == "step":
+            self._step_builds += 1
         self._built.add(key)
         with self._recording(plan), quiet:
             fn()
@@ -496,7 +609,7 @@ class ServeEngine:
         steps = 0
         t0 = time.perf_counter()
         for _ in range(max_new):
-            plan = self._run(step_key, fn)
+            plan = self._run(step_key, fn, st)
             if recorded is None:
                 recorded = plan
             steps += 1
@@ -523,41 +636,82 @@ class ServeEngine:
                 decode_s=r["decode_s"] / b, steps=len(row)))
         return results
 
+    def _shard_rows(self, b: int):
+        """The one-shot data shards of a batch of ``b`` rows: [(shard, its
+        device, its first row, its rows)], one entry (None, the engine's
+        device, 0, b) when the batch does not split."""
+        n = self._batch_shards(b)
+        if n == 1:
+            return [(None, self._phys, 0, b)]
+        devs = self.mesh.axis_devices("data")
+        return [(s, physical_device(devs[s]), s * (b // n), b // n)
+                for s in range(n)]
+
+    def _commit_steps(self, step_key: Hashable,
+                      runs: List[Dict[str, Any]]) -> None:
+        """Commit the step plan once a step the batch took: the shards'
+        longest loop (one plan describes the whole batch's step)."""
+        if self.offload is not None and runs[0]["plan"] is not None:
+            self.offload.ledger.commit(
+                self._plan(step_key, runs[0]["plan"]),
+                times=max(r["steps"] for r in runs))
+
+    def _finalize_shards(self, runs: List[Dict[str, Any]], rows: List[int],
+                         prefill_s: float) -> List[GenerationResult]:
+        """The shards' results in row order, each shard's rows finalized
+        on its own loop (a row's share of the prefill is the batch's)."""
+        b = sum(rows)
+        return [res for r, n in zip(runs, rows)
+                for res in self._finalize(r, prefill_s * n / b)]
+
     def transcribe(self, mel, sot_id: int = 1,
                    max_new: int = 32) -> List[GenerationResult]:
         """Whisper path: encoder once per utterance batch, cross-KV
         projected once, autoregressive greedy decode (paper Fig 1), each
         phase one program run (a graph replay on the card). ``mel``: (B,
-        F, n_mels) numpy array or tensor."""
+        F, n_mels) numpy array or tensor. On a mesh whose data axis
+        divides B, each data shard runs its rows on its device (the
+        module's docstring)."""
         if max_new > self.max_len:
             raise ValueError(f"KV cache full: {max_new} new tokens need "
                              f"more than max_len={self.max_len} positions")
         mel_t = torch.as_tensor(mel, dtype=torch.float32)
         b, f = mel_t.shape[0], mel_t.shape[1]
         pre_key, step_key = self._key("prefill", b, f), self._key("step", b, f)
-        searches = self._warm_tuning(n_frames=f, batch=b, n_tokens=max_new)
+        shards = self._shard_rows(b)
+        n = len(shards)
+        # a shard's launches run its rows (the whole batch unsplit)
+        searches = self._warm_tuning(n_frames=f, batch=shards[0][3],
+                                     n_tokens=max_new)
         tele = self.telemetry
-        with torch.no_grad():
-            st = self._static_for(b, f)
-            st.mel.copy_(mel_t)
-            self._prepare(st, pre_key, step_key)
+        with torch.no_grad(), shard_ctx.shard_program(n):
+            sts = []
+            for s, dev, lo, rows in shards:
+                st = self._static_for(rows, f, dev, s)
+                st.mel.copy_(mel_t[lo:lo + rows])
+                self._prepare(st, pre_key, step_key)
+                sts.append(st)
             # each ledger span scopes one phase's run(s) and its commit,
             # so its FLOP delta is that phase's exact attribution
             with obs.maybe_span(tele, "prefill", cat="engine", ledger=True,
                                 args={"batch": b, "frames": f}):
-                recorded, prefill_s = self._timed_prefill(st, pre_key)
+                prefill_s = 0.0
+                for st in sts:
+                    recorded, dt = self._timed_prefill(st, pre_key)
+                    prefill_s += dt
                 if self.offload is not None:
                     self.offload.ledger.commit(self._plan(pre_key, recorded),
                                                times=1)
-            st.token.fill_(sot_id)
             with obs.maybe_span(tele, "decode", cat="engine", ledger=True,
                                 args={"batch": b}):
-                r = self._greedy_loop(st, step_key, max_new)
-                if self.offload is not None and r["plan"] is not None:
-                    self.offload.ledger.commit(
-                        self._plan(step_key, r["plan"]), times=r["steps"])
+                runs = []
+                for st in sts:
+                    st.token.fill_(sot_id)
+                    runs.append(self._greedy_loop(st, step_key, max_new))
+                self._commit_steps(step_key, runs)
         self._save_tuning(searches)
-        return self._finalize(r, prefill_s)
+        return self._finalize_shards(runs, [sh[3] for sh in shards],
+                                     prefill_s)
 
     def _timed_prefill(self, st: _Static, key: Hashable
                        ) -> Tuple[DispatchPlan, float]:
@@ -567,33 +721,37 @@ class ServeEngine:
         self._prepare(st, key)
         _sync(self.device)
         t0 = time.perf_counter()
-        recorded = self._run(key, lambda: self._prefill_fn(st))
-        _sync(self.device)
+        recorded = self._run(key, lambda: self._prefill_fn(st), st)
+        _sync(st.device)
         return recorded, time.perf_counter() - t0
 
-    def prefill_one(self, mel: torch.Tensor
+    def prefill_one(self, mel: torch.Tensor, device=None
                     ) -> Tuple[model_lib.ServeState, Optional[DispatchPlan],
                                float]:
         """One run of the batch-1 prefill program of ``transcribe`` at
         ``plan_key("prefill", quant, 1, F)`` (a graph replay on the card):
-        the continuous-batching scheduler's admission. ``mel``: (1, F,
-        n_mels). Returns the program's decode state (the engine's static
-        buffers, which the next run at the key overwrites: the caller
-        copies it out first), the key's cached plan (None without an
-        offload engine) and the run's seconds. Commits nothing."""
+        the continuous-batching scheduler's admission, on ``device`` (a
+        data shard's; the engine's by default). ``mel``: (1, F, n_mels).
+        Returns the program's decode state (the engine's static buffers
+        there, which the next run at the key overwrites: the caller copies
+        it out first), the key's cached plan (None without an offload
+        engine) and the run's seconds. Commits nothing."""
         key = self._key("prefill", 1, mel.shape[1])
         with torch.no_grad():
-            st = self._static_for(1, mel.shape[1])
+            st = self._static_for(1, mel.shape[1], device)
             st.mel.copy_(mel)
             recorded, prefill_s = self._timed_prefill(st, key)
         return st.state, self._plan(key, recorded), prefill_s
 
     # -- the dense LM's one-shot path -----------------------------------------
-    def _lm_static_for(self, b: int) -> _LMStatic:
-        st = self._lm_static.get(b)
+    def _lm_static_for(self, b: int, device=None,
+                       shard: Optional[int] = None) -> _LMStatic:
+        dev = physical_device(device) if device is not None else self._phys
+        tag = None if (dev == self._phys and shard is None) else (dev, shard)
+        skey = b if tag is None else (b, tag)
+        st = self._lm_static.get(skey)
         if st is None:
-            dev = self.device
-            st = self._lm_static[b] = _LMStatic(
+            st = self._lm_static[skey] = _LMStatic(
                 prompt=torch.zeros((b, self.max_len), dtype=torch.long,
                                    device=dev),
                 plen=torch.zeros((), dtype=torch.long, device=dev),
@@ -602,7 +760,7 @@ class ServeEngine:
                 token=torch.zeros((b, 1), dtype=torch.long, device=dev),
                 done=torch.zeros((b,), dtype=torch.bool, device=dev),
                 tokens=torch.zeros((b, self.max_len), dtype=torch.long,
-                                   device=dev))
+                                   device=dev), device=dev, tag=tag)
         return st
 
     def _lm_step_fn(self, st: _LMStatic) -> None:
@@ -618,8 +776,8 @@ class ServeEngine:
             1, pos.clamp(max=self.max_len - 1).reshape(1))
         decoding = pos >= st.plen
         fed = torch.where(decoding, st.token, prompt_tok)
-        logits, _ = model_lib.serve_step(self._serve_params, self.cfg, fed,
-                                         st.state, engine=self.offload)
+        logits, _ = model_lib.serve_step(self._params_on(st.device), self.cfg,
+                                         fed, st.state, engine=self.offload)
         nxt = self._argmax(logits[:, -1])[:, None]
         st.tokens.index_copy_(1, pos.reshape(1), nxt)
         st.token.copy_(nxt)
@@ -634,14 +792,20 @@ class ServeEngine:
         st.prompt[:, :prompts.shape[1]].copy_(prompts)
         st.plen.fill_(prompts.shape[1])
 
-    def _lm_prepare(self, b: int) -> Tuple[_LMStatic, Hashable]:
-        """Batch ``b``'s buffers and step key; on a CUDA device the step
-        program is captured at the key's first request, over the new
-        buffers (the warm-up's writes are reset by the next load)."""
-        st, key = self._lm_static_for(b), self._key("step", b)
-        if self.device.type == "cuda" and key not in self._graphs:
-            self._graphs[key] = self._capture(
-                key, lambda: self._lm_step_fn(st))
+    def _lm_prepare(self, b: int, global_b: Optional[int] = None,
+                    device=None, shard: Optional[int] = None
+                    ) -> Tuple[_LMStatic, Hashable]:
+        """Buffers of ``b`` rows on ``device`` and the step key of a batch
+        of ``global_b`` (``b`` by default); on a CUDA device the step
+        program is captured at the key's first request over these buffers
+        (the warm-up's writes are reset by the next load)."""
+        st = self._lm_static_for(b, device, shard)
+        key = self._key("step", b if global_b is None else global_b)
+        gk = self._gkey(key, st)
+        if self.device.type == "cuda" and gk not in self._graphs:
+            self._graphs[gk] = self._capture(
+                key, lambda: self._lm_step_fn(st), device=st.device,
+                build=shard in (None, 0))
         return st, key
 
     def _lm_prefill(self, st: _LMStatic, pre_key: Hashable,
@@ -651,20 +815,21 @@ class ServeEngine:
         prefill's plan (the step's entries at ``pre_key``) and its seconds,
         host clock, synchronized."""
         fn = (lambda: self._lm_step_fn(st))
+        prog = (self._graphs[self._gkey(step_key, st)]
+                if self.device.type == "cuda" else None)
         _sync(self.device)
         t0 = time.perf_counter()
         recorded = None
         for _ in range(s):
-            if self.device.type == "cuda":
-                self._graphs[step_key].graph.replay()
+            if prog is not None:
+                prog.graph.replay()
             else:
                 plan = self._record_run(pre_key, fn)
                 recorded = recorded or plan
-        _sync(self.device)
+        _sync(st.device)
         prefill_s = time.perf_counter() - t0
         if recorded is None:                 # the card: the step's routing
-            recorded = DispatchPlan(
-                key=pre_key, entries=list(self._graphs[step_key].plan))
+            recorded = DispatchPlan(key=pre_key, entries=list(prog.plan))
         return recorded, prefill_s
 
     def generate(self, prompts, max_new: int = 32) -> List[GenerationResult]:
@@ -672,7 +837,8 @@ class ServeEngine:
         tensor. The prefill runs the step program once a prompt token and
         the greedy loop up to ``max_new`` more, each a graph replay on the
         card. Returns one result per row; ``tokens`` are the generated
-        tokens only (the module's token contract)."""
+        tokens only (the module's token contract). On a mesh whose data
+        axis divides B, each data shard runs its rows on its device."""
         if self.cfg.family == "audio":
             raise ValueError("generate serves the LM families; whisper "
                              "transcribes (transcribe)")
@@ -684,43 +850,50 @@ class ServeEngine:
                              f"max_len={self.max_len} positions")
         pre_key = self._key("prefill", b, s)
         tele = self.telemetry
-        with torch.no_grad():
-            st, step_key = self._lm_prepare(b)
-            self._lm_load(st, tokens.to(self.device))
+        shards = self._shard_rows(b)
+        n = len(shards)
+        with torch.no_grad(), shard_ctx.shard_program(n):
+            sts = []
+            for sh, dev, lo, rows in shards:
+                st, step_key = self._lm_prepare(rows, b, dev, sh)
+                self._lm_load(st, tokens[lo:lo + rows].to(st.device))
+                sts.append(st)
             with obs.maybe_span(tele, "prefill", cat="engine", ledger=True,
                                 args={"batch": b, "seq": s}):
-                recorded, prefill_s = self._lm_prefill(st, pre_key,
-                                                       step_key, s)
+                prefill_s = 0.0
+                for st in sts:
+                    recorded, dt = self._lm_prefill(st, pre_key, step_key, s)
+                    prefill_s += dt
                 if self.offload is not None:
                     # one plan describes one step; the prefill ran s
                     self.offload.ledger.commit(self._plan(pre_key, recorded),
                                                times=s)
             with obs.maybe_span(tele, "decode", cat="engine", ledger=True,
                                 args={"batch": b}):
-                r = self._greedy_loop(st, step_key, max_new,
-                                      fn=lambda: self._lm_step_fn(st),
-                                      start=s)
-                if self.offload is not None and r["plan"] is not None:
-                    self.offload.ledger.commit(
-                        self._plan(step_key, r["plan"]), times=r["steps"])
-        return self._finalize(r, prefill_s)
+                runs = [self._greedy_loop(st, step_key, max_new,
+                                          fn=lambda st=st: self._lm_step_fn(st),
+                                          start=s) for st in sts]
+                self._commit_steps(step_key, runs)
+        return self._finalize_shards(runs, [sh[3] for sh in shards],
+                                     prefill_s)
 
-    def prefill_prompt(self, prompt: torch.Tensor
+    def prefill_prompt(self, prompt: torch.Tensor, device=None
                        ) -> Tuple[model_lib.ServeState, torch.Tensor,
                                   Optional[DispatchPlan], float]:
         """The batch-1 prefill of ``generate`` over ``prompt`` (1, S) int:
-        the continuous-batching scheduler's LM admission. Returns the
-        program's decode state (the engine's static buffers, which the
-        next run overwrites: the caller copies it out first), the first
-        input token (the argmax of the last prompt position, (1, 1) on the
+        the continuous-batching scheduler's LM admission, on ``device`` (a
+        data shard's; the engine's by default). Returns the program's
+        decode state (the engine's static buffers there, which the next
+        run overwrites: the caller copies it out first), the first input
+        token (the argmax of the last prompt position, (1, 1) on the
         device), the plan at ``plan_key("prefill", quant, 1, S)`` (None
         without an offload engine) and the run's seconds. Commits
         nothing."""
         s = prompt.shape[1]
         key = self._key("prefill", 1, s)
         with torch.no_grad():
-            st, step_key = self._lm_prepare(1)
-            self._lm_load(st, prompt.to(self.device))
+            st, step_key = self._lm_prepare(1, device=device)
+            self._lm_load(st, prompt.to(st.device))
             recorded, prefill_s = self._lm_prefill(st, key, step_key, s)
         return st.state, st.token, self._plan(key, recorded), prefill_s
 
@@ -763,8 +936,9 @@ class ServeEngine:
         The draft is a dense ``ServeEngine`` on this engine's device with
         its ``max_len`` and ``eos_id``. With an offload engine attached,
         the draft's has the same burst and budget and shares this engine's
-        ledger: one ledger for two models, its FLOPs split by role. The
-        reference pins its draft to its plain backend; the port has none
+        ledger: one ledger for two models, its FLOPs split by role. On a
+        mesh the draft shares it. The reference pins its draft to its
+        plain backend; the port has none
         on a card, so its draft runs on the Hopper kernels too
         (``bf16_matmul``)."""
         from repro_torch.serve.speculative import SpeculativeEngine
@@ -775,7 +949,8 @@ class ServeEngine:
                 burst=self.offload.burst, ledger=self.offload.ledger)
         draft = ServeEngine(draft_cfg, draft_params, max_len=self.max_len,
                             quant=draft_quant, offload=draft_offload,
-                            eos_id=self.eos_id, device=self.device)
+                            eos_id=self.eos_id, device=self.device,
+                            mesh=self.mesh)
         return SpeculativeEngine(verifier=self, draft=draft, k=k)
 
     def paged_scheduler(self, n_slots: int = 4,
@@ -845,7 +1020,11 @@ class ServeEngine:
                                # draft and verify); sums to the ledger's
                                # FLOP totals
                                "by_role": dict(
-                                   self.offload.stats.by_role)}
+                                   self.offload.stats.by_role),
+                               # FLOPs by mesh device (dev0 alone when
+                               # unsharded); sums to the ledger's totals
+                               "by_device": dict(
+                                   self.offload.stats.by_device)}
         if self.offload is not None and self.offload.tuner is not None:
             t = self.offload.tuner
             rep["tuning"] = {"cache_hits": t.cache.hits,

@@ -28,6 +28,19 @@ entire slot row, so stale state never leaks into a new request. A free
 slot's positions keep rising after its request left; the cache write and
 the position lookup clamp them (``models/attention.py``), which changes
 garbage rows only.
+
+Sharded pools: with a serving mesh the slot axis splits over the mesh's
+"data" axis into ``n_shards`` ranges of ``shard_size`` slots, as
+``model.slot_state_specs`` lays the pool out: the slot axis splits when
+``n_slots`` divides by the axis size, else the pool is one shard, as the
+reference falls back to replicated. Each pool tensor is one tensor a
+distinct physical device, holding the rows of that device's shards in
+shard order, and a shard's program reads ``shard_states[s]``, views of
+its rows (``model.slot_view``): a mesh of one physical device keeps one
+whole pool, its rows in slot order. ``acquire`` admits into the shard
+with the most free slots (ties: the lowest), the reference's pick order,
+so load spreads over the mesh; insert, reset and release copy into
+the owning shard's rows.
 """
 from __future__ import annotations
 
@@ -36,6 +49,7 @@ from typing import Dict, List, Optional
 
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch.mesh import physical_device
 from repro_torch.models import model as model_lib
 from repro_torch.models.model import ServeState
 from repro_torch.models.transformer import layer_pattern
@@ -70,52 +84,103 @@ class SlotKVPool:
     names); for whisper the cross-K/V rows hold ``n_frames`` frames, the
     capacity every admitted utterance is padded to (an LM's pool has no
     frames). ``acquire`` and
-    ``release`` manage the free list (the lowest free slot first, as the
-    reference's unsharded pool); ``insert`` is the splice a scheduler
-    calls on admission.
+    ``release`` manage the free lists (unsharded, the lowest free slot
+    first, as the reference's pool); ``insert`` is the splice a scheduler
+    calls on admission. ``mesh`` shards the slot axis (the module's
+    docstring); ``state`` is then the first device's tensors, the whole
+    pool when the mesh has one physical device.
     """
 
     def __init__(self, cfg: ModelConfig, n_slots: int, max_len: int,
-                 n_frames: Optional[int] = None, *, device):
+                 n_frames: Optional[int] = None, *, device, mesh=None):
         if cfg.family == "audio" and n_frames is None:
             raise ValueError("audio slot pool needs a fixed n_frames "
                              "capacity (utterances are padded to it)")
         self.n_slots = n_slots
         self.max_len = max_len
         self.n_frames = n_frames
-        self.state: ServeState = model_lib.zeros_slot_state(
-            cfg, n_slots, n_frames, max_len, device=device)
+        self.mesh = mesh
+        self.n_shards = 1
+        if mesh is not None:
+            # the layout is the pool's spec tree's, read off a state of
+            # the pool's shapes on the meta device (no memory)
+            specs = model_lib.slot_state_specs(model_lib.zeros_slot_state(
+                cfg, n_slots, n_frames, max_len, device="meta"), mesh)
+            self.n_shards = spec_shards(specs.step, 0, mesh)
+        devs = ([physical_device(d) for d in mesh.axis_devices("data")]
+                if self.n_shards > 1 else [physical_device(device)])
+        self.shard_size = n_slots // self.n_shards
+        self.shard_devices: List = devs
+        self.devices = list(dict.fromkeys(devs))
+        # each shard's first row in its device's tensors
+        self._row0 = [devs[:s].count(d) * self.shard_size
+                      for s, d in enumerate(devs)]
+        self.states: Dict = {
+            d: model_lib.zeros_slot_state(
+                cfg, devs.count(d) * self.shard_size, n_frames, max_len,
+                device=d)
+            for d in self.devices}
+        self.state: ServeState = self.states[self.devices[0]]
+        self.shard_states: List[ServeState] = [
+            model_lib.slot_view(self.states[d], self._row0[s],
+                                self.shard_size)
+            for s, d in enumerate(devs)]
         # an LM's layer pattern length: the reference stacks its state's
         # leaves by pattern position
         self._period = (len(layer_pattern(cfg)) if cfg.family != "audio"
                         else 1)
-        self._free: List[int] = list(range(n_slots))
+        self._init_free()
 
     # -- free-slot bookkeeping (host side) -----------------------------
+    def _init_free(self) -> None:
+        """Per-shard sorted free lists: ``acquire`` is O(n_shards)."""
+        self._free_by_shard: List[List[int]] = [
+            list(range(s * self.shard_size, (s + 1) * self.shard_size))
+            for s in range(self.n_shards)]
+        self._n_free = self.n_slots
+
     @property
     def n_free(self) -> int:
-        return len(self._free)
+        return self._n_free
+
+    def slot_shard(self, slot: int) -> int:
+        """The data shard owning ``slot`` (0 when unsharded)."""
+        return slot // self.shard_size
+
+    def locate(self, slot: int):
+        """(the device, the row in that device's tensors) of ``slot``."""
+        s = self.slot_shard(slot)
+        return (self.shard_devices[s],
+                self._row0[s] + slot - s * self.shard_size)
 
     def acquire(self) -> int:
-        """Claim the lowest free slot (raises IndexError when full)."""
-        if not self._free:
+        """Claim a free slot (raises IndexError when full): in the shard
+        with the most free slots, ties to the lowest shard, its lowest
+        free slot; unsharded, the lowest free slot."""
+        if self._n_free == 0:
             raise IndexError("pool full: no free slot")
-        return self._free.pop(0)
+        shard = max(range(self.n_shards),
+                    key=lambda s: (len(self._free_by_shard[s]), -s))
+        self._n_free -= 1
+        return self._free_by_shard[shard].pop(0)
 
     def release(self, slot: int, reset: bool = True) -> None:
-        """Return ``slot`` to the free list. ``reset=False`` skips zeroing
-        the row — safe because ``insert`` overwrites the entire slot before
-        reuse and freed rows' garbage is never read (the scheduler's path
-        uses it)."""
+        """Return ``slot`` to its shard's free list. ``reset=False`` skips
+        zeroing the row — safe because ``insert`` overwrites the entire
+        slot before reuse and freed rows' garbage is never read (the
+        scheduler's path uses it)."""
         if reset:
-            slot_reset(self.state, slot)
-        bisect.insort(self._free, slot)
+            dev, row = self.locate(slot)
+            slot_reset(self.states[dev], row)
+        bisect.insort(self._free_by_shard[self.slot_shard(slot)], slot)
+        self._n_free += 1
 
     # -- memory accounting ---------------------------------------------
     def committed_kv_bytes(self) -> int:
         """Bytes preallocated for the whole pool state — what this
         contiguous layout commits regardless of occupancy."""
-        return model_lib.state_kv_bytes(self.state)
+        return sum(model_lib.state_kv_bytes(st)
+                   for st in self.states.values())
 
     def used_kv_bytes(self, lengths: Dict[int, int]) -> int:
         """Bytes of committed state holding live request data, given the
@@ -158,5 +223,15 @@ class SlotKVPool:
 
     # -- state ops ------------------------------------------------------
     def insert(self, slot: int, req_state: ServeState) -> None:
-        """Splice a batch-1 prefill state into ``slot``, in place."""
-        slot_insert(self.state, slot, req_state)
+        """Splice a batch-1 prefill state (on the slot's device) into
+        ``slot``, in place."""
+        dev, row = self.locate(slot)
+        slot_insert(self.states[dev], row, req_state)
+
+
+
+def spec_shards(spec, axis: int, mesh) -> int:
+    """The ranges a leaf's partition spec splits its ``axis`` into: the
+    mesh's "data" size where the spec names that axis there, else 1."""
+    return (mesh.shape["data"]
+            if len(spec) > axis and spec[axis] == "data" else 1)

@@ -51,8 +51,20 @@ instant and an ``attach`` ledger span (zero FLOPs: no linear runs) or a
 ``prefill`` ledger span; a ``replay`` ledger span and instant per
 recomputed request; a ``preempt`` instant that closes the request's
 ``decode`` phase and reopens ``queued``; and the page gauges by kind
-(self, cross), set when the allocators' host-side counts change. Not
-ported from the reference: the serving mesh (one shard).
+(self, cross), set when the allocators' host-side counts change.
+
+Sharded pools (the engine's mesh): as the reference's, the slots split
+into ``n_shards`` data shards when ``n_slots`` divides by the data axis,
+and each arena's allocatable pages into as many ranges when its page
+count divides; a slot's pages come from its own shard's range while that
+range has a free page (``alloc(prefer=slot_shard(slot))``), else from the
+emptiest. The arenas stay one tensor, the reference's page numbering
+whole; each data shard's slot step reads its rows of the block tables,
+lengths and steps (``model.slot_view``). The reference's allocator can
+hand a slot a page of another shard, and prefix sharing attaches another
+slot's cross pages: a program a device could not read those across
+devices, so a paged pool over distinct physical devices raises
+``NotImplementedError`` (ROADMAP item 14b).
 """
 from __future__ import annotations
 
@@ -67,11 +79,14 @@ import torch
 
 from repro_torch import obs
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch.mesh import physical_device
 from repro_torch.models import model as model_lib
 from repro_torch.models.model import ServeState
 from repro_torch.serve.engine import ServeEngine, _sync
+from repro_torch.serve.kvcache import spec_shards
 from repro_torch.serve.scheduler import (
     ContinuousBatchingScheduler, TokenEvent, _ActiveSlot, _QueuedRequest)
+from repro_torch.sharding.rules import paged_state_specs
 
 
 class PagesExhausted(RuntimeError):
@@ -248,13 +263,15 @@ class PagedKVPool:
     before a decode step when they changed, so that evictions and
     preemptions are host edits. The state (``model.zeros_paged_state``) is
     built once on ``device`` (which the caller names) and never replaced.
+    ``mesh`` shards the slots and the arenas' page ranges (the module's
+    docstring).
     """
 
     def __init__(self, cfg: ModelConfig, n_slots: int, max_len: int,
                  n_frames: Optional[int] = None, *, page_size: int = 8,
                  n_pages: Optional[int] = None,
                  cross_page_size: Optional[int] = None,
-                 n_cross_pages: Optional[int] = None, device):
+                 n_cross_pages: Optional[int] = None, device, mesh=None):
         if cfg.family != "audio":
             raise NotImplementedError(
                 "PagedKVPool currently serves the audio family only; LM "
@@ -284,20 +301,48 @@ class PagedKVPool:
             n_cross_pages = 1 + n_slots * self.n_cross_per_req
         self.n_pages = n_pages
         self.n_cross_pages = n_cross_pages
+        self.mesh = mesh
+        if (mesh is not None and mesh.shape.get("data", 1) > 1
+                and len(mesh.physical_devices) > 1):
+            raise NotImplementedError(
+                "a paged pool over distinct physical devices is not "
+                "ported: a slot's pages may lie in another shard's "
+                "range and prefix sharing attaches another slot's "
+                "cross pages, which a program a device cannot read "
+                "(ROADMAP item 14b)")
         self.state: ServeState = model_lib.zeros_paged_state(
             cfg, n_slots, max_pages=self.max_pages, n_pages=n_pages,
             page_size=page_size, n_cross_per_req=self.n_cross_per_req,
             n_cross_pages=n_cross_pages, cross_page_size=cross_page_size,
             device=device)
         ls = self.state.layer_states
+        # the shards are the state's spec tree's: the slots' (block
+        # tables) and each arena's page ranges
+        self.n_shards = page_shards = cross_shards = 1
+        if mesh is not None:
+            specs = paged_state_specs(self.state, mesh).layer_states
+            self.n_shards = spec_shards(specs.block_table, 0, mesh)
+            page_shards = spec_shards(specs.self_k, 1, mesh)
+            cross_shards = spec_shards(specs.cross_k, 1, mesh)
+        self.shard_size = n_slots // self.n_shards
+        dev = physical_device(device)
+        self.devices = [dev]
+        self.shard_devices = [dev] * self.n_shards
         self.page_bytes = 2 * ls.self_k[:, 0].numel() * \
             ls.self_k.element_size()
         self.cross_page_bytes = 2 * ls.cross_k[:, 0].numel() * \
             ls.cross_k.element_size()
 
-        self._slots = PageAllocator(n_slots, reserve=0)
-        self.self_alloc = PageAllocator(n_pages, reserve=1)
-        self.cross_alloc = PageAllocator(n_cross_pages, reserve=1)
+        self.states = {dev: self.state}
+        self.shard_states: List[ServeState] = [
+            model_lib.slot_view(self.state, s * self.shard_size,
+                                self.shard_size)
+            for s in range(self.n_shards)]
+
+        self._slots = PageAllocator(n_slots, self.n_shards, reserve=0)
+        self.self_alloc = PageAllocator(n_pages, page_shards, reserve=1)
+        self.cross_alloc = PageAllocator(n_cross_pages, cross_shards,
+                                         reserve=1)
         self._bt = np.zeros((n_slots, self.max_pages), np.int32)
         self._ct = np.zeros((n_slots, self.n_cross_per_req), np.int32)
         self._slot_pages: List[List[int]] = [[] for _ in range(n_slots)]
@@ -316,10 +361,18 @@ class PagedKVPool:
         return (self.page_size, self.n_pages, self.cross_page_size,
                 self.n_cross_pages)
 
-    # -- slot free list (the lowest free slot first) ---------------------
+    # -- slot free list (the slot pool's pick order) ---------------------
     @property
     def n_free(self) -> int:
         return self._slots.n_free
+
+    def slot_shard(self, slot: int) -> int:
+        return slot // self.shard_size
+
+    def locate(self, slot: int):
+        """(the device, the row in its tensors) of ``slot``: the arenas
+        are one tensor, so the row is the slot."""
+        return self.devices[0], slot
 
     def acquire(self) -> int:
         return self._slots.alloc()
@@ -336,9 +389,10 @@ class PagedKVPool:
         return list(self._slot_pages[slot])
 
     def alloc_self_page(self, slot: int) -> int:
-        """Append ``slot``'s next logical page. Raises ``PagesExhausted``
-        when the arena is dry."""
-        page = self.self_alloc.alloc()
+        """Append ``slot``'s next logical page (from its shard's range
+        while that has one). Raises ``PagesExhausted`` when the arena is
+        dry."""
+        page = self.self_alloc.alloc(prefer=self.slot_shard(slot))
         lp = len(self._slot_pages[slot])
         if lp >= self.max_pages:
             self.self_alloc.release(page)
@@ -369,7 +423,7 @@ class PagedKVPool:
         page = self._slot_pages[slot][lp]
         if self.self_alloc.refcount[page] <= 1:
             return page
-        fresh = self.self_alloc.alloc()
+        fresh = self.self_alloc.alloc(prefer=self.slot_shard(slot))
         paged_copy_page(self.state, page, fresh)
         self.self_alloc.release(page)
         self._slot_pages[slot][lp] = fresh
@@ -397,7 +451,8 @@ class PagedKVPool:
         pages: List[int] = []
         try:
             for _ in range(self.n_cross_per_req):
-                pages.append(self.cross_alloc.alloc())
+                pages.append(self.cross_alloc.alloc(
+                    prefer=self.slot_shard(slot)))
         except PagesExhausted:
             for p in pages:
                 self.cross_alloc.release(p)
@@ -558,7 +613,7 @@ class PagedScheduler(ContinuousBatchingScheduler):
         eng = self.engine
         return PagedKVPool(eng.cfg, self.n_slots, eng.max_len,
                            n_frames=self.n_frames, device=eng.device,
-                           **self._page_cfg)
+                           mesh=eng.mesh, **self._page_cfg)
 
     def _make_step_key(self):
         return self.engine._key("step", self.n_slots, self.n_frames,
@@ -670,7 +725,7 @@ class PagedScheduler(ContinuousBatchingScheduler):
                     ttft_s=req.ttft_s if replay else 0.0)
             if tele is not None:
                 tele.begin(req.rid, "decode")
-            self._token[slot].fill_(int(first))
+            self._slot_row(self._tokens, slot).fill_(int(first))
             self._active[slot] = active
             admitted.append(req.rid)
         if admitted:

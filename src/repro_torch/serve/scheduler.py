@@ -57,17 +57,32 @@ step's one host sync and its commit, never inside the graph. The hot
 path appends to plain lists and ints and sets the gauges only when the
 host-side ints they read change; ``flush_telemetry`` (called by ``run()``
 and ``attribution()``) drains the buffers into the registry. The
-``repro_step_traces`` gauge reads the engine's step captures, the port's
+``repro_step_traces`` gauge reads the engine's step builds, the port's
 counterpart of the reference's step traces.
 
-Not ported from the reference: the serving mesh (one shard), with its
-per-device telemetry.
+Sharded serving (the engine's ``mesh``): the pool splits its slots into
+``n_shards`` data shards (``serve/kvcache.py``). An admission's prefill
+runs on the target shard's device. A step runs one program a shard over
+that shard's rows of the pool and of the token buffer (one tensor a
+physical device), on its device, inside ``sharding.ctx.shard_program``:
+its linears are planned at the whole step's M (each entry's kernel,
+burst and tile its shard's launch's) and its MoE capacity is the whole
+step's. On the card each shard's program is captured at the
+pool's first admission, on its device, into one graph memory pool a
+device; the key is built once (``_step_builds``) and captured n_shards
+times (``_step_captures``), then only replayed. Every shard's replay is
+launched before the step's host sync, which reads the token buffer once
+a physical device. The step's plan, the whole step's, commits once a
+step, so the ledger counts the step's FLOPs once; the ledger's
+``by_device`` splits them over the mesh's devices.
 """
 from __future__ import annotations
 
 import time
 from collections import deque
+from contextlib import nullcontext
 from dataclasses import dataclass, field
+from functools import partial
 from typing import Any, Callable, Deque, Dict, List, Optional
 
 import numpy as np
@@ -79,6 +94,7 @@ from repro_torch.core.plan import DispatchPlan
 from repro_torch.models import model as model_lib
 from repro_torch.serve.engine import GenerationResult, ServeEngine
 from repro_torch.serve.kvcache import SlotKVPool
+from repro_torch.sharding import ctx as shard_ctx
 
 
 @dataclass
@@ -157,21 +173,25 @@ class ContinuousBatchingScheduler:
             self._buf_finished = 0
         self.n_slots = n_slots
         self.n_frames = n_frames
+        self.pool = self._make_pool()
+        # the slot step's launches run a shard's rows
         searches = engine._warm_tuning(n_frames=n_frames, batch=1,
                                        n_tokens=engine.max_len)
-        engine._warm_tuning(n_frames=n_frames, batch=n_slots,
+        engine._warm_tuning(n_frames=n_frames, batch=self.pool.shard_size,
                             n_tokens=engine.max_len)
         engine._save_tuning(searches)
-        self.pool = self._make_pool()
         self.queue: Deque[_QueuedRequest] = deque()
         self.finished: Dict[int, GenerationResult] = {}
         self._active: Dict[int, _ActiveSlot] = {}      # slot -> request
-        # device-resident next-token buffer: each step feeds the previous
-        # step's output back without an upload
-        self._token = torch.zeros((n_slots, 1), dtype=torch.long,
-                                  device=engine.device)
+        # device-resident next-token buffers, one a physical device (a
+        # shard's rows its view): each step feeds the previous step's
+        # output back without an upload
+        self._tokens = self._per_device(1, torch.long)
+        self._token = self._tokens[self.pool.devices[0]]
+        self._shard_tokens = self._shard_views(self._tokens)
         self._step_key = self._make_step_key()
-        self._program = None             # the captured slot step (card)
+        self._programs: List = []        # the captured slot step a shard
+        self._program = None             # shard 0's (the card)
         self._step_plan: Optional[DispatchPlan] = None
         self._next_rid = 0
         # independently accumulated busy time (every prefill and every
@@ -189,7 +209,97 @@ class ContinuousBatchingScheduler:
         pool while inheriting the admit/decode/evict loop."""
         eng = self.engine
         return SlotKVPool(eng.cfg, self.n_slots, eng.max_len,
-                          n_frames=self.n_frames, device=eng.device)
+                          n_frames=self.n_frames, device=eng.device,
+                          mesh=eng.mesh)
+
+    # -- data shards --------------------------------------------------------
+    def _per_device(self, width: int, dtype) -> Dict:
+        """{physical device: zeros (rows of its shards, width)}."""
+        pool = self.pool
+        return {d: torch.zeros((pool.shard_devices.count(d)
+                                * pool.shard_size, width), dtype=dtype,
+                               device=d)
+                for d in pool.devices}
+
+    def _shard_views(self, bufs: Dict) -> List[torch.Tensor]:
+        """Each shard's rows of the per-device buffers ``bufs``."""
+        pool = self.pool
+        return [bufs[d].narrow(0, pool.locate(s * pool.shard_size)[1],
+                               pool.shard_size)
+                for s, d in enumerate(pool.shard_devices)]
+
+    def _slot_row(self, bufs: Dict, slot: int) -> torch.Tensor:
+        """``slot``'s row of the per-device buffers ``bufs``."""
+        dev, row = self.pool.locate(slot)
+        return bufs[dev][row]
+
+    def _host_rows(self, bufs: Dict) -> List:
+        """The per-device buffers ``bufs`` on the host in slot order, as
+        lists: one read (one host sync) a physical device, after every
+        shard's work was launched."""
+        pool = self.pool
+        if len(pool.devices) == 1:
+            return bufs[pool.devices[0]].tolist()
+        host = {d: b.tolist() for d, b in bufs.items()}
+        return [row for s, d in enumerate(pool.shard_devices)
+                for row in host[d][pool.locate(s * pool.shard_size)[1]:][
+                    :pool.shard_size]]
+
+    def _replay_all(self, programs) -> None:
+        """Launch every shard's replay (each on its device), in shard
+        order; nothing waits."""
+        if len(self.pool.devices) == 1:
+            for prog in programs:
+                prog.graph.replay()
+            return
+        for s, prog in enumerate(programs):
+            with torch.cuda.device(self.pool.shard_devices[s]):
+                prog.graph.replay()
+
+    def _capture_shards(self, key, fn) -> List:
+        """On a CUDA device, capture ``fn(s)`` for every data shard ``s`` at
+        plan key ``key``, each on its shard's device, the shards of a
+        device in one graph memory pool: one build of the key. The shards'
+        plans must agree: each records the whole step's."""
+        eng = self.engine
+        pool = self.pool
+        pools: Dict = {}
+        if pool.n_shards > 1:
+            for d in pool.devices:
+                with torch.cuda.device(d):
+                    pools[d] = torch.cuda.graph_pool_handle()
+        progs = []
+        with torch.no_grad():
+            for s, d in enumerate(pool.shard_devices):
+                progs.append(eng._capture(key, self._shard_fn(fn, s),
+                                          device=d, pool=pools.get(d),
+                                          build=s == 0))
+        sig = progs[0].plan.signature()
+        if any(p.plan.signature() != sig for p in progs[1:]):
+            raise RuntimeError(f"the data shards of {key} recorded "
+                               "different plans")
+        return progs
+
+    def _run_shards(self, key, fn) -> DispatchPlan:
+        """On the CPU, ``fn(s)`` for every data shard under fresh
+        recordings at ``key``; returns shard 0's plan (the whole step's)."""
+        eng = self.engine
+        plan = None
+        with torch.no_grad():
+            for s in range(self.pool.n_shards):
+                run = eng._record_run(key, self._shard_fn(fn, s))
+                plan = plan or run
+        return plan
+
+    def _shard_fn(self, fn, s: int):
+        """Shard ``s``'s program: ``fn(s)``, or ``fn()`` itself when the
+        pool is one shard."""
+        return fn if self.pool.n_shards == 1 else partial(fn, s)
+
+    def _in_shard(self):
+        """The context a shard's program runs in: one of n_shards."""
+        n = self.pool.n_shards
+        return shard_ctx.shard_program(n) if n > 1 else nullcontext()
 
     def _make_step_key(self):
         """The slot step's plan key: the one-shot step's at (n_slots,
@@ -232,8 +342,9 @@ class ContinuousBatchingScheduler:
 
     @property
     def step_captures(self) -> int:
-        """The engine's step captures: one for this pool's slot step,
-        whatever the admission schedule, beside the one-shot keys'."""
+        """The engine's step captures: one for this pool's slot step (one a
+        data shard on a mesh), whatever the admission schedule, beside the
+        one-shot keys'."""
         return self.engine._step_captures
 
     def submit(self, payload, max_new: int = 32, sot_id: int = 1) -> int:
@@ -283,39 +394,46 @@ class ContinuousBatchingScheduler:
         return rid
 
     # -- the slot step program --------------------------------------------
-    def _step_fn(self) -> None:
-        """The slot step program: one decode step of every slot from the
+    def _step_fn(self, s: int = 0) -> None:
+        """The slot step program of data shard ``s`` (the whole pool when
+        unsharded): one decode step of its slots from its rows of the
         token buffer, the argmax over the true vocabulary written back to
-        it, all on the device."""
+        them, all on its device."""
         eng = self.engine
-        logits, _ = model_lib.serve_step(eng._serve_params, eng.cfg,
-                                         self._token, self.pool.state,
-                                         engine=eng.offload)
-        self._token.copy_(eng._argmax(logits[:, -1])[:, None])
+        pool = self.pool
+        if pool.n_shards == 1:
+            state, tok = pool.state, self._token
+        else:
+            state, tok = pool.shard_states[s], self._shard_tokens[s]
+        with self._in_shard():
+            logits, _ = model_lib.serve_step(
+                eng._params_on(pool.shard_devices[s]), eng.cfg, tok, state,
+                engine=eng.offload)
+        tok.copy_(eng._argmax(logits[:, -1])[:, None])
 
     def _capture_step(self) -> None:
-        """On a CUDA device, capture the slot step once per pool, while no
-        slot holds a request: the capture's warm-up run advances the pool
-        and writes garbage into the free rows, which every admission
-        overwrites."""
+        """On a CUDA device, capture the slot step once per pool (once a
+        data shard), while no slot holds a request: the capture's warm-up
+        run advances the pool and writes garbage into the free rows, which
+        every admission overwrites."""
         eng = self.engine
-        if self._program is not None or eng.device.type != "cuda":
+        if self._programs or eng.device.type != "cuda":
             return
         if self._active:
             raise RuntimeError("the slot step is captured before the pool's "
                                "first admission")
-        with torch.no_grad():
-            self._program = eng._capture(self._step_key, self._step_fn)
+        self._programs = self._capture_shards(self._step_key, self._step_fn)
+        self._program = self._programs[0]
 
     def _run_step(self) -> DispatchPlan:
-        """One run of the slot step: its graph replayed on the card, the
-        program called on the CPU under a fresh recording. Returns the
-        run's plan (on the card, the one the capture's warm-up recorded)."""
-        if self._program is not None:
-            self._program.graph.replay()
+        """One run of the slot step: every shard's graph replayed on the
+        card, every shard's program called on the CPU under a fresh
+        recording. Returns the step's plan (on the card, the one the
+        captures' warm-ups recorded)."""
+        if self._programs:
+            self._replay_all(self._programs)
             return self._program.plan
-        with torch.no_grad():
-            return self.engine._record_run(self._step_key, self._step_fn)
+        return self._run_shards(self._step_key, self._step_fn)
 
     # -- admission ----------------------------------------------------------
     def admit(self) -> List[int]:
@@ -339,25 +457,27 @@ class ContinuousBatchingScheduler:
             with obs.maybe_span(tele, "prefill", cat="lifecycle",
                                 track=obs.request_track(req.rid),
                                 rid=req.rid, ledger=True):
+                # the slot first: the prefill runs on its shard's device
+                slot = self.pool.acquire()
+                dev = self.pool.locate(slot)[0]
                 if self._audio:
                     state, plan, prefill_s = eng.prefill_one(
-                        torch.from_numpy(req.payload))
+                        torch.from_numpy(req.payload), device=dev)
                 else:
                     state, first, plan, prefill_s = eng.prefill_prompt(
-                        torch.from_numpy(req.payload))
+                        torch.from_numpy(req.payload), device=dev)
                 self._busy_s += prefill_s
                 if eng.offload is not None:
                     eng.offload.ledger.commit(plan, times=times)
             if tele is not None:
                 tele.observe("repro_prefill_seconds", prefill_s)
                 tele.begin(req.rid, "decode")
-            slot = self.pool.acquire()
             with torch.no_grad():
                 self.pool.insert(slot, state)
                 if self._audio:
-                    self._token[slot].fill_(req.sot_id)
+                    self._slot_row(self._tokens, slot).fill_(req.sot_id)
                 else:                       # on the device: no host read
-                    self._token[slot].copy_(first[0])
+                    self._slot_row(self._tokens, slot).copy_(first[0])
             self._active[slot] = _ActiveSlot(rid=req.rid, max_new=req.max_new,
                                              prefill_s=prefill_s,
                                              submit_t=req.submit_t,
@@ -385,7 +505,7 @@ class ContinuousBatchingScheduler:
             h = tele.ledger_open()
         t0 = time.perf_counter()
         plan = self._run_step()
-        nxt = self._token[:, 0].tolist()               # host sync: streaming
+        nxt = [r[0] for r in self._host_rows(self._tokens)]  # host sync
         dt = time.perf_counter() - t0
         self._busy_s += dt
         if self._step_plan is None:
@@ -429,13 +549,14 @@ class ContinuousBatchingScheduler:
             self._buf_tokens += len(events)
             self._buf_steps.append(dt)
             self._buf_shares.append(share)
-            self._note_gauges(eng._step_captures)
+            self._note_gauges(eng._step_builds)
         return events
 
     # -- telemetry ------------------------------------------------------------
     def _note_gauges(self, captures: int) -> None:
         """Set the step gauges when the host-side ints they read changed
-        (queue depth, active slots, ``captures``, the peak KV bytes):
+        (queue depth, active slots, ``captures`` (the step builds), the
+        peak KV bytes):
         they move on admissions and evictions, not every step. No device
         tensor is read."""
         g = (len(self.queue), len(self._active), captures,

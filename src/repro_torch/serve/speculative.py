@@ -54,13 +54,22 @@ is a ``spec_draft_admit`` ledger span on the request's track and a
 ``spec_admit`` instant; the paged scheduler's post-round trim a
 ``spec_trim`` instant. The one-shot path's ``repro_spec_verify_traces``
 gauge and the schedulers' ``repro_step_traces`` read the verifier's
-window captures. Not ported from the reference: the serving mesh.
+window builds.
+
+A serving mesh (the verifier's, which ``ServeEngine.speculative`` shares
+with the draft), as the reference serves one: the one-shot
+``SpeculativeEngine.transcribe`` splits its batch over the data shards,
+one draft step and verify window captured a shard, the round's plans
+committed once, and ``SpecScheduler``'s waves run through it. The round
+schedulers (``SpecContinuousScheduler``, ``PagedSpecScheduler``) are
+single-device and refuse a mesh, as the reference's do.
 """
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, Hashable, List, Optional, Tuple
+from typing import (Any, Callable, Dict, Hashable, List, NamedTuple,
+                    Optional, Tuple)
 
 import numpy as np
 import torch
@@ -73,6 +82,7 @@ from repro_torch.serve.engine import (
 from repro_torch.serve.kvcache import SlotKVPool
 from repro_torch.serve.paging import PagedScheduler
 from repro_torch.serve.scheduler import ContinuousBatchingScheduler, TokenEvent
+from repro_torch.sharding import ctx as shard_ctx
 
 
 def accept_spec(drafts: np.ndarray, vtoks: np.ndarray
@@ -112,40 +122,60 @@ class _Rounds:
     argmax — the draft step's column index, the verify output (B, 2k + 1)
     and the rollback's host-to-device staging. ``programs`` holds the two
     captured graphs on a CUDA device (None until captured, and on the
-    CPU)."""
+    CPU).
+
+    ``dev`` is the device of the buffers and programs (the verifier's by
+    default). The rounds of one of ``shards`` data shards of a one-shot
+    batch of ``key_b`` rows (``SpeculativeEngine.transcribe`` on a mesh)
+    run their programs inside ``sharding.ctx.shard_program`` under the
+    whole batch's keys; only the first shard's captures count a build
+    (``build``)."""
 
     def __init__(self, spec: "SpeculativeEngine", v_state, d_state,
-                 b: int, f: int, pages=None):
+                 b: int, f: int, pages=None, *, dev=None,
+                 key_b: Optional[int] = None, shards: int = 1,
+                 build: bool = True):
         v, d, k = spec.verifier, spec.draft, spec.k
-        dev = v.device
+        dev = v._phys if dev is None else dev
+        key_b = b if key_b is None else key_b
         self.spec = spec
+        self.dev, self.shards, self.build = dev, shards, build
         self.v_state, self.d_state = v_state, d_state
         self.window = torch.zeros((b, k + 2), dtype=torch.long, device=dev)
         self.col = torch.zeros((1,), dtype=torch.long, device=dev)
         self.out = torch.zeros((b, 2 * k + 1), dtype=torch.long, device=dev)
         self.new_len = torch.zeros((b,), dtype=torch.int32, device=dev)
-        self.d_key = d._key("step", b, f, role="draft")
-        self.v_key = v._key("verify", b, f, pages=pages, role="verify", k=k)
+        self.d_key = d._key("step", key_b, f, role="draft")
+        self.v_key = v._key("verify", key_b, f, pages=pages, role="verify",
+                            k=k)
         self.programs: Optional[Tuple[_Program, _Program]] = None
         self.d_plan: Optional[DispatchPlan] = None
         self.v_plan: Optional[DispatchPlan] = None
 
     def _draft(self) -> None:
-        self.spec.draft._draft_fn(self.d_state, self.window, self.col)
+        with shard_ctx.shard_program(self.shards):
+            self.spec.draft._draft_fn(self.d_state, self.window, self.col,
+                                      self.dev)
 
     def _verify(self) -> None:
-        self.spec.verifier._verify_fn(self.v_state, self.window, self.out)
+        with shard_ctx.shard_program(self.shards):
+            self.spec.verifier._verify_fn(self.v_state, self.window,
+                                          self.out, self.dev)
 
     def capture(self) -> None:
         """On a CUDA device, capture the draft step and the verify window
-        (once). Their warm-up runs write garbage into the states' KV and
-        advance their counters, which the caller resets before use."""
+        (once), on ``dev``. Their warm-up runs write garbage into the
+        states' KV and advance their counters, which the caller resets
+        before use."""
         spec = self.spec
         if self.programs is not None or spec.verifier.device.type != "cuda":
             return
         with torch.no_grad():
-            self.programs = (spec.draft._capture(self.d_key, self._draft),
-                             spec.verifier._capture(self.v_key, self._verify))
+            self.programs = (
+                spec.draft._capture(self.d_key, self._draft, device=self.dev,
+                                    build=self.build),
+                spec.verifier._capture(self.v_key, self._verify,
+                                       device=self.dev, build=self.build))
         self.col.zero_()
 
     @staticmethod
@@ -157,12 +187,10 @@ class _Rounds:
         with torch.no_grad():
             return eng._record_run(key, fn)
 
-    def round(self) -> np.ndarray:
-        """The k + 1 draft steps and the verify window, then the round's
-        one host sync. Returns ``out`` on the host: (B, 2k + 1), the
-        verifier's k + 1 argmaxes, then the k drafts. The first round
-        after ``d_plan`` was cleared looks both plans up under the role
-        keys (caching its runs' on a miss)."""
+    def launch(self) -> None:
+        """The k + 1 draft steps and the verify window, launched. The
+        first round after ``d_plan`` was cleared looks both plans up under
+        the role keys (caching its runs' on a miss)."""
         spec = self.spec
         v, d, k = spec.verifier, spec.draft, spec.k
         dprog, vprog = self.programs or (None, None)
@@ -172,6 +200,12 @@ class _Rounds:
         if self.d_plan is None:
             self.d_plan = d._plan(self.d_key, dplan)
             self.v_plan = v._plan(self.v_key, vplan)
+
+    def round(self) -> np.ndarray:
+        """``launch``, then the round's one host sync. Returns ``out`` on
+        the host: (B, 2k + 1), the verifier's k + 1 argmaxes, then the k
+        drafts."""
+        self.launch()
         return self.out.cpu().numpy()
 
     def commit(self) -> None:
@@ -199,6 +233,17 @@ class _Rounds:
             self.col.zero_()
 
 
+class _Part(NamedTuple):
+    """One data shard of the one-shot path's batch: its first row, its
+    rows, the verifier's and the draft's static buffers of ``transcribe``
+    and the round buffers over both in the slot layout."""
+    lo: int
+    rows: int
+    st_v: Any
+    st_d: Any
+    rounds: _Rounds
+
+
 @dataclass
 class SpeculativeEngine:
     """Two-model speculative decoder: ``draft`` proposes ``k`` tokens a
@@ -214,8 +259,8 @@ class SpeculativeEngine:
     rounds: int = 0
     drafted: int = 0
     accepted: int = 0
-    _statics: Dict[Tuple[int, int], _Rounds] = field(default_factory=dict,
-                                                     repr=False)
+    _statics: Dict[Tuple[int, int], List["_Part"]] = field(
+        default_factory=dict, repr=False)
 
     def __post_init__(self):
         # the guards run cheapest first, so a setup wrong in several ways
@@ -239,17 +284,24 @@ class SpeculativeEngine:
                 "speculative serving is wired for the audio family "
                 "(the Whisper ladder)")
 
-    def _static_for(self, b: int, f: int) -> _Rounds:
-        """The one-shot path's round buffers at (B, F): both engines'
-        static buffers of ``transcribe`` at (B, F) in the slot layout (new
-        counters over the same data tensors), made once."""
-        r = self._statics.get((b, f))
-        if r is None:
+    def _parts(self, b: int, f: int) -> List["_Part"]:
+        """The one-shot path's data shards of a batch of B at F frames
+        (one, the whole batch, off a mesh or where B does not split:
+        ``ServeEngine._shard_rows``), made once."""
+        parts = self._statics.get((b, f))
+        if parts is None:
             v, d = self.verifier, self.draft
-            r = self._statics[(b, f)] = _Rounds(
-                self, model_lib.slot_layout(v._static_for(b, f).state, b),
-                model_lib.slot_layout(d._static_for(b, f).state, b), b, f)
-        return r
+            shards = v._shard_rows(b)
+            parts = self._statics[(b, f)] = []
+            for s, dev, lo, rows in shards:
+                st_v = v._static_for(rows, f, dev, s)
+                st_d = d._static_for(rows, f, dev, s)
+                parts.append(_Part(lo, rows, st_v, st_d, _Rounds(
+                    self, model_lib.slot_layout(st_v.state, rows),
+                    model_lib.slot_layout(st_d.state, rows), rows, f,
+                    dev=st_v.device, key_b=b, shards=len(shards),
+                    build=s in (None, 0))))
+        return parts
 
     def transcribe(self, mel, sot_id: int = 1,
                    max_new: int = 32) -> List[GenerationResult]:
@@ -257,7 +309,10 @@ class SpeculativeEngine:
         token contract (the generated tokens only, each row cut at its
         first EOS inclusive), token-exact with the verifier's greedy
         decode of the same batch. ``mel``: (B, F, n_mels) numpy array or
-        tensor."""
+        tensor. On a mesh whose data axis divides B, each data shard runs
+        its rows' rounds on its device, as ``ServeEngine.transcribe``
+        splits its batch: every shard's rounds are launched before the
+        round's host reads, and each round's plans are committed once."""
         v, d, k = self.verifier, self.draft, self.k
         mel_t = torch.as_tensor(mel, dtype=torch.float32)
         b, f = int(mel_t.shape[0]), int(mel_t.shape[1])
@@ -266,44 +321,52 @@ class SpeculativeEngine:
             raise ValueError(
                 f"max_len must be >= max_new + k + 1 = {need} "
                 f"(verifier {v.max_len}, draft {d.max_len})")
-        searches = v._warm_tuning(n_frames=f, batch=b, n_tokens=max_new)
-        v._warm_tuning(n_frames=f, batch=b * (k + 1), n_tokens=max_new)
+        parts = self._parts(b, f)
+        rows_s = parts[0].rows           # the rows a shard's launches run
+        searches = v._warm_tuning(n_frames=f, batch=rows_s,
+                                  n_tokens=max_new)
+        v._warm_tuning(n_frames=f, batch=rows_s * (k + 1), n_tokens=max_new)
         pre_v, pre_d = v._key("prefill", b, f), d._key("prefill", b, f)
         tele = v.telemetry
-        with torch.no_grad():
-            st_v, st_d = v._static_for(b, f), d._static_for(b, f)
-            rounds = self._static_for(b, f)
-            rounds.d_plan = rounds.v_plan = None   # one lookup a request
-            st_v.mel.copy_(mel_t)
-            st_d.mel.copy_(mel_t)
-            v._prepare(st_v, pre_v)
-            d._prepare(st_d, pre_d)
-            rounds.capture()
+        with torch.no_grad(), shard_ctx.shard_program(len(parts)):
+            for lo, rows, st_v, st_d, rounds in parts:
+                rounds.d_plan = rounds.v_plan = None   # one lookup a request
+                st_v.mel.copy_(mel_t[lo:lo + rows])
+                st_d.mel.copy_(mel_t[lo:lo + rows])
+                v._prepare(st_v, pre_v)
+                d._prepare(st_d, pre_d)
+                rounds.capture()
             with obs.maybe_span(tele, "spec_prefill", cat="engine",
                                 ledger=True, args={"batch": b, "frames": f}):
-                rec_v, pre_s_v = v._timed_prefill(st_v, pre_v)
-                rec_d, pre_s_d = d._timed_prefill(st_d, pre_d)
+                prefill_s = 0.0
+                for _, _, st_v, st_d, _ in parts:
+                    rec_v, pre_s_v = v._timed_prefill(st_v, pre_v)
+                    rec_d, pre_s_d = d._timed_prefill(st_d, pre_d)
+                    prefill_s += pre_s_v + pre_s_d
                 if v.offload is not None:
                     v.offload.ledger.commit(v._plan(pre_v, rec_v), times=1,
                                             role="verify")
                 if d.offload is not None:
                     d.offload.ledger.commit(d._plan(pre_d, rec_d), times=1,
                                             role="draft")
-        prefill_s = pre_s_v + pre_s_d
 
         toks: List[List[int]] = [[] for _ in range(b)]
         done = np.zeros(b, bool)
         prev_len = np.zeros(b, np.int64)
-        rounds.rollback(prev_len, np.full(b, sot_id))
+        for lo, rows, *_, rounds in parts:
+            rounds.rollback(prev_len[lo:lo + rows], np.full(rows, sot_id))
         eos = v.eos_id if (v.eos_id is not None and v.eos_id >= 0) else None
-        rows = np.arange(b)
+        rows_b = np.arange(b)
         t0 = time.perf_counter()
         while not done.all():
             # one ledger span a round: the draft and verify runs, the
             # round's host sync and both commits
             h = tele.ledger_open() if tele is not None else None
             active_mask = ~done
-            res = rounds.round()
+            for *_, rounds in parts:
+                rounds.launch()
+            res = np.concatenate([rounds.out.cpu().numpy()
+                                  for *_, rounds in parts])
             vt, drafts = res[:, :k + 1], res[:, k + 1:]
             accept_len, committed, n_emit = accept_spec(drafts, vt)
             # fed == emitted per row, so the rollback's length is the
@@ -322,13 +385,15 @@ class SpeculativeEngine:
                         break
                 new_len[i] = prev_len[i] + used
             prev_len = new_len
-            rounds.rollback(new_len, vt[rows, accept_len])
+            pending = vt[rows_b, accept_len]
+            for lo, rows, *_, rounds in parts:
+                rounds.rollback(new_len[lo:lo + rows], pending[lo:lo + rows])
             self.rounds += 1
             active = int(active_mask.sum())
             accepted = int(accept_len[active_mask].sum())
             self.drafted += active * k
             self.accepted += accepted
-            rounds.commit()
+            parts[0].rounds.commit()     # the round's plans, the batch's
             if tele is not None:
                 tele.ledger_close(h, "spec_round", cat="step",
                                   args={"round": self.rounds,
@@ -336,11 +401,12 @@ class SpeculativeEngine:
                 tele.inc("repro_spec_rounds_total")
                 tele.inc("repro_spec_drafted_total", active * k)
                 tele.inc("repro_spec_accepted_total", accepted)
-        _sync(v.device)
+        for *_, rounds in parts:
+            _sync(rounds.dev)
         decode_s = time.perf_counter() - t0
         if tele is not None:
             tele.gauge("repro_spec_acceptance_rate", self.acceptance_rate())
-            tele.gauge("repro_spec_verify_traces", v._verify_captures)
+            tele.gauge("repro_spec_verify_traces", v._verify_builds)
         v._save_tuning(searches)
         return [GenerationResult(tokens=toks[i], prefill_s=prefill_s / b,
                                  decode_s=decode_s / b, steps=len(toks[i]))
@@ -387,7 +453,9 @@ class SpecScheduler:
     completion in fixed-width waves (one shape per wave width and frame
     count, short waves padded with zero mels), so steady serving replays
     the engine's programs. The parity reference of the round-boundary
-    schedulers below."""
+    schedulers below. On a mesh each wave's batch splits over the data
+    shards (``SpeculativeEngine.transcribe``), as the reference's waves
+    serve on a mesh."""
     engine: SpeculativeEngine
     n_slots: int = 4
     _queue: List[Tuple[int, np.ndarray, int, int]] = field(
@@ -461,7 +529,14 @@ class _SpecRoundsMixin:
     batch's."""
 
     def _init_spec(self, spec: SpeculativeEngine) -> None:
-        d = spec.draft
+        v, d = spec.verifier, spec.draft
+        if v.mesh is not None or d.mesh is not None:
+            # the reference's refusal (its round schedulers are
+            # single-device; its waves serve on a mesh)
+            raise NotImplementedError(
+                "speculative round scheduling is single-device: a round "
+                "runs one draft step and one verify window over the whole "
+                "pool — use SpecScheduler waves on a mesh")
         self.spec = spec
         self._draft_pool = SlotKVPool(d.cfg, self.n_slots, d.max_len,
                                       n_frames=self.n_frames,
@@ -471,6 +546,7 @@ class _SpecRoundsMixin:
             self.n_frames, pages=getattr(self.pool, "plan_geometry", None))
         # the base's admission writes each slot's first token here
         self._token = self._spec_rounds.window[:, :1]
+        self._tokens = {self._spec_rounds.dev: self._token}
 
     # -- admission (a round boundary is a step boundary) --------------------
     def submit(self, payload, max_new: int = 32, sot_id: int = 1) -> int:
@@ -657,7 +733,7 @@ class _SpecRoundsMixin:
             tele.inc("repro_spec_rounds_total")
             tele.inc("repro_spec_drafted_total", drafted)
             tele.inc("repro_spec_accepted_total", accepted)
-            self._note_gauges(spec.verifier._verify_captures)
+            self._note_gauges(spec.verifier._verify_builds)
         return events
 
 

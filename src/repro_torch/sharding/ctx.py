@@ -1,0 +1,128 @@
+"""Activation-sharding context, the port's copy of the reference's
+``sharding/ctx.py``: model code names the mesh axes of its big activations
+without threading a mesh through every call signature.
+
+``activation_sharding(mesh)`` activates the mesh; ``constrain(x, ...)``
+resolves one token a dim, divisibility-checked:
+
+    constrain(x, "batch", None, "model", None)
+
+tokens: "batch" -> (pod, data) merged, "seq" -> every non-pod axis that
+divides, "model_force" -> the model axis however it divides, an axis name
+-> that axis, None -> unconstrained. A token whose axis size does not
+divide the dim falls back to None (whisper's 6 heads on a 16-way model
+axis), so one call site stays valid for every architecture.
+
+The reference hands the resolved spec to its compiler as a sharding
+constraint. The port has no compiler to give a hint to: ``constrain``
+returns ``x`` unchanged, still raises the reference's ``ValueError`` on a
+rank mismatch, and ``resolve_spec`` returns the spec it would pin.
+
+``shard_program(n)`` is the port's own: while active, the program running
+is one of ``n`` data shards of a batch whose rows split evenly over them
+(sharded serving runs one captured program a shard, ``serve/``). Code
+that must see the whole step reads ``batch_shards()``: the offload engine
+plans each linear at the global M (``core/offload.py``), a MoE layer
+computes its capacity from the global token count (``models/moe.py``).
+"""
+from __future__ import annotations
+
+import threading
+from contextlib import contextmanager
+from typing import Optional, Tuple
+
+import numpy as np
+
+_STATE = threading.local()
+
+
+def current_mesh():
+    return getattr(_STATE, "mesh", None)
+
+
+@contextmanager
+def activation_sharding(mesh):
+    prev = current_mesh()
+    _STATE.mesh = mesh
+    try:
+        yield
+    finally:
+        _STATE.mesh = prev
+
+
+def batch_shards() -> int:
+    """The number of data shards the running program's batch is one of
+    (1 outside ``shard_program``)."""
+    return getattr(_STATE, "shards", 1)
+
+
+@contextmanager
+def shard_program(n: int):
+    """Mark the scope's program as one of ``n`` equal data shards of its
+    batch."""
+    prev = batch_shards()
+    _STATE.shards = int(n)
+    try:
+        yield
+    finally:
+        _STATE.shards = prev
+
+
+def _resolve(token, dim: int, mesh):
+    if token is None:
+        return None
+    if token == "batch":
+        axes = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+        size = int(np.prod([mesh.shape[a] for a in axes])) if axes else 1
+        if size > 1 and dim % size == 0:
+            return axes if len(axes) > 1 else axes[0]
+        # fall back to the data axis alone (e.g. batch 8 on a 32-way pod+data)
+        if "data" in mesh.axis_names and dim % mesh.shape["data"] == 0 \
+                and mesh.shape["data"] > 1:
+            return "data"
+        return None
+    if token == "seq":
+        # long-context S dim: absorb every non-pod axis that divides
+        axes = tuple(a for a in ("data", "model")
+                     if a in mesh.axis_names and mesh.shape[a] > 1)
+        size = int(np.prod([mesh.shape[a] for a in axes])) if axes else 1
+        if axes and dim % size == 0:
+            return axes if len(axes) > 1 else axes[0]
+        if "model" in mesh.axis_names and dim % mesh.shape["model"] == 0:
+            return "model"
+        return None
+    if token == "model_force":
+        # uneven sharding: the reference's compiler pads the dim to the
+        # axis size (Megatron-style head padding, e.g. 40 heads -> 16x3)
+        return "model" if "model" in mesh.axis_names else None
+    if token in mesh.axis_names:
+        return token if dim % mesh.shape[token] == 0 else None
+    return None
+
+
+def batch_shard_size(mesh) -> int:
+    axes = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+    return int(np.prod([mesh.shape[a] for a in axes])) if axes else 1
+
+
+def resolve_spec(shape, *tokens, mesh=None) -> Optional[Tuple]:
+    """The spec ``constrain`` would pin for a tensor of ``shape`` on
+    ``mesh`` (the active one by default): one entry a dim, None where it
+    stays unconstrained; None when no mesh is active or nothing resolves.
+    Raises ``ValueError`` when the tokens do not match the rank."""
+    mesh = current_mesh() if mesh is None else mesh
+    if mesh is None:
+        return None
+    if len(tokens) != len(shape):
+        raise ValueError(f"{len(tokens)} tokens for rank-{len(shape)} tensor")
+    entries = tuple(_resolve(t, d, mesh) for t, d in zip(tokens, shape))
+    return entries if any(e is not None for e in entries) else None
+
+
+def constrain(x, *tokens):
+    """``x`` unchanged: the port has no compiler to hint. Under an active
+    mesh the tokens are resolved as the reference resolves them, and a
+    rank mismatch raises its ``ValueError``."""
+    if current_mesh() is not None:
+        resolve_spec(tuple(x.shape), *tokens)
+    return x

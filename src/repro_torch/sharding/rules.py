@@ -1,0 +1,424 @@
+"""Sharding rule engine: parameter, batch and cache trees -> partition
+specs, the port's copy of the reference's ``sharding/rules.py``.
+
+Strategy (MaxText-style 2D sharding on a fixed mesh):
+
+  * "model" axis   tensor parallelism: attention heads, d_ff, vocabulary,
+                   MoE experts (EP), the SSD inner dim.
+  * "data" axis    batch DP and FSDP weight sharding: the other matrix dim
+                   of every big weight shards here.
+  * "pod" axis     pure DP across pods: parameters replicated pod-wise.
+
+Every rule is divisibility-checked against the mesh: a dim that does not
+divide falls back down its candidate list (whisper's vocabulary of 51,865
+on a 16-way model axis is replicated). Rules are keyed on regexes over the
+'/'-joined path of a leaf ('attn/q/w', 'moe/w_up', ...); a Q8_0 weight's
+legs ('.../w/qs', '.../w/scales') inherit the dense weight's rule.
+
+A spec ``P`` is a tuple with one entry a dim: None (replicated), an axis
+name, or a tuple of axis names; trailing Nones are stripped, as the
+reference's ``PartitionSpec`` is built. The port has no compiler to place
+arrays from specs: ``place`` copies a tree onto a mesh's devices, and the
+serving pools place their state themselves (``serve/kvcache.py``,
+``serve/paging.py``).
+
+Layout. The port keeps a list of per-layer dicts (``enc_blocks``,
+``dec_blocks``, ``stack/blocks``) and a list of per-layer decode states
+where the reference stacks the layers on a leading axis. A per-layer
+leaf's spec here is the reference's spec of the stacked leaf with that
+axis left out: the rule is applied to the leaf's shape behind a layer
+axis of size 1, whose entry is then dropped. The templates right-align,
+so this changes only a rule-less 1-D leaf, to which the reference's 2-D
+fallback applies once it is stacked.
+
+``train_state_specs`` is not ported: the port has no training state yet.
+"""
+from __future__ import annotations
+
+import re
+from typing import Any, Callable, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+
+class P(tuple):
+    """A partition spec: one entry a dim (None, an axis name, or a tuple
+    of axis names), as the reference's ``PartitionSpec``."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __repr__(self) -> str:
+        return f"P{tuple.__repr__(self)}"
+
+
+# Candidate tokens: each dim gets a list of candidates, first divisible wins.
+#   "model"  -> the model axis
+#   "fsdp"   -> the data axis (weight sharding within a pod)
+#   "batch"  -> (pod, data) combined (activations' batch dim)
+#   "expert" -> the model axis (EP), kept distinct for readability
+#   None     -> replicated
+MODEL, FSDP, BATCH, EXPERT = "model", "fsdp", "batch", "expert"
+
+# (regex over '/'-joined path, trailing-dims candidates, innermost last)
+_RULES: Sequence[Tuple[str, Optional[Tuple[Tuple[Optional[str], ...],
+                                           ...]]]] = (
+    # --- embeddings / readout ---
+    (r"embed/table$",        ((MODEL,), (FSDP,))),
+    (r"lm_head/w$",          ((MODEL,), (FSDP,))),
+    (r"(enc_pos|dec_pos)/table$", ((), (FSDP,))),
+    (r"projector/w$",        ((FSDP,), ())),
+    (r"frontend/w$",         ((FSDP,), ())),
+    # --- attention (w stored (out, in)) ---
+    (r"attn/q/w$",           ((MODEL,), (FSDP,))),
+    (r"attn/[kv]/w$",        ((MODEL,), (FSDP,))),
+    (r"attn/o/w$",           ((FSDP,), (MODEL,))),
+    (r"attn/[qkvo]/b$",      ((MODEL,),)),
+    # --- dense FFN ---
+    (r"(up|gate)/w$",        ((MODEL,), (FSDP,))),
+    (r"down/w$",             ((FSDP,), (MODEL,))),
+    (r"(up|gate|down)/b$",   ((MODEL,),)),
+    # --- MoE (expert-stacked (E, in, out)) ---
+    (r"moe/router/w$",       ((), (FSDP,))),
+    (r"moe/w_(up|gate)$",    ((EXPERT,), (FSDP,), ())),
+    (r"moe/w_down$",         ((EXPERT,), (), (FSDP,))),
+    # --- SSD mixer ---
+    (r"ssm/in_proj/w$",      ((MODEL,), (FSDP,))),
+    (r"ssm/out_proj/w$",     ((FSDP,), (MODEL,))),
+    (r"ssm/conv_[wb]$",      None),        # tiny; replicate
+    (r"ssm/(A_log|D|dt_bias)$", None),
+    # --- norms and everything 1D ---
+    (r"norm", None),
+)
+
+#: the port's per-layer lists, which the reference stacks on a leading axis
+_LAYER_LISTS = (("enc_blocks",), ("dec_blocks",), ("stack", "blocks"))
+
+
+def _axis_size(mesh, name: str) -> int:
+    return mesh.shape[name] if name in mesh.axis_names else 1
+
+
+def _resolve(token: Optional[str], mesh):
+    """Token -> (mesh axes tuple, total size)."""
+    if token is None:
+        return None, 1
+    if token in (MODEL, EXPERT):
+        return ("model",), _axis_size(mesh, "model")
+    if token == FSDP:
+        return ("data",), _axis_size(mesh, "data")
+    if token == BATCH:
+        axes = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+        size = int(np.prod([_axis_size(mesh, a) for a in axes])) if axes else 1
+        return axes or None, size
+    raise ValueError(token)
+
+
+def _dim_entry(candidates, dim: int, mesh):
+    """First divisible candidate for one dim. candidates: tuple of tokens."""
+    for tok in candidates:
+        axes, size = _resolve(tok, mesh)
+        if axes is None:
+            return None
+        if size > 1 and dim % size == 0:
+            return axes if len(axes) > 1 else axes[0]
+    return None
+
+
+def _strip(entries: List) -> P:
+    while entries and entries[-1] is None:
+        entries.pop()
+    return P(*entries)
+
+
+def _spec_from_template(template, shape, mesh) -> P:
+    """Right-align the trailing-dim template against ``shape`` (leading
+    stacked-layer dims replicate) and divisibility-check each entry."""
+    if template is None:
+        return P()
+    ndim = len(shape)
+    t = len(template)
+    entries = [None] * (ndim - t) if ndim >= t else []
+    tpl = template[-ndim:] if t > ndim else template
+    for cand, dim in zip(tpl, shape[ndim - len(tpl):]):
+        entries.append(_dim_entry(cand, dim, mesh))
+    # a mesh axis may appear at most once per spec: first dim wins
+    seen = set()
+    for i, e in enumerate(entries):
+        axes = e if isinstance(e, tuple) else ((e,) if e else ())
+        if any(a in seen for a in axes):
+            entries[i] = None
+        seen.update(axes)
+    return _strip(entries)
+
+
+_FALLBACK_2D = ((MODEL,), (FSDP,))
+
+
+def spec_for_path(path_str: str, shape, mesh) -> P:
+    """The rule lookup for one leaf. QTensor legs map onto the dense rule."""
+    # Q8_0 leaves: '<w-path>/qs' (N, K/32, 32) and '<w-path>/scales' (N, K/32)
+    q_m = re.search(r"(.*)/(qs|scales)$", path_str)
+    lookup = q_m.group(1) if q_m else path_str
+    template = _FALLBACK_2D if len(shape) >= 2 else None
+    for pattern, tpl in _RULES:
+        if re.search(pattern, lookup):
+            template = tpl
+            break
+    if q_m and template is not None:
+        # qs = W with its last dim split (..., K) -> (..., K/32, 32): a
+        # replicated intra-block entry keeps every leading rule aligned
+        # (right-alignment then puts the dense K rule on the K/32 dim);
+        # scales = W with K -> K/32: the dense template applies unchanged
+        if q_m.group(2) == "qs":
+            template = (*template, ())
+    return _spec_from_template(template, shape, mesh)
+
+
+def _unstacked(spec: P) -> P:
+    """A stacked leaf's spec without its leading layer-axis entry."""
+    return _strip(list(spec)[1:])
+
+
+# ---------------------------------------------------------------------------
+# Trees: dicts, lists, tuples and NamedTuples of tensors
+# ---------------------------------------------------------------------------
+def tree_map_with_path(fn: Callable[[Tuple[str, ...], Any], Any], tree,
+                       path: Tuple[str, ...] = ()):
+    """``fn(path, leaf)`` over every tensor of ``tree``, the structure
+    kept: dict keys, list and tuple indices and NamedTuple field names
+    make the path."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, path + (str(k),))
+                for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(tree_map_with_path(fn, v, path + (f,))
+                            for f, v in zip(tree._fields, tree)))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map_with_path(fn, v, path + (str(i),))
+                          for i, v in enumerate(tree))
+    return fn(path, tree)
+
+
+def tree_leaves(tree) -> List[Any]:
+    """Every leaf of ``tree`` in the order ``tree_map_with_path`` walks."""
+    out: List[Any] = []
+    tree_map_with_path(lambda p, x: out.append(x), tree)
+    return out
+
+
+def _is_layer_leaf(path: Tuple[str, ...]) -> bool:
+    return any(path[:len(pre)] == pre for pre in _LAYER_LISTS)
+
+
+def param_specs(params, mesh):
+    """Spec tree matching ``params`` (a QTensor's legs get theirs)."""
+    def leaf(path, x):
+        shape = tuple(getattr(x, "shape", ()))
+        if not shape:
+            return P()
+        if _is_layer_leaf(path):
+            return _unstacked(spec_for_path("/".join(path), (1,) + shape,
+                                            mesh))
+        return spec_for_path("/".join(path), shape, mesh)
+    return tree_map_with_path(leaf, params)
+
+
+# ---------------------------------------------------------------------------
+# Batch / activation / cache specs
+# ---------------------------------------------------------------------------
+def _batch_axes(mesh):
+    return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+
+
+def batch_specs(batch: dict, mesh):
+    """Shard every batch leaf's dim 0 over (pod, data) when divisible;
+    otherwise (a batch of 1) shard the sequence dim over data."""
+    axes = _batch_axes(mesh)
+    bsize = int(np.prod([mesh.shape[a] for a in axes])) if axes else 1
+
+    def leaf(path, x):
+        shape = tuple(x.shape)
+        if not shape:
+            return P()
+        if shape[0] % bsize == 0 and bsize > 1:
+            return P(axes if len(axes) > 1 else axes[0])
+        if len(shape) >= 2 and shape[1] % _axis_size(mesh, "data") == 0:
+            return P(None, "data")
+        return P()
+
+    return tree_map_with_path(leaf, batch)
+
+
+def _cache_leaf(ps: str, shape, mesh) -> P:
+    """The reference's decode-state rule for one stacked (R, B, ...) leaf
+    at path ``ps``."""
+    axes = _batch_axes(mesh)
+    bsize = int(np.prod([mesh.shape[a] for a in axes])) if axes else 1
+    baxis = axes if len(axes) > 1 else (axes[0] if axes else None)
+    msize = _axis_size(mesh, "model")
+    dsize = _axis_size(mesh, "data")
+    if len(shape) <= 1:
+        return P()
+    entries: List = [None] * len(shape)
+    bdim = 1  # leading dim is the stacked layer dim R
+    batch_ok = shape[bdim] % bsize == 0 and bsize > 1
+    if batch_ok:
+        entries[bdim] = baxis
+    leaf_name = ps.rsplit("/", 1)[-1]
+    if "conv" in ps:  # (R, B, K, conv_dim)
+        if len(shape) >= 4 and shape[-1] % msize == 0:
+            entries[-1] = "model"
+    elif leaf_name in ("k_scale", "v_scale") and len(shape) == 4:
+        # int8-KV scales (R, B, S, Hkv): mirror the payload's S policy
+        if shape[3] % msize == 0:
+            entries[3] = "model"
+        elif batch_ok and shape[2] % msize == 0:
+            entries[2] = "model"
+        elif not batch_ok:
+            s_axes = tuple(a for a, sz in (("data", dsize),
+                                           ("model", msize)) if sz > 1)
+            sz = int(np.prod([mesh.shape[a] for a in s_axes])) or 1
+            if s_axes and shape[2] % sz == 0:
+                entries[2] = s_axes if len(s_axes) > 1 else s_axes[0]
+    elif len(shape) == 5:
+        is_kv = leaf_name in ("k", "v", "k_qs", "v_qs") or "kv" in ps
+        if is_kv:  # (R, B, S, Hkv, hd)
+            if shape[3] % msize == 0:
+                entries[3] = "model"
+                if not batch_ok and shape[2] % dsize == 0 and dsize > 1:
+                    entries[2] = "data"
+            else:
+                # S-sharding; B=1 cells put (data, model) both on S
+                if batch_ok:
+                    s_axes = ("model",)
+                else:
+                    s_axes = tuple(a for a, sz in (("data", dsize),
+                                                   ("model", msize))
+                                   if sz > 1)
+                sz = int(np.prod([mesh.shape[a] for a in s_axes])) or 1
+                if s_axes and shape[2] % sz == 0:
+                    entries[2] = s_axes if len(s_axes) > 1 else s_axes[0]
+        else:      # ssd state (R, B, H, P, N)
+            if shape[2] % msize == 0:
+                entries[2] = "model"
+    return _strip(entries)
+
+
+def cache_specs(state, mesh, kv_heads: int, head_dim: int):
+    """Decode-state specs. The reference's rule on its stacked (R, B, ...)
+    leaves: the batch shards over (pod, data) when divisible; the model
+    axis lands on Hkv when it divides, else on S (each model shard owns a
+    cache slice); SSM states shard H over model, conv windows their
+    channel dim. Every leaf under ``layer_states`` is one layer's (the
+    port's list), so its spec is the stacked leaf's with the layer axis
+    left out; other leaves (``step``) take the rule as they are."""
+    del kv_heads, head_dim            # the reference reads shapes alone
+
+    def leaf(path, x):
+        shape = tuple(x.shape)
+        ps = "/".join(path).lower()
+        if "layer_states" in path:
+            return _unstacked(_cache_leaf(ps, (1,) + shape, mesh))
+        return _cache_leaf(ps, shape, mesh)
+
+    return tree_map_with_path(leaf, state)
+
+
+# ---------------------------------------------------------------------------
+# Serving specs
+# ---------------------------------------------------------------------------
+def _strip_axes(spec: P, drop=("data",)) -> P:
+    entries = []
+    for e in spec:
+        axes = e if isinstance(e, tuple) else ((e,) if e is not None else ())
+        kept = tuple(a for a in axes if a not in drop)
+        entries.append(kept if len(kept) > 1 else
+                       (kept[0] if kept else None))
+    return _strip(entries)
+
+
+def serve_param_specs(params, mesh):
+    """Serving-weight specs: the training rules with the FSDP ("data")
+    axis stripped, so weights are tensor-parallel over "model" where
+    divisible and replicated over the slot-DP data axis. FSDP sharding is
+    the wrong trade for decode: every layer's weight read would become a
+    gather a step, while the slot pool's batch axis is what scales with
+    traffic."""
+    return _map_specs(_strip_axes, param_specs(params, mesh))
+
+
+def _map_specs(fn: Callable[[P], Any], specs):
+    if isinstance(specs, P):
+        return fn(specs)
+    if isinstance(specs, dict):
+        return {k: _map_specs(fn, v) for k, v in specs.items()}
+    if isinstance(specs, tuple) and hasattr(specs, "_fields"):
+        return type(specs)(*(_map_specs(fn, v) for v in specs))
+    return type(specs)(_map_specs(fn, v) for v in specs)
+
+
+def paged_state_specs(state, mesh):
+    """Specs of a paged serve state: the page arenas shard their page axis
+    over "data" (pages are the unit of KV memory), the block tables and
+    counters the slot axis. Structural by leaf name, divisibility-checked
+    per leaf. The port's paged state stacks its layers as the reference's
+    does, so the specs are the reference's."""
+    dsize = _axis_size(mesh, "data")
+
+    def leaf(path, x):
+        name = path[-1]
+        if dsize <= 1:
+            return P()
+        if name in ("self_k", "self_v", "cross_k", "cross_v"):
+            # (R, P, page, Hkv, hd): shard the physical-page axis
+            return P(None, "data") if x.shape[1] % dsize == 0 else P()
+        if name in ("block_table", "cross_table"):
+            # (n_slots, max_pages): shard slots
+            return P("data") if x.shape[0] % dsize == 0 else P()
+        if name == "length":
+            # (R, n_slots)
+            return P(None, "data") if x.shape[1] % dsize == 0 else P()
+        if name == "step":
+            # (n_slots,)
+            return P("data") if x.shape[0] % dsize == 0 else P()
+        return P()
+
+    return tree_map_with_path(leaf, state)
+
+
+def mesh_signature(mesh) -> Optional[Tuple[Tuple[str, int], ...]]:
+    """Hashable identity of a mesh's (axis, size) layout: the sharding
+    component of plan keys and ``PlanEntry.mesh``. A sharded program and
+    its unsharded twin at the same shapes never share a plan-cache entry.
+    None for ``mesh=None``, so unsharded keys are unchanged."""
+    if mesh is None:
+        return None
+    return tuple((str(a), int(mesh.shape[a])) for a in mesh.axis_names)
+
+
+def _replicated(spec: P) -> bool:
+    return all(e is None for e in spec)
+
+
+def place(tree, mesh, specs) -> dict:
+    """The tree on the mesh: {physical device: a copy of ``tree`` there},
+    one copy a distinct physical device, so logical entries that repeat a
+    device share its copy. Every spec must be replicated: a spec that
+    names an axis (tensor parallelism over "model", FSDP over "data")
+    raises ``NotImplementedError`` (ROADMAP item 14b)."""
+    from repro_torch.models.model import to_device
+    for spec in _spec_leaves(specs):
+        if not _replicated(spec):
+            raise NotImplementedError(
+                f"placing a leaf split as {spec} is not ported: the port "
+                "replicates weights over the mesh (ROADMAP item 14b: TP "
+                "over 'model')")
+    return {dev: to_device(tree, dev) for dev in mesh.physical_devices}
+
+
+def _spec_leaves(specs) -> List[P]:
+    if isinstance(specs, P):
+        return [specs]
+    vals = specs.values() if isinstance(specs, dict) else specs
+    return [s for v in vals for s in _spec_leaves(v)]

@@ -220,12 +220,14 @@ def test_energy_report_matches_reference(smoke):
     want = je.energy_report(jres, 700.0)
     assert set(got) == {"requests", "total_s", "mean_s", "pdp_j", "edp_js",
                         "offload_rate", "dispatch"}
-    assert set(got["dispatch"]) == {"plans", "plan_hits", "plan_misses",
-                                    "ledger_commits", "by_backend",
-                                    "by_role"}
+    assert set(got["dispatch"]) == set(want["dispatch"]) == {
+        "plans", "plan_hits", "plan_misses", "ledger_commits", "by_backend",
+        "by_role", "by_device"}
     for key in ("plans", "plan_hits", "plan_misses", "ledger_commits"):
         assert got["dispatch"][key] == want["dispatch"][key], key
     s = teng.stats
+    assert got["dispatch"]["by_device"] == {
+        "dev0": s.offloaded_flops + s.fallback_flops + s.residual_flops}
     assert set(got["dispatch"]["by_role"]) == set(
         want["dispatch"]["by_role"]) == {"main"}
     assert got["dispatch"]["by_role"]["main"] == \

@@ -1,0 +1,167 @@
+"""Sharded serving on a CUDA device: slot-DP over a mesh of logical
+devices that are all the one card (``make_serve_mesh(data=n,
+devices=[cuda:0] * n)``). The whisper-tiny smoke config's tokens over a
+4-way mesh equal the unsharded scheduler's, Q8_0 and dense + flash; the
+step key is built once and captured once a shard, then only replayed; a
+shard's row is bit for bit a batch-1 step's; the paged pool at data 4
+gives the unsharded paged pool's tokens; a shard capture that fails
+raises, and nothing falls back.
+
+Every test here is marked ``gpu`` and skips without a card. The file
+imports no JAX, so it runs on a machine that has only PyTorch:
+
+    PYTHONPATH=src python -m pytest -m gpu tests/test_torch_sharding_gpu.py
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import get_smoke_config
+from repro_torch.core.offload import OffloadEngine
+from repro_torch.kernels import bf16_matmul, q8_matmul, q8_matvec
+from repro_torch.launch.mesh import make_serve_mesh
+from repro_torch.models import model
+from repro_torch.serve.engine import ServeEngine
+
+COUNTED = (q8_matmul.q8_matmul, q8_matvec.q8_matvec, bf16_matmul.bf16_matmul)
+F = 16
+
+
+def _cuda_or_skip():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.core.device import resolve_device
+    return resolve_device("cuda")
+
+
+def _mesh(n):
+    return make_serve_mesh(data=n, devices=[torch.device("cuda:0")] * n)
+
+
+def _engine(dev, path="q8_0", mesh=None, max_len=24):
+    cfg = get_smoke_config("whisper-tiny")
+    if path == "dense+flash":
+        cfg = dataclasses.replace(cfg, quant="none", attn_impl="flash")
+    params = model.init_params(torch.Generator().manual_seed(0), cfg,
+                               device="cpu")
+    return ServeEngine(cfg, params, max_len=max_len,
+                       quant="q8_0" if path == "q8_0" else "none",
+                       offload=OffloadEngine(), eos_id=-1, device=dev,
+                       mesh=mesh)
+
+
+def _trace(cfg, n=6, seed=0):
+    rng = np.random.default_rng(seed)
+    mels = [rng.standard_normal((1, F, cfg.n_mels)).astype(np.float32)
+            for _ in range(n)]
+    return mels, [int(rng.integers(3, 10)) for _ in range(n)]
+
+
+def _drain(sched, mels, budgets):
+    rids = [sched.submit(m, max_new=n) for m, n in zip(mels, budgets)]
+    got = sched.run()
+    return [got[r].tokens for r in rids]
+
+
+def _launches():
+    return [fn.launches for fn in COUNTED]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("data", [4, 2])
+@pytest.mark.parametrize("path", ["q8_0", "dense+flash"])
+def test_sharded_tokens_equal_the_unsharded_schedulers(path, data):
+    dev = _cuda_or_skip()
+    one = _engine(dev, path)
+    mels, budgets = _trace(one.cfg)
+    want = _drain(one.scheduler(4, F), mels, budgets)
+    eng = _engine(dev, path, _mesh(data))
+    sched = eng.scheduler(4, F)
+    assert _drain(sched, mels, budgets) == want
+    assert sched.pool.n_shards == data and len(sched._programs) == data
+    by_dev = eng.offload.stats.by_device
+    assert sorted(by_dev) == [f"dev{i}" for i in range(data)]
+    s = eng.offload.stats
+    assert sum(by_dev.values()) == \
+        s.offloaded_flops + s.fallback_flops + s.residual_flops
+    assert not set(one._plans.plans) & set(eng._plans.plans)
+
+
+@pytest.mark.gpu
+def test_n_shards_captures_then_none():
+    dev = _cuda_or_skip()
+    eng = _engine(dev, mesh=_mesh(4))
+    mels, budgets = _trace(eng.cfg)
+    sched = eng.scheduler(4, F)
+    _drain(sched, mels, budgets)
+    assert eng._step_captures == 4 and eng._step_builds == 1
+    launches = _launches()
+    again = _drain(sched, mels, budgets)
+    assert eng._step_captures == 4 and _launches() == launches
+    assert again == _drain(_engine(dev).scheduler(4, F), mels, budgets)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("data", [4, 2])
+def test_a_shards_row_is_the_batch1_steps_bit_for_bit(data):
+    """A request's self K/V at its slot after two steps of the sharded
+    pool equal a batch-1 ``transcribe``'s static buffers, bit for bit."""
+    dev = _cuda_or_skip()
+    eng = _engine(dev, mesh=_mesh(data))
+    mels, _ = _trace(eng.cfg)
+    sched = eng.scheduler(4, F)
+    _drain(sched, mels[:3], [2, 2, 2])          # the pool's other rows live
+    rid = sched.submit(mels[3], max_new=2)
+    sched.admit()
+    slot = next(s for s, a in sched._active.items() if a.rid == rid)
+    toks = sched.run()[rid].tokens
+    dev_, row = sched.pool.locate(slot)
+    kv = sched.pool.states[dev_].layer_states.self_kv[-1]
+    assert eng.transcribe(mels[3], max_new=2)[0].tokens == toks
+    st = eng._static[(1, F)].state.layer_states.self_kv[-1]
+    torch.cuda.synchronize()
+    assert torch.equal(kv.k[row, :2], st.k[0, :2])
+    assert torch.equal(kv.v[row, :2], st.v[0, :2])
+
+
+@pytest.mark.gpu
+def test_sharded_paged_pool_matches_unsharded():
+    dev = _cuda_or_skip()
+    one = _engine(dev)
+    mels, budgets = _trace(one.cfg)
+    geom = dict(page_size=4, n_pages=28)
+    want = _drain(one.paged_scheduler(4, F, **geom), mels, budgets)
+    eng = _engine(dev, mesh=_mesh(4))
+    sched = eng.paged_scheduler(4, F, **geom)
+    assert _drain(sched, mels, budgets) == want
+    assert sched.pool.n_shards == 4 and sched.pool.self_alloc.n_shards == 4
+    # the paged step a shard and the batch-1 step (replays)
+    assert eng._step_captures == 4 + 1 and eng._step_builds == 2
+
+
+@pytest.mark.gpu
+def test_a_failing_shard_capture_raises(monkeypatch):
+    """The third shard's capture fails: the admission raises, and no
+    step falls back to eager runs. Last in the file: a failed capture can
+    leave the device's capture state behind."""
+    dev = _cuda_or_skip()
+    eng = _engine(dev, mesh=_mesh(4))
+    real = eng._capture
+    calls = []
+
+    def capture(key, fn, **kw):
+        if key[0] == "step" and key[2] == 4:
+            calls.append(key)
+            if len(calls) == 3:
+                raise RuntimeError("capture failed")
+        return real(key, fn, **kw)
+
+    monkeypatch.setattr(eng, "_capture", capture)
+    mels, budgets = _trace(eng.cfg)
+    sched = eng.scheduler(4, F)
+    sched.submit(mels[0], max_new=2)
+    with pytest.raises(RuntimeError, match="capture failed"):
+        sched.admit()
+    assert not sched._programs and not sched._active

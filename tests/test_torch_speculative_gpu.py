@@ -252,5 +252,6 @@ def test_failed_window_capture_raises_without_fallback():
     mel = np.zeros((1, 64, v.cfg.n_mels), np.float32)
     with pytest.raises(RuntimeError):
         spec.transcribe(mel, max_new=4)
-    assert all(r.programs is None for r in spec._statics.values())
+    assert all(p.rounds.programs is None
+               for parts in spec._statics.values() for p in parts)
     assert v.offload.ledger.commits == 0 and v._verify_captures == 0
