@@ -429,6 +429,32 @@ own kernels with nvcc. Phases, each of which fails the run on error:
     graphs' weight streams; the step's own byte bound, the weights once,
     is the "slot decode step" row's.
 
+19. Training (``train_phase``), after the late kernel rows:
+    a. the forward's logsumexp against its plain version, and
+       ``flash_attention_bwd`` against ``flash_attention_bwd_plain`` at
+       phi3-mini's shape (causal, BH = 64, S = 4096, D = 96, bf16),
+       llava's D = 128, whisper-tiny's encoder (non-causal, BH = 6, 1500
+       frames, f32 and bf16) and D = 16 and 32 (2e-5 of the largest
+       magnitude in f32, 1e-2 in bf16), each launched twice and equal bit
+       for bit; ``_FlashCore``'s gradients against autograd through the
+       plain forward; the backward's row at phi3's shape: device time,
+       plain, the library's (SDPA's backward alone), its bound at the f32
+       FMA rate and at the bf16 one.
+    b. phi3-mini-3.8b at full width through ``Trainer``: bf16, flash,
+       full remat, 4096 tokens x batch 2, bf16 moments, weights drawn on
+       the card; 4 steps, a checkpoint every 2 into a temporary
+       directory: finite losses, 64 forward and 32 backward flash
+       launches a step, step ms (CUDA events), tokens a second, peak
+       memory; step_4 loaded onto the card bit for bit; one more step
+       profiled (the device split into flash forward, flash backward,
+       GEMMs and the rest; J a step at the power limit); a fresh
+       ``Trainer`` restores step_2 and reruns steps 2-3 within 1e-3.
+    c. the CLI: ``launch.train.main`` on whisper-tiny at full width, 4
+       steps, ends with ``final:``.
+    ``train ...`` lines, then ``train phase: N s``. The backward's
+    kernels-line entry sums its row over a training step (32 launches);
+    its ``launches`` are 19b's continuous run's.
+
 The last two lines are the kernels' JSON record and the result line; each
 kernel's record also carries its launches on the tuned paths' eager loops
 (``tuned_launches``), its launches on each path's drive
@@ -437,7 +463,8 @@ pool drives, both paths summed, under "paged", phase 12's captures
 under "speculative", phase 13's captures, every engine's summed, under
 "telemetry", every Python launch of phase 14 under "lm", of phase 15
 under "moe", of phase 16 under "ssm", of phase 17 under "forward", of
-phase 17d under "vlm" and of phases 18 and 14e under "sharded") and its
+phase 17d under "vlm", of phases 18 and 14e under "sharded" and of
+phase 19 under "train") and its
 tiles' times
 (``tiles``).
 
@@ -582,6 +609,10 @@ FLASH_SHAPES = [(6, 1500, 1500, 64, 4, "bfloat16", False)]   # encoder
 # layers each
 FLASH_LLAVA = [(32, 4096, 4096, 128, 32, "bfloat16", True)]
 FLASH_PHI3 = [(32, 4096, 4096, 96, 32, "bfloat16", True)]
+# phase 19: the flash backward of phi3-mini's training step, 32 heads of 96
+# at batch 2 (BH = 64), causal, one launch a layer: (bh, sq, sk, d, dtype,
+# causal, launches a training step)
+FLASH_BWD_PHI3 = [(64, 4096, 4096, 96, "bfloat16", True, 32)]
 # phase 2's rows at the 4096-token forward's shapes, measured last (after
 # phase 17), so that phases 3-16 run after the same phase 2 as before
 # they were added: their plain versions launch some 13,000 kernels a
@@ -656,6 +687,17 @@ KERNELS = {
         library_call="torch.nn.functional.scaled_dot_product_attention on "
                      "the same bf16 q, k, v as (1, BH, S, D) (bf16 output; "
                      "the kernel writes f32)"),
+    # no TPU kernel backs the backward: it replaces the reference's custom
+    # VJP of its flash attention, in plain JAX; its rows are phase 19a's
+    "flash_attention_bwd": dict(
+        source="src/repro_torch/csrc/flash_attention_bwd.cu",
+        replaces="src/repro/models/attention.py:166",
+        shapes={"phi3-mini training step": FLASH_BWD_PHI3},
+        summed=("phi3-mini training step",),
+        library_call="the backward of torch.nn.functional."
+                     "scaled_dot_product_attention on the same bf16 q, k, v "
+                     "and cotangent as (1, BH, S, D), its forward run "
+                     "outside the timed call (torch.autograd.grad)"),
 }
 # the kernels line's top-level times sum these (one prefill + one batch-1
 # decode step, as PERF.md compares across PRs); other rows (the slot step)
@@ -917,7 +959,7 @@ def wall_ms(fn, iters: int = 50) -> float:
 
 def _device_total_us(prof) -> float:
     return sum(getattr(e, "self_device_time_total", 0.0)
-               for e in prof.key_averages())
+               for e in prof.key_averages() if SPIN_KERNEL not in e.key)
 
 
 def device_us(prof) -> float:
@@ -1121,6 +1163,8 @@ def check_kernels(late: bool = False):
     gen = torch.Generator(device="cuda").manual_seed(0)
     records = {}
     for name, meta in KERNELS.items():
+        if name == "flash_attention_bwd":       # phase 19a's rows
+            continue
         rows = []
         for per, shapes in meta["shapes"].items():
             if (per in LATE_ROWS) != late:
@@ -1241,16 +1285,41 @@ def by_route(kernels, routes):
             for route in routes}
 
 
-def where_time_goes(eng, mel, vocab: int, steps: int = PROFILED_STEPS):
+def where_time_goes(eng, mel, vocab: int, steps: int = PROFILED_STEPS,
+                    expect=None):
     """One prefill and ``steps`` decode steps under torch.profiler: device
     time (summed kernel time) against host wall time, the device's idle
     share, and each phase's largest kernels. Returns the summary and each
-    phase's kernels by name (``_by_kernel``, the decode's per step)."""
+    phase's kernels by name (``_by_kernel``, the decode's per step).
+    ``expect`` ({"prefill" or "step": {route: launches}}) holds what the
+    launch counts already fixed: a window whose routes differ from it lost
+    kernel records and is profiled again, REPLAY_PROFILES times at most;
+    the caller checks the last window's routes."""
+    expect = expect or {}
+    for attempt in range(REPLAY_PROFILES):
+        out, pre_kernels, dec_kernels = _profile_eager(eng, mel, vocab,
+                                                       steps)
+        windows = {"prefill": pre_kernels, "step": dec_kernels}
+        seen = {phase: {route: n for route, (n, _) in
+                        by_route(windows[phase], want).items()}
+                for phase, want in expect.items()}
+        if seen == expect:
+            break
+        print(f"eager windows: kernels by route {seen} in profiled window "
+              f"{attempt + 1}, expected {expect}; profiling again",
+              flush=True)
+    print(f"where the time goes (profiled): {json.dumps(out)}", flush=True)
+    return out, pre_kernels, dec_kernels
+
+
+def _profile_eager(eng, mel, vocab: int, steps: int):
+    """``where_time_goes``'s two windows, each opened by a spin kernel."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     mel_t = torch.from_numpy(mel).cuda()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _open_window()
         t0 = time.perf_counter()
         _, state = eng.prefill(mel_t)
         torch.cuda.synchronize()
@@ -1260,6 +1329,7 @@ def where_time_goes(eng, mel, vocab: int, steps: int = PROFILED_STEPS):
     pre_kernels = _by_kernel(prof)
     tok = torch.full((1, 1), 1, device="cuda")
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _open_window()
         t0 = time.perf_counter()
         for _ in range(steps):
             logits, state = eng.step(tok, state)
@@ -1274,7 +1344,6 @@ def where_time_goes(eng, mel, vocab: int, steps: int = PROFILED_STEPS):
                decode_device_ms_per_step=dec_dev,
                decode_idle_share=1 - dec_dev / dec_wall,
                decode_top_kernels=_top_kernels(prof, steps, 8))
-    print(f"where the time goes (profiled): {json.dumps(out)}", flush=True)
     return out, pre_kernels, _by_kernel(prof, steps)
 
 
@@ -1351,12 +1420,14 @@ def main_path():
     if int(card_logits[0, -1, :cfg.vocab_size].argmax()) != tokens[0]:
         raise AssertionError("first-step argmax differs from the loop's")
     err = check_against_cpu(cfg, params_cpu, mel, card_logits, sot)
-    split, pre_kernels, _ = where_time_goes(eng, mel, cfg.vocab_size)
+    want = {"q8_wgmma_kernel": 32, "q8_matmul_kernel": 0}
+    split, pre_kernels, _ = where_time_goes(eng, mel, cfg.vocab_size,
+                                            expect={"prefill": want})
     routes = {route: launches for route, (launches, _) in by_route(
-        pre_kernels, ("q8_wgmma_kernel", "q8_matmul_kernel")).items()}
+        pre_kernels, want).items()}
     print(f"main path prefill q8_matmul launches by kernel: {routes}",
           flush=True)
-    if routes != {"q8_wgmma_kernel": 32, "q8_matmul_kernel": 0}:
+    if routes != want:
         raise AssertionError(f"prefill q8_matmul kernels {routes}: expected "
                              "32 tensor-core launches and no SIMT one")
     return launches, dict(prefill_ms=prefill_s * 1e3,
@@ -1474,12 +1545,14 @@ def dense_flash_path():
         raise AssertionError("first-step argmax differs from the loop's")
     err = check_against_cpu(cfg, params_cpu, mel, card_logits, sot,
                             tol=DENSE_FIRST_STEP_TOL)
-    split, _, dec_kernels = where_time_goes(eng, mel, cfg.vocab_size)
-    routes = by_route(dec_kernels, ("gemv_bf16_kernel", "matvec_kernel"))
+    want_step = {"gemv_bf16_kernel": 33, "matvec_kernel": 0}
+    split, _, dec_kernels = where_time_goes(eng, mel, cfg.vocab_size,
+                                            expect={"step": want_step})
+    routes = by_route(dec_kernels, want_step)
     print(f"dense decode step bf16_matmul by kernel (launches, device ms "
           f"per step): {routes}", flush=True)
-    if {route: launches for route, (launches, _) in routes.items()} != {
-            "gemv_bf16_kernel": 33, "matvec_kernel": 0}:
+    if {route: launches for route, (launches, _) in routes.items()} != \
+            want_step:
         raise AssertionError(f"decode-step bf16_matmul kernels {routes}: "
                              "expected 33 gemv_bf16_kernel launches a step "
                              "and no matvec_kernel")
@@ -3508,11 +3581,19 @@ def telemetry_gate(q8_eng, counted):
             s._token[:, 0].tolist()
             bare[mode].append(time.perf_counter() - t0)
     bare_gap, bare_med, _ = _overhead(bare)
-    kernels = {mode: {k: v[0] for k, v in
-                      _profile_slot_steps(scheds[mode])[0].items()}
-               for mode in scheds}
-    matvec = sum(n for k, n in kernels["on"].items()
-                 if "q8_matvec_kernel" in k)
+    # each pool's slot step under the profiler; windows whose kernels
+    # differ lost records and are profiled again
+    for attempt in range(REPLAY_PROFILES):
+        kernels = {mode: {k: v[0] for k, v in
+                          _profile_slot_steps(scheds[mode])[0].items()}
+                   for mode in scheds}
+        matvec = sum(n for k, n in kernels["on"].items()
+                     if "q8_matvec_kernel" in k)
+        if kernels["on"] == kernels["off"] and matvec == 33:
+            break
+        print(f"telemetry gate: replayed slot step kernels on and off "
+              f"differ or {matvec} q8_matvec_kernel in profiled window "
+              f"{attempt + 1}; profiling again", flush=True)
     tele = engines["on"].telemetry
     record = _tele_checks(tele, "gate q8_0", range(
         TE_WARM + TE_ROUNDS * TE_REQUESTS))
@@ -4514,7 +4595,7 @@ def lm_sharded(eng, counted, total, sharded, sched_out):
     import torch
     from repro_torch.core.offload import OffloadEngine
     from repro_torch.serve.engine import ServeEngine
-    from repro_torch.sharding.rules import tree_leaves
+    from repro_torch.core.tree import leaves as tree_leaves
 
     prompts, budgets, streams = sched_out.pop("trace")
     n = LM_SHARD_DATA
@@ -5734,6 +5815,501 @@ def forward_phase(counted):
     return total, served, summary
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: training
+# ---------------------------------------------------------------------------
+# 19b: phi3-mini-3.8b at its published widths (configs/phi3_mini_3_8b.py:
+# 32 layers, d_model 3072, 32 heads of 96, d_ff 8192, vocabulary 32,064),
+# bf16, flash attention, full remat, TRAIN_4K's 4096 tokens at a global
+# batch of 2, one microbatch, weights drawn on the card from TRAIN_SEED.
+# The AdamW moments are kept in bf16: two checkpoints of f32 moments (38 GB
+# each) would not fit the 75 GB the card's machine has free on disk
+TRAIN_ARCH = "phi3-mini-3.8b"
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS, TRAIN_CKPT_EVERY = 4096, 2, 4, 2
+TRAIN_SEED = 0
+TRAIN_STATE_DTYPE = "bfloat16"
+# the resumed run's losses against the continuous run's: the embedding's
+# backward (index_add_ with atomics on the card) sums in a scheduling order
+TRAIN_RESUME_TOL = 1e-3
+# a full-width step's gradients through the flash kernels against those of
+# attn_impl="chunked" (no flash kernel) on the same parameters and batch:
+# each leaf's ||g - g_chunked|| / ||g_chunked||. Both run in bf16, whose
+# rounding (2^-8) the two attentions take at different places; a wrong
+# backward (a missing or misplaced dq, dk or dv) moves the attention
+# weights' gradients by their own size
+TRAIN_GRAD_TOL = 5e-2
+# then a few steps on one fixed batch at the reference's default lr
+# (OptimizerConfig.lr, no warmup), whose loss must fall at every step
+TRAIN_DESCENT_STEPS, TRAIN_DESCENT_LR = 3, 3e-4
+# flash backward kernel vs plain, of each output's largest magnitude: f32
+# sums in another order; in bf16 the outputs round to bf16 (2^-8) after
+# sums that may differ in their last f32 bits
+FLASH_BWD_TOL = {"float32": 2e-5, "bfloat16": 1e-2}
+# 19a checks: llava's head size 128 (causal, BH = 32), whisper-tiny's
+# encoder (non-causal, 6 heads of 64, 1500 frames: ragged against 64) in
+# f32 and bf16, and the head sizes 16 and 32 (ragged, cross lengths)
+FLASH_BWD_CHECKS = [
+    (64, 4096, 4096, 96, "bfloat16", True),
+    (32, 4096, 4096, 128, "bfloat16", True),
+    (6, 1500, 1500, 64, "float32", False),
+    (6, 1500, 1500, 64, "bfloat16", False),
+    (3, 101, 101, 16, "bfloat16", True),
+    (3, 45, 200, 16, "float32", False),
+    (2, 150, 77, 32, "float32", False),
+    (2, 129, 129, 32, "bfloat16", True),
+]
+FLASH_LSE_TOL = 1e-5            # of max(1, |lse|): the card's exp and log
+FLASH_CORE_TOL = {"float32": 2e-5, "bfloat16": 1e-2}
+# kernel names of the step's device split
+TRAIN_SPLIT_WORDS = (("flash_fwd", ("flash_fwd",)),
+                     ("flash_bwd", ("flash_bwd",)),
+                     ("gemm", LIBRARY_WORDS))
+
+
+def _flash_bwd_case(gen, bh, sq, sk, d, dt, causal):
+    """The backward's operands at one shape, the forward's output and
+    logsumexp from the kernel, and the library's backward: SDPA's on the
+    same bf16 q, k, v and cotangent, its forward run once outside the
+    timed call. Bytes: q, k, v, out, dout and lse read once, dq, dk, dv
+    written once; operations: the five contractions of 2 D FLOPs a
+    query-key pair the mask leaves."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    dtype = getattr(torch, dt)
+    q, k, v = (torch.randn((bh, s, d), generator=gen, device="cuda").to(
+        dtype) for s in (sq, sk, sk))
+    dout = torch.randn((bh, sq, d), generator=gen, device="cuda").to(dtype)
+    out, lse = flash_attention_fwd(q, k, v, causal=causal, return_lse=True)
+    out = out.to(dtype)
+    size = q.element_size()
+    moved = (3 * bh * sq * d + 2 * bh * sk * d) * size + bh * sq * 4 \
+        + (bh * sq * d + 2 * bh * sk * d) * size
+    pairs = (sum(min(i + 1, sk) for i in range(sq)) if causal
+             else sq * sk)
+    q4, k4, v4 = (t.detach().clone()[None].requires_grad_(True)
+                  for t in (q, k, v))
+    o4 = torch.nn.functional.scaled_dot_product_attention(q4, k4, v4,
+                                                          is_causal=causal)
+    g4 = dout[None]
+
+    def library():
+        return torch.autograd.grad(o4, (q4, k4, v4), g4, retain_graph=True)
+    return (q, k, v, out, dout, lse), library, moved, 10 * bh * pairs * d
+
+
+def _bwd_err(got, want):
+    """The largest of the three outputs' max |kernel - plain|, each over
+    its plain output's largest magnitude."""
+    return max(((g.float() - w.float()).abs().max()
+                / w.float().abs().max().clamp(min=1e-30)).item()
+               for g, w in zip(got, want))
+
+
+def train_kernel_checks():
+    """Phase 19a: the forward's logsumexp against its plain version, the
+    backward against its plain version at FLASH_BWD_CHECKS (two launches
+    bit for bit equal), ``_FlashCore``'s gradients against autograd
+    through the plain forward, and the backward's row at phi3-mini's
+    shape: device time, plain time, the library's backward (SDPA's, timed
+    without its forward), the bound at the card's peak rate for the
+    operands' type (bf16's tensor-core rate) and, beside it, at the f32
+    FMA rate the SIMT kernel runs on (67 TFLOP/s)."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.attention import _flash_attention, \
+        _repeat_kv_heads
+
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    for bh, sq, sk, d, dt, causal in FLASH_BWD_CHECKS:
+        args, *_ = _flash_bwd_case(gen, bh, sq, sk, d, dt, causal)
+        q, k, v, out, dout, lse = args
+        _, lse_want = fa.flash_attention_fwd_plain(q, k, v, causal=causal,
+                                                   return_lse=True)
+        lse_err = (lse - lse_want).abs().max().item()
+        got = fa.flash_attention_bwd(*args, causal=causal)
+        again = fa.flash_attention_bwd(*args, causal=causal)
+        want = fa.flash_attention_bwd_plain(*args, causal=causal)
+        torch.cuda.synchronize()
+        err = _bwd_err(got, want)
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        print(f"check flash_attention_bwd bh={bh} sq={sq} sk={sk} d={d} "
+              f"{dt} causal={causal}: rel_err={err:.3e} (tolerance "
+              f"{FLASH_BWD_TOL[dt]}), repeat_bitwise={same}; lse "
+              f"max_abs_err={lse_err:.3e}", flush=True)
+        if not err <= FLASH_BWD_TOL[dt]:
+            raise AssertionError(f"flash_attention_bwd {bh, sq, sk, d, dt}: "
+                                 f"relative error {err}")
+        if not same:
+            raise AssertionError("flash_attention_bwd: two launches differ")
+        if not lse_err <= FLASH_LSE_TOL * max(
+                1.0, lse_want.abs().max().item()):
+            raise AssertionError(f"flash_attention_fwd lse: {lse_err}")
+        del args, got, again, want
+
+    for dt in ("float32", "bfloat16"):
+        b, s, hq, hkv, d = 2, 256, 4, 2, 96
+        leaves = [torch.randn(shape, generator=gen, device="cuda").to(
+            getattr(torch, dt)) for shape in ((b, s, hq, d), (b, s, hkv, d),
+                                              (b, s, hkv, d))]
+        w = torch.randn((b, s, hq, d), generator=gen, device="cuda")
+
+        def grads(fn):
+            q, k, v = (t.clone().requires_grad_(True) for t in leaves)
+            return torch.autograd.grad((fn(q, k, v).float() * w).sum(),
+                                       (q, k, v))
+
+        def plain(q, k, v):
+            k, v = _repeat_kv_heads(k, hq), _repeat_kv_heads(v, hq)
+
+            def fold(t):
+                return t.transpose(1, 2).reshape(b * hq, s, d)
+            o = fa.flash_attention_fwd_plain(fold(q), fold(k), fold(v),
+                                             causal=True).to(q.dtype)
+            return o.reshape(b, hq, s, d).transpose(1, 2)
+        got = grads(lambda q, k, v: _flash_attention(q, k, v, causal=True))
+        err = _bwd_err(got, grads(plain))
+        print(f"check _FlashCore gradients {dt} (B={b} S={s} Hq={hq} "
+              f"Hkv={hkv} D={d}, causal) against autograd through the plain "
+              f"forward: rel_err={err:.3e} (tolerance {FLASH_CORE_TOL[dt]})",
+              flush=True)
+        if not err <= FLASH_CORE_TOL[dt]:
+            raise AssertionError(f"_FlashCore gradients {dt}: {err}")
+
+    rows = []
+    for bh, sq, sk, d, dt, causal, count in FLASH_BWD_PHI3:
+        args, library, moved, flops = _flash_bwd_case(gen, bh, sq, sk, d,
+                                                      dt, causal)
+
+        def kernel():
+            return fa.flash_attention_bwd(*args, causal=causal)
+
+        def plain():
+            return fa.flash_attention_bwd_plain(*args, causal=causal)
+        got, want = kernel(), plain()
+        err = _bwd_err(got, want)
+        abs_err = max((g.float() - w.float()).abs().max().item()
+                      for g, w in zip(got, want))
+        del got, want
+        if not err <= FLASH_BWD_TOL[dt]:
+            raise AssertionError(f"flash_attention_bwd row: {err}")
+        bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+        ops_ms = flops / FLOPS_PER_S[dt] * 1e3
+        b_ms, b_by = bound(bytes_ms, ops_ms)
+        timed = {"ms": device_ms(kernel, iters=5),
+                 "plain_ms": device_ms(plain, iters=2),
+                 "library_ms": device_ms(library, iters=5)}
+        row = dict(max_abs_err=abs_err, rel_err=err, bytes=moved,
+                   flops=flops,
+                   bytes_ms=bytes_ms, ops_ms=ops_ms,
+                   wall_ms=wall_ms(kernel, iters=5), bound_ms=b_ms,
+                   bound_by=b_by,
+                   bound_f32_simt_ms=max(bytes_ms, flops / FLOPS_PER_S[
+                       "float32"] * 1e3),
+                   **{key: ms for key, (ms, _) in timed.items()},
+                   ms_source={key: src for key, (_, src) in timed.items()},
+                   bh=bh, sq=sq, sk=sk, d=d, dtype=dt, causal=causal,
+                   per="phi3-mini training step", per_step=count)
+        print(f"kernel flash_attention_bwd bh={bh} sq={sq} sk={sk} d={d} "
+              f"{dt} causal={causal} x{count} per training step: "
+              f"rel_err={err:.3e} ms={row['ms']:.5f} "
+              f"wall_ms={row['wall_ms']:.5f} plain_ms={row['plain_ms']:.5f} "
+              f"library_ms={row['library_ms']:.5f} bound_ms="
+              f"{row['bound_ms']:.5f} ({b_by}, {dt}) bound_f32_simt_ms="
+              f"{row['bound_f32_simt_ms']:.5f}", flush=True)
+        rows.append(row)
+        del args, library
+    return rows
+
+
+def _train_grad_check(cfg, params, batch):
+    """One step's gradients at ``params`` on ``batch`` through the flash
+    kernels against ``attn_impl="chunked"``'s, leaf by leaf. Returns the
+    two losses and, for the leaf whose relative difference is largest, its
+    path, that ratio (the L2 norm of the difference over the chunked
+    gradient's) and the cosine of the two gradients."""
+    import dataclasses
+
+    import torch
+    from repro_torch.core import tree
+    from repro_torch.train.step import value_and_grad
+
+    loss, _, grads = value_and_grad(cfg, params, batch)
+    paths = []
+    tree.map_with_path(lambda p, x: paths.append("/".join(p)), grads)
+    got = tree.leaves(grads)
+    del grads
+    ref_loss, _, ref = value_and_grad(
+        dataclasses.replace(cfg, attn_impl="chunked"), params, batch)
+    worst = dict(rel_l2=-1.0)
+    for path, g, r in zip(paths, got, tree.leaves(ref), strict=True):
+        g, r = g.float(), r.float()
+        rel = ((g - r).norm() / r.norm().clamp(min=1e-30)).item()
+        if rel > worst["rel_l2"]:
+            cos = (g * r).sum() / (g.norm() * r.norm()).clamp(min=1e-30)
+            worst = dict(leaf=path, rel_l2=rel, cosine=cos.item())
+    del got, ref
+    return dict(loss=loss.item(), chunked_loss=ref_loss.item(), **worst)
+
+
+def _train_split(prof):
+    """One profiled step's device time by kind: the flash forward
+    (recompute included), the flash backward, the GEMMs (cuBLAS's), and
+    the rest; with each kind's launches."""
+    split = {name: [0, 0.0] for name, _ in TRAIN_SPLIT_WORDS}
+    split["rest"] = [0, 0.0]
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", 0.0)
+        if not us > 0 or SPIN_KERNEL in e.key:
+            continue
+        kind = next((name for name, words in TRAIN_SPLIT_WORDS
+                     if any(w in e.key for w in words)), "rest")
+        split[kind][0] += e.count
+        split[kind][1] += us / 1e3
+    return {k: {"launches": n, "device_ms": ms} for k, (n, ms)
+            in split.items()}
+
+
+def train_phase():
+    """Phase 19: 19a the kernels (``train_kernel_checks``); 19b phi3-mini
+    at full width through ``Trainer``: TRAIN_STEPS steps with checkpoints
+    every TRAIN_CKPT_EVERY into a temporary directory (finite losses; the
+    flash backward launched once a layer a step; step ms by CUDA events,
+    tokens a second, peak memory; step_4 loaded back bit for bit; one
+    more step profiled: the device split; J a step at the power limit;
+    that step's gradients against chunked attention's within
+    TRAIN_GRAD_TOL, and the loss on its batch falling over
+    TRAIN_DESCENT_STEPS steps), then a fresh ``Trainer`` restored from step_2 reruns steps 2-3 within
+    TRAIN_RESUME_TOL; 19c the CLI: whisper-tiny at full width, 4 steps,
+    prints ``final:``. Returns (the kernel rows, the main path's launches,
+    the phase's launches, its summary)."""
+    import contextlib
+    import dataclasses
+    import io
+    import shutil
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import (
+        OptimizerConfig, RunConfig, ShapeConfig)
+    from repro_torch.core import energy, tree
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import train as train_cli
+    from repro_torch.train import checkpoint as ckpt_lib
+    from repro_torch.train.step import make_train_step
+    from repro_torch.train.trainer import Trainer
+
+    counted = {"flash_attention_fwd": fa.flash_attention_fwd,
+               "flash_attention_bwd": fa.flash_attention_bwd}
+    t0 = time.perf_counter()
+    summary = {"memory_at_start": release_memory("train phase")}
+    rows = train_kernel_checks()
+    summary["kernels_s"] = time.perf_counter() - t0
+    print(f"train phase 19a: {summary['kernels_s']:.1f}s", flush=True)
+
+    t1 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), dtype="bfloat16",
+                              param_dtype="bfloat16", quant="none",
+                              attn_impl="flash", remat="full")
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    run = RunConfig(model=cfg,
+                    shape=ShapeConfig("train_4k_b2", TRAIN_SEQ, TRAIN_BATCH,
+                                      "train"),
+                    optimizer=OptimizerConfig(lr=1e-4, warmup_steps=2,
+                                              total_steps=100,
+                                              state_dtype=TRAIN_STATE_DTYPE),
+                    seed=TRAIN_SEED, steps=TRAIN_STEPS,
+                    checkpoint_every=TRAIN_CKPT_EVERY,
+                    checkpoint_dir=ckpt_dir)
+    try:
+        events = []
+
+        def mark(step):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events.append(ev)
+
+        tr = Trainer(run, device="cuda", fault_hook=mark)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero(counted)
+        tr.train()
+        mark(TRAIN_STEPS)
+        torch.cuda.synchronize()
+        launches = _read(counted)
+        peak = torch.cuda.max_memory_allocated()
+        losses = [h["loss"] for h in tr.history]
+        step_ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+        print(f"train {TRAIN_ARCH}: {cfg.n_params() / 1e9:.3f} B params, "
+              f"seq {TRAIN_SEQ} x batch {TRAIN_BATCH}, losses {losses}, "
+              f"step_ms (CUDA events, a step's window holds the checkpoint "
+              f"saved after it) {step_ms}, host dt_s "
+              f"{[h['dt_s'] for h in tr.history]}, peak_bytes {peak}, "
+              f"launches {launches}", flush=True)
+        if not all(map(lambda x: x == x and abs(x) != float("inf"),
+                       losses)):
+            raise AssertionError(f"non-finite training losses {losses}")
+        want = {"flash_attention_fwd": 2 * cfg.num_layers * TRAIN_STEPS,
+                "flash_attention_bwd": cfg.num_layers * TRAIN_STEPS}
+        if launches != want:
+            raise AssertionError(f"training launches {launches}, expected "
+                                 f"{want} (forward and its recompute, one "
+                                 "backward a layer a step)")
+        # steps 0 and 2 save nothing: step 2 is the steady one
+        steady_ms = step_ms[2]
+        power_w = energy.card_power_limit_w(0)
+        summary["train"] = dict(
+            arch=TRAIN_ARCH, n_params=cfg.n_params(), seq=TRAIN_SEQ,
+            batch=TRAIN_BATCH, moments=TRAIN_STATE_DTYPE, losses=losses,
+            step_ms_events=step_ms, step_ms=steady_ms,
+            tokens_per_s=TRAIN_SEQ * TRAIN_BATCH / (steady_ms / 1e3),
+            peak_bytes=peak, power_limit_w=power_w,
+            j_per_step_at_limit=power_w * steady_ms / 1e3,
+            host_dt_s=[h["dt_s"] for h in tr.history],
+            grad_norms=[h["grad_norm"] for h in tr.history])
+
+        # step_4 loaded onto the card beside the live state (a template of
+        # meta leaves, so nothing is overwritten) and compared byte for byte
+        t2 = time.perf_counter()
+        last = ckpt_lib.latest_checkpoint(ckpt_dir)
+        template = tree.map_with_path(
+            lambda _, t: torch.empty(t.shape, dtype=t.dtype, device="meta"),
+            tr.state)
+        loaded, manifest = ckpt_lib.load_checkpoint(last, template,
+                                                    device="cuda")
+        n_bytes = 0
+        for a, b in zip(tree.leaves(tr.state), tree.leaves(loaded),
+                        strict=True):
+            if not (a.dtype == b.dtype and torch.equal(
+                    a.reshape(-1).view(torch.uint8),
+                    b.reshape(-1).view(torch.uint8))):
+                raise AssertionError("checkpoint round trip changed a leaf")
+            n_bytes += b.numel() * b.element_size()
+        del loaded, template
+        summary["train"]["checkpoint_bytes"] = n_bytes
+        summary["train"]["checkpoint_load_s"] = time.perf_counter() - t2
+        print(f"train checkpoint {os.path.basename(last)} "
+              f"(cursor {manifest['cursor']}): {n_bytes / 1e9:.3f} GB "
+              f"round-trips bit for bit, loaded in "
+              f"{summary['train']['checkpoint_load_s']:.1f}s", flush=True)
+
+        batch = tr.stream.batch_at(TRAIN_STEPS)
+        tr._step_fn(tr.state, batch)          # warm, outside the window
+        torch.cuda.synchronize()
+        # a window whose flash launches differ from the step's lost kernel
+        # records and is profiled again (a step's launches are fixed)
+        want = {"flash_bwd": 3 * cfg.num_layers,
+                "flash_fwd": 2 * cfg.num_layers}
+        for attempt in range(REPLAY_PROFILES):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                _open_window()
+                tr.state, _ = tr._step_fn(tr.state, batch)
+                torch.cuda.synchronize()
+            split = _train_split(prof)
+            del prof
+            seen = {k: split[k]["launches"] for k in want}
+            if seen == want:
+                break
+            print(f"train step: flash launches {seen} in profiled window "
+                  f"{attempt + 1}, expected {want}; profiling again",
+                  flush=True)
+        device = sum(v["device_ms"] for v in split.values())
+        bwd_ms = split["flash_bwd"]["device_ms"]
+        row = rows[0]
+        summary["train"].update(
+            device_split=split, device_ms=device,
+            flash_bwd_ms_a_step=bwd_ms,
+            flash_bwd_bound_ms_a_step=row["bound_ms"] * row["per_step"],
+            flash_bwd_bound_f32_simt_ms_a_step=row["bound_f32_simt_ms"]
+            * row["per_step"],
+            flash_bwd_library_ms_a_step=row["library_ms"] * row["per_step"])
+        print(f"train step device split (torch.profiler, one step): "
+              f"{json.dumps(split)}; device_ms={device:.3f}; flash backward "
+              f"{bwd_ms:.3f} ms a step against its bound "
+              f"{row['bound_ms'] * row['per_step']:.3f} ms (bf16) and "
+              f"the library's {row['library_ms'] * row['per_step']:.3f} ms",
+              flush=True)
+        if seen != want:
+            raise AssertionError(f"profiled step's flash kernels {split}: "
+                                 "expected 3 backward kernels and 2 forward "
+                                 "launches a layer")
+
+        # is the step right? its gradients against attn_impl="chunked"'s,
+        # then TRAIN_DESCENT_STEPS steps on that one batch at the
+        # reference's lr: the loss must fall
+        t4 = time.perf_counter()
+        grad_check = _train_grad_check(cfg, tr.state.params, batch)
+        print(f"train gradients, flash against chunked attention at full "
+              f"width (one step, the worst leaf): {json.dumps(grad_check)} "
+              f"(tolerance {TRAIN_GRAD_TOL})", flush=True)
+        if not grad_check["rel_l2"] <= TRAIN_GRAD_TOL:
+            raise AssertionError(f"training gradients: {grad_check}")
+        descent_fn = make_train_step(cfg, dataclasses.replace(
+            run.optimizer, lr=TRAIN_DESCENT_LR, warmup_steps=0))
+        descent = []
+        for _ in range(TRAIN_DESCENT_STEPS):
+            tr.state, m = descent_fn(tr.state, batch)
+            descent.append(float(m["loss"]))
+        print(f"train descent: {TRAIN_DESCENT_STEPS} steps on one batch at "
+              f"lr {TRAIN_DESCENT_LR}: losses {descent}", flush=True)
+        if not all(a > b for a, b in zip(descent, descent[1:])):
+            raise AssertionError(f"the loss on one fixed batch did not fall "
+                                 f"at every step: {descent}")
+        summary["train"].update(grad_check=grad_check,
+                                descent_losses=descent,
+                                check_s=time.perf_counter() - t4)
+        del tr, batch
+        release_memory("train resume")
+
+        # a fresh Trainer restores step_2 (the continuous run's last
+        # checkpoint is moved out of its way) and reruns steps 2-3
+        shutil.rmtree(last)
+        tr2 = Trainer(run, device="cuda")
+        tr2.train()
+        resumed = {h["step"]: h["loss"] for h in tr2.history}
+        print(f"train resume from step_2: losses {resumed} against the "
+              f"continuous run's {losses[2:]}", flush=True)
+        if sorted(resumed) != [2, 3]:
+            raise AssertionError(f"resumed steps {sorted(resumed)}")
+        for s in (2, 3):
+            if not abs(resumed[s] - losses[s]) <= TRAIN_RESUME_TOL * abs(
+                    losses[s]):
+                raise AssertionError(f"resumed loss at step {s}: "
+                                     f"{resumed[s]} vs {losses[s]}")
+        summary["train"]["resumed_losses"] = [resumed[2], resumed[3]]
+        del tr2
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    release_memory("train cli")
+    summary["trainer_s"] = time.perf_counter() - t1
+    print(f"train phase 19b: {summary['trainer_s']:.1f}s", flush=True)
+
+    t3 = time.perf_counter()
+    cli_dir = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    before = _read(counted)
+    try:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = train_cli.main(["--arch", "whisper-tiny", "--full",
+                                 "--steps", "4", "--ckpt-every", "2",
+                                 "--ckpt-dir", cli_dir])
+        text = buf.getvalue().strip()
+    finally:
+        shutil.rmtree(cli_dir, ignore_errors=True)
+    cli = {k: v - before[k] for k, v in _read(counted).items()}
+    print(f"train cli (whisper-tiny --full, 4 steps): rc={rc} "
+          f"{text.splitlines()[-1] if text else ''}; launches {cli}",
+          flush=True)
+    if rc != 0 or not text.splitlines()[-1].startswith("final:"):
+        raise AssertionError(f"training CLI: rc={rc}, output {text!r}")
+    summary["cli_s"] = time.perf_counter() - t3
+    total = {k: launches[k] + cli[k] for k in counted}
+    print(f"train phase: {time.perf_counter() - t0:.1f}s; launches {total}",
+          flush=True)
+    return rows, launches, total, summary
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5900,15 +6476,23 @@ def main() -> int:
     for name, rows in check_kernels(late=True).items():
         records[name] += rows
     print(f"late kernel rows: {time.perf_counter() - t0:.1f}s", flush=True)
+    records["flash_attention_bwd"], train_main, path_launches["train"], \
+        train_summary = train_phase()
+    # a new dict: path_launches["main"] keeps the whisper main path's
+    launches = dict(launches,
+                    flash_attention_bwd=train_main["flash_attention_bwd"])
+    print(f"train summary: {json.dumps(train_summary)}", flush=True)
 
     kernels = []
     for name, meta in KERNELS.items():
         rows = records[name]
 
+        summed = meta.get("summed", SUMMED)
+
         def total(key, per=None):   # over one prefill and/or decode step
             return sum(r[key] * r["per_step"] for r in rows
                        if r["per"] == per or (per is None
-                                              and r["per"] in SUMMED))
+                                              and r["per"] in summed))
         b_ms, b_by = bound(total("bytes_ms"), total("ops_ms"))
         # further yardsticks' times (bf16_matmul's bf16-output call)
         extras = [key for key in rows[0]
@@ -5921,10 +6505,10 @@ def main() -> int:
             bound_ms=b_ms, bound_by=b_by,
             library_ms=total("library_ms"),
             library_call=meta["library_call"],
-            per=" + one ".join(p for p in meta["shapes"] if p in SUMMED),
+            per=" + one ".join(p for p in meta["shapes"] if p in summed),
             ms_source={key: sorted({r["ms_source"][key] for r in rows})
                        for key in ("ms", "plain_ms", "library_ms", *extras)},
-            tuned_launches=tuned_launches[name],
+            tuned_launches=tuned_launches.get(name, 0),
             launches_by_path={path: got.get(name, 0)
                               for path, got in path_launches.items()},
             tiles=tile_records.get(name, []),

@@ -14,7 +14,9 @@ mixer (``reduced`` and the parameter count read them too).
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+import os
+import tempfile
+from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
 DENSE = "dense"
@@ -103,6 +105,10 @@ class ModelConfig:
 
     quant: str = "none"          # none | q8_0  (weights for the serving path)
     burst: int = 256
+
+    # training: the activation checkpoint policy of each layer-pattern
+    # repeat (none | full | dots)
+    remat: str = "full"
     # encoder attention: "chunked" (q-chunked full-row softmax) | "flash"
     # (k-blocked online softmax on the flash_attention_fwd kernel)
     attn_impl: str = "chunked"
@@ -119,6 +125,9 @@ class ModelConfig:
         if self.attn_impl not in ("chunked", "flash"):
             raise ValueError(f"attn_impl {self.attn_impl!r}: 'chunked' or "
                              "'flash'")
+        if self.remat not in ("none", "full", "dots"):
+            raise ValueError(f"remat {self.remat!r}: 'none', 'full' or "
+                             "'dots'")
         if self.kv_quant not in ("none", "q8"):
             raise ValueError(f"kv_quant {self.kv_quant!r}: 'none' or 'q8'")
         if self.family == MOE and self.moe is None:
@@ -209,6 +218,47 @@ class ModelConfig:
         return terms
 
 
+# ---------------------------------------------------------------------------
+# The training run's input shape and settings
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                    # train | prefill | decode
+
+
+@dataclass(frozen=True)
+class OptimizerConfig:
+    lr: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    weight_decay: float = 0.1
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    grad_compress: str = "none"  # none | int8_ef
+    # moment storage: float32 | bfloat16 | q8_0 (blocks of 32 int8 values
+    # with an fp16-valued scale, ``core.qformats``)
+    state_dtype: str = "float32"
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    model: ModelConfig
+    shape: ShapeConfig
+    optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
+    seed: int = 0
+    steps: int = 100
+    checkpoint_every: int = 50
+    # the reference's /tmp/repro_ckpt, under the process's temp directory
+    checkpoint_dir: str = field(default_factory=lambda: os.path.join(
+        tempfile.gettempdir(), "repro_ckpt"))
+    max_restarts: int = 3
+
+
 def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
     """Family-preserving reduction for smoke tests, the same cut as the
     reference's ``reduced``: tiny layers, width, heads (the GQA ratio
@@ -246,6 +296,7 @@ def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
         vision_embed_dim=min(cfg.vision_embed_dim, 32),
         dtype="float32", param_dtype="float32",
         quant=cfg.quant, burst=128,
+        remat="none",
     )
     if cfg.moe is not None:
         base["moe"] = MoEConfig(

@@ -16,6 +16,13 @@ port is repeat ``i // P`` of position ``i % P``. A MoE layer's leaves
 any other: a hybrid's pattern mixes both kinds of position. A VLM's
 ``projector`` (``w`` (d_model, E_vis) and its bias ``b``) is unstacked and
 crosses as it is. Tests use it to run both packages on identical weights.
+
+``from_jax_train_state`` carries a reference ``TrainState`` (numpy leaves)
+across: its params, the AdamW moments ``mu`` and ``nu`` (trees shaped like
+the params, Q8_0 moment leaves included: the reference's ``QTensor``, any
+NamedTuple of ``qs`` and ``scales``, becomes the port's), the step
+``count``, the error-feedback tree (a scalar accumulator, never stacked,
+is every layer's), and a seed in place of the reference's key.
 """
 from __future__ import annotations
 
@@ -23,6 +30,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.device import resolve_device
+from repro_torch.core.qformats import QTensor
 
 STACKED = ("enc_blocks", "dec_blocks")
 
@@ -31,25 +39,39 @@ def _tensor(a) -> torch.Tensor:
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":        # ml_dtypes' bfloat16: reinterpret
         return torch.from_numpy(
-            np.ascontiguousarray(a).view(np.uint16)).view(torch.bfloat16)
+            np.array(a).view(np.uint16)).view(torch.bfloat16)
     return torch.from_numpy(np.array(a))
+
+
+def _is_q(x) -> bool:
+    return isinstance(x, tuple) and getattr(x, "_fields", None) == (
+        "qs", "scales")
 
 
 def _convert(tree, device):
     if isinstance(tree, dict):
         return {k: _convert(v, device) for k, v in tree.items()}
+    if _is_q(tree):
+        return QTensor(_tensor(tree.qs).to(device),
+                       _tensor(tree.scales).to(device))
     return _tensor(tree).to(device)
 
 
 def _unstack(tree, i: int):
     if isinstance(tree, dict):
         return {k: _unstack(v, i) for k, v in tree.items()}
+    if _is_q(tree):
+        return type(tree)(tree.qs[i], tree.scales[i])
+    if np.ndim(tree) == 0:          # an unstacked scalar: every layer's
+        return tree
     return tree[i]
 
 
 def _layers(tree) -> int:
     while isinstance(tree, dict):
         tree = next(iter(tree.values()))
+    if _is_q(tree):
+        tree = tree.qs
     return np.asarray(tree).shape[0]
 
 
@@ -72,3 +94,20 @@ def from_jax_params(tree: dict, *, device="cuda") -> dict:
         else:
             out[key] = _convert(sub, dev)
     return out
+
+
+def from_jax_train_state(state, *, seed: int = 0, device="cuda"):
+    """A reference ``TrainState`` (numpy leaves; its ``opt`` an
+    ``AdamWState`` of mu, nu and count) -> the port's ``TrainState``, the
+    seed ``seed`` in place of the reference's key."""
+    from repro_torch.optim.adamw import AdamWState
+    from repro_torch.train.step import TrainState
+    dev = resolve_device(device)
+    opt = state.opt
+    return TrainState(
+        params=from_jax_params(state.params, device=dev),
+        opt=AdamWState(from_jax_params(opt.mu, device=dev),
+                       from_jax_params(opt.nu, device=dev),
+                       _tensor(opt.count).to(dev)),
+        ef=from_jax_params(state.ef, device=dev) if state.ef else {},
+        seed=torch.tensor(seed, dtype=torch.int64, device=dev))

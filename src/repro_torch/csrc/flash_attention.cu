@@ -62,6 +62,12 @@
 // f32 accumulators and 32 q fragment registers; D = 96 pads each tile row
 // to 128 values so that the swizzle stays a permutation within the row.
 //
+// Both kernels take a nullable lse (BH, Sq) f32: where it is given, each
+// stored row also writes its logsumexp m + log(max(l, 1e-30)) (natural log,
+// from the running max and denominator), which the backward
+// (flash_attention_bwd.cu) recomputes the probabilities from. Serving passes
+// null and its launches do the same work as before.
+//
 // Plain C interface, loaded with ctypes. The launch allocates nothing, runs on
 // the caller's stream and returns cudaGetLastError().
 #include <cuda_bf16.h>
@@ -70,22 +76,12 @@
 
 #include <cmath>
 
+#include "flash_tiles.cuh"
 #include "hopper_mma.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
-
-constexpr int kBQ = 64, kBK = 64;            // query rows, keys per block step
-constexpr int kThreads = 256;                // 16 x 16, 4 x 4 scores each
-constexpr int kLdP = kBK + 4;                // probability row, float4-aligned
-constexpr float kNegInf = -1e30f;
-
-// p cast to v's type and back
-__device__ __forceinline__ float as_type(float p, const float*) { return p; }
-__device__ __forceinline__ float as_type(float p, const bf16*) {
-  return __bfloat162float(__float2bfloat16_rn(p));
-}
+using namespace flash;
 
 template <int D>
 constexpr int smem_floats() {
@@ -94,75 +90,14 @@ constexpr int smem_floats() {
          + kBK * D;                                       // v, key-major
 }
 
-// 8 consecutive values of a row, as f32: 16-byte loads where `vec` allows
-__device__ __forceinline__ void load8(const float* p, bool vec, float v[8]) {
-  if (vec) {
-    const float4 a = reinterpret_cast<const float4*>(p)[0];
-    const float4 b = reinterpret_cast<const float4*>(p)[1];
-    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-    v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-  } else {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) v[j] = p[j];
-  }
-}
-
-__device__ __forceinline__ void load8(const bf16* p, bool vec, float v[8]) {
-  if (vec) {
-    const uint4 u = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float2 f = __bfloat1622float2(h[j]);
-      v[2 * j] = f.x;
-      v[2 * j + 1] = f.y;
-    }
-  } else {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) v[j] = __bfloat162float(p[j]);
-  }
-}
-
-// 64 rows r0.. of a (rows, D) operand with row stride ld into shared memory
-// as f32, zero past `rows`: d-major (dst[d * 64 + r]; neighbouring threads
-// take neighbouring rows, so the scattered stores hit distinct banks) or
-// row-major (dst[r * D + d]; neighbouring threads along d). Each thread
-// moves 8 consecutive values of one row.
-template <int D, bool kDMajor, typename T>
-__device__ __forceinline__ void stage(float* dst, const T* src, long long ld,
-                                      int r0, int rows) {
-  constexpr int G = D / 8;
-  const bool vec = reinterpret_cast<uintptr_t>(src) % 16 == 0 &&
-                   (ld * static_cast<long long>(sizeof(T))) % 16 == 0;
-  for (int i = threadIdx.x; i < 64 * G; i += kThreads) {
-    const int r = kDMajor ? i % 64 : i / G;
-    const int d0 = (kDMajor ? i / 64 : i % G) * 8;
-    float v[8];
-    if (r0 + r < rows) {
-      load8(src + (r0 + r) * ld + d0, vec, v);
-    } else {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) v[j] = 0.f;
-    }
-    if (kDMajor) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) dst[(d0 + j) * 64 + r] = v[j];
-    } else {
-      *reinterpret_cast<float4*>(&dst[r * D + d0]) =
-          make_float4(v[0], v[1], v[2], v[3]);
-      *reinterpret_cast<float4*>(&dst[r * D + d0 + 4]) =
-          make_float4(v[4], v[5], v[6], v[7]);
-    }
-  }
-}
-
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, long long q_sbh, long long q_ss,
                  long long k_sbh, long long k_ss, long long v_sbh,
-                 long long v_ss, float* __restrict__ out, int sq, int sk,
-                 float scale, int causal) {
+                 long long v_ss, float* __restrict__ out,
+                 float* __restrict__ lse, int sq, int sk, float scale,
+                 int causal) {
   constexpr int TD = D / 16;                 // output columns per thread
   extern __shared__ __align__(16) float smem[];
   float* qs = smem;                          // [D][kBQ]
@@ -290,6 +225,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < TD; ++c)
       out[((long long)bh * sq + row) * D + tx * TD + c] = acc[i][c] / inv;
+    if (lse != nullptr && tx == 0)           // the backward's logsumexp
+      lse[(long long)bh * sq + row] = m_run[i] + logf(inv);
   }
 }
 
@@ -480,7 +417,8 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, long long q_sbh,
                      long long q_ss, long long k_sbh, long long k_ss,
                      long long v_sbh, long long v_ss, float* __restrict__ out,
-                     int sq, int sk, float scale_log2, int causal) {
+                     float* __restrict__ lse, int sq, int sk,
+                     float scale_log2, int causal) {
   using namespace hopper;
   constexpr int BQ = kTcRows, KS = kTcKeys, SUB = kTcSub;
   constexpr int STAGES = kTcStages;
@@ -578,23 +516,21 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       *reinterpret_cast<float2*>(ob + static_cast<long long>(row1) * D + col) =
           make_float2(o[dt][2] / d1, o[dt][3] / d1);
   }
-}
-
-// above 48 KB of dynamic shared memory only after this opt-in
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, int bytes, bool& done) {
-  if (done) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  done = err == cudaSuccess;
-  return err;
+  // the backward's logsumexp, natural log: the running max is in the log2
+  // domain of the scaled scores
+  if (lse != nullptr && t4 == 0) {
+    constexpr float kLn2 = 0.6931471805599453f;
+    float* lb = lse + static_cast<long long>(bh) * sq;
+    if (row0 < sq) lb[row0] = m0 * kLn2 + logf(d0);
+    if (row1 < sq) lb[row1] = m1 * kLn2 + logf(d1);
+  }
 }
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, long long q_sbh,
                    long long q_ss, long long k_sbh, long long k_ss,
-                   long long v_sbh, long long v_ss, float* out, int bh, int sq,
-                   int sk, int causal, cudaStream_t stream) {
+                   long long v_sbh, long long v_ss, float* out, float* lse,
+                   int bh, int sq, int sk, int causal, cudaStream_t stream) {
   constexpr int bytes = smem_floats<D>() * sizeof(float);
   static bool opted_in = false;
   const cudaError_t err = allow_smem(flash_fwd_kernel<T, D>, bytes, opted_in);
@@ -602,8 +538,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, long long q_sbh,
   const dim3 grid((sq + kBQ - 1) / kBQ, bh);
   flash_fwd_kernel<T, D><<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), q_sbh, q_ss, k_sbh, k_ss, v_sbh, v_ss, out, sq,
-      sk, static_cast<float>(1.0 / sqrt(static_cast<double>(D))), causal);
+      static_cast<const T*>(v), q_sbh, q_ss, k_sbh, k_ss, v_sbh, v_ss, out, lse,
+      sq, sk, static_cast<float>(1.0 / sqrt(static_cast<double>(D))), causal);
   return cudaGetLastError();
 }
 
@@ -611,8 +547,8 @@ template <int D>
 cudaError_t launch_mma(const void* q, const void* k, const void* v,
                        long long q_sbh, long long q_ss, long long k_sbh,
                        long long k_ss, long long v_sbh, long long v_ss,
-                       float* out, int bh, int sq, int sk, int causal,
-                       cudaStream_t stream) {
+                       float* out, float* lse, int bh, int sq, int sk,
+                       int causal, cudaStream_t stream) {
   constexpr int bytes = tc_smem_bytes<D>();
   static bool opted_in = false;
   const cudaError_t err = allow_smem(flash_fwd_mma_kernel<D>, bytes, opted_in);
@@ -622,7 +558,7 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v,
   flash_fwd_mma_kernel<D><<<grid, kTcThreads, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), q_sbh, q_ss, k_sbh, k_ss, v_sbh, v_ss, out,
-      sq, sk, static_cast<float>(scale_log2), causal);
+      lse, sq, sk, static_cast<float>(scale_log2), causal);
   return cudaGetLastError();
 }
 
@@ -637,36 +573,36 @@ template <typename T, int D>
 cudaError_t launch_d(bool mma, const void* q, const void* k, const void* v,
                      long long q_sbh, long long q_ss, long long k_sbh,
                      long long k_ss, long long v_sbh, long long v_ss,
-                     float* out, int bh, int sq, int sk, int causal,
-                     cudaStream_t st) {
+                     float* out, float* lse, int bh, int sq, int sk,
+                     int causal, cudaStream_t st) {
   return mma ? launch_mma<D>(q, k, v, q_sbh, q_ss, k_sbh, k_ss, v_sbh, v_ss,
-                             out, bh, sq, sk, causal, st)
+                             out, lse, bh, sq, sk, causal, st)
              : launch<T, D>(q, k, v, q_sbh, q_ss, k_sbh, k_ss, v_sbh, v_ss,
-                            out, bh, sq, sk, causal, st);
+                            out, lse, bh, sq, sk, causal, st);
 }
 
 template <typename T>
 cudaError_t dispatch(int d, bool mma, const void* q, const void* k,
                      const void* v, long long q_sbh, long long q_ss,
                      long long k_sbh, long long k_ss, long long v_sbh,
-                     long long v_ss, float* out, int bh, int sq, int sk,
-                     int causal, cudaStream_t st) {
+                     long long v_ss, float* out, float* lse, int bh, int sq,
+                     int sk, int causal, cudaStream_t st) {
   switch (d) {
     case 16:
       return launch_d<T, 16>(mma, q, k, v, q_sbh, q_ss, k_sbh, k_ss, v_sbh,
-                             v_ss, out, bh, sq, sk, causal, st);
+                             v_ss, out, lse, bh, sq, sk, causal, st);
     case 32:
       return launch_d<T, 32>(mma, q, k, v, q_sbh, q_ss, k_sbh, k_ss, v_sbh,
-                             v_ss, out, bh, sq, sk, causal, st);
+                             v_ss, out, lse, bh, sq, sk, causal, st);
     case 64:
       return launch_d<T, 64>(mma, q, k, v, q_sbh, q_ss, k_sbh, k_ss, v_sbh,
-                             v_ss, out, bh, sq, sk, causal, st);
+                             v_ss, out, lse, bh, sq, sk, causal, st);
     case 96:
       return launch_d<T, 96>(mma, q, k, v, q_sbh, q_ss, k_sbh, k_ss, v_sbh,
-                             v_ss, out, bh, sq, sk, causal, st);
+                             v_ss, out, lse, bh, sq, sk, causal, st);
     case 128:
       return launch_d<T, 128>(mma, q, k, v, q_sbh, q_ss, k_sbh, k_ss, v_sbh,
-                              v_ss, out, bh, sq, sk, causal, st);
+                              v_ss, out, lse, bh, sq, sk, causal, st);
     default:
       return cudaErrorInvalidValue;
   }
@@ -678,11 +614,13 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    int bf16_inputs, long long q_sbh,
                                    long long q_ss, long long k_sbh,
                                    long long k_ss, long long v_sbh,
-                                   long long v_ss, void* out, int bh, int sq,
-                                   int sk, int d, int causal, void* stream) {
+                                   long long v_ss, void* out, void* lse,
+                                   int bh, int sq, int sk, int d, int causal,
+                                   void* stream) {
   if (bh < 1 || bh > 65535 || sq < 1 || sk < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   auto* o = static_cast<float*>(out);
+  auto* l = static_cast<float*>(lse);        // null: no logsumexp
   auto st = static_cast<cudaStream_t>(stream);
   // the tensor-core kernel takes bf16 whose rows cp.async can copy
   const bool mma = bf16_inputs && rows16(q, q_sbh, q_ss) &&
@@ -690,8 +628,8 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
   const cudaError_t err =
       bf16_inputs
           ? dispatch<bf16>(d, mma, q, k, v, q_sbh, q_ss, k_sbh, k_ss, v_sbh,
-                           v_ss, o, bh, sq, sk, causal, st)
+                           v_ss, o, l, bh, sq, sk, causal, st)
           : dispatch<float>(d, false, q, k, v, q_sbh, q_ss, k_sbh, k_ss,
-                            v_sbh, v_ss, o, bh, sq, sk, causal, st);
+                            v_sbh, v_ss, o, l, bh, sq, sk, causal, st);
   return static_cast<int>(err);
 }

@@ -45,11 +45,15 @@ KERNELS: Dict[str, Tuple[str, list]] = {
     "bf16_matmul": ("bf16_matmul",
                     [_P, _I, _L, _P, _I, _L, _P, _L, _I, _I, _I,
                      _I, _I, _I, _I, _P]),
-    # (q, k, v, bf16, q_sbh, q_ss, k_sbh, k_ss, v_sbh, v_ss, out,
-    #  bh, sq, sk, d, causal, stream)
+    # (q, k, v, bf16, q_sbh, q_ss, k_sbh, k_ss, v_sbh, v_ss, out, lse (or
+    #  null), bh, sq, sk, d, causal, stream)
     "flash_attention_fwd": ("flash_attention",
-                            [_P, _P, _P, _I, _L, _L, _L, _L, _L, _L, _P,
+                            [_P, _P, _P, _I, _L, _L, _L, _L, _L, _L, _P, _P,
                              _I, _I, _I, _I, _I, _P]),
+    # (q, k, v, out, dout, lse, delta scratch, dq, dk, dv, bf16, bh, sq, sk,
+    #  d, causal, stream)
+    "flash_attention_bwd": ("flash_attention_bwd",
+                            [_P] * 10 + [_I] * 6 + [_P]),
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

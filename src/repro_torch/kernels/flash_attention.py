@@ -15,8 +15,27 @@ tensor cores (``mma.sync``, 16 query rows a warp, k and v through a
 ``cp.async`` ring); f32 operands and unaligned rows run on f32 FMAs. Both
 walk the keys in blocks of ``BLOCK_K``.
 
-``flash_attention_fwd`` runs ``flash_attention_fwd_plain`` only for tensors
-on the CPU; for CUDA tensors it launches the kernel or raises.
+With ``return_lse=True`` the forward also returns each query row's
+logsumexp ``m + log(max(l, 1e-30))`` (BH, Sq) f32, from its running max
+and denominator, as the reference's flash forward does; serving asks for
+none and its launches write none. The output carries no autograd graph,
+so a call with grad mode on and an input that requires grad raises:
+differentiate through ``models.attention._FlashCore``, whose backward is
+``flash_attention_bwd``.
+
+``flash_attention_bwd`` is the flash-2 backward (``csrc/
+flash_attention_bwd.cu``), which no TPU kernel backs: the reference
+differentiates its flash attention through a custom VJP in plain JAX
+(``repro/models/attention.py``, ``_flash_bwd``). It recomputes the
+probabilities a key block at a time from (q, k, lse), in three launches
+(delta = rowsum(dO o); dK and dV a key block a block; dQ a query block a
+block) with no float atomics, so that its result does not depend on
+scheduling. ``flash_attention_bwd_plain`` is ``_flash_bwd``'s arithmetic
+in the port's key blocks of ``BLOCK_K``, including the probabilities
+rounded to dO's type before the dV product.
+
+Each wrapper runs its plain version only for tensors on the CPU; for CUDA
+tensors it launches the kernel or raises.
 """
 from __future__ import annotations
 
@@ -33,10 +52,10 @@ HEAD_DIMS = (16, 32, 64, 96, 128)
 
 
 def flash_attention_fwd_plain(q: torch.Tensor, k: torch.Tensor,
-                              v: torch.Tensor, *,
-                              causal: bool = True) -> torch.Tensor:
+                              v: torch.Tensor, *, causal: bool = True,
+                              return_lse: bool = False):
     """The kernel's arithmetic in plain PyTorch: the same key blocks, the
-    same casts, in f32."""
+    same casts, in f32. With ``return_lse``, (out, lse)."""
     _build.check_attention_operands(q, k, v)
     sq, d = q.shape[1:]
     sk = k.shape[1]
@@ -63,30 +82,126 @@ def flash_attention_fwd_plain(q: torch.Tensor, k: torch.Tensor,
         m = m_new
         acc = acc * corr + p.to(v.dtype).to(torch.float32) @ vb.to(
             torch.float32)
-    return acc / torch.clamp(l, min=1e-30)
+    l = torch.clamp(l, min=1e-30)
+    out = acc / l
+    return (out, (m + torch.log(l))[..., 0]) if return_lse else out
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        *, causal: bool = True) -> torch.Tensor:
+                        *, causal: bool = True, return_lse: bool = False):
     """q (BH, Sq, D), k/v (BH, Sk, D), all f32 or all bf16 -> (BH, Sq, D)
-    f32. The BH and S strides are free; Sq and Sk may be ragged."""
+    f32, and with ``return_lse`` the (BH, Sq) f32 logsumexp too. The BH
+    and S strides are free; Sq and Sk may be ragged."""
     _build.check_attention_operands(q, k, v)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        raise RuntimeError("flash_attention_fwd has no autograd graph: "
+                           "differentiate through models.attention."
+                           "_FlashCore")
     if q.device.type == "cpu":
-        return flash_attention_fwd_plain(q, k, v, causal=causal)
+        return flash_attention_fwd_plain(q, k, v, causal=causal,
+                                         return_lse=return_lse)
     bh, sq, d = q.shape
     sk = k.shape[1]
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention_fwd: head size {d} not in "
-                         f"{HEAD_DIMS}")
+    _check_head_dim("flash_attention_fwd", d)
     out = torch.empty((bh, sq, d), dtype=torch.float32, device=q.device)
+    lse = (torch.empty((bh, sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     _build.call("flash_attention_fwd", q.device,
                 q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 int(q.dtype == torch.bfloat16),
                 q.stride(0), q.stride(1), k.stride(0), k.stride(1),
                 v.stride(0), v.stride(1), out.data_ptr(),
+                None if lse is None else lse.data_ptr(),
                 bh, sq, sk, d, int(causal))
     flash_attention_fwd.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 flash_attention_fwd.launches = 0
+
+
+def _check_head_dim(name: str, d: int) -> None:
+    if d not in HEAD_DIMS:
+        raise ValueError(f"{name}: head size {d} not in {HEAD_DIMS}")
+
+
+def _check_bwd_operands(q, k, v, out, dout, lse) -> None:
+    _build.check_attention_operands(q, k, v)
+    if out.shape != q.shape or dout.shape != q.shape:
+        raise ValueError(f"out {tuple(out.shape)} and dout "
+                         f"{tuple(dout.shape)} must be q's {tuple(q.shape)}")
+    if lse.shape != q.shape[:2] or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be f32 {tuple(q.shape[:2])}")
+    if not (out.dtype == dout.dtype == q.dtype):
+        raise TypeError("out and dout must be in q's type")
+    if not (out.device == dout.device == lse.device == q.device):
+        raise ValueError("every operand must lie on q's device")
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, out: torch.Tensor,
+                              dout: torch.Tensor, lse: torch.Tensor, *,
+                              causal: bool = True):
+    """The reference's ``_flash_bwd`` in plain PyTorch, over the kernel's
+    key blocks of ``BLOCK_K``: (dq, dk, dv) in the inputs' types."""
+    _check_bwd_operands(q, k, v, out, dout, lse)
+    sq, d = q.shape[1:]
+    sk = k.shape[1]
+    scale = d ** -0.5
+    qf = q.to(torch.float32)
+    dof = dout.to(torch.float32)
+    delta = (dof * out.to(torch.float32)).sum(dim=-1, keepdim=True)
+    lse = lse[..., None]
+    qpos = torch.arange(sq, device=q.device)[:, None]
+    dq = torch.zeros(qf.shape, dtype=torch.float32, device=q.device)
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=q.device)
+    dv = torch.zeros(k.shape, dtype=torch.float32, device=q.device)
+    for k0 in range(0, sk, BLOCK_K):
+        if causal and k0 > sq - 1:      # wholly masked: adds exactly zero
+            break
+        kb = k[:, k0:k0 + BLOCK_K].to(torch.float32)
+        vb = v[:, k0:k0 + BLOCK_K].to(torch.float32)
+        s = (qf @ kb.transpose(1, 2)) * scale
+        if causal:
+            kpos = torch.arange(k0, k0 + kb.shape[1], device=q.device)
+            s = torch.where(kpos[None, :] <= qpos, s,
+                            torch.full_like(s, NEG_INF))
+        p = torch.exp(s - lse)
+        dv[:, k0:k0 + BLOCK_K] = (p.to(dout.dtype).to(torch.float32)
+                                  .transpose(1, 2) @ dof)
+        dp = dof @ vb.transpose(1, 2)
+        ds = p * (dp - delta) * scale
+        dq = dq + ds @ kb
+        dk[:, k0:k0 + BLOCK_K] = ds.transpose(1, 2) @ qf
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, dout: torch.Tensor,
+                        lse: torch.Tensor, *, causal: bool = True):
+    """The flash-2 backward: q (BH, Sq, D), k/v (BH, Sk, D), the forward's
+    output ``out`` and its cotangent ``dout`` (BH, Sq, D), all f32 or all
+    bf16, and the forward's ``lse`` (BH, Sq) f32 -> (dq, dk, dv) in the
+    inputs' types. Strided operands are copied contiguous first."""
+    _check_bwd_operands(q, k, v, out, dout, lse)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, out, dout, lse,
+                                         causal=causal)
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    _check_head_dim("flash_attention_bwd", d)
+    q, k, v, out, dout, lse = (t.contiguous()
+                               for t in (q, k, v, out, dout, lse))
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    delta = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
+    _build.call("flash_attention_bwd", q.device,
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                int(q.dtype == torch.bfloat16), bh, sq, sk, d, int(causal))
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0

@@ -41,7 +41,8 @@ from typing import NamedTuple, Optional, Tuple, Union
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.flash_attention import flash_attention_fwd
+from repro_torch.kernels.flash_attention import (
+    flash_attention_bwd, flash_attention_fwd)
 from repro_torch.models import layers
 
 NEG_INF = -1e30
@@ -103,24 +104,56 @@ def _chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.cat(outs, dim=1)
 
 
+class _FlashCore(torch.autograd.Function):
+    """Flash attention over folded (BH, S, D) operands with its flash-2
+    backward, the reference's ``_flash_core`` custom VJP: the forward
+    (``flash_attention_fwd``) returns the output in q's type and, where a
+    gradient is wanted, keeps q, k, v, that output and the logsumexp; the
+    backward recomputes the probabilities from them
+    (``flash_attention_bwd``: the kernel for CUDA tensors, its plain
+    version for CPU ones). Without a gradient to take the forward asks
+    for no logsumexp, so an inference launch is the serving one."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, grad: bool):
+        ctx.causal = causal
+        if not grad:
+            return flash_attention_fwd(q, k, v, causal=causal).to(q.dtype)
+        out, lse = flash_attention_fwd(q, k, v, causal=causal,
+                                       return_lse=True)
+        out = out.to(q.dtype)
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout.to(q.dtype), lse,
+                                         causal=ctx.causal)
+        return dq, dk, dv, None, None
+
+
 def _flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      causal: bool = False) -> torch.Tensor:
-    """Online-softmax (flash-2) attention forward on the
-    ``flash_attention_fwd`` kernel: the reference's ``_flash_attention``
-    with its (B, H) fold and GQA repeat, causal or not (the kernel masks
-    key s for query i where s > i). q: (B, Sq, Hq, D); k/v: (B, Sk, Hkv,
-    D). Returns (B, Sq, Hq, D) in q's type. The kernel walks keys in
-    blocks of 64 and masks ragged lengths, where the reference's k-blocks
-    must divide Sk (one block at 1500 frames): in bf16 the two round the
-    probabilities against different running maxima."""
+    """Online-softmax (flash-2) attention on the ``flash_attention_fwd``
+    kernel, differentiable through ``_FlashCore``: the reference's
+    ``_flash_attention`` with its (B, H) fold and GQA repeat, causal or
+    not (the kernel masks key s for query i where s > i). q: (B, Sq, Hq,
+    D); k/v: (B, Sk, Hkv, D). Returns (B, Sq, Hq, D) in q's type. The
+    kernel walks keys in blocks of 64 and masks ragged lengths, where the
+    reference's k-blocks must divide Sk (one block at 1500 frames): in
+    bf16 the two round the probabilities against different running
+    maxima."""
     b, sq, hq, d = q.shape
     k = _repeat_kv_heads(k, hq)
     v = _repeat_kv_heads(v, hq)
 
     def fold(t):          # (B, S, H, D) -> (B*H, S, D); a view when B = 1
         return t.transpose(1, 2).reshape(b * hq, t.shape[1], d)
-    out = flash_attention_fwd(fold(q), fold(k), fold(v), causal=causal)
-    return out.reshape(b, hq, sq, d).transpose(1, 2).to(q.dtype)
+    grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad)
+    out = _FlashCore.apply(fold(q), fold(k), fold(v), causal, grad)
+    return out.reshape(b, hq, sq, d).transpose(1, 2)
 
 
 def attention(p: dict, cfg: ModelConfig, x: torch.Tensor, *,

@@ -28,9 +28,10 @@ layer's ``length`` is its counter (per row in the slot layout). An LM's
 prefill is the reference's: a loop of ``serve_step`` over the prompt's
 tokens (the reference's ``lax.scan``), not a full-sequence forward.
 
-``forward`` and ``loss_fn`` run a whole sequence at once, for inference
-only (nothing is differentiated). The batch is a dict of tensors, the
-reference's conventions:
+``forward`` and ``loss_fn`` run a whole sequence at once; ``loss_fn`` is
+what training differentiates (``train/step.py``), its layers and CE
+chunks under activation checkpointing by ``cfg.remat``. The batch is a
+dict of tensors, the reference's conventions:
 
   LM families : {"tokens": (B, S) int, "labels": (B, S) int}
   vlm         : + {"patches": (B, P, E_vis) f32}, projected and spliced
@@ -43,12 +44,15 @@ projector.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, List, NamedTuple, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import resolve_device
+from repro_torch.core.tree import map_with_path
 from repro_torch.models import layers, transformer, whisper
 
 
@@ -186,8 +190,10 @@ def loss_fn(params: dict, cfg: ModelConfig, batch: dict, *, engine=None,
     "ntok"}). The readout and its CE run a ``ce_chunk`` of the sequence at
     a time where it divides S and S > ``ce_chunk``, as the reference's
     sequence chunking: the logits never exceed (B, ce_chunk, V), and the
-    readout launches once a chunk. Nothing is differentiated, so nothing
-    is recomputed."""
+    readout launches once a chunk. Where a gradient is recorded, each
+    chunk runs under activation checkpointing, as the reference's
+    ``jax.checkpoint``: its logits are recomputed in the backward, not
+    kept."""
     h, aux = hidden_forward(params, cfg, batch, engine=engine,
                             attn_chunk=attn_chunk)
     labels = batch["labels"]
@@ -195,12 +201,19 @@ def loss_fn(params: dict, cfg: ModelConfig, batch: dict, *, engine=None,
     s = h.shape[1]
     n_chunks = s // ce_chunk if (s % ce_chunk == 0 and s > ce_chunk) else 1
     size = s // n_chunks
+
+    def chunk_ce(h_i, l_i):
+        return _ce_of_logits(readout(params, cfg, h_i, engine), l_i,
+                             cfg.vocab_size)
+
+    if n_chunks > 1 and transformer.grad_wanted(h):
+        chunk_ce = functools.partial(checkpoint, chunk_ce,
+                                     use_reentrant=False)
     ce_sum = torch.zeros((), dtype=torch.float32, device=h.device)
     ntok = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(n_chunks):
-        cs, nt = _ce_of_logits(
-            readout(params, cfg, h[:, i * size:(i + 1) * size], engine),
-            labels[:, i * size:(i + 1) * size], cfg.vocab_size)
+        cs, nt = chunk_ce(h[:, i * size:(i + 1) * size],
+                          labels[:, i * size:(i + 1) * size])
         ce_sum, ntok = ce_sum + cs, ntok + nt
     ntok = ntok.clamp(min=1.0)
     loss = ce_sum / ntok
@@ -315,7 +328,7 @@ def slot_state_specs(state: ServeState, mesh) -> ServeState:
     axis on axis 0 of every tensor, where the reference's stacked
     ``layer_states`` leaves keep it on axis 1 (and ``step`` on axis 0): the
     same leaves are split, along their slot axis."""
-    from repro_torch.sharding.rules import P, tree_map_with_path
+    from repro_torch.sharding.rules import P
     dsize = mesh.shape["data"] if "data" in mesh.axis_names else 1
 
     def spec(path, t):
@@ -323,7 +336,7 @@ def slot_state_specs(state: ServeState, mesh) -> ServeState:
             return P()
         return P("data")
 
-    return tree_map_with_path(spec, state)
+    return map_with_path(spec, state)
 
 
 def slot_view(state: ServeState, lo: int, n: int) -> ServeState:
@@ -338,8 +351,7 @@ def slot_view(state: ServeState, lo: int, n: int) -> ServeState:
                          cross_table=ls.cross_table.narrow(0, lo, n),
                          length=ls.length.narrow(1, lo, n))
     else:
-        from repro_torch.sharding.rules import tree_map_with_path
-        ls = tree_map_with_path(lambda _, t: t.narrow(0, lo, n), ls)
+        ls = map_with_path(lambda _, t: t.narrow(0, lo, n), ls)
     return ServeState(layer_states=ls, step=state.step.narrow(0, lo, n))
 
 

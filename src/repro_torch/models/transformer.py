@@ -20,12 +20,16 @@ model API's ``forward``), the SSM layers by the chunked SSD scan.
 """
 from __future__ import annotations
 
+import functools
 import math
-from typing import List, NamedTuple, Optional, Tuple, Union
+from typing import Any, Callable, List, NamedTuple, Optional, Tuple, Union
 
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import tree
 from repro_torch.models import layers, moe as moe_lib, ssm as ssm_lib
 from repro_torch.models.attention import (
     KVCache, QKVCache, attention, decode_attention, init_attention)
@@ -133,18 +137,73 @@ def _apply_block(p: dict, cfg: ModelConfig, spec: LayerSpec,
     return x, aux
 
 
+def grad_wanted(*trees) -> bool:
+    """Whether autograd records a graph through these inputs: grad mode is
+    on and one of their tensors requires grad."""
+    return torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad
+        for t in tree.leaves(trees))
+
+
+# the matrix products without batch dims, whose outputs ``remat="dots"``
+# keeps: the reference's ``dots_with_no_batch_dims_saveable`` (the
+# attention's batched einsums are recomputed)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat(fn: Callable[..., Any], cfg: ModelConfig) -> Callable[..., Any]:
+    """The reference's ``_remat``: ``fn`` under activation checkpointing
+    by ``cfg.remat`` — "full" keeps only its inputs and recomputes the rest
+    in the backward, "dots" also keeps the outputs of its matrix products,
+    "none" runs it as it is. Only where a gradient is recorded
+    (``grad_wanted``): without one, a served or inference call runs ``fn``
+    plainly."""
+    if cfg.remat == "none":
+        return fn
+
+    def run(*args):
+        if not grad_wanted(args):
+            return fn(*args)
+        if cfg.remat == "dots":
+            return checkpoint(fn, *args, use_reentrant=False,
+                              context_fn=functools.partial(
+                                  create_selective_checkpoint_contexts,
+                                  _dots_policy))
+        return checkpoint(fn, *args, use_reentrant=False)
+    return run
+
+
 def apply_decoder_stack(params: dict, cfg: ModelConfig, x: torch.Tensor, *,
                         positions: Optional[torch.Tensor] = None,
                         engine=None, attn_chunk: int = 2048
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, d) through every layer in order -> (y, the MoE
     load-balance losses summed over the layers, f32). The reference's
-    ``apply_decoder_stack`` with ``scan_layers=False``: inference only, so
-    no remat."""
+    ``apply_decoder_stack`` with ``scan_layers=False``: each repeat of the
+    layer pattern (P layers) is one ``remat`` unit, and the losses are
+    summed a repeat at a time, as the reference's scan sums them."""
+    pattern = layer_pattern(cfg)
+
+    def repeat_fn(x, blocks):
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for p, spec in zip(blocks, pattern, strict=True):
+            x, a = _apply_block(p, cfg, spec, x, positions=positions,
+                                engine=engine, attn_chunk=attn_chunk)
+            aux = aux + a
+        return x, aux
+
+    repeat_fn = remat(repeat_fn, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for p, spec in zip(params["blocks"], layer_specs(cfg), strict=True):
-        x, a = _apply_block(p, cfg, spec, x, positions=positions,
-                            engine=engine, attn_chunk=attn_chunk)
+    blocks, n = params["blocks"], len(pattern)
+    if len(blocks) != cfg.num_layers:
+        raise ValueError(f"{len(blocks)} layers for {cfg.num_layers}")
+    for r in range(n_repeats(cfg)):
+        x, a = repeat_fn(x, blocks[r * n:(r + 1) * n])
         aux = aux + a
     return x, aux
 

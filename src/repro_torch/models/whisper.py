@@ -27,6 +27,7 @@ from repro_torch.models import layers
 from repro_torch.models.attention import (
     KVCache, PagedKVCache, attention, decode_attention, init_attention,
     paged_window_gather)
+from repro_torch.models.transformer import remat
 
 
 class WhisperDecodeState(NamedTuple):
@@ -87,7 +88,8 @@ def init_whisper(gen: torch.Generator, cfg: ModelConfig,
                        for _ in range(cfg.num_encoder_layers)],
         "enc_norm": layers.init_norm(d, dtype),
         "embed": layers.init_embedding(gen, cfg.padded_vocab, d, dtype),
-        "dec_pos": {"table": (torch.randn((maxp, d), generator=gen) * 0.01
+        "dec_pos": {"table": (torch.randn((maxp, d), generator=gen,
+                                          device=gen.device) * 0.01
                               ).to(dtype)},
         "dec_blocks": [_init_dec_block(gen, cfg, dtype)
                        for _ in range(cfg.num_layers)],
@@ -104,13 +106,18 @@ def encode(params: dict, cfg: ModelConfig, mel: torch.Tensor, *,
     f = x.shape[1]
     dtype = layers.DTYPES[cfg.dtype]
     x = (x + params["enc_pos"]["table"][:f].to(torch.float32)).to(dtype)
-    for p in params["enc_blocks"]:
+
+    def block(x, p):
         h = layers.norm_apply(p["norm1"], x, cfg.norm)
         x = x + attention(p["attn"], cfg, h, causal=False,
                           chunk=attn_chunk, engine=engine).to(x.dtype)
         h = layers.norm_apply(p["norm2"], x, cfg.norm)
-        x = x + layers.mlp_apply(p["ffn"], h, cfg.act, engine=engine
-                                 ).to(x.dtype)
+        return x + layers.mlp_apply(p["ffn"], h, cfg.act, engine=engine
+                                    ).to(x.dtype)
+
+    block = remat(block, cfg)
+    for p in params["enc_blocks"]:
+        x = block(x, p)
     return layers.norm_apply(params["enc_norm"], x, cfg.norm)
 
 
@@ -126,7 +133,8 @@ def decode_train(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     t = tokens.shape[1]
     x = layers.embed(params["embed"], tokens)
     x = x + params["dec_pos"]["table"][:t].to(x.dtype)
-    for p in params["dec_blocks"]:
+
+    def block(x, p, memory):
         h = layers.norm_apply(p["norm1"], x, cfg.norm)
         x = x + attention(p["self_attn"], cfg, h, causal=True,
                           chunk=attn_chunk, engine=engine).to(x.dtype)
@@ -134,8 +142,12 @@ def decode_train(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
         x = x + attention(p["cross_attn"], cfg, h, memory=memory,
                           chunk=attn_chunk, engine=engine).to(x.dtype)
         h = layers.norm_apply(p["norm2"], x, cfg.norm)
-        x = x + layers.mlp_apply(p["ffn"], h, cfg.act, engine=engine
-                                 ).to(x.dtype)
+        return x + layers.mlp_apply(p["ffn"], h, cfg.act, engine=engine
+                                    ).to(x.dtype)
+
+    block = remat(block, cfg)
+    for p in params["dec_blocks"]:
+        x = block(x, p, memory)
     if return_hidden:
         return x
     x = layers.norm_apply(params["dec_norm"], x, cfg.norm)

@@ -40,6 +40,8 @@ from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from repro_torch.core import tree as tree_lib
+
 
 class P(tuple):
     """A partition spec: one entry a dim (None, an axis name, or a tuple
@@ -91,8 +93,6 @@ _RULES: Sequence[Tuple[str, Optional[Tuple[Tuple[Optional[str], ...],
     (r"norm", None),
 )
 
-#: the port's per-layer lists, which the reference stacks on a leading axis
-_LAYER_LISTS = (("enc_blocks",), ("dec_blocks",), ("stack", "blocks"))
 
 
 def _axis_size(mesh, name: str) -> int:
@@ -181,47 +181,39 @@ def _unstacked(spec: P) -> P:
 
 
 # ---------------------------------------------------------------------------
-# Trees: dicts, lists, tuples and NamedTuples of tensors
+# Spec trees of parameters and training states (``core.tree`` walks them)
 # ---------------------------------------------------------------------------
-def tree_map_with_path(fn: Callable[[Tuple[str, ...], Any], Any], tree,
-                       path: Tuple[str, ...] = ()):
-    """``fn(path, leaf)`` over every tensor of ``tree``, the structure
-    kept: dict keys, list and tuple indices and NamedTuple field names
-    make the path."""
-    if isinstance(tree, dict):
-        return {k: tree_map_with_path(fn, v, path + (str(k),))
-                for k, v in tree.items()}
-    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*(tree_map_with_path(fn, v, path + (f,))
-                            for f, v in zip(tree._fields, tree)))
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map_with_path(fn, v, path + (str(i),))
-                          for i, v in enumerate(tree))
-    return fn(path, tree)
-
-
-def tree_leaves(tree) -> List[Any]:
-    """Every leaf of ``tree`` in the order ``tree_map_with_path`` walks."""
-    out: List[Any] = []
-    tree_map_with_path(lambda p, x: out.append(x), tree)
-    return out
-
-
-def _is_layer_leaf(path: Tuple[str, ...]) -> bool:
-    return any(path[:len(pre)] == pre for pre in _LAYER_LISTS)
+def _leaf_spec(path: Tuple[str, ...], tree_path: Tuple[str, ...], x,
+               mesh) -> P:
+    """The spec of the leaf at ``path`` whose parameter-tree path is
+    ``tree_path``: a layer's leaf is looked up at its stacked shape and
+    loses the layer-axis entry."""
+    shape = tuple(getattr(x, "shape", ()))
+    if not shape:
+        return P()
+    if tree_lib.in_layer_list(tree_path):
+        return _unstacked(spec_for_path("/".join(path), (1,) + shape, mesh))
+    return spec_for_path("/".join(path), shape, mesh)
 
 
 def param_specs(params, mesh):
     """Spec tree matching ``params`` (a QTensor's legs get theirs)."""
+    return tree_lib.map_with_path(lambda p, x: _leaf_spec(p, p, x, mesh), params)
+
+
+#: the parameter-shaped subtrees of a ``TrainState``
+_STATE_TREES = (("params",), ("opt", "mu"), ("opt", "nu"), ("ef",))
+
+
+def train_state_specs(train_state, mesh):
+    """A ``TrainState`` (params, opt {mu, nu, count}, ef, seed) -> specs,
+    the reference's ``train_state_specs``: each moment and error leaf takes
+    its parameter's rule (the rules match path suffixes), a Q8_0 moment's
+    legs theirs; scalars replicate."""
     def leaf(path, x):
-        shape = tuple(getattr(x, "shape", ()))
-        if not shape:
-            return P()
-        if _is_layer_leaf(path):
-            return _unstacked(spec_for_path("/".join(path), (1,) + shape,
-                                            mesh))
-        return spec_for_path("/".join(path), shape, mesh)
-    return tree_map_with_path(leaf, params)
+        pre = next((p for p in _STATE_TREES if path[:len(p)] == p), ())
+        return _leaf_spec(path, path[len(pre):], x, mesh)
+    return tree_lib.map_with_path(leaf, train_state)
 
 
 # ---------------------------------------------------------------------------
@@ -247,7 +239,7 @@ def batch_specs(batch: dict, mesh):
             return P(None, "data")
         return P()
 
-    return tree_map_with_path(leaf, batch)
+    return tree_lib.map_with_path(leaf, batch)
 
 
 def _cache_leaf(ps: str, shape, mesh) -> P:
@@ -322,7 +314,7 @@ def cache_specs(state, mesh, kv_heads: int, head_dim: int):
             return _unstacked(_cache_leaf(ps, (1,) + shape, mesh))
         return _cache_leaf(ps, shape, mesh)
 
-    return tree_map_with_path(leaf, state)
+    return tree_lib.map_with_path(leaf, state)
 
 
 # ---------------------------------------------------------------------------
@@ -384,7 +376,7 @@ def paged_state_specs(state, mesh):
             return P("data") if x.shape[0] % dsize == 0 else P()
         return P()
 
-    return tree_map_with_path(leaf, state)
+    return tree_lib.map_with_path(leaf, state)
 
 
 def mesh_signature(mesh) -> Optional[Tuple[Tuple[str, int], ...]]:

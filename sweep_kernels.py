@@ -192,8 +192,8 @@ def main() -> int:
         out = torch.empty((bh, sq, d), dtype=torch.float32, device="cuda")
         call_args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), 1,
                      q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-                     v.stride(0), v.stride(1), out.data_ptr(), bh, sq, sk, d,
-                     int(causal))
+                     v.stride(0), v.stride(1), out.data_ptr(), None, bh, sq,
+                     sk, d, int(causal))
         want = flash_attention.flash_attention_fwd_plain(q, k, v,
                                                          causal=causal)
         cases["flash_attention_fwd"].append((

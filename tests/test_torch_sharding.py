@@ -59,6 +59,7 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.configs.registry import ALL_ARCHS
 from repro_torch.convert import from_jax_params
 from repro_torch.core.offload import OffloadEngine, OffloadLedger
+from repro_torch.core import tree as tree_lib
 from repro_torch.core.plan import PlanEntry, plan_key
 from repro_torch.core.qformats import QTensor
 from repro_torch.launch import serve as serve_cli
@@ -174,7 +175,7 @@ def _get(tree, path):
 
 def _paths(tree):
     out = []
-    rules.tree_map_with_path(lambda p, x: out.append(p), tree)
+    tree_lib.map_with_path(lambda p, x: out.append(p), tree)
     return out
 
 
@@ -803,10 +804,10 @@ def test_pools_lay_out_as_their_spec_trees(monkeypatch, n_slots, data):
     assert paged.self_alloc.n_shards == 1          # 2 data + 1 pages
     assert paged.cross_alloc.n_shards == data
     monkeypatch.setattr(kvcache.model_lib, "slot_state_specs",
-                        lambda state, mesh: rules.tree_map_with_path(
+                        lambda state, mesh: tree_lib.map_with_path(
                             lambda _, t: rules.P(), state))
     monkeypatch.setattr(paging, "paged_state_specs",
-                        lambda state, mesh: rules.tree_map_with_path(
+                        lambda state, mesh: tree_lib.map_with_path(
                             lambda _, t: rules.P(), state))
     assert SlotKVPool(tcfg, n_slots, 4, n_frames=F, device="cpu",
                       mesh=mesh).n_shards == 1

@@ -1,0 +1,194 @@
+"""Training on a CUDA device: the flash forward's logsumexp and the flash-2
+backward (``flash_attention_bwd``) against their plain versions at every
+head size the kernels are built for, causal and not, ragged Sq and Sk,
+f32 and bf16; two launches of the backward bit for bit equal; the
+forward's output unchanged by asking for the logsumexp; ``_FlashCore``'s
+gradients against autograd through the plain forward; and a 3-step smoke
+``Trainer`` on the card under ``attn_impl="flash"`` whose every gradient
+leaf is non-zero (a flash forward without a backward would leave q, k
+and v without one through attention); the training CLI on the card.
+
+Every test here is marked ``gpu`` and skips without a card. The file
+imports no JAX, so it runs on a machine that has only PyTorch:
+
+    PYTHONPATH=src python -m pytest -m gpu tests/test_torch_train_gpu.py
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels.flash_attention import (
+    HEAD_DIMS, flash_attention_bwd, flash_attention_bwd_plain,
+    flash_attention_fwd, flash_attention_fwd_plain)
+
+# kernel vs plain, of the largest magnitude of each output: f32 sums in
+# another order (2e-5); in bf16 the outputs round to bf16 (2^-8 relative)
+# after sums that may differ in their last f32 bits (1e-2)
+TOL = {"float32": 2e-5, "bfloat16": 1e-2}
+# (bh, sq, sk, d, causal): every head size; ragged lengths; a block of one
+# query; cross-attention lengths (sk != sq, not causal)
+SHAPES = [(3, 101, 101, 16, True), (2, 64, 64, 32, True),
+          (2, 130, 130, 64, True), (3, 45, 200, 16, False),
+          (2, 100, 77, 96, False), (2, 150, 150, 96, True),
+          (2, 129, 129, 128, True), (1, 1, 64, 32, False)]
+
+
+def _cuda_or_skip():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.core.device import resolve_device
+    return resolve_device("cuda")
+
+
+def _operands(bh, sq, sk, d, dtype, dev, seed=0):
+    """q, k, v, dout drawn with numpy from ``seed`` in ``dtype`` on
+    ``dev``."""
+    rng = np.random.default_rng(seed + sq + sk + d)
+    return [torch.from_numpy(rng.standard_normal((bh, s, d)).astype(
+        np.float32)).to(dev, getattr(torch, dtype))
+        for s in (sq, sk, sk, sq)]
+
+
+def _rel_err(got, want) -> float:
+    got, want = got.float(), want.float()
+    return float((got - want).abs().max() / want.abs().max().clamp(min=1e-30))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bh,sq,sk,d,causal", SHAPES)
+def test_forward_lse_matches_plain_and_keeps_the_output(bh, sq, sk, d,
+                                                        causal, dtype):
+    dev = _cuda_or_skip()
+    q, k, v, _ = _operands(bh, sq, sk, d, dtype, dev)
+    plain = flash_attention_fwd(q, k, v, causal=causal)
+    out, lse = flash_attention_fwd(q, k, v, causal=causal, return_lse=True)
+    torch.cuda.synchronize()
+    assert torch.equal(out, plain)
+    _, want = flash_attention_fwd_plain(q, k, v, causal=causal,
+                                        return_lse=True)
+    assert lse.shape == (bh, sq) and lse.dtype == torch.float32
+    # the card's exp and log against PyTorch's, a few f32 ulps of |lse|
+    np.testing.assert_allclose(lse.cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bh,sq,sk,d,causal", SHAPES)
+def test_backward_matches_plain_and_repeats_bit_for_bit(bh, sq, sk, d,
+                                                        causal, dtype):
+    dev = _cuda_or_skip()
+    q, k, v, dout = _operands(bh, sq, sk, d, dtype, dev)
+    out, lse = flash_attention_fwd(q, k, v, causal=causal, return_lse=True)
+    out = out.to(q.dtype)
+    before = flash_attention_bwd.launches
+    got = flash_attention_bwd(q, k, v, out, dout, lse, causal=causal)
+    again = flash_attention_bwd(q, k, v, out, dout, lse, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == before + 2
+    want = flash_attention_bwd_plain(q, k, v, out, dout, lse, causal=causal)
+    for name, g, a, w in zip("qkv", got, again, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g, a), f"d{name} differs between launches"
+        assert _rel_err(g, w) <= TOL[dtype], (name, _rel_err(g, w))
+
+
+@pytest.mark.gpu
+def test_every_head_size_is_covered_and_others_refused():
+    dev = _cuda_or_skip()
+    assert {s[3] for s in SHAPES} == set(HEAD_DIMS)
+    q, k, v, dout = _operands(1, 8, 8, 48, "float32", dev)
+    lse = torch.zeros((1, 8), device=dev)
+    with pytest.raises(ValueError, match="head size"):
+        flash_attention_bwd(q, k, v, q, dout, lse)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_core_gradients_match_autograd_through_plain(dtype):
+    """``_flash_attention`` (``_FlashCore``, GQA repeat and fold included)
+    against autograd through the plain forward's loop on the same
+    folded operands."""
+    dev = _cuda_or_skip()
+    from repro_torch.models.attention import _flash_attention, \
+        _repeat_kv_heads
+    rng = np.random.default_rng(3)
+    b, s, hq, hkv, d = 2, 96, 4, 2, 32
+    shapes = [(b, s, hq, d), (b, s, hkv, d), (b, s, hkv, d)]
+    leaves = [torch.from_numpy(rng.standard_normal(sh).astype(np.float32))
+              .to(dev, getattr(torch, dtype)) for sh in shapes]
+    w = torch.from_numpy(rng.standard_normal((b, s, hq, d)).astype(
+        np.float32)).to(dev)
+
+    def grads(fn):
+        q, k, v = (t.clone().requires_grad_(True) for t in leaves)
+        loss = (fn(q, k, v).float() * w).sum()
+        return torch.autograd.grad(loss, (q, k, v))
+
+    def plain(q, k, v):
+        k, v = _repeat_kv_heads(k, hq), _repeat_kv_heads(v, hq)
+
+        def fold(t):
+            return t.transpose(1, 2).reshape(b * hq, s, d)
+        out = flash_attention_fwd_plain(fold(q), fold(k), fold(v),
+                                        causal=True).to(q.dtype)
+        return out.reshape(b, hq, s, d).transpose(1, 2)
+
+    before = flash_attention_bwd.launches
+    got = grads(lambda q, k, v: _flash_attention(q, k, v, causal=True))
+    assert flash_attention_bwd.launches == before + 1
+    want = grads(plain)
+    for name, g, x in zip("qkv", got, want):
+        assert _rel_err(g, x) <= TOL[dtype], (name, _rel_err(g, x))
+
+
+@pytest.mark.gpu
+def test_smoke_trainer_on_the_card_gives_every_leaf_a_gradient(tmp_path):
+    """Three steps of the phi3 smoke config under flash attention and full
+    remat on the card: finite losses, the flash backward launched, and a
+    non-zero gradient on every parameter leaf of the last step."""
+    dev = _cuda_or_skip()
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import (
+        OptimizerConfig, RunConfig, ShapeConfig)
+    from repro_torch.core import tree
+    from repro_torch.models import model
+    from repro_torch.train.trainer import Trainer
+    cfg = dataclasses.replace(get_smoke_config("phi3-mini-3.8b"),
+                              attn_impl="flash", remat="full")
+    run = RunConfig(model=cfg, shape=ShapeConfig("t", 64, 2, "train"),
+                    optimizer=OptimizerConfig(lr=5e-3, warmup_steps=1,
+                                              total_steps=10),
+                    steps=3, checkpoint_every=100,
+                    checkpoint_dir=str(tmp_path / "c"))
+    before = flash_attention_bwd.launches
+    tr = Trainer(run, device=dev, vocab_cap=64)
+    tr.train()
+    assert flash_attention_bwd.launches - before == 3 * cfg.num_layers
+    assert all(np.isfinite(h["loss"]) for h in tr.history)
+    batch = tr.stream.batch_at(3)
+    params = tr.state.params
+    leaves = tree.leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    loss, _ = model.loss_fn(params, cfg, batch)
+    grads = torch.autograd.grad(loss, leaves)
+    for t in leaves:
+        t.requires_grad_(False)
+    assert all(bool(g.abs().sum() > 0) for g in grads)
+
+
+@pytest.mark.gpu
+def test_cli_trains_whisper_on_the_card(tmp_path, capsys):
+    """The training CLI on the card (weights drawn there, Whisper's
+    positional table included)."""
+    _cuda_or_skip()
+    from repro_torch.launch import train as train_cli
+    assert train_cli.main(["--arch", "whisper-tiny", "--steps", "2",
+                           "--ckpt-every", "1",
+                           "--ckpt-dir", str(tmp_path / "c")]) == 0
+    assert capsys.readouterr().out.startswith("final:")
+
