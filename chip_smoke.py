@@ -430,30 +430,42 @@ own kernels with nvcc. Phases, each of which fails the run on error:
     is the "slot decode step" row's.
 
 19. Training (``train_phase``), after the late kernel rows:
-    a. the forward's logsumexp against its plain version, and
-       ``flash_attention_bwd`` against ``flash_attention_bwd_plain`` at
-       phi3-mini's shape (causal, BH = 64, S = 4096, D = 96, bf16),
-       llava's D = 128, whisper-tiny's encoder (non-causal, BH = 6, 1500
-       frames, f32 and bf16) and D = 16 and 32 (2e-5 of the largest
-       magnitude in f32, 1e-2 in bf16), each launched twice and equal bit
-       for bit; ``_FlashCore``'s gradients against autograd through the
-       plain forward; the backward's row at phi3's shape: device time,
-       plain, the library's (SDPA's backward alone), its bound at the f32
-       FMA rate and at the bf16 one.
+    a. the backward's registers and spills a kernel instantiation (its
+       build log, ``ptxas flash_attention_bwd ...``); the forward's
+       logsumexp against its plain version, and ``flash_attention_bwd``
+       against ``flash_attention_bwd_plain`` at phi3-mini's shape
+       (causal, BH = 64, S = 4096, D = 96, bf16), llava's D = 128,
+       whisper-tiny's encoder (non-causal, BH = 6, 1500 frames, f32 and
+       bf16) and D = 16 and 32 (2e-5 of the largest magnitude in f32,
+       1e-2 in bf16, and in bf16 a mean error of 1e-4 of the mean
+       magnitude, which a dS rounded once to bf16 would exceed), each
+       launched twice and equal bit for bit, every
+       bf16 case on the tensor-core route and every f32 one on the SIMT
+       route; ``_FlashCore``'s gradients against autograd through the
+       plain forward; the backward's rows at phi3's shape, llava's D =
+       128 (BH = 32, causal) and whisper-tiny's encoder in bf16: device
+       time, plain, the library's (SDPA's backward alone), its bound at
+       the f32 FMA rate and at the bf16 one.
     b. phi3-mini-3.8b at full width through ``Trainer``: bf16, flash,
        full remat, 4096 tokens x batch 2, bf16 moments, weights drawn on
        the card; 4 steps, a checkpoint every 2 into a temporary
        directory: finite losses, 64 forward and 32 backward flash
-       launches a step, step ms (CUDA events), tokens a second, peak
-       memory; step_4 loaded onto the card bit for bit; one more step
-       profiled (the device split into flash forward, flash backward,
-       GEMMs and the rest; J a step at the power limit); a fresh
+       launches a step, every backward launch on the tensor-core route,
+       step ms (CUDA events), tokens a second, peak memory; step_4
+       loaded onto the card bit for bit; one more step profiled (the
+       device split into flash forward, flash backward, GEMMs and the
+       rest; the backward's kernels by name, 32 each of the delta and
+       the tensor-core dK/dV and dQ kernels and no SIMT kernel; J a step
+       at the power limit); a fresh
        ``Trainer`` restores step_2 and reruns steps 2-3 within 1e-3.
     c. the CLI: ``launch.train.main`` on whisper-tiny at full width, 4
        steps, ends with ``final:``.
     ``train ...`` lines, then ``train phase: N s``. The backward's
-    kernels-line entry sums its row over a training step (32 launches);
-    its ``launches`` are 19b's continuous run's.
+    kernels-line entry sums its phi3 row over a training step (32
+    launches), keeps the other rows under ``by_phase``, its kernels'
+    registers and spills (``ptxas``) and the profiled step's kernels by
+    name (``device_kernels``); its ``launches`` are 19b's continuous
+    run's.
 
 The last two lines are the kernels' JSON record and the result line; each
 kernel's record also carries its launches on the tuned paths' eager loops
@@ -476,6 +488,7 @@ from __future__ import annotations
 import collections
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -613,6 +626,11 @@ FLASH_PHI3 = [(32, 4096, 4096, 96, 32, "bfloat16", True)]
 # at batch 2 (BH = 64), causal, one launch a layer: (bh, sq, sk, d, dtype,
 # causal, launches a training step)
 FLASH_BWD_PHI3 = [(64, 4096, 4096, 96, "bfloat16", True, 32)]
+# timed beside it in phase 19a, one launch each: llava's head size 128
+# (causal, 32 heads, one 4096-token row) and whisper-tiny's encoder in bf16
+# (6 heads of 64, 1500 frames, not causal)
+FLASH_BWD_LLAVA = [(32, 4096, 4096, 128, "bfloat16", True, 1)]
+FLASH_BWD_WHISPER = [(6, 1500, 1500, 64, "bfloat16", False, 1)]
 # phase 2's rows at the 4096-token forward's shapes, measured last (after
 # phase 17), so that phases 3-16 run after the same phase 2 as before
 # they were added: their plain versions launch some 13,000 kernels a
@@ -692,7 +710,9 @@ KERNELS = {
     "flash_attention_bwd": dict(
         source="src/repro_torch/csrc/flash_attention_bwd.cu",
         replaces="src/repro/models/attention.py:166",
-        shapes={"phi3-mini training step": FLASH_BWD_PHI3},
+        shapes={"phi3-mini training step": FLASH_BWD_PHI3,
+                "llava-next-mistral-7b layer": FLASH_BWD_LLAVA,
+                "whisper-tiny encoder layer": FLASH_BWD_WHISPER},
         summed=("phi3-mini training step",),
         library_call="the backward of torch.nn.functional."
                      "scaled_dot_product_attention on the same bf16 q, k, v "
@@ -5845,6 +5865,12 @@ TRAIN_DESCENT_STEPS, TRAIN_DESCENT_LR = 3, 3e-4
 # sums in another order; in bf16 the outputs round to bf16 (2^-8) after
 # sums that may differ in their last f32 bits
 FLASH_BWD_TOL = {"float32": 2e-5, "bfloat16": 1e-2}
+# bf16 kernel vs plain, each output's mean |kernel - plain| over its mean
+# magnitude: where the two agree before the outputs round to bf16, the
+# roundings differ in few elements; a dS rounded once to bf16 (2^-9)
+# before the dK and dQ products, not split as hi + lo, moves most of them
+# (tools/flash_bwd_ds_ablation.py measures both)
+FLASH_BWD_MEAN_TOL = 1e-4
 # 19a checks: llava's head size 128 (causal, BH = 32), whisper-tiny's
 # encoder (non-causal, 6 heads of 64, 1500 frames: ragged against 64) in
 # f32 and bf16, and the head sizes 16 and 32 (ragged, cross lengths)
@@ -5864,6 +5890,11 @@ FLASH_CORE_TOL = {"float32": 2e-5, "bfloat16": 1e-2}
 TRAIN_SPLIT_WORDS = (("flash_fwd", ("flash_fwd",)),
                      ("flash_bwd", ("flash_bwd",)),
                      ("gemm", LIBRARY_WORDS))
+# the backward's kernels a bf16 layer launches in a step: delta, then the
+# tensor-core dK/dV and dQ kernels; the SIMT ones (f32) must not appear
+TRAIN_BWD_KERNELS = ("flash_bwd_delta_kernel", "flash_bwd_dkdv_mma_kernel",
+                     "flash_bwd_dq_mma_kernel")
+TRAIN_BWD_SIMT = ("flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel")
 
 
 def _flash_bwd_case(gen, bh, sq, sk, d, dt, causal):
@@ -5905,6 +5936,14 @@ def _bwd_err(got, want):
                for g, w in zip(got, want))
 
 
+def _bwd_mean_err(got, want):
+    """The largest of the three outputs' mean |kernel - plain|, each over
+    its plain output's mean magnitude."""
+    return max(((g.float() - w.float()).abs().mean()
+                / w.float().abs().mean().clamp(min=1e-30)).item()
+               for g, w in zip(got, want))
+
+
 def train_kernel_checks():
     """Phase 19a: the forward's logsumexp against its plain version, the
     backward against its plain version at FLASH_BWD_CHECKS (two launches
@@ -5926,19 +5965,31 @@ def train_kernel_checks():
         _, lse_want = fa.flash_attention_fwd_plain(q, k, v, causal=causal,
                                                    return_lse=True)
         lse_err = (lse - lse_want).abs().max().item()
+        routes = dict(fa.flash_attention_bwd.launches_by_route)
         got = fa.flash_attention_bwd(*args, causal=causal)
         again = fa.flash_attention_bwd(*args, causal=causal)
         want = fa.flash_attention_bwd_plain(*args, causal=causal)
         torch.cuda.synchronize()
-        err = _bwd_err(got, want)
+        taken = {r: n - routes[r] for r, n
+                 in fa.flash_attention_bwd.launches_by_route.items()}
+        route = "mma" if dt == "bfloat16" else "simt"
+        err, mean_err = _bwd_err(got, want), _bwd_mean_err(got, want)
         same = all(torch.equal(a, b) for a, b in zip(got, again))
         print(f"check flash_attention_bwd bh={bh} sq={sq} sk={sk} d={d} "
-              f"{dt} causal={causal}: rel_err={err:.3e} (tolerance "
-              f"{FLASH_BWD_TOL[dt]}), repeat_bitwise={same}; lse "
-              f"max_abs_err={lse_err:.3e}", flush=True)
+              f"{dt} causal={causal}: route {route} {taken}, rel_err="
+              f"{err:.3e} (tolerance {FLASH_BWD_TOL[dt]}), mean_err="
+              f"{mean_err:.3e} (bf16 tolerance {FLASH_BWD_MEAN_TOL}), "
+              f"repeat_bitwise={same}; lse max_abs_err={lse_err:.3e}",
+              flush=True)
+        if taken[route] != 2 or sum(taken.values()) != 2:
+            raise AssertionError(f"flash_attention_bwd {dt}: routes "
+                                 f"{taken}, expected 2 on {route}")
         if not err <= FLASH_BWD_TOL[dt]:
             raise AssertionError(f"flash_attention_bwd {bh, sq, sk, d, dt}: "
                                  f"relative error {err}")
+        if dt == "bfloat16" and not mean_err <= FLASH_BWD_MEAN_TOL:
+            raise AssertionError(f"flash_attention_bwd {bh, sq, sk, d, dt}: "
+                                 f"mean relative error {mean_err}")
         if not same:
             raise AssertionError("flash_attention_bwd: two launches differ")
         if not lse_err <= FLASH_LSE_TOL * max(
@@ -5976,49 +6027,63 @@ def train_kernel_checks():
             raise AssertionError(f"_FlashCore gradients {dt}: {err}")
 
     rows = []
-    for bh, sq, sk, d, dt, causal, count in FLASH_BWD_PHI3:
-        args, library, moved, flops = _flash_bwd_case(gen, bh, sq, sk, d,
-                                                      dt, causal)
-
-        def kernel():
-            return fa.flash_attention_bwd(*args, causal=causal)
-
-        def plain():
-            return fa.flash_attention_bwd_plain(*args, causal=causal)
-        got, want = kernel(), plain()
-        err = _bwd_err(got, want)
-        abs_err = max((g.float() - w.float()).abs().max().item()
-                      for g, w in zip(got, want))
-        del got, want
-        if not err <= FLASH_BWD_TOL[dt]:
-            raise AssertionError(f"flash_attention_bwd row: {err}")
-        bytes_ms = moved / HBM_BYTES_PER_S * 1e3
-        ops_ms = flops / FLOPS_PER_S[dt] * 1e3
-        b_ms, b_by = bound(bytes_ms, ops_ms)
-        timed = {"ms": device_ms(kernel, iters=5),
-                 "plain_ms": device_ms(plain, iters=2),
-                 "library_ms": device_ms(library, iters=5)}
-        row = dict(max_abs_err=abs_err, rel_err=err, bytes=moved,
-                   flops=flops,
-                   bytes_ms=bytes_ms, ops_ms=ops_ms,
-                   wall_ms=wall_ms(kernel, iters=5), bound_ms=b_ms,
-                   bound_by=b_by,
-                   bound_f32_simt_ms=max(bytes_ms, flops / FLOPS_PER_S[
-                       "float32"] * 1e3),
-                   **{key: ms for key, (ms, _) in timed.items()},
-                   ms_source={key: src for key, (_, src) in timed.items()},
-                   bh=bh, sq=sq, sk=sk, d=d, dtype=dt, causal=causal,
-                   per="phi3-mini training step", per_step=count)
-        print(f"kernel flash_attention_bwd bh={bh} sq={sq} sk={sk} d={d} "
-              f"{dt} causal={causal} x{count} per training step: "
-              f"rel_err={err:.3e} ms={row['ms']:.5f} "
-              f"wall_ms={row['wall_ms']:.5f} plain_ms={row['plain_ms']:.5f} "
-              f"library_ms={row['library_ms']:.5f} bound_ms="
-              f"{row['bound_ms']:.5f} ({b_by}, {dt}) bound_f32_simt_ms="
-              f"{row['bound_f32_simt_ms']:.5f}", flush=True)
-        rows.append(row)
-        del args, library
+    for per, shapes in KERNELS["flash_attention_bwd"]["shapes"].items():
+        for shape in shapes:
+            rows.append(_flash_bwd_row(gen, per, *shape))
     return rows
+
+
+def _flash_bwd_row(gen, per, bh, sq, sk, d, dt, causal, count):
+    """The backward's timed row at one shape: kernel against plain, device
+    ms of the kernel, the plain version and SDPA's backward, and the bound
+    at the operands' rate and at the f32 FMA rate."""
+    from repro_torch.kernels import flash_attention as fa
+    args, library, moved, flops = _flash_bwd_case(gen, bh, sq, sk, d,
+                                                  dt, causal)
+
+    def kernel():
+        return fa.flash_attention_bwd(*args, causal=causal)
+
+    def plain():
+        return fa.flash_attention_bwd_plain(*args, causal=causal)
+    got, want = kernel(), plain()
+    err, mean_err = _bwd_err(got, want), _bwd_mean_err(got, want)
+    abs_err = max((g.float() - w.float()).abs().max().item()
+                  for g, w in zip(got, want))
+    del got, want
+    if not err <= FLASH_BWD_TOL[dt]:
+        raise AssertionError(f"flash_attention_bwd row: {err}")
+    if dt == "bfloat16" and not mean_err <= FLASH_BWD_MEAN_TOL:
+        raise AssertionError(f"flash_attention_bwd row: mean {mean_err}")
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / FLOPS_PER_S[dt] * 1e3
+    b_ms, b_by = bound(bytes_ms, ops_ms)
+    timed = {"ms": device_ms(kernel, iters=5),
+             "plain_ms": device_ms(plain, iters=2),
+             "library_ms": device_ms(library, iters=5)}
+    row = dict(max_abs_err=abs_err, rel_err=err, mean_err=mean_err,
+               bytes=moved,
+               flops=flops,
+               bytes_ms=bytes_ms, ops_ms=ops_ms,
+               wall_ms=wall_ms(kernel, iters=5), bound_ms=b_ms,
+               bound_by=b_by,
+               bound_f32_simt_ms=max(bytes_ms, flops / FLOPS_PER_S[
+                   "float32"] * 1e3),
+               **{key: ms for key, (ms, _) in timed.items()},
+               ms_source={key: src for key, (_, src) in timed.items()},
+               bh=bh, sq=sq, sk=sk, d=d, dtype=dt, causal=causal,
+               route="mma" if dt == "bfloat16" else "simt", per=per,
+               per_step=count)
+    print(f"kernel flash_attention_bwd bh={bh} sq={sq} sk={sk} d={d} "
+          f"{dt} causal={causal} x{count} per {per} ({row['route']}): "
+          f"rel_err={err:.3e} mean_err={mean_err:.3e} "
+          f"max_abs_err={abs_err:.3e} "
+          f"ms={row['ms']:.5f} "
+          f"wall_ms={row['wall_ms']:.5f} plain_ms={row['plain_ms']:.5f} "
+          f"library_ms={row['library_ms']:.5f} bound_ms="
+          f"{row['bound_ms']:.5f} ({b_by}, {dt}) bound_f32_simt_ms="
+          f"{row['bound_f32_simt_ms']:.5f}", flush=True)
+    return row
 
 
 def _train_grad_check(cfg, params, batch):
@@ -6054,9 +6119,11 @@ def _train_grad_check(cfg, params, batch):
 def _train_split(prof):
     """One profiled step's device time by kind: the flash forward
     (recompute included), the flash backward, the GEMMs (cuBLAS's), and
-    the rest; with each kind's launches."""
+    the rest; with each kind's launches. Also the backward's launches and
+    device ms by kernel name (``flash_bwd_..._kernel<...>``)."""
     split = {name: [0, 0.0] for name, _ in TRAIN_SPLIT_WORDS}
     split["rest"] = [0, 0.0]
+    bwd = {}
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", 0.0)
         if not us > 0 or SPIN_KERNEL in e.key:
@@ -6065,12 +6132,53 @@ def _train_split(prof):
                      if any(w in e.key for w in words)), "rest")
         split[kind][0] += e.count
         split[kind][1] += us / 1e3
+        if kind == "flash_bwd":
+            m = re.search(r"flash_bwd_\w+_kernel(<[^>(]*>)?", e.key)
+            name = m.group(0) if m else e.key
+            got = bwd.setdefault(name, {"launches": 0, "device_ms": 0.0})
+            got["launches"] += e.count
+            got["device_ms"] += us / 1e3
     return {k: {"launches": n, "device_ms": ms} for k, (n, ms)
-            in split.items()}
+            in split.items()}, bwd
 
 
-def train_phase():
-    """Phase 19: 19a the kernels (``train_kernel_checks``); 19b phi3-mini
+def ptxas_report(log: str):
+    """Registers and spills of each flash backward kernel from an nvcc
+    ``-Xptxas -v`` log: [{kernel, dtype, d, registers, spill_stores,
+    spill_loads}], one an instantiation."""
+    out, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            mangled = m.group(1)
+            name = re.search(r"flash_bwd_[a-z_]+?_kernel", mangled)
+            cur = None
+            if name:
+                d = re.search(r"Li(\d+)E", mangled)
+                cur = dict(kernel=name.group(0),
+                           dtype="bfloat16" if "bfloat16" in mangled
+                           or "mma" in name.group(0) else "float32",
+                           d=int(d.group(1)) if d else None,
+                           registers=None, spill_stores=None,
+                           spill_loads=None)
+                out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return out
+
+
+def train_phase(bwd_log: str):
+    """Phase 19: 19a the kernels (``train_kernel_checks``), after the
+    backward's registers and spills from its build log ``bwd_log``
+    (``ptxas_report``); 19b phi3-mini
     at full width through ``Trainer``: TRAIN_STEPS steps with checkpoints
     every TRAIN_CKPT_EVERY into a temporary directory (finite losses; the
     flash backward launched once a layer a step; step ms by CUDA events,
@@ -6104,6 +6212,15 @@ def train_phase():
                "flash_attention_bwd": fa.flash_attention_bwd}
     t0 = time.perf_counter()
     summary = {"memory_at_start": release_memory("train phase")}
+    summary["ptxas"] = ptxas_report(bwd_log)
+    for r in summary["ptxas"]:
+        print(f"ptxas flash_attention_bwd {r['kernel']} {r['dtype']} "
+              f"D={r['d']}: {r['registers']} registers, "
+              f"{r['spill_stores']} bytes spill stores, "
+              f"{r['spill_loads']} bytes spill loads", flush=True)
+    if not summary["ptxas"]:
+        print("ptxas flash_attention_bwd: built before this run, no report",
+              flush=True)
     rows = train_kernel_checks()
     summary["kernels_s"] = time.perf_counter() - t0
     print(f"train phase 19a: {summary['kernels_s']:.1f}s", flush=True)
@@ -6134,10 +6251,13 @@ def train_phase():
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         _zero(counted)
+        routes = dict(fa.flash_attention_bwd.launches_by_route)
         tr.train()
         mark(TRAIN_STEPS)
         torch.cuda.synchronize()
         launches = _read(counted)
+        routes = {r: n - routes[r] for r, n
+                  in fa.flash_attention_bwd.launches_by_route.items()}
         peak = torch.cuda.max_memory_allocated()
         losses = [h["loss"] for h in tr.history]
         step_ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
@@ -6146,7 +6266,7 @@ def train_phase():
               f"step_ms (CUDA events, a step's window holds the checkpoint "
               f"saved after it) {step_ms}, host dt_s "
               f"{[h['dt_s'] for h in tr.history]}, peak_bytes {peak}, "
-              f"launches {launches}", flush=True)
+              f"launches {launches}, backward routes {routes}", flush=True)
         if not all(map(lambda x: x == x and abs(x) != float("inf"),
                        losses)):
             raise AssertionError(f"non-finite training losses {losses}")
@@ -6156,12 +6276,16 @@ def train_phase():
             raise AssertionError(f"training launches {launches}, expected "
                                  f"{want} (forward and its recompute, one "
                                  "backward a layer a step)")
+        if routes != {"mma": want["flash_attention_bwd"], "simt": 0}:
+            raise AssertionError(f"the bf16 backward's routes {routes}: "
+                                 "every launch on the tensor cores")
         # steps 0 and 2 save nothing: step 2 is the steady one
         steady_ms = step_ms[2]
         power_w = energy.card_power_limit_w(0)
         summary["train"] = dict(
             arch=TRAIN_ARCH, n_params=cfg.n_params(), seq=TRAIN_SEQ,
             batch=TRAIN_BATCH, moments=TRAIN_STATE_DTYPE, losses=losses,
+            bwd_routes=routes,
             step_ms_events=step_ms, step_ms=steady_ms,
             tokens_per_s=TRAIN_SEQ * TRAIN_BATCH / (steady_ms / 1e3),
             peak_bytes=peak, power_limit_w=power_w,
@@ -6201,12 +6325,13 @@ def train_phase():
         # records and is profiled again (a step's launches are fixed)
         want = {"flash_bwd": 3 * cfg.num_layers,
                 "flash_fwd": 2 * cfg.num_layers}
+        want_bwd = {name: cfg.num_layers for name in TRAIN_BWD_KERNELS}
         for attempt in range(REPLAY_PROFILES):
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 _open_window()
                 tr.state, _ = tr._step_fn(tr.state, batch)
                 torch.cuda.synchronize()
-            split = _train_split(prof)
+            split, bwd_kernels = _train_split(prof)
             del prof
             seen = {k: split[k]["launches"] for k in want}
             if seen == want:
@@ -6234,6 +6359,17 @@ def train_phase():
             raise AssertionError(f"profiled step's flash kernels {split}: "
                                  "expected 3 backward kernels and 2 forward "
                                  "launches a layer")
+        by_word = {w: sum(k["launches"] for name, k in bwd_kernels.items()
+                          if name.split("<")[0] == w)
+                   for w in TRAIN_BWD_KERNELS + TRAIN_BWD_SIMT}
+        summary["train"]["bwd_kernels"] = bwd_kernels
+        print(f"train step flash backward kernels (profiled step): "
+              f"{json.dumps(bwd_kernels)}", flush=True)
+        if {w: by_word[w] for w in TRAIN_BWD_KERNELS} != want_bwd or any(
+                by_word[w] for w in TRAIN_BWD_SIMT):
+            raise AssertionError(f"profiled step's backward kernels "
+                                 f"{bwd_kernels}: expected {want_bwd} and "
+                                 f"no SIMT kernel")
 
         # is the step right? its gradients against attn_impl="chunked"'s,
         # then TRAIN_DESCENT_STEPS steps on that one batch at the
@@ -6477,7 +6613,7 @@ def main() -> int:
         records[name] += rows
     print(f"late kernel rows: {time.perf_counter() - t0:.1f}s", flush=True)
     records["flash_attention_bwd"], train_main, path_launches["train"], \
-        train_summary = train_phase()
+        train_summary = train_phase(logs.get("flash_attention_bwd", ""))
     # a new dict: path_launches["main"] keeps the whisper main path's
     launches = dict(launches,
                     flash_attention_bwd=train_main["flash_attention_bwd"])
@@ -6512,6 +6648,9 @@ def main() -> int:
             launches_by_path={path: got.get(name, 0)
                               for path, got in path_launches.items()},
             tiles=tile_records.get(name, []),
+            **({"ptxas": train_summary["ptxas"],
+                "device_kernels": train_summary["train"]["bwd_kernels"]}
+               if name == "flash_attention_bwd" else {}),
             **{key: total(key) for key in extras},
             by_phase={per: {key: total(key, per) for key in (
                 "ms", "plain_ms", "library_ms", "bytes_ms", "ops_ms",

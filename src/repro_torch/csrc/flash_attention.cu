@@ -241,51 +241,10 @@ constexpr int kTcRows = 16 * kTcWarps;       // query rows per block
 constexpr int kTcThreads = 32 * kTcWarps;
 constexpr int kTcKeys = kBK * kTcSub;        // keys per ring stage
 
-// elements a row of a shared-memory tile spans: D, or 128 at D = 96, whose
-// 12 chunks of 8 values the swizzle below cannot permute within the row
-template <int D>
-__host__ __device__ constexpr int tc_ld() {
-  return D == 96 ? 128 : D;
-}
-
 template <int D>
 constexpr int tc_smem_bytes() {              // q tile + k and v rings
   return (kTcRows + 2 * kTcStages * kTcKeys) * tc_ld<D>() *
          static_cast<int>(sizeof(bf16));
-}
-
-// element offset of chunk c (8 values, 16 bytes) of row r in a tile of rows
-// of tc_ld<D>() values, swizzled so that the 8 rows an ldmatrix reads (and
-// the rows a warp's copies write) fall on distinct banks: chunk c ^ (a
-// function of r). A row of C = D/8 chunks: at C = 2, 4 or 8 the row spans
-// 8 / C of the 8 chunk slots of 128 bytes, and the XOR reads the row index
-// above them; at D = 128 (C = 16) and D = 96 (12 chunks in a padded row
-// of 16) the XOR permutes the low 3 bits of c, within each group of 8.
-template <int D>
-__device__ __forceinline__ int swz(int r, int c) {
-  constexpr int C = D / 8;
-  if constexpr (C <= 8)
-    return r * D + ((c ^ ((r / (8 / C)) & (C - 1))) << 3);
-  else
-    return r * tc_ld<D>() + (((c & ~7) | ((c ^ r) & 7)) << 3);
-}
-
-// R rows r0.. of a (rows, D) bf16 operand with row stride ld into a
-// swizzled tile, raw, with 16-byte cp.async; zero past `rows`. Copy i of
-// thread t is chunk (t + i kTcThreads) % C of row (t + i kTcThreads) / C.
-template <int R, int D>
-__device__ __forceinline__ void copy_rows(bf16* dst, const bf16* src,
-                                          long long ld, int r0, int rows) {
-  constexpr int C = D / 8;
-  static_assert(R * C % kTcThreads == 0, "whole passes");
-#pragma unroll
-  for (int i = 0; i < R * C / kTcThreads; ++i) {
-    const int idx = threadIdx.x + i * kTcThreads;
-    const int r = idx / C, c = idx % C;
-    const bool ok = r0 + r < rows;
-    hopper::cp_async16(dst + swz<D>(r, c),
-                       ok ? src + (r0 + r) * ld + c * 8 : src, ok);
-  }
 }
 
 // One ring stage (kTcSub key blocks from key block kb0) for one warp's 16
@@ -439,13 +398,15 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   if (causal) nkb = min(nkb, q_last / kBK + 1);
   const int nst = (nkb + SUB - 1) / SUB;     // ring stages
 
-  copy_rows<BQ, D>(qs, q, q_ss, q0, sq);
+  copy_rows<BQ, D, kTcThreads>(qs, q, q_ss, q0, sq);
   cp_async_commit();
 #pragma unroll
   for (int st = 0; st < STAGES - 1; ++st) {
     if (st < nst) {
-      copy_rows<KS, D>(ks + st * KS * LD, k, k_ss, st * KS, sk);
-      copy_rows<KS, D>(vs + st * KS * LD, v, v_ss, st * KS, sk);
+      copy_rows<KS, D, kTcThreads>(ks + st * KS * LD, k, k_ss, st * KS,
+                                   sk);
+      copy_rows<KS, D, kTcThreads>(vs + st * KS * LD, v, v_ss, st * KS,
+                                   sk);
     }
     cp_async_commit();                       // one group per stage
   }
@@ -483,8 +444,10 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int jn = j + STAGES - 1;
     if (jn < nst) {
       const int st = jn % STAGES;
-      copy_rows<KS, D>(ks + st * KS * LD, k, k_ss, jn * KS, sk);
-      copy_rows<KS, D>(vs + st * KS * LD, v, v_ss, jn * KS, sk);
+      copy_rows<KS, D, kTcThreads>(ks + st * KS * LD, k, k_ss, jn * KS,
+                                   sk);
+      copy_rows<KS, D, kTcThreads>(vs + st * KS * LD, v, v_ss, jn * KS,
+                                   sk);
     }
     cp_async_commit();
     if (w0 > w_last) continue;               // warp-uniform from here on
@@ -562,13 +525,6 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-// rows of a bf16 operand can be copied 16 bytes at a time
-bool rows16(const void* p, long long sbh, long long ss) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0 &&
-         (sbh * static_cast<long long>(sizeof(bf16))) % 16 == 0 &&
-         (ss * static_cast<long long>(sizeof(bf16))) % 16 == 0;
-}
-
 template <typename T, int D>
 cudaError_t launch_d(bool mma, const void* q, const void* k, const void* v,
                      long long q_sbh, long long q_ss, long long k_sbh,
@@ -623,6 +579,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
   auto* l = static_cast<float*>(lse);        // null: no logsumexp
   auto st = static_cast<cudaStream_t>(stream);
   // the tensor-core kernel takes bf16 whose rows cp.async can copy
+  using flash::rows16;
   const bool mma = bf16_inputs && rows16(q, q_sbh, q_ss) &&
                    rows16(k, k_sbh, k_ss) && rows16(v, v_sbh, v_ss);
   const cudaError_t err =

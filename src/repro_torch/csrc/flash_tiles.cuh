@@ -1,12 +1,16 @@
-// Shared-memory tiles of the SIMT flash-attention kernels, forward
-// (flash_attention.cu) and backward (flash_attention_bwd.cu): 64-row tiles
-// of a (rows, D) operand staged as f32, d-major or row-major, zero past the
-// operand's last row, by 256 threads laid out 16 x 16.
+// Shared-memory tiles of the flash-attention kernels, forward
+// (flash_attention.cu) and backward (flash_attention_bwd.cu). The SIMT
+// kernels stage 64-row tiles of a (rows, D) operand as f32, d-major or
+// row-major, zero past the operand's last row, by 256 threads laid out
+// 16 x 16. The tensor-core kernels copy bf16 rows raw into swizzled tiles
+// with cp.async (tc_ld, swz, copy_rows), which ldmatrix reads.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper_mma.cuh"
 
 namespace flash {
 
@@ -83,6 +87,56 @@ __device__ __forceinline__ void stage(float* dst, const T* src, long long ld,
           make_float4(v[4], v[5], v[6], v[7]);
     }
   }
+}
+
+// elements a row of a tensor-core tile spans: D, or 128 at D = 96, whose
+// 12 chunks of 8 values the swizzle below cannot permute within the row
+template <int D>
+__host__ __device__ constexpr int tc_ld() {
+  return D == 96 ? 128 : D;
+}
+
+// element offset of chunk c (8 values, 16 bytes) of row r in a tile of rows
+// of tc_ld<D>() values, swizzled so that the 8 rows an ldmatrix reads (and
+// the rows a warp's copies write) fall on distinct banks: chunk c ^ (a
+// function of r). A row of C = D/8 chunks: at C = 2, 4 or 8 the row spans
+// 8 / C of the 8 chunk slots of 128 bytes, and the XOR reads the row index
+// above them; at D = 128 (C = 16) and D = 96 (12 chunks in a padded row
+// of 16) the XOR permutes the low 3 bits of c, within each group of 8.
+template <int D>
+__device__ __forceinline__ int swz(int r, int c) {
+  constexpr int C = D / 8;
+  if constexpr (C <= 8)
+    return r * D + ((c ^ ((r / (8 / C)) & (C - 1))) << 3);
+  else
+    return r * tc_ld<D>() + (((c & ~7) | ((c ^ r) & 7)) << 3);
+}
+
+// R rows r0.. of a (rows, D) bf16 operand with row stride ld into a
+// swizzled tile, raw, with 16-byte cp.async by the block's NT threads;
+// zero past `rows`. Copy i of thread t is chunk (t + i NT) % C of row
+// (t + i NT) / C.
+template <int R, int D, int NT>
+__device__ __forceinline__ void copy_rows(bf16* dst, const bf16* src,
+                                          long long ld, int r0, int rows) {
+  constexpr int C = D / 8;
+  static_assert(R * C % NT == 0, "whole passes");
+#pragma unroll
+  for (int i = 0; i < R * C / NT; ++i) {
+    const int idx = threadIdx.x + i * NT;
+    const int r = idx / C, c = idx % C;
+    const bool ok = r0 + r < rows;
+    hopper::cp_async16(dst + swz<D>(r, c),
+                       ok ? src + (r0 + r) * ld + c * 8 : src, ok);
+  }
+}
+
+// rows of a (BH, S, D) bf16 operand with these strides (in elements) can
+// be copied 16 bytes at a time
+inline bool rows16(const void* p, long long sbh, long long ss) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 &&
+         (sbh * static_cast<long long>(sizeof(bf16))) % 16 == 0 &&
+         (ss * static_cast<long long>(sizeof(bf16))) % 16 == 0;
 }
 
 // allow a kernel more than 48 KB of dynamic shared memory (once a kernel)

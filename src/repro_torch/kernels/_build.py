@@ -50,10 +50,12 @@ KERNELS: Dict[str, Tuple[str, list]] = {
     "flash_attention_fwd": ("flash_attention",
                             [_P, _P, _P, _I, _L, _L, _L, _L, _L, _L, _P, _P,
                              _I, _I, _I, _I, _I, _P]),
-    # (q, k, v, out, dout, lse, delta scratch, dq, dk, dv, bf16, bh, sq, sk,
-    #  d, causal, stream)
+    # (q, k, v, out, dout, lse, delta scratch, dq, dk, dv, bf16, the (BH,
+    #  S) strides of q, k, v, out and dout, lse's BH stride, bh, sq, sk, d,
+    #  causal, stream)
     "flash_attention_bwd": ("flash_attention_bwd",
-                            [_P] * 10 + [_I] * 6 + [_P]),
+                            [_P] * 10 + [_I] + [_L] * 11 + [_I] * 5
+                            + [_P]),
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

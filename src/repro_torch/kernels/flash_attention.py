@@ -30,9 +30,12 @@ differentiates its flash attention through a custom VJP in plain JAX
 probabilities a key block at a time from (q, k, lse), in three launches
 (delta = rowsum(dO o); dK and dV a key block a block; dQ a query block a
 block) with no float atomics, so that its result does not depend on
-scheduling. ``flash_attention_bwd_plain`` is ``_flash_bwd``'s arithmetic
-in the port's key blocks of ``BLOCK_K``, including the probabilities
-rounded to dO's type before the dV product.
+scheduling. bf16 operands run on the tensor cores (``mma.sync``; dS,
+f32 in the reference, enters the dK and dQ products as a bf16 hi and lo
+pair; rows off a 16-byte boundary are copied first), f32 on f32 FMAs.
+``flash_attention_bwd_plain`` is ``_flash_bwd``'s arithmetic in the
+port's key blocks of ``BLOCK_K``, including the probabilities rounded to
+dO's type before the dV product.
 
 Each wrapper runs its plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel or raises.
@@ -177,13 +180,28 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def _align_rows(t: torch.Tensor) -> torch.Tensor:
+    """``t`` (BH, S, D), or a fresh contiguous copy of it when its rows do
+    not all start on 16-byte boundaries, as the tensor-core kernels'
+    cp.async copies need (``contiguous()`` would return such a tensor
+    itself when it is contiguous but starts off a boundary)."""
+    size = t.element_size()
+    if t.data_ptr() % 16 == 0 and all(s * size % 16 == 0
+                                      for s in t.stride()[:2]):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         out: torch.Tensor, dout: torch.Tensor,
                         lse: torch.Tensor, *, causal: bool = True):
     """The flash-2 backward: q (BH, Sq, D), k/v (BH, Sk, D), the forward's
     output ``out`` and its cotangent ``dout`` (BH, Sq, D), all f32 or all
-    bf16, and the forward's ``lse`` (BH, Sq) f32 -> (dq, dk, dv) in the
-    inputs' types. Strided operands are copied contiguous first."""
+    bf16, and the forward's ``lse`` (BH, Sq) f32 -> contiguous (dq, dk,
+    dv) in the inputs' types. The BH and S strides are free; only an
+    ``out``, ``dout`` or ``lse`` whose last stride is not 1, or a bf16
+    operand whose rows are not 16-byte aligned, is copied (q, k and v must
+    have unit stride along D, as in the forward)."""
     _check_bwd_operands(q, k, v, out, dout, lse)
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, out, dout, lse,
@@ -191,17 +209,28 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     bh, sq, d = q.shape
     sk = k.shape[1]
     _check_head_dim("flash_attention_bwd", d)
-    q, k, v, out, dout, lse = (t.contiguous()
-                               for t in (q, k, v, out, dout, lse))
-    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    out, dout, lse = (t if t.stride(-1) == 1 else t.contiguous()
+                      for t in (out, dout, lse))
+    bf16 = q.dtype == torch.bfloat16
+    if bf16:
+        q, k, v, out, dout = (_align_rows(t) for t in (q, k, v, out, dout))
+    dq = torch.empty((bh, sq, d), dtype=q.dtype, device=q.device)
+    dk, dv = (torch.empty((bh, sk, d), dtype=q.dtype, device=q.device)
+              for _ in range(2))
     delta = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
     _build.call("flash_attention_bwd", q.device,
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                int(q.dtype == torch.bfloat16), bh, sq, sk, d, int(causal))
+                int(bf16),
+                *(s for t in (q, k, v, out, dout) for s in t.stride()[:2]),
+                lse.stride(0), bh, sq, sk, d, int(causal))
     flash_attention_bwd.launches += 1
+    flash_attention_bwd.launches_by_route["mma" if bf16 else "simt"] += 1
     return dq, dk, dv
 
 
 flash_attention_bwd.launches = 0
+# launches by route: "mma" (bf16, on the tensor cores) and "simt" (f32, on
+# f32 FMAs)
+flash_attention_bwd.launches_by_route = {"mma": 0, "simt": 0}

@@ -127,6 +127,84 @@ def test_flash_backward_matches_reference_grad(b, sq, sk, hq, hkv, d,
         np.testing.assert_allclose(got, np.asarray(x), rtol=1e-4, atol=1e-4)
 
 
+def _bwd_operands(dtype=torch.float32, bh=2, sq=5, sk=7, d=16):
+    g = torch.Generator().manual_seed(0)
+    q, out, dout = (torch.randn(bh, sq, d, generator=g).to(dtype)
+                    for _ in range(3))
+    k, v = (torch.randn(bh, sk, d, generator=g).to(dtype) for _ in range(2))
+    return [q, k, v, out, dout, torch.randn(bh, sq, generator=g)]
+
+
+def _misshape(i, shape):
+    def edit(args):
+        args[i] = torch.zeros(shape, dtype=args[i].dtype)
+    return edit
+
+
+def _retype(i, dtype):
+    def edit(args):
+        args[i] = args[i].to(dtype)
+    return edit
+
+
+def _last_strided(i):
+    def edit(args):
+        t = args[i]
+        args[i] = t.transpose(1, 2).contiguous().transpose(1, 2)
+    return edit
+
+
+def _on_meta(i):
+    def edit(args):
+        args[i] = args[i].to("meta")
+    return edit
+
+
+@pytest.mark.parametrize("edit,error", [
+    (_misshape(0, (2, 5)), ValueError),             # q not 3-D
+    (_misshape(1, (2, 6, 16)), ValueError),         # k and v disagree
+    (_misshape(0, (2, 0, 16)), ValueError),         # Sq = 0
+    (_misshape(3, (2, 4, 16)), ValueError),         # out not q's shape
+    (_misshape(4, (2, 5, 8)), ValueError),          # dout not q's shape
+    (_misshape(5, (2, 4)), ValueError),             # lse not (BH, Sq)
+    (_retype(5, torch.float64), ValueError),        # lse not f32
+    (_retype(0, torch.float16), TypeError),         # q not f32 or bf16
+    (_retype(1, torch.bfloat16), TypeError),        # k not q's type
+    (_retype(4, torch.bfloat16), TypeError),        # dout not q's type
+    (_last_strided(0), ValueError),                 # q's D stride not 1
+    (_on_meta(3), ValueError),                      # out elsewhere
+])
+def test_flash_backward_wrapper_refuses_what_it_refused(edit, error):
+    """The wrapper's shape, type and device checks, which run before the
+    route is chosen: what they refused before the (BH, S) strides were
+    taken as they are, they refuse now."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    args = _bwd_operands()
+    edit(args)
+    with pytest.raises(error):
+        flash_attention_bwd(*args[:5], args[5], causal=True)
+
+
+@pytest.mark.parametrize("offset,pad,copied", [
+    (0, 0, False), (8, 0, False),      # rows on 16-byte boundaries
+    (1, 0, True),                      # the start 2 bytes off a boundary
+    (0, 4, True)])                     # a row stride of 36 bf16 values
+def test_flash_backward_aligns_bf16_rows(offset, pad, copied):
+    """What the bf16 backward hands its tensor-core kernels: an operand
+    whose rows all start on 16-byte boundaries as it is, any other as a
+    fresh contiguous copy with the same values (``contiguous()`` would
+    return an unaligned contiguous view itself)."""
+    from repro_torch.kernels.flash_attention import _align_rows
+    bh, s, d = 2, 5, 32
+    buf = torch.arange(bh * s * (d + pad) + offset,
+                       dtype=torch.float32).to(torch.bfloat16)
+    t = buf[offset:].view(bh, s, d + pad)[..., :d]
+    got = _align_rows(t)
+    assert (got is not t) == copied and torch.equal(got, t)
+    assert got.data_ptr() % 16 == 0
+    assert all(st * 2 % 16 == 0 for st in got.stride()[:2])
+
+
 def test_raw_forward_with_a_gradient_raises():
     q = torch.randn(2, 8, 16, requires_grad=True)
     k, v = torch.randn(2, 8, 16), torch.randn(2, 8, 16)

@@ -1,8 +1,12 @@
 """Training on a CUDA device: the flash forward's logsumexp and the flash-2
 backward (``flash_attention_bwd``) against their plain versions at every
 head size the kernels are built for, causal and not, ragged Sq and Sk,
-f32 and bf16; two launches of the backward bit for bit equal; the
-forward's output unchanged by asking for the logsumexp; ``_FlashCore``'s
+f32 and bf16, every bf16 case on the tensor-core route and every f32 one
+on the SIMT route; two launches of the backward bit for bit equal;
+strided operands (free (BH, S) strides, an out, dout or lse whose last
+stride is not 1, bf16 rows off a 16-byte boundary) equal bit for bit to
+contiguous ones; the forward's output unchanged by asking for the
+logsumexp; ``_FlashCore``'s
 gradients against autograd through the plain forward; and a 3-step smoke
 ``Trainer`` on the card under ``attn_impl="flash"`` whose every gradient
 leaf is non-zero (a flash forward without a backward would leave q, k
@@ -27,12 +31,20 @@ from repro_torch.kernels.flash_attention import (
 # another order (2e-5); in bf16 the outputs round to bf16 (2^-8 relative)
 # after sums that may differ in their last f32 bits (1e-2)
 TOL = {"float32": 2e-5, "bfloat16": 1e-2}
+# bf16, each output's mean |kernel - plain| over its mean magnitude
+# (chip_smoke.py's FLASH_BWD_MEAN_TOL): the two roundings to bf16 differ
+# in few elements; a dS rounded once to bf16 before the dK and dQ
+# products, instead of entering them as hi + lo, moves most of them
+MEAN_TOL = 1e-4
 # (bh, sq, sk, d, causal): every head size; ragged lengths; a block of one
-# query; cross-attention lengths (sk != sq, not causal)
+# query; cross-attention lengths (sk != sq, not causal); at D = 96 and 128
+# lengths that are multiples of neither 16 nor 64, causal and not
 SHAPES = [(3, 101, 101, 16, True), (2, 64, 64, 32, True),
           (2, 130, 130, 64, True), (3, 45, 200, 16, False),
           (2, 100, 77, 96, False), (2, 150, 150, 96, True),
-          (2, 129, 129, 128, True), (1, 1, 64, 32, False)]
+          (2, 129, 129, 128, True), (1, 1, 64, 32, False),
+          (2, 83, 83, 96, True), (2, 75, 141, 128, False),
+          (2, 203, 203, 128, True), (2, 141, 75, 96, False)]
 
 
 def _cuda_or_skip():
@@ -54,6 +66,12 @@ def _operands(bh, sq, sk, d, dtype, dev, seed=0):
 def _rel_err(got, want) -> float:
     got, want = got.float(), want.float()
     return float((got - want).abs().max() / want.abs().max().clamp(min=1e-30))
+
+
+def _mean_err(got, want) -> float:
+    got, want = got.float(), want.float()
+    return float((got - want).abs().mean()
+                 / want.abs().mean().clamp(min=1e-30))
 
 
 @pytest.mark.gpu
@@ -85,15 +103,70 @@ def test_backward_matches_plain_and_repeats_bit_for_bit(bh, sq, sk, d,
     out, lse = flash_attention_fwd(q, k, v, causal=causal, return_lse=True)
     out = out.to(q.dtype)
     before = flash_attention_bwd.launches
+    routes = dict(flash_attention_bwd.launches_by_route)
     got = flash_attention_bwd(q, k, v, out, dout, lse, causal=causal)
     again = flash_attention_bwd(q, k, v, out, dout, lse, causal=causal)
     torch.cuda.synchronize()
     assert flash_attention_bwd.launches == before + 2
+    route = "mma" if dtype == "bfloat16" else "simt"
+    assert {r: n - routes[r] for r, n in
+            flash_attention_bwd.launches_by_route.items()} == {
+        "mma": 0, "simt": 0, route: 2}
     want = flash_attention_bwd_plain(q, k, v, out, dout, lse, causal=causal)
     for name, g, a, w in zip("qkv", got, again, want):
         assert g.dtype == w.dtype and g.shape == w.shape
         assert torch.equal(g, a), f"d{name} differs between launches"
         assert _rel_err(g, w) <= TOL[dtype], (name, _rel_err(g, w))
+        if dtype == "bfloat16":
+            assert _mean_err(g, w) <= MEAN_TOL, (name, _mean_err(g, w))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_backward_takes_strided_operands(causal, dtype):
+    """(BH, S, D) views of (B, S, H, D) tensors, as ``_flash_attention``
+    folds them at B = 1; an out, dout or lse whose last stride is not 1;
+    and (bf16) rows one element off a 16-byte boundary: each gives the
+    bits of its contiguous copies, on the dtype's route."""
+    dev = _cuda_or_skip()
+    h, s, d = 4, 150, 96
+    rng = np.random.default_rng(7)
+
+    def heads():           # (1, S, H, D) folded to a (H, S, D) view
+        x = rng.standard_normal((1, s, h, d)).astype(np.float32)
+        return torch.from_numpy(x).to(dev, getattr(torch, dtype)).transpose(
+            1, 2).reshape(h, s, d)
+    q, k, v, dout = heads(), heads(), heads(), heads()
+    assert not q.is_contiguous()
+    out, lse = flash_attention_fwd(q, k, v, causal=causal, return_lse=True)
+    out = out.to(q.dtype).transpose(0, 1).contiguous().transpose(0, 1)
+    assert not out.is_contiguous()
+    flat = flash_attention_bwd(*(t.contiguous() for t in
+                                 (q, k, v, out, dout)), lse, causal=causal)
+
+    def last_strided(t):   # the same values, stride 1 along S, not D
+        return t.transpose(-1, -2).contiguous().transpose(-1, -2)
+
+    def shifted(t):        # the same values, rows 2 bytes off a boundary
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        return view
+    cases = [(q, k, v, out, dout, lse),
+             (q, k, v, last_strided(out), dout, lse),
+             (q, k, v, out, last_strided(dout), lse),
+             (q, k, v, out, dout, last_strided(lse))]
+    if dtype == "bfloat16":
+        cases.append((*(shifted(t) for t in (q, k, v, out, dout)), lse))
+    route = "mma" if dtype == "bfloat16" else "simt"
+    for args in cases:
+        before = flash_attention_bwd.launches_by_route[route]
+        got = flash_attention_bwd(*args, causal=causal)
+        torch.cuda.synchronize()
+        assert flash_attention_bwd.launches_by_route[route] == before + 1
+        for g, f in zip(got, flat):
+            assert g.is_contiguous() and torch.equal(g, f)
 
 
 @pytest.mark.gpu
