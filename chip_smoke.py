@@ -18,7 +18,10 @@ own kernels with nvcc. Phases, each of which fails the run on error:
    time the card could take (the larger of bytes over 3.35 TB/s and FLOPs
    over the peak for the operands' type: 989 TFLOP/s for bf16 operands,
    and for a bf16 x times int8 weights, whose product is exact on the
-   tensor cores; 67 TFLOP/s for f32 x), and one PyTorch call as a library
+   tensor cores; for an f32 x times int8 weights three bf16 products a
+   multiply-add at that rate, the exact split ``q8_matmul`` makes, with
+   the 67 TFLOP/s f32 FMA bound beside it as ``bound_f32_fma_ms``), and
+   one PyTorch call as a library
    yardstick, timed here and used nowhere in the port: ``torch.matmul``
    against the pre-dequantized f32 weight for the Q8_0 kernels (no single
    PyTorch call computes a Q8_0 product), ``torch.mm(..., out_dtype=
@@ -45,7 +48,10 @@ own kernels with nvcc. Phases, each of which fails the run on error:
    must agree with the card's. A profiled prefill and 8 decode steps give
    each phase's device time, idle share and top kernels by name; the
    prefill's 32 ``q8_matmul`` launches must all be its tensor-core kernel
-   (``q8_wgmma_kernel``), none the f32 SIMT one.
+   (``q8_wgmma_kernel``), none the converting f32 one
+   (``q8_split_tc_kernel``). Where a profiled window of known launches
+   differs, the wrappers' own counts over it are printed beside the
+   profiler's.
 4. Batch 2 at full width, where the encoder's ffn.down (M = 3000, K = 1536)
    fails the reference's local-memory rule (``offload=False`` in its plan
    entries): a captured ``transcribe`` gives the plans and its tokens, and
@@ -74,7 +80,12 @@ own kernels with nvcc. Phases, each of which fails the run on error:
    ``wgmma_kernel`` + 4 ``flash_fwd_mma_kernel`` and 33
    ``gemv_bf16_kernel`` on dense), beside phase 3's and 5's eager split;
    the dot-product kernels' share of the replayed step's device time and
-   its Amdahl bound, beside the paper's shares.
+   its Amdahl bound, beside the paper's shares. The two graphs keep their
+   cudaGraph_t (``kept_graphs``): the replayed prefill graph, and any
+   graph whose window lacked a kernel, is dumped (``debug_dump``, under
+   ``build/graph_dumps/``) and its kernel nodes counted by route beside
+   the profiler's, which tells a lost profiler record from a graph
+   without the launch.
 7. Power and PDP, on each path: captured ``transcribe`` of 1500 frames and
    27 tokens (the paper's workload) over and over for 5 s while
    ``nvidia-smi`` samples the card's draw every 100 ms; the samples' count,
@@ -199,9 +210,9 @@ own kernels with nvcc. Phases, each of which fails the run on error:
        tight arena, with the gates of its docstring.
     d. The phase's wall time. Phase 2 holds the kernels at the verifier's
        shapes: ``q8_matvec`` at M = 1 (``per`` "whisper-base decode step")
-       and M = 5, ``q8_matmul`` at M = 28 with the decoder's f32 x, and
-       ``bf16_matmul`` at M = 5 and 28 (``per`` "verify window M=5" and
-       "verify window M=28").
+       and M = 5, ``q8_matmul`` at M = 28 with the decoder's f32 x (the
+       split launch, ``q8_split_tc_kernel``), and ``bf16_matmul`` at M =
+       5 and 28 (``per`` "verify window M=5" and "verify window M=28").
 
 13. Telemetry (``repro_torch.obs``), the port's counterpart of
     ``benchmarks/telemetry_overhead.py``; with telemetry off, phases 2-12
@@ -486,6 +497,8 @@ without a CUDA device, it prints why and exits 1.
 from __future__ import annotations
 
 import collections
+import contextlib
+import functools
 import json
 import os
 import re
@@ -498,8 +511,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 # H100 SXM dense peak for x's type: a bf16 x int8 product is exact in f32,
 # so bf16 x runs at the bf16 tensor-core rate; f32 x outside the tensor
-# cores (tf32 would round x)
-FLOPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
+# cores (tf32 would round x), or, split exactly into three bf16 parts as
+# q8_matmul's converting launch does, three bf16 products a multiply-add
+FLOPS_PER_S = {"bfloat16": 989e12, "float32": 67e12,
+               "float32_split": 989e12 / 3}
 FIRST_STEP_TOL = 1e-2           # card vs CPU logits, see check_against_cpu
 # the dense path's decoder runs in bf16 (bf16 embedding table), so its
 # logits leave every linear rounded to bf16: steps of 2^-7 at |logit| in
@@ -554,8 +569,9 @@ BASE_DECODE = [(512, 512, 36),     # self q/k/v/o + cross q/o, 6 layers
                (51872, 512, 1)]    # dec.vocab
 # the verify window: whisper-base's step (M = 1), and its window at M = 5
 # (batch 1, k = 4) and M = 28 (batch 4, k = 6: above 16 rows, where
-# kernel_for sends it to q8_matmul, the f32 tiled launch with the Q8_0
-# decoder's f32 x, and to bf16_matmul's tensor-core launch)
+# kernel_for sends it to q8_matmul, the converting launch that splits the
+# Q8_0 decoder's f32 x into three bf16 parts, and to bf16_matmul's
+# tensor-core launch)
 BASE_STEP_Q8 = [(1, n, k, k, c, "float32") for n, k, c in BASE_DECODE]
 WINDOW5_Q8 = [(5, n, k, k, c, "float32") for n, k, c in BASE_DECODE]
 WINDOW28_Q8 = [(28, n, k, k, c, "float32") for n, k, c in BASE_DECODE]
@@ -601,8 +617,9 @@ JAMBA_M1 = [(1, n, k, k, c, "bfloat16") for n, k, c in JAMBA_DECODE]
 # forward of S = 4096 tokens (M = 4096) and at a decode step (M = 1, 4):
 # q and o at 4096, k and v at 4096 -> 1024, gate and up 4096 -> 14,336 and
 # down 14,336 -> 4096, 32 layers; lm_head 4096 -> 32,000. The projector
-# takes the 1152 f32 patches (M = 1152, 1024 -> 4096): f32 x on
-# q8_matmul's tiled launch, and rounded to bf16 inside bf16_matmul
+# takes the 1152 f32 patches (M = 1152, 1024 -> 4096): f32 x on the
+# converting launches of q8_matmul (split in three) and bf16_matmul
+# (rounded to bf16)
 LLAVA_LINEARS = [(4096, 4096, 64), (1024, 4096, 64), (14336, 4096, 64),
                  (4096, 14336, 32), (32000, 4096, 1)]
 LLAVA_PROJECTOR = (1152, 4096, 1024, 1024, 1, "float32")
@@ -610,6 +627,10 @@ LLAVA_FWD = [(4096, n, k, k, c, "bfloat16") for n, k, c in LLAVA_LINEARS] \
     + [LLAVA_PROJECTOR]
 LLAVA_M1 = [(1, n, k, k, c, "bfloat16") for n, k, c in LLAVA_LINEARS]
 LLAVA_M4 = [(4, n, k, k, c, "bfloat16") for n, k, c in LLAVA_LINEARS]
+# the whisper frontend (models/whisper.py): the f32 mel, 1500 x 80, into
+# d_model 384 on bf16_matmul's converting launch, where a tuned burst hands
+# it the whole K (phase 9d; untuned, burst 256 > K leaves it on the host)
+BF16_FRONTEND = [(1500, 384, 80, 80, 1, "float32")]
 BF16_PREFILL_SHAPES = [
     (1500, 384, 256, 384, 24, "bfloat16"),    # enc q/k/v/o + dec.cross.k/v
     (1500, 1536, 256, 384, 4, "bfloat16"),    # enc ffn.up
@@ -677,6 +698,7 @@ KERNELS = {
                         replaces="src/repro/kernels/bf16_matmul.py:76",
                         shapes={"prefill": BF16_PREFILL_SHAPES,
                                 "decode step": BF16_STEP_SHAPES,
+                                "tuned prefill frontend": BF16_FRONTEND,
                                 "slot decode step": BF16_SLOT_SHAPES,
                                 "paged slot step": BF16_PAGED_SHAPES,
                                 "verify window M=5": WINDOW5_BF16,
@@ -733,19 +755,19 @@ PAPER_TOKENS = 27                # the paper's jfk.wav transcript (enumerate_whi
 POWER_S = 5.0                    # seconds of transcripts under the power sampler
 # substrings of the names of dot-product kernels: the port's, and cuBLAS's
 # (CUDA 12.8's cuBLAS names its bf16 batched GEMMs "nvjet_...")
-DOT_KERNEL_WORDS = ("q8_matvec", "q8_matmul", "gemv", "gemm",
-                    "wgmma_kernel", "tiled_kernel", "flash_fwd", "xmma",
-                    "cutlass", "nvjet")
+DOT_KERNEL_WORDS = ("q8_matvec", "q8_split_tc_kernel", "gemv", "gemm",
+                    "wgmma_kernel", "bf16_cvt_tc_kernel", "flash_fwd",
+                    "xmma", "cutlass", "nvjet")
 # cuBLAS's products (the residual arm's, the attention's and the MoE
 # experts'), told from the port's kernels by name
 LIBRARY_WORDS = ("gemm", "gemv", "xmma", "cutlass", "cublas", "nvjet")
-PORT_KERNEL_WORDS = ("q8_matvec_kernel", "q8_matmul_kernel",
+PORT_KERNEL_WORDS = ("q8_matvec_kernel", "q8_split_tc_kernel",
                      "q8_wgmma_kernel", "gemv_bf16_kernel", "wgmma_kernel",
-                     "tiled_kernel", "flash_fwd")
+                     "bf16_cvt_tc_kernel", "flash_fwd")
 # phase 9a: (kernel, m, n, k, x dtype) — the main paths' products with K
 # whole, as a tuned burst leaves it, and the frontend's K = 80: on the
 # tensor-core launch (bf16 x), and as the tuned paths run it, f32 mel as x
-# on the tiled launch, which takes no tile
+# on the converting launch, which takes no tile
 TILE_SHAPES = [
     ("q8_matmul", 1500, 384, 384, "bfloat16"),
     ("q8_matmul", 1500, 1536, 384, "bfloat16"),
@@ -765,6 +787,8 @@ TILE_SHAPES = [
     ("bf16_matmul", 1, 51872, 384, "bfloat16"),
 ]
 TUNING_DIR = os.path.join(ROOT, "build", "tuning")
+# the graphs of a replay window that lacked a kernel (phase 6's gates)
+GRAPH_DUMPS = os.path.join(ROOT, "build", "graph_dumps")
 # phase 10, the parameters of benchmarks/continuous_batching.py::_variant
 # (full config) at whisper's 1500-frame window: 4 slots, 16 requests whose
 # max_new is drawn in 6-48 after their mels from default_rng(0), no EOS,
@@ -1071,10 +1095,11 @@ def bound(bytes_ms: float, ops_ms: float):
             else (ops_ms, "operations"))
 
 
-def _q8_case(gen, m, n, k, k_full, xdt):
+def _q8_case(gen, m, n, k, k_full, xdt, split=False):
     """Operands of a Q8_0 kernel at one shape: (kernel args, library
     call, bytes moved, FLOPs, FLOP rate key, further yardsticks by the
-    name of their time)."""
+    name of their time). With ``split`` (``q8_matmul``) an f32 x is
+    priced as its three bf16 parts on the tensor cores."""
     import torch
     from repro_torch.core.qformats import QTensor, quantize_q8_0
     dtype = getattr(torch, xdt)
@@ -1089,8 +1114,9 @@ def _q8_case(gen, m, n, k, k_full, xdt):
     # each input read once (x, int8 qs, f32 scales), output written once
     moved = m * k * x_full.element_size() + n * k + (n * k // 32) * 4 \
         + m * n * 4
+    rate = "float32_split" if split and xdt == "float32" else xdt
     return args, lambda: torch.matmul(x32, w_deq.t()), moved, \
-        2 * m * n * k, xdt, {}
+        2 * m * n * k, rate, {}
 
 
 def _bf16_case(gen, m, n, k, k_full, xdt):
@@ -1154,12 +1180,16 @@ def _measure(name, label, kernel, plain, library, moved, flops, rate, tol,
     bytes_ms = moved / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / FLOPS_PER_S[rate] * 1e3
     b_ms, b_by = bound(bytes_ms, ops_ms)
+    # the split f32 route's bound beside the f32 FMA rate's, which it can beat
+    fma = ({"bound_f32_fma_ms": bound(
+        bytes_ms, flops / FLOPS_PER_S["float32"] * 1e3)[0]}
+        if rate == "float32_split" else {})
     timed = {"ms": timer(kernel), "plain_ms": timer(plain),
              "library_ms": timer(library),
              **{key: timer(fn) for key, fn in extra.items()}}
     return dict(max_abs_err=err, bytes=moved, flops=flops,
                 bytes_ms=bytes_ms, ops_ms=ops_ms, wall_ms=wall_ms(kernel),
-                bound_ms=b_ms, bound_by=b_by,
+                bound_ms=b_ms, bound_by=b_by, **fma,
                 **{key: ms for key, (ms, _) in timed.items()},
                 ms_source={key: src for key, (_, src) in timed.items()})
 
@@ -1177,7 +1207,7 @@ def check_kernels(late: bool = False):
     mods = {"q8_matvec": (q8_matvec.q8_matvec, q8_matvec.q8_matvec_plain,
                           _q8_case),
             "q8_matmul": (q8_matmul.q8_matmul, q8_matmul.q8_matmul_plain,
-                          _q8_case),
+                          functools.partial(_q8_case, split=True)),
             "bf16_matmul": (bf16_matmul.bf16_matmul,
                             bf16_matmul.bf16_matmul_plain, _bf16_case)}
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -1223,8 +1253,9 @@ def check_kernels(late: bool = False):
                       f"plain_ms={row['plain_ms']:.5f} "
                       f"library_ms={row['library_ms']:.5f} "
                       + "".join(f"{key}={row[key]:.5f} " for key in extra)
-                      + f"bound_ms={row['bound_ms']:.5f} ({row['bound_by']})",
-                      flush=True)
+                      + f"bound_ms={row['bound_ms']:.5f} ({row['bound_by']})"
+                      + "".join(f" {key}={row[key]:.5f}" for key in row
+                                if key == "bound_f32_fma_ms"), flush=True)
                 rows.append(row)
         records[name] = rows
     for bh, sq, sk, d, _, dt, causal in ([] if late else FLASH_CHECKS):
@@ -1305,6 +1336,41 @@ def by_route(kernels, routes):
             for route in routes}
 
 
+@contextlib.contextmanager
+def kept_graphs():
+    """Inside, every CUDA graph the port captures keeps its cudaGraph_t
+    (``keep_graph=True``; its first replay instantiates it), so that
+    ``debug_dump`` can write it: a default graph drops it at the end of
+    its capture, debug mode or not (PyTorch 2.11)."""
+    import torch
+    base = torch.cuda.CUDAGraph
+    torch.cuda.CUDAGraph = functools.partial(base, keep_graph=True)
+    try:
+        yield
+    finally:
+        torch.cuda.CUDAGraph = base
+
+
+def graph_routes(graph, path: str, routes):
+    """The kernel nodes of a captured graph by route: the graph's
+    ``debug_dump`` (a graph captured under ``kept_graphs``) written to
+    ``path``, and each route counted over the nodes whose entry names a
+    kernel holding it. Returns (nodes, {route: nodes}), or None where no
+    dump was written."""
+    graph.debug_dump(path)
+    if not os.path.exists(path):
+        return None
+    with open(path) as f:
+        text = f.read()
+    # a node's entry opens a line with its quoted name and "[" (an edge's
+    # line goes on with " ->")
+    starts = [m.start() for m in re.finditer(r'^"graph_\d+_node_\d+"\[',
+                                             text, flags=re.M)]
+    nodes = [text[a:b] for a, b in zip(starts, starts[1:] + [len(text)])]
+    return len(nodes), {route: sum(route in node for node in nodes)
+                        for route in routes}
+
+
 def where_time_goes(eng, mel, vocab: int, steps: int = PROFILED_STEPS,
                     expect=None):
     """One prefill and ``steps`` decode steps under torch.profiler: device
@@ -1314,9 +1380,16 @@ def where_time_goes(eng, mel, vocab: int, steps: int = PROFILED_STEPS,
     ``expect`` ({"prefill" or "step": {route: launches}}) holds what the
     launch counts already fixed: a window whose routes differ from it lost
     kernel records and is profiled again, REPLAY_PROFILES times at most;
-    the caller checks the last window's routes."""
+    the caller checks the last window's routes. The windows are eager (no
+    graph to dump): where they differ, the wrappers' own launch counts
+    over them are printed beside the profiler's."""
+    from repro_torch.kernels import (
+        bf16_matmul, flash_attention, q8_matmul, q8_matvec)
+    wrappers = (q8_matmul.q8_matmul, q8_matvec.q8_matvec,
+                bf16_matmul.bf16_matmul, flash_attention.flash_attention_fwd)
     expect = expect or {}
     for attempt in range(REPLAY_PROFILES):
+        before = [fn.launches for fn in wrappers]
         out, pre_kernels, dec_kernels = _profile_eager(eng, mel, vocab,
                                                        steps)
         windows = {"prefill": pre_kernels, "step": dec_kernels}
@@ -1325,9 +1398,12 @@ def where_time_goes(eng, mel, vocab: int, steps: int = PROFILED_STEPS,
                 for phase, want in expect.items()}
         if seen == expect:
             break
+        python = {fn.__name__: fn.launches - n
+                  for fn, n in zip(wrappers, before) if fn.launches != n}
         print(f"eager windows: kernels by route {seen} in profiled window "
-              f"{attempt + 1}, expected {expect}; profiling again",
-              flush=True)
+              f"{attempt + 1}, expected {expect}; the wrappers launched "
+              f"{python} from Python over the prefill and {steps} steps; "
+              "profiling again", flush=True)
     print(f"where the time goes (profiled): {json.dumps(out)}", flush=True)
     return out, pre_kernels, dec_kernels
 
@@ -1440,7 +1516,7 @@ def main_path():
     if int(card_logits[0, -1, :cfg.vocab_size].argmax()) != tokens[0]:
         raise AssertionError("first-step argmax differs from the loop's")
     err = check_against_cpu(cfg, params_cpu, mel, card_logits, sot)
-    want = {"q8_wgmma_kernel": 32, "q8_matmul_kernel": 0}
+    want = {"q8_wgmma_kernel": 32, "q8_split_tc_kernel": 0}
     split, pre_kernels, _ = where_time_goes(eng, mel, cfg.vocab_size,
                                             expect={"prefill": want})
     routes = {route: launches for route, (launches, _) in by_route(
@@ -1449,7 +1525,8 @@ def main_path():
           flush=True)
     if routes != want:
         raise AssertionError(f"prefill q8_matmul kernels {routes}: expected "
-                             "32 tensor-core launches and no SIMT one")
+                             "32 tensor-core launches and no converting "
+                             "one")
     return launches, dict(prefill_ms=prefill_s * 1e3,
                           decode_ms_per_token=decode_s * 1e3 / MAX_NEW,
                           peak_mem_bytes=peak, first_step_cpu_err=err,
@@ -1647,6 +1724,20 @@ def _profile_replays(eng, f: int):
             _top_kernels(prof, PROFILED_STEPS, 8), dec_wall)
 
 
+def _dump_graph(eng, label, phase, key, want, seen):
+    """``graph_routes`` of the graph ``eng`` replays at ``key``, printed
+    beside the launches the profiler saw in its window and those
+    expected."""
+    os.makedirs(GRAPH_DUMPS, exist_ok=True)
+    stem = re.sub(r"[^A-Za-z0-9_]", "_", f"{label}-{phase}")
+    path = os.path.join(GRAPH_DUMPS, f"{stem}.dot")
+    nodes = graph_routes(eng._graphs[key].graph, path, want)
+    print(f"captured {label}: the {phase} graph's kernel nodes (nodes, by "
+          f"route): {nodes}; the profiler saw {seen}, expected {want} "
+          f"({path})", flush=True)
+    return nodes
+
+
 def captured_path(label, eng, mel, eager_tokens, eager_split, counted,
                   per_run, replay_kernels, share_key):
     """Phase 6, on one path: captured ``transcribe`` of 1 x 1500 frames, its
@@ -1663,7 +1754,8 @@ def captured_path(label, eng, mel, eager_tokens, eager_split, counted,
     f = eng.cfg.encoder_ctx
     for fn in counted.values():
         fn.launches = 0
-    res = eng.transcribe(mel, max_new=MAX_NEW)    # captures, then replays
+    with kept_graphs():                           # for _dump_graph
+        res = eng.transcribe(mel, max_new=MAX_NEW)    # captures, replays
     torch.cuda.synchronize()
     got = {name: fn.launches for name, fn in counted.items()}
     want = {name: CAPTURE_PASSES * per_run.get(name, 0) for name in counted}
@@ -1710,7 +1802,11 @@ def captured_path(label, eng, mel, eager_tokens, eager_split, counted,
 
     # one replayed prefill and PROFILED_STEPS replayed steps; the graphs
     # are fixed, so a window whose kernels differ from them lost records
-    # and is profiled again
+    # and is profiled again, after the graph's own kernel nodes are
+    # counted (once a graph) and printed beside the profiler's
+    keys = {"prefill": eng._key("prefill", 1, f),
+            "step": eng._key("step", 1, f)}
+    dumped = {}
     for attempt in range(REPLAY_PROFILES):
         (pre_kernels, pre_top, pre_wall, dec_kernels, dec_top,
          dec_wall) = _profile_replays(eng, f)
@@ -1720,12 +1816,21 @@ def captured_path(label, eng, mel, eager_tokens, eager_split, counted,
                                            ("step", dec_kernels))}
         if launches == replay_kernels or not (pre_kernels and dec_kernels):
             break
+        for phase, want in replay_kernels.items():
+            if launches[phase] != want and phase not in dumped:
+                dumped[phase] = _dump_graph(eng, label, phase, keys[phase],
+                                            want, launches[phase])
         print(f"captured {label}: kernels per replay {launches} in profiled "
               f"window {attempt + 1}, expected {replay_kernels}; profiling "
               "again", flush=True)
+    if "prefill" not in dumped:                  # the prefill graph's own
+        dumped["prefill"] = _dump_graph(eng, label, "prefill",
+                                        keys["prefill"],
+                                        replay_kernels["prefill"],
+                                        launches["prefill"])
     out = dict(prefill_ms=prefill_ms, decode_ms_per_token=decode_ms,
                prefill_wall_ms=pre_wall, decode_wall_ms_per_step=dec_wall,
-               eager=eager_split)
+               eager=eager_split, prefill_graph_nodes=dumped["prefill"])
     if not (pre_kernels and dec_kernels):
         print(f"captured {label}: the profiler saw no kernels inside the "
               f"replays; launches per replay from the capture pass: "
@@ -1837,7 +1942,8 @@ def _tile_operands(gen, kernel, m, n, k, xdt):
         args, _, moved, flops, rate, _ = _bf16_case(gen, m, n, k, k, xdt)
         fn, plain = bf16_matmul.bf16_matmul, bf16_matmul.bf16_matmul_plain
     else:
-        args, _, moved, flops, rate, _ = _q8_case(gen, m, n, k, k, xdt)
+        args, _, moved, flops, rate, _ = _q8_case(
+            gen, m, n, k, k, xdt, split=kernel == "q8_matmul")
         mod = q8_matmul if kernel == "q8_matmul" else q8_matvec
         fn, plain = getattr(mod, kernel), getattr(mod, f"{kernel}_plain")
     b_ms, b_by = bound(moved / HBM_BYTES_PER_S * 1e3,
@@ -1848,7 +1954,7 @@ def _tile_operands(gen, kernel, m, n, k, xdt):
 def check_tiles():
     """Phase 9a: every admissible launch tile of the three products at
     whisper-tiny's shapes against the plain version, and its device time
-    beside the default launch's and the bound. The tiled f32 launch of
+    beside the default launch's and the bound. The converting launch of
     ``bf16_matmul`` (f32 x above M = 16) takes no tile: its one launch is
     checked and timed as it comes (tile None). Returns {kernel:
     [records]}."""
@@ -5388,7 +5494,8 @@ def _fwd_batch(cfg, s: int, seed: int = FWD_SEED):
 def _fwd_bounds(eng, plan, cfg, s: int):
     """The least time of one forward at ``s`` tokens: the operations of
     the linears its plan lists (2 m k n each; at 989 TFLOP/s for bf16 x,
-    and at 67 for the f32 patches on the Q8_0 projector) and of the causal
+    and a third of that for the f32 patches on the Q8_0 projector, split
+    into three bf16 parts) and of the causal
     attention (QK and PV over the s (s + 1) / 2 query-key pairs a head
     needs, bf16 rate), against the bytes that each linear reads (x, bf16
     or the projector's f32 patches; the weight at 2 bytes or Q8_0's 1.125;
@@ -5400,7 +5507,7 @@ def _fwd_bounds(eng, plan, cfg, s: int):
         flops = 2 * e.m * e.k * e.n
         lin_flops += flops
         f32_x = e.name == "vlm.projector"
-        rate = "float32" if q8 and f32_x else "bfloat16"
+        rate = "float32_split" if q8 and f32_x else "bfloat16"
         ops_ms += flops / FLOPS_PER_S[rate] * 1e3
         bytes_ += e.m * e.k * (4 if f32_x else 2) \
             + e.n * e.k * (1.125 if q8 else 2) + e.m * e.n * 4
@@ -6526,13 +6633,13 @@ def main() -> int:
              {"q8_matmul": 32, "q8_matvec": 33 * MAX_NEW,
               "bf16_matmul": 1, "flash_attention_fwd": 0},
              {"q8_matmul": 32, "q8_matvec": 33, "bf16_matmul": 1},
-             {"prefill": {"q8_wgmma_kernel": 32, "tiled_kernel": 1},
+             {"prefill": {"q8_wgmma_kernel": 32, "bf16_cvt_tc_kernel": 1},
               "step": {"q8_matvec_kernel": 33}}, "q8_0", FIRST_STEP_TOL),
             ("dense+flash", (d_eng, d_mel, d_tokens, d_split),
              {"bf16_matmul": 33 + 33 * MAX_NEW, "flash_attention_fwd": 4,
               "q8_matmul": 0, "q8_matvec": 0},
              {"bf16_matmul": 33 + 33, "flash_attention_fwd": 4},
-             {"prefill": {"wgmma_kernel": 32, "tiled_kernel": 1,
+             {"prefill": {"wgmma_kernel": 32, "bf16_cvt_tc_kernel": 1,
                           "flash_fwd_mma_kernel": 4},
               "step": {"gemv_bf16_kernel": 33}}, "fp16",
              DENSE_FIRST_STEP_TOL)):

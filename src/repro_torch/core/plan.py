@@ -90,7 +90,7 @@ def plan_linear(name: str, m: int, k: int, n: int, *, quantized: bool,
     launch runs). Where no launch fits the tuner's budget the entry keeps
     ``default_burst`` and the kernel's own launch, with ``tuned=False``.
     ``dense_f32``: a dense operand is f32, so above M = 16 the product runs
-    ``bf16_matmul``'s tiled f32 launch, which takes no tile. ``mesh_sig``
+    ``bf16_matmul``'s converting launch, which takes no tile. ``mesh_sig``
     is stamped into the entry.
 
     ``shards``: the program is one of that many data shards of a step of

@@ -67,10 +67,22 @@
 //     K = 1536 that traffic (55 MB) is what bounds the launch: the next
 //     step is sharing x between the blocks of a row (TMA multicast in a
 //     cluster). sweep_kernels.py times the ring depths.
-//   * M > 16 otherwise (f32 operands of the test configs, unaligned rows,
-//     K not a whole number of 8): 64 x 64 tiles, each 32-wide K step loaded
-//     synchronously and converted to bf16 in shared memory, bf16 WMMA
-//     16x16x16, the tile staged through shared memory for the masked store.
+//   * M > 16 otherwise (bf16_cvt_tc_kernel): an f32 operand (the whisper
+//     frontend's mel at K = 80, llava's f32 patches into its projector at
+//     M = 1152, K = 1024, the f32 test configs), bf16 rows off a 16-byte
+//     boundary, K not a whole number of 8. The function rounds both
+//     operands to bf16, so rounding an f32 operand on its way into shared
+//     memory is the function itself. wgmma_kernel's 64 x 64 tile, 128-byte
+//     swizzle, four wgmma.m64n64k16 a 64-wide K step and float2 epilogue,
+//     with a load stage through registers in place of cp.async: each
+//     thread loads 4 chunks of 8 values of each operand (two float4 or one
+//     16-byte load where the row's base and stride are 16-byte aligned,
+//     masked scalar loads otherwise and at ragged M, N and K), rounds them
+//     to bf16 (RN, PyTorch's cast) and stores them swizzled. The loads of
+//     step t + 1 are issued before the products of step t and stored into
+//     the other of two shared buffers after them, so they run under the
+//     products; one barrier a step (33 KB of shared memory). The sum over
+//     K runs in one fixed order, with no split.
 //
 // All read x and W through their row strides (the burst-aligned main
 // segment is the first 256 of 384 columns and is never copied), and mask
@@ -80,13 +92,13 @@
 // A caller (the autotuner) may choose the M <= 16 launch's rows a lane
 // group (1 or kMvRows), warps a block and K split, and the M > 16
 // tensor-core launch's ring depth (3 to 5: three instantiations of
-// wgmma_kernel); a tile changes the launch, not the function.
+// wgmma_kernel); the converting launch takes no tile. A tile changes the
+// launch, not the function.
 //
 // Plain C interface, loaded with ctypes. The launch allocates nothing, runs on
 // the caller's stream and returns cudaGetLastError().
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include "hopper_mma.cuh"
@@ -309,90 +321,6 @@ bool gemv_tile_ok(int rows, int warps, int split, int k) {
          (split == 1 || split * kMvLanes <= (k + 7) / 8);
 }
 
-// ------------------------------------------------- M > 16, converting
-constexpr int kBM = 64, kBN = 64, kBK = 32;  // block tile
-constexpr int kLd = kBK + 8;                 // bf16 tile row: 80 bytes, 16-aligned
-constexpr int kLdC = kBN + 4;                // f32 staging row
-constexpr int kTileThreads = 128;            // 4 warps, each a 32 x 32 quarter
-
-// one 64 x 32 tile of rows r0.. of a (rows, k) operand into shared memory as
-// bf16, zero beyond `rows` and `k`
-template <typename T>
-__device__ __forceinline__ void stage(bf16 (*dst)[kLd], const T* src,
-                                      long long ld, bool vec, int r0, int rows,
-                                      int k0, int k) {
-  for (int i = threadIdx.x; i < kBM * (kBK / 8); i += kTileThreads) {
-    const int r = i / (kBK / 8), c = (i % (kBK / 8)) * 8;
-    const int valid = r0 + r < rows ? max(0, min(8, k - k0 - c)) : 0;
-    float v[8];
-    if (valid > 0) {
-      load8(src + (r0 + r) * ld + k0 + c, vec, valid, v);
-    } else {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) v[j] = 0.f;
-    }
-    __align__(16) __nv_bfloat162 h[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) h[j] = __floats2bfloat162_rn(v[2 * j], v[2 * j + 1]);
-    *reinterpret_cast<uint4*>(&dst[r][c]) = *reinterpret_cast<const uint4*>(h);
-  }
-}
-
-template <typename TX, typename TW>
-__global__ void __launch_bounds__(kTileThreads)
-tiled_kernel(const TX* __restrict__ x, long long ldx, bool vx,
-             const TW* __restrict__ w, long long ldw, bool vw,
-             float* __restrict__ out, long long ldo, int m, int n, int k) {
-  using namespace nvcuda;
-  __shared__ __align__(32) bf16 xs[kBM][kLd];
-  __shared__ __align__(32) bf16 ws[kBN][kLd];
-  __shared__ __align__(32) float cs[kBM][kLdC];
-  const int warp = threadIdx.x >> 5;
-  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
-  const int bm = blockIdx.y * kBM, bn = blockIdx.x * kBN;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  for (int k0 = 0; k0 < k; k0 += kBK) {
-    stage(xs, x, ldx, vx, bm, m, k0, k);
-    stage(ws, w, ldw, vw, bn, n, k0, k);
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], &xs[wm + 16 * i][kk], kLd);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)   // W[n][k] row-major is B[k][n] col-major
-        wmma::load_matrix_sync(b[j], &ws[wn + 16 * j][kk], kLd);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(&cs[wm + 16 * i][wn + 16 * j], acc[i][j], kLdC,
-                              wmma::mem_row_major);
-  __syncthreads();
-  for (int i = threadIdx.x; i < kBM * kBN; i += kTileThreads) {
-    const int r = i / kBN, c = i % kBN;
-    if (bm + r < m && bn + c < n) out[(bm + r) * ldo + bn + c] = cs[r][c];
-  }
-}
-
 // -------------------------------------------- M > 16, bf16 x bf16, wgmma
 constexpr int kTcBM = 64, kTcBN = 64;        // output tile: one m64n64 wgmma
 constexpr int kTcBK = 64;                    // K step: rows of 128 bytes
@@ -539,6 +467,101 @@ cudaError_t launch_wgmma_stages(int stages, const void* x, long long ldx,
   }
 }
 
+// ---------------------------------- M > 16, converting, on the tensor cores
+// wgmma_kernel's tile, descriptors and epilogue, with operands that come
+// in through registers: thread t loads chunk t % 8 (8 values) of rows
+// t / 8 + 16 i of each 64 x 64 step tile
+constexpr int kCvChunks = kTcBM * (kTcBK / 8) / kTcThreads;   // 4 an operand
+static_assert(kTcBM == kTcBN, "one chunk mapping serves x and W");
+// two buffers of the x and W step tiles, and room to align: 33,792 B
+constexpr int kCvSmemBytes =
+    2 * (kTcBM + kTcBN) * kTcBK * static_cast<int>(sizeof(bf16)) + 1024;
+
+template <typename TX, typename TW>
+__global__ void __launch_bounds__(kTcThreads)
+bf16_cvt_tc_kernel(const TX* __restrict__ x, long long ldx, bool vx,
+                   const TW* __restrict__ w, long long ldw, bool vw,
+                   float* __restrict__ out, long long ldo, bool vec_out,
+                   int m, int n, int k) {
+  using namespace hopper;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* base =
+      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  bf16* xs = reinterpret_cast<bf16*>(base);       // [buffer][kTcBM][kTcBK]
+  bf16* ws = xs + 2 * kTcBM * kTcBK;              // [buffer][kTcBN][kTcBK]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int bm = blockIdx.y * kTcBM, bn = blockIdx.x * kTcBN;
+  const int nk = (k + kTcBK - 1) / kTcBK;
+  const int c = tid % 8, r0 = tid / 8;
+
+  Raw8<TX> xr[kCvChunks];
+  Raw8<TW> wr[kCvChunks];
+  auto fetch = [&](int kt) {                 // loads only: no use yet
+    const int kc = kt * kTcBK + 8 * c, valid = min(8, k - kc);
+#pragma unroll
+    for (int i = 0; i < kCvChunks; ++i) {
+      const int r = r0 + 16 * i;
+      fetch8(xr[i], x + (bm + r) * ldx + kc, vx, bm + r < m ? valid : 0);
+      fetch8(wr[i], w + (bn + r) * ldw + kc, vw, bn + r < n ? valid : 0);
+    }
+  };
+  auto store = [&](int buf) {                // rounded, swizzled
+    bf16* xb = xs + buf * kTcBM * kTcBK;
+    bf16* wb = ws + buf * kTcBN * kTcBK;
+#pragma unroll
+    for (int i = 0; i < kCvChunks; ++i) {
+      const int r = r0 + 16 * i;
+      *reinterpret_cast<uint4*>(xb + swz(r, c)) = round8(xr[i]);
+      *reinterpret_cast<uint4*>(wb + swz(r, c)) = round8(wr[i]);
+    }
+  };
+
+  fetch(0);
+  store(0);
+  float d[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) d[i] = 0.f;
+
+  for (int t = 0; t < nk; ++t) {
+    fence_proxy_async();                     // this thread's tiles of step t
+    __syncthreads();                         // ... in every thread, for
+                                             // wgmma; step t - 1 consumed
+    const bool next = t + 1 < nk;
+    if (next) fetch(t + 1);                  // in flight under the products
+    const uint64_t da = wgmma_desc_sw128(xs + (t & 1) * kTcBM * kTcBK);
+    const uint64_t db = wgmma_desc_sw128(ws + (t & 1) * kTcBN * kTcBK);
+    fence_operands(d);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTcBK / 16; ++kk)
+      wgmma_m64n64k16(d, da + 2 * kk, db + 2 * kk);
+    wgmma_commit();
+    if (next) store((t + 1) & 1);            // the buffer step t - 1 read
+    wgmma_wait<0>();
+    fence_operands(d);
+  }
+
+  // straight from the accumulators, as wgmma_kernel's
+  const int g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = bm + warp * 16 + g + 8 * h;
+    if (row >= m) continue;
+    float* orow = out + row * ldo;
+#pragma unroll
+    for (int j = 0; j < kTcBN / 8; ++j) {
+      const int col = bn + 8 * j + 2 * t4;
+      const float v0 = d[4 * j + 2 * h], v1 = d[4 * j + 2 * h + 1];
+      if (vec_out && col + 1 < n) {
+        *reinterpret_cast<float2*>(orow + col) = make_float2(v0, v1);
+      } else {
+        if (col < n) orow[col] = v0;
+        if (col + 1 < n) orow[col + 1] = v1;
+      }
+    }
+  }
+}
+
 template <typename TX, typename TW>
 cudaError_t run(const void* xv, long long ldx, bool vx, const void* wv,
                 long long ldw, bool vw, float* out, long long ldo, int m, int n,
@@ -550,9 +573,10 @@ cudaError_t run(const void* xv, long long ldx, bool vx, const void* wv,
   if (m <= 4) return launch_gemv<TX, TW, 4>(x, ldx, vx, w, ldw, vw, out, ldo, m, n, k, r, wp, sp, st);
   if (m <= 8) return launch_gemv<TX, TW, 8>(x, ldx, vx, w, ldw, vw, out, ldo, m, n, k, r, wp, sp, st);
   if (m <= 16) return launch_gemv<TX, TW, 16>(x, ldx, vx, w, ldw, vw, out, ldo, m, n, k, r, wp, sp, st);
-  const dim3 grid((n + kBN - 1) / kBN, (m + kBM - 1) / kBM);
-  tiled_kernel<TX, TW><<<grid, kTileThreads, 0, st>>>(x, ldx, vx, w, ldw, vw,
-                                                      out, ldo, m, n, k);
+  const bool vec_out = reinterpret_cast<uintptr_t>(out) % 8 == 0 && ldo % 2 == 0;
+  const dim3 grid((n + kTcBN - 1) / kTcBN, (m + kTcBM - 1) / kTcBM);
+  bf16_cvt_tc_kernel<TX, TW><<<grid, kTcThreads, kCvSmemBytes, st>>>(
+      x, ldx, vx, w, ldw, vw, out, ldo, vec_out, m, n, k);
   return cudaGetLastError();
 }
 
@@ -565,14 +589,14 @@ bool rows_aligned(const void* p, long long ld, int elem) {
 
 // A caller's tile: at M <= 16, rows, warps and split of the gemv launch
 // (gemv_tile_ok; all 0 take the heuristic's); at M > 16, the tensor-core
-// launch's ring depth `stages` (3 to 5; 0 takes kTcStages). The tiled f32
-// launch (M > 16 with f32 operands or rows cp.async cannot copy) has one
-// tile: a nonzero `stages` there is refused.
+// launch's ring depth `stages` (3 to 5; 0 takes kTcStages). The
+// converting launch (M > 16 with an f32 operand or rows cp.async cannot
+// copy) has one tile: a nonzero `stages` there is refused.
 extern "C" int bf16_matmul(const void* x, int x_bf16, long long ldx,
                            const void* w, int w_bf16, long long ldw, void* out,
                            long long ldo, int m, int n, int k, int rows,
                            int warps, int split, int stages, void* stream) {
-  if (m < 1 || n < 1 || k < 1 || (m > 16 && (m + kBM - 1) / kBM > 65535))
+  if (m < 1 || n < 1 || k < 1 || (m > 16 && (m + kTcBM - 1) / kTcBM > 65535))
     return static_cast<int>(cudaErrorInvalidValue);
   const bool gemv_tile = rows || warps || split;
   if (m > 16 ? gemv_tile || (stages && (stages < 3 || stages > 5))
@@ -583,7 +607,8 @@ extern "C" int bf16_matmul(const void* x, int x_bf16, long long ldx,
   auto* o = static_cast<float*>(out);
   auto st = static_cast<cudaStream_t>(stream);
   // M <= 16: gemv_bf16_kernel for every operand (run); M > 16: wgmma_kernel
-  // for bf16 x and W whose rows cp.async can copy, tiled_kernel otherwise
+  // for bf16 x and W whose rows cp.async can copy, bf16_cvt_tc_kernel (run)
+  // otherwise
   const bool tensor_core = m > 16 && x_bf16 && w_bf16 && vx && vw &&
                            k % 8 == 0;               // cp.async rows
   if (m > 16 && stages && !tensor_core)

@@ -1,6 +1,7 @@
 // Tensor-core and asynchronous-copy helpers shared by the port's kernels,
 // built for sm_90a: 16- and 4-byte cp.async with zero fill, the exact
-// widening of int8 to f32, ldmatrix of four 8 x 8
+// widening of int8 to f32, operand chunks loaded into registers and
+// rounded to bf16 (the converting launches), ldmatrix of four 8 x 8
 // bf16 matrices (plain and transposed), the warp-wide mma.sync.m16n8k16 bf16
 // product with f32 accumulators, Hopper's warpgroup products
 // wgmma.m64n64k16 and m64n32k16 on bf16 tiles in shared memory.
@@ -89,6 +90,66 @@ __device__ __forceinline__ float i8_to_f32(uint32_t w, int j) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// ------------------------------------------- operands through registers
+// 8 consecutive values of a row as they were loaded, before they are
+// rounded to bf16: an f32 row's as 8 floats, a bf16 row's as its 16 bytes.
+// The converting launches issue these loads for the next K step before
+// the current step's products and convert them after, so that the loads
+// run under the products.
+template <typename T>
+struct Raw8;
+template <>
+struct Raw8<float> {
+  float4 a, b;
+};
+template <>
+struct Raw8<__nv_bfloat16> {
+  uint4 a;
+};
+
+// the loads of 8 values from p, zero beyond `valid` (at most 8; none read
+// at valid <= 0): vector loads where `vec` (p and its row 16-byte
+// aligned) and all 8 are valid, else one value at a time
+__device__ __forceinline__ void fetch8(Raw8<float>& r, const float* p,
+                                       bool vec, int valid) {
+  if (vec && valid == 8) {
+    r.a = __ldg(reinterpret_cast<const float4*>(p));
+    r.b = __ldg(reinterpret_cast<const float4*>(p) + 1);
+    return;
+  }
+  float v[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) v[j] = j < valid ? __ldg(p + j) : 0.f;
+  r.a = make_float4(v[0], v[1], v[2], v[3]);
+  r.b = make_float4(v[4], v[5], v[6], v[7]);
+}
+
+__device__ __forceinline__ void fetch8(Raw8<__nv_bfloat16>& r,
+                                       const __nv_bfloat16* p, bool vec,
+                                       int valid) {
+  if (vec && valid == 8) {
+    r.a = __ldg(reinterpret_cast<const uint4*>(p));
+    return;
+  }
+  const unsigned short* h = reinterpret_cast<const unsigned short*>(p);
+  uint32_t u[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) u[j] = j < valid ? __ldg(h + j) : 0u;
+  r.a = make_uint4(u[0] | u[1] << 16, u[2] | u[3] << 16, u[4] | u[5] << 16,
+                   u[6] | u[7] << 16);
+}
+
+// the 8 values rounded to bf16 (RN, as PyTorch's cast), packed in order;
+// bf16 values as they are
+__device__ __forceinline__ uint4 round8(const Raw8<float>& r) {
+  return make_uint4(pack_bf16(r.a.x, r.a.y), pack_bf16(r.a.z, r.a.w),
+                    pack_bf16(r.b.x, r.b.y), pack_bf16(r.b.z, r.b.w));
+}
+
+__device__ __forceinline__ uint4 round8(const Raw8<__nv_bfloat16>& r) {
+  return r.a;
 }
 
 // ----------------------------------------------------------------- wgmma

@@ -13,14 +13,19 @@ read through L1 with no barrier, long K split over a block's warps, and a
 grid that gives every SM a block; it takes every operand at M <= 16. Above
 (prefill, M = 1500), for bf16 x and W with 16-byte aligned rows and K a
 whole number of 8, ``wgmma_kernel`` runs 64 x 64 tiles on the tensor cores
-(``wgmma`` fed by a ``cp.async`` ring, f32 accumulators); other operands
-above M = 16 take 64 x 64 bf16 WMMA tiles converted in shared memory. All
-read x and W through their row strides, so the burst-aligned K-slice of a
+(``wgmma`` fed by a ``cp.async`` ring, f32 accumulators). Every other
+operand above M = 16 (an f32 x or W, bf16 rows off a 16-byte boundary, K
+not a whole number of 8) takes ``bf16_cvt_tc_kernel``: the same tiles and
+``wgmma`` products, each operand loaded through registers and rounded to
+bf16 on its way into shared memory (the function's own rounding), the
+next K step's loads in flight under the current step's products. All read
+x and W through their row strides, so the burst-aligned K-slice of a
 wider weight needs no copy, and mask ragged M, N and K themselves.
 
 Each launch takes an optional tile (``kernels/tiles.py``, chosen by the
 autotuner): the M <= 16 launch's rows, warps and K split, the tensor-core
 launch's ring depth (3 to 5 slots); with none it makes today's choice.
+The converting launch takes no tile.
 
 ``bf16_matmul`` runs ``bf16_matmul_plain`` only for tensors on the CPU; for
 CUDA tensors it launches the kernel or raises.
@@ -46,17 +51,17 @@ def c_tile(m: int, k: int, tile: Optional[Tuple[int, ...]],
     caller's tile: at M <= 16 a (rows, warps, split) that K admits
     (``tiles.BF16_GEMV``), at M > 16 a (block_n, stages) of
     ``tiles.BF16_WGMMA_TILES`` for bf16 x and W (an f32 operand runs the
-    tiled launch, which takes no tile); None, or the tiled launch's ``()``,
+    converting launch, which takes no tile); None, or its ``()``,
     gives zeros (the kernel's own choice). Any other tile raises, as the C
     entry refuses it."""
-    if not tile:                 # None, or () of the tiled launch
+    if not tile:                 # None, or () of the converting launch
         return 0, 0, 0, 0
     if m <= MAX_GEMV_M:
         tiles.BF16_GEMV.check(tile, k)
         return (*tile, 0)
     if not bf16_operands:
         raise ValueError(f"bf16_matmul: tile {tuple(tile)} at M={m} with an "
-                         "f32 operand: the tiled launch takes no tile")
+                         "f32 operand: the converting launch takes no tile")
     tiles.check_wgmma_tile("bf16_matmul", tile, tiles.BF16_WGMMA_TILES)
     return 0, 0, 0, tile[1]
 
@@ -65,8 +70,8 @@ def bf16_matmul(x: torch.Tensor, w: torch.Tensor, *,
                 tile: Optional[Tuple[int, ...]] = None) -> torch.Tensor:
     """x (M, K) f32/bf16; w (N, K) bf16/f32 -> (M, N) f32. Rows of both
     operands may be strided; M and N may be ragged. ``tile`` chooses the
-    launch (``c_tile``); the tiled launch of M > 16 with an f32 operand, or
-    rows ``cp.async`` cannot copy, takes none."""
+    launch (``c_tile``); the converting launch of M > 16 with an f32
+    operand, or rows ``cp.async`` cannot copy, takes none."""
     _build.check_dense_operands(x, w)
     m, k = x.shape
     args = c_tile(m, k, tile, x.dtype == w.dtype == torch.bfloat16)

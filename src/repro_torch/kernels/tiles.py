@@ -14,10 +14,16 @@ not the function: every tile computes the kernel's plain version.
 - ``q8_matvec`` and ``bf16_matmul``'s M <= 16 launch (``gemv_bf16_kernel``):
   a tile is ``(rows, warps, split)``: the rows a lane group walks (1 or 4),
   the warps of a block, and how many of them share each row's K.
-- ``bf16_matmul``'s tiled launch (``tiled_kernel``), which runs above
-  M = 16 where the tensor-core one cannot take the operands (an f32
-  operand, or rows ``cp.async`` cannot copy: K not a whole number of 8):
-  one launch that takes no tile, written ``()``.
+- The converting launches, which run above M = 16 where the
+  ``cp.async`` ones cannot take the operands: ``bf16_matmul``'s
+  ``bf16_cvt_tc_kernel`` (an f32 operand, or rows ``cp.async`` cannot
+  copy: K not a whole number of 8) and ``q8_matmul``'s
+  ``q8_split_tc_kernel`` (f32 x split into three bf16 parts, or bf16 x
+  rows off 16 bytes). Each is one launch that takes no tile, written
+  ``()`` in ``bf16_matmul``'s space; ``q8_matmul``'s chooses its tile N
+  and its K split across a cluster from (M, N, K) alone
+  (``q8_split_launch``), and the tuner's space of ``q8_matmul`` is its
+  tensor-core launch's.
 """
 from __future__ import annotations
 
@@ -38,17 +44,37 @@ Q8_WGMMA_TILES: Tuple[Tile, ...] = ((32, 3), (32, 2), (32, 4), (64, 2),
                                     (64, 3), (64, 4))
 # wgmma_kernel (bf16_matmul, M > 16): (block_n, stages)
 BF16_WGMMA_TILES: Tuple[Tile, ...] = ((64, 5), (64, 3), (64, 4))
-# tiled_kernel (bf16_matmul, M > 16): a 64 x 64 block stepping K by 32, its
-# static shared memory the x and W tiles (rows of 40 bf16) and the f32
-# staging of the output (rows of 68)
-TILED_BLOCK_N, TILED_K_STEP = 64, 32
-TILED_SMEM_BYTES = 2 * BLOCK_M * 40 * 2 + BLOCK_M * 68 * 4     # 27,648 B
+# bf16_cvt_tc_kernel (bf16_matmul, M > 16, converting): a 64 x 64 block
+# stepping K by K_STEP, its dynamic shared memory two buffers of the bf16 x
+# and W step tiles and 1 KB to align
+CVT_BLOCK_N = 64
+CVT_SMEM_BYTES = 2 * (BLOCK_M + CVT_BLOCK_N) * K_STEP * 2 + 1024  # 33,792 B
+# q8_split_tc_kernel (q8_matmul, converting): split K over at most this many
+# CTAs of a cluster while the grid has fewer tiles than the SMs
+SPLIT_MAX_CTAS = 8
 
 
 def bf16_tensor_core_k(k: int) -> bool:
     """Whether contiguous bf16 rows of K values can feed ``wgmma_kernel``
     (``cp.async`` copies 16 bytes: K a whole number of 8)."""
     return k % 8 == 0
+
+
+def q8_split_launch(m: int, n: int, k: int) -> Tuple[int, int]:
+    """``split_launch`` of q8_matmul.cu: the converting launch's tile N and
+    the CTAs of a cluster that share each tile's K steps, from (M, N, K)
+    alone. 64 columns where that grid already gives every SM a tile; else
+    32, and K split 2, 4 or 8 ways while the grid stays within one wave
+    and every CTA has a K step."""
+    rows, steps = -(-m // BLOCK_M), (k // 32 + 1) // 2
+    if -(-n // 64) * rows >= SMS:
+        return 64, 1
+    tiles = -(-n // 32) * rows
+    split = 1
+    while (split < SPLIT_MAX_CTAS and 2 * split <= steps
+           and 2 * split * tiles <= SMS):
+        split *= 2
+    return 32, split
 
 
 def q8_wgmma_smem_bytes(tile: Tile) -> int:

@@ -121,7 +121,7 @@ def analytic_features(cand: TileCandidate, m: int, n: int, k: int, *,
         resident = max(1, min(tiles.SMEM_PER_SM_BYTES
                               // (cand.claim_bytes + 1024),
                               MAX_THREADS_PER_SM // TC_THREADS))
-        depth = _ceil(k, tiles.K_STEP if cand.launch else tiles.TILED_K_STEP)
+        depth = _ceil(k, tiles.K_STEP)
     steps = 1 + _ceil(blocks, tiles.SMS * resident) * depth
     return flops, float(bytes_hbm), float(steps)
 

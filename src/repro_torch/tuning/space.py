@@ -12,8 +12,8 @@ is admissible iff
   * its launch is one the kernel is built for and the shape admits
     (``kernels/tiles.py``: the tensor-core launches' tile N and ring depth,
     the M <= 16 launches' rows, warps and K split; ``bf16_matmul`` at a K
-    its tensor-core launch cannot take has one launch, ``()``, with no
-    tile);
+    its tensor-core launch cannot take has one launch, the converting one,
+    ``()``, with no tile);
   * the shared memory one block of the launch claims fits the budget (the
     32 KB-LMM analog).
 
@@ -71,11 +71,12 @@ def row_launch(kernel: str, m: int):
 
 def _tensor_core(kernel: str, k: int):
     """The launches above M = 16 and their claims; ``bf16_matmul`` at a K
-    its tensor-core launch cannot take runs the tiled launch, ``()``."""
+    its tensor-core launch cannot take runs the converting launch,
+    ``()``."""
     if kernel == "q8_matmul":
         return tiles.Q8_WGMMA_TILES, tiles.q8_wgmma_smem_bytes
     if not tiles.bf16_tensor_core_k(k):
-        return ((),), lambda launch: tiles.TILED_SMEM_BYTES
+        return ((),), lambda launch: tiles.CVT_SMEM_BYTES
     return tiles.BF16_WGMMA_TILES, tiles.bf16_wgmma_smem_bytes
 
 
@@ -89,7 +90,7 @@ def launch_candidate(kernel: str, m: int, n: int, k: int, block_k: int,
         return TileCandidate(kernel, m, rl.rows_per_block(launch), block_k,
                              rl.smem_bytes(launch, m), launch)
     _, claim = _tensor_core(kernel, k)
-    block_n = launch[0] if launch else tiles.TILED_BLOCK_N
+    block_n = launch[0] if launch else tiles.CVT_BLOCK_N
     return TileCandidate(kernel, tiles.BLOCK_M, block_n, block_k,
                          claim(launch), launch)
 

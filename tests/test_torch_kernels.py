@@ -20,13 +20,14 @@ from repro.kernels.flash_attention import (
     flash_attention_fwd as pallas_flash_attention_fwd)
 from repro.kernels.q8_matmul import q8_matmul as pallas_q8_matmul
 from repro.kernels.q8_matvec import q8_matvec as pallas_q8_matvec
-from repro_torch.core.qformats import QTensor, quantize_q8_0
-from repro_torch.kernels import ref
+from repro_torch.core.qformats import QTensor, dequantize_q8_0, quantize_q8_0
+from repro_torch.kernels import ref, tiles
 from repro_torch.kernels.bf16_matmul import bf16_matmul, bf16_matmul_plain
 from repro_torch.kernels.flash_attention import (
     flash_attention_fwd, flash_attention_fwd_plain)
 from repro_torch.kernels.q8_matmul import q8_matmul
 from repro_torch.kernels.q8_matvec import q8_matvec
+from tests._hyp import given, settings, st
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -198,6 +199,104 @@ def test_tensor_core_route_computes_the_reference(m, n, k):
     want = jax_ref.q8_matmul_ref(jnp.asarray(xb.float().numpy()), jq)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
+
+
+@settings(max_examples=200, deadline=None)
+@given(st.lists(st.integers(0, 2**32 - 1), min_size=1, max_size=64))
+def test_split_bf16x3_is_exact(bits):
+    """q8_matmul's converting launch splits an f32 x into hi = bf16(x),
+    mid = bf16(x - hi) and lo = bf16(x - hi - mid). Over f32 bit patterns
+    whose parts stay normal (finite, hi finite, |x| at least 2^-102 or
+    0): both f32 differences are exact, lo loses nothing in bf16, and
+    hi + mid + lo == x."""
+    x = torch.from_numpy(np.array(bits, dtype=np.uint32).view(np.float32))
+    hi, mid, lo = ref.split_bf16x3(x)
+    assert hi.dtype == mid.dtype == lo.dtype == torch.bfloat16
+    keep = (torch.isfinite(x) & torch.isfinite(hi.float())
+            & ((x == 0) | (x.abs() >= 2.0**-102)))
+    x64, h, mi, lo64 = (t.double()[keep] for t in (x, hi, mid, lo))
+    r = x[keep] - hi.float()[keep]                       # in f32
+    assert torch.equal(r.double(), x64 - h)
+    r2 = r - mid.float()[keep]
+    assert torch.equal(r2.double(), x64 - h - mi)
+    assert torch.equal(lo64, r2.double())                # exact in bf16
+    assert torch.equal(h + mi + lo64, x64)
+
+
+def _split_tensor_core_route(x, qs, scales, parts=3):
+    """The arithmetic of q8_matmul's converting launch for f32 x, in plain
+    PyTorch: x split into hi, mid and lo (``ref.split_bf16x3``), each
+    part's products with the int8 values summed in f32 over each Q8_0
+    block, the smallest part first, then each block's sum times its
+    scale, added over the blocks in order. ``parts`` < 3 drops lo (and
+    mid): the ablation of the split."""
+    m, k = x.shape
+    n = qs.shape[0]
+    qb = qs.float().reshape(n, k // 32, 32)
+    partial = torch.zeros(m, n, k // 32)
+    for part in reversed(ref.split_bf16x3(x)[:parts]):
+        partial += torch.einsum("mbj,nbj->mnb",
+                                part.float().reshape(m, k // 32, 32), qb)
+    out = torch.zeros(m, n)
+    for b in range(k // 32):
+        out += scales[:, b] * partial[:, :, b]
+    return out
+
+
+@pytest.mark.parametrize("m,n,k", [(28, 512, 512), (28, 96, 2048),
+                                   (37, 40, 96)])
+def test_split_route_holds_f32_x_to_float64(m, n, k):
+    """The three-part route against a float64 product of the same
+    dequantized weight, within the reference oracle's 2e-5 of the largest
+    output (tests/test_kernels.py), and against the JAX oracle at TOL;
+    with x rounded to bf16 alone (hi), the same check fails: the split is
+    what keeps the f32 function (M = 28: a whisper-base verify window)."""
+    x, w = _operands(m, n, k, seed=m * n + k)
+    xt = torch.from_numpy(x)
+    tq = quantize_q8_0(torch.from_numpy(w))
+    want = xt.double() @ dequantize_q8_0(tq).double().t()
+    lim = 2e-5 * want.abs().max().item()
+    got = _split_tensor_core_route(xt, tq.flat_qs(), tq.scales)
+    assert (got.double() - want).abs().max().item() <= lim
+    hi_only = _split_tensor_core_route(xt, tq.flat_qs(), tq.scales, parts=1)
+    assert (hi_only.double() - want).abs().max().item() > lim
+    jq = JQTensor(jnp.asarray(tq.qs.numpy()), jnp.asarray(tq.scales.numpy()))
+    np.testing.assert_allclose(
+        got.numpy(), np.asarray(jax_ref.q8_matmul_ref(jnp.asarray(x), jq)),
+        **TOL)
+
+
+@pytest.mark.parametrize("m,n,k,want", [
+    (28, 512, 512, (32, 8)),      # whisper-base window: 16 tiles, 8 steps
+    (28, 2048, 512, (32, 2)),     # 64 tiles
+    (28, 512, 2048, (32, 8)),     # 16 tiles, 32 steps
+    (28, 51872, 512, (64, 1)),    # the readout: 811 tiles of 64
+    (1152, 4096, 1024, (64, 1)),  # llava's projector
+    (100, 96, 96, (32, 2)),       # 6 tiles, 2 steps
+    (17, 64, 32, (32, 1)),        # one step: nothing to share
+])
+def test_q8_split_launch_choice(m, n, k, want):
+    """The converting launch's tile N and K split (``split_launch`` of
+    q8_matmul.cu, mirrored in ``tiles.q8_split_launch``) at the window's,
+    the projector's and ragged shapes."""
+    assert tiles.q8_split_launch(m, n, k) == want
+
+
+def test_q8_split_launch_stays_in_one_wave():
+    """Over a grid of shapes: a split is 1, 2, 4 or 8 CTAs, each with a
+    K step, only on 64 x 32 tiles, and a split grid fits one wave of the
+    132 SMs; a 64 x 64 grid is taken only where it already fills them."""
+    for m in (17, 28, 64, 65, 200, 1152, 1500):
+        for n in (1, 33, 96, 512, 2048, 4096, 51872):
+            for k in (32, 64, 96, 512, 1536, 2048, 4096):
+                bn, split = tiles.q8_split_launch(m, n, k)
+                rows, steps = -(-m // 64), (k // 32 + 1) // 2
+                assert split in (1, 2, 4, 8) and split <= steps
+                assert (bn == 64) == (-(-n // 64) * rows >= tiles.SMS)
+                if split > 1:
+                    assert bn == 32
+                    assert -(-n // 32) * rows * split <= tiles.SMS
+    assert tiles.CVT_SMEM_BYTES == 33792
 
 # bf16_matmul: (m, n, k, k_full, Pallas tiles); k < k_full is the strided
 # K-slice of a wider operand the executor hands the kernel

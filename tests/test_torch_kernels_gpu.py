@@ -1,6 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions, on a CUDA
 device, at the shapes of the whisper-tiny main paths (Q8_0, and dense with
-flash attention) and at ragged and strided ones; full-width whisper-tiny
+flash attention), of the f32-operand products (a whisper-base verify
+window, llava's projector, the whisper frontend) and at ragged and strided
+ones; the Q8_0 product of f32 x within 2e-5 of a float64 product; two
+launches of each converting launch bit for bit equal; full-width whisper-tiny
 transcribe at batch 2 running every Q8_0 linear through them, and the
 dense + flash transcribe running every dense linear and every encoder
 attention through them.
@@ -44,10 +47,12 @@ def _cuda_or_skip():
     return resolve_device("cuda")
 
 
-def _q8_param(name, m, n, k, k_full, x_offset=0):
+def _q8_param(name, m, n, k, k_full, x_offset=0, route=""):
     """One case of test_kernel_vs_plain_on_card; x_offset > 0 makes x's
-    base and row stride x_offset elements off 16 bytes."""
-    tag = f"-xoff{x_offset}" if x_offset else ""
+    base and row stride x_offset elements off 16 bytes; ``route`` names
+    the launch the case is there for."""
+    tag = (f"-{route}" if route else "") + (
+        f"-xoff{x_offset}" if x_offset else "")
     return pytest.param(name, m, n, k, k_full, x_offset,
                         id=f"{name}-{m}-{n}-{k}-{k_full}{tag}")
 
@@ -73,7 +78,14 @@ def _q8_param(name, m, n, k, k_full, x_offset=0):
     _q8_param("q8_matmul", 100, 64, 96, 96),        # K = 96: a ragged 64-step
     _q8_param("q8_matmul", 70, 64, 32, 32),         # K = 32: one Q8_0 block
     _q8_param("q8_matmul", 65, 72, 256, 256),       # ragged 64 x 64 tiles
-    _q8_param("q8_matmul", 300, 96, 256, 256, 1),   # unaligned x: SIMT launch
+    # unaligned x: the converting launch (bf16 x as its one part)
+    _q8_param("q8_matmul", 300, 96, 256, 256, 1, route="converting"),
+    _q8_param("q8_matmul", 28, 512, 512, 512),      # window q/k/v/o, cross q/o
+    _q8_param("q8_matmul", 28, 2048, 512, 512),     # window ffn.up
+    _q8_param("q8_matmul", 28, 512, 2048, 2048),    # window ffn.down
+    _q8_param("q8_matmul", 28, 51872, 512, 512),    # window dec.vocab
+    _q8_param("q8_matmul", 1152, 4096, 1024, 1024),  # llava's projector
+    _q8_param("q8_matmul", 17, 33, 160, 192),       # ragged, K split in 2
 ])
 @pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
 def test_kernel_vs_plain_on_card(name, m, n, k, k_full, x_offset, xdtype):
@@ -138,6 +150,10 @@ def test_full_width_batch2_transcribe_launches_every_q8_linear():
     (1500, 384, 1536, 1536),   # prefill ffn.down
     (11, 70, 100, 130),        # skinny M, ragged N and K, unaligned rows
     (17, 70, 37, 40),          # tiled M, ragged M, N and K
+    (1500, 384, 80, 80),       # the whisper frontend (f32 mel)
+    (1152, 4096, 1024, 1024),  # llava's projector (f32 patches)
+    (28, 512, 512, 512),       # a whisper-base verify window
+    (70, 130, 100, 104),       # ragged M and N, K not a whole number of 8
 ])
 @pytest.mark.parametrize("xdtype,wdtype", [
     (torch.bfloat16, torch.bfloat16), (torch.float32, torch.bfloat16),
@@ -337,3 +353,55 @@ def test_full_width_dense_flash_transcribe_launches_every_kernel():
     assert flash_attention_fwd.launches == 2 * cfg.num_encoder_layers
     assert q8_matmul.launches == q8_matvec.launches == 0
     assert [r.steps for r in res] == [max_new]
+
+
+# (m, n, k): the converting launches' shapes on the served paths and
+# ragged ones; the Q8_0 launch splits K over 8, 2 and 8 CTAs of a cluster
+# at the first three, and not at the readout or the projector
+CONVERTING_SHAPES = [(28, 512, 512), (28, 2048, 512), (28, 512, 2048),
+                     (28, 51872, 512), (1152, 4096, 1024), (37, 40, 96),
+                     (17, 33, 160)]
+
+
+def _q8_operands(m, n, k, dev, seed):
+    x, w = _operands(m, n, k, seed=seed)
+    tq = quantize_q8_0(torch.from_numpy(w).to(dev))
+    return torch.from_numpy(x).to(dev), tq
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,n,k", CONVERTING_SHAPES)
+def test_q8_f32_x_within_2e_5_of_float64(m, n, k):
+    """f32 x through q8_matmul's converting launch (x split into three
+    bf16 parts) against a float64 product of the same dequantized weight,
+    within the reference oracle's 2e-5 of the largest output
+    (tests/test_kernels.py). x rounded to bf16 alone misses this by about
+    two orders of magnitude (tests/test_torch_kernels.py's CPU model of
+    the route, and tools/q8_split_ablation.py on the card)."""
+    dev = _cuda_or_skip()
+    x, tq = _q8_operands(m, n, k, dev, seed=m + n + k)
+    got = q8_matmul(x, tq.flat_qs(), tq.scales)
+    w = (tq.qs.float() * tq.scales[..., None]).reshape(n, k)
+    want = x.double() @ w.double().t()
+    torch.cuda.synchronize()
+    err = (got.double() - want).abs().max().item()
+    assert err <= 2e-5 * want.abs().max().item(), err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,n,k", CONVERTING_SHAPES)
+@pytest.mark.parametrize("kernel", ["q8_matmul", "bf16_matmul"])
+def test_converting_launches_bit_for_bit(kernel, m, n, k):
+    """Two launches of a converting launch on the same f32 x give the same
+    bits: one fixed order of the sums, no float atomics, a K split summed
+    in rank order."""
+    dev = _cuda_or_skip()
+    x, tq = _q8_operands(m, n, k, dev, seed=m * n + k)
+    if kernel == "q8_matmul":
+        args, fn = (x, tq.flat_qs(), tq.scales), q8_matmul
+    else:
+        w = (tq.qs.float() * tq.scales[..., None]).reshape(n, k)
+        args, fn = (x, w.to(torch.bfloat16)), bf16_matmul
+    first, second = fn(*args), fn(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)

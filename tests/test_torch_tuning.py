@@ -316,9 +316,9 @@ def _check_admissible(kernel, m, n, k, budget):
                      else tiles.BF16_WGMMA_TILES)
             own = (tiles.q8_wgmma_smem_bytes if kernel == "q8_matmul"
                    else tiles.bf16_wgmma_smem_bytes)
-            if c.launch == ():        # bf16_matmul's tiled launch
+            if c.launch == ():        # bf16_matmul's converting launch
                 assert kernel == "bf16_matmul" and k % 8
-                assert c.claim_bytes == tiles.TILED_SMEM_BYTES
+                assert c.claim_bytes == tiles.CVT_SMEM_BYTES
             else:
                 assert c.launch in table and c.claim_bytes == own(c.launch)
         else:
@@ -429,7 +429,7 @@ def test_pick_in_space_example(kernel, m, n, k, budget, calibrated):
 def test_a_k_the_tensor_cores_cannot_take_has_the_tiled_launch():
     """bf16_matmul above M = 16 at K = 1500 (the attention's value product
     in the coverage enumeration): rows of 3,000 bytes that cp.async cannot
-    copy, so the one launch is the tiled one, (), which takes no tile; a
+    copy, so the one launch is the converting one, (), which takes no tile; a
     plan entry tuned there carries no tile, and 16 KB admits nothing."""
     cands = _check_admissible("bf16_matmul", 1504, 64, 1500,
                               tiles.SMEM_OPTIN_BYTES)
@@ -707,9 +707,9 @@ def test_launch_tile_is_chosen_at_the_batch_tile_the_step_runs():
 
 @pytest.mark.parametrize("m", [1, 40])
 def test_f32_dense_operands_take_no_tensor_core_tile(m):
-    """Above M = 16 an f32 dense operand runs the tiled launch, which takes
-    no tile: its plan entry keeps the burst and leaves the launch alone; at
-    M <= 16 every operand type takes the gemv launch's tile."""
+    """Above M = 16 an f32 dense operand runs the converting launch, which
+    takes no tile: its plan entry keeps the burst and leaves the launch
+    alone; at M <= 16 every operand type takes the gemv launch's tile."""
     rng = np.random.default_rng(4)
     x = torch.from_numpy(rng.standard_normal((m, 80)).astype(np.float32))
     w = torch.from_numpy((rng.standard_normal((64, 80)) * 0.1).astype(
@@ -815,7 +815,7 @@ def test_tiles_keep_the_function_and_bad_tiles_raise(case):
            "bf16_gemv": (64, 5), "bf16_wgmma": (1, 1, 1)}[case]
     with pytest.raises(ValueError):
         fn(*args, tile=bad)
-    if case == "bf16_wgmma":      # an f32 operand: the tiled launch, no tile
+    if case == "bf16_wgmma":      # an f32 operand: the converting launch
         with pytest.raises(ValueError, match="takes no tile"):
             fn(x.float(), w, tile=tiles.BF16_WGMMA_TILES[0])
 

@@ -4,8 +4,8 @@ against the kernel's plain version (tolerance 1e-4 of the largest output,
 as the kernel tests: the launches sum in other orders), the launch with no
 tile equal bit for bit to the one with the tile ``kernels/tiles.py`` says
 the kernel chooses itself, a measured search that picks inside its own
-space, the tiled f32 launch (the frontend's) against its plain version
-and refusing a tile, and tuned ``transcribe`` on the card: its captured
+space, the converting launch (the frontend's f32 x) against its plain
+version and refusing a tile, and tuned ``transcribe`` on the card: its captured
 tokens equal the tuned eager loop's, and replays consult no tuner.
 
 Every test here is marked ``gpu`` and skips without a card. The file
@@ -45,7 +45,7 @@ SHAPES = [
     ("bf16_matmul", 1500, 384, 1536), ("bf16_matmul", 1500, 384, 80),
     ("bf16_matmul", 1, 384, 384), ("bf16_matmul", 1, 1536, 384),
     ("bf16_matmul", 1, 384, 1536), ("bf16_matmul", 1, 51872, 384),
-    ("bf16_matmul", 1500, 64, 1500),       # K cp.async cannot take: tiled
+    ("bf16_matmul", 1500, 64, 1500),       # K cp.async cannot take
 ]
 
 
@@ -61,7 +61,7 @@ def _tile_cases():
         for t in launches(kernel, tiles.tile_m(m), n, k):
             yield pytest.param(kernel, m, n, k, t,
                                id=f"{kernel}-{m}-{n}-{k}-" +
-                               ("x".join(map(str, t)) or "tiled"))
+                               ("x".join(map(str, t)) or "converting"))
 
 
 def _call(kernel, m, n, k, dev):
@@ -124,7 +124,7 @@ def test_measured_search_picks_inside_its_space(kernel, m, n, k):
 @pytest.mark.gpu
 def test_tiled_f32_launch_against_plain_and_refuses_a_tile():
     """The frontend's product (M = 1500, K = 80, f32 mel as x) runs the
-    tiled launch: it agrees with the plain version, and a ring depth is
+    converting launch: it agrees with the plain version, and a ring depth is
     refused by the wrapper (f32 x) and by the C entry (bf16 rows that
     cp.async cannot copy)."""
     dev = _cuda_or_skip()
@@ -189,7 +189,7 @@ def test_tuned_captured_tokens_equal_tuned_eager(path, full):
     for plan in eng._plans.plans.values():
         for e in plan.entries:
             if e.k == 384:
-                # every launch takes a tile but the tiled f32 one
+                # every launch takes a tile but the converting f32 one
                 takes = e.dtype == "q8_0" or e.m <= 16 or not f32
                 assert e.tuned and e.k_res == 0
                 assert (e.tiling is not None) == takes
