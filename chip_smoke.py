@@ -459,24 +459,38 @@ own kernels with nvcc. Phases, each of which fails the run on error:
        the f32 FMA rate and at the bf16 one.
     b. phi3-mini-3.8b at full width through ``Trainer``: bf16, flash,
        full remat, 4096 tokens x batch 2, bf16 moments, weights drawn on
-       the card; 4 steps, a checkpoint every 2 into a temporary
-       directory: finite losses, 64 forward and 32 backward flash
-       launches a step, every backward launch on the tensor-core route,
-       step ms (CUDA events), tokens a second, peak memory; step_4
-       loaded onto the card bit for bit; one more step profiled (the
-       device split into flash forward, flash backward, GEMMs and the
-       rest; the backward's kernels by name, 32 each of the delta and
-       the tensor-core dK/dV and dQ kernels and no SIMT kernel; J a step
-       at the power limit); a fresh
+       the card; 4 steps and one checkpoint after the last (its save
+       timed) into a temporary directory: finite losses, 64 forward and
+       32 backward flash launches a step, every backward launch on the
+       tensor-core route, step ms (CUDA events), tokens a second, peak
+       memory; step_4 loaded onto the card bit for bit (timed); one more
+       step profiled (the device split into flash forward, flash
+       backward, GEMMs and the rest; the backward's kernels by name, 32
+       each of the delta and the tensor-core dK/dV and dQ kernels and no
+       SIMT kernel; J a step at the power limit); then, at phi3's width
+       cut to 4 layers, 4 steps with a checkpoint every 2, and a fresh
        ``Trainer`` restores step_2 and reruns steps 2-3 within 1e-3.
+    d. training over a mesh (``train_mesh_phase``): ``Trainer(mesh=)``
+       over ``make_smoke_mesh`` of four entries of the card, (2, 2) data
+       x model, the state split by ``train_state_specs``, each data shard
+       one row of 19b's batch: 2 steps from 19b's init whose losses and
+       gradient norms equal 19b's within 1e-3, each shard launching 64
+       forward and 32 backward flash kernels a step (128 and 64 a step),
+       all on the tensor cores; step ms, tokens a second, peak memory,
+       the state's bytes by logical entry and on the card; the gather,
+       shard, reduce and update ms of a step (CUDA events); a profiled
+       step's device split; the elastic round trip at 2 layers: a mesh
+       step's whole-leaf checkpoint restored unsharded, onto a (4, 1)
+       mesh and onto the (2, 2) one, bit for bit. On one card the mesh
+       measures the machinery (copies, gathers, reduces), not scaling.
     c. the CLI: ``launch.train.main`` on whisper-tiny at full width, 4
-       steps, ends with ``final:``.
+       steps, ends with ``final:`` (run after 19d).
     ``train ...`` lines, then ``train phase: N s``. The backward's
     kernels-line entry sums its phi3 row over a training step (32
     launches), keeps the other rows under ``by_phase``, its kernels'
     registers and spills (``ptxas``) and the profiled step's kernels by
     name (``device_kernels``); its ``launches`` are 19b's continuous
-    run's.
+    run's, and ``launches_by_path["train"]`` adds 19d's and 19c's.
 
 The last two lines are the kernels' JSON record and the result line; each
 kernel's record also carries its launches on the tuned paths' eager loops
@@ -5955,6 +5969,19 @@ TRAIN_ARCH = "phi3-mini-3.8b"
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS, TRAIN_CKPT_EVERY = 4096, 2, 4, 2
 TRAIN_SEED = 0
 TRAIN_STATE_DTYPE = "bfloat16"
+# 19b's resume check runs at phi3's width cut to this many layers (its
+# checkpoints about an eighth of a full-depth one's 22.9 GB); 19d's
+# elastic round trip at TRAIN_ROUND_TRIP_LAYERS
+TRAIN_RESUME_LAYERS, TRAIN_ROUND_TRIP_LAYERS = 4, 2
+# 19d: steps over the reference CLI's smoke mesh, (2, 2) data x model of
+# four entries of the one card, each data shard one 4096-token row of
+# 19b's batch; its losses and gradient norms against 19b's first steps
+# within TRAIN_RESUME_TOL
+TRAIN_MESH_STEPS = 2
+# 19d's peak: 7.6 GB of split parameters, one 7.6 GB gathered copy, 15.3
+# GB of bf16 moments, two shards' 7.6 GB of bf16 gradients (their f32 sums
+# replace them as they are freed) and remat's activations: about 47 GB
+TRAIN_MESH_PEAK_GB = 60
 # the resumed run's losses against the continuous run's: the embedding's
 # backward (index_add_ with atomics on the card) sums in a scheduling order
 TRAIN_RESUME_TOL = 1e-3
@@ -6286,17 +6313,20 @@ def train_phase(bwd_log: str):
     """Phase 19: 19a the kernels (``train_kernel_checks``), after the
     backward's registers and spills from its build log ``bwd_log``
     (``ptxas_report``); 19b phi3-mini
-    at full width through ``Trainer``: TRAIN_STEPS steps with checkpoints
-    every TRAIN_CKPT_EVERY into a temporary directory (finite losses; the
-    flash backward launched once a layer a step; step ms by CUDA events,
-    tokens a second, peak memory; step_4 loaded back bit for bit; one
-    more step profiled: the device split; J a step at the power limit;
-    that step's gradients against chunked attention's within
-    TRAIN_GRAD_TOL, and the loss on its batch falling over
-    TRAIN_DESCENT_STEPS steps), then a fresh ``Trainer`` restored from step_2 reruns steps 2-3 within
-    TRAIN_RESUME_TOL; 19c the CLI: whisper-tiny at full width, 4 steps,
-    prints ``final:``. Returns (the kernel rows, the main path's launches,
-    the phase's launches, its summary)."""
+    at full width through ``Trainer``: TRAIN_STEPS steps and one timed
+    checkpoint after the last into a temporary directory (finite losses;
+    the flash backward launched once a layer a step; step ms by CUDA
+    events, tokens a second, peak memory; step_4 loaded back bit for bit,
+    timed; one more step profiled: the device split; J a step at the
+    power limit; that step's gradients against chunked attention's
+    within TRAIN_GRAD_TOL, and the loss on its batch falling over
+    TRAIN_DESCENT_STEPS steps), then at TRAIN_RESUME_LAYERS layers a
+    continuous run with a checkpoint every TRAIN_CKPT_EVERY steps and a
+    fresh ``Trainer`` restored from its step_2 rerunning steps 2-3 within
+    TRAIN_RESUME_TOL; 19d training over a mesh (``train_mesh_phase``);
+    19c the CLI: whisper-tiny at full width, 4 steps, prints ``final:``.
+    Returns (the kernel rows, the main path's launches, the phase's
+    launches, its summary)."""
     import contextlib
     import dataclasses
     import io
@@ -6337,14 +6367,15 @@ def train_phase(bwd_log: str):
                               param_dtype="bfloat16", quant="none",
                               attn_impl="flash", remat="full")
     ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    # no checkpoint between steps: the one full-depth save is the last
+    # step's, timed; the resume check runs at TRAIN_RESUME_LAYERS
     run = RunConfig(model=cfg,
                     shape=ShapeConfig("train_4k_b2", TRAIN_SEQ, TRAIN_BATCH,
                                       "train"),
                     optimizer=OptimizerConfig(lr=1e-4, warmup_steps=2,
                                               total_steps=100,
                                               state_dtype=TRAIN_STATE_DTYPE),
-                    seed=TRAIN_SEED, steps=TRAIN_STEPS,
-                    checkpoint_every=TRAIN_CKPT_EVERY,
+                    seed=TRAIN_SEED, steps=TRAIN_STEPS, checkpoint_every=0,
                     checkpoint_dir=ckpt_dir)
     try:
         events = []
@@ -6355,6 +6386,15 @@ def train_phase(bwd_log: str):
             events.append(ev)
 
         tr = Trainer(run, device="cuda", fault_hook=mark)
+        save_s = []
+
+        def timed_save(step, _save=tr.save):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = _save(step)
+            save_s.append(time.perf_counter() - t)
+            return out
+        tr.save = timed_save
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         _zero(counted)
@@ -6370,8 +6410,8 @@ def train_phase(bwd_log: str):
         step_ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
         print(f"train {TRAIN_ARCH}: {cfg.n_params() / 1e9:.3f} B params, "
               f"seq {TRAIN_SEQ} x batch {TRAIN_BATCH}, losses {losses}, "
-              f"step_ms (CUDA events, a step's window holds the checkpoint "
-              f"saved after it) {step_ms}, host dt_s "
+              f"step_ms (CUDA events, the last step's window holds the "
+              f"checkpoint saved after it) {step_ms}, host dt_s "
               f"{[h['dt_s'] for h in tr.history]}, peak_bytes {peak}, "
               f"launches {launches}, backward routes {routes}", flush=True)
         if not all(map(lambda x: x == x and abs(x) != float("inf"),
@@ -6386,7 +6426,7 @@ def train_phase(bwd_log: str):
         if routes != {"mma": want["flash_attention_bwd"], "simt": 0}:
             raise AssertionError(f"the bf16 backward's routes {routes}: "
                                  "every launch on the tensor cores")
-        # steps 0 and 2 save nothing: step 2 is the steady one
+        # only the last step saves: step 2 is the steady one
         steady_ms = step_ms[2]
         power_w = energy.card_power_limit_w(0)
         summary["train"] = dict(
@@ -6419,11 +6459,14 @@ def train_phase(bwd_log: str):
             n_bytes += b.numel() * b.element_size()
         del loaded, template
         summary["train"]["checkpoint_bytes"] = n_bytes
+        summary["train"]["checkpoint_save_s"] = save_s[0]
         summary["train"]["checkpoint_load_s"] = time.perf_counter() - t2
         print(f"train checkpoint {os.path.basename(last)} "
               f"(cursor {manifest['cursor']}): {n_bytes / 1e9:.3f} GB "
-              f"round-trips bit for bit, loaded in "
-              f"{summary['train']['checkpoint_load_s']:.1f}s", flush=True)
+              f"saved in {save_s[0]:.1f}s, round-trips bit for bit, "
+              f"loaded in {summary['train']['checkpoint_load_s']:.1f}s",
+              flush=True)
+        shutil.rmtree(last)
 
         batch = tr.stream.batch_at(TRAIN_STEPS)
         tr._step_fn(tr.state, batch)          # warm, outside the window
@@ -6502,31 +6545,53 @@ def train_phase(bwd_log: str):
         summary["train"].update(grad_check=grad_check,
                                 descent_losses=descent,
                                 check_s=time.perf_counter() - t4)
-        del tr, batch
+        history = list(tr.history)
+        # timed_save holds a bound method of tr: both go, or the state
+        # stays on the card through 19d
+        del tr, batch, timed_save
         release_memory("train resume")
 
-        # a fresh Trainer restores step_2 (the continuous run's last
+        # the resume check at phi3's width cut to TRAIN_RESUME_LAYERS: a
+        # continuous run with a checkpoint every TRAIN_CKPT_EVERY steps,
+        # then a fresh Trainer restores step_2 (the continuous run's last
         # checkpoint is moved out of its way) and reruns steps 2-3
-        shutil.rmtree(last)
-        tr2 = Trainer(run, device="cuda")
+        t5 = time.perf_counter()
+        cut = dataclasses.replace(
+            run, model=dataclasses.replace(cfg,
+                                           num_layers=TRAIN_RESUME_LAYERS),
+            checkpoint_every=TRAIN_CKPT_EVERY,
+            checkpoint_dir=os.path.join(ckpt_dir, "resume"))
+        tr1 = Trainer(cut, device="cuda")
+        tr1.train()
+        cut_losses = [h["loss"] for h in tr1.history]
+        del tr1
+        shutil.rmtree(ckpt_lib.latest_checkpoint(cut.checkpoint_dir))
+        tr2 = Trainer(cut, device="cuda")
         tr2.train()
         resumed = {h["step"]: h["loss"] for h in tr2.history}
-        print(f"train resume from step_2: losses {resumed} against the "
-              f"continuous run's {losses[2:]}", flush=True)
+        print(f"train resume ({TRAIN_RESUME_LAYERS} layers) from step_2: "
+              f"losses {resumed} against the continuous run's "
+              f"{cut_losses[2:]}", flush=True)
         if sorted(resumed) != [2, 3]:
             raise AssertionError(f"resumed steps {sorted(resumed)}")
         for s in (2, 3):
-            if not abs(resumed[s] - losses[s]) <= TRAIN_RESUME_TOL * abs(
-                    losses[s]):
+            if not abs(resumed[s] - cut_losses[s]) <= TRAIN_RESUME_TOL * \
+                    abs(cut_losses[s]):
                 raise AssertionError(f"resumed loss at step {s}: "
-                                     f"{resumed[s]} vs {losses[s]}")
-        summary["train"]["resumed_losses"] = [resumed[2], resumed[3]]
+                                     f"{resumed[s]} vs {cut_losses[s]}")
+        summary["train"].update(resume_layers=TRAIN_RESUME_LAYERS,
+                                resume_losses=cut_losses,
+                                resumed_losses=[resumed[2], resumed[3]],
+                                resume_s=time.perf_counter() - t5)
         del tr2
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
-    release_memory("train cli")
     summary["trainer_s"] = time.perf_counter() - t1
     print(f"train phase 19b: {summary['trainer_s']:.1f}s", flush=True)
+
+    mesh_launches, summary["mesh"] = train_mesh_phase(cfg, run, history,
+                                                      counted)
+    release_memory("train cli")
 
     t3 = time.perf_counter()
     cli_dir = tempfile.mkdtemp(prefix="chip_smoke_cli_")
@@ -6547,10 +6612,247 @@ def train_phase(bwd_log: str):
     if rc != 0 or not text.splitlines()[-1].startswith("final:"):
         raise AssertionError(f"training CLI: rc={rc}, output {text!r}")
     summary["cli_s"] = time.perf_counter() - t3
-    total = {k: launches[k] + cli[k] for k in counted}
+    total = {k: launches[k] + mesh_launches[k] + cli[k] for k in counted}
     print(f"train phase: {time.perf_counter() - t0:.1f}s; launches {total}",
           flush=True)
     return rows, launches, total, summary
+
+
+def _timed(module, name: str, times: dict):
+    """``module.name`` wrapped to add the device time between CUDA events
+    recorded around each call to ``times[name]``; returns the original."""
+    import torch
+    real = getattr(module, name)
+
+    def timed(*args, **kwargs):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        out = real(*args, **kwargs)
+        b.record()
+        times.setdefault(name, []).append((a, b))
+        return out
+    setattr(module, name, timed)
+    return real
+
+
+def train_mesh_phase(cfg, run, history, counted):
+    """Phase 19d: ``Trainer(mesh=)`` over ``make_smoke_mesh`` of four
+    entries of the card, (2, 2) data x model, on 19b's model, optimizer,
+    seed and batches (each data shard one row): TRAIN_MESH_STEPS steps
+    whose losses and gradient norms equal 19b's within TRAIN_RESUME_TOL,
+    every flash backward launch on the tensor cores; step ms (CUDA
+    events), tokens a second, peak memory, the state's bytes by logical
+    entry and by the card; one more step with the gather, the shards'
+    forward and backward, the reduce and the update timed by CUDA events
+    around each; one profiled step (the device split, and each data
+    shard's flash launches); then the elastic round trip at
+    TRAIN_ROUND_TRIP_LAYERS layers: one mesh step, its whole-leaf
+    checkpoint restored unsharded and onto a (4, 1) mesh, bit for bit.
+    The Trainer's own saves are skipped here (19b times the full-depth
+    one). Returns (the phase's launches, its summary)."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import energy, tree
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.mesh import Mesh, make_smoke_mesh
+    from repro_torch.sharding import rules
+    from repro_torch.train import checkpoint as ckpt_lib
+    from repro_torch.train import step as step_lib
+    from repro_torch.train.trainer import Trainer
+
+    t0 = time.perf_counter()
+    release_memory("train mesh")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_smoke_mesh([dev] * 4)
+    shards = len(mesh.batch_devices())
+    layers = cfg.num_layers
+    mrun = dataclasses.replace(run, steps=TRAIN_MESH_STEPS)
+    events = []
+
+    def mark(step):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+
+    tr = Trainer(mrun, mesh=mesh, fault_hook=mark)
+    tr.save = lambda step: None
+    tr._init_or_restore()
+    init_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = _read(counted)
+    routes = dict(fa.flash_attention_bwd.launches_by_route)
+    tr.train()
+    mark(TRAIN_MESH_STEPS)
+    torch.cuda.synchronize()
+    launches = {k: v - before[k] for k, v in _read(counted).items()}
+    routes = {r: n - routes[r] for r, n
+              in fa.flash_attention_bwd.launches_by_route.items()}
+    step_ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    losses = [h["loss"] for h in tr.history]
+    norms = [h["grad_norm"] for h in tr.history]
+    by_entry = rules.entry_bytes(tr.state, tr.specs, mesh)
+    stored = sum(t.numel() * t.element_size() for t in tree.leaves(tr.state))
+    print(f"train mesh {dict(mesh.shape)} over {len(mesh.physical_devices)} "
+          f"card ({shards} data shards of one {TRAIN_SEQ}-token row): "
+          f"losses {losses} against 19b's {[h['loss'] for h in history]}, "
+          f"grad_norms {norms} against 19b's "
+          f"{[h['grad_norm'] for h in history]}; step_ms (CUDA events) "
+          f"{step_ms}; host dt_s {[h['dt_s'] for h in tr.history]}; "
+          f"launches {launches}; backward routes {routes}; state bytes by "
+          f"logical entry {by_entry}, stored on the card {stored}; init "
+          f"(draw and split) {init_s:.1f}s", flush=True)
+    want = {"flash_attention_fwd": 2 * shards * layers * TRAIN_MESH_STEPS,
+            "flash_attention_bwd": shards * layers * TRAIN_MESH_STEPS}
+    if launches != want:
+        raise AssertionError(f"mesh training launches {launches}, expected "
+                             f"{want} (each shard's forward and its "
+                             "recompute, one backward a layer a shard)")
+    if routes != {"mma": want["flash_attention_bwd"], "simt": 0}:
+        raise AssertionError(f"the mesh step's backward routes {routes}")
+    for s, h in enumerate(tr.history):
+        for key in ("loss", "grad_norm"):
+            got, ref = h[key], history[s][key]
+            if not abs(got - ref) <= TRAIN_RESUME_TOL * abs(ref):
+                raise AssertionError(f"mesh step {s} {key} {got} against "
+                                     f"19b's {ref}")
+
+    # one more step with its phases timed between CUDA events
+    times = {}
+    patched = [(step_lib, name, _timed(step_lib, name, times)) for name in
+               ("gather_params", "_shard_grads", "reduce_grads",
+                "adamw_update_split")]
+    try:
+        batch = tr.stream.batch_at(TRAIN_MESH_STEPS)
+        mark(None)
+        tr.state, _ = tr._step_fn(tr.state, batch)
+        mark(None)
+        torch.cuda.synchronize()
+    finally:
+        for module, name, real in patched:
+            setattr(module, name, real)
+    timed_ms = events[-2].elapsed_time(events[-1])
+    phases = {name: sum(a.elapsed_time(b) for a, b in pairs)
+              for name, pairs in times.items()}
+    peak = torch.cuda.max_memory_allocated()
+    launches = {k: v - before[k] for k, v in _read(counted).items()}
+
+    # one profiled step: the device split and each shard's flash kernels
+    batch = tr.stream.batch_at(TRAIN_MESH_STEPS + 1)
+    want_prof = {"flash_bwd": 3 * shards * layers,
+                 "flash_fwd": 2 * shards * layers}
+    for attempt in range(REPLAY_PROFILES):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _open_window()
+            tr.state, _ = tr._step_fn(tr.state, batch)
+            torch.cuda.synchronize()
+        split, bwd_kernels = _train_split(prof)
+        del prof
+        seen = {k: split[k]["launches"] for k in want_prof}
+        if seen == want_prof:
+            break
+        print(f"train mesh step: flash launches {seen} in profiled window "
+              f"{attempt + 1}, expected {want_prof}; profiling again",
+              flush=True)
+    launches = {k: v - before[k] for k, v in _read(counted).items()}
+    device = sum(v["device_ms"] for v in split.values())
+    by_word = {w: sum(k["launches"] for name, k in bwd_kernels.items()
+                      if name.split("<")[0] == w)
+               for w in TRAIN_BWD_KERNELS + TRAIN_BWD_SIMT}
+    power_w = energy.card_power_limit_w(0)
+    steady = step_ms[-1]
+    summary = dict(
+        mesh=dict(mesh.shape), data_shards=shards, losses=losses,
+        grad_norms=norms, ref_losses=[h["loss"] for h in history],
+        ref_grad_norms=[h["grad_norm"] for h in history],
+        step_ms_events=step_ms, step_ms=steady,
+        tokens_per_s=TRAIN_SEQ * TRAIN_BATCH / (steady / 1e3),
+        timed_step_ms=timed_ms, phases_ms=phases, peak_bytes=peak,
+        state_bytes_by_entry=by_entry, state_bytes_stored=stored,
+        device_split=split, device_ms=device, bwd_kernels=bwd_kernels,
+        power_limit_w=power_w, j_per_step_at_limit=power_w * steady / 1e3,
+        init_s=init_s)
+    print(f"train mesh step phases (CUDA events, one step of "
+          f"{timed_ms:.3f} ms): {json.dumps(phases)}; peak_bytes {peak}; "
+          f"step {steady:.3f} ms, "
+          f"{summary['tokens_per_s']:.1f} tokens/s", flush=True)
+    print(f"train mesh step device split (torch.profiler, one step): "
+          f"{json.dumps(split)}; device_ms={device:.3f}; flash backward "
+          f"kernels {json.dumps(bwd_kernels)}", flush=True)
+    if not peak <= TRAIN_MESH_PEAK_GB * 1e9:
+        raise AssertionError(f"the mesh steps' peak {peak} bytes is past "
+                             f"{TRAIN_MESH_PEAK_GB} GB")
+    if seen != want_prof:
+        raise AssertionError(f"profiled mesh step's flash kernels {split}: "
+                             "expected 3 backward kernels and 2 forward "
+                             "launches a layer a data shard")
+    if {w: by_word[w] for w in TRAIN_BWD_KERNELS} != {
+            w: shards * layers for w in TRAIN_BWD_KERNELS} or any(
+            by_word[w] for w in TRAIN_BWD_SIMT):
+        raise AssertionError(f"profiled mesh step's backward kernels "
+                             f"{bwd_kernels}")
+    del tr, batch
+    release_memory("train round trip")
+
+    # the elastic round trip at TRAIN_ROUND_TRIP_LAYERS layers
+    t1 = time.perf_counter()
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    try:
+        small = dataclasses.replace(
+            run, model=dataclasses.replace(
+                cfg, num_layers=TRAIN_ROUND_TRIP_LAYERS),
+            steps=1, checkpoint_every=0, checkpoint_dir=ckpt_dir)
+        tr = Trainer(small, mesh=mesh)
+        tr.train()
+        whole = tr.whole_state()
+        path = ckpt_lib.latest_checkpoint(ckpt_dir)
+        template = tree.map_with_path(
+            lambda _, t: torch.empty(t.shape, dtype=t.dtype, device="meta"),
+            whole)
+        tall = Mesh((4, 1), ("data", "model"), [dev] * 4)
+        tall_specs = rules.train_state_specs(whole, tall)
+        checks = {}
+        for label, kwargs, target, specs in (
+                ("unsharded", dict(device=dev), None, None),
+                ("(4, 1)", dict(mesh=tall, specs=tall_specs), tall,
+                 tall_specs),
+                ("(2, 2)", dict(mesh=mesh, specs=tr.specs), mesh,
+                 tr.specs)):
+            got, _ = ckpt_lib.load_checkpoint(path, template, **kwargs)
+            if target is not None:
+                got = rules.gather_tree(got, specs, target, dev)
+            checks[label] = all(
+                a.dtype == b.dtype and torch.equal(
+                    a.reshape(-1).view(torch.uint8),
+                    b.reshape(-1).view(torch.uint8))
+                for a, b in zip(tree.leaves(got), tree.leaves(whole),
+                                strict=True))
+            del got
+        n_bytes = sum(t.numel() * t.element_size()
+                      for t in tree.leaves(whole))
+        del tr, whole, template
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    summary["round_trip"] = dict(layers=TRAIN_ROUND_TRIP_LAYERS,
+                                 bytes=n_bytes, bit_for_bit=checks,
+                                 s=time.perf_counter() - t1)
+    print(f"train mesh round trip ({TRAIN_ROUND_TRIP_LAYERS} layers, "
+          f"{n_bytes / 1e9:.3f} GB): (2, 2) mesh -> whole-leaf checkpoint "
+          f"-> {checks} bit for bit in {time.perf_counter() - t1:.1f}s",
+          flush=True)
+    if not all(checks.values()):
+        raise AssertionError(f"the elastic round trip changed a leaf: "
+                             f"{checks}")
+    launches = {k: v - before[k] for k, v in _read(counted).items()}
+    summary["launches"] = launches
+    summary["s"] = time.perf_counter() - t0
+    print(f"train phase 19d: {summary['s']:.1f}s; launches {launches}",
+          flush=True)
+    return launches, summary
 
 
 def main() -> int:

@@ -145,13 +145,13 @@ class OffloadEngine:
                     optimized=True, agg_units=1)
 
     def plan_entry(self, m: int, k: int, n: int, *, quantized: bool,
-                   name: str = "linear", dense_f32: bool = False,
+                   name: str = "linear", f32_operand: bool = False,
                    shards: int = 1) -> PlanEntry:
         """Resolve the routing of one static shape (``plan_linear``)."""
         return plan_linear(name, m, k, n, quantized=quantized,
                            vmem_budget_kb=self.vmem_budget_kb,
                            default_burst=self.burst, tuner=self.tuner,
-                           dense_f32=dense_f32, mesh_sig=self.mesh_sig,
+                           f32_operand=f32_operand, mesh_sig=self.mesh_sig,
                            shards=shards)
 
     @contextmanager
@@ -178,7 +178,8 @@ class OffloadEngine:
         quantized = isinstance(w, QTensor)
         entry = self.plan_entry(
             m, k, n, quantized=quantized, name=name,
-            dense_f32=not quantized and torch.float32 in (x.dtype, w.dtype),
+            f32_operand=(x.dtype == torch.float32
+                         or (not quantized and w.dtype == torch.float32)),
             shards=shards)
         y = self.execute(x, w, entry)
         if self._recording is not None:

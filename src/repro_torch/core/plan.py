@@ -77,7 +77,7 @@ class PlanEntry:
 
 def plan_linear(name: str, m: int, k: int, n: int, *, quantized: bool,
                 vmem_budget_kb: int, default_burst: int,
-                tuner=None, dense_f32: bool = False,
+                tuner=None, f32_operand: bool = False,
                 mesh_sig=None, shards: int = 1) -> PlanEntry:
     """Resolve one linear's routing from static shapes — pure apart from
     warming the tuner's cache (a miss runs one search whose winner is
@@ -89,9 +89,10 @@ def plan_linear(name: str, m: int, k: int, n: int, *, quantized: bool,
     (``k_main``), keyed by ``tiles.tile_m`` (the batch tile a M <= 16
     launch runs). Where no launch fits the tuner's budget the entry keeps
     ``default_burst`` and the kernel's own launch, with ``tuned=False``.
-    ``dense_f32``: a dense operand is f32, so above M = 16 the product runs
-    ``bf16_matmul``'s converting launch, which takes no tile. ``mesh_sig``
-    is stamped into the entry.
+    ``f32_operand``: an operand is f32 (x, or a dense W), so above M = 16
+    the product runs a converting launch, which takes no tile:
+    ``bf16_matmul``'s, or ``q8_matmul``'s ``q8_split_tc_kernel`` for a
+    Q8_0 weight. ``mesh_sig`` is stamped into the entry.
 
     ``shards``: the program is one of that many data shards of a step of
     ``m`` rows, each launching its ``m / shards`` rows. The entry's M, its
@@ -113,7 +114,7 @@ def plan_linear(name: str, m: int, k: int, n: int, *, quantized: bool,
     k_main, k_res = split_aligned(k, burst)
     offload = fits(MulMat(name, m=m, k=k, n=n), vmem_budget_kb, agg_units=1)
     tiling = None
-    takes_tile = not (dense_f32 and run_m > tiles.MAX_ROW_M)
+    takes_tile = not (f32_operand and run_m > tiles.MAX_ROW_M)
     if tuner is not None and offload and k_main and takes_tile:
         rec = tuner.best_tiling(kern, tiles.tile_m(run_m), n, k_main, dtype)
         if rec is not None:

@@ -1,4 +1,4 @@
-"""Mesh definitions for sharded serving.
+"""Mesh definitions for sharded serving and training.
 
 The reference's meshes are JAX device meshes. The port's ``Mesh`` is a
 named grid of ``torch.device`` entries, read as the reference reads its
@@ -8,6 +8,9 @@ of them: the CPU tests build four ``cpu`` entries, ``chip_smoke.py`` four
 ``cuda:0`` entries, so the sharded machinery (placement, per-shard
 programs, shard-local admission, the ledger's split) runs with one card.
 ``physical_devices`` lists the distinct devices behind the entries.
+``owners(spec)`` says which part of a leaf laid out by a partition spec
+each entry holds (the sharded training state, ``sharding/rules.py``), and
+``batch_devices()`` lists the data shards' entries of a training step.
 
 An abstract mesh (``abstract_mesh``, ``make_production_mesh``) has axis
 sizes and no devices: the sharding rules need nothing else.
@@ -34,6 +37,17 @@ def physical_device(device) -> torch.device:
         idx = torch.cuda.current_device() if torch.cuda.is_available() else 0
         return torch.device("cuda", idx)
     return dev
+
+
+#: the axes a batch's rows split over, outermost first
+BATCH_AXES = ("pod", "data")
+
+
+def _axes(entry) -> Tuple[str, ...]:
+    """A spec entry's axis names: () for None."""
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, tuple) else (entry,)
 
 
 class Mesh:
@@ -72,6 +86,40 @@ class Mesh:
         if self.devices is None:
             raise ValueError("an abstract mesh has no devices")
         idx = tuple(slice(None) if a == axis else 0 for a in self.axis_names)
+        return list(self.devices[idx].reshape(-1))
+
+    def parts(self, spec) -> Tuple[int, ...]:
+        """The number of parts each dim named by ``spec`` (a partition
+        spec: one entry a leading dim, None, an axis name or a tuple of
+        axis names) is split into: the product of its axes' sizes."""
+        return tuple(int(np.prod([self.shape[a] for a in _axes(e)]))
+                     for e in spec)
+
+    def owners(self, spec) -> List[Tuple[int, ...]]:
+        """For each logical entry, in row-major order, the part of each dim
+        of ``spec`` it holds: its row-major index over that dim's axes.
+        Entries that differ only along axes the spec does not name hold the
+        same parts (replicas)."""
+        out = []
+        for idx in np.ndindex(*[self.shape[a] for a in self.axis_names]):
+            at = dict(zip(self.axis_names, idx))
+            parts = []
+            for e in spec:
+                p = 0
+                for a in _axes(e):
+                    p = p * self.shape[a] + at[a]
+                parts.append(p)
+            out.append(tuple(parts))
+        return out
+
+    def batch_devices(self) -> List[torch.device]:
+        """The logical entries of the data shards of a training step, one
+        for each index over the batch axes ("pod", "data") in row-major
+        order, every other axis at index 0."""
+        if self.devices is None:
+            raise ValueError("an abstract mesh has no devices")
+        idx = tuple(slice(None) if a in BATCH_AXES else 0
+                    for a in self.axis_names)
         return list(self.devices[idx].reshape(-1))
 
     @property
@@ -140,10 +188,10 @@ def make_serve_mesh(data: int = 0, model: int = 1, *,
     return Mesh((data, model), ("data", "model"), devs[:data * model])
 
 
-def make_smoke_mesh(devices) -> Mesh:
-    """The smallest nontrivial mesh over ``devices``: (2, 4) from 8
-    entries, (2, 2) from 4, else (1, 1)."""
-    devs = [torch.device(d) for d in devices]
+def make_smoke_mesh(devices=None) -> Mesh:
+    """The smallest nontrivial mesh over ``devices`` (default: every
+    visible card): (2, 4) from 8 entries, (2, 2) from 4, else (1, 1)."""
+    devs = _visible(devices)
     n = len(devs)
     if n >= 8:
         shape = (2, 4)

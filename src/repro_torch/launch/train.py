@@ -5,19 +5,26 @@ Runs the supervised training loop (``Trainer``) on ``--device`` (default
 ``cuda``; without a card it raises unless ``--device cpu`` is given): the
 smoke config by default, ``--full`` for the published widths. The
 supervision loop restarts from the latest atomic checkpoint on retryable
-failures. ``--mesh`` (training over a device mesh) is not ported and is
-refused.
+failures. ``--mesh`` trains over ``make_smoke_mesh`` of the visible cards
+(with ``--device cpu``, a (1, 1) mesh of the CPU), the state split by
+``train_state_specs``, under ``activation_sharding(mesh)`` as the
+reference's CLI runs.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import tempfile
+
+import torch
 
 from repro_torch.configs.base import OptimizerConfig, RunConfig, ShapeConfig
 from repro_torch.configs.registry import ALL_ARCHS, get_config, \
     get_smoke_config
 from repro_torch.core.device import resolve_device
+from repro_torch.launch.mesh import make_smoke_mesh
+from repro_torch.sharding import ctx as shard_ctx
 from repro_torch.train.fault import RestartPolicy, run_with_restarts
 from repro_torch.train.trainer import Trainer
 
@@ -32,7 +39,8 @@ def main(argv=None):
     ap.add_argument("--full", action="store_true",
                     help="the published widths (default: the smoke config)")
     ap.add_argument("--mesh", action="store_true",
-                    help="shard over a device mesh (not ported: refused)")
+                    help="shard over make_smoke_mesh of the visible cards "
+                         "(with --device cpu, a (1, 1) mesh of the CPU)")
     ap.add_argument("--ckpt-dir", default=os.path.join(
         tempfile.gettempdir(), "repro_train_ckpt"))
     ap.add_argument("--ckpt-every", type=int, default=10)
@@ -41,9 +49,12 @@ def main(argv=None):
     ap.add_argument("--max-restarts", type=int, default=3)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = ap.parse_args(argv)
-    if args.mesh:
-        ap.error("--mesh: training over a device mesh is not ported yet")
     device = resolve_device(args.device)
+    mesh = None
+    if args.mesh:
+        mesh = make_smoke_mesh([device] if device.type == "cpu" else None)
+        print(f"training mesh: {mesh.shape} over "
+              f"{len(mesh.physical_devices)} device(s)")
 
     cfg = get_config(args.arch) if args.full else get_smoke_config(args.arch)
     shape = ShapeConfig("cli", args.seq, args.batch, "train")
@@ -57,8 +68,11 @@ def main(argv=None):
 
     def make_attempt(attempt: int):
         def attempt_fn():
-            return Trainer(run, device=device, install_signal_handler=True,
-                           vocab_cap=512).train()
+            trainer = Trainer(run, device=device, mesh=mesh,
+                              install_signal_handler=True, vocab_cap=512)
+            with (shard_ctx.activation_sharding(mesh) if mesh is not None
+                  else contextlib.nullcontext()):
+                return trainer.train()
         return attempt_fn
 
     metrics = run_with_restarts(

@@ -6,6 +6,7 @@ dispatch.
   hidden_forward(params, cfg, batch)           -> (hidden, moe_aux)
   forward(params, cfg, batch)                  -> (logits, moe_aux)
   loss_fn(params, cfg, batch)                  -> (loss, metrics)
+  loss_terms(params, cfg, batch)               -> (ce_sum, ntok, moe_aux)
   init_serve_state(params, cfg, batch, max_len, memory=...) -> ServeState
   zeros_serve_state(cfg, batch, frames, max_len, device=...) -> ServeState
   zeros_slot_state(cfg, n_slots, frames, max_len, device=...) -> ServeState
@@ -187,13 +188,28 @@ def loss_fn(params: dict, cfg: ModelConfig, batch: dict, *, engine=None,
             ) -> Tuple[torch.Tensor, dict]:
     """Next-token cross-entropy over ``labels`` (already shifted; label
     -1 masked) plus the MoE load-balance loss: (total, {"ce", "moe_aux",
-    "ntok"}). The readout and its CE run a ``ce_chunk`` of the sequence at
-    a time where it divides S and S > ``ce_chunk``, as the reference's
-    sequence chunking: the logits never exceed (B, ce_chunk, V), and the
-    readout launches once a chunk. Where a gradient is recorded, each
-    chunk runs under activation checkpointing, as the reference's
-    ``jax.checkpoint``: its logits are recomputed in the backward, not
-    kept."""
+    "ntok"}); the CE is the sum over labelled positions over their count
+    (at least 1), from ``loss_terms``."""
+    ce_sum, ntok, aux = loss_terms(params, cfg, batch, engine=engine,
+                                   attn_chunk=attn_chunk, ce_chunk=ce_chunk)
+    ntok = ntok.clamp(min=1.0)
+    loss = ce_sum / ntok
+    return loss + aux, {"ce": loss, "moe_aux": aux, "ntok": ntok}
+
+
+def loss_terms(params: dict, cfg: ModelConfig, batch: dict, *,
+               engine=None, attn_chunk: int = 2048, ce_chunk: int = 512
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The sums ``loss_fn`` divides: (the masked CE summed over labelled
+    positions, their count, the MoE load-balance loss), f32 scalars; a
+    mesh step adds the first two over its data shards before it divides
+    (``train/step.py``). The readout and its CE run a ``ce_chunk`` of the
+    sequence at a time where it divides S and S > ``ce_chunk``, as the
+    reference's sequence chunking: the logits never exceed (B, ce_chunk,
+    V), and the readout launches once a chunk. Where a gradient is
+    recorded, each chunk runs under activation checkpointing, as the
+    reference's ``jax.checkpoint``: its logits are recomputed in the
+    backward, not kept."""
     h, aux = hidden_forward(params, cfg, batch, engine=engine,
                             attn_chunk=attn_chunk)
     labels = batch["labels"]
@@ -215,9 +231,7 @@ def loss_fn(params: dict, cfg: ModelConfig, batch: dict, *, engine=None,
         cs, nt = chunk_ce(h[:, i * size:(i + 1) * size],
                           labels[:, i * size:(i + 1) * size])
         ce_sum, ntok = ce_sum + cs, ntok + nt
-    ntok = ntok.clamp(min=1.0)
-    loss = ce_sum / ntok
-    return loss + aux, {"ce": loss, "moe_aux": aux, "ntok": ntok}
+    return ce_sum, ntok, aux
 
 
 def _lm_state(cfg: ModelConfig, batch: int, max_len: int, device,

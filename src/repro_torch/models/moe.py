@@ -32,10 +32,20 @@ serving (``sharding.ctx.shard_program``) C comes from the whole step's
 token count, as the reference's one program computes it, but each data
 shard's pairs claim slots among its own rows: where tokens drop, which
 ones may differ from the reference's.
+
+A training step over a mesh forms the load-balance loss of the whole
+batch, not a shard's: while ``router_stats()`` collects, each routed
+layer adds its statistics (``RouterStats``: the router's probabilities
+summed over the tokens, the tokens' top-1 counts, the token count) to
+the list it yields, and ``load_balance_loss`` forms the Switch loss from
+the statistics summed over the shards, as one program over the whole
+batch does.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+import threading
+from contextlib import contextmanager
+from typing import List, NamedTuple, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -83,6 +93,48 @@ def init_moe(gen: torch.Generator, cfg: ModelConfig,
         p["dense"] = layers.init_mlp(gen, d, moe.dense_residual_d_ff, dtype,
                                      act=cfg.act)
     return p
+
+
+class RouterStats(NamedTuple):
+    """One routed layer's load-balance statistics over a batch: the
+    router's probabilities summed over the tokens (E,) f32, with their
+    gradient; the tokens' top-1 expert counts (E,) f32; the token count."""
+    prob_sum: torch.Tensor
+    top1: torch.Tensor
+    tokens: int
+
+
+_COLLECT = threading.local()
+
+
+@contextmanager
+def router_stats():
+    """Yields a list to which every layer routed in the scope appends its
+    ``RouterStats``, in execution order."""
+    prev = getattr(_COLLECT, "out", None)
+    _COLLECT.out = out = []
+    try:
+        yield out
+    finally:
+        _COLLECT.out = prev
+
+
+def load_balance_loss(shards: Sequence[List[RouterStats]], cfg: ModelConfig,
+                      device) -> torch.Tensor:
+    """The Switch load-balance loss of a batch split over data shards,
+    summed over its layers as ``apply_decoder_stack`` sums them: each
+    layer's statistics added over the shards (in order, on ``device``)
+    before its mean probability and top-1 fraction are formed. ``shards``
+    holds each shard's ``router_stats`` list."""
+    moe = cfg.moe
+    aux = torch.zeros((), dtype=torch.float32, device=device)
+    for layer in zip(*shards, strict=True):
+        probs = sum(st.prob_sum.to(device) for st in layer)
+        top1 = sum(st.top1.to(device) for st in layer)
+        tokens = sum(st.tokens for st in layer)
+        aux = aux + (moe.num_experts * ((probs / tokens) * (top1 / tokens)
+                                        ).sum() * moe.load_balance_coef)
+    return aux
 
 
 def _capacity(tokens_per_group: int, moe) -> int:
@@ -148,8 +200,13 @@ def route(p: dict, cfg: ModelConfig, x: torch.Tensor
 
     # load-balance auxiliary loss (Switch eq. 4)
     me = probs.reshape(-1, n_exp).mean(0)                 # mean probability
-    ce = (topi[..., 0].reshape(-1, 1) == experts).float().mean(0)
+    onehot = (topi[..., 0].reshape(-1, 1) == experts).float()
+    ce = onehot.mean(0)
     aux = n_exp * (me * ce).sum() * moe.load_balance_coef
+    collect = getattr(_COLLECT, "out", None)
+    if collect is not None:
+        collect.append(RouterStats(probs.reshape(-1, n_exp).sum(0),
+                                   onehot.sum(0), onehot.shape[0]))
 
     t = b * s
     tg = min(moe.dispatch_group, t)

@@ -8,6 +8,13 @@ exactly as it would before a data-parallel all-reduce, and ``stats``
 counts the bytes such a reduce would move. Ranks are the reference's
 (``core.tree.reference_rank``): a layer's norm scale is 2-D there, and
 compressed.
+
+``ef_compress_split`` compresses a reduced gradient stored split over a
+mesh (``sharding.rules.Pieces``) part by part, its error accumulators
+split alike and updated in place. A Q8_0 block must not straddle a part:
+where a leaf's last dim is split into parts that are not a multiple of
+32 wide, the leaf is compressed whole on its first piece's device and
+written back into every piece.
 """
 from __future__ import annotations
 
@@ -17,6 +24,7 @@ import torch
 
 from repro_torch.core import tree
 from repro_torch.core.qformats import QBLOCK, dequantize_q8_0, quantize_q8_0
+from repro_torch.sharding import rules
 
 
 def _compressible(path, g: torch.Tensor) -> bool:
@@ -56,3 +64,45 @@ def ef_compress_grads(grads, ef: dict) -> Tuple[dict, dict, dict]:
              "ratio": wire / max(raw, 1)}
     return (tree.unflatten_like(grads, out_g),
             tree.unflatten_like(ef, out_e), stats)
+
+
+def _compress(g: torch.Tensor, e: torch.Tensor):
+    """(the dequantized Q8_0 blocks of g + e, the new error)."""
+    acc = g.to(torch.float32) + e
+    deq = dequantize_q8_0(quantize_q8_0(acc))
+    return deq, acc - deq
+
+
+@torch.no_grad()
+def ef_compress_split(grads, ef, ef_specs, mesh):
+    """``ef_compress_grads`` over a split f32 gradient tree (laid out as
+    the parameters) and error tree (specs ``ef_specs``): returns the
+    compressed gradient ``Pieces``; ``ef`` is updated in place. A leaf is
+    compressible where its error accumulator is not a scalar (``ef_init``
+    decided on the whole leaf)."""
+    out = []
+    for g, e, sp in zip(tree.leaves(grads, is_leaf=rules.is_pieces),
+                        tree.leaves(ef, is_leaf=rules.is_pieces),
+                        tree.leaves(ef_specs, is_leaf=rules.is_spec),
+                        strict=True):
+        if e[0].ndim == 0:
+            out.append(g)
+            continue
+        shape = rules.whole_shape(e, sp, mesh)
+        if (len(sp) < len(shape)
+                or (shape[-1] // mesh.parts(sp)[-1]) % QBLOCK == 0):
+            pieces = []
+            for gk, ek in zip(g, e):
+                deq, err = _compress(gk, ek)
+                ek.copy_(err)
+                pieces.append(deq)
+            out.append(rules.Pieces(pieces))
+            continue
+        lay = rules.leaf_layout(shape, sp, mesh)
+        dev = lay.devices[0]
+        deq, err = _compress(rules.gather_leaf(g, sp, mesh, dev),
+                             rules.gather_leaf(e, sp, mesh, dev))
+        rules.scatter_leaf(err, e, sp, mesh)
+        out.append(rules.Pieces(deq[r].to(d, copy=True) for r, d in
+                                zip(lay.regions, lay.devices)))
+    return tree.unflatten_like(grads, out, is_leaf=rules.is_pieces)

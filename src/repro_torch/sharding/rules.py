@@ -22,6 +22,14 @@ arrays from specs: ``place`` copies a tree onto a mesh's devices, and the
 serving pools place their state themselves (``serve/kvcache.py``,
 ``serve/paging.py``).
 
+A training state over a mesh is stored split by its specs
+(``split_tree``): each tensor leaf becomes ``Pieces``, a tuple of the
+parts the mesh's logical entries hold, one tensor for each distinct (part,
+physical device), so entries that repeat a device share what they hold
+alike. ``gather_leaf``/``gather_tree`` put a whole leaf back together on a
+device, ``scatter_leaf`` writes a whole value into a leaf's pieces, and
+``entry_bytes`` counts what each logical entry holds.
+
 Layout. The port keeps a list of per-layer dicts (``enc_blocks``,
 ``dec_blocks``, ``stack/blocks``) and a list of per-layer decode states
 where the reference stacks the layers on a leading axis. A per-layer
@@ -31,14 +39,16 @@ axis of size 1, whose entry is then dropped. The templates right-align,
 so this changes only a rule-less 1-D leaf, to which the reference's 2-D
 fallback applies once it is stacked.
 
-``train_state_specs`` is not ported: the port has no training state yet.
 """
 from __future__ import annotations
 
+import functools
 import re
-from typing import Any, Callable, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, \
+    Sequence, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.core import tree as tree_lib
 
@@ -214,6 +224,174 @@ def train_state_specs(train_state, mesh):
         pre = next((p for p in _STATE_TREES if path[:len(p)] == p), ())
         return _leaf_spec(path, path[len(pre):], x, mesh)
     return tree_lib.map_with_path(leaf, train_state)
+
+
+# ---------------------------------------------------------------------------
+# Leaves stored split over a mesh's logical devices
+# ---------------------------------------------------------------------------
+class Pieces(tuple):
+    """A leaf stored split over a mesh by its spec: one tensor for each
+    distinct (part, physical device) that the mesh's logical entries hold,
+    in the order the entries (row-major) first name them. On a mesh of
+    distinct devices that is one tensor an entry; where entries repeat a
+    device, replicas of a part there are stored once. A plain tuple, which
+    ``core.tree`` walks: ``tree.leaves`` of a split state lists every
+    stored tensor once."""
+
+
+def is_pieces(x) -> bool:
+    return isinstance(x, Pieces)
+
+
+def is_spec(x) -> bool:
+    return isinstance(x, P)
+
+
+class LeafLayout(NamedTuple):
+    """Where a leaf of ``shape`` laid out by a spec lives on a mesh: each
+    stored piece's region of the whole leaf, physical device and part
+    (an index among the distinct parts), and each logical entry's piece."""
+    shape: Tuple[int, ...]
+    regions: Tuple[Tuple[slice, ...], ...]
+    devices: Tuple[torch.device, ...]
+    part: Tuple[int, ...]
+    entry_piece: Tuple[int, ...]
+
+    def firsts(self) -> List[int]:
+        """The first stored piece of each distinct part, in part order."""
+        seen: Dict[int, int] = {}
+        for k, p in enumerate(self.part):
+            seen.setdefault(p, k)
+        return [seen[p] for p in sorted(seen)]
+
+
+def leaf_layout(shape, spec: P, mesh) -> LeafLayout:
+    """The layout of a whole leaf of ``shape`` split by ``spec`` over
+    ``mesh``'s logical entries."""
+    return _layout(tuple(int(d) for d in shape), P(*spec), mesh)
+
+
+@functools.lru_cache(maxsize=1 << 14)
+def _layout(shape: Tuple[int, ...], spec: P, mesh) -> LeafLayout:
+    from repro_torch.launch.mesh import physical_device
+    parts = mesh.parts(spec)
+    for d, n in zip(shape, parts):
+        if d % n:
+            raise ValueError(f"dim {d} does not split into {n} parts "
+                             f"({spec})")
+    grid = [int(np.prod(parts[i + 1:])) for i in range(len(parts))]
+    regions, devices, part, index = [], [], [], {}
+    entry_piece = []
+    for dev, own in zip(mesh.devices.reshape(-1), mesh.owners(spec)):
+        phys = physical_device(dev)
+        flat = sum(o * g for o, g in zip(own, grid))
+        if (flat, phys) not in index:
+            index[(flat, phys)] = len(regions)
+            regions.append(tuple(
+                slice(o * (d // n), (o + 1) * (d // n))
+                for o, d, n in zip(own, shape, parts)))
+            devices.append(phys)
+            part.append(flat)
+        entry_piece.append(index[(flat, phys)])
+    return LeafLayout(shape, tuple(regions), tuple(devices), tuple(part),
+                      tuple(entry_piece))
+
+
+def whole_shape(pieces: Pieces, spec: P, mesh) -> Tuple[int, ...]:
+    """The whole leaf's shape: the first piece's, each split dim times its
+    number of parts."""
+    shape = list(pieces[0].shape)
+    for i, n in enumerate(mesh.parts(spec)):
+        shape[i] *= n
+    return tuple(shape)
+
+
+def split_leaf(x: torch.Tensor, spec: P, mesh) -> Pieces:
+    """``x`` stored split by ``spec``: each piece a contiguous copy of its
+    region on its physical device."""
+    lay = leaf_layout(x.shape, spec, mesh)
+    out = []
+    for region, dev in zip(lay.regions, lay.devices):
+        piece = torch.empty(tuple(r.stop - r.start for r in region)
+                            + tuple(x.shape[len(region):]), dtype=x.dtype,
+                            device=dev)
+        out.append(piece.copy_(x[region]))
+    return Pieces(out)
+
+
+def gather_leaf(pieces: Pieces, spec: P, mesh, device) -> torch.Tensor:
+    """The whole leaf on ``device``: each part copied from a piece on that
+    device where there is one, else from the part's first piece."""
+    from repro_torch.launch.mesh import physical_device
+    device = torch.device(device)
+    phys = physical_device(device)
+    lay = leaf_layout(whole_shape(pieces, spec, mesh), spec, mesh)
+    if len(lay.firsts()) == 1:
+        k = lay.devices.index(phys) if phys in lay.devices else 0
+        return pieces[k].to(device)
+    out = torch.empty(lay.shape, dtype=pieces[0].dtype, device=device)
+    for k0 in lay.firsts():
+        k = next((j for j, p in enumerate(lay.part)
+                  if p == lay.part[k0] and lay.devices[j] == phys), k0)
+        out[lay.regions[k]].copy_(pieces[k])
+    return out
+
+
+def scatter_leaf(whole: torch.Tensor, pieces: Pieces, spec: P,
+                 mesh) -> None:
+    """Every piece overwritten, in place, by its region of ``whole``."""
+    lay = leaf_layout(whole.shape, spec, mesh)
+    for piece, region in zip(pieces, lay.regions):
+        piece.copy_(whole[region])
+
+
+def _zip_specs(tree, specs, is_leaf=None):
+    leaves = tree_lib.leaves(tree, is_leaf=is_leaf)
+    spec_leaves = tree_lib.leaves(specs, is_leaf=is_spec)
+    if len(leaves) != len(spec_leaves):
+        raise ValueError(f"{len(leaves)} leaves against "
+                         f"{len(spec_leaves)} specs")
+    return list(zip(leaves, spec_leaves))
+
+
+def split_tree(tree, specs, mesh):
+    """``tree`` with every tensor leaf stored split by its spec
+    (``specs`` matches ``tree``, as ``train_state_specs`` returns it)."""
+    return tree_lib.unflatten_like(
+        tree, [split_leaf(x, s, mesh) for x, s in _zip_specs(tree, specs)])
+
+
+def gather_tree(tree, specs, mesh, device):
+    """A split tree's whole leaves on ``device``."""
+    return tree_lib.unflatten_like(
+        tree, [gather_leaf(x, s, mesh, device)
+               for x, s in _zip_specs(tree, specs, is_leaf=is_pieces)],
+        is_leaf=is_pieces)
+
+
+def is_split(tree) -> bool:
+    """Whether ``tree``'s leaves are stored split (``Pieces``)."""
+    return any(is_pieces(x) for x in tree_lib.leaves(tree,
+                                                      is_leaf=is_pieces))
+
+
+def entry_bytes(tree, specs, mesh) -> List[int]:
+    """The bytes each logical entry of ``mesh`` (row-major) holds of a
+    split tree: for each leaf, the piece it reads."""
+    out = [0] * mesh.size
+    for pieces, spec in _zip_specs(tree, specs, is_leaf=is_pieces):
+        lay = leaf_layout(whole_shape(pieces, spec, mesh), spec, mesh)
+        for e, k in enumerate(lay.entry_piece):
+            out[e] += pieces[k].numel() * pieces[k].element_size()
+    return out
+
+
+def spec_bytes(tree, specs, mesh) -> int:
+    """What each logical entry holds of a whole tree laid out by
+    ``specs``: each leaf's bytes over its number of parts."""
+    return sum(x.numel() * x.element_size()
+               // int(np.prod(mesh.parts(s)))
+               for x, s in _zip_specs(tree, specs))
 
 
 # ---------------------------------------------------------------------------

@@ -12,7 +12,12 @@ layout (``repro/train/checkpoint.py``):
     ``view(torch.uint8)`` and back, with no ``ml_dtypes``).
   * Elastic: a restore takes a template state and loads every leaf onto
     ``device`` (by default the template leaf's); leaves are keyed by their
-    path in the tree, not by where they lived.
+    path in the tree, not by where they lived. A state stored split over
+    a mesh (``sharding.rules.Pieces``) is saved whole, a leaf gathered at
+    a time, as the reference's one process writes whole arrays; given a
+    mesh and specs (the reference's ``shardings=``), a restore splits
+    each leaf onto its owners. So a checkpoint written on any mesh, or
+    on none, restores onto any other, bit for bit.
 
 The archive is written a leaf at a time (one ``.npy`` member per leaf,
 which ``np.load`` reads back by key), so a save holds two leaves in host
@@ -38,6 +43,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import tree
+from repro_torch.sharding import rules
 
 _STEP_RE = re.compile(r"^step_(\d+)$")
 _DTYPES = {str(d).split(".")[-1]: d for d in (
@@ -69,8 +75,10 @@ def _write_member(zf: zipfile.ZipFile, name: str, raw: np.ndarray) -> None:
 
 def save_checkpoint(ckpt_dir: str, state, *, step: int,
                     cursor_step: int = 0, seed: int = 0,
-                    metadata: Optional[Dict[str, Any]] = None) -> str:
-    """Two-phase atomic save. Returns the final checkpoint path."""
+                    metadata: Optional[Dict[str, Any]] = None,
+                    mesh=None, specs=None) -> str:
+    """Two-phase atomic save. Returns the final checkpoint path. A state
+    split over ``mesh`` by ``specs`` is written whole."""
     os.makedirs(ckpt_dir, exist_ok=True)
     final = os.path.join(ckpt_dir, f"step_{step}")
     tmp = os.path.join(ckpt_dir, f".tmp_step_{step}")
@@ -85,7 +93,7 @@ def save_checkpoint(ckpt_dir: str, state, *, step: int,
                          allowZip64=True) as zf, \
             ThreadPoolExecutor(max_workers=1) as writer:
         pending = None
-        for path, leaf in tree.leaves_with_path(state):
+        for path, leaf in _whole_leaves(state, mesh, specs):
             key = "/".join(path)
             manifest["leaves"].append({"path": key,
                                        "shape": list(leaf.shape),
@@ -105,6 +113,18 @@ def save_checkpoint(ckpt_dir: str, state, *, step: int,
     return final
 
 
+def _whole_leaves(state, mesh, specs):
+    """(path, whole leaf) of every leaf in order; a split leaf gathered
+    onto the host when it is reached."""
+    if mesh is None:
+        yield from tree.leaves_with_path(state)
+        return
+    flat = tree.leaves_with_path(state, is_leaf=rules.is_pieces)
+    for (path, pieces), spec in zip(
+            flat, tree.leaves(specs, is_leaf=rules.is_spec), strict=True):
+        yield path, rules.gather_leaf(pieces, spec, mesh, "cpu")
+
+
 def latest_checkpoint(ckpt_dir: str) -> Optional[str]:
     if not os.path.isdir(ckpt_dir):
         return None
@@ -115,12 +135,16 @@ def latest_checkpoint(ckpt_dir: str) -> Optional[str]:
     return os.path.join(ckpt_dir, max(steps)[1])
 
 
-def load_checkpoint(path: str, template, *, device=None
-                    ) -> Tuple[Any, Dict[str, Any]]:
-    """Restore onto ``template``'s tree structure: every leaf checked
-    against its shape, then loaded onto ``device`` (default: the template
-    leaf's device; a template leaf of the same type there is overwritten
-    in place). Returns (state, manifest)."""
+def load_checkpoint(path: str, template, *, device=None, mesh=None,
+                    specs=None) -> Tuple[Any, Dict[str, Any]]:
+    """Restore onto ``template``'s tree structure (whole leaves, which may
+    be on the ``meta`` device): every leaf checked against its shape, then
+    loaded onto ``device`` (default: the template leaf's device; a
+    template leaf of the same type there is overwritten in place), or,
+    given ``mesh`` and ``specs`` (``train_state_specs`` of the template),
+    split onto its owners there. Returns (state, manifest)."""
+    if mesh is not None:
+        spec_leaves = tree.leaves(specs, is_leaf=rules.is_spec)
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     by_path = {leaf["path"]: leaf for leaf in manifest["leaves"]}
@@ -148,6 +172,9 @@ def load_checkpoint(path: str, template, *, device=None
             meta = by_path[key]
             dtype = _DTYPES[meta["dtype"]]
             loaded = raw.view(dtype).reshape(tuple(meta["shape"]))
+            if mesh is not None:
+                out.append(rules.split_leaf(loaded, spec_leaves[i], mesh))
+                continue
             dev = torch.device(device) if device is not None else \
                 tleaf.device
             if (tleaf.device == dev and tleaf.dtype == dtype

@@ -11,6 +11,37 @@ moments in place (``optim/adamw.py``). With ``microbatches`` K > 1 the
 batch is split on dim 0 and the K gradients are summed in
 ``grad_accum_dtype`` (f32) and divided by K, as the reference's scan does,
 so the activations of one microbatch are live at a time.
+
+Over a device mesh (``make_train_step(..., mesh=, specs=)``), the state is
+stored split by ``train_state_specs`` (``sharding.rules.split_tree``) and
+a step computes the unsharded step's function on one controller:
+
+  * the parameters are gathered whole once a step on each distinct
+    physical device of the data shards (``Mesh.batch_devices``); each
+    shard differentiates its own ``detach()`` views of its device's copy;
+  * the batch's rows split over the shards as ``batch_specs`` splits dim 0
+    over ("pod", "data"); where it would split the sequence instead (B not
+    a multiple of the shards), the whole batch runs on the first shard,
+    since attention is not split;
+  * each shard forms ``loss_terms`` on its rows under
+    ``shard_program(n)`` (a MoE layer's capacity is the whole step's) and
+    its routers' statistics; the loss, formed on the first shard's device,
+    is the reference's: the CE summed over every shard over the global
+    token count (at least 1), plus the load-balance loss of the summed
+    statistics (``moe.load_balance_loss``); one ``torch.autograd.grad``
+    runs over every shard's leaves;
+  * each leaf's shard gradients are summed in f32, in shard order, part
+    by part onto the devices that hold the part, and freed as they are
+    summed;
+  * the compression and AdamW run on the held parts
+    (``optim/compression.py``, ``optim/adamw.py``).
+
+With ``microbatches`` K > 1 each microbatch is split over the shards as
+the whole batch would be, its gradients summed in f32 and divided by K.
+The "model" axis shards the stored state only: no tensor-parallel compute.
+Where a MoE shard's token count is not a multiple of ``dispatch_group``,
+its tokens claim capacity among themselves, and where tokens drop, which
+ones may differ from the unsharded step's (``models/moe.py``).
 """
 from __future__ import annotations
 
@@ -21,9 +52,14 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, OptimizerConfig
 from repro_torch.core import tree
+from repro_torch.launch.mesh import physical_device
 from repro_torch.models import model as model_lib
-from repro_torch.optim.adamw import AdamWState, adamw_init, adamw_update
-from repro_torch.optim.compression import ef_compress_grads, ef_init
+from repro_torch.models import moe as moe_lib
+from repro_torch.optim.adamw import AdamWState, adamw_init, adamw_update, \
+    adamw_update_split
+from repro_torch.optim.compression import ef_compress_grads, \
+    ef_compress_split, ef_init
+from repro_torch.sharding import ctx, rules
 
 
 class TrainState(NamedTuple):
@@ -82,44 +118,154 @@ def value_and_grad(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
     return loss.detach(), aux, tree.unflatten_like(params, grads)
 
 
+def split_train_state(state: TrainState, mesh
+                      ) -> Tuple[TrainState, TrainState]:
+    """(the state stored split over ``mesh`` by ``train_state_specs``,
+    those specs)."""
+    specs = rules.train_state_specs(state, mesh)
+    return rules.split_tree(state, specs, mesh), specs
+
+
+def _shards(batch: Dict[str, torch.Tensor], mesh):
+    """[(a data shard's physical device, its rows)]: dim 0 split evenly
+    where ``batch_specs`` splits it, else the whole batch on the first
+    shard."""
+    devs = [physical_device(d) for d in mesh.batch_devices()]
+    specs = rules.batch_specs(batch, mesh)
+    split = all(len(sp) and sp[0] is not None for sp in
+                tree.leaves(specs, is_leaf=rules.is_spec))
+    if not split or len(devs) == 1:
+        return [(devs[0], slice(None))]
+    n = next(iter(batch.values())).shape[0] // len(devs)
+    return [(d, slice(i * n, (i + 1) * n)) for i, d in enumerate(devs)]
+
+
+def mesh_value_and_grad(cfg: ModelConfig, params, batch, specs, mesh, *,
+                        engine=None, attn_chunk: int = 2048, gathered=None):
+    """(loss, aux, grads) of the unsharded ``loss_fn`` at the split
+    ``params`` (their specs ``specs``) over ``mesh``'s data shards: the
+    gradients f32 ``Pieces`` laid out as the parameters. ``gathered``
+    ({physical device: whole leaves}, ``gather_params``) reuses a step's
+    gathered copies."""
+    shards = _shards(batch, mesh)
+    if gathered is None:
+        gathered = gather_params(params, specs, mesh,
+                                 [d for d, _ in shards])
+    loss, aux, per_shard = _shard_grads(cfg, params, batch, shards,
+                                        gathered, engine=engine,
+                                        attn_chunk=attn_chunk)
+    del gathered
+    return loss, aux, reduce_grads(per_shard, params, specs, mesh)
+
+
+def gather_params(params, specs, mesh, devices) -> Dict[Any, list]:
+    """{physical device: the split ``params``' whole leaves there}, one
+    copy a distinct device of ``devices``."""
+    flat = tree.leaves(params, is_leaf=rules.is_pieces)
+    spec_leaves = tree.leaves(specs, is_leaf=rules.is_spec)
+    return {dev: [rules.gather_leaf(x, sp, mesh, dev)
+                  for x, sp in zip(flat, spec_leaves)]
+            for dev in dict.fromkeys(devices)}
+
+
+def _shard_grads(cfg: ModelConfig, params, batch, shards, gathered, *,
+                 engine, attn_chunk: int):
+    """Every shard's loss terms on its rows and device, the loss formed
+    from their sums on the first shard's device, one ``autograd.grad``
+    over every shard's leaves: (loss, aux, each shard's gradient list,
+    None for a leaf that takes none)."""
+    dev0 = shards[0][0]
+    terms, stats, shard_leaves = [], [], []
+    with torch.enable_grad(), ctx.shard_program(len(shards)):
+        for dev, rows in shards:
+            leaves = [t.detach() for t in gathered[dev]]
+            for t in leaves:
+                if t.is_floating_point():
+                    t.requires_grad_(True)
+            with moe_lib.router_stats() as st:
+                terms.append(model_lib.loss_terms(
+                    tree.unflatten_like(params, leaves,
+                                        is_leaf=rules.is_pieces), cfg,
+                    {k: v[rows].to(dev) for k, v in batch.items()},
+                    engine=engine, attn_chunk=attn_chunk))
+            stats.append(st)
+            shard_leaves.append(leaves)
+        ntok = sum(t[1].to(dev0) for t in terms).clamp(min=1.0)
+        ce = sum(t[0].to(dev0) for t in terms) / ntok
+        aux = (moe_lib.load_balance_loss(stats, cfg, dev0)
+               if cfg.moe is not None else
+               torch.zeros((), dtype=torch.float32, device=dev0))
+        loss = ce + aux
+        got = list(torch.autograd.grad(
+            loss, [t for leaves in shard_leaves for t in leaves
+                   if t.requires_grad], allow_unused=True))
+    got.reverse()
+    per_shard = [[got.pop() if t.requires_grad else None for t in leaves]
+                 for leaves in shard_leaves]
+    aux = {"ce": ce.detach(), "moe_aux": aux.detach(),
+           "ntok": ntok.detach()}
+    return loss.detach(), aux, per_shard
+
+
+def reduce_grads(per_shard, params, specs, mesh):
+    """Each leaf's shard gradients summed in f32, in shard order, part by
+    part onto the devices that hold the part (a part's replicas copied
+    from its first), each shard's gradient freed once it is summed: f32
+    ``Pieces`` laid out as ``params``."""
+    grads = []
+    for j, (x, sp) in enumerate(zip(
+            tree.leaves(params, is_leaf=rules.is_pieces),
+            tree.leaves(specs, is_leaf=rules.is_spec))):
+        lay = rules.leaf_layout(rules.whole_shape(x, sp, mesh), sp,
+                                mesh)
+        out = [None] * len(x)
+        for k0 in lay.firsts():
+            region, dev = lay.regions[k0], lay.devices[k0]
+            acc = None
+            for shard in per_shard:
+                g = shard[j]
+                if g is None:
+                    g = torch.zeros(lay.shape, dtype=torch.float32,
+                                    device=dev)
+                if acc is None:
+                    acc = g[region].to(dev, torch.float32, copy=True)
+                else:
+                    acc.add_(g[region].to(dev))
+            for k, p in enumerate(lay.part):      # the part's replicas
+                if p == lay.part[k0]:
+                    out[k] = acc if k == k0 else acc.to(
+                        lay.devices[k], copy=True)
+        for shard in per_shard:
+            shard[j] = None
+        grads.append(rules.Pieces(out))
+    return tree.unflatten_like(params, grads, is_leaf=rules.is_pieces)
+
+
 def make_train_step(cfg: ModelConfig,
                     opt_cfg: Optional[OptimizerConfig] = None,
                     *, engine=None, attn_chunk: int = 2048,
                     microbatches: int = 1,
-                    grad_accum_dtype=torch.float32):
-    """Returns ``train_step(state, batch) -> (state', metrics)``."""
+                    grad_accum_dtype=torch.float32,
+                    mesh=None, specs: Optional[TrainState] = None):
+    """Returns ``train_step(state, batch) -> (state', metrics)``; with
+    ``mesh`` and the state's ``specs`` (``split_train_state``), the step
+    of a state stored split over ``mesh``."""
     opt_cfg = opt_cfg or OptimizerConfig()
     compress = opt_cfg.grad_compress == "int8_ef"
+    if mesh is not None:
+        return _mesh_train_step(cfg, opt_cfg, mesh, specs, engine=engine,
+                                attn_chunk=attn_chunk,
+                                microbatches=microbatches,
+                                grad_accum_dtype=grad_accum_dtype)
 
     def grads_of(params, batch):
-        if microbatches == 1:
-            return value_and_grad(cfg, params, batch, engine=engine,
+        def one(mb):
+            return value_and_grad(cfg, params, mb, engine=engine,
                                   attn_chunk=attn_chunk)
-        k = microbatches
-        n = next(iter(batch.values())).shape[0]
-        if n % k:
-            raise ValueError(f"batch {n} does not split into {k} "
-                             "microbatches")
-        size = n // k
-        gacc = lsum = asum = None
-        for i in range(k):
-            mb = {name: x[i * size:(i + 1) * size]
-                  for name, x in batch.items()}
-            loss, aux, g = value_and_grad(cfg, params, mb, engine=engine,
-                                          attn_chunk=attn_chunk)
-            flat = [x.to(grad_accum_dtype) for x in tree.leaves(g)]
-            if gacc is None:
-                zeros = torch.zeros((), dtype=torch.float32,
-                                    device=loss.device)
-                gacc = [torch.zeros_like(x) for x in flat]
-                lsum, asum = zeros, zeros
-            gacc = [a + b for a, b in zip(gacc, flat)]
-            lsum, asum = lsum + loss, asum + aux["moe_aux"]
-        grads = tree.unflatten_like(params, [g / k for g in gacc])
-        aux = {"ce": lsum / k - asum / k, "moe_aux": asum / k,
-               "ntok": torch.zeros((), dtype=torch.float32,
-                                   device=lsum.device)}
-        return lsum / k, aux, grads
+        if microbatches == 1:
+            return one(batch)
+        return _accumulate(one, params, batch, microbatches,
+                           grad_accum_dtype)
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
@@ -131,5 +277,74 @@ def make_train_step(cfg: ModelConfig,
                                                 state.params, opt_cfg)
         metrics = {"loss": loss.to(torch.float32), **aux, **opt_metrics}
         return TrainState(params, opt, new_ef, state.seed + 1), metrics
+
+    return train_step
+
+
+def _accumulate(one, params, batch: Dict[str, torch.Tensor], k: int,
+                grad_accum_dtype):
+    """The reference's scan over ``k`` microbatches (dim 0 of ``batch``
+    split evenly): each one's ``one(microbatch) -> (loss, aux, grads)``,
+    the gradients summed in ``grad_accum_dtype`` and divided by ``k``, the
+    losses averaged (a mean of means)."""
+    n = next(iter(batch.values())).shape[0]
+    if n % k:
+        raise ValueError(f"batch {n} does not split into {k} microbatches")
+    size = n // k
+    gacc = lsum = asum = None
+    for i in range(k):
+        loss, aux, g = one({name: x[i * size:(i + 1) * size]
+                            for name, x in batch.items()})
+        flat = [x.to(grad_accum_dtype) for x in tree.leaves(g)]
+        if gacc is None:
+            zeros = torch.zeros((), dtype=torch.float32, device=loss.device)
+            gacc = [torch.zeros_like(x) for x in flat]
+            lsum, asum = zeros, zeros
+        gacc = [a + b for a, b in zip(gacc, flat)]
+        lsum, asum = lsum + loss, asum + aux["moe_aux"]
+    grads = tree.unflatten_like(params, [g / k for g in gacc])
+    aux = {"ce": lsum / k - asum / k, "moe_aux": asum / k,
+           "ntok": torch.zeros((), dtype=torch.float32, device=lsum.device)}
+    return lsum / k, aux, grads
+
+
+def _mesh_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig, mesh,
+                     specs: TrainState, *, engine, attn_chunk: int,
+                     microbatches: int, grad_accum_dtype):
+    if specs is None:
+        raise ValueError("a mesh step needs the state's specs "
+                         "(split_train_state)")
+    compress = opt_cfg.grad_compress == "int8_ef"
+    pspecs = specs.params
+
+    def grads_of(params, batch):
+        if microbatches == 1:
+            return mesh_value_and_grad(cfg, params, batch, pspecs, mesh,
+                                       engine=engine, attn_chunk=attn_chunk)
+        # the microbatches' shards share one gathered copy a step
+        b = next(iter(batch.values())).shape[0] // microbatches
+        gathered = gather_params(params, pspecs, mesh, [
+            d for d, _ in _shards({k: v[:b] for k, v in batch.items()},
+                                  mesh)])
+
+        def one(mb):
+            return mesh_value_and_grad(cfg, params, mb, pspecs, mesh,
+                                       engine=engine, attn_chunk=attn_chunk,
+                                       gathered=gathered)
+        return _accumulate(one, params, batch, microbatches,
+                           grad_accum_dtype)
+
+    def train_step(state: TrainState, batch: Dict[str, torch.Tensor]
+                   ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        loss, aux, grads = grads_of(state.params, batch)
+        if compress:
+            grads = ef_compress_split(grads, state.ef, specs.ef, mesh)
+        params, opt, opt_metrics = adamw_update_split(
+            grads, state.opt, state.params, opt_cfg, specs=specs, mesh=mesh)
+        with torch.no_grad():
+            for seed in state.seed:
+                seed.add_(1)
+        metrics = {"loss": loss.to(torch.float32), **aux, **opt_metrics}
+        return TrainState(params, opt, state.ef, state.seed), metrics
 
     return train_step

@@ -1,13 +1,20 @@
 """The Trainer: the data stream, the training step, checkpointing,
 straggler monitoring and preemption in one supervised loop, the
-reference's ``repro/train/trainer.py`` on one device.
+reference's ``repro/train/trainer.py``, on one device or over a mesh.
 
 The step runs eagerly (autograd is not captured into a CUDA graph). A
 state is drawn from ``run.seed`` on ``device``, or restored from the
 latest checkpoint in ``run.checkpoint_dir``, whose cursor says where the
 loop resumes; a caller may also set ``state`` before ``train()`` (a
-converted reference state, say). Training over a device mesh is not
-ported: ``mesh=`` raises.
+converted reference state, say).
+
+With ``mesh=`` (a ``launch.mesh.Mesh`` of logical devices; ``cpu``
+entries need no card) the state is drawn on the first data shard's
+device and stored split by ``train_state_specs`` (``self.specs``), a
+checkpoint restores onto the mesh's owners, and each step is the mesh
+step of ``train/step.py``; ``device`` is then ignored. Checkpoints hold
+whole leaves either way. ``whole_state()`` gathers the state onto one
+device.
 """
 from __future__ import annotations
 
@@ -19,12 +26,15 @@ from typing import Any, Callable, Dict, List, Optional
 import torch
 
 from repro_torch.configs.base import RunConfig
+from repro_torch.core import tree
 from repro_torch.core.device import resolve_device
 from repro_torch.data.pipeline import make_stream
+from repro_torch.launch.mesh import physical_device
+from repro_torch.sharding import rules
 from repro_torch.train import checkpoint as ckpt_lib
 from repro_torch.train.fault import PreemptionHandler, StragglerMonitor
 from repro_torch.train.step import TrainState, init_train_state, \
-    make_train_step
+    make_train_step, split_train_state
 
 
 @dataclass
@@ -42,11 +52,16 @@ class Trainer:
     history: List[Dict[str, float]] = field(default_factory=list)
     monitor: StragglerMonitor = field(default_factory=StragglerMonitor)
 
+    specs: Optional[TrainState] = None      # the split state's specs
+
     def __post_init__(self):
         if self.mesh is not None:
-            raise NotImplementedError(
-                "training over a device mesh is not ported yet (ROADMAP "
-                "Queue A: Trainer(mesh=) and --mesh)")
+            if self.mesh.is_abstract:
+                raise ValueError("an abstract mesh has no devices to "
+                                 "train on")
+            for dev in self.mesh.physical_devices:
+                resolve_device(dev)
+            self.device = physical_device(self.mesh.batch_devices()[0])
         self.device = resolve_device(self.device)
         self.stream = make_stream(self.run.model, self.run.shape,
                                   seed=self.run.seed,
@@ -64,19 +79,43 @@ class Trainer:
                                       device=self.device)
         ckpt = ckpt_lib.latest_checkpoint(self.run.checkpoint_dir)
         self._start_step = 0
-        if ckpt is not None:
+        if self.mesh is not None:
+            self.specs = rules.train_state_specs(self.state, self.mesh)
+            if ckpt is None:
+                self.state = rules.split_tree(self.state, self.specs,
+                                              self.mesh)
+            else:                   # the drawn leaves give their shapes
+                template = tree.map_with_path(
+                    lambda _, t: torch.empty(t.shape, dtype=t.dtype,
+                                             device="meta"), self.state)
+                self.state = None
+                self.state, manifest = ckpt_lib.load_checkpoint(
+                    ckpt, template, mesh=self.mesh, specs=self.specs)
+                self._start_step = manifest["cursor"]["step"]
+        elif ckpt is not None:
             self.state, manifest = ckpt_lib.load_checkpoint(ckpt, self.state)
             self._start_step = manifest["cursor"]["step"]
+
+    def whole_state(self, device=None) -> TrainState:
+        """The state with every leaf whole on ``device`` (default: the
+        trainer's): a split state gathered, an unsplit one as it is."""
+        if self.mesh is None or not rules.is_split(self.state):
+            return self.state
+        return rules.gather_tree(self.state, self.specs, self.mesh,
+                                 device or self.device)
 
     # ------------------------------------------------------------------
     def train(self, steps: Optional[int] = None) -> Dict[str, float]:
         """Run (or resume) the loop. Returns the last step's metrics."""
         if self.state is None:
             self._init_or_restore()
+        if self.mesh is not None and not rules.is_split(self.state):
+            self.state, self.specs = split_train_state(self.state, self.mesh)
         if self._step_fn is None:
             self._step_fn = make_train_step(self.run.model,
                                             self.run.optimizer,
-                                            engine=self.engine)
+                                            engine=self.engine,
+                                            mesh=self.mesh, specs=self.specs)
         steps = steps if steps is not None else self.run.steps
         metrics: Dict[str, float] = {}
         for s in range(self._start_step, steps):
@@ -106,6 +145,7 @@ class Trainer:
             self.run.checkpoint_dir, self.state, step=step, cursor_step=step,
             seed=self.run.seed,
             metadata={"model": self.run.model.name,
-                      "shape": self.run.shape.name})
+                      "shape": self.run.shape.name},
+            mesh=self.mesh, specs=self.specs)
         ckpt_lib.remove_old_checkpoints(self.run.checkpoint_dir, keep=3)
         return path

@@ -22,8 +22,10 @@ held to ``repro.train``, ``repro.models`` and the reference's
 - the first 3 ``Trainer`` losses from a converted reference state within
   1e-4 relative of the reference Trainer's; the reference's trainer tests
   (convergence, resume cursor, straggler metrics, microbatches equal to
-  one batch, int8 error feedback), ``Trainer(mesh=)`` refused; the CLI on
-  the CPU, refused without a card;
+  one batch, int8 error feedback), ``Trainer(mesh=)`` refused for an
+  abstract mesh and training over four ``cpu`` entries (the mesh step is
+  held leaf by leaf in ``test_torch_train_mesh.py``); the CLI on the CPU,
+  ``--mesh`` included, refused without a card;
 - ``train_state_specs`` leaf by leaf against the reference's on four
   abstract meshes (Q8_0 moments and error-feedback trees included);
   ``from_jax_train_state`` leaf for leaf; the new configs field for
@@ -58,7 +60,7 @@ from repro_torch.core.qformats import QTensor
 from repro_torch.kernels.flash_attention import (
     flash_attention_bwd_plain, flash_attention_fwd, flash_attention_fwd_plain)
 from repro_torch.launch import train as train_cli
-from repro_torch.launch.mesh import abstract_mesh
+from repro_torch.launch.mesh import abstract_mesh, make_smoke_mesh
 from repro_torch.models import model, transformer
 from repro_torch.models.attention import _flash_attention
 from repro_torch.sharding import rules
@@ -428,9 +430,23 @@ def test_int8_ef_training_runs(tmp_path):
 
 
 def test_mesh_training_is_refused(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trainer(_run_cfg(str(tmp_path / "c")), device="cpu",
-                mesh=object())
+    """An abstract mesh (axis sizes, no devices) is refused; a mesh of
+    devices trains: the reference's smoke mesh over four ``cpu`` entries
+    gives the unsharded Trainer's losses (``test_torch_train_mesh.py``
+    holds the mesh step leaf by leaf)."""
+    with pytest.raises(ValueError, match="abstract"):
+        Trainer(_run_cfg(str(tmp_path / "a")), device="cpu",
+                mesh=abstract_mesh((2, 2), ("data", "model")))
+    one = Trainer(_run_cfg(str(tmp_path / "one"), steps=3), device="cpu",
+                  vocab_cap=64)
+    one.train()
+    tr = Trainer(_run_cfg(str(tmp_path / "mesh"), steps=3),
+                 mesh=make_smoke_mesh([torch.device("cpu")] * 4),
+                 vocab_cap=64)
+    tr.train()
+    assert tr.mesh.shape == {"data": 2, "model": 2}
+    np.testing.assert_allclose([h["loss"] for h in tr.history],
+                               [h["loss"] for h in one.history], rtol=1e-5)
 
 
 def test_cli_trains_on_the_cpu_and_refuses_what_it_lacks(tmp_path, capsys):
@@ -440,9 +456,13 @@ def test_cli_trains_on_the_cpu_and_refuses_what_it_lacks(tmp_path, capsys):
                            "--device", "cpu"]) == 0
     out = capsys.readouterr().out
     assert out.startswith("final:") and "'step': 3" in out
-    with pytest.raises(SystemExit):
-        train_cli.main(["--arch", "phi3-mini-3.8b", "--mesh", "--device",
-                        "cpu"])
+    # --mesh with --device cpu: the reference's smoke mesh of one device
+    assert train_cli.main(["--arch", "phi3-mini-3.8b", "--mesh", "--steps",
+                           "2", "--ckpt-dir", str(tmp_path / "m"),
+                           "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert out.startswith("training mesh: {'data': 1, 'model': 1} over 1")
+    assert "final:" in out and "'step': 1" in out
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             train_cli.main(["--arch", "phi3-mini-3.8b", "--steps", "1",

@@ -10,7 +10,9 @@ logsumexp; ``_FlashCore``'s
 gradients against autograd through the plain forward; and a 3-step smoke
 ``Trainer`` on the card under ``attn_impl="flash"`` whose every gradient
 leaf is non-zero (a flash forward without a backward would leave q, k
-and v without one through attention); the training CLI on the card.
+and v without one through attention); the same Trainer over the smoke
+mesh of four ``cuda:0`` entries against the unsharded one; the training
+CLI on the card.
 
 Every test here is marked ``gpu`` and skips without a card. The file
 imports no JAX, so it runs on a machine that has only PyTorch:
@@ -265,3 +267,58 @@ def test_cli_trains_whisper_on_the_card(tmp_path, capsys):
                            "--ckpt-dir", str(tmp_path / "c")]) == 0
     assert capsys.readouterr().out.startswith("final:")
 
+
+
+@pytest.mark.gpu
+def test_smoke_mesh_of_the_card_matches_the_unsharded_trainer(tmp_path):
+    """``Trainer(mesh=)`` over the reference's smoke mesh of four
+    ``cuda:0`` entries, (2, 2): the phi3 smoke config under flash
+    attention and full remat, three steps from the unsharded Trainer's
+    init: losses within 1e-5 of the unsharded Trainer's on the card (each
+    data shard's launches differ from the whole batch's only in their row
+    count), every parameter within 1e-4 of its leaf's largest, each data
+    shard launching the flash backward once a layer a step; the state
+    split by its specs, replicas on the one card stored once; the
+    whole-leaf checkpoint restored onto the mesh bit for bit."""
+    dev = _cuda_or_skip()
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import (
+        OptimizerConfig, RunConfig, ShapeConfig)
+    from repro_torch.core import tree
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.sharding import rules
+    from repro_torch.train import checkpoint as ckpt_lib
+    from repro_torch.train.trainer import Trainer
+    cfg = dataclasses.replace(get_smoke_config("phi3-mini-3.8b"),
+                              attn_impl="flash", remat="full")
+
+    def run(name):
+        return RunConfig(model=cfg, shape=ShapeConfig("t", 64, 2, "train"),
+                         optimizer=OptimizerConfig(lr=1e-3, warmup_steps=1,
+                                                   total_steps=10),
+                         steps=3, checkpoint_every=100,
+                         checkpoint_dir=str(tmp_path / name))
+    one = Trainer(run("one"), device=dev, vocab_cap=64)
+    one.train()
+    mesh = make_smoke_mesh([dev] * 4)
+    before = flash_attention_bwd.launches
+    tr = Trainer(run("mesh"), mesh=mesh, vocab_cap=64)
+    tr.train()
+    assert flash_attention_bwd.launches - before == 2 * 3 * cfg.num_layers
+    np.testing.assert_allclose([h["loss"] for h in tr.history],
+                               [h["loss"] for h in one.history], rtol=1e-5)
+    whole = tr.whole_state()
+    for (path, w), g in zip(tree.leaves_with_path(one.state.params),
+                            tree.leaves(whole.params), strict=True):
+        assert _rel_err(g, w) <= 1e-4, path
+    assert rules.entry_bytes(tr.state, tr.specs, mesh) == [
+        rules.spec_bytes(whole, tr.specs, mesh)] * 4
+    assert all(len(p) == int(np.prod(mesh.parts(s))) for p, s in zip(
+        tree.leaves(tr.state, is_leaf=rules.is_pieces),
+        tree.leaves(tr.specs, is_leaf=rules.is_spec)))
+    last = ckpt_lib.latest_checkpoint(str(tmp_path / "mesh"))
+    back, _ = ckpt_lib.load_checkpoint(last, whole, mesh=mesh,
+                                       specs=tr.specs)
+    for a, b in zip(tree.leaves(back), tree.leaves(tr.state), strict=True):
+        assert torch.equal(a.reshape(-1).view(torch.uint8),
+                           b.reshape(-1).view(torch.uint8))

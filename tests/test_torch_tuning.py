@@ -727,6 +727,43 @@ def test_f32_dense_operands_take_no_tensor_core_tile(m):
                                atol=1e-6)
 
 
+@pytest.mark.parametrize("k,n", [(384, 384), (1536, 384)])
+def test_f32_x_q8_0_entries_above_16_rows_take_no_tile(k, n):
+    """A Q8_0 weight with f32 x above M = 16 runs ``q8_split_tc_kernel``,
+    which takes no tile (as the dense f32 case): with an analytic tuner
+    attached its entry at M = 28 has no tiling, and its burst, k_main,
+    k_res and offload are still the reference's; bf16 x there keeps the
+    tensor-core launch's tile."""
+    m = 28
+    jt = JaxAutotuner(mode="analytic")
+    want = jax_plan_linear("site", m, k, n, quantized=True,
+                           vmem_budget_kb=8 * 1024, default_burst=256,
+                           tuner=jt, backend="pallas_tpu")
+    got = plan_linear("site", m, k, n, quantized=True,
+                      vmem_budget_kb=8 * 1024, default_burst=256,
+                      tuner=_port_tuner(jt), f32_operand=True)
+    for f in ("burst", "k_main", "k_res", "offload"):
+        assert getattr(got, f) == getattr(want, f), f
+    assert got.kernel == "q8_matmul" and got.tiling is None
+
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32))
+    w = quantize_q8_0(torch.from_numpy(
+        (rng.standard_normal((n, k)) * 0.1).astype(np.float32)))
+    eng = OffloadEngine(tuner=_cpu_tuner())
+    plan = DispatchPlan()
+    with eng.recording(plan):
+        y = eng.linear(x, w, name="dec.q")
+        eng.linear(x.to(torch.bfloat16), w, name="dec.q")
+    f32, b16 = plan.entries
+    assert f32.kernel == b16.kernel == "q8_matmul"
+    assert f32.tiling is None and b16.tiling is not None
+    assert f32.burst == b16.burst
+    torch.testing.assert_close(y, q8_matmul_plain(x, w.qs.reshape(n, k),
+                                                  w.scales),
+                               rtol=1e-5, atol=1e-5)
+
+
 def test_measured_search_keeps_the_kernels_launch_within_the_margin(
         monkeypatch):
     """A measured launch replaces the kernel's own only when it is faster
