@@ -474,23 +474,37 @@ own kernels with nvcc. Phases, each of which fails the run on error:
        over ``make_smoke_mesh`` of four entries of the card, (2, 2) data
        x model, the state split by ``train_state_specs``, each data shard
        one row of 19b's batch: 2 steps from 19b's init whose losses and
-       gradient norms equal 19b's within 1e-3, each shard launching 64
-       forward and 32 backward flash kernels a step (128 and 64 a step),
-       all on the tensor cores; step ms, tokens a second, peak memory,
-       the state's bytes by logical entry and on the card; the gather,
-       shard, reduce and update ms of a step (CUDA events); a profiled
+       gradient norms equal 19b's within 1e-3, all on the tensor cores;
+       step ms, tokens a second, peak memory,
+       the state's bytes by logical entry and on the card; the gathers,
+       partial sums, shards, reduce and update ms of a step (CUDA
+       events); a profiled
        step's device split; the elastic round trip at 2 layers: a mesh
        step's whole-leaf checkpoint restored unsharded, onto a (4, 1)
        mesh and onto the (2, 2) one, bit for bit. On one card the mesh
        measures the machinery (copies, gathers, reduces), not scaling.
+       Every attention and FFN runs split over the 2 model shards of its
+       data shard (the layers by outcome, and the blocks run, printed), so
+       each (data, model) shard launches 64 forward and 32 backward flash
+       kernels a step (256 and 128 a step); the timed step adds the
+       per-layer gathers (``rules.gather_part``) and the partial sums
+       (``transformer.sum_partials``) inside the shards' forward and
+       backward; the peak stays under TRAIN_MESH_PEAK_GB.
+    e. the "model" axis alone (``train_model_axis_phase``): one step over
+       a (1, 4) mesh of four entries of the card, 8 of 32 heads and 2048
+       of 8192 FFN columns a model shard, 19b's batch on one data shard:
+       its loss and gradient norm within 1e-3 of 19b's first step, 4 x 2
+       x 32 forward and 4 x 32 backward flash launches on the tensor
+       cores, its step ms and peak memory.
     c. the CLI: ``launch.train.main`` on whisper-tiny at full width, 4
-       steps, ends with ``final:`` (run after 19d).
+       steps, ends with ``final:`` (run after 19d and 19e).
     ``train ...`` lines, then ``train phase: N s``. The backward's
     kernels-line entry sums its phi3 row over a training step (32
     launches), keeps the other rows under ``by_phase``, its kernels'
     registers and spills (``ptxas``) and the profiled step's kernels by
     name (``device_kernels``); its ``launches`` are 19b's continuous
-    run's, and ``launches_by_path["train"]`` adds 19d's and 19c's.
+    run's, and ``launches_by_path["train"]`` adds 19d's, 19e's and
+    19c's.
 
 The last two lines are the kernels' JSON record and the result line; each
 kernel's record also carries its launches on the tuned paths' eager loops
@@ -5978,10 +5992,17 @@ TRAIN_RESUME_LAYERS, TRAIN_ROUND_TRIP_LAYERS = 4, 2
 # 19b's batch; its losses and gradient norms against 19b's first steps
 # within TRAIN_RESUME_TOL
 TRAIN_MESH_STEPS = 2
-# 19d's peak: 7.6 GB of split parameters, one 7.6 GB gathered copy, 15.3
-# GB of bf16 moments, two shards' 7.6 GB of bf16 gradients (their f32 sums
-# replace them as they are freed) and remat's activations: about 47 GB
-TRAIN_MESH_PEAK_GB = 60
+# 19d's peak: 7.6 GB of split parameters, no whole gathered copy (each
+# data shard gathers one remat unit's slices at a time, 0.23 GB a layer),
+# 15.3 GB of bf16 moments, two shards' 7.6 GB of bf16 gradients (their f32
+# sums replace them as they are freed) and remat's activations: about 40
+# GB, 7.6 below the 46.77 GB that a whole gathered copy took (H100 80GB)
+TRAIN_MESH_PEAK_GB = 42
+# 19e: one step over a (1, 4) mesh of four entries of the card, the
+# "model" axis alone (8 of 32 heads, 2048 of 8192 FFN columns a shard),
+# 19b's whole batch on the one data shard; its loss and gradient norm
+# against 19b's first step within TRAIN_RESUME_TOL
+TRAIN_TP_MESH = (1, 4)
 # the resumed run's losses against the continuous run's: the embedding's
 # backward (index_add_ with atomics on the card) sums in a scheduling order
 TRAIN_RESUME_TOL = 1e-3
@@ -6309,6 +6330,31 @@ def ptxas_report(log: str):
     return out
 
 
+def train_run(ckpt_dir: str):
+    """(ModelConfig, RunConfig) of phase 19b: phi3-mini at its published
+    widths, bf16, flash, full remat, TRAIN_BATCH rows of TRAIN_SEQ tokens,
+    TRAIN_STATE_DTYPE moments, TRAIN_STEPS steps from TRAIN_SEED. No
+    checkpoint between steps: the one full-depth save is the last step's,
+    timed; the resume check runs at TRAIN_RESUME_LAYERS."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import (
+        OptimizerConfig, RunConfig, ShapeConfig)
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), dtype="bfloat16",
+                              param_dtype="bfloat16", quant="none",
+                              attn_impl="flash", remat="full")
+    run = RunConfig(model=cfg,
+                    shape=ShapeConfig("train_4k_b2", TRAIN_SEQ, TRAIN_BATCH,
+                                      "train"),
+                    optimizer=OptimizerConfig(lr=1e-4, warmup_steps=2,
+                                              total_steps=100,
+                                              state_dtype=TRAIN_STATE_DTYPE),
+                    seed=TRAIN_SEED, steps=TRAIN_STEPS, checkpoint_every=0,
+                    checkpoint_dir=ckpt_dir)
+    return cfg, run
+
+
 def train_phase(bwd_log: str):
     """Phase 19: 19a the kernels (``train_kernel_checks``), after the
     backward's registers and spills from its build log ``bwd_log``
@@ -6335,9 +6381,6 @@ def train_phase(bwd_log: str):
 
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.configs import get_config
-    from repro_torch.configs.base import (
-        OptimizerConfig, RunConfig, ShapeConfig)
     from repro_torch.core import energy, tree
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch import train as train_cli
@@ -6363,20 +6406,8 @@ def train_phase(bwd_log: str):
     print(f"train phase 19a: {summary['kernels_s']:.1f}s", flush=True)
 
     t1 = time.perf_counter()
-    cfg = dataclasses.replace(get_config(TRAIN_ARCH), dtype="bfloat16",
-                              param_dtype="bfloat16", quant="none",
-                              attn_impl="flash", remat="full")
     ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_train_")
-    # no checkpoint between steps: the one full-depth save is the last
-    # step's, timed; the resume check runs at TRAIN_RESUME_LAYERS
-    run = RunConfig(model=cfg,
-                    shape=ShapeConfig("train_4k_b2", TRAIN_SEQ, TRAIN_BATCH,
-                                      "train"),
-                    optimizer=OptimizerConfig(lr=1e-4, warmup_steps=2,
-                                              total_steps=100,
-                                              state_dtype=TRAIN_STATE_DTYPE),
-                    seed=TRAIN_SEED, steps=TRAIN_STEPS, checkpoint_every=0,
-                    checkpoint_dir=ckpt_dir)
+    cfg, run = train_run(ckpt_dir)
     try:
         events = []
 
@@ -6591,6 +6622,8 @@ def train_phase(bwd_log: str):
 
     mesh_launches, summary["mesh"] = train_mesh_phase(cfg, run, history,
                                                       counted)
+    axis_launches, summary["model_axis"] = train_model_axis_phase(
+        cfg, run, history, counted)
     release_memory("train cli")
 
     t3 = time.perf_counter()
@@ -6612,7 +6645,8 @@ def train_phase(bwd_log: str):
     if rc != 0 or not text.splitlines()[-1].startswith("final:"):
         raise AssertionError(f"training CLI: rc={rc}, output {text!r}")
     summary["cli_s"] = time.perf_counter() - t3
-    total = {k: launches[k] + mesh_launches[k] + cli[k] for k in counted}
+    total = {k: launches[k] + mesh_launches[k] + axis_launches[k] + cli[k]
+             for k in counted}
     print(f"train phase: {time.perf_counter() - t0:.1f}s; launches {total}",
           flush=True)
     return rows, launches, total, summary
@@ -6640,12 +6674,14 @@ def train_mesh_phase(cfg, run, history, counted):
     entries of the card, (2, 2) data x model, on 19b's model, optimizer,
     seed and batches (each data shard one row): TRAIN_MESH_STEPS steps
     whose losses and gradient norms equal 19b's within TRAIN_RESUME_TOL,
-    every flash backward launch on the tensor cores; step ms (CUDA
-    events), tokens a second, peak memory, the state's bytes by logical
-    entry and by the card; one more step with the gather, the shards'
-    forward and backward, the reduce and the update timed by CUDA events
-    around each; one profiled step (the device split, and each data
-    shard's flash launches); then the elastic round trip at
+    every block's attention and FFN split over the model shards, every
+    flash backward launch on the tensor cores; step ms (CUDA events),
+    tokens a second, peak memory, the state's bytes by logical entry and
+    by the card; one more step with the per-layer gathers, the partial
+    sums, the shards' forward and backward, the reduce and the update
+    timed by CUDA events around each; one profiled step (the device split,
+    and each (data, model) shard's flash launches); then the elastic
+    round trip at
     TRAIN_ROUND_TRIP_LAYERS layers: one mesh step, its whole-leaf
     checkpoint restored unsharded and onto a (4, 1) mesh, bit for bit.
     The Trainer's own saves are skipped here (19b times the full-depth
@@ -6659,6 +6695,7 @@ def train_mesh_phase(cfg, run, history, counted):
     from repro_torch.core import energy, tree
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch.mesh import Mesh, make_smoke_mesh
+    from repro_torch.models import transformer
     from repro_torch.sharding import rules
     from repro_torch.train import checkpoint as ckpt_lib
     from repro_torch.train import step as step_lib
@@ -6669,6 +6706,7 @@ def train_mesh_phase(cfg, run, history, counted):
     dev = torch.device("cuda", torch.cuda.current_device())
     mesh = make_smoke_mesh([dev] * 4)
     shards = len(mesh.batch_devices())
+    model_shards = mesh.shape["model"]
     layers = cfg.num_layers
     mrun = dataclasses.replace(run, steps=TRAIN_MESH_STEPS)
     events = []
@@ -6686,6 +6724,7 @@ def train_mesh_phase(cfg, run, history, counted):
     torch.cuda.reset_peak_memory_stats()
     before = _read(counted)
     routes = dict(fa.flash_attention_bwd.launches_by_route)
+    blocks_before = collections.Counter(rules.TP_BLOCKS)
     tr.train()
     mark(TRAIN_MESH_STEPS)
     torch.cuda.synchronize()
@@ -6697,6 +6736,18 @@ def train_mesh_phase(cfg, run, history, counted):
     norms = [h["grad_norm"] for h in tr.history]
     by_entry = rules.entry_bytes(tr.state, tr.specs, mesh)
     stored = sum(t.numel() * t.element_size() for t in tree.leaves(tr.state))
+    blocks = {f"{k}: {why}": n for (k, why), n in
+              (collections.Counter(rules.TP_BLOCKS) - blocks_before).items()}
+    layout = tr.tp_summary()
+    print(f"train mesh blocks over 'model' ({model_shards} model shards "
+          f"a data shard): layers {json.dumps(layout)}; run in "
+          f"{TRAIN_MESH_STEPS} steps x {shards} data shards "
+          f"{json.dumps(blocks)}", flush=True)
+    if set(layout) != {"attn: split", "ffn: split"} or blocks != {
+            k: n * shards * TRAIN_MESH_STEPS for k, n in layout.items()}:
+        raise AssertionError(f"phi3-mini's blocks over (2, 2): {layout}, "
+                             f"run {blocks}: every attention and FFN "
+                             "split expected")
     print(f"train mesh {dict(mesh.shape)} over {len(mesh.physical_devices)} "
           f"card ({shards} data shards of one {TRAIN_SEQ}-token row): "
           f"losses {losses} against 19b's {[h['loss'] for h in history]}, "
@@ -6706,12 +6757,14 @@ def train_mesh_phase(cfg, run, history, counted):
           f"launches {launches}; backward routes {routes}; state bytes by "
           f"logical entry {by_entry}, stored on the card {stored}; init "
           f"(draw and split) {init_s:.1f}s", flush=True)
-    want = {"flash_attention_fwd": 2 * shards * layers * TRAIN_MESH_STEPS,
-            "flash_attention_bwd": shards * layers * TRAIN_MESH_STEPS}
+    per_step = shards * model_shards * layers
+    want = {"flash_attention_fwd": 2 * per_step * TRAIN_MESH_STEPS,
+            "flash_attention_bwd": per_step * TRAIN_MESH_STEPS}
     if launches != want:
         raise AssertionError(f"mesh training launches {launches}, expected "
-                             f"{want} (each shard's forward and its "
-                             "recompute, one backward a layer a shard)")
+                             f"{want} (each (data, model) shard's forward "
+                             "and its recompute, one backward a layer a "
+                             "(data, model) shard)")
     if routes != {"mma": want["flash_attention_bwd"], "simt": 0}:
         raise AssertionError(f"the mesh step's backward routes {routes}")
     for s, h in enumerate(tr.history):
@@ -6721,11 +6774,16 @@ def train_mesh_phase(cfg, run, history, counted):
                 raise AssertionError(f"mesh step {s} {key} {got} against "
                                      f"19b's {ref}")
 
-    # one more step with its phases timed between CUDA events
+    # one more step with its phases timed between CUDA events: the
+    # per-layer gathers and the partial sums run inside the shards'
+    # forward and backward (_shard_grads), and are also timed alone
     times = {}
-    patched = [(step_lib, name, _timed(step_lib, name, times)) for name in
-               ("gather_params", "_shard_grads", "reduce_grads",
-                "adamw_update_split")]
+    patched = [(module, name, _timed(module, name, times))
+               for module, name in ((rules, "gather_part"),
+                                    (transformer, "sum_partials"),
+                                    (step_lib, "_shard_grads"),
+                                    (step_lib, "reduce_grads"),
+                                    (step_lib, "adamw_update_split"))]
     try:
         batch = tr.stream.batch_at(TRAIN_MESH_STEPS)
         mark(None)
@@ -6738,13 +6796,13 @@ def train_mesh_phase(cfg, run, history, counted):
     timed_ms = events[-2].elapsed_time(events[-1])
     phases = {name: sum(a.elapsed_time(b) for a, b in pairs)
               for name, pairs in times.items()}
+    phase_calls = {name: len(pairs) for name, pairs in times.items()}
     peak = torch.cuda.max_memory_allocated()
     launches = {k: v - before[k] for k, v in _read(counted).items()}
 
     # one profiled step: the device split and each shard's flash kernels
     batch = tr.stream.batch_at(TRAIN_MESH_STEPS + 1)
-    want_prof = {"flash_bwd": 3 * shards * layers,
-                 "flash_fwd": 2 * shards * layers}
+    want_prof = {"flash_bwd": 3 * per_step, "flash_fwd": 2 * per_step}
     for attempt in range(REPLAY_PROFILES):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             _open_window()
@@ -6771,13 +6829,16 @@ def train_mesh_phase(cfg, run, history, counted):
         ref_grad_norms=[h["grad_norm"] for h in history],
         step_ms_events=step_ms, step_ms=steady,
         tokens_per_s=TRAIN_SEQ * TRAIN_BATCH / (steady / 1e3),
-        timed_step_ms=timed_ms, phases_ms=phases, peak_bytes=peak,
+        timed_step_ms=timed_ms, phases_ms=phases, phase_calls=phase_calls,
+        blocks=blocks, layers_by_outcome=layout, peak_bytes=peak,
         state_bytes_by_entry=by_entry, state_bytes_stored=stored,
         device_split=split, device_ms=device, bwd_kernels=bwd_kernels,
         power_limit_w=power_w, j_per_step_at_limit=power_w * steady / 1e3,
         init_s=init_s)
     print(f"train mesh step phases (CUDA events, one step of "
-          f"{timed_ms:.3f} ms): {json.dumps(phases)}; peak_bytes {peak}; "
+          f"{timed_ms:.3f} ms; gather_part and sum_partials nested in "
+          f"_shard_grads): {json.dumps(phases)}, calls "
+          f"{json.dumps(phase_calls)}; peak_bytes {peak}; "
           f"step {steady:.3f} ms, "
           f"{summary['tokens_per_s']:.1f} tokens/s", flush=True)
     print(f"train mesh step device split (torch.profiler, one step): "
@@ -6789,9 +6850,9 @@ def train_mesh_phase(cfg, run, history, counted):
     if seen != want_prof:
         raise AssertionError(f"profiled mesh step's flash kernels {split}: "
                              "expected 3 backward kernels and 2 forward "
-                             "launches a layer a data shard")
+                             "launches a layer a (data, model) shard")
     if {w: by_word[w] for w in TRAIN_BWD_KERNELS} != {
-            w: shards * layers for w in TRAIN_BWD_KERNELS} or any(
+            w: per_step for w in TRAIN_BWD_KERNELS} or any(
             by_word[w] for w in TRAIN_BWD_SIMT):
         raise AssertionError(f"profiled mesh step's backward kernels "
                              f"{bwd_kernels}")
@@ -6852,6 +6913,92 @@ def train_mesh_phase(cfg, run, history, counted):
     summary["s"] = time.perf_counter() - t0
     print(f"train phase 19d: {summary['s']:.1f}s; launches {launches}",
           flush=True)
+    return launches, summary
+
+
+def train_model_axis_phase(cfg, run, history, counted):
+    """Phase 19e: one step of ``Trainer(mesh=)`` over a TRAIN_TP_MESH (1,
+    4) mesh of four entries of the card, the "model" axis alone: every
+    block's attention and FFN split over 4 model shards (8 of phi3-mini's
+    32 heads and 2048 of its 8192 FFN columns a shard), 19b's whole batch
+    on the one data shard. Its loss and gradient norm against 19b's first
+    step within TRAIN_RESUME_TOL; 4 x 2 x 32 flash forward and 4 x 32
+    backward launches, all on the tensor cores; its step ms (CUDA events)
+    and peak memory. Returns (its launches, its summary)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.train.trainer import Trainer
+
+    t0 = time.perf_counter()
+    release_memory("train model axis")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = Mesh(TRAIN_TP_MESH, ("data", "model"),
+                [dev] * (TRAIN_TP_MESH[0] * TRAIN_TP_MESH[1]))
+    model_shards, layers = mesh.shape["model"], cfg.num_layers
+    events = []
+
+    def mark(step):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+
+    tr = Trainer(dataclasses.replace(run, steps=1), mesh=mesh,
+                 fault_hook=mark)
+    tr.save = lambda step: None
+    tr._init_or_restore()
+    layout = tr.tp_summary()
+    init_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = _read(counted)
+    routes = dict(fa.flash_attention_bwd.launches_by_route)
+    tr.train()
+    mark(1)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    launches = {k: v - before[k] for k, v in _read(counted).items()}
+    routes = {r: n - routes[r] for r, n
+              in fa.flash_attention_bwd.launches_by_route.items()}
+    step_ms = events[0].elapsed_time(events[1])
+    got = tr.history[0]
+    summary = dict(mesh=dict(mesh.shape), layers_by_outcome=layout,
+                   loss=got["loss"], grad_norm=got["grad_norm"],
+                   ref_loss=history[0]["loss"],
+                   ref_grad_norm=history[0]["grad_norm"], step_ms=step_ms,
+                   host_dt_s=got["dt_s"], peak_bytes=peak, launches=launches,
+                   init_s=init_s)
+    print(f"train model axis {dict(mesh.shape)} over one card "
+          f"({model_shards} model shards, 19b's batch on one data shard): "
+          f"layers {json.dumps(layout)}; loss {got['loss']} against 19b's "
+          f"{history[0]['loss']}, grad_norm {got['grad_norm']} against "
+          f"19b's {history[0]['grad_norm']}; step_ms (CUDA events, the "
+          f"Trainer's first step) {step_ms:.3f}; host dt_s {got['dt_s']}; "
+          f"peak_bytes {peak}; launches {launches}; backward routes "
+          f"{routes}; init (draw and split) {init_s:.1f}s", flush=True)
+    want = {"flash_attention_fwd": 2 * model_shards * layers,
+            "flash_attention_bwd": model_shards * layers}
+    if launches != want:
+        raise AssertionError(f"model-axis step launches {launches}, "
+                             f"expected {want} (each model shard's forward "
+                             "and its recompute, one backward a layer a "
+                             "model shard)")
+    if routes != {"mma": want["flash_attention_bwd"], "simt": 0}:
+        raise AssertionError(f"the model-axis step's backward routes "
+                             f"{routes}")
+    if layout != {"attn: split": layers, "ffn: split": layers}:
+        raise AssertionError(f"phi3-mini's blocks over {TRAIN_TP_MESH}: "
+                             f"{layout}")
+    for key in ("loss", "grad_norm"):
+        ref = history[0][key]
+        if not abs(got[key] - ref) <= TRAIN_RESUME_TOL * abs(ref):
+            raise AssertionError(f"model-axis step {key} {got[key]} "
+                                 f"against 19b's {ref}")
+    del tr
+    summary["s"] = time.perf_counter() - t0
+    print(f"train phase 19e: {summary['s']:.1f}s", flush=True)
     return launches, summary
 
 

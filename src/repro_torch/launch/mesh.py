@@ -9,8 +9,9 @@ of them: the CPU tests build four ``cpu`` entries, ``chip_smoke.py`` four
 programs, shard-local admission, the ledger's split) runs with one card.
 ``physical_devices`` lists the distinct devices behind the entries.
 ``owners(spec)`` says which part of a leaf laid out by a partition spec
-each entry holds (the sharded training state, ``sharding/rules.py``), and
-``batch_devices()`` lists the data shards' entries of a training step.
+each entry holds (the sharded training state, ``sharding/rules.py``),
+``batch_devices()`` lists the data shards' entries of a training step, and
+``shard_devices()`` each data shard's entries along "model".
 
 An abstract mesh (``abstract_mesh``, ``make_production_mesh``) has axis
 sizes and no devices: the sharding rules need nothing else.
@@ -115,12 +116,25 @@ class Mesh:
     def batch_devices(self) -> List[torch.device]:
         """The logical entries of the data shards of a training step, one
         for each index over the batch axes ("pod", "data") in row-major
-        order, every other axis at index 0."""
+        order, every other axis at index 0: each data shard's first
+        entry of ``shard_devices``."""
+        return [row[0] for row in self.shard_devices()]
+
+    def shard_devices(self) -> List[List[torch.device]]:
+        """For each data shard (``batch_devices`` order), its logical
+        entries along "model", in model order: the devices its model
+        shards compute on (one entry where the mesh has no model axis)."""
         if self.devices is None:
             raise ValueError("an abstract mesh has no devices")
-        idx = tuple(slice(None) if a in BATCH_AXES else 0
-                    for a in self.axis_names)
-        return list(self.devices[idx].reshape(-1))
+        names = [a for a in self.axis_names
+                 if a in BATCH_AXES or a == "model"]
+        grid = self.devices[tuple(slice(None) if a in names else 0
+                                  for a in self.axis_names)]
+        if "model" in names:
+            grid = np.moveaxis(grid, names.index("model"), -1)
+        else:
+            grid = grid[..., None]
+        return [list(row) for row in grid.reshape(-1, grid.shape[-1])]
 
     @property
     def physical_devices(self) -> List[torch.device]:

@@ -8,7 +8,8 @@ supervision loop restarts from the latest atomic checkpoint on retryable
 failures. ``--mesh`` trains over ``make_smoke_mesh`` of the visible cards
 (with ``--device cpu``, a (1, 1) mesh of the CPU), the state split by
 ``train_state_specs``, under ``activation_sharding(mesh)`` as the
-reference's CLI runs.
+reference's CLI runs, and prints how many layers run their attention and
+FFN split over "model" and how many whole, by reason.
 """
 from __future__ import annotations
 
@@ -70,6 +71,8 @@ def main(argv=None):
         def attempt_fn():
             trainer = Trainer(run, device=device, mesh=mesh,
                               install_signal_handler=True, vocab_cap=512)
+            if mesh is not None:
+                print(f"blocks over 'model': {trainer.tp_summary()}")
             with (shard_ctx.activation_sharding(mesh) if mesh is not None
                   else contextlib.nullcontext()):
                 return trainer.train()

@@ -160,19 +160,27 @@ def attention(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
               positions: Optional[torch.Tensor] = None,
               memory: Optional[torch.Tensor] = None,
               causal: bool = True, chunk: int = 2048,
-              engine=None) -> torch.Tensor:
+              engine=None, partial: bool = False,
+              f32_grad: bool = False) -> torch.Tensor:
     """Self- or cross-attention over a full sequence, the reference's
     ``attention``, by ``cfg.attn_impl``. x: (B, S, d) -> (B, S, d).
     ``memory`` (B, F, d), the encoder's states, makes it cross-attention:
     K/V are projected from it and nothing is masked or rotated. Otherwise
     ``causal`` masks later keys, and with ``cfg.pos_embedding == "rope"``
-    q and k are rotated at ``positions`` (default 0..S-1)."""
+    q and k are rotated at ``positions`` (default 0..S-1). ``partial``:
+    one model shard's heads, whose ``o`` output is a partial of the
+    row-parallel product, returned in f32. ``f32_grad``: x (and
+    ``memory``) are f32 upcasts of the weights' 16-bit type, multiplied
+    at that type, with f32 input gradients (``layers.linear``)."""
     b, s, _ = x.shape
     hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     src = x if memory is None else memory
-    q = _split_heads(layers.linear(p["q"], x, engine, "attn.q"), hq)
-    k = _split_heads(layers.linear(p["k"], src, engine, "attn.k"), hkv)
-    v = _split_heads(layers.linear(p["v"], src, engine, "attn.v"), hkv)
+    q = _split_heads(layers.linear(p["q"], x, engine, "attn.q",
+                                   f32_grad=f32_grad), hq)
+    k = _split_heads(layers.linear(p["k"], src, engine, "attn.k",
+                                   f32_grad=f32_grad), hkv)
+    v = _split_heads(layers.linear(p["v"], src, engine, "attn.v",
+                                   f32_grad=f32_grad), hkv)
     if memory is None and cfg.pos_embedding == "rope":
         if positions is None:
             positions = torch.arange(s, device=x.device)[None, :]
@@ -183,7 +191,8 @@ def attention(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
         out = _flash_attention(q, k, v, causal=causal)
     else:
         out = _chunked_attention(q, k, v, causal=causal, chunk=chunk)
-    return layers.linear(p["o"], out.reshape(b, s, hq * hd), engine, "attn.o")
+    return layers.linear(p["o"], out.reshape(b, s, hq * hd), engine, "attn.o",
+                         f32_out=partial)
 
 
 class KVCache(NamedTuple):

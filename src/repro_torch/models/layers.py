@@ -31,14 +31,26 @@ def init_linear(gen: torch.Generator, d_in: int, d_out: int, *,
 
 
 def linear(p: dict, x: torch.Tensor, engine=None,
-           name: str = "linear") -> torch.Tensor:
+           name: str = "linear", *, f32_out: bool = False,
+           f32_grad: bool = False) -> torch.Tensor:
     """y = x @ W^T (+ b). ``name`` identifies the call site in the
-    dispatcher's plan entries and ledger."""
+    dispatcher's plan entries and ledger. ``f32_out`` returns the product
+    in f32, not rounded to the operands' type (``_dot_f32``): a model
+    shard's partial of a row-parallel product, which the mesh step sums
+    in f32 before it rounds once (``models/transformer.py``).
+    ``f32_grad``: x is the f32 upcast of a tensor of W's 16-bit type (a
+    model shard's copy of a column-parallel product's input), multiplied
+    at W's type, its gradient an f32 product (``_dot_f32_grad``)."""
     w = p["w"]
     if engine is not None:
-        y = engine.linear(x, w, name=name).to(x.dtype)
+        y = engine.linear(x, w, name=name)
+        y = y.to(torch.float32 if f32_out else x.dtype)
     elif isinstance(w, QTensor):
         y = x @ dequantize_q8_0(w).to(x.dtype).t()
+    elif f32_out:
+        y = _dot_f32(x, w)
+    elif f32_grad:
+        y = _dot_f32_grad(x, w)
     else:
         y = _dot(x, w)
     if "b" in p:
@@ -51,6 +63,75 @@ def _dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     promotes mixed operands."""
     dt = torch.promote_types(x.dtype, w.dtype)
     return x.to(dt) @ w.to(dt).t()
+
+
+class _F32Product(torch.autograd.Function):
+    """x @ w^T of two CUDA tensors of one 16-bit type with an f32 output
+    (``torch.mm(..., out_dtype=torch.float32)``: sums of exact products
+    in f32, never rounded to the operands' type); its backward the
+    operands' type's products, as ``x @ w^T``'s, the incoming f32
+    gradient cast to that type first (exact where it is the upcast of
+    the rounded output's gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        y = torch.mm(x.reshape(-1, x.shape[-1]), w.t(),
+                     out_dtype=torch.float32)
+        return y.reshape(*x.shape[:-1], w.shape[0])
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dy = dy.to(x.dtype)
+        dx = dy @ w
+        dw = dy.reshape(-1, dy.shape[-1]).t() @ x.reshape(-1, x.shape[-1])
+        return dx, dw
+
+
+def _dot_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w^T with an f32 output: ``_dot``'s product where the operands
+    promote to f32; for two CUDA tensors of one 16-bit type
+    ``_F32Product``; elsewhere (a 16-bit product on the CPU) the operands
+    upcast, whose products are exact in f32 too."""
+    dt = torch.promote_types(x.dtype, w.dtype)
+    if dt == torch.float32:
+        return _dot(x, w)
+    if x.is_cuda and w.is_cuda and x.dtype == w.dtype:
+        return _F32Product.apply(x, w)
+    return x.to(torch.float32) @ w.to(torch.float32).t()
+
+
+class _F32GradProduct(torch.autograd.Function):
+    """x @ w^T of an f32 CUDA x that holds values of w's 16-bit type, in
+    that type (``x.to(w.dtype) @ w^T``, the product's own rounding); its
+    input gradient an f32 product (``torch.mm(dy, w,
+    out_dtype=torch.float32)``), never rounded to the 16-bit type, so
+    that the gradients that reach x from several products sum in f32."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        x = x.to(w.dtype)
+        ctx.save_for_backward(x, w)
+        return x @ w.t()
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        rows = dy.reshape(-1, dy.shape[-1])
+        dx = torch.mm(rows, w, out_dtype=torch.float32)
+        dw = rows.t() @ x.reshape(-1, x.shape[-1])
+        return dx.reshape(*dy.shape[:-1], w.shape[1]), dw
+
+
+def _dot_f32_grad(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w^T in w's 16-bit type from an f32 x that holds values of that
+    type, its input gradient in f32: for two CUDA tensors
+    ``_F32GradProduct``; elsewhere the f32 product rounded to w's type,
+    whose gradient is an f32 product too."""
+    if x.is_cuda and w.is_cuda:
+        return _F32GradProduct.apply(x, w)
+    return (x @ w.to(torch.float32).t()).to(w.dtype)
 
 
 def init_norm(d: int, dtype=torch.bfloat16, *, kind: str = "layernorm",
@@ -135,18 +216,24 @@ def init_mlp(gen: torch.Generator, d: int, d_ff: int,
 
 
 def mlp_apply(p: dict, x: torch.Tensor, act: str = "gelu",
-              engine=None) -> torch.Tensor:
+              engine=None, *, partial: bool = False,
+              f32_grad: bool = False) -> torch.Tensor:
     """GELU: down(gelu(up(x))); SwiGLU: down(silu(gate(x)) * up(x)), the
-    product in f32, cast to x's type before ``down``, as the reference."""
-    up = linear(p["up"], x, engine, "ffn.up")
+    product in f32, cast to x's type before ``down``, as the reference.
+    ``partial``: one model shard's FFN columns, whose ``down`` output is
+    a partial of the row-parallel product, returned in f32. ``f32_grad``:
+    x is the f32 upcast of the weights' 16-bit type (``linear``), which
+    stands for x's type."""
+    up = linear(p["up"], x, engine, "ffn.up", f32_grad=f32_grad)
     if act == "swiglu":
-        gate = linear(p["gate"], x, engine, "ffn.gate")
+        gate = linear(p["gate"], x, engine, "ffn.gate", f32_grad=f32_grad)
         h = F.silu(gate.to(torch.float32)) * up.to(torch.float32)
     elif act == "gelu":
         h = gelu(up.to(torch.float32))
     else:
         raise ValueError(f"act {act!r}: 'gelu' or 'swiglu'")
-    return linear(p["down"], h.to(x.dtype), engine, "ffn.down")
+    return linear(p["down"], h.to(up.dtype if f32_grad else x.dtype),
+                  engine, "ffn.down", f32_out=partial)
 
 
 def init_embedding(gen: torch.Generator, vocab: int, d: int,

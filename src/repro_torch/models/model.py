@@ -53,8 +53,9 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import resolve_device
-from repro_torch.core.tree import map_with_path
+from repro_torch.core.tree import LAYER_LISTS, map_with_path
 from repro_torch.models import layers, transformer, whisper
+from repro_torch.sharding import ctx, rules
 
 
 class ServeState(NamedTuple):
@@ -209,7 +210,15 @@ def loss_terms(params: dict, cfg: ModelConfig, batch: dict, *,
     V), and the readout launches once a chunk. Where a gradient is
     recorded, each chunk runs under activation checkpointing, as the
     reference's ``jax.checkpoint``: its logits are recomputed in the
-    backward, not kept."""
+    backward, not kept. As a data shard of a mesh step
+    (``ctx.train_shard``), ``params`` are the stored pieces: the leaves
+    outside the layer lists (embedding, norms, readout, position tables,
+    frontend, projector) are gathered whole onto the shard's first device
+    here, and each block gathers its own as it runs."""
+    shard = ctx.current_train_shard()
+    if shard is not None:
+        params = _gather_outside_blocks(params, shard.specs, shard.mesh,
+                                        shard.devices[0])
     h, aux = hidden_forward(params, cfg, batch, engine=engine,
                             attn_chunk=attn_chunk)
     labels = batch["labels"]
@@ -232,6 +241,19 @@ def loss_terms(params: dict, cfg: ModelConfig, batch: dict, *,
                           labels[:, i * size:(i + 1) * size])
         ce_sum, ntok = ce_sum + cs, ntok + nt
     return ce_sum, ntok, aux
+
+
+def _gather_outside_blocks(params: dict, specs: dict, mesh, device,
+                           path=()) -> dict:
+    """A split parameter tree with every leaf outside the layer lists
+    gathered whole onto ``device`` (``rules.gather_part``), the layer
+    lists' pieces kept."""
+    if path in LAYER_LISTS:
+        return params
+    if rules.is_pieces(params):
+        return rules.gather_part(params, specs, mesh, device)
+    return {k: _gather_outside_blocks(v, specs[k], mesh, device, path + (k,))
+            for k, v in params.items()}
 
 
 def _lm_state(cfg: ModelConfig, batch: int, max_len: int, device,

@@ -17,9 +17,25 @@ one SSM layer with no FFN. The decode state holds one entry a layer, a
 KV cache for an attention layer and an ``SSMState`` for an SSM layer.
 ``apply_decoder_stack`` runs the same layers over a whole sequence (the
 model API's ``forward``), the SSM layers by the chunked SSD scan.
+
+As a data shard of a mesh training step (``sharding.ctx.train_shard``),
+the blocks hold the stored pieces of their leaves: each block gathers them
+inside its ``remat`` unit (``sharding.rules.gather_block``), and runs an
+attention or dense FFN that ``sharding.rules.tp_layout`` splits as M model
+shards (``tensor_parallel``): shard m computes its Hq / M query and Hkv /
+M KV heads, or its d_ff / M FFN columns, on its own mesh entry's device
+from the normed input copied there, and the row-parallel products'
+partial outputs, each in f32 (``layers.linear(..., f32_out=True)``), are
+summed in f32 in model-shard order on the data shard's first device
+(``sum_partials``) and rounded once to the residual stream's type there,
+where the norms, MoE and SSD layers stay. In 16-bit, the shards' copies
+of the normed input are its f32 upcast (``shard_inputs``), so that the
+column-parallel products' input gradients, f32 products
+(``layers.linear(..., f32_grad=True)``), sum in f32 and round once.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
 from typing import Any, Callable, List, NamedTuple, Optional, Tuple, Union
@@ -33,6 +49,7 @@ from repro_torch.core import tree
 from repro_torch.models import layers, moe as moe_lib, ssm as ssm_lib
 from repro_torch.models.attention import (
     KVCache, QKVCache, attention, decode_attention, init_attention)
+from repro_torch.sharding import ctx, rules
 
 
 class LayerSpec(NamedTuple):
@@ -112,18 +129,86 @@ def init_decoder_stack(gen: torch.Generator, cfg: ModelConfig) -> dict:
 # ---------------------------------------------------------------------------
 # Full-sequence apply (forward and loss)
 # ---------------------------------------------------------------------------
+@functools.lru_cache(maxsize=64)
+def _shard_cfg(cfg: ModelConfig, m: int) -> ModelConfig:
+    """The head-count view of ``cfg`` that one of ``m`` model shards
+    computes: Hq / m query and Hkv / m KV heads of the same width."""
+    return dataclasses.replace(cfg, num_heads=cfg.num_heads // m,
+                               num_kv_heads=cfg.num_kv_heads // m)
+
+
+def sum_partials(partials: List[torch.Tensor], device) -> torch.Tensor:
+    """The model shards' partial outputs of a row-parallel product summed
+    in f32, in model-shard order, on ``device``."""
+    acc = partials[0].to(device, torch.float32)
+    for y in partials[1:]:
+        acc = acc + y.to(device, torch.float32)
+    return acc
+
+
+def shard_inputs(part: dict, inputs: tuple) -> Tuple[tuple, bool]:
+    """(the inputs that the model shards copy, whether they are f32
+    upcasts). Where the float inputs and the slices' weights have one
+    16-bit type, each float input is upcast once (exactly), so that the
+    column-parallel products' input gradients, each an f32 product
+    (``layers.linear(..., f32_grad=True)``), sum over the shards in f32
+    and round once to that type in the upcast's backward."""
+    wt = next(iter(part.values()))["w"].dtype
+    floats = [t for t in inputs if t is not None and t.is_floating_point()]
+    if wt.itemsize != 2 or any(t.dtype != wt for t in floats):
+        return inputs, False
+    return tuple(t.to(torch.float32) if t is not None
+                 and t.is_floating_point() else t for t in inputs), True
+
+
+def tensor_parallel(fn: Callable[..., torch.Tensor], p: dict,
+                    parts: Optional[list], cfg: ModelConfig, devices,
+                    *inputs) -> torch.Tensor:
+    """``fn(p, cfg, *inputs)`` where ``parts`` is None. Else ``fn(...,
+    partial=True)`` over the model shards: shard m on ``devices[m]`` over
+    its slices ``parts[m]``, the head-count view of ``cfg`` and its
+    copies of the tensor ``inputs`` (``shard_inputs``: 16-bit inputs in
+    f32, with ``f32_grad=True``); its output the f32 partial of a
+    row-parallel product, without a bias (a shard's slices hold none).
+    The partials are summed (``sum_partials``) on the first input's
+    device, and the bias in ``p`` (the row-parallel linear's, if any)
+    added in f32 after; the caller casts the sum once to the residual
+    stream's type."""
+    if parts is None:
+        return fn(p, cfg, *inputs)
+    m_cfg = _shard_cfg(cfg, len(parts))
+    device = inputs[0].device
+    inputs, f32_grad = shard_inputs(parts[0], inputs)
+    partials = [fn(part, m_cfg, *(t if t is None else t.to(dev)
+                                  for t in inputs), partial=True,
+                   f32_grad=f32_grad)
+                for part, dev in zip(parts, devices, strict=True)]
+    y = sum_partials(partials, device)
+    for lin in p.values():
+        y = y + lin["b"].to(y.dtype)
+    return y
+
+
 def _apply_block(p: dict, cfg: ModelConfig, spec: LayerSpec,
-                 x: torch.Tensor, *, positions, engine, attn_chunk: int
+                 x: torch.Tensor, *, positions, engine, attn_chunk: int,
+                 shard=None, specs=None, layout=None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One layer over a full sequence: the pre-norm mixer (causal
     attention or the chunked SSD scan), then the pre-norm FFN, each added
     to the residual stream in x's type. Returns (x, the layer's MoE
-    load-balance loss, 0 for another FFN)."""
+    load-balance loss, 0 for another FFN). With ``shard`` (a
+    ``ctx.TrainShard``), ``p`` holds the stored pieces laid out by
+    ``specs``: they are gathered here, and the sub-blocks ``layout``
+    splits run as ``tensor_parallel``."""
+    p, parts, devices = gather_for_shard(p, shard, specs, layout)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = layers.norm_apply(p["norm1"], x, cfg.norm)
     if spec.mixer == "attn":
-        mixed = attention(p["attn"], cfg, h, positions=positions,
-                          causal=True, chunk=attn_chunk, engine=engine)
+        def attn(q, c, hh, pos, **kw):
+            return attention(q, c, hh, positions=pos, causal=True,
+                             chunk=attn_chunk, engine=engine, **kw)
+        mixed = tensor_parallel(attn, p["attn"], parts.get("attn"), cfg,
+                                devices, h, positions)
     else:
         mixed = ssm_lib.ssm_mixer(p["ssm"], cfg, h, engine=engine)
     x = x + mixed.to(x.dtype)
@@ -132,9 +217,39 @@ def _apply_block(p: dict, cfg: ModelConfig, spec: LayerSpec,
         if spec.ffn == "moe":
             y, aux = moe_lib.moe_ffn(p["moe"], cfg, h, engine=engine)
         else:
-            y = layers.mlp_apply(p["ffn"], h, cfg.act, engine=engine)
+            y = tensor_parallel(
+                lambda q, c, hh, **kw: layers.mlp_apply(
+                    q, hh, cfg.act, engine=engine, **kw),
+                p["ffn"], parts.get("ffn"), cfg, devices, h)
         x = x + y.to(x.dtype)
     return x, aux
+
+
+def gather_for_shard(p: dict, shard, specs, layout):
+    """(a block's leaves, its split sub-blocks' slices, the model shards'
+    devices): under a mesh step's ``shard``, gathered from the pieces in
+    ``p`` (``rules.gather_block``); else ``p`` as it is."""
+    if shard is None:
+        return p, {}, None
+    p, parts = rules.gather_block(p, specs, shard.mesh, shard.devices,
+                                  layout)
+    return p, parts, shard.devices
+
+
+def shard_layouts(cfg: ModelConfig, shard, path, n: int
+                  ) -> Tuple[list, list]:
+    """(the specs of the ``n`` blocks at ``path`` of the parameter tree,
+    each block's ``rules.tp_layout``, counted in ``rules.TP_BLOCKS``) for
+    a data shard of a mesh step; n Nones each outside one."""
+    if shard is None:
+        return [None] * n, [None] * n
+    specs = shard.specs
+    for k in path:
+        specs = specs[k]
+    layouts = [rules.tp_layout(cfg, sp, shard.mesh) for sp in specs]
+    for lay in layouts:
+        rules.TP_BLOCKS.update(lay.items())
+    return specs, layouts
 
 
 def grad_wanted(*trees) -> bool:
@@ -186,24 +301,31 @@ def apply_decoder_stack(params: dict, cfg: ModelConfig, x: torch.Tensor, *,
     load-balance losses summed over the layers, f32). The reference's
     ``apply_decoder_stack`` with ``scan_layers=False``: each repeat of the
     layer pattern (P layers) is one ``remat`` unit, and the losses are
-    summed a repeat at a time, as the reference's scan sums them."""
+    summed a repeat at a time, as the reference's scan sums them. As a
+    data shard of a mesh step, a unit gathers its blocks' leaves inside
+    it (``_apply_block``)."""
     pattern = layer_pattern(cfg)
+    blocks, n = params["blocks"], len(pattern)
+    if len(blocks) != cfg.num_layers:
+        raise ValueError(f"{len(blocks)} layers for {cfg.num_layers}")
+    shard = ctx.current_train_shard()
+    specs, layouts = shard_layouts(cfg, shard, ("stack", "blocks"),
+                                   len(blocks))
 
-    def repeat_fn(x, blocks):
+    def repeat_fn(x, blocks, r):
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for p, spec in zip(blocks, pattern, strict=True):
+        for i, (p, spec) in enumerate(zip(blocks, pattern, strict=True)):
             x, a = _apply_block(p, cfg, spec, x, positions=positions,
-                                engine=engine, attn_chunk=attn_chunk)
+                                engine=engine, attn_chunk=attn_chunk,
+                                shard=shard, specs=specs[r * n + i],
+                                layout=layouts[r * n + i])
             aux = aux + a
         return x, aux
 
     repeat_fn = remat(repeat_fn, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    blocks, n = params["blocks"], len(pattern)
-    if len(blocks) != cfg.num_layers:
-        raise ValueError(f"{len(blocks)} layers for {cfg.num_layers}")
     for r in range(n_repeats(cfg)):
-        x, a = repeat_fn(x, blocks[r * n:(r + 1) * n])
+        x, a = repeat_fn(x, blocks[r * n:(r + 1) * n], r)
         aux = aux + a
     return x, aux
 

@@ -27,7 +27,9 @@ from repro_torch.models import layers
 from repro_torch.models.attention import (
     KVCache, PagedKVCache, attention, decode_attention, init_attention,
     paged_window_gather)
-from repro_torch.models.transformer import remat
+from repro_torch.models.transformer import gather_for_shard, remat, \
+    shard_layouts, tensor_parallel
+from repro_torch.sharding import ctx
 
 
 class WhisperDecodeState(NamedTuple):
@@ -107,18 +109,35 @@ def encode(params: dict, cfg: ModelConfig, mel: torch.Tensor, *,
     dtype = layers.DTYPES[cfg.dtype]
     x = (x + params["enc_pos"]["table"][:f].to(torch.float32)).to(dtype)
 
-    def block(x, p):
+    shard = ctx.current_train_shard()
+    specs, layouts = shard_layouts(cfg, shard, ("enc_blocks",),
+                                   len(params["enc_blocks"]))
+
+    def attn(p, c, h, **kw):
+        return attention(p, c, h, causal=False, chunk=attn_chunk,
+                         engine=engine, **kw)
+
+    def block(x, p, i):
+        p, parts, devs = gather_for_shard(p, shard, specs[i],
+                                           layouts[i])
         h = layers.norm_apply(p["norm1"], x, cfg.norm)
-        x = x + attention(p["attn"], cfg, h, causal=False,
-                          chunk=attn_chunk, engine=engine).to(x.dtype)
+        x = x + tensor_parallel(attn, p["attn"], parts.get("attn"), cfg,
+                                devs, h).to(x.dtype)
         h = layers.norm_apply(p["norm2"], x, cfg.norm)
-        return x + layers.mlp_apply(p["ffn"], h, cfg.act, engine=engine
-                                    ).to(x.dtype)
+        return x + tensor_parallel(_mlp(engine), p["ffn"],
+                                   parts.get("ffn"), cfg, devs, h
+                                   ).to(x.dtype)
 
     block = remat(block, cfg)
-    for p in params["enc_blocks"]:
-        x = block(x, p)
+    for i, p in enumerate(params["enc_blocks"]):
+        x = block(x, p, i)
     return layers.norm_apply(params["enc_norm"], x, cfg.norm)
+
+
+def _mlp(engine):
+    def mlp(p, cfg, h, **kw):
+        return layers.mlp_apply(p, h, cfg.act, engine=engine, **kw)
+    return mlp
 
 
 def decode_train(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
@@ -134,20 +153,37 @@ def decode_train(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     x = layers.embed(params["embed"], tokens)
     x = x + params["dec_pos"]["table"][:t].to(x.dtype)
 
-    def block(x, p, memory):
+    shard = ctx.current_train_shard()
+    specs, layouts = shard_layouts(cfg, shard, ("dec_blocks",),
+                                   len(params["dec_blocks"]))
+
+    def self_attn(p, c, h, **kw):
+        return attention(p, c, h, causal=True, chunk=attn_chunk,
+                         engine=engine, **kw)
+
+    def cross_attn(p, c, h, memory, **kw):
+        return attention(p, c, h, memory=memory, chunk=attn_chunk,
+                         engine=engine, **kw)
+
+    def block(x, p, memory, i):
+        p, parts, devs = gather_for_shard(p, shard, specs[i],
+                                           layouts[i])
         h = layers.norm_apply(p["norm1"], x, cfg.norm)
-        x = x + attention(p["self_attn"], cfg, h, causal=True,
-                          chunk=attn_chunk, engine=engine).to(x.dtype)
+        x = x + tensor_parallel(self_attn, p["self_attn"],
+                                parts.get("self_attn"), cfg, devs, h
+                                ).to(x.dtype)
         h = layers.norm_apply(p["norm_x"], x, cfg.norm)
-        x = x + attention(p["cross_attn"], cfg, h, memory=memory,
-                          chunk=attn_chunk, engine=engine).to(x.dtype)
+        x = x + tensor_parallel(cross_attn, p["cross_attn"],
+                                parts.get("cross_attn"), cfg, devs, h,
+                                memory).to(x.dtype)
         h = layers.norm_apply(p["norm2"], x, cfg.norm)
-        return x + layers.mlp_apply(p["ffn"], h, cfg.act, engine=engine
-                                    ).to(x.dtype)
+        return x + tensor_parallel(_mlp(engine), p["ffn"],
+                                   parts.get("ffn"), cfg, devs, h
+                                   ).to(x.dtype)
 
     block = remat(block, cfg)
-    for p in params["dec_blocks"]:
-        x = block(x, p, memory)
+    for i, p in enumerate(params["dec_blocks"]):
+        x = block(x, p, memory, i)
     if return_hidden:
         return x
     x = layers.norm_apply(params["dec_norm"], x, cfg.norm)

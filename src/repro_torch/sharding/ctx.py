@@ -24,12 +24,22 @@ is one of ``n`` data shards of a batch whose rows split evenly over them
 that must see the whole step reads ``batch_shards()``: the offload engine
 plans each linear at the global M (``core/offload.py``), a MoE layer
 computes its capacity from the global token count (``models/moe.py``).
+
+``train_shard(data_index, model_devices, specs, mesh)`` is the port's own
+too: while active, the program running is data shard ``data_index`` of a
+mesh training step, whose parameters are the stored pieces
+(``sharding.rules.Pieces``) laid out by ``specs``, and whose model shards
+run on ``model_devices`` (the mesh entries of that data shard, in model
+order). The model code reads it with ``current_train_shard()`` outside a
+``remat`` unit and hands it in: a block gathers its own leaves inside the
+unit, and computes split over the model shards what
+``sharding.rules.tp_layout`` marks as split (``models/transformer.py``).
 """
 from __future__ import annotations
 
 import threading
 from contextlib import contextmanager
-from typing import Optional, Tuple
+from typing import Any, NamedTuple, Optional, Tuple
 
 import numpy as np
 
@@ -66,6 +76,34 @@ def shard_program(n: int):
         yield
     finally:
         _STATE.shards = prev
+
+
+class TrainShard(NamedTuple):
+    """One data shard of a mesh training step: its index, its model
+    shards' devices (model order; the first holds the residual stream),
+    the parameters' spec tree and the mesh."""
+    index: int
+    devices: Tuple[Any, ...]
+    specs: Any
+    mesh: Any
+
+
+def current_train_shard() -> Optional[TrainShard]:
+    """The active ``train_shard``, or None outside one."""
+    return getattr(_STATE, "train_shard", None)
+
+
+@contextmanager
+def train_shard(data_index: int, model_devices, specs, mesh):
+    """Mark the scope's program as data shard ``data_index`` of a mesh
+    training step (``TrainShard``)."""
+    prev = current_train_shard()
+    _STATE.train_shard = TrainShard(int(data_index), tuple(model_devices),
+                                    specs, mesh)
+    try:
+        yield
+    finally:
+        _STATE.train_shard = prev
 
 
 def _resolve(token, dim: int, mesh):

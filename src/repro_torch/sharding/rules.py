@@ -30,6 +30,18 @@ alike. ``gather_leaf``/``gather_tree`` put a whole leaf back together on a
 device, ``scatter_leaf`` writes a whole value into a leaf's pieces, and
 ``entry_bytes`` counts what each logical entry holds.
 
+A mesh training step gathers a block's leaves as the block runs
+(``gather_block``): ``gather_part`` joins a leaf's parts on one device by
+``torch.cat``, which autograd differentiates back to the pieces, either
+whole or as one model part (over "data" alone: FSDP). ``tp_layout`` says
+which of a block's mixers and FFNs are computed split over "model": an
+attention whose q/k/v outputs and o input are split there and whose query
+and KV heads both divide the model size, a dense FFN whose up/gate
+outputs and down input are split there and whose d_ff divides. MoE
+experts and the SSD mixer are computed whole (what is left of the
+reference's tensor parallelism: expert parallelism, the mixer's inner
+dim over "model"). ``TP_BLOCKS`` counts the outcomes.
+
 Layout. The port keeps a list of per-layer dicts (``enc_blocks``,
 ``dec_blocks``, ``stack/blocks``) and a list of per-layer decode states
 where the reference stacks the layers on a leading axis. A per-layer
@@ -42,6 +54,7 @@ fallback applies once it is stacked.
 """
 from __future__ import annotations
 
+import collections
 import functools
 import re
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, \
@@ -320,21 +333,8 @@ def split_leaf(x: torch.Tensor, spec: P, mesh) -> Pieces:
 
 
 def gather_leaf(pieces: Pieces, spec: P, mesh, device) -> torch.Tensor:
-    """The whole leaf on ``device``: each part copied from a piece on that
-    device where there is one, else from the part's first piece."""
-    from repro_torch.launch.mesh import physical_device
-    device = torch.device(device)
-    phys = physical_device(device)
-    lay = leaf_layout(whole_shape(pieces, spec, mesh), spec, mesh)
-    if len(lay.firsts()) == 1:
-        k = lay.devices.index(phys) if phys in lay.devices else 0
-        return pieces[k].to(device)
-    out = torch.empty(lay.shape, dtype=pieces[0].dtype, device=device)
-    for k0 in lay.firsts():
-        k = next((j for j, p in enumerate(lay.part)
-                  if p == lay.part[k0] and lay.devices[j] == phys), k0)
-        out[lay.regions[k]].copy_(pieces[k])
-    return out
+    """The whole leaf on ``device`` (``gather_part``)."""
+    return gather_part(pieces, spec, mesh, device)
 
 
 def scatter_leaf(whole: torch.Tensor, pieces: Pieces, spec: P,
@@ -343,6 +343,172 @@ def scatter_leaf(whole: torch.Tensor, pieces: Pieces, spec: P,
     lay = leaf_layout(whole.shape, spec, mesh)
     for piece, region in zip(pieces, lay.regions):
         piece.copy_(whole[region])
+
+
+def gather_part(pieces: Pieces, spec: P, mesh, device,
+                model: Optional[int] = None) -> torch.Tensor:
+    """The whole leaf on ``device``, or with ``model=m`` its part m along
+    the dim ``spec`` splits over "model" (every other axis gathered): each
+    part needed, from a piece on that device where there is one, else from
+    the part's first piece, moved there by ``.to`` and joined by
+    ``torch.cat`` (``_gather_plan``). Differentiable: the backward hands
+    each piece the gradient of its own region."""
+    from repro_torch.launch.mesh import physical_device
+    device = torch.device(device)
+    plan = _gather_plan(whole_shape(pieces, spec, mesh), P(*spec), mesh,
+                        physical_device(device), model)
+
+    def join(node):
+        if isinstance(node, int):
+            return pieces[node].to(device)
+        dim, nodes = node
+        return torch.cat([join(n) for n in nodes], dim)
+    return join(plan)
+
+
+@functools.lru_cache(maxsize=1 << 14)
+def _gather_plan(shape: Tuple[int, ...], spec: P, mesh, phys,
+                 model: Optional[int]):
+    """``gather_part``'s join: a piece's index, or (a dim, the joins of
+    its parts along it in order); one part along a dim joins nothing."""
+    lay = leaf_layout(shape, spec, mesh)
+    parts = mesh.parts(spec)
+    mdims = [i for i, e in enumerate(spec) if e == "model"]
+    if model is not None and not mdims:
+        raise ValueError(f"spec {spec} does not split a dim over 'model'")
+    grid = {}
+    for k0 in lay.firsts():
+        at = tuple(r.start // (d // n)
+                   for r, d, n in zip(lay.regions[k0], lay.shape, parts))
+        if model is not None and any(at[i] != model for i in mdims):
+            continue
+        grid[at] = next((j for j, p in enumerate(lay.part)
+                         if p == lay.part[k0] and lay.devices[j] == phys),
+                        k0)
+
+    def plan(prefix, dim):
+        if dim == len(parts):
+            return grid[prefix]
+        nodes = [plan(prefix + (c,), dim + 1)
+                 for c in sorted({a[dim] for a in grid if a[:dim] == prefix})]
+        return nodes[0] if len(nodes) == 1 else (dim, nodes)
+    return plan((), 0)
+
+
+# ---------------------------------------------------------------------------
+# Tensor-parallel blocks of a mesh training step
+# ---------------------------------------------------------------------------
+SPLIT = "split"
+#: why a block's mixer or FFN runs whole
+ONE_SHARD = "one model shard"
+HEADS = "heads do not divide the model axis"
+D_FF = "d_ff does not divide the model axis"
+NOT_SPLIT = "its leaves are not split over 'model'"
+EXPERTS = "expert parallelism is not ported"
+SSD = "the SSD mixer over 'model' is not ported"
+
+ATTENTIONS = ("attn", "self_attn", "cross_attn")
+#: the row-parallel linears: input dim split, partial outputs summed,
+#: their bias added once after the sum
+ROW_PARALLEL = ("o", "down")
+
+#: blocks computed by mesh training steps: {(sub-block key, SPLIT or the
+#: reason it ran whole): count}, one a block a data shard a forward
+TP_BLOCKS: collections.Counter = collections.Counter()
+
+
+def _on_model(spec, dim: int) -> bool:
+    return is_spec(spec) and len(spec) > dim and spec[dim] == "model"
+
+
+def _split_linears(specs: dict, column, row) -> bool:
+    """Whether every leaf of the column-parallel linears is split over
+    "model" on dim 0, and every row-parallel weight on dim 1."""
+    return (all(_on_model(s, 0) for lin in column if lin in specs
+                for s in specs[lin].values())
+            and all(_on_model(specs[lin]["w"], 1) for lin in row))
+
+
+def tp_layout(cfg, block_specs: dict, mesh) -> Dict[str, str]:
+    """For each mixer and FFN of a block whose leaves' specs are
+    ``block_specs`` (keyed as the block's dict: "attn", "self_attn",
+    "cross_attn", "ffn", "moe", "ssm"): ``SPLIT`` where a mesh step
+    computes it split over ``mesh``'s "model" axis, else why it runs whole
+    on the data shard's first device."""
+    m = _axis_size(mesh, "model")
+    out = {}
+    for key, sp in block_specs.items():
+        if key in ATTENTIONS:
+            if m == 1:
+                out[key] = ONE_SHARD
+            elif cfg.num_heads % m or cfg.num_kv_heads % m:
+                out[key] = HEADS
+            elif not _split_linears(sp, ("q", "k", "v"), ("o",)):
+                out[key] = NOT_SPLIT
+            else:
+                out[key] = SPLIT
+        elif key == "ffn":
+            if m == 1:
+                out[key] = ONE_SHARD
+            elif cfg.d_ff % m:
+                out[key] = D_FF
+            elif not _split_linears(sp, ("up", "gate"), ("down",)):
+                out[key] = NOT_SPLIT
+            else:
+                out[key] = SPLIT
+        elif key in ("moe", "ssm"):
+            out[key] = ONE_SHARD if m == 1 else (EXPERTS if key == "moe"
+                                                 else SSD)
+    return out
+
+
+def tp_summary(cfg, specs, mesh) -> Dict[str, int]:
+    """{"<sub-block>: <SPLIT or why it runs whole>": its number of layers}
+    over every layer list of a parameter spec tree."""
+    counts: collections.Counter = collections.Counter()
+    for path in tree_lib.LAYER_LISTS:
+        blocks = specs
+        for k in path:
+            blocks = blocks.get(k, {}) if isinstance(blocks, dict) else {}
+        for sp in blocks or ():
+            counts.update(f"{k}: {why}"
+                          for k, why in tp_layout(cfg, sp, mesh).items())
+    return dict(counts)
+
+
+def _gather_whole(sub, specs, mesh, device):
+    return tree_lib.unflatten_like(
+        sub, [gather_part(x, s, mesh, device)
+              for x, s in _zip_specs(sub, specs, is_leaf=is_pieces)],
+        is_leaf=is_pieces)
+
+
+def gather_block(block: dict, specs: dict, mesh, devices,
+                 layout: Dict[str, str]) -> Tuple[dict, Dict[str, list]]:
+    """A block's stored leaves (``Pieces``, laid out by ``specs``) as one
+    data shard computes them, its model shards on ``devices``: (the
+    leaves computed on ``devices[0]``, gathered whole; {each sub-block
+    ``layout`` splits: one tree a model shard m, its slices on
+    ``devices[m]``}). A split sub-block's column-parallel leaves and
+    row-parallel weights are its slices; its row-parallel biases stay in
+    the whole tree, to be added once after the partial outputs' sum."""
+    whole, parts = {}, {}
+    for key, sub in block.items():
+        sp = specs[key]
+        if layout.get(key) != SPLIT:
+            whole[key] = _gather_whole(sub, sp, mesh, devices[0])
+            continue
+        whole[key] = {lin: {"b": gather_part(lp["b"], sp[lin]["b"], mesh,
+                                             devices[0])}
+                      for lin, lp in sub.items()
+                      if lin in ROW_PARALLEL and "b" in lp}
+        parts[key] = [
+            {lin: {leaf: gather_part(x, sp[lin][leaf], mesh, dev, model=m)
+                   for leaf, x in lp.items()
+                   if not (lin in ROW_PARALLEL and leaf == "b")}
+             for lin, lp in sub.items()}
+            for m, dev in enumerate(devices)]
+    return whole, parts
 
 
 def _zip_specs(tree, specs, is_leaf=None):

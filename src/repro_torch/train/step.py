@@ -16,29 +16,39 @@ Over a device mesh (``make_train_step(..., mesh=, specs=)``), the state is
 stored split by ``train_state_specs`` (``sharding.rules.split_tree``) and
 a step computes the unsharded step's function on one controller:
 
-  * the parameters are gathered whole once a step on each distinct
-    physical device of the data shards (``Mesh.batch_devices``); each
-    shard differentiates its own ``detach()`` views of its device's copy;
-  * the batch's rows split over the shards as ``batch_specs`` splits dim 0
-    over ("pod", "data"); where it would split the sequence instead (B not
-    a multiple of the shards), the whole batch runs on the first shard,
-    since attention is not split;
+  * the batch's rows split over the data shards as ``batch_specs`` splits
+    dim 0 over ("pod", "data"); where it would split the sequence instead
+    (B not a multiple of the shards), the whole batch runs on the first
+    shard;
+  * each data shard differentiates its own ``detach()`` views of the
+    stored pieces, never a whole copy of the parameters: under
+    ``ctx.train_shard`` its ``loss_terms`` gathers the leaves outside the
+    blocks onto its first device once, and each block gathers its own
+    leaves inside its ``remat`` unit (``sharding.rules.gather_block``),
+    so that under ``remat="full"`` the backward gathers them again and a
+    step holds the gathered leaves of the units being computed only;
+  * a block's attention and dense FFN run split over the shard's model
+    entries where ``sharding.rules.tp_layout`` says so (heads and d_ff
+    dividing the model size): model shard m computes its heads and FFN
+    columns on its own entry's device, and the row-parallel products' (o,
+    down) partial outputs are summed in f32 in model-shard order on the
+    shard's first device, their bias added once after; MoE experts and
+    the SSD mixer run whole there (``models/transformer.py``);
   * each shard forms ``loss_terms`` on its rows under
     ``shard_program(n)`` (a MoE layer's capacity is the whole step's) and
     its routers' statistics; the loss, formed on the first shard's device,
     is the reference's: the CE summed over every shard over the global
     token count (at least 1), plus the load-balance loss of the summed
     statistics (``moe.load_balance_loss``); one ``torch.autograd.grad``
-    runs over every shard's leaves;
-  * each leaf's shard gradients are summed in f32, in shard order, part
-    by part onto the devices that hold the part, and freed as they are
-    summed;
+    runs over every shard's views;
+  * each part's gradients are summed in f32, in data-shard order, onto
+    the device of its first piece, copied to its replicas, and each
+    shard's gradients freed as they are summed (a reduce-scatter);
   * the compression and AdamW run on the held parts
     (``optim/compression.py``, ``optim/adamw.py``).
 
 With ``microbatches`` K > 1 each microbatch is split over the shards as
 the whole batch would be, its gradients summed in f32 and divided by K.
-The "model" axis shards the stored state only: no tensor-parallel compute.
 Where a MoE shard's token count is not a multiple of ``dispatch_group``,
 its tokens claim capacity among themselves, and where tokens drop, which
 ones may differ from the unsharded step's (``models/moe.py``).
@@ -127,69 +137,55 @@ def split_train_state(state: TrainState, mesh
 
 
 def _shards(batch: Dict[str, torch.Tensor], mesh):
-    """[(a data shard's physical device, its rows)]: dim 0 split evenly
-    where ``batch_specs`` splits it, else the whole batch on the first
-    shard."""
-    devs = [physical_device(d) for d in mesh.batch_devices()]
+    """[(a data shard's index, its model entries' physical devices, its
+    rows)]: dim 0 split evenly where ``batch_specs`` splits it, else the
+    whole batch on the first shard."""
+    grid = [[physical_device(d) for d in row]
+            for row in mesh.shard_devices()]
     specs = rules.batch_specs(batch, mesh)
     split = all(len(sp) and sp[0] is not None for sp in
                 tree.leaves(specs, is_leaf=rules.is_spec))
-    if not split or len(devs) == 1:
-        return [(devs[0], slice(None))]
-    n = next(iter(batch.values())).shape[0] // len(devs)
-    return [(d, slice(i * n, (i + 1) * n)) for i, d in enumerate(devs)]
+    if not split or len(grid) == 1:
+        return [(0, grid[0], slice(None))]
+    n = next(iter(batch.values())).shape[0] // len(grid)
+    return [(i, devs, slice(i * n, (i + 1) * n))
+            for i, devs in enumerate(grid)]
 
 
 def mesh_value_and_grad(cfg: ModelConfig, params, batch, specs, mesh, *,
-                        engine=None, attn_chunk: int = 2048, gathered=None):
+                        engine=None, attn_chunk: int = 2048):
     """(loss, aux, grads) of the unsharded ``loss_fn`` at the split
     ``params`` (their specs ``specs``) over ``mesh``'s data shards: the
-    gradients f32 ``Pieces`` laid out as the parameters. ``gathered``
-    ({physical device: whole leaves}, ``gather_params``) reuses a step's
-    gathered copies."""
-    shards = _shards(batch, mesh)
-    if gathered is None:
-        gathered = gather_params(params, specs, mesh,
-                                 [d for d, _ in shards])
-    loss, aux, per_shard = _shard_grads(cfg, params, batch, shards,
-                                        gathered, engine=engine,
+    gradients f32 ``Pieces`` laid out as the parameters."""
+    loss, aux, per_shard = _shard_grads(cfg, params, specs, mesh, batch,
+                                        _shards(batch, mesh), engine=engine,
                                         attn_chunk=attn_chunk)
-    del gathered
     return loss, aux, reduce_grads(per_shard, params, specs, mesh)
 
 
-def gather_params(params, specs, mesh, devices) -> Dict[Any, list]:
-    """{physical device: the split ``params``' whole leaves there}, one
-    copy a distinct device of ``devices``."""
-    flat = tree.leaves(params, is_leaf=rules.is_pieces)
-    spec_leaves = tree.leaves(specs, is_leaf=rules.is_spec)
-    return {dev: [rules.gather_leaf(x, sp, mesh, dev)
-                  for x, sp in zip(flat, spec_leaves)]
-            for dev in dict.fromkeys(devices)}
-
-
-def _shard_grads(cfg: ModelConfig, params, batch, shards, gathered, *,
+def _shard_grads(cfg: ModelConfig, params, specs, mesh, batch, shards, *,
                  engine, attn_chunk: int):
-    """Every shard's loss terms on its rows and device, the loss formed
-    from their sums on the first shard's device, one ``autograd.grad``
-    over every shard's leaves: (loss, aux, each shard's gradient list,
-    None for a leaf that takes none)."""
-    dev0 = shards[0][0]
-    terms, stats, shard_leaves = [], [], []
+    """Every shard's loss terms on its rows and devices, over its own
+    views of the stored pieces, the loss formed from their sums on the
+    first shard's device, one ``autograd.grad`` over every shard's views:
+    (loss, aux, each shard's gradients, a list a leaf of one gradient a
+    piece, None for a piece that takes none)."""
+    dev0 = shards[0][1][0]
+    flat = tree.leaves(params, is_leaf=rules.is_pieces)
+    terms, stats, shard_views = [], [], []
     with torch.enable_grad(), ctx.shard_program(len(shards)):
-        for dev, rows in shards:
-            leaves = [t.detach() for t in gathered[dev]]
-            for t in leaves:
-                if t.is_floating_point():
-                    t.requires_grad_(True)
-            with moe_lib.router_stats() as st:
+        for i, devs, rows in shards:
+            views = [rules.Pieces(t.detach().requires_grad_(
+                t.is_floating_point()) for t in x) for x in flat]
+            with moe_lib.router_stats() as st, \
+                    ctx.train_shard(i, devs, specs, mesh):
                 terms.append(model_lib.loss_terms(
-                    tree.unflatten_like(params, leaves,
+                    tree.unflatten_like(params, views,
                                         is_leaf=rules.is_pieces), cfg,
-                    {k: v[rows].to(dev) for k, v in batch.items()},
+                    {k: v[rows].to(devs[0]) for k, v in batch.items()},
                     engine=engine, attn_chunk=attn_chunk))
             stats.append(st)
-            shard_leaves.append(leaves)
+            shard_views.append(views)
         ntok = sum(t[1].to(dev0) for t in terms).clamp(min=1.0)
         ce = sum(t[0].to(dev0) for t in terms) / ntok
         aux = (moe_lib.load_balance_loss(stats, cfg, dev0)
@@ -197,44 +193,46 @@ def _shard_grads(cfg: ModelConfig, params, batch, shards, gathered, *,
                torch.zeros((), dtype=torch.float32, device=dev0))
         loss = ce + aux
         got = list(torch.autograd.grad(
-            loss, [t for leaves in shard_leaves for t in leaves
+            loss, [t for views in shard_views for x in views for t in x
                    if t.requires_grad], allow_unused=True))
     got.reverse()
-    per_shard = [[got.pop() if t.requires_grad else None for t in leaves]
-                 for leaves in shard_leaves]
+    per_shard = [[[got.pop() if t.requires_grad else None for t in x]
+                  for x in views] for views in shard_views]
     aux = {"ce": ce.detach(), "moe_aux": aux.detach(),
            "ntok": ntok.detach()}
     return loss.detach(), aux, per_shard
 
 
 def reduce_grads(per_shard, params, specs, mesh):
-    """Each leaf's shard gradients summed in f32, in shard order, part by
-    part onto the devices that hold the part (a part's replicas copied
-    from its first), each shard's gradient freed once it is summed: f32
-    ``Pieces`` laid out as ``params``."""
+    """Each part's gradients summed in f32, in data-shard order (within a
+    shard, over the pieces of the part it read), onto the device of the
+    part's first piece and copied to its replicas; each shard's gradients
+    freed once summed: f32 ``Pieces`` laid out as ``params``."""
     grads = []
     for j, (x, sp) in enumerate(zip(
             tree.leaves(params, is_leaf=rules.is_pieces),
             tree.leaves(specs, is_leaf=rules.is_spec))):
-        lay = rules.leaf_layout(rules.whole_shape(x, sp, mesh), sp,
-                                mesh)
+        lay = rules.leaf_layout(rules.whole_shape(x, sp, mesh), sp, mesh)
         out = [None] * len(x)
         for k0 in lay.firsts():
-            region, dev = lay.regions[k0], lay.devices[k0]
+            dev = lay.devices[k0]
+            same = [k for k, p in enumerate(lay.part) if p == lay.part[k0]]
             acc = None
             for shard in per_shard:
-                g = shard[j]
-                if g is None:
-                    g = torch.zeros(lay.shape, dtype=torch.float32,
-                                    device=dev)
-                if acc is None:
-                    acc = g[region].to(dev, torch.float32, copy=True)
-                else:
-                    acc.add_(g[region].to(dev))
-            for k, p in enumerate(lay.part):      # the part's replicas
-                if p == lay.part[k0]:
-                    out[k] = acc if k == k0 else acc.to(
-                        lay.devices[k], copy=True)
+                for k in same:
+                    g = shard[j][k]
+                    if g is None:
+                        continue
+                    if acc is None:
+                        acc = g.to(dev, torch.float32, copy=True)
+                    else:
+                        acc.add_(g.to(dev))
+            if acc is None:
+                acc = torch.zeros(x[k0].shape, dtype=torch.float32,
+                                  device=dev)
+            for k in same:                        # the part's replicas
+                out[k] = acc if k == k0 else acc.to(lay.devices[k],
+                                                    copy=True)
         for shard in per_shard:
             shard[j] = None
         grads.append(rules.Pieces(out))
@@ -318,19 +316,11 @@ def _mesh_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig, mesh,
     pspecs = specs.params
 
     def grads_of(params, batch):
-        if microbatches == 1:
-            return mesh_value_and_grad(cfg, params, batch, pspecs, mesh,
-                                       engine=engine, attn_chunk=attn_chunk)
-        # the microbatches' shards share one gathered copy a step
-        b = next(iter(batch.values())).shape[0] // microbatches
-        gathered = gather_params(params, pspecs, mesh, [
-            d for d, _ in _shards({k: v[:b] for k, v in batch.items()},
-                                  mesh)])
-
         def one(mb):
             return mesh_value_and_grad(cfg, params, mb, pspecs, mesh,
-                                       engine=engine, attn_chunk=attn_chunk,
-                                       gathered=gathered)
+                                       engine=engine, attn_chunk=attn_chunk)
+        if microbatches == 1:
+            return one(batch)
         return _accumulate(one, params, batch, microbatches,
                            grad_accum_dtype)
 

@@ -12,7 +12,9 @@ With ``mesh=`` (a ``launch.mesh.Mesh`` of logical devices; ``cpu``
 entries need no card) the state is drawn on the first data shard's
 device and stored split by ``train_state_specs`` (``self.specs``), a
 checkpoint restores onto the mesh's owners, and each step is the mesh
-step of ``train/step.py``; ``device`` is then ignored. Checkpoints hold
+step of ``train/step.py``, its attention and dense FFN blocks split over
+"model" where their heads and d_ff divide (``tp_summary()`` counts them);
+``device`` is then ignored. Checkpoints hold
 whole leaves either way. ``whole_state()`` gathers the state onto one
 device.
 """
@@ -95,6 +97,17 @@ class Trainer:
         elif ckpt is not None:
             self.state, manifest = ckpt_lib.load_checkpoint(ckpt, self.state)
             self._start_step = manifest["cursor"]["step"]
+
+    def tp_summary(self) -> Dict[str, int]:
+        """Over a mesh, how many layers run each mixer and FFN split over
+        "model" and how many whole, by reason (``rules.tp_summary``);
+        {} without a mesh."""
+        if self.mesh is None:
+            return {}
+        if self.state is None:
+            self._init_or_restore()
+        specs = self.specs or rules.train_state_specs(self.state, self.mesh)
+        return rules.tp_summary(self.run.model, specs.params, self.mesh)
 
     def whole_state(self, device=None) -> TrainState:
         """The state with every leaf whole on ``device`` (default: the

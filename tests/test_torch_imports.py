@@ -1,6 +1,7 @@
 """The port stands alone: no file of ``src/repro_torch/``, not
 ``chip_smoke.py``, not ``sweep_kernels.py``, not the card-only tools
-(``tools/f32_routes.py``, ``tools/flash_bwd_ds_ablation.py``) and no card
+(``tools/f32_routes.py``, ``tools/flash_bwd_ds_ablation.py``,
+``tools/train_mesh_phases.py``) and no card
 test file (``tests/test_torch_*_gpu.py``, which run where there is no
 JAX) imports JAX or anything of the reference package ``repro``, even a
 module of it that does not import JAX."""
@@ -17,7 +18,8 @@ def _files():
     out = [os.path.join(ROOT, "chip_smoke.py"),
            os.path.join(ROOT, "sweep_kernels.py"),
            os.path.join(ROOT, "tools", "f32_routes.py"),
-           os.path.join(ROOT, "tools", "flash_bwd_ds_ablation.py")]
+           os.path.join(ROOT, "tools", "flash_bwd_ds_ablation.py"),
+           os.path.join(ROOT, "tools", "train_mesh_phases.py")]
     for d, _, names in os.walk(PORT):
         out += [os.path.join(d, n) for n in names if n.endswith(".py")]
     tests = os.path.join(ROOT, "tests")

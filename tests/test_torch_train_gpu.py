@@ -11,8 +11,9 @@ gradients against autograd through the plain forward; and a 3-step smoke
 ``Trainer`` on the card under ``attn_impl="flash"`` whose every gradient
 leaf is non-zero (a flash forward without a backward would leave q, k
 and v without one through attention); the same Trainer over the smoke
-mesh of four ``cuda:0`` entries against the unsharded one; the training
-CLI on the card.
+mesh of four ``cuda:0`` entries against the unsharded one; a model
+shard's two products (an f32 output, an f32 input gradient) against
+float64; the training CLI on the card.
 
 Every test here is marked ``gpu`` and skips without a card. The file
 imports no JAX, so it runs on a machine that has only PyTorch:
@@ -221,6 +222,49 @@ def test_flash_core_gradients_match_autograd_through_plain(dtype):
 
 
 @pytest.mark.gpu
+def test_tensor_parallel_products_on_the_card():
+    """The two products a model shard of a bf16 mesh step runs on the
+    card (``models/layers.py``), against float64 on the same bf16 values:
+    ``f32_out`` (``_F32Product``) an f32 output within 1e-4 of its
+    largest magnitude, its input and weight gradients bf16 within 2^-7;
+    ``f32_grad`` (``_F32GradProduct``) a bf16 output within 2^-7, its
+    input gradient f32 within 1e-4 and its weight gradient bf16 within
+    2^-7."""
+    dev = _cuda_or_skip()
+    from repro_torch.models import layers
+
+    gen = torch.Generator().manual_seed(0)
+    bf = torch.bfloat16
+    x, w, dy = (torch.randn(s, generator=gen).to(bf)
+                for s in ((2, 96, 512), (384, 512), (2, 96, 384)))
+    want_y = x.double() @ w.double().t()
+    want_dx = dy.double() @ w.double()
+    want_dw = (dy.double().reshape(-1, 384).t()
+               @ x.double().reshape(-1, 512))
+
+    def rel(got, want):
+        return float((got.double().cpu() - want).abs().max()) / float(
+            want.abs().max())
+
+    wd = w.to(dev).requires_grad_(True)
+    xd = x.to(dev).requires_grad_(True)
+    y = layers.linear({"w": wd}, xd, f32_out=True)
+    dx, dw = torch.autograd.grad(y, (xd, wd), dy.to(dev).float())
+    assert (y.dtype, dx.dtype, dw.dtype) == (torch.float32, bf, bf)
+    assert rel(y.detach(), want_y) <= 1e-4
+    assert rel(dx, want_dx) <= 2.0 ** -7
+    assert rel(dw, want_dw) <= 2.0 ** -7
+
+    x32 = x.to(dev).float().requires_grad_(True)
+    y = layers.linear({"w": wd}, x32, f32_grad=True)
+    dx, dw = torch.autograd.grad(y, (x32, wd), dy.to(dev))
+    assert (y.dtype, dx.dtype, dw.dtype) == (bf, torch.float32, bf)
+    assert rel(y.detach(), want_y) <= 2.0 ** -7
+    assert rel(dx, want_dx) <= 1e-4
+    assert rel(dw, want_dw) <= 2.0 ** -7
+
+
+@pytest.mark.gpu
 def test_smoke_trainer_on_the_card_gives_every_leaf_a_gradient(tmp_path):
     """Three steps of the phi3 smoke config under flash attention and full
     remat on the card: finite losses, the flash backward launched, and a
@@ -275,9 +319,10 @@ def test_smoke_mesh_of_the_card_matches_the_unsharded_trainer(tmp_path):
     ``cuda:0`` entries, (2, 2): the phi3 smoke config under flash
     attention and full remat, three steps from the unsharded Trainer's
     init: losses within 1e-5 of the unsharded Trainer's on the card (each
-    data shard's launches differ from the whole batch's only in their row
-    count), every parameter within 1e-4 of its leaf's largest, each data
-    shard launching the flash backward once a layer a step; the state
+    data shard's attention and FFN split over its 2 model shards, whose
+    partial products are summed in f32), every parameter within 1e-4 of
+    its leaf's largest, each (data, model) shard launching the flash
+    backward once a layer a step; the state
     split by its specs, replicas on the one card stored once; the
     whole-leaf checkpoint restored onto the mesh bit for bit."""
     dev = _cuda_or_skip()
@@ -304,7 +349,8 @@ def test_smoke_mesh_of_the_card_matches_the_unsharded_trainer(tmp_path):
     before = flash_attention_bwd.launches
     tr = Trainer(run("mesh"), mesh=mesh, vocab_cap=64)
     tr.train()
-    assert flash_attention_bwd.launches - before == 2 * 3 * cfg.num_layers
+    assert flash_attention_bwd.launches - before == \
+        2 * 2 * 3 * cfg.num_layers
     np.testing.assert_allclose([h["loss"] for h in tr.history],
                                [h["loss"] for h in one.history], rtol=1e-5)
     whole = tr.whole_state()

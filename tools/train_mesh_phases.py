@@ -1,0 +1,104 @@
+"""``chip_smoke.py``'s mesh-training phases alone, on a CUDA card.
+
+Runs 19b's configuration (``chip_smoke.train_run``: phi3-mini-3.8b at its
+published widths, bf16, weights drawn on the card) unsharded for two
+steps, whose losses and gradient norms are the reference, then
+``chip_smoke.train_mesh_phase`` (19d, the (2, 2) mesh of four entries of
+the card) and ``chip_smoke.train_model_axis_phase`` (19e, the (1, 4)
+mesh) with their own checks. It takes about two minutes where the whole
+script takes ten.
+
+``--bf16-input-grads`` adds an ablation: 19d and 19e run four times, as
+the tree has them, with the model shards' inputs left in bf16 (so the
+column-parallel products' input gradients are bf16 products summed in
+bf16: ``models.transformer.shard_inputs`` replaced), that again, and as
+the tree has them again; each run's gradient-norm gaps to 19b are
+printed.
+
+Run from the root of the repo on a machine with one card:
+
+    python3 tools/train_mesh_phases.py [--bf16-input-grads]
+
+It prints the phases' lines and a ``mesh phases:`` JSON summary.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import sys
+import tempfile
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _gaps(mesh: dict, axis: dict) -> dict:
+    """The phases' largest relative gaps to 19b: loss and gradient norm."""
+    def gap(got, ref):
+        return max(abs(g - r) / abs(r) for g, r in zip(got, ref))
+    return {"19d_loss": gap(mesh["losses"], mesh["ref_losses"]),
+            "19d_grad_norm": gap(mesh["grad_norms"],
+                                 mesh["ref_grad_norms"]),
+            "19e_loss": gap([axis["loss"]], [axis["ref_loss"]]),
+            "19e_grad_norm": gap([axis["grad_norm"]],
+                                 [axis["ref_grad_norm"]])}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--bf16-input-grads", action="store_true",
+                    help="also run the phases with the shards' inputs "
+                         "in bf16 (the ablation above)")
+    args = ap.parse_args()
+    sys.path.insert(0, ROOT)
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import torch
+    if not torch.cuda.is_available():
+        print("train_mesh_phases: no CUDA device", file=sys.stderr)
+        return 1
+    import chip_smoke as cs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import transformer
+    from repro_torch.train.trainer import Trainer
+
+    t0 = time.perf_counter()
+    cfg, run = cs.train_run(tempfile.mkdtemp(prefix="train_mesh_phases_"))
+    tr = Trainer(dataclasses.replace(run, steps=2), device="cuda")
+    tr.save = lambda step: None
+    tr.train()
+    history = list(tr.history)
+    print(f"19b's first 2 steps: losses {[h['loss'] for h in history]}, "
+          f"grad_norms {[h['grad_norm'] for h in history]}, host dt_s "
+          f"{[h['dt_s'] for h in history]}", flush=True)
+    del tr
+    counted = {"flash_attention_fwd": fa.flash_attention_fwd,
+               "flash_attention_bwd": fa.flash_attention_bwd}
+    real = transformer.shard_inputs
+    legs = (["f32", "bf16", "bf16", "f32"] if args.bf16_input_grads
+            else ["f32"])
+    out = []
+    for leg in legs:
+        if leg == "bf16":
+            transformer.shard_inputs = lambda part, inputs: (inputs, False)
+        print(f"--- input gradients: {leg}", flush=True)
+        try:
+            _, mesh = cs.train_mesh_phase(cfg, run, history, counted)
+            _, axis = cs.train_model_axis_phase(cfg, run, history, counted)
+        finally:
+            transformer.shard_inputs = real
+        for key in ("device_split", "bwd_kernels"):
+            mesh.pop(key, None)
+        out.append({"input_grads": leg, "gaps": _gaps(mesh, axis),
+                    "19d": mesh, "19e": axis})
+        print(f"gaps ({leg} input gradients): {json.dumps(out[-1]['gaps'])}",
+              flush=True)
+    print("mesh phases:", json.dumps(out), flush=True)
+    print(f"train_mesh_phases: {time.perf_counter() - t0:.1f}s "
+          f"({torch.cuda.get_device_name(0)})")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
