@@ -506,6 +506,30 @@ own kernels with nvcc. Phases, each of which fails the run on error:
     run's, and ``launches_by_path["train"]`` adds 19d's, 19e's and
     19c's.
 
+20. The roofline (``roofline_phase``), the port's analysis tools on the
+    programs the phases above ran, counted on fake tensors (no storage,
+    nothing launched) by ``roofline.op_cost.OpCounter`` and priced on
+    ``roofline.analysis.H100`` (the figures every bound of this script
+    takes):
+    a. whisper-tiny Q8_0 at full width: the batch-1 prefill and one decode
+       step of a ``ServeEngine`` over fake weights; the kernels' FLOPs and
+       weight bytes must equal phase 3's plan entries' (2 m k n over the
+       kernels' share of K, 1.125 bytes a weight) within 1%; each
+       program's roofline terms, its bound against phase 6's measured
+       replay device time;
+    b. phi3-mini-3.8b at 19b's shape (4096 x 2, bf16, flash, full remat,
+       bf16 moments): ``model_flops``, the counted FLOPs, the useful-FLOP
+       ratio, the bound, the counted peak against 19b's measured peak,
+       and the MFU of 19b's measured step (model FLOPs over the step's
+       seconds times 989 TFLOP/s);
+    c. the dry-run cell ``whisper-tiny x train_4k`` on the pod mesh (16 x
+       16), ``python -m repro_torch.launch.dryrun``, run in a process of
+       its own started before phase 2 (CPU only: its 256 entries' mesh
+       step takes minutes of host time), must end "ok": its busiest
+       entry's bytes and terms.
+    ``roofline ...`` lines, each with the card's name and power limit,
+    then ``roofline phase: N s``.
+
 The last two lines are the kernels' JSON record and the result line; each
 kernel's record also carries its launches on the tuned paths' eager loops
 (``tuned_launches``), its launches on each path's drive
@@ -536,13 +560,29 @@ import time
 from typing import Optional
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
+
+
+def _h100():
+    """The H100's figures from the port's roofline module, one home for
+    them (None where the script stands alone, without the port beside
+    it: ``main`` then stops before any bound)."""
+    src = os.path.join(ROOT, "src")
+    if not os.path.isdir(os.path.join(src, "repro_torch")):
+        return None
+    if src not in sys.path:
+        sys.path.insert(0, src)
+    from repro_torch.roofline.analysis import H100
+    return H100
+
+
+H100 = _h100()
+HBM_BYTES_PER_S = H100.hbm_bw if H100 else None   # H100 SXM device memory
 # H100 SXM dense peak for x's type: a bf16 x int8 product is exact in f32,
 # so bf16 x runs at the bf16 tensor-core rate; f32 x outside the tensor
 # cores (tf32 would round x), or, split exactly into three bf16 parts as
 # q8_matmul's converting launch does, three bf16 products a multiply-add
-FLOPS_PER_S = {"bfloat16": 989e12, "float32": 67e12,
-               "float32_split": 989e12 / 3}
+FLOPS_PER_S = {"bfloat16": H100.peak_bf16, "float32": H100.peak_f32,
+               "float32_split": H100.peak_bf16 / 3} if H100 else {}
 FIRST_STEP_TOL = 1e-2           # card vs CPU logits, see check_against_cpu
 # the dense path's decoder runs in bf16 (bf16 embedding table), so its
 # logits leave every linear rounded to bf16: steps of 2^-7 at |logit| in
@@ -7002,6 +7042,242 @@ def train_model_axis_phase(cfg, run, history, counted):
     return launches, summary
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: the roofline
+# ---------------------------------------------------------------------------
+#: the pod cell's own process may take this long past phase 20's start
+DRYRUN_WAIT_S = 300
+#: counted kernel FLOPs and weight bytes against the plan entries'
+ROOFLINE_TOL = 1e-2
+_STARTED = []
+
+
+def _stop_started():
+    for proc in _STARTED:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def start_dryrun_cell():
+    """Phase 20c's cell, ``whisper-tiny x train_4k`` on the pod mesh, in a
+    process of its own (fake tensors on the CPU, one thread), started now
+    so that its minutes of host time overlap the card's phases. Returns
+    (the process, its output directory, its start on the wall clock)."""
+    import atexit
+    import tempfile
+    out = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               OMP_NUM_THREADS="1", CUDA_VISIBLE_DEVICES="")
+    # its output to a file: a pipe nobody reads until phase 20 would stop
+    # it once the pipe's buffer filled
+    with open(os.path.join(out, "dryrun.log"), "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             "whisper-tiny", "--shape", "train_4k", "--mesh", "pod",
+             "--out", out], stdout=log, stderr=subprocess.STDOUT,
+            env=env, cwd=ROOT)
+    if not _STARTED:
+        atexit.register(_stop_started)
+    _STARTED.append(proc)
+    return proc, out, time.time()
+
+
+def _terms(flops: float, nbytes: float) -> dict:
+    """A program's roofline terms on the H100 (seconds) and its bound."""
+    compute_s, memory_s = flops / H100.peak_bf16, nbytes / H100.hbm_bw
+    return dict(compute_s=compute_s, memory_s=memory_s,
+                bound_s=max(compute_s, memory_s),
+                bound_by="operations" if compute_s > memory_s else "bytes")
+
+
+def _kernel_bounds(entries) -> dict:
+    """The plan entries' hand bounds of their kernels' share (the first
+    ``k_main`` of each K): 2 m k n FLOPs and 1.125 bytes a Q8_0 weight
+    (int8 and an f32 scale a block of 32, as ``_step_bounds``)."""
+    q8 = [e for e in entries if e.dtype == "q8_0" and e.k_main]
+    return dict(flops=sum(2 * e.m * e.k_main * e.n for e in q8),
+                weight_bytes=sum(e.n * e.k_main * 1.125 for e in q8),
+                launches=len(q8))
+
+
+def _roofline_whisper(plans, measured_ms, card):
+    """20a: whisper-tiny Q8_0's prefill and one step counted on fake
+    weights, against phase 3's plan entries and phase 6's device
+    times."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.offload import OffloadEngine
+    from repro_torch.launch import input_specs
+    from repro_torch.models import model
+    from repro_torch.roofline import op_cost
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = get_config("whisper-tiny")
+    mode = input_specs.fake_mode()
+    params = input_specs.abstract_params(
+        cfg, ShapeConfig("prefill", cfg.encoder_ctx, 1, "prefill"),
+        mode=mode)
+    out = {}
+    with mode:
+        eng = ServeEngine(cfg, params, max_len=MAX_NEW + 8,
+                          offload=OffloadEngine(), eos_id=None, device="cpu")
+        mel = torch.zeros((1, cfg.encoder_ctx, cfg.n_mels))
+        with op_cost.OpCounter() as pre:
+            _, state = eng.prefill(mel)
+        with op_cost.OpCounter() as step, torch.inference_mode():
+            model.serve_step(eng._serve_params, cfg,
+                             torch.ones((1, 1), dtype=torch.long), state,
+                             engine=eng.offload)
+    for name, cost in (("prefill", pre), ("step", step)):
+        kern = cost.kernel_totals()
+        got = dict(flops=sum(k["flops"] for k in kern.values()),
+                   weight_bytes=sum(k["weight_bytes"] for k in kern.values()),
+                   launches=int(sum(k["calls"] for k in kern.values())))
+        want = _kernel_bounds(plans[name])
+        for key in ("flops", "weight_bytes"):
+            if abs(got[key] - want[key]) > ROOFLINE_TOL * want[key]:
+                raise AssertionError(f"roofline whisper-tiny {name}: counted "
+                                     f"kernel {key} {got[key]} against the "
+                                     f"plan's {want[key]}")
+        if got["launches"] != want["launches"]:
+            raise AssertionError(f"roofline whisper-tiny {name}: "
+                                 f"{got['launches']} kernel calls counted, "
+                                 f"{want['launches']} planned")
+        terms = _terms(float(cost.flops[0]), float(cost.bytes[0]))
+        kterms = _terms(got["flops"], sum(k["bytes"] for k in kern.values()))
+        ms = measured_ms.get(name)
+        row = dict(counted_kernels=got, plan_bounds=want,
+                   kernels={k: {f: v[f] for f in ("calls", "flops", "bytes")}
+                            for k, v in kern.items()},
+                   flops=float(cost.flops[0]),
+                   matmul_flops=float(cost.matmul_flops[0]),
+                   bytes=float(cost.bytes[0]), ops=int(cost.ops[0]),
+                   **terms, kernel_bound_s=kterms["bound_s"],
+                   measured_device_ms=ms,
+                   bound_over_measured=(terms["bound_s"] * 1e3 / ms
+                                        if ms else "not measured"))
+        out[name] = row
+        print(f"roofline whisper-tiny q8_0 {name} [{card}]: "
+              f"{json.dumps(row)}", flush=True)
+    return out
+
+
+def _roofline_train(train_summary, card):
+    """20b: phi3-mini's training step at 19b's shape counted on fake
+    tensors; MFU of 19b's measured step."""
+    import tempfile
+
+    import torch
+    from repro_torch.core import tree
+    from repro_torch.launch import input_specs
+    from repro_torch.roofline import analysis, op_cost
+    from repro_torch.train.step import init_train_state, make_train_step
+
+    with tempfile.TemporaryDirectory() as d:
+        cfg, run = train_run(d)
+    mode = input_specs.fake_mode()
+    with mode:
+        state = init_train_state(torch.Generator().manual_seed(0), cfg,
+                                 run.optimizer,
+                                 max_positions=run.shape.seq_len,
+                                 device="cpu")
+    batch = input_specs.batch_specs_struct(cfg, run.shape, mode=mode)
+    step = make_train_step(cfg, run.optimizer)
+    with mode, op_cost.OpCounter() as cost:
+        step(state, batch)
+    mf = analysis.model_flops(cfg, run.shape)
+    flops = float(cost.flops[0])
+    arg = sum(t.numel() * t.element_size() for t in tree.leaves(state))
+    step_ms = train_summary["train"]["step_ms"]
+    row = dict(arch=cfg.name, seq=run.shape.seq_len,
+               batch=run.shape.global_batch, model_flops=mf,
+               counted_flops=flops,
+               counted_matmul_flops=float(cost.matmul_flops[0]),
+               counted_bytes=float(cost.bytes[0]),
+               useful_flop_ratio=mf / flops,
+               kernels={k: {f: v[f] for f in ("calls", "flops", "bytes")}
+                        for k, v in cost.kernel_totals().items()},
+               **_terms(flops, float(cost.bytes[0])),
+               counted_peak_bytes=int(arg + cost.peak[0]),
+               measured_peak_bytes=train_summary["train"]["peak_bytes"],
+               measured_step_ms=step_ms,
+               mfu=mf / (step_ms / 1e3 * H100.peak_bf16),
+               counted_flops_per_s_share=flops / (step_ms / 1e3
+                                                  * H100.peak_bf16))
+    row["bound_over_measured"] = row["bound_s"] * 1e3 / step_ms
+    print(f"roofline {cfg.name} train step [{card}]: {json.dumps(row)}",
+          flush=True)
+    return row
+
+
+def _roofline_pod_cell(dry, card):
+    """20c: the pod cell's process, waited for, its JSON read."""
+    import shutil
+    proc, out, t_start = dry
+    done_before = proc.poll() is not None
+    try:
+        proc.wait(timeout=DRYRUN_WAIT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise AssertionError(f"roofline pod cell: not done "
+                             f"{DRYRUN_WAIT_S}s into phase 20 "
+                             f"({time.time() - t_start:.0f}s since it "
+                             "started)")
+    path = os.path.join(out, "pod_16x16", "whisper-tiny__train_4k.json")
+    log, text, took = os.path.join(out, "dryrun.log"), "", None
+    try:
+        # the log's last write is the process's last line
+        took = os.path.getmtime(log) - t_start
+        with open(log) as f:
+            text = f.read()
+        with open(path) as f:
+            r = json.load(f)
+    except OSError:
+        r = {"status": "missing"}
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    if proc.returncode != 0 or r.get("status") != "ok":
+        raise AssertionError(f"roofline pod cell: status {r.get('status')}, "
+                             f"exit {proc.returncode}: {text[-2000:]} "
+                             f"{r.get('error', '')}")
+    rf, mem = r["roofline"], r["memory"]
+    e = rf["entry"]
+    ent = mem["entries"]
+    row = dict(status=r["status"], mesh=r["mesh"], chips=rf["chips"],
+               busiest_entry=e, argument_bytes=mem["argument_bytes"],
+               peak_bytes=ent["peak_bytes"][e],
+               flops=rf["flops_per_device"], bytes=rf["bytes_per_device"],
+               collective_bytes=rf["collective_raw_bytes"],
+               collective_wire_bytes=rf["collective_wire_bytes"],
+               coll_by_op=rf["coll_by_op"], compute_s=rf["compute_s"],
+               memory_s=rf["memory_s"], collective_s=rf["collective_s"],
+               bottleneck=rf["bottleneck"],
+               useful_flop_ratio=rf["useful_flop_ratio"],
+               roofline_fraction=rf["roofline_fraction"],
+               entries_with_work=sum(f > 0 for f in ent["flops"]),
+               cell_run_s=r["run_s"], cell_build_s=r["build_s"],
+               done_before_phase_20=done_before, process_s=took,
+               output_tail=text[-300:])
+    print(f"roofline dry-run whisper-tiny x train_4k pod [{card}]: "
+          f"{json.dumps(row)}", flush=True)
+    return row
+
+
+def roofline_phase(dry, plans, measured_ms, train_summary, card):
+    """Phase 20 (the module docstring): 20a, 20b, 20c in turn."""
+    t0 = time.perf_counter()
+    out = dict(whisper=_roofline_whisper(plans, measured_ms, card),
+               train=_roofline_train(train_summary, card))
+    out["ac_s"] = time.perf_counter() - t0
+    out["pod_cell"] = _roofline_pod_cell(dry, card)
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"roofline phase: {out['phase_s']:.1f}s [{card}]", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -7021,6 +7297,7 @@ def main() -> int:
     card = card_line()
     print(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}",
           flush=True)
+    dry = start_dryrun_cell()
     t0 = time.perf_counter()
     logs = _build.build(list(KERNELS))
     print(f"build: {sorted(logs)} in {time.perf_counter() - t0:.1f}s",
@@ -7148,6 +7425,12 @@ def main() -> int:
     print(f"sharded summary: {json.dumps(shard_summary)}", flush=True)
     del spec_params
 
+    # phase 20a's plans and device times, kept past the whisper engines
+    q8_plans = {phase: q8_eng._plans.plans[q8_eng._key(
+        phase, 1, q8_eng.cfg.encoder_ctx)].entries
+        for phase in ("prefill", "step")}
+    q8_device_ms = {"prefill": q8_captured.get("prefill_device_ms"),
+                    "step": q8_captured.get("decode_device_ms_per_step")}
     # the whisper engines' buffers and graph pools, freed before the LMs
     del q8_eng, d_eng, q8_mel, d_mel
     release_memory("lm phases")
@@ -7174,6 +7457,9 @@ def main() -> int:
     launches = dict(launches,
                     flash_attention_bwd=train_main["flash_attention_bwd"])
     print(f"train summary: {json.dumps(train_summary)}", flush=True)
+    roofline = roofline_phase(dry, q8_plans, q8_device_ms, train_summary,
+                              card)
+    print(f"roofline summary: {json.dumps(roofline)}", flush=True)
 
     kernels = []
     for name, meta in KERNELS.items():

@@ -145,6 +145,12 @@ class ModelConfig:
     def padded_vocab(self) -> int:
         return self.vocab_size + self.vocab_pad
 
+    @property
+    def uses_full_attention(self) -> bool:
+        """True when every token attends over the whole sequence in all
+        mixer layers: the long_500k cell is then inapplicable."""
+        return self.family not in (SSM, HYBRID)
+
     # ----- derived quantities used by coverage and the parameter count -----
     @property
     def attention_layers(self) -> Tuple[int, ...]:
@@ -219,7 +225,8 @@ class ModelConfig:
 
 
 # ---------------------------------------------------------------------------
-# The training run's input shape and settings
+# Input shapes: the reference's four named cells of every arch (the
+# dry-run's matrix), and the training run's own shape
 # ---------------------------------------------------------------------------
 @dataclass(frozen=True)
 class ShapeConfig:
@@ -227,6 +234,29 @@ class ShapeConfig:
     seq_len: int
     global_batch: int
     kind: str                    # train | prefill | decode
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+TRAIN_4K = ShapeConfig("train_4k", 4_096, 256, "train")
+PREFILL_32K = ShapeConfig("prefill_32k", 32_768, 32, "prefill")
+DECODE_32K = ShapeConfig("decode_32k", 32_768, 128, "decode")
+LONG_500K = ShapeConfig("long_500k", 524_288, 1, "decode")
+
+ALL_SHAPES = (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
+SHAPES_BY_NAME = {s.name: s for s in ALL_SHAPES}
+
+
+def shape_applicable(model: ModelConfig, shape: ShapeConfig
+                     ) -> Tuple[bool, str]:
+    """(applicable, the reason if not): long_500k needs sub-quadratic
+    attention, so a pure full-attention arch skips it."""
+    if shape.name == "long_500k" and model.uses_full_attention:
+        return False, ("long_500k needs sub-quadratic attention; "
+                       f"{model.name} is pure full-attention (skip per brief)")
+    return True, ""
 
 
 @dataclass(frozen=True)

@@ -4,7 +4,9 @@ The port serves every arch of the reference: the Whisper ladder and the
 dense, mixture-of-experts, state-space, hybrid and vision-language
 decoder-only LMs. ``LATER`` names the reference's archs that the port does
 not serve yet, each with the ROADMAP item that brings it (none now); an
-id that is neither raises ``KeyError``.
+id that is neither raises ``KeyError``. ``ASSIGNED`` names the ten archs
+of the reference's dry-run matrix (the Whisper ladder's base and small
+are extra), and ``dryrun_cells`` walks that matrix against ``ALL_SHAPES``.
 """
 from __future__ import annotations
 
@@ -14,7 +16,8 @@ from repro_torch.configs import (
     arctic_480b, internlm2_20b, jamba_v0_1_52b, llava_next_mistral_7b,
     mamba2_780m, olmoe_1b_7b, phi3_mini_3_8b, qwen1_5_110b, qwen2_5_14b, whisper_base, whisper_small,
     whisper_tiny)
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ALL_SHAPES, SHAPES_BY_NAME, \
+    ModelConfig, ShapeConfig, shape_applicable
 
 ALL_ARCHS: Dict[str, object] = {
     "whisper-tiny": whisper_tiny,
@@ -30,6 +33,11 @@ ALL_ARCHS: Dict[str, object] = {
     "jamba-v0.1-52b": jamba_v0_1_52b,
     "llava-next-mistral-7b": llava_next_mistral_7b,
 }
+
+#: the archs of the dry-run matrix, in the reference's order
+ASSIGNED = ("llava-next-mistral-7b", "jamba-v0.1-52b", "mamba2-780m",
+            "phi3-mini-3.8b", "qwen1.5-110b", "internlm2-20b", "qwen2.5-14b",
+            "whisper-tiny", "arctic-480b", "olmoe-1b-7b")
 
 #: the reference's archs the port does not serve yet, with the ROADMAP
 #: item that brings each
@@ -51,3 +59,16 @@ def get_config(arch: str) -> ModelConfig:
 
 def get_smoke_config(arch: str) -> ModelConfig:
     return _module(arch).SMOKE
+
+
+def get_shape(name: str) -> ShapeConfig:
+    return SHAPES_BY_NAME[name]
+
+
+def dryrun_cells():
+    """Yield every (arch, shape, applicable, reason) cell of the matrix."""
+    for arch in ASSIGNED:
+        cfg = get_config(arch)
+        for shape in ALL_SHAPES:
+            ok, reason = shape_applicable(cfg, shape)
+            yield arch, shape.name, ok, reason

@@ -151,6 +151,13 @@ def check_q8_operands(x: torch.Tensor, qs: torch.Tensor,
         raise ValueError("the last dim of x, qs and scales must be contiguous")
 
 
+def fake_q8(x, qs, scales, **_):
+    """A Q8_0 product's checks and its (M, N) f32 output, empty: what a
+    counted call over fake tensors returns (``roofline/op_cost.priced``)."""
+    check_q8_operands(x, qs, scales)
+    return x.new_empty((x.shape[0], qs.shape[0]), dtype=torch.float32)
+
+
 def check_dense_operands(x: torch.Tensor, w: torch.Tensor) -> None:
     """Shapes, types and layouts ``bf16_matmul`` takes: x (M, K) and W
     (N, K), each in f32 or bf16, with unit stride along K (rows may be

@@ -37,6 +37,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build, ref, tiles
+from repro_torch.roofline import op_cost
 
 MAX_GEMV_M = tiles.MAX_ROW_M     # M up to this takes gemv_bf16_kernel
 
@@ -66,6 +67,12 @@ def c_tile(m: int, k: int, tile: Optional[Tuple[int, ...]],
     return 0, 0, 0, tile[1]
 
 
+def _fake(x, w, **_):
+    _build.check_dense_operands(x, w)
+    return x.new_empty((x.shape[0], w.shape[0]), dtype=torch.float32)
+
+
+@op_cost.priced(op_cost.bf16_price, _fake)
 def bf16_matmul(x: torch.Tensor, w: torch.Tensor, *,
                 tile: Optional[Tuple[int, ...]] = None) -> torch.Tensor:
     """x (M, K) f32/bf16; w (N, K) bf16/f32 -> (M, N) f32. Rows of both

@@ -45,6 +45,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.roofline import op_cost
 
 NEG_INF = -1e30
 BLOCK_K = 64          # keys per online-softmax step, as in the CUDA kernel
@@ -90,17 +91,22 @@ def flash_attention_fwd_plain(q: torch.Tensor, k: torch.Tensor,
     return (out, (m + torch.log(l))[..., 0]) if return_lse else out
 
 
+def _fake_fwd(q, k, v, *, causal: bool = True, return_lse: bool = False):
+    _build.check_attention_operands(q, k, v)
+    _check_no_graph(q, k, v)
+    out = q.new_empty(q.shape, dtype=torch.float32)
+    return (out, q.new_empty(q.shape[:2], dtype=torch.float32)) \
+        if return_lse else out
+
+
+@op_cost.priced(op_cost.flash_fwd_price, _fake_fwd)
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, return_lse: bool = False):
     """q (BH, Sq, D), k/v (BH, Sk, D), all f32 or all bf16 -> (BH, Sq, D)
     f32, and with ``return_lse`` the (BH, Sq) f32 logsumexp too. The BH
     and S strides are free; Sq and Sk may be ragged."""
     _build.check_attention_operands(q, k, v)
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
-        raise RuntimeError("flash_attention_fwd has no autograd graph: "
-                           "differentiate through models.attention."
-                           "_FlashCore")
+    _check_no_graph(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_fwd_plain(q, k, v, causal=causal,
                                          return_lse=return_lse)
@@ -122,6 +128,14 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention_fwd.launches = 0
+
+
+def _check_no_graph(q, k, v) -> None:
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        raise RuntimeError("flash_attention_fwd has no autograd graph: "
+                           "differentiate through models.attention."
+                           "_FlashCore")
 
 
 def _check_head_dim(name: str, d: int) -> None:
@@ -192,6 +206,12 @@ def _align_rows(t: torch.Tensor) -> torch.Tensor:
     return t.clone(memory_format=torch.contiguous_format)
 
 
+def _fake_bwd(q, k, v, out, dout, lse, *, causal: bool = True):
+    _check_bwd_operands(q, k, v, out, dout, lse)
+    return q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)
+
+
+@op_cost.priced(op_cost.flash_bwd_price, _fake_bwd)
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         out: torch.Tensor, dout: torch.Tensor,
                         lse: torch.Tensor, *, causal: bool = True):

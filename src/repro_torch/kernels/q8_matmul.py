@@ -35,11 +35,13 @@ CUDA tensors it launches the kernel or raises.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _build, ref, tiles
+from repro_torch.roofline import op_cost
 
 
 #: the kernel's arithmetic in plain PyTorch: dequantize W in f32 (q * scale
@@ -47,6 +49,8 @@ from repro_torch.kernels import _build, ref, tiles
 q8_matmul_plain = ref.q8_flat_ref
 
 
+@op_cost.priced(functools.partial(op_cost.q8_price, "q8_matmul"),
+                _build.fake_q8)
 def q8_matmul(x: torch.Tensor, qs: torch.Tensor, scales: torch.Tensor, *,
               tile: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """x (M, K) f32/bf16; qs (N, K) int8; scales (N, K/32) f32 -> (M, N)

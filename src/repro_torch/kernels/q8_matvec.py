@@ -24,11 +24,13 @@ CUDA tensors it launches the kernel or raises.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _build, ref, tiles
+from repro_torch.roofline import op_cost
 
 MAX_M = 16     # decode batch tile; larger M goes to q8_matmul
 
@@ -38,6 +40,8 @@ MAX_M = 16     # decode batch tile; larger M goes to q8_matmul
 q8_matvec_plain = ref.q8_flat_ref
 
 
+@op_cost.priced(functools.partial(op_cost.q8_price, "q8_matvec"),
+                _build.fake_q8)
 def q8_matvec(x: torch.Tensor, qs: torch.Tensor, scales: torch.Tensor, *,
               tile: Optional[Tuple[int, int, int]] = None) -> torch.Tensor:
     """x (B, K) f32/bf16; qs (N, K) int8; scales (N, K/32) f32 -> (B, N)

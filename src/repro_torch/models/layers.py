@@ -13,6 +13,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.qformats import QTensor, dequantize_q8_0
+from repro_torch.roofline import op_cost
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
           "float16": torch.float16}
@@ -89,6 +90,7 @@ class _F32Product(torch.autograd.Function):
         return dx, dw
 
 
+@op_cost.priced(op_cost.f32_product_price("f32_product"))
 def _dot_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x @ w^T with an f32 output: ``_dot``'s product where the operands
     promote to f32; for two CUDA tensors of one 16-bit type
@@ -124,6 +126,7 @@ class _F32GradProduct(torch.autograd.Function):
         return dx.reshape(*dy.shape[:-1], w.shape[1]), dw
 
 
+@op_cost.priced(op_cost.f32_product_price("f32_grad_product"))
 def _dot_f32_grad(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x @ w^T in w's 16-bit type from an f32 x that holds values of that
     type, its input gradient in f32: for two CUDA tensors

@@ -49,6 +49,7 @@ from repro_torch.core import tree
 from repro_torch.models import layers, moe as moe_lib, ssm as ssm_lib
 from repro_torch.models.attention import (
     KVCache, QKVCache, attention, decode_attention, init_attention)
+from repro_torch.roofline import op_cost
 from repro_torch.sharding import ctx, rules
 
 
@@ -143,6 +144,8 @@ def sum_partials(partials: List[torch.Tensor], device) -> torch.Tensor:
     acc = partials[0].to(device, torch.float32)
     for y in partials[1:]:
         acc = acc + y.to(device, torch.float32)
+    op_cost.collective("all-reduce", acc.numel() * 4, len(partials),
+                       "sum_partials")
     return acc
 
 
@@ -179,10 +182,12 @@ def tensor_parallel(fn: Callable[..., torch.Tensor], p: dict,
     m_cfg = _shard_cfg(cfg, len(parts))
     device = inputs[0].device
     inputs, f32_grad = shard_inputs(parts[0], inputs)
-    partials = [fn(part, m_cfg, *(t if t is None else t.to(dev)
-                                  for t in inputs), partial=True,
-                   f32_grad=f32_grad)
-                for part, dev in zip(parts, devices, strict=True)]
+    partials = []
+    for m, (part, dev) in enumerate(zip(parts, devices, strict=True)):
+        with op_cost.at(model=m):
+            partials.append(fn(part, m_cfg, *(t if t is None else t.to(dev)
+                                              for t in inputs),
+                               partial=True, f32_grad=f32_grad))
     y = sum_partials(partials, device)
     for lin in p.values():
         y = y + lin["b"].to(y.dtype)

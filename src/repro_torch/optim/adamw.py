@@ -36,6 +36,7 @@ from repro_torch.configs.base import OptimizerConfig
 from repro_torch.core import tree
 from repro_torch.core.qformats import (
     QBLOCK, QTensor, dequantize_q8_0, quantize_q8_0)
+from repro_torch.roofline import op_cost
 from repro_torch.sharding import rules
 
 
@@ -202,12 +203,15 @@ def global_norm_split(grads, specs, mesh) -> torch.Tensor:
     dev0 = None
     for g, sp in zip(tree.leaves(grads, is_leaf=rules.is_pieces),
                      tree.leaves(specs, is_leaf=rules.is_spec)):
-        lay = rules.leaf_layout(rules.whole_shape(g, sp, mesh), sp, mesh)
+        shape = rules.whole_shape(g, sp, mesh)
+        lay = rules.leaf_layout(shape, sp, mesh)
+        holders = rules.part_entries(shape, sp, mesh)
         if dev0 is None:
             dev0 = lay.devices[0]
         for k in lay.firsts():
-            total = total + torch.sum(torch.square(
-                g[k].to(torch.float32))).to(dev0)
+            with op_cost.at(entries=holders[lay.part[k]]):
+                total = total + torch.sum(torch.square(
+                    g[k].to(torch.float32))).to(dev0)
     return torch.sqrt(total)
 
 
@@ -248,11 +252,13 @@ def adamw_update_split(grads, state: AdamWState, params,
         shape = rules.whole_shape(p, sp, mesh)
         rank = len(shape) + int(tree.in_layer_list(path))
         lay = rules.leaf_layout(shape, sp, mesh)
+        holders = rules.piece_entries(shape, sp, mesh)
         if _moment_spec(smu) == sp and _moment_spec(snu) == sp:
-            for pk, gk, muk, nuk, dev in zip(p, g, _moment_pieces(mu),
-                                             _moment_pieces(nu),
-                                             lay.devices):
-                _update_leaf(pk, gk, muk, nuk, rank, *at(dev), cfg)
+            for pk, gk, muk, nuk, dev, who in zip(
+                    p, g, _moment_pieces(mu), _moment_pieces(nu),
+                    lay.devices, holders):
+                with op_cost.at(entries=who):
+                    _update_leaf(pk, gk, muk, nuk, rank, *at(dev), cfg)
             continue
         dev = lay.devices[0]
         pw = rules.gather_leaf(p, sp, mesh, dev).clone()

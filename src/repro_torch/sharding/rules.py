@@ -64,6 +64,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import tree as tree_lib
+from repro_torch.roofline import op_cost
 
 
 class P(tuple):
@@ -310,6 +311,30 @@ def _layout(shape: Tuple[int, ...], spec: P, mesh) -> LeafLayout:
                       tuple(entry_piece))
 
 
+@functools.lru_cache(maxsize=1 << 14)
+def piece_entries(shape: Tuple[int, ...], spec: P, mesh
+                  ) -> Tuple[np.ndarray, ...]:
+    """For each stored piece of a leaf of ``shape`` laid out by ``spec``,
+    the logical entries (row-major) that hold it: where the counter of
+    ``roofline/op_cost.py`` charges work on the piece."""
+    lay = leaf_layout(shape, spec, mesh)
+    out: List[List[int]] = [[] for _ in lay.regions]
+    for e, k in enumerate(lay.entry_piece):
+        out[k].append(e)
+    return tuple(np.asarray(x, dtype=np.int64) for x in out)
+
+
+@functools.lru_cache(maxsize=1 << 14)
+def part_entries(shape: Tuple[int, ...], spec: P, mesh
+                 ) -> Dict[int, np.ndarray]:
+    """{part: the logical entries that hold it, on any device}."""
+    lay = leaf_layout(shape, spec, mesh)
+    out: Dict[int, List[int]] = {}
+    for e, k in enumerate(lay.entry_piece):
+        out.setdefault(lay.part[k], []).append(e)
+    return {p: np.asarray(x, dtype=np.int64) for p, x in out.items()}
+
+
 def whole_shape(pieces: Pieces, spec: P, mesh) -> Tuple[int, ...]:
     """The whole leaf's shape: the first piece's, each split dim times its
     number of parts."""
@@ -343,6 +368,10 @@ def scatter_leaf(whole: torch.Tensor, pieces: Pieces, spec: P,
     lay = leaf_layout(whole.shape, spec, mesh)
     for piece, region in zip(pieces, lay.regions):
         piece.copy_(whole[region])
+    if op_cost.active() is not None:
+        op_cost.collective("reduce-scatter",
+                           pieces[0].numel() * pieces[0].element_size(),
+                           len(set(lay.part)), "scatter_leaf")
 
 
 def gather_part(pieces: Pieces, spec: P, mesh, device,
@@ -363,7 +392,17 @@ def gather_part(pieces: Pieces, spec: P, mesh, device,
             return pieces[node].to(device)
         dim, nodes = node
         return torch.cat([join(n) for n in nodes], dim)
-    return join(plan)
+    out = join(plan)
+    if op_cost.active() is not None:
+        op_cost.collective("all-gather", out.numel() * out.element_size(),
+                           _plan_parts(plan), "gather_part")
+    return out
+
+
+def _plan_parts(node) -> int:
+    """The pieces a ``_gather_plan`` joins."""
+    return 1 if isinstance(node, int) else sum(_plan_parts(n)
+                                               for n in node[1])
 
 
 @functools.lru_cache(maxsize=1 << 14)

@@ -62,6 +62,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, OptimizerConfig
 from repro_torch.core import tree
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch.mesh import physical_device
 from repro_torch.models import model as model_lib
 from repro_torch.models import moe as moe_lib
@@ -69,6 +70,7 @@ from repro_torch.optim.adamw import AdamWState, adamw_init, adamw_update, \
     adamw_update_split
 from repro_torch.optim.compression import ef_compress_grads, \
     ef_compress_split, ef_init
+from repro_torch.roofline import op_cost
 from repro_torch.sharding import ctx, rules
 
 
@@ -178,7 +180,8 @@ def _shard_grads(cfg: ModelConfig, params, specs, mesh, batch, shards, *,
             views = [rules.Pieces(t.detach().requires_grad_(
                 t.is_floating_point()) for t in x) for x in flat]
             with moe_lib.router_stats() as st, \
-                    ctx.train_shard(i, devs, specs, mesh):
+                    ctx.train_shard(i, devs, specs, mesh), \
+                    op_cost.at(shard=i):
                 terms.append(model_lib.loss_terms(
                     tree.unflatten_like(params, views,
                                         is_leaf=rules.is_pieces), cfg,
@@ -212,31 +215,48 @@ def reduce_grads(per_shard, params, specs, mesh):
     for j, (x, sp) in enumerate(zip(
             tree.leaves(params, is_leaf=rules.is_pieces),
             tree.leaves(specs, is_leaf=rules.is_spec))):
-        lay = rules.leaf_layout(rules.whole_shape(x, sp, mesh), sp, mesh)
+        shape = rules.whole_shape(x, sp, mesh)
+        lay = rules.leaf_layout(shape, sp, mesh)
+        holders = rules.part_entries(shape, sp, mesh)
+        over = ("reduce-scatter" if any(a in mesh_lib.BATCH_AXES
+                                        for a in _spec_axes(sp))
+                else "all-reduce")
         out = [None] * len(x)
         for k0 in lay.firsts():
             dev = lay.devices[k0]
             same = [k for k, p in enumerate(lay.part) if p == lay.part[k0]]
             acc = None
-            for shard in per_shard:
-                for k in same:
-                    g = shard[j][k]
-                    if g is None:
-                        continue
-                    if acc is None:
-                        acc = g.to(dev, torch.float32, copy=True)
-                    else:
-                        acc.add_(g.to(dev))
-            if acc is None:
-                acc = torch.zeros(x[k0].shape, dtype=torch.float32,
-                                  device=dev)
-            for k in same:                        # the part's replicas
-                out[k] = acc if k == k0 else acc.to(lay.devices[k],
-                                                    copy=True)
+            n = 0
+            with op_cost.at(entries=holders[lay.part[k0]]):
+                for shard in per_shard:
+                    got = False
+                    for k in same:
+                        g = shard[j][k]
+                        if g is None:
+                            continue
+                        got = True
+                        if acc is None:
+                            acc = g.to(dev, torch.float32, copy=True)
+                        else:
+                            acc.add_(g.to(dev))
+                    n += got
+                if acc is None:
+                    acc = torch.zeros(x[k0].shape, dtype=torch.float32,
+                                      device=dev)
+                op_cost.collective(over, acc.numel() * 4, n, "reduce_grads")
+                for k in same:                    # the part's replicas
+                    out[k] = acc if k == k0 else acc.to(lay.devices[k],
+                                                        copy=True)
         for shard in per_shard:
             shard[j] = None
         grads.append(rules.Pieces(out))
     return tree.unflatten_like(params, grads, is_leaf=rules.is_pieces)
+
+
+def _spec_axes(spec) -> Tuple[str, ...]:
+    """The mesh axes a partition spec names."""
+    return tuple(a for e in spec if e is not None
+                 for a in (e if isinstance(e, tuple) else (e,)))
 
 
 def make_train_step(cfg: ModelConfig,

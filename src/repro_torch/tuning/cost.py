@@ -33,6 +33,7 @@ from typing import Optional, Tuple
 from repro_torch.core import energy
 from repro_torch.core.qformats import QBLOCK
 from repro_torch.kernels import tiles
+from repro_torch.roofline.analysis import H100, HW  # noqa: F401 (re-export)
 from repro_torch.tuning.calibrate import (
     BackendCoefficients, CalibratedCoefficients)
 from repro_torch.tuning.space import TileCandidate, row_launch
@@ -47,26 +48,6 @@ STEP_S = 1e-6
 MAX_BLOCKS_PER_SM = 32                     # an SM's resident blocks
 MAX_THREADS_PER_SM = 2048
 TC_THREADS = 128                           # a tensor-core block: a warpgroup
-
-
-@dataclass(frozen=True)
-class HW:
-    """Published peaks of one card (dense rates, no sparsity)."""
-    name: str
-    hbm_bw: float                 # device-memory bytes/s
-    peak_bf16: float              # tensor-core bf16 FLOP/s
-    peak_f32: float               # f32 FLOP/s outside the tensor cores
-
-    def peak_flops(self, kernel: str) -> float:
-        """The peak for the kernel's operands: bf16 x (and a bf16 x int8
-        product, exact on the tensor cores) on the tensor cores; the
-        decode path's f32 x on ``q8_matvec`` outside them."""
-        return self.peak_f32 if kernel == "q8_matvec" else self.peak_bf16
-
-
-#: NVIDIA's data sheet for the SXM part, the figures PERF.md's bounds use
-H100 = HW("NVIDIA H100 80GB HBM3", hbm_bw=3.35e12, peak_bf16=989e12,
-          peak_f32=67e12)
 
 
 @dataclass(frozen=True)

@@ -1,4 +1,5 @@
-"""The port stands alone: no file of ``src/repro_torch/``, not
+"""The port stands alone: no file of ``src/repro_torch/`` (the analysis
+tools under ``roofline/`` and ``launch/`` included), not
 ``chip_smoke.py``, not ``sweep_kernels.py``, not the card-only tools
 (``tools/f32_routes.py``, ``tools/flash_bwd_ds_ablation.py``,
 ``tools/train_mesh_phases.py``) and no card
@@ -61,3 +62,14 @@ def test_scan_finds_forbidden_imports(tmp_path):
                     "importlib.import_module('repro.core')\n")
     assert [m for m in _imported(str(path)) if _forbidden(m)] == \
         ["jax.numpy", "repro.configs", "repro.core"]
+
+
+@pytest.mark.parametrize("module", [
+    "roofline/analysis.py", "roofline/op_cost.py", "launch/input_specs.py",
+    "launch/dryrun.py"])
+def test_analysis_tools_are_under_the_rule(module):
+    """The dry-run and the roofline, whose reference twins are JAX
+    through and through (abstract specs, HLO text), stand alone too."""
+    path = os.path.join(PORT, *module.split("/"))
+    assert path in _files()
+    assert not [m for m in _imported(path) if _forbidden(m)]
