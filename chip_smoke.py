@@ -496,15 +496,26 @@ own kernels with nvcc. Phases, each of which fails the run on error:
        its loss and gradient norm within 1e-3 of 19b's first step, 4 x 2
        x 32 forward and 4 x 32 backward flash launches on the tensor
        cores, its step ms and peak memory.
+    f. expert parallelism and the vocabulary split (``train_moe_phase``):
+       olmoe-1b-7b at its published widths cut to 4 of its 16 layers
+       (1.884e9 parameters), bf16, flash, full remat, bf16 moments, 2
+       rows of 2048 tokens: one unsharded step, then one step of
+       ``Trainer(mesh=)`` over (1, 4) (16 experts a model shard) and
+       over (2, 2) (a row a data shard, 32 experts a model shard) of the
+       card's entries; each within 1e-3 of the unsharded step's loss and
+       gradient norm, every MoE layer's experts, attention and the
+       vocabulary split, each ``_experts`` call over E / M experts, the
+       flash launches on the tensor cores; step ms, peak and the
+       all-to-all and all-reduce bytes reported to ``op_cost``.
     c. the CLI: ``launch.train.main`` on whisper-tiny at full width, 4
-       steps, ends with ``final:`` (run after 19d and 19e).
+       steps, ends with ``final:`` (run after 19d, 19e and 19f).
     ``train ...`` lines, then ``train phase: N s``. The backward's
     kernels-line entry sums its phi3 row over a training step (32
     launches), keeps the other rows under ``by_phase``, its kernels'
     registers and spills (``ptxas``) and the profiled step's kernels by
     name (``device_kernels``); its ``launches`` are 19b's continuous
-    run's, and ``launches_by_path["train"]`` adds 19d's, 19e's and
-    19c's.
+    run's, and ``launches_by_path["train"]`` adds 19d's, 19e's, 19f's
+    and 19c's.
 
 20. The roofline (``roofline_phase``), the port's analysis tools on the
     programs the phases above ran, counted on fake tensors (no storage,
@@ -6043,6 +6054,23 @@ TRAIN_MESH_PEAK_GB = 42
 # 19b's whole batch on the one data shard; its loss and gradient norm
 # against 19b's first step within TRAIN_RESUME_TOL
 TRAIN_TP_MESH = (1, 4)
+# 19f: olmoe-1b-7b at its published widths (configs/olmoe_1b_7b.py:
+# d_model 2048, 16 heads of 128, 64 experts of d_ff 1024, top-8,
+# vocabulary 50,304, capacity factor 1.25, dispatch groups of 512) cut to
+# TRAIN_MOE_LAYERS of its 16 layers (1.884e9 parameters, 3.77 GB in bf16),
+# bf16, flash, full remat, bf16 moments, TRAIN_MOE_BATCH rows of
+# TRAIN_MOE_SEQ tokens drawn on the card from TRAIN_SEED: TRAIN_MOE_STEPS
+# unsharded steps, then as many of Trainer(mesh=) over each of
+# TRAIN_MOE_MESHES (16 experts a model shard on (1, 4); a row a data shard
+# and 32 experts a model shard on (2, 2), a data shard's 2048 tokens 4
+# whole dispatch groups, so the drops are the unsharded step's), the
+# first step's loss and gradient norm against the unsharded step's within
+# TRAIN_RESUME_TOL; a run's first step pays the allocator's and cuBLAS's
+# first calls at its shapes, so its last step is the one timed
+TRAIN_MOE_ARCH = "olmoe-1b-7b"
+TRAIN_MOE_LAYERS, TRAIN_MOE_SEQ, TRAIN_MOE_BATCH = 4, 2048, 2
+TRAIN_MOE_STEPS = 2
+TRAIN_MOE_MESHES = ((1, 4), (2, 2))
 # the resumed run's losses against the continuous run's: the embedding's
 # backward (index_add_ with atomics on the card) sums in a scheduling order
 TRAIN_RESUME_TOL = 1e-3
@@ -6664,6 +6692,7 @@ def train_phase(bwd_log: str):
                                                       counted)
     axis_launches, summary["model_axis"] = train_model_axis_phase(
         cfg, run, history, counted)
+    moe_launches, summary["moe_mesh"] = train_moe_phase(counted)
     release_memory("train cli")
 
     t3 = time.perf_counter()
@@ -6685,8 +6714,8 @@ def train_phase(bwd_log: str):
     if rc != 0 or not text.splitlines()[-1].startswith("final:"):
         raise AssertionError(f"training CLI: rc={rc}, output {text!r}")
     summary["cli_s"] = time.perf_counter() - t3
-    total = {k: launches[k] + mesh_launches[k] + axis_launches[k] + cli[k]
-             for k in counted}
+    total = {k: launches[k] + mesh_launches[k] + axis_launches[k]
+             + moe_launches[k] + cli[k] for k in counted}
     print(f"train phase: {time.perf_counter() - t0:.1f}s; launches {total}",
           flush=True)
     return rows, launches, total, summary
@@ -6783,11 +6812,12 @@ def train_mesh_phase(cfg, run, history, counted):
           f"a data shard): layers {json.dumps(layout)}; run in "
           f"{TRAIN_MESH_STEPS} steps x {shards} data shards "
           f"{json.dumps(blocks)}", flush=True)
-    if set(layout) != {"attn: split", "ffn: split"} or blocks != {
-            k: n * shards * TRAIN_MESH_STEPS for k, n in layout.items()}:
+    if set(layout) != {"attn: split", "ffn: split", "vocab: split"} or \
+            blocks != {k: n * shards * TRAIN_MESH_STEPS
+                       for k, n in layout.items()}:
         raise AssertionError(f"phi3-mini's blocks over (2, 2): {layout}, "
-                             f"run {blocks}: every attention and FFN "
-                             "split expected")
+                             f"run {blocks}: every attention and FFN, "
+                             "and the vocabulary, split expected")
     print(f"train mesh {dict(mesh.shape)} over {len(mesh.physical_devices)} "
           f"card ({shards} data shards of one {TRAIN_SEQ}-token row): "
           f"losses {losses} against 19b's {[h['loss'] for h in history]}, "
@@ -7028,7 +7058,8 @@ def train_model_axis_phase(cfg, run, history, counted):
     if routes != {"mma": want["flash_attention_bwd"], "simt": 0}:
         raise AssertionError(f"the model-axis step's backward routes "
                              f"{routes}")
-    if layout != {"attn: split": layers, "ffn: split": layers}:
+    if layout != {"attn: split": layers, "ffn: split": layers,
+                  "vocab: split": 1}:
         raise AssertionError(f"phi3-mini's blocks over {TRAIN_TP_MESH}: "
                              f"{layout}")
     for key in ("loss", "grad_norm"):
@@ -7039,6 +7070,240 @@ def train_model_axis_phase(cfg, run, history, counted):
     del tr
     summary["s"] = time.perf_counter() - t0
     print(f"train phase 19e: {summary['s']:.1f}s", flush=True)
+    return launches, summary
+
+
+def train_moe_run(ckpt_dir: str):
+    """(ModelConfig, RunConfig) of phase 19f: olmoe-1b-7b at its published
+    widths cut to TRAIN_MOE_LAYERS layers, bf16, flash, full remat,
+    TRAIN_MOE_BATCH rows of TRAIN_MOE_SEQ tokens, TRAIN_STATE_DTYPE
+    moments, TRAIN_MOE_STEPS steps from TRAIN_SEED, no checkpoint."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import (
+        OptimizerConfig, RunConfig, ShapeConfig)
+    cfg = dataclasses.replace(get_config(TRAIN_MOE_ARCH),
+                              num_layers=TRAIN_MOE_LAYERS, dtype="bfloat16",
+                              param_dtype="bfloat16", quant="none",
+                              attn_impl="flash", remat="full")
+    run = RunConfig(model=cfg,
+                    shape=ShapeConfig("train_2k_b2", TRAIN_MOE_SEQ,
+                                      TRAIN_MOE_BATCH, "train"),
+                    optimizer=OptimizerConfig(lr=1e-4, warmup_steps=2,
+                                              total_steps=100,
+                                              state_dtype=TRAIN_STATE_DTYPE),
+                    seed=TRAIN_SEED, steps=TRAIN_MOE_STEPS,
+                    checkpoint_every=0, checkpoint_dir=ckpt_dir)
+    return cfg, run
+
+
+def _fwd_routes(log: dict):
+    """``kernels._build.call`` wrapped to count each ``flash_attention_fwd``
+    launch by the route its C entry takes (``"mma"``: bf16 operands whose
+    rows lie on 16 bytes, as ``flash::rows16`` checks; else ``"simt"``);
+    returns the original."""
+    from repro_torch.kernels import _build
+    real = _build.call
+
+    def call(name, device, *args):
+        if name == "flash_attention_fwd":
+            q, k, v, bf16, *strides = args[:10]
+            rows = all(p % 16 == 0 and 2 * a % 16 == 0 and 2 * b % 16 == 0
+                       for p, a, b in zip((q, k, v), strides[0::2],
+                                          strides[1::2]))
+            log["mma" if bf16 and rows else "simt"] += 1
+        return real(name, device, *args)
+    _build.call = call
+    return real
+
+
+def train_moe_step(run, mesh, counted) -> dict:
+    """Phase 19f's olmoe run: unsharded on the card where ``mesh`` is None,
+    else ``Trainer(mesh=)``. Counts, over its steps, the flash launches
+    (the backward's and the forward's by route), the blocks the steps ran
+    (``rules.TP_BLOCKS``), the experts each ``moe._experts`` call took, and
+    the bytes reported to ``op_cost.collective`` by kind (a step's); times
+    each step between CUDA events; reads the peak memory. Returns them with
+    each step's loss and gradient norm, the first's under "loss" and
+    "grad_norm", the last step's ms under "step_ms"."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.roofline import op_cost
+    from repro_torch.sharding import rules
+    from repro_torch.train.trainer import Trainer
+
+    t0 = time.perf_counter()
+    events = []
+
+    def mark(step):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+
+    tr = (Trainer(run, device="cuda", fault_hook=mark) if mesh is None
+          else Trainer(run, mesh=mesh, fault_hook=mark))
+    tr.save = lambda step: None
+    tr._init_or_restore()
+    layout = tr.tp_summary()
+    init_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = _read(counted)
+    routes = dict(fa.flash_attention_bwd.launches_by_route)
+    blocks_before = collections.Counter(rules.TP_BLOCKS)
+    fwd = {"mma": 0, "simt": 0}
+    experts, coll = [], collections.Counter()
+    real_experts, real_coll = moe_lib._experts, op_cost.collective
+
+    def spy_experts(p, cfg, xe):
+        experts.append(xe.shape[1])
+        return real_experts(p, cfg, xe)
+
+    def spy_coll(op, nbytes, group, what=""):
+        if group > 1:
+            coll[op] += int(nbytes)
+        return real_coll(op, nbytes, group, what)
+    moe_lib._experts, op_cost.collective = spy_experts, spy_coll
+    real_call = _fwd_routes(fwd)
+    try:
+        tr.train()
+        mark(None)
+        torch.cuda.synchronize()
+    finally:
+        moe_lib._experts, op_cost.collective = real_experts, real_coll
+        _build.call = real_call
+    peak = torch.cuda.max_memory_allocated()
+    steps = len(tr.history)
+    ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    out = dict(
+        mesh=None if mesh is None else dict(mesh.shape),
+        loss=tr.history[0]["loss"], grad_norm=tr.history[0]["grad_norm"],
+        losses=[h["loss"] for h in tr.history],
+        grad_norms=[h["grad_norm"] for h in tr.history],
+        step_ms=ms[-1], step_ms_events=ms,
+        host_dt_s=[h["dt_s"] for h in tr.history],
+        peak_bytes=peak, layers_by_outcome=layout,
+        blocks={f"{k}: {why}": n for (k, why), n in
+                (collections.Counter(rules.TP_BLOCKS)
+                 - blocks_before).items()},
+        expert_calls=dict(collections.Counter(experts)),
+        collective_bytes={op: n // steps for op, n in coll.items()},
+        launches={k: v - before[k] for k, v in _read(counted).items()},
+        bwd_routes={r: n - routes[r] for r, n
+                    in fa.flash_attention_bwd.launches_by_route.items()},
+        fwd_routes=fwd, init_s=init_s)
+    del tr
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
+def train_moe_phase(counted):
+    """Phase 19f: olmoe-1b-7b at its published widths cut to
+    TRAIN_MOE_LAYERS layers (``train_moe_run``), TRAIN_MOE_STEPS unsharded
+    steps, then as many of ``Trainer(mesh=)`` over each of
+    TRAIN_MOE_MESHES of the card's entries (``train_moe_step``). Gates, for
+    each mesh: the first step's loss and gradient norm within
+    TRAIN_RESUME_TOL of the unsharded first step's; every MoE layer's
+    experts, attention and the vocabulary split (``tp_summary``), run
+    TRAIN_MOE_LAYERS times a data shard a step ("moe: split") and the
+    vocabulary once; every ``_experts`` call over E / M experts, one a
+    model shard a MoE layer a data shard in the forward and again in the
+    remat recompute; the flash forward (2 a layer a (data, model) shard a
+    step) and backward (1) launches all on the tensor cores. Prints each
+    run's step ms (CUDA events; the last step's is the steady one), peak
+    GB, the all-to-all and all-reduce bytes a step reported to
+    ``op_cost.collective``, and every step's gaps to the unsharded
+    run's. Returns (the phase's launches, its summary)."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.launch.mesh import Mesh
+
+    t0 = time.perf_counter()
+    release_memory("train moe")
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_moe_")
+    try:
+        cfg, run = train_moe_run(ckpt_dir)
+        dev = torch.device("cuda", torch.cuda.current_device())
+        steps = {"unsharded": train_moe_step(run, None, counted)}
+        for sizes in TRAIN_MOE_MESHES:
+            release_memory(f"train moe {sizes}")
+            mesh = Mesh(sizes, ("data", "model"),
+                        [dev] * (sizes[0] * sizes[1]))
+            steps[f"{sizes}"] = train_moe_step(run, mesh, counted)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    ref = steps["unsharded"]
+    n_exp, layers = cfg.moe.num_experts, cfg.num_layers
+    for label, st in steps.items():
+        st["gaps"] = {key: [abs(g - r) / abs(r)
+                            for g, r in zip(st[key], ref[key])]
+                      for key in ("losses", "grad_norms")}
+        print(f"train moe {label} ({TRAIN_MOE_ARCH}, {layers} layers, "
+              f"{cfg.n_params() / 1e9:.3f}e9 parameters, "
+              f"{TRAIN_MOE_STEPS} steps): losses {st['losses']} "
+              f"grad_norms {st['grad_norms']} (gaps to the unsharded "
+              f"steps {json.dumps(st['gaps'])}); step_ms (CUDA events) "
+              f"{st['step_ms_events']}; host dt_s {st['host_dt_s']}; peak "
+              f"{st['peak_bytes'] / 1e9:.2f} GB; collective bytes a step "
+              f"(op_cost) {json.dumps(st['collective_bytes'])}; layers "
+              f"{json.dumps(st['layers_by_outcome'])}; blocks run "
+              f"{json.dumps(st['blocks'])}; _experts calls by experts "
+              f"{json.dumps(st['expert_calls'])}; launches "
+              f"{st['launches']}; forward routes {st['fwd_routes']}; "
+              f"backward routes {st['bwd_routes']}; init "
+              f"{st['init_s']:.1f}s, {st['s']:.1f}s in all", flush=True)
+    for label, st in steps.items():
+        sizes = st["mesh"] or {"data": 1, "model": 1}
+        shards, m = sizes["data"], sizes["model"]
+        fwd = 2 * shards * m * layers * TRAIN_MOE_STEPS
+        want = {"flash_attention_fwd": fwd,
+                "flash_attention_bwd": fwd // 2}
+        if st["launches"] != want or st["fwd_routes"] != {
+                "mma": fwd, "simt": 0} or st["bwd_routes"] != {
+                "mma": fwd // 2, "simt": 0}:
+            raise AssertionError(
+                f"19f {label}: flash launches {st['launches']}, forward "
+                f"routes {st['fwd_routes']}, backward routes "
+                f"{st['bwd_routes']}; expected {want}, all on the tensor "
+                "cores")
+        if st["expert_calls"] != {n_exp // m: fwd}:
+            raise AssertionError(
+                f"19f {label}: _experts calls by experts "
+                f"{st['expert_calls']}, expected {fwd} of {n_exp // m} "
+                "experts")
+        if st["mesh"] is None:
+            continue
+        runs = shards * TRAIN_MOE_STEPS
+        if st["layers_by_outcome"] != {"attn: split": layers,
+                                       "moe: split": layers,
+                                       "vocab: split": 1} or \
+                st["blocks"] != {"attn: split": layers * runs,
+                                 "moe: split": layers * runs,
+                                 "vocab: split": runs}:
+            raise AssertionError(
+                f"19f {label}: layers {st['layers_by_outcome']}, blocks run "
+                f"{st['blocks']}: every attention, MoE layer and the "
+                "vocabulary split expected")
+        if not st["collective_bytes"].get("all-to-all"):
+            raise AssertionError(f"19f {label}: no all-to-all reported")
+        for key in ("loss", "grad_norm"):
+            if not abs(st[key] - ref[key]) <= TRAIN_RESUME_TOL * \
+                    abs(ref[key]):
+                raise AssertionError(f"19f {label} {key} {st[key]} against "
+                                     f"the unsharded step's {ref[key]}")
+    launches = {k: sum(st["launches"][k] for st in steps.values())
+                for k in counted}
+    summary = dict(arch=TRAIN_MOE_ARCH, layers=layers,
+                   n_params=cfg.n_params(), seq=TRAIN_MOE_SEQ,
+                   batch=TRAIN_MOE_BATCH, steps=steps, launches=launches,
+                   s=time.perf_counter() - t0)
+    print(f"train phase 19f: {summary['s']:.1f}s; launches {launches}",
+          flush=True)
     return launches, summary
 
 

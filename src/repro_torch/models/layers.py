@@ -6,8 +6,17 @@ Functional style over parameter dicts of tensors. Weights are stored
 routes a linear through the offload dispatcher (Q8_0 kernel main segment
 plus host residual); without one, Q8_0 weights are dequantized in place
 (the reference's XLA path).
+
+In a data shard of a mesh training step whose vocabulary is split over
+"model" (``sharding.rules.vocab_layout``), the embedding table is a
+``VocabShards``: ``embed`` looks each id up on the model shard that holds
+its row, and ``models.model`` reads the readout's logits a shard at a
+time.
 """
 from __future__ import annotations
+
+import dataclasses
+from typing import Iterator, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -245,8 +254,47 @@ def init_embedding(gen: torch.Generator, vocab: int, d: int,
                                   device=gen.device) * 0.02).to(dtype)}
 
 
+@dataclasses.dataclass(frozen=True)
+class VocabShards:
+    """A vocabulary leaf, (V, d) (the embedding table or ``lm_head``'s
+    weight), split over M model shards by its rows: shard m holds
+    ``parts[m]``, the next V / M rows, on ``devices[m]``."""
+    parts: Tuple[torch.Tensor, ...]
+    devices: Tuple[torch.device, ...]
+
+    def __iter__(self) -> Iterator[Tuple[torch.Tensor, int, torch.device]]:
+        """(shard m's rows, the first one's index, its device), in
+        model-shard order."""
+        lo = 0
+        for w, dev in zip(self.parts, self.devices, strict=True):
+            yield w, lo, dev
+            lo += w.shape[0]
+
+
+def _embed_shards(t: VocabShards, ids: torch.Tensor) -> torch.Tensor:
+    """Each model shard looks up the ids in its rows and gives zero rows
+    elsewhere, charged to its model entry; the partials are summed in f32
+    in model-shard order on ids' device (exact: one is non-zero) and
+    rounded back to the table's type. Reported as an all-reduce."""
+    acc = None
+    for m, (w, lo, dev) in enumerate(t):
+        with op_cost.at(model=m):
+            local = ids.to(dev).long() - lo
+            own = (local >= 0) & (local < w.shape[0])
+            rows = torch.where(own[..., None],
+                               w[local.clamp(0, w.shape[0] - 1)],
+                               torch.zeros((), dtype=w.dtype, device=dev))
+            op_cost.collective("all-reduce", rows.numel() * 4,
+                               len(t.parts), "vocab embed")
+        rows = rows.to(ids.device, torch.float32)
+        acc = rows if acc is None else acc + rows
+    return acc.to(t.parts[0].dtype)
+
+
 def embed(p: dict, ids: torch.Tensor) -> torch.Tensor:
     t = p["table"]
+    if isinstance(t, VocabShards):
+        return _embed_shards(t, ids)
     if isinstance(t, QTensor):
         # row-wise dequant of the Q8_0 table: only the gathered rows
         rows = t.qs[ids].to(torch.float32) * t.scales[ids][..., None]

@@ -55,6 +55,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import resolve_device
 from repro_torch.core.tree import LAYER_LISTS, map_with_path
 from repro_torch.models import layers, transformer, whisper
+from repro_torch.roofline import op_cost
 from repro_torch.sharding import ctx, rules
 
 
@@ -184,6 +185,53 @@ def _ce_of_logits(logits: torch.Tensor, labels: torch.Tensor,
     return ((logz - gold) * mask).sum(), mask.sum()
 
 
+def _ce_of_shards(w: layers.VocabShards, x: torch.Tensor,
+                  labels: torch.Tensor, vocab_size: int, engine=None,
+                  name: str = "lm_head"
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``_ce_of_logits`` of the readout ``x @ W^T`` with W's rows split
+    over model shards (``w``): each shard m computes its (..., V / M)
+    logits on its device, in f32, masks the pad columns it holds, and
+    gives its row max, its sum of ``exp(l - max)`` and the gold logit
+    where it holds the label (0 elsewhere), charged to its model entry.
+    These are combined on x's device in f32, in model-shard order, into
+    ``logz - gold``; labels < 0 are masked out of both sums. The maxima
+    are constants to autograd (they cancel in ``logz``), so the gradient
+    is the softmax's. The combine is reported as an all-reduce."""
+    dev = x.device
+    stats = []
+    for m, (wm, lo, d) in enumerate(w):
+        with op_cost.at(model=m):
+            logits = layers.linear({"w": wm}, x.to(d), engine, name).to(
+                torch.float32)
+            v = wm.shape[0]
+            if lo + v > vocab_size:            # pad columns on this shard
+                col = torch.arange(lo, lo + v, device=d)
+                logits = torch.where(col < vocab_size, logits,
+                                     torch.full_like(logits, -1e30))
+            top = logits.amax(-1).detach()
+            sumexp = torch.exp(logits - top[..., None]).sum(-1)
+            local = labels.to(d).long() - lo
+            own = (local >= 0) & (local < v)
+            gold = torch.gather(logits, -1,
+                                local.clamp(0, v - 1)[..., None])[..., 0]
+            gold = torch.where(own, gold, torch.zeros_like(gold))
+            op_cost.collective("all-reduce", 3 * top.numel() * 4,
+                               len(w.parts), "vocab ce")
+        stats.append((top.to(dev), sumexp.to(dev), gold.to(dev)))
+    top = stats[0][0]
+    for t, _, _ in stats[1:]:
+        top = torch.maximum(top, t)
+    total = gold = None
+    for t, se, g in stats:
+        term = se * torch.exp(t - top)
+        total = term if total is None else total + term
+        gold = g if gold is None else gold + g
+    logz = top + torch.log(total)
+    mask = (labels >= 0).to(torch.float32)
+    return ((logz - gold) * mask).sum(), mask.sum()
+
+
 def loss_fn(params: dict, cfg: ModelConfig, batch: dict, *, engine=None,
             attn_chunk: int = 2048, ce_chunk: int = 512
             ) -> Tuple[torch.Tensor, dict]:
@@ -213,21 +261,36 @@ def loss_terms(params: dict, cfg: ModelConfig, batch: dict, *,
     backward, not kept. As a data shard of a mesh step
     (``ctx.train_shard``), ``params`` are the stored pieces: the leaves
     outside the layer lists (embedding, norms, readout, position tables,
-    frontend, projector) are gathered whole onto the shard's first device
-    here, and each block gathers its own as it runs."""
+    frontend, projector) are gathered onto the shard's devices here, and
+    each block gathers its own as it runs. Where ``rules.vocab_layout``
+    splits the vocabulary, each model shard's rows of the embedding and
+    the readout are gathered onto its own device (``layers.VocabShards``):
+    the embedding is looked up a shard at a time and each CE chunk's
+    logits computed a shard at a time (``_ce_of_shards``); the other
+    leaves are gathered whole onto the first device."""
     shard = ctx.current_train_shard()
     if shard is not None:
+        why = rules.vocab_layout(cfg, shard.specs, shard.mesh)
+        rules.TP_BLOCKS[(rules.VOCAB_KEY, why)] += 1
         params = _gather_outside_blocks(params, shard.specs, shard.mesh,
-                                        shard.devices[0])
+                                        shard.devices, why == rules.SPLIT)
     h, aux = hidden_forward(params, cfg, batch, engine=engine,
                             attn_chunk=attn_chunk)
     labels = batch["labels"]
-    readout = whisper_readout if cfg.family == "audio" else _readout
+    audio = cfg.family == "audio"
+    readout = whisper_readout if audio else _readout
     s = h.shape[1]
     n_chunks = s // ce_chunk if (s % ce_chunk == 0 and s > ce_chunk) else 1
     size = s // n_chunks
+    tied = audio or cfg.tie_embeddings
+    w = params["embed"]["table"] if tied else params["lm_head"]["w"]
 
     def chunk_ce(h_i, l_i):
+        if isinstance(w, layers.VocabShards):
+            x = layers.norm_apply(params["dec_norm" if audio else
+                                         "final_norm"], h_i, cfg.norm)
+            return _ce_of_shards(w, x, l_i, cfg.vocab_size, engine,
+                                 "dec.vocab" if tied else "lm_head")
         return _ce_of_logits(readout(params, cfg, h_i, engine), l_i,
                              cfg.vocab_size)
 
@@ -243,16 +306,25 @@ def loss_terms(params: dict, cfg: ModelConfig, batch: dict, *,
     return ce_sum, ntok, aux
 
 
-def _gather_outside_blocks(params: dict, specs: dict, mesh, device,
-                           path=()) -> dict:
+#: the vocabulary leaves' paths in a parameter tree
+VOCAB_PATHS = (("embed", "table"), ("lm_head", "w"))
+
+
+def _gather_outside_blocks(params: dict, specs: dict, mesh, devices,
+                           split_vocab: bool, path=()) -> dict:
     """A split parameter tree with every leaf outside the layer lists
-    gathered whole onto ``device`` (``rules.gather_part``), the layer
-    lists' pieces kept."""
+    gathered whole onto ``devices[0]`` (``rules.gather_part``), the layer
+    lists' pieces kept; with ``split_vocab``, each vocabulary leaf's model
+    part m on ``devices[m]`` (``layers.VocabShards``)."""
     if path in LAYER_LISTS:
         return params
     if rules.is_pieces(params):
-        return rules.gather_part(params, specs, mesh, device)
-    return {k: _gather_outside_blocks(v, specs[k], mesh, device, path + (k,))
+        if split_vocab and path in VOCAB_PATHS:
+            return layers.VocabShards(tuple(rules.gather_model_parts(
+                params, specs, mesh, devices)), tuple(devices))
+        return rules.gather_part(params, specs, mesh, devices[0])
+    return {k: _gather_outside_blocks(v, specs[k], mesh, devices,
+                                      split_vocab, path + (k,))
             for k, v in params.items()}
 
 

@@ -39,19 +39,28 @@ layer adds its statistics (``RouterStats``: the router's probabilities
 summed over the tokens, the tokens' top-1 counts, the token count) to
 the list it yields, and ``load_balance_loss`` forms the Switch loss from
 the statistics summed over the shards, as one program over the whole
-batch does.
+batch does. Where ``sharding.rules.tp_layout`` splits a layer's experts
+over the data shard's M model shards (expert parallelism), the routing,
+the dispatch gather and the combine run on the data shard's first device
+as they do whole; shard m's E / M experts run on its own device over
+their slots, moved there and back (``expert_parallel``: an all-to-all
+each way in the reference's program). A slot belongs to one expert, so
+nothing is summed across the shards and the forward is the whole layer's;
+the capacity, the claim order and the drops do not change. Arctic's dense
+branch then runs as a split dense FFN (``models/transformer.py``).
 """
 from __future__ import annotations
 
 import threading
 from contextlib import contextmanager
-from typing import List, NamedTuple, Sequence, Tuple
+from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers
+from repro_torch.roofline import op_cost
 from repro_torch.sharding import ctx
 
 #: f32 values an expert stack's draw holds at a time (256 MiB): arctic's
@@ -247,11 +256,40 @@ def _experts(p: dict, cfg: ModelConfig, xe: torch.Tensor) -> torch.Tensor:
     return ye.reshape(n_exp, g, c, d).transpose(0, 1)
 
 
-def moe_ffn(p: dict, cfg: ModelConfig, x: torch.Tensor, *, engine=None
+def expert_parallel(parts: Sequence[dict], cfg: ModelConfig,
+                    xe: torch.Tensor, devices) -> torch.Tensor:
+    """``_experts`` split over M model shards: xe (G, E, C, d) ->
+    (G, E, C, d) on xe's device. Shard m takes experts m E/M to (m + 1)
+    E/M: their slots moved to ``devices[m]``, its slices ``parts[m]`` of
+    the expert stacks there, its outputs moved back and joined along E in
+    shard order. Each move is reported as an all-to-all, charged to the
+    shard's model entry with its products."""
+    n = len(parts)
+    per = xe.shape[1] // n
+    out = []
+    for m, (part, dev) in enumerate(zip(parts, devices, strict=True)):
+        with op_cost.at(model=m):
+            xm = xe[:, m * per:(m + 1) * per].to(dev)
+            op_cost.collective("all-to-all", xm.numel() * xm.element_size(),
+                               n, "moe dispatch")
+            ym = _experts(part, cfg, xm).to(xe.device)
+            op_cost.collective("all-to-all", ym.numel() * ym.element_size(),
+                               n, "moe combine")
+        out.append(ym)
+    return torch.cat(out, dim=1)
+
+
+def moe_ffn(p: dict, cfg: ModelConfig, x: torch.Tensor, *, engine=None,
+            experts: Optional[Sequence[dict]] = None, devices=None,
+            dense: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, d) -> (y in x's type, the load-balance loss): grouped
     capacity-based top-k dispatch, every expert over its C slots, the
-    combine, and arctic's dense branch through ``engine``."""
+    combine, and arctic's dense branch through ``engine``. With
+    ``experts`` (a model shard's slices of the expert stacks each, on
+    ``devices``), the experts run split (``expert_parallel``); with
+    ``dense`` (x -> the dense branch's output, as a split dense FFN gives
+    it), the dense branch is that."""
     b, s, d = x.shape
     dt = x.dtype
     r, aux = route(p, cfg, x)
@@ -268,8 +306,11 @@ def moe_ffn(p: dict, cfg: ModelConfig, x: torch.Tensor, *, engine=None
     src.scatter_(1, slot.reshape(g, -1), tok.reshape(g, -1))
     src = src.view(g, n_exp, cap + 1)[..., :cap].reshape(g, n_exp * cap, 1)
     xin = torch.cat([x.reshape(g, tg, d), x.new_zeros((g, 1, d))], dim=1)
-    xe = xin.gather(1, src.expand(g, n_exp * cap, d))
-    ye = _experts(p, cfg, xe.view(g, n_exp, cap, d))
+    xe = xin.gather(1, src.expand(g, n_exp * cap, d)).view(g, n_exp, cap, d)
+    if experts is None:
+        ye = _experts(p, cfg, xe)
+    else:
+        ye = expert_parallel(experts, cfg, xe, devices)
 
     # combine: each token's k slots, weighted in x's type, summed in f32
     grp = torch.arange(g, device=dev).view(g, 1, 1)
@@ -277,7 +318,9 @@ def moe_ffn(p: dict, cfg: ModelConfig, x: torch.Tensor, *, engine=None
     w = (r.weights * r.keep).to(dt)
     y = _sum_choices(w[..., None].float() * picked.float()).to(dt)
     y = y.reshape(b, s, d)
-    if "dense" in p:               # arctic's always-on dense residual branch
+    if dense is not None:
+        y = y + dense(x).to(dt)
+    elif "dense" in p:             # arctic's always-on dense residual branch
         y = y + layers.mlp_apply(p["dense"], x, cfg.act, engine)
     return y.to(dt), aux
 

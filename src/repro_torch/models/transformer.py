@@ -28,7 +28,10 @@ from the normed input copied there, and the row-parallel products'
 partial outputs, each in f32 (``layers.linear(..., f32_out=True)``), are
 summed in f32 in model-shard order on the data shard's first device
 (``sum_partials``) and rounded once to the residual stream's type there,
-where the norms, MoE and SSD layers stay. In 16-bit, the shards' copies
+where the norms, the MoE routing and the SSD layers stay. A MoE layer
+whose experts ``tp_layout`` splits runs shard m's E / M experts on its
+device (``models.moe.expert_parallel``), and arctic's dense branch beside
+them as a split dense FFN (``moe_ffn``). In 16-bit, the shards' copies
 of the normed input are its f32 upcast (``shard_inputs``), so that the
 column-parallel products' input gradients, f32 products
 (``layers.linear(..., f32_grad=True)``), sum in f32 and round once.
@@ -219,15 +222,37 @@ def _apply_block(p: dict, cfg: ModelConfig, spec: LayerSpec,
     x = x + mixed.to(x.dtype)
     if spec.ffn != "none":
         h = layers.norm_apply(p["norm2"], x, cfg.norm)
+
+        def mlp(q, c, hh, **kw):
+            return layers.mlp_apply(q, hh, cfg.act, engine=engine, **kw)
         if spec.ffn == "moe":
-            y, aux = moe_lib.moe_ffn(p["moe"], cfg, h, engine=engine)
+            y, aux = moe_ffn(p["moe"], cfg, h, parts.get("moe"), devices,
+                             mlp, engine)
         else:
-            y = tensor_parallel(
-                lambda q, c, hh, **kw: layers.mlp_apply(
-                    q, hh, cfg.act, engine=engine, **kw),
-                p["ffn"], parts.get("ffn"), cfg, devices, h)
+            y = tensor_parallel(mlp, p["ffn"], parts.get("ffn"), cfg,
+                                devices, h)
         x = x + y.to(x.dtype)
     return x, aux
+
+
+def moe_ffn(p: dict, cfg: ModelConfig, h: torch.Tensor,
+            parts: Optional[list], devices, mlp: Callable[..., torch.Tensor],
+            engine) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A MoE layer: ``moe_lib.moe_ffn`` whole where ``parts`` is None;
+    else its experts split over the model shards where ``parts`` hold
+    their slices (expert parallelism), and arctic's dense branch, where
+    they hold its slices, as a split dense FFN (``tensor_parallel`` of
+    ``mlp``)."""
+    experts = dense = None
+    if parts is not None and "w_up" in parts[0]:
+        experts = parts
+    if parts is not None and "dense" in parts[0]:
+        def dense(x):
+            return tensor_parallel(mlp, p["dense"],
+                                   [q["dense"] for q in parts], cfg,
+                                   devices, x)
+    return moe_lib.moe_ffn(p, cfg, h, engine=engine, experts=experts,
+                           devices=devices, dense=dense)
 
 
 def gather_for_shard(p: dict, shard, specs, layout):
@@ -282,19 +307,27 @@ def remat(fn: Callable[..., Any], cfg: ModelConfig) -> Callable[..., Any]:
     in the backward, "dots" also keeps the outputs of its matrix products,
     "none" runs it as it is. Only where a gradient is recorded
     (``grad_wanted``): without one, a served or inference call runs ``fn``
-    plainly."""
+    plainly. The recompute runs under the data-shard count of the forward
+    (``ctx.shard_program``: a MoE layer's capacity), which the backward
+    does not see otherwise: on the card the autograd engine recomputes on
+    its device thread."""
     if cfg.remat == "none":
         return fn
 
     def run(*args):
         if not grad_wanted(args):
             return fn(*args)
+        shards = ctx.batch_shards()
+
+        def unit(*a):
+            with ctx.shard_program(shards):
+                return fn(*a)
         if cfg.remat == "dots":
-            return checkpoint(fn, *args, use_reentrant=False,
+            return checkpoint(unit, *args, use_reentrant=False,
                               context_fn=functools.partial(
                                   create_selective_checkpoint_contexts,
                                   _dots_policy))
-        return checkpoint(fn, *args, use_reentrant=False)
+        return checkpoint(unit, *args, use_reentrant=False)
     return run
 
 

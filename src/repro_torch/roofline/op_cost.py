@@ -22,8 +22,11 @@ entry it counts:
     ``fill_``, ``zero_``) does not read it;
   * collective bytes: the port's collective sites (``sharding/rules.py``'s
     gathers and scatter, ``train/step.py``'s ``reduce_grads``, the summed
-    partial outputs of ``models/transformer.py``'s tensor parallelism)
-    report themselves through ``collective`` into the entry's
+    partial outputs of ``models/transformer.py``'s tensor parallelism,
+    the expert-parallel MoE's moves of its slots (``models/moe.py``,
+    all-to-all) and the split vocabulary's sums (``models/layers.py``'s
+    embedding, ``models/model.py``'s CE: all-reduce)) report themselves
+    through ``collective`` into the entry's
     ``CollectiveStats``; with no counter active the call does nothing;
   * live and peak bytes: every storage an operation allocates is charged
     to its entry until the storage dies (``StorageWeakRef``); the peak is
@@ -46,8 +49,9 @@ Attribution. A logical entry is named by its coordinates, never by a
 device index (a ``torch.device`` index is 8 bits, too narrow for 256 or
 512 entries, and the dry-run stands every entry on one fake device): the
 sharded code says where it runs through ``at(shard=, model=)`` (a data
-shard of a mesh training step and a model shard of a tensor-parallel
-sub-block; entry = shard x model-size + model, the order of
+shard of a mesh training step and a model shard of a split sub-block,
+its experts or its vocabulary rows, with the gathers of its slices;
+entry = shard x model-size + model, the order of
 ``Mesh.shard_devices``, row-major for the production meshes) or
 ``at(entries=)`` (work every listed entry does alike: each replica of a
 part updating its own copy). The backward runs after every forward frame

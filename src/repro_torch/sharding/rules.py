@@ -36,11 +36,15 @@ A mesh training step gathers a block's leaves as the block runs
 whole or as one model part (over "data" alone: FSDP). ``tp_layout`` says
 which of a block's mixers and FFNs are computed split over "model": an
 attention whose q/k/v outputs and o input are split there and whose query
-and KV heads both divide the model size, a dense FFN whose up/gate
-outputs and down input are split there and whose d_ff divides. MoE
-experts and the SSD mixer are computed whole (what is left of the
-reference's tensor parallelism: expert parallelism, the mixer's inner
-dim over "model"). ``TP_BLOCKS`` counts the outcomes.
+and KV heads both divide the model size, a dense FFN (arctic's MoE dense
+branch too) whose up/gate outputs and down input are split there and
+whose d_ff divides, and a MoE layer's experts (expert parallelism) where
+the expert stacks are split there on their expert dim and the experts
+divide the model size. ``vocab_layout`` says whether the embedding and
+the readout are computed split over their vocabulary rows. The SSD mixer
+is computed whole (what is left of the reference's tensor parallelism:
+the mixer's inner dim over "model", and heads that do not divide).
+``TP_BLOCKS`` counts the outcomes.
 
 Layout. The port keeps a list of per-layer dicts (``enc_blocks``,
 ``dec_blocks``, ``stack/blocks``) and a list of per-layer decode states
@@ -443,16 +447,24 @@ ONE_SHARD = "one model shard"
 HEADS = "heads do not divide the model axis"
 D_FF = "d_ff does not divide the model axis"
 NOT_SPLIT = "its leaves are not split over 'model'"
-EXPERTS = "expert parallelism is not ported"
+EXPERTS = "the experts do not divide the model axis"
+VOCAB = "the stored vocabulary does not divide the model axis"
 SSD = "the SSD mixer over 'model' is not ported"
 
 ATTENTIONS = ("attn", "self_attn", "cross_attn")
 #: the row-parallel linears: input dim split, partial outputs summed,
 #: their bias added once after the sum
 ROW_PARALLEL = ("o", "down")
+#: a MoE layer's expert stacks, (E, in, out), split over "model" on E
+EXPERT_LEAVES = ("w_up", "w_gate", "w_down")
+#: the layout key of arctic's dense branch beside the experts
+MOE_DENSE = "moe/dense"
+#: the layout key of the embedding and the readout
+VOCAB_KEY = "vocab"
 
 #: blocks computed by mesh training steps: {(sub-block key, SPLIT or the
-#: reason it ran whole): count}, one a block a data shard a forward
+#: reason it ran whole): count}, one a block a data shard a forward, and
+#: the vocabulary's once a data shard a forward
 TP_BLOCKS: collections.Counter = collections.Counter()
 
 
@@ -468,42 +480,65 @@ def _split_linears(specs: dict, column, row) -> bool:
             and all(_on_model(specs[lin]["w"], 1) for lin in row))
 
 
+def _outcome(m: int, undivided: Optional[str], split: bool) -> str:
+    """``ONE_SHARD`` on one model shard, else ``undivided`` (the reason a
+    width does not divide, or None), else ``SPLIT`` where the leaves are
+    split over "model", else ``NOT_SPLIT``."""
+    if m == 1:
+        return ONE_SHARD
+    if undivided:
+        return undivided
+    return SPLIT if split else NOT_SPLIT
+
+
 def tp_layout(cfg, block_specs: dict, mesh) -> Dict[str, str]:
     """For each mixer and FFN of a block whose leaves' specs are
     ``block_specs`` (keyed as the block's dict: "attn", "self_attn",
-    "cross_attn", "ffn", "moe", "ssm"): ``SPLIT`` where a mesh step
-    computes it split over ``mesh``'s "model" axis, else why it runs whole
-    on the data shard's first device."""
+    "cross_attn", "ffn", "moe", "ssm"; arctic's dense branch under
+    ``MOE_DENSE``): ``SPLIT`` where a mesh step computes it split over
+    ``mesh``'s "model" axis, else why it runs whole on the data shard's
+    first device."""
     m = _axis_size(mesh, "model")
     out = {}
     for key, sp in block_specs.items():
         if key in ATTENTIONS:
-            if m == 1:
-                out[key] = ONE_SHARD
-            elif cfg.num_heads % m or cfg.num_kv_heads % m:
-                out[key] = HEADS
-            elif not _split_linears(sp, ("q", "k", "v"), ("o",)):
-                out[key] = NOT_SPLIT
-            else:
-                out[key] = SPLIT
+            out[key] = _outcome(
+                m, (cfg.num_heads % m or cfg.num_kv_heads % m) and HEADS,
+                _split_linears(sp, ("q", "k", "v"), ("o",)))
         elif key == "ffn":
-            if m == 1:
-                out[key] = ONE_SHARD
-            elif cfg.d_ff % m:
-                out[key] = D_FF
-            elif not _split_linears(sp, ("up", "gate"), ("down",)):
-                out[key] = NOT_SPLIT
-            else:
-                out[key] = SPLIT
-        elif key in ("moe", "ssm"):
-            out[key] = ONE_SHARD if m == 1 else (EXPERTS if key == "moe"
-                                                 else SSD)
+            out[key] = _outcome(m, cfg.d_ff % m and D_FF,
+                                _split_linears(sp, ("up", "gate"),
+                                               ("down",)))
+        elif key == "moe":
+            out[key] = _outcome(
+                m, cfg.moe.num_experts % m and EXPERTS,
+                all(_on_model(sp[n], 0) for n in EXPERT_LEAVES if n in sp))
+            if "dense" in sp:
+                out[MOE_DENSE] = _outcome(
+                    m, cfg.moe.dense_residual_d_ff % m and D_FF,
+                    _split_linears(sp["dense"], ("up", "gate"), ("down",)))
+        elif key == "ssm":
+            out[key] = ONE_SHARD if m == 1 else SSD
     return out
+
+
+def vocab_layout(cfg, specs: dict, mesh) -> str:
+    """``SPLIT`` where a mesh step computes the embedding and the readout
+    split over ``mesh``'s "model" axis, each model shard over its rows of
+    the stored (padded) vocabulary: the embedding table and any
+    ``lm_head`` split there on dim 0 in the parameter specs ``specs``.
+    Else why they run whole."""
+    m = _axis_size(mesh, "model")
+    leaves = [specs["embed"]["table"]] + (
+        [specs["lm_head"]["w"]] if "lm_head" in specs else [])
+    return _outcome(m, cfg.padded_vocab % m and VOCAB,
+                    all(_on_model(s, 0) for s in leaves))
 
 
 def tp_summary(cfg, specs, mesh) -> Dict[str, int]:
     """{"<sub-block>: <SPLIT or why it runs whole>": its number of layers}
-    over every layer list of a parameter spec tree."""
+    over every layer list of a parameter spec tree, and
+    {"vocab: <outcome>": 1}."""
     counts: collections.Counter = collections.Counter()
     for path in tree_lib.LAYER_LISTS:
         blocks = specs
@@ -512,6 +547,7 @@ def tp_summary(cfg, specs, mesh) -> Dict[str, int]:
         for sp in blocks or ():
             counts.update(f"{k}: {why}"
                           for k, why in tp_layout(cfg, sp, mesh).items())
+    counts[f"{VOCAB_KEY}: {vocab_layout(cfg, specs, mesh)}"] += 1
     return dict(counts)
 
 
@@ -522,31 +558,85 @@ def _gather_whole(sub, specs, mesh, device):
         is_leaf=is_pieces)
 
 
+def gather_model_parts(pieces: Pieces, spec: P, mesh, devices) -> list:
+    """Model part m of a leaf on ``devices[m]`` for each m
+    (``gather_part(..., model=m)``), each charged to model entry m."""
+    out = []
+    for m, dev in enumerate(devices):
+        with op_cost.at(model=m):
+            out.append(gather_part(pieces, spec, mesh, dev, model=m))
+    return out
+
+
+def _gather_linears(sub: dict, sp: dict, mesh, devices
+                    ) -> Tuple[dict, list]:
+    """A split attention's or FFN's linears: (its row-parallel biases,
+    whole on ``devices[0]``; one tree of slices a model shard m on
+    ``devices[m]``)."""
+    whole = {lin: {"b": gather_part(lp["b"], sp[lin]["b"], mesh,
+                                    devices[0])}
+             for lin, lp in sub.items() if lin in ROW_PARALLEL and "b" in lp}
+    parts: list = [{} for _ in devices]
+    for lin, lp in sub.items():
+        for m in range(len(devices)):
+            parts[m][lin] = {}
+        for leaf, x in lp.items():
+            if lin in ROW_PARALLEL and leaf == "b":
+                continue
+            for m, t in enumerate(gather_model_parts(x, sp[lin][leaf],
+                                                     mesh, devices)):
+                parts[m][lin][leaf] = t
+    return whole, parts
+
+
+def _gather_moe(sub: dict, sp: dict, mesh, devices,
+                layout: Dict[str, str]) -> Tuple[dict, Optional[list]]:
+    """A MoE layer's leaves: (the router and whatever runs whole, on
+    ``devices[0]``; None where nothing is split, else one dict a model
+    shard m on ``devices[m]``: its E/M experts' slices of the expert
+    stacks where ``layout`` splits the experts, and under "dense" its
+    slices of arctic's dense branch where ``layout`` splits that)."""
+    whole: dict = {}
+    parts: list = [{} for _ in devices]
+    for name, x in sub.items():
+        if name == "dense" and layout.get(MOE_DENSE) == SPLIT:
+            whole[name], dense = _gather_linears(x, sp[name], mesh, devices)
+            for m, d in enumerate(dense):
+                parts[m][name] = d
+        elif name in EXPERT_LEAVES and layout.get("moe") == SPLIT:
+            for m, t in enumerate(gather_model_parts(x, sp[name], mesh,
+                                                     devices)):
+                parts[m][name] = t
+        else:
+            whole[name] = _gather_whole(x, sp[name], mesh, devices[0])
+    return whole, (parts if parts[0] else None)
+
+
 def gather_block(block: dict, specs: dict, mesh, devices,
                  layout: Dict[str, str]) -> Tuple[dict, Dict[str, list]]:
     """A block's stored leaves (``Pieces``, laid out by ``specs``) as one
     data shard computes them, its model shards on ``devices``: (the
     leaves computed on ``devices[0]``, gathered whole; {each sub-block
     ``layout`` splits: one tree a model shard m, its slices on
-    ``devices[m]``}). A split sub-block's column-parallel leaves and
+    ``devices[m]``, gathered over "data" alone and charged to model entry
+    m}). A split attention's or FFN's column-parallel leaves and
     row-parallel weights are its slices; its row-parallel biases stay in
-    the whole tree, to be added once after the partial outputs' sum."""
+    the whole tree, to be added once after the partial outputs' sum. A
+    MoE layer's router stays whole; its experts' slices and those of
+    arctic's dense branch are split as ``layout`` says
+    (``_gather_moe``)."""
     whole, parts = {}, {}
     for key, sub in block.items():
         sp = specs[key]
-        if layout.get(key) != SPLIT:
+        if key == "moe":
+            whole[key], moe_parts = _gather_moe(sub, sp, mesh, devices,
+                                                layout)
+            if moe_parts is not None:
+                parts[key] = moe_parts
+        elif layout.get(key) == SPLIT:
+            whole[key], parts[key] = _gather_linears(sub, sp, mesh, devices)
+        else:
             whole[key] = _gather_whole(sub, sp, mesh, devices[0])
-            continue
-        whole[key] = {lin: {"b": gather_part(lp["b"], sp[lin]["b"], mesh,
-                                             devices[0])}
-                      for lin, lp in sub.items()
-                      if lin in ROW_PARALLEL and "b" in lp}
-        parts[key] = [
-            {lin: {leaf: gather_part(x, sp[lin][leaf], mesh, dev, model=m)
-                   for leaf, x in lp.items()
-                   if not (lin in ROW_PARALLEL and leaf == "b")}
-             for lin, lp in sub.items()}
-            for m, dev in enumerate(devices)]
     return whole, parts
 
 

@@ -32,8 +32,15 @@ a step computes the unsharded step's function on one controller:
     dividing the model size): model shard m computes its heads and FFN
     columns on its own entry's device, and the row-parallel products' (o,
     down) partial outputs are summed in f32 in model-shard order on the
-    shard's first device, their bias added once after; MoE experts and
-    the SSD mixer run whole there (``models/transformer.py``);
+    shard's first device, their bias added once after; a MoE layer's
+    experts run split as well where E divides the model size (shard m's
+    E / M experts over their dispatched slots on its device: expert
+    parallelism), and the embedding and the readout's CE where the
+    stored vocabulary divides it (each shard over its rows,
+    ``models/model.py``); the SSD mixer runs whole on the first device
+    (``models/transformer.py``). Each model shard's gradients reach its
+    own pieces through the ``.to`` moves and the gathers' ``torch.cat``,
+    as autograd differentiates them: nothing here knows the split;
   * each shard forms ``loss_terms`` on its rows under
     ``shard_program(n)`` (a MoE layer's capacity is the whole step's) and
     its routers' statistics; the loss, formed on the first shard's device,

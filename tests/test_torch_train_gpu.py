@@ -13,7 +13,9 @@ leaf is non-zero (a flash forward without a backward would leave q, k
 and v without one through attention); the same Trainer over the smoke
 mesh of four ``cuda:0`` entries against the unsharded one; a model
 shard's two products (an f32 output, an f32 input gradient) against
-float64; the training CLI on the card.
+float64; the training CLI on the card; olmoe's smoke Trainer over (1,
+2) and (2, 2) meshes of the card, its experts and vocabulary split over
+the model shards, against the unsharded one.
 
 Every test here is marked ``gpu`` and skips without a card. The file
 imports no JAX, so it runs on a machine that has only PyTorch:
@@ -368,3 +370,60 @@ def test_smoke_mesh_of_the_card_matches_the_unsharded_trainer(tmp_path):
     for a, b in zip(tree.leaves(back), tree.leaves(tr.state), strict=True):
         assert torch.equal(a.reshape(-1).view(torch.uint8),
                            b.reshape(-1).view(torch.uint8))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sizes", [(1, 2), (2, 2)])
+def test_expert_parallel_mesh_of_the_card_matches_the_unsharded_trainer(
+        tmp_path, sizes):
+    """``Trainer(mesh=)`` over a (1, 2) and a (2, 2) mesh of ``cuda:0``
+    entries on olmoe's smoke config (capacity factor E / k: nothing
+    drops) under flash attention and full remat, two steps from the
+    unsharded Trainer's init: every MoE layer's experts split over the
+    model shards (2 of 4 a shard) and the vocabulary too, each
+    ``_experts`` call over 2 experts; the losses and gradient norms of
+    both steps within 1e-5 of the unsharded Trainer's on the card (the
+    second step's loss reads the first update)."""
+    dev = _cuda_or_skip()
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import (
+        OptimizerConfig, RunConfig, ShapeConfig)
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.sharding import rules
+    from repro_torch.train.trainer import Trainer
+    base = get_smoke_config("olmoe-1b-7b")
+    cfg = dataclasses.replace(
+        base, attn_impl="flash", remat="full",
+        moe=dataclasses.replace(base.moe, capacity_factor=(
+            base.moe.num_experts / base.moe.experts_per_token)))
+
+    def run(name):
+        return RunConfig(model=cfg, shape=ShapeConfig("t", 64, 2, "train"),
+                         optimizer=OptimizerConfig(lr=1e-3, warmup_steps=1,
+                                                   total_steps=10),
+                         steps=2, checkpoint_every=100,
+                         checkpoint_dir=str(tmp_path / name))
+    one = Trainer(run("one"), device=dev, vocab_cap=64)
+    one.train()
+    mesh = Mesh(sizes, ("data", "model"), [dev] * (sizes[0] * sizes[1]))
+    experts = []
+    real = moe_lib._experts
+
+    def spy(p, c, xe):
+        experts.append(xe.shape[1])
+        return real(p, c, xe)
+    rules.TP_BLOCKS.clear()
+    moe_lib._experts = spy
+    try:
+        tr = Trainer(run("mesh"), mesh=mesh, vocab_cap=64)
+        tr.train()
+    finally:
+        moe_lib._experts = real
+    assert rules.TP_BLOCKS[("moe", rules.SPLIT)] == \
+        2 * sizes[0] * cfg.num_layers
+    assert rules.TP_BLOCKS[("vocab", rules.SPLIT)] == 2 * sizes[0]
+    assert set(experts) == {cfg.moe.num_experts // sizes[1]}
+    for key in ("loss", "grad_norm"):
+        np.testing.assert_allclose([h[key] for h in tr.history],
+                                   [h[key] for h in one.history], rtol=1e-5)

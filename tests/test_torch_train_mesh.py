@@ -26,7 +26,8 @@ block.
   unevenly over the shards, where a mean of the shards' means is off. A
   batch the shards do not divide runs whole on the first.
 - One mesh step against the reference's own step on the same converted
-  state.
+  state: phi3-mini, and olmoe with its experts and vocabulary split over
+  the model axis.
 - Storage: every logical entry holds what ``train_state_specs`` gives it;
   replicas on one physical device are stored once; checkpoints written on
   any mesh, or none, restore onto any other bit for bit.
@@ -448,12 +449,29 @@ def test_mesh_step_matches_the_reference_step():
     port's mesh step over four distinct devices, from the same converted
     state on the same batch: the loss and the gradient norm within 1e-5,
     every updated parameter within 1e-4 of its leaf's largest."""
-    jcfg = jax_smoke_config("phi3-mini-3.8b")
+    _reference_step_case("phi3-mini-3.8b")
+
+
+def test_olmoe_mesh_step_matches_the_reference_step():
+    """The same for olmoe, with capacity factor E / k in both packages:
+    over (2, 2) its experts run split over the model shards (expert
+    parallelism), 2 of 4 a shard, and its vocabulary too."""
+    rules.TP_BLOCKS.clear()
+    _reference_step_case("olmoe-1b-7b")
+    assert rules.TP_BLOCKS[("moe", rules.SPLIT)] == 2 * 2
+    assert rules.TP_BLOCKS[("vocab", rules.SPLIT)] == 2
+
+
+def _reference_step_case(arch):
+    jcfg = jax_smoke_config(arch)
+    cfg = _cfg(arch)
+    if cfg.moe is not None:
+        jcfg = dataclasses.replace(jcfg, moe=dataclasses.replace(
+            jcfg.moe, capacity_factor=cfg.moe.capacity_factor))
     jopt = jax_base.OptimizerConfig(lr=1e-3, warmup_steps=0,
                                     total_steps=10)
     state0 = jax_init_train_state(jax.random.PRNGKey(0), jcfg, jopt,
                                   max_positions=64)
-    cfg = get_smoke_config("phi3-mini-3.8b")
     batch = _batch(cfg)
     jstate, jm = jax.jit(jax_make_train_step(jcfg, jopt))(
         state0, {k: jax.numpy.asarray(v.numpy()) for k, v in batch.items()})

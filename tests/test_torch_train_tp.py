@@ -6,8 +6,9 @@ Meshes: (1, 2) and (2, 2) of repeated ``cpu`` entries, and (2, 2) of four
 distinct ``cpu:i`` entries.
 
 - For every family (phi3-mini, whisper-tiny, olmoe with room for every
-  token, jamba and llava with two KV heads, so that their attention
-  splits): one step's loss within 1e-5 of the unsharded step's, every
+  token, jamba, llava and arctic with two KV heads, so that their
+  attention splits; the MoE layers' experts and arctic's dense branch
+  split too, and every vocabulary): one step's loss within 1e-5 of the unsharded step's, every
   gradient within 1e-4 of its leaf's largest magnitude (a leaf whose
   exact gradient is zero, the key bias, within 1e-6 of the largest
   gradient), and every parameter and f32 moment after the update within
@@ -16,16 +17,21 @@ distinct ``cpu:i`` entries.
   elements of a parameter leaf whose gradient is under 10 Adam eps,
   where Adam's step lr g / (|g| + eps) is steep.
 - The split is real: on (1, 2) each model shard's attention runs Hq / 2
-  query heads, and its slices are gathered onto its own entry's device.
+  query heads, and its slices, and its rows of the embedding and the
+  readout, are gathered onto its own entry's device.
 - The smoke qwen (one KV head) runs its attention whole and its FFN
-  split, and ``TP_BLOCKS`` names the reason; MoE experts and the SSD mixer
-  run whole, counted by theirs.
+  split, and ``TP_BLOCKS`` names the reason; the SSD mixer runs whole,
+  counted by its own; MoE experts, arctic's dense branch and the
+  vocabulary are counted split.
 - Gathers: under ``remat="full"`` every block leaf is gathered twice a
   step onto each (data, model) entry that reads it, under ``"none"``
   once, the leaves outside the blocks once a data shard; no code path
   gathers a whole tree or calls ``gather_leaf``.
 - ``gather_part`` against slicing, and its backward region by region;
-  ``tp_layout`` at the published widths on the production mesh.
+  ``tp_layout`` and ``vocab_layout`` at the published widths on the
+  production mesh (olmoe's 64 and arctic's 128 experts split) and on a
+  model axis of 3 that neither olmoe's experts nor whisper's vocabulary
+  divide.
 """
 import dataclasses
 
@@ -47,7 +53,9 @@ DISTINCT = [torch.device("cpu", i) for i in range(4)]
 MESHES = {"1x2": ((1, 2), [CPU] * 2), "2x2": ((2, 2), [CPU] * 4),
           "2x2-distinct": ((2, 2), DISTINCT)}
 FAMILIES = ["phi3-mini-3.8b", "whisper-tiny", "olmoe-1b-7b",
-            "jamba-v0.1-52b", "llava-next-mistral-7b"]
+            "jamba-v0.1-52b", "llava-next-mistral-7b", "arctic-480b"]
+#: the smoke configs that keep one KV head (their GQA ratio), given two
+TWO_KV = ("jamba-v0.1-52b", "llava-next-mistral-7b", "arctic-480b")
 B, S, PATCHES = 4, 16, 4
 OPT = OptimizerConfig(lr=1e-3, warmup_steps=0, total_steps=10)
 
@@ -69,10 +77,10 @@ def _mesh(name):
 
 
 def _cfg(arch):
-    """The smoke config; jamba's and llava's with two KV heads (their
-    smoke configs keep one, the GQA ratio), a MoE's capacity factor E / k,
-    so that nothing drops."""
-    if arch in ("jamba-v0.1-52b", "llava-next-mistral-7b"):
+    """The smoke config; jamba's, llava's and arctic's with two KV heads
+    (their smoke configs keep one, the GQA ratio), a MoE's capacity factor
+    E / k, so that nothing drops."""
+    if arch in TWO_KV:
         cfg = reduced(get_config(arch), num_kv_heads=2)
     else:
         cfg = get_smoke_config(arch)
@@ -116,7 +124,7 @@ def test_jamba_and_llava_take_two_kv_heads_from_their_published_configs():
     """``reduced`` of the published config is the smoke config; with
     ``num_kv_heads=2`` only the KV heads change (1 -> 2), so that the
     attention divides a model axis of 2."""
-    for arch in ("jamba-v0.1-52b", "llava-next-mistral-7b"):
+    for arch in TWO_KV:
         smoke = get_smoke_config(arch)
         assert reduced(get_config(arch)) == smoke
         assert smoke.num_kv_heads == 1
@@ -196,9 +204,9 @@ def _spy(monkeypatch, module, name, log):
 def test_each_model_shard_runs_its_heads_on_its_own_device(monkeypatch):
     """(1, 2) over two distinct devices: every attention call a block
     makes is one model shard's, with 2 of phi3's 4 query and KV heads;
-    shard m's slices (q, k, v, o, up, gate, down) are gathered as model
-    part m onto entry (0, m)'s device, and every whole leaf onto entry
-    (0, 0)'s."""
+    shard m's slices (q, k, v, o, up, gate, down) and its rows of the
+    embedding and ``lm_head`` are gathered as model part m onto entry (0,
+    m)'s device, and every whole leaf onto entry (0, 0)'s."""
     cfg = _cfg("phi3-mini-3.8b")
     mesh = Mesh((1, 2), ("data", "model"), DISTINCT[:2])
     split, specs = split_train_state(_state(cfg), mesh)
@@ -212,9 +220,11 @@ def test_each_model_shard_runs_its_heads_on_its_own_device(monkeypatch):
         assert args[1].head_dim == cfg.head_dim
     parts = [(kw.get("model"), args[3]) for args, kw in gathers]
     slices = [(m, d) for m, d in parts if m is not None]
-    # 7 sliced leaves (q, k, v, o, up, gate, down) a layer a model shard
+    # 7 sliced leaves (q, k, v, o, up, gate, down) a layer a model shard,
+    # and the two vocabulary leaves
     assert sorted(slices, key=str) == sorted(
-        [(m, DISTINCT[m]) for m in range(2)] * 7 * cfg.num_layers, key=str)
+        [(m, DISTINCT[m]) for m in range(2)] * (7 * cfg.num_layers + 2),
+        key=str)
     assert all(d == DISTINCT[0] for m, d in parts if m is None)
 
 
@@ -235,23 +245,30 @@ def test_qwen_runs_its_attention_whole_and_its_ffn_split():
     mloss, _, _ = mesh_value_and_grad(cfg, split.params, batch,
                                       specs.params, mesh)
     assert dict(rules.TP_BLOCKS) == {("attn", rules.HEADS): cfg.num_layers,
-                                     ("ffn", rules.SPLIT): cfg.num_layers}
+                                     ("ffn", rules.SPLIT): cfg.num_layers,
+                                     ("vocab", rules.SPLIT): 1}
     loss, _, _ = value_and_grad(cfg, whole.params, batch)
     assert float(mloss) == pytest.approx(float(loss), rel=1e-5)
 
 
 @pytest.mark.parametrize("arch,want", [
-    ("olmoe-1b-7b", {("attn", rules.SPLIT): 2,
-                     ("moe", rules.EXPERTS): 2}),
+    ("olmoe-1b-7b", {("attn", rules.SPLIT): 2, ("moe", rules.SPLIT): 2,
+                     ("vocab", rules.SPLIT): 1}),
     ("jamba-v0.1-52b", {("attn", rules.SPLIT): 1, ("ffn", rules.SPLIT): 1,
-                        ("ssm", rules.SSD): 1, ("moe", rules.EXPERTS): 1}),
+                        ("ssm", rules.SSD): 1, ("moe", rules.SPLIT): 1,
+                        ("vocab", rules.SPLIT): 1}),
     ("whisper-tiny", {("attn", rules.SPLIT): 2, ("ffn", rules.SPLIT): 4,
                       ("self_attn", rules.SPLIT): 2,
-                      ("cross_attn", rules.SPLIT): 2}),
+                      ("cross_attn", rules.SPLIT): 2,
+                      ("vocab", rules.SPLIT): 1}),
+    ("arctic-480b", {("attn", rules.SPLIT): 2, ("moe", rules.SPLIT): 2,
+                     ("moe/dense", rules.SPLIT): 2,
+                     ("vocab", rules.SPLIT): 1}),
 ])
 def test_block_counter_by_family(arch, want):
     """``TP_BLOCKS`` counts each sub-block once a block a data shard a
-    forward; on one model shard every sub-block runs whole."""
+    forward, and the vocabulary once a data shard a forward; on one model
+    shard every sub-block and the vocabulary run whole."""
     cfg = _cfg(arch)
     for name, expect in (("1x2", want), ("one", {
             (k, rules.ONE_SHARD): n for (k, _), n in want.items()})):
@@ -339,8 +356,12 @@ def test_tp_layout_at_the_published_widths():
     """On the production (16, 16) mesh (abstract): phi3-mini's 32 heads
     and d_ff 8192 split; whisper-tiny's 6 heads do not divide 16 (its
     attention runs whole, its d_ff of 1536 splits); qwen2.5-14b's 8 KV
-    heads do not either; on a (1, 4) mesh phi3-mini splits 8 heads a
-    shard."""
+    heads do not either; olmoe's 64 experts and arctic's 128 split (4 and
+    8 a shard), and arctic's dense branch (d_ff 4864) with them, while
+    its 8 KV heads keep its attention whole; every vocabulary splits
+    (whisper's stored 51,872 rows, olmoe's 50,304). On a (1, 4) mesh
+    phi3-mini splits 8 heads a shard; on (1, 3) olmoe's experts and
+    whisper's vocabulary do not divide and run whole, by their reasons."""
     prod = make_production_mesh()
 
     def layout(arch, mesh, key="stack"):
@@ -350,30 +371,71 @@ def test_tp_layout_at_the_published_widths():
         sp = (sp["blocks"] if key == "stack" else sp)[0]
         return rules.tp_layout(cfg, sp, mesh)
 
+    def vocab(arch, mesh):
+        cfg = get_config(arch)
+        return rules.vocab_layout(
+            cfg, rules.param_specs(_abstract_vocab(cfg), mesh), mesh)
+
     assert layout("phi3-mini-3.8b", prod) == {"attn": rules.SPLIT,
                                               "ffn": rules.SPLIT}
     assert layout("qwen2.5-14b", prod)["attn"] == rules.HEADS
     assert layout("whisper-tiny", prod, "enc_blocks") == {
         "attn": rules.HEADS, "ffn": rules.SPLIT}
+    assert layout("olmoe-1b-7b", prod) == {"attn": rules.SPLIT,
+                                           "moe": rules.SPLIT}
+    assert layout("arctic-480b", prod) == {
+        "attn": rules.HEADS, "moe": rules.SPLIT, "moe/dense": rules.SPLIT}
     assert layout("phi3-mini-3.8b", Mesh((1, 4), ("data", "model"))) == {
         "attn": rules.SPLIT, "ffn": rules.SPLIT}
+    for arch in ("phi3-mini-3.8b", "whisper-tiny", "olmoe-1b-7b",
+                 "arctic-480b"):
+        assert vocab(arch, prod) == rules.SPLIT, arch
+    three = Mesh((1, 3), ("data", "model"))
+    assert layout("olmoe-1b-7b", three)["moe"] == rules.EXPERTS
+    assert vocab("whisper-tiny", three) == rules.VOCAB
+
+
+def _abstract_vocab(cfg):
+    """The vocabulary leaves of ``cfg``'s parameter tree as meta
+    tensors."""
+    def table():
+        return torch.empty((cfg.padded_vocab, cfg.d_model), device="meta")
+    out = {"embed": {"table": table()}}
+    if not (cfg.tie_embeddings or cfg.family == "audio"):
+        out["lm_head"] = {"w": table()}
+    return out
 
 
 def _abstract_blocks(cfg):
     """One layer's parameter tree of ``cfg`` as meta tensors, under the
-    key a parameter tree holds it at."""
+    key a parameter tree holds it at: attention and a dense FFN, or a MoE
+    layer (its router, expert stacks and any dense branch) for a MoE
+    config."""
     d, hd = cfg.d_model, cfg.head_dim
 
     def lin(n_out, n_in):
         return {"w": torch.empty((n_out, n_in), device="meta")}
 
+    def mlp(d_ff):
+        return {"up": lin(d_ff, d), "down": lin(d, d_ff)}
+
     attn = {"q": lin(cfg.num_heads * hd, d),
             "k": lin(cfg.num_kv_heads * hd, d),
             "v": lin(cfg.num_kv_heads * hd, d),
             "o": lin(d, cfg.num_heads * hd)}
-    ffn = {"up": lin(cfg.d_ff, d), "down": lin(d, cfg.d_ff)}
     block = {"norm1": {"scale": torch.empty((d,), device="meta")},
-             "attn": attn, "ffn": ffn}
+             "attn": attn}
+    if cfg.moe is None:
+        block["ffn"] = mlp(cfg.d_ff)
+    else:
+        e, dff = cfg.moe.num_experts, cfg.moe.d_ff
+        block["moe"] = {
+            "router": lin(e, d),
+            "w_up": torch.empty((e, d, dff), device="meta"),
+            "w_gate": torch.empty((e, d, dff), device="meta"),
+            "w_down": torch.empty((e, dff, d), device="meta")}
+        if cfg.moe.dense_residual_d_ff:
+            block["moe"]["dense"] = mlp(cfg.moe.dense_residual_d_ff)
     if cfg.family == "audio":
         return {"enc_blocks": [block]}
     return {"stack": {"blocks": [block]}}
