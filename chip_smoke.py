@@ -275,12 +275,27 @@ own kernels with nvcc. Phases, each of which fails the run on error:
        (every leaf the same tensor: no second draw): tokens equal c's
        streams, one slot-step build captured once a shard (and the
        admissions' batch-1 step); a warm drive's tokens a second beside
-       c's. Its launches count under "sharded".
+       c's. Then over "model" (``lm_tp``): a new engine on a (1, 4) mesh
+       of the card from the same weights (every split leaf's parts views
+       of them, no bytes added), attention (40 heads over 8 KV heads),
+       FFN and vocabulary split four ways; a batch-1 ``generate`` (16 +
+       16 tokens) and 4 requests over 4 slots (8 + 8 tokens). First the
+       f32 witness, the same weights with f32 activations, unsharded and
+       over (1, 4): its tokens equal, exactly. Then the bf16 floor, the
+       unsharded engine's logits along its tokens against the witness's
+       (``tie_floor``), before the bf16 run over (1, 4): its tokens equal
+       the unsharded engine's or first part at a near-tie (``tie_check``:
+       the witness's logits there hold the two picks within twice the
+       floor); the next-token logits after 4 prompt tokens within 5e-2
+       of the unsharded engine's largest (48 bf16 layers); host and
+       device ms beside the unsharded engine's, the slot step's top
+       kernels. Its launches count under "sharded".
     d. ``kv_quant="q8"``: one captured batch-1 ``generate`` whose tokens
        equal its eager loop's.
     ``lm ...`` lines, then ``lm phase: N s``. Phase 2 holds both decode
     kernels at its shapes at M = 1 and 4 (``per`` "qwen2.5-14b decode
-    step" and "qwen2.5-14b slot step").
+    step" and "qwen2.5-14b slot step"), and ``q8_matvec`` at a model
+    shard's launches of the (1, 4) step ("qwen2.5-14b tp step (1, 4)").
 
 15. The MoE family (``moe_phase``), in bf16 (``quant="none"``: the
     reference fails on Q8_0 expert stacks), weights drawn on the card
@@ -434,7 +449,27 @@ own kernels with nvcc. Phases, each of which fails the run on error:
        unsharded waves'; the window and the draft step built once and
        captured once a shard; the round schedulers refuse the mesh, as
        the reference's do.
-    ``sharded ...`` lines, then ``sharded phase: N s``. Phase 2 holds
+    d. tensor parallelism over "model" (``tp_path``): whisper-tiny at
+       full width, Q8_0 and dense + flash, a new engine (max_len 56, no
+       EOS) unsharded and over (1, 2), (2, 2) and (1, 4) meshes of the
+       card: a batch-1 ``transcribe`` of 24 tokens and phase 10's trace
+       over 4 slots. Before any sharded run, the bf16 floor: the
+       unsharded engine's logits along its transcribe against the f32
+       witness's (the same weights, Q8_0 dequantized, served in f32 by
+       plain PyTorch; ``tie_floor``). Tokens equal the unsharded
+       engine's: exactly on Q8_0; on dense + flash, or first part at a
+       near-tie (``tie_check``: the witness's logits there hold the two
+       picks within twice the floor); the first decode step's logits
+       within 1e-2 (Q8_0) or 3e-2 (dense) of the largest; the
+       transcribe's host prefill ms and decode ms a token, the batch-1
+       step graph's and the 4-row slot step's device ms, the launches by
+       kernel, and the blocks split or whole by reason (on (1, 4)
+       whisper's 6 heads run whole: ``tp ... (1, 4) blocks``).
+    ``sharded ...`` and ``tp ...`` lines, then ``sharded phase: N s``.
+    Phase 2 holds ``q8_matvec`` and ``bf16_matmul`` at the (1, 2)
+    step's model-shard launches (``per`` "tp decode step (1, 2)"), and
+    ``q8_matmul``, ``bf16_matmul`` and ``flash_attention_fwd`` at the
+    (1, 2) prefill's (``per`` "tp prefill (1, 2)"). It holds
     ``q8_matvec`` at the data-4 step's shapes (``per`` "sharded slot step
     data=4": each decode linear 4 x at M = 1), whose bytes are four
     graphs' weight streams; the step's own byte bound, the weights once,
@@ -640,6 +675,26 @@ SHARD_STEP_DATA = 4
 MATVEC_SHARDED_SHAPES = [(*shape[:4], SHARD_STEP_DATA * shape[4], shape[5])
                          for shape in MATVEC_SHAPES]
 BF16_PAGED_SHAPES = [(12, *shape[1:]) for shape in BF16_STEP_SHAPES]
+# a decode step over "model" (phase 18d, (1, 2)): each model shard's
+# launches, both shards' counted; q/k/v and cross q at N / 2, ffn.up at
+# N / 2, ffn.down at K / 2 and dec.vocab at N / 2. The o products' K / 2
+# = 192 falls under the 256 burst: they run on the host arm, no kernel
+TP_STEP = [(192, 256, 384, 32),       # self q/k/v + cross q, 4 layers x 2
+           (768, 256, 384, 8),        # ffn.up
+           (384, 768, 1536, 8),       # ffn.down: a view of the rows
+           (25936, 256, 384, 2)]      # dec.vocab
+MATVEC_TP_SHAPES = [(1, n, km, k, c, "float32") for n, km, k, c in TP_STEP]
+BF16_TP_SHAPES = [(1, n, km, k, c, "bfloat16") for n, km, k, c in TP_STEP]
+# a prefill over "model" (phase 18d, (1, 2)), both shards' launches: the
+# encoder's q/k/v and the decoder's cross k/v at N / 2, enc ffn.up at
+# N / 2, enc ffn.down at K / 2 (the o products' K / 2 on the host arm, as
+# in the step); flash over each shard's 3 of the 6 heads
+TP_PREFILL = [(192, 256, 384, 40),    # enc q/k/v + cross k/v, 4 layers x 2
+              (768, 256, 384, 8),     # enc ffn.up
+              (384, 768, 1536, 8)]    # enc ffn.down
+MATMUL_TP_SHAPES = [(1500, n, km, k, c, "bfloat16")
+                    for n, km, k, c in TP_PREFILL]
+FLASH_TP_SHAPES = [(3, 1500, 1500, 64, 8, "bfloat16", False)]
 # whisper-base's decode linears, the verifier's (phase 12): (n, k, launches
 # a step or a window); burst 256 divides every K, so k_main = K
 BASE_DECODE = [(512, 512, 36),     # self q/k/v/o + cross q/o, 6 layers
@@ -667,6 +722,16 @@ QWEN_DECODE = [(5120, 5120, 96),      # attn.q and attn.o, 48 layers
 # and at M = 4, the 4-slot step's (phase 14)
 QWEN_M1 = [(1, n, k, k, c, "bfloat16") for n, k, c in QWEN_DECODE]
 QWEN_M4 = [(4, n, k, k, c, "bfloat16") for n, k, c in QWEN_DECODE]
+# the same step over "model" (14e, (1, 4)): each of 4 model shards'
+# launches (all counted): q, k, v, gate, up and lm_head at N / 4, o at
+# K / 4, down at K / 4 (3456: 3328 on the kernel, 128 on the host arm),
+# the row-parallel slices views of the whole weight's rows
+QWEN_TP_M1 = [(1, 1280, 5120, 5120, 192, "bfloat16"),
+              (1, 256, 5120, 5120, 384, "bfloat16"),
+              (1, 5120, 1280, 5120, 192, "bfloat16"),
+              (1, 3456, 5120, 5120, 384, "bfloat16"),
+              (1, 5120, 3328, 13824, 192, "bfloat16"),
+              (1, 38016, 5120, 5120, 4, "bfloat16")]
 # phase 15, the MoE family in bf16: the engine's linears of an olmoe-1b-7b
 # step (q/k/v/o at 2048 -> 2048, 16 layers, and lm_head), at M = 1 and at
 # M = 4 (the 4-slot step), and of arctic-480b's one-layer step (q and o
@@ -754,6 +819,8 @@ KERNELS = {
                               "paged slot step": MATVEC_PAGED_SHAPES,
                               "sharded slot step data=4":
                                   MATVEC_SHARDED_SHAPES,
+                              "tp decode step (1, 2)": MATVEC_TP_SHAPES,
+                              "qwen2.5-14b tp step (1, 4)": QWEN_TP_M1,
                               "whisper-base decode step": BASE_STEP_Q8,
                               "verify window M=5": WINDOW5_Q8,
                               "qwen2.5-14b decode step": QWEN_M1,
@@ -768,6 +835,7 @@ KERNELS = {
     "q8_matmul": dict(source="src/repro_torch/csrc/q8_matmul.cu",
                       replaces="src/repro/kernels/q8_matmul.py:87",
                       shapes={"prefill": MATMUL_SHAPES,
+                              "tp prefill (1, 2)": MATMUL_TP_SHAPES,
                               "verify window M=28": WINDOW28_Q8,
                               "llava forward": LLAVA_FWD},
                       library_call="torch.matmul(x_f32, W_dequantized_f32.T):"
@@ -780,6 +848,8 @@ KERNELS = {
                                 "tuned prefill frontend": BF16_FRONTEND,
                                 "slot decode step": BF16_SLOT_SHAPES,
                                 "paged slot step": BF16_PAGED_SHAPES,
+                                "tp decode step (1, 2)": BF16_TP_SHAPES,
+                                "tp prefill (1, 2)": MATMUL_TP_SHAPES,
                                 "verify window M=5": WINDOW5_BF16,
                                 "verify window M=28": WINDOW28_BF16,
                                 "qwen2.5-14b decode step": QWEN_M1,
@@ -801,7 +871,9 @@ KERNELS = {
     "flash_attention_fwd": dict(
         source="src/repro_torch/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:94",
-        shapes={"prefill": FLASH_SHAPES, "llava forward": FLASH_LLAVA,
+        shapes={"prefill": FLASH_SHAPES,
+                "tp prefill (1, 2)": FLASH_TP_SHAPES,
+                "llava forward": FLASH_LLAVA,
                 "phi3-mini forward": FLASH_PHI3},
         library_call="torch.nn.functional.scaled_dot_product_attention on "
                      "the same bf16 q, k, v as (1, BH, S, D) (bf16 output; "
@@ -936,12 +1008,47 @@ LM_SCHED_BUDGETS = (8, 32)
 LM_KVQ_NEW = 32                   # 14d: one batch-1 request, int8 KV
 LM_EAGER = 16                     # the eager loops' prompt and new tokens
 LM_SHARD_DATA = 2                 # 14e: 14c's trace over a data-2 mesh
+# 14e over (1, 4): every width divides by 4 (40 heads, 8 KV heads, d_ff
+# 13,824, vocabulary 152,064); one batch-1 generate of LM_TP_NEW tokens
+# after an LM_TP_PROMPT-token prompt, and LM_SLOTS short requests over
+# LM_SLOTS slots (an eager step takes ~157 ms there: the floor and the
+# near-tie checks step the prompts eagerly, so they stay short); the same
+# drive with f32 activations over the same Q8_0 weights (the witness)
+LM_TP_MESH = (1, 4)
+LM_TP_PROMPT = 16
+LM_TP_NEW = 16
+LM_TP_SCHED_PROMPT = 8            # LM_SLOTS requests over LM_SLOTS slots
+LM_TP_SCHED_NEW = 8
+LM_TP_CHECK = 4                   # the logits check's prompt tokens
+LM_TP_REPLAYS = 10                # step replays timed by CUDA events
+# the next token's logits after LM_TP_CHECK prompt tokens, sharded
+# against unsharded (bf16, both eager), of the unsharded largest: 48
+# layers of seeded random weights carry bf16 rounding far, and the split
+# products round in another order; a wrong layout moves the logits by
+# O(1)
+LM_TP_TOL = 5e-2
+# near-ties (``tie_check``): a sharded bf16 run may first part from the
+# unsharded one only where the f32 witness holds the two picks within
+# TIE_FACTOR times the unsharded run's own spread from the witness,
+# measured before any sharded run (``tie_floor``): two runs each within
+# e of the f32 logits can pick apart only where the picks lie within 2 e
+TIE_FACTOR = 2.0
 # phase 18, sharded serving over meshes of logical devices, all the card:
 # whisper-tiny at data 4 and 2 (18a), the paged pool at 4 (18b), the
 # speculative waves at 2 (18c)
 SHARD_DATAS = (SHARD_STEP_DATA, 2)
 SHARD_PG_DATA = 4
 SHARD_SPEC_DATA = 2
+# 18d, tensor parallelism over "model" (whisper-tiny at full width): the
+# (data, model) meshes of the card, one batch-1 transcribe of TP_NEW
+# tokens and phase 10's trace over SLOTS slots each; the first decode
+# step's logits against the unsharded engine's, of its largest (bf16:
+# the split products' f32 partial sums round once, where the whole
+# product rounds its own f32 sum)
+TP_MESHES = ((1, 2), (2, 2), (1, 4))
+TP_NEW = 24
+TP_LOGIT_TOL = {"q8_0": 1e-2, "dense+flash": 3e-2}
+TP_EXACT = ("q8_0",)              # paths held to the unsharded tokens exactly
 # profiled windows of replayed LM steps lose a kernel record now and then
 # on the card (one to nine of 36,000 in 8 steps; one in every window of
 # 2 steps, window after window, late in a long run). So a spin kernel
@@ -4339,9 +4446,223 @@ def sharded_spec(spec_params, counted):
     return launches, out
 
 
+def _tp_mesh(data: int, model: int):
+    """A serving mesh of (data, model) logical devices, all the card."""
+    import torch
+    from repro_torch.launch.mesh import make_serve_mesh
+    return make_serve_mesh(data, model,
+                           devices=[torch.device("cuda:0")] * (data * model))
+
+
+def _forced_logits(eng, seq, mel=None):
+    """An engine's logits at each token of ``seq`` (ints), fed one at a
+    time by ``serve_step`` (eager) over its batch-1 buffers and serving
+    weights (split over "model" on a mesh): whisper's after the prefill
+    of ``mel`` (1, F, n_mels), an LM's from empty caches. (len(seq), V)
+    f32 on the host: row i the logits that pick the token after
+    ``seq[:i + 1]``."""
+    import torch
+    from repro_torch.models import model as model_lib
+    st = (eng._lm_static_for(1) if mel is None
+          else eng._static_for(1, mel.shape[1]))
+    rows = []
+    with torch.no_grad():
+        if mel is None:
+            for t in model_lib.state_tensors(st.state):
+                t.zero_()
+        else:
+            st.mel.copy_(torch.as_tensor(mel))
+            eng._prefill_fn(st)
+        for t in seq:
+            tok = torch.full((1, 1), int(t), dtype=torch.long,
+                             device=st.device)
+            logits, _ = model_lib.serve_step(eng._params_on(st.device),
+                                             eng.cfg, tok, st.state,
+                                             engine=eng.offload)
+            rows.append(logits[0, -1, :eng.cfg.vocab_size].float())
+    return torch.stack(rows).cpu()
+
+
+def logit_spread(got, ref) -> float:
+    """The largest |got - ref| of two runs' logits (rows of tokens), each
+    row's of ``ref``'s largest |logit| there."""
+    return float(((got - ref).abs().amax(-1)
+                  / ref.abs().amax(-1)).max())
+
+
+def tie_floor(bf16_rows, f32_rows) -> dict:
+    """The bf16 floor of an unsharded run, measured before any sharded
+    run: its logits' spread from its f32 witness's (``logit_spread``)
+    along its own tokens, and the tie bound TIE_FACTOR times it."""
+    floor = logit_spread(bf16_rows, f32_rows)
+    return {"floor": floor, "bound": TIE_FACTOR * floor}
+
+
+def tie_check(ref_at, want, got, bound: float) -> dict:
+    """Whether a sharded run's tokens ``got`` are the unsharded ``want``,
+    or first part at a near-tie: at their first difference j the f32
+    witness's logits there (``ref_at(j)``, after ``want[:j]``) hold the
+    two picks within ``bound`` (``tie_floor``) of their largest |logit|
+    of each other. Returns {"equal", "first_diff", "gap", "tie"}."""
+    j = next((i for i, (a, b) in enumerate(zip(want, got)) if a != b),
+             None)
+    if j is None:
+        same = len(want) == len(got)
+        return {"equal": same, "tie": False, "gap": None,
+                "first_diff": None if same else min(len(want), len(got))}
+    logits = ref_at(j)
+    gap = abs(float(logits[want[j]] - logits[got[j]])) / float(
+        logits.abs().max())
+    return {"equal": False, "first_diff": j, "gap": gap,
+            "tie": gap <= bound}
+
+
+def _ties_ok(checks) -> bool:
+    return all(c["equal"] or c["tie"] for c in checks)
+
+
+def _tp_drive(eng, mels, max_news, f: int):
+    """A batch-1 ``transcribe`` of ``mels[0]`` (TP_NEW tokens), then
+    phase 10's trace over SLOTS slots: (its tokens, the scheduler's
+    tokens, the transcribe's result, the scheduler)."""
+    res = eng.transcribe(mels[0], max_new=TP_NEW)[0]
+    sched = eng.scheduler(SLOTS, f)
+    rids, *_ = _drain_waves(sched, mels, max_news)
+    got = sched.run()
+    return res.tokens, [got[r].tokens for r in rids], res, sched
+
+
+def _tp_step_ms(eng, f: int):
+    """Device ms of one replay of the batch-1 step graph at (1, f)."""
+    prog = eng._graphs[eng._key("step", 1, f)]
+    return device_ms(prog.graph.replay)
+
+
+def tp_path(label, eng0, counted, n_req):
+    """Phase 18d on one path: whisper-tiny at full width with ``eng0``'s
+    weights and quantization, unsharded and then over each of TP_MESHES
+    (all the card), each a new engine (max_len CB_MAX_LEN, no EOS). The
+    launch counts are zeroed before each engine's drive (``_tp_drive``)
+    and read after it. Before any sharded run, the bf16 floor
+    (``tie_floor``): the unsharded engine's logits along its transcribe
+    against the f32 witness's, the same weights (Q8_0 dequantized)
+    served in f32 by plain PyTorch on the card (no kernel). Gates: the
+    transcribe's and the scheduler's tokens equal the unsharded
+    engine's, exactly on the TP_EXACT paths, else or up to a near-tie
+    (``tie_check`` at the floor's bound over the witness's logits); the
+    first decode step's logits within TP_LOGIT_TOL of its largest.
+    Printed beside the unsharded engine's: the transcribe's host prefill
+    ms and decode ms a token, the batch-1 step graph's device ms, the
+    slot step's device ms and host wall ms a step (profiled), the
+    launches by kernel, and which blocks ran split or whole and why
+    (``rules.tp_summary``). On one card this measures the machinery,
+    not scaling. Returns (launches, summary by mesh)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.core import tree
+    from repro_torch.core.offload import OffloadEngine
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.sharding import rules
+
+    cfg = eng0.cfg
+    f = cfg.encoder_ctx
+    mels, max_news, _ = _cb_workload(cfg, n_req)
+    tol = TP_LOGIT_TOL[label]
+    total = {name: 0 for name in counted}
+
+    def make(mesh):
+        return ServeEngine(cfg, eng0.params, max_len=CB_MAX_LEN,
+                           quant=eng0._serve_quant, offload=OffloadEngine(),
+                           eos_id=-1, device="cuda", mesh=mesh)
+
+    def measure(eng):
+        torch.cuda.synchronize()
+        _take(counted, total)
+        one_tok, sched_tok, res, sched = _tp_drive(eng, mels, max_news, f)
+        got = _read(counted)
+        _take(counted, total)
+        kernels, _, wall = _profile_sharded_steps(sched)
+        step_ms, source = _tp_step_ms(eng, f)
+        logits = _forced_logits(eng, [1], mels[0])[0]
+        _take(counted, total)
+        return one_tok, sched_tok, logits, dict(
+            launches=got, prefill_host_ms=res.prefill_s * 1e3,
+            decode_host_ms_per_token=res.decode_s * 1e3 / TP_NEW,
+            step_device_ms=step_ms, step_device_ms_source=source,
+            slot_step_device_ms=sum(ms for _, ms in kernels.values()),
+            slot_step_wall_ms_profiled=wall,
+            step_captures=eng._step_captures, step_builds=eng._step_builds)
+
+    one = make(None)
+    want_one, want_sched, want_logits, base = measure(one)
+    out = {"unsharded": base}
+    print(f"tp {label} unsharded: {json.dumps(base)}", flush=True)
+    scale = float(want_logits.abs().max())
+    witness = ServeEngine(
+        dataclasses.replace(cfg, dtype="float32", param_dtype="float32",
+                            attn_impl="chunked"),
+        tree.map_with_path(lambda _, x: x.float() if torch.is_tensor(x)
+                           and x.is_floating_point() else x, eng0.params),
+        max_len=CB_MAX_LEN, quant=eng0._serve_quant, offload=None,
+        eos_id=-1, device="cuda")
+    streams = [want_one] + want_sched
+    rows = {}
+
+    def ref_rows(s):
+        """The witness's logits along stream s's unsharded tokens."""
+        if s not in rows:
+            rows[s] = _forced_logits(witness, [1] + streams[s][:-1],
+                                     ([mels[0]] + mels)[s])
+        return rows[s]
+    floor = tie_floor(_forced_logits(one, [1] + want_one[:-1], mels[0]),
+                      ref_rows(0))
+    _take(counted, total)
+    out["floor"] = floor
+    print(f"tp {label} floor (before any sharded run): "
+          f"{json.dumps(floor)}", flush=True)
+    for data, model in TP_MESHES:
+        mesh = _tp_mesh(data, model)
+        eng = make(mesh)
+        one_tok, sched_tok, logits, row = measure(eng)
+        err = float((logits - want_logits).abs().max()) / scale
+        blocks = rules.tp_summary(cfg, rules.serve_param_specs(
+            eng._serve_params, mesh), mesh)
+        ties = [tie_check(lambda j, s=s: ref_rows(s)[j], w, g,
+                          floor["bound"])
+                for s, (w, g) in enumerate(zip(streams,
+                                               [one_tok] + sched_tok))]
+        _take(counted, total)
+        row.update(data=data, model=model, logit_err=err,
+                   logit_tol=tol, tokens_equal=one_tok == want_one,
+                   sched_tokens_equal=sched_tok == want_sched,
+                   differing=[t for t in ties if not t["equal"]],
+                   tie_bound=floor["bound"],
+                   blocks=blocks, kv_split=any(
+                       v is not None for v in eng._kv_devices.values()))
+        out[f"{data}x{model}"] = row
+        print(f"tp {label} ({data}, {model}): {json.dumps(row)}",
+              flush=True)
+        if model == 4:
+            print(f"tp {label} (1, 4) blocks (split, or why whole): "
+                  f"{json.dumps(blocks)}", flush=True)
+        if not all(t["equal"] for t in ties) and (
+                label in TP_EXACT or not _ties_ok(ties)):
+            how = "" if label in TP_EXACT else " past a near-tie"
+            raise AssertionError(f"tp {label} ({data}, {model}): tokens "
+                                 f"differ from the unsharded engine's{how}"
+                                 f": {ties}")
+        if not err <= tol:
+            raise AssertionError(f"tp {label} ({data}, {model}): logits "
+                                 f"{err} of the largest > {tol}")
+        del eng
+    del one, witness
+    return total, out
+
+
 def sharded_phase(q8_eng, d_eng, counted, slot4, spec_params):
-    """Phase 18: 18a (both paths at SHARD_DATAS), 18b and 18c. Returns
-    (the phase's Python launches by kernel, its summary)."""
+    """Phase 18: 18a (both paths at SHARD_DATAS), 18b, 18c and 18d.
+    Returns (the phase's Python launches by kernel, its summary)."""
     from repro_torch.core import energy
 
     t0 = time.perf_counter()
@@ -4362,7 +4683,11 @@ def sharded_phase(q8_eng, d_eng, counted, slot4, spec_params):
     for key, fn in (("paged", lambda: sharded_paged(q8_eng, counted,
                                                     power_w)),
                     ("speculative", lambda: sharded_spec(spec_params,
-                                                         counted))):
+                                                         counted)),
+                    ("tp q8_0", lambda: tp_path("q8_0", q8_eng, counted,
+                                                CB_REQUESTS)),
+                    ("tp dense+flash", lambda: tp_path(
+                        "dense+flash", d_eng, counted, CB_DENSE_REQUESTS))):
         got, summary[key] = fn()
         for name, c in got.items():
             total[name] += c
@@ -4856,6 +5181,198 @@ def lm_sharded(eng, counted, total, sharded, sched_out):
     return out
 
 
+def _top_of_one(fn, top: int = 8):
+    """The top kernels of one profiled call of ``fn`` (a graph replay):
+    [(name, launches, device ms)]."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _open_window()
+        fn()
+        torch.cuda.synchronize()
+    return _top_kernels(prof, 1, top)
+
+
+def _lm_first(eng, p) -> int:
+    """The token an LM engine's batch-1 step program picks at the last
+    position of prompt ``p`` (1-D): the first input of ``generate``'s
+    greedy loop and of a slot's decode (both return the tokens after
+    it), read from the program's token buffer."""
+    eng.generate(p[None], max_new=1)
+    return int(eng._lm_static_for(1).tokens[0, len(p) - 1])
+
+
+def lm_tp(eng, counted, sharded):
+    """14e over "model": a new Q8_0 engine on a LM_TP_MESH mesh of the
+    card built from ``eng``'s serving weights (every split leaf's parts
+    views of them: no copy), its attention, FFNs and vocabulary split
+    four ways. The drive: a batch-1 ``generate`` (LM_TP_PROMPT +
+    LM_TP_NEW tokens) and LM_SLOTS requests through a LM_SLOTS-slot pool
+    (LM_TP_SCHED_PROMPT + LM_TP_SCHED_NEW). Gates, each set before the
+    sharded bf16 run:
+    - the witness: the same Q8_0 weights served with f32 activations
+      (``cfg`` at dtype float32), unsharded and over the mesh: the
+      drive's tokens equal, exactly;
+    - the bf16 floor (``tie_floor``): ``eng``'s logits along its
+      generate's tokens against the unsharded witness's;
+    - bf16 over the mesh: the drive's tokens, each stream from its first
+      input (``_lm_first``), equal ``eng``'s, each or up to a near-tie
+      (``tie_check`` over the witness's logits at the floor's bound);
+      the next token's logits after LM_TP_CHECK prompt
+      tokens (both engines stepped eagerly, ``_forced_logits``) within
+      LM_TP_TOL of ``eng``'s largest.
+    Printed beside ``eng``'s: the generate's host prefill ms and decode
+    ms a token, the batch-1 step graph's and the LM_SLOTS-slot step's
+    ms a replay by CUDA events over LM_TP_REPLAYS back-to-back replays
+    (the card's time and its gaps: the profiler takes minutes over the
+    split step's 5,000 kernels), the split slot step's top kernels from
+    one profiled replay, the bf16 drive's launches by kernel, the
+    stages' seconds. On one card this measures the machinery, not
+    scaling. Its Python launches go to ``sharded``; returns the
+    summary."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.core.offload import OffloadEngine
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.sharding import rules
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(5)
+    prompt = rng.integers(0, eng.cfg.vocab_size,
+                          (1, LM_TP_PROMPT)).astype(np.int32)
+    n = LM_SLOTS
+    prompts = [rng.integers(0, eng.cfg.vocab_size,
+                            LM_TP_SCHED_PROMPT).astype(np.int32)
+               for _ in range(n)]
+    stages = {}
+
+    def mark(name):
+        torch.cuda.synchronize()
+        stages[name] = time.perf_counter() - t0 - sum(stages.values())
+
+    def make(cfg, mesh=None):
+        return ServeEngine(cfg, eng._serve_params, max_len=LM_MAX_LEN,
+                           quant="q8_0", offload=OffloadEngine(),
+                           eos_id=None, device="cuda", mesh=mesh)
+
+    def drive(e):
+        res = e.generate(prompt, max_new=LM_TP_NEW)[0]
+        sched = e.scheduler(n_slots=n)
+        rids = [sched.submit(p, max_new=LM_TP_SCHED_NEW) for p in prompts]
+        got = sched.run()
+        return res, [got[r].tokens for r in rids], sched
+
+    _take(counted, sharded)
+    want, streams, base = drive(eng)
+    base_step = wall_ms(eng._graphs[eng._key("step", 1)].graph.replay,
+                        LM_TP_REPLAYS)
+    base_slot = wall_ms(lambda: base._replay_all(base._programs),
+                        LM_TP_REPLAYS)
+    _take(counted, sharded)
+    mark("unsharded")
+    ps = [prompt[0]] + prompts
+    # each stream from its first input on (``_lm_first``)
+    wants = [[_lm_first(eng, p)] + w
+             for p, w in zip(ps, [want.tokens] + streams)]
+    _take(counted, sharded)
+    witness = make(dataclasses.replace(eng.cfg, dtype="float32"))
+    rows = {}
+
+    def forced(e, s):
+        """``e``'s logits that pick stream s's unsharded tokens."""
+        p = ps[s]
+        return _forced_logits(e, np.concatenate(
+            [p, np.asarray(wants[s][:-1], dtype=p.dtype)]))[len(p) - 1:]
+
+    def ref_rows(s):
+        if s not in rows:
+            rows[s] = forced(witness, s)
+        return rows[s]
+    floor = tie_floor(forced(eng, 0), ref_rows(0))
+    print(f"lm tp (14e) floor (before any sharded run): "
+          f"{json.dumps(floor)}", flush=True)
+    mark("floor")
+    mesh = _tp_mesh(*LM_TP_MESH)
+    w_want, w_streams, _ = drive(witness)
+    w_tp = make(witness.cfg, mesh)
+    w_got, w_toks, _ = drive(w_tp)
+    checked = dict(tokens_equal=w_got.tokens == w_want.tokens,
+                   sched_tokens_equal=w_toks == w_streams,
+                   tokens=[w_want.tokens] + w_streams)
+    del w_tp
+    _take(counted, sharded)
+    mark("witness")
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    tp = make(eng.cfg, mesh)
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_allocated() - mem0
+    mark("engine")
+    got = tp.generate(prompt, max_new=LM_TP_NEW)[0]
+    mark("generate")
+    sched = tp.scheduler(n_slots=n)
+    rids = [sched.submit(p, max_new=LM_TP_SCHED_NEW) for p in prompts]
+    res = sched.run()
+    mark("scheduler")
+    toks = [res[r].tokens for r in rids]
+    launches = _read(counted)
+    gots = [[_lm_first(tp, p)] + g
+            for p, g in zip(ps, [got.tokens] + toks)]
+    _take(counted, sharded)
+    ties = [tie_check(lambda j, s=s: ref_rows(s)[j], w, g, floor["bound"])
+            for s, (w, g) in enumerate(zip(wants, gots))]
+    mark("ties")
+    check = prompt[0, :LM_TP_CHECK]
+    first = _forced_logits(eng, check)[-1]
+    err = float((_forced_logits(tp, check)[-1] - first).abs().max()) \
+        / float(first.abs().max())
+    _take(counted, sharded)
+    mark("logits")
+    top = _top_of_one(lambda: sched._replay_all(sched._programs))
+    _take(counted, sharded)
+    step = wall_ms(tp._graphs[tp._key("step", 1)].graph.replay,
+                   LM_TP_REPLAYS)
+    slot = wall_ms(lambda: sched._replay_all(sched._programs),
+                   LM_TP_REPLAYS)
+    _take(counted, sharded)
+    mark("profiles")
+    out = dict(mesh=list(LM_TP_MESH), weights_growth_bytes=grown,
+               witness_f32=checked, floor=floor,
+               tokens_equal=gots[0] == wants[0],
+               sched_tokens_equal=gots[1:] == wants[1:],
+               differing=[t for t in ties if not t["equal"]],
+               first_logit_err=err, tol=LM_TP_TOL,
+               slot_step_top_kernels=top,
+               launches=launches,
+               blocks=rules.tp_summary(eng.cfg, rules.serve_param_specs(
+                   eng._serve_params, mesh), mesh),
+               prefill_host_ms=got.prefill_s * 1e3,
+               decode_host_ms_per_token=got.decode_s * 1e3 / LM_TP_NEW,
+               step_event_ms=step, slot_step_event_ms=slot,
+               unsharded_prefill_host_ms=want.prefill_s * 1e3,
+               unsharded_decode_host_ms_per_token=(want.decode_s * 1e3
+                                                   / LM_TP_NEW),
+               unsharded_step_event_ms=base_step,
+               unsharded_slot_step_event_ms=base_slot,
+               step_captures=tp._step_captures,
+               seconds=time.perf_counter() - t0, stage_s=stages)
+    print(f"lm tp (14e, {LM_TP_MESH}) summary: {json.dumps(out)}",
+          flush=True)
+    if not (checked["tokens_equal"] and checked["sched_tokens_equal"]):
+        raise AssertionError(f"lm tp: the f32 witness's tokens over the "
+                             f"mesh differ from its unsharded run's: "
+                             f"{checked}")
+    if not _ties_ok(ties) or not err <= LM_TP_TOL:
+        raise AssertionError(f"lm tp: first logits {err} of the largest, "
+                             f"tokens {ties}")
+    del sched, tp, base, witness
+    return out
+
+
 def lm_kv_quant(eng, counted, total):
     """14d: the Q8_0 weights with the int8 KV cache (kv_quant="q8"): one
     captured batch-1 ``generate`` whose tokens equal its eager loop's."""
@@ -4927,6 +5444,7 @@ def lm_phase(counted):
     sharded = {name: 0 for name in counted}
     summary["sharded"] = lm_sharded(eng, counted, total, sharded,
                                     summary["scheduler"])
+    summary["tp"] = lm_tp(eng, counted, sharded)
     summary["sharded_launches"] = sharded
     summary["kv_quant"] = lm_kv_quant(eng, counted, total)
     del eng

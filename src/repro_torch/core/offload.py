@@ -23,7 +23,11 @@ reference's rule. A program that runs one of n data shards of a batch
 times its own rows: one plan describes the step, whichever shard
 recorded it, and the step commits it once. The entry's kernel, burst,
 launch tile and backend are resolved at the shard's own rows, the launch
-that runs (``plan_linear``'s ``shards``).
+that runs (``plan_linear``'s ``shards``). A linear split over the model
+shards of a data shard (``sharding.ctx.model_shard``) is planned at its
+whole N or K, launched at the shard's slice, and recorded once, by model
+shard 0; the ledger puts its FLOPs on the model devices that ran it
+(``PlanEntry.split``).
 """
 from __future__ import annotations
 
@@ -99,11 +103,21 @@ class OffloadLedger:
         n_dev = 1
         for _, size in (entry.mesh or ()):
             n_dev *= int(size)
-        share, rem = divmod(entry.flops * times, n_dev)
-        for i in range(n_dev):
+        total = entry.flops * times
+        if entry.split is None:
+            share, rem = divmod(total, n_dev)
+            shares = [share + (rem if i == 0 else 0) for i in range(n_dev)]
+        else:
+            # over "model": each data shard's rows on its model devices,
+            # split evenly where the linear is, else on the first
+            n_model = dict(entry.mesh)["model"]
+            per = total // (n_dev // n_model) // entry.split
+            shares = [per if i % n_model < entry.split else 0
+                      for i in range(n_dev)]
+            shares[0] += total - sum(shares)
+        for i, share in enumerate(shares):
             dev = f"dev{i}"
-            s.by_device[dev] = (s.by_device.get(dev, 0) + share
-                                + (rem if i == 0 else 0))
+            s.by_device[dev] = s.by_device.get(dev, 0) + share
 
     def commit(self, plan: Optional[DispatchPlan], times: int = 1,
                role: str = "main") -> None:
@@ -146,13 +160,15 @@ class OffloadEngine:
 
     def plan_entry(self, m: int, k: int, n: int, *, quantized: bool,
                    name: str = "linear", f32_operand: bool = False,
-                   shards: int = 1) -> PlanEntry:
+                   shards: int = 1, model: int = 1,
+                   row_parallel: bool = False) -> PlanEntry:
         """Resolve the routing of one static shape (``plan_linear``)."""
         return plan_linear(name, m, k, n, quantized=quantized,
                            vmem_budget_kb=self.vmem_budget_kb,
                            default_burst=self.burst, tuner=self.tuner,
                            f32_operand=f32_operand, mesh_sig=self.mesh_sig,
-                           shards=shards)
+                           shards=shards, model=model,
+                           row_parallel=row_parallel)
 
     @contextmanager
     def recording(self, plan: DispatchPlan):
@@ -165,23 +181,31 @@ class OffloadEngine:
         finally:
             self._recording = prev
 
-    def linear(self, x: torch.Tensor, w, name: str = "linear") -> torch.Tensor:
+    def linear(self, x: torch.Tensor, w, name: str = "linear", *,
+               row_parallel: bool = False) -> torch.Tensor:
         """y = x @ W^T (f32), routed per the plan entry for this shape;
         recorded into the active plan, or else accounted in the ledger.
         Inside a data shard's program the entry is the whole step's: M is
         this shard's rows times the number of shards, and its kernel the
-        one this shard's rows launch."""
+        one this shard's rows launch. Inside model shard m of M
+        (``sharding.ctx.model_shard``) W is the shard's slice of a linear
+        split over "model" (its input columns where ``row_parallel``): the
+        entry is the whole linear's and only shard 0 records or accounts
+        it, so that a step's plan and the ledger hold each linear once."""
         k = x.shape[-1]
         n = w.shape[0]
         shards = ctx.batch_shards()
+        m_index, n_model = ctx.model_shard()
         m = (x.numel() // k if k else 0) * shards
         quantized = isinstance(w, QTensor)
         entry = self.plan_entry(
             m, k, n, quantized=quantized, name=name,
             f32_operand=(x.dtype == torch.float32
                          or (not quantized and w.dtype == torch.float32)),
-            shards=shards)
+            shards=shards, model=n_model, row_parallel=row_parallel)
         y = self.execute(x, w, entry)
+        if m_index:
+            return y
         if self._recording is not None:
             self._recording.add(entry)
         else:

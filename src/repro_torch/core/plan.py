@@ -56,6 +56,13 @@ class PlanEntry:
     k_res: int
     backend: str
     mesh: Optional[Tuple[Tuple[str, int], ...]] = None
+    #: the launch's K where it is not ``k``: a row-parallel linear's model
+    #: shard contracts K / M (0: ``k``)
+    k_run: int = 0
+    #: in a program over a mesh with "model" > 1, the model shards the
+    #: linear runs on: M where it is split over them, 1 where it runs whole
+    #: on the data shard's first model device (None: no such mesh)
+    split: Optional[int] = None
 
     @property
     def flops(self) -> int:
@@ -64,11 +71,13 @@ class PlanEntry:
     @property
     def offloaded_flops(self) -> int:
         """FLOPs on the accelerator kernel (main segment) if offloaded."""
-        return self.flops * self.k_main // max(self.k, 1) if self.offload else 0
+        return (self.flops * self.k_main // max(self.k_run or self.k, 1)
+                if self.offload else 0)
 
     @property
     def residual_flops(self) -> int:
-        return self.flops * self.k_res // max(self.k, 1) if self.offload else 0
+        return (self.flops * self.k_res // max(self.k_run or self.k, 1)
+                if self.offload else 0)
 
     @property
     def fallback_flops(self) -> int:
@@ -78,7 +87,8 @@ class PlanEntry:
 def plan_linear(name: str, m: int, k: int, n: int, *, quantized: bool,
                 vmem_budget_kb: int, default_burst: int,
                 tuner=None, f32_operand: bool = False,
-                mesh_sig=None, shards: int = 1) -> PlanEntry:
+                mesh_sig=None, shards: int = 1, model: int = 1,
+                row_parallel: bool = False) -> PlanEntry:
     """Resolve one linear's routing from static shapes — pure apart from
     warming the tuner's cache (a miss runs one search whose winner is
     cached, so repeated calls are dict hits).
@@ -99,20 +109,36 @@ def plan_linear(name: str, m: int, k: int, n: int, *, quantized: bool,
     FLOPs and the reference's offload rule stay the whole step's; the
     kernel, the burst, the launch tile and the backend are those of the
     launch a shard runs, so the entry names the kernel that ran.
+
+    ``model``: the linear is split over that many model shards, each
+    launching ``n`` output columns of it, or with ``row_parallel`` ``k``
+    of its input columns. The entry's N or K, its FLOPs and the offload
+    rule are the whole linear's, its kernel, burst, ``k_main``/``k_res``
+    and tile a shard's launch's (``k_run`` its K), and ``split`` is
+    ``model`` wherever the mesh has a model axis above 1.
     """
     dtype = "q8_0" if quantized else "bf16"
     run_m = m // shards
+    run_k, whole_n = k, n
+    if model > 1 and row_parallel:
+        k = k * model
+    elif model > 1:
+        whole_n = n * model
+    split = None
+    if mesh_sig is not None and dict(mesh_sig).get("model", 1) > 1:
+        split = model
     kern = kernel_for(run_m, quantized)
     mp = padded_m(run_m)
     burst = default_burst
     tuned = False
     if tuner is not None:
-        b = select_burst(k, tuner, kernel=kern, m=mp, n=n, dtype=dtype,
+        b = select_burst(run_k, tuner, kernel=kern, m=mp, n=n, dtype=dtype,
                          default=0)
         if b:
             burst, tuned = b, True
-    k_main, k_res = split_aligned(k, burst)
-    offload = fits(MulMat(name, m=m, k=k, n=n), vmem_budget_kb, agg_units=1)
+    k_main, k_res = split_aligned(run_k, burst)
+    offload = fits(MulMat(name, m=m, k=k, n=whole_n), vmem_budget_kb,
+                   agg_units=1)
     tiling = None
     takes_tile = not (f32_operand and run_m > tiles.MAX_ROW_M)
     if tuner is not None and offload and k_main and takes_tile:
@@ -126,10 +152,11 @@ def plan_linear(name: str, m: int, k: int, n: int, *, quantized: bool,
     else:
         # k < burst: no main segment — the whole linear runs on the host arm
         resolved = "host_residual"
-    return PlanEntry(name=name, m=m, k=k, n=n, dtype=dtype, offload=offload,
-                     burst=burst, tuned=tuned, kernel=kern, tiling=tiling,
-                     k_main=k_main, k_res=k_res, backend=resolved,
-                     mesh=mesh_sig)
+    return PlanEntry(name=name, m=m, k=k, n=whole_n, dtype=dtype,
+                     offload=offload, burst=burst, tuned=tuned, kernel=kern,
+                     tiling=tiling, k_main=k_main, k_res=k_res,
+                     backend=resolved, mesh=mesh_sig,
+                     k_run=run_k if run_k != k else 0, split=split)
 
 
 @dataclass

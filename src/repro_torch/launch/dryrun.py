@@ -21,12 +21,15 @@ ones; the counter names entries by their mesh coordinates):
   prefill_32k  ``forward`` over the batch, and
   decode_32k / long_500k
                one ``serve_step`` against a full cache, each data shard's
-               program on its rows where the mesh's "model" axis is 1.
-               Serving over "model" > 1 is not ported (ROADMAP item 14b:
-               ``ServeEngine`` raises ``NotImplementedError``); such a cell
-               ends ``"refused"`` with that text and records what each
-               entry would hold under the reference's ``param_specs`` and
-               ``cache_specs``.
+               program on its rows (under ``shard_program``: a MoE
+               layer's capacity and claim are the whole step's).
+               Over "model" > 1 both serving kinds run with the weights a
+               ``ServeEngine`` holds there (``rules.place`` and
+               ``rules.serve_tree``): the split blocks over their model
+               shards, each charged to its entry, and the KV caches split
+               by their heads where attention is. Each entry's argument
+               bytes are what ``serve_param_specs`` (and
+               ``cache_specs``, or ``batch_specs``) give it.
 
 A cell whose shape does not apply to its arch (long_500k on a pure
 full-attention arch) ends ``"skip"`` with the reference's reason; any other
@@ -61,6 +64,7 @@ from repro_torch.core import tree
 from repro_torch.core.qformats import quantize_tree
 from repro_torch.launch import input_specs as specs_lib
 from repro_torch.launch.mesh import Mesh, make_production_mesh
+from repro_torch.models import layers
 from repro_torch.models import model as model_lib
 from repro_torch.roofline import op_cost
 from repro_torch.roofline.analysis import H100, analyze_program
@@ -92,9 +96,6 @@ TRAIN_OVERRIDES: Dict[str, Dict[str, Any]] = {
     "mamba2-780m":            {"microbatches": 2},
     "whisper-tiny":           {"microbatches": 1},
 }
-
-#: ROADMAP's item for serving over "model" > 1
-REFUSED_ITEM = "14b"
 
 
 def _mesh_name(multi_pod: bool) -> str:
@@ -162,16 +163,20 @@ def lower_train_cell(cfg: ModelConfig, shape: ShapeConfig, mesh: Mesh, *,
         rules.entry_bytes(state, specs, mesh)
 
 
-def _serve_refusal(cfg: ModelConfig, params, mesh: Mesh) -> Optional[str]:
-    """The text ``ServeEngine`` refuses ``mesh`` with, or None."""
-    from repro_torch.serve.engine import ServeEngine
+def _serve_params(cfg: ModelConfig, params, mesh: Mesh):
+    """The serving weights one data shard computes with, as a
+    ``ServeEngine`` on ``mesh`` holds them: over "model" > 1 the serving
+    tree of ``rules.serve_tree`` (every entry on ``DEVICE``, so each model
+    part is a view of the one copy), else ``params``; and the devices its
+    KV caches split over (None where its attention runs whole)."""
     if mesh.shape.get("model", 1) <= 1:
-        return None
-    try:
-        ServeEngine(cfg, params, mesh=mesh)
-    except NotImplementedError as e:
-        return str(e)
-    return None
+        return params, None
+    specs = rules.serve_param_specs(params, mesh)
+    placed = rules.place(params, mesh, specs)
+    devs = (DEVICE,) * mesh.shape["model"]
+    tree = rules.serve_tree(cfg, placed, specs, mesh, devs,
+                            layers.VocabShards)
+    return tree, (devs if rules.attention_split(tree) else None)
 
 
 def _rows(mesh: Mesh, n: int) -> List[slice]:
@@ -191,18 +196,19 @@ def lower_prefill_cell(cfg: ModelConfig, shape: ShapeConfig, mesh: Mesh, *,
                                        device=DEVICE)
     batch = specs_lib.batch_specs_struct(cfg, shape, mode=mode,
                                          device=DEVICE)
-    arg = rules.spec_bytes(params, rules.param_specs(params, mesh), mesh) \
+    arg = rules.spec_bytes(params, rules.serve_param_specs(params, mesh),
+                           mesh) \
         + rules.spec_bytes(batch, rules.batch_specs(batch, mesh), mesh)
-    refusal = _serve_refusal(cfg, params, mesh)
-    if refusal is not None:
-        return refusal, {"quant": quant}, [arg] * mesh.size
+    with mode:
+        tree, _ = _serve_params(cfg, params, mesh)
+    rows = _rows(mesh, shape.global_batch)
 
     def run():
-        with torch.no_grad():
-            for i, rows in enumerate(_rows(mesh, shape.global_batch)):
+        with torch.no_grad(), shard_ctx.shard_program(len(rows)):
+            for i, r in enumerate(rows):
                 with op_cost.at(shard=i):
-                    model_lib.forward(params, cfg, {k: v[rows] for k, v
-                                                    in batch.items()})
+                    model_lib.forward(tree, cfg, {k: v[r] for k, v
+                                                  in batch.items()})
     return run, {"quant": quant}, [arg] * mesh.size
 
 
@@ -213,25 +219,28 @@ def lower_decode_cell(cfg: ModelConfig, shape: ShapeConfig, mesh: Mesh, *,
                                        device=DEVICE)
     state = specs_lib.abstract_serve_state(cfg, shape, params, mode=mode)
     token = specs_lib.token_struct(shape, mode=mode, device=DEVICE)
-    arg = rules.spec_bytes(params, rules.param_specs(params, mesh), mesh) \
+    arg = rules.spec_bytes(params, rules.serve_param_specs(params, mesh),
+                           mesh) \
         + rules.spec_bytes(state, rules.cache_specs(
             state, mesh, cfg.num_kv_heads, cfg.head_dim), mesh)
-    refusal = _serve_refusal(cfg, params, mesh)
-    if refusal is not None:
-        return refusal, {"quant": quant}, [arg] * mesh.size
-
     rows = _rows(mesh, shape.global_batch)
-    if len(rows) > 1:           # each row's own cache length: shardable
-        with mode:
+    with mode:
+        tree, kv_devices = _serve_params(cfg, params, mesh)
+        if kv_devices is not None:    # each model shard's own KV heads
+            state = model_lib.zeros_serve_state(
+                cfg, shape.global_batch, cfg.encoder_ctx, shape.seq_len,
+                device=DEVICE, kv_devices=kv_devices)
+            state.step.fill_(shape.seq_len - 1)
+        if len(rows) > 1:       # each row's own cache length: shardable
             state = model_lib.slot_layout(state, shape.global_batch)
 
     def run():
-        with torch.no_grad():
+        with torch.no_grad(), shard_ctx.shard_program(len(rows)):
             for i, r in enumerate(rows):
                 st = state if len(rows) == 1 else model_lib.slot_view(
                     state, r.start, r.stop - r.start)
                 with op_cost.at(shard=i):
-                    model_lib.serve_step(params, cfg, token[r], st)
+                    model_lib.serve_step(tree, cfg, token[r], st)
     return run, {"quant": quant}, [arg] * mesh.size
 
 
@@ -300,11 +309,6 @@ def _run(cfg: ModelConfig, arch: str, shape: ShapeConfig, mesh: Mesh,
                                     quant=quant, overrides=overrides)
     t_build = time.time() - t0
     memory = {"argument_bytes": int(max(arg))}
-    if isinstance(program, str):
-        memory["entries"] = {"argument_bytes": [int(a) for a in arg]}
-        return dict(status="refused", reason=program,
-                    item=REFUSED_ITEM, meta=meta,
-                    build_s=round(t_build, 2), memory=memory)
     t0 = time.time()
     with mode, shard_ctx.activation_sharding(mesh), \
             op_cost.OpCounter(mesh) as cost:
@@ -338,9 +342,6 @@ def _print_cell(r: dict):
         (f"({r['variant']})" if r.get("variant") else "")
     if r["status"] == "skip":
         print(f"SKIP {tag}: {r['reason']}")
-    elif r["status"] == "refused":
-        print(f"REFUSED {tag} (arg={_fmt_bytes(r['memory']['argument_bytes'])}"
-              f" an entry): {r['reason']}")
     elif r["status"] == "error":
         print(f"FAIL {tag}: {r['error']}")
     else:

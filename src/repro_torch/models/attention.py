@@ -349,10 +349,35 @@ def _rows_apart(fn, a: torch.Tensor, c: torch.Tensor,
                       for r in range(a.shape[0])])
 
 
+class ModelShards(tuple):
+    """A decode cache (or a layer's cross K/V) split over the model shards
+    of a serving engine over "model": entry m is model shard m's, its
+    Hkv / M heads on its own device. A plain tuple, which ``core.tree``
+    and ``state_tensors`` walk."""
+
+
+def shard_list(cache) -> list:
+    """The model shards' caches: [cache] where it is whole."""
+    return list(cache) if isinstance(cache, ModelShards) else [cache]
+
+
+def first_shard(cache):
+    """Model shard 0's cache, or the whole cache."""
+    return cache[0] if isinstance(cache, ModelShards) else cache
+
+
+def map_shards(fn, cache):
+    """``fn`` of each model shard's cache, kept split."""
+    if isinstance(cache, ModelShards):
+        return ModelShards(fn(c) for c in cache)
+    return fn(cache)
+
+
 def decode_attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
                      cache: Union[KVCache, QKVCache, PagedKVCache], *,
                      memory_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-                     engine=None
+                     engine=None, partial: bool = False,
+                     f32_grad: bool = False
                      ) -> Tuple[torch.Tensor,
                                 Union[KVCache, QKVCache, PagedKVCache]]:
     """One decode step over a window of W positions. x: (B, W, d); W = 1
@@ -368,7 +393,12 @@ def decode_attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
     and the new k are rotated at positions ``length + j`` first. A
     ``PagedKVCache`` writes its entries through the block table and
     attends over each row's gathered pages; a ``QKVCache`` stores them
-    quantized and attends over the dequantized cache."""
+    quantized and attends over the dequantized cache. ``partial``: one
+    model shard's heads (``cfg`` their head-count view, ``cache`` its
+    slice), whose ``o`` output is a partial of the row-parallel product,
+    returned in f32 (``f32_grad`` is taken for ``attention``'s sake and
+    has no use without a gradient)."""
+    del f32_grad
     b, w = x.shape[0], x.shape[1]
     hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = _split_heads(layers.linear(p["q"], x, engine, "dec.attn.q"), hq)
@@ -430,4 +460,5 @@ def decode_attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
                       probs.to(v.dtype).to(torch.float32),
                       v.to(torch.float32), w)
     out = out.to(x.dtype).reshape(b, w, hq * hd)
-    return layers.linear(p["o"], out, engine, "dec.attn.o"), cache
+    return layers.linear(p["o"], out, engine, "dec.attn.o",
+                         f32_out=partial), cache

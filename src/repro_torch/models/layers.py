@@ -23,6 +23,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.qformats import QTensor, dequantize_q8_0
 from repro_torch.roofline import op_cost
+from repro_torch.sharding import ctx
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
           "float16": torch.float16}
@@ -53,7 +54,9 @@ def linear(p: dict, x: torch.Tensor, engine=None,
     at W's type, its gradient an f32 product (``_dot_f32_grad``)."""
     w = p["w"]
     if engine is not None:
-        y = engine.linear(x, w, name=name)
+        # a row-parallel shard's partial: the engine plans the whole K
+        y = (engine.linear(x, w, name=name, row_parallel=True) if f32_out
+             else engine.linear(x, w, name=name))
         y = y.to(torch.float32 if f32_out else x.dtype)
     elif isinstance(w, QTensor):
         y = x @ dequantize_q8_0(w).to(x.dtype).t()
@@ -271,6 +274,14 @@ class VocabShards:
             lo += w.shape[0]
 
 
+def _rows(w, idx: torch.Tensor) -> torch.Tensor:
+    """Rows ``idx`` of a table: a Q8_0 table's dequantized in f32."""
+    if isinstance(w, QTensor):
+        rows = w.qs[idx].to(torch.float32) * w.scales[idx][..., None]
+        return rows.reshape(*idx.shape, w.k)
+    return w[idx]
+
+
 def _embed_shards(t: VocabShards, ids: torch.Tensor) -> torch.Tensor:
     """Each model shard looks up the ids in its rows and gives zero rows
     elsewhere, charged to its model entry; the partials are summed in f32
@@ -281,14 +292,14 @@ def _embed_shards(t: VocabShards, ids: torch.Tensor) -> torch.Tensor:
         with op_cost.at(model=m):
             local = ids.to(dev).long() - lo
             own = (local >= 0) & (local < w.shape[0])
-            rows = torch.where(own[..., None],
-                               w[local.clamp(0, w.shape[0] - 1)],
-                               torch.zeros((), dtype=w.dtype, device=dev))
+            got = _rows(w, local.clamp(0, w.shape[0] - 1))
+            rows = torch.where(own[..., None], got,
+                               torch.zeros((), dtype=got.dtype, device=dev))
             op_cost.collective("all-reduce", rows.numel() * 4,
                                len(t.parts), "vocab embed")
         rows = rows.to(ids.device, torch.float32)
         acc = rows if acc is None else acc + rows
-    return acc.to(t.parts[0].dtype)
+    return acc.to(got.dtype)
 
 
 def embed(p: dict, ids: torch.Tensor) -> torch.Tensor:
@@ -302,10 +313,34 @@ def embed(p: dict, ids: torch.Tensor) -> torch.Tensor:
     return t[ids]
 
 
-def unembed(p: dict, x: torch.Tensor, engine=None) -> torch.Tensor:
+def vocab_logits(w: VocabShards, x: torch.Tensor, engine=None,
+                 name: str = "dec.vocab") -> torch.Tensor:
+    """The readout ``x @ W^T`` with W's rows split over model shards:
+    each shard m computes the logits of its rows of the padded vocabulary
+    on its device (model shard m of a column-parallel linear, charged to
+    its model entry), and the logits are gathered onto x's device in
+    shard order (reported as an all-gather). Each column is the unsplit
+    readout's product."""
+    out = []
+    n = len(w.parts)
+    for m, (wm, _, dev) in enumerate(w):
+        with op_cost.at(model=m), ctx.model_shard_scope(m, n):
+            y = unembed({"table": wm}, x.to(dev), engine, name)
+            op_cost.collective("all-gather",
+                               y.numel() * y.element_size() * n, n,
+                               "vocab logits")
+        out.append(y.to(x.device))
+    return torch.cat(out, dim=-1)
+
+
+def unembed(p: dict, x: torch.Tensor, engine=None,
+            name: str = "dec.vocab") -> torch.Tensor:
     """Tied readout: logits = x @ table^T (the paper's ``dec.vocab``
-    kernel class — its single largest dot product)."""
+    kernel class — its single largest dot product); a split table's by
+    ``vocab_logits``."""
     t = p["table"]
+    if isinstance(t, VocabShards):
+        return vocab_logits(t, x, engine, name)
     if engine is not None or isinstance(t, QTensor):
-        return linear({"w": t}, x, engine, "dec.vocab")
+        return linear({"w": t}, x, engine, name)
     return _dot(x, t)

@@ -55,6 +55,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import resolve_device
 from repro_torch.core.tree import LAYER_LISTS, map_with_path
 from repro_torch.models import layers, transformer, whisper
+from repro_torch.models.attention import map_shards, shard_list
 from repro_torch.roofline import op_cost
 from repro_torch.sharding import ctx, rules
 
@@ -108,10 +109,14 @@ def init_params(gen: torch.Generator, cfg: ModelConfig,
 
 def _readout(params: dict, cfg: ModelConfig, x: torch.Tensor,
              engine=None) -> torch.Tensor:
-    """An LM's final norm and vocabulary readout (tied or ``lm_head``)."""
+    """An LM's final norm and vocabulary readout (tied or ``lm_head``);
+    a readout split over "model" by ``layers.vocab_logits``."""
     x = layers.norm_apply(params["final_norm"], x, cfg.norm)
     if cfg.tie_embeddings:
         return layers.unembed(params["embed"], x, engine)
+    w = params["lm_head"]["w"]
+    if isinstance(w, layers.VocabShards):
+        return layers.vocab_logits(w, x, engine, "lm_head")
     return layers.linear(params["lm_head"], x, engine, "lm_head")
 
 
@@ -329,15 +334,16 @@ def _gather_outside_blocks(params: dict, specs: dict, mesh, devices,
 
 
 def _lm_state(cfg: ModelConfig, batch: int, max_len: int, device,
-              per_row: bool) -> ServeState:
+              per_row: bool, kv_devices=None) -> ServeState:
     caches = transformer.init_decode_state(cfg, batch, max_len,
                                            layers.DTYPES[cfg.dtype],
-                                           device=device)
+                                           device=device,
+                                           kv_devices=kv_devices)
     shape = (batch,) if per_row else ()
     if per_row:
-        caches = [c._replace(length=torch.zeros(shape, dtype=torch.int32,
-                                                device=device))
-                  for c in caches]
+        caches = [map_shards(lambda c: c._replace(length=torch.zeros(
+            shape, dtype=torch.int32, device=c.length.device)), c)
+            for c in caches]
     return ServeState(layer_states=caches, step=torch.zeros(
         shape, dtype=torch.int32, device=device))
 
@@ -366,30 +372,37 @@ def init_serve_state(params: dict, cfg: ModelConfig, batch: int,
 
 
 def zeros_serve_state(cfg: ModelConfig, batch: int, frames: int,
-                      max_len: int, *, device) -> ServeState:
+                      max_len: int, *, device, kv_devices=None
+                      ) -> ServeState:
     """A ServeState of zeros: the static buffers of the serving engine's
     captured prefill and decode step at (batch, frames); an LM's caches
-    (``frames`` unused)."""
+    (``frames`` unused). ``kv_devices``: a data shard's model devices,
+    over which its attention caches split (``transformer.kv_zeros``)."""
     if cfg.family != "audio":
-        return _lm_state(cfg, batch, max_len, device, per_row=False)
+        return _lm_state(cfg, batch, max_len, device, per_row=False,
+                         kv_devices=kv_devices)
     st = whisper.zeros_decode_state(cfg, batch, frames, max_len,
                                     dtype=layers.DTYPES[cfg.dtype],
-                                    device=device)
+                                    device=device, kv_devices=kv_devices)
     return ServeState(layer_states=st, step=torch.zeros(
         (), dtype=torch.int32, device=device))
 
 
 def zeros_slot_state(cfg: ModelConfig, n_slots: int, frames: int,
-                     max_len: int, *, device) -> ServeState:
+                     max_len: int, *, device, kv_devices=None
+                     ) -> ServeState:
     """A slot-layout ServeState of zeros: the pool of a continuous-batching
     scheduler, ``n_slots`` rows of ``frames`` cross-K/V frames and
     ``max_len`` self-KV positions, with ``(n_slots,)`` counters (an LM's
-    pool has no frames)."""
+    pool has no frames); its attention caches split over ``kv_devices``
+    where given."""
     if cfg.family != "audio":
-        return _lm_state(cfg, n_slots, max_len, device, per_row=True)
+        return _lm_state(cfg, n_slots, max_len, device, per_row=True,
+                         kv_devices=kv_devices)
     st = whisper.zeros_slot_decode_state(cfg, n_slots, frames, max_len,
                                          dtype=layers.DTYPES[cfg.dtype],
-                                         device=device)
+                                         device=device,
+                                         kv_devices=kv_devices)
     return ServeState(layer_states=st, step=torch.zeros(
         (n_slots,), dtype=torch.int32, device=device))
 
@@ -418,14 +431,14 @@ def slot_layout(state: ServeState, batch: int) -> ServeState:
     Counters already per row pass through, so it is idempotent."""
     def per_row(t: torch.Tensor) -> torch.Tensor:
         return t.expand(batch).clone() if t.dim() == 0 else t
+    def kv(c):
+        return map_shards(lambda x: x._replace(length=per_row(x.length)), c)
     ls = state.layer_states
     if isinstance(ls, list):                       # an LM's layer states
-        return ServeState(
-            layer_states=[c._replace(length=per_row(c.length)) for c in ls],
-            step=per_row(state.step))
+        return ServeState(layer_states=[kv(c) for c in ls],
+                          step=per_row(state.step))
     return ServeState(
-        layer_states=ls._replace(self_kv=[
-            kv._replace(length=per_row(kv.length)) for kv in ls.self_kv]),
+        layer_states=ls._replace(self_kv=[kv(c) for c in ls.self_kv]),
         step=per_row(state.step))
 
 
@@ -546,5 +559,6 @@ def set_slot_lengths(state: ServeState, new_len: torch.Tensor) -> None:
         ls.length.copy_(new_len)                   # broadcast over layers
     else:
         for kv in ls.self_kv:
-            kv.length.copy_(new_len)
+            for c in shard_list(kv):
+                c.length.copy_(new_len)
     state.step.copy_(new_len)

@@ -28,10 +28,17 @@ the same for every decode batch up to 51 rows of olmoe or arctic, dispatch
 and combine are gathers, and the sums over a row's k choices are
 elementwise adds in index order. Where the batch fills an expert's slots
 the drops, as the reference's, depend on the other rows. Under sharded
-serving (``sharding.ctx.shard_program``) C comes from the whole step's
-token count, as the reference's one program computes it, but each data
-shard's pairs claim slots among its own rows: where tokens drop, which
-ones may differ from the reference's.
+serving and mesh training (``sharding.ctx.shard_program``) C comes from
+the whole step's token count, as the reference's one program computes
+it, and the claim is the whole step's: where a data shard's tokens are a
+whole number of the step's groups, its groups are the step's; where a
+group of the step spans shards and can drop (``spans_shards``),
+the shards, run in lockstep (``sharding/lockstep.py``), join their
+(token, choice) pairs in shard order and each keeps its rows of the
+step's claim (``_joint_claim``); where no group can drop, each shard
+claims among its own rows, which keeps every choice all the same. A
+forward recomputed in the backward replays its forward's claims
+(``claims``).
 
 A training step over a mesh forms the load-balance loss of the whole
 batch, not a shard's: while ``router_stats()`` collects, each routed
@@ -218,26 +225,145 @@ def route(p: dict, cfg: ModelConfig, x: torch.Tensor
                                    onehot.sum(0), onehot.shape[0]))
 
     t = b * s
+    n = ctx.batch_shards()
+    tg_all = _group(t * n, moe)
+    cap = _capacity(tg_all, moe)
+    log = getattr(_CLAIMS, "log", None)
+    if log is not None and log.replaying:
+        pos, keep, cap_local = log.next()
+        g, tg = pos.shape[:2]
+        return Routing(topw.reshape(g, tg, k), topi.reshape(g, tg, k), pos,
+                       keep, cap_local), aux
+    if spans_shards(cfg, t, n):
+        gi, pos, keep, cap_local = _joint_claim(topi, t, n, tg_all, cap,
+                                                n_exp)
+        g, tg = 1, t
+    else:
+        # the shard's own groups: the whole step's where t is a whole
+        # number of the step's groups, or where no group can drop (a
+        # token takes an expert once, so a group of at most C tokens
+        # keeps every choice)
+        tg = _group(t, moe)
+        g = t // tg
+        gi = topi.reshape(g, tg, k)
+        pos = _claim(gi, experts)
+        keep = pos < cap
+        cap_local = cap
+    if log is not None:
+        log.add(pos, keep, cap_local)
+    return Routing(topw.reshape(g, tg, k), gi, pos, keep, cap_local), aux
+
+
+def _group(t: int, moe) -> int:
+    """The dispatch group of ``t`` tokens: ``dispatch_group``, or all
+    ``t`` where it does not divide them (ragged shapes: one group)."""
     tg = min(moe.dispatch_group, t)
-    if t % tg:
-        tg = t                     # ragged shapes: one group
-    g = t // tg
-    # in one of n data shards of a step (sharded serving), C is the whole
-    # step's: its groups are sized from the step's n * t tokens, while
-    # each shard's (token, choice) pairs claim among its own rows
-    t_all = t * ctx.batch_shards()
-    tg_all = min(moe.dispatch_group, t_all)
-    if t_all % tg_all:
-        tg_all = t_all
-    gi = topi.reshape(g, tg, k)
-    # each (token, choice)'s place in its expert's queue, k-major so that
-    # higher-priority choices claim capacity first
+    return t if t % tg else tg
+
+
+def spans_shards(cfg, t: int, n: int) -> bool:
+    """Whether a step of ``n`` data shards of ``t`` tokens (rows) each has
+    a MoE layer whose capacity claim spans the shards and can drop
+    (``claim_spans_shards``): the shards then claim together, in lockstep
+    or as one program."""
+    return (cfg.moe is not None and n > 1
+            and claim_spans_shards(cfg.moe, t, n))
+
+
+def claim_spans_shards(moe, t: int, n: int) -> bool:
+    """Whether, with ``t`` tokens in each of ``n`` data shards, a group of
+    the whole step's claim spans shards and can drop: a shard's tokens are
+    not a whole number of the step's groups, and a group holds more
+    tokens than an expert's capacity (or the shard's own group does)."""
+    tg_all = _group(t * n, moe)
+    return (t % tg_all != 0
+            and max(tg_all, _group(t, moe)) > _capacity(tg_all, moe))
+
+
+def _claim(gi: torch.Tensor, experts: torch.Tensor) -> torch.Tensor:
+    """Each (token, choice)'s place in its expert's queue in its group, gi
+    (G, Tg, k): k-major, so that higher-priority choices claim capacity
+    first, then in token order."""
+    g, tg, k = gi.shape
     flat = gi.transpose(1, 2).reshape(g, k * tg)
     queue = (flat[..., None] == experts).long().cumsum(1)    # (G, k*Tg, E)
-    pos = (queue.gather(2, flat[..., None])[..., 0] - 1
-           ).reshape(g, k, tg).transpose(1, 2)
-    cap = _capacity(tg_all, moe)
-    return Routing(topw.reshape(g, tg, k), gi, pos, pos < cap, cap), aux
+    return (queue.gather(2, flat[..., None])[..., 0] - 1
+            ).reshape(g, k, tg).transpose(1, 2)
+
+
+def _joint_claim(topi: torch.Tensor, t: int, n: int, tg_all: int, cap: int,
+                 n_exp: int):
+    """The whole step's claim, from data shard i of ``n`` (``t`` tokens
+    each, in lockstep: ``sharding.ctx.lockstep``): every shard's (t, k)
+    choices joined in shard order (an all-gather of ints), claimed over
+    the step's groups of ``tg_all`` as one program claims them, and this
+    shard's rows kept. Returns the shard's tokens as one group: (its
+    choices (1, t, k), their slots (1, t, k), kept, the slots an expert
+    has there): a token of the j-th step group the shard reaches takes
+    slot ``j * cap + pos``, so the groups' slots stay apart. Over fake
+    tensors (the dry-run's counter, outside a lockstep) the shard's own
+    choices stand in for the others', which no value depends on."""
+    k = topi.shape[-1]
+    mine = topi.reshape(t, k)
+    op_cost.collective("all-gather", mine.numel() * mine.element_size() * n,
+                       n, "moe claim")
+    ls = ctx.current_lockstep()
+    if ls is not None:
+        index = ls.index
+        every = [c.to(mine.device) for c in ls.exchange(mine)]
+    elif op_cost.active() is not None:
+        index, every = 0, [mine] * n
+    else:
+        raise RuntimeError(
+            "a MoE layer's capacity claim spans the data shards: run them "
+            "in lockstep (sharding/lockstep.py)")
+    whole = torch.cat(every).reshape(t * n // tg_all, tg_all, k)
+    experts = torch.arange(n_exp, device=mine.device)
+    pos = _claim(whole, experts).reshape(t * n, k)[index * t:(index + 1) * t]
+    keep = pos < cap
+    first = index * t // tg_all
+    group = torch.arange(index * t, (index + 1) * t,
+                         device=mine.device) // tg_all - first
+    groups = ((index + 1) * t - 1) // tg_all - first + 1
+    pos = pos + (group * cap)[:, None]
+    return mine[None], pos[None], keep[None], cap * groups
+
+
+class ClaimLog:
+    """The claims of one ``remat`` unit's forward, in order, which its
+    recompute in the backward replays (``claims``)."""
+
+    def __init__(self):
+        self.items: list = []
+        self.replaying = False
+        self._i = 0
+
+    def add(self, *claim) -> None:
+        self.items.append(claim)
+
+    def next(self):
+        claim = self.items[self._i]
+        self._i += 1
+        return claim
+
+
+_CLAIMS = threading.local()
+
+
+@contextmanager
+def claims(log: ClaimLog):
+    """The scope's MoE layers record their capacity claims into ``log``,
+    or replay them, in order, where ``log`` recorded before: a forward
+    recomputed under activation checkpointing reuses its forward's claim,
+    which its data shards made together (``models/transformer.py``'s
+    ``remat``)."""
+    prev = getattr(_CLAIMS, "log", None)
+    log.replaying, log._i = bool(log.items), 0
+    _CLAIMS.log = log
+    try:
+        yield
+    finally:
+        _CLAIMS.log = prev
 
 
 def _experts(p: dict, cfg: ModelConfig, xe: torch.Tensor) -> torch.Tensor:

@@ -35,6 +35,14 @@ them as a split dense FFN (``moe_ffn``). In 16-bit, the shards' copies
 of the normed input are its f32 upcast (``shard_inputs``), so that the
 column-parallel products' input gradients, f32 products
 (``layers.linear(..., f32_grad=True)``), sum in f32 and round once.
+
+A serving engine over "model" hands the same functions its data shard's
+serving tree (``sharding.rules.serve_tree``): each block holds its split
+sub-blocks' slices under ``rules.TP_KEY`` (``gather_for_shard`` reads
+them), and the decode step (``decode_step_stack``) runs them as
+``tensor_parallel``, each model shard's attention over its own KV cache
+(``kv_zeros``: ``ModelShards`` of Hkv / M heads). Without a gradient
+the shards' inputs keep their type.
 """
 from __future__ import annotations
 
@@ -51,7 +59,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import tree
 from repro_torch.models import layers, moe as moe_lib, ssm as ssm_lib
 from repro_torch.models.attention import (
-    KVCache, QKVCache, attention, decode_attention, init_attention)
+    KVCache, ModelShards, QKVCache, attention, decode_attention,
+    init_attention, shard_list)
 from repro_torch.roofline import op_cost
 from repro_torch.sharding import ctx, rules
 
@@ -158,7 +167,11 @@ def shard_inputs(part: dict, inputs: tuple) -> Tuple[tuple, bool]:
     16-bit type, each float input is upcast once (exactly), so that the
     column-parallel products' input gradients, each an f32 product
     (``layers.linear(..., f32_grad=True)``), sum over the shards in f32
-    and round once to that type in the upcast's backward."""
+    and round once to that type in the upcast's backward. Without grad
+    mode (serving) the inputs go as they are: the shards' launches take
+    the type the unsplit linear takes."""
+    if not torch.is_grad_enabled():
+        return inputs, False
     wt = next(iter(part.values()))["w"].dtype
     floats = [t for t in inputs if t is not None and t.is_floating_point()]
     if wt.itemsize != 2 or any(t.dtype != wt for t in floats):
@@ -169,7 +182,8 @@ def shard_inputs(part: dict, inputs: tuple) -> Tuple[tuple, bool]:
 
 def tensor_parallel(fn: Callable[..., torch.Tensor], p: dict,
                     parts: Optional[list], cfg: ModelConfig, devices,
-                    *inputs) -> torch.Tensor:
+                    *inputs, shard_args: Optional[list] = None
+                    ) -> torch.Tensor:
     """``fn(p, cfg, *inputs)`` where ``parts`` is None. Else ``fn(...,
     partial=True)`` over the model shards: shard m on ``devices[m]`` over
     its slices ``parts[m]``, the head-count view of ``cfg`` and its
@@ -179,17 +193,22 @@ def tensor_parallel(fn: Callable[..., torch.Tensor], p: dict,
     The partials are summed (``sum_partials``) on the first input's
     device, and the bias in ``p`` (the row-parallel linear's, if any)
     added in f32 after; the caller casts the sum once to the residual
-    stream's type."""
+    stream's type. ``shard_args``: one tuple a model shard (the whole
+    sub-block's single one where ``parts`` is None) passed after the
+    inputs as they are, never moved: a serving step's cache slices. Each
+    shard runs as ``ctx.model_shard`` m of M, which the offload engine
+    reads."""
     if parts is None:
-        return fn(p, cfg, *inputs)
+        return fn(p, cfg, *inputs, *(shard_args[0] if shard_args else ()))
     m_cfg = _shard_cfg(cfg, len(parts))
     device = inputs[0].device
     inputs, f32_grad = shard_inputs(parts[0], inputs)
     partials = []
     for m, (part, dev) in enumerate(zip(parts, devices, strict=True)):
-        with op_cost.at(model=m):
+        extra = shard_args[m] if shard_args else ()
+        with op_cost.at(model=m), ctx.model_shard_scope(m, len(parts)):
             partials.append(fn(part, m_cfg, *(t if t is None else t.to(dev)
-                                              for t in inputs),
+                                              for t in inputs), *extra,
                                partial=True, f32_grad=f32_grad))
     y = sum_partials(partials, device)
     for lin in p.values():
@@ -222,9 +241,7 @@ def _apply_block(p: dict, cfg: ModelConfig, spec: LayerSpec,
     x = x + mixed.to(x.dtype)
     if spec.ffn != "none":
         h = layers.norm_apply(p["norm2"], x, cfg.norm)
-
-        def mlp(q, c, hh, **kw):
-            return layers.mlp_apply(q, hh, cfg.act, engine=engine, **kw)
+        mlp = mlp_fn(engine)
         if spec.ffn == "moe":
             y, aux = moe_ffn(p["moe"], cfg, h, parts.get("moe"), devices,
                              mlp, engine)
@@ -258,9 +275,12 @@ def moe_ffn(p: dict, cfg: ModelConfig, h: torch.Tensor,
 def gather_for_shard(p: dict, shard, specs, layout):
     """(a block's leaves, its split sub-blocks' slices, the model shards'
     devices): under a mesh step's ``shard``, gathered from the pieces in
-    ``p`` (``rules.gather_block``); else ``p`` as it is."""
+    ``p`` (``rules.gather_block``); a serving block over "model"
+    (``rules.serve_tree``) with the slices it holds under
+    ``rules.TP_KEY``; else ``p`` as it is."""
     if shard is None:
-        return p, {}, None
+        tp = p.get(rules.TP_KEY)
+        return (p, {}, None) if tp is None else (p, tp.parts, tp.devices)
     p, parts = rules.gather_block(p, specs, shard.mesh, shard.devices,
                                   layout)
     return p, parts, shard.devices
@@ -310,7 +330,9 @@ def remat(fn: Callable[..., Any], cfg: ModelConfig) -> Callable[..., Any]:
     plainly. The recompute runs under the data-shard count of the forward
     (``ctx.shard_program``: a MoE layer's capacity), which the backward
     does not see otherwise: on the card the autograd engine recomputes on
-    its device thread."""
+    its device thread. It replays the forward's MoE capacity claims
+    (``moe.claims``): a claim the data shards made together in lockstep
+    cannot be made again by one shard alone."""
     if cfg.remat == "none":
         return fn
 
@@ -318,9 +340,10 @@ def remat(fn: Callable[..., Any], cfg: ModelConfig) -> Callable[..., Any]:
         if not grad_wanted(args):
             return fn(*args)
         shards = ctx.batch_shards()
+        log = moe_lib.ClaimLog()
 
         def unit(*a):
-            with ctx.shard_program(shards):
+            with ctx.shard_program(shards), moe_lib.claims(log):
                 return fn(*a)
         if cfg.remat == "dots":
             return checkpoint(unit, *args, use_reentrant=False,
@@ -374,18 +397,50 @@ def apply_decoder_stack(params: dict, cfg: ModelConfig, x: torch.Tensor, *,
 LayerState = Union[KVCache, QKVCache, ssm_lib.SSMState]
 
 
+def kv_zeros(cfg: ModelConfig, cache_cls, batch: int, max_len: int,
+             dtype, *, device, kv_devices=None):
+    """An empty attention cache of ``cfg``'s KV heads on ``device``, or,
+    with ``kv_devices`` (a serving data shard's model devices, where its
+    attention is split over them), one cache a model shard of Hkv / M
+    heads on its device (``ModelShards``)."""
+    if kv_devices is None:
+        return cache_cls.zeros(batch, max_len, cfg.num_kv_heads,
+                               cfg.head_dim, dtype, device=device)
+    hkv = cfg.num_kv_heads // len(kv_devices)
+    return ModelShards(cache_cls.zeros(batch, max_len, hkv, cfg.head_dim,
+                                       dtype, device=d) for d in kv_devices)
+
+
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
-                      dtype=torch.bfloat16, *, device) -> List[LayerState]:
+                      dtype=torch.bfloat16, *, device,
+                      kv_devices=None) -> List[LayerState]:
     """One empty state a layer on ``device`` (no default), with a scalar
     length: an attention layer's cache (``QKVCache`` when ``cfg.kv_quant
-    == "q8"``, else ``KVCache``), an SSM layer's ``SSMState`` (f32, as
-    the reference's, which passes no type)."""
+    == "q8"``, else ``KVCache``; split over ``kv_devices`` where given,
+    ``kv_zeros``), an SSM layer's ``SSMState`` (f32, as the reference's,
+    which passes no type)."""
     cache_cls = QKVCache if cfg.kv_quant == "q8" else KVCache
-    return [cache_cls.zeros(batch, max_len, cfg.num_kv_heads, cfg.head_dim,
-                            dtype, device=device)
+    return [kv_zeros(cfg, cache_cls, batch, max_len, dtype, device=device,
+                     kv_devices=kv_devices)
             if spec.mixer == "attn" else
             ssm_lib.SSMState.zeros(batch, cfg.ssm, cfg.d_model, device=device)
             for spec in layer_specs(cfg)]
+
+
+def decode_attn_fn(engine):
+    """``decode_attention``'s output as ``tensor_parallel`` calls it: (a
+    sub-block's leaves, its cfg, x, the cache[, the cross K/V])."""
+    def attn(p, c, h, cache, memory_kv=None, **kw):
+        return decode_attention(p, c, h, cache, memory_kv=memory_kv,
+                                engine=engine, **kw)[0]
+    return attn
+
+
+def mlp_fn(engine):
+    """``layers.mlp_apply`` as ``tensor_parallel`` calls it."""
+    def mlp(p, c, h, **kw):
+        return layers.mlp_apply(p, h, c.act, engine=engine, **kw)
+    return mlp
 
 
 def decode_step_stack(params: dict, cfg: ModelConfig, x: torch.Tensor,
@@ -396,12 +451,19 @@ def decode_step_stack(params: dict, cfg: ModelConfig, x: torch.Tensor,
     advanced in place), then the pre-norm FFN (dense, or
     MoE with its load-balance loss dropped, as the reference's decode
     drops it), each added to the residual stream in x's type. Returns (y,
-    states), ``states`` the same caches."""
+    states), ``states`` the same caches. A serving block over "model"
+    (``rules.serve_tree``) runs its split attention, dense FFN and
+    experts as ``tensor_parallel`` and ``moe_ffn`` run a training
+    block's, each model shard's attention over its own cache."""
+    attn, mlp = decode_attn_fn(engine), mlp_fn(engine)
     for p, spec, st in zip(params["blocks"], layer_specs(cfg), states,
                            strict=True):
+        p, parts, devices = gather_for_shard(p, None, None, None)
         h = layers.norm_apply(p["norm1"], x, cfg.norm)
         if spec.mixer == "attn":
-            mixed, _ = decode_attention(p["attn"], cfg, h, st, engine=engine)
+            mixed = tensor_parallel(attn, p["attn"], parts.get("attn"), cfg,
+                                    devices, h, shard_args=[
+                                        (c,) for c in shard_list(st)])
         else:
             mixed, _ = ssm_lib.ssm_decode_step(p["ssm"], cfg, h, st,
                                                engine=engine)
@@ -409,8 +471,10 @@ def decode_step_stack(params: dict, cfg: ModelConfig, x: torch.Tensor,
         if spec.ffn != "none":
             h = layers.norm_apply(p["norm2"], x, cfg.norm)
             if spec.ffn == "moe":
-                y, _ = moe_lib.moe_ffn(p["moe"], cfg, h, engine=engine)
+                y, _ = moe_ffn(p["moe"], cfg, h, parts.get("moe"), devices,
+                               mlp, engine)
             else:
-                y = layers.mlp_apply(p["ffn"], h, cfg.act, engine=engine)
+                y = tensor_parallel(mlp, p["ffn"], parts.get("ffn"), cfg,
+                                    devices, h)
             x = x + y.to(x.dtype)
     return x, states

@@ -15,6 +15,14 @@ against the cached self-attention KV. Layers are a Python loop over a list
 of per-layer parameter dicts. A paged decode state
 (``WhisperPagedDecodeState``) keeps both KV kinds in page arenas stacked
 over the layers, as the reference does.
+
+A serving engine over "model" (``sharding.rules.serve_tree``) gives each
+block its split attentions' and FFN's slices: the encoder, the cross
+K/V projection and the decoder step run them over the model shards
+(``transformer.tensor_parallel``), each model shard's self-attention
+over its own cache and its cross-attention over its own cross K/V
+(``ModelShards``), and the readout over the split vocabulary
+(``layers.vocab_logits``).
 """
 from __future__ import annotations
 
@@ -25,10 +33,13 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers
 from repro_torch.models.attention import (
-    KVCache, PagedKVCache, attention, decode_attention, init_attention,
-    paged_window_gather)
-from repro_torch.models.transformer import gather_for_shard, remat, \
-    shard_layouts, tensor_parallel
+    KVCache, ModelShards, PagedKVCache, attention, decode_attention,
+    first_shard, init_attention, map_shards, paged_window_gather,
+    shard_list)
+from repro_torch.models.transformer import decode_attn_fn, \
+    gather_for_shard, kv_zeros, mlp_fn, remat, shard_layouts, \
+    tensor_parallel
+from repro_torch.roofline import op_cost
 from repro_torch.sharding import ctx
 
 
@@ -124,7 +135,7 @@ def encode(params: dict, cfg: ModelConfig, mel: torch.Tensor, *,
         x = x + tensor_parallel(attn, p["attn"], parts.get("attn"), cfg,
                                 devs, h).to(x.dtype)
         h = layers.norm_apply(p["norm2"], x, cfg.norm)
-        return x + tensor_parallel(_mlp(engine), p["ffn"],
+        return x + tensor_parallel(mlp_fn(engine), p["ffn"],
                                    parts.get("ffn"), cfg, devs, h
                                    ).to(x.dtype)
 
@@ -132,12 +143,6 @@ def encode(params: dict, cfg: ModelConfig, mel: torch.Tensor, *,
     for i, p in enumerate(params["enc_blocks"]):
         x = block(x, p, i)
     return layers.norm_apply(params["enc_norm"], x, cfg.norm)
-
-
-def _mlp(engine):
-    def mlp(p, cfg, h, **kw):
-        return layers.mlp_apply(p, h, cfg.act, engine=engine, **kw)
-    return mlp
 
 
 def decode_train(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
@@ -177,7 +182,7 @@ def decode_train(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                                 parts.get("cross_attn"), cfg, devs, h,
                                 memory).to(x.dtype)
         h = layers.norm_apply(p["norm2"], x, cfg.norm)
-        return x + tensor_parallel(_mlp(engine), p["ffn"],
+        return x + tensor_parallel(mlp_fn(engine), p["ffn"],
                                    parts.get("ffn"), cfg, devs, h
                                    ).to(x.dtype)
 
@@ -195,16 +200,30 @@ def precompute_cross_kv(params: dict, cfg: ModelConfig, memory: torch.Tensor,
                         ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
     """Project each decoder layer's cross K/V once per utterance (the
     paper's ``dec.cross.kv`` kernel class). Returns [(B,F,Hkv,hd) x2] per
-    layer, in ``cfg.dtype``."""
-    hkv, hd = cfg.num_kv_heads, cfg.head_dim
+    layer, in ``cfg.dtype``; a serving block whose cross-attention is
+    split over "model" gives each model shard's heads, on its device
+    (``ModelShards``)."""
     b, f, _ = memory.shape
     dtype = layers.DTYPES[cfg.dtype]
+
+    def kv(p, hkv, x):
+        k = layers.linear(p["k"], x, engine, "dec.cross.k")
+        v = layers.linear(p["v"], x, engine, "dec.cross.v")
+        return (k.reshape(b, f, hkv, cfg.head_dim).to(dtype),
+                v.reshape(b, f, hkv, cfg.head_dim).to(dtype))
     out = []
     for p in params["dec_blocks"]:
-        k = layers.linear(p["cross_attn"]["k"], memory, engine, "dec.cross.k")
-        v = layers.linear(p["cross_attn"]["v"], memory, engine, "dec.cross.v")
-        out.append((k.reshape(b, f, hkv, hd).to(dtype),
-                    v.reshape(b, f, hkv, hd).to(dtype)))
+        p, parts, devs = gather_for_shard(p, None, None, None)
+        split = parts.get("cross_attn")
+        if split is None:
+            out.append(kv(p["cross_attn"], cfg.num_kv_heads, memory))
+            continue
+        shards = []
+        for m, (part, dev) in enumerate(zip(split, devs)):
+            with op_cost.at(model=m), ctx.model_shard_scope(m, len(split)):
+                shards.append(kv(part, cfg.num_kv_heads // len(split),
+                                 memory.to(dev)))
+        out.append(ModelShards(shards))
     return out
 
 
@@ -224,32 +243,42 @@ def init_whisper_decode_state(params: dict, cfg: ModelConfig,
 
 def zeros_decode_state(cfg: ModelConfig, batch: int, frames: int,
                        max_len: int, *, device,
-                       dtype=torch.bfloat16) -> WhisperDecodeState:
+                       dtype=torch.bfloat16,
+                       kv_devices=None) -> WhisperDecodeState:
     """A decode state of zeros for ``batch`` utterances of ``frames``
     frames on ``device`` (no default): the static buffers that a captured
-    prefill fills and a captured decode step reads."""
-    hkv, hd = cfg.num_kv_heads, cfg.head_dim
+    prefill fills and a captured decode step reads. With ``kv_devices``
+    (a serving data shard's model devices, its attention split over
+    them) each layer's self-KV cache and cross K/V are one a model shard,
+    its heads on its device (``ModelShards``)."""
+    def cross(d, hkv):
+        return tuple(torch.zeros((batch, frames, hkv, cfg.head_dim),
+                                 dtype=dtype, device=d) for _ in range(2))
 
-    def zeros():
-        return torch.zeros((batch, frames, hkv, hd), dtype=dtype,
-                           device=device)
+    def layer_cross():
+        if kv_devices is None:
+            return cross(device, cfg.num_kv_heads)
+        return ModelShards(cross(d, cfg.num_kv_heads // len(kv_devices))
+                           for d in kv_devices)
     return WhisperDecodeState(
-        self_kv=[KVCache.zeros(batch, max_len, hkv, hd, dtype, device=device)
+        self_kv=[kv_zeros(cfg, KVCache, batch, max_len, dtype, device=device,
+                          kv_devices=kv_devices)
                  for _ in range(cfg.num_layers)],
-        cross_kv=[(zeros(), zeros()) for _ in range(cfg.num_layers)])
+        cross_kv=[layer_cross() for _ in range(cfg.num_layers)])
 
 
 def zeros_slot_decode_state(cfg: ModelConfig, n_slots: int, frames: int,
                             max_len: int, *, device,
-                            dtype=torch.bfloat16) -> WhisperDecodeState:
+                            dtype=torch.bfloat16,
+                            kv_devices=None) -> WhisperDecodeState:
     """The slot-layout twin of ``zeros_decode_state``: ``n_slots`` rows,
     each layer's cache with ``(n_slots,)`` lengths, so that every slot of a
     continuous-batching pool decodes at its own position."""
     st = zeros_decode_state(cfg, n_slots, frames, max_len, device=device,
-                            dtype=dtype)
+                            dtype=dtype, kv_devices=kv_devices)
     return st._replace(self_kv=[
-        kv._replace(length=torch.zeros((n_slots,), dtype=torch.int32,
-                                       device=device))
+        map_shards(lambda c: c._replace(length=torch.zeros(
+            (n_slots,), dtype=torch.int32, device=c.k.device)), kv)
         for kv in st.self_kv])
 
 
@@ -330,18 +359,24 @@ def _decoder_stack(params: dict, cfg: ModelConfig, x: torch.Tensor,
     and the W-token verify window: each layer's ``decode_attention``
     appends its W self-KV entries and masks the window's causality, so
     W = 1 is the decode step."""
+    attn, mlp = decode_attn_fn(engine), mlp_fn(engine)
     for p, kv, ck_cv in zip(params["dec_blocks"], state.self_kv,
                             state.cross_kv):
+        p, parts, devs = gather_for_shard(p, None, None, None)
+        caches = shard_list(kv)
         h = layers.norm_apply(p["norm1"], x, cfg.norm)
-        mixed, _ = decode_attention(p["self_attn"], cfg, h, kv, engine=engine)
-        x = x + mixed.to(x.dtype)
+        x = x + tensor_parallel(attn, p["self_attn"], parts.get("self_attn"),
+                                cfg, devs, h, shard_args=[
+                                    (c,) for c in caches]).to(x.dtype)
         h = layers.norm_apply(p["norm_x"], x, cfg.norm)
-        mixed, _ = decode_attention(p["cross_attn"], cfg, h, kv,
-                                    memory_kv=ck_cv, engine=engine)
-        x = x + mixed.to(x.dtype)
+        x = x + tensor_parallel(attn, p["cross_attn"],
+                                parts.get("cross_attn"), cfg, devs, h,
+                                shard_args=list(zip(
+                                    caches, shard_list(ck_cv)))
+                                ).to(x.dtype)
         h = layers.norm_apply(p["norm2"], x, cfg.norm)
-        x = x + layers.mlp_apply(p["ffn"], h, cfg.act, engine=engine
-                                 ).to(x.dtype)
+        x = x + tensor_parallel(mlp, p["ffn"], parts.get("ffn"), cfg, devs,
+                                h).to(x.dtype)
     x = layers.norm_apply(params["dec_norm"], x, cfg.norm)
     logits = layers.unembed(params["embed"], x, engine)
     return logits, state
@@ -375,7 +410,7 @@ def verify_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     ``WhisperPagedDecodeState`` takes the paged twin."""
     if isinstance(state, WhisperPagedDecodeState):
         return _verify_step_paged(params, cfg, tokens, state, engine=engine)
-    x = _embed_window(params, tokens, state.self_kv[0].length)
+    x = _embed_window(params, tokens, first_shard(state.self_kv[0]).length)
     return _decoder_stack(params, cfg, x, state, engine=engine)
 
 

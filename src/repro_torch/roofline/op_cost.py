@@ -24,8 +24,11 @@ entry it counts:
     gathers and scatter, ``train/step.py``'s ``reduce_grads``, the summed
     partial outputs of ``models/transformer.py``'s tensor parallelism,
     the expert-parallel MoE's moves of its slots (``models/moe.py``,
-    all-to-all) and the split vocabulary's sums (``models/layers.py``'s
-    embedding, ``models/model.py``'s CE: all-reduce)) report themselves
+    all-to-all), the MoE capacity claim that joins the data shards'
+    expert choices (all-gather), the split vocabulary's sums
+    (``models/layers.py``'s embedding, ``models/model.py``'s CE:
+    all-reduce) and its served logits (``layers.vocab_logits``:
+    all-gather)) report themselves
     through ``collective`` into the entry's
     ``CollectiveStats``; with no counter active the call does nothing;
   * live and peak bytes: every storage an operation allocates is charged

@@ -100,8 +100,26 @@ whole batch (``ctx.shard_program``), and run on the first device
 otherwise; either way the keys carry the mesh. ``_step_builds`` counts
 step-key builds: once a key, however many shard graphs it captured
 (``_step_captures`` counts graphs). ``energy_report()["dispatch"]``
-gains ``by_device``. Not in this slice (ROADMAP item 14b): a mesh with
-``model > 1`` (tensor parallelism), which raises ``NotImplementedError``.
+gains ``by_device``. Where a MoE layer's capacity claim would span the
+data shards and can drop (``moe.spans_shards``), a one-shot batch runs as one
+program on the first device, and a scheduler's step as one program over
+its pool (``serve/scheduler.py``).
+
+Tensor parallelism over "model" (a mesh with ``model > 1``): the weights
+are placed by ``serve_param_specs`` (``sharding.rules.place``: a split
+leaf's parts on the model devices that hold them, views of one copy
+where entries repeat a device), and each data shard's serving tree
+(``rules.serve_tree``, keyed by its first device) holds whole what its
+first model device computes and, under ``rules.TP_KEY``, the slices of
+the attentions, dense FFNs, experts and vocabulary that
+``rules.tp_layout``/``vocab_layout`` split; a width that does not divide
+runs whole there, with the reason those functions give. The programs
+run each split sub-block over the data shard's model shards
+(``models/transformer.py``), each attention over its own KV cache slice
+(``_kv_devices``); on the card a data shard's model shards share its one
+captured graph, and a data shard over distinct cards is refused. Paged
+and speculative serving over ``model > 1`` raise
+``NotImplementedError`` (ROADMAP item 14b).
 
 Token contract: ``GenerationResult.tokens`` holds exactly the ``steps``
 tokens the request generated — the SOT seed token and an LM's prompt are
@@ -129,8 +147,11 @@ from repro_torch.core.offload import OffloadEngine
 from repro_torch.core.plan import DispatchPlan, PlanCache, plan_key
 from repro_torch.core.qformats import quantize_tree
 from repro_torch.launch.mesh import physical_device
+from repro_torch.models import layers
 from repro_torch.models import model as model_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import whisper as whisper_lib
+from repro_torch.models.attention import first_shard, shard_list
 from repro_torch.models.ssm import SSMState
 from repro_torch.sharding import ctx as shard_ctx
 from repro_torch.sharding import rules as shard_rules
@@ -271,11 +292,6 @@ class ServeEngine:
             if mesh.is_abstract:
                 raise ValueError("serving needs a mesh of devices, not an "
                                  "abstract mesh")
-            if mesh.shape.get("model", 1) > 1:
-                raise NotImplementedError(
-                    f"serving over a mesh with model={mesh.shape['model']} "
-                    "(tensor parallelism over 'model') is not ported: "
-                    "ROADMAP item 14b; serve on a data-only mesh")
             self.device = mesh.axis_devices("data")[0]
         self.device = resolve_device(self.device)
         self._phys = physical_device(self.device)
@@ -285,15 +301,24 @@ class ServeEngine:
         params = model_lib.to_device(self.params, self.device)
         self._serve_params = (quantize_tree(params, _keep_dense)
                               if self._serve_quant == "q8_0" else params)
-        # {physical device: the serving weights there}
+        # {physical device: the serving weights there}; over "model", a
+        # data shard's first device holds its serving tree
         self._placed = {self._phys: self._serve_params}
+        # {a data shard's first device: its model devices where its
+        # attention (and so its KV caches) split over them}
+        self._kv_devices: Dict[torch.device, Optional[tuple]] = {}
+        # {a data shard's first device: its model devices}
+        self._model_devices: Dict[torch.device, tuple] = {}
         if mesh is not None:
             for d in mesh.physical_devices:
                 resolve_device(d)
             specs = shard_rules.serve_param_specs(self._serve_params, mesh)
-            self._placed.update(shard_rules.place(self._serve_params, mesh,
-                                                  specs))
-            self._placed[self._phys] = self._serve_params
+            placed = shard_rules.place(self._serve_params, mesh, specs)
+            if mesh.shape.get("model", 1) > 1:
+                self._place_model_shards(placed, specs)
+            else:
+                self._placed.update(placed)
+                self._placed[self._phys] = self._serve_params
             if self.offload is not None:
                 self.offload.mesh_sig = shard_rules.mesh_signature(mesh)
         self._eos = -1 if self.eos_id is None else int(self.eos_id)
@@ -305,6 +330,34 @@ class ServeEngine:
             if self.offload is not None:
                 self.telemetry.bind_ledger(self.offload.ledger)
             obs.activate(self.telemetry)
+
+    def _place_model_shards(self, placed: dict, specs) -> None:
+        """Tensor parallelism over "model": each data shard's serving tree
+        (``shard_rules.serve_tree``) from the placement, keyed by the
+        shard's first device, and the devices its KV caches split over
+        where its attention is split. A CUDA data shard whose model
+        entries are distinct cards is refused: its step is one captured
+        graph, which cannot span cards."""
+        cfg, mesh = self.cfg, self.mesh
+        for row in mesh.shard_devices():
+            devs = tuple(physical_device(d) for d in row)
+            if devs[0].type == "cuda" and len(set(devs)) > 1:
+                raise NotImplementedError(
+                    "serving over 'model' across distinct cards is not "
+                    "ported: a data shard's step is one CUDA graph "
+                    "(ROADMAP item 14b)")
+            if devs[0] in self._model_devices:
+                if self._model_devices[devs[0]] != devs:
+                    raise NotImplementedError(
+                        "data shards on one device with other model "
+                        "devices (ROADMAP item 14b)")
+                continue
+            tree = shard_rules.serve_tree(cfg, placed, specs, mesh, devs,
+                                          layers.VocabShards)
+            self._placed[devs[0]] = tree
+            self._model_devices[devs[0]] = devs
+            self._kv_devices[devs[0]] = (
+                devs if shard_rules.attention_split(tree) else None)
 
     def _warm_tuning(self, **shape) -> Optional[int]:
         """Warm the offload engine's tuner (if any) for whisper's shapes
@@ -336,13 +389,16 @@ class ServeEngine:
 
     def _batch_shards(self, b: int) -> int:
         """Data shards a one-shot batch of ``b`` rows splits over: the mesh's
-        data axis where ctx's "batch" token resolves for ``b``, else 1."""
+        data axis where ctx's "batch" token resolves for ``b``, else 1;
+        1 too where a MoE layer's capacity claim would span the shards
+        (``moe.spans_shards``): the batch then runs as one program."""
         mesh = self.mesh
         if mesh is None or mesh.shape.get("data", 1) <= 1:
             return 1
         if shard_ctx._resolve("batch", b, mesh) is None:
             return 1
-        return mesh.shape["data"]
+        n = mesh.shape["data"]
+        return 1 if moe_lib.spans_shards(self.cfg, b // n, n) else n
 
     def _argmax(self, logits: torch.Tensor) -> torch.Tensor:
         """Greedy pick over the true vocab (vocab_pad columns excluded)."""
@@ -415,6 +471,7 @@ class ServeEngine:
         ls = state.layer_states
         kv = next((st for st in ls if not isinstance(st, SSMState)), None) \
             if isinstance(ls, list) else ls.self_kv[0]
+        kv = first_shard(kv)
         if kv is not None and int(kv.length.max()) >= kv[0].shape[1]:
             raise ValueError(f"KV cache full: {kv[0].shape[1]} positions")
         with torch.inference_mode():
@@ -433,8 +490,9 @@ class ServeEngine:
         if st is None:
             st = self._static[skey] = _Static(
                 mel=torch.zeros((b, f, self.cfg.n_mels), device=dev),
-                state=model_lib.zeros_serve_state(self.cfg, b, f,
-                                                  self.max_len, device=dev),
+                state=model_lib.zeros_serve_state(
+                    self.cfg, b, f, self.max_len, device=dev,
+                    kv_devices=self._kv_devices.get(dev)),
                 token=torch.zeros((b, 1), dtype=torch.long, device=dev),
                 done=torch.zeros((b,), dtype=torch.bool, device=dev),
                 tokens=torch.zeros((b, self.max_len), dtype=torch.long,
@@ -454,13 +512,15 @@ class ServeEngine:
         cross = whisper_lib.precompute_cross_kv(params, cfg, memory,
                                                 engine=eng)
         ls = st.state.layer_states
-        for (k, v), (k_buf, v_buf) in zip(cross, ls.cross_kv):
-            k_buf.copy_(k)
-            v_buf.copy_(v)
+        for src, buf in zip(model_lib.state_tensors(cross),
+                            model_lib.state_tensors(ls.cross_kv),
+                            strict=True):
+            buf.copy_(src)
         for kv in ls.self_kv:
-            kv.k.zero_()
-            kv.v.zero_()
-            kv.length.zero_()
+            for c in shard_list(kv):
+                c.k.zero_()
+                c.v.zero_()
+                c.length.zero_()
         st.state.step.zero_()
         st.done.zero_()
 
@@ -755,8 +815,9 @@ class ServeEngine:
                 prompt=torch.zeros((b, self.max_len), dtype=torch.long,
                                    device=dev),
                 plen=torch.zeros((), dtype=torch.long, device=dev),
-                state=model_lib.zeros_serve_state(self.cfg, b, 0,
-                                                  self.max_len, device=dev),
+                state=model_lib.zeros_serve_state(
+                    self.cfg, b, 0, self.max_len, device=dev,
+                    kv_devices=self._kv_devices.get(dev)),
                 token=torch.zeros((b, 1), dtype=torch.long, device=dev),
                 done=torch.zeros((b,), dtype=torch.bool, device=dev),
                 tokens=torch.zeros((b, self.max_len), dtype=torch.long,
@@ -942,6 +1003,7 @@ class ServeEngine:
         on a card, so its draft runs on the Hopper kernels too
         (``bf16_matmul``)."""
         from repro_torch.serve.speculative import SpeculativeEngine
+        self._refuse_model_axis("speculative serving")
         draft_offload = None
         if self.offload is not None:
             draft_offload = OffloadEngine(
@@ -964,8 +1026,17 @@ class ServeEngine:
         ``n_cross_pages``) is the workload's and the caller owns the
         instance; ``scheduler()`` stays the contiguous path."""
         from repro_torch.serve.paging import PagedScheduler
+        self._refuse_model_axis("a paged pool")
         return PagedScheduler(self, n_slots=n_slots, n_frames=n_frames,
                               **page_cfg)
+
+    def _refuse_model_axis(self, what: str) -> None:
+        """``NotImplementedError`` for ``what`` over a mesh with "model"
+        above 1: not in this slice."""
+        if self.mesh is not None and self.mesh.shape.get("model", 1) > 1:
+            raise NotImplementedError(
+                f"{what} over a mesh with model={self.mesh.shape['model']} "
+                "is not ported (ROADMAP item 14b)")
 
     def submit(self, prompt, max_new: int = 32, *,
                n_slots: Optional[int] = None) -> int:

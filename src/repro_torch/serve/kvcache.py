@@ -41,6 +41,13 @@ whole pool, its rows in slot order. ``acquire`` admits into the shard
 with the most free slots (ties: the lowest), the reference's pick order,
 so load spreads over the mesh; insert, reset and release copy into
 the owning shard's rows.
+
+Over "model" (``kv_devices``: a data device's model devices, where its
+attention is split over them) each attention layer's K and V are one
+cache a model shard, its Hkv / M heads on its device, as ``cache_specs``
+splits Hkv over "model" (``ModelShards``); where attention runs whole,
+the cache is whole on the data shard's first device. Every tensor keeps
+the slot axis first, so the splice and the views are unchanged.
 """
 from __future__ import annotations
 
@@ -51,6 +58,7 @@ from typing import Dict, List, Optional
 from repro_torch.configs.base import ModelConfig
 from repro_torch.launch.mesh import physical_device
 from repro_torch.models import model as model_lib
+from repro_torch.models.attention import first_shard, shard_list
 from repro_torch.models.model import ServeState
 from repro_torch.models.transformer import layer_pattern
 
@@ -92,7 +100,8 @@ class SlotKVPool:
     """
 
     def __init__(self, cfg: ModelConfig, n_slots: int, max_len: int,
-                 n_frames: Optional[int] = None, *, device, mesh=None):
+                 n_frames: Optional[int] = None, *, device, mesh=None,
+                 kv_devices: Optional[Dict] = None):
         if cfg.family == "audio" and n_frames is None:
             raise ValueError("audio slot pool needs a fixed n_frames "
                              "capacity (utterances are padded to it)")
@@ -115,10 +124,11 @@ class SlotKVPool:
         # each shard's first row in its device's tensors
         self._row0 = [devs[:s].count(d) * self.shard_size
                       for s, d in enumerate(devs)]
+        kv_devices = kv_devices or {}
         self.states: Dict = {
             d: model_lib.zeros_slot_state(
                 cfg, devs.count(d) * self.shard_size, n_frames, max_len,
-                device=d)
+                device=d, kv_devices=kv_devices.get(d))
             for d in self.devices}
         self.state: ServeState = self.states[self.devices[0]]
         self.shard_states: List[ServeState] = [
@@ -203,14 +213,15 @@ class SlotKVPool:
         ls = self.state.layer_states
         if isinstance(ls, list):                   # an LM's layer states
             p = self._period
-            fields = [[st[f] for st in ls[j::p]]
-                      for j in range(p) for f in range(len(ls[j]))]
+            fields = [[c[f] for st in ls[j::p] for c in shard_list(st)]
+                      for j in range(p)
+                      for f in range(len(first_shard(ls[j])))]
         else:
-            fields = [[kv.k for kv in ls.self_kv],
-                      [kv.v for kv in ls.self_kv],
-                      [kv.length for kv in ls.self_kv],
-                      [k for k, _ in ls.cross_kv],
-                      [v for _, v in ls.cross_kv]]
+            kvs = [c for kv in ls.self_kv for c in shard_list(kv)]
+            cross = [c for kv in ls.cross_kv for c in shard_list(kv)]
+            fields = [[kv.k for kv in kvs], [kv.v for kv in kvs],
+                      [kv.length for kv in kvs], [k for k, _ in cross],
+                      [v for _, v in cross]]
         total = 0.0
         for leaves in fields:
             per_slot = sum(t.numel() // t.shape[0] * t.element_size()

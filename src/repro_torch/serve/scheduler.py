@@ -67,7 +67,14 @@ that shard's rows of the pool and of the token buffer (one tensor a
 physical device), on its device, inside ``sharding.ctx.shard_program``:
 its linears are planned at the whole step's M (each entry's kernel,
 burst and tile its shard's launch's) and its MoE capacity is the whole
-step's. On the card each shard's program is captured at the
+step's. Where a MoE layer's capacity claim spans the data
+shards and can drop (``moe.spans_shards``), the step is one
+program over the whole pool instead, on the one physical device that
+holds it, so that the claim is the whole step's (the reference's); over
+distinct physical devices such a pool is refused (ROADMAP item 14b). A
+serving mesh with "model" above 1 runs each data shard's model shards
+inside its program (``models/transformer.py``): on a card they share,
+one graph holds them all. On the card each shard's program is captured at the
 pool's first admission, on its device, into one graph memory pool a
 device; the key is built once (``_step_builds``) and captured n_shards
 times (``_step_captures``), then only replayed. Every shard's replay is
@@ -92,6 +99,7 @@ from repro_torch import obs
 from repro_torch.core import energy
 from repro_torch.core.plan import DispatchPlan
 from repro_torch.models import model as model_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.serve.engine import GenerationResult, ServeEngine
 from repro_torch.serve.kvcache import SlotKVPool
 from repro_torch.sharding import ctx as shard_ctx
@@ -174,6 +182,17 @@ class ContinuousBatchingScheduler:
         self.n_slots = n_slots
         self.n_frames = n_frames
         self.pool = self._make_pool()
+        # a MoE step whose capacity claim spans the data shards runs as
+        # one program over the whole pool (one physical device holds it
+        # whole, in slot order), which claims as the reference's does
+        self._joint = moe_lib.spans_shards(engine.cfg, self.pool.shard_size,
+                                           self.pool.n_shards)
+        if self._joint and len(self.pool.devices) > 1:
+            raise NotImplementedError(
+                "a MoE step whose capacity claim spans data shards on "
+                "distinct physical devices is not ported: one graph a "
+                "device cannot join their expert choices mid-step "
+                "(ROADMAP item 14b)")
         # the slot step's launches run a shard's rows
         searches = engine._warm_tuning(n_frames=n_frames, batch=1,
                                        n_tokens=engine.max_len)
@@ -210,7 +229,7 @@ class ContinuousBatchingScheduler:
         eng = self.engine
         return SlotKVPool(eng.cfg, self.n_slots, eng.max_len,
                           n_frames=self.n_frames, device=eng.device,
-                          mesh=eng.mesh)
+                          mesh=eng.mesh, kv_devices=eng._kv_devices)
 
     # -- data shards --------------------------------------------------------
     def _per_device(self, width: int, dtype) -> Dict:
@@ -252,8 +271,8 @@ class ContinuousBatchingScheduler:
             for prog in programs:
                 prog.graph.replay()
             return
-        for s, prog in enumerate(programs):
-            with torch.cuda.device(self.pool.shard_devices[s]):
+        for prog, d in zip(programs, self._program_devices(), strict=True):
+            with torch.cuda.device(d):
                 prog.graph.replay()
 
     def _capture_shards(self, key, fn) -> List:
@@ -270,7 +289,7 @@ class ContinuousBatchingScheduler:
                     pools[d] = torch.cuda.graph_pool_handle()
         progs = []
         with torch.no_grad():
-            for s, d in enumerate(pool.shard_devices):
+            for s, d in enumerate(self._program_devices()):
                 progs.append(eng._capture(key, self._shard_fn(fn, s),
                                           device=d, pool=pools.get(d),
                                           build=s == 0))
@@ -286,20 +305,32 @@ class ContinuousBatchingScheduler:
         eng = self.engine
         plan = None
         with torch.no_grad():
-            for s in range(self.pool.n_shards):
+            for s in range(len(self._program_devices())):
                 run = eng._record_run(key, self._shard_fn(fn, s))
                 plan = plan or run
         return plan
 
+    def _program_devices(self) -> List:
+        """The device of each program a step runs: one a data shard, or
+        the pool's one device where the step runs as one program
+        (``_joint``)."""
+        pool = self.pool
+        return pool.devices[:1] if self._one_program() else \
+            pool.shard_devices
+
+    def _one_program(self) -> bool:
+        return self.pool.n_shards == 1 or self._joint
+
     def _shard_fn(self, fn, s: int):
         """Shard ``s``'s program: ``fn(s)``, or ``fn()`` itself when the
-        pool is one shard."""
-        return fn if self.pool.n_shards == 1 else partial(fn, s)
+        step is one program."""
+        return fn if self._one_program() else partial(fn, s)
 
     def _in_shard(self):
         """The context a shard's program runs in: one of n_shards."""
         n = self.pool.n_shards
-        return shard_ctx.shard_program(n) if n > 1 else nullcontext()
+        return (shard_ctx.shard_program(n) if not self._one_program()
+                else nullcontext())
 
     def _make_step_key(self):
         """The slot step's plan key: the one-shot step's at (n_slots,
@@ -401,7 +432,7 @@ class ContinuousBatchingScheduler:
         them, all on its device."""
         eng = self.engine
         pool = self.pool
-        if pool.n_shards == 1:
+        if self._one_program():
             state, tok = pool.state, self._token
         else:
             state, tok = pool.shard_states[s], self._shard_tokens[s]

@@ -25,6 +25,18 @@ that must see the whole step reads ``batch_shards()``: the offload engine
 plans each linear at the global M (``core/offload.py``), a MoE layer
 computes its capacity from the global token count (``models/moe.py``).
 
+``model_shard(m, n)`` is the port's own too: while active, the code
+running computes model shard ``m`` of ``n`` of a sub-block split over
+"model" (``models.transformer.tensor_parallel``, the split vocabulary's
+readout): the offload engine plans each linear at the whole sub-block's
+N or K and records it once, from shard 0 (``core/offload.py``).
+
+``lockstep(index, exchange)`` marks the scope's program as data shard
+``index`` of a step whose shards run in lockstep (``sharding/lockstep.py``):
+``exchange(value)`` hands every shard's value, in shard order, to each,
+the port's all-gather. A MoE layer whose capacity claim spans the data
+shards joins their expert choices through it (``models/moe.py``).
+
 ``train_shard(data_index, model_devices, specs, mesh)`` is the port's own
 too: while active, the program running is data shard ``data_index`` of a
 mesh training step, whose parameters are the stored pieces
@@ -76,6 +88,63 @@ def shard_program(n: int):
         yield
     finally:
         _STATE.shards = prev
+
+
+def model_shard() -> Tuple[int, int]:
+    """(the model shard the running code computes, the number of model
+    shards of its sub-block): (0, 1) outside ``model_shard``."""
+    return getattr(_STATE, "model", (0, 1))
+
+
+@contextmanager
+def model_shard_scope(m: int, n: int):
+    """Mark the scope's code as model shard ``m`` of ``n``."""
+    prev = model_shard()
+    _STATE.model = (int(m), int(n))
+    try:
+        yield
+    finally:
+        _STATE.model = prev
+
+
+class Lockstep(NamedTuple):
+    """A data shard of a step run in lockstep: its index and the
+    exchange (value -> every shard's value, in shard order)."""
+    index: int
+    exchange: Any
+
+
+def current_lockstep() -> Optional[Lockstep]:
+    return getattr(_STATE, "lockstep", None)
+
+
+@contextmanager
+def lockstep(index: int, exchange):
+    prev = current_lockstep()
+    _STATE.lockstep = Lockstep(int(index), exchange)
+    try:
+        yield
+    finally:
+        _STATE.lockstep = prev
+
+
+def snapshot() -> dict:
+    """This thread's context (every scope above), to re-enter in another
+    thread (``restored``)."""
+    return dict(vars(_STATE))
+
+
+@contextmanager
+def restored(snap: dict):
+    """The scope runs in the context ``snapshot`` took."""
+    prev = dict(vars(_STATE))
+    vars(_STATE).clear()
+    vars(_STATE).update(snap)
+    try:
+        yield
+    finally:
+        vars(_STATE).clear()
+        vars(_STATE).update(prev)
 
 
 class TrainShard(NamedTuple):

@@ -18,9 +18,12 @@ legs ('.../w/qs', '.../w/scales') inherit the dense weight's rule.
 A spec ``P`` is a tuple with one entry a dim: None (replicated), an axis
 name, or a tuple of axis names; trailing Nones are stripped, as the
 reference's ``PartitionSpec`` is built. The port has no compiler to place
-arrays from specs: ``place`` copies a tree onto a mesh's devices, and the
-serving pools place their state themselves (``serve/kvcache.py``,
-``serve/paging.py``).
+arrays from specs: ``place`` puts a tree on a mesh's physical devices by
+its serving specs (a leaf split over "model" as ``Slices`` of the parts a
+device holds), ``serve_tree`` builds from that one data shard's serving
+weights (its split sub-blocks' slices under ``TP_KEY``, as
+``gather_block`` gives a training block's), and the serving pools place
+their state themselves (``serve/kvcache.py``, ``serve/paging.py``).
 
 A training state over a mesh is stored split by its specs
 (``split_tree``): each tensor leaf becomes ``Pieces``, a tuple of the
@@ -469,6 +472,10 @@ TP_BLOCKS: collections.Counter = collections.Counter()
 
 
 def _on_model(spec, dim: int) -> bool:
+    """Whether ``spec`` splits ``dim`` over "model"; a Q8_0 weight's
+    specs (a ``QTensor`` of them) where both legs do."""
+    if isinstance(spec, tuple) and hasattr(spec, "_fields"):
+        return all(_on_model(s, dim) for s in spec)
     return is_spec(spec) and len(spec) > dim and spec[dim] == "model"
 
 
@@ -862,24 +869,217 @@ def mesh_signature(mesh) -> Optional[Tuple[Tuple[str, int], ...]]:
     return tuple((str(a), int(mesh.shape[a])) for a in mesh.axis_names)
 
 
-def _replicated(spec: P) -> bool:
-    return all(e is None for e in spec)
+class Slices(tuple):
+    """A leaf split over "model" as one physical device holds it
+    (``place``): entry m is model part m along dim ``dim``, None where
+    the device holds no copy of it. Where the device holds every part,
+    ``whole`` is the one copy the parts are views of."""
+    whole: Optional[torch.Tensor] = None
+    dim: int = 0
+
+
+def _placed_leaf(x) -> bool:
+    return isinstance(x, (Slices, torch.Tensor))
+
+
+def _model_dim(spec: P) -> Optional[int]:
+    """The dim ``spec`` splits over "model" (None: replicated). A spec
+    naming another axis raises: serving weights split over "model"
+    alone (``serve_param_specs``)."""
+    dims = [i for i, e in enumerate(spec) if e is not None]
+    if not dims:
+        return None
+    if any(spec[i] != "model" for i in dims) or len(dims) > 1:
+        raise NotImplementedError(
+            f"placing a leaf split as {spec} is not ported: serving "
+            "weights split over 'model' alone (ROADMAP item 14b)")
+    return dims[0]
+
+
+def _place_leaf(x: torch.Tensor, spec: P, mesh, holds: Dict) -> Dict:
+    """{physical device: what it holds of ``x``} (``place``)."""
+    dim = _model_dim(spec)
+    if dim is None:
+        return {d: x.to(d) for d in holds}
+    n = mesh.shape["model"]
+    size = x.shape[dim] // n
+    out = {}
+    for d, parts in holds.items():
+        if len(parts) == n:
+            whole = x.to(d)
+            sl = Slices(whole.narrow(dim, m * size, size) for m in range(n))
+            sl.whole = whole
+        else:
+            sl = Slices(
+                torch.empty(x.narrow(dim, m * size, size).shape,
+                            dtype=x.dtype, device=d).copy_(
+                                x.narrow(dim, m * size, size))
+                if m in parts else None for m in range(n))
+        sl.dim = dim
+        out[d] = sl
+    return out
 
 
 def place(tree, mesh, specs) -> dict:
-    """The tree on the mesh: {physical device: a copy of ``tree`` there},
-    one copy a distinct physical device, so logical entries that repeat a
-    device share its copy. Every spec must be replicated: a spec that
-    names an axis (tensor parallelism over "model", FSDP over "data")
+    """The tree on the mesh: {physical device: what it holds of ``tree``},
+    one entry a distinct physical device. A replicated leaf is whole on
+    each (``.to``: no copy on the device it already lies on); a leaf that
+    ``specs`` (``serve_param_specs``) splits over "model" is a ``Slices``
+    of the model parts the device's logical entries hold: contiguous
+    copies of them on distinct devices (1/M of the leaf each), and on a
+    device that holds every part (four logical entries of one card), one
+    whole copy, the parts views of it. A spec that names another axis
     raises ``NotImplementedError`` (ROADMAP item 14b)."""
-    from repro_torch.models.model import to_device
-    for spec in _spec_leaves(specs):
-        if not _replicated(spec):
-            raise NotImplementedError(
-                f"placing a leaf split as {spec} is not ported: the port "
-                "replicates weights over the mesh (ROADMAP item 14b: TP "
-                "over 'model')")
-    return {dev: to_device(tree, dev) for dev in mesh.physical_devices}
+    from repro_torch.launch.mesh import physical_device
+    holds: Dict = {d: set() for d in mesh.physical_devices}
+    for row in mesh.shard_devices():
+        for m, e in enumerate(row):
+            holds[physical_device(e)].add(m)
+    per_dev: Dict = {d: [] for d in holds}
+    for x, spec in _zip_specs(tree, specs):
+        for d, held in _place_leaf(x, spec, mesh, holds).items():
+            per_dev[d].append(held)
+    return {d: tree_lib.unflatten_like(tree, leaves)
+            for d, leaves in per_dev.items()}
+
+
+# ---------------------------------------------------------------------------
+# A data shard's serving weights over "model"
+# ---------------------------------------------------------------------------
+#: the key under which a serving block holds its split sub-blocks' slices
+TP_KEY = "tp"
+
+
+class TPParts(NamedTuple):
+    """A serving block's split sub-blocks: {sub-block key: one tree a
+    model shard m, its slices on ``devices[m]``} (``gather_block``'s
+    second half, placed once)."""
+    parts: Dict[str, list]
+    devices: Tuple[torch.device, ...]
+
+
+def _whole_of(col: tuple, device) -> torch.Tensor:
+    """One leaf whole on ``device`` from what the data shard's model
+    devices hold (``col``, in model order): a replica, the whole copy of
+    a ``Slices``, or its parts joined there (distinct devices)."""
+    x = col[0]
+    if not isinstance(x, Slices):
+        return x
+    if x.whole is not None:
+        return x.whole
+    parts = [next(c[m] for c in col if c[m] is not None)
+             for m in range(len(x))]
+    return torch.cat([t.to(device) for t in parts], x.dim)
+
+
+def _part_of(col: tuple, m: int) -> torch.Tensor:
+    """Model part m of a leaf, on model device m (a replica where the
+    leaf is not split)."""
+    x = col[m]
+    return x[m] if isinstance(x, Slices) else x
+
+
+def _rebuild(trees: list, fn) -> Any:
+    """``trees[0]``'s structure, each leaf ``fn`` of the leaves at its
+    place in every tree of ``trees`` (one a model device)."""
+    cols = list(zip(*(tree_lib.leaves(t, is_leaf=_placed_leaf)
+                      for t in trees)))
+    return tree_lib.unflatten_like(trees[0], [fn(c) for c in cols],
+                                   is_leaf=_placed_leaf)
+
+
+def _serve_linears(subs: list, devices) -> Tuple[dict, list]:
+    """A split attention's or FFN's linears (``_gather_linears``): (its
+    row-parallel biases whole on ``devices[0]``; one tree a model shard
+    m of its slices on ``devices[m]``)."""
+    whole = {lin: {"b": _whole_of(tuple(s[lin]["b"] for s in subs),
+                                  devices[0])}
+             for lin, lp in subs[0].items()
+             if lin in ROW_PARALLEL and "b" in lp}
+    parts = []
+    for m in range(len(devices)):
+        parts.append({lin: {leaf: _rebuild([s[lin][leaf] for s in subs],
+                                           lambda c, m=m: _part_of(c, m))
+                            for leaf in lp
+                            if not (lin in ROW_PARALLEL and leaf == "b")}
+                      for lin, lp in subs[0].items()})
+    return whole, parts
+
+
+def _serve_block(cfg, blocks: list, specs: dict, mesh, devices) -> dict:
+    """A serving block of one data shard, from its placement on each
+    model device (``blocks``, in model order): whole on ``devices[0]``
+    what ``tp_layout`` runs whole, and the split sub-blocks' slices under
+    ``TP_KEY``, as ``gather_block`` gives a training block."""
+    layout = tp_layout(cfg, specs, mesh)
+    whole, parts = {}, {}
+    for key in blocks[0]:
+        subs = [b[key] for b in blocks]
+        if key == "moe":
+            w, p = {}, [{} for _ in devices]
+            for name in subs[0]:
+                ss = [x[name] for x in subs]
+                if name == "dense" and layout.get(MOE_DENSE) == SPLIT:
+                    w[name], dense = _serve_linears(ss, devices)
+                    for m, d in enumerate(dense):
+                        p[m][name] = d
+                elif name in EXPERT_LEAVES and layout.get("moe") == SPLIT:
+                    for m in range(len(devices)):
+                        p[m][name] = _rebuild(
+                            ss, lambda c, m=m: _part_of(c, m))
+                else:
+                    w[name] = _rebuild(ss, lambda c: _whole_of(c,
+                                                               devices[0]))
+            whole[key] = w
+            if p[0]:
+                parts[key] = p
+        elif layout.get(key) == SPLIT:
+            whole[key], parts[key] = _serve_linears(subs, devices)
+        else:
+            whole[key] = _rebuild(subs, lambda c: _whole_of(c, devices[0]))
+    if parts:
+        whole[TP_KEY] = TPParts(parts, tuple(devices))
+    return whole
+
+
+def attention_split(tree) -> bool:
+    """Whether a serving tree's attention runs split over "model" (its
+    KV caches then split by their heads): every attention block alike,
+    since they share their widths."""
+    for path in tree_lib.LAYER_LISTS:
+        blocks = tree
+        for k in path:
+            blocks = blocks.get(k, {}) if isinstance(blocks, dict) else {}
+        for b in blocks or ():
+            tp = b.get(TP_KEY)
+            if tp is not None and any(k in ATTENTIONS for k in tp.parts):
+                return True
+    return False
+
+
+def serve_tree(cfg, placed: dict, specs, mesh, devices,
+               vocab_shards: Callable[[list, tuple], Any]):
+    """The serving weights of the data shard whose model shards run on
+    ``devices`` (physical, in model order), from ``place``'s ``placed``:
+    each block as ``_serve_block`` builds it, the vocabulary leaves
+    (embedding table, ``lm_head``) as ``vocab_shards(parts, devices)``
+    where ``vocab_layout`` splits them, every other leaf whole on
+    ``devices[0]``."""
+    split_vocab = vocab_layout(cfg, specs, mesh) == SPLIT
+
+    def walk(trees, sp, path):
+        if path in tree_lib.LAYER_LISTS:
+            return [_serve_block(cfg, list(bs), bsp, mesh, devices)
+                    for bs, bsp in zip(zip(*trees), sp)]
+        if split_vocab and path in (("embed", "table"), ("lm_head", "w")):
+            return vocab_shards(
+                [_rebuild(trees, lambda c, m=m: _part_of(c, m))
+                 for m in range(len(devices))], tuple(devices))
+        if isinstance(trees[0], dict):
+            return {k: walk([t[k] for t in trees], sp[k], path + (k,))
+                    for k in trees[0]}
+        return _rebuild(trees, lambda c: _whole_of(c, devices[0]))
+    return walk([placed[d] for d in devices], specs, ())
 
 
 def _spec_leaves(specs) -> List[P]:

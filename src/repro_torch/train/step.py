@@ -56,12 +56,17 @@ a step computes the unsharded step's function on one controller:
 
 With ``microbatches`` K > 1 each microbatch is split over the shards as
 the whole batch would be, its gradients summed in f32 and divided by K.
-Where a MoE shard's token count is not a multiple of ``dispatch_group``,
-its tokens claim capacity among themselves, and where tokens drop, which
-ones may differ from the unsharded step's (``models/moe.py``).
+The shards' programs run through ``sharding/lockstep.py``: in shard
+order, one at a time, each until it ends or needs the others' values.
+Where a MoE layer's capacity claim spans the data shards
+(``moe.spans_shards``: a shard's tokens not a whole number of the step's
+dispatch groups, and a group able to drop), they join their expert
+choices there, so that the drops are the unsharded step's
+(``models/moe.py``); elsewhere each runs to its end in turn.
 """
 from __future__ import annotations
 
+import functools
 from contextlib import contextmanager
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
@@ -78,7 +83,7 @@ from repro_torch.optim.adamw import AdamWState, adamw_init, adamw_update, \
 from repro_torch.optim.compression import ef_compress_grads, \
     ef_compress_split, ef_init
 from repro_torch.roofline import op_cost
-from repro_torch.sharding import ctx, rules
+from repro_torch.sharding import ctx, lockstep, rules
 
 
 class TrainState(NamedTuple):
@@ -181,21 +186,26 @@ def _shard_grads(cfg: ModelConfig, params, specs, mesh, batch, shards, *,
     piece, None for a piece that takes none)."""
     dev0 = shards[0][1][0]
     flat = tree.leaves(params, is_leaf=rules.is_pieces)
-    terms, stats, shard_views = [], [], []
+
+    def shard(i, devs, rows):
+        views = [rules.Pieces(t.detach().requires_grad_(
+            t.is_floating_point()) for t in x) for x in flat]
+        with moe_lib.router_stats() as st, \
+                ctx.train_shard(i, devs, specs, mesh), op_cost.at(shard=i):
+            term = model_lib.loss_terms(
+                tree.unflatten_like(params, views, is_leaf=rules.is_pieces),
+                cfg, {k: v[rows].to(devs[0]) for k, v in batch.items()},
+                engine=engine, attn_chunk=attn_chunk)
+        return term, st, views
+
     with torch.enable_grad(), ctx.shard_program(len(shards)):
-        for i, devs, rows in shards:
-            views = [rules.Pieces(t.detach().requires_grad_(
-                t.is_floating_point()) for t in x) for x in flat]
-            with moe_lib.router_stats() as st, \
-                    ctx.train_shard(i, devs, specs, mesh), \
-                    op_cost.at(shard=i):
-                terms.append(model_lib.loss_terms(
-                    tree.unflatten_like(params, views,
-                                        is_leaf=rules.is_pieces), cfg,
-                    {k: v[rows].to(devs[0]) for k, v in batch.items()},
-                    engine=engine, attn_chunk=attn_chunk))
-            stats.append(st)
-            shard_views.append(views)
+        bodies = [functools.partial(shard, *sh) for sh in shards]
+        # the program cost counter's dispatch mode sees one thread: there
+        # the shards run in turn, and a claim that spans them stands in
+        # one shard's choices for the others' (``moe._joint_claim``)
+        out = (lockstep.run(bodies) if op_cost.active() is None
+               else [body() for body in bodies])
+        terms, stats, shard_views = (list(x) for x in zip(*out))
         ntok = sum(t[1].to(dev0) for t in terms).clamp(min=1.0)
         ce = sum(t[0].to(dev0) for t in terms) / ntok
         aux = (moe_lib.load_balance_loss(stats, cfg, dev0)

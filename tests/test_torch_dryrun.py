@@ -166,16 +166,38 @@ def test_one_leaf_gathers_hand_counted():
 
 @pytest.mark.parametrize("kind", ["decode", "prefill"])
 def test_serving_over_model_is_refused(tmp_path, kind):
+    """Serving cells over "model" run (the name is kept from when they
+    were refused): each entry's argument bytes are what
+    ``serve_param_specs`` and ``cache_specs`` (or ``batch_specs``) give
+    it, every entry computes, and the split sub-blocks' partial sums and
+    the vocabulary's gathers are reported as collectives."""
     arch = "whisper-tiny"
+    cfg = get_smoke_config(arch)
     shape = DECODE if kind == "decode" else ShapeConfig(
         "prefill_32k", 16, 2, "prefill")
-    r = dryrun.run_cell(arch, shape, mesh=abstract_mesh(
-        (2, 2), ("data", "model")), cfg=get_smoke_config(arch),
-        out_dir=tmp_path, verbose=False)
-    assert r["status"] == "refused" and r["item"] == "14b"
-    assert "ROADMAP item 14b" in r["reason"]
-    arg = r["memory"]["entries"]["argument_bytes"]
-    assert len(arg) == 4 and min(arg) > 0
+    mesh = abstract_mesh((2, 2), ("data", "model"))
+    r = dryrun.run_cell(arch, shape, mesh=mesh, cfg=cfg, out_dir=tmp_path,
+                        verbose=False)
+    assert r["status"] == "ok", r.get("traceback")
+    mode = specs_lib.fake_mode()
+    params = specs_lib.abstract_params(cfg, shape, mode=mode,
+                                         device="cpu")
+    want = rules.spec_bytes(params, rules.serve_param_specs(params, mesh),
+                            mesh)
+    if kind == "decode":
+        state = specs_lib.abstract_serve_state(cfg, shape, params,
+                                                 mode=mode)
+        want += rules.spec_bytes(state, rules.cache_specs(
+            state, mesh, cfg.num_kv_heads, cfg.head_dim), mesh)
+    else:
+        batch = specs_lib.batch_specs_struct(cfg, shape, mode=mode,
+                                               device="cpu")
+        want += rules.spec_bytes(batch, rules.batch_specs(batch, mesh),
+                                 mesh)
+    e = r["memory"]["entries"]
+    assert e["argument_bytes"] == [want] * 4
+    assert min(e["flops"]) > 0
+    assert min(e["collective_bytes"]) > 0
 
 
 @pytest.mark.parametrize("kind", ["decode", "prefill"])

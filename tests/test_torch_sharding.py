@@ -22,7 +22,9 @@ sharded paths of ``repro_torch.serve`` held against ``repro.launch.mesh``,
   ledger's FLOPs with every device listed, ledger totals equal to the
   unsharded port's; the paged pool, ``SpecScheduler`` and its round
   schedulers, the one-shot split, and every LM family's smoke config
-  through the slot scheduler at data = 2 (the MoE drop case pinned);
+  through the slot scheduler at data = 2 (the MoE drop case pinned: to
+  the reference's unsharded scheduler, and over ragged arrivals, where
+  the reference's sharded scheduler parts from it, to that one);
 - the refusals, the telemetry's ``device`` series and the CLI's
   ``--mesh``.
 
@@ -861,44 +863,124 @@ def test_every_lm_family_shards_to_the_references_tokens(arch, quant):
     assert set(by_dev) == {"dev0", "dev1"}
 
 
-def test_moe_drop_case_claims_per_shard():
+@pytest.mark.parametrize("case", ["drops", "no-drops"])
+def test_moe_drop_case_claims_per_shard(case):
     """arctic's smoke config drops (C = 2 of 4 rows' top-2 choices at
-    the unsharded 4-slot step). Sharded at data = 2, C stays the whole
-    step's, but each shard's 2 rows claim only among themselves, so no
-    shard can overfill an expert: its tokens are each request's batch-1
-    ``generate`` tokens, where the reference's unsharded scheduler's
-    differ (the claim order of ROADMAP Queue C)."""
+    the 4-slot step). Sharded at data = 2, the step's one group spans the
+    shards, so the step runs as one program over the whole pool, whose
+    claim is the whole step's: its tokens equal the reference's unsharded
+    scheduler's, and one slot step is built and run a step. Where no
+    group can drop (capacity factor 2), each shard claims among its own
+    rows as before, one program a shard, to the unsharded scheduler's
+    tokens (the reference's: ``test_every_lm_family_shards_...``). Over
+    distinct devices the drop case is refused (ROADMAP item 14b)."""
     arch = "arctic-480b"
     jcfg, jp, tcfg, tp = _smoke(arch)
     prompts, budgets = _lm_trace(tcfg)
-    jeng = JaxServeEngine(jcfg, jp, max_len=32, quant="none",
-                          offload=JaxOffloadEngine(prefer_pallas=False))
-    ref = _drain(JaxScheduler(jeng, n_slots=4), prompts, budgets)
+    if case == "drops":
+        jeng = JaxServeEngine(jcfg, jp, max_len=32, quant="none",
+                              offload=JaxOffloadEngine(prefer_pallas=False))
+        ref = _drain(JaxScheduler(jeng, n_slots=4), prompts, budgets)
+    else:   # the unsharded scheduler's, which the reference's equals
+        tcfg = _no_drops(tcfg)
+        ref = _drain(ServeEngine(tcfg, tp, max_len=32, quant="none",
+                                 device="cpu").scheduler(4),
+                     prompts, budgets)
     eng = ServeEngine(tcfg, tp, max_len=32, quant="none",
                       offload=OffloadEngine(), device="cpu",
                       mesh=_cpu_mesh(2))
-    got = _drain(eng.scheduler(4), prompts, budgets)
-    one = ServeEngine(tcfg, tp, max_len=32, quant="none", device="cpu")
-    batch1 = [one.generate(p[None], max_new=n)[0].tokens
-              for p, n in zip(prompts, budgets)]
-    assert got == batch1
-    assert got != ref
-    # the capacity a shard computes is the whole step's
-    x = torch.zeros((2, 1, tcfg.d_model))
+    sched = eng.scheduler(4)
+    assert sched._joint == (case == "drops")
+    assert _drain(sched, prompts, budgets) == ref
+    assert eng._step_builds == 1
     from repro_torch.models import moe
     p = tp["stack"]["blocks"][0]["moe"]
-    assert moe.route(p, tcfg, torch.zeros((4, 1, tcfg.d_model)))[0].cap == 2
+    x = torch.zeros((2, 1, tcfg.d_model))
+    cap = 2 if case == "drops" else 4
+    # the capacity a shard computes is the whole step's
+    assert moe.route(p, tcfg, torch.zeros((4, 1, tcfg.d_model)))[0].cap \
+        == cap
     with ctx.shard_program(2):
-        assert moe.route(p, tcfg, x)[0].cap == 2
+        if case == "drops":
+            with pytest.raises(RuntimeError, match="lockstep"):
+                moe.route(p, tcfg, x)
+        else:
+            assert moe.route(p, tcfg, x)[0].cap == cap
+    if case == "drops":
+        with pytest.raises(NotImplementedError, match="14b"):
+            ServeEngine(tcfg, tp, max_len=32, quant="none", device="cpu",
+                        mesh=make_serve_mesh(devices=[
+                            torch.device("cpu", i) for i in range(2)])
+                        ).scheduler(4)
+
+
+_RAGGED_SCRIPT = """
+import os, json
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=2"
+import jax, numpy as np
+from repro.configs.registry import get_smoke_config
+from repro.core.offload import OffloadEngine
+from repro.launch.mesh import make_serve_mesh
+from repro.models import model as model_lib
+from repro.serve.engine import ServeEngine
+from repro.serve.scheduler import ContinuousBatchingScheduler
+
+cfg = get_smoke_config("arctic-480b")
+params = model_lib.init_params(jax.random.PRNGKey(0), cfg, 0)
+prompts, budgets = json.loads(os.environ["RAGGED_TRACE"])
+eng = ServeEngine(cfg, params, max_len=32, quant="none",
+                  offload=OffloadEngine(prefer_pallas=False),
+                  mesh=make_serve_mesh(2))
+sched = ContinuousBatchingScheduler(eng, n_slots=4)
+rids = [sched.submit(np.asarray(p, np.int32), max_new=n)
+        for p, n in zip(prompts, budgets)]
+got = sched.run()
+print(json.dumps([[int(t) for t in got[r].tokens] for r in rids]))
+"""
+
+
+def test_moe_drop_case_over_ragged_arrivals_is_the_reference_sharded():
+    """arctic's drop case over ragged prompts (3 or 5 tokens) and budgets:
+    a sharded pool picks slots across its shards (the reference's pick
+    order), so the step's rows come in another order than the unsharded
+    pool's, and the step's claim, k-major then in row order, drops other
+    pairs. The port's sharded scheduler equals the reference's sharded
+    one (two forced host devices, in a subprocess) and parts from the
+    unsharded one, as the reference's does (its unsharded scheduler is
+    the port's: ``test_every_lm_family_shards_...``)."""
+    import json
+    import os
+    import subprocess
+    import sys
+    _, _, tcfg, tp = _smoke("arctic-480b")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, tcfg.vocab_size, int(rng.choice((3, 5))))
+               .astype(np.int32) for _ in range(5)]
+    budgets = [int(rng.integers(2, 6)) for _ in range(5)]
+    env = dict(os.environ, JAX_PLATFORMS="cpu", RAGGED_TRACE=json.dumps(
+        [[p.tolist() for p in prompts], budgets]))
+    run = subprocess.run([sys.executable, "-c", _RAGGED_SCRIPT], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert run.returncode == 0, run.stderr[-2000:]
+    ref = json.loads(run.stdout.strip().splitlines()[-1])
+    one = _drain(ServeEngine(tcfg, tp, max_len=32, quant="none",
+                             device="cpu").scheduler(4), prompts, budgets)
+    eng = ServeEngine(tcfg, tp, max_len=32, quant="none",
+                      offload=OffloadEngine(), device="cpu",
+                      mesh=_cpu_mesh(2))
+    sched = eng.scheduler(4)
+    assert sched._joint
+    assert _drain(sched, prompts, budgets) == ref
+    assert one != ref
 
 
 # ---------------------------------------------------------------------------
 # refusals, telemetry and the CLI
 # ---------------------------------------------------------------------------
 def test_refusals_name_item_14b():
+    """What this slice still refuses: a paged pool over distinct
+    devices, and a paged pool or speculative serving over model > 1."""
     _, _, tcfg, tp = _smoke("whisper-tiny")
-    with pytest.raises(NotImplementedError, match="14b"):
-        ServeEngine(tcfg, tp, device="cpu", mesh=_cpu_mesh(2, 2))
     mesh = make_serve_mesh(devices=[torch.device("cpu", i)
                                     for i in range(4)])
     eng = _engine(mesh)
@@ -907,9 +989,11 @@ def test_refusals_name_item_14b():
     with pytest.raises(ValueError, match="abstract"):
         ServeEngine(tcfg, tp, device="cpu",
                     mesh=abstract_mesh((2, 1), ("data", "model")))
+    tp_eng = ServeEngine(tcfg, tp, device="cpu", mesh=_cpu_mesh(1, 2))
     with pytest.raises(NotImplementedError, match="14b"):
-        rules.place(tp, abstract_mesh((1, 2), ("data", "model")),
-                    {"w": rules.P("model")})
+        tp_eng.paged_scheduler(4, F, page_size=4)
+    with pytest.raises(NotImplementedError, match="14b"):
+        tp_eng.speculative(tcfg, tp, k=2)
 
 
 def test_cli_refuses_speculative_on_a_mesh(capsys):

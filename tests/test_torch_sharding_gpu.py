@@ -4,8 +4,11 @@ devices=[cuda:0] * n)``). The whisper-tiny smoke config's tokens over a
 4-way mesh equal the unsharded scheduler's, Q8_0 and dense + flash; the
 step key is built once and captured once a shard, then only replayed; a
 shard's row is bit for bit a batch-1 step's; the paged pool at data 4
-gives the unsharded paged pool's tokens; a shard capture that fails
-raises, and nothing falls back.
+gives the unsharded paged pool's tokens; over (data, model) meshes of
+the card, tensor parallelism gives the unsharded tokens; a MoE step
+whose capacity claim spans the data shards runs as one program over the
+pool, to the unsharded tokens; a shard capture that fails raises, and
+nothing falls back.
 
 Every test here is marked ``gpu`` and skips without a card. The file
 imports no JAX, so it runs on a machine that has only PyTorch:
@@ -139,6 +142,67 @@ def test_sharded_paged_pool_matches_unsharded():
     assert sched.pool.n_shards == 4 and sched.pool.self_alloc.n_shards == 4
     # the paged step a shard and the batch-1 step (replays)
     assert eng._step_captures == 4 + 1 and eng._step_builds == 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sizes", [(1, 2), (2, 2)])
+@pytest.mark.parametrize("path", ["q8_0", "dense+flash"])
+def test_tensor_parallel_serving_matches_unsharded(path, sizes):
+    """Over (data, model) meshes of the card: the attention, FFN and
+    vocabulary split over "model", each data shard's model shards in one
+    captured graph; tokens equal the unsharded scheduler's and
+    ``transcribe``'s, one capture a data shard."""
+    dev = _cuda_or_skip()
+    one = _engine(dev, path)
+    mels, budgets = _trace(one.cfg)
+    want = _drain(one.scheduler(4, F), mels, budgets)
+    data, m = sizes
+    eng = _engine(dev, path, make_serve_mesh(
+        data, m, devices=[torch.device("cuda:0")] * (data * m)))
+    assert eng._kv_devices[eng._phys] is not None
+    sched = eng.scheduler(4, F)
+    assert _drain(sched, mels, budgets) == want
+    assert eng._step_captures == data and eng._step_builds == 1
+    got = eng.transcribe(mels[0], max_new=budgets[0])[0].tokens
+    assert got == want[0]
+
+
+@pytest.mark.gpu
+def test_moe_claim_spanning_shards_is_one_program_on_the_card():
+    """arctic's smoke config drops at the 4-slot step (its one dispatch
+    group spans the data shards, 2 slots each). Over ragged arrivals, on
+    a data-2 mesh of the card the step is one captured program over the
+    whole pool (``_joint``) and its tokens equal the same mesh's on the
+    CPU, which ``tests/test_torch_sharding.py`` holds to the reference's
+    sharded scheduler; the unsharded pool's equal the CPU's too. The two
+    part: the sharded pool picks slots across its shards, so the step's
+    rows come in another order, and the claim follows row order."""
+    dev = _cuda_or_skip()
+    cpu = torch.device("cpu")
+    cfg = get_smoke_config("arctic-480b")
+    params = model.init_params(torch.Generator().manual_seed(0), cfg,
+                               device="cpu")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, int(rng.integers(3, 8)))
+               .astype(np.int32) for _ in range(6)]
+    budgets = [int(rng.integers(3, 8)) for _ in range(6)]
+
+    def run(device, data=None):
+        mesh = (None if data is None else
+                make_serve_mesh(data=data, devices=[device] * data))
+        eng = ServeEngine(cfg, params, max_len=32, quant="none",
+                          offload=OffloadEngine(), eos_id=-1, device=device,
+                          mesh=mesh)
+        sched = eng.scheduler(4)
+        rids = [sched.submit(p, max_new=b) for p, b in zip(prompts, budgets)]
+        out = sched.run()
+        return sched, [out[r].tokens for r in rids]
+    want_one, want_mesh = run(cpu)[1], run(cpu, 2)[1]
+    assert want_one != want_mesh
+    assert run(dev)[1] == want_one
+    sched, got = run(dev, 2)
+    assert sched._joint and len(sched._programs) == 1
+    assert got == want_mesh
 
 
 @pytest.mark.gpu

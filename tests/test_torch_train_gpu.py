@@ -15,7 +15,9 @@ mesh of four ``cuda:0`` entries against the unsharded one; a model
 shard's two products (an f32 output, an f32 input gradient) against
 float64; the training CLI on the card; olmoe's smoke Trainer over (1,
 2) and (2, 2) meshes of the card, its experts and vocabulary split over
-the model shards, against the unsharded one.
+the model shards, against the unsharded one; and its drop case over a
+(2, 1) mesh of the card, whose capacity claim spans the data shards
+(they run in lockstep threads), against the unsharded one.
 
 Every test here is marked ``gpu`` and skips without a card. The file
 imports no JAX, so it runs on a machine that has only PyTorch:
@@ -424,6 +426,54 @@ def test_expert_parallel_mesh_of_the_card_matches_the_unsharded_trainer(
         2 * sizes[0] * cfg.num_layers
     assert rules.TP_BLOCKS[("vocab", rules.SPLIT)] == 2 * sizes[0]
     assert set(experts) == {cfg.moe.num_experts // sizes[1]}
+    for key in ("loss", "grad_norm"):
+        np.testing.assert_allclose([h[key] for h in tr.history],
+                                   [h[key] for h in one.history], rtol=1e-5)
+
+
+@pytest.mark.gpu
+def test_moe_claim_spanning_shards_runs_in_lockstep_on_the_card(tmp_path):
+    """olmoe's smoke config at capacity factor 0.5 under flash attention
+    and full remat: each of two data shards of a (2, 1) mesh of the card
+    holds 64 tokens, below the dispatch group, whose claim can drop, so
+    the shards run in lockstep threads and join their expert choices at
+    every MoE layer (the recompute replays them); two steps' losses and
+    gradient norms within 1e-5 of the unsharded Trainer's on the card."""
+    dev = _cuda_or_skip()
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import (
+        OptimizerConfig, RunConfig, ShapeConfig)
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.train.trainer import Trainer
+    base = get_smoke_config("olmoe-1b-7b")
+    cfg = dataclasses.replace(
+        base, attn_impl="flash", remat="full",
+        moe=dataclasses.replace(base.moe, capacity_factor=0.5))
+    assert moe_lib.spans_shards(cfg, 64, 2)
+
+    def run(name):
+        return RunConfig(model=cfg, shape=ShapeConfig("t", 64, 2, "train"),
+                         optimizer=OptimizerConfig(lr=1e-3, warmup_steps=1,
+                                                   total_steps=10),
+                         steps=2, checkpoint_every=100,
+                         checkpoint_dir=str(tmp_path / name))
+    one = Trainer(run("one"), device=dev, vocab_cap=64)
+    one.train()
+    joins = []
+    real = moe_lib._joint_claim
+
+    def spy(*a):
+        joins.append(a[0].device)
+        return real(*a)
+    moe_lib._joint_claim = spy
+    try:
+        tr = Trainer(run("mesh"), mesh=Mesh((2, 1), ("data", "model"),
+                                            [dev] * 2), vocab_cap=64)
+        tr.train()
+    finally:
+        moe_lib._joint_claim = real
+    assert joins and all(d.type == "cuda" for d in joins)
     for key in ("loss", "grad_norm"):
         np.testing.assert_allclose([h[key] for h in tr.history],
                                    [h[key] for h in one.history], rtol=1e-5)

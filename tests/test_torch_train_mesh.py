@@ -31,10 +31,11 @@ block.
 - Storage: every logical entry holds what ``train_state_specs`` gives it;
   replicas on one physical device are stored once; checkpoints written on
   any mesh, or none, restore onto any other bit for bit.
-- MoE with drops: where a shard's token count is not a multiple of
-  ``dispatch_group``, its tokens claim capacity among themselves (pinned
-  against that model, and shown to differ from the unsharded step); where
-  it is, the groups and the drops are the unsharded step's.
+- MoE with drops: where the step's dispatch group spans the shards, they
+  run in lockstep and join their expert choices, and the loss and
+  gradients are the unsharded step's (the shards' own claims would not
+  be); where a shard's tokens are whole groups, or no group can drop,
+  nothing is joined and the step is the unsharded step's all the same.
 """
 import dataclasses
 import os
@@ -576,44 +577,58 @@ def test_checkpoints_round_trip_between_meshes_bit_for_bit(tmp_path):
 # ---------------------------------------------------------------------------
 # MoE: the load-balance loss and the drop case
 # ---------------------------------------------------------------------------
-def test_moe_drop_case_claims_capacity_per_shard():
+@pytest.mark.parametrize("case", ["span-2x1", "span-2x2-distinct",
+                                  "groups-2x1", "nodrop-2x1"])
+def test_moe_drop_case_claims_capacity_per_shard(case, monkeypatch):
     """olmoe's smoke config at capacity factor 0.5: the unsharded step's
     one group of 64 tokens has 128 (token, choice) pairs for 4 experts'
-    16 slots each, so tokens drop. The dispatch group of 512 exceeds a
-    shard's 32 tokens, so each shard routes as one group with the whole
-    step's capacity: the mesh step equals that model of its shards (their
-    CE sums over the global count, the load-balance loss of their summed
-    statistics) and differs from the unsharded step. With a group of 32
-    tokens the shards' groups are the unsharded step's, and so are the
-    drops and the loss."""
-    cfg, mesh = _cfg("olmoe-1b-7b", room=False), _mesh("2x1")
+    16 slots each, so tokens drop. "span": the dispatch group of 512
+    exceeds a shard's 32 tokens, so the step's one group spans the
+    shards: they join their choices in lockstep, and the mesh
+    step's loss and gradients equal the unsharded step's (over the
+    distinct devices of "2x2-distinct" too, with the experts and the
+    vocabulary split). "groups": with a group of 32 tokens the shards'
+    groups are the unsharded step's and nothing is joined. "nodrop": at
+    capacity factor 8 no group can drop, and each shard claims among its
+    own rows, as before: nothing is joined."""
+    kind, mesh_name = case.split("-", 1)
+    cfg, mesh = _cfg("olmoe-1b-7b", room=False), _mesh(mesh_name)
+    factor = 8.0 if kind == "nodrop" else 0.5
+    group = 2 * S if kind == "groups" else cfg.moe.dispatch_group
     cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
-        cfg.moe, capacity_factor=0.5))
+        cfg.moe, capacity_factor=factor, dispatch_group=group))
+    t = B // mesh.shape["data"] * S
+    assert moe.claim_spans_shards(cfg.moe, t, 2) == (kind == "span")
+    joins = []
+    real = moe._joint_claim
+    monkeypatch.setattr(moe, "_joint_claim",
+                        lambda *a: joins.append(len(a)) or real(*a))
     batch = _batch(cfg)
     whole = _state(cfg)
     split, specs = split_train_state(_copy(whole), mesh)
-    mloss, _, _ = mesh_value_and_grad(cfg, split.params, batch,
-                                      specs.params, mesh)
-    loss, _, _ = value_and_grad(cfg, whole.params, batch)
-    terms, stats = [], []
-    with torch.no_grad(), ctx.shard_program(2):
-        for i in range(2):
-            with moe.router_stats() as st:
-                terms.append(model.loss_terms(
-                    whole.params, cfg,
-                    {k: v[2 * i:2 * i + 2] for k, v in batch.items()}))
-            stats.append(st)
-    want = (sum(t[0] for t in terms) / sum(t[1] for t in terms)
-            + moe.load_balance_loss(stats, cfg, CPU))
-    assert float(mloss) == pytest.approx(float(want), rel=1e-6)
-    assert abs(float(mloss) - float(loss)) > 1e-4
-
-    grouped = dataclasses.replace(cfg, moe=dataclasses.replace(
-        cfg.moe, dispatch_group=2 * S))
-    mloss, _, _ = mesh_value_and_grad(grouped, split.params, batch,
-                                      specs.params, mesh)
-    loss, _, _ = value_and_grad(grouped, whole.params, batch)
+    mloss, _, mgrads = mesh_value_and_grad(cfg, split.params, batch,
+                                           specs.params, mesh)
+    loss, _, grads = value_and_grad(cfg, whole.params, batch)
+    assert bool(joins) == (kind == "span")
     assert float(mloss) == pytest.approx(float(loss), rel=1e-5)
+    _assert_grads_close(rules.gather_tree(mgrads, specs.params, mesh, CPU),
+                        grads)
+    if kind == "span":
+        # the shards' own claims (the per-shard model this replaced)
+        # drop other pairs: the loss is not the unsharded step's
+        terms, stats = [], []
+        with torch.no_grad(), ctx.shard_program(2):
+            for i in range(2):
+                with moe.router_stats() as st:
+                    terms.append(model.loss_terms(
+                        whole.params, dataclasses.replace(
+                            cfg, moe=dataclasses.replace(
+                                cfg.moe, dispatch_group=t)),
+                        {k: v[2 * i:2 * i + 2] for k, v in batch.items()}))
+                stats.append(st)
+        own = (sum(x[0] for x in terms) / sum(x[1] for x in terms)
+               + moe.load_balance_loss(stats, cfg, CPU))
+        assert abs(float(own) - float(loss)) > 1e-4
 
 
 # ---------------------------------------------------------------------------
