@@ -465,7 +465,34 @@ own kernels with nvcc. Phases, each of which fails the run on error:
        step graph's and the 4-row slot step's device ms, the launches by
        kernel, and the blocks split or whole by reason (on (1, 4)
        whisper's 6 heads run whole: ``tp ... (1, 4) blocks``).
-    ``sharded ...`` and ``tp ...`` lines, then ``sharded phase: N s``.
+    e. paged and speculative serving over "model" (``tp_paged``,
+       ``tp_spec``). Phase 11's trace through the paged pool (12 logical
+       slots; on Q8_0 also the tight arena, which preempts and replays)
+       on whisper-tiny at full width, Q8_0 and dense + flash, a new
+       engine (max_len 24, no EOS) unsharded and over (1, 2) and (1, 4)
+       (on (1, 4) the 6 heads and so the page arenas whole): every
+       request's tokens exactly the same engine's batch-1 transcribe's;
+       against the unsharded pool's equal or first parted at a near-tie
+       within twice the floor measured before any sharded run (Q8_0's
+       residual stream is bf16, so its split sums move the logits too);
+       commits = prefills + steps + replays; requests per
+       committed byte the unsharded pool's; one paged step capture a data
+       shard, then a warm drive with no capture and no launch; launches
+       by kernel, the blocks split or whole, the paged step's device ms
+       (CUDA events: median and spread of 10 replays). Then phase 12's
+       echo whisper-base verifier (Q8_0) and whisper-tiny draft sharing a
+       (1, 2) mesh, and unsharded: a one-shot echo b1 k4 transcribe
+       (tokens and acceptance the unsharded engine's, tokens the
+       verifier's own transcribe over the mesh, no launch at the second
+       request, FLOPs by role = plans x runs), a round's device split
+       (draft steps, window: median and spread of 10), and phase 12c's
+       trace through ``SpecScheduler``'s waves (tokens and acceptance
+       18c's unsharded waves', one window and draft capture a data
+       shard, the round schedulers refused); the echo models repeat SOT,
+       so phase 12's raw pair transcribes the echo mel over the mesh
+       too, its tokens exactly the verifier's own transcribe's.
+    ``sharded ...``, ``tp ...``, ``tp paged ...`` and ``tp spec ...``
+    lines, ``sharded phase 18e: N s``, then ``sharded phase: N s``.
     Phase 2 holds ``q8_matvec`` and ``bf16_matmul`` at the (1, 2)
     step's model-shard launches (``per`` "tp decode step (1, 2)"), and
     ``q8_matmul``, ``bf16_matmul`` and ``flash_attention_fwd`` at the
@@ -473,7 +500,10 @@ own kernels with nvcc. Phases, each of which fails the run on error:
     ``q8_matvec`` at the data-4 step's shapes (``per`` "sharded slot step
     data=4": each decode linear 4 x at M = 1), whose bytes are four
     graphs' weight streams; the step's own byte bound, the weights once,
-    is the "slot decode step" row's.
+    is the "slot decode step" row's. It holds ``q8_matvec`` at the
+    (1, 2) paged step's model-shard launches (``per`` "tp paged slot step
+    (1, 2)", M = 12) and at the (1, 2) verify window's (``per`` "tp
+    verify window (1, 2)", M = 5, whisper-base's split shapes).
 
 19. Training (``train_phase``), after the late kernel rows:
     a. the backward's registers and spills a kernel instantiation (its
@@ -684,6 +714,10 @@ TP_STEP = [(192, 256, 384, 32),       # self q/k/v + cross q, 4 layers x 2
            (384, 768, 1536, 8),       # ffn.down: a view of the rows
            (25936, 256, 384, 2)]      # dec.vocab
 MATVEC_TP_SHAPES = [(1, n, km, k, c, "float32") for n, km, k, c in TP_STEP]
+# the paged slot step over (1, 2) (phase 18e): phase 11's 12 rows at the
+# (1, 2) step's model-shard launches (M = 12, the MT = 16 instantiations)
+MATVEC_TP_PAGED_SHAPES = [(12, n, km, k, c, "float32")
+                          for n, km, k, c in TP_STEP]
 BF16_TP_SHAPES = [(1, n, km, k, c, "bfloat16") for n, km, k, c in TP_STEP]
 # a prefill over "model" (phase 18d, (1, 2)), both shards' launches: the
 # encoder's q/k/v and the decoder's cross k/v at N / 2, enc ffn.up at
@@ -711,6 +745,17 @@ WINDOW5_Q8 = [(5, n, k, k, c, "float32") for n, k, c in BASE_DECODE]
 WINDOW28_Q8 = [(28, n, k, k, c, "float32") for n, k, c in BASE_DECODE]
 WINDOW5_BF16 = [(5, n, k, k, c, "bfloat16") for n, k, c in BASE_DECODE]
 WINDOW28_BF16 = [(28, n, k, k, c, "bfloat16") for n, k, c in BASE_DECODE]
+# the verify window over (1, 2) (phase 18e, batch 1, k = 4: M = 5), both
+# model shards' launches: whisper-base's 8 heads split, each shard's q,
+# k, v and cross q at N / 2, self and cross o at K / 2 (256, a view of
+# the rows: on the kernel, as the burst divides it), ffn.up at N / 2,
+# ffn.down at K / 2 and dec.vocab at N / 2: (n, k_main, k_full, launches)
+TP_WINDOW = [(256, 512, 512, 48),      # self q/k/v + cross q, 6 layers x 2
+             (512, 256, 512, 24),      # self o + cross o
+             (1024, 512, 512, 12),     # ffn.up
+             (512, 1024, 2048, 12),    # ffn.down
+             (25936, 512, 512, 2)]     # dec.vocab
+WINDOW5_TP_Q8 = [(5, n, km, k, c, "float32") for n, km, k, c in TP_WINDOW]
 # the decode linears of a qwen2.5-14b step: (n, k, launches a step);
 # burst 256 divides both K, so k_main = K
 QWEN_DECODE = [(5120, 5120, 96),      # attn.q and attn.o, 48 layers
@@ -820,6 +865,9 @@ KERNELS = {
                               "sharded slot step data=4":
                                   MATVEC_SHARDED_SHAPES,
                               "tp decode step (1, 2)": MATVEC_TP_SHAPES,
+                              "tp paged slot step (1, 2)":
+                                  MATVEC_TP_PAGED_SHAPES,
+                              "tp verify window (1, 2)": WINDOW5_TP_Q8,
                               "qwen2.5-14b tp step (1, 4)": QWEN_TP_M1,
                               "whisper-base decode step": BASE_STEP_Q8,
                               "verify window M=5": WINDOW5_Q8,
@@ -1049,6 +1097,16 @@ TP_MESHES = ((1, 2), (2, 2), (1, 4))
 TP_NEW = 24
 TP_LOGIT_TOL = {"q8_0": 1e-2, "dense+flash": 3e-2}
 TP_EXACT = ("q8_0",)              # paths held to the unsharded tokens exactly
+# 18e, paged and speculative serving over "model": whisper-tiny's paged
+# pool at full width on phase 11's trace over these meshes of the card
+# (its tight arena, which preempts, on the exact path), and phase 12's
+# echo whisper-base verifier with its whisper-tiny draft over one; the
+# paged step and the rounds timed a replay at a time by CUDA events,
+# TP_TIMED of each, for a median and a spread
+TP_PAGED_MESHES = ((1, 2), (1, 4))
+TP_TIGHT = ("q8_0",)              # paths also driven on the tight arena
+TP_SPEC_MESH = (1, 2)
+TP_TIMED = 10
 # profiled windows of replayed LM steps lose a kernel record now and then
 # on the card (one to nine of 36,000 in 8 steps; one in every window of
 # 2 steps, window after window, late in a long run). So a spin kernel
@@ -3711,7 +3769,7 @@ def speculative_phase(counted, tiny_power):
     if missing:
         raise AssertionError(f"speculative path: {missing} never launched")
     return launches, dict(rungs=rungs, cases=cases, schedulers=sched,
-                          wall_s=wall), (bp_echo, tp_echo)
+                          wall_s=wall), (bp_echo, tp_echo, bp, tp)
 
 
 def _check_trace_module():
@@ -4373,7 +4431,7 @@ def sharded_spec(spec_params, counted):
     unsharded waves'; the window and the draft step each built once and
     captured once a shard; ``by_device`` over the mesh's devices; the
     round schedulers refuse the mesh, as the reference's do. Returns
-    (launches, summary)."""
+    (launches, summary, the unsharded waves' tokens and acceptance)."""
     import dataclasses
 
     import torch
@@ -4382,7 +4440,7 @@ def sharded_spec(spec_params, counted):
     from repro_torch.serve.engine import ServeEngine
     from repro_torch.serve.speculative import SpecScheduler
 
-    bp_echo, tp_echo = spec_params
+    bp_echo, tp_echo = spec_params[:2]
     base = dataclasses.replace(get_config("whisper-base"), quant="q8_0")
     tiny = get_config("whisper-tiny")
     f = base.encoder_ctx
@@ -4406,7 +4464,8 @@ def sharded_spec(spec_params, counted):
         got = _read(counted)
         n_tok = sum(res[r].steps for r in rids)
         toks[mesh is None] = dict(tokens=[res[r].tokens for r in rids],
-                                  tok_s=n_tok / wall, rounds=spec.rounds)
+                                  tok_s=n_tok / wall, rounds=spec.rounds,
+                                  acceptance=spec.acceptance_rate())
         if mesh is None:
             del spec, v, sched
             continue
@@ -4443,7 +4502,7 @@ def sharded_spec(spec_params, counted):
             or sorted(out["by_device"]) != [f"dev{i}" for i in range(n)]
             or not all(refused.values())):
         raise AssertionError(f"sharded spec wave: {out}")
-    return launches, out
+    return launches, out, toks[True]
 
 
 def _tp_mesh(data: int, model: int):
@@ -4521,6 +4580,24 @@ def _ties_ok(checks) -> bool:
     return all(c["equal"] or c["tie"] for c in checks)
 
 
+def _f32_witness(eng0, max_len: int):
+    """The f32 witness of ``eng0``'s path: the same weights (Q8_0
+    dequantized), f32 activations and chunked attention, served by plain
+    PyTorch on the card (no offload engine, so no kernel)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.core import tree
+    from repro_torch.serve.engine import ServeEngine
+    return ServeEngine(
+        dataclasses.replace(eng0.cfg, dtype="float32", param_dtype="float32",
+                            attn_impl="chunked"),
+        tree.map_with_path(lambda _, x: x.float() if torch.is_tensor(x)
+                           and x.is_floating_point() else x, eng0.params),
+        max_len=max_len, quant=eng0._serve_quant, offload=None, eos_id=-1,
+        device="cuda")
+
+
 def _tp_drive(eng, mels, max_news, f: int):
     """A batch-1 ``transcribe`` of ``mels[0]`` (TP_NEW tokens), then
     phase 10's trace over SLOTS slots: (its tokens, the scheduler's
@@ -4557,10 +4634,7 @@ def tp_path(label, eng0, counted, n_req):
     launches by kernel, and which blocks ran split or whole and why
     (``rules.tp_summary``). On one card this measures the machinery,
     not scaling. Returns (launches, summary by mesh)."""
-    import dataclasses
-
     import torch
-    from repro_torch.core import tree
     from repro_torch.core.offload import OffloadEngine
     from repro_torch.serve.engine import ServeEngine
     from repro_torch.sharding import rules
@@ -4599,13 +4673,7 @@ def tp_path(label, eng0, counted, n_req):
     out = {"unsharded": base}
     print(f"tp {label} unsharded: {json.dumps(base)}", flush=True)
     scale = float(want_logits.abs().max())
-    witness = ServeEngine(
-        dataclasses.replace(cfg, dtype="float32", param_dtype="float32",
-                            attn_impl="chunked"),
-        tree.map_with_path(lambda _, x: x.float() if torch.is_tensor(x)
-                           and x.is_floating_point() else x, eng0.params),
-        max_len=CB_MAX_LEN, quant=eng0._serve_quant, offload=None,
-        eos_id=-1, device="cuda")
+    witness = _f32_witness(eng0, CB_MAX_LEN)
     streams = [want_one] + want_sched
     rows = {}
 
@@ -4660,8 +4728,419 @@ def tp_path(label, eng0, counted, n_req):
     return total, out
 
 
+def _replay_times(fn, n: int = TP_TIMED) -> dict:
+    """Device ms of each of ``n`` calls of ``fn`` (a graph replay), one at
+    a time: CUDA events around the call, the card synchronized between
+    calls, after one untimed call. The median, the spread (min, max) and
+    every time; "graph_events": the gaps between a graph's kernels
+    count."""
+    import statistics
+
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return dict(median=statistics.median(times), min=min(times),
+                max=max(times), n=n, ms=times, source="graph_events")
+
+
+def _round_times(spec, b: int, f: int, n: int = TP_TIMED) -> dict:
+    """``n`` rounds of the one-shot path at (b, f) replayed, each timed
+    by CUDA events in two parts: the k + 1 draft-step replays (the
+    column index reset first) and the window's replay (``_replay_times``'
+    measure). The replays run past the state's lengths (clamped, as a
+    free slot's); the next request re-prefills."""
+    import statistics
+
+    import torch
+    rounds = spec._statics[(b, f)][0].rounds
+    dprog, vprog = rounds.programs
+    draft, window = [], []
+    for i in range(n + 1):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        rounds.col.zero_()
+        for _ in range(spec.k + 1):
+            dprog.graph.replay()
+        ev[1].record()
+        vprog.graph.replay()
+        ev[2].record()
+        torch.cuda.synchronize()
+        if i:                                    # the first: untimed
+            draft.append(ev[0].elapsed_time(ev[1]))
+            window.append(ev[1].elapsed_time(ev[2]))
+
+    def stats(ms):
+        return dict(median=statistics.median(ms), min=min(ms), max=max(ms))
+    return dict(draft_steps_ms=stats(draft), window_ms=stats(window),
+                round_ms=stats([a + w for a, w in zip(draft, window)]),
+                n=n, source="graph_events")
+
+
+def tp_paged(label, eng0, counted):
+    """Phase 18e, the paged pool over "model" on one path: phase 11's
+    trace (``_pg_workload``) over its paged geometry (PG_SLOTS logical
+    slots), whisper-tiny at full width with ``eng0``'s weights and
+    quantization, a new engine (max_len PG_MAX_LEN, no EOS) unsharded and
+    over each of TP_PAGED_MESHES (the card); on TP_TIGHT paths also the
+    tight arena (SLOTS slots, 2 + 2 x pages_per self pages), which
+    preempts and replays. The launch counts are zeroed before each drive
+    and read after it. Before any sharded run, the floor (``tie_floor``)
+    of the first request's stream against the f32 witness's. Gates: on
+    each engine every request's tokens are the first max_new of the same
+    engine's batch-1 ``transcribe`` of its utterance, exactly (the paged
+    pool over "model" is the contiguous path over the same mesh), the
+    tight arena's too; against the unsharded pool's they are equal or
+    first part at a near-tie (``tie_check`` at the floor's bound: the
+    split partial sums move the logits, on Q8_0 too, whose residual
+    stream is bf16); commits = prefills + steps + replays; requests per
+    committed byte the unsharded pool's; one paged step capture a data
+    shard and the batch-1 step's (the replays') at the engine's first
+    pool; a warm drive of the same trace gives the same tokens with no
+    capture and no launch from Python. Printed: launches by kernel, the
+    blocks split or whole and why (``rules.tp_summary``), the paged slot
+    step's device ms by CUDA events (``_replay_times``: median and
+    spread) beside the unsharded pool's, prefix hits, preemptions.
+    Returns (launches, summary)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import energy
+    from repro_torch.core.offload import OffloadEngine
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.sharding import rules
+
+    cfg = eng0.cfg
+    f = cfg.encoder_ctx
+    power_w = energy.card_power_limit_w(0)
+    mels, distinct, which, max_news, arrivals = _pg_workload(cfg)
+    pages_per = -(-(int(np.mean(max_news)) + 1) // PG_PAGE)
+    cross = dict(cross_page_size=f, n_cross_pages=1 + PG_DISTINCT)
+    pools = [("paged", PG_SLOTS, dict(page_size=PG_PAGE,
+                                       n_pages=1 + PG_SLOTS * pages_per,
+                                       **cross))]
+    if label in TP_TIGHT:
+        pools.append(("tight", SLOTS, dict(page_size=PG_PAGE,
+                                           n_pages=2 + 2 * pages_per,
+                                           **cross)))
+    total = {name: 0 for name in counted}
+
+    def make(mesh):
+        return ServeEngine(cfg, eng0.params, max_len=PG_MAX_LEN,
+                           quant=eng0._serve_quant, offload=OffloadEngine(),
+                           eos_id=-1, device="cuda", mesh=mesh)
+
+    def drive(eng, n_slots, geom):
+        torch.cuda.synchronize()
+        _take(counted, total)
+        c0, b0 = eng._step_captures, eng._step_builds
+        commits0 = eng.offload.ledger.commits
+        sched = eng.paged_scheduler(n_slots, f, **geom)
+        r = _pg_drive(sched, mels, max_news, arrivals, power_w)
+        launches = _read(counted)
+        _take(counted, total)
+        row = dict(
+            launches=launches, step_captures=eng._step_captures - c0,
+            step_builds=eng._step_builds - b0,
+            commits=eng.offload.ledger.commits - commits0,
+            prefills=sched.prefills, replays=sched.replays,
+            slot_steps=r["slot_steps"], shared_hits=sched.shared_hits,
+            preemptions=sched.preemptions, programs=len(sched._programs),
+            kv_committed_bytes=r["kv_committed_bytes"],
+            active_peak=r["active_peak"],
+            requests_per_byte=r["active_peak"] / r["kv_committed_bytes"],
+            tok_s=r["tok_s"])
+        sched.run()                       # claims the first drive's results
+        c1 = eng._step_captures
+        warm = _pg_drive(sched, mels, max_news, arrivals, power_w)
+        row.update(warm_tokens_equal=warm["tokens"] == r["tokens"],
+                   warm_launches=_read(counted),
+                   warm_captures=eng._step_captures - c1,
+                   warm_tok_s=warm["tok_s"])
+        _take(counted, total)
+        row["step_device_ms"] = _replay_times(
+            lambda: sched._replay_all(sched._programs))
+        _take(counted, total)
+        return r["tokens"], row
+
+    def transcribed(eng):
+        """Each request's first max_new tokens of ``eng``'s batch-1
+        transcribe of its utterance (the graphs the pool's replays use)."""
+        full = [eng.transcribe(m, max_new=PG_MAX_LEN)[0].tokens
+                for m in distinct]
+        _take(counted, total)
+        return [full[w][:n] for w, n in zip(which, max_news)]
+
+    def check(line, pool, row, got, refs):
+        row["tokens_equal_transcribe"] = sum(
+            g == r for g, r in zip(got, refs))
+        if row["tokens_equal_transcribe"] != PG_REQUESTS:
+            raise AssertionError(f"{line}: {row['tokens_equal_transcribe']}"
+                                 f" of {PG_REQUESTS} requests equal the "
+                                 "engine's own batch-1 transcribe")
+        if row["commits"] != (row["prefills"] + row["slot_steps"]
+                              + row["replays"]):
+            raise AssertionError(f"{line}: {row['commits']} commits")
+        if (not row["warm_tokens_equal"] or row["warm_captures"]
+                or any(row["warm_launches"].values())):
+            raise AssertionError(f"{line}: the warm drive's tokens, "
+                                 "captures or launches")
+        if pool == "tight" and not (row["preemptions"] and row["replays"]):
+            raise AssertionError(f"{line}: no preemption or replay")
+
+    one = make(None)
+    base, want = {}, None
+    for pool, n_slots, geom in pools:
+        got, base[pool] = drive(one, n_slots, geom)
+        want = got if want is None else want
+        check(f"tp paged {label} {pool} unsharded", pool, base[pool], got,
+              transcribed(one))
+    out = {"unsharded": base}
+    print(f"tp paged {label} unsharded: {json.dumps(base)}", flush=True)
+    witness = _f32_witness(eng0, PG_MAX_LEN)
+    rows = {}
+
+    def ref_rows(s):
+        """The witness's logits along request s's unsharded stream."""
+        if s not in rows:
+            rows[s] = _forced_logits(witness, [1] + want[s][:-1], mels[s])
+        return rows[s]
+    floor = tie_floor(_forced_logits(one, [1] + want[0][:-1], mels[0]),
+                      ref_rows(0))
+    _take(counted, total)
+    out["floor"] = floor
+    print(f"tp paged {label} floor (before any sharded run): "
+          f"{json.dumps(floor)}", flush=True)
+    del one
+    for data, model in TP_PAGED_MESHES:
+        mesh = _tp_mesh(data, model)
+        eng = make(mesh)
+        res, refs = {}, None
+        for i, (pool, n_slots, geom) in enumerate(pools):
+            got, row = drive(eng, n_slots, geom)
+            refs = transcribed(eng) if refs is None else refs
+            ties = [tie_check(lambda j, s=s: ref_rows(s)[j], w, g,
+                              floor["bound"])
+                    for s, (w, g) in enumerate(zip(want, got))]
+            _take(counted, total)
+            first = i == 0
+            row.update(
+                tokens_equal=got == want,
+                differing=[dict(t, request=s, utterance=which[s])
+                           for s, t in enumerate(ties) if not t["equal"]],
+                tie_bound=floor["bound"],
+                requests_per_byte_equal=(row["requests_per_byte"]
+                                         == base[pool]["requests_per_byte"]),
+                unsharded_step_device_ms=base[pool]["step_device_ms"][
+                    "median"])
+            res[pool] = row
+            line = f"tp paged {label} {pool} ({data}, {model})"
+            print(f"{line}: {json.dumps(row)}", flush=True)
+            check(line, pool, row, got, refs)
+            if not _ties_ok(ties):
+                raise AssertionError(f"{line}: tokens differ from the "
+                                     f"unsharded pool's past a near-tie: "
+                                     f"{row['differing']}")
+            if not row["requests_per_byte_equal"]:
+                raise AssertionError(f"{line}: requests per committed byte "
+                                     f"{row['requests_per_byte']} != "
+                                     f"{base[pool]['requests_per_byte']}")
+            if (row["programs"] != data
+                    or row["step_captures"] != data + first
+                    or row["step_builds"] != 1 + first):
+                raise AssertionError(f"{line}: {row['programs']} programs, "
+                                     f"{row['step_captures']} captures, "
+                                     f"{row['step_builds']} builds")
+        blocks = rules.tp_summary(cfg, rules.serve_param_specs(
+            eng._serve_params, mesh), mesh)
+        res.update(blocks=blocks, kv_split=eng._kv_devices[eng._phys]
+                   is not None)
+        print(f"tp paged {label} ({data}, {model}) blocks (split, or why "
+              f"whole): {json.dumps(blocks)}; KV split over 'model': "
+              f"{res['kv_split']}", flush=True)
+        out[f"{data}x{model}"] = res
+        del eng
+    del witness
+    return total, out
+
+
+def tp_spec(spec_params, counted, waves_ref):
+    """Phase 18e, speculative serving over "model": phase 12's echo
+    whisper-base verifier (Q8_0) and whisper-tiny draft sharing a
+    TP_SPEC_MESH mesh of the card (base's 8 heads and tiny's 6 split two
+    ways), new engines (max_len PS_MAX_LEN, no EOS), and unsharded: a
+    one-shot ``transcribe`` of phase 12's echo b1 mel at k = PS_K (the
+    capturing request, then a second one), then over the mesh phase 12c's
+    trace through ``SpecScheduler``'s waves of PS_SLOTS, and a one-shot
+    ``transcribe`` of the same mel by phase 12's raw verifier and draft
+    over the mesh (distinct tokens: the echo models repeat SOT). Gates:
+    the one-shot tokens and acceptance equal the unsharded engine's and
+    the tokens the verifier's own ``transcribe`` over the mesh, the raw
+    pair's too; the waves'
+    tokens and acceptance equal 18c's unsharded waves' (``waves_ref``);
+    the second request captures and launches nothing; the window and the
+    draft step are built once a key and captured once a data shard; the
+    ledger's FLOPs by role equal the plans times their runs; the round
+    schedulers refuse the mesh. Printed: launches by kernel, the blocks
+    of both models, and a round's device split (``_round_times``: draft
+    steps and window, median and spread) beside the unsharded engine's.
+    Returns (launches, summary)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.offload import OffloadEngine
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.speculative import SpecScheduler
+    from repro_torch.sharding import rules
+
+    bp_echo, tp_echo, bp_raw, tp_raw = spec_params
+    base = dataclasses.replace(get_config("whisper-base"), quant="q8_0")
+    tiny = get_config("whisper-tiny")
+    f, k = base.encoder_ctx, PS_K
+    max_new = PS_MAX_LEN - k - 2             # max_new + k + 1 <= max_len
+    mel1 = np.random.default_rng(34).standard_normal(
+        (1, f, base.n_mels)).astype(np.float32)      # phase 12's echo b1
+    mels, max_news, _ = _ps_workload(base)
+    total = {name: 0 for name in counted}
+    out = {}
+    for mesh in (None, _tp_mesh(*TP_SPEC_MESH)):
+        name = "unsharded" if mesh is None else "{}x{}".format(*TP_SPEC_MESH)
+        v = ServeEngine(base, bp_echo, max_len=PS_MAX_LEN, quant="q8_0",
+                        offload=OffloadEngine(), eos_id=-1, device="cuda",
+                        mesh=mesh)
+        spec = v.speculative(tiny, tp_echo, k=k)
+        d = spec.draft
+        torch.cuda.synchronize()
+        _take(counted, total)
+        stats0 = _stats(v.offload)
+        got = spec.transcribe(mel1, max_new=max_new)
+        launches = _read(counted)
+        _take(counted, total)
+        got2 = spec.transcribe(mel1, max_new=max_new)
+        torch.cuda.synchronize()
+        launches2 = _read(counted)
+        _take(counted, total)
+        rounds = spec._statics[(1, f)][0].rounds
+        n_rounds = spec.rounds
+        delta = {role: _ledger_delta(_stats(v.offload), stats0)[
+            "by_role"].get(role, 0) for role in ("verify", "draft")}
+        want_roles = {
+            "verify": _role_flops(v, {v._key("prefill", 1, f): 2,
+                                      rounds.v_key: n_rounds}),
+            "draft": _role_flops(d, {d._key("prefill", 1, f): 2,
+                                     rounds.d_key: n_rounds * (k + 1)})}
+        row = dict(
+            tokens=got[0].tokens, acceptance=spec.acceptance_rate(),
+            rounds=n_rounds, launches=launches,
+            launches_second_request=launches2,
+            second_tokens_equal=got2[0].tokens == got[0].tokens,
+            by_role=delta, by_role_want=want_roles,
+            verify_captures=v._verify_captures,
+            verify_builds=v._verify_builds,
+            draft_captures=d._step_captures, draft_builds=d._step_builds,
+            blocks={"verifier": rules.tp_summary(
+                        base, rules.serve_param_specs(v._serve_params, mesh),
+                        mesh),
+                    "draft": rules.tp_summary(
+                        tiny, rules.serve_param_specs(d._serve_params, mesh),
+                        mesh)} if mesh is not None else None,
+            round=_round_times(spec, 1, f))
+        _take(counted, total)
+        out[name] = row
+        line = f"tp spec {name}"
+        if (any(launches2.values()) or not row["second_tokens_equal"]
+                or delta != want_roles or row["verify_builds"] != 1
+                or row["verify_captures"] != 1 or row["draft_builds"] != 1
+                or row["draft_captures"] != 1):
+            raise AssertionError(f"{line}: {row}")
+        if mesh is None:
+            print(f"{line} one-shot: {json.dumps(row)}", flush=True)
+            del spec, v, d
+            continue
+        one = out["unsharded"]
+        plain = v.transcribe(mel1, max_new=max_new)[0].tokens
+        row.update(tokens_equal_unsharded=row["tokens"] == one["tokens"],
+                   tokens_equal_transcribe=row["tokens"] == plain,
+                   acceptance_equal=row["acceptance"] == one["acceptance"])
+        print(f"{line} one-shot: {json.dumps(row)}", flush=True)
+        if not (row["tokens_equal_unsharded"]
+                and row["tokens_equal_transcribe"]
+                and row["acceptance_equal"]):
+            raise AssertionError(f"{line}: one-shot tokens or acceptance "
+                                 "differ")
+        _take(counted, total)
+        a0, d0, vc0, dc0 = (spec.accepted, spec.drafted,
+                            v._verify_captures, d._step_captures)
+        sched = SpecScheduler(spec, n_slots=PS_SLOTS)
+        rids = [sched.submit(m, max_new=mn) for m, mn in zip(mels, max_news)]
+        res = sched.run()
+        torch.cuda.synchronize()
+        refused = {}
+        for mode in ("continuous", "paged"):
+            try:
+                spec.continuous(PS_SLOTS, f) if mode == "continuous" \
+                    else spec.paged(PS_SLOTS, f, page_size=PS_PAGE)
+                refused[mode] = False
+            except NotImplementedError:
+                refused[mode] = True
+        waves = dict(
+            tokens_equal_unsharded=[res[r].tokens for r in rids]
+            == waves_ref["tokens"],
+            acceptance=(spec.accepted - a0) / max(spec.drafted - d0, 1),
+            unsharded_acceptance=waves_ref["acceptance"],
+            launches=_read(counted),
+            verify_captures=v._verify_captures - vc0,
+            draft_captures=d._step_captures - dc0,
+            verify_builds=v._verify_builds, draft_builds=d._step_builds,
+            rounds_schedulers_refused=refused)
+        _take(counted, total)
+        out["waves"] = waves
+        print(f"{line} waves: {json.dumps(waves)}", flush=True)
+        if (not waves["tokens_equal_unsharded"]
+                or waves["acceptance"] != waves["unsharded_acceptance"]
+                or waves["verify_captures"] != TP_SPEC_MESH[0]
+                or waves["draft_captures"] != TP_SPEC_MESH[0]
+                or waves["verify_builds"] != 2 or waves["draft_builds"] != 2
+                or not all(refused.values())):
+            raise AssertionError(f"{line} waves: {waves}")
+        del sched, spec, v, d
+        # raw weights: the echo models' argmax is their input token, so
+        # their streams repeat SOT; phase 12's raw verifier and draft
+        # give a stream of distinct tokens, which the speculative rounds
+        # over the mesh must reproduce exactly (the window's rows keep
+        # their bits at any M, as the steps')
+        v = ServeEngine(base, bp_raw, max_len=PS_MAX_LEN, quant="q8_0",
+                        offload=OffloadEngine(), eos_id=-1, device="cuda",
+                        mesh=mesh)
+        spec = v.speculative(tiny, tp_raw, k=k)
+        got = spec.transcribe(mel1, max_new=max_new)[0].tokens
+        plain = v.transcribe(mel1, max_new=max_new)[0].tokens
+        raw = dict(tokens=got, distinct_tokens=len(set(got)),
+                   tokens_equal_transcribe=got == plain,
+                   acceptance=spec.acceptance_rate(), rounds=spec.rounds,
+                   launches=_read(counted))
+        _take(counted, total)
+        out["raw"] = raw
+        print(f"{line} raw one-shot: {json.dumps(raw)}", flush=True)
+        if not raw["tokens_equal_transcribe"]:
+            raise AssertionError(f"{line} raw: the speculative tokens "
+                                 f"{got} differ from the verifier's own "
+                                 f"transcribe {plain} over the mesh")
+        del spec, v
+    return total, out
+
+
 def sharded_phase(q8_eng, d_eng, counted, slot4, spec_params):
-    """Phase 18: 18a (both paths at SHARD_DATAS), 18b, 18c and 18d.
+    """Phase 18: 18a (both paths at SHARD_DATAS), 18b, 18c, 18d and 18e.
     Returns (the phase's Python launches by kernel, its summary)."""
     from repro_torch.core import energy
 
@@ -4680,10 +5159,14 @@ def sharded_phase(q8_eng, d_eng, counted, slot4, spec_params):
                                            replay, n_req, slot4[label])
         for name, c in got.items():
             total[name] += c
+    waves = {}
+
+    def spec_waves():
+        got, out, waves["ref"] = sharded_spec(spec_params, counted)
+        return got, out
     for key, fn in (("paged", lambda: sharded_paged(q8_eng, counted,
                                                     power_w)),
-                    ("speculative", lambda: sharded_spec(spec_params,
-                                                         counted)),
+                    ("speculative", spec_waves),
                     ("tp q8_0", lambda: tp_path("q8_0", q8_eng, counted,
                                                 CB_REQUESTS)),
                     ("tp dense+flash", lambda: tp_path(
@@ -4691,6 +5174,18 @@ def sharded_phase(q8_eng, d_eng, counted, slot4, spec_params):
         got, summary[key] = fn()
         for name, c in got.items():
             total[name] += c
+    t18e = time.perf_counter()
+    for key, fn in (("tp paged q8_0", lambda: tp_paged("q8_0", q8_eng,
+                                                       counted)),
+                    ("tp paged dense+flash", lambda: tp_paged(
+                        "dense+flash", d_eng, counted)),
+                    ("tp spec", lambda: tp_spec(spec_params, counted,
+                                                waves["ref"]))):
+        got, summary[key] = fn()
+        for name, c in got.items():
+            total[name] += c
+    summary["phase_18e_s"] = time.perf_counter() - t18e
+    print(f"sharded phase 18e: {summary['phase_18e_s']:.1f} s", flush=True)
     wall = time.perf_counter() - t0
     summary["phase_s"] = wall
     print(f"sharded phase: {wall:.1f} s; launches {total}", flush=True)

@@ -410,14 +410,17 @@ def zeros_slot_state(cfg: ModelConfig, n_slots: int, frames: int,
 def zeros_paged_state(cfg: ModelConfig, n_slots: int, *, max_pages: int,
                       n_pages: int, page_size: int, n_cross_per_req: int,
                       n_cross_pages: int, cross_page_size: int,
-                      device) -> ServeState:
+                      device, kv_devices=None) -> ServeState:
     """A paged ServeState of zeros: the arenas, block tables and ``(R,
     n_slots)`` lengths of a paged pool (``serve/paging.py``), with
-    ``(n_slots,)`` steps. ``serve_step`` dispatches on its layer state."""
+    ``(n_slots,)`` steps on ``device``; one paged layer state a model
+    shard of ``kv_devices`` where given
+    (``whisper.zeros_paged_decode_state``). ``serve_step`` dispatches on
+    its layer state."""
     st = whisper.zeros_paged_decode_state(
         cfg, n_slots, max_pages, n_pages, page_size, n_cross_per_req,
         n_cross_pages, cross_page_size, dtype=layers.DTYPES[cfg.dtype],
-        device=device)
+        device=device, kv_devices=kv_devices)
     return ServeState(layer_states=st, step=torch.zeros(
         (n_slots,), dtype=torch.int32, device=device))
 
@@ -465,12 +468,13 @@ def slot_view(state: ServeState, lo: int, n: int) -> ServeState:
     views: a data shard's part of a pool, which its program reads and
     writes in place. A paged state's arenas stay whole (its block tables
     hold the arena's own page numbers); its tables, lengths (slot axis 1)
-    and steps are narrowed."""
+    and steps are narrowed, every model shard's alike."""
     ls = state.layer_states
-    if isinstance(ls, whisper.WhisperPagedDecodeState):
-        ls = ls._replace(block_table=ls.block_table.narrow(0, lo, n),
-                         cross_table=ls.cross_table.narrow(0, lo, n),
-                         length=ls.length.narrow(1, lo, n))
+    if whisper.is_paged(ls):
+        ls = map_shards(lambda s: s._replace(
+            block_table=s.block_table.narrow(0, lo, n),
+            cross_table=s.cross_table.narrow(0, lo, n),
+            length=s.length.narrow(1, lo, n)), ls)
     else:
         ls = map_with_path(lambda _, t: t.narrow(0, lo, n), ls)
     return ServeState(layer_states=ls, step=state.step.narrow(0, lo, n))
@@ -550,13 +554,14 @@ def set_slot_lengths(state: ServeState, new_len: torch.Tensor) -> None:
     verify window advanced them by W, the accepted prefix keeps fewer of
     its entries; the entries past ``new_len`` stay (masked, then
     overwritten by the next window). In the paged layout only ``length``
-    and ``step`` rewind: tables and arenas are left as they are (the
-    paged scheduler trims the pages a rejected suffix crossed into). No
-    tensor is created or replaced: a captured program rereads the
-    counters' storage."""
+    (every model shard's) and ``step`` rewind: tables and arenas are left
+    as they are (the paged scheduler trims the pages a rejected suffix
+    crossed into). No tensor is created or replaced: a captured program
+    rereads the counters' storage."""
     ls = state.layer_states
-    if isinstance(ls, whisper.WhisperPagedDecodeState):
-        ls.length.copy_(new_len)                   # broadcast over layers
+    if whisper.is_paged(ls):
+        for s in shard_list(ls):                   # every model shard's
+            s.length.copy_(new_len)                # broadcast over layers
     else:
         for kv in ls.self_kv:
             for c in shard_list(kv):

@@ -14,7 +14,8 @@ each decoder layer's cross K/V is projected once from the encoder memory
 against the cached self-attention KV. Layers are a Python loop over a list
 of per-layer parameter dicts. A paged decode state
 (``WhisperPagedDecodeState``) keeps both KV kinds in page arenas stacked
-over the layers, as the reference does.
+over the layers, as the reference does; over "model" one a model shard
+(``ModelShards``), its arenas of its heads.
 
 A serving engine over "model" (``sharding.rules.serve_tree``) gives each
 block its split attentions' and FFN's slices: the encoder, the cross
@@ -33,9 +34,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers
 from repro_torch.models.attention import (
-    KVCache, ModelShards, PagedKVCache, attention, decode_attention,
-    first_shard, init_attention, map_shards, paged_window_gather,
-    shard_list)
+    KVCache, ModelShards, PagedKVCache, attention, first_shard,
+    init_attention, map_shards, paged_window_gather, shard_list)
 from repro_torch.models.transformer import decode_attn_fn, \
     gather_for_shard, kv_zeros, mlp_fn, remat, shard_layouts, \
     tensor_parallel
@@ -286,22 +286,37 @@ def zeros_paged_decode_state(cfg: ModelConfig, n_slots: int, max_pages: int,
                              n_pages: int, page_size: int,
                              n_cross_per_req: int, n_cross_pages: int,
                              cross_page_size: int, *, device,
-                             dtype=torch.bfloat16) -> WhisperPagedDecodeState:
+                             dtype=torch.bfloat16, kv_devices=None):
     """A paged decode state of zeros on ``device`` (no default): the arenas
     of ``n_pages`` self pages and ``n_cross_pages`` cross pages, and
-    ``n_slots`` table rows all pointing at the trash page."""
-    r, hkv, hd = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
+    ``n_slots`` table rows all pointing at the trash page. With
+    ``kv_devices`` (a serving data shard's model devices, its attention
+    split over them) one such state a model shard (``ModelShards``): its
+    arenas of Hkv / M heads, its own copy of the tables and lengths, on
+    its device; the page numbering is one for all of them."""
+    r, hd = cfg.num_layers, cfg.head_dim
 
-    def zeros(*shape, dt=dtype):
-        return torch.zeros(shape, dtype=dt, device=device)
-    return WhisperPagedDecodeState(
-        self_k=zeros(r, n_pages, page_size, hkv, hd),
-        self_v=zeros(r, n_pages, page_size, hkv, hd),
-        cross_k=zeros(r, n_cross_pages, cross_page_size, hkv, hd),
-        cross_v=zeros(r, n_cross_pages, cross_page_size, hkv, hd),
-        block_table=zeros(n_slots, max_pages, dt=torch.int32),
-        cross_table=zeros(n_slots, n_cross_per_req, dt=torch.int32),
-        length=zeros(r, n_slots, dt=torch.int32))
+    def state(dev, hkv):
+        def zeros(*shape, dt=dtype):
+            return torch.zeros(shape, dtype=dt, device=dev)
+        return WhisperPagedDecodeState(
+            self_k=zeros(r, n_pages, page_size, hkv, hd),
+            self_v=zeros(r, n_pages, page_size, hkv, hd),
+            cross_k=zeros(r, n_cross_pages, cross_page_size, hkv, hd),
+            cross_v=zeros(r, n_cross_pages, cross_page_size, hkv, hd),
+            block_table=zeros(n_slots, max_pages, dt=torch.int32),
+            cross_table=zeros(n_slots, n_cross_per_req, dt=torch.int32),
+            length=zeros(r, n_slots, dt=torch.int32))
+    if kv_devices is None:
+        return state(device, cfg.num_kv_heads)
+    return ModelShards(state(d, cfg.num_kv_heads // len(kv_devices))
+                       for d in kv_devices)
+
+
+def is_paged(layer_states) -> bool:
+    """Whether ``layer_states`` is a paged decode state, whole or one a
+    model shard."""
+    return isinstance(first_shard(layer_states), WhisperPagedDecodeState)
 
 
 def warm_tuning(cfg: ModelConfig, engine, *, n_frames: int = 1500,
@@ -408,15 +423,14 @@ def verify_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     length, scalar (lockstep) or per row (slot layout), as in
     ``decode_step``, which is this function at W = 1. A
     ``WhisperPagedDecodeState`` takes the paged twin."""
-    if isinstance(state, WhisperPagedDecodeState):
+    if is_paged(state):
         return _verify_step_paged(params, cfg, tokens, state, engine=engine)
     x = _embed_window(params, tokens, first_shard(state.self_kv[0]).length)
     return _decoder_stack(params, cfg, x, state, engine=engine)
 
 
 def _paged_stack(params: dict, cfg: ModelConfig, x: torch.Tensor,
-                 state: WhisperPagedDecodeState, *, engine=None
-                 ) -> Tuple[torch.Tensor, WhisperPagedDecodeState]:
+                 state, *, engine=None):
     """The decoder blocks over an embedded, positioned (B, W, d) input on
     the paged state: the self-KV writes and reads go through the block
     table (``PagedKVCache``, layer i on its arena and ``length[i]``
@@ -424,34 +438,39 @@ def _paged_stack(params: dict, cfg: ModelConfig, x: torch.Tensor,
     ``cross_table`` into the contiguous (B, F, Hkv, hd) view. F is a whole
     number of cross pages (a pool invariant), so position t of the
     gathered view is position t of the contiguous one and every token is
-    unchanged."""
-    bt, ct = state.block_table, state.cross_table
+    unchanged. Over "model" (a ``ModelShards`` state), as
+    ``_decoder_stack``: each model shard's attention over its own arenas,
+    tables and lengths, the FFN split where its block holds slices."""
+    attn, mlp = decode_attn_fn(engine), mlp_fn(engine)
+    states = shard_list(state)
     for i, p in enumerate(params["dec_blocks"]):
-        cache = PagedKVCache(state.self_k[i], state.self_v[i], bt,
-                             state.length[i])
+        p, parts, devs = gather_for_shard(p, None, None, None)
+        caches = [PagedKVCache(s.self_k[i], s.self_v[i], s.block_table,
+                               s.length[i]) for s in states]
+        cross = [(paged_window_gather(s.cross_k[i], s.cross_table),
+                  paged_window_gather(s.cross_v[i], s.cross_table))
+                 for s in states]
         h = layers.norm_apply(p["norm1"], x, cfg.norm)
-        mixed, _ = decode_attention(p["self_attn"], cfg, h, cache,
-                                    engine=engine)
-        x = x + mixed.to(x.dtype)
-        memory_kv = (paged_window_gather(state.cross_k[i], ct),
-                     paged_window_gather(state.cross_v[i], ct))
+        x = x + tensor_parallel(attn, p["self_attn"], parts.get("self_attn"),
+                                cfg, devs, h, shard_args=[
+                                    (c,) for c in caches]).to(x.dtype)
         h = layers.norm_apply(p["norm_x"], x, cfg.norm)
-        mixed, _ = decode_attention(p["cross_attn"], cfg, h, cache,
-                                    memory_kv=memory_kv, engine=engine)
-        x = x + mixed.to(x.dtype)
+        x = x + tensor_parallel(attn, p["cross_attn"],
+                                parts.get("cross_attn"), cfg, devs, h,
+                                shard_args=list(zip(caches, cross))
+                                ).to(x.dtype)
         h = layers.norm_apply(p["norm2"], x, cfg.norm)
-        x = x + layers.mlp_apply(p["ffn"], h, cfg.act, engine=engine
-                                 ).to(x.dtype)
+        x = x + tensor_parallel(mlp, p["ffn"], parts.get("ffn"), cfg, devs,
+                                h).to(x.dtype)
     x = layers.norm_apply(params["dec_norm"], x, cfg.norm)
     return layers.unembed(params["embed"], x, engine), state
 
 
 def _verify_step_paged(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
-                       state: WhisperPagedDecodeState, *, engine=None
-                       ) -> Tuple[torch.Tensor, WhisperPagedDecodeState]:
+                       state, *, engine=None):
     """The paged twin of ``verify_step`` (and at W = 1 of ``decode_step``):
     embedding and per-slot positions (the first layer's lengths, clamped
     as the contiguous slot step clamps them), then the paged stack, whose
     self-KV writes scatter the W entries through the block table."""
-    x = _embed_window(params, tokens, state.length[0])
+    x = _embed_window(params, tokens, first_shard(state).length[0])
     return _paged_stack(params, cfg, x, state, engine=engine)

@@ -117,9 +117,11 @@ runs whole there, with the reason those functions give. The programs
 run each split sub-block over the data shard's model shards
 (``models/transformer.py``), each attention over its own KV cache slice
 (``_kv_devices``); on the card a data shard's model shards share its one
-captured graph, and a data shard over distinct cards is refused. Paged
-and speculative serving over ``model > 1`` raise
-``NotImplementedError`` (ROADMAP item 14b).
+captured graph, and a data shard over distinct cards is refused. The
+paged pool splits its page arenas the same way (``serve/paging.py``),
+and a speculative draft engine shares the verifier's mesh, placing its
+own tree: the two models may hold different layouts (whisper-tiny's 6
+heads whole on four model shards beside whisper-base's 8 split).
 
 Token contract: ``GenerationResult.tokens`` holds exactly the ``steps``
 tokens the request generated — the SOT seed token and an LM's prompt are
@@ -998,12 +1000,11 @@ class ServeEngine:
         its ``max_len`` and ``eos_id``. With an offload engine attached,
         the draft's has the same burst and budget and shares this engine's
         ledger: one ledger for two models, its FLOPs split by role. On a
-        mesh the draft shares it. The reference pins its draft to its
-        plain backend; the port has none
-        on a card, so its draft runs on the Hopper kernels too
-        (``bf16_matmul``)."""
+        mesh the draft shares it and places its own serving tree (its
+        attention split or whole by its own widths). The reference pins
+        its draft to its plain backend; the port has none on a card, so
+        its draft runs on the Hopper kernels too (``bf16_matmul``)."""
         from repro_torch.serve.speculative import SpeculativeEngine
-        self._refuse_model_axis("speculative serving")
         draft_offload = None
         if self.offload is not None:
             draft_offload = OffloadEngine(
@@ -1026,17 +1027,8 @@ class ServeEngine:
         ``n_cross_pages``) is the workload's and the caller owns the
         instance; ``scheduler()`` stays the contiguous path."""
         from repro_torch.serve.paging import PagedScheduler
-        self._refuse_model_axis("a paged pool")
         return PagedScheduler(self, n_slots=n_slots, n_frames=n_frames,
                               **page_cfg)
-
-    def _refuse_model_axis(self, what: str) -> None:
-        """``NotImplementedError`` for ``what`` over a mesh with "model"
-        above 1: not in this slice."""
-        if self.mesh is not None and self.mesh.shape.get("model", 1) > 1:
-            raise NotImplementedError(
-                f"{what} over a mesh with model={self.mesh.shape['model']} "
-                "is not ported (ROADMAP item 14b)")
 
     def submit(self, prompt, max_new: int = 32, *,
                n_slots: Optional[int] = None) -> int:

@@ -65,6 +65,19 @@ hand a slot a page of another shard, and prefix sharing attaches another
 slot's cross pages: a program a device could not read those across
 devices, so a paged pool over distinct physical devices raises
 ``NotImplementedError`` (ROADMAP item 14b).
+
+Over "model" (the engine's ``_kv_devices``: its attention split over a
+data shard's model devices) the state is one paged layer state a model
+shard (``ModelShards``), each with its arenas of Hkv / M heads and its
+copy of the block and cross tables and lengths, on its model device; a
+data shard's paged step runs its model shards inside its one program
+(``whisper._paged_stack``). The page allocators stay single: a page id
+is the same page in every shard's arena, and ``sync``, ``paged_insert``,
+``paged_attach`` and ``paged_copy_page`` write every shard alike, so the
+tables and lengths stay equal. ``page_bytes`` sums the shards' arenas
+and the committed bytes count the mirrored tables once, so requests per
+committed byte are the unsharded pool's. Where attention runs whole the
+state is whole on the data shard's first device.
 """
 from __future__ import annotations
 
@@ -81,6 +94,7 @@ from repro_torch import obs
 from repro_torch.configs.base import ModelConfig
 from repro_torch.launch.mesh import physical_device
 from repro_torch.models import model as model_lib
+from repro_torch.models.attention import first_shard, shard_list
 from repro_torch.models.model import ServeState
 from repro_torch.serve.engine import ServeEngine, _sync
 from repro_torch.serve.kvcache import spec_shards
@@ -207,41 +221,52 @@ def paged_insert(state: ServeState, slot: int, bt_row, ct_row,
     which absorbs them), the tail page zero-padded; ``write_cross`` gates
     the cross-KV copy (False on a prefix-share hit, whose pages already
     hold it). The slot's lengths take the request's first-layer length and
-    its step the request's. ``bt_row``/``ct_row`` are host integers."""
-    ls, wd = state.layer_states, req.layer_states
-    ps = ls.self_k.shape[2]
-    s_req = wd.self_kv[0].k.shape[1]
-    n = min(len(bt_row), -(-s_req // ps))
-    for arena, parts in ((ls.self_k, [kv.k for kv in wd.self_kv]),
-                         (ls.self_v, [kv.v for kv in wd.self_kv])):
-        rows = torch.stack([t[0] for t in parts])       # (R, S, Hkv, hd)
-        if n * ps > s_req:
-            rows = torch.cat([rows, rows.new_zeros(
-                (rows.shape[0], n * ps - s_req, *rows.shape[2:]))], dim=1)
-        _write_pages(arena, rows[:, :n * ps], bt_row[:n])
-    if write_cross:
-        for arena, parts in ((ls.cross_k, [k for k, _ in wd.cross_kv]),
-                             (ls.cross_v, [v for _, v in wd.cross_kv])):
-            _write_pages(arena, torch.stack([t[0] for t in parts]), ct_row)
-    ls.length[:, slot] = wd.self_kv[0].length.reshape(())
+    its step the request's. ``bt_row``/``ct_row`` are host integers. Over
+    "model" (a ``ModelShards`` paged state; the request's caches, from
+    the same engine, split alike) model shard m's arenas take the
+    request's shard m heads, at the same pages, and every shard's lengths
+    the same length."""
+    shards, wd = shard_list(state.layer_states), req.layer_states
+    for m, ls in enumerate(shards):
+        self_kv = [shard_list(kv)[m] for kv in wd.self_kv]
+        ps = ls.self_k.shape[2]
+        s_req = self_kv[0].k.shape[1]
+        n = min(len(bt_row), -(-s_req // ps))
+        for arena, parts in ((ls.self_k, [kv.k for kv in self_kv]),
+                             (ls.self_v, [kv.v for kv in self_kv])):
+            rows = torch.stack([t[0] for t in parts])   # (R, S, Hkv, hd)
+            if n * ps > s_req:
+                rows = torch.cat([rows, rows.new_zeros(
+                    (rows.shape[0], n * ps - s_req, *rows.shape[2:]))],
+                    dim=1)
+            _write_pages(arena, rows[:, :n * ps], bt_row[:n])
+        if write_cross:
+            cross = [shard_list(kv)[m] for kv in wd.cross_kv]
+            for arena, parts in ((ls.cross_k, [k for k, _ in cross]),
+                                 (ls.cross_v, [v for _, v in cross])):
+                _write_pages(arena, torch.stack([t[0] for t in parts]),
+                             ct_row)
+        ls.length[:, slot] = self_kv[0].length.reshape(())
     state.step[slot] = req.step.reshape(())
 
 
 def paged_attach(state: ServeState, slot: int) -> None:
-    """Zero ``slot``'s lengths and step: the whole device-side cost of
-    admitting a prefix-share hit (its cross pages already hold the right
-    values; its first self page starts empty)."""
-    state.layer_states.length[:, slot] = 0
+    """Zero ``slot``'s lengths (every model shard's) and step: the whole
+    device-side cost of admitting a prefix-share hit (its cross pages
+    already hold the right values; its first self page starts empty)."""
+    for ls in shard_list(state.layer_states):
+        ls.length[:, slot] = 0
     state.step[slot] = 0
 
 
 def paged_copy_page(state: ServeState, src: int, dst: int) -> None:
     """Copy-on-write split: self-KV physical page ``src`` copied into
-    ``dst`` (all layers, K and V), so that the writer's table can point at
-    a private page while every other holder keeps reading ``src``."""
-    ls = state.layer_states
-    for arena in (ls.self_k, ls.self_v):
-        arena[:, dst] = arena[:, src]
+    ``dst`` (all layers, K and V, every model shard's arenas), so that the
+    writer's table can point at a private page while every other holder
+    keeps reading ``src``."""
+    for ls in shard_list(state.layer_states):
+        for arena in (ls.self_k, ls.self_v):
+            arena[:, dst] = arena[:, src]
 
 
 def _mel_digest(payload: np.ndarray) -> str:
@@ -264,14 +289,17 @@ class PagedKVPool:
     preemptions are host edits. The state (``model.zeros_paged_state``) is
     built once on ``device`` (which the caller names) and never replaced.
     ``mesh`` shards the slots and the arenas' page ranges (the module's
-    docstring).
+    docstring); ``kv_devices`` (the model devices the engine's attention
+    splits over, None where it runs whole) gives each model shard its
+    own arenas of Hkv / M heads and its copy of the tables and lengths.
     """
 
     def __init__(self, cfg: ModelConfig, n_slots: int, max_len: int,
                  n_frames: Optional[int] = None, *, page_size: int = 8,
                  n_pages: Optional[int] = None,
                  cross_page_size: Optional[int] = None,
-                 n_cross_pages: Optional[int] = None, device, mesh=None):
+                 n_cross_pages: Optional[int] = None, device, mesh=None,
+                 kv_devices: Optional[tuple] = None):
         if cfg.family != "audio":
             raise NotImplementedError(
                 "PagedKVPool currently serves the audio family only; LM "
@@ -314,13 +342,16 @@ class PagedKVPool:
             cfg, n_slots, max_pages=self.max_pages, n_pages=n_pages,
             page_size=page_size, n_cross_per_req=self.n_cross_per_req,
             n_cross_pages=n_cross_pages, cross_page_size=cross_page_size,
-            device=device)
-        ls = self.state.layer_states
+            device=device, kv_devices=kv_devices)
+        # one paged layer state a model shard (one, whole, where
+        # attention runs whole)
+        self.model_states = shard_list(self.state.layer_states)
         # the shards are the state's spec tree's: the slots' (block
-        # tables) and each arena's page ranges
+        # tables) and each arena's page ranges, every model shard's alike
         self.n_shards = page_shards = cross_shards = 1
         if mesh is not None:
-            specs = paged_state_specs(self.state, mesh).layer_states
+            specs = first_shard(paged_state_specs(self.state,
+                                                  mesh).layer_states)
             self.n_shards = spec_shards(specs.block_table, 0, mesh)
             page_shards = spec_shards(specs.self_k, 1, mesh)
             cross_shards = spec_shards(specs.cross_k, 1, mesh)
@@ -328,10 +359,14 @@ class PagedKVPool:
         dev = physical_device(device)
         self.devices = [dev]
         self.shard_devices = [dev] * self.n_shards
-        self.page_bytes = 2 * ls.self_k[:, 0].numel() * \
-            ls.self_k.element_size()
-        self.cross_page_bytes = 2 * ls.cross_k[:, 0].numel() * \
-            ls.cross_k.element_size()
+        # a page's bytes over every model shard's arena: a page id is one
+        # page in each, so the whole model's page
+        self.page_bytes = sum(2 * ls.self_k[:, 0].numel()
+                              * ls.self_k.element_size()
+                              for ls in self.model_states)
+        self.cross_page_bytes = sum(2 * ls.cross_k[:, 0].numel()
+                                    * ls.cross_k.element_size()
+                                    for ls in self.model_states)
 
         self.states = {dev: self.state}
         self.shard_states: List[ServeState] = [
@@ -513,12 +548,14 @@ class PagedKVPool:
         when they changed: once before a decode step, however many edits
         came between steps. The copy is from pageable memory, which
         returns once the copy is done, so the host may edit its tables
-        right after."""
+        right after. Every model shard's tables take the same rows: one
+        page numbering for all of them."""
         if not self._dirty:
             return
-        ls = self.state.layer_states
-        ls.block_table.copy_(torch.from_numpy(self._bt))
-        ls.cross_table.copy_(torch.from_numpy(self._ct))
+        bt, ct = torch.from_numpy(self._bt), torch.from_numpy(self._ct)
+        for ls in self.model_states:
+            ls.block_table.copy_(bt)
+            ls.cross_table.copy_(ct)
         self._dirty = False
 
     def insert(self, slot: int, req_state: ServeState,
@@ -536,7 +573,16 @@ class PagedKVPool:
 
     # -- memory accounting -----------------------------------------------------
     def committed_kv_bytes(self) -> int:
-        return model_lib.state_kv_bytes(self.state)
+        """The state's bytes: every model shard's arenas, and the tables,
+        lengths and steps once. Model shards past the first hold copies
+        of the first's tables and lengths (one page numbering, one
+        position a slot), which are not KV memory: the count is the
+        unsharded pool's wherever the heads divide."""
+        extra = sum(model_lib.state_kv_bytes(
+            (ls.self_k, ls.self_v, ls.cross_k, ls.cross_v))
+            for ls in self.model_states[1:])
+        return extra + model_lib.state_kv_bytes(self.state._replace(
+            layer_states=self.model_states[0]))
 
     def used_kv_bytes(self, lengths=None) -> int:
         """Allocated pages times page bytes: exact by construction.
@@ -613,7 +659,9 @@ class PagedScheduler(ContinuousBatchingScheduler):
         eng = self.engine
         return PagedKVPool(eng.cfg, self.n_slots, eng.max_len,
                            n_frames=self.n_frames, device=eng.device,
-                           mesh=eng.mesh, **self._page_cfg)
+                           mesh=eng.mesh,
+                           kv_devices=eng._kv_devices.get(eng._phys),
+                           **self._page_cfg)
 
     def _make_step_key(self):
         return self.engine._key("step", self.n_slots, self.n_frames,

@@ -60,7 +60,11 @@ A serving mesh (the verifier's, which ``ServeEngine.speculative`` shares
 with the draft), as the reference serves one: the one-shot
 ``SpeculativeEngine.transcribe`` splits its batch over the data shards,
 one draft step and verify window captured a shard, the round's plans
-committed once, and ``SpecScheduler``'s waves run through it. The round
+committed once, and ``SpecScheduler``'s waves run through it. Over
+"model" each engine runs its split blocks over the data shard's model
+shards by its own widths (the draft's attention may run whole where the
+verifier's splits), each its own ``ModelShards`` caches, which the
+rollback (``model.set_slot_lengths``) rewinds shard by shard. The round
 schedulers (``SpecContinuousScheduler``, ``PagedSpecScheduler``) are
 single-device and refuse a mesh, as the reference's do.
 """

@@ -833,9 +833,13 @@ def _map_specs(fn: Callable[[P], Any], specs):
 def paged_state_specs(state, mesh):
     """Specs of a paged serve state: the page arenas shard their page axis
     over "data" (pages are the unit of KV memory), the block tables and
-    counters the slot axis. Structural by leaf name, divisibility-checked
-    per leaf. The port's paged state stacks its layers as the reference's
-    does, so the specs are the reference's."""
+    counters the slot axis; nothing splits over "model", as in the
+    reference. Structural by leaf name, divisibility-checked per leaf.
+    The port's paged state stacks its layers as the reference's does, so
+    the specs are the reference's. A state split over "model" (one paged
+    state a model shard, its arenas of Hkv / M heads, where the serving
+    tree's attention is split: ``attention_split``) gets each shard the
+    same specs, so that ``spec_bytes`` counts every shard's arenas."""
     dsize = _axis_size(mesh, "data")
 
     def leaf(path, x):
@@ -1044,8 +1048,8 @@ def _serve_block(cfg, blocks: list, specs: dict, mesh, devices) -> dict:
 
 def attention_split(tree) -> bool:
     """Whether a serving tree's attention runs split over "model" (its
-    KV caches then split by their heads): every attention block alike,
-    since they share their widths."""
+    KV caches, cross K/V and page arenas then split by their heads):
+    every attention block alike, since they share their widths."""
     for path in tree_lib.LAYER_LISTS:
         blocks = tree
         for k in path:

@@ -68,6 +68,7 @@ from repro_torch.launch import serve as serve_cli
 from repro_torch.launch.mesh import (
     abstract_mesh, make_production_mesh, make_serve_mesh, make_smoke_mesh)
 from repro_torch.models import model
+from repro_torch.models.attention import ModelShards
 from repro_torch.serve.engine import ServeEngine
 from repro_torch.serve.kvcache import SlotKVPool
 from repro_torch.serve.paging import PagedKVPool
@@ -978,8 +979,11 @@ def test_moe_drop_case_over_ragged_arrivals_is_the_reference_sharded():
 # refusals, telemetry and the CLI
 # ---------------------------------------------------------------------------
 def test_refusals_name_item_14b():
-    """What this slice still refuses: a paged pool over distinct
-    devices, and a paged pool or speculative serving over model > 1."""
+    """What is still refused: a paged pool whose data shards lie on
+    distinct devices, and an abstract mesh. Over model > 1 the paged pool
+    and speculative serving build (``tests/test_torch_serve_tp_paged.py``
+    holds their tokens), while the speculative round schedulers refuse
+    any mesh, as the reference's do."""
     _, _, tcfg, tp = _smoke("whisper-tiny")
     mesh = make_serve_mesh(devices=[torch.device("cpu", i)
                                     for i in range(4)])
@@ -990,10 +994,14 @@ def test_refusals_name_item_14b():
         ServeEngine(tcfg, tp, device="cpu",
                     mesh=abstract_mesh((2, 1), ("data", "model")))
     tp_eng = ServeEngine(tcfg, tp, device="cpu", mesh=_cpu_mesh(1, 2))
-    with pytest.raises(NotImplementedError, match="14b"):
-        tp_eng.paged_scheduler(4, F, page_size=4)
-    with pytest.raises(NotImplementedError, match="14b"):
-        tp_eng.speculative(tcfg, tp, k=2)
+    sched = tp_eng.paged_scheduler(4, F, page_size=4)
+    assert isinstance(sched.pool.state.layer_states, ModelShards)
+    spec = tp_eng.speculative(tcfg, tp, k=2)
+    assert spec.draft.mesh is tp_eng.mesh
+    for make in (lambda: spec.continuous(2, F),
+                 lambda: spec.paged(2, F, page_size=4)):
+        with pytest.raises(NotImplementedError, match="single-device"):
+            make()
 
 
 def test_cli_refuses_speculative_on_a_mesh(capsys):

@@ -5,7 +5,9 @@ devices=[cuda:0] * n)``). The whisper-tiny smoke config's tokens over a
 step key is built once and captured once a shard, then only replayed; a
 shard's row is bit for bit a batch-1 step's; the paged pool at data 4
 gives the unsharded paged pool's tokens; over (data, model) meshes of
-the card, tensor parallelism gives the unsharded tokens; a MoE step
+the card, tensor parallelism gives the unsharded tokens, the slot pool's
+and the paged pool's, whose split rows keep their bits at any
+occupancy; a MoE step
 whose capacity claim spans the data shards runs as one program over the
 pool, to the unsharded tokens; a shard capture that fails raises, and
 nothing falls back.
@@ -165,6 +167,70 @@ def test_tensor_parallel_serving_matches_unsharded(path, sizes):
     assert eng._step_captures == data and eng._step_builds == 1
     got = eng.transcribe(mels[0], max_new=budgets[0])[0].tokens
     assert got == want[0]
+
+
+def _tp_mesh(data, m):
+    return make_serve_mesh(data, m,
+                           devices=[torch.device("cuda:0")] * (data * m))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sizes", [(1, 2), (2, 2)])
+def test_paged_pool_over_model_matches_unsharded(sizes):
+    """The paged pool over (data, model) meshes of the card: each model
+    shard's arenas hold its Hkv / M heads, its model shards run in the
+    data shard's one captured paged step; tokens equal the unsharded
+    paged pool's (Q8_0), through prefix hits and preemptions; one paged
+    step capture a data shard and the batch-1 step (replays), then no
+    launch from Python."""
+    dev = _cuda_or_skip()
+    one = _engine(dev)
+    mels, budgets = _trace(one.cfg)
+    order = (0, 1, 0, 1, 2, 3, 4, 5, 2)     # repeats while the first live
+    trace = [mels[i] for i in order]
+    news = [budgets[i] for i in order]
+    geom = dict(page_size=4, n_pages=6)
+    want = _drain(one.paged_scheduler(4, F, **geom), trace, news)
+    data, m = sizes
+    eng = _engine(dev, mesh=_tp_mesh(data, m))
+    sched = eng.paged_scheduler(4, F, **geom)
+    assert _drain(sched, trace, news) == want
+    assert sched.shared_hits > 0 and sched.preemptions > 0
+    ls = sched.pool.state.layer_states
+    assert len(ls) == m and ls[0].self_k.shape[3] == eng.cfg.num_kv_heads // m
+    assert eng._step_captures == data + 1 and eng._step_builds == 2
+    launches = _launches()
+    assert _drain(sched, trace, news) == want
+    assert _launches() == launches and eng._step_captures == data + 1
+
+
+@pytest.mark.gpu
+def test_a_paged_row_over_model_is_the_same_at_1_and_4_slots():
+    """The batch rule over "model": a request's K and V in every model
+    shard's arena after three paged steps over (1, 2) are bit for bit the
+    same whether it runs alone or beside three other requests."""
+    dev = _cuda_or_skip()
+    mels, _ = _trace(get_smoke_config("whisper-tiny"))
+
+    def entries(others):
+        eng = _engine(dev, mesh=_tp_mesh(1, 2))
+        sched = eng.paged_scheduler(4, F, page_size=4, n_pages=17)
+        for mel in mels[1:1 + others]:
+            sched.submit(mel, max_new=8)
+        rid = sched.submit(mels[0], max_new=8)
+        sched.admit()
+        slot = next(s for s, a in sched._active.items() if a.rid == rid)
+        for _ in range(3):
+            sched.decode_step()
+        torch.cuda.synchronize()
+        pool = sched.pool
+        pages = torch.tensor(pool.slot_pages(slot), device=dev)
+        out = [torch.cat([s.self_k[:, pages], s.self_v[:, pages]]).clone()
+               for s in pool.model_states]
+        assert int(pool.model_states[1].length[0, slot]) == 3
+        return out
+    alone, beside = entries(0), entries(3)
+    assert all(torch.equal(a, b) for a, b in zip(alone, beside))
 
 
 @pytest.mark.gpu
